@@ -1,0 +1,139 @@
+"""K1 in the PyTorch port (lunaris_orion_tpu_torch/ops/cuda/gn_mish.py):
+its plain version against the JAX package's Pallas kernel
+`group_norm_mish_pallas` (interpret mode on the CPU) and the wrapper's
+device contract. The kernel itself is held against its plain version on a
+CUDA card by tests/test_torch_kernels.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lunaris_orion_tpu.ops import layers as jlayers
+from lunaris_orion_tpu.ops.pallas.gn_mish import group_norm_mish_pallas
+from lunaris_orion_tpu_torch.ops import layers
+from lunaris_orion_tpu_torch.ops.cuda import _build
+from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+
+
+def _inputs(shape, seed, *, mean=0.0, std=1.0):
+    r = np.random.default_rng(seed)
+    c = shape[-1]
+    x = (mean + std * r.standard_normal(shape)).astype(np.float32)
+    scale = (1.0 + 0.1 * r.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * r.standard_normal(c)).astype(np.float32)
+    return x, scale, bias
+
+
+def _jax(x, scale, bias, groups=8):
+    return np.asarray(group_norm_mish_pallas(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups=groups))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32), (2, 8, 8, 64),
+                                   (1, 8, 8, 256)])
+def test_plain_matches_pallas(shape):
+    x, scale, bias = _inputs(shape, seed=sum(shape))
+    got = k1.gn_mish_plain(torch.from_numpy(x), torch.from_numpy(scale),
+                           torch.from_numpy(bias), groups=8)
+    # f32 on both sides; the sums run in different orders, so the stats
+    # differ in the last bits: atol 1e-5 / rtol 1e-4.
+    np.testing.assert_allclose(got.numpy(), _jax(x, scale, bias),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_variance_clamp_large_mean():
+    """|mean| >> std: E[x^2] - mean^2 cancels and goes negative in f32 for
+    some groups, which only the clamp at 0 keeps finite. With gamma = 0 the
+    exact output is mish(beta), whatever the garbage variance."""
+    shape = (1, 8, 8, 64)
+    x, _, bias = _inputs(shape, seed=3, mean=1000.0, std=1e-3)
+    scale = np.zeros(shape[-1], np.float32)
+    xt = torch.from_numpy(x)
+    s1 = xt.mean(dim=(1, 2)).reshape(1, 8, 8).mean(-1)
+    s2 = xt.square().mean(dim=(1, 2)).reshape(1, 8, 8).mean(-1)
+    assert (s2 - s1.square() < 0).any(), "input no longer hits the clamp"
+    got = k1.gn_mish_plain(xt, torch.from_numpy(scale),
+                           torch.from_numpy(bias)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _jax(x, scale, bias), atol=1e-5,
+                               rtol=1e-4)
+    expect = torch.nn.functional.mish(torch.from_numpy(bias)).numpy()
+    np.testing.assert_allclose(got, np.broadcast_to(expect, shape),
+                               atol=1e-6, rtol=1e-6)
+
+
+def test_layer_matches_plain_on_nchw_channels_last():
+    """ops.layers.group_norm_mish on a channels_last NCHW tensor is K1 on
+    its NHWC view, returned as channels_last NCHW."""
+    x, scale, bias = _inputs((2, 8, 8, 32), seed=5)
+    nchw = torch.from_numpy(x).permute(0, 3, 1, 2)
+    assert nchw.is_contiguous(memory_format=torch.channels_last)
+    y = layers.group_norm_mish(nchw, torch.from_numpy(scale),
+                               torch.from_numpy(bias), groups=8)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    ref = k1.gn_mish_plain(torch.from_numpy(x), torch.from_numpy(scale),
+                           torch.from_numpy(bias))
+    torch.testing.assert_close(y.permute(0, 2, 3, 1), ref, atol=0, rtol=0)
+
+
+def test_group_norm_matches_jax_layer():
+    """ops.layers.group_norm (no mish) on NCHW against the JAX package's
+    layers.group_norm on the same NHWC values."""
+    x, scale, bias = _inputs((2, 8, 8, 32), seed=8, mean=3.0)
+    want = np.asarray(jlayers.group_norm(
+        {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+        jnp.asarray(x), groups=8))
+    got = layers.group_norm(torch.from_numpy(x).permute(0, 3, 1, 2),
+                            torch.from_numpy(scale), torch.from_numpy(bias),
+                            groups=8)
+    # f32, sums in different orders: atol 1e-5 / rtol 1e-4
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_bf16_plain_casts_once():
+    """bf16 input: f32 arithmetic and one cast, i.e. the f32 result of the
+    bf16 values rounded to bf16 (exact equality)."""
+    x, scale, bias = _inputs((1, 8, 8, 32), seed=6)
+    xb = torch.from_numpy(x).bfloat16()
+    got = k1.gn_mish_plain(xb, torch.from_numpy(scale), torch.from_numpy(bias))
+    ref = k1.gn_mish_plain(xb.float(), torch.from_numpy(scale),
+                           torch.from_numpy(bias)).bfloat16()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def test_cpu_tensor_takes_plain_version_and_does_not_count():
+    x, scale, bias = _inputs((1, 8, 8, 32), seed=7)
+    before = k1.launches
+    y = k1.gn_mish(torch.from_numpy(x), torch.from_numpy(scale),
+                   torch.from_numpy(bias))
+    assert k1.launches == before
+    torch.testing.assert_close(y, k1.gn_mish_plain(
+        torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias)))
+
+
+def test_other_device_raises():
+    x = torch.empty(1, 8, 8, 32, device="meta")
+    w = torch.empty(32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.gn_mish(x, w, w)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """The kernel modules import without nvcc or a card; an explicit build
+    without nvcc names what is missing."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_ROOTS", ())
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_build_dir_tracks_source_content():
+    d = _build.build_dir()
+    assert d.parent == _build.BUILD_ROOT
+    assert [p.name for p in _build.sources()] == [
+        "flash_attention_fwd.cu", "gn_mish.cu"]
+    assert d == _build.build_dir()
