@@ -7,17 +7,39 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc;
   3. K1       GroupNorm+Mish kernel against its plain version at the four
-              decoder shapes, batch 8, f32 and bf16;
+              decoder shapes, batch 8, f32 and bf16, and on the inputs of
+              the 16 sites of a batch-16 VAE training forward (the train
+              step's own), f32 and bf16;
   4. K2       flash-attention forward kernel against its plain version at
               the teacher's shape (B 8, H 8, N 16384, d 16) with dropout 0
-              and 0.1, f32 and bf16, and at d 8/48/64 and a ragged N;
+              and 0.1, f32 and bf16, at the train step's B 16 with dropout
+              0.1, and at d 8/48/64 and a ragged N;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
               counts must be above 0; decode+score sprites/s;
   6. context  a 64 px config (N = 4096) through the port on the CPU (plain
               versions) and on the card (kernels) from one checkpoint and
-              one z, TF32 off: decode within 1/255, quality within 1e-3.
+              one z, TF32 off: decode within 1/255, quality within 1e-3;
+  7. K2 bwd   both backward variants (fused; split = dk/dv + dq kernels)
+              against the plain backward at B 2, H 8, N 16384, d 16,
+              dropout 0 and 0.1, f32 and bf16, at d 8/48/64, with a q
+              shard at q_offset, and at the teacher's training shape (B 16,
+              H 8, N 16384, d 16, dropout 0.1), f32 and bf16, where it also
+              times both and the plain version;
+  8. K3       the MSE+KL kernel against its plain version at
+              [16, 128, 128, 3], L = 256, f32 and bf16;
+  9. grads    one `train_step` of a 64 px config (N = 4096) on the CPU
+              (plain versions) and on the card (kernels) from one state,
+              one batch and one eps, dropout 0, TF32 off: gradients,
+              BatchNorm statistics and metrics agree, and every parameter
+              that the losses reach gets a non-zero gradient on the card;
+ 10. train    `make_train_step` at the full default width (128 px, latent
+              256, feature 128, 8 heads, 4 experts x 3 blocks, batch 16,
+              accumulation 2, remat), seeded random init: 2 bf16 steps and
+              1 f32 step with the default K2 backward, 1 bf16 step with the
+              other; losses finite, both models' parameters changed, every
+              kernel of the path launched; step time and sprites/s.
 
 Kernel times are medians of CUDA-event timings. The last two lines are a
 JSON object with the kernels' measurements and, last, the result:
@@ -28,6 +50,7 @@ Without a CUDA card it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -128,6 +151,60 @@ def check_k1(torch, dev) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_k1_train(torch, dev) -> float:
+    """K1 at the train step's own sites: the inputs that a training forward
+    of the default VAE (batch 16, encoder and decoder) gives each GroupNorm
+    site, in f32 and bf16, held against the plain version."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    from lunaris_orion_tpu_torch.train.step import normalize_images
+
+    cfg = TrainConfig()
+    vae = LunarisCoreVAE(cfg.vae_config())
+    vae.reset_parameters(torch.Generator().manual_seed(10))
+    vae.to(dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    images = torch.randint(0, 256, (cfg.batch_size, cfg.image_size,
+                                    cfg.image_size, 3), dtype=torch.uint8,
+                           device=dev, generator=g)
+    calls, kernel = [], k1.gn_mish
+
+    def record(x, w, b, *, groups=8, eps=1e-5):
+        calls.append((x.clone(), w.clone(), b.clone(), groups, eps))
+        return kernel(x, w, b, groups=groups, eps=eps)
+    k1.gn_mish = record
+    try:
+        with torch.no_grad():
+            for dt in (torch.float32, torch.bfloat16):
+                vae(normalize_images(images, dt), g)
+    finally:
+        k1.gn_mish = kernel
+    worst = 0.0
+    for x, w, b, groups, eps in calls:
+        got = k1.gn_mish(x, w, b, groups=groups, eps=eps)
+        ref = k1.gn_mish_plain(x, w, b, groups=groups, eps=eps)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if x.dtype == torch.float32:
+            ok = err.max().item() <= 1e-5
+            worst = max(worst, err.max().item())
+        else:
+            ok = bool((err <= 2 * bf16_ulp(torch, ref) + 1e-6).all())
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain version at the "
+                                 f"train site {tuple(x.shape)} {x.dtype}")
+    shapes = sorted({tuple(c[0].shape) for c in calls}, key=lambda s: -s[1])
+    log(f"[K1 train] {len(calls)} sites of a batch-{cfg.batch_size} VAE "
+        f"training forward (f32 and bf16) agree with the plain version "
+        f"(f32 max_abs_err {worst:.3e}, tol 1e-5; bf16 2 ulps); shapes "
+        f"{shapes}")
+    if len(calls) != 2 * 16:
+        raise AssertionError(f"expected 16 K1 sites per forward, got "
+                             f"{len(calls) // 2}")
+    return worst
+
+
 def check_k2(torch, dev) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     g = torch.Generator(device=dev).manual_seed(1)
@@ -135,6 +212,9 @@ def check_k2(torch, dev) -> dict:
     cases = [(8, 8, 16384, 16, dt, rate) for dt in (torch.float32,
                                                      torch.bfloat16)
              for rate in (0.0, 0.1)]
+    # The train step's shape: B 16 (the batch), dropout 0.1.
+    cases += [(16, 8, 16384, 16, dt, 0.1) for dt in (torch.float32,
+                                                     torch.bfloat16)]
     cases += [(8, 8, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
     cases += [(8, 8, 4096, 64, torch.bfloat16, 0.0),
               (4, 8, 2000, 16, torch.float32, 0.1)]
@@ -233,7 +313,7 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
 
 def run_context(torch, tmp: Path) -> None:
     from lunaris_orion_tpu_torch import TrainConfig
-    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
 
     # 64 px, 2 experts, feature_dim 64 (head_dim 8): N = 4096 > 1024 runs K2.
     cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=64,
@@ -243,13 +323,12 @@ def run_context(torch, tmp: Path) -> None:
     z = torch.randn(2, cfg.latent_dim, generator=torch.Generator().manual_seed(2))
     # TF32 off for this comparison (the generator's f32 mode turns it off
     # too): cuDNN's default TF32 convolutions would break both bars.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
-    for dev in ("cpu", "cuda"):
-        gen = ImageGenerator(str(ckpt), device=dev)
-        imgs, quality, _ = gen.decode_and_score(z.to(dev))
-        res[dev] = (imgs.cpu(), quality.cpu())
+    with full_f32():
+        for dev in ("cpu", "cuda"):
+            gen = ImageGenerator(str(ckpt), device=dev)
+            imgs, quality, _ = gen.decode_and_score(z.to(dev))
+            res[dev] = (imgs.cpu(), quality.cpu())
     d_img = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
     d_q = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
     log(f"[context] 64 px, TF32 off, CPU plain vs card kernels: decode max "
@@ -257,6 +336,330 @@ def run_context(torch, tmp: Path) -> None:
         f"{d_q:.3e} (bar 1e-3)")
     if d_img > 1 / 255 or d_q > 1e-3:
         raise AssertionError("kernels in context disagree with the CPU run")
+
+
+BWD_ERR = ("dq", "dk", "dv", "dbias")
+
+
+def bwd_tol(torch, ref, dtype, name) -> float:
+    """f32: 1e-4 of the largest magnitude (sums of up to N terms in other
+    orders, the fused dq's atomics in any order); bf16: 2 bf16 ulps there
+    (ds and p are rounded per term); dbias is f32 in both."""
+    scale = ref.float().abs().max().item()
+    if dtype == torch.float32 or name == "dbias":
+        return 1e-4 * scale + 1e-6
+    return 2 * 2.0 ** -7 * scale
+
+
+def check_k2_bwd(torch, dev, smi) -> dict:
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    g = torch.Generator(device=dev).manual_seed(3)
+    errs = {"fused": 0.0, "dkv": 0.0, "dq": 0.0}
+
+    def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
+        q = torch.randn(b, h, nq, d, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(b, h, nk, d, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        bias = 0.5 * torch.randn(h, nk, generator=g, device=dev)
+        do = torch.randn(b, h, nq, d, generator=g, device=dev).to(dt)
+        kw = dict(dropout_rate=rate, seed=-1234567, q_offset=q_offset)
+        o, lse = k2.attention_plain(q, k, v, bias, **kw)
+        return (q, k, v, bias, o, lse, do), kw
+
+    cases = [(2, 8, 16384, 16, dt, rate) for dt in (torch.float32,
+                                                    torch.bfloat16)
+             for rate in (0.0, 0.1)]
+    cases += [(2, 8, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
+    cases += [(2, 8, 4096, 64, torch.bfloat16, 0.1)]
+    for b, h, n, d, dt, rate in cases:
+        args, kw = inputs(b, h, n, n, d, dt, rate)
+        ref = k2.attention_bwd_plain(*args, **kw)
+        line = []
+        for variant in k2.BWD_VARIANTS:
+            got = k2.flash_attention_bwd(*args, variant=variant, **kw)
+            torch.cuda.synchronize()
+            for name, a, r in zip(BWD_ERR, got, ref):
+                err = (a.float() - r.float()).abs().max().item()
+                tol = bwd_tol(torch, r, dt, name)
+                line.append(f"{variant}.{name} {err:.2e}/{tol:.1e}")
+                if err > tol:
+                    raise AssertionError(
+                        f"K2 bwd {variant} {name} disagrees with the plain "
+                        f"version at B{b} N{n} d{d} {dt} dropout {rate}: "
+                        f"{err:.3e} > {tol:.3e}")
+                if dt == torch.float32 and n == 16384 and rate == 0.0:
+                    key = ("fused" if variant == "fused" else
+                           "dq" if name == "dq" else "dkv")
+                    errs[key] = max(errs[key], err)
+        log(f"[K2 bwd] B{b} H{h} N{n} d{d} {str(dt)[6:]} dropout {rate}: "
+            + ", ".join(line))
+
+    # A q shard at q_offset (the context-parallel call): its dq rows are the
+    # full call's, with the same dropout masks.
+    args, kw = inputs(2, 8, 4096, 4096, 16, torch.float32, 0.1)
+    q, k, v, bias, o, lse, do = args
+    sl = slice(2048, None)
+    for variant in k2.BWD_VARIANTS:
+        full = k2.flash_attention_bwd(*args, variant=variant, **kw)
+        qs, dos = q[:, :, sl].contiguous(), do[:, :, sl].contiguous()
+        os_, lses = k2.attention_plain(qs, k, v, bias, dropout_rate=0.1,
+                                       seed=-1234567, q_offset=2048)
+        shard = k2.flash_attention_bwd(qs, k, v, bias, os_, lses, dos,
+                                       variant=variant, dropout_rate=0.1,
+                                       seed=-1234567, q_offset=2048)
+        err = (shard[0] - full[0][:, :, sl]).abs().max().item()
+        tol = bwd_tol(torch, full[0], torch.float32, "dq")
+        log(f"[K2 bwd] q shard at q_offset 2048, {variant}: dq rows "
+            f"max_abs_err {err:.2e} (tol {tol:.1e})")
+        if err > tol:
+            raise AssertionError(f"K2 bwd {variant}: q_offset shard differs")
+
+    # The teacher's training shape (B 16, dropout 0.1): both variants
+    # against the plain backward, then times, each kernel alone as well.
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args, kw = inputs(16, 8, 16384, 16384, 16, dt, 0.1)
+        q, k, v, bias, o, lse, do = args
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        ref = k2.attention_bwd_plain(*args, **kw)
+        end.record()
+        end.synchronize()
+        t = {"plain": start.elapsed_time(end)}
+        line = []
+        for variant in k2.BWD_VARIANTS:
+            got = k2.flash_attention_bwd(*args, variant=variant, **kw)
+            torch.cuda.synchronize()
+            for name, a, r in zip(BWD_ERR, got, ref):
+                err = (a.float() - r.float()).abs().max().item()
+                tol = bwd_tol(torch, r, dt, name)
+                line.append(f"{variant}.{name} {err:.2e}/{tol:.1e}")
+                if err > tol:
+                    raise AssertionError(
+                        f"K2 bwd {variant} {name} disagrees with the plain "
+                        f"version at B16 N16384 d16 {dt} dropout 0.1: "
+                        f"{err:.3e} > {tol:.3e}")
+                if dt == torch.float32:
+                    key = ("fused" if variant == "fused" else
+                           "dq" if name == "dq" else "dkv")
+                    errs[key] = max(errs[key], err)
+            del got
+        log(f"[K2 bwd] B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1: "
+            + ", ".join(line))
+        del ref
+        delta = (o.float() * do.float()).sum(-1)
+        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(128, 16384, device=dev),
+                   dq_acc=torch.zeros(16, 8, 16384, 16, device=dev))
+        dq = torch.empty_like(q)
+        t |= {
+            "fused": time_ms(torch, lambda: k2.flash_attention_bwd(
+                *args, variant="fused", **kw), 3),
+            "split": time_ms(torch, lambda: k2.flash_attention_bwd(
+                *args, variant="split", **kw), 3),
+            "dkv": time_ms(torch, lambda: k2.launch_bwd_kernel(
+                k2.DKV, q, k, v, bias, do, lse, delta, **out, **kw), 3),
+            "dq": time_ms(torch, lambda: k2.launch_bwd_kernel(
+                k2.DQ, q, k, v, bias, do, lse, delta, dq=dq, **kw), 3),
+        }
+        times[dt] = t
+        log(f"[K2 bwd] B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1: fused "
+            f"{t['fused']:.1f} ms, split {t['split']:.1f} ms (dk/dv "
+            f"{t['dkv']:.1f} + dq {t['dq']:.1f}), plain {t['plain']:.1f} ms "
+            f"on {smi}")
+    f32 = times[torch.float32]
+    faster = min(("fused", "split"), key=lambda v: sum(
+        times[dt][v] for dt in times))
+    log(f"[K2 bwd] faster at the teacher's shape (f32 + bf16): {faster}; "
+        f"the default is {k2.DEFAULT_BWD}")
+    return {
+        "flash_attention_bwd_fused": {"max_abs_err": errs["fused"],
+                                      "ms": f32["fused"],
+                                      "plain_ms": f32["plain"]},
+        "flash_attention_bwd_dq": {"max_abs_err": errs["dq"],
+                                   "ms": f32["dq"], "plain_ms": f32["plain"]},
+        "flash_attention_bwd_dkv": {"max_abs_err": errs["dkv"],
+                                    "ms": f32["dkv"],
+                                    "plain_ms": f32["plain"]},
+    }
+
+
+def check_k3(torch, dev) -> dict:
+    from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args = (torch.rand(16, 128, 128, 3, generator=g, device=dev) * 2 - 1,
+                torch.rand(16, 128, 128, 3, generator=g, device=dev) * 2 - 1,
+                torch.randn(16, 256, generator=g, device=dev),
+                0.5 * torch.randn(16, 256, generator=g, device=dev))
+        args = tuple(a.to(dt) for a in args)
+        got, ref = k3.mse_kl(*args), k3.mse_kl_plain(*args)
+        torch.cuda.synchronize()
+        err = max((a - r).abs().item() for a, r in zip(got, ref))
+        rel = max(((a - r).abs() / r.abs()).item() for a, r in zip(got, ref))
+        t_k = time_ms(torch, lambda: k3.mse_kl(*args), 20)
+        t_p = time_ms(torch, lambda: k3.mse_kl_plain(*args), 20)
+        log(f"[K3] [16, 128, 128, 3] L 256 {str(dt)[6:]}: max_abs_err "
+            f"{err:.2e} (rel {rel:.1e}, tol rel 1e-5) kernel {t_k:.4f} ms "
+            f"plain {t_p:.4f} ms")
+        if rel > 1e-5:
+            raise AssertionError(f"K3 disagrees with its plain version {dt}")
+        if dt == torch.float32:
+            out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+    return out
+
+
+def fixed_eps(eps):
+    """Replace the VAE's posterior draw with one eps, for a comparison
+    across devices (the CPU and CUDA generators draw different numbers).
+    Returns a function that restores it."""
+    from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+    original = LunarisCoreVAE.__dict__["reparameterize"]
+
+    def rep(mu, logvar, generator=None):
+        std = (0.5 * logvar.float()).exp()
+        return (mu.float() + eps.to(mu.device) * std).to(mu.dtype)
+    LunarisCoreVAE.reparameterize = staticmethod(rep)
+    return lambda: setattr(LunarisCoreVAE, "reparameterize", original)
+
+
+def run_grad_context(torch) -> None:
+    import dataclasses
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.infer.generator import full_f32
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+
+    # 64 px: N = 4096 > 1024 runs K2 (d = 8), forward and backward.
+    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=32,
+                      embedding_dim=32, num_experts=2, batch_size=2,
+                      gradient_accumulation_steps=1)
+    tcfg = dataclasses.replace(cfg.teacher_config(), num_heads=4,
+                               expert_layers=2, dropout_rate=0.0)
+    images = torch.randint(0, 256, (1, 2, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(5))
+    restore = fixed_eps(torch.randn(2, 64, generator=torch.Generator()
+                                    .manual_seed(6)))
+    res = {}
+    try:
+        with full_f32():
+            for dev in ("cpu", "cuda"):
+                st = create_state(cfg, dev, 7, tcfg=tcfg)
+                st, m = make_train_step(cfg)(st, images.to(dev))
+                res[dev] = (
+                    {f"vae.{k}": p.grad.cpu() for k, p in st.vae.named_parameters()}
+                    | {f"teacher.{k}": p.grad.cpu()
+                       for k, p in st.teacher.named_parameters()},
+                    {k: v.cpu() for k, v in st.teacher.state_dict().items()
+                     if "running" in k},
+                    {k: float(v) for k, v in m.items()})
+    finally:
+        restore()
+    (g_cpu, s_cpu, m_cpu), (g_gpu, s_gpu, m_gpu) = res["cpu"], res["cuda"]
+    worst, unreached, silent = 0.0, [], []
+    for model in ("vae.", "teacher."):
+        top = max(g.abs().max().item() for k, g in g_cpu.items()
+                  if k.startswith(model))
+        for k, g in g_cpu.items():
+            if not k.startswith(model):
+                continue
+            # 1e-3 of the tensor's largest gradient, plus 1e-5 of the
+            # model's: gradients that are zero in exact arithmetic (a bias
+            # cancelled by a following normalization) are rounding noise.
+            tol = 1e-3 * g.abs().max().item() + 1e-5 * top
+            err = (g_gpu[k] - g).abs().max().item()
+            worst = max(worst, err / tol)
+            if err > tol:
+                raise AssertionError(f"grads: {k} card vs CPU {err:.3e} > "
+                                     f"{tol:.3e}")
+            if g.abs().max().item() == 0.0:
+                unreached.append(k)
+            elif g_gpu[k].abs().max().item() == 0.0:
+                silent.append(k)
+    expect = ("teacher.semantic_head.", "teacher.style_net.",
+              "teacher.prompt_net.")
+    if silent or not all(k.startswith(expect) for k in unreached):
+        raise AssertionError(f"grads: zero on the card only {silent}; zero "
+                             f"on both beyond the unreached heads "
+                             f"{[k for k in unreached if not k.startswith(expect)]}")
+    s_err = max((s_gpu[k] - v).abs().max().item() for k, v in s_cpu.items())
+    # Metrics: 1e-4 of the value plus 1e-6 (8 f32 ulps of an O(1) loss).
+    # With one micro-batch, advantage and pg_loss are zero in exact
+    # arithmetic (the reward minus its own mean): each device leaves
+    # rounding noise there, which a purely relative bar would compare.
+    m_ratio = {k: abs(m_gpu[k] - v) / (1e-4 * abs(v) + 1e-6)
+               for k, v in m_cpu.items()}
+    m_worst = max(m_ratio, key=m_ratio.get)
+    log(f"[grads] 64 px train_step, TF32 off, card vs CPU: {len(g_cpu)} "
+        f"gradients within bar (worst {worst:.3f} of the bar), "
+        f"{len(unreached)} zero on both (semantic_head, style_net, "
+        f"prompt_net: no loss reads them), BN stats max diff {s_err:.2e} "
+        f"(bar 1e-5), metrics worst {m_worst} {m_gpu[m_worst]:.9g} vs "
+        f"{m_cpu[m_worst]:.9g} = {m_ratio[m_worst]:.3f} of the bar "
+        f"(1e-4 rel + 1e-6)")
+    if s_err > 1e-5 or m_ratio[m_worst] > 1.0:
+        raise AssertionError("grads: BN statistics or metrics disagree")
+
+
+def run_train(torch, smi, k1, k2, k3) -> dict:
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+
+    # torch's defaults: cuDNN convolutions may use TF32, matrix products not.
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig()                 # 128 px, full default width
+    state = create_state(cfg, "cuda", 0)
+    before = [p.detach().clone() for p in
+              (*state.vae.parameters(), *state.teacher.parameters())]
+    n_vae = sum(1 for _ in state.vae.parameters())
+    g = torch.Generator(device="cuda").manual_seed(8)
+    other = next(v for v in k2.BWD_VARIANTS if v != k2.DEFAULT_BWD)
+    runs = [(True, None), (True, None), (False, None), (True, other)]
+    for mod in (k1, k2, k3):
+        for name in ("launches", "bwd_fused_launches", "bwd_dkv_launches",
+                     "bwd_dq_launches"):
+            if hasattr(mod, name):
+                setattr(mod, name, 0)
+    for bf16, bwd in runs:
+        step = make_train_step(cfg.replace(mixed_precision=bf16),
+                               attn_bwd=bwd)
+        images = torch.randint(0, 256, (cfg.gradient_accumulation_steps,
+                                        cfg.batch_size, 128, 128, 3),
+                               dtype=torch.uint8, device="cuda", generator=g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, images)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = {k: float(v) for k, v in m.items()}
+        if not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"train step: non-finite metrics {losses}")
+        n = images.shape[0] * images.shape[1]
+        log(f"[train] step {state.step} {'bf16' if bf16 else 'f32'} K2 bwd "
+            f"{bwd or k2.DEFAULT_BWD}: {dt * 1e3:.0f} ms = {n / dt:.2f} "
+            f"sprites/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+            f"GiB, total_loss {losses['total_loss']:.5f} recon "
+            f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
+            f" on {smi}")
+    after = [p.detach() for p in
+             (*state.vae.parameters(), *state.teacher.parameters())]
+    moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+    if not (any(moved[:n_vae]) and any(moved[n_vae:])):
+        raise AssertionError("train: a model's parameters did not change")
+    launches = {"gn_mish": k1.launches, "flash_attention_fwd": k2.launches,
+                "flash_attention_bwd_fused": k2.bwd_fused_launches,
+                "flash_attention_bwd_dq": k2.bwd_dq_launches,
+                "flash_attention_bwd_dkv": k2.bwd_dkv_launches,
+                "mse_kl": k3.launches}
+    log(f"[train] {sum(moved)}/{len(moved)} parameter tensors changed; "
+        f"kernel launches in the train steps: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -269,19 +672,42 @@ def main() -> int:
     smi = probe(torch)
     build()
     k1 = check_k1(torch, dev)
+    k1["max_abs_err"] = max(k1["max_abs_err"], check_k1_train(torch, dev))
     k2 = check_k2(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_slice(torch, Path(tmp), smi)
         run_context(torch, Path(tmp))
+    bwd = check_k2_bwd(torch, dev, smi)
+    k3 = check_k3(torch, dev)
+    run_grad_context(torch)
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
+    from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
+    train = run_train(torch, smi, m1, m2, m3)
+    src = "lunaris_orion_tpu_torch/csrc/"
+    fa = "lunaris_orion_tpu/ops/pallas/flash_attention.py"
     kernels = [
-        dict(name="gn_mish", route="cuda",
-             source="lunaris_orion_tpu_torch/csrc/gn_mish.cu",
+        dict(name="gn_mish", route="cuda", source=src + "gn_mish.cu",
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"], **k1),
         dict(name="flash_attention_fwd", route="cuda",
-             source="lunaris_orion_tpu_torch/csrc/flash_attention_fwd.cu",
-             replaces="lunaris_orion_tpu/ops/pallas/flash_attention.py:335",
+             source=src + "flash_attention_fwd.cu", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"], **k2),
+        dict(name="flash_attention_bwd_fused", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:574",
+             launches=train["flash_attention_bwd_fused"],
+             **bwd["flash_attention_bwd_fused"]),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:474",
+             launches=train["flash_attention_bwd_dq"],
+             **bwd["flash_attention_bwd_dq"]),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:514",
+             launches=train["flash_attention_bwd_dkv"],
+             **bwd["flash_attention_bwd_dkv"]),
+        dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
+             replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
+             launches=train["mse_kl"], **k3),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

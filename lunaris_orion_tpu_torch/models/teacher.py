@@ -1,4 +1,4 @@
-"""LunarMoETeacher -- Mixture-of-Experts pixel-art quality critic, eval mode
+"""LunarMoETeacher -- Mixture-of-Experts pixel-art quality critic
 (counterpart: lunaris_orion_tpu/models/teacher.py).
 
 Parameter names are the PyTorch reference's (lunar_evaluator.py:278-462):
@@ -13,21 +13,32 @@ uses the JAX package's fix: it is conditioned on the *provided* prompt
 embedding.
 
 Images enter NHWC [B, H, W, 3], as in the JAX package; inside, activations
-are channels_last NCHW (see `ops/layers.py`). Only eval mode (train=False)
-is ported.
+are channels_last NCHW (see `ops/layers.py`).
+
+Train mode (`apply(..., train=True)`) is the JAX package's: BatchNorm
+normalizes with batch statistics and the running statistics advance once
+per call; with a generator, dropout runs in the extractor, the heads, the
+expert blocks (Dropout2d) and the attention. With remat, each expert
+block's main path (conv1 -> drop -> attention -> conv2 -> drop) runs under
+`torch.utils.checkpoint`, as `jax.checkpoint` wraps it: its seeds are drawn
+before it runs and its BatchNorm statistics leave it as outputs, so the
+replay in the backward draws the same masks and updates nothing twice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from lunaris_orion_tpu.config import TeacherConfig
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import leaky_relu
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention
+from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
 
 
 def kaiming_out_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -41,9 +52,29 @@ def kaiming_out_init_(module: nn.Module, generator: torch.Generator) -> None:
         module.bias.zero_()
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return layers.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, eps=bn.eps)
+@dataclass
+class _Train:
+    """What one train-mode call threads through the modules."""
+    host: Optional[torch.Generator]   # seeds; None: no dropout
+    remat: bool
+    bwd: Optional[str]                # K2's backward variant
+    device_gen: Optional[torch.Generator] = None  # dropout outside remat
+    updates: List[Tuple[nn.BatchNorm2d, torch.Tensor, torch.Tensor]] = field(
+        default_factory=list)
+
+
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, stats: Optional[list] = None
+        ) -> torch.Tensor:
+    """Eval: running statistics. Train (`stats` is a list): batch
+    statistics; the new running statistics are appended to `stats`."""
+    if stats is None:
+        return layers.batch_norm(x, bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, eps=bn.eps)
+    y, mean, var = layers.batch_norm_train(
+        x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+        momentum=bn.momentum, eps=bn.eps)
+    stats += [mean, var]
+    return y
 
 
 class ConvLeakyBN(nn.Sequential):
@@ -53,9 +84,11 @@ class ConvLeakyBN(nn.Sequential):
         super().__init__(nn.Conv2d(cin, cout, k, padding=k // 2),
                          nn.LeakyReLU(0.2), nn.BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None
+                ) -> torch.Tensor:
         conv, _, bn = self
-        return _bn(bn, leaky_relu(layers.conv2d(x, conv.weight, conv.bias)))
+        return _bn(bn, leaky_relu(layers.conv2d(x, conv.weight, conv.bias)),
+                   stats)
 
 
 class Branch(nn.Sequential):
@@ -67,10 +100,17 @@ class Branch(nn.Sequential):
                          nn.Conv2d(stem, cout, 1), nn.LeakyReLU(0.2),
                          nn.BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None
+                ) -> torch.Tensor:
         dw, pw, _, bn = self
         y = layers.conv2d(x, dw.weight, dw.bias, groups=dw.groups)
-        return _bn(bn, leaky_relu(layers.conv2d(y, pw.weight, pw.bias)))
+        return _bn(bn, leaky_relu(layers.conv2d(y, pw.weight, pw.bias)), stats)
+
+
+def _record(train: Optional[_Train], bns, stats: Optional[list]) -> None:
+    """Queue the running-statistics updates of `bns`, in order."""
+    if train is not None:
+        train.updates += zip(bns, stats[0::2], stats[1::2])
 
 
 class FeatureExtractor(nn.Module):
@@ -86,11 +126,21 @@ class FeatureExtractor(nn.Module):
         self.detail_branch = Branch(st, br, 3)
         self.fusion = ConvLeakyBN(br * 3, cfg.extractor_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)
-        combined = torch.cat([self.edge_branch(x), self.color_branch(x),
-                              self.detail_branch(x)], dim=1)
-        return self.fusion(layers.dropout(combined, self.dropout_rate))
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None
+                ) -> torch.Tensor:
+        stats = None if train is None else []
+        x = self.conv1(x, stats)
+        combined = torch.cat([self.edge_branch(x, stats),
+                              self.color_branch(x, stats),
+                              self.detail_branch(x, stats)], dim=1)
+        combined = layers.dropout(
+            combined, self.dropout_rate,
+            generator=None if train is None else train.device_gen)
+        out = self.fusion(combined, stats)
+        _record(train, [m[-1] for m in (self.conv1, self.edge_branch,
+                                        self.color_branch, self.detail_branch,
+                                        self.fusion)], stats)
+        return out
 
 
 class ExpertBlock(nn.Module):
@@ -111,24 +161,56 @@ class ExpertBlock(nn.Module):
                                        nn.BatchNorm2d(cout))
                          if cin != cout else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _path(self, x: torch.Tensor, train: bool,
+              seeds: Optional[Tuple[int, ...]], bwd: Optional[str]):
+        """The main path; returns (out, *new running stats of conv1's and
+        conv2's BatchNorm in train mode). seeds: (Dropout2d after conv1,
+        Dropout2d after conv2, attention, projection), or None: no
+        dropout."""
+        stats = [] if train else None
+        drop1, drop2 = ((device_generator(s, x.device) for s in seeds[:2])
+                        if seeds else (None, None))
+        out = layers.dropout2d(self.conv1(x, stats), self.dropout_rate,
+                               generator=drop1)
+        out = self.attention(out.permute(0, 2, 3, 1), window=self.attn_window,
+                             dropout_rate=self.dropout_rate,
+                             seeds=seeds[2:] if seeds else None,
+                             bwd=bwd).permute(0, 3, 1, 2)
+        out = layers.dropout2d(self.conv2(out, stats), self.dropout_rate,
+                               generator=drop2)
+        return (out * self.layer_scale.to(out.dtype), *(stats or ()))
+
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None
+                ) -> torch.Tensor:
+        stats = None if train is None else []
         if self.shortcut is None:
             identity = x
         else:
             conv, bn = self.shortcut
-            identity = _bn(bn, layers.conv2d(x, conv.weight, conv.bias))
-        out = layers.dropout2d(self.conv1(x), self.dropout_rate)
-        out = self.attention(out.permute(0, 2, 3, 1),
-                             window=self.attn_window).permute(0, 3, 1, 2)
-        out = layers.dropout2d(self.conv2(out), self.dropout_rate)
-        out = out * self.layer_scale.to(out.dtype)
+            identity = _bn(bn, layers.conv2d(x, conv.weight, conv.bias), stats)
+        seeds = None
+        if train is not None and train.host is not None:
+            seeds = tuple(new_seed(train.host) for _ in range(4))
+        bwd = None if train is None else train.bwd
+        if train is not None and train.remat and torch.is_grad_enabled():
+            # The masks come from `seeds`, not the global RNG state.
+            out, *path_stats = checkpoint(self._path, x, True, seeds, bwd,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+        else:
+            out, *path_stats = self._path(x, train is not None, seeds, bwd)
+        if train is not None:
+            bns = [self.shortcut[1]] if self.shortcut is not None else []
+            _record(train, bns + [self.conv1[2], self.conv2[2]],
+                    stats + path_stats)
         return leaky_relu(out + identity, 0.2)
 
 
 class Head(nn.Sequential):
     """The reference's head Sequential: AdaptiveAvgPool2d, Flatten, [LayerNorm,]
     Linear, LeakyReLU, Dropout, Linear. `forward` takes pooled features
-    [B, in] (the pooling happens outside, as in the JAX package)."""
+    [B, in] (the pooling happens outside, as in the JAX package) and the
+    teacher's dropout rate, as the JAX package's heads do."""
 
     def __init__(self, cin: int, hidden: int, cout: int, *, ln: bool = True):
         mods = [nn.AdaptiveAvgPool2d(1), nn.Flatten()]
@@ -138,14 +220,15 @@ class Head(nn.Sequential):
                  nn.Linear(hidden, cout)]
         super().__init__(*mods)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         mods = list(self)[2:]
         if isinstance(mods[0], nn.LayerNorm):
             ln = mods.pop(0)
             x = layers.layer_norm(x, ln.weight, ln.bias, eps=ln.eps)
-        fc1, _, drop, fc2 = mods
+        fc1, _, _, fc2 = mods
         x = leaky_relu(layers.linear(x, fc1.weight, fc1.bias), 0.2)
-        x = layers.dropout(x, drop.p)
+        x = layers.dropout(x, rate, generator=generator)
         return layers.linear(x, fc2.weight, fc2.bias)
 
 
@@ -191,37 +274,44 @@ class LunarMoETeacher(nn.Module):
                 nn.init.constant_(m.layer_scale, self.cfg.layer_scale_init)
 
     def forward(self, x: torch.Tensor,
-                prompt_embedding: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                prompt_embedding: Optional[torch.Tensor] = None, *,
+                train: Optional[_Train] = None) -> Dict[str, torch.Tensor]:
         """x [B, H, W, 3] -> the output dict of the JAX package's
-        `teacher.apply(train=False)`: quality_scores [B, 4] (sigmoid),
-        expert_weights [B, E], style_embedding / prompt_embedding
-        [B, emb], semantic_score [B, 1]."""
-        feats = self.feature_extractor(x.permute(0, 3, 1, 2))
-        gate_logits = self.gate(layers.global_avg_pool(feats))
+        `teacher.apply`: quality_scores [B, 4] (sigmoid), expert_weights
+        [B, E], style_embedding / prompt_embedding [B, emb], semantic_score
+        [B, 1]. Eval mode unless `train` is given (see `apply`)."""
+        rate = self.cfg.dropout_rate
+        gen = None if train is None else train.device_gen
+        feats = self.feature_extractor(x.permute(0, 3, 1, 2), train)
+        gate_logits = self.gate(layers.global_avg_pool(feats), rate, gen)
         w = torch.softmax(gate_logits.float(), dim=-1)            # [B, E]
 
         pooled_ex = []
         for expert in self.experts:
-            pooled_ex.append(layers.global_avg_pool(expert(feats)))
+            h = feats
+            for block in expert:
+                h = block(h, train)
+            pooled_ex.append(layers.global_avg_pool(h))
         pooled = torch.stack(pooled_ex)                           # [E, B, C]
 
-        quality = torch.stack([head(p) for head, p in
+        quality = torch.stack([head(p, rate, gen) for head, p in
                                zip(self.quality_heads, pooled_ex)])
         weighted = torch.einsum("ebq,be->bq", quality.float(), w)
         combined = torch.einsum("ebc,be->bc", pooled.float(), w).to(feats.dtype)
-        own_prompt = self.prompt_net(combined)
-        semantic = torch.sigmoid(self.semantic_head(pooled_ex[0]).float())
+        style = self.style_net(combined, rate, gen)
+        own_prompt = self.prompt_net(combined, rate, gen)
+        semantic = torch.sigmoid(
+            self.semantic_head(pooled_ex[0], rate, gen).float())
         if prompt_embedding is not None:
             a = own_prompt.float()
-            b = prompt_embedding.float()
+            b = prompt_embedding.detach().float()
             cos = (a * b).sum(-1) / torch.clamp(
                 a.norm(dim=-1) * b.norm(dim=-1), min=1e-8)
             semantic = semantic * cos[:, None]
         return {
             "quality_scores": torch.sigmoid(weighted),
             "expert_weights": w,
-            "style_embedding": self.style_net(combined),
+            "style_embedding": style,
             "prompt_embedding": own_prompt,
             "semantic_score": semantic,
         }
@@ -229,9 +319,25 @@ class LunarMoETeacher(nn.Module):
 
 def apply(model: LunarMoETeacher, x: torch.Tensor, *,
           prompt_embedding: Optional[torch.Tensor] = None,
-          train: bool = False) -> Dict[str, torch.Tensor]:
-    """The JAX package's `teacher.apply` for train=False: the model's
-    forward. Train mode (batch statistics, dropout) is not ported yet."""
-    if train:
-        raise NotImplementedError("teacher train mode is not ported yet")
-    return model(x, prompt_embedding)
+          train: bool = False, generator: Optional[torch.Generator] = None,
+          remat: bool = True, bwd: Optional[str] = None
+          ) -> Dict[str, torch.Tensor]:
+    """The JAX package's `teacher.apply`. train=False: the eval forward.
+    train=True: BatchNorm on batch statistics, the running statistics
+    advanced once (in place: the port's BatchNorm buffers are the JAX
+    package's returned stats); with `generator` (a CPU torch.Generator, the
+    source of every seed) dropout is on. `remat` checkpoints each expert
+    block's main path when gradients are recorded. `bwd` picks K2's
+    backward kernels on CUDA. Attention follows the `auto` rule."""
+    if not train:
+        return model(x, prompt_embedding)
+    t = _Train(host=generator, remat=remat, bwd=bwd,
+               device_gen=None if generator is None else device_generator(
+                   new_seed(generator), x.device))
+    out = model(x, prompt_embedding, train=t)
+    with torch.no_grad():
+        for bn, mean, var in t.updates:
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+            bn.num_batches_tracked += 1
+    return out

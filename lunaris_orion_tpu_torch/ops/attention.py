@@ -4,8 +4,10 @@
 The JAX package's corrected form of the reference attention: full softmax
 attention over all H*W tokens, with the factorized rel-pos term added per
 key. The `auto` rule is the JAX package's: N <= 1024 tokens runs
-`full_attention`; above that, the K2 forward (`ops/cuda/flash_attention.py`):
-the kernel on a CUDA device, its plain blockwise version on the CPU.
+`full_attention`; above that, K2 (`ops/cuda/flash_attention.py`): the
+kernels on a CUDA device, their plain blockwise versions on the CPU.
+Train mode adds dropout on the attention probabilities (Bernoulli on the
+full path, K2's hash on the flash path) and on the projected output.
 Windowed, ring and allgather attention are not ported yet and raise.
 
 Public functions keep the JAX package's layouts: feature maps NHWC
@@ -14,13 +16,14 @@ Public functions keep the JAX package's layouts: feature maps NHWC
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+from lunaris_orion_tpu_torch.ops.rng import device_generator, int32_seed
 
 
 def interp_align_corners(p: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -59,13 +62,17 @@ def multihead_qkv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """O(N^2)-memory attention in f32 for small N; bias [heads, N] or None."""
+                   bias: Optional[torch.Tensor], *, dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """O(N^2)-memory attention in f32 for small N; bias [heads, N] or None.
+    With a generator, Bernoulli dropout on the probabilities."""
     d = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d ** -0.5)
     if bias is not None:
         s = s + bias.float()[None, :, None, :]
-    p = torch.softmax(s, dim=-1)
+    p = layers.dropout(torch.softmax(s, dim=-1), dropout_rate,
+                       generator=generator)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
@@ -88,11 +95,15 @@ class SpatialAttention(nn.Module):
         self.proj = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
-                window: Optional[int] = None) -> torch.Tensor:
-        """x [B, H, W, C] -> [B, H, W, C] (eval mode).
+                window: Optional[int] = None, dropout_rate: float = 0.0,
+                seeds: Optional[Tuple[int, int]] = None,
+                bwd: Optional[str] = None) -> torch.Tensor:
+        """x [B, H, W, C] -> [B, H, W, C].
 
         impl: 'auto' (N <= 1024 -> 'full', else 'flash'), 'full', or
-        'flash' (the K2 forward)."""
+        'flash' (K2). seeds: (attention, projection) seeds of train-mode
+        dropout at `dropout_rate`; None runs without dropout. bwd: K2's
+        backward variant on CUDA (None: its default)."""
         b, h, w, c = x.shape
         n = h * w
         if window is not None and window < n:
@@ -100,20 +111,28 @@ class SpatialAttention(nn.Module):
                 "windowed attention (attn_window) is not ported yet")
         if impl == "auto":
             impl = "full" if n <= 1024 else "flash"
+        drop = seeds is not None and dropout_rate > 0.0
         q, k, v = multihead_qkv(x, self.qkv.weight, self.qkv.bias,
                                 self.num_heads)
         bias = rel_pos_bias(self.rel_pos_h[0, :, :, 0],
                             self.rel_pos_w[0, :, 0, :], h, w)
         if impl == "full":
-            out = full_attention(q, k, v, bias)
+            out = full_attention(
+                q, k, v, bias, dropout_rate=dropout_rate,
+                generator=device_generator(seeds[0], x.device) if drop else None)
         elif impl == "flash":
-            out, _ = k2.flash_attention(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), bias)
+            out, _ = k2.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                dropout_rate=dropout_rate if drop else 0.0,
+                seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd)
         elif impl in ("ring", "allgather"):
             raise NotImplementedError(
                 f"impl={impl!r} (context parallelism) is not ported yet")
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
         out = out.transpose(1, 2).reshape(b, h, w, c)
-        return layers.linear(out, self.proj.weight.reshape(c, c),
-                             self.proj.bias)
+        out = layers.linear(out, self.proj.weight.reshape(c, c),
+                            self.proj.bias)
+        return layers.dropout(
+            out, dropout_rate,
+            generator=device_generator(seeds[1], x.device) if drop else None)

@@ -1,11 +1,12 @@
 """Build the hand-written Hopper kernels and load them with ctypes.
 
 `library()` compiles every `lunaris_orion_tpu_torch/csrc/*.cu` with nvcc,
-for sm_90a, into one shared library with a plain C interface, at first use.
-The library lands in `lunaris_orion_tpu_torch/_build/<hash>/`, where the
-hash covers the sources' content and the compiler flags, so an edited
-source builds anew and an unchanged one is reused. The compiler writes to
-a temporary name that is renamed into place, so a build cut short never
+for sm_90a, into one shared library with a plain C interface, at first use:
+one `nvcc -c` per source, all started together, then one link. The
+library lands in `lunaris_orion_tpu_torch/_build/<hash>/`, where the hash
+covers the sources' content and the compiler flags, so an edited source
+builds anew and an unchanged one is reused. The linker writes to a
+temporary name that is renamed into place, so a build cut short never
 leaves a library that loads. The compiler's report (`-Xptxas -v`:
 registers, shared memory and spills of each kernel) is kept beside it in
 `build.log`.
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 CUDA_ROOTS = ("/usr/local/cuda",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,11 @@ SIGNATURES = {
                         _I, _P),
     "lunaris_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _F, _I, _U, _F, _U, _I, _I, _I, _P),
+    "lunaris_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                    _U, _F, _U, _I, _I, _I, _P),
+    "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I,
+                       _P),
 }
 
 
@@ -81,15 +87,32 @@ def build() -> Path:
         return lib
     compiler = nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".liblunaris_kernels.so.{os.getpid()}"
-    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = os.getpid()
+    jobs = []
+    for src in sources():
+        obj = out_dir / f".{src.stem}.{tag}.o"  # nvcc reads the type from ".o"
+        cmd = [compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    tmp = out_dir / f".liblunaris_kernels.so.{tag}"
+    if not failed:
+        cmd = [compiler, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    (out_dir / "build.log").write_text("".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

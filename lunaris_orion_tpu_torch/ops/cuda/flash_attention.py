@@ -1,17 +1,27 @@
-"""K2 forward -- flash attention with a per-key bias and hash dropout.
+"""K2 -- flash attention with a per-key bias and hash dropout, forward and
+backward.
 
-`flash_attention` sends tensors on the CPU to `attention_plain` and tensors
-on a CUDA device to the hand-written kernel in
-`csrc/flash_attention_fwd.cu`; it raises on any other device and never
-falls back. The kernel replaces `lunaris_orion_tpu/ops/pallas/
-flash_attention.py` `_fwd_kernel` and computes what `attention_bhnd`
-computes, returning the row log-sum-exp as well (the backward needs it).
+`flash_attention` is a `torch.autograd.Function`. It sends tensors on the
+CPU to the plain versions (`attention_plain`, `attention_bwd_plain`) and
+tensors on a CUDA device to the hand-written kernels; it raises on any
+other device and never falls back.
+  forward   `csrc/flash_attention_fwd.cu`, replacing lunaris_orion_tpu/ops/
+            pallas/flash_attention.py `_fwd_kernel`; returns the row
+            log-sum-exp as well, which the backward needs.
+  backward  `csrc/flash_attention_bwd.cu`, in one of two variants:
+            "fused"  one dk/dv kernel that also accumulates dq with float
+                     atomics (replaces `_bwd_fused_kernel`); its dq varies
+                     from run to run in the last bits;
+            "split"  the dk/dv kernel and a dq kernel (replace
+                     `_bwd_dkv_kernel` and `_bwd_dq_kernel`).
+The result is what `attention_bhnd` and its custom VJP compute, except that
+the forward takes q unscaled: the d^-1/2 factor on dq is applied inside.
 
-Dropout is the JAX package's stateless hash (`_keep_mask`), bit for bit,
-so that a backward kernel can regenerate the mask from (seed, row, k, q).
+Dropout is the JAX package's stateless hash (`_keep_mask`), bit for bit, so
+the backward regenerates the forward's mask from (seed, row, k, q).
 
-`launches` counts the kernel launches made by `flash_attention`; the plain
-version does not count.
+`launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
+count the kernel launches; the plain versions do not count.
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import torch
 from lunaris_orion_tpu_torch.ops.cuda import _build
 
 launches = 0
+bwd_fused_launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
 
 HEAD_DIMS = (8, 16, 48, 64)          # the kernel's compiled head sizes
 _M32 = 0xFFFFFFFF
@@ -125,51 +138,238 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse.reshape(b * h, nq)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, *, dropout_rate: float = 0.0,
-                    seed: int = 0, q_offset: int = 0, row_offset: int = 0):
-    """K2 forward. q [B, H, Nq, d], k/v [B, H, Nk, d] (contiguous, f32 or
-    bf16, one dtype), bias [H, Nk] f32. `seed` is an int32 value;
-    `q_offset` is the absolute position of q's first row and `row_offset`
-    that of the first B*H row, as seen by the dropout hash (both 0 for the
-    square single-device call). Returns (o [B, H, Nq, d], lse [B*H, Nq])."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, dropout_rate=dropout_rate,
-                               seed=seed, q_offset=q_offset,
-                               row_offset=row_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, dropout_rate: float = 0.0,
+                        seed: int = 0, q_offset: int = 0, row_offset: int = 0,
+                        max_elems: int = 2**26):
+    """The plain version of the K2 backward kernels: blockwise over q.
+
+    Same rounding points as the kernels (and the TPU kernels): scores from
+    the forward's scaled q, p = exp(s - lse) in f32; ds = p (dp - delta)
+    rounded to q's dtype before the dq and dk products; the dropped,
+    rescaled p rounded to dO's dtype before the dv product; dbias from the
+    unrounded f32 ds, summed over the batch; delta = rowsum(f32(o) f32(dO)).
+    dq carries the d^-1/2 factor of the scaling inside the forward.
+    Returns (dq, dk, dv in the inputs' dtype, dbias [H, Nk] f32)."""
+    _check_shapes(q, k, v, bias)
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    dt = q.dtype
+    scale = torch.tensor(d ** -0.5, dtype=dt, device=q.device)
+    qs = (q * scale).float()
+    kf, vf, dof = k.float(), v.float(), do.float()
+    bias4 = bias.float()[None, :, None, :]
+    lse4 = lse.reshape(b, h, nq, 1)
+    delta = (o.float() * dof).sum(-1, keepdim=True)             # [B,H,Nq,1]
+    use_drop = dropout_rate > 0.0
+    if use_drop:
+        threshold = dropout_threshold(1.0 - dropout_rate)
+        inv_keep = _inv_keep(dropout_rate)
+        rs = row_seeds(seed, b * h, row_offset, q.device).reshape(b, h, 1, 1)
+        k_abs = torch.arange(nk, device=q.device, dtype=torch.int64)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(b, h, nk, d, device=q.device, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    dbias = torch.zeros(b, h, nk, device=q.device, dtype=torch.float32)
+    bq = max(1, min(nq, max_elems // max(1, b * h * nk)))
+    for i0 in range(0, nq, bq):
+        i1 = min(nq, i0 + bq)
+        s = torch.matmul(qs[:, :, i0:i1], kf.transpose(-1, -2)) + bias4
+        p = torch.exp(s - lse4[:, :, i0:i1])                    # [B,H,bq,Nk]
+        dp = torch.matmul(dof[:, :, i0:i1], vf.transpose(-1, -2))
+        pv = p
+        if use_drop:
+            q_abs = torch.arange(q_offset + i0, q_offset + i1,
+                                 device=q.device, dtype=torch.int64)[:, None]
+            keep = keep_mask(rs, k_abs, q_abs, threshold)
+            dp = torch.where(keep, dp * inv_keep, torch.zeros_like(dp))
+            pv = torch.where(keep, p * inv_keep, torch.zeros_like(p))
+        ds = p * (dp - delta[:, :, i0:i1])
+        dsc = ds.to(dt).float()
+        dq[:, :, i0:i1] = torch.matmul(dsc, kf).to(dt) * scale
+        dk += torch.matmul(dsc.transpose(-1, -2), qs[:, :, i0:i1])
+        dv += torch.matmul(pv.to(do.dtype).float().transpose(-1, -2),
+                           dof[:, :, i0:i1])
+        dbias += ds.sum(dim=2)
+    return dq, dk.to(dt), dv.to(dt), dbias.sum(dim=0)
+
+
+BWD_VARIANTS = ("fused", "split")
+# The variant measured faster at the teacher's training shape (B 16, H 8,
+# N 16384, d 16) on an H100 80GB HBM3 at 700 W: split 250.8 ms against fused
+# 260.8 ms in f32, 256.4 against 262.3 in bf16 (PERF.md).
+DEFAULT_BWD = "split"
+
+
+def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
+    """Validate what the kernels take; returns (scale, dropout args)."""
+    q, k, v, bias = tensors[:4]
     _check_shapes(q, k, v, bias)
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             q.dtype == k.dtype == v.dtype):
-        raise ValueError("flash_attention: q, k, v must share one dtype, "
-                         f"f32 or bf16 (got {q.dtype}, {k.dtype}, {v.dtype})")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+        raise ValueError(f"{name}: q, k, v must share one dtype, f32 or bf16 "
+                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    for i, t in enumerate(tensors):
         if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             f"on {q.device}")
+            raise ValueError(f"{name}: argument {i} must be contiguous on "
+                             f"{q.device}")
     if bias.dtype != torch.float32:
-        raise ValueError("flash_attention: bias must be f32")
-    b, h, nq, d = q.shape
-    nk = k.shape[2]
+        raise ValueError(f"{name}: bias must be f32")
+    b, h, _, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     if b * h > 65535 or not 0 <= dropout_rate < 1.0:
-        raise ValueError("flash_attention: B*H must be <= 65535 and "
+        raise ValueError(f"{name}: B*H must be <= 65535 and "
                          "0 <= dropout_rate < 1")
-    scale = float(torch.tensor(d ** -0.5, dtype=q.dtype))
     use_drop = dropout_rate > 0.0
+    scale = float(torch.tensor(d ** -0.5, dtype=q.dtype))
+    return scale, (int(use_drop),
+                   dropout_threshold(1.0 - dropout_rate) if use_drop else 0,
+                   _inv_keep(dropout_rate) if use_drop else 1.0)
+
+
+def _forward_kernel(q, k, v, bias, dropout_rate, seed, q_offset, row_offset):
+    scale, drop = _check_kernel_inputs("flash_attention", (q, k, v, bias),
+                                       dropout_rate)
+    b, h, nq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b * h, nq, device=q.device, dtype=torch.float32)
     err = _build.library().lunaris_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b * h, h, nq, nk, d, scale,
-        int(use_drop),
-        dropout_threshold(1.0 - dropout_rate) if use_drop else 0,
-        _inv_keep(dropout_rate) if use_drop else 1.0,
-        seed & _M32, q_offset, row_offset, int(q.dtype == torch.bfloat16),
+        o.data_ptr(), lse.data_ptr(), b * h, h, nq, k.shape[2], d, scale,
+        *drop, seed & _M32, q_offset, row_offset,
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     global launches
     launches += 1
     return o, lse
+
+
+DKV, DKV_FUSED_DQ, DQ = 0, 1, 2      # the C entry point's kernel ids
+
+
+def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
+                      dq=None, dk=None, dv=None, dbias_bh=None, dq_acc=None,
+                      dropout_rate=0.0, seed=0, q_offset=0, row_offset=0):
+    """One launch of a K2 backward kernel into preallocated outputs:
+    DKV writes dk, dv, dbias_bh [B*H, Nk]; DKV_FUSED_DQ also adds into the
+    zeroed f32 dq_acc [B, H, Nq, d]; DQ writes dq. delta [B, H, Nq] f32 is
+    rowsum(f32(o) f32(dO)). Counts the launch."""
+    scale, drop = _check_kernel_inputs(
+        "flash_attention_bwd", (q, k, v, bias, do, lse, delta),
+        dropout_rate)
+    if do.dtype != q.dtype or lse.dtype != torch.float32 or (
+            delta.dtype != torch.float32):
+        raise ValueError("flash_attention_bwd: dO must have q's dtype and "
+                         "lse, delta must be f32")
+    outs = {DKV: (dk, dv, dbias_bh), DKV_FUSED_DQ: (dk, dv, dbias_bh, dq_acc),
+            DQ: (dq,)}[kernel]
+    if any(t is None or t.device != q.device or not t.is_contiguous()
+           for t in outs):
+        raise ValueError(f"flash_attention_bwd: kernel {kernel} needs "
+                         "contiguous outputs on q's device")
+    b, h, nq, d = q.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.library().lunaris_flash_attention_bwd(
+        kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk),
+        ptr(dv), ptr(dbias_bh), ptr(dq_acc), b * h, h, nq, k.shape[2], d,
+        scale, *drop, seed & _M32, q_offset, row_offset,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
+    if kernel == DKV_FUSED_DQ:
+        bwd_fused_launches += 1
+    elif kernel == DKV:
+        bwd_dkv_launches += 1
+    else:
+        bwd_dq_launches += 1
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, *, dropout_rate=0.0,
+                        seed=0, q_offset=0, row_offset=0, variant=None):
+    """The K2 backward kernels on CUDA tensors (the arguments of
+    `attention_bwd_plain`, contiguous). variant: "fused" or "split" (see
+    the module docstring); None takes DEFAULT_BWD. Returns (dq, dk, dv,
+    dbias [H, Nk] f32)."""
+    variant = variant or DEFAULT_BWD
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"flash_attention_bwd: variant {variant!r} not in "
+                         f"{BWD_VARIANTS}")
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: o must match q")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    delta = (o.float() * do.float()).sum(-1)
+    out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+               dbias_bh=torch.empty(b * h, nk, device=q.device,
+                                    dtype=torch.float32))
+    kw = dict(dropout_rate=dropout_rate, seed=seed, q_offset=q_offset,
+              row_offset=row_offset)
+    if variant == "fused":
+        out["dq_acc"] = torch.zeros(b, h, nq, d, device=q.device,
+                                    dtype=torch.float32)
+        launch_bwd_kernel(DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
+                          **out, **kw)
+        scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
+        dq = out["dq_acc"].to(q.dtype) * scale
+    else:
+        dq = torch.empty_like(q)
+        launch_bwd_kernel(DKV, q, k, v, bias, do, lse, delta, **out, **kw)
+        launch_bwd_kernel(DQ, q, k, v, bias, do, lse, delta, dq=dq, **kw)
+    dbias = out["dbias_bh"].reshape(b, h, nk).sum(dim=0)
+    return dq, out["dk"], out["dv"], dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o, lse = K2(q, k, v, bias); gradients to q, k, v and bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, dropout_rate, seed, q_offset, row_offset,
+                bwd):
+        if q.device.type == "cpu":
+            o, lse = attention_plain(q, k, v, bias, dropout_rate=dropout_rate,
+                                     seed=seed, q_offset=q_offset,
+                                     row_offset=row_offset)
+        else:
+            o, lse = _forward_kernel(q, k, v, bias, dropout_rate, seed,
+                                     q_offset, row_offset)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.args = dict(dropout_rate=dropout_rate, seed=seed,
+                        q_offset=q_offset, row_offset=row_offset)
+        ctx.bwd = bwd
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            grads = attention_bwd_plain(q, k, v, bias, o, lse, do, **ctx.args)
+        else:
+            grads = flash_attention_bwd(q, k, v, bias, o, lse, do,
+                                        variant=ctx.bwd, **ctx.args)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, *, dropout_rate: float = 0.0,
+                    seed: int = 0, q_offset: int = 0, row_offset: int = 0,
+                    bwd: str | None = None):
+    """K2 with its backward. q [B, H, Nq, d], k/v [B, H, Nk, d] (contiguous,
+    f32 or bf16, one dtype), bias [H, Nk] f32. `seed` is an int32 value;
+    `q_offset` is the absolute position of q's first row and `row_offset`
+    that of the first B*H row, as seen by the dropout hash (both 0 for the
+    square single-device call). `bwd` picks the backward kernels on CUDA
+    ("fused" or "split"; None: DEFAULT_BWD). Returns (o [B, H, Nq, d],
+    lse [B*H, Nq]); o is differentiable in q, k, v and bias."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if bwd is not None and bwd not in BWD_VARIANTS:
+        raise ValueError(f"flash_attention: bwd {bwd!r} not in {BWD_VARIANTS}")
+    return _FlashAttention.apply(q, k, v, bias, dropout_rate, seed, q_offset,
+                                 row_offset, bwd)

@@ -6,6 +6,11 @@ any other device and never falls back. The kernel replaces
 `lunaris_orion_tpu/ops/pallas/gn_mish.py` (`_stats_kernel`, `_apply_kernel`)
 and computes exactly what `group_norm_mish_pallas` computes.
 
+`gn_mish` is a `torch.autograd.Function`: its backward is the
+vector-Jacobian product of `gn_mish_plain`, recomputed from the saved
+input, as the JAX package differentiates its Pallas K1 through the XLA
+composition (`ops/dispatch.py` `pallas_fwd_xla_bwd`).
+
 `launches` counts the kernel launches made by `gn_mish` (one per call on a
 CUDA tensor); the plain version does not count.
 """
@@ -53,14 +58,8 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gn_mish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            *, groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
-    """K1 on x [B, H, W, C] (contiguous NHWC, f32 or bf16) with f32
-    weight/bias [C]; returns a new NHWC tensor of x's dtype."""
-    if x.device.type == "cpu":
-        return gn_mish_plain(x, weight, bias, groups=groups, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_mish: unsupported device {x.device}")
+def _kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            groups: int, eps: float) -> torch.Tensor:
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(
             "gn_mish: x must be a contiguous NHWC [B, H, W, C] tensor (the "
@@ -98,3 +97,35 @@ def gn_mish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     global launches
     launches += 1
     return y
+
+
+class _GnMish(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.groups, ctx.eps = groups, eps
+        if x.device.type == "cpu":
+            return gn_mish_plain(x, weight, bias, groups=groups, eps=eps)
+        return _kernel(x, weight, bias, groups, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = gn_mish_plain(*inputs, groups=ctx.groups, eps=ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return (*(next(got) if t.requires_grad else None for t in inputs),
+                None, None)
+
+
+def gn_mish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            *, groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
+    """K1 on x [B, H, W, C] (contiguous NHWC, f32 or bf16) with f32
+    weight/bias [C]; returns a new NHWC tensor of x's dtype,
+    differentiable in x, weight and bias."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gn_mish: unsupported device {x.device}")
+    return _GnMish.apply(x, weight, bias, groups, eps)

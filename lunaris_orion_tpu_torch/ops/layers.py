@@ -99,19 +99,51 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, *, train: bool = False
-            ) -> torch.Tensor:
-    """The identity at eval; train-mode dropout comes with the training
-    slice."""
-    if train and rate > 0.0:
-        raise NotImplementedError("train-mode dropout is not ported yet")
-    return x
+def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
+                     running_var: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, *, momentum: float = 0.1,
+                     eps: float = 1e-5):
+    """BatchNorm2d in train mode over NCHW x, in f32: normalize with the
+    biased batch statistics. Returns (y, new_running_mean, new_running_var)
+    without touching the buffers; the running variance takes the unbiased
+    batch variance (torch semantics, JAX `batch_norm(train=True)`)."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    centered = x32 - mean[None, :, None, None]
+    var = centered.square().mean(dim=(0, 2, 3))
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    with torch.no_grad():
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * (
+            var * (n / max(n - 1, 1)))
+    out = (centered * torch.rsqrt(var + eps)[None, :, None, None]
+           * weight.float()[None, :, None, None]
+           + bias.float()[None, :, None, None])
+    return out.to(x.dtype), new_mean, new_var
 
 
-def dropout2d(x: torch.Tensor, rate: float, *, train: bool = False
-              ) -> torch.Tensor:
-    """Channel dropout (torch Dropout2d): the identity at eval."""
-    return dropout(x, rate, train=train)
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator], mask_shape) -> torch.Tensor:
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Elementwise dropout, keep = 1 - rate, kept values scaled by 1/keep.
+    The identity without a generator (eval) or at rate 0."""
+    return _dropout(x, rate, generator, x.shape)
+
+
+def dropout2d(x: torch.Tensor, rate: float, *,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Channel dropout (torch Dropout2d) over NCHW x: whole channels of a
+    sample are kept or zeroed. The identity without a generator or at
+    rate 0."""
+    return _dropout(x, rate, generator, (x.shape[0], x.shape[1], 1, 1))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,10 @@ trees (as numpy arrays) to the same state_dict layout:
   linear [I, O]               -> [O, I]
   NHWC bottleneck order       -> the reference's (C, H, W) order
   stacked expert axis [E, ...] -> experts.{e}.*, quality_heads.{e}.*
+
+`train_state_from_jax` carries a JAX `TrainState` (numpy leaves) over to
+the port's: both models, the teacher's BatchNorm statistics, both optax
+Adam states and the RL baseline.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch
 
 from lunaris_orion_tpu.config import TeacherConfig, TrainConfig, VAEConfig
 from lunaris_orion_tpu.utils.torch_compat import train_config_from_reference_args
+from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
+from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+from lunaris_orion_tpu_torch.train.state import (ClippedAdamW, TrainState,
+                                                 state_for)
 
 
 def _f32(x) -> np.ndarray:
@@ -172,3 +180,51 @@ def load_reference_checkpoint(path: str, config: Optional[TrainConfig] = None
     cfg = config or (train_config_from_reference_args(ckpt["args"])
                      if "args" in ckpt else TrainConfig())
     return cfg, ckpt
+
+
+def _load_adam(opt: ClippedAdamW, module: torch.nn.Module, opt_state,
+               to_state_dict) -> None:
+    """optax.chain(clip, adamw) state -> torch.optim.AdamW state: Adam's
+    mu, nu and count become exp_avg, exp_avg_sq and step. `to_state_dict`
+    maps a tree shaped like the params to the state_dict layout (moments
+    are laid out as their parameters)."""
+    adam = opt_state[1][0]                     # ScaleByAdamState
+    mu, nu = to_state_dict(adam.mu), to_state_dict(adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        opt.opt.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device)}
+
+
+def train_state_from_jax(state, cfg: TrainConfig,
+                         vcfg: Optional[VAEConfig] = None,
+                         tcfg: Optional[TeacherConfig] = None, *,
+                         device: torch.device | str = "cpu") -> TrainState:
+    """A JAX `TrainState` whose leaves are numpy arrays -> the port's, on
+    `device`: parameters, teacher BatchNorm statistics, both optimizers'
+    moments and counts, baseline, baseline_initialized and step. The PRNG
+    key is not carried (torch draws other numbers); the port's generator is
+    seeded with cfg.seed."""
+    vcfg = vcfg or cfg.vae_config()
+    tcfg = tcfg or cfg.teacher_config()
+    vae = LunarisCoreVAE(vcfg)
+    vae.load_state_dict(vae_state_dict_from_jax(state.vae_params, vcfg),
+                        strict=True)
+    teacher = LunarMoETeacher(tcfg)
+    teacher.load_state_dict(teacher_state_dict_from_jax(
+        state.teacher_params, state.teacher_stats, tcfg), strict=True)
+    out = state_for(cfg, vae.to(device), teacher.to(device),
+                    step=int(np.asarray(state.step)))
+    _load_adam(out.vae_opt, vae, state.vae_opt,
+               lambda tree: vae_state_dict_from_jax(tree, vcfg))
+    _load_adam(out.teacher_opt, teacher, state.teacher_opt,
+               lambda tree: teacher_state_dict_from_jax(
+                   tree, state.teacher_stats, tcfg))
+    out.baseline = torch.tensor(float(np.asarray(state.baseline)),
+                                dtype=torch.float32, device=device)
+    out.baseline_initialized = torch.tensor(
+        bool(np.asarray(state.baseline_initialized)), device=device)
+    out.best_loss = float(np.asarray(state.best_loss))
+    return out

@@ -1,0 +1,129 @@
+"""K2's backward in the PyTorch port (lunaris_orion_tpu_torch/ops/cuda/
+flash_attention.py): the gradients of `flash_attention`, which on the CPU
+run `attention_bwd_plain`, against `jax.grad` of the JAX package's Pallas
+kernel `attention_bhnd` (interpret mode on the CPU) through both of its
+backward decompositions. The kernels themselves are held against the plain
+version on a CUDA card by tests/test_torch_kernels.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lunaris_orion_tpu.ops.pallas import flash_attention as fa
+from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+
+
+def _inputs(b, h, nq, nk, d, seed):
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((b, h, nq, d)).astype(np.float32)
+    k = r.standard_normal((b, h, nk, d)).astype(np.float32)
+    v = r.standard_normal((b, h, nk, d)).astype(np.float32)
+    bias = (0.5 * r.standard_normal((h, nk))).astype(np.float32)
+    do = r.standard_normal((b, h, nq, d)).astype(np.float32)
+    return q, k, v, bias, do
+
+
+def _jax_grads(q, k, v, bias, do, **kw):
+    def loss(q, k, v, bias):
+        o = fa.attention_bhnd(q, k, v, bias, **kw)
+        return jnp.sum(o * jnp.asarray(do))
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, bias)))]
+
+
+def _port_grads(q, k, v, bias, do, **kw):
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, bias)]
+    o, _ = k2.flash_attention(*ts, **kw)
+    o.backward(torch.from_numpy(do))
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+@pytest.mark.parametrize("n", [256, 2304])
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -987654321)])
+def test_grads_match_pallas(monkeypatch, fused, n, d, rate, seed):
+    """dq, dk, dv and dbias against both TPU backward decompositions
+    (LUNARIS_ATTN_FUSED_BWD=1: `_bwd_fused_kernel`; 0: `_bwd_dq_kernel` +
+    `_bwd_dkv_kernel`)."""
+    monkeypatch.setenv("LUNARIS_ATTN_FUSED_BWD", fused)
+    q, k, v, bias, do = _inputs(1, 2, n, n, d, seed=n + d)
+    want = _jax_grads(q, k, v, bias, do, dropout_rate=rate,
+                      seed=jnp.int32(seed))
+    got = _port_grads(q, k, v, bias, do, dropout_rate=rate, seed=seed)
+    # f32 throughout; blockings and summation orders differ: atol 1e-5.
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_rectangular_q_offset_grads_match_pallas(monkeypatch, fused):
+    """A shard of q rows (Nq = N/2) at q_offset against all N keys, with
+    dropout: the backward must regenerate masks at absolute q positions."""
+    monkeypatch.setenv("LUNARIS_ATTN_FUSED_BWD", fused)
+    n, d, rate, seed = 2304, 8, 0.1, 42
+    q, k, v, bias, do = _inputs(1, 2, n // 2, n, d, seed=9)
+    kw = dict(dropout_rate=rate, seed=seed)
+    want = _jax_grads(q, k, v, bias, do, dropout_rate=rate,
+                      seed=jnp.int32(seed), q_offset=jnp.int32(n // 2))
+    got = _port_grads(q, k, v, bias, do, q_offset=n // 2, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_blocking_and_row_offset_do_not_change_the_grads():
+    """attention_bwd_plain's q blocking (max_elems) changes sums' order
+    only; batch row 1 alone, numbered as row 1 of the full call
+    (row_offset), gets row 1's gradients."""
+    q, k, v, bias, do = (torch.from_numpy(x) for x in
+                         _inputs(2, 2, 300, 300, 8, seed=4))
+    kw = dict(dropout_rate=0.2, seed=5)
+    o, lse = k2.attention_plain(q, k, v, bias, **kw)
+    full = k2.attention_bwd_plain(q, k, v, bias, o, lse, do, **kw)
+    blocked = k2.attention_bwd_plain(q, k, v, bias, o, lse, do,
+                                     max_elems=4 * 300 * 7, **kw)
+    for a, b in zip(full, blocked):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    o1, lse1 = k2.attention_plain(q[1:], k[1:], v[1:], bias, row_offset=2,
+                                  **kw)
+    row = k2.attention_bwd_plain(q[1:], k[1:], v[1:], bias, o1, lse1, do[1:],
+                                 row_offset=2, **kw)
+    for a, b in zip(row[:3], full[:3]):
+        torch.testing.assert_close(a, b[1:], atol=1e-6, rtol=0)
+
+
+def test_bf16_plain_rounds_like_the_kernels():
+    """bf16: dq, dk, dv come back in bf16 and track the f32 gradients
+    within bf16's precision through ~N-term sums."""
+    q, k, v, bias, do = (torch.from_numpy(x) for x in
+                         _inputs(1, 2, 256, 256, 16, seed=6))
+    o, lse = k2.attention_plain(q, k, v, bias)
+    g32 = k2.attention_bwd_plain(q, k, v, bias, o, lse, do)
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    ob, lseb = k2.attention_plain(qb, kb, vb, bias)
+    g16 = k2.attention_bwd_plain(qb, kb, vb, bias, ob, lseb, dob)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), g16, g32):
+        assert a.dtype == (torch.float32 if name == "dbias" else torch.bfloat16)
+        scale = b.abs().max().item()
+        assert (a.float() - b).abs().max().item() <= 0.05 * scale, name
+
+
+def test_output_carries_the_autograd_function():
+    """The wrapper's output is the autograd.Function's, on the CPU as on a
+    card: a backward runs K2's backward, not autograd of the plain forward
+    (whose graph would not exist on a card, where the kernel fills o)."""
+    q, k, v, bias, _ = (torch.from_numpy(x) for x in
+                        _inputs(1, 2, 64, 64, 8, seed=1))
+    o, lse = k2.flash_attention(q.requires_grad_(), k, v, bias)
+    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    assert lse.grad_fn is o.grad_fn or not lse.requires_grad
+
+
+def test_bwd_variant_is_checked():
+    q, k, v, bias, _ = (torch.from_numpy(x) for x in
+                        _inputs(1, 2, 64, 64, 8, seed=1))
+    with pytest.raises(ValueError, match="bwd"):
+        k2.flash_attention(q, k, v, bias, bwd="three-kernel")

@@ -135,5 +135,6 @@ def test_build_dir_tracks_source_content():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT
     assert [p.name for p in _build.sources()] == [
-        "flash_attention_fwd.cu", "gn_mish.cu"]
+        "flash_attention_bwd.cu", "flash_attention_fwd.cu", "gn_mish.cu",
+        "loss_epilogue.cu"]
     assert d == _build.build_dir()

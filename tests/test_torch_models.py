@@ -5,6 +5,9 @@ sides. Run at 32 px (every attention on the full path) and at 48 px
 (N = 2304 tokens: K2's plain version in the port, the XLA flash path in
 JAX)."""
 
+import copy
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,9 +163,44 @@ def test_sample_and_reparameterize_are_seeded(pair):
         torch.testing.assert_close(r1, eps * np.exp(-1.0), atol=1e-7, rtol=0)
 
 
+def test_teacher_train_mode_matches(pair):
+    """Train mode without dropout (no generator; JAX: rng=None): batch
+    statistics in every BatchNorm, the running statistics advanced once,
+    remat on. Outputs at the bar of test_teacher_scores_match; the new
+    running statistics at atol 1e-5 / rtol 1e-4 (f32 batch sums)."""
+    x = np.random.default_rng(6).uniform(
+        -1, 1, (3, pair["size"], pair["size"], 3)).astype(np.float32)
+    e = np.random.default_rng(7).standard_normal(
+        (3, pair["tcfg"].embedding_dim)).astype(np.float32)
+    want, new_stats = jax.jit(lambda p, s, x, e: jteacher.apply(
+        p, s, x, cfg=pair["tcfg"], prompt_embedding=e, train=True))(
+        pair["tp"], pair["ts"], x, e)
+    teacher = copy.deepcopy(pair["teacher"])
+    got = tteacher.apply(teacher, torch.from_numpy(x), train=True,
+                         prompt_embedding=torch.from_numpy(e))
+    for key, atol in (("quality_scores", 1e-4), ("expert_weights", 1e-4),
+                      ("semantic_score", 1e-4), ("style_embedding", 1e-3),
+                      ("prompt_embedding", 1e-3)):
+        np.testing.assert_allclose(got[key].detach().numpy(),
+                                   np.asarray(want[key]), atol=atol,
+                                   rtol=1e-3, err_msg=key)
+    ref = teacher_state_dict_from_jax(pair["tp"], _numpy(new_stats),
+                                      pair["tcfg"])
+    for k, v in teacher.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), ref[k].numpy(), atol=1e-5,
+                                       rtol=1e-4, err_msg=k)
+        if k.endswith("num_batches_tracked"):
+            assert int(v) == 1, k
+
+
 def test_teacher_train_mode_is_not_ported(pair):
+    """What train mode still lacks raises: windowed attention."""
+    x = torch.zeros(1, pair["size"], pair["size"], 3)
+    windowed = LunarMoETeacher(dataclasses.replace(pair["tcfg"],
+                                                   attn_window=16))
     with pytest.raises(NotImplementedError):
-        tteacher.apply(pair["teacher"], torch.zeros(1, 8, 8, 3), train=True)
+        tteacher.apply(windowed, x, train=True)
 
 
 def test_seeded_init_is_reproducible_and_jax_shaped():
