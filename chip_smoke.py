@@ -36,13 +36,35 @@ Phases, each of which raises on failure (exit code 1):
               that the losses reach gets a non-zero gradient on the card;
  10. train    `make_train_step` at the full default width (128 px, latent
               256, feature 128, 8 heads, 4 experts x 3 blocks, batch 16,
-              accumulation 2, remat), seeded random init: 2 bf16 steps and
-              1 f32 step with the default K2 backward, 1 bf16 step with the
-              other; losses finite, both models' parameters changed, every
-              kernel of the path launched; step time and sprites/s.
+              accumulation 2, remat), seeded random init: 1 bf16 step with
+              the non-default K2 backward, then 1 f32 and 1 bf16 step with
+              the default; losses finite, both models' parameters changed,
+              every kernel of the path launched; step time and sprites/s;
+ 11. K5       the GN-apply+Mish+conv3x3 kernel against its plain version at
+              [2,32,32,64]->64, [2,64,64,32]->32, [2,32,32,128]->64 (f32)
+              and [8,128,128,64]->64 (f32 and bf16), then K5 and K1 at the
+              tool's [128,128,128,64]->64 bf16, with times: K5, K1 +
+              F.conv2d, plain;
+ 12. stages   each of the five K2 stage kernels against its plain version
+              at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 and bf16;
+              "sum" bit-equal to the forward kernel at dropout 0; times at
+              B 8 bf16;
+ 13. stats    the per-tile lane-sums kernel, and K1's pass 1 alone, against
+              their plain versions at [128,128,128,32], [128,128,128,64],
+              [128,64,64,128], bf16 and f32, tiles of 512 and 2048 rows;
+              times;
+ 14. tools    `tools.attn_roofline`, `tools.gn_stats` and
+              `tools.fusion_overlap` at their full default shapes; every
+              kernel they reach launched.
 
-Kernel times are medians of CUDA-event timings. The last two lines are a
-JSON object with the kernels' measurements and, last, the result:
+Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
+the larger of its bytes (inputs read once, outputs written once) over
+3.35 TB/s and its operations over the peak of its input type (989 TFLOP/s
+bf16, 67 TFLOP/s f32 outside the tensor cores), at the shape its `ms` was
+taken at; `library_ms` is one PyTorch call computing the same function
+(`F.scaled_dot_product_attention` for K2), timed here and used nowhere in
+the port. The last lines are the card's name and power limit, a JSON object
+with the kernels' measurements and, last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA card it exits with code 2 and prints no result.
 """
@@ -51,7 +73,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -65,19 +86,24 @@ def log(msg: str) -> None:
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Median milliseconds of fn() over `reps` runs, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from lunaris_orion_tpu_torch.tools._timing import time_ms as timer
+    return timer(fn, "cuda", reps, warmup)
+
+
+PEAK_BYTES = 3.35e12                       # H100 SXM: bytes/s of device memory
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor cores; f32 outside them
+
+
+def bound(ops: float, nbytes: float, kind: str) -> dict:
+    """The least time the card could take: operations over the peak of
+    their type against bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def bf16_ulp(torch, x):
@@ -91,10 +117,8 @@ def probe(torch) -> str:
     log(f"[probe] device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()} "
         f"sm_count {torch.cuda.get_device_properties(0).multi_processor_count}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    from lunaris_orion_tpu_torch.tools._timing import card_line
+    smi = card_line("cuda")
     from lunaris_orion_tpu_torch.ops.cuda import _build
     nvcc = _build.nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
@@ -114,18 +138,23 @@ def build() -> None:
     _build.library()
     log(f"[build] {_build.build_dir()} in {time.perf_counter() - t0:.1f} s")
     for line in (_build.build_dir() / "build.log").read_text().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line or line.startswith("nvcc seconds")):
             log("[build]   " + line.strip())
 
 
 def check_k1(torch, dev) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
     g = torch.Generator(device=dev).manual_seed(0)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, moved, ops = 0.0, 0.0, 0.0, 0, 0
     for shape in ((8, 16, 16, 256), (8, 32, 32, 128), (8, 64, 64, 64),
                   (8, 128, 128, 32)):
         c = shape[-1]
         x32 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+        # x read once, y written once; per element 3 for the moments, 2 for
+        # the affine and about 20 for mish's exp, log1p and tanh.
+        moved += 2 * nbytes(x32)
+        ops += 25 * x32.numel()
         w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
         b = 0.1 * torch.randn(c, generator=g, device=dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -148,7 +177,8 @@ def check_k1(torch, dev) -> dict:
             if not ok:
                 raise AssertionError(f"K1 disagrees with its plain version "
                                      f"at {shape} {dt}")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bound(ops, moved, "f32")}
 
 
 def check_k1_train(torch, dev) -> float:
@@ -243,8 +273,15 @@ def check_k2(torch, dev) -> dict:
         if err > tol or lse_err > 1e-4:
             raise AssertionError(f"K2 disagrees with its plain version at "
                                  f"B{b} H{h} N{n} d{d} {dt} dropout {rate}")
-        if big and dt == torch.float32 and rate == 0.0:
-            out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+        if big and b == 8 and rate == 0.0:
+            from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+            lib, note = sdpa_ms(q, k, v, bias, reps=3)
+            log(f"[K2] B{b} H{h} N{n} d{d} {str(dt)[6:]}: "
+                f"F.scaled_dot_product_attention {lib} ms ({note})")
+            if dt == torch.float32:
+                out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                       "library_ms": lib,
+                       **bound(flops, nbytes(q, k, v, bias, o, lse), "f32")}
     return out
 
 
@@ -299,7 +336,9 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
                     generator=torch.Generator(device="cuda").manual_seed(9))
     for bf16 in (False, True):
         gen = ImageGenerator(str(ckpt), device="cuda", bf16=bf16)
+        seen = (k1.launches, k2.launches)
         imgs, quality, sem = gen.decode_and_score(z)
+        per_call = (k1.launches - seen[0], k2.launches - seen[1])
         if imgs.shape != (8, 128, 128, 3) or not (
                 torch.isfinite(imgs).all() and torch.isfinite(quality).all()
                 and torch.isfinite(sem).all()):
@@ -307,7 +346,8 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
                                  f"shape {tuple(imgs.shape)}")
         ms = time_ms(torch, lambda: gen.decode_and_score(z), 3)
         log(f"[slice] decode+score batch 8 {'bf16' if bf16 else 'f32'}: "
-            f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}")
+            f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}; launches "
+            f"a call: K1 {per_call[0]}, K2 fwd {per_call[1]}")
     return launches
 
 
@@ -462,25 +502,38 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             "dq": time_ms(torch, lambda: k2.launch_bwd_kernel(
                 k2.DQ, q, k, v, bias, do, lse, delta, dq=dq, **kw), 3),
         }
+        t |= {"in_bytes": nbytes(q, k, v, bias, do, lse, delta),
+              "dq_bytes": nbytes(dq),
+              "dkv_bytes": nbytes(out["dk"], out["dv"], out["dbias_bh"])}
+        del out, dq, delta
+        from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+        t["sdpa_bwd"], note = sdpa_ms(q, k, v, bias, backward=True,
+                                      dropout_p=0.1, reps=3)
         times[dt] = t
         log(f"[K2 bwd] B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1: fused "
             f"{t['fused']:.1f} ms, split {t['split']:.1f} ms (dk/dv "
-            f"{t['dkv']:.1f} + dq {t['dq']:.1f}), plain {t['plain']:.1f} ms "
-            f"on {smi}")
+            f"{t['dkv']:.1f} + dq {t['dq']:.1f}), plain {t['plain']:.1f} ms, "
+            f"backward of F.scaled_dot_product_attention {t['sdpa_bwd']} ms "
+            f"({note}) on {smi}")
     f32 = times[torch.float32]
     faster = min(("fused", "split"), key=lambda v: sum(
         times[dt][v] for dt in times))
     log(f"[K2 bwd] faster at the teacher's shape (f32 + bf16): {faster}; "
         f"the default is {k2.DEFAULT_BWD}")
+    # Bounds at the f32 timing shape. Per (q, k) pair and head-dim element:
+    # 2 operations each for the scores, dp, dv, dk and dq products.
+    pairs_d = 16 * 8 * 16384 * 16384 * 16
+    entry = lambda key, t, n_ops, out_bytes, lib: {
+        "max_abs_err": errs[key], "ms": f32[t], "plain_ms": f32["plain"],
+        "library_ms": lib,
+        **bound(n_ops * pairs_d, f32["in_bytes"] + out_bytes, "f32")}
     return {
-        "flash_attention_bwd_fused": {"max_abs_err": errs["fused"],
-                                      "ms": f32["fused"],
-                                      "plain_ms": f32["plain"]},
-        "flash_attention_bwd_dq": {"max_abs_err": errs["dq"],
-                                   "ms": f32["dq"], "plain_ms": f32["plain"]},
-        "flash_attention_bwd_dkv": {"max_abs_err": errs["dkv"],
-                                    "ms": f32["dkv"],
-                                    "plain_ms": f32["plain"]},
+        "flash_attention_bwd_fused": entry(
+            "fused", "fused", 10, f32["dq_bytes"] + f32["dkv_bytes"],
+            f32["sdpa_bwd"]),
+        "flash_attention_bwd_dq": entry("dq", "dq", 6, f32["dq_bytes"], None),
+        "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, f32["dkv_bytes"],
+                                         None),
     }
 
 
@@ -506,7 +559,11 @@ def check_k3(torch, dev) -> dict:
         if rel > 1e-5:
             raise AssertionError(f"K3 disagrees with its plain version {dt}")
         if dt == torch.float32:
-            out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+            # Four reads; a subtract, a square and an add per pixel value.
+            out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                   "library_ms": None,
+                   **bound(3 * args[0].numel() + 5 * args[2].numel(),
+                           nbytes(*args) + 8, "f32")}
     return out
 
 
@@ -617,13 +674,14 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
     n_vae = sum(1 for _ in state.vae.parameters())
     g = torch.Generator(device="cuda").manual_seed(8)
     other = next(v for v in k2.BWD_VARIANTS if v != k2.DEFAULT_BWD)
-    runs = [(True, None), (True, None), (False, None), (True, other)]
-    for mod in (k1, k2, k3):
-        for name in ("launches", "bwd_fused_launches", "bwd_dkv_launches",
-                     "bwd_dq_launches"):
-            if hasattr(mod, name):
-                setattr(mod, name, 0)
+    runs = [(True, other), (False, None), (True, None)]   # the first is cold
+    counters = [(k1, "launches"), (k2, "launches"), (k2, "bwd_fused_launches"),
+                (k2, "bwd_dq_launches"), (k2, "bwd_dkv_launches"),
+                (k3, "launches")]
+    for mod, name in counters:
+        setattr(mod, name, 0)
     for bf16, bwd in runs:
+        seen = [getattr(mod, name) for mod, name in counters]
         step = make_train_step(cfg.replace(mixed_precision=bf16),
                                attn_bwd=bwd)
         images = torch.randint(0, 256, (cfg.gradient_accumulation_steps,
@@ -644,7 +702,8 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             f"sprites/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
             f"GiB, total_loss {losses['total_loss']:.5f} recon "
             f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
-            f" on {smi}")
+            f" on {smi}; launches (K1, K2 fwd, K2 bwd fused, dq, dk/dv, K3) "
+            f"{[getattr(mod, name) - was for (mod, name), was in zip(counters, seen)]}")
     after = [p.detach() for p in
              (*state.vae.parameters(), *state.teacher.parameters())]
     moved = [not torch.equal(a, b) for a, b in zip(before, after)]
@@ -657,6 +716,237 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
                 "mse_kl": k3.launches}
     log(f"[train] {sum(moved)}/{len(moved)} parameter tensors changed; "
         f"kernel launches in the train steps: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches
+
+
+def check_k5(torch, dev, smi) -> dict:
+    import torch.nn.functional as F
+    from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(b, hw, cin, cout, dt):
+        y = (2 * torch.randn(b, hw, hw, cin, generator=g, device=dev)).to(dt)
+        alpha = 1 + 0.2 * torch.randn(b, cin, generator=g, device=dev)
+        beta = 1 + 0.1 * torch.randn(b, cin, generator=g, device=dev)
+        w = 0.05 * torch.randn(3, 3, cin, cout, generator=g, device=dev)
+        wb = 0.1 * torch.randn(cout, generator=g, device=dev)
+        return y, alpha, beta, w, wb
+
+    def agree(args, tag):
+        got, ref = k5.gn_mish_conv3(*args), k5.gn_mish_conv3_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if args[0].dtype == torch.float32:
+            # 9 * Cin f32 products summed in another order.
+            ok, tol = bool((err <= 2e-5 + 2e-5 * ref.abs()).all()), "2e-5"
+        else:
+            # The roundings to bf16 are the plain version's own, so only the
+            # f32 sums' order differs: an element is off by the last rounding
+            # (2 ulps of its reference, plus an eighth of the largest
+            # element's ulp near zero), and at most 1 element in 1000
+            # differs at all. A rounding point left out or misplaced makes
+            # 3 in 100 or more differ (measured: 1 in 4000 here).
+            top = ref.float().abs().max()
+            differ = (err > 0).float().mean().item()
+            ok = differ <= 1e-3 and bool((
+                err <= 2 * bf16_ulp(torch, ref) + bf16_ulp(torch, top) / 8).all())
+            tol = f"2 bf16 ulps an element; {differ:.1e} differ, at most 1e-3"
+        log(f"[K5] {tag} {str(args[0].dtype)[6:]}: max_abs_err "
+            f"{err.max().item():.3e} (tol {tol})")
+        if not ok:
+            raise AssertionError(f"K5 disagrees with its plain version at {tag}")
+        return err.max().item()
+
+    worst = 0.0
+    for b, hw, cin, cout, dt in ((2, 32, 64, 64, torch.float32),
+                                 (2, 64, 32, 32, torch.float32),
+                                 (2, 32, 128, 64, torch.float32),
+                                 (8, 128, 64, 64, torch.float32),
+                                 (8, 128, 64, 64, torch.bfloat16)):
+        err = agree(inputs(b, hw, cin, cout, dt),
+                    f"[{b}, {hw}, {hw}, {cin}] -> {cout}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+    # The tool's shape: times of K5, of K1 followed by F.conv2d, of the plain
+    # version.
+    args = inputs(128, 128, 64, 64, torch.bfloat16)
+    agree(args, "[128, 128, 128, 64] -> 64")
+    y, alpha, beta, w, wb = args
+    scale, bias = torch.full((64,), 1.1, device=dev), torch.full((64,), 0.05,
+                                                                 device=dev)
+    w_oihw = w.to(y.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    # K1 at this shape too: it is the tool's `gnmish_alone` and `chain`.
+    ref = k1.gn_mish_plain(y, scale, bias)
+    err = (k1.gn_mish(y, scale, bias).float() - ref.float()).abs()
+    if not bool((err <= 2 * bf16_ulp(torch, ref) + 1e-6).all()):
+        raise AssertionError("K1 disagrees with its plain version at "
+                             "[128, 128, 128, 64] bf16")
+    del ref, err
+    with torch.no_grad():
+        t_k = time_ms(torch, lambda: k5.gn_mish_conv3(*args), 5)
+        t_c = time_ms(torch, lambda: F.conv2d(
+            k1.gn_mish(y, scale, bias).permute(0, 3, 1, 2), w_oihw,
+            wb.to(y.dtype), padding=1), 5)
+        t_p = time_ms(torch, lambda: k5.gn_mish_conv3_plain(*args), 2)
+    ops = 2 * 9 * 64 * 64 * y.numel() // 64
+    out_bytes = y.numel() * y.element_size()          # Cout = Cin here
+    bd = bound(ops, nbytes(y, alpha, beta) + nbytes(w, wb) // 2 + out_bytes,
+               "bf16")
+    log(f"[K5] [128, 128, 128, 64] -> 64 bf16: kernel {t_k:.3f} ms "
+        f"({ops / t_k / 1e9:.2f} TFLOP/s), K1 + F.conv2d {t_c:.3f} ms, plain "
+        f"{t_p:.3f} ms, bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+        f"on {smi}")
+    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "library_ms": None, **bd}
+
+
+def check_stages(torch, dev, smi) -> dict:
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention_stages as st
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def inputs(b, dt):
+        q, k, v = (torch.randn(b, 8, 16384, 16, generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        bias = 0.5 * torch.randn(8, 16384, generator=g, device=dev)
+        return q, q * torch.tensor(0.25, dtype=dt, device=dev), k, v, bias
+
+    worst = 0.0
+    # B 2, and the tool's own B 8, each in f32 and bf16.
+    for b, dt in ((2, torch.float32), (2, torch.bfloat16),
+                  (8, torch.float32), (8, torch.bfloat16)):
+        q, qs, k, v, bias = inputs(b, dt)
+        line = []
+        for stage in st.STAGES:
+            o, lse = st.flash_fwd_stage(qs, k, v, bias, stage, 64)
+            ro, rlse = st.flash_fwd_stage_plain(qs, k, v, bias, stage, 64)
+            torch.cuda.synchronize()
+            ref = ro.float()
+            top = ref.abs().max().item()       # no floor: o is small past exp
+            each = (o.float() - ref).abs()
+            err = each.max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            # f32: 16384 terms summed in another order, 2e-5 of the largest
+            # magnitude. bf16: that, plus 2 ulps of each element's own
+            # reference for the last rounding, and at most 1 element in 100
+            # may differ at all (measured: 1 ulp, 1 in 900).
+            bar = 2e-5 * top
+            differ = (each > 0).float().mean().item()
+            if dt == torch.bfloat16:
+                bar = bar + 2 * bf16_ulp(torch, ref)
+                line.append(f"{stage} {err:.2e} ({differ:.1e} differ)")
+            else:
+                line.append(f"{stage} {err:.2e}/{bar:.1e}")
+            if not bool((each <= bar).all()) or lse_err > 1e-4 or (
+                    dt == torch.bfloat16 and differ > 1e-2):
+                raise AssertionError(
+                    f"K2 stage {stage} disagrees with its plain version at "
+                    f"B{b} H8 N16384 d16 {dt}: max err {err:.3e} at largest "
+                    f"magnitude {top:.3e}, {differ:.2e} of the elements "
+                    f"differ, lse {lse_err:.1e}")
+            del each, ref
+            if dt == torch.float32:
+                worst = max(worst, err)
+        fo, flse = k2.flash_attention(q, k, v, bias)
+        if not (torch.equal(o, fo) and torch.equal(lse, flse)):
+            raise AssertionError(f"K2 stage sum is not the forward kernel at "
+                                 f"dropout 0 ({dt})")
+        log(f"[stages] B{b} H8 N16384 d16 {str(dt)[6:]}: " + ", ".join(line)
+            + "; sum bit-equal to flash_attention at dropout 0")
+    run = lambda: st.flash_fwd_stage(qs, k, v, bias, "sum", 64)
+    t_k = time_ms(torch, run, 5)
+    t_p = time_ms(torch, lambda: st.flash_fwd_stage_plain(
+        qs, k, v, bias, "sum", 64), 1, warmup=0)
+    lib, note = sdpa_ms(q, k, v, bias, reps=3)
+    ops = 4 * 8 * 8 * 16384 * 16384 * 16
+    o, lse = run()
+    bd = bound(ops, nbytes(qs, k, v, bias, o, lse), "bf16")
+    log(f"[stages] B8 H8 N16384 d16 bf16 sum: kernel {t_k:.3f} ms, plain "
+        f"{t_p:.1f} ms, F.scaled_dot_product_attention {lib} ms ({note}), "
+        f"bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} on {smi}")
+    return {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "library_ms": lib, **bd}
+
+
+def check_lane_sums(torch, dev, smi) -> dict:
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    from lunaris_orion_tpu_torch.ops.cuda import gn_stats
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for shape in ((128, 128, 128, 32), (128, 128, 128, 64),
+                  (128, 64, 64, 128)):
+        x32 = 1 + 2 * torch.randn(shape, generator=g, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            x = x32.to(dt)
+            ref = gn_stats.lane_sums_plain(x)
+            worst = 0.0
+            for tn in (512, 2048):
+                got = gn_stats.lane_sums_partials(x, tn)
+                torch.cuda.synchronize()
+                for a, r in zip(got, ref):      # sums in another order
+                    rel = ((a - r).abs().max() / r.abs().max()).item()
+                    worst = max(worst, (a - r).abs().max().item())
+                    if rel > 2e-5:
+                        raise AssertionError(
+                            f"lane sums disagree with the plain version at "
+                            f"{shape} {dt} tile {tn}: {rel:.2e} of the "
+                            f"largest sum")
+            # K1's pass 1 alone (the tool's `k1_pass1`): mean within 1e-5,
+            # inv_std within 1e-4 relative of the plain moments.
+            for a, r, rtol in zip(k1.group_stats(x), k1.group_stats_plain(x),
+                                  (1e-5, 1e-4)):
+                if not torch.allclose(a, r, atol=1e-5, rtol=rtol):
+                    raise AssertionError(f"K1 pass 1 alone disagrees with "
+                                         f"the plain moments at {shape} {dt}")
+            t_k = time_ms(torch, lambda: gn_stats.lane_sums_partials(x, 512), 20)
+            t_p = time_ms(torch, lambda: gn_stats.lane_sums_plain(x), 10)
+            bd = bound(3 * x.numel(), nbytes(x) + 2 * 4 * shape[0] * max(
+                shape[3], 128), "bf16" if dt == torch.bfloat16 else "f32")
+            log(f"[stats] {shape} {str(dt)[6:]}: max_abs_err {worst:.3e} "
+                f"(tol 2e-5 of the largest sum) kernel {t_k:.4f} ms "
+                f"({nbytes(x) / t_k / 1e6:.0f} GB/s) plain {t_p:.4f} ms, "
+                f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} on {smi}")
+            if shape == (128, 128, 128, 64) and dt == torch.bfloat16:
+                out = {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+                       "library_ms": None, **bd}
+    return out
+
+
+def run_tools(torch) -> dict:
+    """This slice's main path: the three measurement tools at their full
+    default shapes. Counts are set to 0 just before and read just after."""
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention_stages as st
+    from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    from lunaris_orion_tpu_torch.ops.cuda import gn_stats
+    from lunaris_orion_tpu_torch.tools import (attn_roofline, fusion_overlap,
+                                               gn_stats as gn_stats_tool)
+    counters = {"gn_mish_conv3": (k5, "launches"),
+                "flash_fwd_stage": (st, "launches"),
+                "lane_sums_partials": (gn_stats, "launches"),
+                "gn_mish": (k1, "launches"),
+                "gn_mish stats pass": (k1, "stats_launches"),
+                "flash_attention_fwd": (k2, "launches")}
+    for mod, name in counters.values():
+        setattr(mod, name, 0)
+    for tool, argv in ((attn_roofline, ["--sdpa"]),
+                       (attn_roofline, ["--dtype", "f32", "--reps", "3"]),
+                       (gn_stats_tool, []), (fusion_overlap, [])):
+        t0 = time.perf_counter()
+        rc = tool.main(argv)
+        torch.cuda.synchronize()
+        log(f"[tools] {tool.__name__.rsplit('.', 1)[1]} {argv}: rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rc != 0:
+            raise AssertionError(f"{tool.__name__} returned {rc}")
+    launches = {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+    log(f"[tools] kernel launches in the three tools: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     return launches
@@ -684,6 +974,10 @@ def main() -> int:
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
     train = run_train(torch, smi, m1, m2, m3)
+    k5 = check_k5(torch, dev, smi)
+    stages = check_stages(torch, dev, smi)
+    lane = check_lane_sums(torch, dev, smi)
+    tools = run_tools(torch)
     src = "lunaris_orion_tpu_torch/csrc/"
     fa = "lunaris_orion_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -708,6 +1002,17 @@ def main() -> int:
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], **k3),
+        dict(name="gn_mish_conv3", route="cuda", source=src + "fused_stage.cu",
+             replaces="lunaris_orion_tpu/ops/pallas/fused_stage.py:56",
+             launches=tools["gn_mish_conv3"], **k5),
+        dict(name="flash_fwd_stage", route="cuda",
+             source=src + "flash_attention_stages.cu",
+             replaces="tools/bench_attn_roofline.py:54",
+             launches=tools["flash_fwd_stage"], **stages),
+        dict(name="lane_sums_partials", route="cuda",
+             source=src + "gn_stats.cu",
+             replaces="tools/bench_gn_stats2.py:52",
+             launches=tools["lane_sums_partials"], **lane),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -55,6 +55,8 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr uint32_t kC1 = 0x9E3779B9u;
@@ -62,22 +64,6 @@ constexpr uint32_t kC2 = 0x85EBCA6Bu;
 constexpr uint32_t kC3 = 0xC2B2AE35u;
 constexpr int kThreads = 128;
 constexpr int kTile = 32;  // query rows (dkv) or key rows (dq) per staged tile
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32<T>(from_f32<T>(v));
-}
 
 // Sum over the TPR consecutive lanes that share one row.
 template <int TPR> __device__ __forceinline__ float row_sum(float v) {

@@ -28,28 +28,12 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 2048;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float mish_f32(float v) {
-  // Stable softplus: log1p(exp(v)) overflows past ~88; above 20 it equals v in f32.
-  const float sp = v > 20.f ? v : log1pf(expf(v));
-  return v * tanhf(sp);
-}
 
 // Pass 1. Block (split, b) sums pixels [p0, p1) of x[b] per channel: thread
 // (tx, ty) owns channel c0 + tx and walks pixels p0 + ty, p0 + ty + ty_n, ...
@@ -204,6 +188,25 @@ extern "C" int lunaris_gn_mish(const void* x, void* y, const void* gamma,
                                  apply_blocks, eps, s);
   return launch<float>(x, y, g, bt, pa, af, B, hw, C, G, splits, apply_blocks,
                        eps, s);
+}
+
+// Pass 1 alone: partial[b, g, split, {sum x, sum x^2}] of x [B, hw, C], for
+// a caller that wants the moments without the apply (the stats-only entry,
+// and the measurement of this pass by itself). Same arguments as above.
+extern "C" int lunaris_gn_stats_pass1(const void* x, void* partial, int B,
+                                      int hw, int C, int G, int splits,
+                                      int is_bf16, void* stream) {
+  if (C > kMaxChannels || G <= 0 || C % G != 0 || splits <= 0 || B <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<float*>(partial);
+  if (is_bf16)
+    gn_stats_partial<__nv_bfloat16><<<dim3(splits, B), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), pa, hw, C, G, splits);
+  else
+    gn_stats_partial<float><<<dim3(splits, B), kThreads, 0, s>>>(
+        static_cast<const float*>(x), pa, hw, C, G, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The name of a cudaError_t returned by any entry point of this library.

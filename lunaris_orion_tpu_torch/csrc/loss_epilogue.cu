@@ -20,15 +20,11 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Fixed-order tree sum of the block's per-thread values; the result is
 // valid in thread 0.

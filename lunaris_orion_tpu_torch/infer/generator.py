@@ -25,8 +25,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from lunaris_orion_tpu.config import TrainConfig
-from lunaris_orion_tpu.utils.image import sample_grid, save_png, to_uint8
+from lunaris_orion_tpu_torch.config import TrainConfig
+from lunaris_orion_tpu_torch.utils.image import sample_grid, save_png, to_uint8
 from lunaris_orion_tpu_torch.device import resolve_device
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE

@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from lunaris_orion_tpu.config import TeacherConfig
+from lunaris_orion_tpu_torch.config import TeacherConfig
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import leaky_relu
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention

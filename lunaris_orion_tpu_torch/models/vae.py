@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from lunaris_orion_tpu.config import VAEConfig
+from lunaris_orion_tpu_torch.config import VAEConfig
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import mish
 

@@ -4,12 +4,13 @@
 for sm_90a, into one shared library with a plain C interface, at first use:
 one `nvcc -c` per source, all started together, then one link. The
 library lands in `lunaris_orion_tpu_torch/_build/<hash>/`, where the hash
-covers the sources' content and the compiler flags, so an edited source
+covers the content of the sources and of the headers they share
+(`csrc/*.cuh`) and the compiler flags, so an edited source or header
 builds anew and an unchanged one is reused. The linker writes to a
 temporary name that is renamed into place, so a build cut short never
 leaves a library that loads. The compiler's report (`-Xptxas -v`:
-registers, shared memory and spills of each kernel) is kept beside it in
-`build.log`.
+registers, shared memory and spills of each kernel) and each source's
+compile time are kept beside it in `build.log`.
 
 Importing this module builds nothing; only `library()` does, and it raises
 `RuntimeError` when nvcc is missing.
@@ -23,6 +24,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -48,6 +51,12 @@ SIGNATURES = {
                                     _U, _F, _U, _I, _I, _I, _P),
     "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I,
                        _P),
+    "lunaris_gn_stats_pass1": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lunaris_lane_sums_partials": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "lunaris_flash_attention_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _P),
+    "lunaris_gn_mish_conv3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
 }
 
 
@@ -71,11 +80,18 @@ def nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in (*sources(), *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _run_timed(cmd):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - t0
 
 
 def build() -> Path:
@@ -91,24 +107,25 @@ def build() -> Path:
     jobs = []
     for src in sources():
         obj = out_dir / f".{src.stem}.{tag}.o"  # nvcc reads the type from ".o"
-        cmd = [compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append(([compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                     obj))
+    with ThreadPoolExecutor(len(jobs)) as pool:     # one nvcc per source
+        done = list(pool.map(_run_timed, (cmd for cmd, _ in jobs)))
     log, failed = [], []
-    for cmd, _, proc in jobs:
-        out = proc.communicate()[0]
-        log.append(" ".join(cmd) + "\n" + out)
+    for (cmd, _), (proc, seconds) in zip(jobs, done):
+        log.append(f"{' '.join(cmd)}\n{proc.stdout}"
+                   f"nvcc seconds: {seconds:.1f} {Path(cmd[-1]).name}\n")
         if proc.returncode != 0:
-            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{proc.stdout}")
     tmp = out_dir / f".liblunaris_kernels.so.{tag}"
     if not failed:
-        cmd = [compiler, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        cmd = [compiler, "-shared", "-o", str(tmp), *(str(o) for _, o in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     (out_dir / "build.log").write_text("".join(log))
-    for _, obj, _ in jobs:
+    for _, obj in jobs:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)

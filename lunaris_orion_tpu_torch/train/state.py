@@ -15,7 +15,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from lunaris_orion_tpu.config import TeacherConfig, TrainConfig, VAEConfig
+from lunaris_orion_tpu_torch.config import TeacherConfig, TrainConfig, VAEConfig
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
 from lunaris_orion_tpu_torch.train.schedule import cosine_warm_restarts

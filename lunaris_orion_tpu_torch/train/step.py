@@ -28,7 +28,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from lunaris_orion_tpu.config import TrainConfig
+from lunaris_orion_tpu_torch.config import TrainConfig
 from lunaris_orion_tpu_torch.models import teacher as teacher_mod
 from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
 from lunaris_orion_tpu_torch.train import losses

@@ -24,12 +24,17 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from lunaris_orion_tpu.config import TeacherConfig, TrainConfig, VAEConfig
-from lunaris_orion_tpu.utils.torch_compat import train_config_from_reference_args
+from lunaris_orion_tpu_torch.config import TeacherConfig, TrainConfig, VAEConfig
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
 from lunaris_orion_tpu_torch.train.state import (ClippedAdamW, TrainState,
                                                  state_for)
+
+
+def train_config_from_reference_args(args: Mapping) -> TrainConfig:
+    """TrainConfig from a reference checkpoint's vars(args) snapshot: the
+    reference's flag names are field names here."""
+    return TrainConfig.from_dict(dict(args))
 
 
 def _f32(x) -> np.ndarray:

@@ -137,20 +137,25 @@ def test_orbax_directory_points_to_the_converter(tmp_path):
 
 def test_port_never_imports_jax():
     """In a fresh interpreter, importing every module of the port, the
-    training slice's included, leaves jax, optax and flax unloaded (the JAX
-    package's framework-free modules are allowed)."""
+    training slice and the tools included, leaves jax, optax and flax
+    unloaded, and every module of the JAX package too: the port keeps its
+    own copies of what it needs from there."""
     code = (
         "import sys, pkgutil, importlib, lunaris_orion_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "need = ['cli.generate', 'train.step', 'train.state', 'train.losses',\n"
-        "        'train.schedule', 'ops.cuda.loss_epilogue', 'utils.convert']\n"
+        "        'train.schedule', 'ops.cuda.loss_epilogue', 'utils.convert',\n"
+        "        'config', 'utils.image', 'ops.cuda.fused_stage',\n"
+        "        'ops.cuda.flash_attention_stages', 'ops.cuda.gn_stats',\n"
+        "        'tools.attn_roofline', 'tools.gn_stats', 'tools.fusion_overlap']\n"
         "missing = [n for n in need if 'lunaris_orion_tpu_torch.' + n not in mods]\n"
         "assert not missing, missing\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'flax')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'flax', 'lunaris_orion_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 22
+    assert int(proc.stdout.strip()) >= 31

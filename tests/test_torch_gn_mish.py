@@ -135,6 +135,50 @@ def test_build_dir_tracks_source_content():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT
     assert [p.name for p in _build.sources()] == [
-        "flash_attention_bwd.cu", "flash_attention_fwd.cu", "gn_mish.cu",
-        "loss_epilogue.cu"]
+        "flash_attention_bwd.cu", "flash_attention_fwd.cu",
+        "flash_attention_stages.cu", "fused_stage.cu", "gn_mish.cu",
+        "gn_stats.cu", "loss_epilogue.cu"]
     assert d == _build.build_dir()
+
+
+def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
+    """An edit to a header the sources share gives another build directory,
+    as an edit to a source does."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.build_dir()
+    (csrc / "common.cuh").write_text("// two\n")
+    second = _build.build_dir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert len({first, second, _build.build_dir()}) == 3
+    monkeypatch.undo()
+    real = _build.CSRC
+    used = [p.name for p in real.glob("*.cu")
+            if '#include "common.cuh"' in p.read_text()]
+    assert used and (real / "common.cuh").is_file()
+
+
+def test_build_runs_one_compiler_per_source_and_logs_times(monkeypatch, tmp_path):
+    """`build()` with a stand-in compiler: one compile per source and one
+    link, the library renamed into place, and `build.log` holding each
+    source's output and compile time."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/bash\nprev=""\nfor a in "$@"; do\n'
+                    '  if [ "$prev" = "-o" ]; then out="$a"; fi; prev="$a"\n'
+                    'done\necho "ptxas info : $*"\ntouch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "_build")
+    lib = _build.build()
+    assert lib.is_file() and lib.parent == _build.build_dir()
+    assert sorted(p.name for p in lib.parent.iterdir()) == ["build.log",
+                                                            lib.name]
+    log = (lib.parent / "build.log").read_text()
+    for src in _build.sources():
+        assert f" {src.name}\n" in log
+    assert log.count("nvcc seconds: ") == len(_build.sources())
+    assert log.count("ptxas info : -shared ") == 1    # the stand-in's echo
+    assert _build.build() == lib                    # built once, then reused

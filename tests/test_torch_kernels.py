@@ -12,9 +12,13 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+from lunaris_orion_tpu_torch.ops.cuda import flash_attention_stages as stages
+from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+from lunaris_orion_tpu_torch.ops.cuda import gn_stats
 from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
 
 
@@ -258,3 +262,226 @@ def test_every_parameter_gets_a_gradient_on_cuda(cuda):
         for name, p in model.named_parameters():
             assert p.grad is not None, name
             assert p.grad.abs().sum() > 0, name
+
+
+# --- K5 GN-apply + Mish + conv3x3 ---------------------------------------------
+
+def _k5_inputs(cuda, b, h, w, cin, cout, dtype, seed, beta_mean=0.0):
+    r = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    y = f(2.0 * r.standard_normal((b, h, w, cin))).to(dtype)
+    alpha = f(1.0 + 0.2 * r.standard_normal((b, cin)))
+    beta = f(beta_mean + 0.1 * r.standard_normal((b, cin)))
+    wt = f(0.05 * r.standard_normal((3, 3, cin, cout)))
+    wb = f(0.1 * r.standard_normal(cout))
+    return y, alpha, beta, wt, wb
+
+
+def _bf16_ulp(x):
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(1e-30)))
+    return torch.exp2(e - 7)
+
+
+def _k5_bf16_agree(got, ref) -> bool:
+    """The bf16 bar of K5. The kernel rounds where the plain version rounds,
+    so only the order of the f32 sums differs: an element is off by the last
+    rounding (2 ulps of its reference, plus an eighth of the largest
+    element's ulp near zero), and at most 1 element in 1000 differs at all
+    (measured on an H100: 1 in 4000 to 1 in 20000)."""
+    err = (got.float() - ref.float()).abs()
+    top = ref.float().abs().max()
+    return ((err > 0).float().mean().item() <= 1e-3 and bool(
+        (err <= 2 * _bf16_ulp(ref) + _bf16_ulp(top) / 8).all()))
+
+
+def _k5_plain_without(y, alpha, beta, w, wb, skip):
+    """`gn_mish_conv3_plain` with the rounding to y's dtype left out at one
+    point: "affine", "mish", "w" or "wb" (None: every point kept)."""
+    dt = y.dtype
+    b, h, wd, _ = y.shape
+    rnd = lambda t, name: t.float() if name == skip else t.to(dt).float()
+    g = rnd(y.float() * alpha[:, None, None, :] + beta[:, None, None, :],
+            "affine")
+    g = rnd(g * torch.tanh(F.softplus(g)), "mish")
+    gp = F.pad(g, (0, 0, 1, 1, 1, 1))
+    w32 = rnd(w, "w")
+    out = torch.zeros(b, h, wd, w.shape[3], device=y.device)
+    for dy in range(3):
+        for dx in range(3):
+            out += torch.matmul(gp[:, dy:dy + h, dx:dx + wd, :], w32[dy, dx])
+    return (out + rnd(wb, "wb")).to(dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", ["affine", "mish", "w", "wb"])
+def test_gn_mish_conv3_bf16_bar_sees_each_rounding_point(cuda, skip):
+    """A plain version with one rounding point left out fails the bf16 bar
+    that the kernel passes: the bar holds every rounding point of the
+    kernel, not only its f32 structure."""
+    args = _k5_inputs(cuda, 2, 32, 32, 64, 64, torch.bfloat16, seed=5,
+                      beta_mean=1.0)
+    got = k5.gn_mish_conv3(*args)
+    assert torch.equal(_k5_plain_without(*args, None),
+                       k5.gn_mish_conv3_plain(*args))
+    assert _k5_bf16_agree(got, k5.gn_mish_conv3_plain(*args))
+    assert not _k5_bf16_agree(got, _k5_plain_without(*args, skip))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 32, 32, 64, 64), (2, 64, 64, 32, 32), (2, 32, 32, 128, 64),
+    (8, 128, 128, 64, 64), (3, 13, 37, 8, 32), (1, 5, 70, 24, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_mish_conv3_kernel_matches_plain(cuda, b, h, w, cin, cout, dtype):
+    assert k5.supported_shape(h, w, cin, cout)
+    args = _k5_inputs(cuda, b, h, w, cin, cout, dtype, seed=h + w + cin,
+                      beta_mean=1.0)           # mish(beta) != 0 at the halo
+    before = k5.launches
+    got = k5.gn_mish_conv3(*args)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert got.shape == (b, h, w, cout) and got.dtype == dtype
+    ref = k5.gn_mish_conv3_plain(*args)
+    err = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        # 9 * Cin f32 products summed in another order: the JAX package's bar.
+        assert (err <= 2e-5 + 2e-5 * ref.abs()).all(), err.max().item()
+    else:
+        assert _k5_bf16_agree(got, ref), (err.max().item(),
+                                          (err > 0).float().mean().item())
+    assert torch.equal(got, k5.gn_mish_conv3(*args)), "same bits every run"
+
+
+@pytest.mark.gpu
+def test_gn_mish_conv3_rejects_unsupported(cuda):
+    y, alpha, beta, w, wb = _k5_inputs(cuda, 1, 8, 8, 16, 32, torch.float32, 0)
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
+        k5.gn_mish_conv3(y[..., :12].contiguous(), alpha[:, :12].contiguous(),
+                         beta[:, :12].contiguous(), w[:, :, :12].contiguous(),
+                         wb)
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
+        k5.gn_mish_conv3(y, alpha, beta, w[..., :16].contiguous(), wb[:16])
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.gn_mish_conv3(y.transpose(1, 2), alpha, beta, w, wb)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        k5.gn_mish_conv3(y.half(), alpha, beta, w, wb)
+
+
+# --- the K2 stage family -----------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", stages.STAGES)
+@pytest.mark.parametrize("n", [4096, 1000, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_stage_kernel_matches_plain(cuda, stage, n, dtype):
+    d = stages.HEAD_DIM
+    r = np.random.default_rng(n + d)
+    nk = -(-n // 64) * 64                       # a ragged Nq, whole key tiles
+    mk = lambda *shape: torch.from_numpy(
+        r.standard_normal(shape).astype(np.float32)).to(cuda)
+    q = (mk(2, 4, n, d) * d ** -0.5).to(dtype)
+    k, v = mk(2, 4, nk, d).to(dtype), mk(2, 4, nk, d).to(dtype)
+    bias = 0.5 * mk(4, nk)
+    block_k = stages.KERNEL_BLOCK_K
+    before = stages.launches
+    o, lse = stages.flash_fwd_stage(q, k, v, bias, stage, block_k)
+    torch.cuda.synchronize()
+    assert stages.launches == before + 1
+    ro, rlse = stages.flash_fwd_stage_plain(q, k, v, bias, stage, block_k)
+    ref = ro.float()
+    scale = ref.abs().max().item()       # no floor: o is small past "exp"
+    err = (o.float() - ref).abs()
+    # f32: up to Nk terms summed in another order, 2e-5 of the largest
+    # magnitude. bf16: that, plus 2 ulps of each element's own reference for
+    # the last rounding, and at most 1 element in 100 may differ at all
+    # (measured on an H100: 1 ulp, 1 in 900 at Nk 16384).
+    bar = 2e-5 * scale
+    if dtype == torch.bfloat16:
+        bar = bar + 2 * _bf16_ulp(ref)
+        assert (err > 0).float().mean().item() <= 1e-2
+    assert (err <= bar).all(), (err.max().item(), scale)
+    assert (lse - rlse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_stage_sum_is_the_forward_kernel(cuda, dtype):
+    """At "sum" the stage kernel is the forward kernel without dropout,
+    operation for operation: the same bits."""
+    r = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(r.standard_normal((2, 4, 2048, 16)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
+    bias = torch.from_numpy(
+        (0.5 * r.standard_normal((4, 2048))).astype(np.float32)).to(cuda)
+    o, lse = k2.flash_attention(q, k, v, bias)
+    qs = q * torch.tensor(16 ** -0.5, dtype=dtype, device=cuda)
+    so, slse = stages.flash_fwd_stage(qs, k, v, bias, "sum", 64)
+    assert torch.equal(so, o) and torch.equal(slse, lse)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_stage_rejects_unsupported(cuda):
+    q, k, v = (torch.zeros(1, 2, 256, 16, device=cuda) for _ in range(3))
+    bias = torch.zeros(2, 256, device=cuda)
+    with pytest.raises(ValueError, match="key tile"):
+        stages.flash_fwd_stage(q, k, v, bias, "dots", 128)
+    q8, k8, v8 = (torch.zeros(1, 2, 256, 8, device=cuda) for _ in range(3))
+    with pytest.raises(ValueError, match="head dim"):
+        stages.flash_fwd_stage(q8, k8, v8, bias, "dots", 64)
+    with pytest.raises(ValueError, match="one dtype"):
+        stages.flash_fwd_stage(q, k.bfloat16(), v, bias, "dots", 64)
+
+
+# --- lane sums from per-tile partials, and K1's pass 1 alone --------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 128, 128, 32), (128, 128, 128, 64),
+                                   (128, 64, 64, 128), (2, 16, 16, 256),
+                                   (3, 8, 8, 1024), (2, 16, 16, 8)])
+@pytest.mark.parametrize("tile_rows", [512, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_sums_kernel_matches_plain(cuda, shape, tile_rows, dtype):
+    b, h, w, c = shape
+    rows = h * w * c // 128
+    tile_rows = min(tile_rows, rows)
+    assert gn_stats.supported_shape(h, w, c, tile_rows, dtype)
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (1.0 + 2.0 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    before = gn_stats.launches
+    s1, s2 = gn_stats.lane_sums_partials(x, tile_rows)
+    torch.cuda.synchronize()
+    assert gn_stats.launches == before + 1
+    r1, r2 = gn_stats.lane_sums_plain(x, tile_rows)
+    assert s1.shape == r1.shape == (b, max(c, 128))
+    for got, ref in ((s1, r1), (s2, r2)):   # sums in another order
+        assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+    t1, t2 = gn_stats.lane_sums_partials(x, tile_rows)
+    assert torch.equal(s1, t1) and torch.equal(s2, t2), "same bits every run"
+
+
+@pytest.mark.gpu
+def test_lane_sums_rejects_unsupported(cuda):
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
+        gn_stats.lane_sums_partials(torch.zeros(1, 4, 4, 384, device=cuda), 3)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        gn_stats.lane_sums_partials(
+            torch.zeros(1, 16, 16, 32, device=cuda, dtype=torch.float16))
+    x = torch.zeros(1, 16, 16, 64, device=cuda)[..., :32]      # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_stats.lane_sums_partials(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 128, 128, 32), (8, 16, 16, 256),
+                                   (3, 7, 9, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_stats_pass1_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (0.5 + 2.0 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    before = k1.stats_launches
+    mean, inv = k1.group_stats(x, groups=8)
+    torch.cuda.synchronize()
+    assert k1.stats_launches == before + 1
+    rmean, rinv = k1.group_stats_plain(x, groups=8)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(inv, rinv, atol=1e-5, rtol=1e-4)
