@@ -10,14 +10,18 @@ Phases, each of which raises on failure (exit code 1):
               decoder shapes, batch 8, f32 and bf16, and on the inputs of
               the 16 sites of a batch-16 VAE training forward (the train
               step's own), f32 and bf16;
-  4. K2       flash-attention forward kernel against its plain version at
-              the teacher's shape (B 8, H 8, N 16384, d 16) with dropout 0
-              and 0.1, f32 and bf16, at the train step's B 16 with dropout
-              0.1, and at d 8/48/64 and a ragged N;
+  4. K2       flash-attention forward kernels against the plain version at
+              the teacher's shape (B 8 and the train step's B 16, H 8,
+              N 16384, d 16) with dropout 0 and 0.1, f32 (CUDA cores) and
+              bf16 (tensor cores), and at d 8/48/64 and a ragged N; bf16
+              element by element against the plain version's online form;
+              the tensor-core bf16 kernel timed against the CUDA-core one it
+              replaced (earlier, new, new, earlier);
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
-              counts must be above 0; decode+score sprites/s;
+              counts must be above 0; decode+score sprites/s, and one call
+              under torch.profiler: device time by kernel, idle share;
   6. context  a 64 px config (N = 4096) through the port on the CPU (plain
               versions) and on the card (kernels) from one checkpoint and
               one z, TF32 off: decode within 1/255, quality within 1e-3;
@@ -40,15 +44,17 @@ Phases, each of which raises on failure (exit code 1):
               the non-default K2 backward, then 1 f32 and 1 bf16 step with
               the default; losses finite, both models' parameters changed,
               every kernel of the path launched; step time and sprites/s;
+              the two default steps run under torch.profiler: device time
+              by kernel, idle share;
  11. K5       the GN-apply+Mish+conv3x3 kernel against its plain version at
               [2,32,32,64]->64, [2,64,64,32]->32, [2,32,32,128]->64 (f32)
               and [8,128,128,64]->64 (f32 and bf16), then K5 and K1 at the
               tool's [128,128,128,64]->64 bf16, with times: K5, K1 +
               F.conv2d, plain;
  12. stages   each of the five K2 stage kernels against its plain version
-              at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 and bf16;
-              "sum" bit-equal to the forward kernel at dropout 0; times at
-              B 8 bf16;
+              at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 (CUDA-core
+              body) and bf16 (tensor-core body); "sum" bit-equal to the
+              forward kernel at dropout 0; times at B 8 bf16;
  13. stats    the per-tile lane-sums kernel, and K1's pass 1 alone, against
               their plain versions at [128,128,128,32], [128,128,128,64],
               [128,64,64,128], bf16 and f32, tiles of 512 and 2048 rows;
@@ -63,8 +69,11 @@ the larger of its bytes (inputs read once, outputs written once) over
 bf16, 67 TFLOP/s f32 outside the tensor cores), at the shape its `ms` was
 taken at; `library_ms` is one PyTorch call computing the same function
 (`F.scaled_dot_product_attention` for K2), timed here and used nowhere in
-the port. The last lines are the card's name and power limit, a JSON object
-with the kernels' measurements and, last, the result:
+the port. The K2 forward's entry carries the f32 reading under the plain
+keys and the bf16 reading under `*_bf16` (`earlier_ms_bf16`: the CUDA-core
+bf16 kernel on the same inputs). The last lines are the card's name and
+power limit, a JSON object with the kernels' measurements and, last, the
+result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA card it exits with code 2 and prints no result.
 """
@@ -109,6 +118,44 @@ def nbytes(*tensors) -> int:
 def bf16_ulp(torch, x):
     e = torch.floor(torch.log2(x.float().abs().clamp_min(1e-30)))
     return torch.exp2(e - 7)
+
+
+# Where a path's device time goes: the port's kernels by a part of their name.
+KERNEL_GROUPS = (("K2 fwd", ("flash_fwd",)),
+                 ("K2 bwd dk/dv", ("flash_bwd_dkv",)),
+                 ("K2 bwd dq", ("flash_bwd_dq",)),
+                 ("K1", ("gn_mish_apply", "gn_stats_partial", "gn_fold")),
+                 ("K3", ("mse_kl",)))
+
+
+def device_share(torch, fn, tag: str, smi: str):
+    """Run fn() once under torch.profiler and log its device time by kernel
+    group, with the share of the host's time in which the device was idle.
+    Returns (fn's result, the host's seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    ms = dict.fromkeys([name for name, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for e in p.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        group = next((g for g, parts in KERNEL_GROUPS
+                      if any(part in e.key for part in parts)), "other")
+        ms[group] += e.self_device_time_total / 1e3
+    total = sum(ms.values())
+    if total <= 0:
+        log(f"[profile] {tag}: the profiler recorded no device time")
+    else:
+        parts = ", ".join(f"{g} {t:.1f}" for g, t in ms.items() if t > 0)
+        log(f"[profile] {tag}: host {host_s * 1e3:.1f} ms, device "
+            f"{total:.1f} ms (idle {max(0.0, 1 - total / (host_s * 1e3)):.1%})"
+            f": {parts} ms on {smi}")
+    return result, host_s
 
 
 def probe(torch) -> str:
@@ -235,53 +282,117 @@ def check_k1_train(torch, dev) -> float:
     return worst
 
 
-def check_k2(torch, dev) -> dict:
+# The bf16 bar of the K2 forward, element by element against the plain
+# version's online form at the kernel's key tile (which rounds p where the
+# kernel does): 2 bf16 ulps of the element's own reference for the last
+# rounding, plus a share of the largest output, and a ceiling on the share of
+# elements that differ at all. A score that differs in its last f32 bits can
+# round p the other way in bf16 and move o by 2^-8 p / l |v|. CUDA cores
+# (sums in f32 FMAs, expf): 2e-5 of the largest, 1 element in 100 (measured
+# on an H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
+# rounded product): 1e-3 of the largest, 3 in 100 (measured: 1.8e-4 at N 300,
+# 1.5e-4 at N 16384; 9 in 1000). An element in the wrong place is off by a
+# tenth of the largest or more.
+K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2)}
+
+
+def k2_bf16_agree(torch, got, ref, body):
+    """(ok, worst excess over 2 ulps as a share of the largest, share of
+    elements that differ) of a bf16 forward output against its reference."""
+    share, ceiling = K2_BF16_BAR[body]
+    ref = ref.float()
+    each = (got.float() - ref).abs()
+    top = ref.abs().max().item()
+    excess = (each - 2 * bf16_ulp(torch, ref)).max().item() / top
+    differ = (each > 0).float().mean().item()
+    return excess <= share and differ <= ceiling, excess, differ
+
+
+def check_k2(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
-    cases = [(8, 8, 16384, 16, dt, rate) for dt in (torch.float32,
-                                                     torch.bfloat16)
-             for rate in (0.0, 0.1)]
-    # The train step's shape: B 16 (the batch), dropout 0.1.
-    cases += [(16, 8, 16384, 16, dt, 0.1) for dt in (torch.float32,
-                                                     torch.bfloat16)]
+    # The teacher's shape at the serving batch and the train step's.
+    cases = [(b, 8, 16384, 16, dt, rate) for b in (8, 16)
+             for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
     cases += [(8, 8, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
+    cases += [(8, 8, 4096, d, torch.bfloat16, 0.1) for d in (8, 48)]
     cases += [(8, 8, 4096, 64, torch.bfloat16, 0.0),
-              (4, 8, 2000, 16, torch.float32, 0.1)]
+              (4, 8, 2000, 16, torch.float32, 0.1),
+              (4, 8, 2000, 16, torch.bfloat16, 0.1),
+              (4, 8, 2000, 16, torch.bfloat16, 0.0)]
     for b, h, n, d, dt, rate in cases:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
         bias = 0.5 * torch.randn(h, n, generator=g, device=dev)
         kw = dict(dropout_rate=rate, seed=-1234567)
+        inst = k2.forward_instance(dt, d, n, n, rate)
+        tag = (f"B{b} H{h} N{n} d{d} {str(dt)[6:]} dropout {rate} "
+               f"({inst.body})")
         o, lse = k2.flash_attention(q, k, v, bias, **kw)
         ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
         lse_err = (lse - rlse).abs().max().item()
         scale = ro.float().abs().max().item()
+        # f32: atol 1e-5. bf16 against the two-pass plain version, which
+        # rounds p at another magnitude: 2 bf16 ulps of the largest output;
+        # the element-by-element bar is held against the online form below.
         tol = 1e-5 if dt == torch.float32 else 2 * 2.0 ** -7 * scale
+        ok, note = err <= tol and lse_err <= 1e-4, ""
+        if dt == torch.bfloat16:
+            oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
+                                          **kw)
+            agree, excess, differ = k2_bf16_agree(torch, o, oo, inst.body)
+            ok = ok and agree and (lse - olse).abs().max().item() <= 1e-4
+            note = (f"; online form: over 2 ulps by {max(excess, 0):.1e} of "
+                    f"the largest (bar {K2_BF16_BAR[inst.body][0]:.0e}), "
+                    f"{differ:.1e} differ (bar {K2_BF16_BAR[inst.body][1]:.0e})")
+            del oo, olse
         big = n == 16384
         t_k = time_ms(torch, lambda: k2.flash_attention(q, k, v, bias, **kw),
                       5 if big else 10)
-        t_p = time_ms(torch, lambda: k2.attention_plain(q, k, v, bias, **kw),
-                      3 if big else 5)
         flops = 4 * b * h * n * n * d
-        log(f"[K2] B{b} H{h} N{n} d{d} {str(dt)[6:]} dropout {rate}: "
-            f"max_abs_err {err:.3e} (tol {tol:.1e}) lse_err {lse_err:.1e} "
-            f"kernel {t_k:.3f} ms ({flops / t_k / 1e9:.2f} TFLOP/s) plain "
-            f"{t_p:.3f} ms")
-        if err > tol or lse_err > 1e-4:
-            raise AssertionError(f"K2 disagrees with its plain version at "
-                                 f"B{b} H{h} N{n} d{d} {dt} dropout {rate}")
-        if big and b == 8 and rate == 0.0:
-            from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
-            lib, note = sdpa_ms(q, k, v, bias, reps=3)
-            log(f"[K2] B{b} H{h} N{n} d{d} {str(dt)[6:]}: "
-                f"F.scaled_dot_product_attention {lib} ms ({note})")
+        log(f"[K2] {tag}: max_abs_err {err:.3e} (tol {tol:.1e}) lse_err "
+            f"{lse_err:.1e}{note}; kernel {t_k:.3f} ms "
+            f"({flops / t_k / 1e9:.2f} TFLOP/s)")
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at {tag}")
+        if not (big and d == 16 and dt == torch.bfloat16 or
+                big and b == 8 and rate == 0.0):
+            continue
+        del ro, rlse
+        if dt == torch.bfloat16:
+            # The CUDA-core bf16 kernel that the tensor-core one replaced, on
+            # the same inputs, in turns: earlier, new, new, earlier.
+            run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
+                q, k, v, bias, body=body, **kw), 3)
+            t = [run("simt"), run("mma"), run("mma"), run("simt")]
+            log(f"[K2] {tag}: earlier (CUDA cores) {t[0]:.3f}, new (tensor "
+                f"cores) {t[1]:.3f}, new {t[2]:.3f}, earlier {t[3]:.3f} ms on "
+                f"{smi}")
+            if min(t[1:3]) >= min(t[0], t[3]):
+                raise AssertionError(f"K2 at {tag}: the tensor-core kernel is "
+                                     "no faster than the one it replaced")
+        if b == 8 and rate == 0.0:
+            t_p = time_ms(torch, lambda: k2.attention_plain(q, k, v, bias, **kw),
+                          2)
+            lib, lib_note = sdpa_ms(q, k, v, bias, reps=3)
+            bd = bound(flops, nbytes(q, k, v, bias, o, lse),
+                       "f32" if dt == torch.float32 else "bf16")
+            log(f"[K2] {tag}: plain {t_p:.3f} ms, "
+                f"F.scaled_dot_product_attention {lib} ms ({lib_note}), bound "
+                f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}")
             if dt == torch.float32:
-                out = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                       "library_ms": lib,
-                       **bound(flops, nbytes(q, k, v, bias, o, lse), "f32")}
+                out |= {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                        "library_ms": lib, **bd}
+            else:
+                out |= {"max_abs_err_bf16": err, "ms_bf16": t_k,
+                        "plain_ms_bf16": t_p, "library_ms_bf16": lib,
+                        "bound_ms_bf16": bd["bound_ms"],
+                        "bound_by_bf16": bd["bound_by"],
+                        "earlier_ms_bf16": min(t[0], t[3])}
     return out
 
 
@@ -348,6 +459,8 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
         log(f"[slice] decode+score batch 8 {'bf16' if bf16 else 'f32'}: "
             f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}; launches "
             f"a call: K1 {per_call[0]}, K2 fwd {per_call[1]}")
+        device_share(torch, lambda: gen.decode_and_score(z), "decode+score "
+                     f"batch 8 {'bf16' if bf16 else 'f32'}", smi)
     return launches
 
 
@@ -689,10 +802,16 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
                                dtype=torch.uint8, device="cuda", generator=g)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, m = step(state, images)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        if state.step == 0:             # the cold step: the host's clock only
+            t0 = time.perf_counter()
+            state, m = step(state, images)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        else:
+            (state, m), dt = device_share(
+                torch, lambda: step(state, images), "train step "
+                f"{'bf16' if bf16 else 'f32'} K2 bwd {bwd or k2.DEFAULT_BWD}",
+                smi)
         losses = {k: float(v) for k, v in m.items()}
         if not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"train step: non-finite metrics {losses}")
@@ -816,34 +935,35 @@ def check_stages(torch, dev, smi) -> dict:
         bias = 0.5 * torch.randn(8, 16384, generator=g, device=dev)
         return q, q * torch.tensor(0.25, dtype=dt, device=dev), k, v, bias
 
-    worst = 0.0
+    worst, block_k = 0.0, st.KERNEL_BLOCK_K
     # B 2, and the tool's own B 8, each in f32 and bf16.
     for b, dt in ((2, torch.float32), (2, torch.bfloat16),
                   (8, torch.float32), (8, torch.bfloat16)):
         q, qs, k, v, bias = inputs(b, dt)
         line = []
         for stage in st.STAGES:
-            o, lse = st.flash_fwd_stage(qs, k, v, bias, stage, 64)
-            ro, rlse = st.flash_fwd_stage_plain(qs, k, v, bias, stage, 64)
+            o, lse = st.flash_fwd_stage(qs, k, v, bias, stage, block_k)
+            ro, rlse = st.flash_fwd_stage_plain(qs, k, v, bias, stage, block_k)
             torch.cuda.synchronize()
             ref = ro.float()
             top = ref.abs().max().item()       # no floor: o is small past exp
             each = (o.float() - ref).abs()
             err = each.max().item()
             lse_err = (lse - rlse).abs().max().item()
-            # f32: 16384 terms summed in another order, 2e-5 of the largest
-            # magnitude. bf16: that, plus 2 ulps of each element's own
-            # reference for the last rounding, and at most 1 element in 100
-            # may differ at all (measured: 1 ulp, 1 in 900).
+            # f32 (CUDA cores): 16384 terms summed in another order, 2e-5 of
+            # the largest magnitude. bf16 (tensor cores): the forward's bar,
+            # K2_BF16_BAR: 2 ulps of each element's own reference for the
+            # last rounding plus 1e-3 of the largest, and at most 3 elements
+            # in 100 may differ at all (measured: 1.6e-4, 9 in 1000).
             bar = 2e-5 * top
             differ = (each > 0).float().mean().item()
             if dt == torch.bfloat16:
-                bar = bar + 2 * bf16_ulp(torch, ref)
+                bar = K2_BF16_BAR["mma"][0] * top + 2 * bf16_ulp(torch, ref)
                 line.append(f"{stage} {err:.2e} ({differ:.1e} differ)")
             else:
                 line.append(f"{stage} {err:.2e}/{bar:.1e}")
             if not bool((each <= bar).all()) or lse_err > 1e-4 or (
-                    dt == torch.bfloat16 and differ > 1e-2):
+                    dt == torch.bfloat16 and differ > K2_BF16_BAR["mma"][1]):
                 raise AssertionError(
                     f"K2 stage {stage} disagrees with its plain version at "
                     f"B{b} H8 N16384 d16 {dt}: max err {err:.3e} at largest "
@@ -858,10 +978,10 @@ def check_stages(torch, dev, smi) -> dict:
                                  f"dropout 0 ({dt})")
         log(f"[stages] B{b} H8 N16384 d16 {str(dt)[6:]}: " + ", ".join(line)
             + "; sum bit-equal to flash_attention at dropout 0")
-    run = lambda: st.flash_fwd_stage(qs, k, v, bias, "sum", 64)
+    run = lambda: st.flash_fwd_stage(qs, k, v, bias, "sum", block_k)
     t_k = time_ms(torch, run, 5)
     t_p = time_ms(torch, lambda: st.flash_fwd_stage_plain(
-        qs, k, v, bias, "sum", 64), 1, warmup=0)
+        qs, k, v, bias, "sum", block_k), 1, warmup=0)
     lib, note = sdpa_ms(q, k, v, bias, reps=3)
     ops = 4 * 8 * 8 * 16384 * 16384 * 16
     o, lse = run()
@@ -963,7 +1083,7 @@ def main() -> int:
     build()
     k1 = check_k1(torch, dev)
     k1["max_abs_err"] = max(k1["max_abs_err"], check_k1_train(torch, dev))
-    k2 = check_k2(torch, dev)
+    k2 = check_k2(torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_slice(torch, Path(tmp), smi)
         run_context(torch, Path(tmp))
@@ -985,7 +1105,7 @@ def main() -> int:
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"], **k1),
         dict(name="flash_attention_fwd", route="cuda",
-             source=src + "flash_attention_fwd.cu", replaces=f"{fa}:335",
+             source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"], **k2),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cu", replaces=f"{fa}:574",

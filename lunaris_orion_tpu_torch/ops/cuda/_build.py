@@ -45,7 +45,8 @@ SIGNATURES = {
     "lunaris_gn_mish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _P),
     "lunaris_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _F, _I, _U, _F, _U, _I, _I, _I, _P),
+                                    _I, _F, _I, _U, _F, _U, _I, _I, _I, _I,
+                                    _P),
     "lunaris_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                     _U, _F, _U, _I, _I, _I, _P),

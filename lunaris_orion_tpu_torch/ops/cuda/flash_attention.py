@@ -5,9 +5,17 @@ backward.
 CPU to the plain versions (`attention_plain`, `attention_bwd_plain`) and
 tensors on a CUDA device to the hand-written kernels; it raises on any
 other device and never falls back.
-  forward   `csrc/flash_attention_fwd.cu`, replacing lunaris_orion_tpu/ops/
+  forward   `csrc/flash_attention_fwd.cuh` (instances and entry point in
+            `csrc/flash_attention_fwd*.cu`), replacing lunaris_orion_tpu/ops/
             pallas/flash_attention.py `_fwd_kernel`; returns the row
-            log-sum-exp as well, which the backward needs.
+            log-sum-exp as well, which the backward needs. Two hand-written
+            bodies, chosen by type and head size (`forward_instance`):
+            "mma"   bf16 at d 16, 48, 64: both products on the tensor cores
+                    (mma.sync m16n8k16), p kept in registers between them;
+            "simt"  f32 at every head size (TF32 would cost three decimal
+                    digits) and bf16 at d 8, on the CUDA cores.
+            At d 16 dropout and a ragged Nk are compiled in (four instances
+            a body); the other head sizes test both at run time.
   backward  `csrc/flash_attention_bwd.cu`, in one of two variants:
             "fused"  one dk/dv kernel that also accumulates dq with float
                      atomics (replaces `_bwd_fused_kernel`); its dq varies
@@ -26,6 +34,8 @@ count the kernel launches; the plain versions do not count.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -36,7 +46,9 @@ bwd_fused_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
 
-HEAD_DIMS = (8, 16, 48, 64)          # the kernel's compiled head sizes
+HEAD_DIMS = (8, 16, 48, 64)          # the kernels' compiled head sizes
+MMA_HEAD_DIMS = (16, 48, 64)         # those of the tensor-core body (bf16)
+FWD_BODIES = ("simt", "mma")         # the C entry point's `body` argument
 _M32 = 0xFFFFFFFF
 C1 = 0x9E3779B9
 C2 = 0x85EBCA6B
@@ -96,14 +108,21 @@ def _check_shapes(q, k, v, bias):
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, *, dropout_rate: float = 0.0,
                     seed: int = 0, q_offset: int = 0, row_offset: int = 0,
-                    max_elems: int = 2**26):
+                    max_elems: int = 2**26, block_k: int | None = None):
     """The plain version of K2: blockwise over q, two passes per block.
 
     Same rounding points as the kernel: q scaled by d^-1/2 in its own dtype;
     scores and softmax statistics in f32; the dropped, rescaled
     probabilities rounded to v's dtype before P.V; the row sum from the
     undropped probabilities. Memory stays at about `max_elems` scores per
-    block. Returns (o [B, H, Nq, d] in q's dtype, lse [B*H, Nq] f32)."""
+    block.
+
+    With `block_k` the softmax runs online over key blocks of that size, as
+    the kernels run it: p is taken against the running max and rounded to
+    v's dtype before later blocks correct it. In f32 the two agree to
+    rounding; in bf16 p rounds at another magnitude, so a kernel's bf16
+    output is held element by element against this form at the kernel's own
+    key tile. Returns (o [B, H, Nq, d] in q's dtype, lse [B*H, Nq] f32)."""
     _check_shapes(q, k, v, bias)
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -118,22 +137,45 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         inv_keep = _inv_keep(dropout_rate)
         rs = row_seeds(seed, b * h, row_offset, q.device).reshape(b, h, 1, 1)
         k_abs = torch.arange(nk, device=q.device, dtype=torch.int64)
+
+    def dropped(p, i0, i1, k0, k1):
+        if not use_drop:
+            return p
+        q_abs = torch.arange(q_offset + i0, q_offset + i1, device=q.device,
+                             dtype=torch.int64)[:, None]
+        keep = keep_mask(rs, k_abs[k0:k1], q_abs, threshold)
+        return torch.where(keep, p * inv_keep, torch.zeros_like(p))
+
     o = torch.empty_like(q)
     lse = torch.empty(b, h, nq, device=q.device, dtype=torch.float32)
-    bq = max(1, min(nq, max_elems // max(1, b * h * nk)))
+    bq = max(1, min(nq, max_elems // max(1, b * h * (block_k or nk))))
     for i0 in range(0, nq, bq):
         i1 = min(nq, i0 + bq)
-        s = torch.matmul(qs[:, :, i0:i1], kt) + bias4          # [B,H,bq,Nk]
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m)
-        l_sum = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        if use_drop:
-            q_abs = torch.arange(q_offset + i0, q_offset + i1,
-                                 device=q.device, dtype=torch.int64)[:, None]
-            keep = keep_mask(rs, k_abs, q_abs, threshold)
-            p = torch.where(keep, p * inv_keep, torch.zeros_like(p))
-        p = p.to(v.dtype).float()
-        o[:, :, i0:i1] = (torch.matmul(p, vf) / l_sum).to(dt)
+        if block_k is None:
+            s = torch.matmul(qs[:, :, i0:i1], kt) + bias4      # [B,H,bq,Nk]
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l_sum = p.sum(dim=-1, keepdim=True)
+            p = dropped(p, i0, i1, 0, nk).to(v.dtype).float()
+            acc = torch.matmul(p, vf)
+        else:
+            rows = (b, h, i1 - i0, 1)
+            acc = torch.zeros(b, h, i1 - i0, d, device=q.device)
+            m = torch.full(rows, -1e30, device=q.device)
+            l_sum = torch.zeros(rows, device=q.device)
+            for k0 in range(0, nk, block_k):
+                k1 = min(nk, k0 + block_k)
+                s = (torch.matmul(qs[:, :, i0:i1], kt[..., k0:k1])
+                     + bias4[..., k0:k1])
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l_sum = l_sum * corr + p.sum(dim=-1, keepdim=True)
+                p = dropped(p, i0, i1, k0, k1).to(v.dtype).float()
+                acc = acc * corr + torch.matmul(p, vf[:, :, k0:k1])
+                m = m_new
+        l_sum = l_sum.clamp_min(1e-30)
+        o[:, :, i0:i1] = (acc / l_sum).to(dt)
         lse[:, :, i0:i1] = (m + torch.log(l_sum)).squeeze(-1)
     return o, lse.reshape(b * h, nq)
 
@@ -229,17 +271,71 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
                    _inv_keep(dropout_rate) if use_drop else 1.0)
 
 
-def _forward_kernel(q, k, v, bias, dropout_rate, seed, q_offset, row_offset):
+class ForwardInstance(NamedTuple):
+    """The forward kernel instance a call launches."""
+    body: str            # "mma" (tensor cores) or "simt" (CUDA cores)
+    head_dim: int
+    block_k: int         # keys a tile
+    rows: int            # query rows a block
+    q_blocks: int        # blocks along Nq (the last one guards its rows)
+    dropout: str         # "off" / "on": compiled in; "runtime": tested per tile
+    ragged: bool         # the instance masks the last key tile
+
+
+def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
+                     dropout_rate: float,
+                     body: str | None = None) -> ForwardInstance:
+    """Which forward instance (dtype, d, Nq, Nk, dropout) takes: the rule of
+    the C dispatch (`csrc/flash_attention_fwd*.cu`), as a pure function.
+
+    bf16 at d 16, 48, 64 takes the tensor-core body, everything else the
+    CUDA-core body. `body="simt"` asks for the CUDA-core body at bf16 d 16,
+    where the tensor-core one is taken: measurements and tests compare the
+    two; `flash_attention` never passes it. At d 16 dropout and raggedness are
+    template parameters; the other head sizes have one instance each, which
+    masks the last key tile and reads the dropout flag at run time. Nq only
+    sets the grid: every instance guards the rows past it."""
+    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel for {dtype}, head dim "
+                         f"{d} (f32 or bf16, d in {HEAD_DIMS})")
+    default = ("mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
+               else "simt")
+    body = body or default
+    if body not in FWD_BODIES or (body != default and (
+            body == "mma" or d != 16)):
+        raise ValueError(f"flash_attention: body {body!r} does not take "
+                         f"{dtype} at head dim {d}")
+    if body == "mma":
+        block_k, rows = 64, 128 if d == 16 else 64
+    else:
+        block_k, rows = 64 if d <= 16 else 32, 128
+    if d == 16:
+        dropout, ragged = "on" if dropout_rate > 0.0 else "off", nk % block_k != 0
+    else:
+        dropout, ragged = "runtime", True
+    return ForwardInstance(body, d, block_k, rows, -(-nq // rows), dropout,
+                           ragged)
+
+
+def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
+                   q_offset: int = 0, row_offset: int = 0,
+                   body: str | None = None):
+    """One launch of the K2 forward kernel on CUDA tensors, without autograd:
+    (o, lse). `body` as in `forward_instance`. Counts the launch."""
     scale, drop = _check_kernel_inputs("flash_attention", (q, k, v, bias),
                                        dropout_rate)
     b, h, nq, d = q.shape
+    inst = forward_instance(q.dtype, d, nq, k.shape[2], dropout_rate, body)
+    if inst.body == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core kernel copies 16 "
+                         "bytes at a time; q, k, v must be aligned to that")
     o = torch.empty_like(q)
     lse = torch.empty(b * h, nq, device=q.device, dtype=torch.float32)
     err = _build.library().lunaris_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b * h, h, nq, k.shape[2], d, scale,
         *drop, seed & _M32, q_offset, row_offset,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), FWD_BODIES.index(inst.body),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     global launches
@@ -335,8 +431,9 @@ class _FlashAttention(torch.autograd.Function):
                                      seed=seed, q_offset=q_offset,
                                      row_offset=row_offset)
         else:
-            o, lse = _forward_kernel(q, k, v, bias, dropout_rate, seed,
-                                     q_offset, row_offset)
+            o, lse = forward_kernel(q, k, v, bias, dropout_rate=dropout_rate,
+                                    seed=seed, q_offset=q_offset,
+                                    row_offset=row_offset)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.args = dict(dropout_rate=dropout_rate, seed=seed,
                         q_offset=q_offset, row_offset=row_offset)

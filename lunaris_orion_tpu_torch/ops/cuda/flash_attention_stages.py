@@ -2,11 +2,14 @@
 online-softmax chain: the instrument that says what each stage costs.
 
 `flash_fwd_stage` sends tensors on the CPU to `flash_fwd_stage_plain` and
-tensors on a CUDA device to the hand-written kernel in
+tensors on a CUDA device to the hand-written kernels of
 `csrc/flash_attention_stages.cu`; it raises on any other device and never
-falls back. The kernel replaces `tools/bench_attn_roofline.py`
-`_stage_kernel` and computes what `_stage_fwd` computes, in the port's
-row layout ([B, H, N, d] instead of the TPU's [B*H, d, N]).
+falls back. The kernels replace `tools/bench_attn_roofline.py`
+`_stage_kernel` and compute what `_stage_fwd` computes, in the port's
+row layout ([B, H, N, d] instead of the TPU's [B*H, d, N]). They are the
+K2 forward's own two bodies (`csrc/flash_attention_fwd.cuh`) with the stage
+as a template parameter: bf16 on the tensor-core body, f32 on the
+CUDA-core body, so the instrument reads the kernel that ships.
 
 Per key block of `block_k` keys, with s = q k^T (q arrives scaled):
 
@@ -20,7 +23,8 @@ and always acc = acc corr + round(p) v; at the end l = max(l, 1e-30),
 o = acc / l, lse = m + log l. Each stage includes the ones above it. Below
 "sum" the carry l gains 1 per key BLOCK, so the result depends on
 `block_k`; on CUDA it must equal the kernel's key tile (`KERNEL_BLOCK_K`).
-At "sum" the result is `flash_attention` at dropout 0 of the unscaled q.
+At "sum" the result is `flash_attention` at dropout 0 of the unscaled q,
+on CUDA bit for bit (the same kernel instance).
 
 `launches` counts the kernel launches; the plain version does not count.
 """
@@ -35,8 +39,8 @@ from lunaris_orion_tpu_torch.ops.cuda.flash_attention import _check_shapes
 launches = 0
 
 STAGES = ("dots", "bias", "maxsub", "exp", "sum")
-HEAD_DIM = 16                        # the kernel's one compiled head size
-KERNEL_BLOCK_K = 64                  # and its key tile
+HEAD_DIM = 16                        # the kernels' one compiled head size
+KERNEL_BLOCK_K = 64                  # and their key tile, in both types
 NEG_INF = -1e30
 
 

@@ -1,16 +1,18 @@
 """What each stage of the K2 forward costs on the card.
 
-The counterpart of `tools/bench_attn_roofline.py`: a family of kernels with
-the grid, tile and layout of the port's K2 forward, each adding ONE stage of
-the online-softmax chain (`ops/cuda/flash_attention_stages.py`), timed at
-the teacher's shape (B 8, H 8, N 16384, d 16, bf16, dropout 0):
+The counterpart of `tools/bench_attn_roofline.py`: the port's K2 forward
+kernels themselves (bf16: the tensor-core body; `--dtype f32`: the CUDA-core
+body), cut after ONE more stage of the online-softmax chain each
+(`ops/cuda/flash_attention_stages.py`), timed at the teacher's shape (B 8,
+H 8, N 16384, d 16, bf16, dropout 0):
 
   dots    q k^T, the cast of p and p v
   bias    + the per-key bias add
   maxsub  + the running max and the subtraction
   exp     + exp(s - m)
   sum     + the row sum l (the full chain)
-  shipped `flash_attention` at dropout 0 (= sum, plus the scaling of q)
+  shipped `flash_attention` at dropout 0 (the same kernel instance as sum,
+          plus the scaling of q)
 
 All stages keep the m / l carries, o = acc / l and the lse write, so the
 difference of two neighbouring rows is the named stage. With `--sdpa` a

@@ -1,10 +1,11 @@
 """K2 forward and the spatial attention module in the PyTorch port
 (lunaris_orion_tpu_torch/ops/cuda/flash_attention.py, ops/attention.py):
-the plain version against the JAX package's Pallas kernel `attention_bhnd`
-(interpret mode on the CPU), the dropout hash bit for bit against
-`_keep_mask`, and the module against `spatial_attention_reference`. The
-kernel itself is held against its plain version on a CUDA card by
-tests/test_torch_kernels.py."""
+the plain version (two-pass, and its online form at a kernel's key tile)
+against the JAX package's Pallas kernel `attention_bhnd` (interpret mode on
+the CPU), the dropout hash bit for bit against `_keep_mask`, the wrapper's
+choice of kernel instance, and the module against
+`spatial_attention_reference`. The kernels themselves are held against the
+plain version on a CUDA card by tests/test_torch_kernels.py."""
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,97 @@ def test_plain_matches_pallas(n, d, rate, seed):
     # f32 throughout; the plain version's two-pass softmax and the kernel's
     # online one differ in rounding only: atol 1e-5 (|o| is O(1)).
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,block_k", [(256, 64), (300, 64), (2304, 32)])
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_online_plain_matches_pallas_and_two_pass(n, block_k, d, rate):
+    """The plain version's online form (key blocks of a kernel's tile, p
+    taken against the running max) against the Pallas kernel, where
+    N % 128 == 0 lets it run, and against the two-pass form; f32, the two
+    softmaxes differ in rounding only: atol 1e-5 on o and on lse."""
+    q, k, v, bias = _qkvb(1, 2, n, n, d, seed=n + d)
+    kw = dict(dropout_rate=rate, seed=77)
+    got, lse = k2.attention_plain(*_t(q, k, v, bias), block_k=block_k, **kw)
+    ref, rlse = k2.attention_plain(*_t(q, k, v, bias), **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), atol=1e-5, rtol=0)
+    if n % 128 == 0:
+        want = np.asarray(fa.attention_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+            dropout_rate=rate, seed=jnp.int32(77)))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_online_plain_rounds_p_against_the_running_max():
+    """In bf16 the online form rounds p before later blocks correct it, so
+    it differs from the two-pass form, by less than 2 bf16 ulps of the
+    largest output; a q-blocking and a shard at q_offset leave it as it is."""
+    q, k, v, bias = _qkvb(2, 2, 300, 300, 16, seed=6)
+    tq = [t.bfloat16() for t in _t(q, k, v)] + _t(bias)
+    kw = dict(dropout_rate=0.2, seed=5)
+    a, lse_a = k2.attention_plain(*tq, block_k=64, **kw)
+    two, _ = k2.attention_plain(*tq, **kw)
+    diff = (a.float() - two.float()).abs().max().item()
+    assert 0 < diff <= 2 * 2.0 ** -7 * two.float().abs().max().item()
+    b, lse_b = k2.attention_plain(*tq, block_k=64, max_elems=4 * 64 * 7, **kw)
+    assert torch.equal(a, b) and torch.equal(lse_a, lse_b)
+    c, _ = k2.attention_plain(tq[0][:, :, 100:], *tq[1:], block_k=64,
+                              q_offset=100, **kw)
+    assert torch.equal(c, a[:, :, 100:])
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
+    # the teacher's shape: serving (dropout 0) and training (0.1)
+    (BF16, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
+    (BF16, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
+    (F32, 16, 16384, 16384, 0.0, ("simt", 64, 128, 128, "off", False)),
+    (F32, 16, 16384, 16384, 0.1, ("simt", 64, 128, 128, "on", False)),
+    # a q shard against the full keys (the context-parallel call)
+    (BF16, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
+    # the card tests' shapes: ragged N, the other head sizes
+    (BF16, 16, 2000, 2000, 0.0, ("mma", 64, 128, 16, "off", True)),
+    (BF16, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
+    (F32, 16, 2000, 2000, 0.1, ("simt", 64, 128, 16, "on", True)),
+    (BF16, 16, 1000, 1024, 0.0, ("mma", 64, 128, 8, "off", False)),
+    (BF16, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
+    (BF16, 8, 300, 300, 0.0, ("simt", 64, 128, 3, "runtime", True)),
+    (BF16, 48, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
+    (BF16, 64, 1000, 1000, 0.0, ("mma", 64, 64, 16, "runtime", True)),
+    (F32, 48, 4096, 4096, 0.0, ("simt", 32, 128, 32, "runtime", True)),
+    (F32, 64, 1000, 1000, 0.1, ("simt", 32, 128, 8, "runtime", True)),
+    (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
+])
+def test_forward_instance(dtype, d, nq, nk, rate, want):
+    """The kernel instance is a pure function of (dtype, d, Nq, Nk,
+    dropout): bf16 at d 16, 48, 64 takes the tensor cores, the rest the CUDA
+    cores; at d 16 dropout and a ragged Nk are compiled in."""
+    body, block_k, rows, q_blocks, dropout, ragged = want
+    inst = k2.forward_instance(dtype, d, nq, nk, rate)
+    assert inst == k2.ForwardInstance(body, d, block_k, rows, q_blocks,
+                                      dropout, ragged)
+    assert inst == k2.forward_instance(dtype, d, nq, nk, rate)
+    assert inst.q_blocks * inst.rows >= nq > (inst.q_blocks - 1) * inst.rows
+
+
+def test_forward_instance_body_argument():
+    """`body="simt"` reaches the CUDA-core kernel where the tensor-core one
+    is the default (measurements compare them); nothing else is on offer."""
+    old = k2.forward_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
+    assert old == k2.ForwardInstance("simt", 16, 64, 128, 128, "on", False)
+    assert k2.forward_instance(BF16, 16, 64, 64, 0.0, body="mma").body == "mma"
+    for dtype, d, body in ((F32, 16, "mma"), (BF16, 8, "mma"),
+                           (BF16, 64, "simt"), (BF16, 16, "wgmma")):
+        with pytest.raises(ValueError, match="does not take"):
+            k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
+    for dtype, d in ((torch.float16, 16), (BF16, 32)):
+        with pytest.raises(ValueError, match="no kernel"):
+            k2.forward_instance(dtype, d, 64, 64, 0.0)
+    assert set(k2.MMA_HEAD_DIMS) < set(k2.HEAD_DIMS)
 
 
 def test_rectangular_q_offset_matches_pallas():

@@ -4,6 +4,8 @@ its plain version against the JAX package's Pallas kernel
 device contract. The kernel itself is held against its plain version on a
 CUDA card by tests/test_torch_kernels.py."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -136,8 +138,10 @@ def test_build_dir_tracks_source_content():
     assert d.parent == _build.BUILD_ROOT
     assert [p.name for p in _build.sources()] == [
         "flash_attention_bwd.cu", "flash_attention_fwd.cu",
-        "flash_attention_stages.cu", "fused_stage.cu", "gn_mish.cu",
-        "gn_stats.cu", "loss_epilogue.cu"]
+        "flash_attention_fwd_mma.cu", "flash_attention_fwd_simt_bf16.cu",
+        "flash_attention_fwd_simt_f32.cu",
+        "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_stages.cu",
+        "fused_stage.cu", "gn_mish.cu", "gn_stats.cu", "loss_epilogue.cu"]
     assert d == _build.build_dir()
 
 
@@ -159,6 +163,16 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     used = [p.name for p in real.glob("*.cu")
             if '#include "common.cuh"' in p.read_text()]
     assert used and (real / "common.cuh").is_file()
+    # The K2 forward's bodies live in a header of their own, which the
+    # forward's sources and the stage family include; every header a source
+    # or header names is one that the hash covers.
+    fwd = [p.name for p in real.glob("*.cu")
+           if '#include "flash_attention_fwd.cuh"' in p.read_text()]
+    assert len(fwd) == 6 and "flash_attention_stages.cu" in fwd
+    hashed = {p.name for p in real.glob("*.cuh")}
+    for src in (*real.glob("*.cu"), *real.glob("*.cuh")):
+        named = re.findall(r'#include "([^"]+)"', src.read_text())
+        assert set(named) <= hashed, (src.name, named)
 
 
 def test_build_runs_one_compiler_per_source_and_logs_times(monkeypatch, tmp_path):

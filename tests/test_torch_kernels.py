@@ -67,17 +67,52 @@ def test_gn_mish_rejects_non_nhwc(cuda):
         k1.gn_mish(x, w, w)
 
 
+# The bf16 bar of the K2 forward, element by element against the plain
+# version's online form at the kernel's key tile (which rounds p where the
+# kernel does): 2 bf16 ulps of the element's own reference for the last
+# rounding, plus a share of the largest output, and a ceiling on the share of
+# elements that differ at all. A score that differs in its last f32 bits can
+# round p the other way in bf16 and move o by 2^-8 p / l |v|. CUDA cores
+# (f32 FMA sums, expf): 2e-5 of the largest, 1 element in 100 (measured on an
+# H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
+# rounded product): 1e-3, 3 in 100 (measured: 1.8e-4 at N 300, 9 in 1000 at
+# N 16384). An element in the wrong place is off by a tenth of the largest.
+_K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2)}
+
+
+def _k2_bf16_close(got, ref, body):
+    share, ceiling = _K2_BF16_BAR[body]
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    top = ref.abs().max().item()
+    assert (err > 0).float().mean().item() <= ceiling
+    assert (err <= 2 * _bf16_ulp(ref) + share * top).all(), (
+        err.max().item(), top)
+
+
+def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
+    r = np.random.default_rng(seed)
+    mk = lambda *shape: torch.from_numpy(
+        r.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    q, k, v = mk(b, h, nq, d), mk(b, h, nk, d), mk(b, h, nk, d)
+    bias = torch.from_numpy(
+        (0.5 * r.standard_normal((h, nk))).astype(np.float32)).to(cuda)
+    return q, k, v, bias
+
+
+# (4096, 16) and (2000, 16): the teacher's head size at whole key tiles and
+# at a ragged N, so that with both rates every (dropout, ragged) instance of
+# both bodies runs.
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d", [(4096, 8), (2000, 16), (4096, 48),
-                                 (1000, 64), (300, 8)])
+@pytest.mark.parametrize("n,d", [(4096, 8), (4096, 16), (2000, 16),
+                                 (4096, 48), (1000, 64), (300, 8)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
-    r = np.random.default_rng(n + d)
-    q, k, v = (torch.from_numpy(r.standard_normal((2, 4, n, d)).astype(
-        np.float32)).to(cuda, dtype) for _ in range(3))
-    bias = torch.from_numpy(
-        (0.5 * r.standard_normal((4, n))).astype(np.float32)).to(cuda)
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
+    inst = k2.forward_instance(dtype, d, n, n, rate)
+    assert inst.body == ("mma" if dtype == torch.bfloat16 and d >= 16
+                         else "simt")
     before = k2.launches
     o, lse = k2.flash_attention(q, k, v, bias, dropout_rate=rate, seed=-77)
     torch.cuda.synchronize()
@@ -86,18 +121,46 @@ def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     err = (o.float() - ro.float()).abs().max().item()
     if dtype == torch.float32:
         assert err <= 1e-5
-    else:  # 2 bf16 ulps at the output's largest magnitude
+    else:
+        # The two-pass plain version rounds p at another magnitude: 2 bf16
+        # ulps at the output's largest. Element by element: the online form.
         assert err <= 2 * 2.0 ** -7 * ro.float().abs().max().item()
+        oo, olse = k2.attention_plain(q, k, v, bias, dropout_rate=rate,
+                                      seed=-77, block_k=inst.block_k)
+        _k2_bf16_close(o, oo, inst.body)
+        assert (lse - olse).abs().max().item() <= 1e-4
     assert (lse - rlse).abs().max().item() <= 1e-4
+    assert torch.equal(o, k2.flash_attention(
+        q, k, v, bias, dropout_rate=rate, seed=-77)[0]), "same bits every run"
 
 
 @pytest.mark.gpu
-def test_flash_attention_rectangular_offsets(cuda):
+@pytest.mark.parametrize("n", [4096, 2000, 300])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bodies_agree(cuda, n, rate):
+    """The tensor-core bf16 kernel against the CUDA-core bf16 kernel it
+    replaced, at the teacher's head size on the same inputs: both have key
+    tiles of 64 and round where the plain version's online form rounds, so
+    they meet the tensor-core bar against each other."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, 16, torch.bfloat16, seed=n)
+    kw = dict(dropout_rate=rate, seed=31)
+    before = k2.launches
+    new, lse_new = k2.forward_kernel(q, k, v, bias, **kw)
+    old, lse_old = k2.forward_kernel(q, k, v, bias, body="simt", **kw)
+    assert k2.launches == before + 2
+    _k2_bf16_close(new, old, "mma")
+    assert (lse_new - lse_old).abs().max().item() <= 1e-4
+    with pytest.raises(ValueError, match="does not take"):
+        k2.forward_kernel(q.float(), k.float(), v.float(), bias, body="mma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rectangular_offsets(cuda, dtype):
     """A q shard at q_offset, and batch rows at row_offset, see the same
-    dropout mask as the full call."""
-    r = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(r.standard_normal((2, 2, 512, 16)).astype(
-        np.float32)).to(cuda) for _ in range(3))
+    dropout mask as the full call: the same values in f32 (1e-6), the same
+    bits in bf16 (every row's arithmetic is its own in both calls)."""
+    q, k, v, _ = _k2_inputs(cuda, 2, 2, 512, 512, 16, dtype, seed=0)
     bias = torch.zeros(2, 512, device=cuda)
     full, _ = k2.flash_attention(q, k, v, bias, dropout_rate=0.2, seed=9)
     shard, _ = k2.flash_attention(q[:, :, 256:].contiguous(), k, v, bias,
@@ -105,8 +168,43 @@ def test_flash_attention_rectangular_offsets(cuda):
     rows, _ = k2.flash_attention(q[1:].contiguous(), k[1:].contiguous(),
                                  v[1:].contiguous(), bias, dropout_rate=0.2,
                                  seed=9, row_offset=2)
-    torch.testing.assert_close(shard, full[:, :, 256:], atol=1e-6, rtol=0)
-    torch.testing.assert_close(rows, full[1:], atol=1e-6, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(shard, full[:, :, 256:], atol=1e-6, rtol=0)
+        torch.testing.assert_close(rows, full[1:], atol=1e-6, rtol=0)
+    else:
+        assert torch.equal(shard, full[:, :, 256:])
+        assert torch.equal(rows, full[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,body", [(torch.float32, None),
+                                        (torch.bfloat16, None),
+                                        (torch.bfloat16, "simt")])
+@pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
+                                                       (200, 300, 70, 3)])
+def test_flash_attention_dropout_mask_positions(cuda, dtype, body, nq, nk,
+                                                q_offset, row_offset):
+    """The kernel's dropout mask, position by position, is the hash. With
+    q = 0 and bias = 0 every p is 1 / Nk; v is 1 at (key k0 + j, column j) and
+    0 elsewhere, so o[row, j] is 0 exactly where the mask drops key k0 + j
+    for that row: a fragment coordinate mixed up (row r with r + 8, a column
+    pair, a key tile) moves the zeros."""
+    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    q = torch.zeros(b, h, nq, d, device=cuda, dtype=dtype)
+    k = torch.zeros(b, h, nk, d, device=cuda, dtype=dtype)
+    bias = torch.zeros(h, nk, device=cuda)
+    rs = k2.row_seeds(seed, b * h, row_offset, cuda).reshape(b, h, 1, 1)
+    q_abs = torch.arange(q_offset, q_offset + nq, device=cuda)[:, None]
+    for k0 in (0, 8, 56, 121, nk - 16):
+        v = torch.zeros(b, h, nk, d, device=cuda, dtype=dtype)
+        v[:, :, k0:k0 + d] = torch.eye(d, device=cuda, dtype=dtype)
+        o, _ = k2.forward_kernel(q, k, v, bias, dropout_rate=rate, seed=seed,
+                                 q_offset=q_offset, row_offset=row_offset,
+                                 body=body)
+        keep = k2.keep_mask(rs, torch.arange(k0, k0 + d, device=cuda), q_abs,
+                            k2.dropout_threshold(1.0 - rate))
+        assert torch.equal(o != 0, keep), k0
+        assert 0.6 < keep.float().mean().item() < 0.8
 
 
 # --- K2 backward -------------------------------------------------------------
@@ -376,13 +474,13 @@ def test_gn_mish_conv3_rejects_unsupported(cuda):
 def test_flash_fwd_stage_kernel_matches_plain(cuda, stage, n, dtype):
     d = stages.HEAD_DIM
     r = np.random.default_rng(n + d)
-    nk = -(-n // 64) * 64                       # a ragged Nq, whole key tiles
+    block_k = stages.KERNEL_BLOCK_K
+    nk = -(-n // block_k) * block_k             # a ragged Nq, whole key tiles
     mk = lambda *shape: torch.from_numpy(
         r.standard_normal(shape).astype(np.float32)).to(cuda)
     q = (mk(2, 4, n, d) * d ** -0.5).to(dtype)
     k, v = mk(2, 4, nk, d).to(dtype), mk(2, 4, nk, d).to(dtype)
     bias = 0.5 * mk(4, nk)
-    block_k = stages.KERNEL_BLOCK_K
     before = stages.launches
     o, lse = stages.flash_fwd_stage(q, k, v, bias, stage, block_k)
     torch.cuda.synchronize()
@@ -391,14 +489,16 @@ def test_flash_fwd_stage_kernel_matches_plain(cuda, stage, n, dtype):
     ref = ro.float()
     scale = ref.abs().max().item()       # no floor: o is small past "exp"
     err = (o.float() - ref).abs()
-    # f32: up to Nk terms summed in another order, 2e-5 of the largest
-    # magnitude. bf16: that, plus 2 ulps of each element's own reference for
-    # the last rounding, and at most 1 element in 100 may differ at all
-    # (measured on an H100: 1 ulp, 1 in 900 at Nk 16384).
+    # f32 (the CUDA-core body): up to Nk terms summed in another order, 2e-5
+    # of the largest magnitude. bf16 (the tensor-core body): the forward's
+    # bar, 2 ulps of each element's own reference for the last rounding plus
+    # 1e-3 of the largest, and at most 3 elements in 100 may differ at all
+    # (measured on an H100: 1.6e-4, 9 in 1000 at Nk 16384).
     bar = 2e-5 * scale
     if dtype == torch.bfloat16:
-        bar = bar + 2 * _bf16_ulp(ref)
-        assert (err > 0).float().mean().item() <= 1e-2
+        share, ceiling = _K2_BF16_BAR["mma"]
+        bar = share * scale + 2 * _bf16_ulp(ref)
+        assert (err > 0).float().mean().item() <= ceiling
     assert (err <= bar).all(), (err.max().item(), scale)
     assert (lse - rlse).abs().max().item() <= 1e-4
 
@@ -415,7 +515,8 @@ def test_flash_fwd_stage_sum_is_the_forward_kernel(cuda, dtype):
         (0.5 * r.standard_normal((4, 2048))).astype(np.float32)).to(cuda)
     o, lse = k2.flash_attention(q, k, v, bias)
     qs = q * torch.tensor(16 ** -0.5, dtype=dtype, device=cuda)
-    so, slse = stages.flash_fwd_stage(qs, k, v, bias, "sum", 64)
+    so, slse = stages.flash_fwd_stage(qs, k, v, bias, "sum",
+                                      stages.KERNEL_BLOCK_K)
     assert torch.equal(so, o) and torch.equal(slse, lse)
 
 
@@ -423,13 +524,14 @@ def test_flash_fwd_stage_sum_is_the_forward_kernel(cuda, dtype):
 def test_flash_fwd_stage_rejects_unsupported(cuda):
     q, k, v = (torch.zeros(1, 2, 256, 16, device=cuda) for _ in range(3))
     bias = torch.zeros(2, 256, device=cuda)
+    tile = stages.KERNEL_BLOCK_K
     with pytest.raises(ValueError, match="key tile"):
-        stages.flash_fwd_stage(q, k, v, bias, "dots", 128)
+        stages.flash_fwd_stage(q, k, v, bias, "dots", 2 * tile)
     q8, k8, v8 = (torch.zeros(1, 2, 256, 8, device=cuda) for _ in range(3))
     with pytest.raises(ValueError, match="head dim"):
-        stages.flash_fwd_stage(q8, k8, v8, bias, "dots", 64)
+        stages.flash_fwd_stage(q8, k8, v8, bias, "dots", tile)
     with pytest.raises(ValueError, match="one dtype"):
-        stages.flash_fwd_stage(q, k.bfloat16(), v, bias, "dots", 64)
+        stages.flash_fwd_stage(q, k.bfloat16(), v, bias, "dots", tile)
 
 
 # --- lane sums from per-tile partials, and K1's pass 1 alone --------------------
