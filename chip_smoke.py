@@ -27,10 +27,15 @@ Phases, each of which raises on failure (exit code 1):
               one z, TF32 off: decode within 1/255, quality within 1e-3;
   7. K2 bwd   both backward variants (fused; split = dk/dv + dq kernels)
               against the plain backward at B 2, H 8, N 16384, d 16,
-              dropout 0 and 0.1, f32 and bf16, at d 8/48/64, with a q
-              shard at q_offset, and at the teacher's training shape (B 16,
-              H 8, N 16384, d 16, dropout 0.1), f32 and bf16, where it also
-              times both and the plain version;
+              dropout 0 and 0.1, f32 (CUDA cores) and bf16 (split: tensor
+              cores), at d 8/48/64, at a ragged rectangular 2000 x 300 and
+              300 x 2000 in bf16, with a q shard at q_offset, and at the
+              teacher's training shape (B 16, H 8, N 16384, d 16, dropout
+              0.1), f32 and bf16, where it also times both and the plain
+              version; bf16 element by element; the tensor-core bf16 dk/dv
+              and dq kernels timed against the CUDA-core ones they replaced
+              (earlier, new, new, earlier) beside the backward of
+              `F.scaled_dot_product_attention`;
   8. K3       the MSE+KL kernel against its plain version at
               [16, 128, 128, 3], L = 256, f32 and bf16;
   9. grads    one `train_step` of a 64 px config (N = 4096) on the CPU
@@ -69,9 +74,11 @@ the larger of its bytes (inputs read once, outputs written once) over
 bf16, 67 TFLOP/s f32 outside the tensor cores), at the shape its `ms` was
 taken at; `library_ms` is one PyTorch call computing the same function
 (`F.scaled_dot_product_attention` for K2), timed here and used nowhere in
-the port. The K2 forward's entry carries the f32 reading under the plain
-keys and the bf16 reading under `*_bf16` (`earlier_ms_bf16`: the CUDA-core
-bf16 kernel on the same inputs). The last lines are the card's name and
+the port. The entries of the K2 forward and of the three K2 backward kernels
+carry the f32 reading under the plain keys and the bf16 reading under
+`*_bf16` (`earlier_ms_bf16`: the CUDA-core bf16 kernel on the same inputs;
+the fused backward has that body only, so there it repeats `ms_bf16`). The
+last lines are the card's name and
 power limit, a JSON object with the kernels' measurements and, last, the
 result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -494,20 +501,50 @@ def run_context(torch, tmp: Path) -> None:
 BWD_ERR = ("dq", "dk", "dv", "dbias")
 
 
-def bwd_tol(torch, ref, dtype, name) -> float:
-    """f32: 1e-4 of the largest magnitude (sums of up to N terms in other
-    orders, the fused dq's atomics in any order); bf16: 2 bf16 ulps there
-    (ds and p are rounded per term); dbias is f32 in both."""
-    scale = ref.float().abs().max().item()
+# The bf16 bar of the K2 backward, element by element against the plain
+# backward (which rounds ds and the dropped p to bf16 where the kernels do and
+# sums in f32): 2 bf16 ulps of the element's own reference for the last
+# rounding, plus 1e-3 of the largest gradient, and a ceiling on the share of
+# elements that differ at all. The earlier bar, 2 ulps of the largest
+# (1.6e-2 of it), would pass one misplaced term of an N-term sum. A score that
+# differs in its last f32 bits can round ds or p the other way in bf16 and
+# move a sum by 2^-8 of one term: that one flipped term is what the 1e-3
+# allows on either body (measured on an H100: 8e-5 on the CUDA cores, in the
+# fused dq at d 64, whose four threads a row sum in another order; 4.6e-4 on
+# the tensor cores, whose sums truncate and whose exp is ex2.approx). The
+# ceiling tells the bodies apart: 1 element in 100 on the CUDA cores
+# (measured: 1 in 500), 5 in 100 on the tensor cores (measured: 1 in 1000 at
+# N 256, 2 in 100 at N 16384, where more terms can flip). A term in the wrong
+# place moves an element by a tenth of the largest or more, a wrong mask
+# every element.
+K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2)}
+
+
+def bwd_agree(torch, got, ref, dtype, name, body):
+    """(ok, max abs error, what was held) of one gradient against the plain
+    backward. f32, and dbias in both types: 1e-4 of the largest magnitude
+    (sums of up to N terms in other orders, the fused dq's atomics in any
+    order). bf16: K2_BWD_BF16_BAR, element by element."""
+    ref = ref.float()
+    each = (got.float() - ref).abs()
+    err, top = each.max().item(), ref.abs().max().item()
     if dtype == torch.float32 or name == "dbias":
-        return 1e-4 * scale + 1e-6
-    return 2 * 2.0 ** -7 * scale
+        tol = 1e-4 * top + 1e-6
+        return err <= tol, err, f"{err:.2e}/{tol:.1e}"
+    share, ceiling = K2_BWD_BF16_BAR[body]
+    excess = (each - 2 * bf16_ulp(torch, ref)).max().item() / top
+    differ = (each > 0).float().mean().item()
+    return (excess <= share and differ <= ceiling, err,
+            f"{err:.2e} (+{max(excess, 0):.1e}/{share:.0e}, "
+            f"{differ:.1e}/{ceiling:.0e} differ)")
 
 
 def check_k2_bwd(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(3)
-    errs = {"fused": 0.0, "dkv": 0.0, "dq": 0.0}
+    errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0}
+            for dt in (torch.float32, torch.bfloat16)}
 
     def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
         q = torch.randn(b, h, nq, d, generator=g, device=dev).to(dt)
@@ -519,53 +556,66 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         o, lse = k2.attention_plain(q, k, v, bias, **kw)
         return (q, k, v, bias, o, lse, do), kw
 
-    cases = [(2, 8, 16384, 16, dt, rate) for dt in (torch.float32,
-                                                    torch.bfloat16)
-             for rate in (0.0, 0.1)]
-    cases += [(2, 8, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
-    cases += [(2, 8, 4096, 64, torch.bfloat16, 0.1)]
-    for b, h, n, d, dt, rate in cases:
-        args, kw = inputs(b, h, n, n, d, dt, rate)
-        ref = k2.attention_bwd_plain(*args, **kw)
+    def agree(args, kw, ref, tag, keep):
+        """Both variants against `ref`; the worst errors go to `errs` where
+        `keep` says so."""
+        q, k = args[0], args[1]
+        dt, d, rate = q.dtype, q.shape[3], kw["dropout_rate"]
+        split = k2.backward_instance(dt, d, q.shape[2], k.shape[2], rate).body
         line = []
         for variant in k2.BWD_VARIANTS:
+            body = "simt" if variant == "fused" else split
             got = k2.flash_attention_bwd(*args, variant=variant, **kw)
             torch.cuda.synchronize()
             for name, a, r in zip(BWD_ERR, got, ref):
-                err = (a.float() - r.float()).abs().max().item()
-                tol = bwd_tol(torch, r, dt, name)
-                line.append(f"{variant}.{name} {err:.2e}/{tol:.1e}")
-                if err > tol:
+                ok, err, text = bwd_agree(torch, a, r, dt, name, body)
+                line.append(f"{variant}.{name} {text}")
+                if not ok:
                     raise AssertionError(
-                        f"K2 bwd {variant} {name} disagrees with the plain "
-                        f"version at B{b} N{n} d{d} {dt} dropout {rate}: "
-                        f"{err:.3e} > {tol:.3e}")
-                if dt == torch.float32 and n == 16384 and rate == 0.0:
+                        f"K2 bwd {variant} ({body}) {name} disagrees with "
+                        f"the plain version at {tag}: {text}")
+                if keep:
                     key = ("fused" if variant == "fused" else
                            "dq" if name == "dq" else "dkv")
-                    errs[key] = max(errs[key], err)
-        log(f"[K2 bwd] B{b} H{h} N{n} d{d} {str(dt)[6:]} dropout {rate}: "
-            + ", ".join(line))
+                    errs[dt][key] = max(errs[dt][key], err)
+            del got
+        log(f"[K2 bwd] {tag} (split: {split}): " + ", ".join(line))
+
+    cases = [(2, 8, 16384, 16384, 16, dt, rate)
+             for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
+    cases += [(2, 8, 4096, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
+    cases += [(2, 8, 4096, 4096, 64, torch.bfloat16, 0.1),
+              (2, 8, 2000, 300, 16, torch.bfloat16, 0.1),
+              (2, 8, 300, 2000, 16, torch.bfloat16, 0.0)]
+    for b, h, nq, nk, d, dt, rate in cases:
+        args, kw = inputs(b, h, nq, nk, d, dt, rate)
+        agree(args, kw, k2.attention_bwd_plain(*args, **kw),
+              f"B{b} H{h} {nq}x{nk} d{d} {str(dt)[6:]} dropout {rate}",
+              nq == 16384 and rate == 0.0)
 
     # A q shard at q_offset (the context-parallel call): its dq rows are the
     # full call's, with the same dropout masks.
-    args, kw = inputs(2, 8, 4096, 4096, 16, torch.float32, 0.1)
-    q, k, v, bias, o, lse, do = args
-    sl = slice(2048, None)
-    for variant in k2.BWD_VARIANTS:
-        full = k2.flash_attention_bwd(*args, variant=variant, **kw)
-        qs, dos = q[:, :, sl].contiguous(), do[:, :, sl].contiguous()
-        os_, lses = k2.attention_plain(qs, k, v, bias, dropout_rate=0.1,
-                                       seed=-1234567, q_offset=2048)
-        shard = k2.flash_attention_bwd(qs, k, v, bias, os_, lses, dos,
-                                       variant=variant, dropout_rate=0.1,
-                                       seed=-1234567, q_offset=2048)
-        err = (shard[0] - full[0][:, :, sl]).abs().max().item()
-        tol = bwd_tol(torch, full[0], torch.float32, "dq")
-        log(f"[K2 bwd] q shard at q_offset 2048, {variant}: dq rows "
-            f"max_abs_err {err:.2e} (tol {tol:.1e})")
-        if err > tol:
-            raise AssertionError(f"K2 bwd {variant}: q_offset shard differs")
+    for dt in (torch.float32, torch.bfloat16):
+        args, kw = inputs(2, 8, 4096, 4096, 16, dt, 0.1)
+        q, k, v, bias, o, lse, do = args
+        sl = slice(2048, None)
+        split = k2.backward_instance(dt, 16, 2048, 4096, 0.1).body
+        for variant in k2.BWD_VARIANTS:
+            full = k2.flash_attention_bwd(*args, variant=variant, **kw)
+            qs, dos = q[:, :, sl].contiguous(), do[:, :, sl].contiguous()
+            os_, lses = k2.attention_plain(qs, k, v, bias, dropout_rate=0.1,
+                                           seed=-1234567, q_offset=2048)
+            shard = k2.flash_attention_bwd(qs, k, v, bias, os_, lses, dos,
+                                           variant=variant, dropout_rate=0.1,
+                                           seed=-1234567, q_offset=2048)
+            ok, _, text = bwd_agree(torch, shard[0], full[0][:, :, sl], dt,
+                                    "dq", "simt" if variant == "fused"
+                                    else split)
+            log(f"[K2 bwd] q shard at q_offset 2048, {variant} "
+                f"{str(dt)[6:]}: dq rows {text}")
+            if not ok:
+                raise AssertionError(f"K2 bwd {variant} {dt}: q_offset shard "
+                                     "differs")
 
     # The teacher's training shape (B 16, dropout 0.1): both variants
     # against the plain backward, then times, each kernel alone as well.
@@ -573,80 +623,89 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         args, kw = inputs(16, 8, 16384, 16384, 16, dt, 0.1)
         q, k, v, bias, o, lse, do = args
+        tag = f"B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1"
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         ref = k2.attention_bwd_plain(*args, **kw)
         end.record()
         end.synchronize()
         t = {"plain": start.elapsed_time(end)}
-        line = []
-        for variant in k2.BWD_VARIANTS:
-            got = k2.flash_attention_bwd(*args, variant=variant, **kw)
-            torch.cuda.synchronize()
-            for name, a, r in zip(BWD_ERR, got, ref):
-                err = (a.float() - r.float()).abs().max().item()
-                tol = bwd_tol(torch, r, dt, name)
-                line.append(f"{variant}.{name} {err:.2e}/{tol:.1e}")
-                if err > tol:
-                    raise AssertionError(
-                        f"K2 bwd {variant} {name} disagrees with the plain "
-                        f"version at B16 N16384 d16 {dt} dropout 0.1: "
-                        f"{err:.3e} > {tol:.3e}")
-                if dt == torch.float32:
-                    key = ("fused" if variant == "fused" else
-                           "dq" if name == "dq" else "dkv")
-                    errs[key] = max(errs[key], err)
-            del got
-        log(f"[K2 bwd] B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1: "
-            + ", ".join(line))
+        agree(args, kw, ref, tag, True)
         del ref
         delta = (o.float() * do.float()).sum(-1)
         out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
                    dbias_bh=torch.empty(128, 16384, device=dev),
                    dq_acc=torch.zeros(16, 8, 16384, 16, device=dev))
         dq = torch.empty_like(q)
+        dkv = lambda body=None: time_ms(torch, lambda: k2.launch_bwd_kernel(
+            k2.DKV, q, k, v, bias, do, lse, delta, dk=out["dk"], dv=out["dv"],
+            dbias_bh=out["dbias_bh"], body=body, **kw), 3)
+        dqk = lambda body=None: time_ms(torch, lambda: k2.launch_bwd_kernel(
+            k2.DQ, q, k, v, bias, do, lse, delta, dq=dq, body=body, **kw), 3)
         t |= {
             "fused": time_ms(torch, lambda: k2.flash_attention_bwd(
                 *args, variant="fused", **kw), 3),
             "split": time_ms(torch, lambda: k2.flash_attention_bwd(
                 *args, variant="split", **kw), 3),
-            "dkv": time_ms(torch, lambda: k2.launch_bwd_kernel(
-                k2.DKV, q, k, v, bias, do, lse, delta, **out, **kw), 3),
-            "dq": time_ms(torch, lambda: k2.launch_bwd_kernel(
-                k2.DQ, q, k, v, bias, do, lse, delta, dq=dq, **kw), 3),
+            "dkv": dkv(), "dq": dqk(),
         }
+        if dt == torch.bfloat16:
+            # The CUDA-core bf16 kernels that the tensor-core ones replaced,
+            # on the same inputs, in turns: earlier, new, new, earlier.
+            for name, run in (("dkv", dkv), ("dq", dqk)):
+                turns = [run("simt"), run("mma"), run("mma"), run("simt")]
+                t[name], t[name + "_earlier"] = (min(turns[1:3]),
+                                                 min(turns[0], turns[3]))
+                log(f"[K2 bwd] {tag} {name}: earlier (CUDA cores) "
+                    f"{turns[0]:.3f}, new (tensor cores) {turns[1]:.3f}, new "
+                    f"{turns[2]:.3f}, earlier {turns[3]:.3f} ms on {smi}")
+                if t[name] >= t[name + "_earlier"]:
+                    raise AssertionError(
+                        f"K2 bwd {name} at {tag}: the tensor-core kernel is "
+                        "no faster than the one it replaced")
         t |= {"in_bytes": nbytes(q, k, v, bias, do, lse, delta),
               "dq_bytes": nbytes(dq),
               "dkv_bytes": nbytes(out["dk"], out["dv"], out["dbias_bh"])}
         del out, dq, delta
-        from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
         t["sdpa_bwd"], note = sdpa_ms(q, k, v, bias, backward=True,
                                       dropout_p=0.1, reps=3)
         times[dt] = t
-        log(f"[K2 bwd] B16 H8 N16384 d16 {str(dt)[6:]} dropout 0.1: fused "
-            f"{t['fused']:.1f} ms, split {t['split']:.1f} ms (dk/dv "
-            f"{t['dkv']:.1f} + dq {t['dq']:.1f}), plain {t['plain']:.1f} ms, "
-            f"backward of F.scaled_dot_product_attention {t['sdpa_bwd']} ms "
-            f"({note}) on {smi}")
-    f32 = times[torch.float32]
+        log(f"[K2 bwd] {tag}: fused {t['fused']:.1f} ms, split "
+            f"{t['split']:.1f} ms (dk/dv {t['dkv']:.1f} + dq {t['dq']:.1f}), "
+            f"plain {t['plain']:.1f} ms, backward of "
+            f"F.scaled_dot_product_attention {t['sdpa_bwd']} ms ({note}) on "
+            f"{smi}")
+    f32, b16 = times[torch.float32], times[torch.bfloat16]
     faster = min(("fused", "split"), key=lambda v: sum(
         times[dt][v] for dt in times))
     log(f"[K2 bwd] faster at the teacher's shape (f32 + bf16): {faster}; "
-        f"the default is {k2.DEFAULT_BWD}")
-    # Bounds at the f32 timing shape. Per (q, k) pair and head-dim element:
+        f"the default is {k2.DEFAULT_BWD}; bf16 dk/dv + dq "
+        f"{b16['dkv'] + b16['dq']:.1f} ms (earlier "
+        f"{b16['dkv_earlier'] + b16['dq_earlier']:.1f}) against the library's "
+        f"backward {b16['sdpa_bwd']} ms")
+    # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
     pairs_d = 16 * 8 * 16384 * 16384 * 16
-    entry = lambda key, t, n_ops, out_bytes, lib: {
-        "max_abs_err": errs[key], "ms": f32[t], "plain_ms": f32["plain"],
-        "library_ms": lib,
-        **bound(n_ops * pairs_d, f32["in_bytes"] + out_bytes, "f32")}
+
+    def entry(key, t, n_ops, out_bytes, lib):
+        bd = bound(n_ops * pairs_d, b16["in_bytes"] + b16[out_bytes], "bf16")
+        return {
+            "max_abs_err": errs[torch.float32][key], "ms": f32[t],
+            "plain_ms": f32["plain"], "library_ms": f32["sdpa_bwd"] if lib
+            else None,
+            **bound(n_ops * pairs_d, f32["in_bytes"] + f32[out_bytes], "f32"),
+            "max_abs_err_bf16": errs[torch.bfloat16][key], "ms_bf16": b16[t],
+            "earlier_ms_bf16": b16.get(t + "_earlier", b16[t]),
+            "plain_ms_bf16": b16["plain"],
+            "library_ms_bf16": b16["sdpa_bwd"] if lib else None,
+            "bound_ms_bf16": bd["bound_ms"], "bound_by_bf16": bd["bound_by"]}
+    for t in (f32, b16):
+        t["all_bytes"] = t["dq_bytes"] + t["dkv_bytes"]
     return {
-        "flash_attention_bwd_fused": entry(
-            "fused", "fused", 10, f32["dq_bytes"] + f32["dkv_bytes"],
-            f32["sdpa_bwd"]),
-        "flash_attention_bwd_dq": entry("dq", "dq", 6, f32["dq_bytes"], None),
-        "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, f32["dkv_bytes"],
-                                         None),
+        "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
+                                           True),
+        "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False),
+        "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, "dkv_bytes", False),
     }
 
 
@@ -1108,15 +1167,15 @@ def main() -> int:
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"], **k2),
         dict(name="flash_attention_bwd_fused", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:574",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
              **bwd["flash_attention_bwd_fused"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:474",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
              launches=train["flash_attention_bwd_dq"],
              **bwd["flash_attention_bwd_dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=f"{fa}:514",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:514",
              launches=train["flash_attention_bwd_dkv"],
              **bwd["flash_attention_bwd_dkv"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",

@@ -49,7 +49,7 @@ SIGNATURES = {
                                     _P),
     "lunaris_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                    _U, _F, _U, _I, _I, _I, _P),
+                                    _U, _F, _U, _I, _I, _I, _I, _P),
     "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I,
                        _P),
     "lunaris_gn_stats_pass1": (_P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -16,12 +16,17 @@ other device and never falls back.
                     digits) and bf16 at d 8, on the CUDA cores.
             At d 16 dropout and a ragged Nk are compiled in (four instances
             a body); the other head sizes test both at run time.
-  backward  `csrc/flash_attention_bwd.cu`, in one of two variants:
+  backward  `csrc/flash_attention_bwd.cuh` (instances and entry point in
+            `csrc/flash_attention_bwd*.cu`), in one of two variants:
             "fused"  one dk/dv kernel that also accumulates dq with float
                      atomics (replaces `_bwd_fused_kernel`); its dq varies
-                     from run to run in the last bits;
+                     from run to run in the last bits; CUDA cores only;
             "split"  the dk/dv kernel and a dq kernel (replace
-                     `_bwd_dkv_kernel` and `_bwd_dq_kernel`).
+                     `_bwd_dkv_kernel` and `_bwd_dq_kernel`), each with the
+                     forward's two bodies (`backward_instance`): "mma" for
+                     bf16 at d 16, 48, 64 (four and three products on the
+                     tensor cores, p and ds kept in registers between them,
+                     dbias without atomics), "simt" for f32 and bf16 d 8.
 The result is what `attention_bhnd` and its custom VJP compute, except that
 the forward takes q unscaled: the d^-1/2 factor on dq is applied inside.
 
@@ -48,7 +53,8 @@ bwd_dq_launches = 0
 
 HEAD_DIMS = (8, 16, 48, 64)          # the kernels' compiled head sizes
 MMA_HEAD_DIMS = (16, 48, 64)         # those of the tensor-core body (bf16)
-FWD_BODIES = ("simt", "mma")         # the C entry point's `body` argument
+MMA_BWD_HEAD_DIMS = (16, 48, 64)     # those of the backward's (dk/dv, dq)
+FWD_BODIES = ("simt", "mma")         # the C entry points' `body` argument
 _M32 = 0xFFFFFFFF
 C1 = 0x9E3779B9
 C2 = 0x85EBCA6B
@@ -239,8 +245,11 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 BWD_VARIANTS = ("fused", "split")
 # The variant measured faster at the teacher's training shape (B 16, H 8,
-# N 16384, d 16) on an H100 80GB HBM3 at 700 W: split 250.8 ms against fused
-# 260.8 ms in f32, 256.4 against 262.3 in bf16 (PERF.md).
+# N 16384, d 16, dropout 0.1) on an H100 80GB HBM3 at 700 W: in f32, both on
+# the CUDA cores, split 249.5 ms against fused 259.1 ms; in bf16 split 58.2 ms
+# (dk/dv 35.4 + dq 22.9, on the tensor cores) against fused 260.8 ms (CUDA
+# cores only) and 92.8 ms for the backward of F.scaled_dot_product_attention
+# (PERF.md).
 DEFAULT_BWD = "split"
 
 
@@ -346,13 +355,72 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
 DKV, DKV_FUSED_DQ, DQ = 0, 1, 2      # the C entry point's kernel ids
 
 
+class BackwardInstance(NamedTuple):
+    """The dk/dv and dq kernel instances a split backward launches. dk/dv:
+    a block owns `dkv_rows` keys and walks the queries in tiles of
+    `dkv_block_q`; dq: a block owns `dq_rows` queries and walks the keys in
+    tiles of `dq_block_k`."""
+    body: str            # "mma" (tensor cores) or "simt" (CUDA cores)
+    head_dim: int
+    dkv_block_q: int
+    dkv_rows: int
+    dkv_blocks: int      # blocks along Nk (the last one guards its keys)
+    dq_block_k: int
+    dq_rows: int
+    dq_blocks: int       # blocks along Nq (the last one guards its rows)
+    dropout: str         # "off" / "on": compiled in; "runtime": a flag
+    dkv_ragged: bool     # dk/dv's instance fills the last query tile
+    dq_ragged: bool      # dq's instance fills the last key tile
+
+
+def backward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
+                      dropout_rate: float,
+                      body: str | None = None) -> BackwardInstance:
+    """Which dk/dv and dq instances (dtype, d, Nq, Nk, dropout) take: the
+    rule of the C dispatch (`csrc/flash_attention_bwd*.cu`), as a pure
+    function.
+
+    bf16 at d 16, 48, 64 takes the tensor-core bodies, everything else the
+    CUDA-core bodies. `body="simt"` asks for the CUDA-core bodies at bf16
+    d 16, where the tensor-core ones are taken: measurements and tests
+    compare the two; `flash_attention_bwd` never passes it. On the tensor
+    cores at d 16 dropout and the raggedness of the walked operand (Nq for
+    dk/dv, Nk for dq) are template parameters; the other head sizes, and the
+    CUDA-core bodies at every head size, have one instance each, which fills
+    the last tile and reads the dropout flag at run time. The fused variant
+    has the CUDA-core body only and is not described here."""
+    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: no kernel for {dtype}, head "
+                         f"dim {d} (f32 or bf16, d in {HEAD_DIMS})")
+    default = ("mma" if dtype == torch.bfloat16 and d in MMA_BWD_HEAD_DIMS
+               else "simt")
+    body = body or default
+    if body not in FWD_BODIES or (body != default and (
+            body == "mma" or d != 16)):
+        raise ValueError(f"flash_attention_bwd: body {body!r} does not take "
+                         f"{dtype} at head dim {d}")
+    if body == "mma":
+        tile, rows = 64, 128 if d == 16 else 64
+    else:
+        tile, rows = 32, 128 if d <= 16 else 32
+    if body == "mma" and d == 16:
+        dropout = "on" if dropout_rate > 0.0 else "off"
+        dkv_ragged, dq_ragged = nq % tile != 0, nk % tile != 0
+    else:
+        dropout, dkv_ragged, dq_ragged = "runtime", True, True
+    return BackwardInstance(body, d, tile, rows, -(-nk // rows), tile, rows,
+                            -(-nq // rows), dropout, dkv_ragged, dq_ragged)
+
+
 def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
                       dq=None, dk=None, dv=None, dbias_bh=None, dq_acc=None,
-                      dropout_rate=0.0, seed=0, q_offset=0, row_offset=0):
+                      dropout_rate=0.0, seed=0, q_offset=0, row_offset=0,
+                      body: str | None = None):
     """One launch of a K2 backward kernel into preallocated outputs:
     DKV writes dk, dv, dbias_bh [B*H, Nk]; DKV_FUSED_DQ also adds into the
     zeroed f32 dq_acc [B, H, Nq, d]; DQ writes dq. delta [B, H, Nq] f32 is
-    rowsum(f32(o) f32(dO)). Counts the launch."""
+    rowsum(f32(o) f32(dO)). `body` as in `backward_instance` (DKV and DQ;
+    DKV_FUSED_DQ runs on the CUDA cores). Counts the launch."""
     scale, drop = _check_kernel_inputs(
         "flash_attention_bwd", (q, k, v, bias, do, lse, delta),
         dropout_rate)
@@ -360,20 +428,32 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
             delta.dtype != torch.float32):
         raise ValueError("flash_attention_bwd: dO must have q's dtype and "
                          "lse, delta must be f32")
+    b, h, nq, d = q.shape
+    if kernel == DKV_FUSED_DQ:
+        if body not in (None, "simt"):
+            raise ValueError("flash_attention_bwd: the fused kernel has the "
+                             "CUDA-core body only")
+        body = "simt"
+    else:
+        body = backward_instance(q.dtype, d, nq, k.shape[2], dropout_rate,
+                                 body).body
     outs = {DKV: (dk, dv, dbias_bh), DKV_FUSED_DQ: (dk, dv, dbias_bh, dq_acc),
             DQ: (dq,)}[kernel]
     if any(t is None or t.device != q.device or not t.is_contiguous()
            for t in outs):
         raise ValueError(f"flash_attention_bwd: kernel {kernel} needs "
                          "contiguous outputs on q's device")
-    b, h, nq, d = q.shape
+    if body == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention_bwd: the tensor-core kernels copy "
+                         "16 bytes at a time; q, k, v, dO must be aligned to "
+                         "that")
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.library().lunaris_flash_attention_bwd(
         kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk),
         ptr(dv), ptr(dbias_bh), ptr(dq_acc), b * h, h, nq, k.shape[2], d,
         scale, *drop, seed & _M32, q_offset, row_offset,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), FWD_BODIES.index(body),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches

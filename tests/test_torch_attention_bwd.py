@@ -127,3 +127,80 @@ def test_bwd_variant_is_checked():
                         _inputs(1, 2, 64, 64, 8, seed=1))
     with pytest.raises(ValueError, match="bwd"):
         k2.flash_attention(q, k, v, bias, bwd="three-kernel")
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
+    # body, tile, rows, dkv blocks, dq blocks, dropout, dkv ragged, dq ragged
+    (BF16, 16, 4096, 4096, 0.1, ("mma", 64, 128, 32, 32, "on", False, False)),
+    (BF16, 16, 4096, 4096, 0.0, ("mma", 64, 128, 32, 32, "off", False, False)),
+    (BF16, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, 16, "on", True, True)),
+    (BF16, 16, 300, 300, 0.0, ("mma", 64, 128, 3, 3, "off", True, True)),
+    (BF16, 16, 2000, 4096, 0.1, ("mma", 64, 128, 32, 16, "on", True, False)),
+    (BF16, 16, 4096, 300, 0.1, ("mma", 64, 128, 3, 32, "on", False, True)),
+    (BF16, 48, 4096, 4096, 0.1, ("mma", 64, 64, 64, 64, "runtime", True, True)),
+    (BF16, 64, 2000, 300, 0.0, ("mma", 64, 64, 5, 32, "runtime", True, True)),
+    (BF16, 8, 4096, 4096, 0.1, ("simt", 32, 128, 32, 32, "runtime", True, True)),
+    (F32, 16, 4096, 4096, 0.1, ("simt", 32, 128, 32, 32, "runtime", True, True)),
+    (F32, 16, 300, 2000, 0.0, ("simt", 32, 128, 16, 3, "runtime", True, True)),
+    (F32, 48, 4096, 4096, 0.1, ("simt", 32, 32, 128, 128, "runtime", True, True)),
+    (F32, 64, 2000, 2000, 0.1, ("simt", 32, 32, 63, 63, "runtime", True, True)),
+    (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, 3, "runtime", True, True)),
+])
+def test_backward_instance(dtype, d, nq, nk, rate, want):
+    """The dk/dv and dq instances are a pure function of (dtype, d, Nq, Nk,
+    dropout): bf16 at d 16, 48, 64 takes the tensor cores, the rest the CUDA
+    cores; on the tensor cores at d 16 dropout and the raggedness of the
+    walked operand (Nq for dk/dv, Nk for dq) are compiled in."""
+    body, tile, rows, dkv_blocks, dq_blocks, dropout, dkv_r, dq_r = want
+    inst = k2.backward_instance(dtype, d, nq, nk, rate)
+    assert inst == k2.BackwardInstance(body, d, tile, rows, dkv_blocks, tile,
+                                       rows, dq_blocks, dropout, dkv_r, dq_r)
+    assert inst == k2.backward_instance(dtype, d, nq, nk, rate)
+    assert inst.dkv_blocks * inst.dkv_rows >= nk > (
+        inst.dkv_blocks - 1) * inst.dkv_rows
+    assert inst.dq_blocks * inst.dq_rows >= nq > (
+        inst.dq_blocks - 1) * inst.dq_rows
+    # the forward's rule picks the same body for the same call
+    assert inst.body == k2.forward_instance(dtype, d, nq, nk, rate).body
+
+
+@pytest.mark.parametrize("dtype,d,body", [(F32, 16, "mma"), (BF16, 8, "mma"),
+                                          (BF16, 48, "simt"),
+                                          (BF16, 64, "simt"),
+                                          (F32, 64, "mma"),
+                                          (BF16, 16, "wgmma")])
+def test_backward_instance_refuses_a_body_it_has_not(dtype, d, body):
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(dtype, d, 64, 64, 0.0, body=body)
+
+
+def test_backward_instance_body_argument():
+    """`body="simt"` reaches the CUDA-core kernels where the tensor-core ones
+    are the default (measurements compare them); naming the default is
+    allowed; other types and head sizes have no kernel."""
+    old = k2.backward_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
+    assert old == k2.BackwardInstance("simt", 16, 32, 128, 128, 32, 128, 128,
+                                      "runtime", True, True)
+    assert k2.backward_instance(BF16, 16, 64, 64, 0.0, body="mma").body == "mma"
+    assert k2.backward_instance(F32, 16, 64, 64, 0.0, body="simt").body == "simt"
+    for dtype, d in ((torch.float16, 16), (BF16, 32)):
+        with pytest.raises(ValueError, match="no kernel"):
+            k2.backward_instance(dtype, d, 64, 64, 0.0)
+    assert set(k2.MMA_BWD_HEAD_DIMS) < set(k2.HEAD_DIMS)
+
+
+def test_launch_bwd_kernel_checks_the_body_before_it_launches():
+    """The wrapper refuses, on any device, a body the call has no kernel
+    for: the fused kernel has the CUDA-core body only."""
+    q, k, v, bias, do = (torch.from_numpy(x) for x in
+                         _inputs(1, 2, 64, 64, 16, seed=1))
+    lse = torch.zeros(2, 64)
+    delta = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="CUDA-core body only"):
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
+                             body="mma")
+    with pytest.raises(ValueError, match="does not take"):
+        k2.launch_bwd_kernel(k2.DQ, q, k, v, bias, do, lse, delta, body="mma")

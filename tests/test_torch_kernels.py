@@ -221,27 +221,79 @@ def _bwd_inputs(cuda, b, h, nq, nk, d, dtype, seed, rate=0.0):
     return q, k, v, bias, o, lse, do
 
 
-def _close(got, ref, dtype, name):
-    """f32: 1e-4 of the largest magnitude (sums of up to N terms in other
-    orders; the fused dq's atomics in any order). bf16: 2 bf16 ulps there
-    (ds and p are rounded to bf16 per term, and a term near a rounding
-    boundary may round the other way). dbias is f32 in both."""
-    scale = ref.float().abs().max().item()
-    tol = (1e-4 * scale + 1e-6 if dtype == torch.float32 or name == "dbias"
-           else 2 * 2.0 ** -7 * scale)
-    err = (got.float() - ref.float()).abs().max().item()
-    assert err <= tol, f"{name}: max_abs_err {err:.3e} > {tol:.3e}"
+# The bf16 bar of the K2 backward, element by element against the plain
+# backward (which rounds ds and the dropped p to bf16 where the kernels do and
+# sums in f32): 2 bf16 ulps of the element's own reference for the last
+# rounding, plus 1e-3 of the largest gradient, and a ceiling on the share of
+# elements that differ at all. The earlier bar, 2 ulps of the largest
+# (1.6e-2 of it), would pass one misplaced term of an N-term sum. A score that
+# differs in its last f32 bits can round ds or p the other way in bf16 and
+# move a sum by 2^-8 of one term: that one flipped term is what the 1e-3
+# allows on either body (measured on an H100: 8e-5 on the CUDA cores, in the
+# fused dq at d 64, whose four threads a row sum in another order; 4.6e-4 on
+# the tensor cores, whose sums truncate and whose exp is ex2.approx). The
+# ceiling tells the bodies apart: 1 element in 100 on the CUDA cores
+# (measured: 1 in 500), 5 in 100 on the tensor cores (measured: 1 in 1000 at
+# N 256, 2 in 100 at N 16384, where more terms can flip). A term in the wrong
+# place moves an element by a tenth of the largest or more, a wrong mask
+# every element.
+_K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2)}
 
 
+def _close(got, ref, dtype, name, body="simt"):
+    """f32, and dbias in both types: 1e-4 of the largest magnitude (sums of
+    up to N terms in other orders; the fused dq's atomics in any order).
+    bf16: `_K2_BWD_BF16_BAR`, element by element."""
+    ref = ref.float()
+    top = ref.abs().max().item()
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32 or name == "dbias":
+        tol = 1e-4 * top + 1e-6
+        assert err.max().item() <= tol, (
+            f"{name}: max_abs_err {err.max().item():.3e} > {tol:.3e}")
+        return
+    share, ceiling = _K2_BWD_BF16_BAR[body]
+    differ = (err > 0).float().mean().item()
+    assert differ <= ceiling, f"{name}: {differ:.2e} of the elements differ"
+    assert (err <= 2 * _bf16_ulp(ref) + share * top).all(), (
+        f"{name}: max_abs_err {err.max().item():.3e} at largest {top:.3e}")
+
+
+def _bwd_split(args, body=None, **kw):
+    """The split backward through `launch_bwd_kernel`, which takes `body`:
+    (dq, dk, dv, dbias) as `flash_attention_bwd` returns them."""
+    q, k, v, bias, o, lse, do = args
+    b, h, _, _ = q.shape
+    nk = k.shape[2]
+    delta = (o.float() * do.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias_bh = torch.empty(b * h, nk, device=q.device)
+    k2.launch_bwd_kernel(k2.DKV, q, k, v, bias, do, lse, delta, dk=dk, dv=dv,
+                         dbias_bh=dbias_bh, body=body, **kw)
+    k2.launch_bwd_kernel(k2.DQ, q, k, v, bias, do, lse, delta, dq=dq,
+                         body=body, **kw)
+    return dq, dk, dv, dbias_bh.reshape(b, h, nk).sum(dim=0)
+
+
+# (2000, 2000, 16): the teacher's head size at a ragged N; (2000, 300, 16) and
+# (300, 2000, 16): rectangular with ragged tails on both sides, so that with
+# both rates every (dropout, ragged) instance of the tensor-core bodies runs
+# (4096 x 4096 at d 16: the whole-tile instances, in the bodies-agree test).
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
-@pytest.mark.parametrize("n,d", [(4096, 8), (2000, 16), (4096, 48),
-                                 (1000, 64), (300, 8)])
+@pytest.mark.parametrize("nq,nk,d", [(4096, 4096, 8), (2000, 2000, 16),
+                                     (4096, 4096, 48), (1000, 1000, 64),
+                                     (300, 300, 8), (2000, 300, 16),
+                                     (300, 2000, 16)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_kernels_match_plain(cuda, variant, n, d, rate,
-                                                dtype):
-    args = _bwd_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d, rate=rate)
+def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
+                                                rate, dtype):
+    args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
+    body = ("simt" if variant == "fused" else
+            k2.backward_instance(dtype, d, nq, nk, rate).body)
+    assert body == ("mma" if variant == "split" and dtype == torch.bfloat16
+                    and d >= 16 else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
     got = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
                                  variant=variant)
@@ -252,17 +304,95 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, n, d, rate,
     ref = k2.attention_bwd_plain(*args, dropout_rate=rate, seed=-77)
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape, name
-        _close(g, r, dtype, name)
+        _close(g, r, dtype, name, body)
+    if variant == "split":
+        again = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
+                                       variant=variant)
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, again):
+            assert torch.equal(g, r), f"{name}: same bits every run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nk", [(4096, 4096), (2000, 2000), (2000, 300),
+                                   (300, 2000)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bwd_bodies_agree(cuda, nq, nk, rate):
+    """bf16 at the teacher's head size: the CUDA-core dk/dv and dq kernels
+    (`body="simt"`) meet their bar against the plain backward, and the
+    tensor-core kernels meet theirs against the CUDA-core kernels' output on
+    the same inputs (both round ds and p where the plain backward does)."""
+    args = _bwd_inputs(cuda, 2, 4, nq, nk, 16, torch.bfloat16, seed=nq + nk,
+                       rate=rate)
+    kw = dict(dropout_rate=rate, seed=-77)
+    counts = (k2.bwd_dkv_launches, k2.bwd_dq_launches)
+    new, old = _bwd_split(args, **kw), _bwd_split(args, body="simt", **kw)
+    torch.cuda.synchronize()
+    assert (k2.bwd_dkv_launches, k2.bwd_dq_launches) == (counts[0] + 2,
+                                                        counts[1] + 2)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
+        _close(o, r, torch.bfloat16, name, "simt")
+        _close(n, o, torch.bfloat16, name, "mma")
+    f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in args)
+    with pytest.raises(ValueError, match="does not take"):
+        _bwd_split(f32, body="mma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,body", [(torch.float32, None),
+                                        (torch.bfloat16, None),
+                                        (torch.bfloat16, "simt")])
+@pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
+                                                       (200, 300, 70, 3)])
+def test_flash_attention_bwd_dropout_mask_positions(cuda, dtype, body, nq, nk,
+                                                    q_offset, row_offset):
+    """The backward kernels' dropout masks, position by position, are the
+    hash. With q = 0, bias = 0 and lse = 0 every p is 1; o = 0 makes delta 0.
+    dk/dv: dO is 1 at (query q0 + c, column c) and 0 elsewhere, so dv[key, c]
+    is 0 exactly where the mask drops (query q0 + c, key). dq: k is 1 at
+    (key k0 + c, column c), v and dO are ones (dp = 16), so dq[query, c] is 0
+    exactly where the mask drops (query, key k0 + c). A fragment coordinate
+    mixed up (row r with r + 8, a column pair, a tile, keys with queries)
+    moves the zeros."""
+    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    zeros = lambda n: torch.zeros(b, h, n, d, device=cuda, dtype=dtype)
+    ones = lambda n: torch.ones(b, h, n, d, device=cuda, dtype=dtype)
+    eye = torch.eye(d, device=cuda, dtype=dtype)
+    bias = torch.zeros(h, nk, device=cuda)
+    lse = torch.zeros(b * h, nq, device=cuda)
+    kw = dict(dropout_rate=rate, seed=seed, q_offset=q_offset,
+              row_offset=row_offset)
+    rs = k2.row_seeds(seed, b * h, row_offset, cuda).reshape(b, h, 1, 1)
+    keep = k2.keep_mask(rs, torch.arange(nk, device=cuda),
+                        torch.arange(q_offset, q_offset + nq,
+                                     device=cuda)[:, None],
+                        k2.dropout_threshold(1.0 - rate))   # [b, h, nq, nk]
+    assert 0.6 < keep.float().mean().item() < 0.8
+    for q0 in (0, 8, 56, 121, nq - 16):
+        do = zeros(nq)
+        do[:, :, q0:q0 + d] = eye
+        _, _, dv, _ = _bwd_split((zeros(nq), zeros(nk), ones(nk), bias,
+                                  zeros(nq), lse, do), body=body, **kw)
+        assert torch.equal(dv != 0, keep[:, :, q0:q0 + d].transpose(2, 3)), q0
+    for k0 in (0, 8, 56, 121, nk - 16):
+        k = zeros(nk)
+        k[:, :, k0:k0 + d] = eye
+        dq, _, _, _ = _bwd_split((zeros(nq), k, ones(nk), bias, zeros(nq),
+                                  lse, ones(nq)), body=body, **kw)
+        assert torch.equal(dq != 0, keep[:, :, :, k0:k0 + d]), k0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
-def test_flash_attention_bwd_offsets(cuda, variant):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_offsets(cuda, variant, dtype):
     """A q shard at q_offset gets the full call's dq rows; batch row 1 at
     row_offset gets the full call's dq, dk, dv rows (same dropout masks)."""
-    q, k, v, bias, _, _, do = _bwd_inputs(cuda, 2, 2, 512, 512, 16,
-                                          torch.float32, seed=3)
+    q, k, v, bias, _, _, do = _bwd_inputs(cuda, 2, 2, 512, 512, 16, dtype,
+                                          seed=3)
     kw = dict(dropout_rate=0.2, seed=9)
+    body = ("simt" if variant == "fused" else
+            k2.backward_instance(dtype, 16, 512, 512, 0.2).body)
 
     def grads(q, k, v, do, **extra):
         o, lse = k2.attention_plain(q, k, v, bias, **kw, **extra)
@@ -272,9 +402,9 @@ def test_flash_attention_bwd_offsets(cuda, variant):
     shard = grads(q[:, :, 256:].contiguous(), k, v,
                   do[:, :, 256:].contiguous(), q_offset=256)
     rows = grads(*(t[1:].contiguous() for t in (q, k, v, do)), row_offset=2)
-    _close(shard[0], full[0][:, :, 256:], torch.float32, "dq")
+    _close(shard[0], full[0][:, :, 256:], dtype, "dq", body)
     for name, a, b in zip(("dq", "dk", "dv"), rows[:3], full[:3]):
-        _close(a, b[1:], torch.float32, name)
+        _close(a, b[1:], dtype, name, body)
 
 
 @pytest.mark.gpu
