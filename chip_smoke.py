@@ -13,29 +13,34 @@ Phases, each of which raises on failure (exit code 1):
   4. K2       flash-attention forward kernels against the plain version at
               the teacher's shape (B 8 and the train step's B 16, H 8,
               N 16384, d 16) with dropout 0 and 0.1, f32 (CUDA cores) and
-              bf16 (tensor cores), and at d 8/48/64 and a ragged N; bf16
+              bf16 (tensor cores), and at d 8/32/48/64 and a ragged N; bf16
               element by element against the plain version's online form;
               the tensor-core bf16 kernel timed against the CUDA-core one it
-              replaced (earlier, new, new, earlier);
+              replaced (earlier, new, new, earlier); d 32 (feature_dim 256)
+              at B 8, N 16384 timed beside F.scaled_dot_product_attention;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
               counts must be above 0; decode+score sprites/s, and one call
               under torch.profiler: device time by kernel, idle share;
-  6. context  a 64 px config (N = 4096) through the port on the CPU (plain
+  6. context  64 px configs (N = 4096) through the port on the CPU (plain
               versions) and on the card (kernels) from one checkpoint and
-              one z, TF32 off: decode within 1/255, quality within 1e-3;
-  7. K2 bwd   both backward variants (fused; split = dk/dv + dq kernels)
-              against the plain backward at B 2, H 8, N 16384, d 16,
-              dropout 0 and 0.1, f32 (CUDA cores) and bf16 (split: tensor
-              cores), at d 8/48/64, at a ragged rectangular 2000 x 300 and
-              300 x 2000 in bf16, with a q shard at q_offset, and at the
+              one z, TF32 off, at feature_dim 64 (d 8) and 256 (d 32):
+              decode within 1/255, quality within 1e-3;
+  7. K2 bwd   both backward variants (fused = dk/dv with dq; split = dk/dv +
+              dq kernels) against the plain backward at B 2, H 8, N 16384,
+              d 16, dropout 0 and 0.1, f32 (CUDA cores) and bf16 (tensor
+              cores), at d 8/32/48/64, at a ragged rectangular 2000 x 300
+              and 300 x 2000 in bf16, with a q shard at q_offset, and at the
               teacher's training shape (B 16, H 8, N 16384, d 16, dropout
-              0.1), f32 and bf16, where it also times both and the plain
-              version; bf16 element by element; the tensor-core bf16 dk/dv
-              and dq kernels timed against the CUDA-core ones they replaced
-              (earlier, new, new, earlier) beside the backward of
-              `F.scaled_dot_product_attention`;
+              0.1), f32 and bf16, where it also times every kernel and the
+              plain version; bf16 element by element; the tensor-core bf16
+              fused, dk/dv and dq kernels timed against the CUDA-core ones
+              they replaced, and the two variants against each other (each
+              earlier, new, new, earlier) beside the backward of
+              `F.scaled_dot_product_attention`; both variants at d 32, B 8,
+              N 16384 beside it, and in turns at N 4096 at every head size
+              (what `default_bwd` follows);
   8. K3       the MSE+KL kernel against its plain version at
               [16, 128, 128, 3], L = 256, f32 and bf16;
   9. grads    one `train_step` of a 64 px config (N = 4096) on the CPU
@@ -47,10 +52,10 @@ Phases, each of which raises on failure (exit code 1):
               256, feature 128, 8 heads, 4 experts x 3 blocks, batch 16,
               accumulation 2, remat), seeded random init: 1 bf16 step with
               the non-default K2 backward, then 1 f32 and 1 bf16 step with
-              the default; losses finite, both models' parameters changed,
-              every kernel of the path launched; step time and sprites/s;
-              the two default steps run under torch.profiler: device time
-              by kernel, idle share;
+              the default and 1 bf16 step with the other variant; losses
+              finite, both models' parameters changed, every kernel of the
+              path launched; step time and sprites/s; the three warm steps
+              run under torch.profiler: device time by kernel, idle share;
  11. K5       the GN-apply+Mish+conv3x3 kernel against its plain version at
               [2,32,32,64]->64, [2,64,64,32]->32, [2,32,32,128]->64 (f32)
               and [8,128,128,64]->64 (f32 and bf16), then K5 and K1 at the
@@ -76,9 +81,10 @@ taken at; `library_ms` is one PyTorch call computing the same function
 (`F.scaled_dot_product_attention` for K2), timed here and used nowhere in
 the port. The entries of the K2 forward and of the three K2 backward kernels
 carry the f32 reading under the plain keys and the bf16 reading under
-`*_bf16` (`earlier_ms_bf16`: the CUDA-core bf16 kernel on the same inputs;
-the fused backward has that body only, so there it repeats `ms_bf16`). The
-last lines are the card's name and
+`*_bf16` (`earlier_ms_bf16`: the CUDA-core bf16 kernel on the same
+inputs; `body`, `body_bf16`: the body the instance rule gives), and the
+head size 32 times at B 8 under `*_d32` (the backward's: its variant's
+`flash_attention_bwd`). The last lines are the card's name and
 power limit, a JSON object with the kernels' measurements and, last, the
 result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -89,6 +95,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -127,12 +134,17 @@ def bf16_ulp(torch, x):
     return torch.exp2(e - 7)
 
 
-# Where a path's device time goes: the port's kernels by a part of their name.
-KERNEL_GROUPS = (("K2 fwd", ("flash_fwd",)),
-                 ("K2 bwd dk/dv", ("flash_bwd_dkv",)),
-                 ("K2 bwd dq", ("flash_bwd_dq",)),
-                 ("K1", ("gn_mish_apply", "gn_stats_partial", "gn_fold")),
-                 ("K3", ("mse_kl",)))
+# Where a path's device time goes: the port's kernels by a part of their
+# (demangled) name. The fused backward is the dk/dv kernel whose last
+# template argument, kFusedDq or FUSED, is true.
+KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
+                 ("K2 bwd fused", lambda k: re.search(
+                     r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
+                 ("K2 bwd dk/dv", lambda k: "flash_bwd_dkv" in k),
+                 ("K2 bwd dq", lambda k: "flash_bwd_dq" in k),
+                 ("K1", lambda k: any(p in k for p in (
+                     "gn_mish_apply", "gn_stats_partial", "gn_fold"))),
+                 ("K3", lambda k: "mse_kl" in k))
 
 
 def device_share(torch, fn, tag: str, smi: str):
@@ -151,8 +163,8 @@ def device_share(torch, fn, tag: str, smi: str):
     for e in p.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        group = next((g for g, parts in KERNEL_GROUPS
-                      if any(part in e.key for part in parts)), "other")
+        group = next((g for g, member in KERNEL_GROUPS if member(e.key)),
+                     "other")
         ms[group] += e.self_device_time_total / 1e3
     total = sum(ms.values())
     if total <= 0:
@@ -323,8 +335,11 @@ def check_k2(torch, dev, smi) -> dict:
     # The teacher's shape at the serving batch and the train step's.
     cases = [(b, 8, 16384, 16, dt, rate) for b in (8, 16)
              for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
-    cases += [(8, 8, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
-    cases += [(8, 8, 4096, d, torch.bfloat16, 0.1) for d in (8, 48)]
+    cases += [(8, 8, 4096, d, torch.float32, 0.1) for d in (8, 32, 48, 64)]
+    cases += [(8, 8, 4096, d, torch.bfloat16, 0.1) for d in (8, 32, 48)]
+    # d 32 (feature_dim 256) at the serving batch: times beside the library.
+    cases += [(8, 8, 16384, 32, dt, 0.0)
+              for dt in (torch.float32, torch.bfloat16)]
     cases += [(8, 8, 4096, 64, torch.bfloat16, 0.0),
               (4, 8, 2000, 16, torch.float32, 0.1),
               (4, 8, 2000, 16, torch.bfloat16, 0.1),
@@ -366,6 +381,15 @@ def check_k2(torch, dev, smi) -> dict:
             f"({flops / t_k / 1e9:.2f} TFLOP/s)")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {tag}")
+        if big and d == 32:
+            del ro, rlse
+            lib, lib_note = sdpa_ms(q, k, v, bias, reps=3)
+            log(f"[K2] {tag}: kernel {t_k:.3f} ms, "
+                f"F.scaled_dot_product_attention {lib} ms ({lib_note}) on "
+                f"{smi}")
+            suffix = "_d32" if dt == torch.float32 else "_bf16_d32"
+            out |= {"ms" + suffix: t_k, "library_ms" + suffix: lib}
+            continue
         if not (big and d == 16 and dt == torch.bfloat16 or
                 big and b == 8 and rate == 0.0):
             continue
@@ -471,14 +495,15 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
     return launches
 
 
-def run_context(torch, tmp: Path) -> None:
+def run_context(torch, tmp: Path, feature_dim: int) -> None:
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
 
-    # 64 px, 2 experts, feature_dim 64 (head_dim 8): N = 4096 > 1024 runs K2.
-    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=64,
+    # 64 px, 2 experts, 8 heads: N = 4096 > 1024 runs K2 at head size
+    # feature_dim / 8 (64: d 8; 256: d 32, the low-end recipe's width).
+    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=feature_dim,
                       embedding_dim=32, num_experts=2)
-    ckpt = tmp / "ctx.pt"
+    ckpt = tmp / f"ctx{feature_dim}.pt"
     save_checkpoint(torch, cfg, ckpt, seed=1)
     z = torch.randn(2, cfg.latent_dim, generator=torch.Generator().manual_seed(2))
     # TF32 off for this comparison (the generator's f32 mode turns it off
@@ -491,11 +516,12 @@ def run_context(torch, tmp: Path) -> None:
             res[dev] = (imgs.cpu(), quality.cpu())
     d_img = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
     d_q = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
-    log(f"[context] 64 px, TF32 off, CPU plain vs card kernels: decode max "
-        f"diff {d_img:.3e} (bar {1 / 255:.3e}), quality max diff "
-        f"{d_q:.3e} (bar 1e-3)")
+    log(f"[context] 64 px, feature_dim {feature_dim} (d {feature_dim // 8}), "
+        f"TF32 off, CPU plain vs card kernels: decode max diff {d_img:.3e} "
+        f"(bar {1 / 255:.3e}), quality max diff {d_q:.3e} (bar 1e-3)")
     if d_img > 1 / 255 or d_q > 1e-3:
-        raise AssertionError("kernels in context disagree with the CPU run")
+        raise AssertionError("kernels in context disagree with the CPU run "
+                             f"at feature_dim {feature_dim}")
 
 
 BWD_ERR = ("dq", "dk", "dv", "dbias")
@@ -556,42 +582,69 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         o, lse = k2.attention_plain(q, k, v, bias, **kw)
         return (q, k, v, bias, o, lse, do), kw
 
+    def bodies(dt, d, nq, nk, rate):
+        """The body each variant takes, by the instance rules."""
+        return {"fused": k2.fused_instance(dt, d, nq, nk, rate).body,
+                "split": k2.backward_instance(dt, d, nq, nk, rate).body}
+
     def agree(args, kw, ref, tag, keep):
         """Both variants against `ref`; the worst errors go to `errs` where
         `keep` says so."""
         q, k = args[0], args[1]
         dt, d, rate = q.dtype, q.shape[3], kw["dropout_rate"]
-        split = k2.backward_instance(dt, d, q.shape[2], k.shape[2], rate).body
+        body = bodies(dt, d, q.shape[2], k.shape[2], rate)
         line = []
         for variant in k2.BWD_VARIANTS:
-            body = "simt" if variant == "fused" else split
             got = k2.flash_attention_bwd(*args, variant=variant, **kw)
             torch.cuda.synchronize()
             for name, a, r in zip(BWD_ERR, got, ref):
-                ok, err, text = bwd_agree(torch, a, r, dt, name, body)
+                ok, err, text = bwd_agree(torch, a, r, dt, name, body[variant])
                 line.append(f"{variant}.{name} {text}")
                 if not ok:
                     raise AssertionError(
-                        f"K2 bwd {variant} ({body}) {name} disagrees with "
-                        f"the plain version at {tag}: {text}")
+                        f"K2 bwd {variant} ({body[variant]}) {name} disagrees "
+                        f"with the plain version at {tag}: {text}")
                 if keep:
                     key = ("fused" if variant == "fused" else
                            "dq" if name == "dq" else "dkv")
                     errs[dt][key] = max(errs[dt][key], err)
             del got
-        log(f"[K2 bwd] {tag} (split: {split}): " + ", ".join(line))
+        log(f"[K2 bwd] {tag} (fused: {body['fused']}, split: "
+            f"{body['split']}): " + ", ".join(line))
 
+    def in_turns(run, earlier, new, what):
+        """Times of run(earlier), run(new), run(new), run(earlier): the
+        better of each pair."""
+        t = [run(earlier), run(new), run(new), run(earlier)]
+        log(f"[K2 bwd] {what}: {earlier} {t[0]:.3f}, {new} {t[1]:.3f}, {new} "
+            f"{t[2]:.3f}, {earlier} {t[3]:.3f} ms on {smi}")
+        return min(t[1:3]), min(t[0], t[3])
+
+    def variant_ms(args, kw):
+        return lambda name: time_ms(torch, lambda: k2.flash_attention_bwd(
+            *args, variant=name, **kw), 3)
+
+    # Every head size in both types; at N 4096 the two variants are also
+    # timed in turns, which is what `default_bwd` follows at the head sizes
+    # that the teacher's shape below does not time.
     cases = [(2, 8, 16384, 16384, 16, dt, rate)
              for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
-    cases += [(2, 8, 4096, 4096, d, torch.float32, 0.1) for d in (8, 48, 64)]
-    cases += [(2, 8, 4096, 4096, 64, torch.bfloat16, 0.1),
-              (2, 8, 2000, 300, 16, torch.bfloat16, 0.1),
+    cases += [(2, 8, 4096, 4096, d, dt, 0.1) for dt in (torch.float32,
+                                                         torch.bfloat16)
+              for d in (8, 32, 48, 64)]
+    cases += [(2, 8, 2000, 300, 16, torch.bfloat16, 0.1),
               (2, 8, 300, 2000, 16, torch.bfloat16, 0.0)]
     for b, h, nq, nk, d, dt, rate in cases:
         args, kw = inputs(b, h, nq, nk, d, dt, rate)
-        agree(args, kw, k2.attention_bwd_plain(*args, **kw),
-              f"B{b} H{h} {nq}x{nk} d{d} {str(dt)[6:]} dropout {rate}",
+        tag = f"B{b} H{h} {nq}x{nk} d{d} {str(dt)[6:]} dropout {rate}"
+        agree(args, kw, k2.attention_bwd_plain(*args, **kw), tag,
               nq == 16384 and rate == 0.0)
+        if nq == nk == 4096:
+            fused_ms, split_ms = in_turns(variant_ms(args, kw), "split",
+                                          "fused", f"{tag} flash_attention_bwd")
+            log(f"[K2 bwd] {tag}: faster in turns "
+                f"{'fused' if fused_ms < split_ms else 'split'}, the default "
+                f"is {k2.default_bwd(dt, d)}")
 
     # A q shard at q_offset (the context-parallel call): its dq rows are the
     # full call's, with the same dropout masks.
@@ -599,7 +652,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         args, kw = inputs(2, 8, 4096, 4096, 16, dt, 0.1)
         q, k, v, bias, o, lse, do = args
         sl = slice(2048, None)
-        split = k2.backward_instance(dt, 16, 2048, 4096, 0.1).body
+        body = bodies(dt, 16, 2048, 4096, 0.1)
         for variant in k2.BWD_VARIANTS:
             full = k2.flash_attention_bwd(*args, variant=variant, **kw)
             qs, dos = q[:, :, sl].contiguous(), do[:, :, sl].contiguous()
@@ -609,10 +662,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                                            variant=variant, dropout_rate=0.1,
                                            seed=-1234567, q_offset=2048)
             ok, _, text = bwd_agree(torch, shard[0], full[0][:, :, sl], dt,
-                                    "dq", "simt" if variant == "fused"
-                                    else split)
+                                    "dq", body[variant])
             log(f"[K2 bwd] q shard at q_offset 2048, {variant} "
-                f"{str(dt)[6:]}: dq rows {text}")
+                f"({body[variant]}) {str(dt)[6:]}: dq rows {text}")
             if not ok:
                 raise AssertionError(f"K2 bwd {variant} {dt}: q_offset shard "
                                      "differs")
@@ -642,27 +694,28 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             dbias_bh=out["dbias_bh"], body=body, **kw), 3)
         dqk = lambda body=None: time_ms(torch, lambda: k2.launch_bwd_kernel(
             k2.DQ, q, k, v, bias, do, lse, delta, dq=dq, body=body, **kw), 3)
-        t |= {
-            "fused": time_ms(torch, lambda: k2.flash_attention_bwd(
-                *args, variant="fused", **kw), 3),
-            "split": time_ms(torch, lambda: k2.flash_attention_bwd(
-                *args, variant="split", **kw), 3),
-            "dkv": dkv(), "dq": dqk(),
-        }
+        # The fused kernel alone adds into dq_acc without zeroing it: its
+        # time is the kernel's, the buffer's values are not read.
+        fused = lambda body=None: time_ms(torch, lambda: k2.launch_bwd_kernel(
+            k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out, body=body,
+            **kw), 3)
+        t |= {"fused": fused(), "dkv": dkv(), "dq": dqk()}
         if dt == torch.bfloat16:
             # The CUDA-core bf16 kernels that the tensor-core ones replaced,
             # on the same inputs, in turns: earlier, new, new, earlier.
-            for name, run in (("dkv", dkv), ("dq", dqk)):
-                turns = [run("simt"), run("mma"), run("mma"), run("simt")]
-                t[name], t[name + "_earlier"] = (min(turns[1:3]),
-                                                 min(turns[0], turns[3]))
-                log(f"[K2 bwd] {tag} {name}: earlier (CUDA cores) "
-                    f"{turns[0]:.3f}, new (tensor cores) {turns[1]:.3f}, new "
-                    f"{turns[2]:.3f}, earlier {turns[3]:.3f} ms on {smi}")
+            for name, run in (("fused", fused), ("dkv", dkv), ("dq", dqk)):
+                t[name], t[name + "_earlier"] = in_turns(
+                    run, "simt", "mma", f"{tag} {name} kernel, CUDA cores "
+                    "(simt) against tensor cores (mma)")
                 if t[name] >= t[name + "_earlier"]:
                     raise AssertionError(
                         f"K2 bwd {name} at {tag}: the tensor-core kernel is "
                         "no faster than the one it replaced")
+        # The two variants as flash_attention_bwd runs them (delta, buffers,
+        # dq's rounding included), in turns.
+        t["fused_call"], t["split"] = in_turns(
+            variant_ms(args, kw), "split", "fused",
+            f"{tag} flash_attention_bwd")
         t |= {"in_bytes": nbytes(q, k, v, bias, do, lse, delta),
               "dq_bytes": nbytes(dq),
               "dkv_bytes": nbytes(out["dk"], out["dv"], out["dbias_bh"])}
@@ -670,42 +723,71 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         t["sdpa_bwd"], note = sdpa_ms(q, k, v, bias, backward=True,
                                       dropout_p=0.1, reps=3)
         times[dt] = t
-        log(f"[K2 bwd] {tag}: fused {t['fused']:.1f} ms, split "
-            f"{t['split']:.1f} ms (dk/dv {t['dkv']:.1f} + dq {t['dq']:.1f}), "
-            f"plain {t['plain']:.1f} ms, backward of "
-            f"F.scaled_dot_product_attention {t['sdpa_bwd']} ms ({note}) on "
-            f"{smi}")
+        log(f"[K2 bwd] {tag}: fused kernel {t['fused']:.1f} ms (call "
+            f"{t['fused_call']:.1f}), split {t['split']:.1f} ms (dk/dv "
+            f"{t['dkv']:.1f} + dq {t['dq']:.1f}), plain {t['plain']:.1f} ms, "
+            f"backward of F.scaled_dot_product_attention {t['sdpa_bwd']} ms "
+            f"({note}) on {smi}")
     f32, b16 = times[torch.float32], times[torch.bfloat16]
-    faster = min(("fused", "split"), key=lambda v: sum(
-        times[dt][v] for dt in times))
-    log(f"[K2 bwd] faster at the teacher's shape (f32 + bf16): {faster}; "
-        f"the default is {k2.DEFAULT_BWD}; bf16 dk/dv + dq "
-        f"{b16['dkv'] + b16['dq']:.1f} ms (earlier "
-        f"{b16['dkv_earlier'] + b16['dq_earlier']:.1f}) against the library's "
-        f"backward {b16['sdpa_bwd']} ms")
+    for dt, t in times.items():
+        log(f"[K2 bwd] {str(dt)[6:]} d16: faster in turns "
+            f"{'fused' if t['fused_call'] < t['split'] else 'split'}, the "
+            f"default is {k2.default_bwd(dt, 16)}")
+    log(f"[K2 bwd] bf16 fused {b16['fused']:.1f} ms (earlier "
+        f"{b16['fused_earlier']:.1f}), dk/dv + dq {b16['dkv'] + b16['dq']:.1f} "
+        f"ms (earlier {b16['dkv_earlier'] + b16['dq_earlier']:.1f}) against "
+        f"the library's backward {b16['sdpa_bwd']} ms")
+
+    # Head size 32 (feature_dim 256) at the serving batch: both variants in
+    # turns beside the library's backward (correctness: the 4096 cases).
+    d32 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args, kw = inputs(8, 8, 16384, 16384, 32, dt, 0.1)
+        tag = f"B8 H8 N16384 d32 {str(dt)[6:]} dropout 0.1"
+        body = bodies(dt, 32, 16384, 16384, 0.1)
+        fused_ms, split_ms = in_turns(variant_ms(args, kw), "split", "fused",
+                                      f"{tag} flash_attention_bwd ({body})")
+        lib, note = sdpa_ms(*args[:4], backward=True, dropout_p=0.1, reps=3)
+        d32[dt] = {"fused": fused_ms, "split": split_ms, "sdpa": lib}
+        log(f"[K2 bwd] {tag}: fused {fused_ms:.1f} ms, split {split_ms:.1f} "
+            f"ms, backward of F.scaled_dot_product_attention {lib} ms "
+            f"({note}) on {smi}; the default is {k2.default_bwd(dt, 32)}")
+        del args
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
     pairs_d = 16 * 8 * 16384 * 16384 * 16
 
-    def entry(key, t, n_ops, out_bytes, lib):
+    def entry(key, t, n_ops, out_bytes, lib, d32_key):
         bd = bound(n_ops * pairs_d, b16["in_bytes"] + b16[out_bytes], "bf16")
         return {
             "max_abs_err": errs[torch.float32][key], "ms": f32[t],
             "plain_ms": f32["plain"], "library_ms": f32["sdpa_bwd"] if lib
             else None,
             **bound(n_ops * pairs_d, f32["in_bytes"] + f32[out_bytes], "f32"),
+            "body": k2.fused_instance(torch.float32, 16, 1, 1, 0.1).body
+            if key == "fused" else
+            k2.backward_instance(torch.float32, 16, 1, 1, 0.1).body,
             "max_abs_err_bf16": errs[torch.bfloat16][key], "ms_bf16": b16[t],
+            "body_bf16": k2.fused_instance(torch.bfloat16, 16, 1, 1, 0.1).body
+            if key == "fused" else
+            k2.backward_instance(torch.bfloat16, 16, 1, 1, 0.1).body,
             "earlier_ms_bf16": b16.get(t + "_earlier", b16[t]),
             "plain_ms_bf16": b16["plain"],
             "library_ms_bf16": b16["sdpa_bwd"] if lib else None,
-            "bound_ms_bf16": bd["bound_ms"], "bound_by_bf16": bd["bound_by"]}
+            "bound_ms_bf16": bd["bound_ms"], "bound_by_bf16": bd["bound_by"],
+            # flash_attention_bwd with this kernel's variant at B 8, d 32
+            "variant_ms_d32": d32[torch.float32][d32_key],
+            "variant_ms_bf16_d32": d32[torch.bfloat16][d32_key],
+            "library_ms_bf16_d32": d32[torch.bfloat16]["sdpa"]}
     for t in (f32, b16):
         t["all_bytes"] = t["dq_bytes"] + t["dkv_bytes"]
     return {
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
-                                           True),
-        "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False),
-        "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, "dkv_bytes", False),
+                                           True, "fused"),
+        "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
+                                        "split"),
+        "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, "dkv_bytes", False,
+                                         "split"),
     }
 
 
@@ -845,8 +927,13 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
               (*state.vae.parameters(), *state.teacher.parameters())]
     n_vae = sum(1 for _ in state.vae.parameters())
     g = torch.Generator(device="cuda").manual_seed(8)
-    other = next(v for v in k2.BWD_VARIANTS if v != k2.DEFAULT_BWD)
-    runs = [(True, other), (False, None), (True, None)]   # the first is cold
+    d = cfg.teacher_config().head_dim
+    dtype = lambda bf16: torch.bfloat16 if bf16 else torch.float32
+    # bf16 with the variant that is not its default: cold first (the host's
+    # clock only), and again after the two default steps, in the same state.
+    other = next(v for v in k2.BWD_VARIANTS
+                 if v != k2.default_bwd(torch.bfloat16, d))
+    runs = [(True, other), (False, None), (True, None), (True, other)]
     counters = [(k1, "launches"), (k2, "launches"), (k2, "bwd_fused_launches"),
                 (k2, "bwd_dq_launches"), (k2, "bwd_dkv_launches"),
                 (k3, "launches")]
@@ -869,14 +956,15 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
         else:
             (state, m), dt = device_share(
                 torch, lambda: step(state, images), "train step "
-                f"{'bf16' if bf16 else 'f32'} K2 bwd {bwd or k2.DEFAULT_BWD}",
-                smi)
+                f"{'bf16' if bf16 else 'f32'} K2 bwd "
+                f"{bwd or k2.default_bwd(dtype(bf16), d)}", smi)
         losses = {k: float(v) for k, v in m.items()}
         if not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"train step: non-finite metrics {losses}")
         n = images.shape[0] * images.shape[1]
         log(f"[train] step {state.step} {'bf16' if bf16 else 'f32'} K2 bwd "
-            f"{bwd or k2.DEFAULT_BWD}: {dt * 1e3:.0f} ms = {n / dt:.2f} "
+            f"{bwd or k2.default_bwd(dtype(bf16), d) + ' (default)'}: "
+            f"{dt * 1e3:.0f} ms = {n / dt:.2f} "
             f"sprites/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
             f"GiB, total_loss {losses['total_loss']:.5f} recon "
             f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
@@ -1145,7 +1233,8 @@ def main() -> int:
     k2 = check_k2(torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_slice(torch, Path(tmp), smi)
-        run_context(torch, Path(tmp))
+        for feature_dim in (64, 256):
+            run_context(torch, Path(tmp), feature_dim)
     bwd = check_k2_bwd(torch, dev, smi)
     k3 = check_k3(torch, dev)
     run_grad_context(torch)

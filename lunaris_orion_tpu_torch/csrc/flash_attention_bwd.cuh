@@ -41,7 +41,7 @@
 //   flash_bwd_dkv_mma, flash_bwd_dq_mma   bf16, D a multiple of 16, on the
 //       tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32); 4 warps a
 //       block, a warp owns two 16-row tiles at d = 16 (one fragment of the
-//       walked operand serves both) and one at d 48 and 64.
+//       walked operand serves both) and one at d 32, 48 and 64.
 //     dkv: one block per (BH row, 128 or 64 keys). K and V of a warp's keys
 //       are A fragments, read once and kept in registers with the keys'
 //       bias. The block walks the queries in tiles of 64 that arrive by
@@ -73,16 +73,32 @@
 //     own sums truncate, and N / 64 tiles follow each other). Rows past the
 //     end of the block's own operand (keys in dkv, queries in dq) are
 //     independent of the others: they read zeros and are not stored.
+//     dkv with FUSED (the single-pass form of `_bwd_fused_kernel`, bf16 at
+//       d 16 and 32): a fifth product per 16 queries, dq += round(ds) k over
+//       the warp's keys. The ds fragments are the A operand of ds^T qs with
+//       keys as rows; movmatrix.trans turns each 8 x 8 block in registers
+//       into the A operand with queries as rows, and k's B fragments are kf
+//       transposed the same way once, before the query walk. Each warp
+//       parks its tile's f32 partial in shared memory; after the tile the
+//       block sums its warps' partials in a fixed order and adds them to a
+//       zeroed f32 [BH, Nq, d] buffer with one 16-byte reduction
+//       (red.global.add.v4.f32) a chunk. So scores, ex2 and the hash are
+//       computed once per (query, key) pair, and dq is order-dependent in its
+//       last bits; dk, dv and dbias are not. 8 warps (256 keys) a block at
+//       d 16, 4 at d 32; blocks start their query walk at their own tile so
+//       that the blocks of one BH row do not add into the same rows at once.
+//       At d 48 and 64 the dk/dv body alone fills the registers: the fused
+//       form keeps its CUDA-core kernel there.
 //   flash_bwd_dkv, flash_bwd_dq   f32 or bf16, on the CUDA cores (the first
 //       version): each row is owned by TPR threads that keep it and its f32
 //       accumulators in registers and walk the other operand in tiles of 32
 //       staged in shared memory as f32; at d = 16 one thread owns one row,
-//       at d = 48 and 64 four threads share a row and combine their partial
-//       dot products with warp shuffles. They are the f32 path, the bf16 path
-//       at d = 8, and at d = 16 the earlier bf16 kernels that measurements
-//       compare the tensor-core bodies with.
-//     kFusedDq (the single-pass form of `_bwd_fused_kernel`, CUDA cores at
-//       every type): dkv also forms dq. After each query tile its threads
+//       at d = 32, 48 and 64 four threads share a row and combine their
+//       partial dot products with warp shuffles. They are the f32 path, the
+//       bf16 path at d = 8, and at d = 16 the earlier bf16 kernels that
+//       measurements compare the tensor-core bodies with.
+//     kFusedDq (the single-pass form on the CUDA cores: f32, and bf16 at
+//       d 8, 48 and 64): dkv also forms dq. After each query tile its threads
 //       park round_T(ds) in shared memory, the block reduces ds^T k over its
 //       keys, and adds the tile's dq partial into a zeroed f32 [BH, Nq, d]
 //       buffer with atomicAdd, so scores, exp and the mask are computed once
@@ -99,7 +115,8 @@
 // occupancy (dkv: 168-186 registers, two blocks an SM; eight warps of one
 // tile at 128 registers were no faster): the per-score work on the CUDA
 // cores, the ex2 and the mma each need about 9 ms at that shape and overlap
-// only in part (PERF.md).
+// only in part (PERF.md). The fused form on the tensor cores pays the
+// per-score work once for the three gradients (PERF.md).
 
 #pragma once
 
@@ -149,6 +166,13 @@ int lunaris_k2_bwd_dkv_mma_bf16(const LunarisK2BwdArgs& a, int d,
                                 cudaStream_t s);
 int lunaris_k2_bwd_dq_mma_bf16(const LunarisK2BwdArgs& a, int d,
                                cudaStream_t s);
+int lunaris_k2_bwd_fused_mma_bf16(const LunarisK2BwdArgs& a, int d,
+                                  cudaStream_t s);
+// Head size 32: every kernel of one body and type.
+int lunaris_k2_bwd_mma_bf16_d32(const LunarisK2BwdArgs& a, int kernel,
+                                cudaStream_t s);
+int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
+                                cudaStream_t s);
 
 namespace {
 
@@ -428,11 +452,16 @@ constexpr int kBwdMmaTile = 64;  // rows of the walked operand a tile
 
 // Warps a block, and 16-row tiles a warp: two at d = 16, where one fragment
 // of the walked operand then serves both, one at the wider heads, whose
-// accumulators fill the registers.
-__host__ __device__ constexpr int bwd_mma_warps(int) { return 4; }
+// accumulators fill the registers. The fused form at d = 16 takes 8 warps (256
+// keys): half the dq reductions into device memory, at the same 8 warps an SM
+// (255 registers a thread, one block). Timed in turns on an H100 against 4
+// warps, 8 were faster at d = 16 and slower at d = 32.
+__host__ __device__ constexpr int bwd_mma_warps(int d, bool fused = false) {
+  return fused && d <= 16 ? 8 : 4;
+}
 __host__ __device__ constexpr int bwd_mma_tiles(int d) { return d <= 16 ? 2 : 1; }
-__host__ __device__ constexpr int bwd_mma_rows(int d) {
-  return 16 * bwd_mma_tiles(d) * bwd_mma_warps(d);
+__host__ __device__ constexpr int bwd_mma_rows(int d, bool fused = false) {
+  return 16 * bwd_mma_tiles(d) * bwd_mma_warps(d, fused);
 }
 
 // Tiles in flight: two bf16 matrices of [tile][d + 8] and two f32 vectors a
@@ -440,6 +469,14 @@ __host__ __device__ constexpr int bwd_mma_rows(int d) {
 __host__ __device__ constexpr int bwd_mma_stages(int d) {
   return 3 * (2 * kBwdMmaTile * (d + 8) * 2 + 2 * kBwdMmaTile * 4) <= 48 * 1024
              ? 3 : 2;
+}
+
+// The fused form's dq partials of one query tile, one [tile][d + 8] f32
+// matrix a warp (rows padded by 32 bytes: the float2 stores of a C fragment
+// and the float4 reads of the reduction meet no bank conflict), in dynamic
+// shared memory beside the static ring.
+__host__ __device__ constexpr int bwd_mma_dq_part_bytes(int d) {
+  return bwd_mma_warps(d, true) * kBwdMmaTile * (d + 8) * 4;
 }
 
 // A bf16 matrix's rows [row0, row0 + 16) x columns [16 kd, 16 kd + 16), kd <
@@ -465,22 +502,25 @@ __device__ __forceinline__ void load_a_fragments(
     }
 }
 
-template <int D, int DROP, bool RAGGED>
-__global__ void __launch_bounds__(32 * bwd_mma_warps(D))
+// FUSED: the single-pass form, which also adds dq into a.dq_acc.
+template <int D, int DROP, bool RAGGED, bool FUSED = false>
+__global__ void __launch_bounds__(32 * bwd_mma_warps(D, FUSED))
 flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
   static_assert(D % 16 == 0, "the tensor-core body takes whole k-steps of 16");
   using bf16 = __nv_bfloat16;
-  constexpr int W = bwd_mma_warps(D);
+  constexpr int W = bwd_mma_warps(D, FUSED);
   constexpr int MT = bwd_mma_tiles(D);
   constexpr int BQ = kBwdMmaTile;
   constexpr int THREADS = 32 * W;
   constexpr int ST = bwd_mma_stages(D);
   constexpr int LD = D + 8;        // a row and 16 bytes: ldmatrix without conflicts
+  constexpr int LDQ = D + 8;       // a row of a dq partial, f32
   constexpr int KD = D / 16;       // k-steps of k qs^T; pairs of d tiles of dk
   __shared__ __align__(16) bf16 qs[ST][BQ][LD];
   __shared__ __align__(16) bf16 dos[ST][BQ][LD];
   __shared__ __align__(16) float ls[ST][BQ];    // -lse log2 e once landed
   __shared__ __align__(16) float dls[ST][BQ];
+  extern __shared__ __align__(16) float dq_part[];  // FUSED: [W][BQ][LDQ]
 
   const int Nq = a.Nq, Nk = a.Nk;
   const int tid = threadIdx.x;
@@ -496,10 +536,19 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
   const float* deltab = a.delta + static_cast<long long>(bh) * Nq;
   const bool drop = DROP == kDropOn || (DROP == kDropRuntime && a.use_dropout);
   const int tiles = (Nq + BQ - 1) / BQ;
+  // The query tile of step i of the walk. The fused form starts each block
+  // at its own tile, so that the blocks of one BH row do not add into the
+  // same dq rows at once.
+  const int first = FUSED ? blockIdx.x % tiles : 0;
+  auto walk = [&](int i) {
+    if constexpr (!FUSED) return i;
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
 
-  auto load_tile = [&](int tile) {
-    const int st = tile % ST;
-    const int q0 = tile * BQ;
+  auto load_tile = [&](int i) {
+    const int st = i % ST;
+    const int q0 = walk(i) * BQ;
     for (int c = tid; c < BQ * (D / 8); c += THREADS) {
       const int r = c / (D / 8);
       const int d0 = (c % (D / 8)) * 8;
@@ -516,9 +565,9 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
   };
   // What this thread copied of a tile, once it has landed: q becomes qs,
   // lse becomes -lse log2 e, or -inf past Nq (p = 0 there).
-  auto finish_tile = [&](int tile) {
-    const int st = tile % ST;
-    const int q0 = tile * BQ;
+  auto finish_tile = [&](int i) {
+    const int st = i % ST;
+    const int q0 = walk(i) * BQ;
     for (int c = tid; c < BQ * (D / 8); c += THREADS) {
       uint4* chunk = reinterpret_cast<uint4*>(&qs[st][c / (D / 8)][(c % (D / 8)) * 8]);
       uint4 x = *chunk;
@@ -568,6 +617,18 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
         for (int i = 0; i < 4; ++i) dk[mt][n][i] = dv[mt][n][i] = 0.f;
     }
   }
+  // FUSED: k as the B fragments of ds k, the same for every query tile:
+  // each 8 x 8 block of kf transposed, kq[mt][kd][2 c + r] holding keys
+  // 8 r.. of the warp's tile mt and the d columns 16 kd + 8 c + g.
+  uint32_t kq[FUSED ? MT : 1][FUSED ? KD : 1][4];
+  if constexpr (FUSED) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kq[mt][kd][i] = movmatrix_trans(kf[mt][kd][i]);
+  }
 
   // ldmatrix: this lane's row and column offset within a 16 x 16 block of a
   // tile [query][d]: as the `col` operand of k qs^T (matrices: queries 0-7
@@ -578,15 +639,15 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
   const int c_row = (mi >> 1) * 8 + (lane & 7), c_col = (mi & 1) * 8;
   const int t_row = (mi & 1) * 8 + (lane & 7), t_col = (mi >> 1) * 8;
 
-  for (int tile = 0; tile < tiles; ++tile) {
+  for (int it = 0; it < tiles; ++it) {
     cp_async_wait<ST - 2>();       // this thread's copies of the tile landed
-    finish_tile(tile);
+    finish_tile(it);
     __syncthreads();               // the tile is whole; the one before is read
-    if (tile + ST - 1 < tiles) load_tile(tile + ST - 1);
+    if (it + ST - 1 < tiles) load_tile(it + ST - 1);
     cp_async_commit();
-    const int st = tile % ST;
-    const uint32_t q_term =
-        static_cast<uint32_t>(a.q_offset + tile * BQ + 2 * t) * kC3;
+    const int st = it % ST;
+    const int q0 = walk(it) * BQ;
+    const uint32_t q_term = static_cast<uint32_t>(a.q_offset + q0 + 2 * t) * kC3;
 
     // The tile's share of dk and dv, summed from zero.
     float tk[MT][2 * KD][4], tv[MT][2 * KD][4];
@@ -678,6 +739,35 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
           }
         }
       }
+
+      if constexpr (FUSED) {
+        // dq of these 16 queries over the warp's keys, ds k: ds^T's 8 x 8
+        // blocks transposed in registers are the A fragment (rows now
+        // queries), the warp's MT tiles sum in the accumulators. Fragment n
+        // covers d columns 8 n + 2 t + {0, 1} of queries g and g + 8.
+        float tq[2 * KD][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t dsq[4] = {
+              movmatrix_trans(dsf[mt][0]), movmatrix_trans(dsf[mt][2]),
+              movmatrix_trans(dsf[mt][1]), movmatrix_trans(dsf[mt][3])};
+#pragma unroll
+          for (int n = 0; n < 2 * KD; ++n) {
+            const uint32_t* b = kq[mt][n >> 1] + 2 * (n & 1);
+            if (mt == 0)
+              mma_bf16(tq[n], dsq, b[0], b[1], 0.f, 0.f, 0.f, 0.f);
+            else
+              mma_bf16(tq[n], dsq, b[0], b[1]);
+          }
+        }
+        float* part = dq_part + ((tid >> 5) * BQ + 16 * j + g) * LDQ + 2 * t;
+#pragma unroll
+        for (int n = 0; n < 2 * KD; ++n) {
+          *reinterpret_cast<float2*>(part + 8 * n) = make_float2(tq[n][0], tq[n][1]);
+          *reinterpret_cast<float2*>(part + 8 * LDQ + 8 * n) =
+              make_float2(tq[n][2], tq[n][3]);
+        }
+      }
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -688,6 +778,30 @@ flash_bwd_dkv_mma(const LunarisK2BwdArgs a) {
           dk[mt][n][i] += tk[mt][n][i];
           dv[mt][n][i] += tv[mt][n][i];
         }
+
+    if constexpr (FUSED) {
+      // The block's dq of the tile: the W warps' partials summed in a fixed
+      // order, then added to dq_acc with one 16-byte reduction a chunk. The
+      // next tile's barrier keeps its partials from overwriting these.
+      __syncthreads();
+      float* acc = a.dq_acc + (static_cast<long long>(bh) * Nq + q0) * D;
+      for (int c = tid; c < BQ * (D / 4); c += THREADS) {
+        const int r = c / (D / 4);
+        const int d0 = (c % (D / 4)) * 4;
+        if (RAGGED && q0 + r >= Nq) break;   // rows only grow with c
+        float4 s = *reinterpret_cast<const float4*>(dq_part + r * LDQ + d0);
+#pragma unroll
+        for (int w = 1; w < W; ++w) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(dq_part + (w * BQ + r) * LDQ + d0);
+          s.x += x.x;
+          s.y += x.y;
+          s.z += x.z;
+          s.w += x.w;
+        }
+        atomicAdd(reinterpret_cast<float4*>(acc + r * D + d0), s);
+      }
+    }
   }
 
 #pragma unroll
@@ -923,16 +1037,26 @@ inline bool bwd_mma_aligned(const LunarisK2BwdArgs& a) {
          reinterpret_cast<uintptr_t>(a.dout) % 16 == 0;
 }
 
-// RAGGED: of the walked operand, Nq here.
-template <int D, int DROP, bool RAGGED>
+// RAGGED: of the walked operand, Nq here. FUSED also adds dq into dq_acc,
+// whose rows take 16-byte reductions.
+template <int D, int DROP, bool RAGGED, bool FUSED = false>
 int launch_dkv_mma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
   if ((!RAGGED && a.Nq % kBwdMmaTile != 0) || !bwd_mma_aligned(a) ||
       reinterpret_cast<uintptr_t>(a.dk) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(a.dv) % 4 != 0)
+      reinterpret_cast<uintptr_t>(a.dv) % 4 != 0 ||
+      (FUSED && (a.dq_acc == nullptr ||
+                 reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.Nk + bwd_mma_rows(D) - 1) / bwd_mma_rows(D), a.BH);
-  flash_bwd_dkv_mma<D, DROP, RAGGED>
-      <<<grid, 32 * bwd_mma_warps(D), 0, stream>>>(a);
+  constexpr int rows = bwd_mma_rows(D, FUSED);
+  const dim3 grid((a.Nk + rows - 1) / rows, a.BH);
+  const auto kernel = flash_bwd_dkv_mma<D, DROP, RAGGED, FUSED>;
+  constexpr int smem = FUSED ? bwd_mma_dq_part_bytes(D) : 0;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, 32 * bwd_mma_warps(D, FUSED), smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

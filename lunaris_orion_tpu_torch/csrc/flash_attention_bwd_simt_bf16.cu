@@ -1,9 +1,9 @@
 // K2 backward -- the bf16 instances of the CUDA-core bodies
-// (flash_attention_bwd.cuh): `flash_bwd_dkv` with the fused dq at every head
-// size (the single-pass variant has no tensor-core body), and `flash_bwd_dkv`
-// and `flash_bwd_dq` at d 8 (the bf16 path there) and at d 16 (the earlier
-// kernels that measurements hold the tensor-core bodies against; d 48 and 64
-// in bf16 exist on the tensor cores only).
+// (flash_attention_bwd.cuh): all three kernels at d 8 (the bf16 path there)
+// and at d 16 (the earlier kernels that measurements hold the tensor-core
+// bodies against), and `flash_bwd_dkv` with the fused dq at d 48 and 64,
+// where the fused form has no tensor-core body (the dk/dv body alone fills
+// the registers there). d 32 in bf16 exists on the tensor cores only.
 
 #include "flash_attention_bwd.cuh"
 

@@ -2,8 +2,8 @@
 // backward (flash_attention_bwd.cuh) share: the constants of the dropout
 // hash, the dropout modes a kernel is compiled for, and the thin wrappers
 // around the Hopper (sm_90a) instructions that the tensor-core bodies are
-// built from (cp.async, ldmatrix, mma.sync m16n8k16 bf16, ex2.approx). The
-// build hashes this header with the sources.
+// built from (cp.async, ldmatrix, movmatrix, mma.sync m16n8k16 bf16,
+// ex2.approx). The build hashes this header with the sources.
 
 #pragma once
 
@@ -86,6 +86,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(src)
       : "memory");
+}
+
+// An 8x8 bf16 matrix held as lane l's elements (l / 4, 2 (l % 4) + {0, 1}),
+// transposed across the warp in the same layout.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // d[16 x 8] = a[16 x 16] b[16 x 8] + c, bf16 operands, f32 sums. With

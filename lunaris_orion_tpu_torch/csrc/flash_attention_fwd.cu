@@ -2,9 +2,10 @@
 // (sm_90a). The kernels are in flash_attention_fwd.cuh, which says what they
 // replace, what bounds them and what their design does about it; their
 // instances are compiled one translation unit a body and type
-// (flash_attention_fwd_mma.cu, flash_attention_fwd_simt_{f32,bf16}.cu, and
-// flash_attention_fwd_simt_f32_wide.cu for d 48 and 64), so that the
-// compilers run side by side.
+// (flash_attention_fwd_mma.cu, flash_attention_fwd_simt_{f32,bf16}.cu,
+// flash_attention_fwd_simt_f32_wide.cu for d 48 and 64, and
+// flash_attention_fwd_d32.cu for both bodies at d 32), so that the compilers
+// run side by side.
 
 #include "flash_attention_fwd.cuh"
 
@@ -12,8 +13,8 @@
 // contiguous. bias: [H, Nk] f32. o: [BH, Nq, d] in the input type;
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
-// body: 1 the tensor-core kernel (bf16 at d 16, 48 or 64), 0 the CUDA-core
-// kernel (f32 at d 8, 16, 48 or 64; bf16 at d 8 or 16). The caller chooses;
+// body: 1 the tensor-core kernel (bf16 at d 16, 32, 48 or 64), 0 the
+// CUDA-core kernel (f32 at d 8, 16, 32, 48 or 64; bf16 at d 8 or 16). The caller chooses;
 // nothing here falls from one to the other.
 // Returns the cudaError_t of the launch.
 extern "C" int lunaris_flash_attention_fwd(
@@ -30,6 +31,7 @@ extern "C" int lunaris_flash_attention_fwd(
                            use_dropout, threshold, inv_keep, seed, q_offset,
                            row_offset};
   auto s = static_cast<cudaStream_t>(stream);
+  if (d == 32) return lunaris_k2_fwd_d32(a, is_bf16, body, s);
   if (body == 1) return lunaris_k2_fwd_mma_bf16(a, d, s);
   if (d <= 16)
     return is_bf16 ? lunaris_k2_fwd_simt_bf16(a, d, s)

@@ -45,7 +45,7 @@
 //
 //   flash_fwd_mma   bf16, D a multiple of 16. Both products run on the tensor
 //       cores with mma.sync m16n8k16 (bf16 x bf16 -> f32). A warp owns 32
-//       query rows at d = 16 (two 16-row tiles; one at d 48 and 64), 4 warps
+//       query rows at d = 16 (two 16-row tiles; one at d 32, 48, 64), 4 warps
 //       a block: 128 rows halve what a block reads of K and V against 64,
 //       and that traffic, not the products, bounded the first version. q is
 //       the A fragment, scaled and rounded once. K, V (bf16, rows padded by
@@ -117,6 +117,9 @@ int lunaris_k2_fwd_simt_f32(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_simt_f32_wide(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_simt_bf16(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_mma_bf16(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
+// Head size 32, both bodies (is_bf16 and body as the entry point's).
+int lunaris_k2_fwd_d32(const LunarisK2FwdArgs& a, int is_bf16, int body,
+                       cudaStream_t s);
 
 namespace {
 

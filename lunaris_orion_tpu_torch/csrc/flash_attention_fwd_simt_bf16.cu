@@ -1,7 +1,7 @@
 // K2 forward -- the bf16 instances of the CUDA-core body `flash_fwd_simt`
 // (flash_attention_fwd.cuh) at d 8 and 16: the bf16 path at d 8, and at d 16
 // the earlier kernel that measurements hold the tensor-core body against
-// (d 48 and 64 in bf16 exist on the tensor cores only).
+// (d 32, 48 and 64 in bf16 exist on the tensor cores only).
 
 #include "flash_attention_fwd.cuh"
 

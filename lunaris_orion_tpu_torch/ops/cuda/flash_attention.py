@@ -10,23 +10,31 @@ other device and never falls back.
             pallas/flash_attention.py `_fwd_kernel`; returns the row
             log-sum-exp as well, which the backward needs. Two hand-written
             bodies, chosen by type and head size (`forward_instance`):
-            "mma"   bf16 at d 16, 48, 64: both products on the tensor cores
-                    (mma.sync m16n8k16), p kept in registers between them;
+            "mma"   bf16 at d 16, 32, 48, 64: both products on the tensor
+                    cores (mma.sync m16n8k16), p kept in registers between
+                    them;
             "simt"  f32 at every head size (TF32 would cost three decimal
                     digits) and bf16 at d 8, on the CUDA cores.
             At d 16 dropout and a ragged Nk are compiled in (four instances
             a body); the other head sizes test both at run time.
   backward  `csrc/flash_attention_bwd.cuh` (instances and entry point in
             `csrc/flash_attention_bwd*.cu`), in one of two variants:
-            "fused"  one dk/dv kernel that also accumulates dq with float
-                     atomics (replaces `_bwd_fused_kernel`); its dq varies
-                     from run to run in the last bits; CUDA cores only;
+            "fused"  one dk/dv kernel that also adds dq into an f32 buffer
+                     with 16-byte atomic reductions (replaces
+                     `_bwd_fused_kernel`), so scores, exp and mask are
+                     computed once; its dq varies from run to run in the
+                     last bits (`fused_instance`): "mma" for bf16 at d 16
+                     and 32 (five products on the tensor cores), "simt"
+                     for f32, bf16 d 8, 48 and 64;
             "split"  the dk/dv kernel and a dq kernel (replace
                      `_bwd_dkv_kernel` and `_bwd_dq_kernel`), each with the
                      forward's two bodies (`backward_instance`): "mma" for
-                     bf16 at d 16, 48, 64 (four and three products on the
-                     tensor cores, p and ds kept in registers between them,
-                     dbias without atomics), "simt" for f32 and bf16 d 8.
+                     bf16 at d 16, 32, 48, 64 (four and three products on
+                     the tensor cores, p and ds kept in registers between
+                     them, dbias without atomics), "simt" for f32 and bf16
+                     d 8.
+            A call that names no variant takes `default_bwd`, the variant
+            measured faster for its type and head size.
 The result is what `attention_bhnd` and its custom VJP compute, except that
 the forward takes q unscaled: the d^-1/2 factor on dq is applied inside.
 
@@ -51,10 +59,14 @@ bwd_fused_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
 
-HEAD_DIMS = (8, 16, 48, 64)          # the kernels' compiled head sizes
-MMA_HEAD_DIMS = (16, 48, 64)         # those of the tensor-core body (bf16)
-MMA_BWD_HEAD_DIMS = (16, 48, 64)     # those of the backward's (dk/dv, dq)
+HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
+MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core body (bf16)
+MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # those of the backward's (dk/dv, dq)
+MMA_FUSED_HEAD_DIMS = (16, 32)       # those of the fused backward's
 FWD_BODIES = ("simt", "mma")         # the C entry points' `body` argument
+# What HEAD_DIMS allow for the teacher's 8 heads.
+SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
+             f"{', '.join(str(8 * d) for d in HEAD_DIMS)} at 8 heads")
 _M32 = 0xFFFFFFFF
 C1 = 0x9E3779B9
 C2 = 0x85EBCA6B
@@ -244,13 +256,22 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 BWD_VARIANTS = ("fused", "split")
-# The variant measured faster at the teacher's training shape (B 16, H 8,
-# N 16384, d 16, dropout 0.1) on an H100 80GB HBM3 at 700 W: in f32, both on
-# the CUDA cores, split 249.5 ms against fused 259.1 ms; in bf16 split 58.2 ms
-# (dk/dv 35.4 + dq 22.9, on the tensor cores) against fused 260.8 ms (CUDA
-# cores only) and 92.8 ms for the backward of F.scaled_dot_product_attention
-# (PERF.md).
-DEFAULT_BWD = "split"
+
+
+def default_bwd(dtype: torch.dtype, d: int) -> str:
+    """The backward variant a call takes when it names none: the one measured
+    faster in turns on an H100 80GB HBM3 at 700 W (`chip_smoke.py` phase 7;
+    PERF.md section 6). "fused" where one pass's saving, scores, exp and
+    mask computed once for all three gradients, outweighs adding dq across
+    key blocks: on the tensor cores (bf16 at d 16 and 32), and on the CUDA
+    cores where four threads share a row (f32 at d 32, 48, 64), whose dot
+    products the dq kernel would repeat with shuffles. "split" elsewhere:
+    on the CUDA cores at one thread a row (f32 at d 8 and 16, bf16 at d 8;
+    f32 at d 16: 249.1 against 259.1 ms), and at bf16 d 48 and 64, where
+    only split has tensor-core kernels."""
+    if dtype == torch.bfloat16:
+        return "fused" if d in MMA_FUSED_HEAD_DIMS else "split"
+    return "fused" if d > 16 else "split"
 
 
 def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
@@ -269,7 +290,7 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
         raise ValueError(f"{name}: bias must be f32")
     b, h, _, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: no kernel for head dim {d} ({SUPPORTED})")
     if b * h > 65535 or not 0 <= dropout_rate < 1.0:
         raise ValueError(f"{name}: B*H must be <= 65535 and "
                          "0 <= dropout_rate < 1")
@@ -278,6 +299,27 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
     return scale, (int(use_drop),
                    dropout_threshold(1.0 - dropout_rate) if use_drop else 0,
                    _inv_keep(dropout_rate) if use_drop else 1.0)
+
+
+def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
+          body: str | None) -> str:
+    """The body a call of `name` takes: the tensor cores ("mma") for bf16 at
+    the head sizes `mma_dims`, the CUDA cores ("simt") otherwise. `body`
+    "simt" reaches the CUDA-core kernel at bf16 d 16, where the tensor-core
+    one is the default: measurements and tests compare the two; the
+    autograd path never passes it."""
+    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
+        raise ValueError(f"{name}: no kernel for {dtype}, head dim {d} (f32 "
+                         f"or bf16, {SUPPORTED})")
+    default = ("mma" if dtype == torch.bfloat16 and d in mma_dims
+               else "simt")
+    body = body or default
+    if body not in FWD_BODIES or (body != default and (
+            body == "mma" or d != 16)):
+        raise ValueError(f"{name}: body {body!r} does not take {dtype} at "
+                         f"head dim {d} (tensor cores: bf16 at d in "
+                         f"{mma_dims})")
+    return body
 
 
 class ForwardInstance(NamedTuple):
@@ -297,23 +339,12 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     """Which forward instance (dtype, d, Nq, Nk, dropout) takes: the rule of
     the C dispatch (`csrc/flash_attention_fwd*.cu`), as a pure function.
 
-    bf16 at d 16, 48, 64 takes the tensor-core body, everything else the
-    CUDA-core body. `body="simt"` asks for the CUDA-core body at bf16 d 16,
-    where the tensor-core one is taken: measurements and tests compare the
-    two; `flash_attention` never passes it. At d 16 dropout and raggedness are
+    bf16 at d 16, 32, 48, 64 takes the tensor-core body, everything else the
+    CUDA-core body (`body` as in `_body`). At d 16 dropout and raggedness are
     template parameters; the other head sizes have one instance each, which
     masks the last key tile and reads the dropout flag at run time. Nq only
     sets the grid: every instance guards the rows past it."""
-    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: no kernel for {dtype}, head dim "
-                         f"{d} (f32 or bf16, d in {HEAD_DIMS})")
-    default = ("mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS
-               else "simt")
-    body = body or default
-    if body not in FWD_BODIES or (body != default and (
-            body == "mma" or d != 16)):
-        raise ValueError(f"flash_attention: body {body!r} does not take "
-                         f"{dtype} at head dim {d}")
+    body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS, body)
     if body == "mma":
         block_k, rows = 64, 128 if d == 16 else 64
     else:
@@ -380,29 +411,15 @@ def backward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     rule of the C dispatch (`csrc/flash_attention_bwd*.cu`), as a pure
     function.
 
-    bf16 at d 16, 48, 64 takes the tensor-core bodies, everything else the
-    CUDA-core bodies. `body="simt"` asks for the CUDA-core bodies at bf16
-    d 16, where the tensor-core ones are taken: measurements and tests
-    compare the two; `flash_attention_bwd` never passes it. On the tensor
-    cores at d 16 dropout and the raggedness of the walked operand (Nq for
-    dk/dv, Nk for dq) are template parameters; the other head sizes, and the
-    CUDA-core bodies at every head size, have one instance each, which fills
-    the last tile and reads the dropout flag at run time. The fused variant
-    has the CUDA-core body only and is not described here."""
-    if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: no kernel for {dtype}, head "
-                         f"dim {d} (f32 or bf16, d in {HEAD_DIMS})")
-    default = ("mma" if dtype == torch.bfloat16 and d in MMA_BWD_HEAD_DIMS
-               else "simt")
-    body = body or default
-    if body not in FWD_BODIES or (body != default and (
-            body == "mma" or d != 16)):
-        raise ValueError(f"flash_attention_bwd: body {body!r} does not take "
-                         f"{dtype} at head dim {d}")
-    if body == "mma":
-        tile, rows = 64, 128 if d == 16 else 64
-    else:
-        tile, rows = 32, 128 if d <= 16 else 32
+    bf16 at d 16, 32, 48, 64 takes the tensor-core bodies, everything else
+    the CUDA-core bodies (`body` as in `_body`). On the tensor cores at d 16
+    dropout and the raggedness of the walked operand (Nq for dk/dv, Nk for
+    dq) are template parameters; the other head sizes, and the CUDA-core
+    bodies at every head size, have one instance each, which fills the last
+    tile and reads the dropout flag at run time. The fused variant's rule is
+    `fused_instance`."""
+    body = _body("flash_attention_bwd", dtype, d, MMA_BWD_HEAD_DIMS, body)
+    tile, rows = _bwd_tile_rows(body, d)
     if body == "mma" and d == 16:
         dropout = "on" if dropout_rate > 0.0 else "off"
         dkv_ragged, dq_ragged = nq % tile != 0, nk % tile != 0
@@ -412,6 +429,51 @@ def backward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
                             -(-nq // rows), dropout, dkv_ragged, dq_ragged)
 
 
+def _bwd_tile_rows(body: str, d: int) -> tuple[int, int]:
+    """(rows of the walked operand a tile, rows a block owns) of a backward
+    body at head size d."""
+    if body == "mma":
+        return 64, 128 if d == 16 else 64
+    return 32, 128 if d <= 16 else 32
+
+
+class FusedInstance(NamedTuple):
+    """The kernel instance a fused backward launches: a block owns `rows`
+    keys, walks the queries in tiles of `block_q` (each block from its own
+    first tile) and adds each tile's dq into a zeroed f32 buffer."""
+    body: str            # "mma" (tensor cores) or "simt" (CUDA cores)
+    head_dim: int
+    block_q: int
+    rows: int
+    blocks: int          # blocks along Nk (the last one guards its keys)
+    dropout: str         # "off" / "on": compiled in; "runtime": a flag
+    ragged: bool         # the instance fills the last query tile
+
+
+def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
+                   dropout_rate: float,
+                   body: str | None = None) -> FusedInstance:
+    """Which fused backward instance (dtype, d, Nq, Nk, dropout) takes: the
+    rule of the C dispatch, as a pure function.
+
+    bf16 at d 16 and 32 takes the tensor-core body (the dk/dv body with a
+    fifth product, dq), everything else the CUDA-core body: at d 48 and 64
+    the dk/dv body alone fills the registers. `body` as in `_body`. On the
+    tensor cores a block owns 256 keys at d 16 (8 warps) and 64 at d 32;
+    at d 16 dropout and a ragged Nq are template parameters; every other
+    instance fills the last query tile and reads the dropout flag at run
+    time."""
+    body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS, body)
+    tile, rows = _bwd_tile_rows(body, d)
+    if body == "mma" and d == 16:
+        rows = 256           # 8 warps: half the dq reductions (PERF.md)
+        dropout = "on" if dropout_rate > 0.0 else "off"
+        ragged = nq % tile != 0
+    else:
+        dropout, ragged = "runtime", True
+    return FusedInstance(body, d, tile, rows, -(-nk // rows), dropout, ragged)
+
+
 def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
                       dq=None, dk=None, dv=None, dbias_bh=None, dq_acc=None,
                       dropout_rate=0.0, seed=0, q_offset=0, row_offset=0,
@@ -419,8 +481,8 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
     """One launch of a K2 backward kernel into preallocated outputs:
     DKV writes dk, dv, dbias_bh [B*H, Nk]; DKV_FUSED_DQ also adds into the
     zeroed f32 dq_acc [B, H, Nq, d]; DQ writes dq. delta [B, H, Nq] f32 is
-    rowsum(f32(o) f32(dO)). `body` as in `backward_instance` (DKV and DQ;
-    DKV_FUSED_DQ runs on the CUDA cores). Counts the launch."""
+    rowsum(f32(o) f32(dO)). `body` as in `backward_instance` (DKV and DQ)
+    and `fused_instance` (DKV_FUSED_DQ). Counts the launch."""
     scale, drop = _check_kernel_inputs(
         "flash_attention_bwd", (q, k, v, bias, do, lse, delta),
         dropout_rate)
@@ -429,14 +491,8 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
         raise ValueError("flash_attention_bwd: dO must have q's dtype and "
                          "lse, delta must be f32")
     b, h, nq, d = q.shape
-    if kernel == DKV_FUSED_DQ:
-        if body not in (None, "simt"):
-            raise ValueError("flash_attention_bwd: the fused kernel has the "
-                             "CUDA-core body only")
-        body = "simt"
-    else:
-        body = backward_instance(q.dtype, d, nq, k.shape[2], dropout_rate,
-                                 body).body
+    rule = fused_instance if kernel == DKV_FUSED_DQ else backward_instance
+    body = rule(q.dtype, d, nq, k.shape[2], dropout_rate, body).body
     outs = {DKV: (dk, dv, dbias_bh), DKV_FUSED_DQ: (dk, dv, dbias_bh, dq_acc),
             DQ: (dq,)}[kernel]
     if any(t is None or t.device != q.device or not t.is_contiguous()
@@ -469,9 +525,9 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, dropout_rate=0.0,
                         seed=0, q_offset=0, row_offset=0, variant=None):
     """The K2 backward kernels on CUDA tensors (the arguments of
     `attention_bwd_plain`, contiguous). variant: "fused" or "split" (see
-    the module docstring); None takes DEFAULT_BWD. Returns (dq, dk, dv,
+    the module docstring); None takes `default_bwd`. Returns (dq, dk, dv,
     dbias [H, Nk] f32)."""
-    variant = variant or DEFAULT_BWD
+    variant = variant or default_bwd(q.dtype, q.shape[3])
     if variant not in BWD_VARIANTS:
         raise ValueError(f"flash_attention_bwd: variant {variant!r} not in "
                          f"{BWD_VARIANTS}")
@@ -542,7 +598,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `q_offset` is the absolute position of q's first row and `row_offset`
     that of the first B*H row, as seen by the dropout hash (both 0 for the
     square single-device call). `bwd` picks the backward kernels on CUDA
-    ("fused" or "split"; None: DEFAULT_BWD). Returns (o [B, H, Nq, d],
+    ("fused" or "split"; None: `default_bwd`). Returns (o [B, H, Nq, d],
     lse [B*H, Nq]); o is differentiable in q, k, v and bias."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")

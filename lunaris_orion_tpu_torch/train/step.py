@@ -70,7 +70,8 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
     """Returns train_step(state, images [A, mb, H, W, 3] on the state's
     device) -> (state, metrics). The state is updated in place and
     returned. `attn_bwd` picks K2's backward kernels on CUDA ("fused" or
-    "split"; None: the default). The models' configs come with the state;
+    "split"; None: `flash_attention.default_bwd`, by type and head size).
+    The models' configs come with the state;
     the teacher's attention follows the `auto` rule."""
     _not_ported(cfg, cp_mesh, cp_axis, cp_batch_axis)
     w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,

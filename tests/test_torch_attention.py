@@ -33,10 +33,15 @@ def _t(*xs):
     return [torch.from_numpy(x) for x in xs]
 
 
-@pytest.mark.parametrize("n", [256, 2304])
-@pytest.mark.parametrize("d", [8, 16])
-@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 1234567),
-                                       (0.1, -987654321)])
+# (rate, seed, d, n): every rate at d 8 and 16 and N 256 and 2304; d 32 (the
+# head size of feature_dim 256) at N 256 for every rate and at N 2304 once.
+_PARITY = [(rate, seed, d, n)
+           for rate, seed in ((0.0, 0), (0.1, 1234567), (0.1, -987654321))
+           for d, n in ((8, 256), (8, 2304), (16, 256), (16, 2304), (32, 256))]
+_PARITY.append((0.1, 1234567, 32, 2304))
+
+
+@pytest.mark.parametrize("rate,seed,d,n", _PARITY)
 def test_plain_matches_pallas(n, d, rate, seed):
     q, k, v, bias = _qkvb(1, 2, n, n, d, seed=n + d)
     want = np.asarray(fa.attention_bhnd(
@@ -112,11 +117,15 @@ BF16, F32 = torch.bfloat16, torch.float32
     (F32, 48, 4096, 4096, 0.0, ("simt", 32, 128, 32, "runtime", True)),
     (F32, 64, 1000, 1000, 0.1, ("simt", 32, 128, 8, "runtime", True)),
     (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
+    # head size 32 (feature_dim 256): one run-time instance a body
+    (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
+    (BF16, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
+    (F32, 32, 16384, 16384, 0.1, ("simt", 32, 128, 128, "runtime", True)),
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16, 48, 64 takes the tensor cores, the rest the CUDA
-    cores; at d 16 dropout and a ragged Nk are compiled in."""
+    dropout): bf16 at d 16, 32, 48, 64 takes the tensor cores, the rest the
+    CUDA cores; at d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
     inst = k2.forward_instance(dtype, d, nq, nk, rate)
     assert inst == k2.ForwardInstance(body, d, block_k, rows, q_blocks,
@@ -135,9 +144,12 @@ def test_forward_instance_body_argument():
                            (BF16, 64, "simt"), (BF16, 16, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
-    for dtype, d in ((torch.float16, 16), (BF16, 32)):
+    for dtype, d in ((torch.float16, 16), (BF16, 24), (F32, 128)):
         with pytest.raises(ValueError, match="no kernel"):
             k2.forward_instance(dtype, d, 64, 64, 0.0)
+    # the refusal names the widths a teacher of 8 heads can have
+    with pytest.raises(ValueError, match="feature_dim 64, 128, 256, 384, 512"):
+        k2.forward_instance(BF16, 24, 64, 64, 0.0)
     assert set(k2.MMA_HEAD_DIMS) < set(k2.HEAD_DIMS)
 
 

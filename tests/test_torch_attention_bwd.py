@@ -40,10 +40,17 @@ def _port_grads(q, k, v, bias, do, **kw):
     return [t.grad.numpy() for t in ts]
 
 
-@pytest.mark.parametrize("fused", ["1", "0"])
-@pytest.mark.parametrize("n", [256, 2304])
-@pytest.mark.parametrize("d", [8, 16])
-@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, -987654321)])
+# (rate, seed, d, n, fused): every case at d 8 and 16 and N 256 and 2304; d 32
+# (the head size of feature_dim 256) at N 256 for every (rate, fused) and at
+# N 2304 once.
+_PARITY = [(rate, seed, d, n, fused)
+           for rate, seed in ((0.0, 0), (0.1, -987654321))
+           for d, n in ((8, 256), (8, 2304), (16, 256), (16, 2304), (32, 256))
+           for fused in ("1", "0")]
+_PARITY.append((0.1, -987654321, 32, 2304, "1"))
+
+
+@pytest.mark.parametrize("rate,seed,d,n,fused", _PARITY)
 def test_grads_match_pallas(monkeypatch, fused, n, d, rate, seed):
     """dq, dk, dv and dbias against both TPU backward decompositions
     (LUNARIS_ATTN_FUSED_BWD=1: `_bwd_fused_kernel`; 0: `_bwd_dq_kernel` +
@@ -148,11 +155,15 @@ F32, BF16 = torch.float32, torch.bfloat16
     (F32, 48, 4096, 4096, 0.1, ("simt", 32, 32, 128, 128, "runtime", True, True)),
     (F32, 64, 2000, 2000, 0.1, ("simt", 32, 32, 63, 63, "runtime", True, True)),
     (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, 3, "runtime", True, True)),
+    # head size 32 (feature_dim 256): one run-time instance a body
+    (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, 64, "runtime", True, True)),
+    (BF16, 32, 2000, 300, 0.0, ("mma", 64, 64, 5, 32, "runtime", True, True)),
+    (F32, 32, 2000, 300, 0.0, ("simt", 32, 32, 10, 63, "runtime", True, True)),
 ])
 def test_backward_instance(dtype, d, nq, nk, rate, want):
     """The dk/dv and dq instances are a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16, 48, 64 takes the tensor cores, the rest the CUDA
-    cores; on the tensor cores at d 16 dropout and the raggedness of the
+    dropout): bf16 at d 16, 32, 48, 64 takes the tensor cores, the rest the
+    CUDA cores; on the tensor cores at d 16 dropout and the raggedness of the
     walked operand (Nq for dk/dv, Nk for dq) are compiled in."""
     body, tile, rows, dkv_blocks, dq_blocks, dropout, dkv_r, dq_r = want
     inst = k2.backward_instance(dtype, d, nq, nk, rate)
@@ -186,21 +197,95 @@ def test_backward_instance_body_argument():
                                       "runtime", True, True)
     assert k2.backward_instance(BF16, 16, 64, 64, 0.0, body="mma").body == "mma"
     assert k2.backward_instance(F32, 16, 64, 64, 0.0, body="simt").body == "simt"
-    for dtype, d in ((torch.float16, 16), (BF16, 32)):
+    for dtype, d in ((torch.float16, 16), (BF16, 24)):
         with pytest.raises(ValueError, match="no kernel"):
             k2.backward_instance(dtype, d, 64, 64, 0.0)
     assert set(k2.MMA_BWD_HEAD_DIMS) < set(k2.HEAD_DIMS)
 
 
+@pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
+    # body, query tile, keys a block, blocks, dropout, ragged Nq
+    (BF16, 16, 16384, 16384, 0.1, ("mma", 64, 256, 64, "on", False)),
+    (BF16, 16, 4096, 4096, 0.0, ("mma", 64, 256, 16, "off", False)),
+    (BF16, 16, 2000, 300, 0.1, ("mma", 64, 256, 2, "on", True)),
+    (BF16, 16, 300, 2000, 0.0, ("mma", 64, 256, 8, "off", True)),
+    (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
+    (BF16, 32, 300, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
+    # the dk/dv body fills the registers at d 48 and 64: CUDA cores
+    (BF16, 48, 4096, 4096, 0.1, ("simt", 32, 32, 128, "runtime", True)),
+    (BF16, 64, 2000, 2000, 0.0, ("simt", 32, 32, 63, "runtime", True)),
+    (BF16, 8, 4096, 4096, 0.1, ("simt", 32, 128, 32, "runtime", True)),
+    (F32, 16, 16384, 16384, 0.1, ("simt", 32, 128, 128, "runtime", True)),
+    (F32, 32, 2000, 2000, 0.1, ("simt", 32, 32, 63, "runtime", True)),
+    (F32, 64, 300, 300, 0.0, ("simt", 32, 32, 10, "runtime", True)),
+])
+def test_fused_instance(dtype, d, nq, nk, rate, want):
+    """The fused backward's instance is a pure function of (dtype, d, Nq,
+    Nk, dropout): bf16 at d 16 and 32 takes the tensor cores (dk/dv's body
+    with the dq product), the rest the CUDA cores; on the tensor cores at
+    d 16 dropout and a ragged Nq are compiled in. A block walks the query
+    tiles of a split dk/dv block of the same body and owns its keys, twice
+    as many on the tensor cores at d 16 (8 warps)."""
+    body, tile, rows, blocks, dropout, ragged = want
+    inst = k2.fused_instance(dtype, d, nq, nk, rate)
+    assert inst == k2.FusedInstance(body, d, tile, rows, blocks, dropout,
+                                    ragged)
+    assert inst.blocks * inst.rows >= nk > (inst.blocks - 1) * inst.rows
+    if body == "mma" or d not in k2.MMA_BWD_HEAD_DIMS:
+        split = k2.backward_instance(dtype, d, nq, nk, rate)
+        assert (split.body, split.dkv_block_q) == (body, tile)
+        assert rows == split.dkv_rows * (2 if (body, d) == ("mma", 16) else 1)
+    assert set(k2.MMA_FUSED_HEAD_DIMS) < set(k2.MMA_BWD_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (BF16, 16, "fused"), (BF16, 32, "fused"), (BF16, 8, "split"),
+    (BF16, 48, "split"), (BF16, 64, "split"), (F32, 8, "split"),
+    (F32, 16, "split"), (F32, 32, "fused"), (F32, 48, "fused"),
+    (F32, 64, "fused"),
+])
+def test_default_bwd(dtype, d, want):
+    """A call that names no backward variant takes the one measured faster:
+    fused on the tensor cores (bf16 at d 16 and 32) and on the CUDA cores
+    where four threads share a row (f32 at d 32 to 64); split on the CUDA
+    cores at one thread a row and where only split has tensor cores (bf16
+    at d 48 and 64)."""
+    assert k2.default_bwd(dtype, d) == want
+    fused = k2.fused_instance(dtype, d, 4096, 4096, 0.1)
+    split = k2.backward_instance(dtype, d, 4096, 4096, 0.1)
+    if want == "split" and dtype == BF16:
+        assert fused.body == "simt"
+    if want == "fused":
+        assert fused.body == split.body
+
+
+def test_fused_instance_body_argument():
+    """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16, where
+    the tensor-core one is the default; nothing else is on offer."""
+    old = k2.fused_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
+    assert old == k2.FusedInstance("simt", 16, 32, 128, 128, "runtime", True)
+    for dtype, d, body in ((F32, 16, "mma"), (BF16, 32, "simt"),
+                           (BF16, 48, "mma"), (BF16, 16, "wgmma")):
+        with pytest.raises(ValueError, match="does not take"):
+            k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)
+
+
 def test_launch_bwd_kernel_checks_the_body_before_it_launches():
     """The wrapper refuses, on any device, a body the call has no kernel
-    for: the fused kernel has the CUDA-core body only."""
+    for, and names the head sizes each kernel takes on the tensor cores:
+    the fused one bf16 at d 16 and 32, dk/dv and dq bf16 at d 16 to 64."""
     q, k, v, bias, do = (torch.from_numpy(x) for x in
                          _inputs(1, 2, 64, 64, 16, seed=1))
     lse = torch.zeros(2, 64)
     delta = torch.zeros(1, 2, 64)
-    with pytest.raises(ValueError, match="CUDA-core body only"):
+    with pytest.raises(ValueError, match=r"does not take .*bf16 at d in "
+                                         r"\(16, 32\)"):
         k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
                              body="mma")
-    with pytest.raises(ValueError, match="does not take"):
+    wide = [t.bfloat16() for t in (torch.zeros(1, 2, 64, 48),) * 3]
+    with pytest.raises(ValueError, match=r"does not take .*\(16, 32\)"):
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, *wide, bias, wide[0], lse,
+                             delta, body="mma")
+    with pytest.raises(ValueError, match=r"does not take .*"
+                                         r"\(16, 32, 48, 64\)"):
         k2.launch_bwd_kernel(k2.DQ, q, k, v, bias, do, lse, delta, body="mma")

@@ -105,7 +105,8 @@ def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
 # both bodies runs.
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d", [(4096, 8), (4096, 16), (2000, 16),
-                                 (4096, 48), (1000, 64), (300, 8)])
+                                 (4096, 32), (2000, 32), (4096, 48),
+                                 (1000, 64), (300, 8)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
@@ -234,9 +235,12 @@ def _bwd_inputs(cuda, b, h, nq, nk, d, dtype, seed, rate=0.0):
 # the tensor cores, whose sums truncate and whose exp is ex2.approx). The
 # ceiling tells the bodies apart: 1 element in 100 on the CUDA cores
 # (measured: 1 in 500), 5 in 100 on the tensor cores (measured: 1 in 1000 at
-# N 256, 2 in 100 at N 16384, where more terms can flip). A term in the wrong
-# place moves an element by a tenth of the largest or more, a wrong mask
-# every element.
+# N 256, 2 in 100 at N 16384, where more terms can flip). The fused
+# tensor-core dq is held to the same bar: its blocks add their f32 partials
+# with atomics in any order, which moves its last f32 bits from run to run
+# and, through the final rounding to bf16, an element by 1 ulp at most. A
+# term in the wrong place moves an element by a tenth of the largest or more,
+# a wrong mask every element.
 _K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2)}
 
 
@@ -275,13 +279,38 @@ def _bwd_split(args, body=None, **kw):
     return dq, dk, dv, dbias_bh.reshape(b, h, nk).sum(dim=0)
 
 
+def _bwd_fused(args, body=None, **kw):
+    """The fused backward through `launch_bwd_kernel`, which takes `body`:
+    (dq, dk, dv, dbias) as `flash_attention_bwd` returns them."""
+    q, k, v, bias, o, lse, do = args
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    delta = (o.float() * do.float()).sum(-1)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias_bh = torch.empty(b * h, nk, device=q.device)
+    dq_acc = torch.zeros(b, h, nq, d, device=q.device)
+    k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
+                         dk=dk, dv=dv, dbias_bh=dbias_bh, dq_acc=dq_acc,
+                         body=body, **kw)
+    dq = dq_acc.to(q.dtype) * torch.tensor(d ** -0.5, dtype=q.dtype,
+                                           device=q.device)
+    return dq, dk, dv, dbias_bh.reshape(b, h, nk).sum(dim=0)
+
+
+def _bwd_body(variant, dtype, d, nq, nk, rate):
+    rule = k2.fused_instance if variant == "fused" else k2.backward_instance
+    return rule(dtype, d, nq, nk, rate).body
+
+
 # (2000, 2000, 16): the teacher's head size at a ragged N; (2000, 300, 16) and
 # (300, 2000, 16): rectangular with ragged tails on both sides, so that with
 # both rates every (dropout, ragged) instance of the tensor-core bodies runs
-# (4096 x 4096 at d 16: the whole-tile instances, in the bodies-agree test).
+# (4096 x 4096 at d 16: the whole-tile instances, in the bodies-agree test);
+# d 32 (feature_dim 256): every kernel's run-time instance, both rates.
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
 @pytest.mark.parametrize("nq,nk,d", [(4096, 4096, 8), (2000, 2000, 16),
+                                     (2000, 2000, 32), (300, 2000, 32),
                                      (4096, 4096, 48), (1000, 1000, 64),
                                      (300, 300, 8), (2000, 300, 16),
                                      (300, 2000, 16)])
@@ -290,10 +319,10 @@ def _bwd_split(args, body=None, **kw):
 def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
                                                 rate, dtype):
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
-    body = ("simt" if variant == "fused" else
-            k2.backward_instance(dtype, d, nq, nk, rate).body)
-    assert body == ("mma" if variant == "split" and dtype == torch.bfloat16
-                    and d >= 16 else "simt")
+    body = _bwd_body(variant, dtype, d, nq, nk, rate)
+    mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
+    assert body == ("mma" if dtype == torch.bfloat16 and d in mma_dims
+                    else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
     got = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
                                  variant=variant)
@@ -305,10 +334,11 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape, name
         _close(g, r, dtype, name, body)
-    if variant == "split":
-        again = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
-                                       variant=variant)
-        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, again):
+    # The same bits every run, but the fused dq: its atomics add in any order.
+    again = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
+                                   variant=variant)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, again):
+        if variant == "split" or name != "dq":
             assert torch.equal(g, r), f"{name}: same bits every run"
 
 
@@ -317,43 +347,48 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
                                    (300, 2000)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_bwd_bodies_agree(cuda, nq, nk, rate):
-    """bf16 at the teacher's head size: the CUDA-core dk/dv and dq kernels
-    (`body="simt"`) meet their bar against the plain backward, and the
-    tensor-core kernels meet theirs against the CUDA-core kernels' output on
-    the same inputs (both round ds and p where the plain backward does)."""
+    """bf16 at the teacher's head size: the CUDA-core kernels (`body="simt"`:
+    dk/dv and dq, and the fused one) meet their bar against the plain
+    backward, and the tensor-core kernels meet theirs against the CUDA-core
+    kernels' output on the same inputs (both round ds and p where the plain
+    backward does)."""
     args = _bwd_inputs(cuda, 2, 4, nq, nk, 16, torch.bfloat16, seed=nq + nk,
                        rate=rate)
     kw = dict(dropout_rate=rate, seed=-77)
-    counts = (k2.bwd_dkv_launches, k2.bwd_dq_launches)
-    new, old = _bwd_split(args, **kw), _bwd_split(args, body="simt", **kw)
-    torch.cuda.synchronize()
-    assert (k2.bwd_dkv_launches, k2.bwd_dq_launches) == (counts[0] + 2,
-                                                        counts[1] + 2)
     ref = k2.attention_bwd_plain(*args, **kw)
-    for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
-        _close(o, r, torch.bfloat16, name, "simt")
-        _close(n, o, torch.bfloat16, name, "mma")
-    f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in args)
-    with pytest.raises(ValueError, match="does not take"):
-        _bwd_split(f32, body="mma")
+    for run, counters in ((_bwd_split, ("bwd_dkv_launches", "bwd_dq_launches")),
+                          (_bwd_fused, ("bwd_fused_launches",))):
+        counts = [getattr(k2, c) for c in counters]
+        new, old = run(args, **kw), run(args, body="simt", **kw)
+        torch.cuda.synchronize()
+        assert [getattr(k2, c) for c in counters] == [n + 2 for n in counts]
+        for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
+            _close(o, r, torch.bfloat16, name, "simt")
+            _close(n, o, torch.bfloat16, name, "mma")
+        f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in args)
+        with pytest.raises(ValueError, match="does not take"):
+            run(f32, body="mma")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["fused", "split"])
 @pytest.mark.parametrize("dtype,body", [(torch.float32, None),
                                         (torch.bfloat16, None),
                                         (torch.bfloat16, "simt")])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
                                                        (200, 300, 70, 3)])
-def test_flash_attention_bwd_dropout_mask_positions(cuda, dtype, body, nq, nk,
-                                                    q_offset, row_offset):
+def test_flash_attention_bwd_dropout_mask_positions(cuda, variant, dtype, body,
+                                                    nq, nk, q_offset,
+                                                    row_offset):
     """The backward kernels' dropout masks, position by position, are the
     hash. With q = 0, bias = 0 and lse = 0 every p is 1; o = 0 makes delta 0.
     dk/dv: dO is 1 at (query q0 + c, column c) and 0 elsewhere, so dv[key, c]
     is 0 exactly where the mask drops (query q0 + c, key). dq: k is 1 at
     (key k0 + c, column c), v and dO are ones (dp = 16), so dq[query, c] is 0
     exactly where the mask drops (query, key k0 + c). A fragment coordinate
-    mixed up (row r with r + 8, a column pair, a tile, keys with queries)
-    moves the zeros."""
+    mixed up (row r with r + 8, a column pair, a tile, keys with queries, a
+    transpose of the fused form's ds) moves the zeros."""
+    run = _bwd_fused if variant == "fused" else _bwd_split
     b, h, d, rate, seed = 2, 2, 16, 0.3, 123
     zeros = lambda n: torch.zeros(b, h, n, d, device=cuda, dtype=dtype)
     ones = lambda n: torch.ones(b, h, n, d, device=cuda, dtype=dtype)
@@ -371,28 +406,28 @@ def test_flash_attention_bwd_dropout_mask_positions(cuda, dtype, body, nq, nk,
     for q0 in (0, 8, 56, 121, nq - 16):
         do = zeros(nq)
         do[:, :, q0:q0 + d] = eye
-        _, _, dv, _ = _bwd_split((zeros(nq), zeros(nk), ones(nk), bias,
-                                  zeros(nq), lse, do), body=body, **kw)
+        _, _, dv, _ = run((zeros(nq), zeros(nk), ones(nk), bias, zeros(nq),
+                           lse, do), body=body, **kw)
         assert torch.equal(dv != 0, keep[:, :, q0:q0 + d].transpose(2, 3)), q0
     for k0 in (0, 8, 56, 121, nk - 16):
         k = zeros(nk)
         k[:, :, k0:k0 + d] = eye
-        dq, _, _, _ = _bwd_split((zeros(nq), k, ones(nk), bias, zeros(nq),
-                                  lse, ones(nq)), body=body, **kw)
+        dq, _, _, _ = run((zeros(nq), k, ones(nk), bias, zeros(nq), lse,
+                           ones(nq)), body=body, **kw)
         assert torch.equal(dq != 0, keep[:, :, :, k0:k0 + d]), k0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_offsets(cuda, variant, dtype):
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_attention_bwd_offsets(cuda, variant, dtype, d):
     """A q shard at q_offset gets the full call's dq rows; batch row 1 at
     row_offset gets the full call's dq, dk, dv rows (same dropout masks)."""
-    q, k, v, bias, _, _, do = _bwd_inputs(cuda, 2, 2, 512, 512, 16, dtype,
+    q, k, v, bias, _, _, do = _bwd_inputs(cuda, 2, 2, 512, 512, d, dtype,
                                           seed=3)
     kw = dict(dropout_rate=0.2, seed=9)
-    body = ("simt" if variant == "fused" else
-            k2.backward_instance(dtype, 16, 512, 512, 0.2).body)
+    body = _bwd_body(variant, dtype, d, 512, 512, 0.2)
 
     def grads(q, k, v, do, **extra):
         o, lse = k2.attention_plain(q, k, v, bias, **kw, **extra)
