@@ -16,18 +16,21 @@
 // Layout: y [B, H, W, Cin], out [B, H, W, Cout], w [3, 3, Cin, Cout]
 // (HWIO), alpha/beta [B, Cin] f32, wb [Cout] in T.
 //
+// This file holds the CUDA-core body, which f32 takes, and the C entry,
+// which picks a body (`body`): bf16 goes to the tensor-core body in
+// fused_stage_mma.cu; "simt" reaches this one for bf16 too, so that the two
+// can be compared.
+//
 // Bound: at the measured shape (B 128, 128 x 128, 64 -> 64, bf16) bytes and
-// tensor-core operations tie (about 0.16 ms each). This first version runs
-// on the CUDA cores and is bound by their f32 FMA rate and by the
-// shared-memory reads that feed it. The TPU kernel's three width-shifted
-// copies, its one-band lag and its sequential grid served the TPU's matrix
-// unit and do not carry over. Here one block owns an 8 x 32 tile of output
-// pixels of one image, one pixel per thread, with all Cout accumulators in
-// registers. Cin is walked in chunks of 8: the block stages the chunk's
-// normalised + mish'd 10 x 34 halo tile channel-major in shared memory (so a
-// warp's 32 pixels read consecutive words) and the chunk's 9 x 8 x Cout
-// weights, which every thread reads at the same address (a broadcast), four
-// at a time. Ragged H and W are masked. Tensor cores are later work.
+// tensor-core operations tie (about 0.16 ms each). This body runs on the
+// CUDA cores and is bound by their f32 FMA rate and by the shared-memory
+// reads that feed it. Here one block owns an 8 x 32 tile of output pixels of
+// one image, one pixel per thread, with all Cout accumulators in registers.
+// Cin is walked in chunks of 8: the block stages the chunk's normalised +
+// mish'd 10 x 34 halo tile channel-major in shared memory (so a warp's 32
+// pixels read consecutive words) and the chunk's 9 x 8 x Cout weights, which
+// every thread reads at the same address (a broadcast), four at a time.
+// Ragged H and W are masked.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -150,21 +153,32 @@ int dispatch(int cout, const void* y, const float* alpha, const float* beta,
 
 }  // namespace
 
+int lunaris_gn_mish_conv3_mma(const void* y, const float* alpha,
+                              const float* beta, const void* w, const void* wb,
+                              void* out, int B, int H, int W, int Cin,
+                              int Cout, cudaStream_t stream);
+
 // y: [B, H, W, Cin], out: [B, H, W, Cout], w: [3, 3, Cin, Cout], wb: [Cout],
 // all f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), contiguous.
 // alpha, beta: [B, Cin] f32. Cin a multiple of 8, Cout 32 or 64.
+// body: 0 the CUDA cores (this file), 1 the tensor cores (bf16 only;
+// fused_stage_mma.cu; y and w 16-byte aligned).
 // Returns the cudaError_t of the launch.
 extern "C" int lunaris_gn_mish_conv3(const void* y, const void* alpha,
                                      const void* beta, const void* w,
                                      const void* wb, void* out, int B, int H,
                                      int W, int Cin, int Cout, int is_bf16,
-                                     void* stream) {
+                                     int body, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || Cin <= 0 || Cin % kCK != 0 ||
-      (H + kTH - 1) / kTH > 65535)
+      (H + kTH - 1) / kTH > 65535 || body < 0 || body > 1 ||
+      (body == 1 && !is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const float*>(alpha);
   auto bt = static_cast<const float*>(beta);
+  if (body == 1)
+    return lunaris_gn_mish_conv3_mma(y, a, bt, w, wb, out, B, H, W, Cin, Cout,
+                                     s);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(Cout, y, a, bt, w, wb, out, B, H, W, Cin, s);
   return dispatch<float>(Cout, y, a, bt, w, wb, out, B, H, W, Cin, s);

@@ -13,8 +13,13 @@
 // exp/log1p/tanh chain. Its design is one read for the stats and one read
 // and write for the apply. The TPU kernel packed channels into 128-wide
 // lanes for its vector unit; here a group's C/G channels are contiguous
-// inside each pixel, and a block lays its threads across channels (fast
-// axis) and pixels (slow axis) so that a warp reads consecutive addresses.
+// inside each pixel.
+//
+// Pass 1 reads 16 bytes a thread (8 bf16 or 4 f32 consecutive channels of
+// one pixel), neighbouring threads neighbouring addresses, and keeps those
+// channels' sums in registers while it walks its pixels four at a time, as
+// the lane-sums kernel (gn_stats.cu) does. Where C is not a multiple of the
+// vector width it reads one element a thread (the scalar form).
 //
 // Determinism: no float atomics. Pass 1 writes one partial per
 // (batch, group, split) into a scratch buffer, each reduced in a fixed
@@ -23,10 +28,12 @@
 //
 // Launch: three kernels on the caller's stream: stats (grid splits x B),
 // fold (grid B), apply (grid blocks x B). Each launch is checked with
-// cudaGetLastError and the first error is returned to the caller.
+// cudaGetLastError and the first error is returned to the caller. The
+// affine entry launches the first two only: K5's alpha and beta.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -34,18 +41,40 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 2048;
+constexpr int kUnroll = 4;                   // pixels a thread has in flight
 
-// Pass 1. Block (split, b) sums pixels [p0, p1) of x[b] per channel: thread
-// (tx, ty) owns channel c0 + tx and walks pixels p0 + ty, p0 + ty + ty_n, ...
-// The ty_n pixel lanes of each channel are folded in order through shared
-// memory, then each group's channels are folded in order, and the block
-// writes partial[b, g, split, {sum x, sum x^2}].
-template <typename T>
+// V consecutive values of T at p (16 bytes when V * sizeof(T) is 16) as f32.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
+  if constexpr (V == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const unsigned int wds[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {            // a bf16 is the upper half of an f32
+      out[2 * i] = __uint_as_float(wds[i] << 16);
+      out[2 * i + 1] = __uint_as_float(wds[i] & 0xFFFF0000u);
+    }
+  } else if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    out[0] = to_f32(*p);
+  }
+}
+
+// Pass 1. Block (split, b) sums pixels [p0, p1) of x[b]. A pixel's C channels
+// are cols = C / V vectors of V channels. Thread t owns vector column
+// col0 + t % tc (tc = min(cols, kThreads)) for each col0 = 0, tc, 2 tc, ...,
+// and walks pixels p0 + t / tc, stepping rows = kThreads / tc pixels. The
+// rows of each channel are folded in order through shared memory, then each
+// group's channels in order, and the block writes
+// partial[b, g, split, {sum x, sum x^2}].
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 gn_stats_partial(const T* __restrict__ x, float* __restrict__ partial,
                  int hw, int C, int G, int splits) {
-  __shared__ float red1[kThreads];
-  __shared__ float red2[kThreads];
+  __shared__ float red1[kThreads * V];
+  __shared__ float red2[kThreads * V];
   __shared__ float ch1[kMaxChannels];
   __shared__ float ch2[kMaxChannels];
 
@@ -54,33 +83,58 @@ gn_stats_partial(const T* __restrict__ x, float* __restrict__ partial,
   const int per = (hw + splits - 1) / splits;
   const int p0 = split * per;
   const int p1 = min(hw, p0 + per);
-  const int tx_n = C < kThreads ? C : kThreads;
-  const int ty_n = kThreads / tx_n;
-  const int tx = threadIdx.x % tx_n;
-  const int ty = threadIdx.x / tx_n;
+  const int cols = C / V;
+  const int tc = min(cols, kThreads);
+  const int rows = kThreads / tc;
+  const int row = threadIdx.x / tc;
+  const int tcol = threadIdx.x % tc;
   const T* xb = x + static_cast<long long>(b) * hw * C;
 
-  for (int c0 = 0; c0 < C; c0 += tx_n) {
-    const int c = c0 + tx;
-    float s1 = 0.f, s2 = 0.f;
-    if (ty < ty_n && c < C) {
-      for (int p = p0 + ty; p < p1; p += ty_n) {
-        const float v = to_f32(xb[static_cast<long long>(p) * C + c]);
-        s1 += v;
-        s2 += v * v;
+  for (int col0 = 0; col0 < cols; col0 += tc) {
+    const int col = col0 + tcol;
+    float s1[V], s2[V], v[kUnroll][V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) s1[i] = s2[i] = 0.f;
+    if (row < rows && col < cols) {
+      const T* xc = xb + col * V;
+      int p = p0 + row;
+      for (; p + (kUnroll - 1) * rows < p1; p += kUnroll * rows) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          load_vec<T, V>(xc + static_cast<long long>(p + u * rows) * C, v[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            s1[i] += v[u][i];
+            s2[i] = fmaf(v[u][i], v[u][i], s2[i]);
+          }
+      }
+      for (; p < p1; p += rows) {
+        load_vec<T, V>(xc + static_cast<long long>(p) * C, v[0]);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          s1[i] += v[0][i];
+          s2[i] = fmaf(v[0][i], v[0][i], s2[i]);
+        }
       }
     }
-    red1[threadIdx.x] = s1;
-    red2[threadIdx.x] = s2;
+    // red[row][tcol * V + i]: rows * tc * V <= kThreads * V floats.
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      red1[threadIdx.x * V + i] = s1[i];
+      red2[threadIdx.x * V + i] = s2[i];
+    }
     __syncthreads();
-    if (threadIdx.x < tx_n && c < C) {
+    const int width = min(tc, cols - col0) * V;   // channels of this pass
+    for (int j = threadIdx.x; j < width; j += kThreads) {
       float a = 0.f, q = 0.f;
-      for (int j = 0; j < ty_n; ++j) {
-        a += red1[j * tx_n + threadIdx.x];
-        q += red2[j * tx_n + threadIdx.x];
+      for (int r = 0; r < rows; ++r) {
+        a += red1[r * tc * V + j];
+        q += red2[r * tc * V + j];
       }
-      ch1[c] = a;
-      ch2[c] = q;
+      ch1[col0 * V + j] = a;
+      ch2[col0 * V + j] = q;
     }
     __syncthreads();
   }
@@ -100,11 +154,12 @@ gn_stats_partial(const T* __restrict__ x, float* __restrict__ partial,
 
 // Fold. Block b sums the splits of each group in order, forms mean and
 // inv_std (variance clamped at 0), and writes the per-channel affine
-// affine[b, 0, c] = A, affine[b, 1, c] = B'.
+// A = alpha[b, c] and B' = beta_out[b, c], each [B, C].
 __global__ void __launch_bounds__(kThreads)
 gn_fold(const float* __restrict__ partial, const float* __restrict__ gamma,
-        const float* __restrict__ beta, float* __restrict__ affine,
-        int C, int G, int splits, float n_set, float eps) {
+        const float* __restrict__ beta, float* __restrict__ alpha,
+        float* __restrict__ beta_out, int C, int G, int splits, float n_set,
+        float eps) {
   __shared__ float g_mean[kMaxChannels];
   __shared__ float g_inv[kMaxChannels];
   const int b = blockIdx.x;
@@ -122,12 +177,12 @@ gn_fold(const float* __restrict__ partial, const float* __restrict__ gamma,
   }
   __syncthreads();
   const int cg = C / G;
-  float* out = affine + static_cast<long long>(b) * 2 * C;
+  const long long o = static_cast<long long>(b) * C;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const int g = c / cg;
     const float inv = g_inv[g];
-    out[c] = inv * gamma[c];
-    out[C + c] = beta[c] - (g_mean[g] * inv) * gamma[c];
+    alpha[o + c] = inv * gamma[c];
+    beta_out[o + c] = beta[c] - (g_mean[g] * inv) * gamma[c];
   }
 }
 
@@ -135,34 +190,66 @@ gn_fold(const float* __restrict__ partial, const float* __restrict__ gamma,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gn_mish_apply(const T* __restrict__ x, T* __restrict__ y,
-              const float* __restrict__ affine, int hw, int C) {
+              const float* __restrict__ alpha, const float* __restrict__ beta,
+              int hw, int C) {
   const int b = blockIdx.y;
   const long long base = static_cast<long long>(b) * hw * C;
   const int count = hw * C;
-  const float* a = affine + static_cast<long long>(b) * 2 * C;
+  const float* a = alpha + static_cast<long long>(b) * C;
+  const float* bp = beta + static_cast<long long>(b) * C;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
        i += gridDim.x * blockDim.x) {
     const int c = i % C;
-    const float v = to_f32(x[base + i]) * a[c] + a[C + c];
+    const float v = to_f32(x[base + i]) * a[c] + bp[c];
     y[base + i] = from_f32<T>(mish_f32(v));
   }
 }
 
+bool bad_shape(int B, int C, int G, int splits) {
+  return B <= 0 || B > 65535 || C > kMaxChannels || G <= 0 || C % G != 0 ||
+         splits <= 0;
+}
+
+// Pass 1 on the vector form where C and x's address allow it.
+template <typename T>
+int stats(const void* x, float* partial, int B, int hw, int C, int G,
+          int splits, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const dim3 grid(splits, B);
+  const T* xt = static_cast<const T*>(x);
+  if (C % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    gn_stats_partial<T, V><<<grid, kThreads, 0, stream>>>(xt, partial, hw, C,
+                                                           G, splits);
+  else
+    gn_stats_partial<T, 1><<<grid, kThreads, 0, stream>>>(xt, partial, hw, C,
+                                                           G, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pass 1 and the fold: alpha, beta_out [B, C] each.
+template <typename T>
+int affine(const void* x, const float* gamma, const float* beta,
+           float* partial, float* alpha, float* beta_out, int B, int hw, int C,
+           int G, int splits, float eps, cudaStream_t stream) {
+  const int err = stats<T>(x, partial, B, hw, C, G, splits, stream);
+  if (err != 0) return err;
+  const float n_set = static_cast<float>(hw) * static_cast<float>(C / G);
+  gn_fold<<<B, kThreads, 0, stream>>>(partial, gamma, beta, alpha, beta_out,
+                                       C, G, splits, n_set, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, void* y, const float* gamma, const float* beta,
-           float* partial, float* affine, int B, int hw, int C, int G,
+           float* partial, float* affine_buf, int B, int hw, int C, int G,
            int splits, int apply_blocks, float eps, cudaStream_t stream) {
-  gn_stats_partial<T><<<dim3(splits, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), partial, hw, C, G, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float n_set = static_cast<float>(hw) * static_cast<float>(C / G);
-  gn_fold<<<B, kThreads, 0, stream>>>(partial, gamma, beta, affine, C, G,
-                                       splits, n_set, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  float* alpha = affine_buf;
+  float* beta_out = affine_buf + static_cast<long long>(B) * C;
+  const int err = affine<T>(x, gamma, beta, partial, alpha, beta_out, B, hw, C,
+                            G, splits, eps, stream);
+  if (err != 0) return err;
   gn_mish_apply<T><<<dim3(apply_blocks, B), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), affine, hw, C);
+      static_cast<const T*>(x), static_cast<T*>(y), alpha, beta_out, hw, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,13 +257,13 @@ int launch(const void* x, void* y, const float* gamma, const float* beta,
 
 // x, y: [B, hw, C] contiguous (NHWC), f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
 // gamma, beta: [C] f32. partial: [B, G, splits, 2] f32 scratch.
-// affine: [B, 2, C] f32 scratch. Returns the cudaError_t of the launches.
+// affine: [2, B, C] f32 scratch. Returns the cudaError_t of the launches.
 extern "C" int lunaris_gn_mish(const void* x, void* y, const void* gamma,
                                const void* beta, void* partial, void* affine,
                                int B, int hw, int C, int G, int splits,
                                int apply_blocks, float eps, int is_bf16,
                                void* stream) {
-  if (C > kMaxChannels || G <= 0 || C % G != 0 || splits <= 0 || apply_blocks <= 0)
+  if (bad_shape(B, C, G, splits) || apply_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(gamma);
@@ -190,23 +277,41 @@ extern "C" int lunaris_gn_mish(const void* x, void* y, const void* gamma,
                        eps, s);
 }
 
+// Pass 1 and the fold alone: the GroupNorm of x folded to alpha[b, c] =
+// A and beta_out[b, c] = B', each [B, C] f32 (K5's affine). Arguments as
+// above.
+extern "C" int lunaris_gn_affine(const void* x, const void* gamma,
+                                 const void* beta, void* partial, void* alpha,
+                                 void* beta_out, int B, int hw, int C, int G,
+                                 int splits, float eps, int is_bf16,
+                                 void* stream) {
+  if (bad_shape(B, C, G, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto g = static_cast<const float*>(gamma);
+  auto bt = static_cast<const float*>(beta);
+  auto pa = static_cast<float*>(partial);
+  auto a = static_cast<float*>(alpha);
+  auto bo = static_cast<float*>(beta_out);
+  if (is_bf16)
+    return affine<__nv_bfloat16>(x, g, bt, pa, a, bo, B, hw, C, G, splits, eps,
+                                 s);
+  return affine<float>(x, g, bt, pa, a, bo, B, hw, C, G, splits, eps, s);
+}
+
 // Pass 1 alone: partial[b, g, split, {sum x, sum x^2}] of x [B, hw, C], for
 // a caller that wants the moments without the apply (the stats-only entry,
 // and the measurement of this pass by itself). Same arguments as above.
 extern "C" int lunaris_gn_stats_pass1(const void* x, void* partial, int B,
                                       int hw, int C, int G, int splits,
                                       int is_bf16, void* stream) {
-  if (C > kMaxChannels || G <= 0 || C % G != 0 || splits <= 0 || B <= 0)
+  if (bad_shape(B, C, G, splits))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<float*>(partial);
   if (is_bf16)
-    gn_stats_partial<__nv_bfloat16><<<dim3(splits, B), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), pa, hw, C, G, splits);
-  else
-    gn_stats_partial<float><<<dim3(splits, B), kThreads, 0, s>>>(
-        static_cast<const float*>(x), pa, hw, C, G, splits);
-  return static_cast<int>(cudaGetLastError());
+    return stats<__nv_bfloat16>(x, pa, B, hw, C, G, splits, s);
+  return stats<float>(x, pa, B, hw, C, G, splits, s);
 }
 
 // The name of a cudaError_t returned by any entry point of this library.

@@ -57,7 +57,9 @@ SIGNATURES = {
     "lunaris_flash_attention_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _P),
     "lunaris_gn_mish_conv3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P),
+                              _I, _P),
+    "lunaris_gn_affine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                          _P),
 }
 
 

@@ -12,12 +12,15 @@ input, as the JAX package differentiates its Pallas K1 through the XLA
 composition (`ops/dispatch.py` `pallas_fwd_xla_bwd`).
 
 `group_stats` is the stats-only entry (the counterpart of
-`group_stats_pallas`): the kernel's pass 1 alone, folded to per-(B, G) mean
-and inv_std.
+`group_stats_pallas`): the kernel's pass 1 alone (`group_partials`), folded
+to per-(B, G) mean and inv_std. `group_affine_kernel` is pass 1 and the
+kernel's fold without the apply: `group_affine` on the card, the alpha and
+beta that K5 (`fused_stage.gn_mish_conv3`) takes.
 
 `launches` counts the kernel launches made by `gn_mish` (one per call on a
-CUDA tensor) and `stats_launches` those made by `group_stats`; the plain
-versions do not count.
+CUDA tensor), `stats_launches` those of pass 1 alone (`group_partials`,
+`group_stats`) and `affine_launches` those of `group_affine_kernel`; the
+plain versions do not count.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from lunaris_orion_tpu_torch.ops.cuda import _build
 
 launches = 0
 stats_launches = 0
+affine_launches = 0
 
 MAX_CHANNELS = 2048          # the kernel's per-block channel table
 _THREADS = 256
@@ -97,15 +101,21 @@ def _stats_splits(x: torch.Tensor) -> int:
     return max(1, min(-(-4 * sms // b), -(-h * w * c // 8192), h * w))
 
 
-def _kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            groups: int, eps: float) -> torch.Tensor:
-    _check_x("gn_mish", x, groups)
-    b, h, w, c = x.shape
-    for name, t in (("weight", weight), ("bias", bias)):
+def _check_affine(name: str, x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor, groups: int) -> None:
+    _check_x(name, x, groups)
+    c = x.shape[3]
+    for arg, t in (("weight", weight), ("bias", bias)):
         if (t.dtype != torch.float32 or t.shape != (c,)
                 or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"gn_mish: {name} must be contiguous f32 [{c}] "
+            raise ValueError(f"{name}: {arg} must be contiguous f32 [{c}] "
                              f"on {x.device}")
+
+
+def _kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            groups: int, eps: float) -> torch.Tensor:
+    _check_affine("gn_mish", x, weight, bias, groups)
+    b, h, w, c = x.shape
     hw = h * w
     # Pass 2: about 8 blocks per SM (a full SM's threads), grid-stride.
     splits = _stats_splits(x)
@@ -114,7 +124,7 @@ def _kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     partial = torch.empty(b * groups * splits * 2, device=x.device,
                           dtype=torch.float32)
-    affine = torch.empty(b * 2 * c, device=x.device, dtype=torch.float32)
+    affine = torch.empty(2 * b * c, device=x.device, dtype=torch.float32)
     err = _build.library().lunaris_gn_mish(
         x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         partial.data_ptr(), affine.data_ptr(), b, hw, c, groups, splits,
@@ -136,31 +146,83 @@ def group_stats_plain(x: torch.Tensor, *, groups: int = 8, eps: float = 1e-5):
     return mean, torch.rsqrt(var + eps)
 
 
+def group_partials_plain(x: torch.Tensor, *, groups: int = 8) -> torch.Tensor:
+    """The plain version of pass 1: [B, G, 1, 2] f32, the sums of x and x^2
+    of each group over all pixels (one split)."""
+    b, h, w, c = x.shape
+    x32 = x.float().reshape(b, h * w, groups, c // groups)
+    return torch.stack([x32.sum(dim=(1, 3)), x32.square().sum(dim=(1, 3))],
+                       dim=-1)[:, :, None, :]
+
+
+def group_partials(x: torch.Tensor, *, groups: int = 8) -> torch.Tensor:
+    """The kernel's pass 1 alone on x [B, H, W, C]: partial [B, G, splits,
+    2] f32, the sums of x and x^2 of each group over the pixels of each
+    split (no atomics: the same bits every run). On a CUDA tensor it
+    launches pass 1 and counts it in `stats_launches`; on a CPU tensor it
+    is `group_partials_plain`."""
+    if x.device.type == "cpu":
+        return group_partials_plain(x, groups=groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_partials: unsupported device {x.device}")
+    _check_x("group_partials", x, groups)
+    b, h, w, c = x.shape
+    partial = torch.empty(b, groups, _stats_splits(x), 2, device=x.device,
+                          dtype=torch.float32)
+    err = _build.library().lunaris_gn_stats_pass1(
+        x.data_ptr(), partial.data_ptr(), b, h * w, c, groups,
+        partial.shape[2], int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "group_partials")
+    global stats_launches
+    stats_launches += 1
+    return partial
+
+
 def group_stats(x: torch.Tensor, *, groups: int = 8, eps: float = 1e-5):
     """The stats-only entry: per-(B, G) (mean, inv_std) of x [B, H, W, C].
-    On CUDA it launches the kernel's pass 1 alone (one partial per batch,
-    group and split, no atomics) and folds the few partials with torch; on
-    the CPU it is `group_stats_plain`."""
+    On CUDA it launches the kernel's pass 1 alone (`group_partials`) and
+    folds the few partials with torch; on the CPU it is
+    `group_stats_plain`."""
     if x.device.type == "cpu":
         return group_stats_plain(x, groups=groups, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"group_stats: unsupported device {x.device}")
-    _check_x("group_stats", x, groups)
     b, h, w, c = x.shape
-    splits = _stats_splits(x)
-    partial = torch.empty(b, groups, splits, 2, device=x.device,
-                          dtype=torch.float32)
-    err = _build.library().lunaris_gn_stats_pass1(
-        x.data_ptr(), partial.data_ptr(), b, h * w, c, groups, splits,
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "group_stats")
-    global stats_launches
-    stats_launches += 1
-    sums = partial.sum(dim=2) / float(h * w * (c // groups))
+    sums = group_partials(x, groups=groups).sum(dim=2) / float(
+        h * w * (c // groups))
     mean = sums[..., 0]
     var = (sums[..., 1] - mean.square()).clamp_min(0.0)
     return mean, torch.rsqrt(var + eps)
+
+
+def group_affine_kernel(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, *, groups: int = 8,
+                        eps: float = 1e-5):
+    """`group_affine` by the kernel: (A, B'), each a contiguous [B, C] f32
+    tensor, from pass 1 and the fold of K1 with no torch reduction on the
+    way. On a CUDA tensor it launches the two kernels (weight, bias: f32
+    [C] on the same card); on a CPU tensor it is `group_affine`; it raises
+    elsewhere."""
+    if x.device.type == "cpu":
+        return group_affine(x, weight, bias, groups=groups, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_affine_kernel: unsupported device {x.device}")
+    _check_affine("group_affine_kernel", x, weight, bias, groups)
+    b, h, w, c = x.shape
+    splits = _stats_splits(x)
+    partial = torch.empty(b * groups * splits * 2, device=x.device,
+                          dtype=torch.float32)
+    affine = torch.empty(2, b, c, device=x.device, dtype=torch.float32)
+    err = _build.library().lunaris_gn_affine(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), partial.data_ptr(),
+        affine[0].data_ptr(), affine[1].data_ptr(), b, h * w, c, groups,
+        splits, eps, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "group_affine_kernel")
+    global affine_launches
+    affine_launches += 1
+    return affine[0], affine[1]
 
 
 class _GnMish(torch.autograd.Function):

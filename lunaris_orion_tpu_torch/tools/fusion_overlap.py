@@ -7,11 +7,14 @@ The counterpart of `tools/bench_fusion_overlap.py`. At one stage shape
   conv_alone    conv3x3(y)                 F.conv2d (cuDNN), channels_last
   gnmish_alone  mish(GroupNorm(y))         the port's K1
   chain         conv3x3(mish(GroupNorm(y)))  K1, then F.conv2d
-  stats_alone   per-channel mean of y and y^2 (the reduction half of GN)
-  fused         the GroupNorm fold (torch), then K5 (`gn_mish_conv3`)
+  stats_alone   per-channel mean of y and y^2 (torch), as the JAX tool's
+  fused         K1's pass 1 and fold (`gn_mish.group_affine_kernel`), then
+                K5 (`gn_mish_conv3`)
 
 The two convolution cases use the library as the JAX tool left them to its
-compiler; K1 and K5 are the port's own kernels.
+compiler; K1 and K5 are the port's own kernels. In `fused` the reduction
+half of GroupNorm is K1's pass 1, where the JAX tool left it to its
+compiler.
 
     python -m lunaris_orion_tpu_torch.tools.fusion_overlap [--batch 128]
 
@@ -61,7 +64,7 @@ def measure(batch: int, hw: int, cin: int, cout: int, dtype: torch.dtype,
                             x32.square().mean(dim=(1, 2))])
 
     def fused(x):
-        alpha, beta = k1.group_affine(x, scale, bias)
+        alpha, beta = k1.group_affine_kernel(x, scale, bias)
         return k5.gn_mish_conv3(x, alpha, beta, w, wb)
 
     cases = {

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from lunaris_orion_tpu.ops.pallas import fused_stage as jfs
+from lunaris_orion_tpu.ops.pallas import gn_mish as jk1
 from lunaris_orion_tpu_torch.ops.cuda import _build
 from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
@@ -49,6 +50,63 @@ def test_plain_matches_pallas_and_reference(h, cin, cout, band):
         atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(got, _jax(jfs.gn_mish_conv3_reference, args),
                                atol=2e-5, rtol=2e-5)
+
+
+# The alpha / beta entry (`gn_mish.group_affine_kernel`, on the CPU its plain
+# version) through K5, against the JAX path the tool times: K1's stats-only
+# Pallas entry (interpret mode) folded with the GroupNorm weight and bias,
+# then the K5 Pallas kernel. f32 on both sides; moments and taps summed in
+# other orders: 2e-5, K5's bar.
+@pytest.mark.parametrize("h,cin,cout,band", [(32, 64, 64, 8),
+                                             (64, 32, 32, 32),
+                                             (32, 128, 64, 16)])
+def test_group_affine_kernel_through_k5_matches_pallas(h, cin, cout, band):
+    y, _, _, w, wb = _inputs(2, h, cin, cout, seed=h + cin + 1)
+    r = np.random.default_rng(cin)
+    gamma = (1 + 0.1 * r.standard_normal(cin)).astype(np.float32)
+    bias = (0.1 * r.standard_normal(cin)).astype(np.float32)
+    alpha, beta = k1.group_affine_kernel(
+        torch.from_numpy(y), torch.from_numpy(gamma), torch.from_numpy(bias))
+    ref_a, ref_b = k1.group_affine(
+        torch.from_numpy(y), torch.from_numpy(gamma), torch.from_numpy(bias))
+    assert torch.equal(alpha, ref_a) and torch.equal(beta, ref_b)
+    mean, inv = jk1.group_stats_pallas(jnp.asarray(y), groups=8)
+    cg = cin // 8
+    ja = np.repeat(np.asarray(inv), cg, axis=1) * gamma
+    jb = bias - np.repeat(np.asarray(mean * inv), cg, axis=1) * gamma
+    np.testing.assert_allclose(alpha.numpy(), ja, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(beta.numpy(), jb, atol=2e-5, rtol=2e-5)
+    got = k5.gn_mish_conv3(torch.from_numpy(y), alpha, beta,
+                           torch.from_numpy(w), torch.from_numpy(wb)).numpy()
+    want = _jax(jfs.gn_mish_conv3_pallas, (y, ja.astype(np.float32),
+                                           jb.astype(np.float32), w, wb),
+                band=band)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+# The body rule: bf16 on the tensor cores at every shape the kernel takes
+# (a Cin of 8 or 24 ends with a half chunk padded with zeros), f32 on the
+# CUDA cores.
+@pytest.mark.parametrize("dtype,cin,cout,body", [
+    (torch.bfloat16, 64, 64, "mma"), (torch.bfloat16, 32, 32, "mma"),
+    (torch.bfloat16, 8, 32, "mma"), (torch.bfloat16, 24, 64, "mma"),
+    (torch.float32, 64, 64, "simt"), (torch.float32, 8, 32, "simt")])
+def test_kernel_body_rule(dtype, cin, cout, body):
+    assert k5.supported_shape(16, 16, cin, cout)
+    assert k5.kernel_body(dtype) == body
+    assert k5.kernel_body(dtype, "simt") == "simt"
+
+
+def test_kernel_body_refusals():
+    with pytest.raises(ValueError, match="bf16 only"):
+        k5.kernel_body(torch.float32, "mma")
+    with pytest.raises(ValueError, match="body 'wgmma'"):
+        k5.kernel_body(torch.bfloat16, "wgmma")
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        k5.kernel_body(torch.float16)
+    # Shapes are `supported_shape`'s, which both bodies share.
+    assert not k5.supported_shape(16, 16, 12, 64)
+    assert not k5.supported_shape(16, 16, 64, 48)
 
 
 def test_bf16_rounding_points_match():

@@ -116,6 +116,45 @@ def test_cpu_tensor_takes_plain_version_and_does_not_count():
         torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias)))
 
 
+def test_group_affine_kernel_on_cpu_is_group_affine(monkeypatch):
+    """On a CPU tensor the alpha / beta entry is `group_affine`, bit for bit,
+    builds nothing and counts nothing; elsewhere it raises."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+    monkeypatch.setattr(_build, "library", no_build)
+    x, scale, bias = (torch.from_numpy(a) for a in _inputs((2, 8, 8, 32),
+                                                           seed=12))
+    before = k1.affine_launches
+    got = k1.group_affine_kernel(x, scale, bias)
+    assert k1.affine_launches == before
+    for a, r in zip(got, k1.group_affine(x, scale, bias)):
+        assert a.shape == (2, 32) and a.dtype == torch.float32
+        assert torch.equal(a, r)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.group_affine_kernel(x.to("meta"), scale.to("meta"),
+                               bias.to("meta"))
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 8, 8, 32), 8),
+                                          ((1, 5, 3, 12), 4)])
+def test_group_partials_plain_folds_to_group_stats(shape, groups):
+    """Pass 1's plain version (one split) folded as the card's partials are
+    gives `group_stats_plain`."""
+    x, _, _ = _inputs(shape, seed=13)
+    x = torch.from_numpy(x)
+    part = k1.group_partials(x, groups=groups)
+    assert part.shape == (shape[0], groups, 1, 2)
+    n = shape[1] * shape[2] * (shape[3] // groups)
+    mean = part[..., 0].sum(dim=2) / n
+    var = (part[..., 1].sum(dim=2) / n - mean.square()).clamp_min(0.0)
+    rmean, rinv = k1.group_stats_plain(x, groups=groups)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(torch.rsqrt(var + 1e-5), rinv, atol=1e-5,
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.group_partials(x.to("meta"), groups=groups)
+
+
 def test_other_device_raises():
     x = torch.empty(1, 8, 8, 32, device="meta")
     w = torch.empty(32, device="meta")
@@ -146,7 +185,8 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_stages.cu",
-        "fused_stage.cu", "gn_mish.cu", "gn_stats.cu", "loss_epilogue.cu"]
+        "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
+        "loss_epilogue.cu"]
     assert d == _build.build_dir()
 
 

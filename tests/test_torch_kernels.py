@@ -37,7 +37,9 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 16, 16, 256), (8, 32, 32, 128),
                                    (8, 64, 64, 64), (8, 128, 128, 32),
-                                   (3, 7, 9, 48), (2, 4, 4, 512)])
+                                   (3, 7, 9, 48), (2, 4, 4, 512),
+                                   (2, 5, 3, 16), (2, 9, 9, 1024),
+                                   (2, 4, 4, 2048), (1, 33, 17, 24)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gn_mish_kernel_matches_plain(cuda, shape, dtype):
     r = np.random.default_rng(sum(shape))
@@ -57,6 +59,28 @@ def test_gn_mish_kernel_matches_plain(cuda, shape, dtype):
     else:  # 2 bf16 ulps of the plain value (+1e-6 for values near 0)
         assert (err <= 2 * _bf16_ulp(ref) + 1e-6).all()
     assert torch.equal(got, k1.gn_mish(x, w, b)), "runs must give the same bits"
+
+
+@pytest.mark.gpu
+def test_gn_mish_scalar_form(cuda):
+    """C not a multiple of the 16-byte vector (12 channels in 4 groups): pass
+    1 reads one element a thread, and agrees all the same."""
+    r = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(r.standard_normal((2, 6, 5, 12)).astype(
+            np.float32)).to(cuda, dtype)
+        w = torch.ones(12, device=cuda)
+        b = torch.zeros(12, device=cuda)
+        got = k1.gn_mish(x, w, b, groups=4)
+        ref = k1.gn_mish_plain(x, w, b, groups=4)
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5
+        else:
+            assert (err <= 2 * _bf16_ulp(ref) + 1e-6).all(), err.max().item()
+        for a, rr, rtol in zip(k1.group_stats(x, groups=4),
+                               k1.group_stats_plain(x, groups=4), (1e-5, 1e-4)):
+            torch.testing.assert_close(a, rr, atol=1e-5, rtol=rtol)
 
 
 @pytest.mark.gpu
@@ -577,13 +601,14 @@ def _k5_plain_without(y, alpha, beta, w, wb, skip):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("skip", ["affine", "mish", "w", "wb"])
-def test_gn_mish_conv3_bf16_bar_sees_each_rounding_point(cuda, skip):
+@pytest.mark.parametrize("body", ["mma", "simt"])
+def test_gn_mish_conv3_bf16_bar_sees_each_rounding_point(cuda, skip, body):
     """A plain version with one rounding point left out fails the bf16 bar
-    that the kernel passes: the bar holds every rounding point of the
+    that each body passes: the bar holds every rounding point of the
     kernel, not only its f32 structure."""
     args = _k5_inputs(cuda, 2, 32, 32, 64, 64, torch.bfloat16, seed=5,
                       beta_mean=1.0)
-    got = k5.gn_mish_conv3(*args)
+    got = k5.gn_mish_conv3_kernel(*args, body=body)
     assert torch.equal(_k5_plain_without(*args, None),
                        k5.gn_mish_conv3_plain(*args))
     assert _k5_bf16_agree(got, k5.gn_mish_conv3_plain(*args))
@@ -593,9 +618,14 @@ def test_gn_mish_conv3_bf16_bar_sees_each_rounding_point(cuda, skip):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,w,cin,cout", [
     (2, 32, 32, 64, 64), (2, 64, 64, 32, 32), (2, 32, 32, 128, 64),
-    (8, 128, 128, 64, 64), (3, 13, 37, 8, 32), (1, 5, 70, 24, 64)])
+    (8, 128, 128, 64, 64), (3, 13, 37, 8, 32), (1, 5, 70, 24, 64),
+    (1, 17, 19, 40, 32), (2, 31, 33, 16, 64), (2, 40, 40, 256, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gn_mish_conv3_kernel_matches_plain(cuda, b, h, w, cin, cout, dtype):
+    """The body `kernel_body` gives: bf16 on the tensor cores (Cin 8, 24
+    and 40 end with a half chunk; at Cin 256 sums kept in the mma
+    accumulators across chunks would miss the bar), f32 on the CUDA
+    cores."""
     assert k5.supported_shape(h, w, cin, cout)
     args = _k5_inputs(cuda, b, h, w, cin, cout, dtype, seed=h + w + cin,
                       beta_mean=1.0)           # mish(beta) != 0 at the halo
@@ -613,6 +643,24 @@ def test_gn_mish_conv3_kernel_matches_plain(cuda, b, h, w, cin, cout, dtype):
         assert _k5_bf16_agree(got, ref), (err.max().item(),
                                           (err > 0).float().mean().item())
     assert torch.equal(got, k5.gn_mish_conv3(*args)), "same bits every run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 32, 32, 64, 64),
+                                            (3, 13, 37, 8, 32)])
+def test_gn_mish_conv3_simt_body_still_reachable(cuda, b, h, w, cin, cout):
+    """body="simt" reaches the CUDA-core body for bf16 (what measurements
+    compare the tensor cores with); it meets the same bar."""
+    args = _k5_inputs(cuda, b, h, w, cin, cout, torch.bfloat16, seed=cin,
+                      beta_mean=1.0)
+    before = k5.launches
+    got = k5.gn_mish_conv3_kernel(*args, body="simt")
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert _k5_bf16_agree(got, k5.gn_mish_conv3_plain(*args))
+    assert torch.equal(got, k5.gn_mish_conv3_kernel(*args, body="simt"))
+    with pytest.raises(ValueError, match="bf16 only"):
+        k5.gn_mish_conv3_kernel(*(a.float() for a in args), body="mma")
 
 
 @pytest.mark.gpu
@@ -740,7 +788,9 @@ def test_lane_sums_rejects_unsupported(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(128, 128, 128, 32), (8, 16, 16, 256),
-                                   (3, 7, 9, 48)])
+                                   (3, 7, 9, 48), (2, 5, 3, 16),
+                                   (2, 9, 9, 1024), (2, 4, 4, 2048),
+                                   (128, 64, 64, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_stats_pass1_matches_plain(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -752,3 +802,30 @@ def test_group_stats_pass1_matches_plain(cuda, shape, dtype):
     rmean, rinv = k1.group_stats_plain(x, groups=8)
     torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(inv, rinv, atol=1e-5, rtol=1e-4)
+    part = k1.group_partials(x, groups=8)
+    assert torch.equal(part, k1.group_partials(x, groups=8)), "same bits"
+    rpart = k1.group_partials_plain(x, groups=8)
+    torch.testing.assert_close(part.sum(dim=2, keepdim=True), rpart,
+                               atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 128, 128, 64), (8, 16, 16, 256),
+                                   (3, 7, 9, 48), (2, 4, 4, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_affine_kernel_matches_plain(cuda, shape, dtype):
+    """K5's alpha / beta from K1's pass 1 and fold against `group_affine`:
+    the moments summed in another order."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    x = (0.5 + 2.0 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    b = 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    before = k1.affine_launches
+    alpha, beta = k1.group_affine_kernel(x, w, b)
+    torch.cuda.synchronize()
+    assert k1.affine_launches == before + 1
+    for got, ref in zip((alpha, beta), k1.group_affine(x, w, b)):
+        assert got.shape == (shape[0], shape[3]) and got.is_contiguous()
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
+    again = k1.group_affine_kernel(x, w, b)
+    assert torch.equal(alpha, again[0]) and torch.equal(beta, again[1])

@@ -214,14 +214,15 @@ def test_fusion_overlap_main_on_cpu(capsys):
 
 def test_fusion_overlap_cases_agree():
     """The tool's `fused` case computes what its `chain` case computes: K5
-    after the GroupNorm fold equals K1 followed by the convolution."""
+    after the GroupNorm fold (the alpha / beta entry) equals K1 followed by
+    the convolution."""
     r = np.random.default_rng(9)
     y = torch.from_numpy(r.standard_normal((2, 16, 16, 16)).astype(np.float32))
     w = torch.from_numpy((0.05 * r.standard_normal((3, 3, 16, 32))).astype(
         np.float32))
     scale, bias = torch.full((16,), 1.1), torch.full((16,), 0.05)
     from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
-    alpha, beta = k1.group_affine(y, scale, bias)
+    alpha, beta = k1.group_affine_kernel(y, scale, bias)
     fused = k5.gn_mish_conv3(y, alpha, beta, w, torch.zeros(32))
     chain = torch.nn.functional.conv2d(
         k1.gn_mish(y, scale, bias).permute(0, 3, 1, 2),
