@@ -42,16 +42,22 @@ _U = ctypes.c_uint
 # C entry points and their argument types (every pointer and the stream
 # as c_void_p, or ctypes would pass them as 32-bit ints).
 SIGNATURES = {
-    "lunaris_gn_mish": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+    "lunaris_gn_mish": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                         _I, _P),
+    "lunaris_gn_mish_earlier": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _F, _I, _P),
+    "lunaris_gn_mish_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _P),
     "lunaris_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _F, _I, _U, _F, _U, _I, _I, _I, _I,
                                     _P),
     "lunaris_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                     _U, _F, _U, _I, _I, _I, _I, _P),
-    "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I,
+    "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                        _P),
+    "lunaris_mse_kl_per_sample": (_P, _P, _P, _P, _P, _P, _I,
+                                  ctypes.c_longlong, _I, _I, _P),
     "lunaris_gn_stats_pass1": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lunaris_lane_sums_partials": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lunaris_flash_attention_stage": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -4,6 +4,7 @@ its plain version against the JAX package's Pallas kernel
 device contract. The kernel itself is held against its plain version on a
 CUDA card by tests/test_torch_kernels.py."""
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -153,6 +154,165 @@ def test_group_partials_plain_folds_to_group_stats(shape, groups):
                                rtol=1e-4)
     with pytest.raises(ValueError, match="unsupported device"):
         k1.group_partials(x.to("meta"), groups=groups)
+
+
+@pytest.mark.parametrize("shape,groups,splits", [
+    ((2, 8, 8, 32), 8, 1), ((2, 8, 8, 32), 8, 3), ((1, 5, 3, 12), 4, 7),
+    ((2, 16, 16, 64), 8, 64), ((1, 4, 4, 2048), 8, 256),
+    ((3, 6, 7, 24), 8, 50)])
+def test_fold_partials_plain_matches_group_affine(shape, groups, splits):
+    """The fold in the kernel's order (splits summed one by one, then mean,
+    clamped variance and inv_std per group) from pass 1's plain partials,
+    cut into `splits` as the kernel's grid cuts the pixels (splits past the
+    last pixel included), against `group_affine`'s moments in f32."""
+    x, scale, bias = (torch.from_numpy(a) for a in _inputs(
+        shape, seed=sum(shape) + splits, mean=0.5, std=2.0))
+    part = k1.group_partials_plain(x, groups=groups, splits=splits)
+    assert part.shape == (shape[0], groups, splits, 2)
+    torch.testing.assert_close(part.sum(dim=2, keepdim=True),
+                               k1.group_partials_plain(x, groups=groups),
+                               atol=1e-3, rtol=1e-5)
+    n_set = shape[1] * shape[2] * (shape[3] // groups)
+    got = k1.fold_partials_plain(part, scale, bias, n_set=n_set)
+    for a, r in zip(got, k1.group_affine(x, scale, bias, groups=groups)):
+        assert a.shape == (shape[0], shape[3]) and a.dtype == torch.float32
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-4)
+
+
+# C 8, 64, 256: the Pallas kernel in interpret mode; C 24, which its lanes
+# of 128 cannot pack, is what the JAX package runs there: the XLA
+# composition of `layers.group_norm_mish`.
+@pytest.mark.parametrize("c", [8, 24, 64, 256])
+@pytest.mark.parametrize("splits", [2, 5])
+def test_apply_from_split_partials_matches_jax(c, splits):
+    """The apply alone on a CPU tensor (the plain fold of pass 1's partials
+    in `splits`, then y = mish(x * A + B')) against the JAX package's
+    K1 on the same values."""
+    shape = (2, 16, 16, c)
+    x, scale, bias = _inputs(shape, seed=c + splits, mean=0.3, std=1.5)
+    xt = torch.from_numpy(x)
+    part = k1.group_partials_plain(xt, groups=8, splits=splits)
+    got = k1.gn_mish_apply(xt, part, torch.from_numpy(scale),
+                           torch.from_numpy(bias), groups=8).numpy()
+    if c == 24:
+        want = np.asarray(jlayers.group_norm_mish(
+            {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+            jnp.asarray(x), groups=8))
+    else:
+        want = _jax(x, scale, bias)
+    # f32 on both sides, moments summed in other orders: atol 1e-5 / rtol 1e-4
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+def _walk_apply(geo: k1.ApplyGeometry, hw: int, c: int) -> np.ndarray:
+    """The index mapping of the apply's kernel (`gn_mish_apply_fold`) for
+    one image, loop for loop: hits[pixel, channel], and a check that every
+    value's A and B' are read at its own channel."""
+    hits = np.zeros((hw, c), np.int64)
+    cols = c // geo.vec
+    tc = min(cols, k1.THREADS)
+    rows = k1.THREADS // tc
+    per = -(-hw // geo.blocks)                 # the kernel's own division
+    assert (tc, rows, per) == (geo.tc, geo.rows, geo.pixels)
+    lanes = np.arange(geo.vec)
+    for blk in range(geo.blocks):
+        p0 = blk * per
+        p1 = min(hw, p0 + per)
+        for t in range(k1.THREADS):
+            row = t // tc
+            if row >= rows:
+                continue
+            for col in range(t % tc, cols, tc):
+                alpha_at = col * geo.vec + lanes    # a[i], b[i] in registers
+                p, seen = p0 + row, []
+                while p + 3 * rows < p1:            # four pixels in flight
+                    seen += [p, p + rows, p + 2 * rows, p + 3 * rows]
+                    p += 4 * rows
+                while p < p1:
+                    seen.append(p)
+                    p += rows
+                for pix in seen:
+                    addr = pix * c + col * geo.vec + lanes
+                    assert (addr % c == alpha_at).all()
+                    hits[addr // c, addr % c] += 1
+    return hits
+
+
+@pytest.mark.parametrize("b,hw,c,itemsize,aligned,sms", [
+    (8, 256, 256, 2, True, 132), (2, 37, 64, 2, True, 132),
+    (1, 12, 2048, 2, True, 132), (1, 9, 2048, 4, True, 132),
+    (3, 63, 24, 2, True, 132), (2, 30, 40, 2, True, 4),
+    (2, 50, 12, 4, True, 4), (2, 45, 64, 2, False, 132),
+    (4, 100, 8, 4, True, 132), (1, 200, 48, 2, True, 8),
+    (2, 17, 1000, 4, False, 132)])
+def test_apply_geometry_covers_each_value_once(b, hw, c, itemsize, aligned,
+                                               sms):
+    """Every (pixel, channel) of an image is applied exactly once, with the
+    A and B' of its own channel; the vector form (16 bytes) exactly where C
+    is a multiple of the vector and the addresses are aligned."""
+    splits = k1.stats_splits(b, hw, c, 8, sms)
+    geo = k1.apply_geometry(b, hw, c, itemsize, 8, splits, sms, aligned)
+    want_vec = 16 // itemsize if aligned and c % (16 // itemsize) == 0 else 1
+    assert geo.vec == want_vec
+    assert geo.blocks >= 1 and (geo.blocks - 1) * geo.pixels < hw
+    assert (_walk_apply(geo, hw, c) == 1).all()
+
+
+def test_apply_geometry_bounds_the_repeated_fold():
+    """Each apply block folds its image's 2 G splits partials again: at
+    every batch, a block covers at least 16 times as many values; pass 1
+    never gives the fold more than MAX_FOLD groups x splits."""
+    for b in (1, 2, 8, 16, 128):
+        for hw, c in ((256, 256), (16384, 32), (4096, 64), (16384, 64),
+                      (64, 2048)):
+            splits = k1.stats_splits(b, hw, c, 8, 132)
+            assert 8 * splits <= k1.MAX_FOLD
+            geo = k1.apply_geometry(b, hw, c, 2, 8, splits, 132)
+            assert geo.pixels * c >= 16 * 2 * 8 * splits or geo.blocks == 1
+    assert k1.stats_splits(1, 128 * 128, 256, 8, 132) == k1.MAX_FOLD // 8
+
+
+def test_apply_alone_and_kernel_entry_on_cpu(monkeypatch):
+    """On a CPU tensor the apply-alone entry is its plain version and counts
+    nothing; the comparison entry needs a card."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+    monkeypatch.setattr(_build, "library", no_build)
+    x, scale, bias = (torch.from_numpy(a) for a in _inputs((2, 8, 8, 32),
+                                                           seed=14))
+    part = k1.group_partials(x)
+    before = k1.apply_launches
+    got = k1.gn_mish_apply(x, part, scale, bias)
+    assert k1.apply_launches == before
+    assert torch.equal(got, k1.gn_mish_apply_plain(x, part, scale, bias))
+    torch.testing.assert_close(got, k1.gn_mish_plain(x, scale, bias),
+                               atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        k1.gn_mish_kernel(x, scale, bias)
+    with pytest.raises(ValueError, match="unsupported device"):
+        k1.gn_mish_apply(x.to("meta"), part.to("meta"), scale.to("meta"),
+                         bias.to("meta"))
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong, "unsigned int": ctypes.c_uint}
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every `extern "C"` entry point of csrc/ that `_build.SIGNATURES`
+    names takes the arguments, in number and type, that ctypes passes, and
+    every one that returns a CUDA error is named there."""
+    found = {}
+    for src in _build.sources():
+        for name, args in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = tuple(
+                _C_TYPES[re.sub(r"\s*\w+$", "", a.strip())]
+                for a in args.split(","))
+    assert set(_build.SIGNATURES) == set(found)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert tuple(argtypes) == found[name], name
 
 
 def test_other_device_raises():

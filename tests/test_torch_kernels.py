@@ -39,7 +39,8 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
                                    (8, 64, 64, 64), (8, 128, 128, 32),
                                    (3, 7, 9, 48), (2, 4, 4, 512),
                                    (2, 5, 3, 16), (2, 9, 9, 1024),
-                                   (2, 4, 4, 2048), (1, 33, 17, 24)])
+                                   (2, 4, 4, 2048), (1, 33, 17, 24),
+                                   (2, 6, 5, 40), (1, 128, 128, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gn_mish_kernel_matches_plain(cuda, shape, dtype):
     r = np.random.default_rng(sum(shape))
@@ -59,6 +60,107 @@ def test_gn_mish_kernel_matches_plain(cuda, shape, dtype):
     else:  # 2 bf16 ulps of the plain value (+1e-6 for values near 0)
         assert (err <= 2 * _bf16_ulp(ref) + 1e-6).all()
     assert torch.equal(got, k1.gn_mish(x, w, b)), "runs must give the same bits"
+
+
+def _k1_inputs(cuda, shape, dtype, seed):
+    r = np.random.default_rng(seed)
+    c = shape[-1]
+    x = torch.from_numpy(
+        (0.5 + 2 * r.standard_normal(shape)).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((1 + 0.1 * r.standard_normal(c)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((0.1 * r.standard_normal(c)).astype(np.float32)).to(cuda)
+    return x, w, b
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+# (1, 128, 128, 256): B 1 with the most splits the fold stages (256).
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 16, 16, 256), (8, 64, 64, 64),
+                                   (8, 128, 128, 32), (3, 7, 9, 48),
+                                   (2, 4, 4, 2048), (1, 33, 17, 24),
+                                   (2, 6, 5, 40), (1, 128, 128, 256),
+                                   (128, 32, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_gn_mish_two_launches_match_earlier_form_bit_for_bit(
+        cuda, shape, dtype, misaligned):
+    """With the exact mish, pass 1 + the apply that folds gives the bits of
+    the earlier three launches (pass 1, the fold kernel, the grid-stride
+    apply): the fold is one device function and the apply rounds where the
+    earlier one did; in the vector and the scalar forms."""
+    x, w, b = _k1_inputs(cuda, shape, dtype, sum(shape) + 7)
+    if misaligned:
+        x = _misaligned(x)
+    splits = k1.stats_splits(shape[0], shape[1] * shape[2], shape[3], 8,
+                             torch.cuda.get_device_properties(
+                                 cuda).multi_processor_count)
+    if shape == (1, 128, 128, 256):
+        assert splits == k1.MAX_FOLD // 8
+    got = k1.gn_mish_kernel(x, w, b, mish="exact")
+    assert torch.equal(got, k1.gn_mish_kernel(x, w, b, earlier=True))
+    if k1.MISH == "exact":
+        assert torch.equal(got, k1.gn_mish(x, w, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 16, 16, 256), (8, 128, 128, 32),
+                                   (1, 33, 17, 24), (2, 6, 5, 40),
+                                   (1, 128, 128, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_gn_mish_apply_alone_matches_plain_apply(cuda, shape, dtype,
+                                                 misaligned):
+    """The apply-alone entry from pass 1's partials against the plain apply
+    of the same partials (the fold in the kernel's order), at K1's bars;
+    each of MISH_FORMS but the probe, and the probe against the plain
+    affine without mish."""
+    x, w, b = _k1_inputs(cuda, shape, dtype, sum(shape) + 11)
+    if misaligned:
+        x = _misaligned(x)
+    part = k1.group_partials(x)
+    ref = k1.gn_mish_apply_plain(x, part, w, b)
+    for mish in ("exact", "fast"):
+        before = k1.apply_launches
+        got = k1.gn_mish_apply(x, part, w, b, mish=mish)
+        torch.cuda.synchronize()
+        assert k1.apply_launches == before + 1
+        err = (got.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5, (mish, err.max().item())
+        else:
+            assert (err <= 2 * _bf16_ulp(ref) + 1e-6).all(), mish
+        assert torch.equal(got, k1.gn_mish_apply(x, part, w, b, mish=mish))
+    a, bp = k1.fold_partials_plain(part, w, b, n_set=shape[1] * shape[2]
+                                   * (shape[3] // 8))
+    affine = (x.float() * a[:, None, None, :] + bp[:, None, None, :]).to(dtype)
+    err = (k1.gn_mish_apply(x, part, w, b, mish="none").float()
+           - affine.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert (err <= 2 * _bf16_ulp(affine) + 1e-6).all()
+
+
+@pytest.mark.gpu
+def test_gn_mish_apply_rejects_bad_partials(cuda):
+    x = torch.zeros(2, 8, 8, 32, device=cuda)
+    w = torch.ones(32, device=cuda)
+    for part in (torch.zeros(2, 4, 3, 2, device=cuda),
+                 torch.zeros(2, 8, 3, 2, device=cuda, dtype=torch.float64),
+                 torch.zeros(2, 8, 257, 2, device=cuda)):
+        with pytest.raises(ValueError, match="partial must be"):
+            k1.gn_mish_apply(x, part, w, w)
+    with pytest.raises(ValueError, match="mish must be one of"):
+        k1.gn_mish_kernel(x, w, w, mish="tanh")
 
 
 @pytest.mark.gpu
@@ -487,24 +589,63 @@ def test_flash_attention_autograd_on_cuda(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,latent", [((16, 128, 128, 3), 256),
-                                          ((3, 7, 9, 3), 5)])
+                                          ((3, 7, 9, 3), 5),
+                                          ((128, 128, 128, 3), 256),
+                                          ((1, 5, 7, 3), 1),
+                                          ((2, 3, 3, 1), 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mse_kl_kernel_matches_plain(cuda, shape, latent, dtype):
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_mse_kl_kernel_matches_plain(cuda, shape, latent, dtype, misaligned):
+    """One launch that writes both losses, against the plain version (f32
+    sums in another order: rtol 1e-5) and against the plain version of its
+    own order of summation (rtol 1e-6: that order, but f32 adds where the
+    kernel may fuse a multiply into one); the same bits on two calls in a
+    row, which also shows that the last block reset its ticket counter;
+    the scalar form on a view that is not 16-byte aligned."""
     r = np.random.default_rng(latent)
     mk = lambda s, lo, hi: torch.from_numpy(
         r.uniform(lo, hi, s).astype(np.float32)).to(cuda, dtype)
     args = (mk(shape, -1, 1), mk(shape, -1, 1), mk((shape[0], latent), -2, 2),
             mk((shape[0], latent), -1, 1))
+    if misaligned:
+        args = (_misaligned(args[0]), *args[1:])
     before = k3.launches
     got = k3.mse_kl(*args)
     torch.cuda.synchronize()
     assert k3.launches == before + 1
+    assert all(t.dim() == 0 and t.dtype == torch.float32 for t in got)
     ref = k3.mse_kl_plain(*args)
-    for g, w in zip(got, ref):   # f32 sums in other orders: rtol 1e-5
+    for g, w in zip(got, ref):
         torch.testing.assert_close(g, w, atol=0, rtol=1e-5)
+    geo = k3.geometry(args[0].numel(), args[2].numel(),
+                      args[0].element_size(),
+                      torch.cuda.get_device_properties(cuda).multi_processor_count,
+                      not misaligned)
+    assert geo.vec == (1 if misaligned else 16 // args[0].element_size())
+    for g, w in zip(got, k3.mse_kl_blocked_plain(*args, geo)):
+        torch.testing.assert_close(g.cpu(), w, atol=0, rtol=1e-6)
     again = k3.mse_kl(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
         "runs must give the same bits"
+    earlier = k3.mse_kl_kernel(*args, earlier=True)
+    for g, w in zip(earlier, ref):
+        torch.testing.assert_close(g, w, atol=0, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mse_kl_counter_is_per_stream(cuda):
+    """A launch on a second stream takes a ticket counter of its own."""
+    args = [torch.rand(4, 8, 8, 3, device=cuda) for _ in range(2)] + [
+        torch.randn(4, 16, device=cuda) for _ in range(2)]
+    first = k3.mse_kl(*args)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        second = k3.mse_kl(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    keys = [k for k in k3._counters if k[0] == (cuda.index or 0)]
+    assert len(keys) >= 2
 
 
 # --- gradients through the kernels reach every parameter ----------------------
