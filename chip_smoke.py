@@ -16,7 +16,8 @@ Phases, each of which raises on failure (exit code 1):
               alone at [128,128,128,64] with the shipped mish, the exact
               chain and none (the probe), in turns; and on the inputs of
               the 16 sites of a batch-16 VAE training forward (the train
-              step's own), f32 and bf16;
+              step's own), f32 and bf16; torch.var_mean over the grouped
+              view at [128,128,128,64], pass 1's library call;
   4. K2       flash-attention forward kernels against the plain version at
               the teacher's shape (B 8 and the train step's B 16, H 8,
               N 16384, d 16) with dropout 0 and 0.1, f32 (CUDA cores) and
@@ -64,10 +65,12 @@ Phases, each of which raises on failure (exit code 1):
               256, feature 128, 8 heads, 4 experts x 3 blocks, batch 16,
               accumulation 2, remat), seeded random init: 1 bf16 step with
               the non-default K2 backward, then 1 f32 and 1 bf16 step with
-              the default and 1 bf16 step with the other variant; losses
-              finite, both models' parameters changed, every kernel of the
-              path launched; step time and sprites/s; the three warm steps
-              run under torch.profiler: device time by kernel, idle share,
+              the default, 1 bf16 step with the other variant, and 1 bf16
+              step with the default and remat off (the trainer's plan on
+              80 GB, phase 15's bare step); losses finite, both models'
+              parameters changed, every kernel of the path launched; step
+              time and sprites/s; the four warm steps run under
+              torch.profiler: device time by kernel, idle share,
               and K1 at two kernels a call (pass 1 and the apply with the
               fold; no fold kernel), as in phase 5's profiled calls;
  11. K5       the GN-apply+Mish+conv3x3 kernel against its plain version at
@@ -90,10 +93,26 @@ Phases, each of which raises on failure (exit code 1):
               their plain versions at [128,128,128,32], [128,128,128,64],
               [128,64,64,128], bf16 and f32, tiles of 512 and 2048 rows;
               pass 1's partials the same bits on two runs; times of both,
-              GB/s and share of bound;
+              GB/s and share of bound, beside torch.var_mean over the
+              grouped view (the library call of both);
  14. tools    `tools.attn_roofline`, `tools.gn_stats` and
               `tools.fusion_overlap` at their full default shapes; every
-              kernel they reach launched.
+              kernel they reach launched;
+ 15. trainer  (run right after phase 10) `lunaris_orion_tpu_torch.cli.train`
+              at the full default width, --mixed_precision, on an 80-sprite
+              procedural 128 px corpus (64 train, 16 val): the memory plan
+              picks remat and the batch, 2 epochs of 2 steps with per-step
+              logs, comparison and prior grids and saves; losses finite,
+              the files on disk, K1, the K2 forward, the fused K2 backward
+              and K3 launched; a resume from the checkpoint directory whose
+              restored state equals the saved file bit for bit (parameters,
+              BatchNorm buffers, AdamW moments and step, baseline,
+              generator) and that takes 2 more steps under torch.profiler
+              (the loop's idle share); `generate --best --bf16` from that
+              directory. One `[trainer]` line: the plan and its peak, the
+              epochs' sprites/s beside phase 10's bare bf16 step of the
+              same remat setting (the loop's cost),
+              validation, checkpoint copy and write, and resume load ms.
 
 Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
 the larger of its bytes (inputs read once, outputs written once) over
@@ -101,7 +120,8 @@ the larger of its bytes (inputs read once, outputs written once) over
 bf16, 67 TFLOP/s f32 outside the tensor cores), at the shape its `ms` was
 taken at; `library_ms` is one PyTorch call computing the same function
 (`F.scaled_dot_product_attention` for K2; for K5 K1 followed by F.conv2d
-and its bias, the fastest of three ways to add it), timed here and used nowhere in the port. The entries of the
+and its bias, the fastest of three ways to add it; for the lane sums
+torch.var_mean over the grouped view), timed here and used nowhere in the port. The entries of the
 K2 forward and of the three K2 backward kernels carry the f32 reading under the plain keys and the bf16 reading under
 `*_bf16` (`earlier_ms_bf16`: the CUDA-core bf16 kernel on the same
 inputs; `body`, `body_bf16`: the body the instance rule gives), and the
@@ -117,9 +137,11 @@ apply alone there in bf16 as `apply_ms`, `apply_gbps`, `apply_bound_ms`,
 `apply_share` (CUDA events around one call, so with the host's launch
 cost) and `apply_device_ms`, `apply_device_gbps` (the profiler), with the
 exact chain (`apply_exact_ms`) and no mish (`apply_identity_ms`); `mish`, the form it ships; its pass 1 alone at
-[128, 128, 128, 64] bf16 as `pass1_*`. K3's `earlier_ms` is its earlier
+[128, 128, 128, 64] bf16 as `pass1_*` (`pass1_library_ms`: torch.var_mean
+over the grouped view; `var_mean_ms_128x64_*` the same in phase 3). K3's `earlier_ms` is its earlier
 form (one block a sample, then torch sums); `device_ms` and
-`earlier_device_ms` their device time alone. The last lines are the card's
+`earlier_device_ms` their device time alone. `trainer_launches` (K1, the
+K2 forward, the fused K2 backward, K3) counts phase 15's first run. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -218,7 +240,7 @@ def device_share(torch, fn, tag: str, smi: str):
     """Run fn() once under torch.profiler and log its device time by kernel
     group, with the share of the host's time in which the device was idle,
     and K1's kernels by name. Returns (fn's result, the host's seconds,
-    {K1 kernel name: launches})."""
+    {K1 kernel name: launches}, the device's milliseconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -248,7 +270,7 @@ def device_share(torch, fn, tag: str, smi: str):
             f"{total:.1f} ms (idle {max(0.0, 1 - total / (host_s * 1e3)):.1%})"
             f": {parts} ms on {smi}")
         log(f"[profile] {tag}: K1 kernels {k1_kernels}")
-    return result, host_s, k1_kernels
+    return result, host_s, k1_kernels, total
 
 
 def probe(torch) -> str:
@@ -421,6 +443,12 @@ def check_k1(torch, dev, smi) -> dict:
         t_apply = {m: min(t for f, t in zip(forms, apply) if f == m)
                    for m in forms}
         d_apply = device_ms(torch, lambda: k1.gn_mish_apply(x, part, w, b), 10)
+        # The library call for pass 1: torch.var_mean over the grouped view
+        # (NHWC: [B, H*W, G, C/G], reduced over pixels and the group's
+        # channels), the per-group moments that pass 1's sums give.
+        grouped = x.view(shape[0], -1, 8, shape[3] // 8)
+        t_vm = time_ms(torch, lambda: torch.var_mean(grouped, dim=(1, 3)), 10)
+        out[f"var_mean_ms_128x64_{tag}"] = t_vm
         bd = bound(15 * x.numel(), 2 * nbytes(x), "f32")
         bd_apply = bound(12 * x.numel(), 2 * nbytes(x) + nbytes(part),
                          "f32")
@@ -436,7 +464,8 @@ def check_k1(torch, dev, smi) -> dict:
             f"ms: {gbps:.0f} GB/s, {bd_apply['bound_ms'] / t_apply[k1.MISH]:.1%}"
             f" of its bound {bd_apply['bound_ms']:.4f} ms; device time alone "
             f"(profiler) {d_apply:.4f} ms, {2 * nbytes(x) / d_apply / 1e6:.0f} "
-            f"GB/s on {smi}")
+            f"GB/s; torch.var_mean over the grouped view {t_vm:.4f} ms "
+            f"on {smi}")
         if dt == torch.bfloat16:
             out.update(apply_ms=t_apply[k1.MISH], apply_gbps=gbps,
                        apply_bound_ms=bd_apply["bound_ms"],
@@ -689,7 +718,7 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
             f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}; launches "
             f"a call: K1 {per_call[0]}, K2 fwd {per_call[1]}")
         tag = f"decode+score batch 8 {'bf16' if bf16 else 'f32'}"
-        _, _, k1_kernels = device_share(
+        _, _, k1_kernels, _ = device_share(
             torch, lambda: gen.decode_and_score(z), tag, smi)
         check_k1_kernels(k1_kernels, per_call[0], tag)
     return launches
@@ -1240,16 +1269,19 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
     # clock only), and again after the two default steps, in the same state.
     other = next(v for v in k2.BWD_VARIANTS
                  if v != k2.default_bwd(torch.bfloat16, d))
-    runs = [(True, other), (False, None), (True, None), (True, other)]
+    # (bf16, K2 backward, remat); the last is phase 15's bare step.
+    runs = [(True, other, True), (False, None, True), (True, None, True),
+            (True, other, True), (True, None, False)]
     counters = [(k1, "launches"), (k2, "launches"), (k2, "bwd_fused_launches"),
                 (k2, "bwd_dq_launches"), (k2, "bwd_dkv_launches"),
                 (k3, "launches")]
     for mod, name in counters:
         setattr(mod, name, 0)
-    for bf16, bwd in runs:
+    bare = {}                           # remat -> the default bf16 step
+    for bf16, bwd, remat in runs:
         seen = [getattr(mod, name) for mod, name in counters]
         step = make_train_step(cfg.replace(mixed_precision=bf16),
-                               attn_bwd=bwd)
+                               attn_bwd=bwd, remat=remat)
         images = torch.randint(0, 256, (cfg.gradient_accumulation_steps,
                                         cfg.batch_size, 128, 128, 3),
                                dtype=torch.uint8, device="cuda", generator=g)
@@ -1262,16 +1294,23 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             dt = time.perf_counter() - t0
         else:
             tag = (f"train step {'bf16' if bf16 else 'f32'} K2 bwd "
-                   f"{bwd or k2.default_bwd(dtype(bf16), d)}")
-            (state, m), dt, k1_kernels = device_share(
+                   f"{bwd or k2.default_bwd(dtype(bf16), d)} remat "
+                   f"{'on' if remat else 'off'}")
+            (state, m), dt, k1_kernels, dev_ms = device_share(
                 torch, lambda: step(state, images), tag, smi)
             check_k1_kernels(k1_kernels, k1.launches - seen[0], tag)
         losses = {k: float(v) for k, v in m.items()}
         if not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"train step: non-finite metrics {losses}")
         n = images.shape[0] * images.shape[1]
+        if bf16 and bwd is None:
+            bare[remat] = {"ms": dt * 1e3, "sprites_s": n / dt,
+                           "idle": max(0.0, 1 - dev_ms / (dt * 1e3)),
+                           "peak_gib": torch.cuda.max_memory_allocated()
+                           / 2**30}
         log(f"[train] step {state.step} {'bf16' if bf16 else 'f32'} K2 bwd "
-            f"{bwd or k2.default_bwd(dtype(bf16), d) + ' (default)'}: "
+            f"{bwd or k2.default_bwd(dtype(bf16), d) + ' (default)'}, remat "
+            f"{'on' if remat else 'off'}: "
             f"{dt * 1e3:.0f} ms = {n / dt:.2f} "
             f"sprites/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
             f"GiB, total_loss {losses['total_loss']:.5f} recon "
@@ -1292,6 +1331,152 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
         f"kernel launches in the train steps: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return launches, bare
+
+
+def state_equals_file(torch, state, path: Path) -> int:
+    """The trainer's state right after a restore against the file it came
+    from, bit for bit: both models' parameters and buffers (BatchNorm
+    statistics and counts), both AdamW states (moments and step), the step,
+    the baseline and the generator. Returns the tensors compared."""
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    n = 0
+    for name in ("vae", "teacher"):
+        live = getattr(state, name).state_dict()
+        saved = ck[f"{name}_state_dict"]
+        if list(live) != list(saved):
+            raise AssertionError(f"resume: {name} keys differ from {path}")
+        for k, v in live.items():
+            if not torch.equal(v.cpu(), saved[k]):
+                raise AssertionError(f"resume: {name}.{k} differs from {path}")
+        opt = getattr(state, f"{name}_opt")
+        saved_opt = ck[f"{name}_optimizer"]["state"]
+        for i, p in enumerate(opt.params):
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(opt.opt.state[p][k].cpu(), saved_opt[i][k]):
+                    raise AssertionError(f"resume: {name} AdamW {k} of "
+                                         f"parameter {i} differs from {path}")
+        n += len(live) + 3 * len(opt.params)
+    if (state.step != ck["global_step"]
+            or not torch.equal(state.baseline.cpu(), ck["baseline"])
+            or not torch.equal(state.baseline_initialized.cpu(),
+                               ck["baseline_initialized"])
+            or not torch.equal(state.generator.get_state(),
+                               ck["generator_state"])):
+        raise AssertionError(f"resume: step, baseline or generator differs "
+                             f"from {path}")
+    return n + 3
+
+
+def run_trainer(torch, tmp: Path, smi: str, bare: dict) -> dict:
+    """Phase 15: `lunaris-train` of the port at the full default width on
+    an 80-sprite procedural corpus (64 train, 16 val), bf16, the memory
+    plan choosing remat: two epochs of two steps with grids and saves, a
+    resume that must restore the saved state bit for bit and take two more
+    steps, and `generate` from the best checkpoint. Counts are set to 0
+    just before the first run and read just after it; returns them."""
+    from lunaris_orion_tpu_torch.cli import generate as gen_cli
+    from lunaris_orion_tpu_torch.cli import train as train_cli
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+
+    t_phase = time.perf_counter()
+    data = write_synthetic_dataset(tmp / "sprites", 80, image_size=128)
+    out, ck = tmp / "run", tmp / "run" / "checkpoints"
+    argv = ["--data_dir", str(data), "--mixed_precision", "--val_fraction",
+            "0.2", "--log_every", "1", "--save_every", "2",
+            "--eval_save_freq", "4", "--sample_every", "4"]
+    counters = {"gn_mish": (k1, "launches"),
+                "flash_attention_fwd": (k2, "launches"),
+                "flash_attention_bwd_fused": (k2, "bwd_fused_launches"),
+                "mse_kl": (k3, "launches")}
+    for mod, name in counters.values():
+        setattr(mod, name, 0)
+    t0 = time.perf_counter()
+    rc = train_cli.main(argv + ["--output_dir", str(out), "--num_epochs", "2"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {k: getattr(mod, name) for k, (mod, name) in counters.items()}
+    if rc != 0 or min(launches.values()) <= 0:
+        raise AssertionError(f"trainer: rc {rc}, launches {launches}")
+    text = (out / "training.log").read_text()
+    rows = [json.loads(line) for line in
+            (out / "tensorboard" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["total_loss"] for r in rows if "total_loss" in r]
+    if len(losses) != 4 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"trainer: step losses {losses}")
+    steps = sorted(int(p.stem) for p in (ck / "steps").glob("*.pt"))
+    grids = [len(list((out / "eval_samples").glob(g)))
+             for g in ("comparison_*.png", "samples_*.png")]
+    if (len(steps) < 2 or not (ck / "best.pt").is_file()
+            or not (ck / "config.json").is_file() or min(grids) < 1):
+        raise AssertionError(f"trainer: steps {steps}, best.pt "
+                             f"{(ck / 'best.pt').is_file()}, grids {grids}")
+    plan = re.search(r"Memory plan: batch (\d+), remat=(\w+), peak "
+                     r"([\d.]+) GiB of ([\d.]+) GiB", text)
+    if plan is None:
+        raise AssertionError("trainer: no memory plan in training.log")
+    floats = lambda pattern, t=text: [float(x) for x in re.findall(pattern, t)]
+    ips = floats(r"\| ([\d.]+) sprites/s \(")
+    val_ms = floats(r"validation: \d+ batches in ([\d.]+) ms")
+    copy_ms = floats(r"handed to the writer in ([\d.]+) ms")
+    write_ms = floats(r"Checkpoint step \d+ written in ([\d.]+) ms")
+    peak_run = torch.cuda.max_memory_allocated() / 2**30
+
+    # Resume from the directory: the restored state is the saved one.
+    trainer = train_cli.trainer_from_args(
+        argv + ["--output_dir", str(tmp / "resumed"), "--num_epochs", "1",
+                "--resume_from", str(ck)])
+    n_equal = state_equals_file(torch, trainer.state,
+                                ck / "steps" / f"{steps[-1]}.pt")
+    start = trainer.state.step
+    _, host_s, _, dev_ms = device_share(
+        torch, trainer.train, "trainer: resumed epoch (2 steps, validation, "
+        "saves)", smi)
+    if trainer.state.step != start + 2:
+        raise AssertionError(f"trainer: resumed at {start}, ended at "
+                             f"{trainer.state.step}")
+    ips_resumed = floats(r"\| ([\d.]+) sprites/s \(",
+                         (tmp / "resumed" / "training.log").read_text())
+
+    gen_out = tmp / "generated"
+    rc = gen_cli.main(["--checkpoint", str(ck), "--best", "--bf16",
+                       "--device", "cuda", "--num_samples", "4",
+                       "--max_attempts", "1", "--seed", "0",
+                       "--output_dir", str(gen_out)])
+    pngs = list(gen_out.glob("sample_*.png"))
+    if rc != 0 or len(pngs) != 4:
+        raise AssertionError(f"generate from {ck} best: rc {rc}, "
+                             f"{len(pngs)} PNGs")
+    log(f"[trainer] run 2 epochs x 2 steps in {t_run:.1f} s; launches "
+        f"{launches}; steps saved {steps}; grids {grids}; losses "
+        f"{[round(x, 5) for x in losses]}")
+    # The loop's cost: the epochs against phase 10's bare step of the same
+    # remat setting and batch.
+    remat = plan.group(2) == "True"
+    same = bare.get(remat) if int(plan.group(1)) == 16 else None
+    if same is None:
+        raise AssertionError(f"trainer: phase 10 timed no bare step at the "
+                             f"plan's batch {plan.group(1)}, remat {remat}")
+    cost = [1 - x / same["sprites_s"] for x in ips + ips_resumed]
+    log(f"[trainer] plan: batch {plan.group(1)}, remat={plan.group(2)}, "
+        f"peak {plan.group(3)} GiB of {plan.group(4)} GiB (probe), "
+        f"{peak_run:.1f} GiB allocated at most in the run; epoch sprites/s "
+        f"{ips} (resumed {ips_resumed}) against phase 10's bare bf16 step "
+        f"with remat {'on' if remat else 'off'}: {same['sprites_s']:.2f} "
+        f"sprites/s ({same['ms']:.0f} ms, idle {same['idle']:.1%}, peak "
+        f"{same['peak_gib']:.1f} GiB), so the loop costs "
+        f"{[f'{c:.1%}' for c in cost]} of the bare step's sprites/s "
+        f"(remat on: {bare[True]['sprites_s']:.2f} sprites/s, "
+        f"{bare[True]['ms']:.0f} ms); resumed epoch device {dev_ms:.0f} ms "
+        f"of {host_s * 1e3:.0f} ms host, idle "
+        f"{max(0.0, 1 - dev_ms / (host_s * 1e3)):.1%}; validation ms "
+        f"{val_ms}; checkpoint copy to host ms {copy_ms}, file write ms "
+        f"{write_ms}; resume load {trainer.resume_ms:.0f} ms, {n_equal} "
+        f"tensors bit-equal; generate --best --bf16 wrote {len(pngs)} "
+        f"sprites; phase {time.perf_counter() - t_phase:.0f} s on {smi}")
     return launches
 
 
@@ -1573,6 +1758,9 @@ def check_lane_sums(torch, dev, smi) -> dict:
             t_p = time_ms(torch, lambda: gn_stats.lane_sums_plain(x), 10)
             t_1 = time_ms(torch, lambda: k1.group_partials(x), 20)
             t_1p = time_ms(torch, lambda: k1.group_partials_plain(x), 10)
+            grouped = x.view(shape[0], -1, 8, shape[3] // 8)
+            t_vm = time_ms(torch, lambda: torch.var_mean(grouped, dim=(1, 3)),
+                           10)
             kind = "bf16" if dt == torch.bfloat16 else "f32"
             bd = bound(3 * x.numel(), nbytes(x) + 2 * 4 * shape[0] * max(
                 shape[3], 128), kind)
@@ -1583,12 +1771,14 @@ def check_lane_sums(torch, dev, smi) -> dict:
                 f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; K1 pass 1 "
                 f"{t_1:.4f} ms ({nbytes(x) / t_1 / 1e6:.0f} GB/s, "
                 f"{bd1['bound_ms'] / t_1:.1%} of its bound "
-                f"{bd1['bound_ms']:.4f} ms) plain {t_1p:.4f} ms on {smi}")
+                f"{bd1['bound_ms']:.4f} ms) plain {t_1p:.4f} ms; "
+                f"torch.var_mean over the grouped view {t_vm:.4f} ms on {smi}")
             if shape == (128, 128, 128, 64) and dt == torch.bfloat16:
                 out = {"max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-                       "library_ms": None, **bd}
+                       "library_ms": t_vm, **bd}
                 pass1 = {"pass1_ms": t_1, "pass1_plain_ms": t_1p,
-                         "pass1_bound_ms": bd1["bound_ms"]}
+                         "pass1_bound_ms": bd1["bound_ms"],
+                         "pass1_library_ms": t_vm}
     return out, pass1
 
 
@@ -1658,7 +1848,9 @@ def main() -> int:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
-    train = run_train(torch, smi, m1, m2, m3)
+    train, bare = run_train(torch, smi, m1, m2, m3)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = run_trainer(torch, Path(tmp), smi, bare)
     k5 = check_k5(torch, dev, smi)
     stages = check_stages(torch, dev, smi)
     lane, pass1 = check_lane_sums(torch, dev, smi)
@@ -1668,13 +1860,16 @@ def main() -> int:
     kernels = [
         dict(name="gn_mish", route="cuda", source=src + "gn_mish.cu",
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
-             launches=launches["gn_mish"], **k1, **pass1),
+             launches=launches["gn_mish"],
+             trainer_launches=trainer["gn_mish"], **k1, **pass1),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
-             launches=launches["flash_attention_fwd"], **k2),
+             launches=launches["flash_attention_fwd"],
+             trainer_launches=trainer["flash_attention_fwd"], **k2),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
+             trainer_launches=trainer["flash_attention_bwd_fused"],
              **bwd["flash_attention_bwd_fused"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
@@ -1686,7 +1881,8 @@ def main() -> int:
              **bwd["flash_attention_bwd_dkv"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
-             launches=train["mse_kl"], **k3),
+             launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
+             **k3),
         dict(name="gn_mish_conv3", route="cuda",
              source=src + "fused_stage_mma.cu",
              replaces="lunaris_orion_tpu/ops/pallas/fused_stage.py:56",

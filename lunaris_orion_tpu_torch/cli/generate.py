@@ -20,7 +20,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="Generate pixel art from a checkpoint (PyTorch port)")
     p.add_argument("--checkpoint", type=str, required=True,
                    help="reference-layout .pt checkpoint (the PyTorch "
-                        "reference's, or `lunaris-convert to-torch` output)")
+                        "reference's, `lunaris-convert to-torch` output, "
+                        "or the port trainer's), or the port trainer's "
+                        "checkpoint directory (its latest step)")
     p.add_argument("--prompt", type=str, default="",
                    help="recorded in metadata (unconditional decoder)")
     p.add_argument("--num_samples", type=int, default=4)
@@ -33,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default; fails without a card) or 'cpu'")
     p.add_argument("--no_metadata", action="store_true")
     p.add_argument("--best", action="store_true",
-                   help="load the best slot of an Orbax checkpoint directory "
-                        "(not readable here: convert it to a .pt first)")
+                   help="load the best slot (best.pt) of the checkpoint "
+                        "directory")
     p.add_argument("--bf16", action="store_true",
                    help="decode+score with bf16 activations (fast mode; "
                         "default full f32)")

@@ -30,6 +30,7 @@ from lunaris_orion_tpu_torch.utils.image import sample_grid, save_png, to_uint8
 from lunaris_orion_tpu_torch.device import resolve_device
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+from lunaris_orion_tpu_torch.train.checkpoint import checkpoint_file
 from lunaris_orion_tpu_torch.utils.convert import load_reference_checkpoint
 
 
@@ -52,23 +53,32 @@ class ImageGenerator:
     sprites on one device."""
 
     def __init__(self, checkpoint: str, *, config: Optional[TrainConfig] = None,
-                 bf16: bool = False, device: str = "cuda", best: bool = False):
+                 bf16: bool = False, device: str = "cuda", best: bool = False,
+                 step: Optional[int] = None):
         """checkpoint: a reference-layout .pt (train_hybrid.py:594-615), as
-        the PyTorch reference or `lunaris-convert to-torch` writes it. The
-        model config comes from its vars(args) snapshot unless `config` is
-        given. `best` selects a slot of an Orbax checkpoint directory, which
-        this package cannot read."""
-        if not str(checkpoint).endswith(".pt"):
-            raise ValueError(
-                f"{checkpoint}: the port reads reference-layout .pt "
-                "checkpoints only. Convert an Orbax checkpoint directory "
-                "with the JAX package first: lunaris-convert to-torch "
-                "--checkpoint <dir> --out latest.pt")
-        if best:
-            raise ValueError("best=True selects a slot in an Orbax checkpoint "
-                             "directory; point --checkpoint at best.pt instead")
+        the PyTorch reference, `lunaris-convert to-torch` or the port's
+        trainer writes it, or a checkpoint directory of the port's
+        `CheckpointService`: its latest step, `step`, or with `best` its
+        best slot. The model config comes from the checkpoint's vars(args)
+        snapshot unless `config` is given. An Orbax directory of the JAX
+        package cannot be read here: convert it to a .pt first."""
+        if str(checkpoint).endswith(".pt"):
+            if best or step is not None:
+                raise ValueError(
+                    "best= and step= select a checkpoint in a directory; "
+                    "a .pt file is a single checkpoint")
+            path = Path(checkpoint)
+        else:
+            path = checkpoint_file(str(checkpoint), best=best, step=step)
+            if path is None:
+                raise ValueError(
+                    f"{checkpoint}: no {'best.pt' if best else 'steps/*.pt'}"
+                    " of the port's trainer here. Convert an Orbax "
+                    "checkpoint directory with the JAX package first: "
+                    "lunaris-convert to-torch --checkpoint <dir> --out "
+                    "latest.pt")
         self.device = resolve_device(device)
-        self.cfg, ckpt = load_reference_checkpoint(str(checkpoint), config)
+        self.cfg, ckpt = load_reference_checkpoint(str(path), config)
         self.vcfg = self.cfg.vae_config()
         self.tcfg = self.cfg.teacher_config()
         self.step = int(ckpt.get("global_step", 0))

@@ -162,7 +162,8 @@ class ExpertBlock(nn.Module):
                          if cin != cout else None)
 
     def _path(self, x: torch.Tensor, train: bool,
-              seeds: Optional[Tuple[int, ...]], bwd: Optional[str]):
+              seeds: Optional[Tuple[int, ...]], bwd: Optional[str],
+              impl: str = "auto"):
         """The main path; returns (out, *new running stats of conv1's and
         conv2's BatchNorm in train mode). seeds: (Dropout2d after conv1,
         Dropout2d after conv2, attention, projection), or None: no
@@ -172,7 +173,8 @@ class ExpertBlock(nn.Module):
                         if seeds else (None, None))
         out = layers.dropout2d(self.conv1(x, stats), self.dropout_rate,
                                generator=drop1)
-        out = self.attention(out.permute(0, 2, 3, 1), window=self.attn_window,
+        out = self.attention(out.permute(0, 2, 3, 1), impl=impl,
+                             window=self.attn_window,
                              dropout_rate=self.dropout_rate,
                              seeds=seeds[2:] if seeds else None,
                              bwd=bwd).permute(0, 3, 1, 2)
@@ -180,8 +182,8 @@ class ExpertBlock(nn.Module):
                                generator=drop2)
         return (out * self.layer_scale.to(out.dtype), *(stats or ()))
 
-    def forward(self, x: torch.Tensor, train: Optional[_Train] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None,
+                attn_impl: str = "auto") -> torch.Tensor:
         stats = None if train is None else []
         if self.shortcut is None:
             identity = x
@@ -195,10 +197,11 @@ class ExpertBlock(nn.Module):
         if train is not None and train.remat and torch.is_grad_enabled():
             # The masks come from `seeds`, not the global RNG state.
             out, *path_stats = checkpoint(self._path, x, True, seeds, bwd,
-                                          use_reentrant=False,
+                                          attn_impl, use_reentrant=False,
                                           preserve_rng_state=False)
         else:
-            out, *path_stats = self._path(x, train is not None, seeds, bwd)
+            out, *path_stats = self._path(x, train is not None, seeds, bwd,
+                                          attn_impl)
         if train is not None:
             bns = [self.shortcut[1]] if self.shortcut is not None else []
             _record(train, bns + [self.conv1[2], self.conv2[2]],
@@ -275,11 +278,14 @@ class LunarMoETeacher(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 prompt_embedding: Optional[torch.Tensor] = None, *,
-                train: Optional[_Train] = None) -> Dict[str, torch.Tensor]:
+                train: Optional[_Train] = None,
+                attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
         """x [B, H, W, 3] -> the output dict of the JAX package's
         `teacher.apply`: quality_scores [B, 4] (sigmoid), expert_weights
         [B, E], style_embedding / prompt_embedding [B, emb], semantic_score
-        [B, 1]. Eval mode unless `train` is given (see `apply`)."""
+        [B, 1]. Eval mode unless `train` is given (see `apply`). `attn_impl`
+        is the attention's impl in both modes ('auto', 'full' or 'flash',
+        `SpatialAttention.forward`)."""
         rate = self.cfg.dropout_rate
         gen = None if train is None else train.device_gen
         feats = self.feature_extractor(x.permute(0, 3, 1, 2), train)
@@ -290,7 +296,7 @@ class LunarMoETeacher(nn.Module):
         for expert in self.experts:
             h = feats
             for block in expert:
-                h = block(h, train)
+                h = block(h, train, attn_impl)
             pooled_ex.append(layers.global_avg_pool(h))
         pooled = torch.stack(pooled_ex)                           # [E, B, C]
 
@@ -320,21 +326,22 @@ class LunarMoETeacher(nn.Module):
 def apply(model: LunarMoETeacher, x: torch.Tensor, *,
           prompt_embedding: Optional[torch.Tensor] = None,
           train: bool = False, generator: Optional[torch.Generator] = None,
-          remat: bool = True, bwd: Optional[str] = None
-          ) -> Dict[str, torch.Tensor]:
+          remat: bool = True, bwd: Optional[str] = None,
+          attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
     """The JAX package's `teacher.apply`. train=False: the eval forward.
     train=True: BatchNorm on batch statistics, the running statistics
     advanced once (in place: the port's BatchNorm buffers are the JAX
     package's returned stats); with `generator` (a CPU torch.Generator, the
     source of every seed) dropout is on. `remat` checkpoints each expert
     block's main path when gradients are recorded. `bwd` picks K2's
-    backward kernels on CUDA. Attention follows the `auto` rule."""
+    backward kernels on CUDA. `attn_impl` is the attention's impl
+    ('auto': the `auto` rule, 'full' or 'flash')."""
     if not train:
-        return model(x, prompt_embedding)
+        return model(x, prompt_embedding, attn_impl=attn_impl)
     t = _Train(host=generator, remat=remat, bwd=bwd,
                device_gen=None if generator is None else device_generator(
                    new_seed(generator), x.device))
-    out = model(x, prompt_embedding, train=t)
+    out = model(x, prompt_embedding, train=t, attn_impl=attn_impl)
     with torch.no_grad():
         for bn, mean, var in t.updates:
             bn.running_mean.copy_(mean)

@@ -8,7 +8,7 @@ reference steps it (train_hybrid.py:516-527, 924-926).
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Dict
 
 
 def cosine_warm_restarts(base_lr: float, t0: int, eta_min: float = 0.0,
@@ -29,3 +29,25 @@ def cosine_warm_restarts(base_lr: float, t0: int, eta_min: float = 0.0,
         return eta_min + (base_lr - eta_min) * cos
 
     return schedule
+
+
+def torch_scheduler_state(base_lr: float, t0: int, eta_min: float,
+                          count: int, *, t_mult: int = 2) -> Dict:
+    """The state_dict of torch's CosineAnnealingWarmRestarts at optimizer
+    step `count`, as the reference checkpoints it (train_hybrid.py:594-615;
+    the port's own copy of lunaris_orion_tpu/utils/torch_compat.py
+    `scheduler_to_torch_sd`). The port needs no scheduler object: the
+    schedule is a closed form of the count."""
+    if count <= 0:
+        t_i, t_cur = t0, 0
+    elif t_mult == 1:
+        t_i, t_cur = t0, count % t0
+    else:
+        n = int(math.floor(math.log2(count / t0 + 1.0)))
+        t_i = t0 * (t_mult ** n)
+        t_cur = count - t0 * (t_mult ** n - 1)
+    lr = eta_min + (base_lr - eta_min) * 0.5 * (
+        1.0 + math.cos(math.pi * t_cur / t_i))
+    return {"T_0": t0, "T_i": t_i, "T_mult": t_mult, "eta_min": eta_min,
+            "base_lrs": [base_lr], "last_epoch": count, "T_cur": t_cur,
+            "_step_count": count + 1, "_last_lr": [lr]}

@@ -62,8 +62,49 @@ def _not_ported(cfg: TrainConfig, cp_mesh, cp_axis, cp_batch_axis) -> None:
             raise NotImplementedError(f"{name} is not ported yet")
 
 
+def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
+                    attn_bwd: str | None = None, attn_impl: str = "auto"
+                    ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor,
+                                             Metrics]]:
+    """Returns micro_step(state, batch [mb, H, W, 3], baseline,
+    baseline_initialized) -> (baseline, baseline_initialized, metrics):
+    one micro-batch's forwards and backward (steps 1-6 of the module
+    docstring), which adds its gradients to the models' .grad."""
+    w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,
+                    cfg.reward_scale, cfg.semantic_weight,
+                    cfg.baseline_momentum)
+    dtype = _compute_dtype(cfg)
+    teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd,
+                      attn_impl=attn_impl)
+
+    def micro_step(state: TrainState, batch: torch.Tensor,
+                   baseline: torch.Tensor, binit: torch.Tensor):
+        teacher = state.teacher
+        x = normalize_images(batch, dtype)
+        with torch.no_grad():
+            t1 = teacher_mod.apply(teacher, x, generator=state.generator,
+                                   **teacher_kw)
+        recon, mu, logvar = state.vae(
+            x, device_generator(new_seed(state.generator), x.device))
+        recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
+        t2 = teacher_mod.apply(
+            teacher, recon.detach(),
+            prompt_embedding=t1["prompt_embedding"].detach(),
+            generator=state.generator, **teacher_kw)
+        vae_loss, teacher_loss, baseline, binit, metrics = (
+            losses.hybrid_losses(
+                recon_loss=recon_loss, kl_loss=kl_loss,
+                quality_scores=t2["quality_scores"],
+                semantic_score=t2["semantic_score"], baseline=baseline,
+                baseline_initialized=binit, w=w))
+        (vae_loss + teacher_loss).backward()
+        return baseline, binit, metrics
+
+    return micro_step
+
+
 def make_train_step(cfg: TrainConfig, *, remat: bool = True,
-                    attn_bwd: str | None = None,
+                    attn_bwd: str | None = None, attn_impl: str = "auto",
                     cp_mesh=None, cp_axis=None, cp_batch_axis=None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Metrics]]:
@@ -71,41 +112,22 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
     device) -> (state, metrics). The state is updated in place and
     returned. `attn_bwd` picks K2's backward kernels on CUDA ("fused" or
     "split"; None: `flash_attention.default_bwd`, by type and head size).
-    The models' configs come with the state;
-    the teacher's attention follows the `auto` rule."""
+    `attn_impl` is the teacher attention's impl: 'auto' (the JAX package's
+    rule), 'full' or 'flash' (K2). The models' configs come with the
+    state."""
     _not_ported(cfg, cp_mesh, cp_axis, cp_batch_axis)
-    w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,
-                    cfg.reward_scale, cfg.semantic_weight,
-                    cfg.baseline_momentum)
-    dtype = _compute_dtype(cfg)
-    teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd)
+    micro_step = make_micro_step(cfg, remat=remat, attn_bwd=attn_bwd,
+                                 attn_impl=attn_impl)
 
     def train_step(state: TrainState, images: torch.Tensor
                    ) -> Tuple[TrainState, Metrics]:
-        vae, teacher = state.vae, state.teacher
         state.vae_opt.zero_grad()
         state.teacher_opt.zero_grad()
         baseline, binit = state.baseline, state.baseline_initialized
         stacked = []
         for batch in images:
-            x = normalize_images(batch, dtype)
-            with torch.no_grad():
-                t1 = teacher_mod.apply(teacher, x, generator=state.generator,
-                                       **teacher_kw)
-            recon, mu, logvar = vae(
-                x, device_generator(new_seed(state.generator), x.device))
-            recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
-            t2 = teacher_mod.apply(
-                teacher, recon.detach(),
-                prompt_embedding=t1["prompt_embedding"].detach(),
-                generator=state.generator, **teacher_kw)
-            vae_loss, teacher_loss, baseline, binit, metrics = (
-                losses.hybrid_losses(
-                    recon_loss=recon_loss, kl_loss=kl_loss,
-                    quality_scores=t2["quality_scores"],
-                    semantic_score=t2["semantic_score"], baseline=baseline,
-                    baseline_initialized=binit, w=w))
-            (vae_loss + teacher_loss).backward()
+            baseline, binit, metrics = micro_step(state, batch, baseline,
+                                                  binit)
             stacked.append(metrics)
 
         inv = 1.0 / len(stacked)
@@ -124,11 +146,12 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
     return train_step
 
 
-def make_eval_step(cfg: TrainConfig, *, cp_mesh=None, cp_axis=None,
-                   cp_batch_axis=None
+def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
+                   cp_mesh=None, cp_axis=None, cp_batch_axis=None
                    ) -> Callable[[TrainState, torch.Tensor], Metrics]:
     """Deterministic validation: the reconstruction from the mean latent,
-    MSE + KL, and the teacher's quality in eval mode. images [B, H, W, 3]."""
+    MSE + KL, and the teacher's quality in eval mode. images [B, H, W, 3].
+    `attn_impl` as in `make_train_step`."""
     _not_ported(cfg, cp_mesh, cp_axis, cp_batch_axis)
     dtype = _compute_dtype(cfg)
 
@@ -137,7 +160,7 @@ def make_eval_step(cfg: TrainConfig, *, cp_mesh=None, cp_axis=None,
         x = normalize_images(images, dtype)
         recon, mu, logvar = state.vae(x, sample_posterior=False)
         recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
-        t_out = teacher_mod.apply(state.teacher, recon)
+        t_out = teacher_mod.apply(state.teacher, recon, attn_impl=attn_impl)
         return {
             "val_recon_loss": recon_loss,
             "val_kl_loss": kl_loss,

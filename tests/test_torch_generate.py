@@ -135,11 +135,40 @@ def test_orbax_directory_points_to_the_converter(tmp_path):
         ImageGenerator(str(tmp_path), device="cpu")
 
 
+def test_generator_reads_a_checkpoint_directory(tmp_path):
+    """A directory the port's CheckpointService wrote: the latest step by
+    default, best.pt with best=True; each the state saved there."""
+    from lunaris_orion_tpu_torch import TrainConfig as PortConfig
+    from lunaris_orion_tpu_torch.train.checkpoint import CheckpointService
+    from lunaris_orion_tpu_torch.train.state import create_state
+    cfg = PortConfig.from_dict(TINY.to_dict())
+    state = create_state(cfg, "cpu", 0)
+    svc = CheckpointService(str(tmp_path / "ckpt"), keep_n=2)
+    saved = {}
+    for step, best in ((3, True), (5, False)):
+        state.step = step
+        with torch.no_grad():
+            state.vae.decoder.final_conv.bias.fill_(0.01 * step)
+        svc.save(step, state, config=cfg, best=best)
+        saved[step] = state.vae.decoder.final_conv.bias.clone()
+    svc.close()
+    for kw, step in ((dict(), 5), (dict(best=True), 3), (dict(step=3), 3)):
+        gen = ImageGenerator(str(tmp_path / "ckpt"), device="cpu", **kw)
+        assert gen.step == step and gen.cfg.latent_dim == TINY.latent_dim
+        assert torch.equal(gen.vae.decoder.final_conv.bias, saved[step])
+    imgs, _ = gen.generate(1, max_attempts=1, seed=0)
+    assert imgs.shape == (1, 32, 32, 3)
+    with pytest.raises(ValueError, match="single checkpoint"):
+        ImageGenerator(str(tmp_path / "ckpt" / "best.pt"), device="cpu",
+                       best=True)
+
+
 def test_port_never_imports_jax():
     """In a fresh interpreter, importing every module of the port, the
-    training slice and the tools included, leaves jax, optax and flax
-    unloaded, and every module of the JAX package too: the port keeps its
-    own copies of what it needs from there."""
+    training slice, its loop and the tools included, leaves jax, optax and
+    flax unloaded, and every module of the JAX package too: the port keeps
+    its own copies of what it needs from there. pandas and orbax stay
+    unloaded too (the card machine has neither)."""
     code = (
         "import sys, pkgutil, importlib, lunaris_orion_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
@@ -148,11 +177,15 @@ def test_port_never_imports_jax():
         "        'train.schedule', 'ops.cuda.loss_epilogue', 'utils.convert',\n"
         "        'config', 'utils.image', 'ops.cuda.fused_stage',\n"
         "        'ops.cuda.flash_attention_stages', 'ops.cuda.gn_stats',\n"
-        "        'tools.attn_roofline', 'tools.gn_stats', 'tools.fusion_overlap']\n"
+        "        'tools.attn_roofline', 'tools.gn_stats', 'tools.fusion_overlap',\n"
+        "        'utils.logging', 'utils.metrics', 'utils.hbm', 'data',\n"
+        "        'data.synthetic', 'data.dataset', 'train.checkpoint',\n"
+        "        'train.loop', 'cli.train']\n"
         "missing = [n for n in need if 'lunaris_orion_tpu_torch.' + n not in mods]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'optax', 'flax', 'lunaris_orion_tpu')]\n"
+        "       ('jax', 'jaxlib', 'optax', 'flax', 'lunaris_orion_tpu',\n"
+        "                            'pandas', 'orbax')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),

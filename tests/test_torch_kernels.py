@@ -970,3 +970,37 @@ def test_group_affine_kernel_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
     again = k1.group_affine_kernel(x, w, b)
     assert torch.equal(alpha, again[0]) and torch.equal(beta, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=4, accum_steps=2, with_indices=True),
+    dict(batch_size=4, accum_steps=1, squeeze_accum=True, shuffle=False)])
+def test_batch_loader_on_the_card_yields_the_host_bytes(cuda, tmp_path, kw):
+    """The training loader on a CUDA device, staged (pinned memory, a side
+    stream) and with the corpus resident (`device_data`): the same batches,
+    byte for byte and in the same order, as on the CPU, two epochs."""
+    from lunaris_orion_tpu_torch.data.dataset import (BatchLoader,
+                                                      SpriteDataset,
+                                                      train_val_split)
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    write_synthetic_dataset(tmp_path, 40, image_size=32, shards=2)
+    ds = SpriteDataset(str(tmp_path), image_size=32)
+    tr, _ = train_val_split(len(ds), 0.2, 3)
+    host = BatchLoader(ds, tr, seed=5, device="cpu", **kw)
+    for device_data in (False, True):
+        card = BatchLoader(ds, tr, seed=5, device=cuda, prefetch=2,
+                           device_data=device_data, **kw)
+        for epoch in (0, 1):
+            host.set_epoch(epoch)
+            card.set_epoch(epoch)
+            pairs = list(zip(card, host, strict=True))
+            assert len(pairs) == len(host) > 0
+            for got, want in pairs:
+                got, want = ((got, want) if isinstance(want, tuple)
+                             else ((got,), (want,)))
+                assert got[0].device.type == "cuda"
+                assert got[0].dtype == torch.uint8
+                assert torch.equal(got[0].cpu(), want[0])
+                for g, w in zip(got[1:], want[1:], strict=True):
+                    np.testing.assert_array_equal(g, w)
