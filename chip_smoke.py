@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the root of the repository
     python3 chip_smoke.py --grads N  # phase 9 alone, its spread (below)
     python3 chip_smoke.py --k5-f32 N # K5's f32 time alone, N times
+    python3 chip_smoke.py --profiler-loss N  # torch.profiler's lost records
 
 Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
@@ -112,7 +113,30 @@ Phases, each of which raises on failure (exit code 1):
               directory. One `[trainer]` line: the plan and its peak, the
               epochs' sprites/s beside phase 10's bare bf16 step of the
               same remat setting (the loop's cost),
-              validation, checkpoint copy and write, and resume load ms.
+              validation, checkpoint copy and write, and resume load ms;
+ 16. window   (run last) windowed attention, the evaluator and the training
+              options at window 256: (a) `local_window_attention` (K2 over
+              the windows folded into the heads) at B16 H8 N16384 d16, f32
+              and bf16, forward at dropout 0 and 0.1 and the default
+              backward at 0.1 against the plain versions on the folded
+              shape (phase 4's and 7's bars), a call in 4 batch chunks
+              bit-equal to one call, times beside the global K2 at B16, the
+              plain version, F.scaled_dot_product_attention on the folded
+              shape and the bound; (b) `lunaris_orion_tpu_torch.cli.evaluate`
+              at the full default width on 16 PNGs at 128 px, an 8-sprite
+              shard and 2 PNGs at 120 px (the global fallback), global and
+              --attn_window 256, f32 and --bf16: 26 scores, the fallback
+              marked, K2 launched; one batch of 16 timed in each mode; at
+              64 px the card's windowed scores against the CPU's (1e-3);
+              (c) the bf16 train step at 16 x 2, remat, window 256: a cold
+              step, one under torch.profiler (its launches: every kernel of
+              the path), fuse_teacher against the unfused step in turns,
+              one step with cached prompt embeddings and one with
+              bf16_momentum; (d) `lunaris-train` with --attn_window 256
+              --cached_prompt_embeddings --bf16_momentum on a 40-sprite
+              corpus: one epoch, a resume whose restored state equals the
+              saved file bit for bit, one more epoch; the table's refresh
+              ms.
 
 Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
 the larger of its bytes (inputs read once, outputs written once) over
@@ -141,7 +165,17 @@ exact chain (`apply_exact_ms`) and no mish (`apply_identity_ms`); `mish`, the fo
 over the grouped view; `var_mean_ms_128x64_*` the same in phase 3). K3's `earlier_ms` is its earlier
 form (one block a sample, then torch sums); `device_ms` and
 `earlier_device_ms` their device time alone. `trainer_launches` (K1, the
-K2 forward, the fused K2 backward, K3) counts phase 15's first run. The last lines are the card's
+K2 forward, the fused K2 backward, K3) counts phase 15's first run. Phase 16
+adds `launches_window_step` (one windowed bf16 train step, every kernel of
+the path) and `trainer_launches_window` (its trainer run) to the entries
+of K1, the K2 forward and backwards and K3; `launches_evaluate` (one
+windowed bf16 evaluate batch of 16) and the windowed forward's readings
+`window_ms*`, `window_global_ms*` (the global kernel at B16 beside it),
+`window_plain_ms*`, `window_library_ms*`, `window_bound_ms*`,
+`window_bound_by*` and `window_max_abs_err*` to the K2 forward's; the
+windowed default backward's (`window_variant`, `window_ms`, ...) to the
+fused backward's under `*_bf16` and, for f32 (split), to dq's and dk/dv's
+under `split_*`. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -150,10 +184,16 @@ Without a CUDA card it exits with code 2 and prints no result.
 `--grads N` runs phase 9's comparison alone, N times with the kernels and N
 times with K1, K2 and K3's plain versions on the card, against one CPU
 step, and prints each reading (`spread_grads`).
+
+`--profiler-loss N` profiles phase 5's decode+score N times in f32 and N in
+bf16, with no quiet margin and with `PROFILE_MARGIN_S`, and counts the
+sessions whose record of K1's launches falls short of the wrapper's count
+(`profiler_loss`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -174,18 +214,36 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return timer(fn, "cuda", reps, warmup)
 
 
+# torch.profiler on the H100 (torch 2.11, CUDA 12.8) now and then drops the
+# kernels that run in the first milliseconds of a session, K1's launches at
+# the head of a decode among them (`--profiler-loss`). A quiet margin after
+# the session starts, and another before it stops, keeps every record.
+PROFILE_MARGIN_S = 0.1
+
+
+@contextlib.contextmanager
+def profiled(torch, margin: float = PROFILE_MARGIN_S):
+    """A torch.profiler session of the card's kernels, with `margin`
+    seconds of quiet after it starts and before it stops. The body's
+    kernels have ended when the block exits."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        time.sleep(margin)
+        yield p
+        torch.cuda.synchronize()
+        time.sleep(margin)
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Milliseconds of device time a call of fn() takes: every CUDA kernel
     it launches, by torch.profiler over `reps` calls. Unlike CUDA events
     around one call, this leaves out the host's time to launch them."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
+    with profiled(torch) as p:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in p.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
@@ -242,9 +300,7 @@ def device_share(torch, fn, tag: str, smi: str):
     and K1's kernels by name. Returns (fn's result, the host's seconds,
     {K1 kernel name: launches}, the device's milliseconds)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
+    with profiled(torch) as p:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -722,6 +778,41 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
             torch, lambda: gen.decode_and_score(z), tag, smi)
         check_k1_kernels(k1_kernels, per_call[0], tag)
     return launches
+
+
+def profiler_loss(torch, rounds: int, smi: str) -> int:
+    """Profile phase 5's decode+score `rounds` times in f32 and in bf16, in
+    turns with no margin and with PROFILE_MARGIN_S, and log how many
+    sessions recorded fewer of K1's kernels than its wrapper launched."""
+    from torch.autograd import DeviceType
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+
+    build()
+    cfg = TrainConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "full.pt"
+        save_checkpoint(torch, cfg, ckpt, seed=0)
+        gens = [ImageGenerator(str(ckpt), device="cuda", bf16=b)
+                for b in (False, True)]
+    z = torch.randn(8, cfg.latent_dim, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    lost = {0.0: 0, PROFILE_MARGIN_S: 0}
+    for _ in range(rounds):
+        for gen in gens:
+            for margin in lost:
+                seen = k1.launches
+                with profiled(torch, margin) as p:
+                    gen.decode_and_score(z)
+                recorded = sum(e.count for e in p.key_averages()
+                               if e.device_type == DeviceType.CUDA
+                               and any(n in e.key for n in K1_KERNELS))
+                lost[margin] += recorded < 2 * (k1.launches - seen)
+    for margin, n in lost.items():
+        log(f"[profiler] margin {margin} s: {n} of {2 * rounds} decode+score "
+            f"sessions lost K1 records, on {smi}")
+    return 0
 
 
 def run_context(torch, tmp: Path, feature_dim: int) -> None:
@@ -1818,6 +1909,434 @@ def run_tools(torch) -> dict:
     return launches
 
 
+# --- phase 16: windowed attention, the evaluator, the training options -------
+
+WINDOW = 256                    # the recommended recipe's (BASELINE.md r5)
+
+
+def check_window(torch, dev, smi) -> dict:
+    """Phase 16 (a): K2 over the windows folded into the head axis
+    (`local_window_attention`) at B16 H8 N16384 W256 d16, f32 and bf16:
+    forward at dropout 0 and 0.1 and the default backward at 0.1 against
+    the plain versions on the folded shape, at phase 4's and phase 7's
+    bars; a call in batch chunks bit-equal to one call; times beside the
+    global K2 at B16, the plain version, the library call on the folded
+    shape and the bound."""
+    from lunaris_orion_tpu_torch.ops.attention import local_window_attention
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    b, h, n, w, d = 16, 8, 16384, WINDOW, 16
+    rows = h * n // w
+    fold = lambda t: t.reshape(b, rows, w, d)
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = {"fwd": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        sfx = "" if dt == torch.float32 else "_bf16"
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        bias = 0.5 * torch.randn(h, n, generator=g, device=dev)
+        bias_w = bias.reshape(rows, w)
+        inst = k2.forward_instance(dt, d, w, w, 0.1)
+        errs = []
+        for rate in (0.0, 0.1):
+            kw = dict(dropout_rate=rate, seed=-1234567)
+            tag = f"window {w} B{b} H{h} N{n} d{d} {name} dropout {rate}"
+            o = local_window_attention(q, k, v, bias, window=w, **kw)
+            ro, rlse = k2.attention_plain(fold(q), fold(k), fold(v), bias_w,
+                                          **kw)
+            torch.cuda.synchronize()
+            err = (o.float() - ro.float().reshape(o.shape)).abs().max().item()
+            if dt == torch.float32:
+                ok, note = err <= 1e-5, "tol 1e-5"
+            else:
+                oo, _ = k2.attention_plain(fold(q), fold(k), fold(v), bias_w,
+                                           block_k=inst.block_k, **kw)
+                ok, excess, differ = k2_bf16_agree(
+                    torch, fold(o), oo, inst.body)
+                note = (f"online form: over 2 ulps by {max(excess, 0):.1e} of "
+                        f"the largest, {differ:.1e} differ ({inst.body})")
+                del oo
+            log(f"[window] {tag}: max_abs_err {err:.3e} ({note})")
+            if not ok:
+                raise AssertionError(f"windowed K2 disagrees with its plain "
+                                     f"version at {tag}")
+            errs.append(err)
+        # The default backward at dropout 0.1 through autograd.
+        variant = k2.default_bwd(dt, d)
+        body = (k2.fused_instance(dt, d, w, w, 0.1) if variant == "fused"
+                else k2.backward_instance(dt, d, w, w, 0.1)).body
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        do = torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
+        local_window_attention(*leaves, window=w, **kw).backward(do)
+        # The plain backward from the kernel's own o and lse, which the
+        # autograd backward takes (a bf16 o that differs from the plain
+        # forward's in its last bit moves delta, so a whole row's ds).
+        ko, klse = k2.flash_attention(fold(q), fold(k), fold(v), bias_w, **kw)
+        ref = k2.attention_bwd_plain(fold(q), fold(k), fold(v), bias_w, ko,
+                                     klse, fold(do), **kw)
+        torch.cuda.synchronize()
+        line = []
+        for gname, leaf, r in zip(BWD_ERR, leaves, ref):
+            got = leaf.grad.reshape(r.shape)
+            ok, gerr, text = bwd_agree(torch, got, r, dt, gname, body)
+            line.append(f"{gname} {text}")
+            if not ok:
+                raise AssertionError(f"windowed K2 backward ({variant}, {body})"
+                                     f" {gname} disagrees at {name}: {text}")
+            errs.append(gerr)
+        log(f"[window] backward {variant} ({body}) {name} dropout 0.1: "
+            + ", ".join(line))
+        del leaves, ref, ro, rlse, ko, klse
+        # Batch chunks: K2's row cap lowered to 4 images' folded rows.
+        cap, k2.MAX_ROWS = k2.MAX_ROWS, 4 * rows
+        try:
+            chunked = local_window_attention(q, k, v, bias, window=w, **kw)
+        finally:
+            k2.MAX_ROWS = cap
+        if not torch.equal(chunked, o):
+            raise AssertionError(f"windowed K2 in 4 batch chunks differs from "
+                                 f"one call ({name})")
+        log(f"[window] {name}: 4 batch chunks (row_offset) bit-equal to one "
+            f"call, dropout 0.1")
+        del chunked
+        # Times: the windowed forward and default backward beside the
+        # global K2 forward at B16, the plain version and the library call
+        # on the folded shape.
+        kw = dict(dropout_rate=0.0, seed=0)
+        t_w = time_ms(torch, lambda: local_window_attention(
+            q, k, v, bias, window=w, **kw), 10)
+        t_g = time_ms(torch, lambda: k2.flash_attention(q, k, v, bias, **kw),
+                      3)
+        t_p = time_ms(torch, lambda: k2.attention_plain(
+            fold(q), fold(k), fold(v), bias_w, **kw), 3)
+        lib, lib_note = sdpa_ms(fold(q), fold(k), fold(v), bias_w, reps=5)
+        o, lse = k2.flash_attention(fold(q), fold(k), fold(v), bias_w, **kw)
+        do = torch.randn_like(o)
+        t_b = time_ms(torch, lambda: k2.flash_attention_bwd(
+            fold(q), fold(k), fold(v), bias_w, o, lse, do, dropout_rate=0.1,
+            seed=5), 5)
+        t_pb = time_ms(torch, lambda: k2.attention_bwd_plain(
+            fold(q), fold(k), fold(v), bias_w, o, lse, do, dropout_rate=0.1,
+            seed=5), 2)
+        lib_b, _ = sdpa_ms(fold(q), fold(k), fold(v), bias_w, backward=True,
+                           dropout_p=0.1, reps=3)
+        kind = "f32" if dt == torch.float32 else "bf16"
+        scores_d = b * h * n * w * d
+        bd = bound(4 * scores_d, nbytes(q, k, v, bias, o, lse), kind)
+        # Per (q, k) pair and head-dim element, 2 operations each for the
+        # scores, dp, dv, dk and dq products (split: the scores and dp twice).
+        bwd_ops = {"fused": 10, "split": 14}[variant]
+        bdb = bound(bwd_ops * scores_d, nbytes(q, k, v, bias, do, lse, o)
+                    + nbytes(q, k, v, bias), kind)
+        log(f"[window] {name}: windowed forward {t_w:.3f} ms "
+            f"({b * h * n * w / t_w / 1e9:.2f} G scores/ms), global K2 at "
+            f"B{b} {t_g:.3f} ms ({t_g / t_w:.1f}x), plain {t_p:.3f} ms, "
+            f"F.scaled_dot_product_attention on the folded shape {lib} ms "
+            f"({lib_note}), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
+            f"; backward {variant} dropout 0.1 {t_b:.3f} ms (plain {t_pb:.3f},"
+            f" library {lib_b}, bound {bdb['bound_ms']:.4f} by "
+            f"{bdb['bound_by']}) on {smi}")
+        out["fwd"] |= {
+            "window_ms" + sfx: t_w, "window_global_ms" + sfx: t_g,
+            "window_plain_ms" + sfx: t_p, "window_library_ms" + sfx: lib,
+            "window_bound_ms" + sfx: bd["bound_ms"],
+            "window_bound_by" + sfx: bd["bound_by"],
+            "window_max_abs_err" + sfx: max(errs[:2])}
+        out["bwd" + (sfx or "_f32")] = {
+            "window_variant": variant, "window_ms": t_b,
+            "window_plain_ms": t_pb, "window_library_ms": lib_b,
+            "window_bound_ms": bdb["bound_ms"],
+            "window_bound_by": bdb["bound_by"],
+            "window_max_abs_err": max(errs[2:])}
+        del q, k, v, o, lse, do
+    return out
+
+
+def _images(path: Path, n: int, size: int, seed: int) -> None:
+    import numpy as np
+    from PIL import Image
+    r = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(r.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                        ).save(path / f"s{size}_{i}.png")
+
+
+def run_evaluate(torch, tmp: Path, smi: str) -> dict:
+    """Phase 16 (b): `lunaris-evaluate-torch` on the card at the full
+    default width: 16 PNGs at 128 px, an 8-sprite shard and 2 PNGs at 120
+    px (14,400 tokens: window 256 falls back to global), global and with
+    --attn_window 256, f32 and bf16; the K2 launches of each run; then one
+    16-sprite batch timed by CUDA events in each mode, and at 64 px the
+    card's scores against the CPU's (bar 1e-3, as phase 6)."""
+    import numpy as np
+    from PIL import Image
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.cli import evaluate as cli
+    from lunaris_orion_tpu_torch.infer.evaluator import QualityEvaluator
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+
+    cfg = TrainConfig()
+    ckpt = tmp / "eval.pt"
+    save_checkpoint(torch, cfg, ckpt, seed=5)
+    inp = tmp / "eval_in"
+    inp.mkdir()
+    _images(inp, 16, 128, 1)
+    _images(inp, 2, 120, 2)
+    np.save(inp / "sprites_0.npy", np.random.default_rng(3).integers(
+        0, 256, (8, 128, 128, 3), dtype=np.uint8))
+    out, scores = {}, {}
+    for window in (None, WINDOW):
+        for bf16 in (False, True):
+            mode = (f"{'window ' + str(window) if window else 'global'} "
+                    f"{'bf16' if bf16 else 'f32'}")
+            res = tmp / f"scores_{window}_{bf16}.json"
+            argv = ["--checkpoint", str(ckpt), "--input", str(inp),
+                    "--output", str(res), "--device", "cuda"]
+            argv += (["--attn_window", str(window)] if window else [])
+            argv += (["--bf16"] if bf16 else [])
+            k2.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = k2.launches
+            got = json.loads(res.read_text())
+            fallback = sorted(k for k, v in got.items() if "attn_mode" in v)
+            q = [v["mean_quality"] for v in got.values()]
+            if (rc != 0 or len(got) != 26 or launches <= 0
+                    or len(fallback) != (2 if window else 0)
+                    or not all(0.0 <= x <= 1.0 for x in q)):
+                raise AssertionError(f"evaluate {mode}: rc {rc}, {len(got)} "
+                                     f"scores, fallback {fallback}, K2 "
+                                     f"launches {launches}")
+            scores[(window, bf16)] = got
+            ev = QualityEvaluator(str(ckpt), attn_window=window, bf16=bf16)
+            batch = np.stack([np.asarray(Image.open(
+                inp / f"s128_{i}.png").convert("RGB")) for i in range(16)])
+            seen = k2.launches
+            ev.score_batch(batch)
+            per_batch = k2.launches - seen
+            ms = time_ms(torch, lambda: ev.score_batch(batch), 3)
+            key = (("window" if window else "global")
+                   + ("_bf16" if bf16 else "_f32"))
+            out |= {f"evaluate_{key}_ms": ms, f"evaluate_{key}_launches":
+                    per_batch, f"evaluate_{key}_run_launches": launches}
+            log(f"[evaluate] {mode}: 26 sprites (2 by the global fallback) "
+                f"in {dt:.1f} s by the CLI (load and PNG reads included), "
+                f"K2 launches {launches}; one batch of 16 at 128 px "
+                f"{ms:.1f} ms = {16 / ms * 1e3:.1f} sprites/s, {per_batch} K2 "
+                f"launches a batch, on {smi}; mean quality "
+                f"{float(np.mean(q)):.4f}")
+            del ev
+    for bf16 in (False, True):
+        a, b = scores[(None, bf16)], scores[(WINDOW, bf16)]
+        diff = max(abs(a[k]["mean_quality"] - b[k]["mean_quality"])
+                   for k in a if "attn_mode" not in b[k])
+        same = max(abs(a[k]["mean_quality"] - b[k]["mean_quality"])
+                   for k in a if "attn_mode" in b[k])
+        log(f"[evaluate] {'bf16' if bf16 else 'f32'}: window {WINDOW} against"
+            f" global, mean quality moves by up to {diff:.2e}; the fallback "
+            f"entries by {same:.2e}")
+    for bf16 in (False, True):
+        key = "_bf16" if bf16 else "_f32"
+        out[f"evaluate_speedup{key}"] = (out[f"evaluate_global{key}_ms"]
+                                         / out[f"evaluate_window{key}_ms"])
+    # 64 px (N = 4096, 16 windows): the card against the CPU.
+    small = TrainConfig(image_size=64, latent_dim=64, feature_dim=128,
+                        embedding_dim=32, num_experts=2)
+    ck64 = tmp / "eval64.pt"
+    save_checkpoint(torch, small, ck64, seed=6)
+    x = np.random.default_rng(7).integers(0, 256, (4, 64, 64, 3),
+                                          dtype=np.uint8)
+    res = {dev: QualityEvaluator(str(ck64), attn_window=WINDOW,
+                                 device=dev).score_batch(x)
+           for dev in ("cpu", "cuda")}
+    worst = max(abs(a[f] - b[f]) for a, b in zip(res["cpu"], res["cuda"])
+                for f in ("mean_quality", "semantic_score", "edge_quality",
+                          "color_consistency", "detail", "overall"))
+    gate = max(abs(x - y) for a, b in zip(res["cpu"], res["cuda"])
+               for x, y in zip(a["expert_weights"], b["expert_weights"]))
+    log(f"[evaluate] 64 px window {WINDOW}, f32: card against CPU, scores "
+        f"max diff {worst:.3e}, gate {gate:.3e} (bar 1e-3)")
+    if worst > 1e-3 or gate > 1e-3:
+        raise AssertionError("evaluate: the card's windowed scores disagree "
+                             "with the CPU's at 64 px")
+    out["evaluate_card_cpu_diff"] = max(worst, gate)
+    return out
+
+
+WINDOW_COUNTERS = (("gn_mish", "k1", "launches"),
+                   ("flash_attention_fwd", "k2", "launches"),
+                   ("flash_attention_bwd_fused", "k2", "bwd_fused_launches"),
+                   ("flash_attention_bwd_dq", "k2", "bwd_dq_launches"),
+                   ("flash_attention_bwd_dkv", "k2", "bwd_dkv_launches"),
+                   ("mse_kl", "k3", "launches"))
+
+
+def _counts(mods: dict, reset: bool = False) -> dict:
+    counts = {}
+    for key, mod, attr in WINDOW_COUNTERS:
+        if reset:
+            setattr(mods[mod], attr, 0)
+        counts[key] = getattr(mods[mod], attr)
+    return counts
+
+
+def run_window_train(torch, smi: str, mods: dict) -> dict:
+    """Phase 16 (c): the bf16 train step at the full default width, 16 x 2,
+    remat, --attn_window 256: a cold step, then one under torch.profiler
+    (its launches are column W); fuse_teacher against the unfused step in
+    turns (unfused, fused, fused, unfused); one step with cached prompt
+    embeddings (from `make_embed_step`) and one with bf16_momentum."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.train.state import create_state, state_for
+    from lunaris_orion_tpu_torch.train.step import (make_embed_step,
+                                                    make_train_step)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(mixed_precision=True, attn_window=WINDOW)
+    state = create_state(cfg, "cuda", 1)
+    before = [p.detach().clone() for p in state.teacher.parameters()]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    images = lambda: torch.randint(0, 256, (2, 16, 128, 128, 3),
+                                   dtype=torch.uint8, device="cuda",
+                                   generator=g)
+    out = {}
+
+    def run(step, label, *extra):
+        batch = images()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(state, batch, *extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = {k: float(v) for k, v in m.items()}
+        if not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"window train {label}: non-finite {losses}")
+        return dt, losses
+
+    step = make_train_step(cfg, remat=True)
+    dt, _ = run(step, "cold")
+    log(f"[window train] cold bf16 step, window {WINDOW}: {dt * 1e3:.0f} ms")
+    _counts(mods, reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    batch = images()
+    tag = f"train step bf16 window {WINDOW} remat on"
+    (_, m), host_s, k1_kernels, dev_ms = device_share(
+        torch, lambda: step(state, batch), tag, smi)
+    launches = _counts(mods)
+    check_k1_kernels(k1_kernels, launches["gn_mish"], tag)
+    for key in ("gn_mish", "flash_attention_fwd", "flash_attention_bwd_fused",
+                "mse_kl"):
+        if launches[key] <= 0:
+            raise AssertionError(f"{tag}: {key} never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out |= {"step_ms": host_s * 1e3, "step_sprites_s": 32 / host_s,
+            "step_device_ms": dev_ms,
+            "step_idle": max(0.0, 1 - dev_ms / (host_s * 1e3)),
+            "step_peak_gib": peak, "launches": launches}
+    log(f"[window train] {tag}: {host_s * 1e3:.0f} ms = {32 / host_s:.2f} "
+        f"sprites/s, device {dev_ms:.0f} ms, peak {peak:.1f} GiB, total_loss "
+        f"{float(m['total_loss']):.5f}; launches {launches} on {smi}")
+    fused = make_train_step(cfg.replace(fuse_teacher=True), remat=True)
+    t = [run(s, label)[0] * 1e3 for s, label in
+         ((step, "unfused"), (fused, "fused"), (fused, "fused"),
+          (step, "unfused"))]
+    out |= {"fuse_ms": min(t[1:3]), "unfused_ms": min(t[0], t[3])}
+    log(f"[window train] fuse_teacher A/B in turns: unfused {t[0]:.0f}, "
+        f"fused {t[1]:.0f}, fused {t[2]:.0f}, unfused {t[3]:.0f} ms on {smi}")
+    ccfg = cfg.replace(cached_prompt_embeddings=True)
+    batch = images()
+    embed = make_embed_step(ccfg)
+    e_ms = time_ms(torch, lambda: embed(state, batch[0]), 3)
+    pe = torch.stack([embed(state, b) for b in batch])
+    cached = make_train_step(ccfg, remat=True)
+    run(cached, "cached", pe)       # warm
+    dt, _ = run(cached, "cached", pe)
+    out |= {"cached_ms": dt * 1e3, "embed_ms": e_ms}
+    log(f"[window train] cached prompt embeddings: step {dt * 1e3:.0f} ms "
+        f"(embed step, 16 sprites: {e_ms:.1f} ms) on {smi}")
+    mcfg = cfg.replace(bf16_momentum=True)
+    state = state_for(mcfg, state.vae, state.teacher, step=state.step,
+                      generator=state.generator)
+    mstep = make_train_step(mcfg, remat=True)
+    run(mstep, "bf16_momentum")
+    dt, _ = run(mstep, "bf16_momentum")
+    p0 = state.teacher_opt.params[0]
+    if state.teacher_opt.opt.state[p0]["exp_avg"].dtype != torch.bfloat16:
+        raise AssertionError("bf16_momentum: the first moment is not bf16")
+    moved = sum(not torch.equal(a, b.detach())
+                for a, b in zip(before, state.teacher.parameters()))
+    out["momentum_ms"] = dt * 1e3
+    log(f"[window train] bf16_momentum: step {dt * 1e3:.0f} ms; "
+        f"{moved}/{len(before)} teacher tensors moved on {smi}")
+    if moved == 0:
+        raise AssertionError("window train: the teacher did not move")
+    return out
+
+
+def run_window_trainer(torch, tmp: Path, smi: str, mods: dict) -> dict:
+    """Phase 16 (d): `lunaris-train` of the port with --attn_window 256
+    --cached_prompt_embeddings --bf16_momentum --mixed_precision on a
+    40-sprite procedural corpus (32 train: one step of 16 x 2 an epoch):
+    one epoch, then a resume from the directory whose restored state equals
+    the saved file bit for bit and takes one more epoch; the table's
+    refresh ms. Counts are set to 0 before the first run and read after."""
+    from lunaris_orion_tpu_torch.cli import train as train_cli
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    data = write_synthetic_dataset(tmp / "sprites40", 40, image_size=128)
+    ck = tmp / "wrun" / "checkpoints"
+    argv = ["--data_dir", str(data), "--mixed_precision", "--val_fraction",
+            "0.2", "--log_every", "1", "--save_every", "0",
+            "--eval_save_freq", "0", "--sample_every", "0", "--num_epochs",
+            "1", "--attn_window", str(WINDOW), "--cached_prompt_embeddings",
+            "--bf16_momentum"]
+    _counts(mods, reset=True)
+    t0 = time.perf_counter()
+    rc = train_cli.main(argv + ["--output_dir", str(tmp / "wrun")])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _counts(mods)
+    if rc != 0 or min(launches[k] for k in (
+            "gn_mish", "flash_attention_fwd", "flash_attention_bwd_fused",
+            "mse_kl")) <= 0:
+        raise AssertionError(f"window trainer: rc {rc}, launches {launches}")
+    text = (tmp / "wrun" / "training.log").read_text()
+    refresh = [float(x) for x in re.findall(
+        r"Prompt-embedding table refreshed \(40 samples, ([\d.]+) ms\)", text)]
+    plan = re.search(r"Memory plan: batch (\d+), remat=(\w+), peak "
+                     r"([\d.]+) GiB", text)
+    if not refresh or plan is None:
+        raise AssertionError("window trainer: no table refresh or memory plan "
+                             "in training.log")
+    steps = sorted(int(p.stem) for p in (ck / "steps").glob("*.pt"))
+    trainer = train_cli.trainer_from_args(
+        argv + ["--output_dir", str(tmp / "wresumed"), "--resume_from",
+                str(ck)])
+    n_equal = state_equals_file(torch, trainer.state,
+                                ck / "steps" / f"{steps[-1]}.pt")
+    start = trainer.state.step
+    trainer.train()
+    p0 = trainer.state.vae_opt.params[0]
+    if (trainer.state.step != start + 1 or
+            trainer.state.vae_opt.opt.state[p0]["exp_avg"].dtype
+            != torch.bfloat16):
+        raise AssertionError("window trainer: the resumed epoch did not step "
+                             "with a bf16 first moment")
+    refresh += [float(x) for x in re.findall(
+        r"Prompt-embedding table refreshed \(40 samples, ([\d.]+) ms\)",
+        (tmp / "wresumed" / "training.log").read_text())]
+    ips = re.findall(r"\| ([\d.]+) sprites/s \(", text)
+    log(f"[window trainer] 1 epoch (1 step of 16 x 2) in {t_run:.1f} s, "
+        f"plan batch {plan.group(1)} remat={plan.group(2)} peak "
+        f"{plan.group(3)} GiB, epoch sprites/s {ips}; launches {launches}; "
+        f"table refresh (40 sprites, eval mode, bf16) ms {refresh}; resume: "
+        f"{n_equal} tensors bit-equal to step {steps[-1]}'s file, one more "
+        f"step with a bf16 first moment, on {smi}")
+    return {"launches": launches, "refresh_ms": refresh}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1828,6 +2347,8 @@ def main() -> int:
     smi = probe(torch)
     if sys.argv[1:2] == ["--grads"]:
         return spread_grads(torch, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--profiler-loss"]:
+        return profiler_loss(torch, int(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--k5-f32"]:
         for _ in range(int(sys.argv[2])):
             log(f"[K5] f32 [32, 128, 128, 64] -> 64: "
@@ -1855,34 +2376,54 @@ def main() -> int:
     stages = check_stages(torch, dev, smi)
     lane, pass1 = check_lane_sums(torch, dev, smi)
     tools = run_tools(torch)
+    mods = {"k1": m1, "k2": m2, "k3": m3}
+    t16 = time.perf_counter()
+    window = check_window(torch, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluate = run_evaluate(torch, Path(tmp), smi)
+        wstep = run_window_train(torch, smi, mods)
+        wtrainer = run_window_trainer(torch, Path(tmp), smi, mods)
+    log(f"[window] phase 16 in {time.perf_counter() - t16:.0f} s")
+    # Phase 16's paths: W = one windowed bf16 train step, E = one windowed
+    # bf16 evaluate batch of 16, trainer_launches_window = 16 (d)'s run.
+    w16 = lambda key: {"launches_window_step": wstep["launches"][key],
+                       "trainer_launches_window": wtrainer["launches"][key]}
     src = "lunaris_orion_tpu_torch/csrc/"
     fa = "lunaris_orion_tpu/ops/pallas/flash_attention.py"
     kernels = [
         dict(name="gn_mish", route="cuda", source=src + "gn_mish.cu",
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"],
-             trainer_launches=trainer["gn_mish"], **k1, **pass1),
+             trainer_launches=trainer["gn_mish"], **w16("gn_mish"), **k1,
+             **pass1),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"],
-             trainer_launches=trainer["flash_attention_fwd"], **k2),
+             trainer_launches=trainer["flash_attention_fwd"],
+             launches_evaluate=evaluate["evaluate_window_bf16_launches"],
+             **w16("flash_attention_fwd"), **k2, **window["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
              trainer_launches=trainer["flash_attention_bwd_fused"],
-             **bwd["flash_attention_bwd_fused"]),
+             **w16("flash_attention_bwd_fused"),
+             **bwd["flash_attention_bwd_fused"],
+             **{k + "_bf16": v for k, v in window["bwd_bf16"].items()}),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
              launches=train["flash_attention_bwd_dq"],
-             **bwd["flash_attention_bwd_dq"]),
+             **w16("flash_attention_bwd_dq"), **bwd["flash_attention_bwd_dq"],
+             **{"split_" + k: v for k, v in window["bwd_f32"].items()}),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:514",
              launches=train["flash_attention_bwd_dkv"],
-             **bwd["flash_attention_bwd_dkv"]),
+             **w16("flash_attention_bwd_dkv"),
+             **bwd["flash_attention_bwd_dkv"],
+             **{"split_" + k: v for k, v in window["bwd_f32"].items()}),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
-             **k3),
+             **w16("mse_kl"), **k3),
         dict(name="gn_mish_conv3", route="cuda",
              source=src + "fused_stage_mma.cu",
              replaces="lunaris_orion_tpu/ops/pallas/fused_stage.py:56",

@@ -9,8 +9,9 @@
 --force_cpu) runs the kernels' plain PyTorch versions on the CPU. Flags
 of the JAX package that steer what the port does not have (--fast_rng,
 --compile, --num_workers, --chunk_size, --memory_efficient) are accepted
-and change nothing (`train.loop.Trainer`); options not ported yet raise
-NotImplementedError by name.
+and change nothing (`train.loop.Trainer`); the options not ported yet,
+a --mesh_shape over more than one device and --attn_impl ring /
+allgather, raise NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -142,19 +143,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "'ring' / 'allgather' (context parallelism) are not "
                         "ported yet and raise")
     g.add_argument("--attn_window", type=int, default=d.attn_window,
-                   help="teacher attention window in tokens (0 = global); "
-                        "not ported yet: >0 raises")
+                   help="teacher attention window in tokens (0 = global): "
+                        "each token attends within its contiguous window of "
+                        "the flattened token axis, K2 over the windows "
+                        "folded into the heads; 256 is the recommended "
+                        "recipe at 128 px")
     g.add_argument("--fuse_teacher", action=argparse.BooleanOptionalAction,
                    default=d.fuse_teacher,
-                   help="one teacher forward over both batches; not ported "
-                        "yet: raises")
+                   help="run the teacher's two calls a micro-batch as one "
+                        "forward over [x; recon] at twice the batch "
+                        "(BatchNorm statistics joint over both halves)")
     g.add_argument("--bf16_momentum", action="store_true",
                    default=d.bf16_momentum,
-                   help="bf16 AdamW first moments; not ported yet: raises")
+                   help="keep AdamW's first moments in bf16 (second moments "
+                        "stay f32)")
     g.add_argument("--cached_prompt_embeddings", action="store_true",
                    default=d.cached_prompt_embeddings,
-                   help="dataset-side prompt-embedding table; not ported "
-                        "yet: raises")
+                   help="take prompt embeddings from a per-sample table "
+                        "refreshed every --embed_refresh_epochs epochs, "
+                        "instead of a teacher call on the inputs each "
+                        "micro-batch")
     g.add_argument("--embed_refresh_epochs", type=int,
                    default=d.embed_refresh_epochs)
     g.add_argument("--remat", action=argparse.BooleanOptionalAction,

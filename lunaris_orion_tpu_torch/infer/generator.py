@@ -48,6 +48,27 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
+def checkpoint_path(checkpoint: str, *, best: bool = False,
+                    step: Optional[int] = None) -> Path:
+    """The .pt that `checkpoint` names: the file itself, or from a
+    checkpoint directory of the port's `CheckpointService` its latest step,
+    `step`, or with `best` its best slot. An Orbax directory of the JAX
+    package raises, naming the conversion."""
+    if str(checkpoint).endswith(".pt"):
+        if best or step is not None:
+            raise ValueError("best= and step= select a checkpoint in a "
+                             "directory; a .pt file is a single checkpoint")
+        return Path(checkpoint)
+    path = checkpoint_file(str(checkpoint), best=best, step=step)
+    if path is None:
+        raise ValueError(
+            f"{checkpoint}: no {'best.pt' if best else 'steps/*.pt'} of the "
+            "port's trainer here. Convert an Orbax checkpoint directory with "
+            "the JAX package first: lunaris-convert to-torch --checkpoint "
+            "<dir> --out latest.pt")
+    return path
+
+
 class ImageGenerator:
     """Loads a reference-layout checkpoint and generates quality-filtered
     sprites on one device."""
@@ -62,21 +83,7 @@ class ImageGenerator:
         best slot. The model config comes from the checkpoint's vars(args)
         snapshot unless `config` is given. An Orbax directory of the JAX
         package cannot be read here: convert it to a .pt first."""
-        if str(checkpoint).endswith(".pt"):
-            if best or step is not None:
-                raise ValueError(
-                    "best= and step= select a checkpoint in a directory; "
-                    "a .pt file is a single checkpoint")
-            path = Path(checkpoint)
-        else:
-            path = checkpoint_file(str(checkpoint), best=best, step=step)
-            if path is None:
-                raise ValueError(
-                    f"{checkpoint}: no {'best.pt' if best else 'steps/*.pt'}"
-                    " of the port's trainer here. Convert an Orbax "
-                    "checkpoint directory with the JAX package first: "
-                    "lunaris-convert to-torch --checkpoint <dir> --out "
-                    "latest.pt")
+        path = checkpoint_path(checkpoint, best=best, step=step)
         self.device = resolve_device(device)
         self.cfg, ckpt = load_reference_checkpoint(str(path), config)
         self.vcfg = self.cfg.vae_config()

@@ -10,7 +10,8 @@ The experts run one after another (a loop over an nn.ModuleList); the JAX
 package vmaps them. Each expert block's attention is `SpatialAttention`,
 which at more than 1024 tokens runs the K2 forward. The semantic score
 uses the JAX package's fix: it is conditioned on the *provided* prompt
-embedding.
+embedding. With `cfg.attn_window` the attention is windowed
+(`local_window_attention`) in eval and train mode alike.
 
 Images enter NHWC [B, H, W, 3], as in the JAX package; inside, activations
 are channels_last NCHW (see `ops/layers.py`).
@@ -150,7 +151,6 @@ class ExpertBlock(nn.Module):
     def __init__(self, cin: int, cout: int, cfg: TeacherConfig):
         super().__init__()
         self.dropout_rate = cfg.dropout_rate
-        self.attn_window = cfg.attn_window
         self.layer_scale = nn.Parameter(
             torch.full((1, cout, 1, 1), cfg.layer_scale_init))
         self.conv1 = ConvLeakyBN(cin, cout, 3)
@@ -163,18 +163,18 @@ class ExpertBlock(nn.Module):
 
     def _path(self, x: torch.Tensor, train: bool,
               seeds: Optional[Tuple[int, ...]], bwd: Optional[str],
-              impl: str = "auto"):
+              impl: str = "auto", window: Optional[int] = None):
         """The main path; returns (out, *new running stats of conv1's and
         conv2's BatchNorm in train mode). seeds: (Dropout2d after conv1,
         Dropout2d after conv2, attention, projection), or None: no
-        dropout."""
+        dropout. window: the attention's (None: global)."""
         stats = [] if train else None
         drop1, drop2 = ((device_generator(s, x.device) for s in seeds[:2])
                         if seeds else (None, None))
         out = layers.dropout2d(self.conv1(x, stats), self.dropout_rate,
                                generator=drop1)
         out = self.attention(out.permute(0, 2, 3, 1), impl=impl,
-                             window=self.attn_window,
+                             window=window,
                              dropout_rate=self.dropout_rate,
                              seeds=seeds[2:] if seeds else None,
                              bwd=bwd).permute(0, 3, 1, 2)
@@ -183,7 +183,8 @@ class ExpertBlock(nn.Module):
         return (out * self.layer_scale.to(out.dtype), *(stats or ()))
 
     def forward(self, x: torch.Tensor, train: Optional[_Train] = None,
-                attn_impl: str = "auto") -> torch.Tensor:
+                attn_impl: str = "auto",
+                attn_window: Optional[int] = None) -> torch.Tensor:
         stats = None if train is None else []
         if self.shortcut is None:
             identity = x
@@ -197,11 +198,12 @@ class ExpertBlock(nn.Module):
         if train is not None and train.remat and torch.is_grad_enabled():
             # The masks come from `seeds`, not the global RNG state.
             out, *path_stats = checkpoint(self._path, x, True, seeds, bwd,
-                                          attn_impl, use_reentrant=False,
+                                          attn_impl, attn_window,
+                                          use_reentrant=False,
                                           preserve_rng_state=False)
         else:
             out, *path_stats = self._path(x, train is not None, seeds, bwd,
-                                          attn_impl)
+                                          attn_impl, attn_window)
         if train is not None:
             bns = [self.shortcut[1]] if self.shortcut is not None else []
             _record(train, bns + [self.conv1[2], self.conv2[2]],
@@ -233,6 +235,14 @@ class Head(nn.Sequential):
         x = leaky_relu(layers.linear(x, fc1.weight, fc1.bias), 0.2)
         x = layers.dropout(x, rate, generator=generator)
         return layers.linear(x, fc2.weight, fc2.bias)
+
+
+def prompt_cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cos(a, b) a row, in f32, the norm product clamped at 1e-8: the
+    semantic score's conditioning on a prompt embedding."""
+    a, b = a.float(), b.float()
+    return (a * b).sum(-1) / torch.clamp(a.norm(dim=-1) * b.norm(dim=-1),
+                                         min=1e-8)
 
 
 class LunarMoETeacher(nn.Module):
@@ -279,13 +289,16 @@ class LunarMoETeacher(nn.Module):
     def forward(self, x: torch.Tensor,
                 prompt_embedding: Optional[torch.Tensor] = None, *,
                 train: Optional[_Train] = None,
-                attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
+                attn_impl: str = "auto",
+                global_attn: bool = False) -> Dict[str, torch.Tensor]:
         """x [B, H, W, 3] -> the output dict of the JAX package's
         `teacher.apply`: quality_scores [B, 4] (sigmoid), expert_weights
         [B, E], style_embedding / prompt_embedding [B, emb], semantic_score
         [B, 1]. Eval mode unless `train` is given (see `apply`). `attn_impl`
         is the attention's impl in both modes ('auto', 'full' or 'flash',
-        `SpatialAttention.forward`)."""
+        `SpatialAttention.forward`); `cfg.attn_window` windows it unless
+        `global_attn`."""
+        window = None if global_attn else self.cfg.attn_window
         rate = self.cfg.dropout_rate
         gen = None if train is None else train.device_gen
         feats = self.feature_extractor(x.permute(0, 3, 1, 2), train)
@@ -296,7 +309,7 @@ class LunarMoETeacher(nn.Module):
         for expert in self.experts:
             h = feats
             for block in expert:
-                h = block(h, train, attn_impl)
+                h = block(h, train, attn_impl, window)
             pooled_ex.append(layers.global_avg_pool(h))
         pooled = torch.stack(pooled_ex)                           # [E, B, C]
 
@@ -309,11 +322,8 @@ class LunarMoETeacher(nn.Module):
         semantic = torch.sigmoid(
             self.semantic_head(pooled_ex[0], rate, gen).float())
         if prompt_embedding is not None:
-            a = own_prompt.float()
-            b = prompt_embedding.detach().float()
-            cos = (a * b).sum(-1) / torch.clamp(
-                a.norm(dim=-1) * b.norm(dim=-1), min=1e-8)
-            semantic = semantic * cos[:, None]
+            semantic = semantic * prompt_cosine(
+                own_prompt, prompt_embedding.detach())[:, None]
         return {
             "quality_scores": torch.sigmoid(weighted),
             "expert_weights": w,

@@ -7,8 +7,10 @@ key. The `auto` rule is the JAX package's: N <= 1024 tokens runs
 `full_attention`; above that, K2 (`ops/cuda/flash_attention.py`): the
 kernels on a CUDA device, their plain blockwise versions on the CPU.
 Train mode adds dropout on the attention probabilities (Bernoulli on the
-full path, K2's hash on the flash path) and on the projected output.
-Windowed, ring and allgather attention are not ported yet and raise.
+full path, K2's hash on the flash and windowed paths) and on the projected
+output. A `window` below N runs `local_window_attention`: K2 over the
+windows folded into the head axis. Ring and allgather attention are not
+ported yet and raise.
 
 Public functions keep the JAX package's layouts: feature maps NHWC
 [B, H, W, C]; q, k, v [B, heads, N, d]; bias [heads, N].
@@ -76,6 +78,53 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+class WindowTilingError(ValueError):
+    """A window cannot tile this input's token count (N % window != 0): a
+    type of its own, so that callers that fall back to global attention
+    (`QualityEvaluator.score_directory`) catch the contract, not a
+    message."""
+
+
+def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, *, window: int,
+                           dropout_rate: float = 0.0, seed: int = 0,
+                           bwd: Optional[str] = None) -> torch.Tensor:
+    """Attention in which each token sees only the keys of its own
+    contiguous window of the flattened token axis (the JAX package's
+    `local_window_attention`). q, k, v [B, heads, N, d] contiguous, bias
+    [heads, N] f32; returns o [B, heads, N, d].
+
+    The windows fold into the head axis: q, k, v become views
+    [B, heads * nW, W, d] and bias [heads * nW, W], and one K2 call (with
+    its backward, and its plain version on the CPU) runs every window at
+    once. `window` <= 0 raises ValueError; `window` >= N is global
+    attention; N % window != 0 raises WindowTilingError. A call with more
+    than K2's MAX_ROWS rows runs in batch chunks, each numbered by
+    `row_offset` as rows of the one call, so the dropout mask does not
+    depend on the chunking. Dropout is K2's hash over (seed, folded row,
+    position in the window): the JAX package draws its windowed masks from
+    jax.random instead, so the masks differ from it."""
+    b, h, n, d = q.shape
+    if window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    window = min(window, n)
+    if n % window != 0:
+        raise WindowTilingError(f"window {window} must divide N={n}")
+    rows = h * (n // window)                  # folded heads an image
+    if rows > k2.MAX_ROWS:
+        raise ValueError(f"local_window_attention: {h} heads x {n // window} "
+                         f"windows exceed K2's {k2.MAX_ROWS} rows a call")
+    fold = lambda t: t.reshape(t.shape[0], rows, window, d)
+    bias_w = bias.reshape(rows, window)
+    chunk = k2.MAX_ROWS // rows
+    outs = [k2.flash_attention(
+        fold(q[i:i + chunk]), fold(k[i:i + chunk]), fold(v[i:i + chunk]),
+        bias_w, dropout_rate=dropout_rate, seed=seed, row_offset=i * rows,
+        bwd=bwd)[0] for i in range(0, b, chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(b, h, n, d)
+
+
 class SpatialAttention(nn.Module):
     """qkv 1x1 conv -> attention (+ per-key rel-pos bias) -> proj 1x1 conv,
     under the reference's parameter names (lunar_evaluator.py
@@ -101,15 +150,23 @@ class SpatialAttention(nn.Module):
         """x [B, H, W, C] -> [B, H, W, C].
 
         impl: 'auto' (N <= 1024 -> 'full', else 'flash'), 'full', or
-        'flash' (K2). seeds: (attention, projection) seeds of train-mode
-        dropout at `dropout_rate`; None runs without dropout. bwd: K2's
-        backward variant on CUDA (None: its default)."""
+        'flash' (K2). A `window` below N overrides it with
+        `local_window_attention`, as in the JAX package. seeds:
+        (attention, projection) seeds of train-mode dropout at
+        `dropout_rate`; None runs without dropout. bwd: K2's backward
+        variant on CUDA (None: its default)."""
         b, h, w, c = x.shape
         n = h * w
-        if window is not None and window < n:
-            raise NotImplementedError(
-                "windowed attention (attn_window) is not ported yet")
-        if impl == "auto":
+        if window is not None and window <= 0:
+            raise ValueError(f"window must be positive, got {window} "
+                             "(use None / --attn_window 0 for global)")
+        windowed = window is not None and window < n
+        if windowed and impl in ("ring", "allgather"):
+            raise ValueError(f"window={window} cannot combine with "
+                             f"impl={impl!r}")
+        if windowed:
+            impl = "window"
+        elif impl == "auto":
             impl = "full" if n <= 1024 else "flash"
         drop = seeds is not None and dropout_rate > 0.0
         q, k, v = multihead_qkv(x, self.qkv.weight, self.qkv.bias,
@@ -120,6 +177,11 @@ class SpatialAttention(nn.Module):
             out = full_attention(
                 q, k, v, bias, dropout_rate=dropout_rate,
                 generator=device_generator(seeds[0], x.device) if drop else None)
+        elif impl == "window":
+            out = local_window_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                window=window, dropout_rate=dropout_rate if drop else 0.0,
+                seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd)
         elif impl == "flash":
             out, _ = k2.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias,

@@ -60,6 +60,7 @@ bwd_dkv_launches = 0
 bwd_dq_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
+MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
 MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core body (bf16)
 MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # those of the backward's (dk/dv, dq)
 MMA_FUSED_HEAD_DIMS = (16, 32)       # those of the fused backward's
@@ -291,8 +292,8 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
     b, h, _, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: no kernel for head dim {d} ({SUPPORTED})")
-    if b * h > 65535 or not 0 <= dropout_rate < 1.0:
-        raise ValueError(f"{name}: B*H must be <= 65535 and "
+    if b * h > MAX_ROWS or not 0 <= dropout_rate < 1.0:
+        raise ValueError(f"{name}: B*H must be <= {MAX_ROWS} and "
                          "0 <= dropout_rate < 1")
     use_drop = dropout_rate > 0.0
     scale = float(torch.tensor(d ** -0.5, dtype=q.dtype))

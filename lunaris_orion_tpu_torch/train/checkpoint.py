@@ -58,8 +58,14 @@ def _to_cpu(obj: Any) -> Any:
 
 def _optimizer(opt: ClippedAdamW, base_lr: float, sched: Dict) -> Dict:
     """torch AdamW's state_dict with the param group the reference saves:
-    lr at the checkpoint's step and the scheduler's initial_lr."""
+    lr at the checkpoint's step and the scheduler's initial_lr. A bf16
+    first moment (bf16_momentum) is written as its f32 values, exactly, as
+    the JAX package's writer does: the reference layout is f32, and torch's
+    load_state_dict casts moments to the parameter's dtype anyway."""
     sd = opt.opt.state_dict()
+    sd["state"] = {i: {k: v.float() if k == "exp_avg" else v
+                       for k, v in st.items()}
+                   for i, st in sd["state"].items()}
     sd["param_groups"] = [dict(g, lr=sched["_last_lr"][0], initial_lr=base_lr)
                           for g in sd["param_groups"]]
     return sd

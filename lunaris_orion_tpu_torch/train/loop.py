@@ -12,15 +12,20 @@
     fires, SURVEY.md §2.2 #19);
   * periodic saves with rotation, a save on SIGINT, comparison grids and
     prior grids rendered in the training compute dtype;
-  * a hang watchdog that exits with code 66 (`tools/supervise_train.py`).
+  * a hang watchdog that exits with code 66 (`tools/supervise_train.py`);
+  * with --cached_prompt_embeddings, the per-sample prompt-embedding table
+    (`compute_embed_table`) is refreshed at every epoch that
+    --embed_refresh_epochs divides; it stays on the device and each
+    batch's rows are gathered there by the loader's indices.
 
 The JAX package compiles the step ahead and checks XLA's memory analysis
 against the device (`_plan_and_compile`). Here `_plan` measures instead:
 one probe micro-step (forward + backward) on copies of the models at each
 candidate (remat off, then on; then half the batch, down to batch // 8),
 its peak `torch.cuda.max_memory_allocated` plus the two AdamW moments,
-against 0.92 of the device's memory. The probe leaves the training state
-as it was, bit for bit.
+against 0.92 of the device's memory (one AdamW moment in bf16 with
+--bf16_momentum). The probe leaves the training state as it was, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from lunaris_orion_tpu_torch.config import TrainConfig
@@ -46,6 +52,7 @@ from lunaris_orion_tpu_torch.train.checkpoint import (CheckpointService,
                                                       load_checkpoint_file)
 from lunaris_orion_tpu_torch.train.state import TrainState, create_state, state_for
 from lunaris_orion_tpu_torch.train.step import (_compute_dtype,
+                                                make_embed_step,
                                                 make_eval_step,
                                                 make_micro_step,
                                                 make_train_step,
@@ -156,12 +163,25 @@ def _attn_impl(cfg: TrainConfig) -> str:
     return {"pallas": "flash"}.get(impl, impl)
 
 
+def compute_embed_table(embed_fn, state: TrainState, dataset: SpriteDataset,
+                        *, batch_size: int, embedding_dim: int,
+                        device: torch.device) -> torch.Tensor:
+    """The per-sample prompt-embedding table [len(dataset), embedding_dim]
+    f32 on `device` (the JAX package's `compute_embed_table`, on one
+    process): the dataset in chunks of `batch_size` through `embed_fn`
+    (`make_embed_step`). Eval mode is per sample, so the last, shorter
+    chunk needs no padding."""
+    table = torch.empty(len(dataset), embedding_dim, dtype=torch.float32,
+                        device=device)
+    for start in range(0, len(dataset), batch_size):
+        idx = np.arange(start, min(start + batch_size, len(dataset)))
+        imgs = torch.from_numpy(dataset.gather(idx)).to(device)
+        table[start:start + len(idx)] = embed_fn(state, imgs)
+    return table
+
+
 def _not_ported(cfg: TrainConfig) -> None:
     """Options of the JAX Trainer the port does not run yet raise by name."""
-    for name in ("cached_prompt_embeddings", "attn_window", "bf16_momentum",
-                 "fuse_teacher"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet")
     if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh_shape {tuple(cfg.mesh_shape)} (more than one device) is "
@@ -273,6 +293,7 @@ class Trainer:
             # once; train() runs K steps on them.
             accum_steps=cfg.gradient_accumulation_steps * cfg.steps_per_call,
             seed=cfg.seed, device=self.device, prefetch=cfg.prefetch_depth,
+            with_indices=cfg.cached_prompt_embeddings,
             device_data=device_data)
         self.val_loader = BatchLoader(
             self.dataset, self.va_idx, batch_size=cfg.batch_size,
@@ -287,6 +308,8 @@ class Trainer:
         self.logger.info("VAE params: %s | Teacher params: %s",
                          f"{n_vae:,}", f"{n_teacher:,}")
         self.early = EarlyStopping(cfg.early_stopping_patience)
+        self._embed_fn = None
+        self._embed_table: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
     def _probe(self, cfg: TrainConfig, remat: bool) -> None:
@@ -299,13 +322,17 @@ class Trainer:
         micro = make_micro_step(cfg, remat=remat, attn_impl=self.attn_impl)
         images = torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size,
                               3), dtype=torch.uint8, device=self.device)
-        micro(probe, images, probe.baseline, probe.baseline_initialized)
+        pe = (torch.zeros(cfg.batch_size, self.tcfg.embedding_dim,
+                          device=self.device)
+              if cfg.cached_prompt_embeddings else None)
+        micro(probe, images, probe.baseline, probe.baseline_initialized, pe)
 
     def _probe_need(self, cfg: TrainConfig, remat: bool) -> float:
         """Device bytes one training step at `cfg` needs: the peak of
         `_probe` (the copied models, their gradients and the activations)
-        above what was allocated before it, plus the two AdamW moments; inf
-        when the probe runs out of memory."""
+        above what was allocated before it, plus the two AdamW moments (the
+        first in bf16 with bf16_momentum); inf when the probe runs out of
+        memory."""
         dev = self.device
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -313,8 +340,9 @@ class Trainer:
         try:
             self._probe(cfg, remat)
             torch.cuda.synchronize(dev)
+            moments = 1.5 if cfg.bf16_momentum else 2.0
             need = (torch.cuda.max_memory_allocated(dev) - base
-                    + 2 * _param_bytes(self.state))
+                    + moments * _param_bytes(self.state))
         except torch.cuda.OutOfMemoryError:
             need = math.inf
         torch.cuda.empty_cache()
@@ -360,6 +388,28 @@ class Trainer:
                     f"{min_bs}; reduce model dims or raise "
                     "gradient_accumulation_steps")
             bs //= 2
+
+    def _refresh_embed_table(self) -> None:
+        """Recompute the prompt-embedding table from the current teacher
+        (eval mode; the JAX package's `_refresh_embed_table`)."""
+        if self._embed_fn is None:
+            self._embed_fn = make_embed_step(self.cfg,
+                                             attn_impl=self.attn_impl)
+        t0 = time.perf_counter()
+        self._embed_table = compute_embed_table(
+            self._embed_fn, self.state, self.dataset,
+            batch_size=self.cfg.batch_size,
+            embedding_dim=self.tcfg.embedding_dim, device=self.device)
+        self._sync()
+        self.logger.info("Prompt-embedding table refreshed (%d samples, "
+                         "%.1f ms)", len(self.dataset),
+                         (time.perf_counter() - t0) * 1e3)
+
+    def _prompt_embeddings(self, idx: np.ndarray) -> torch.Tensor:
+        """The table's rows for a batch's dataset indices [A, B], gathered
+        on the device: [A, B, E]."""
+        rows = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+        return self._embed_table[rows.to(self.device)]
 
     # ------------------------------------------------------------------
     def _handle_interrupt(self, signum, frame):
@@ -440,13 +490,18 @@ class Trainer:
         watchdog.start()
         prof = None
         try:
+            cached = cfg.cached_prompt_embeddings
             for epoch in range(cfg.num_epochs):
                 self.train_loader.set_epoch(epoch)
+                if cached and epoch % max(cfg.embed_refresh_epochs, 1) == 0:
+                    self._refresh_embed_table()
                 t_epoch = time.perf_counter()
                 losses: List[torch.Tensor] = []   # read at epoch end only
                 done: List[torch.cuda.Event] = []
                 n_img = 0
-                for batch in self.train_loader:
+                for item in self.train_loader:
+                    batch, pe = ((item[0], self._prompt_embeddings(item[1]))
+                                 if cached else (item, None))
                     if cfg.profile_steps > 0 and epoch == 0 and host_step == 2:
                         prof = self._profiler()
                         prof.__enter__()
@@ -454,7 +509,8 @@ class Trainer:
                     step_metrics: List[Dict[str, torch.Tensor]] = []
                     for k in range(spc):
                         self.state, m = self.train_step(
-                            self.state, batch[k * acc:(k + 1) * acc])
+                            self.state, batch[k * acc:(k + 1) * acc],
+                            None if pe is None else pe[k * acc:(k + 1) * acc])
                         step_metrics.append(m)
                         losses.append(m["total_loss"])
                         if self.device.type == "cuda":

@@ -12,6 +12,7 @@ import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -26,15 +27,25 @@ class ClippedAdamW:
     optax.chain(clip_by_global_norm(max_grad_norm), adamw(cosine warm
     restarts, b1=0.9, b2=0.999, eps=1e-8, weight_decay)) as
     torch.optim.AdamW, with the learning rate set from the schedule at the
-    optax count (the number of earlier updates) before each update."""
+    optax count (the number of earlier updates) before each update.
+
+    With cfg.bf16_momentum the first moment is kept in bf16, the second in
+    f32, as optax's `scale_by_adam(mu_dtype=bfloat16)` keeps them; torch's
+    AdamW keeps its state in the parameter's dtype, so this mode takes its
+    own update (`_bf16_update`), which follows optax's order of operations.
+    `opt` still holds the state and the param group, so state_dict and
+    load_state_dict are torch's."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, module: nn.Module, base_lr: float, cfg: TrainConfig):
         self.params: List[nn.Parameter] = list(module.parameters())
         self.schedule = cosine_warm_restarts(base_lr, cfg.scheduler_t0,
                                              cfg.min_lr)
         self.max_norm = cfg.max_grad_norm
+        self.bf16_momentum = bool(getattr(cfg, "bf16_momentum", False))
         self.opt = torch.optim.AdamW(self.params, lr=base_lr,
-                                     betas=(0.9, 0.999), eps=1e-8,
+                                     betas=(self.B1, self.B2), eps=self.EPS,
                                      weight_decay=cfg.weight_decay)
 
     def zero_grad(self) -> None:
@@ -56,16 +67,50 @@ class ClippedAdamW:
             g.copy_(torch.where(clip, (g / norm) * self.max_norm, g))
         for group in self.opt.param_groups:
             group["lr"] = self.schedule(count)
-        self.opt.step()
+        if self.bf16_momentum:
+            self._bf16_update()
+        else:
+            self.opt.step()
         return norm
+
+    def _bf16_update(self) -> None:
+        """optax's scale_by_adam(mu_dtype=bfloat16) -> add_decayed_weights
+        -> scale_by_learning_rate, as the JAX package's jitted step computes
+        it: the new first moment (1 - b1) g + b1 mu is f32 (b1 rounded to
+        bf16, as JAX's weak-typed scalar is, the product not rounded), it
+        drives the update unrounded and is stored rounded to bf16 (optax's
+        `tree.cast` after the update). Un-jitted optax also rounds b1 mu to
+        bf16 and differs in the last bit of some moments. A moment loaded
+        from a checkpoint comes back in the parameter's dtype (torch's
+        load_state_dict casts it) and holds bf16 values, so casting it back
+        is exact."""
+        group = self.opt.param_groups[0]
+        lr, wd = np.float32(group["lr"]), group["weight_decay"]
+        b1 = float(torch.tensor(self.B1, dtype=torch.bfloat16))
+        for p in self.params:
+            st = self.opt.state[p]
+            if not st:
+                st["step"] = torch.tensor(0.0)
+                st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+            elif st["exp_avg"].dtype != torch.bfloat16:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+            st["step"] += 1
+            t = np.float32(st["step"].item())
+            g, nu = p.grad, st["exp_avg_sq"]
+            mu = g * (1 - self.B1) + st["exp_avg"].float() * b1
+            nu.mul_(self.B2).add_(g * g * (1 - self.B2))
+            mu_hat = mu / float(np.float32(1) - np.float32(self.B1) ** t)
+            nu_hat = nu / float(np.float32(1) - np.float32(self.B2) ** t)
+            upd = mu_hat / (nu_hat.sqrt() + self.EPS)
+            p.add_((upd + wd * p) * float(-lr))
+            st["exp_avg"].copy_(mu)
 
 
 def make_optimizers(cfg: TrainConfig, vae: nn.Module, teacher: nn.Module
                     ) -> Tuple[ClippedAdamW, ClippedAdamW]:
     """The VAE's and the teacher's optimizers (train_hybrid.py:504-527 and
     the per-step clip at :913-914)."""
-    if cfg.bf16_momentum:
-        raise NotImplementedError("bf16_momentum is not ported yet")
     return (ClippedAdamW(vae, cfg.vae_lr, cfg),
             ClippedAdamW(teacher, cfg.teacher_lr, cfg))
 

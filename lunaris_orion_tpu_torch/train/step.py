@@ -17,9 +17,22 @@ clipped by their own global norm, each model takes one AdamW update, and
 the metrics are averaged over the micro-batches (`baseline` is the current
 EMA). Nothing in the step waits for the device.
 
+Two options change steps 2 and 4, as in the JAX package:
+  * cached_prompt_embeddings: the step takes each micro-batch's prompt
+    embeddings [A, mb, E] from a table (`make_embed_step`, refreshed by the
+    Trainer) and skips step 2, so the teacher's BatchNorm statistics
+    advance once a micro-batch;
+  * fuse_teacher: steps 2 and 4 become one teacher forward, with
+    gradients, over [x; recon.detach()] at 2 mb; the recon half's semantic
+    score is multiplied by the cosine between its prompt embedding and the
+    x half's (detached) afterwards, which is what the teacher does inside
+    when given the embedding. BatchNorm statistics are joint over 2 mb and
+    advance once.
+
 Precision: mixed_precision runs bf16 activations with f32 parameters cast
-at each layer, f32 gradients and f32 optimizer state, as the serving path
-does (not torch.autocast).
+at each layer, f32 gradients and f32 optimizer state (AdamW's first moment
+in bf16 with bf16_momentum), as the serving path does (not
+torch.autocast).
 """
 
 from __future__ import annotations
@@ -50,16 +63,12 @@ def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.mixed_precision else torch.float32
 
 
-def _not_ported(cfg: TrainConfig, cp_mesh, cp_axis, cp_batch_axis) -> None:
+def _not_ported(cp_mesh, cp_axis, cp_batch_axis) -> None:
     for name, value in (("cp_mesh", cp_mesh), ("cp_axis", cp_axis),
                         ("cp_batch_axis", cp_batch_axis)):
         if value is not None:
             raise NotImplementedError(
                 f"{name} (context parallelism) is not ported yet")
-    for name in ("fuse_teacher", "cached_prompt_embeddings", "bf16_momentum",
-                 "attn_window"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet")
 
 
 def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
@@ -67,36 +76,56 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
                     ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor,
                                              Metrics]]:
     """Returns micro_step(state, batch [mb, H, W, 3], baseline,
-    baseline_initialized) -> (baseline, baseline_initialized, metrics):
-    one micro-batch's forwards and backward (steps 1-6 of the module
-    docstring), which adds its gradients to the models' .grad."""
+    baseline_initialized, pe_cached=None) -> (baseline,
+    baseline_initialized, metrics): one micro-batch's forwards and backward
+    (steps 1-6 of the module docstring, or the options' forms), which adds
+    its gradients to the models' .grad. pe_cached [mb, E]: the cached
+    prompt embeddings, needed with cfg.cached_prompt_embeddings."""
     w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,
                     cfg.reward_scale, cfg.semantic_weight,
                     cfg.baseline_momentum)
     dtype = _compute_dtype(cfg)
+    cached = bool(cfg.cached_prompt_embeddings)
+    fuse = bool(cfg.fuse_teacher) and not cached
     teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd,
                       attn_impl=attn_impl)
 
     def micro_step(state: TrainState, batch: torch.Tensor,
-                   baseline: torch.Tensor, binit: torch.Tensor):
+                   baseline: torch.Tensor, binit: torch.Tensor,
+                   pe_cached: torch.Tensor | None = None):
         teacher = state.teacher
         x = normalize_images(batch, dtype)
-        with torch.no_grad():
-            t1 = teacher_mod.apply(teacher, x, generator=state.generator,
-                                   **teacher_kw)
+        if cached:
+            if pe_cached is None:
+                raise ValueError("cached_prompt_embeddings: the step needs "
+                                 "the micro-batch's prompt embeddings")
+            prompt = pe_cached.detach().float()
+        elif not fuse:
+            with torch.no_grad():
+                prompt = teacher_mod.apply(
+                    teacher, x, generator=state.generator,
+                    **teacher_kw)["prompt_embedding"].detach()
         recon, mu, logvar = state.vae(
             x, device_generator(new_seed(state.generator), x.device))
         recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
-        t2 = teacher_mod.apply(
-            teacher, recon.detach(),
-            prompt_embedding=t1["prompt_embedding"].detach(),
-            generator=state.generator, **teacher_kw)
+        if fuse:
+            t = teacher_mod.apply(teacher, torch.cat([x, recon.detach()]),
+                                  generator=state.generator, **teacher_kw)
+            b = x.shape[0]
+            emb = t["prompt_embedding"]
+            quality = t["quality_scores"][b:]
+            semantic = t["semantic_score"][b:] * teacher_mod.prompt_cosine(
+                emb[b:], emb[:b].detach())[:, None]
+        else:
+            t = teacher_mod.apply(teacher, recon.detach(),
+                                  prompt_embedding=prompt,
+                                  generator=state.generator, **teacher_kw)
+            quality, semantic = t["quality_scores"], t["semantic_score"]
         vae_loss, teacher_loss, baseline, binit, metrics = (
             losses.hybrid_losses(
                 recon_loss=recon_loss, kl_loss=kl_loss,
-                quality_scores=t2["quality_scores"],
-                semantic_score=t2["semantic_score"], baseline=baseline,
-                baseline_initialized=binit, w=w))
+                quality_scores=quality, semantic_score=semantic,
+                baseline=baseline, baseline_initialized=binit, w=w))
         (vae_loss + teacher_loss).backward()
         return baseline, binit, metrics
 
@@ -106,28 +135,30 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
 def make_train_step(cfg: TrainConfig, *, remat: bool = True,
                     attn_bwd: str | None = None, attn_impl: str = "auto",
                     cp_mesh=None, cp_axis=None, cp_batch_axis=None
-                    ) -> Callable[[TrainState, torch.Tensor],
-                                  Tuple[TrainState, Metrics]]:
+                    ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """Returns train_step(state, images [A, mb, H, W, 3] on the state's
-    device) -> (state, metrics). The state is updated in place and
-    returned. `attn_bwd` picks K2's backward kernels on CUDA ("fused" or
-    "split"; None: `flash_attention.default_bwd`, by type and head size).
+    device, prompt_embs [A, mb, E] with cfg.cached_prompt_embeddings) ->
+    (state, metrics). The state is updated in place and returned.
+    `attn_bwd` picks K2's backward kernels on CUDA ("fused" or "split";
+    None: `flash_attention.default_bwd`, by type and head size).
     `attn_impl` is the teacher attention's impl: 'auto' (the JAX package's
-    rule), 'full' or 'flash' (K2). The models' configs come with the
-    state."""
-    _not_ported(cfg, cp_mesh, cp_axis, cp_batch_axis)
+    rule), 'full' or 'flash' (K2); the teacher's attn_window overrides it.
+    The models' configs come with the state."""
+    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
     micro_step = make_micro_step(cfg, remat=remat, attn_bwd=attn_bwd,
                                  attn_impl=attn_impl)
 
-    def train_step(state: TrainState, images: torch.Tensor
+    def train_step(state: TrainState, images: torch.Tensor,
+                   prompt_embs: torch.Tensor | None = None
                    ) -> Tuple[TrainState, Metrics]:
         state.vae_opt.zero_grad()
         state.teacher_opt.zero_grad()
         baseline, binit = state.baseline, state.baseline_initialized
         stacked = []
-        for batch in images:
-            baseline, binit, metrics = micro_step(state, batch, baseline,
-                                                  binit)
+        for i, batch in enumerate(images):
+            baseline, binit, metrics = micro_step(
+                state, batch, baseline, binit,
+                None if prompt_embs is None else prompt_embs[i])
             stacked.append(metrics)
 
         inv = 1.0 / len(stacked)
@@ -152,7 +183,7 @@ def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
     """Deterministic validation: the reconstruction from the mean latent,
     MSE + KL, and the teacher's quality in eval mode. images [B, H, W, 3].
     `attn_impl` as in `make_train_step`."""
-    _not_ported(cfg, cp_mesh, cp_axis, cp_batch_axis)
+    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
     dtype = _compute_dtype(cfg)
 
     @torch.no_grad()
@@ -171,7 +202,19 @@ def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
     return eval_step
 
 
-def make_embed_step(cfg: TrainConfig, **kwargs):
-    """The cached prompt-embedding table's step: not ported yet."""
-    raise NotImplementedError("make_embed_step (cached prompt embeddings) is "
-                              "not ported yet")
+def make_embed_step(cfg: TrainConfig, *, attn_impl: str = "auto",
+                    cp_mesh=None, cp_axis=None, cp_batch_axis=None
+                    ) -> Callable[[TrainState, torch.Tensor], torch.Tensor]:
+    """The cached table's step: eval-mode prompt embeddings, images
+    [B, H, W, 3] uint8 -> [B, embedding_dim] f32, in the training compute
+    dtype. `attn_impl` as in `make_train_step`."""
+    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
+    dtype = _compute_dtype(cfg)
+
+    @torch.no_grad()
+    def embed_step(state: TrainState, images: torch.Tensor) -> torch.Tensor:
+        out = teacher_mod.apply(state.teacher, normalize_images(images, dtype),
+                                attn_impl=attn_impl)
+        return out["prompt_embedding"].float()
+
+    return embed_step

@@ -279,9 +279,18 @@ def test_rel_pos_bias_matches_reference():
 
 
 def test_windowed_and_context_parallel_modes_raise():
-    _, m = _module_pair(16, 2, key=0)
-    x = torch.zeros(1, 8, 8, 16)
+    """Windowed attention runs since it was ported (against the JAX
+    package's windowed path at atol 1e-5, rtol 1e-4; a non-positive window
+    raises ValueError); context parallelism still raises."""
+    jp, m = _module_pair(16, 2, key=0)
+    x = np.random.default_rng(0).standard_normal((1, 8, 8, 16)).astype(
+        np.float32)
+    want = np.asarray(jattn.spatial_attention_reference(
+        jp, jnp.asarray(x), num_heads=2, window=16))
+    with torch.no_grad():
+        got = m(torch.from_numpy(x), window=16)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+    with pytest.raises(ValueError, match="positive"):
+        m(torch.from_numpy(x), window=0)
     with pytest.raises(NotImplementedError):
-        m(x, window=16)
-    with pytest.raises(NotImplementedError):
-        m(x, impl="allgather")
+        m(torch.from_numpy(x), impl="allgather")

@@ -180,7 +180,8 @@ def test_port_never_imports_jax():
         "        'tools.attn_roofline', 'tools.gn_stats', 'tools.fusion_overlap',\n"
         "        'utils.logging', 'utils.metrics', 'utils.hbm', 'data',\n"
         "        'data.synthetic', 'data.dataset', 'train.checkpoint',\n"
-        "        'train.loop', 'cli.train']\n"
+        "        'train.loop', 'cli.train', 'infer.evaluator',\n"
+        "        'cli.evaluate']\n"
         "missing = [n for n in need if 'lunaris_orion_tpu_torch.' + n not in mods]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"

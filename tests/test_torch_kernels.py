@@ -1004,3 +1004,40 @@ def test_batch_loader_on_the_card_yields_the_host_bytes(cuda, tmp_path, kw):
                 assert torch.equal(got[0].cpu(), want[0])
                 for g, w in zip(got[1:], want[1:], strict=True):
                     np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [64, 128, 1024])
+def test_local_window_attention_on_cuda(cuda, window, monkeypatch):
+    """The windowed path launches K2 on the folded shape: forward and
+    gradients against the same call on the CPU (the plain versions) at
+    f32's 1e-5 (dbias 1e-4 of its largest), dropout 0.1; K2's row cap
+    lowered to one image's folded rows gives one launch an image and the
+    same output bit for bit."""
+    from lunaris_orion_tpu_torch.ops.attention import local_window_attention
+    r = np.random.default_rng(window)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((2, 4, 1024, 16)).astype(
+        np.float32)) for _ in range(4))
+    bias = torch.from_numpy((0.5 * r.standard_normal((4, 1024))).astype(
+        np.float32))
+    kw = dict(window=window, dropout_rate=0.1, seed=-99)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, copy=True).requires_grad_()
+                  for t in (q, k, v, bias)]
+        before = k2.launches
+        o = local_window_attention(*leaves, **kw)
+        o.backward(do.to(dev))
+        if dev != "cpu":
+            assert k2.launches == before + 1
+        grads[str(dev)] = [o.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dbias"), grads["cpu"],
+                          grads["cuda"]):
+        tol = 1e-4 * a.abs().max().item() if name == "dbias" else 1e-5
+        assert (a - b).abs().max().item() <= tol, name
+    monkeypatch.setattr(k2, "MAX_ROWS", 4 * 1024 // window)
+    before = k2.launches
+    chunked = local_window_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                     bias.to(cuda), **kw)
+    assert k2.launches == before + 2
+    assert torch.equal(chunked.cpu(), grads["cuda"][0])

@@ -195,12 +195,29 @@ def test_teacher_train_mode_matches(pair):
 
 
 def test_teacher_train_mode_is_not_ported(pair):
-    """What train mode still lacks raises: windowed attention."""
-    x = torch.zeros(1, pair["size"], pair["size"], 3)
-    windowed = LunarMoETeacher(dataclasses.replace(pair["tcfg"],
-                                                   attn_window=16))
-    with pytest.raises(NotImplementedError):
-        tteacher.apply(windowed, x, train=True)
+    """Windowed attention in train mode, which was the part of train mode
+    not ported: the teacher with attn_window 256 (4 windows at 32 px, 9 at
+    48 px), dropout 0, against the JAX teacher at the bar of
+    test_teacher_train_mode_matches, and its running statistics."""
+    tcfg = dataclasses.replace(pair["tcfg"], attn_window=256)
+    x = np.random.default_rng(16).uniform(
+        -1, 1, (2, pair["size"], pair["size"], 3)).astype(np.float32)
+    want, new_stats = jax.jit(lambda p, s, x: jteacher.apply(
+        p, s, x, cfg=tcfg, train=True))(pair["tp"], pair["ts"], x)
+    teacher = LunarMoETeacher(tcfg)
+    teacher.load_state_dict(pair["teacher"].state_dict(), strict=True)
+    got = tteacher.apply(teacher, torch.from_numpy(x), train=True)
+    for key, atol in (("quality_scores", 1e-4), ("expert_weights", 1e-4),
+                      ("semantic_score", 1e-4), ("style_embedding", 1e-3),
+                      ("prompt_embedding", 1e-3)):
+        np.testing.assert_allclose(got[key].detach().numpy(),
+                                   np.asarray(want[key]), atol=atol,
+                                   rtol=1e-3, err_msg=key)
+    ref = teacher_state_dict_from_jax(pair["tp"], _numpy(new_stats), tcfg)
+    for k, v in teacher.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(v.numpy(), ref[k].numpy(), atol=1e-5,
+                                       rtol=1e-4, err_msg=k)
 
 
 def test_seeded_init_is_reproducible_and_jax_shaped():

@@ -4,6 +4,9 @@ the clipped AdamW, the hybrid losses, and two whole `make_train_step`
 steps from one state carried over by `train_state_from_jax`. Inputs are
 made with numpy; every tolerance is stated beside its comparison."""
 
+import dataclasses
+import io
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,7 +261,26 @@ def test_train_step_matches_jax(monkeypatch):
     """Two optimizer steps of make_train_step, A = 2 micro-batches of 2 at
     48 px (N = 2304: K2's plain versions in the port, the XLA flash path in
     JAX), teacher dropout 0, one fixed eps, remat on, from one JAX state."""
-    cfg, vcfg, tcfg = _tiny(48)
+    two_steps_match(monkeypatch, 48)
+
+
+def two_steps_match(monkeypatch, size, *, embed=False, first_step_noise=False,
+                    **options):
+    """Two optimizer steps of make_train_step with the TrainConfig
+    `options`, A = 2 micro-batches of 2 at `size` px, teacher dropout 0,
+    one fixed eps, remat on, from one JAX state, against the JAX step: the
+    metrics, both models' parameters and BatchNorm statistics, and AdamW's
+    moments against optax's. With `embed` (cached_prompt_embeddings) both
+    steps take one numpy table of prompt embeddings [A, mb, E].
+
+    With `first_step_noise`, a parameter entry whose first-step gradient is
+    at the rounding level (optax's mu after step 1 under 1e-6 of its
+    tensor's largest) counts as moved by rounding noise too: Adam divides
+    such a gradient by its own size, so the sign of noise moves it by up to
+    lr, in either package."""
+    cfg, vcfg, tcfg = _tiny(size)
+    cfg = cfg.replace(**options)
+    tcfg = dataclasses.replace(tcfg, attn_window=cfg.attn_window or None)
     eps = np.random.default_rng(6).standard_normal((2, 16)).astype(np.float32)
     _fixed_eps(monkeypatch, eps)
     js = jstate.create_state(jax.random.PRNGKey(0), cfg, vcfg, tcfg)
@@ -267,15 +289,31 @@ def test_train_step_matches_jax(monkeypatch):
     jfn = jax.jit(jstep.make_train_step(cfg, vcfg, tcfg))
     tfn = step.make_train_step(cfg)
     r = np.random.default_rng(7)
-    for _ in range(2):
-        images = r.integers(0, 256, (2, 2, 48, 48, 3), dtype=np.uint8)
-        js, jm = jfn(js, jnp.asarray(images))
-        ts, tm = tfn(ts, torch.from_numpy(images))
+    first_noise = {}
+    for i in range(2):
+        images = r.integers(0, 256, (2, 2, size, size, 3), dtype=np.uint8)
+        pe = (r.standard_normal((2, 2, tcfg.embedding_dim)).astype(np.float32)
+              if embed else None)
+        js, jm = jfn(js, jnp.asarray(images),
+                     *(() if pe is None else (jnp.asarray(pe),)))
+        ts, tm = tfn(ts, torch.from_numpy(images),
+                     None if pe is None else torch.from_numpy(pe))
         assert set(tm) == set(jm)
         for k, v in jm.items():
             # f32 scalars after ~40 layers: atol 1e-5 / rtol 1e-4.
             np.testing.assert_allclose(float(tm[k]), float(v), atol=1e-5,
                                        rtol=1e-4, err_msg=k)
+        if first_step_noise and i == 0:
+            for name, opt, to_sd in (
+                    ("vae", js.vae_opt,
+                     lambda t: vae_state_dict_from_jax(t, vcfg)),
+                    ("teacher", js.teacher_opt,
+                     lambda t: teacher_state_dict_from_jax(
+                         t, js.teacher_stats, tcfg))):
+                mu = to_sd(jax.tree_util.tree_map(np.asarray, opt[1][0].mu))
+                for k, m in mu.items():
+                    m = np.abs(m.numpy())
+                    first_noise[f"{name}.{k}"] = m < 1e-6 * m.max()
     assert ts.step == int(js.step) == 2
     assert float(ts.baseline) == pytest.approx(float(js.baseline), abs=1e-6)
     assert bool(ts.baseline_initialized) and bool(js.baseline_initialized)
@@ -294,6 +332,7 @@ def test_train_step_matches_jax(monkeypatch):
             # atol 1e-5 / rtol 1e-4. Entries moved by rounding noise only:
             # within two steps' reach, 2 x 2 lr.
             noise = _rounding_noise_only(k, w.shape, vcfg)
+            noise = noise | first_noise.get(f"{name}.{k}", False)
             a, b = got[k].numpy(), w.numpy()
             np.testing.assert_allclose(a[~noise], b[~noise], atol=1e-5,
                                        rtol=1e-4, err_msg=f"{name}.{k}")
@@ -317,7 +356,7 @@ def test_train_step_matches_jax(monkeypatch):
             for k, p in model.named_parameters():
                 s = opt.opt.state[p]
                 assert float(s["step"]) == 2.0
-                a, b = s[moment].numpy(), want_sd[k].numpy()
+                a, b = s[moment].float().numpy(), want_sd[k].numpy()
                 noise = _rounding_noise_only(k, b.shape, vcfg)
                 # f32 gradients through ~40 layers, two steps: rtol 1e-3,
                 # atol 1e-5 of the model's largest entry (a gradient not
@@ -391,15 +430,125 @@ def test_state_conversion_carries_the_optimizer():
 
 
 def test_options_without_a_port_raise():
+    """Context parallelism is what the step still lacks; the options ported
+    since (fuse_teacher, cached_prompt_embeddings, bf16_momentum,
+    attn_window) build a step."""
     cfg, _, _ = _tiny(32)
     for kw in (dict(fuse_teacher=True), dict(cached_prompt_embeddings=True),
                dict(bf16_momentum=True), dict(attn_window=256)):
-        with pytest.raises(NotImplementedError):
-            step.make_train_step(cfg.replace(**kw))
+        assert callable(step.make_train_step(cfg.replace(**kw)))
     with pytest.raises(NotImplementedError):
         step.make_train_step(cfg, cp_mesh=object(), cp_axis="model")
     with pytest.raises(NotImplementedError):
-        step.make_embed_step(cfg)
+        step.make_embed_step(cfg, cp_mesh=object(), cp_axis="model")
+
+
+@pytest.mark.parametrize("option", ["fuse_teacher",
+                                    "cached_prompt_embeddings"])
+def test_train_step_options_match_jax(monkeypatch, option):
+    """fuse_teacher (one teacher forward at 2 mb, the cosine applied
+    afterwards) and cached_prompt_embeddings (the embeddings from a table,
+    no teacher call on the inputs): two steps at 32 px against the JAX
+    step with the same option, at the bars of two_steps_match (with its
+    first-step noise: in the fused step one of the VAE's 73,728
+    `encoder.down4.0.weight` entries gets a first gradient of 1e-6 of the
+    tensor's largest)."""
+    two_steps_match(monkeypatch, 32, embed=option == "cached_prompt_embeddings",
+                    first_step_noise=True, **{option: True})
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_embed_step_matches_jax(mixed_precision):
+    """make_embed_step: eval-mode prompt embeddings [B, E] f32 against the
+    JAX embed step (f32: atol 1e-5 / rtol 1e-4 after ~40 layers; bf16
+    activations on both sides: 2e-2 of the largest)."""
+    cfg, vcfg, tcfg = _tiny(32)
+    cfg = cfg.replace(mixed_precision=mixed_precision)
+    js = jstate.create_state(jax.random.PRNGKey(3), cfg, vcfg, tcfg)
+    ts = train_state_from_jax(jax.tree_util.tree_map(np.asarray, js), cfg,
+                              vcfg, tcfg)
+    images = np.random.default_rng(11).integers(0, 256, (3, 32, 32, 3),
+                                                dtype=np.uint8)
+    want = np.asarray(jax.jit(jstep.make_embed_step(cfg, tcfg))(
+        js, jnp.asarray(images)))
+    got = step.make_embed_step(cfg)(ts, torch.from_numpy(images))
+    assert got.dtype == torch.float32 and got.shape == (3, 8)
+    if mixed_precision:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-2 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+
+
+def test_bf16_momentum_matches_optax():
+    """bf16_momentum: six updates of one model's optimizer against optax's
+    adamw(mu_dtype=bfloat16) as the JAX package's step runs it (jitted),
+    three of them clipped: the bf16 first moments within one bf16 ulp
+    plus 2^-20 of the tensor's largest (where 0.1 g and 0.9 mu nearly
+    cancel), at most 1 % of them differing at all (the clip's f32 division
+    rounds the gradient in another order, which can move the last bf16
+    bit), the
+    f32 second moments at rtol 1e-6, the parameters at 1e-7 (f32 rounding
+    of the update); then a
+    state_dict round trip (the first moment saved as its f32 values)
+    resumes bit for bit."""
+    cfg = TrainConfig(bf16_momentum=True)
+    r = np.random.default_rng(12)
+    params = {"a": r.standard_normal((30, 40)).astype(np.float32),
+              "b": r.standard_normal(50).astype(np.float32)}
+    grads = [{k: (s * r.standard_normal(v.shape)).astype(np.float32)
+              for k, v in params.items()} for s in (0.01, 3.0, 0.01) * 2]
+    tx = jstate.make_optimizers(cfg)[0]
+    update = jax.jit(tx.update)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    opt_state = tx.init(jp)
+    module = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+         for k, v in params.items()})
+    opt = state.make_optimizers(cfg, module, torch.nn.Linear(1, 1))[0]
+    for count, g in enumerate(grads):
+        upd, opt_state = update(jax.tree_util.tree_map(jnp.asarray, g),
+                                opt_state, jp)
+        jp = jax.tree_util.tree_map(lambda p, u: p + u, jp, upd)
+        for k, p in module.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step(count)
+        adam = opt_state[1][0]
+        for k, p in module.items():
+            s = opt.opt.state[p]
+            assert s["exp_avg"].dtype == torch.bfloat16
+            assert adam.mu[k].dtype == jnp.bfloat16
+            got, want = s["exp_avg"].float(), torch.from_numpy(
+                np.asarray(adam.mu[k].astype(jnp.float32)))
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(1e-30))) - 7)
+            bar = ulp + 2.0 ** -20 * want.abs().max()
+            assert ((got - want).abs() <= bar).all(), k
+            assert (got != want).float().mean() <= 0.01, k
+            np.testing.assert_allclose(s["exp_avg_sq"].numpy(),
+                                       np.asarray(adam.nu[k]), rtol=1e-6,
+                                       atol=0, err_msg=k)
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                       atol=1e-7, rtol=0, err_msg=k)
+    from lunaris_orion_tpu_torch.train.checkpoint import _optimizer
+    saved = _optimizer(opt, cfg.vae_lr, {"_last_lr": [1e-4]})
+    assert all(v["exp_avg"].dtype == torch.float32
+               for v in saved["state"].values())
+    twin = torch.nn.ParameterDict(
+        {k: torch.nn.Parameter(p.detach().clone()) for k, p in module.items()})
+    opt2 = state.make_optimizers(cfg, twin, torch.nn.Linear(1, 1))[0]
+    buf = io.BytesIO()
+    torch.save(saved, buf)
+    buf.seek(0)
+    opt2.opt.load_state_dict(torch.load(buf, weights_only=True))
+    for m, o in ((module, opt), (twin, opt2)):
+        for k, p in m.items():
+            p.grad = torch.from_numpy(grads[0][k].copy())
+        o.step(len(grads))
+    for k in module:
+        assert torch.equal(module[k], twin[k]), k
+        assert torch.equal(opt.opt.state[module[k]]["exp_avg"],
+                           opt2.opt.state[twin[k]]["exp_avg"]), k
 
 
 def test_normalize_images_matches_jax():
