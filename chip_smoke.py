@@ -136,7 +136,27 @@ Phases, each of which raises on failure (exit code 1):
               --cached_prompt_embeddings --bf16_momentum on a 40-sprite
               corpus: one epoch, a resume whose restored state equals the
               saved file bit for bit, one more epoch; the table's refresh
-              ms.
+              ms;
+ 17. serve    (run after 16) serving export, checkpoint conversion and
+              dataset synthesis at the full default width: (a)
+              `lunaris-convert-torch` to-port then to-torch, bit-equal to
+              the input .pt; (b) "cuda" bundles (the programs call K1 and
+              the K2 forward through their torch.library operators) in bf16
+              (generate at batch 2 and 8, score at 8) and f32 (generate at
+              8), a "plain" bf16 generate at 2: each program's export
+              seconds and size; (c) the bundles loaded and run in a second
+              process (`--serve`) that imports no model module, against
+              eager: generate within 1/255 and 1e-3, score 1e-3, plain
+              against cuda at batch 2 (K2's bf16 bar); (d) inside the
+              loaded programs, K1's two kernels 4 times and the K2 forward
+              12 times in a bf16 generate, the K2 forward 12 times in a
+              score, by the wrappers' counts and by name in the profiler;
+              (e) bundle against eager in turns (eager, bundle, bundle,
+              eager): generate bf16 and f32, score bf16, batch 8; (g)
+              `lunaris-synthesize-torch`: 50 procedural sprites that
+              BatchLoader reads onto the card; (f) `pixelate_device` on
+              the 16 sprites the bundles generated, card against CPU
+              (the same on 16 procedural sprites, logged), and its ms.
 
 Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
 the larger of its bytes (inputs read once, outputs written once) over
@@ -175,7 +195,13 @@ windowed bf16 evaluate batch of 16) and the windowed forward's readings
 `window_bound_by*` and `window_max_abs_err*` to the K2 forward's; the
 windowed default backward's (`window_variant`, `window_ms`, ...) to the
 fused backward's under `*_bf16` and, for f32 (split), to dq's and dk/dv's
-under `split_*`. The last lines are the card's
+under `split_*`. Phase 17 adds `launches_bundle_generate` and
+`launches_bundle_score` (one bf16 generate and one score of a loaded
+"cuda" bundle at batch 8, the serving process's counts) to K1's and the K2
+forward's entries, and phase 3 `dispatch_{bare,library,custom_op}_ms_bf16`
+to K1's (the four bf16 decoder sites by the bare launch, the
+`lunaris_orion::gn_mish` operator and a `torch.library.custom_op` of the
+same launch, in turns). The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -184,6 +210,9 @@ Without a CUDA card it exits with code 2 and prints no result.
 `--grads N` runs phase 9's comparison alone, N times with the kernels and N
 times with K1, K2 and K3's plain versions on the card, against one CPU
 step, and prints each reading (`spread_grads`).
+
+`--serve DIR` is phase 17's serving process (`serve_bundles`), which the
+main run starts itself.
 
 `--profiler-loss N` profiles phase 5's decode+score N times in f32 and N in
 bf16, with no quiet margin and with `PROFILE_MARGIN_S`, and counts the
@@ -413,6 +442,34 @@ def k1_turns(torch, k1, x, w, b, reps: int) -> list:
     return [time_ms(torch, fn, reps) for fn in (earlier, new, new, earlier)]
 
 
+def k1_dispatch(torch, k1, sites, smi) -> dict:
+    """The cost of reaching K1 through an operator: the four bf16 decoder
+    sites summed, by the bare launch (`gn_mish._kernel`), the operator
+    `lunaris_orion::gn_mish` that the port registers (a
+    `torch.library.Library` with a CUDA kernel) and the same launch
+    registered by `torch.library.custom_op` here, for this comparison
+    only; in turns (bare, library, custom_op, custom_op, library, bare)."""
+    @torch.library.custom_op(
+        "lunaris_orion_probe::gn_mish", mutates_args=(), device_types="cuda",
+        schema="(Tensor x, Tensor weight, Tensor bias, int groups, "
+               "float eps) -> Tensor")
+    def probe_op(x, weight, bias, groups, eps):
+        return k1._kernel(x, weight, bias, groups, eps)
+
+    routes = {"bare": k1._kernel,
+              "library": torch.ops.lunaris_orion.gn_mish.default,
+              "custom_op": probe_op}
+    order = ("bare", "library", "custom_op", "custom_op", "library", "bare")
+    turns = [sum(time_ms(torch, lambda: routes[r](x, w, b, 8, 1e-5), 50)
+                 for x, w, b in sites) for r in order]
+    ms = {r: min(t for o, t in zip(order, turns) if o == r) for r in routes}
+    log(f"[K1] dispatch, the four bf16 decoder sites summed, in turns "
+        f"({', '.join(order)}): {', '.join(f'{t:.4f}' for t in turns)} ms; "
+        f"the operator adds {ms['library'] - ms['bare']:.4f} ms, custom_op "
+        f"{ms['custom_op'] - ms['bare']:.4f} ms on {smi}")
+    return {f"dispatch_{r}_ms_bf16": t for r, t in ms.items()}
+
+
 def check_k1(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
     g = torch.Generator(device=dev).manual_seed(0)
@@ -474,6 +531,7 @@ def check_k1(torch, dev, smi) -> dict:
         f"{out['earlier_device_ms']:.4f}), bf16 {out['device_ms_bf16']:.4f} "
         f"ms (earlier form {out['earlier_device_ms_bf16']:.4f}); bound "
         f"{out['bound_ms']:.4f} ms by {out['bound_by']} on {smi}")
+    out |= k1_dispatch(torch, k1, sites[torch.bfloat16], smi)
     del sites
 
     # The tool's `gnmish_alone` shape: K1 in turns against the earlier
@@ -2337,6 +2395,311 @@ def run_window_trainer(torch, tmp: Path, smi: str, mods: dict) -> dict:
     return {"launches": launches, "refresh_ms": refresh}
 
 
+# --- phase 17: serving export, checkpoint conversion, dataset synthesis ----
+
+# Phase 17's bundles: the "cuda" form in bf16 (generate and score at batch
+# 8; generate at batch 2) and f32 (generate at 8), the "plain" form in bf16
+# (generate at 2).
+BUNDLES = {
+    "cuda_bf16": dict(batch_sizes=(8,), functions=("generate", "score"),
+                      bf16=True),
+    "cuda_bf16_b2": dict(batch_sizes=(2,), functions=("generate",),
+                         bf16=True),
+    "cuda_f32": dict(batch_sizes=(8,), functions=("generate",)),
+    "plain_bf16": dict(batch_sizes=(2,), functions=("generate",), bf16=True,
+                       attn="plain"),
+}
+# (bundle, function, input) of the calls the serving process makes.
+SERVE_CALLS = (("cuda_bf16", "generate", "z8"), ("cuda_bf16", "score", "u8"),
+               ("cuda_bf16_b2", "generate", "z2"),
+               ("cuda_f32", "generate", "z8"),
+               ("plain_bf16", "generate", "z2"))
+
+
+def _same_tensors(torch, a, b, where: str) -> int:
+    """Raise unless a and b hold the same structure and every tensor the
+    same dtype, shape and bits; returns the number of tensors."""
+    if isinstance(a, torch.Tensor):
+        bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(bits(a), bits(b))):
+            raise AssertionError(f"convert: {where} differs")
+        return 1
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"convert: keys of {where} differ")
+        return sum(_same_tensors(torch, a[k], b[k], f"{where}[{k!r}]")
+                   for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(_same_tensors(torch, x, y, f"{where}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b, strict=True)))
+    if a != b:
+        raise AssertionError(f"convert: {where} differs")
+    return 0
+
+
+def serve_bundles(torch, tmp: Path) -> int:
+    """Phase 17 (c) and (d), in a process of its own that imports no model
+    module: load the bundles under `tmp`, run SERVE_CALLS on the inputs the
+    parent saved, save the outputs; then one bf16 generate and one score
+    at batch 8 under torch.profiler, with the wrappers' counts set to 0
+    before each and read after, and the kernels counted by name."""
+    from torch.autograd import DeviceType
+    from lunaris_orion_tpu_torch.infer.exporter import ServingBundle
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    inputs = torch.load(tmp / "inputs.pt")
+    bundles, outputs, report = {}, {}, {"load_s": {}, "launches": {},
+                                        "kernels": {}}
+    for name, function, key in SERVE_CALLS:
+        x = inputs[key].cuda()
+        t0 = time.perf_counter()
+        bundle = bundles.setdefault(name, ServingBundle(str(tmp / name)))
+        bundle.program(function, x.shape[0])
+        report["load_s"][f"{name}/{function}"] = time.perf_counter() - t0
+        outputs[f"{name}/{function}"] = [o.cpu() for o in
+                                         bundle.run(function, x)]
+    for function, key in (("generate", "z8"), ("score", "u8")):
+        x = inputs[key].cuda()
+        k1.launches = k2.launches = 0
+        with profiled(torch) as p:
+            bundles["cuda_bf16"].run(function, x)
+        report["launches"][function] = {"gn_mish": k1.launches,
+                                        "flash_attention_fwd": k2.launches}
+        names = {}
+        for e in p.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for kernel in ("gn_stats_partial", "gn_mish_apply_fold",
+                           "flash_fwd"):
+                if kernel in e.key:
+                    names[kernel] = names.get(kernel, 0) + e.count
+        report["kernels"][function] = names
+    report["model_modules"] = sorted(
+        m for m in sys.modules if m.startswith("lunaris_orion_tpu_torch.models")
+        or m.split(".")[0] in ("jax", "lunaris_orion_tpu"))
+    torch.save(outputs, tmp / "outputs.pt")
+    (tmp / "serve.json").write_text(json.dumps(report))
+    return 0
+
+
+def run_serving(torch, tmp: Path, smi: str) -> dict:
+    """Phase 17 at the full default width, from a seeded checkpoint:
+    (a) `lunaris-convert-torch` to-port then to-torch, bit-equal to the
+    input; (b) `export_serving_bundle` of BUNDLES, each program's export
+    seconds and size against weights.bin; (c) the bundles loaded and run
+    in a second process that imports no model module (`--serve`), against
+    eager: generate against `decode_and_score` (uint8 within 1/255, scores
+    within 1e-3), score against the teacher (1e-3), the plain batch-2
+    program against the "cuda" one (K2's bf16 bar on the scores, 2/255 on
+    the images); (d) K1's two kernels 4 times and the K2 forward 12 times
+    by name in a bf16 generate, the K2 forward 12 times in a score; (e)
+    bundle against eager in turns (eager, bundle, bundle, eager)."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.cli import convert
+    from lunaris_orion_tpu_torch.infer.exporter import (ServingBundle,
+                                                        export_serving_bundle)
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
+    t_phase = time.perf_counter()
+    cfg = TrainConfig()
+    ckpt = tmp / "serve.pt"
+    save_checkpoint(torch, cfg, ckpt, seed=17)
+
+    # (a) convert
+    t0 = time.perf_counter()
+    if convert.main(["to-port", "--checkpoint", str(ckpt), "--out",
+                     str(tmp / "ported")]) != 0 or convert.main([
+            "to-torch", "--checkpoint", str(tmp / "ported"), "--out",
+            str(tmp / "back.pt")]) != 0:
+        raise AssertionError("convert: a direction failed")
+    n = _same_tensors(torch, torch.load(ckpt, weights_only=True),
+                      torch.load(tmp / "back.pt", weights_only=True), "ckpt")
+    log(f"[serve] convert to-port, to-torch: {n} tensors bit-equal to the "
+        f"input in {time.perf_counter() - t0:.1f} s")
+
+    # (b) export
+    out = {"export_s": {}, "program_mb": {}}
+    for name, kw in BUNDLES.items():
+        t0 = time.perf_counter()
+        manifest = export_serving_bundle(str(ckpt), str(tmp / name), **kw)
+        wmb = (tmp / name / "weights.bin").stat().st_size / 2**20
+        for key, e in manifest["functions"].items():
+            mb = (tmp / name / e["file"]).stat().st_size / 2**20
+            out["export_s"][f"{name}/{key}"] = e["export_seconds"]
+            out["program_mb"][f"{name}/{key}"] = mb
+            log(f"[serve] export {name} {key}: {e['export_seconds']:.1f} s, "
+                f"{mb:.2f} MB against weights.bin {wmb:.1f} MB")
+        log(f"[serve] bundle {name} in {time.perf_counter() - t0:.1f} s")
+
+    # (c), (d) in a process that imports no model module
+    g = torch.Generator().manual_seed(17)
+    z8 = torch.randn(8, cfg.latent_dim, generator=g)
+    inputs = {"z8": z8, "z2": z8[:2].clone(),
+              "u8": torch.randint(0, 256, (8, 128, 128, 3), generator=g,
+                                  dtype=torch.uint8)}
+    torch.save(inputs, tmp / "inputs.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--serve", str(tmp)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving process: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    report = json.loads((tmp / "serve.json").read_text())
+    outputs = torch.load(tmp / "outputs.pt")
+    log(f"[serve] serving process in {time.perf_counter() - t0:.1f} s; load "
+        f"s {json.dumps({k: round(v, 2) for k, v in report['load_s'].items()})}"
+        f"; model modules imported: {report['model_modules']}")
+    if report["model_modules"]:
+        raise AssertionError(f"the serving process imported "
+                             f"{report['model_modules']}")
+    gens = {bf16: ImageGenerator(str(ckpt), device="cuda", bf16=bf16)
+            for bf16 in (False, True)}
+    u8 = lambda imgs: ((imgs.float() + 1.0) * 127.5).clamp(0, 255).to(
+        torch.uint8)
+    errs = {}
+    for name, bf16, key in (("cuda_bf16", True, "z8"),
+                            ("cuda_f32", False, "z8"),
+                            ("cuda_bf16_b2", True, "z2")):
+        imgs, q, sem = (t.cpu() for t in gens[bf16].decode_and_score(
+            inputs[key].cuda()))
+        got = outputs[f"{name}/generate"]
+        errs[name] = ((got[0].int() - u8(imgs).int()).abs().max().item(),
+                      (got[1] - q).abs().max().item(),
+                      (got[2] - sem).abs().max().item())
+        if errs[name][0] > 1 or max(errs[name][1:]) > 1e-3:
+            raise AssertionError(f"bundle {name} generate against eager: "
+                                 f"{errs[name]}")
+    teacher = gens[True].teacher
+    score = lambda x: teacher(x.to(torch.bfloat16) / 127.5 - 1.0)
+    with torch.no_grad(), full_f32():
+        ref = score(inputs["u8"].cuda())
+    ref = [ref["quality_scores"], ref["expert_weights"],
+           ref["semantic_score"][:, 0], ref["style_embedding"]]
+    errs["score"] = max((o - r.float().cpu()).abs().max().item()
+                        for o, r in zip(outputs["cuda_bf16/score"], ref))
+    if errs["score"] > 1e-3:
+        raise AssertionError(f"bundle score against eager: {errs['score']}")
+    plain, cuda = outputs["plain_bf16/generate"], outputs[
+        "cuda_bf16_b2/generate"]
+    img_err = (plain[0].int() - cuda[0].int()).abs().max().item()
+    bar_ok = all(bool(((p - c).abs() <= 2 * bf16_ulp(torch, c)
+                       + 1e-3 * c.abs().max()).all())
+                 for p, c in zip(plain[1:], cuda[1:]))
+    errs["plain_vs_cuda"] = (img_err, max((p - c).abs().max().item()
+                                          for p, c in zip(plain[1:],
+                                                          cuda[1:])))
+    log(f"[serve] against eager (uint8 max diff, quality, semantic; score: "
+        f"the largest; plain_vs_cuda: uint8, scores): {json.dumps(errs)}")
+    want = {"generate": ({"gn_mish": 4, "flash_attention_fwd": 12},
+                         {"gn_stats_partial": 4, "gn_mish_apply_fold": 4,
+                          "flash_fwd": 12}),
+            "score": ({"gn_mish": 0, "flash_attention_fwd": 12},
+                      {"flash_fwd": 12})}
+    for function, (counts, kernels) in want.items():
+        if (report["launches"][function] != counts
+                or report["kernels"][function] != kernels):
+            raise AssertionError(
+                f"bundle {function}: launches {report['launches'][function]}"
+                f", kernels {report['kernels'][function]}; expected {counts}"
+                f", {kernels}")
+    log(f"[serve] launches inside the loaded programs (wrappers; profiler by "
+        f"name): {json.dumps(report['launches'])}; "
+        f"{json.dumps(report['kernels'])}")
+    out |= {"launches": report["launches"], "load_s": report["load_s"],
+            "errs": errs}
+
+    # (e) times, bundle against eager in turns
+    for label, name, bf16, function, x in (
+            ("generate bf16", "cuda_bf16", True, "generate", z8),
+            ("generate f32", "cuda_f32", False, "generate", z8),
+            ("score bf16", "cuda_bf16", True, "score", inputs["u8"])):
+        bundle = ServingBundle(str(tmp / name))
+        x = x.cuda()
+        if function == "generate":
+            eager = lambda: gens[bf16].decode_and_score(x)
+        else:
+            def eager():
+                with torch.no_grad(), full_f32():
+                    return score(x)
+        run = lambda: bundle.run(function, x)
+        t = [time_ms(torch, fn, 5) for fn in (eager, run, run, eager)]
+        out[f"{function}_{'bf16' if bf16 else 'f32'}_ms"] = {
+            "eager": min(t[0], t[3]), "bundle": min(t[1:3])}
+        log(f"[serve] {label} batch 8 in turns (eager, bundle, bundle, "
+            f"eager): {', '.join(f'{v:.2f}' for v in t)} ms on {smi}")
+    log(f"[serve] (a)-(e) in {time.perf_counter() - t_phase:.0f} s")
+    if img_err > 2 or not bar_ok:
+        raise AssertionError(f"plain against cuda program at batch 2: "
+                             f"{errs['plain_vs_cuda']}")
+    return out
+
+
+def _pixelate_card_cpu(torch, sprites) -> tuple:
+    """`pixelate_device` of uint8 sprites on the card and on the CPU, TF32
+    off: (the Lanczos filter's max abs difference on [0, 1] values, the
+    share of output pixels of the same palette colour)."""
+    from lunaris_orion_tpu_torch.infer.generator import full_f32
+    from lunaris_orion_tpu_torch.ops import image_ops
+    with full_f32():
+        lz = [image_ops.lanczos_downscale(s.float() / 255.0, 8).cpu()
+              for s in (sprites.cuda(), sprites.cpu())]
+        px = [image_ops.pixelate_device(s).cpu()
+              for s in (sprites.cuda(), sprites.cpu())]
+    return ((lz[0] - lz[1]).abs().max().item(),
+            (px[0] == px[1]).all(dim=-1).float().mean().item())
+
+
+def run_synthesis(torch, tmp: Path, smi: str) -> dict:
+    """Phase 17 (g), then (f): `lunaris-synthesize-torch` writes a
+    procedural corpus of 50 sprites at 128 px that the port's BatchLoader
+    reads onto the card; `pixelate_device` (pixel_size 8, 64 colours) card
+    against CPU with TF32 off on the 16 sprites the bundles generated in
+    (c), whose share is held: the Lanczos filter within 1e-4 (on [0, 1]
+    values), at least 99.9 % of pixels given the same palette colour; its
+    ms by CUDA events. The same comparison on 16 procedural sprites is
+    logged, not held: their blocks make exact distance ties, which the
+    last bit of rounding may break one way on the card and another on the
+    CPU, and their content changes from run to run with Python's string
+    hash (99.88-99.98 % in two runs, with the JAX package's expanded
+    distances, which `image_ops` no longer uses)."""
+    import numpy as np
+    from lunaris_orion_tpu_torch.cli import synthesize
+    from lunaris_orion_tpu_torch.data import BatchLoader, SpriteDataset
+    from lunaris_orion_tpu_torch.ops import image_ops
+    t0 = time.perf_counter()
+    corpus = tmp / "corpus"
+    if synthesize.main(["--output_dir", str(corpus), "--total", "50",
+                        "--batch_size", "25", "--seed", "0",
+                        "--no_pngs"]) != 0:
+        raise AssertionError("synthesize failed")
+    ds = SpriteDataset(str(corpus))
+    batches = list(BatchLoader(ds, np.arange(len(ds)), batch_size=16,
+                               device="cuda", squeeze_accum=True))
+    if len(ds) != 50 or len(batches) != 3 or batches[0].dtype != torch.uint8 \
+            or batches[0].shape != (16, 128, 128, 3):
+        raise AssertionError(f"synthesized corpus: {len(ds)} sprites, "
+                             f"{len(batches)} batches")
+    t_synth = time.perf_counter() - t0
+    outputs = torch.load(tmp / "outputs.pt")
+    sprites = torch.cat([outputs["cuda_bf16/generate"][0],
+                         outputs["cuda_f32/generate"][0]]).cuda()
+    lz_err, same = _pixelate_card_cpu(torch, sprites)
+    lz_corpus, same_corpus = _pixelate_card_cpu(torch, batches[0])
+    ms = time_ms(torch, lambda: image_ops.pixelate_device(sprites), 5)
+    log(f"[synth] lunaris-synthesize-torch: 50 sprites in {t_synth:.1f} s, "
+        f"read by BatchLoader onto the card in 3 batches of 16; "
+        f"pixelate_device 16 x 128 px: {ms:.2f} ms on {smi}; card against "
+        f"CPU on the generated sprites: Lanczos max_abs_err {lz_err:.2e}, "
+        f"{same:.4%} of pixels the same palette colour; on 16 procedural "
+        f"sprites (logged only): {lz_corpus:.2e}, {same_corpus:.4%}")
+    if lz_err > 1e-4 or same < 0.999:
+        raise AssertionError(f"pixelate_device card against CPU: Lanczos "
+                             f"{lz_err}, same colour {same}")
+    return {"pixelate_ms": ms, "lanczos_err": lz_err, "same_colour": same,
+            "same_colour_procedural": same_corpus}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2344,6 +2707,8 @@ def main() -> int:
               "run needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if sys.argv[1:2] == ["--serve"]:
+        return serve_bundles(torch, Path(sys.argv[2]))
     smi = probe(torch)
     if sys.argv[1:2] == ["--grads"]:
         return spread_grads(torch, int(sys.argv[2]))
@@ -2384,6 +2749,16 @@ def main() -> int:
         wstep = run_window_train(torch, smi, mods)
         wtrainer = run_window_trainer(torch, Path(tmp), smi, mods)
     log(f"[window] phase 16 in {time.perf_counter() - t16:.0f} s")
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        serving = run_serving(torch, Path(tmp), smi)
+        synth = run_synthesis(torch, Path(tmp), smi)
+    log(f"[serve] phase 17 in {time.perf_counter() - t17:.0f} s")
+    # Phase 17's paths: one bf16 generate and one score of a loaded "cuda"
+    # bundle at batch 8 (the serving process's counts).
+    x17 = lambda key: {
+        "launches_bundle_generate": serving["launches"]["generate"][key],
+        "launches_bundle_score": serving["launches"]["score"][key]}
     # Phase 16's paths: W = one windowed bf16 train step, E = one windowed
     # bf16 evaluate batch of 16, trainer_launches_window = 16 (d)'s run.
     w16 = lambda key: {"launches_window_step": wstep["launches"][key],
@@ -2394,14 +2769,15 @@ def main() -> int:
         dict(name="gn_mish", route="cuda", source=src + "gn_mish.cu",
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"],
-             trainer_launches=trainer["gn_mish"], **w16("gn_mish"), **k1,
-             **pass1),
+             trainer_launches=trainer["gn_mish"], **w16("gn_mish"),
+             **x17("gn_mish"), **k1, **pass1),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"],
              trainer_launches=trainer["flash_attention_fwd"],
              launches_evaluate=evaluate["evaluate_window_bf16_launches"],
-             **w16("flash_attention_fwd"), **k2, **window["fwd"]),
+             **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
+             **k2, **window["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
@@ -2438,6 +2814,7 @@ def main() -> int:
              launches=tools["lane_sums_partials"], **lane),
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
+    log(f"[serve] summary: {json.dumps({**serving, **synth})}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -153,7 +153,7 @@ class TrainConfig:
     attn_impl: str = "auto"     # JAX package: attention dispatch ('auto', 'full',
                                 # 'flash', 'pallas', 'ring', 'allgather')
     attn_window: int = 0        # >0: teacher attention within windows of this many
-                                # tokens (not ported yet: the port raises)
+                                # tokens (K2 over the windows folded into the heads)
     val_fraction: float = 0.1
     prefetch_depth: int = 2
     donate_state: bool = True
@@ -161,17 +161,16 @@ class TrainConfig:
     debug_nans: bool = False    # JAX package: nan checking
     remat: Optional[bool] = None  # None: a planner may pick no-remat when it fits
     fast_rng: bool = True       # JAX package: PRNG implementation
-    bf16_momentum: bool = False  # bf16 Adam first moments (not ported: raises)
+    bf16_momentum: bool = False  # bf16 Adam first moments
     steps_per_call: int = 1     # JAX package: optimizer steps per dispatched call
     device_data: bool = False   # keep the corpora resident on the device
     hang_watchdog_secs: float = 0.0  # >0: exit with code 66 when no heartbeat lands
                                 # within this many seconds
     cached_prompt_embeddings: bool = False  # per-sample prompt-embedding
                                 # table instead of the teacher call on the
-                                # inputs (not ported: raises)
+                                # inputs
     embed_refresh_epochs: int = 1
-    fuse_teacher: bool = False  # one teacher forward over both batches (not ported:
-                                # raises)
+    fuse_teacher: bool = False  # one teacher forward over both batches
 
     def vae_config(self) -> VAEConfig:
         return VAEConfig(latent_dim=self.latent_dim, image_size=self.image_size)

@@ -1,7 +1,9 @@
-"""Device selection. A request for CUDA without a card raises: the port
-never falls back to the CPU on its own."""
+"""Device selection and the f32 policy. A request for CUDA without a card
+raises: the port never falls back to the CPU on its own."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -20,3 +22,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for cuDNN convolutions and CUDA matrix products, restored
+    on exit: the full-f32 policy of decoding and scoring."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm

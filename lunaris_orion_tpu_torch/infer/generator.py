@@ -16,7 +16,6 @@ statistics and the attention's softmax stay f32, as in the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import time
 from pathlib import Path
@@ -27,25 +26,11 @@ import torch
 
 from lunaris_orion_tpu_torch.config import TrainConfig
 from lunaris_orion_tpu_torch.utils.image import sample_grid, save_png, to_uint8
-from lunaris_orion_tpu_torch.device import resolve_device
+from lunaris_orion_tpu_torch.device import full_f32, resolve_device
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
 from lunaris_orion_tpu_torch.train.checkpoint import checkpoint_file
 from lunaris_orion_tpu_torch.utils.convert import load_reference_checkpoint
-
-
-@contextlib.contextmanager
-def full_f32():
-    """TF32 off for cuDNN convolutions and CUDA matrix products, restored
-    on exit."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 def checkpoint_path(checkpoint: str, *, best: bool = False,

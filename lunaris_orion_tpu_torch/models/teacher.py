@@ -295,7 +295,8 @@ class LunarMoETeacher(nn.Module):
         `teacher.apply`: quality_scores [B, 4] (sigmoid), expert_weights
         [B, E], style_embedding / prompt_embedding [B, emb], semantic_score
         [B, 1]. Eval mode unless `train` is given (see `apply`). `attn_impl`
-        is the attention's impl in both modes ('auto', 'full' or 'flash',
+        is the attention's impl in both modes ('auto', 'full' or 'flash';
+        in eval mode also 'plain', K2's plain version on any device:
         `SpatialAttention.forward`); `cfg.attn_window` windows it unless
         `global_attn`."""
         window = None if global_attn else self.cfg.attn_window

@@ -120,11 +120,13 @@ class LunarisCoreVAE(nn.Module):
                                self.encoder.fc_logvar.bias)
         return mu, logvar, skips
 
-    def decode(self, z: torch.Tensor,
-               skips: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, skips: Sequence[torch.Tensor] = (),
+               *, plain: bool = False) -> torch.Tensor:
         """z [B, latent] (+ optional encoder skips) -> [B, H, W, 3] in
         [-1, 1], in z's dtype. Skip fusion is guarded by len(skips), so the
-        skip-free prior decode works (lunar_generate.py:211-224, 288-291)."""
+        skip-free prior decode works (lunar_generate.py:211-224, 288-291).
+        `plain` runs K1's plain version on any device (the exporter's
+        portable form) instead of the kernel."""
         cfg = self.cfg
         n, hw = cfg.num_down, cfg.bottleneck_hw
         h = layers.linear(z, self.decoder.fc.weight, self.decoder.fc.bias)
@@ -135,7 +137,7 @@ class LunarisCoreVAE(nn.Module):
             conv, gn = blk[0], blk[1]
             h = layers.conv_transpose_421(h, conv.weight, conv.bias)
             h = layers.group_norm_mish(h, gn.weight, gn.bias,
-                                       groups=gn.num_groups)
+                                       groups=gn.num_groups, plain=plain)
             j = n - 2 - i
             if 0 <= j < len(skips):
                 h = h + skips[j].permute(0, 3, 1, 2)

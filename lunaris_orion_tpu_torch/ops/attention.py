@@ -9,8 +9,10 @@ kernels on a CUDA device, their plain blockwise versions on the CPU.
 Train mode adds dropout on the attention probabilities (Bernoulli on the
 full path, K2's hash on the flash and windowed paths) and on the projected
 output. A `window` below N runs `local_window_attention`: K2 over the
-windows folded into the head axis. Ring and allgather attention are not
-ported yet and raise.
+windows folded into the head axis. The impl 'plain' runs K2's plain
+version (`attention_plain`, blockwise) on any device, windowed or not: the
+exporter's portable form. Ring and allgather attention are not ported yet
+and raise.
 
 Public functions keep the JAX package's layouts: feature maps NHWC
 [B, H, W, C]; q, k, v [B, heads, N, d]; bias [heads, N].
@@ -26,6 +28,12 @@ import torch.nn as nn
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
 from lunaris_orion_tpu_torch.ops.rng import device_generator, int32_seed
+
+# Scores a block of the 'plain' impl (512 MiB in f32): an exported program
+# unrolls `attention_plain`'s loop over the blocks, so fewer, larger blocks
+# than its default keep the program small (at 128 px, batch 2: 32 blocks a
+# call, not 128).
+PLAIN_BLOCK_ELEMS = 2**27
 
 
 def interp_align_corners(p: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -88,7 +96,8 @@ class WindowTilingError(ValueError):
 def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, window: int,
                            dropout_rate: float = 0.0, seed: int = 0,
-                           bwd: Optional[str] = None) -> torch.Tensor:
+                           bwd: Optional[str] = None,
+                           plain: bool = False) -> torch.Tensor:
     """Attention in which each token sees only the keys of its own
     contiguous window of the flattened token axis (the JAX package's
     `local_window_attention`). q, k, v [B, heads, N, d] contiguous, bias
@@ -103,7 +112,8 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `row_offset` as rows of the one call, so the dropout mask does not
     depend on the chunking. Dropout is K2's hash over (seed, folded row,
     position in the window): the JAX package draws its windowed masks from
-    jax.random instead, so the masks differ from it."""
+    jax.random instead, so the masks differ from it. `plain` runs K2's
+    plain version (`attention_plain`) on any device, at dropout 0 only."""
     b, h, n, d = q.shape
     if window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -116,6 +126,13 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"windows exceed K2's {k2.MAX_ROWS} rows a call")
     fold = lambda t: t.reshape(t.shape[0], rows, window, d)
     bias_w = bias.reshape(rows, window)
+    if plain:
+        if dropout_rate:
+            raise ValueError("local_window_attention: plain=True runs "
+                             "without dropout")
+        out, _ = k2.attention_plain(fold(q), fold(k), fold(v), bias_w,
+                                    max_elems=PLAIN_BLOCK_ELEMS)
+        return out.reshape(b, h, n, d)
     chunk = k2.MAX_ROWS // rows
     outs = [k2.flash_attention(
         fold(q[i:i + chunk]), fold(k[i:i + chunk]), fold(v[i:i + chunk]),
@@ -149,9 +166,11 @@ class SpatialAttention(nn.Module):
                 bwd: Optional[str] = None) -> torch.Tensor:
         """x [B, H, W, C] -> [B, H, W, C].
 
-        impl: 'auto' (N <= 1024 -> 'full', else 'flash'), 'full', or
-        'flash' (K2). A `window` below N overrides it with
-        `local_window_attention`, as in the JAX package. seeds:
+        impl: 'auto' (N <= 1024 -> 'full', else 'flash'), 'full',
+        'flash' (K2) or 'plain' (K2's plain version on any device, eval
+        only). A `window` below N overrides it with
+        `local_window_attention` (its plain version with 'plain'), as in
+        the JAX package. seeds:
         (attention, projection) seeds of train-mode dropout at
         `dropout_rate`; None runs without dropout. bwd: K2's backward
         variant on CUDA (None: its default)."""
@@ -164,6 +183,9 @@ class SpatialAttention(nn.Module):
         if windowed and impl in ("ring", "allgather"):
             raise ValueError(f"window={window} cannot combine with "
                              f"impl={impl!r}")
+        plain = impl == "plain"
+        if plain and seeds is not None:
+            raise ValueError("impl='plain' is the eval path: no dropout")
         if windowed:
             impl = "window"
         elif impl == "auto":
@@ -181,7 +203,12 @@ class SpatialAttention(nn.Module):
             out = local_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias,
                 window=window, dropout_rate=dropout_rate if drop else 0.0,
-                seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd)
+                seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd,
+                plain=plain)
+        elif impl == "plain":
+            out, _ = k2.attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), bias,
+                                        max_elems=PLAIN_BLOCK_ELEMS)
         elif impl == "flash":
             out, _ = k2.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias,

@@ -41,6 +41,12 @@ the forward takes q unscaled: the d^-1/2 factor on dq is applied inside.
 Dropout is the JAX package's stateless hash (`_keep_mask`), bit for bit, so
 the backward regenerates the forward's mask from (seed, row, k, q).
 
+At dropout 0 the forward goes through the operator
+`lunaris_orion::flash_attention_fwd` (`ops/library.py`; CUDA kernel
+`forward_kernel`, CPU kernel `attention_plain`): inside the autograd
+Function, and alone when no gradient is recorded, so that eager and
+traced (`torch.export`) code take one route into the kernel.
+
 `launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
 count the kernel launches; the plain versions do not count.
 """
@@ -563,7 +569,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, dropout_rate, seed, q_offset, row_offset,
                 bwd):
-        if q.device.type == "cpu":
+        if dropout_rate == 0.0:
+            o, lse = torch.ops.lunaris_orion.flash_attention_fwd.default(
+                q, k, v, bias, q_offset, row_offset)
+        elif q.device.type == "cpu":
             o, lse = attention_plain(q, k, v, bias, dropout_rate=dropout_rate,
                                      seed=seed, q_offset=q_offset,
                                      row_offset=row_offset)
@@ -600,10 +609,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that of the first B*H row, as seen by the dropout hash (both 0 for the
     square single-device call). `bwd` picks the backward kernels on CUDA
     ("fused" or "split"; None: `default_bwd`). Returns (o [B, H, Nq, d],
-    lse [B*H, Nq]); o is differentiable in q, k, v and bias."""
+    lse [B*H, Nq]); o is differentiable in q, k, v and bias. At dropout 0
+    with no gradient to record it calls the operator alone."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if bwd is not None and bwd not in BWD_VARIANTS:
         raise ValueError(f"flash_attention: bwd {bwd!r} not in {BWD_VARIANTS}")
+    if dropout_rate == 0.0 and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias))):
+        return torch.ops.lunaris_orion.flash_attention_fwd.default(
+            q, k, v, bias, q_offset, row_offset)
     return _FlashAttention.apply(q, k, v, bias, dropout_rate, seed, q_offset,
                                  row_offset, bwd)

@@ -9,7 +9,11 @@ and computes exactly what `group_norm_mish_pallas` computes.
 `gn_mish` is a `torch.autograd.Function`: its backward is the
 vector-Jacobian product of `gn_mish_plain`, recomputed from the saved
 input, as the JAX package differentiates its Pallas K1 through the XLA
-composition (`ops/dispatch.py` `pallas_fwd_xla_bwd`).
+composition (`ops/dispatch.py` `pallas_fwd_xla_bwd`). Its forward, and
+`gn_mish` itself when no gradient is recorded, call the operator
+`lunaris_orion::gn_mish` (`ops/library.py`), whose CUDA kernel is
+`_kernel` and whose CPU kernel is `gn_mish_plain`: eager and traced
+(`torch.export`) code take one route into the kernel.
 
 On a CUDA tensor K1 is two launches: pass 1 (per-split partial sums),
 then the apply, whose blocks each fold their image's partials into the
@@ -418,9 +422,8 @@ class _GnMish(torch.autograd.Function):
     def forward(ctx, x, weight, bias, groups, eps):
         ctx.save_for_backward(x, weight, bias)
         ctx.groups, ctx.eps = groups, eps
-        if x.device.type == "cpu":
-            return gn_mish_plain(x, weight, bias, groups=groups, eps=eps)
-        return _kernel(x, weight, bias, groups, eps)
+        return torch.ops.lunaris_orion.gn_mish.default(x, weight, bias,
+                                                       groups, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -439,7 +442,12 @@ def gn_mish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             *, groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
     """K1 on x [B, H, W, C] (contiguous NHWC, f32 or bf16) with f32
     weight/bias [C]; returns a new NHWC tensor of x's dtype,
-    differentiable in x, weight and bias."""
+    differentiable in x, weight and bias. Without a gradient to record it
+    calls the operator alone."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gn_mish: unsupported device {x.device}")
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias))):
+        return torch.ops.lunaris_orion.gn_mish.default(x, weight, bias,
+                                                       groups, eps)
     return _GnMish.apply(x, weight, bias, groups, eps)

@@ -73,12 +73,14 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
 
 def group_norm_mish(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, *, groups: int = 8,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    eps: float = 1e-5, plain: bool = False) -> torch.Tensor:
     """mish(GroupNorm(x)) on NCHW x through K1: the kernel for a CUDA
     tensor (which must be channels_last), its plain version for a CPU one.
-    Returns a channels_last NCHW tensor."""
-    y = k1.gn_mish(x.permute(0, 2, 3, 1), weight.float(), bias.float(),
-                   groups=groups, eps=eps)
+    `plain` runs the plain version on any device (the exporter's portable
+    form). Returns a channels_last NCHW tensor."""
+    fn = k1.gn_mish_plain if plain else k1.gn_mish
+    y = fn(x.permute(0, 2, 3, 1), weight.float(), bias.float(),
+           groups=groups, eps=eps)
     return y.permute(0, 3, 1, 2)
 
 

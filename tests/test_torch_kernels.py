@@ -1041,3 +1041,74 @@ def test_local_window_attention_on_cuda(cuda, window, monkeypatch):
                                      bias.to(cuda), **kw)
     assert k2.launches == before + 2
     assert torch.equal(chunked.cpu(), grads["cuda"][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_bundle_matches_eager(cuda, tmp_path, bf16):
+    """A "cuda" serving bundle at 64 px (N = 4096, d 16: K2) launches K1
+    and the K2 forward through their operators and gives the eager path's
+    outputs: generate against `decode_and_score` (uint8 within 1, scores
+    within 1e-3), score against the teacher's eager forward (1e-3)."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.infer.exporter import (ServingBundle,
+                                                        export_serving_bundle)
+    from lunaris_orion_tpu_torch.infer.generator import (ImageGenerator,
+                                                         full_f32)
+    from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
+    from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=128,
+                      embedding_dim=32, num_experts=2)
+    g = torch.Generator().manual_seed(5)
+    vae, teacher = LunarisCoreVAE(cfg.vae_config()), LunarMoETeacher(
+        cfg.teacher_config())
+    vae.reset_parameters(g)
+    teacher.reset_parameters(g)
+    ckpt = tmp_path / "c.pt"
+    torch.save({"vae_state_dict": vae.state_dict(),
+                "teacher_state_dict": teacher.state_dict(),
+                "args": cfg.to_dict(), "global_step": 1}, ckpt)
+    export_serving_bundle(str(ckpt), str(tmp_path / "b"), batch_sizes=(2,),
+                          bf16=bf16)
+    bundle = ServingBundle(str(tmp_path / "b"))
+    gen = ImageGenerator(str(ckpt), device="cuda", bf16=bf16)
+    z = torch.randn(2, cfg.latent_dim, generator=g).to(cuda)
+    before = (k1.launches, k2.launches)
+    imgs, q, s = bundle.run("generate", z)
+    assert (k1.launches - before[0], k2.launches - before[1]) == (
+        cfg.vae_config().num_down, 2 * 3)
+    e_imgs, e_q, e_s = gen.decode_and_score(z)
+    e_u8 = ((e_imgs + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+    assert (imgs.int() - e_u8.int()).abs().max().item() <= 1
+    assert (q - e_q).abs().max().item() <= 1e-3
+    assert (s - e_s).abs().max().item() <= 1e-3
+    out = bundle.run("score", imgs)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    with torch.no_grad(), full_f32():
+        ref = gen.teacher(imgs.to(dt) / 127.5 - 1.0)
+    for got, key in zip(out, ("quality_scores", "expert_weights",
+                              "semantic_score", "style_embedding")):
+        want = ref[key].float()
+        want = want[:, 0] if key == "semantic_score" else want
+        assert (got - want).abs().max().item() <= 1e-3, key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["gn_mish", "flash_attention_fwd"])
+def test_operators_opcheck_on_cuda(cuda, op, dtype):
+    """The operators' fake tensors against the kernels' own outputs
+    (shape, dtype, strides) and their schemas, on CUDA tensors: each call
+    launches the kernel."""
+    from lunaris_orion_tpu_torch.ops import library
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rand = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    if op == "gn_mish":
+        args = (rand(2, 8, 8, 64).to(dtype), rand(64), rand(64), 8, 1e-5)
+    else:
+        args = (rand(2, 8, 256, 16).to(dtype), rand(2, 8, 192, 16).to(dtype),
+                rand(2, 8, 192, 16).to(dtype), rand(8, 192), 0, 0)
+    before = (k1.launches, k2.launches)
+    result = torch.library.opcheck(getattr(library, op), args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    assert (k1.launches, k2.launches) != before
