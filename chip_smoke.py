@@ -114,7 +114,7 @@ Phases, each of which raises on failure (exit code 1):
               epochs' sprites/s beside phase 10's bare bf16 step of the
               same remat setting (the loop's cost),
               validation, checkpoint copy and write, and resume load ms;
- 16. window   (run last) windowed attention, the evaluator and the training
+ 16. window   (run after 14) windowed attention, the evaluator and the training
               options at window 256: (a) `local_window_attention` (K2 over
               the windows folded into the heads) at B16 H8 N16384 d16, f32
               and bf16, forward at dropout 0 and 0.1 and the default
@@ -157,6 +157,28 @@ Phases, each of which raises on failure (exit code 1):
               BatchLoader reads onto the card; (f) `pixelate_device` on
               the 16 sprites the bundles generated, card against CPU
               (the same on 16 procedural sprites, logged), and its ms.
+ 18. dist     (run last) the parallel layer: (a) the Trainer at
+              `--mesh_shape 1 1`, bf16, full width, 2 steps (24 sprites)
+              as a torchrun-style single rank with an NCCL process group
+              and without one: parameters and BatchNorm statistics equal
+              bit for bit (both with the split K2 backward and cuDNN's
+              deterministic algorithms), the NCCL collectives counted; (b)
+              two ranks on the one card over gloo (`_dist_rank`, spawned;
+              gloo's collectives of CUDA tensors staged through the host)
+              at the full default width against the single-process step
+              on the same state and global batch, dropout 0.1,
+              accumulation 1: DP (2, 1) at batch 4, CP (1, 2) allgather at
+              4 (K2 launched on q shards, counted) and ring at 2, in f32
+              with TF32 off at phase 9's bars, and DP in bf16 read beside
+              the bf16 step's own noise (`DIST_CASES`); the two ranks'
+              gradients equal bit for bit; each rank's step s and peak
+              memory; `allgather_attention` alone at B2 H8 N16384 d16 bf16
+              dropout 0.1 against one K2 call (phases 4 and 7's bars; dk
+              and dv, sums of two rounded partials, to one ulp of the
+              largest), its ms beside the call's ("2 ranks over gloo on
+              one card": not NCCL across cards); the K2 forward and
+              default backward alone on one rank's CP shard (Nq 8192 x Nk
+              16384), beside their bound and SDPA.
 
 Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
 the larger of its bytes (inputs read once, outputs written once) over
@@ -201,7 +223,13 @@ under `split_*`. Phase 17 adds `launches_bundle_generate` and
 forward's entries, and phase 3 `dispatch_{bare,library,custom_op}_ms_bf16`
 to K1's (the four bf16 decoder sites by the bare launch, the
 `lunaris_orion::gn_mish` operator and a `torch.library.custom_op` of the
-same launch, in turns). The last lines are the card's
+same launch, in turns). Phase 18 adds `launches_dist_allgather` (rank 1's
+launches, all on its q shard, in the f32 allgather step of (b)) to the K2
+forward's, dq's and dk/dv's entries, and the K2 forward's and the bf16
+default backward's times alone on a CP shard (`cp_shard_ms`,
+`cp_shard_bound_ms`, `cp_shard_bound_by`, `cp_shard_library_ms`: SDPA on
+the same rectangular shape; `cp_shard_variant`) to the forward's and the
+fused backward's. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2700,6 +2728,447 @@ def run_synthesis(torch, tmp: Path, smi: str) -> dict:
             "same_colour_procedural": same_corpus}
 
 
+# --- phase 18: the parallel layer (data and context parallelism) -----------
+
+# Phase 18 (b)'s step cases: (tag, mesh shape, attention impl, global batch,
+# bf16). The whole-step comparisons are held in f32 with TF32 off, where
+# phase 9's bars hold: in bf16 a rounding-level change (the order of
+# BatchNorm's sums, another cuDNN algorithm at another batch, the ring's f32
+# fold against K2's bf16 rounding points) moves an activation by a bf16
+# ulp, and the teacher amplifies that far beyond those bars (on the CPU at
+# 48 px: 5 % of semantic_reward, 11 % of a conv -> BatchNorm gradient; on
+# the card 270x phase 9's gradient bar and 1,000x its metric bar, where the
+# single-process step with its BatchNorm sums taken in two parts moves
+# 170x and 150x from itself). So the bf16 DP step is read beside that
+# noise and held only to equal ranks and finite values. The ring folds its
+# chunks in plain torch (f32 score tiles of 8 heads x 8192 x 512 a block,
+# the hash in int64 ops) and takes batch 2: at batch 1 train-mode
+# BatchNorm makes the pooled features the gate reads a constant, and their
+# gradients rounding noise (any two attention impls then differ by 100 %).
+DIST_CASES = (("dp", (2, 1), "auto", 4, False),
+              ("dp_bf16", (2, 1), "auto", 4, True),
+              ("allgather", (1, 2), "allgather", 4, False),
+              ("ring", (1, 2), "ring", 2, False))
+DIST_ATTN = (2, 8, 16384, 16)           # allgather_attention alone: B H N d
+
+
+def _dist_images(torch, batch: int):
+    return torch.randint(0, 256, (1, batch, 128, 128, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(18))
+
+
+def _dist_attn_inputs(torch, dev):
+    g = torch.Generator(device=dev).manual_seed(19)
+    b, h, n, d = DIST_ATTN
+    qkv = [torch.randn(b, h, n, d, device=dev, generator=g).to(torch.bfloat16)
+           for _ in range(4)]
+    bias = torch.randn(h, n, device=dev, generator=g) * 0.1
+    return qkv[:3], bias, qkv[3]            # q, k, v; bias; dO
+
+
+@contextlib.contextmanager
+def bn_sums_in_parts(torch, parts: int):
+    """BatchNorm's batch sums taken over `parts` equal slices of the batch
+    and added in order, as `parts` data ranks take them (each its slice,
+    then an all-reduce): the single-process reference of a data-parallel
+    bf16 step. In bf16 the order alone moves the step beyond phase 9's
+    bars: activations round to bf16 after the normalization, and a
+    rounding-level change of the moments moves a bf16 element by an ulp
+    (on the CPU at 48 px, splitting the sums in two moved semantic_reward
+    from 0.07770 to 0.07340, which is what two data ranks give)."""
+    from lunaris_orion_tpu_torch.ops import layers
+    original = layers.batch_norm_train
+
+    def split(x, running_mean, running_var, weight, bias, *, momentum=0.1,
+              eps=1e-5, axis=None):
+        x32 = x.float()
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        total = sum(c.sum(dim=(0, 2, 3)) for c in x32.chunk(parts))
+        mean = total / n
+        centered = x32 - mean[None, :, None, None]
+        var = sum(c.square().sum(dim=(0, 2, 3))
+                  for c in centered.chunk(parts)) / n
+        with torch.no_grad():
+            new_mean = (1 - momentum) * running_mean + momentum * mean
+            new_var = (1 - momentum) * running_var + momentum * (
+                var * (n / max(n - 1, 1)))
+        out = (centered * torch.rsqrt(var + eps)[None, :, None, None]
+               * weight.float()[None, :, None, None]
+               + bias.float()[None, :, None, None])
+        return out.to(x.dtype), new_mean, new_var
+    if parts > 1:
+        layers.batch_norm_train = split
+    try:
+        yield
+    finally:
+        layers.batch_norm_train = original
+
+
+def _dist_step(torch, cfg, dev, batch: int, **axes):
+    """One bf16 train step of the full default width from seed 0 on the
+    global batch `batch` (this rank's share of it with a data axis).
+    Returns (state, metrics, seconds)."""
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+    images = _dist_images(torch, batch)
+    mesh = axes.get("mesh")
+    if mesh is not None:
+        per = batch // mesh.data.size
+        images = images[:, mesh.data.index * per:(mesh.data.index + 1) * per]
+    state = create_state(cfg, dev, 0)
+    step = make_train_step(cfg, **axes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, images.to(dev))
+    torch.cuda.synchronize()
+    return state, {k: float(v) for k, v in m.items()}, time.perf_counter() - t0
+
+
+def _grads(state) -> dict:
+    return ({f"vae.{k}": p.grad for k, p in state.vae.named_parameters()}
+            | {f"teacher.{k}": p.grad
+               for k, p in state.teacher.named_parameters()})
+
+
+def _metric_ratios(ref: dict, got: dict) -> dict:
+    """Each metric's difference over phase 9's bar, 1e-4 of the value plus
+    1e-6."""
+    return {n: abs(got[n] - v) / (1e-4 * abs(v) + 1e-6)
+            for n, v in ref.items()}
+
+
+def _dist_rank(rank: int, tmp: Path) -> None:
+    """One of phase 18 (b)'s two ranks on the one card, over gloo."""
+    import torch
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.device import full_f32
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.parallel import close_mesh, init_mesh
+    from lunaris_orion_tpu_torch.parallel import collectives as col
+    from lunaris_orion_tpu_torch.parallel.mesh import make_mesh
+    from lunaris_orion_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    dev = torch.device("cuda:0")
+    world = init_mesh((2, 1), device=dev, backend="gloo")
+    try:
+        refs = torch.load(tmp / "dist_refs.pt")
+        cfg = TrainConfig(gradient_accumulation_steps=1)
+        out = {}
+        for tag, shape, impl, batch, bf16 in DIST_CASES:
+            mesh = make_mesh(shape, device=dev)
+            axes = {"mesh": mesh}
+            if impl != "auto":
+                axes.update(attn_impl=impl, cp_mesh=mesh, cp_axis="model")
+            cfg = cfg.replace(batch_size=batch, mixed_precision=bf16)
+            for name in ("launches", "shard_launches", "bwd_fused_launches",
+                         "bwd_dq_launches", "bwd_dkv_launches",
+                         "bwd_shard_launches"):
+                setattr(k2, name, 0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with full_f32():
+                state, m, secs = _dist_step(torch, cfg, dev, batch, **axes)
+            counts = {n: getattr(k2, n) for n in (
+                "launches", "shard_launches", "bwd_fused_launches",
+                "bwd_dq_launches", "bwd_dkv_launches", "bwd_shard_launches")}
+            grads = _grads(state)
+            ref_g, ref_m, before_bn = refs[(batch, 1, bf16)]
+            ratios = grad_ratios(ref_g, {k: g.cpu() for k, g in grads.items()},
+                                 before_bn)
+            # The two ranks' gradients, element by element.
+            flat = torch.cat([g.reshape(-1) for g in grads.values()])
+            both = col._raw_all_gather(flat, world.data, 0).view(2, -1)
+            out[tag] = {
+                "ratios": ratios,
+                "metric_ratios": _metric_ratios(ref_m, m),
+                "peer_diff": (both[0] - both[1]).abs().max().item(),
+                "seconds": secs, "counts": counts,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+            del state, grads, flat, both
+            torch.cuda.empty_cache()
+        # allgather_attention alone, on the tokens split over two ranks.
+        mesh = make_mesh((1, 2), device=dev)
+        (q, k, v), bias, do = _dist_attn_inputs(torch, dev)
+        xs = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        kw = dict(axis=mesh.model, dropout_rate=0.1, seed=1234, mode="allgather")
+        k2.shard_launches = k2.bwd_shard_launches = 0
+        o = ring_attention_sharded(*xs, **kw)
+        o.backward(do)
+        shards = (k2.shard_launches, k2.bwd_shard_launches)
+        tensors = [o.detach().cpu()] + [t.grad.cpu() for t in xs]
+        fwd_ms = time_ms(torch, lambda: ring_attention_sharded(*xs, **kw), 5)
+
+        def fwd_bwd():
+            ring_attention_sharded(*xs, **kw).backward(do)
+        both_ms = time_ms(torch, fwd_bwd, 3)
+        out["attn"] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": both_ms,
+                       "shard_launches": shards}
+        if rank == 0:
+            out["attn"]["tensors"] = tensors
+        torch.save(out, tmp / f"dist_rank{rank}.pt")
+        world.barrier()
+    finally:
+        close_mesh()
+
+
+def run_dist_nccl(torch, tmp: Path, smi: str) -> dict:
+    """Phase 18 (a): the Trainer at --mesh_shape 1 1, bf16, full default
+    width, 2 steps, as a torchrun-style single rank with an NCCL process
+    group and without a process group: the same parameters and BatchNorm
+    statistics, bit for bit, and the NCCL collectives counted. Both runs
+    take the deterministic K2 backward (split: the fused one adds dq with
+    atomics in any order) and cuDNN's deterministic algorithms, so that two
+    runs can give the same bits at all."""
+    import os
+    import torch.distributed as dist
+    from lunaris_orion_tpu_torch.cli import train as train_cli
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.parallel.launch import free_port
+    from lunaris_orion_tpu_torch.parallel.mesh import close_mesh
+
+    # 24 sprites: 16 train (2 steps of 8), 8 val (one batch).
+    data = write_synthetic_dataset(tmp / "dist_sprites", 24, image_size=128)
+    argv = ["--data_dir", str(data), "--mixed_precision", "--batch_size", "8",
+            "--gradient_accumulation_steps", "1", "--num_epochs", "1",
+            "--val_fraction", "0.334", "--remat", "--mesh_shape", "1", "1",
+            "--log_every", "1", "--save_every", "0", "--eval_save_freq", "0",
+            "--sample_every", "0"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    names = ("all_reduce", "all_gather", "reduce_scatter", "barrier",
+             "batch_isend_irecv")
+    calls = dict.fromkeys(names, 0)
+    real = {n: getattr(dist, n) for n in names}
+
+    def counted(n):
+        def call(*a, **kw):
+            calls[n] += 1
+            return real[n](*a, **kw)
+        return call
+    saved = (k2.default_bwd, torch.backends.cudnn.deterministic)
+    k2.default_bwd = lambda dtype, d: "split"
+    torch.backends.cudnn.deterministic = True
+    states, secs = {}, {}
+    try:
+        for run in ("alone", "nccl"):
+            if run == "nccl":
+                os.environ.update(env)
+                for n in names:
+                    setattr(dist, n, counted(n))
+            t0 = time.perf_counter()
+            trainer = train_cli.trainer_from_args(
+                argv + ["--output_dir", str(tmp / f"dist_{run}")])
+            if run == "nccl" and trainer.mesh.backend != "nccl":
+                raise AssertionError(f"dist (a): backend {trainer.mesh.backend}")
+            trainer.train()
+            torch.cuda.synchronize()
+            secs[run] = time.perf_counter() - t0
+            if trainer.state.step != 2:
+                raise AssertionError(f"dist (a): {trainer.state.step} steps")
+            states[run] = {f"{m}.{k}": v.detach().clone()
+                           for m, mod in (("vae", trainer.state.vae),
+                                          ("teacher", trainer.state.teacher))
+                           for k, v in mod.state_dict().items()}
+            close_mesh()
+            del trainer
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+        for k in env:
+            os.environ.pop(k, None)
+        k2.default_bwd, torch.backends.cudnn.deterministic = saved
+        close_mesh()
+    differ = [k for k, v in states["alone"].items()
+              if not torch.equal(v, states["nccl"][k])]
+    log(f"[dist] (a) Trainer --mesh_shape 1 1, bf16, 2 steps at full width: "
+        f"{len(states['alone'])} parameters and buffers, {len(differ)} differ "
+        f"bit for bit between no process group ({secs['alone']:.1f} s) and "
+        f"one NCCL rank ({secs['nccl']:.1f} s); NCCL calls {calls} on {smi}")
+    if differ or calls["all_reduce"] == 0 or calls["barrier"] == 0:
+        raise AssertionError(f"dist (a): differ {differ[:5]}, calls {calls}")
+    return {"calls": calls, "seconds": secs}
+
+
+def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
+    """Phase 18 (b): two ranks on the one card over gloo (the collectives
+    staged through the host), at the full default width, against the
+    single-process step on the same state and global batch: DP (2, 1) at
+    global batch 4, CP (1, 2) allgather at 4 (K2 launched on q shards) and
+    ring at 2, bf16, dropout 0.1, accumulation 1: the averaged, clipped
+    gradients at phase 9's bars, the metrics at phase 9's bar scaled to
+    bf16, the two ranks' gradients against each other, each rank's peak
+    memory; then `allgather_attention` alone at B2 H8 N16384 d16 bf16
+    dropout 0.1 against one K2 call (phases 4 and 7's bf16 bars), its ms
+    beside the single call's, and the K2 kernels alone on a CP shard
+    (Nq 8192 x Nk 16384) beside their bound and SDPA."""
+    import dataclasses
+    from torch import nn
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.parallel.launch import spawn
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+
+    from lunaris_orion_tpu_torch.device import full_f32
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(gradient_accumulation_steps=1)
+    refs, ref_s = {}, {}
+    # (batch, BatchNorm's sums in parts, bf16); (4, 2, True) is the bf16
+    # step's own rounding-level perturbation.
+    for key in sorted({(c[3], 1, c[4]) for c in DIST_CASES} | {(4, 2, True)}):
+        batch, parts, bf16 = key
+        with bn_sums_in_parts(torch, parts), full_f32():
+            state, m, ref_s[key] = _dist_step(
+                torch, cfg.replace(batch_size=batch, mixed_precision=bf16),
+                dev, batch)
+        before_bn = {f"teacher.{name}.{p}"
+                     for name, mod in state.teacher.named_modules()
+                     if isinstance(mod, nn.Sequential) and len(mod)
+                     and isinstance(mod[-1], nn.BatchNorm2d)
+                     for p, _ in mod.named_parameters()}
+        refs[key] = ({k: g.cpu() for k, g in _grads(state).items()}, m,
+                     before_bn)
+        del state
+    noise_g = grad_ratios(refs[(4, 1, True)][0], refs[(4, 2, True)][0],
+                          refs[(4, 1, True)][2])
+    noise_m = _metric_ratios(refs[(4, 1, True)][1], refs[(4, 2, True)][1])
+    noise = (max(noise_g.values()), max(noise_m.values()))
+    log(f"[dist] (b) bf16 noise: the single-process step with BatchNorm's "
+        f"sums in two parts against itself: gradients {noise[0]:.3f}, "
+        f"metrics {noise[1]:.3f} of phase 9's bars")
+    torch.save(refs, tmp / "dist_refs.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(_dist_rank, 2, (tmp,))
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"dist_rank{r}.pt") for r in range(2)]
+    out, failed = {}, []
+    for tag, shape, impl, batch, bf16 in DIST_CASES:
+        for r, res in enumerate(ranks):
+            c = res[tag]
+            worst = max(c["ratios"], key=c["ratios"].get)
+            m_worst = max(c["metric_ratios"], key=c["metric_ratios"].get)
+            log(f"[dist] (b) rank {r} {tag} {shape} batch {batch}: gradients "
+                f"worst {c['ratios'][worst]:.3f} of the bar ({worst}), "
+                f"metrics worst {c['metric_ratios'][m_worst]:.3f} "
+                f"({m_worst}), ranks' gradients differ by {c['peer_diff']:.2e}"
+                f", step {c['seconds']:.2f} s (single process "
+                f"{ref_s[(batch, 1, bf16)]:.2f} s), peak "
+                f"{c['peak_gib']:.2f} GiB, K2 {c['counts']}")
+            if bf16:
+                if not all(map(math.isfinite, c["metric_ratios"].values())):
+                    failed.append(f"{tag} rank {r}: metrics not finite")
+            elif (c["ratios"][worst] > 1.0
+                    or c["metric_ratios"][m_worst] > 1.0):
+                failed.append(f"{tag} rank {r}: off the bar")
+            if impl == "allgather" and r > 0 and (
+                    c["counts"]["shard_launches"] <= 0
+                    or c["counts"]["bwd_shard_launches"] <= 0):
+                failed.append(f"{tag}: no K2 on a q shard")
+        if ranks[0][tag]["peer_diff"] != 0.0:
+            failed.append(f"{tag}: the two ranks' gradients differ")
+        out[tag] = {"launches": ranks[1][tag]["counts"],
+                    "peak_gib": [res[tag]["peak_gib"] for res in ranks],
+                    "seconds": ranks[0][tag]["seconds"],
+                    "peer_diff": ranks[0][tag]["peer_diff"]}
+
+    # allgather_attention alone against one K2 call on the same inputs.
+    (q, k, v), bias, do = _dist_attn_inputs(torch, dev)
+    xs = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    o, _ = k2.flash_attention(*xs, dropout_rate=0.1, seed=1234)
+    o.backward(do)
+    got = ranks[0]["attn"]["tensors"]
+    inst = k2.forward_instance(q.dtype, q.shape[3], q.shape[2], k.shape[2], 0.1)
+    ok, excess, differ = k2_bf16_agree(torch, got[0].to(dev), o.detach(),
+                                       inst.body)
+    same = torch.equal(got[0].to(dev), o.detach())
+    notes = [f"out {'bit-equal' if same else f'+{max(excess, 0):.1e}'}"]
+    body = k2.fused_instance(q.dtype, q.shape[3], q.shape[2] // 2, k.shape[2],
+                             0.1).body
+    for name, g_got, t in zip(("dq", "dk", "dv", "dbias"), got[1:], xs):
+        fine, err, what = bwd_agree(torch, g_got.to(dev), t.grad, q.dtype,
+                                    name, body)
+        if name in ("dk", "dv") and not fine:
+            # dk and dv are sums of two bf16 partials, one a q shard (the
+            # reduce-scatter of K2's outputs, as the JAX package's
+            # psum_scatter of its kernel's): each partial rounds once more,
+            # by up to half an ulp of a partial, whose size is about the
+            # tensor's largest. Held to 2 ulps of the element plus one ulp
+            # of the largest, not to the share of elements that differ.
+            ref = t.grad.float()
+            top = ref.abs().max()
+            excess_kv = ((g_got.to(dev).float() - ref).abs()
+                         - 2 * bf16_ulp(torch, ref)).max()
+            fine = bool(excess_kv <= bf16_ulp(torch, top))
+            what += (f" (two roundings: over 2 ulps by "
+                     f"{excess_kv.item() / top.item():.1e} of the largest, "
+                     f"bar one ulp of it)")
+        ok = ok and fine
+        notes.append(f"{name} {what}")
+    t_one = time_ms(torch, lambda: k2.flash_attention(
+        *(t.detach() for t in xs), dropout_rate=0.1, seed=1234), 5)
+
+    def one_fwd_bwd():
+        k2.flash_attention(*xs, dropout_rate=0.1, seed=1234)[0].backward(do)
+    t_one_b = time_ms(torch, one_fwd_bwd, 3)
+    att = ranks[0]["attn"]
+    shard = ranks[1]["attn"]["shard_launches"]     # rank 1: q_offset 8192
+    log(f"[dist] (b) allgather_attention B2 H8 N16384 d16 bf16 dropout 0.1 "
+        f"against one K2 call: {'; '.join(notes)}; K2 on a q shard "
+        f"{shard} (fwd, bwd) on rank 1; 2 ranks over gloo on "
+        f"one card: {att['fwd_ms']:.3f} ms forward, {att['fwd_bwd_ms']:.3f} "
+        f"ms forward+backward; one K2 call {t_one:.3f} / {t_one_b:.3f} ms; "
+        f"on {smi}")
+    if not ok or min(shard) <= 0:
+        failed.append(f"allgather_attention off the bar {notes}")
+    del xs, o
+
+    # The K2 kernels alone on one rank's CP shard: q [2, 8, 8192, 16]
+    # against k, v [2, 8, 16384, 16] at q_offset 8192, bf16, dropout 0.
+    b, h, n, d = DIST_ATTN
+    qs = q[:, :, n // 2:].contiguous()
+    fwd = time_ms(torch, lambda: k2.flash_attention(
+        qs, k, v, bias, q_offset=n // 2), 10)
+    lse = k2.flash_attention(qs, k, v, bias, q_offset=n // 2)[1]
+    o_s = k2.flash_attention(qs, k, v, bias, q_offset=n // 2)[0]
+    do_s = do[:, :, n // 2:].contiguous()
+    variant = k2.default_bwd(q.dtype, d)
+    bwd = time_ms(torch, lambda: k2.flash_attention_bwd(
+        qs, k, v, bias, o_s, lse, do_s, q_offset=n // 2, variant=variant), 10)
+    lib, _ = sdpa_ms(qs, k, v, bias, reps=5)
+    lib_b, _ = sdpa_ms(qs, k, v, bias, backward=True, reps=3)
+    scores_d = b * h * (n // 2) * n * d
+    bd = bound(4 * scores_d, nbytes(qs, k, v, bias, o_s, lse), "bf16")
+    bdb = bound({"fused": 10, "split": 14}[variant] * scores_d,
+                nbytes(qs, k, v, bias, do_s, lse, o_s) + nbytes(qs, k, v, bias),
+                "bf16")
+    log(f"[dist] K2 on a CP shard (B2 H8 Nq 8192 x Nk 16384 d16 bf16, "
+        f"q_offset 8192): forward {fwd:.3f} ms (bound {bd['bound_ms']:.4f} by "
+        f"{bd['bound_by']}, SDPA {lib}), backward {variant} {bwd:.3f} ms "
+        f"(bound {bdb['bound_ms']:.4f} by {bdb['bound_by']}, SDPA {lib_b}) "
+        f"on {smi}")
+    log(f"[dist] (b) ranks {t_ranks:.0f} s, phase (b) "
+        f"{time.perf_counter() - t_phase:.0f} s")
+    if failed:
+        raise AssertionError(f"dist (b): {failed}")
+    # Rank 1's launches in the allgather step (f32: the split backward),
+    # every one of them on its q shard at q_offset 8192.
+    shard_step = out["allgather"]["launches"]
+    return {"cases": out, "attn": {
+        "fwd_ms": att["fwd_ms"], "fwd_bwd_ms": att["fwd_bwd_ms"],
+        "single_ms": t_one, "single_fwd_bwd_ms": t_one_b},
+        "fwd": {"cp_shard_ms": fwd, "cp_shard_bound_ms": bd["bound_ms"],
+                "cp_shard_bound_by": bd["bound_by"],
+                "cp_shard_library_ms": lib,
+                "launches_dist_allgather": shard_step["shard_launches"]},
+        "bwd": {"cp_shard_variant": variant, "cp_shard_ms": bwd,
+                "cp_shard_bound_ms": bdb["bound_ms"],
+                "cp_shard_bound_by": bdb["bound_by"],
+                "cp_shard_library_ms": lib_b},
+        "dq": {"launches_dist_allgather": shard_step["bwd_dq_launches"]},
+        "dkv": {"launches_dist_allgather": shard_step["bwd_dkv_launches"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2754,6 +3223,16 @@ def main() -> int:
         serving = run_serving(torch, Path(tmp), smi)
         synth = run_synthesis(torch, Path(tmp), smi)
     log(f"[serve] phase 17 in {time.perf_counter() - t17:.0f} s")
+    t18 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_a = run_dist_nccl(torch, Path(tmp), smi)
+        dist_b = run_dist_gloo(torch, Path(tmp), smi)
+    log(f"[dist] phase 18 in {time.perf_counter() - t18:.0f} s")
+    # Phase 18's paths: the K2 launches on q shards in (b)'s allgather step
+    # (rank 1; `launches_dist_allgather`), and the kernels alone on one
+    # rank's CP shard (`cp_shard_*`).
+    fused_cp = (dist_b["bwd"] if dist_b["bwd"]["cp_shard_variant"] == "fused"
+                else {})
     # Phase 17's paths: one bf16 generate and one score of a loaded "cuda"
     # bundle at batch 8 (the serving process's counts).
     x17 = lambda key: {
@@ -2777,25 +3256,28 @@ def main() -> int:
              trainer_launches=trainer["flash_attention_fwd"],
              launches_evaluate=evaluate["evaluate_window_bf16_launches"],
              **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
-             **k2, **window["fwd"]),
+             **k2, **window["fwd"], **dist_b["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
              trainer_launches=trainer["flash_attention_bwd_fused"],
              **w16("flash_attention_bwd_fused"),
              **bwd["flash_attention_bwd_fused"],
-             **{k + "_bf16": v for k, v in window["bwd_bf16"].items()}),
+             **{k + "_bf16": v for k, v in window["bwd_bf16"].items()},
+             **fused_cp),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
              launches=train["flash_attention_bwd_dq"],
              **w16("flash_attention_bwd_dq"), **bwd["flash_attention_bwd_dq"],
-             **{"split_" + k: v for k, v in window["bwd_f32"].items()}),
+             **{"split_" + k: v for k, v in window["bwd_f32"].items()},
+             **dist_b["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:514",
              launches=train["flash_attention_bwd_dkv"],
              **w16("flash_attention_bwd_dkv"),
              **bwd["flash_attention_bwd_dkv"],
-             **{"split_" + k: v for k, v in window["bwd_f32"].items()}),
+             **{"split_" + k: v for k, v in window["bwd_f32"].items()},
+             **dist_b["dkv"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
@@ -2815,6 +3297,7 @@ def main() -> int:
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(f"[serve] summary: {json.dumps({**serving, **synth})}")
+    log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b})}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

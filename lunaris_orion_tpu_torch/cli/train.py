@@ -9,9 +9,21 @@
 --force_cpu) runs the kernels' plain PyTorch versions on the CPU. Flags
 of the JAX package that steer what the port does not have (--fast_rng,
 --compile, --num_workers, --chunk_size, --memory_efficient) are accepted
-and change nothing (`train.loop.Trainer`); the options not ported yet,
-a --mesh_shape over more than one device and --attn_impl ring /
-allgather, raise NotImplementedError by name.
+and change nothing (`train.loop.Trainer`).
+
+Across ranks, under torchrun (one rank a card; NCCL, or gloo with
+--device cpu):
+
+    torchrun --nproc_per_node 4 -m lunaris_orion_tpu_torch.cli.train \
+        --data_dir sprites --mixed_precision --mesh_shape 2 2 \
+        --attn_impl allgather
+
+--mesh_shape D M lays the ranks out as a (data, model) grid (default: all
+on the data axis); --batch_size is the global batch. --attn_impl ring /
+allgather split the teacher attention's tokens over the model axis
+(context parallelism); a model axis above 1 without them is tensor /
+expert parallelism, which is not ported yet and raises
+NotImplementedError by name.
 """
 
 from __future__ import annotations
@@ -103,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--image_size", type=int, default=d.image_size)
     g.add_argument("--mesh_shape", type=int, nargs=2, default=None,
                    metavar=("DATA", "MODEL"),
-                   help="device mesh; more than one device is not ported "
-                        "yet and raises")
+                   help="(data, model) grid of the torchrun ranks; default "
+                        "(world size, 1). A model axis above 1 needs "
+                        "--attn_impl ring or allgather")
     g.add_argument("--val_fraction", type=float, default=d.val_fraction)
     g.add_argument("--prefetch_depth", type=int, default=d.prefetch_depth)
     g.add_argument("--steps_per_call", type=int, default=d.steps_per_call,
@@ -140,8 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "allgather"),
                    help="teacher attention: 'auto' (full up to 1024 tokens, "
                         "else K2), 'full', 'flash' or 'pallas' (both K2); "
-                        "'ring' / 'allgather' (context parallelism) are not "
-                        "ported yet and raise")
+                        "'ring' / 'allgather': context parallelism over the "
+                        "mesh's model axis (k/v chunks rotated and folded "
+                        "in plain torch / gathered once, then K2 on the q "
+                        "shard; with --no-use_pallas without K2)")
     g.add_argument("--attn_window", type=int, default=d.attn_window,
                    help="teacher attention window in tokens (0 = global): "
                         "each token attends within its contiguous window of "
@@ -195,9 +210,13 @@ def trainer_from_args(argv=None):
 
 
 def main(argv=None) -> int:
-    trainer = trainer_from_args(argv)
-    result = trainer.train()
-    trainer.logger.info("Done: %s", result)
+    from lunaris_orion_tpu_torch.parallel.mesh import close_mesh
+    try:
+        trainer = trainer_from_args(argv)
+        result = trainer.train()
+        trainer.logger.info("Done: %s", result)
+    finally:
+        close_mesh()
     return 0
 
 

@@ -148,10 +148,12 @@ class TrainConfig:
     image_size: int = 128
     data_axis: str = "data"
     model_axis: str = "model"
-    mesh_shape: Optional[Tuple[int, ...]] = None  # None -> (n_devices, 1)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # (data, model) grid of the
+                                # torchrun ranks; None -> (world size, 1)
     use_pallas: Optional[bool] = None  # JAX package: Pallas dispatch
-    attn_impl: str = "auto"     # JAX package: attention dispatch ('auto', 'full',
-                                # 'flash', 'pallas', 'ring', 'allgather')
+    attn_impl: str = "auto"     # attention: 'auto', 'full', 'flash' / 'pallas'
+                                # (K2), 'ring' / 'allgather' (context
+                                # parallelism over the model axis)
     attn_window: int = 0        # >0: teacher attention within windows of this many
                                 # tokens (K2 over the windows folded into the heads)
     val_fraction: float = 0.1

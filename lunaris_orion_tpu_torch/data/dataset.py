@@ -15,6 +15,11 @@ copies each batch into pinned memory and on to the card on a side stream,
 so host reads overlap the step; with `device_data` the loader's whole
 subset stays resident on the card and only an index vector crosses a
 batch. Labels are read with the `csv` module.
+
+Across ranks, every rank walks the same per-epoch permutation and gathers
+only its data-axis slice of each global batch (`BatchLoader`'s
+`data_shard`); the ranks of a model row, which share a data index, load
+the same rows.
 """
 
 from __future__ import annotations
@@ -135,15 +140,6 @@ def train_val_split(n: int, val_fraction: float, seed: int
     return perm[n_val:], perm[:n_val]
 
 
-def _check_single_process() -> None:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process data loading (each process gathering its slice "
-            "of a global batch) is not ported yet")
-
-
 class BatchLoader:
     """Yields uint8 batches [accum, micro_b, H, W, 3] ([n, H, W, 3] with
     `squeeze_accum`): numpy arrays when `device` is None, tensors on
@@ -158,6 +154,12 @@ class BatchLoader:
     once into a uint8 tensor on `device` and each batch is an
     `index_select` from it. `with_indices` also yields the batch's dataset
     indices.
+
+    `data_shard` (index, count): this rank's place on the data axis. The
+    global batch [accum, batch_size] is cut along its batch axis (axis 1;
+    the flat batch with `squeeze_accum`) into `count` equal slices and the
+    loader yields slice `index`: [accum, batch_size / count] (the JAX
+    package's `_local_slice`).
     """
 
     def __init__(self, dataset: SpriteDataset, indices: np.ndarray, *,
@@ -166,8 +168,8 @@ class BatchLoader:
                  device: Optional[torch.device | str] = None,
                  prefetch: int = 2, squeeze_accum: bool = False,
                  with_indices: bool = False,
-                 device_data: bool = False):
-        _check_single_process()
+                 device_data: bool = False,
+                 data_shard: Tuple[int, int] = (0, 1)):
         self.ds = dataset
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
@@ -178,6 +180,10 @@ class BatchLoader:
         self.prefetch = max(int(prefetch), 1)
         self.squeeze_accum = squeeze_accum and accum_steps == 1
         self.with_indices = with_indices
+        self.data_shard = (int(data_shard[0]), int(data_shard[1]))
+        if batch_size % self.data_shard[1]:
+            raise ValueError(f"global batch {batch_size} is not divisible by "
+                             f"{self.data_shard[1]} data ranks")
         self.epoch = 0
         self._corpus: Optional[torch.Tensor] = None
         if device_data:
@@ -196,14 +202,19 @@ class BatchLoader:
         self.epoch = epoch
 
     def _chunks(self) -> Iterator[np.ndarray]:
-        """Each batch's dataset indices, in this epoch's order."""
+        """Each batch's dataset indices, in this epoch's order: this rank's
+        data-axis slice of the global batch."""
         idx = self.indices
         if self.shuffle:
             rng = np.random.default_rng((self.seed, self.epoch))
             idx = rng.permutation(idx)
         step = self.batch_size * self.accum
+        i, n = self.data_shard
         for start in range(0, len(idx) - step + 1, step):
-            yield idx[start:start + step]
+            chunk = idx[start:start + step]
+            if n > 1:
+                chunk = chunk.reshape(self.accum, n, -1)[:, i].reshape(-1)
+            yield chunk
 
     def _shape(self, flat):
         return flat if self.squeeze_accum else flat.reshape(

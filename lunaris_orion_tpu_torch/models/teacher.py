@@ -40,6 +40,7 @@ from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import leaky_relu
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention
 from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
+from lunaris_orion_tpu_torch.parallel.mesh import Parallel
 
 
 def kaiming_out_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -64,16 +65,17 @@ class _Train:
         default_factory=list)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, stats: Optional[list] = None
-        ) -> torch.Tensor:
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, stats: Optional[list] = None,
+        par: Optional[Parallel] = None) -> torch.Tensor:
     """Eval: running statistics. Train (`stats` is a list): batch
-    statistics; the new running statistics are appended to `stats`."""
+    statistics, those of the global batch under data parallelism
+    (`par.data`); the new running statistics are appended to `stats`."""
     if stats is None:
         return layers.batch_norm(x, bn.running_mean, bn.running_var,
                                  bn.weight, bn.bias, eps=bn.eps)
     y, mean, var = layers.batch_norm_train(
         x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        momentum=bn.momentum, eps=bn.eps)
+        momentum=bn.momentum, eps=bn.eps, axis=par and par.data)
     stats += [mean, var]
     return y
 
@@ -85,11 +87,11 @@ class ConvLeakyBN(nn.Sequential):
         super().__init__(nn.Conv2d(cin, cout, k, padding=k // 2),
                          nn.LeakyReLU(0.2), nn.BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor, stats: Optional[list] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None,
+                par: Optional[Parallel] = None) -> torch.Tensor:
         conv, _, bn = self
         return _bn(bn, leaky_relu(layers.conv2d(x, conv.weight, conv.bias)),
-                   stats)
+                   stats, par)
 
 
 class Branch(nn.Sequential):
@@ -101,11 +103,12 @@ class Branch(nn.Sequential):
                          nn.Conv2d(stem, cout, 1), nn.LeakyReLU(0.2),
                          nn.BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor, stats: Optional[list] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None,
+                par: Optional[Parallel] = None) -> torch.Tensor:
         dw, pw, _, bn = self
         y = layers.conv2d(x, dw.weight, dw.bias, groups=dw.groups)
-        return _bn(bn, leaky_relu(layers.conv2d(y, pw.weight, pw.bias)), stats)
+        return _bn(bn, leaky_relu(layers.conv2d(y, pw.weight, pw.bias)), stats,
+                   par)
 
 
 def _record(train: Optional[_Train], bns, stats: Optional[list]) -> None:
@@ -127,17 +130,18 @@ class FeatureExtractor(nn.Module):
         self.detail_branch = Branch(st, br, 3)
         self.fusion = ConvLeakyBN(br * 3, cfg.extractor_dim, 1)
 
-    def forward(self, x: torch.Tensor, train: Optional[_Train] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[_Train] = None,
+                par: Optional[Parallel] = None) -> torch.Tensor:
         stats = None if train is None else []
-        x = self.conv1(x, stats)
-        combined = torch.cat([self.edge_branch(x, stats),
-                              self.color_branch(x, stats),
-                              self.detail_branch(x, stats)], dim=1)
+        x = self.conv1(x, stats, par)
+        combined = torch.cat([self.edge_branch(x, stats, par),
+                              self.color_branch(x, stats, par),
+                              self.detail_branch(x, stats, par)], dim=1)
         combined = layers.dropout(
             combined, self.dropout_rate,
-            generator=None if train is None else train.device_gen)
-        out = self.fusion(combined, stats)
+            generator=None if train is None else train.device_gen,
+            rows=par and par.data)
+        out = self.fusion(combined, stats, par)
         _record(train, [m[-1] for m in (self.conv1, self.edge_branch,
                                         self.color_branch, self.detail_branch,
                                         self.fusion)], stats)
@@ -163,34 +167,39 @@ class ExpertBlock(nn.Module):
 
     def _path(self, x: torch.Tensor, train: bool,
               seeds: Optional[Tuple[int, ...]], bwd: Optional[str],
-              impl: str = "auto", window: Optional[int] = None):
+              impl: str = "auto", window: Optional[int] = None,
+              par: Optional[Parallel] = None):
         """The main path; returns (out, *new running stats of conv1's and
         conv2's BatchNorm in train mode). seeds: (Dropout2d after conv1,
         Dropout2d after conv2, attention, projection), or None: no
-        dropout. window: the attention's (None: global)."""
+        dropout. window: the attention's (None: global). par: the mesh's
+        axes."""
         stats = [] if train else None
+        rows = par and par.data
         drop1, drop2 = ((device_generator(s, x.device) for s in seeds[:2])
                         if seeds else (None, None))
-        out = layers.dropout2d(self.conv1(x, stats), self.dropout_rate,
-                               generator=drop1)
+        out = layers.dropout2d(self.conv1(x, stats, par), self.dropout_rate,
+                               generator=drop1, rows=rows)
         out = self.attention(out.permute(0, 2, 3, 1), impl=impl,
                              window=window,
                              dropout_rate=self.dropout_rate,
                              seeds=seeds[2:] if seeds else None,
-                             bwd=bwd).permute(0, 3, 1, 2)
-        out = layers.dropout2d(self.conv2(out, stats), self.dropout_rate,
-                               generator=drop2)
+                             bwd=bwd, par=par).permute(0, 3, 1, 2)
+        out = layers.dropout2d(self.conv2(out, stats, par), self.dropout_rate,
+                               generator=drop2, rows=rows)
         return (out * self.layer_scale.to(out.dtype), *(stats or ()))
 
     def forward(self, x: torch.Tensor, train: Optional[_Train] = None,
                 attn_impl: str = "auto",
-                attn_window: Optional[int] = None) -> torch.Tensor:
+                attn_window: Optional[int] = None,
+                par: Optional[Parallel] = None) -> torch.Tensor:
         stats = None if train is None else []
         if self.shortcut is None:
             identity = x
         else:
             conv, bn = self.shortcut
-            identity = _bn(bn, layers.conv2d(x, conv.weight, conv.bias), stats)
+            identity = _bn(bn, layers.conv2d(x, conv.weight, conv.bias), stats,
+                           par)
         seeds = None
         if train is not None and train.host is not None:
             seeds = tuple(new_seed(train.host) for _ in range(4))
@@ -198,12 +207,12 @@ class ExpertBlock(nn.Module):
         if train is not None and train.remat and torch.is_grad_enabled():
             # The masks come from `seeds`, not the global RNG state.
             out, *path_stats = checkpoint(self._path, x, True, seeds, bwd,
-                                          attn_impl, attn_window,
+                                          attn_impl, attn_window, par,
                                           use_reentrant=False,
                                           preserve_rng_state=False)
         else:
             out, *path_stats = self._path(x, train is not None, seeds, bwd,
-                                          attn_impl, attn_window)
+                                          attn_impl, attn_window, par)
         if train is not None:
             bns = [self.shortcut[1]] if self.shortcut is not None else []
             _record(train, bns + [self.conv1[2], self.conv2[2]],
@@ -226,14 +235,15 @@ class Head(nn.Sequential):
         super().__init__(*mods)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
         mods = list(self)[2:]
         if isinstance(mods[0], nn.LayerNorm):
             ln = mods.pop(0)
             x = layers.layer_norm(x, ln.weight, ln.bias, eps=ln.eps)
         fc1, _, _, fc2 = mods
         x = leaky_relu(layers.linear(x, fc1.weight, fc1.bias), 0.2)
-        x = layers.dropout(x, rate, generator=generator)
+        x = layers.dropout(x, rate, generator=generator, rows=rows)
         return layers.linear(x, fc2.weight, fc2.bias)
 
 
@@ -290,38 +300,41 @@ class LunarMoETeacher(nn.Module):
                 prompt_embedding: Optional[torch.Tensor] = None, *,
                 train: Optional[_Train] = None,
                 attn_impl: str = "auto",
-                global_attn: bool = False) -> Dict[str, torch.Tensor]:
+                global_attn: bool = False,
+                par: Optional[Parallel] = None) -> Dict[str, torch.Tensor]:
         """x [B, H, W, 3] -> the output dict of the JAX package's
         `teacher.apply`: quality_scores [B, 4] (sigmoid), expert_weights
         [B, E], style_embedding / prompt_embedding [B, emb], semantic_score
         [B, 1]. Eval mode unless `train` is given (see `apply`). `attn_impl`
         is the attention's impl in both modes ('auto', 'full' or 'flash';
         in eval mode also 'plain', K2's plain version on any device:
-        `SpatialAttention.forward`); `cfg.attn_window` windows it unless
-        `global_attn`."""
+        `SpatialAttention.forward`; under context parallelism 'ring' or
+        'allgather' over `par.cp`); `cfg.attn_window` windows it unless
+        `global_attn`. `par`: the mesh's axes."""
         window = None if global_attn else self.cfg.attn_window
         rate = self.cfg.dropout_rate
         gen = None if train is None else train.device_gen
-        feats = self.feature_extractor(x.permute(0, 3, 1, 2), train)
-        gate_logits = self.gate(layers.global_avg_pool(feats), rate, gen)
+        rows = par and par.data
+        feats = self.feature_extractor(x.permute(0, 3, 1, 2), train, par)
+        gate_logits = self.gate(layers.global_avg_pool(feats), rate, gen, rows)
         w = torch.softmax(gate_logits.float(), dim=-1)            # [B, E]
 
         pooled_ex = []
         for expert in self.experts:
             h = feats
             for block in expert:
-                h = block(h, train, attn_impl, window)
+                h = block(h, train, attn_impl, window, par)
             pooled_ex.append(layers.global_avg_pool(h))
         pooled = torch.stack(pooled_ex)                           # [E, B, C]
 
-        quality = torch.stack([head(p, rate, gen) for head, p in
+        quality = torch.stack([head(p, rate, gen, rows) for head, p in
                                zip(self.quality_heads, pooled_ex)])
         weighted = torch.einsum("ebq,be->bq", quality.float(), w)
         combined = torch.einsum("ebc,be->bc", pooled.float(), w).to(feats.dtype)
-        style = self.style_net(combined, rate, gen)
-        own_prompt = self.prompt_net(combined, rate, gen)
+        style = self.style_net(combined, rate, gen, rows)
+        own_prompt = self.prompt_net(combined, rate, gen, rows)
         semantic = torch.sigmoid(
-            self.semantic_head(pooled_ex[0], rate, gen).float())
+            self.semantic_head(pooled_ex[0], rate, gen, rows).float())
         if prompt_embedding is not None:
             semantic = semantic * prompt_cosine(
                 own_prompt, prompt_embedding.detach())[:, None]
@@ -338,7 +351,8 @@ def apply(model: LunarMoETeacher, x: torch.Tensor, *,
           prompt_embedding: Optional[torch.Tensor] = None,
           train: bool = False, generator: Optional[torch.Generator] = None,
           remat: bool = True, bwd: Optional[str] = None,
-          attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
+          attn_impl: str = "auto",
+          par: Optional[Parallel] = None) -> Dict[str, torch.Tensor]:
     """The JAX package's `teacher.apply`. train=False: the eval forward.
     train=True: BatchNorm on batch statistics, the running statistics
     advanced once (in place: the port's BatchNorm buffers are the JAX
@@ -346,13 +360,16 @@ def apply(model: LunarMoETeacher, x: torch.Tensor, *,
     source of every seed) dropout is on. `remat` checkpoints each expert
     block's main path when gradients are recorded. `bwd` picks K2's
     backward kernels on CUDA. `attn_impl` is the attention's impl
-    ('auto': the `auto` rule, 'full' or 'flash')."""
+    ('auto': the `auto` rule, 'full', 'flash', or 'ring' / 'allgather'
+    over `par.cp`). `par`: the mesh's axes (data parallelism: BatchNorm on
+    the global batch's moments and dropout's global rows; context
+    parallelism)."""
     if not train:
-        return model(x, prompt_embedding, attn_impl=attn_impl)
+        return model(x, prompt_embedding, attn_impl=attn_impl, par=par)
     t = _Train(host=generator, remat=remat, bwd=bwd,
                device_gen=None if generator is None else device_generator(
                    new_seed(generator), x.device))
-    out = model(x, prompt_embedding, train=t, attn_impl=attn_impl)
+    out = model(x, prompt_embedding, train=t, attn_impl=attn_impl, par=par)
     with torch.no_grad():
         for bn, mean, var in t.updates:
             bn.running_mean.copy_(mean)

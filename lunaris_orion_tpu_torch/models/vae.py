@@ -23,6 +23,7 @@ import torch.nn as nn
 from lunaris_orion_tpu_torch.config import VAEConfig
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import mish
+from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 
 
 def torch_default_init_(module: nn.Module, generator: torch.Generator) -> None:
@@ -146,21 +147,31 @@ class LunarisCoreVAE(nn.Module):
 
     @staticmethod
     def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       rows: Optional[AxisGroup] = None) -> torch.Tensor:
         """z = mu + eps * exp(0.5 logvar), eps drawn in f32 from
-        `generator` (lunar_generate.py:248-261)."""
+        `generator` (lunar_generate.py:248-261). `rows`: the data axis the
+        batch is split over; eps is then this rank's rows of the global
+        batch's draw (`layers.global_rows`)."""
         std = torch.exp(0.5 * logvar.float())
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=torch.float32)
+        shape, own = layers.global_rows(mu.shape, rows)
+        eps = torch.randn(shape, generator=generator, device=mu.device,
+                          dtype=torch.float32)[own]
         return (mu.float() + eps * std).to(mu.dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                sample_posterior: bool = True):
-        """(recon [B, H, W, 3], mu, logvar) (lunar_generate.py:263-276)."""
+                sample_posterior: bool = True,
+                rows: Optional[AxisGroup] = None):
+        """(recon [B, H, W, 3], mu, logvar) (lunar_generate.py:263-276).
+        `rows` as in `reparameterize`."""
         mu, logvar, skips = self.encode(x)
-        z = self.reparameterize(mu, logvar, generator) if sample_posterior else mu
+        if not sample_posterior:
+            z = mu
+        elif rows is None:
+            z = self.reparameterize(mu, logvar, generator)
+        else:
+            z = self.reparameterize(mu, logvar, generator, rows)
         return self.decode(z, skips), mu, logvar
 
     def sample(self, num_samples: int, generator: torch.Generator, *,

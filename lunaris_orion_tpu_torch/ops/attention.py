@@ -11,8 +11,10 @@ full path, K2's hash on the flash and windowed paths) and on the projected
 output. A `window` below N runs `local_window_attention`: K2 over the
 windows folded into the head axis. The impl 'plain' runs K2's plain
 version (`attention_plain`, blockwise) on any device, windowed or not: the
-exporter's portable form. Ring and allgather attention are not ported yet
-and raise.
+exporter's portable form. 'ring' and 'allgather' split the tokens over
+the context-parallel axis of a mesh (`parallel/ring_attention.py`), by
+the JAX package's rules: they need that axis, N divisible by its size, and
+no window.
 
 Public functions keep the JAX package's layouts: feature maps NHWC
 [B, H, W, C]; q, k, v [B, heads, N, d]; bias [heads, N].
@@ -28,6 +30,9 @@ import torch.nn as nn
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
 from lunaris_orion_tpu_torch.ops.rng import device_generator, int32_seed
+from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup, Parallel
+from lunaris_orion_tpu_torch.parallel.ring_attention import (
+    ring_attention_sharded)
 
 # Scores a block of the 'plain' impl (512 MiB in f32): an exported program
 # unrolls `attention_plain`'s loop over the blocks, so fewer, larger blocks
@@ -73,16 +78,17 @@ def multihead_qkv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor], *, dropout_rate: float = 0.0,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   rows: Optional[AxisGroup] = None) -> torch.Tensor:
     """O(N^2)-memory attention in f32 for small N; bias [heads, N] or None.
-    With a generator, Bernoulli dropout on the probabilities."""
+    With a generator, Bernoulli dropout on the probabilities (`rows`: the
+    data axis the batch is split over, `layers.dropout`)."""
     d = q.shape[-1]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (d ** -0.5)
     if bias is not None:
         s = s + bias.float()[None, :, None, :]
     p = layers.dropout(torch.softmax(s, dim=-1), dropout_rate,
-                       generator=generator)
+                       generator=generator, rows=rows)
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
@@ -97,7 +103,7 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, *, window: int,
                            dropout_rate: float = 0.0, seed: int = 0,
                            bwd: Optional[str] = None,
-                           plain: bool = False) -> torch.Tensor:
+                           plain: bool = False, b0: int = 0) -> torch.Tensor:
     """Attention in which each token sees only the keys of its own
     contiguous window of the flattened token axis (the JAX package's
     `local_window_attention`). q, k, v [B, heads, N, d] contiguous, bias
@@ -113,7 +119,9 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     depend on the chunking. Dropout is K2's hash over (seed, folded row,
     position in the window): the JAX package draws its windowed masks from
     jax.random instead, so the masks differ from it. `plain` runs K2's
-    plain version (`attention_plain`) on any device, at dropout 0 only."""
+    plain version (`attention_plain`) on any device, at dropout 0 only.
+    `b0`: the global batch row of q's first row (its data-axis shard), so
+    that the hash numbers the rows of the global batch."""
     b, h, n, d = q.shape
     if window <= 0:
         raise ValueError(f"window must be positive, got {window}")
@@ -136,7 +144,8 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk = k2.MAX_ROWS // rows
     outs = [k2.flash_attention(
         fold(q[i:i + chunk]), fold(k[i:i + chunk]), fold(v[i:i + chunk]),
-        bias_w, dropout_rate=dropout_rate, seed=seed, row_offset=i * rows,
+        bias_w, dropout_rate=dropout_rate, seed=seed,
+        row_offset=(b0 + i) * rows,
         bwd=bwd)[0] for i in range(0, b, chunk)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.reshape(b, h, n, d)
@@ -163,17 +172,20 @@ class SpatialAttention(nn.Module):
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 window: Optional[int] = None, dropout_rate: float = 0.0,
                 seeds: Optional[Tuple[int, int]] = None,
-                bwd: Optional[str] = None) -> torch.Tensor:
+                bwd: Optional[str] = None,
+                par: Optional[Parallel] = None) -> torch.Tensor:
         """x [B, H, W, C] -> [B, H, W, C].
 
         impl: 'auto' (N <= 1024 -> 'full', else 'flash'), 'full',
-        'flash' (K2) or 'plain' (K2's plain version on any device, eval
-        only). A `window` below N overrides it with
+        'flash' (K2), 'plain' (K2's plain version on any device, eval
+        only), or 'ring' / 'allgather' (context parallelism over
+        `par.cp`). A `window` below N overrides the first four with
         `local_window_attention` (its plain version with 'plain'), as in
         the JAX package. seeds:
         (attention, projection) seeds of train-mode dropout at
         `dropout_rate`; None runs without dropout. bwd: K2's backward
-        variant on CUDA (None: its default)."""
+        variant on CUDA (None: its default). `par`: the mesh axes (the
+        data axis numbers the dropout rows of the global batch)."""
         b, h, w, c = x.shape
         n = h * w
         if window is not None and window <= 0:
@@ -183,6 +195,15 @@ class SpatialAttention(nn.Module):
         if windowed and impl in ("ring", "allgather"):
             raise ValueError(f"window={window} cannot combine with "
                              f"impl={impl!r}")
+        par = par or Parallel()
+        b0 = par.b0(b)
+        if impl in ("ring", "allgather"):
+            if par.cp is None:
+                raise ValueError(f"impl={impl!r} needs cp_mesh and cp_axis "
+                                 "(a context-parallel axis)")
+            if n % par.cp.size:
+                raise ValueError(f"impl={impl!r}: N={n} not divisible by the "
+                                 f"context-parallel axis size {par.cp.size}")
         plain = impl == "plain"
         if plain and seeds is not None:
             raise ValueError("impl='plain' is the eval path: no dropout")
@@ -198,13 +219,14 @@ class SpatialAttention(nn.Module):
         if impl == "full":
             out = full_attention(
                 q, k, v, bias, dropout_rate=dropout_rate,
-                generator=device_generator(seeds[0], x.device) if drop else None)
+                generator=device_generator(seeds[0], x.device) if drop else None,
+                rows=par.data)
         elif impl == "window":
             out = local_window_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias,
                 window=window, dropout_rate=dropout_rate if drop else 0.0,
                 seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd,
-                plain=plain)
+                plain=plain, b0=b0)
         elif impl == "plain":
             out, _ = k2.attention_plain(q.contiguous(), k.contiguous(),
                                         v.contiguous(), bias,
@@ -213,10 +235,14 @@ class SpatialAttention(nn.Module):
             out, _ = k2.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(), bias,
                 dropout_rate=dropout_rate if drop else 0.0,
-                seed=int32_seed(seeds[0]) if drop else 0, bwd=bwd)
+                seed=int32_seed(seeds[0]) if drop else 0,
+                row_offset=b0 * self.num_heads, bwd=bwd)
         elif impl in ("ring", "allgather"):
-            raise NotImplementedError(
-                f"impl={impl!r} (context parallelism) is not ported yet")
+            out = ring_attention_sharded(
+                q, k, v, bias, axis=par.cp,
+                dropout_rate=dropout_rate if drop else 0.0,
+                seed=int32_seed(seeds[0]) if drop else None, b0=b0,
+                mode=impl, use_kernel=par.cp_kernel, bwd=bwd)
         else:
             raise ValueError(f"unknown attention impl {impl!r}")
         out = out.transpose(1, 2).reshape(b, h, w, c)
@@ -224,4 +250,5 @@ class SpatialAttention(nn.Module):
                             self.proj.bias)
         return layers.dropout(
             out, dropout_rate,
-            generator=device_generator(seeds[1], x.device) if drop else None)
+            generator=device_generator(seeds[1], x.device) if drop else None,
+            rows=par.data)

@@ -49,6 +49,8 @@ traced (`torch.export`) code take one route into the kernel.
 
 `launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
 count the kernel launches; the plain versions do not count.
+`shard_launches` and `bwd_shard_launches` count, among them, the forward
+and backward launches on a q shard (q_offset > 0: context parallelism).
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ launches = 0
 bwd_fused_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
+shard_launches = 0
+bwd_shard_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
@@ -385,8 +389,9 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         int(q.dtype == torch.bfloat16), FWD_BODIES.index(inst.body),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    global launches
+    global launches, shard_launches
     launches += 1
+    shard_launches += q_offset > 0
     return o, lse
 
 
@@ -520,6 +525,8 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
+    global bwd_shard_launches
+    bwd_shard_launches += q_offset > 0
     if kernel == DKV_FUSED_DQ:
         bwd_fused_launches += 1
     elif kernel == DKV:

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+from lunaris_orion_tpu_torch.parallel.collectives import all_reduce_sum
+from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
@@ -104,16 +106,28 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
                      running_var: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, *, momentum: float = 0.1,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, axis: Optional[AxisGroup] = None):
     """BatchNorm2d in train mode over NCHW x, in f32: normalize with the
     biased batch statistics. Returns (y, new_running_mean, new_running_var)
     without touching the buffers; the running variance takes the unbiased
-    batch variance (torch semantics, JAX `batch_norm(train=True)`)."""
+    batch variance (torch semantics, JAX `batch_norm(train=True)`).
+
+    With `axis` (the data axis) the batch is the global batch split over
+    its ranks, as under the JAX package's SPMD `jnp.mean`: the sum and the
+    sum of centered squares are all-reduced (their gradients too) and the
+    counts are global."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    centered = x32 - mean[None, :, None, None]
-    var = centered.square().mean(dim=(0, 2, 3))
     n = x.shape[0] * x.shape[2] * x.shape[3]
+    total = x32.sum(dim=(0, 2, 3))
+    if axis is not None:
+        total = all_reduce_sum(total, axis)
+        n *= axis.size
+    mean = total / n
+    centered = x32 - mean[None, :, None, None]
+    sq = centered.square().sum(dim=(0, 2, 3))
+    if axis is not None:
+        sq = all_reduce_sum(sq, axis)
+    var = sq / n
     with torch.no_grad():
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = (1 - momentum) * running_var + momentum * (
@@ -124,28 +138,45 @@ def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
     return out.to(x.dtype), new_mean, new_var
 
 
+def global_rows(shape, rows: Optional[AxisGroup]):
+    """The shape of a draw whose first axis is this rank's share of the
+    global batch, and the slice of it that is this rank's: every rank
+    draws the global batch's numbers and keeps its rows, so a draw gives
+    each sample what the single-process step gives it."""
+    if rows is None:
+        return tuple(shape), slice(None)
+    b = shape[0]
+    return (b * rows.size, *shape[1:]), slice(rows.index * b,
+                                              (rows.index + 1) * b)
+
+
 def _dropout(x: torch.Tensor, rate: float,
-             generator: Optional[torch.Generator], mask_shape) -> torch.Tensor:
+             generator: Optional[torch.Generator], mask_shape,
+             rows: Optional[AxisGroup]) -> torch.Tensor:
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(mask_shape, generator=generator, device=x.device) < keep
+    shape, own = global_rows(mask_shape, rows)
+    mask = torch.rand(shape, generator=generator, device=x.device)[own] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def dropout(x: torch.Tensor, rate: float, *,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            rows: Optional[AxisGroup] = None) -> torch.Tensor:
     """Elementwise dropout, keep = 1 - rate, kept values scaled by 1/keep.
-    The identity without a generator (eval) or at rate 0."""
-    return _dropout(x, rate, generator, x.shape)
+    The identity without a generator (eval) or at rate 0. `rows`: the data
+    axis x's batch is split over (`global_rows`)."""
+    return _dropout(x, rate, generator, x.shape, rows)
 
 
 def dropout2d(x: torch.Tensor, rate: float, *,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              rows: Optional[AxisGroup] = None) -> torch.Tensor:
     """Channel dropout (torch Dropout2d) over NCHW x: whole channels of a
     sample are kept or zeroed. The identity without a generator or at
-    rate 0."""
-    return _dropout(x, rate, generator, (x.shape[0], x.shape[1], 1, 1))
+    rate 0. `rows` as in `dropout`."""
+    return _dropout(x, rate, generator, (x.shape[0], x.shape[1], 1, 1), rows)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

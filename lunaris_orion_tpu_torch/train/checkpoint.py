@@ -21,6 +21,11 @@ resume.
 A save copies the state to the host in the caller's thread, then writes
 the file in a background thread, as Orbax's asynchronous saves do;
 `wait()` waits for the writes and raises the first that failed.
+
+Across ranks (`mesh`): rank 0 writes; every rank keeps the list of saved
+steps, and `wait()` (which `restore` calls first) ends on a barrier of all
+ranks after rank 0's writes, so every rank resumes from the same, whole
+file.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from lunaris_orion_tpu_torch.config import TrainConfig
+from lunaris_orion_tpu_torch.parallel.mesh import Mesh
 from lunaris_orion_tpu_torch.train.schedule import torch_scheduler_state
 from lunaris_orion_tpu_torch.train.state import ClippedAdamW, TrainState
 from lunaris_orion_tpu_torch.utils.convert import load_reference_checkpoint
@@ -148,8 +154,11 @@ def _save_file(obj: Dict, path: Path) -> None:
 
 class CheckpointService:
     def __init__(self, directory: str, *, keep_n: int = 5,
-                 log: Optional[logging.Logger] = None):
+                 log: Optional[logging.Logger] = None,
+                 mesh: Optional[Mesh] = None):
         self.log = log or logger
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_main
         self.root = Path(directory).absolute()
         self.steps_dir = self.root / "steps"
         self.steps_dir.mkdir(parents=True, exist_ok=True)
@@ -179,7 +188,7 @@ class CheckpointService:
         JAX package's Orbax flag (save off the save interval); this service
         keeps no interval, so every call saves."""
         cfg = config or self.load_config() or TrainConfig()
-        if config is not None:
+        if config is not None and self.writes:
             cfg_path = self.root / "config.json"
             if not cfg_path.exists():
                 cfg_path.write_text(json.dumps(config.to_dict(), indent=2,
@@ -187,12 +196,14 @@ class CheckpointService:
         new_step = step not in self._steps
         if not (new_step or best):
             return
-        obj = checkpoint_dict(state, cfg)
         drop: List[int] = []
         if new_step:
             self._steps = sorted(self._steps + [step])
             drop, self._steps = (self._steps[:-self.keep_n],
                                  self._steps[-self.keep_n:])
+        if not self.writes:
+            return
+        obj = checkpoint_dict(state, cfg)
         self._pending.append(self._writer.submit(
             self._write, obj, step if new_step else None, best, drop))
 
@@ -213,6 +224,8 @@ class CheckpointService:
         pending, self._pending = self._pending, []
         for f in pending:
             f.result()
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # -- restore ------------------------------------------------------------
 

@@ -18,6 +18,17 @@
     --embed_refresh_epochs divides; it stays on the device and each
     batch's rows are gathered there by the loader's indices.
 
+Across ranks (`torchrun`, `--mesh_shape D M`): a (data, model) mesh of
+`torch.distributed` ranks (`parallel.mesh`, the JAX package's
+`train/loop.py:259-298`). --batch_size is the global batch; each rank
+loads its data-axis slice. --attn_impl ring / allgather split the teacher
+attention's tokens over the model axis and need it above 1; a model axis
+above 1 without them is tensor / expert parallelism, which is not ported
+and raises. Rank 0 logs, writes TensorBoard, grids and checkpoints; the
+metrics, the validation and the early stop are the global batch's on
+every rank; the prompt-embedding table is computed in row slices and
+all-gathered, so every rank holds all of it.
+
 The JAX package compiles the step ahead and checks XLA's memory analysis
 against the device (`_plan_and_compile`). Here `_plan` measures instead:
 one probe micro-step (forward + backward) on copies of the models at each
@@ -25,12 +36,14 @@ candidate (remat off, then on; then half the batch, down to batch // 8),
 its peak `torch.cuda.max_memory_allocated` plus the two AdamW moments,
 against 0.92 of the device's memory (one AdamW moment in bf16 with
 --bf16_momentum). The probe leaves the training state as it was, bit for
-bit.
+bit. Across ranks every rank takes the plan of the rank that needs the
+most.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import math
 import os
 import signal
@@ -48,6 +61,10 @@ from lunaris_orion_tpu_torch.data.dataset import (BatchLoader, SpriteDataset,
 from lunaris_orion_tpu_torch.device import resolve_device
 from lunaris_orion_tpu_torch.models import teacher as teacher_mod
 from lunaris_orion_tpu_torch.ops.rng import device_generator
+from lunaris_orion_tpu_torch.parallel.collectives import (all_gather_tiled,
+                                                         broadcast_)
+from lunaris_orion_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                   Mesh, init_mesh, launched)
 from lunaris_orion_tpu_torch.train.checkpoint import (CheckpointService,
                                                       load_checkpoint_file)
 from lunaris_orion_tpu_torch.train.state import TrainState, create_state, state_for
@@ -56,7 +73,8 @@ from lunaris_orion_tpu_torch.train.step import (_compute_dtype,
                                                 make_eval_step,
                                                 make_micro_step,
                                                 make_train_step,
-                                                normalize_images)
+                                                normalize_images,
+                                                step_parallel)
 from lunaris_orion_tpu_torch.utils.hbm import device_memory_bytes
 from lunaris_orion_tpu_torch.utils.image import comparison_grid, sample_grid
 from lunaris_orion_tpu_torch.utils.logging import setup_logging
@@ -144,9 +162,10 @@ def _fmt(metrics: dict) -> str:
 def _attn_impl(cfg: TrainConfig) -> str:
     """The teacher attention's impl from the two knobs, by the JAX
     package's rule (conflicts between --attn_impl and --use_pallas raise),
-    mapped to the port's: 'auto', 'full', or 'flash' for both the JAX
-    package's 'flash' (its XLA composition) and 'pallas': the port has one
-    flash attention, K2. 'ring' and 'allgather' raise."""
+    mapped to the port's: 'auto', 'full', 'ring', 'allgather', or 'flash'
+    for both the JAX package's 'flash' (its XLA composition) and 'pallas':
+    the port has one flash attention, K2. With --no-use_pallas,
+    'allgather' runs without K2 (`step_parallel`'s cp_kernel)."""
     impl = getattr(cfg, "attn_impl", "auto")
     if impl != "auto":
         if cfg.use_pallas is True and impl != "pallas":
@@ -157,36 +176,88 @@ def _attn_impl(cfg: TrainConfig) -> str:
                 "--attn_impl pallas conflicts with --no-use_pallas")
     elif cfg.use_pallas is not None:
         impl = "pallas" if cfg.use_pallas else "flash"
-    if impl in ("ring", "allgather"):
-        raise NotImplementedError(
-            f"attn_impl {impl!r} (context parallelism) is not ported yet")
     return {"pallas": "flash"}.get(impl, impl)
 
 
 def compute_embed_table(embed_fn, state: TrainState, dataset: SpriteDataset,
                         *, batch_size: int, embedding_dim: int,
-                        device: torch.device) -> torch.Tensor:
+                        device: torch.device,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The per-sample prompt-embedding table [len(dataset), embedding_dim]
-    f32 on `device` (the JAX package's `compute_embed_table`, on one
-    process): the dataset in chunks of `batch_size` through `embed_fn`
-    (`make_embed_step`). Eval mode is per sample, so the last, shorter
-    chunk needs no padding."""
+    f32 on `device` (the JAX package's `compute_embed_table`): the dataset
+    in chunks of `batch_size` through `embed_fn` (`make_embed_step`).
+    Across ranks each data rank embeds its row slice of a chunk (a short
+    last slice padded with the chunk's last row) and the slices are
+    all-gathered over the data axis, so every rank holds the full table
+    (the model axis's first rank's, which its peers take). Eval mode is
+    per sample, so neither padding nor the split changes a row."""
     table = torch.empty(len(dataset), embedding_dim, dtype=torch.float32,
                         device=device)
+    data = None if mesh is None else mesh.data
     for start in range(0, len(dataset), batch_size):
         idx = np.arange(start, min(start + batch_size, len(dataset)))
-        imgs = torch.from_numpy(dataset.gather(idx)).to(device)
-        table[start:start + len(idx)] = embed_fn(state, imgs)
+        if data is None:
+            imgs = torch.from_numpy(dataset.gather(idx)).to(device)
+            table[start:start + len(idx)] = embed_fn(state, imgs)
+            continue
+        per = -(-len(idx) // data.size)
+        mine = idx[data.index * per:(data.index + 1) * per]
+        mine = np.concatenate([mine, np.full(per - len(mine), idx[-1])])
+        emb = embed_fn(state, torch.from_numpy(dataset.gather(mine)).to(device))
+        table[start:start + len(idx)] = all_gather_tiled(
+            emb, data, 0)[:len(idx)]
+    if mesh is not None and mesh.model.size > 1:
+        broadcast_([table], mesh.model)
     return table
 
 
-def _not_ported(cfg: TrainConfig) -> None:
-    """Options of the JAX Trainer the port does not run yet raise by name."""
-    if cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) > 1:
+def _check_mesh(cfg: TrainConfig, impl: str) -> None:
+    """The mesh rules of the JAX Trainer that need no process group:
+    context parallelism needs a model axis above 1, and a model axis above
+    1 without it is tensor / expert parallelism, which is not ported."""
+    mp = 1 if cfg.mesh_shape is None else int(cfg.mesh_shape[1])
+    if impl in ("ring", "allgather"):
+        if mp <= 1:
+            shape = dict(zip((DATA_AXIS, MODEL_AXIS),
+                             cfg.mesh_shape or ("world size", 1)))
+            raise ValueError(
+                f"--attn_impl {impl} needs a mesh model axis > 1 (context "
+                f"parallelism shards tokens over it); got mesh {shape}. "
+                "Pass --mesh_shape DATA MODEL")
+        n_tok = cfg.image_size * cfg.image_size
+        if n_tok % mp:
+            raise ValueError(
+                f"--attn_impl {impl}: token count {n_tok} (image_size^2) is "
+                f"not divisible by the model axis size {mp}")
+    elif mp > 1:
         raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)} (more than one device) is "
-            "not ported yet")
-    _attn_impl(cfg)
+            f"mesh_shape {tuple(cfg.mesh_shape)}: a model axis above 1 "
+            "without --attn_impl ring / allgather is tensor and expert "
+            "parallelism, which is not ported yet")
+
+
+class _NoMetrics:
+    """The MetricsWriter of a rank that does not write (every rank but 0)."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _rank_logger(rank: int) -> logging.Logger:
+    """Every rank but 0 logs warnings to the console only."""
+    logger = logging.getLogger(f"lunaris.rank{rank}")
+    if not logger.handlers:
+        h = logging.StreamHandler()
+        h.setFormatter(logging.Formatter(
+            f"%(asctime)s %(levelname)s [rank {rank}] %(message)s",
+            datefmt="%H:%M:%S"))
+        logger.addHandler(h)
+    logger.setLevel(logging.WARNING)
+    logger.propagate = False
+    return logger
 
 
 def _param_bytes(state: TrainState) -> int:
@@ -208,16 +279,36 @@ class Trainer:
     kernels')."""
 
     def __init__(self, cfg: TrainConfig):
-        _not_ported(cfg)
+        self.attn_impl = _attn_impl(cfg)
+        _check_mesh(cfg, self.attn_impl)
         self.cfg = cfg
-        # The card unless asked for the CPU; no card raises.
-        self.device = resolve_device("cpu" if cfg.force_cpu else "cuda")
+        # The card unless asked for the CPU; no card raises. Under torchrun
+        # (or with a mesh over more than one rank) a process group: NCCL on
+        # cuda:LOCAL_RANK, gloo on the CPU.
+        want = "cpu" if cfg.force_cpu else "cuda"
+        self.mesh: Optional[Mesh] = None
+        if launched() or (cfg.mesh_shape is not None
+                          and math.prod(cfg.mesh_shape) > 1):
+            self.mesh = init_mesh(cfg.mesh_shape, device=want)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(want)
+        self.main = self.mesh is None or self.mesh.is_main
         self.vcfg = cfg.vae_config()
         self.tcfg = cfg.teacher_config()
-        self.attn_impl = _attn_impl(cfg)
+        self._axes = {}
+        if self.mesh is not None:
+            self._axes = dict(mesh=self.mesh)
+            if self.attn_impl in ("ring", "allgather"):
+                self._axes.update(cp_mesh=self.mesh, cp_axis=MODEL_AXIS,
+                                  cp_batch_axis=DATA_AXIS)
         self.out_dir = Path(cfg.output_dir)
-        self.logger = setup_logging(str(self.out_dir))
-        self.metrics = MetricsWriter(str(self.out_dir / "tensorboard"))
+        if self.main:
+            self.logger = setup_logging(str(self.out_dir))
+            self.metrics = MetricsWriter(str(self.out_dir / "tensorboard"))
+        else:
+            self.logger = _rank_logger(self.mesh.rank)
+            self.metrics = _NoMetrics()
         (self.out_dir / "eval_samples").mkdir(parents=True, exist_ok=True)
         if cfg.debug_nans:
             # Anomaly detection: every backward op checks for NaN; slow,
@@ -226,6 +317,10 @@ class Trainer:
         self.logger.info("Device: %s (%s)", self.device,
                          torch.cuda.get_device_name(self.device)
                          if self.device.type == "cuda" else "host")
+        if self.mesh is not None:
+            self.logger.info("Mesh: %s over %s",
+                             dict(zip((DATA_AXIS, MODEL_AXIS),
+                                      self.mesh.shape)), self.mesh.backend)
         self._interrupted = False
 
         # --- data ---------------------------------------------------------
@@ -236,7 +331,7 @@ class Trainer:
         # --- state: fresh or resume ---------------------------------------
         self.ckpt = CheckpointService(str(self.out_dir / "checkpoints"),
                                       keep_n=cfg.keep_n_checkpoints,
-                                      log=self.logger)
+                                      log=self.logger, mesh=self.mesh)
         self.state = create_state(cfg, self.device, cfg.seed, self.vcfg,
                                   self.tcfg)
         self.resume_ms = None
@@ -252,7 +347,7 @@ class Trainer:
                         == (self.out_dir / "checkpoints").absolute())
                 resume = self.ckpt if same else CheckpointService(
                     cfg.resume_from, keep_n=cfg.keep_n_checkpoints,
-                    log=self.logger)
+                    log=self.logger, mesh=self.mesh)
                 resume.restore(self.state, config=cfg)
                 if not same:
                     resume.close()
@@ -266,11 +361,20 @@ class Trainer:
         self.cfg, self.remat, self.plan_need = self._plan(cfg)
         cfg = self.cfg
         self.train_step = make_train_step(cfg, remat=self.remat,
-                                          attn_impl=self.attn_impl)
-        self.eval_step = make_eval_step(cfg, attn_impl=self.attn_impl)
+                                          attn_impl=self.attn_impl,
+                                          **self._axes)
+        self.eval_step = make_eval_step(cfg, attn_impl=self.attn_impl,
+                                        **self._axes)
 
         # --- loaders ------------------------------------------------------
         device_data = cfg.device_data
+        shard = ((0, 1) if self.mesh is None
+                 else (self.mesh.data.index, self.mesh.data.size))
+        if device_data and shard[1] > 1:
+            self.logger.warning(
+                "--device_data: a corpus resident on each of %d data ranks "
+                "is not implemented; streaming instead", shard[1])
+            device_data = False
         if device_data:
             corpus = ((len(self.tr_idx) + len(self.va_idx))
                       * cfg.image_size * cfg.image_size * 3)
@@ -294,12 +398,12 @@ class Trainer:
             accum_steps=cfg.gradient_accumulation_steps * cfg.steps_per_call,
             seed=cfg.seed, device=self.device, prefetch=cfg.prefetch_depth,
             with_indices=cfg.cached_prompt_embeddings,
-            device_data=device_data)
+            device_data=device_data, data_shard=shard)
         self.val_loader = BatchLoader(
             self.dataset, self.va_idx, batch_size=cfg.batch_size,
             accum_steps=1, seed=cfg.seed, shuffle=False, squeeze_accum=True,
             device=self.device, prefetch=cfg.prefetch_depth,
-            device_data=device_data)
+            device_data=device_data, data_shard=shard)
         self.logger.info("Dataset: %d sprites (%d train / %d val batches)",
                          len(self.dataset), len(self.train_loader),
                          len(self.val_loader))
@@ -319,10 +423,12 @@ class Trainer:
         st = self.state
         probe = state_for(cfg, copy.deepcopy(st.vae), copy.deepcopy(st.teacher),
                           generator=torch.Generator().manual_seed(cfg.seed))
-        micro = make_micro_step(cfg, remat=remat, attn_impl=self.attn_impl)
-        images = torch.zeros((cfg.batch_size, cfg.image_size, cfg.image_size,
+        micro = make_micro_step(cfg, remat=remat, attn_impl=self.attn_impl,
+                                par=step_parallel(cfg, **self._axes))
+        b = cfg.batch_size // (1 if self.mesh is None else self.mesh.data.size)
+        images = torch.zeros((b, cfg.image_size, cfg.image_size,
                               3), dtype=torch.uint8, device=self.device)
-        pe = (torch.zeros(cfg.batch_size, self.tcfg.embedding_dim,
+        pe = (torch.zeros(b, self.tcfg.embedding_dim,
                           device=self.device)
               if cfg.cached_prompt_embeddings else None)
         micro(probe, images, probe.baseline, probe.baseline_initialized, pe)
@@ -346,7 +452,7 @@ class Trainer:
         except torch.cuda.OutOfMemoryError:
             need = math.inf
         torch.cuda.empty_cache()
-        return need
+        return need if self.mesh is None else self.mesh.world_max(need)
 
     def _plan(self, cfg: TrainConfig) -> Tuple[TrainConfig, bool,
                                                Optional[float]]:
@@ -394,12 +500,14 @@ class Trainer:
         (eval mode; the JAX package's `_refresh_embed_table`)."""
         if self._embed_fn is None:
             self._embed_fn = make_embed_step(self.cfg,
-                                             attn_impl=self.attn_impl)
+                                             attn_impl=self.attn_impl,
+                                             **self._axes)
         t0 = time.perf_counter()
         self._embed_table = compute_embed_table(
             self._embed_fn, self.state, self.dataset,
             batch_size=self.cfg.batch_size,
-            embedding_dim=self.tcfg.embedding_dim, device=self.device)
+            embedding_dim=self.tcfg.embedding_dim, device=self.device,
+            mesh=self.mesh)
         self._sync()
         self.logger.info("Prompt-embedding table refreshed (%d samples, "
                          "%.1f ms)", len(self.dataset),
@@ -430,11 +538,17 @@ class Trainer:
     def _save_eval_samples(self, batch4: torch.Tensor) -> None:
         """Original-vs-recon grid (eval mode, mean latent) of the batch in
         flight (train_hybrid.py:718-789, 951-952), in the training compute
-        dtype."""
+        dtype. Across ranks: rank 0's batch, scored by the ranks of data
+        index 0 (context parallelism needs all of them); rank 0 saves."""
+        if self.mesh is not None and self.mesh.data.index != 0:
+            return
         x = normalize_images(batch4, _compute_dtype(self.cfg))
         recon, _, _ = self.state.vae(x, sample_posterior=False)
         out = teacher_mod.apply(self.state.teacher, recon,
-                                attn_impl=self.attn_impl)
+                                attn_impl=self.attn_impl,
+                                par=step_parallel(self.cfg, **self._axes))
+        if not self.main:
+            return
         grid = comparison_grid(
             x.float().cpu().numpy(), recon.float().cpu().numpy(),
             quality=out["quality_scores"].float().cpu().numpy(),
@@ -449,7 +563,9 @@ class Trainer:
         """Prior-decode grid every --sample_every micro-steps (the
         reference parses the flag and never implements it, SURVEY.md
         §2.8). z comes from its own generator, seeded by (seed, step): the
-        training generator does not advance."""
+        training generator does not advance. Rank 0 only."""
+        if not self.main:
+            return
         gen = device_generator(self.cfg.seed * 1_000_003 + self.state.step,
                                self.device)
         imgs = self.state.vae.sample(4, gen, dtype=_compute_dtype(self.cfg))
@@ -502,7 +618,8 @@ class Trainer:
                 for item in self.train_loader:
                     batch, pe = ((item[0], self._prompt_embeddings(item[1]))
                                  if cached else (item, None))
-                    if cfg.profile_steps > 0 and epoch == 0 and host_step == 2:
+                    if (cfg.profile_steps > 0 and epoch == 0
+                            and host_step == 2 and self.main):
                         prof = self._profiler()
                         prof.__enter__()
                     prev_step = host_step

@@ -7,7 +7,7 @@
     reward       = mean_q(quality) + semantic_weight * semantic
     baseline    <- EMA(momentum) of mean reward
     advantage    = (reward - baseline).detach() * reward_scale
-    pg_loss      = -(advantage * recon_loss).mean()
+    pg_loss      = -mean(advantage) * recon_loss
     vae_loss     = recon_w * recon + kl_w * kl + pg_loss
     teacher_loss = quality_w * (-mean(quality_scores))
 
@@ -15,6 +15,13 @@ All reductions in f32. One backward of vae_loss + teacher_loss gives the
 reference's two backward passes: the advantage is detached, the teacher
 sees recon.detach(), and the prompt embeddings of the first teacher call
 are detached.
+
+Under data parallelism (`data`, the data axis) the batch statistics that
+enter the losses are the global batch's, as in the JAX package's SPMD
+step: the mean reward (the baseline's input) and the mean advantage (the
+factor of recon_loss in pg_loss) are averaged over the axis before they
+are used. Each rank's losses are then the global losses' share of its
+samples, so the gradients averaged over the axis are the global ones.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+from lunaris_orion_tpu_torch.parallel.collectives import mean_over
+from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 
 
 class LossWeights(NamedTuple):
@@ -47,17 +56,18 @@ def hybrid_losses(*, recon_loss: torch.Tensor, kl_loss: torch.Tensor,
                   quality_scores: torch.Tensor,
                   semantic_score: Optional[torch.Tensor],
                   baseline: torch.Tensor, baseline_initialized: torch.Tensor,
-                  w: LossWeights):
+                  w: LossWeights, data: Optional[AxisGroup] = None):
     """Returns (vae_loss, teacher_loss, new_baseline, new_initialized,
     metrics). baseline is an f32 scalar tensor and baseline_initialized a
-    bool scalar tensor, both on the device: nothing here waits for it."""
+    bool scalar tensor, both on the device: nothing here waits for it.
+    `data`: the data axis the batch is split over (module docstring)."""
     q32 = quality_scores.float()
     quality_reward = q32.mean(dim=1, keepdim=True)               # [B, 1]
     semantic_reward = (torch.zeros_like(quality_reward)
                        if semantic_score is None else semantic_score.float())
     total_reward = quality_reward + w.semantic_weight * semantic_reward
 
-    mean_reward = total_reward.mean().detach()
+    mean_reward = mean_over(total_reward.mean().detach(), data)
     new_baseline = torch.where(
         baseline_initialized,
         w.baseline_momentum * baseline
@@ -66,7 +76,8 @@ def hybrid_losses(*, recon_loss: torch.Tensor, kl_loss: torch.Tensor,
     new_initialized = torch.ones_like(baseline_initialized)
 
     advantage = (total_reward - new_baseline).detach() * w.reward_scale
-    pg_loss = -(advantage * recon_loss).mean()
+    mean_advantage = mean_over(advantage.mean(), data)
+    pg_loss = -(mean_advantage * recon_loss)
 
     vae_loss = w.recon_weight * recon_loss + w.kl_weight * kl_loss + pg_loss
     quality_loss = -q32.mean()
@@ -80,7 +91,7 @@ def hybrid_losses(*, recon_loss: torch.Tensor, kl_loss: torch.Tensor,
         "semantic_reward": semantic_reward.mean(),
         "quality_reward": quality_reward.mean(),
         "baseline": new_baseline,
-        "advantage": advantage.mean(),
+        "advantage": mean_advantage,
         "vae_loss": vae_loss,
         "teacher_loss": teacher_loss,
         "total_loss": vae_loss + teacher_loss,

@@ -33,17 +33,36 @@ Precision: mixed_precision runs bf16 activations with f32 parameters cast
 at each layer, f32 gradients and f32 optimizer state (AdamW's first moment
 in bf16 with bf16_momentum), as the serving path does (not
 torch.autocast).
+
+Across ranks (`mesh`, a `parallel.Mesh`): the batch a rank takes is its
+data-axis share of the global batch. BatchNorm uses the global batch's
+moments, every random draw gives the rank the global draw's rows, the
+losses' batch statistics are global (`losses.hybrid_losses`), and after
+the accumulation, before the clip, the gradients are averaged over the
+data axis only; the metrics are averaged over it too. Context parallelism
+(`cp_mesh`, `cp_axis`; attn_impl 'ring' or 'allgather') splits the
+teacher attention's tokens over the model axis, whose ranks take the same
+samples: every gradient that leaves the attention is whole on each of
+them (`parallel/ring_attention.py`). The rest of their work is the same
+work done twice, which a non-deterministic kernel (cuDNN's, on a card)
+can leave apart in the last bits, so the gradients, the BatchNorm
+statistics, the baseline and the metrics are then taken from the model
+axis's first rank (`broadcast_`): the ranks of a model row take the same
+AdamW update and the same decisions.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from lunaris_orion_tpu_torch.config import TrainConfig
 from lunaris_orion_tpu_torch.models import teacher as teacher_mod
 from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
+from lunaris_orion_tpu_torch.parallel.collectives import (all_reduce_mean_,
+                                                         broadcast_)
+from lunaris_orion_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, Parallel
 from lunaris_orion_tpu_torch.train import losses
 from lunaris_orion_tpu_torch.train.losses import LossWeights
 from lunaris_orion_tpu_torch.train.state import TrainState
@@ -63,16 +82,36 @@ def _compute_dtype(cfg: TrainConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.mixed_precision else torch.float32
 
 
-def _not_ported(cp_mesh, cp_axis, cp_batch_axis) -> None:
-    for name, value in (("cp_mesh", cp_mesh), ("cp_axis", cp_axis),
-                        ("cp_batch_axis", cp_batch_axis)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} (context parallelism) is not ported yet")
+def step_parallel(cfg: TrainConfig, mesh: Optional[Mesh] = None,
+                  cp_mesh: Optional[Mesh] = None, cp_axis: Optional[str] = None,
+                  cp_batch_axis: Optional[str] = None) -> Optional[Parallel]:
+    """The axes a step's modules read: the data axis of `mesh` (or of
+    `cp_mesh`) and, with `cp_axis`, the context-parallel axis of
+    `cp_mesh`. `cp_batch_axis` is the JAX signature's name of the axis the
+    batch is split over: None or 'data'. None without a mesh."""
+    if (cp_mesh is None) != (cp_axis is None):
+        raise ValueError("context parallelism needs cp_mesh and cp_axis")
+    if cp_batch_axis not in (None, DATA_AXIS):
+        raise ValueError(f"cp_batch_axis must be None or {DATA_AXIS!r}, got "
+                         f"{cp_batch_axis!r}")
+    if mesh is not None and cp_mesh is not None and mesh is not cp_mesh:
+        raise ValueError("mesh and cp_mesh must be one mesh")
+    mesh = mesh or cp_mesh
+    if mesh is None:
+        return None
+    cp = None
+    if cp_axis is not None:
+        if cp_axis == DATA_AXIS:
+            raise ValueError("the batch is split over the data axis; context "
+                             "parallelism runs over the model axis")
+        cp = mesh.axis(cp_axis)
+    return Parallel(data=mesh.data, cp=cp,
+                    cp_kernel=getattr(cfg, "use_pallas", None) is not False)
 
 
 def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
-                    attn_bwd: str | None = None, attn_impl: str = "auto"
+                    attn_bwd: str | None = None, attn_impl: str = "auto",
+                    par: Optional[Parallel] = None
                     ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor,
                                              Metrics]]:
     """Returns micro_step(state, batch [mb, H, W, 3], baseline,
@@ -80,7 +119,8 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
     baseline_initialized, metrics): one micro-batch's forwards and backward
     (steps 1-6 of the module docstring, or the options' forms), which adds
     its gradients to the models' .grad. pe_cached [mb, E]: the cached
-    prompt embeddings, needed with cfg.cached_prompt_embeddings."""
+    prompt embeddings, needed with cfg.cached_prompt_embeddings. `par`:
+    the mesh's axes (`step_parallel`)."""
     w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,
                     cfg.reward_scale, cfg.semantic_weight,
                     cfg.baseline_momentum)
@@ -88,7 +128,8 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
     cached = bool(cfg.cached_prompt_embeddings)
     fuse = bool(cfg.fuse_teacher) and not cached
     teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd,
-                      attn_impl=attn_impl)
+                      attn_impl=attn_impl, par=par)
+    data = par and par.data
 
     def micro_step(state: TrainState, batch: torch.Tensor,
                    baseline: torch.Tensor, binit: torch.Tensor,
@@ -106,7 +147,8 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
                     teacher, x, generator=state.generator,
                     **teacher_kw)["prompt_embedding"].detach()
         recon, mu, logvar = state.vae(
-            x, device_generator(new_seed(state.generator), x.device))
+            x, device_generator(new_seed(state.generator), x.device),
+            rows=data)
         recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
         if fuse:
             t = teacher_mod.apply(teacher, torch.cat([x, recon.detach()]),
@@ -125,7 +167,8 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
             losses.hybrid_losses(
                 recon_loss=recon_loss, kl_loss=kl_loss,
                 quality_scores=quality, semantic_score=semantic,
-                baseline=baseline, baseline_initialized=binit, w=w))
+                baseline=baseline, baseline_initialized=binit, w=w,
+                data=data))
         (vae_loss + teacher_loss).backward()
         return baseline, binit, metrics
 
@@ -134,7 +177,9 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
 
 def make_train_step(cfg: TrainConfig, *, remat: bool = True,
                     attn_bwd: str | None = None, attn_impl: str = "auto",
-                    cp_mesh=None, cp_axis=None, cp_batch_axis=None
+                    mesh: Optional[Mesh] = None, cp_mesh: Optional[Mesh] = None,
+                    cp_axis: Optional[str] = None,
+                    cp_batch_axis: Optional[str] = None
                     ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """Returns train_step(state, images [A, mb, H, W, 3] on the state's
     device, prompt_embs [A, mb, E] with cfg.cached_prompt_embeddings) ->
@@ -142,11 +187,15 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
     `attn_bwd` picks K2's backward kernels on CUDA ("fused" or "split";
     None: `flash_attention.default_bwd`, by type and head size).
     `attn_impl` is the teacher attention's impl: 'auto' (the JAX package's
-    rule), 'full' or 'flash' (K2); the teacher's attn_window overrides it.
-    The models' configs come with the state."""
-    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
+    rule), 'full', 'flash' (K2), or 'ring' / 'allgather' (context
+    parallelism over `cp_axis` of `cp_mesh`, the model axis); the
+    teacher's attn_window overrides the first three. `mesh`: data
+    parallelism over its data axis (the module docstring); `cp_mesh` is
+    that mesh too. The models' configs come with the state."""
+    par = step_parallel(cfg, mesh, cp_mesh, cp_axis, cp_batch_axis)
+    data = par and par.data
     micro_step = make_micro_step(cfg, remat=remat, attn_bwd=attn_bwd,
-                                 attn_impl=attn_impl)
+                                 attn_impl=attn_impl, par=par)
 
     def train_step(state: TrainState, images: torch.Tensor,
                    prompt_embs: torch.Tensor | None = None
@@ -162,13 +211,24 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
             stacked.append(metrics)
 
         inv = 1.0 / len(stacked)
+        grads = [p.grad for opt in (state.vae_opt, state.teacher_opt)
+                 for p in opt.params if p.grad is not None]
+        for g in grads:
+            g.mul_(inv)
+        if data is not None:
+            all_reduce_mean_(grads, data)
+        if par is not None and par.cp is not None:
+            broadcast_(grads, par.cp)
         for opt in (state.vae_opt, state.teacher_opt):
-            for p in opt.params:
-                if p.grad is not None:
-                    p.grad.mul_(inv)
             opt.step(state.step)
         out = {k: torch.stack([m[k] for m in stacked]).float().mean()
                for k in stacked[0]}
+        if data is not None:
+            all_reduce_mean_(list(out.values()), data)
+        if par is not None and par.cp is not None:
+            broadcast_(list(out.values()) + [baseline] + [
+                b for k, b in state.teacher.named_buffers()
+                if "running" in k], par.cp)
         out["baseline"] = baseline          # the current EMA
         state.step += 1
         state.baseline, state.baseline_initialized = baseline, binit
@@ -178,12 +238,15 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
 
 
 def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
-                   cp_mesh=None, cp_axis=None, cp_batch_axis=None
+                   mesh: Optional[Mesh] = None, cp_mesh: Optional[Mesh] = None,
+                   cp_axis: Optional[str] = None,
+                   cp_batch_axis: Optional[str] = None
                    ) -> Callable[[TrainState, torch.Tensor], Metrics]:
     """Deterministic validation: the reconstruction from the mean latent,
-    MSE + KL, and the teacher's quality in eval mode. images [B, H, W, 3].
-    `attn_impl` as in `make_train_step`."""
-    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
+    MSE + KL, and the teacher's quality in eval mode. images [B, H, W, 3]
+    (a rank's data-axis share of the batch; the metrics are averaged over
+    the data axis). `attn_impl` and the mesh as in `make_train_step`."""
+    par = step_parallel(cfg, mesh, cp_mesh, cp_axis, cp_batch_axis)
     dtype = _compute_dtype(cfg)
 
     @torch.no_grad()
@@ -191,30 +254,40 @@ def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
         x = normalize_images(images, dtype)
         recon, mu, logvar = state.vae(x, sample_posterior=False)
         recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
-        t_out = teacher_mod.apply(state.teacher, recon, attn_impl=attn_impl)
-        return {
+        t_out = teacher_mod.apply(state.teacher, recon, attn_impl=attn_impl,
+                                  par=par)
+        out = {
             "val_recon_loss": recon_loss,
             "val_kl_loss": kl_loss,
             "val_loss": cfg.recon_weight * recon_loss + cfg.kl_weight * kl_loss,
             "val_quality": t_out["quality_scores"].float().mean(),
         }
+        if par is not None:
+            out = {k: v.float().clone() for k, v in out.items()}
+            all_reduce_mean_(list(out.values()), par.data)
+            if par.cp is not None:
+                broadcast_(list(out.values()), par.cp)
+        return out
 
     return eval_step
 
 
 def make_embed_step(cfg: TrainConfig, *, attn_impl: str = "auto",
-                    cp_mesh=None, cp_axis=None, cp_batch_axis=None
+                    mesh: Optional[Mesh] = None, cp_mesh: Optional[Mesh] = None,
+                    cp_axis: Optional[str] = None,
+                    cp_batch_axis: Optional[str] = None
                     ) -> Callable[[TrainState, torch.Tensor], torch.Tensor]:
     """The cached table's step: eval-mode prompt embeddings, images
     [B, H, W, 3] uint8 -> [B, embedding_dim] f32, in the training compute
-    dtype. `attn_impl` as in `make_train_step`."""
-    _not_ported(cp_mesh, cp_axis, cp_batch_axis)
+    dtype, per sample (no collective but context parallelism's).
+    `attn_impl` and the mesh as in `make_train_step`."""
+    par = step_parallel(cfg, mesh, cp_mesh, cp_axis, cp_batch_axis)
     dtype = _compute_dtype(cfg)
 
     @torch.no_grad()
     def embed_step(state: TrainState, images: torch.Tensor) -> torch.Tensor:
         out = teacher_mod.apply(state.teacher, normalize_images(images, dtype),
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, par=par)
         return out["prompt_embedding"].float()
 
     return embed_step

@@ -18,6 +18,7 @@ from lunaris_orion_tpu.ops import dispatch
 from lunaris_orion_tpu.ops.pallas import flash_attention as fa
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+from lunaris_orion_tpu_torch.parallel import AxisGroup, Parallel
 
 
 def _qkvb(b, h, nq, nk, d, seed):
@@ -281,7 +282,9 @@ def test_rel_pos_bias_matches_reference():
 def test_windowed_and_context_parallel_modes_raise():
     """Windowed attention runs since it was ported (against the JAX
     package's windowed path at atol 1e-5, rtol 1e-4; a non-positive window
-    raises ValueError); context parallelism still raises."""
+    raises ValueError). Context parallelism raises by the JAX package's
+    rules (tests/test_ring_attention.py): without a context-parallel axis,
+    with a token count the axis size does not divide, or with a window."""
     jp, m = _module_pair(16, 2, key=0)
     x = np.random.default_rng(0).standard_normal((1, 8, 8, 16)).astype(
         np.float32)
@@ -292,5 +295,11 @@ def test_windowed_and_context_parallel_modes_raise():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="positive"):
         m(torch.from_numpy(x), window=0)
-    with pytest.raises(NotImplementedError):
-        m(torch.from_numpy(x), impl="allgather")
+    for impl in ("ring", "allgather"):
+        with pytest.raises(ValueError, match="needs cp_mesh"):
+            m(torch.from_numpy(x), impl=impl)
+        three = Parallel(cp=AxisGroup(None, 0, 3, (0, 1, 2)))
+        with pytest.raises(ValueError, match="not divisible"):
+            m(torch.from_numpy(x), impl=impl, par=three)
+        with pytest.raises(ValueError, match="cannot combine"):
+            m(torch.from_numpy(x), impl=impl, window=16, par=three)

@@ -165,7 +165,8 @@ def test_generator_reads_a_checkpoint_directory(tmp_path):
 
 def test_port_never_imports_jax():
     """In a fresh interpreter, importing every module of the port, the
-    training slice, its loop and the tools included, leaves jax, optax and
+    training slice, its loop, the parallel layer and the tools included,
+    leaves jax, optax and
     flax unloaded, and every module of the JAX package too: the port keeps
     its own copies of what it needs from there. pandas and orbax stay
     unloaded too (the card machine has neither)."""
@@ -183,7 +184,9 @@ def test_port_never_imports_jax():
         "        'train.loop', 'cli.train', 'infer.evaluator',\n"
         "        'cli.evaluate', 'ops.library', 'infer.exporter',\n"
         "        'cli.export', 'cli.convert', 'cli.synthesize',\n"
-        "        'ops.image_ops', 'data.prompts', 'data.synthesis']\n"
+        "        'ops.image_ops', 'data.prompts', 'data.synthesis',\n"
+        "        'parallel', 'parallel.mesh', 'parallel.collectives',\n"
+        "        'parallel.ring_attention', 'parallel.launch']\n"
         "missing = [n for n in need if 'lunaris_orion_tpu_torch.' + n not in mods]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"

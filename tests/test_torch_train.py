@@ -430,17 +430,29 @@ def test_state_conversion_carries_the_optimizer():
 
 
 def test_options_without_a_port_raise():
-    """Context parallelism is what the step still lacks; the options ported
-    since (fuse_teacher, cached_prompt_embeddings, bf16_momentum,
-    attn_window) build a step."""
-    cfg, _, _ = _tiny(32)
+    """The options (fuse_teacher, cached_prompt_embeddings, bf16_momentum,
+    attn_window) build a step. Context parallelism by the JAX package's
+    rules: cp_mesh without cp_axis (or the reverse) raises ValueError, and
+    a step with attn_impl 'ring' or 'allgather' but no context-parallel
+    axis raises ValueError when it runs (`impl=... needs cp_mesh`,
+    tests/test_ring_attention.py)."""
+    cfg, vcfg, tcfg = _tiny(32)
     for kw in (dict(fuse_teacher=True), dict(cached_prompt_embeddings=True),
                dict(bf16_momentum=True), dict(attn_window=256)):
         assert callable(step.make_train_step(cfg.replace(**kw)))
-    with pytest.raises(NotImplementedError):
-        step.make_train_step(cfg, cp_mesh=object(), cp_axis="model")
-    with pytest.raises(NotImplementedError):
-        step.make_embed_step(cfg, cp_mesh=object(), cp_axis="model")
+    for make in (step.make_train_step, step.make_embed_step,
+                 step.make_eval_step):
+        with pytest.raises(ValueError, match="cp_mesh and cp_axis"):
+            make(cfg, cp_mesh=object())
+        with pytest.raises(ValueError, match="cp_mesh and cp_axis"):
+            make(cfg, cp_axis="model")
+        with pytest.raises(ValueError, match="cp_batch_axis"):
+            make(cfg, cp_batch_axis="model")
+    images = torch.zeros((1, 2, 32, 32, 3), dtype=torch.uint8)
+    for impl in ("ring", "allgather"):
+        st = state.create_state(cfg, "cpu", 0, vcfg, tcfg)
+        with pytest.raises(ValueError, match="needs cp_mesh"):
+            step.make_train_step(cfg, attn_impl=impl)(st, images)
 
 
 @pytest.mark.parametrize("option", ["fuse_teacher",
