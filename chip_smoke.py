@@ -168,17 +168,36 @@ Phases, each of which raises on failure (exit code 1):
               at the full default width against the single-process step
               on the same state and global batch, dropout 0.1,
               accumulation 1: DP (2, 1) at batch 4, CP (1, 2) allgather at
-              4 (K2 launched on q shards, counted) and ring at 2, in f32
-              with TF32 off at phase 9's bars, and DP in bf16 read beside
-              the bf16 step's own noise (`DIST_CASES`); the two ranks'
-              gradients equal bit for bit; each rank's step s and peak
-              memory; `allgather_attention` alone at B2 H8 N16384 d16 bf16
+              4 (K2 launched on q shards, counted) and ring at 2, both
+              with the FC pair split over the model axis, in f32
+              with TF32 off at phase 9's bars, and DP (2, 1) and TP/EP
+              (1, 2) in bf16 read beside the bf16 step's own noise
+              (`DIST_CASES`); the two ranks' replicated gradients equal
+              bit for bit; each rank's step s
+              and peak memory; `allgather_attention` alone at B2 H8 N16384 d16 bf16
               dropout 0.1 against one K2 call (phases 4 and 7's bars; dk
               and dv, sums of two rounded partials, to one ulp of the
               largest), its ms beside the call's ("2 ranks over gloo on
               one card": not NCCL across cards); the K2 forward and
               default backward alone on one rank's CP shard (Nq 8192 x Nk
-              16384), beside their bound and SDPA.
+              16384), beside their bound and SDPA; (c) tensor and expert
+              parallelism, two gloo ranks on the card (`_tp_ep_rank`) at
+              the full default width, (1, 2), batch 4, f32, TF32 off,
+              dropout 0.1: each rank's gradients (its part) against the
+              single-process step's at phase 9's bars, the metrics at
+              phase 9's bar, the replicated gradients, BatchNorm
+              statistics and metrics bit-equal on both ranks, the
+              gathered parameters and AdamW moments against the
+              single-process step's, each rank's K2 launches half the
+              single process's (2 of 4 experts) and K1's and K3's the
+              same, each rank's step s, peak GiB and bytes of parameters
+              and moments; a save at (1, 2) and its load by one process
+              at (1, 1) bit-equal to the gathered state; the Trainer at
+              --mesh_shape 1 2, bf16, one step and one validation batch
+              at full width, its memory plan probing the split models on
+              the card and its checkpoint gathered on the host; and the
+              native batch gatherer built, byte-equal to the numpy gather
+              and timed against it at batch 16 x 2.
 
 Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
 the larger of its bytes (inputs read once, outputs written once) over
@@ -229,7 +248,8 @@ forward's, dq's and dk/dv's entries, and the K2 forward's and the bf16
 default backward's times alone on a CP shard (`cp_shard_ms`,
 `cp_shard_bound_ms`, `cp_shard_bound_by`, `cp_shard_library_ms`: SDPA on
 the same rectangular shape; `cp_shard_variant`) to the forward's and the
-fused backward's. The last lines are the card's
+fused backward's, and (c) `launches_tp_ep` (rank 0's launches in the f32
+TP/EP step) to K1's, the K2 forward's and backwards' and K3's. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -351,11 +371,12 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
                              f"{want} for {calls} calls")
 
 
-def device_share(torch, fn, tag: str, smi: str):
+def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
     """Run fn() once under torch.profiler and log its device time by kernel
     group, with the share of the host's time in which the device was idle,
     and K1's kernels by name. Returns (fn's result, the host's seconds,
-    {K1 kernel name: launches}, the device's milliseconds)."""
+    {K1 kernel name: launches}, the device's milliseconds). `launches`, a
+    dict, receives each kernel group's launches by name."""
     from torch.autograd import DeviceType
     with profiled(torch) as p:
         t0 = time.perf_counter()
@@ -370,6 +391,8 @@ def device_share(torch, fn, tag: str, smi: str):
         group = next((g for g, member in KERNEL_GROUPS if member(e.key)),
                      "other")
         ms[group] += e.self_device_time_total / 1e3
+        if launches is not None and group != "other":
+            launches[group] = launches.get(group, 0) + e.count
         if group == "K1":
             name = next(n for n in K1_KERNELS if n in e.key)
             k1_kernels[name] = k1_kernels.get(name, 0) + e.count
@@ -1317,17 +1340,21 @@ def grad_step(torch, dev: str):
 GRAD_SHARE, BN_SHARE = 1e-3, 2e-2
 
 
-def grad_ratios(g_ref: dict, g_new: dict, before_bn) -> dict:
-    """Each gradient's max abs difference over its bar (above 1: fails)."""
+def grad_ratios(g_ref: dict, g_new: dict, before_bn, part=None) -> dict:
+    """Each gradient's max abs difference over its bar (above 1: fails).
+    With `part(name, whole)`: `g_new` holds a rank's part of the whole
+    gradients `g_ref` (tensor / expert parallelism), held to the whole
+    tensors' bars."""
     out = {}
     for model in ("vae.", "teacher."):
         top = max(g.abs().max().item() for k, g in g_ref.items()
                   if k.startswith(model))
         for k, g in g_ref.items():
-            if k.startswith(model):
+            if k.startswith(model) and (part is None or k in g_new):
                 share = BN_SHARE if k in before_bn else GRAD_SHARE
                 tol = share * g.abs().max().item() + 1e-5 * top
-                out[k] = (g_new[k] - g).abs().max().item() / tol
+                ref = g if part is None else part(k, g)
+                out[k] = (g_new[k] - ref).abs().max().item() / tol
     return out
 
 
@@ -2739,17 +2766,22 @@ def run_synthesis(torch, tmp: Path, smi: str) -> dict:
 # 48 px: 5 % of semantic_reward, 11 % of a conv -> BatchNorm gradient; on
 # the card 270x phase 9's gradient bar and 1,000x its metric bar, where the
 # single-process step with its BatchNorm sums taken in two parts moves
-# 170x and 150x from itself). So the bf16 DP step is read beside that
-# noise and held only to equal ranks and finite values. The ring folds its
+# 170x and 150x from itself). So the bf16 DP and TP/EP steps are read
+# beside that noise and held only to equal ranks and finite values (the
+# TP/EP step's decoder FC adds two bf16 partial outputs in the exit). The ring folds its
 # chunks in plain torch (f32 score tiles of 8 heads x 8192 x 512 a block,
 # the hash in int64 ops) and takes batch 2: at batch 1 train-mode
 # BatchNorm makes the pooled features the gate reads a constant, and their
 # gradients rounding noise (any two attention impls then differ by 100 %).
 DIST_CASES = (("dp", (2, 1), "auto", 4, False),
               ("dp_bf16", (2, 1), "auto", 4, True),
+              ("tp_ep_bf16", (1, 2), "auto", 4, True),
               ("allgather", (1, 2), "allgather", 4, False),
               ("ring", (1, 2), "ring", 2, False))
 DIST_ATTN = (2, 8, 16384, 16)           # allgather_attention alone: B H N d
+# Phase 18 (c)'s K2 counters (f32: the split backward).
+TP_EP_K2 = ("launches", "bwd_fused_launches", "bwd_dq_launches",
+            "bwd_dkv_launches")
 
 
 def _dist_images(torch, batch: int):
@@ -2805,9 +2837,12 @@ def bn_sums_in_parts(torch, parts: int):
 
 
 def _dist_step(torch, cfg, dev, batch: int, **axes):
-    """One bf16 train step of the full default width from seed 0 on the
-    global batch `batch` (this rank's share of it with a data axis).
-    Returns (state, metrics, seconds)."""
+    """One train step of the full default width from seed 0 on the
+    global batch `batch` (this rank's share of it with a data axis; the
+    state cut to the rank's part with a model axis: the FC pair, and the
+    experts too without context parallelism). Returns (state, metrics,
+    seconds)."""
+    from lunaris_orion_tpu_torch.parallel.sharding import shard_state
     from lunaris_orion_tpu_torch.train.state import create_state
     from lunaris_orion_tpu_torch.train.step import make_train_step
     images = _dist_images(torch, batch)
@@ -2816,6 +2851,8 @@ def _dist_step(torch, cfg, dev, batch: int, **axes):
         per = batch // mesh.data.size
         images = images[:, mesh.data.index * per:(mesh.data.index + 1) * per]
     state = create_state(cfg, dev, 0)
+    if mesh is not None:
+        shard_state(state, mesh, shard_experts="cp_mesh" not in axes)
     step = make_train_step(cfg, **axes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2828,6 +2865,21 @@ def _grads(state) -> dict:
     return ({f"vae.{k}": p.grad for k, p in state.vae.named_parameters()}
             | {f"teacher.{k}": p.grad
                for k, p in state.teacher.named_parameters()})
+
+
+def _replicated(state) -> list:
+    """The gradients of the parameters every rank of a model row holds
+    whole."""
+    return [p.grad for opt in (state.vae_opt, state.teacher_opt)
+            for p, part in zip(opt.params, opt.split) if not part]
+
+
+def _part(state):
+    """name ("vae." / "teacher." + the model's name), whole tensor -> the
+    part of it this rank's state holds."""
+    if state.layout is None:
+        return None
+    return lambda name, t: state.layout.part(name.split(".", 1)[1], t)
 
 
 def _metric_ratios(ref: dict, got: dict) -> dict:
@@ -2873,9 +2925,9 @@ def _dist_rank(rank: int, tmp: Path) -> None:
             grads = _grads(state)
             ref_g, ref_m, before_bn = refs[(batch, 1, bf16)]
             ratios = grad_ratios(ref_g, {k: g.cpu() for k, g in grads.items()},
-                                 before_bn)
-            # The two ranks' gradients, element by element.
-            flat = torch.cat([g.reshape(-1) for g in grads.values()])
+                                 before_bn, _part(state))
+            # The two ranks' replicated gradients, element by element.
+            flat = torch.cat([g.reshape(-1) for g in _replicated(state)])
             both = col._raw_all_gather(flat, world.data, 0).view(2, -1)
             out[tag] = {
                 "ratios": ratios,
@@ -2908,6 +2960,330 @@ def _dist_rank(rank: int, tmp: Path) -> None:
         world.barrier()
     finally:
         close_mesh()
+
+
+def _tp_ep_step(torch, cfg, dev, smi: str, tag: str, mesh=None):
+    """Phase 18 (c)'s step, f32 with TF32 off, under torch.profiler
+    (`device_share`): one train step of the full default width from seed
+    0 at batch 4, the state cut to this rank's part with `mesh`. Returns
+    (state, metrics, seconds, device ms, {kernel group: launches by
+    name}, {counter: launches by the wrappers})."""
+    from lunaris_orion_tpu_torch.device import full_f32
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+    from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+    from lunaris_orion_tpu_torch.parallel.sharding import shard_state
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+    with full_f32():
+        state = create_state(cfg, dev, 0)
+        if mesh is not None:
+            shard_state(state, mesh)
+        step = make_train_step(cfg, mesh=mesh)
+        images = _dist_images(torch, 4).to(dev)
+        for mod, names in ((k1, ("launches",)), (k3, ("launches",)),
+                           (k2, TP_EP_K2)):
+            for name in names:
+                setattr(mod, name, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        by_name = {}
+        (state, m), secs, _, dev_ms = device_share(
+            torch, lambda: step(state, images), tag, smi, by_name)
+    counts = {"gn_mish": k1.launches, "mse_kl": k3.launches,
+              **{n: getattr(k2, n) for n in TP_EP_K2}}
+    return (state, {k: float(v) for k, v in m.items()}, secs, dev_ms,
+            by_name, counts)
+
+
+def _held_bytes(state) -> dict:
+    """The bytes of the parameters and AdamW moments a state holds, and of
+    its experts (with their quality heads) and its FC pair's weights."""
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"params": size(list(state.vae.parameters())
+                           + list(state.teacher.parameters())),
+            "moments": size([t for opt in (state.vae_opt, state.teacher_opt)
+                             for st in opt.opt.state.values()
+                             for k, t in st.items() if k != "step"]),
+            "experts": size([p for k, p in state.teacher.named_parameters()
+                             if k.startswith(("experts.", "quality_heads."))]),
+            "fc_pair": size([state.vae.encoder.fc_mu.weight,
+                             state.vae.encoder.fc_logvar.weight,
+                             state.vae.decoder.fc.weight])}
+
+
+def _tp_ep_trainer(torch, tmp: Path, data: str) -> dict:
+    """Phase 18 (c)'s Trainer on this rank: --mesh_shape 1 2, bf16, batch
+    4, one step and one validation batch at the full default width. Its
+    memory plan probes the split models on the card; its epoch-end
+    checkpoint is gathered on the host. Both ranks share cuda:0."""
+    import os
+    from lunaris_orion_tpu_torch.cli import train as train_cli
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    os.environ["LOCAL_RANK"] = "0"
+    t0 = time.perf_counter()
+    trainer = train_cli.trainer_from_args([
+        "--data_dir", data, "--output_dir", str(tmp / "tp_ep_trainer"),
+        "--mixed_precision", "--batch_size", "4",
+        "--gradient_accumulation_steps", "1", "--num_epochs", "1",
+        "--val_fraction", "0.5", "--mesh_shape", "1", "2", "--log_every",
+        "1", "--save_every", "0", "--eval_save_freq", "0", "--sample_every",
+        "0"])
+    step, seen = trainer.train_step, []
+
+    def recorded(*a):
+        state, m = step(*a)
+        seen.append({k: float(v) for k, v in m.items()})
+        return state, m
+    trainer.train_step = recorded
+    k2.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "steps": trainer.state.step,
+            "plan_gib": (None if trainer.plan_need is None
+                         else trainer.plan_need / 2**30),
+            "remat": trainer.remat, "metrics": seen, "k2": k2.launches,
+            "experts": [e for e, ex in enumerate(trainer.state.teacher.experts)
+                        if ex is not None]}
+
+
+def _tp_ep_rank(rank: int, tmp: Path) -> None:
+    """One of phase 18 (c)'s two ranks on the one card, over gloo: the
+    TP/EP step at (1, 2), its checkpoint, and what it holds."""
+    import torch
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.parallel import close_mesh, init_mesh
+    from lunaris_orion_tpu_torch.parallel import collectives as col
+    from lunaris_orion_tpu_torch.parallel.sharding import gather_state
+    from lunaris_orion_tpu_torch.train.checkpoint import (
+        CheckpointService, checkpoint_file, load_checkpoint_file)
+    from lunaris_orion_tpu_torch.train.state import create_state
+    dev = torch.device("cuda:0")
+    mesh = init_mesh((1, 2), device=dev, backend="gloo")
+    try:
+        ref = torch.load(tmp / "tp_ep_ref.pt")
+        cfg = TrainConfig(gradient_accumulation_steps=1, batch_size=4)
+        state, m, secs, dev_ms, by_name, counts = _tp_ep_step(
+            torch, cfg, dev, ref["smi"], f"dist (c) rank {rank} TP/EP step",
+            mesh)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        grads = {k: g.cpu() for k, g in _grads(state).items()}
+        ratios = grad_ratios(ref["grads"], grads, ref["before_bn"],
+                             _part(state))
+        # What both ranks must hold alike: the replicated gradients, the
+        # replicated BatchNorm statistics, the metrics.
+        alike = torch.cat(
+            [g.reshape(-1) for g in _replicated(state)]
+            + [b.reshape(-1).float() for k, b in
+               state.teacher.named_buffers() if "running" in k
+               and ".experts." not in f".{k}"]
+            + [torch.tensor([v for _, v in sorted(m.items())], device=dev)])
+        both = col.gather_over(alike, mesh.model, 0).view(2, -1)
+        held = _held_bytes(state)
+        whole = gather_state(state, mesh)
+        params = {f"{n}.{k}": v for n, mod in (("vae", whole.vae),
+                                               ("teacher", whole.teacher))
+                  for k, v in mod.state_dict().items()}
+        moved = max((params[k].float().cpu() - v.float()).abs().max().item()
+                    for k, v in ref["params"].items())
+        mu = {f"{n}.{k}": whole_opt.opt.state[p]["exp_avg"].cpu() / 0.1
+              for n, mod, whole_opt in (("vae", whole.vae, whole.vae_opt),
+                                        ("teacher", whole.teacher,
+                                         whole.teacher_opt))
+              for k, p in mod.named_parameters()}
+        mu_ratios = grad_ratios(ref["mu"], mu, ref["before_bn"])
+        # A save at (1, 2), then a load of the file by one process.
+        ckpt = CheckpointService(str(tmp / "tp_ep_ckpt"), mesh=mesh)
+        ckpt.save(1, state, config=cfg)
+        ckpt.close()
+        out = {"ratios": ratios, "metric_ratios": _metric_ratios(ref["m"], m),
+               "peer_diff": (both[0] - both[1]).abs().max().item(),
+               "seconds": secs, "device_ms": dev_ms, "by_name": by_name,
+               "counts": counts, "peak_gib": peak, "held": held,
+               "moved": moved,
+               "mu_worst": max(mu_ratios.values()),
+               "experts": [e for e, ex in enumerate(state.teacher.experts)
+                           if ex is not None]}
+        if rank == 0:
+            loaded = create_state(cfg, dev, 1)
+            load_checkpoint_file(str(checkpoint_file(str(tmp / "tp_ep_ckpt"))),
+                                 loaded, cfg)
+            differ = [k for n, mod in (("vae", loaded.vae),
+                                       ("teacher", loaded.teacher))
+                      for k, v in mod.state_dict().items()
+                      if not torch.equal(v.cpu(), params[f"{n}.{k}"])]
+            for a, b in ((loaded.vae_opt, whole.vae_opt),
+                         (loaded.teacher_opt, whole.teacher_opt)):
+                for pa, pb in zip(a.params, b.params):
+                    for k in ("exp_avg", "exp_avg_sq"):
+                        if not torch.equal(a.opt.state[pa][k].cpu(),
+                                           b.opt.state[pb][k]):
+                            differ.append(f"moment {k}")
+            out["resume"] = {"tensors": len(params), "differ": differ[:5],
+                             "n_differ": len(differ)}
+            del loaded
+        del state, whole, params, mu, grads
+        torch.cuda.empty_cache()
+        out["trainer"] = _tp_ep_trainer(torch, tmp, ref["trainer_data"])
+        torch.save(out, tmp / f"tp_ep_rank{rank}.pt")
+        mesh.barrier()
+    finally:
+        close_mesh()
+
+
+def run_dist_tp_ep(torch, tmp: Path, smi: str) -> dict:
+    """Phase 18 (c): tensor and expert parallelism over two gloo ranks on
+    the one card (the collectives staged through the host), full default
+    width, (1, 2), batch 4, accumulation 1, dropout 0.1, f32 with TF32
+    off, against the single-process step on the same state and batch.
+    The gathered parameters are held within 3 lr of the single step's (a
+    first AdamW step moves an entry by lr times the sign of its gradient,
+    so an entry whose gradient is rounding noise lands up to 2 lr away; a
+    wrong part moves by the parameters' own size), the gathered first
+    moments over (1 - b1) at phase 9's gradient bars. Then the native
+    batch gatherer on a procedural corpus."""
+    import numpy as np
+    from torch import nn
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.data.dataset import SpriteDataset
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    from lunaris_orion_tpu_torch.parallel.launch import spawn
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(gradient_accumulation_steps=1, batch_size=4)
+    state, m, secs, dev_ms, by_name, counts = _tp_ep_step(
+        torch, cfg, dev, smi, "dist (c) single-process step")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = _held_bytes(state)
+    before_bn = {f"teacher.{name}.{p}"
+                 for name, mod in state.teacher.named_modules()
+                 if isinstance(mod, nn.Sequential) and len(mod)
+                 and isinstance(mod[-1], nn.BatchNorm2d)
+                 for p, _ in mod.named_parameters()}
+    torch.save({
+        "grads": {k: g.cpu() for k, g in _grads(state).items()}, "m": m,
+        "before_bn": before_bn, "smi": smi,
+        "trainer_data": str(write_synthetic_dataset(
+            tmp / "tp_ep_sprites", 8, image_size=128)),
+        "params": {f"{n}.{k}": v.cpu() for n, mod in (("vae", state.vae),
+                                                     ("teacher",
+                                                      state.teacher))
+                   for k, v in mod.state_dict().items()},
+        "mu": {f"{n}.{k}": opt.opt.state[p]["exp_avg"].cpu() / 0.1
+               for n, mod, opt in (("vae", state.vae, state.vae_opt),
+                                   ("teacher", state.teacher,
+                                    state.teacher_opt))
+               for k, p in mod.named_parameters()}}, tmp / "tp_ep_ref.pt")
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(_tp_ep_rank, 2, (tmp,))
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"tp_ep_rank{r}.pt") for r in range(2)]
+    failed = []
+    for r, c in enumerate(ranks):
+        worst = max(c["ratios"], key=c["ratios"].get)
+        m_worst = max(c["metric_ratios"], key=c["metric_ratios"].get)
+        share = {k: c["held"][k] / held[k] for k in held}
+        log(f"[dist] (c) rank {r} TP/EP (1, 2) batch 4 f32, experts "
+            f"{c['experts']}: gradients worst {c['ratios'][worst]:.3f} of "
+            f"the bar ({worst}), metrics worst "
+            f"{c['metric_ratios'][m_worst]:.3f} ({m_worst}); gathered "
+            f"moments {c['mu_worst']:.3f} of the bar, parameters moved "
+            f"{c['moved']:.2e} from the single step's; step "
+            f"{c['seconds']:.2f} s (single process {secs:.2f} s), device "
+            f"{c['device_ms']:.1f} ms ({c['device_ms'] / dev_ms:.1%} of the "
+            f"single process's {dev_ms:.1f}), peak "
+            f"{c['peak_gib']:.2f} GiB (single {peak:.2f}); held "
+            f"{c['held']['params'] / 2**20:.1f} MiB of parameters, "
+            f"{c['held']['moments'] / 2**20:.1f} MiB of moments (single "
+            f"{held['params'] / 2**20:.1f}, {held['moments'] / 2**20:.1f}): "
+            f"shares {', '.join(f'{k} {v:.3f}' for k, v in share.items())}; "
+            f"launches {c['counts']} (single {counts}), by name "
+            f"{c['by_name']} (single {by_name}); 2 ranks over gloo on one "
+            f"card, on {smi}")
+        if (c["ratios"][worst] > 1.0 or c["metric_ratios"][m_worst] > 1.0
+                or c["mu_worst"] > 1.0 or c["moved"] > 3 * cfg.vae_lr):
+            failed.append(f"rank {r}: off the bar")
+        if c["experts"] != [2 * r, 2 * r + 1]:
+            failed.append(f"rank {r}: experts {c['experts']}")
+        for n in TP_EP_K2:
+            if 2 * c["counts"][n] != counts[n]:
+                failed.append(f"rank {r}: {n} {c['counts'][n]} against "
+                              f"the single process's {counts[n]}")
+        for n in ("gn_mish", "mse_kl"):
+            if c["counts"][n] != counts[n] or counts[n] <= 0:
+                failed.append(f"rank {r}: {n} {c['counts'][n]}")
+        # By name in the profile: K1 and K3 as in the single step, the K2
+        # forward half of it.
+        for group, want in (("K1", by_name.get("K1", 0)),
+                            ("K3", by_name.get("K3", 0)),
+                            ("K2 fwd", by_name.get("K2 fwd", 0) // 2)):
+            if c["by_name"].get(group, 0) != want or want <= 0:
+                failed.append(f"rank {r}: {group} by name "
+                              f"{c['by_name'].get(group, 0)}, expected {want}")
+    if ranks[0]["counts"] != ranks[1]["counts"]:
+        failed.append("the ranks' launches differ")
+    if counts["launches"] <= 0:
+        failed.append("no K2 launch in the single-process step")
+    if ranks[0]["peer_diff"] != 0.0:
+        failed.append(f"replicated gradients, statistics or metrics differ "
+                      f"between the ranks by {ranks[0]['peer_diff']:.2e}")
+    res = ranks[0]["resume"]
+    log(f"[dist] (c) save at (1, 2), load at (1, 1): {res['tensors']} "
+        f"tensors and every AdamW moment, {res['n_differ']} differ bit for "
+        f"bit from the gathered state {res['differ']}")
+    if res["n_differ"]:
+        failed.append("the checkpoint does not load to the gathered state")
+    trainers = [c["trainer"] for c in ranks]
+    for r, t in enumerate(trainers):
+        log(f"[dist] (c) rank {r} Trainer --mesh_shape 1 2 bf16 batch 4: "
+            f"{t['steps']} step, experts {t['experts']}, memory plan "
+            f"{t['plan_gib']} GiB (remat {t['remat']}), K2 forward "
+            f"launches {t['k2']}, metrics {t['metrics']}, "
+            f"{t['seconds']:.1f} s with set-up, probe and save; 2 ranks "
+            f"over gloo on one card, on {smi}")
+        if (t["steps"] != 1 or t["plan_gib"] is None
+                or not math.isfinite(t["plan_gib"]) or t["k2"] <= 0
+                or t["experts"] != [2 * r, 2 * r + 1]
+                or not all(math.isfinite(v) for m in t["metrics"]
+                           for v in m.values())):
+            failed.append(f"rank {r}: the TP/EP Trainer run")
+    if trainers[0]["metrics"] != trainers[1]["metrics"]:
+        failed.append("the TP/EP Trainer's metrics differ between the ranks")
+
+    # The native batch gatherer against the numpy gather: a procedural
+    # corpus of 3 shards, batch 16 x 2 random rows.
+    ds = SpriteDataset(str(write_synthetic_dataset(
+        tmp / "native_sprites", 240, image_size=128, shards=3)),
+        image_size=128)
+    idx = np.random.default_rng(18).integers(0, len(ds), 32)
+    same = bool(ds.native) and np.array_equal(ds.gather(idx),
+                                              ds.gather_numpy(idx))
+    turns = {"numpy": [], "native": []}
+    for name in ("numpy", "native", "native", "numpy") * 5:
+        fn = ds.gather_numpy if name == "numpy" else ds.gather
+        t0 = time.perf_counter()
+        fn(idx)
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    gather_ms = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    log(f"[dist] (c) native gather: built {ds.native}, byte-equal to the "
+        f"numpy gather {same}; batch 16 x 2 at 128 px from 3 shards "
+        f"{gather_ms['native']:.3f} ms against numpy "
+        f"{gather_ms['numpy']:.3f} ms (medians of 10, in turns; host)")
+    if not same:
+        failed.append("native gather not built or not byte-equal")
+    log(f"[dist] (c) ranks {t_ranks:.0f} s, phase (c) "
+        f"{time.perf_counter() - t_phase:.0f} s")
+    if failed:
+        raise AssertionError(f"dist (c): {failed}")
+    return {"launches": ranks[0]["counts"], "single_launches": counts,
+            "seconds": [c["seconds"] for c in ranks], "single_seconds": secs,
+            "device_ms": [c["device_ms"] for c in ranks],
+            "single_device_ms": dev_ms,
+            "peak_gib": [c["peak_gib"] for c in ranks],
+            "single_peak_gib": peak,
+            "held": [c["held"] for c in ranks], "single_held": held,
+            "gather_ms": gather_ms}
 
 
 def run_dist_nccl(torch, tmp: Path, smi: str) -> dict:
@@ -2994,7 +3370,7 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
     staged through the host), at the full default width, against the
     single-process step on the same state and global batch: DP (2, 1) at
     global batch 4, CP (1, 2) allgather at 4 (K2 launched on q shards) and
-    ring at 2, bf16, dropout 0.1, accumulation 1: the averaged, clipped
+    ring at 2, DP and TP/EP (1, 2) in bf16, dropout 0.1, accumulation 1: the averaged, clipped
     gradients at phase 9's bars, the metrics at phase 9's bar scaled to
     bf16, the two ranks' gradients against each other, each rank's peak
     memory; then `allgather_attention` alone at B2 H8 N16384 d16 bf16
@@ -3227,12 +3603,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dist_a = run_dist_nccl(torch, Path(tmp), smi)
         dist_b = run_dist_gloo(torch, Path(tmp), smi)
+        dist_c = run_dist_tp_ep(torch, Path(tmp), smi)
     log(f"[dist] phase 18 in {time.perf_counter() - t18:.0f} s")
     # Phase 18's paths: the K2 launches on q shards in (b)'s allgather step
     # (rank 1; `launches_dist_allgather`), and the kernels alone on one
     # rank's CP shard (`cp_shard_*`).
     fused_cp = (dist_b["bwd"] if dist_b["bwd"]["cp_shard_variant"] == "fused"
                 else {})
+    # Phase 18 (c)'s path: rank 0's launches in the f32 TP/EP step.
+    p18 = lambda key: {"launches_tp_ep": dist_c["launches"][key]}
     # Phase 17's paths: one bf16 generate and one score of a loaded "cuda"
     # bundle at batch 8 (the serving process's counts).
     x17 = lambda key: {
@@ -3249,39 +3628,41 @@ def main() -> int:
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"],
              trainer_launches=trainer["gn_mish"], **w16("gn_mish"),
-             **x17("gn_mish"), **k1, **pass1),
+             **x17("gn_mish"), **p18("gn_mish"), **k1, **pass1),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"],
              trainer_launches=trainer["flash_attention_fwd"],
              launches_evaluate=evaluate["evaluate_window_bf16_launches"],
              **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
-             **k2, **window["fwd"], **dist_b["fwd"]),
+             **p18("launches"), **k2, **window["fwd"], **dist_b["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
              trainer_launches=trainer["flash_attention_bwd_fused"],
              **w16("flash_attention_bwd_fused"),
+             **p18("bwd_fused_launches"),
              **bwd["flash_attention_bwd_fused"],
              **{k + "_bf16": v for k, v in window["bwd_bf16"].items()},
              **fused_cp),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
              launches=train["flash_attention_bwd_dq"],
-             **w16("flash_attention_bwd_dq"), **bwd["flash_attention_bwd_dq"],
+             **w16("flash_attention_bwd_dq"), **p18("bwd_dq_launches"),
+             **bwd["flash_attention_bwd_dq"],
              **{"split_" + k: v for k, v in window["bwd_f32"].items()},
              **dist_b["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:514",
              launches=train["flash_attention_bwd_dkv"],
-             **w16("flash_attention_bwd_dkv"),
+             **w16("flash_attention_bwd_dkv"), **p18("bwd_dkv_launches"),
              **bwd["flash_attention_bwd_dkv"],
              **{"split_" + k: v for k, v in window["bwd_f32"].items()},
              **dist_b["dkv"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
-             **w16("mse_kl"), **k3),
+             **w16("mse_kl"), **p18("mse_kl"), **k3),
         dict(name="gn_mish_conv3", route="cuda",
              source=src + "fused_stage_mma.cu",
              replaces="lunaris_orion_tpu/ops/pallas/fused_stage.py:56",
@@ -3297,7 +3678,7 @@ def main() -> int:
     ]
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(f"[serve] summary: {json.dumps({**serving, **synth})}")
-    log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b})}")
+    log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b, 'c': dist_c})}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,16 +14,21 @@ and change nothing (`train.loop.Trainer`).
 Across ranks, under torchrun (one rank a card; NCCL, or gloo with
 --device cpu):
 
+    torchrun --nproc_per_node 2 -m lunaris_orion_tpu_torch.cli.train \
+        --data_dir sprites --mixed_precision --mesh_shape 1 2
     torchrun --nproc_per_node 4 -m lunaris_orion_tpu_torch.cli.train \
         --data_dir sprites --mixed_precision --mesh_shape 2 2 \
-        --attn_impl allgather
+        [--attn_impl allgather]
 
 --mesh_shape D M lays the ranks out as a (data, model) grid (default: all
-on the data axis); --batch_size is the global batch. --attn_impl ring /
-allgather split the teacher attention's tokens over the model axis
-(context parallelism); a model axis above 1 without them is tensor /
-expert parallelism, which is not ported yet and raises
-NotImplementedError by name.
+on the data axis); --batch_size is the global batch. A model axis above
+1 splits the VAE's bottleneck FC pair by latent column (tensor
+parallelism, when M divides --latent_dim) and the teacher's experts
+(expert parallelism, when M divides --num_experts), as the JAX package's
+placement does; --attn_impl ring / allgather split the teacher
+attention's tokens over it instead of the experts (context parallelism).
+A split that does not divide stays replicated. Checkpoints hold the whole
+state, so a run resumes at any mesh shape.
 """
 
 from __future__ import annotations
@@ -116,8 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--mesh_shape", type=int, nargs=2, default=None,
                    metavar=("DATA", "MODEL"),
                    help="(data, model) grid of the torchrun ranks; default "
-                        "(world size, 1). A model axis above 1 needs "
-                        "--attn_impl ring or allgather")
+                        "(world size, 1). A model axis above 1 splits the "
+                        "bottleneck FC pair and the experts over it (with "
+                        "--attn_impl ring / allgather: the FC pair and the "
+                        "attention's tokens)")
     g.add_argument("--val_fraction", type=float, default=d.val_fraction)
     g.add_argument("--prefetch_depth", type=int, default=d.prefetch_depth)
     g.add_argument("--steps_per_call", type=int, default=d.steps_per_call,

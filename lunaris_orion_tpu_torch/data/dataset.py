@@ -9,8 +9,10 @@ generate.py:858-904): a directory of
 with as many rows in all as sprites.
 
 Sprites stay uint8 on the host; the train step normalizes them on the
-device. Batches are gathered from the memory maps with numpy fancy
-indexing, one sorted read a shard. On a CUDA device a prefetch thread
+device. Batches are gathered from the memory maps by the native C++
+gatherer (`data/native.py`, built with g++ at first use), or, where it
+does not build, with numpy fancy indexing, one sorted read a shard;
+`SpriteDataset.native` says which. On a CUDA device a prefetch thread
 copies each batch into pinned memory and on to the card on a side stream,
 so host reads overlap the step; with `device_data` the loader's whole
 subset stays resident on the card and only an index vector crosses a
@@ -34,7 +36,11 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from lunaris_orion_tpu_torch.data.native import NativeGatherer
+
 logger = logging.getLogger(__name__)
+# The gather path is logged once a process.
+_logged_path = False
 
 LABEL_COLUMNS = ("filename", "category", "prompt", "seed", "pixel_size",
                  "guidance_scale", "pag_scale", "num_steps")
@@ -88,6 +94,16 @@ class SpriteDataset:
             self.shards.append(arr)
             logger.info("Loaded %s with %d images", f.name, len(arr))
         self.cumulative = np.cumsum([0] + [len(s) for s in self.shards])
+        self._native = None
+        try:
+            self._native = NativeGatherer(self.shards)
+        except Exception as e:  # no toolchain: the numpy gather
+            logger.debug("native gather disabled: %s", e)
+        global _logged_path
+        if not _logged_path:
+            _logged_path = True
+            logger.info("Batch gather: %s", "native (C++)" if self.native
+                        else "numpy")
 
         self.labels: Optional[Dict[str, np.ndarray]] = None
         if load_labels and self.labels_files:
@@ -100,6 +116,11 @@ class SpriteDataset:
 
     def __len__(self) -> int:
         return int(self.cumulative[-1])
+
+    @property
+    def native(self) -> bool:
+        """True when `gather` runs the native C++ gatherer."""
+        return self._native is not None
 
     def metadata(self, idx: int) -> dict:
         if self.labels is None:
@@ -118,7 +139,14 @@ class SpriteDataset:
                 if c in self.labels}
 
     def gather(self, indices: np.ndarray) -> np.ndarray:
-        """Vectorized uint8 gather across shards -> [n, H, W, 3]."""
+        """Vectorized uint8 gather across shards -> [n, H, W, 3], by the
+        native gatherer when it was built (`native`)."""
+        if self._native is not None:
+            return self._native.gather(indices)
+        return self.gather_numpy(indices)
+
+    def gather_numpy(self, indices: np.ndarray) -> np.ndarray:
+        """The numpy gather: one sorted read a shard."""
         indices = np.asarray(indices)
         shard_ids = np.searchsorted(self.cumulative, indices, side="right") - 1
         out = np.empty((len(indices), self.image_size, self.image_size, 3),

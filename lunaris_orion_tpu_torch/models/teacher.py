@@ -24,6 +24,16 @@ block's main path (conv1 -> drop -> attention -> conv2 -> drop) runs under
 `torch.utils.checkpoint`, as `jax.checkpoint` wraps it: its seeds are drawn
 before it runs and its BatchNorm statistics leave it as outputs, so the
 replay in the backward draws the same masks and updates nothing twice.
+
+Under expert parallelism (`par.ep`, the model axis;
+`parallel/sharding.py`) a rank's teacher holds None in place of the
+experts and quality heads of the other ranks. It runs its own experts on
+the features and gate weights through `sum_entry`, and their
+gate-weighted quality and features leave through `sum_exit`. The
+semantic head reads expert 0, whose pooled features model rank 0
+broadcasts (`broadcast_from`). A rank still draws the seeds and the head
+dropout masks of the experts it skips, in order, so every draw it makes
+is the single-process step's.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import leaky_relu
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention
 from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
+from lunaris_orion_tpu_torch.parallel.collectives import (broadcast_from,
+                                                         sum_entry, sum_exit)
 from lunaris_orion_tpu_torch.parallel.mesh import Parallel
 
 
@@ -189,6 +201,13 @@ class ExpertBlock(nn.Module):
                                generator=drop2, rows=rows)
         return (out * self.layer_scale.to(out.dtype), *(stats or ()))
 
+    @staticmethod
+    def draw_seeds(train: Optional[_Train]) -> Optional[Tuple[int, ...]]:
+        """A train-mode call's 4 host seeds (None: no dropout)."""
+        if train is None or train.host is None:
+            return None
+        return tuple(new_seed(train.host) for _ in range(4))
+
     def forward(self, x: torch.Tensor, train: Optional[_Train] = None,
                 attn_impl: str = "auto",
                 attn_window: Optional[int] = None,
@@ -200,9 +219,7 @@ class ExpertBlock(nn.Module):
             conv, bn = self.shortcut
             identity = _bn(bn, layers.conv2d(x, conv.weight, conv.bias), stats,
                            par)
-        seeds = None
-        if train is not None and train.host is not None:
-            seeds = tuple(new_seed(train.host) for _ in range(4))
+        seeds = self.draw_seeds(train)
         bwd = None if train is None else train.bwd
         if train is not None and train.remat and torch.is_grad_enabled():
             # The masks come from `seeds`, not the global RNG state.
@@ -310,31 +327,65 @@ class LunarMoETeacher(nn.Module):
         in eval mode also 'plain', K2's plain version on any device:
         `SpatialAttention.forward`; under context parallelism 'ring' or
         'allgather' over `par.cp`); `cfg.attn_window` windows it unless
-        `global_attn`. `par`: the mesh's axes."""
-        window = None if global_attn else self.cfg.attn_window
-        rate = self.cfg.dropout_rate
+        `global_attn`. `par`: the mesh's axes (`par.ep`: the experts
+        split over the model axis, module docstring)."""
+        cfg = self.cfg
+        window = None if global_attn else cfg.attn_window
+        rate = cfg.dropout_rate
         gen = None if train is None else train.device_gen
         rows = par and par.data
+        ep = par and par.ep
+        own = [e for e, ex in enumerate(self.experts) if ex is not None]
+        want = cfg.num_experts // (1 if ep is None else ep.size)
+        if len(own) != want:
+            raise ValueError(
+                f"the teacher holds experts {own} of {cfg.num_experts}; a "
+                f"model axis of {1 if ep is None else ep.size} under expert "
+                f"parallelism gives a rank {want} "
+                "(parallel.sharding.shard_state cuts a state)")
         feats = self.feature_extractor(x.permute(0, 3, 1, 2), train, par)
         gate_logits = self.gate(layers.global_avg_pool(feats), rate, gen, rows)
         w = torch.softmax(gate_logits.float(), dim=-1)            # [B, E]
+        x_ex, w_ex = feats, w
+        if ep is not None:
+            x_ex = sum_entry(feats, ep)
+            w_ex = sum_entry(w, ep)[:, own[0]:own[-1] + 1]
 
-        pooled_ex = []
-        for expert in self.experts:
-            h = feats
+        pooled_ex = {}
+        for e, expert in enumerate(self.experts):
+            if expert is None:
+                for _ in range(cfg.expert_layers):
+                    ExpertBlock.draw_seeds(train)
+                continue
+            h = x_ex
             for block in expert:
                 h = block(h, train, attn_impl, window, par)
-            pooled_ex.append(layers.global_avg_pool(h))
-        pooled = torch.stack(pooled_ex)                           # [E, B, C]
+            pooled_ex[e] = layers.global_avg_pool(h)
+        pooled = torch.stack([pooled_ex[e] for e in own])         # [E, B, C]
 
-        quality = torch.stack([head(p, rate, gen, rows) for head, p in
-                               zip(self.quality_heads, pooled_ex)])
-        weighted = torch.einsum("ebq,be->bq", quality.float(), w)
-        combined = torch.einsum("ebc,be->bc", pooled.float(), w).to(feats.dtype)
+        quality = []
+        for e, head in enumerate(self.quality_heads):
+            if head is None:
+                layers.skip_dropout(
+                    (x.shape[0], cfg.intermediate_dim // 4), rate,
+                    generator=gen, rows=rows, device=x.device)
+            else:
+                quality.append(head(pooled_ex[e], rate, gen, rows))
+        quality = torch.stack(quality)
+        weighted = torch.einsum("ebq,be->bq", quality.float(), w_ex)
+        combined = torch.einsum("ebc,be->bc", pooled.float(), w_ex)
+        first = pooled_ex.get(0)
+        if ep is not None:
+            weighted = sum_exit(weighted, ep)
+            combined = sum_exit(combined, ep)
+            first = broadcast_from(
+                pooled_ex[0] if 0 in pooled_ex else torch.zeros_like(pooled[0]),
+                ep, 0)
+        combined = combined.to(feats.dtype)
         style = self.style_net(combined, rate, gen, rows)
         own_prompt = self.prompt_net(combined, rate, gen, rows)
         semantic = torch.sigmoid(
-            self.semantic_head(pooled_ex[0], rate, gen, rows).float())
+            self.semantic_head(first, rate, gen, rows).float())
         if prompt_embedding is not None:
             semantic = semantic * prompt_cosine(
                 own_prompt, prompt_embedding.detach())[:, None]

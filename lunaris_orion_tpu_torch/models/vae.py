@@ -10,6 +10,12 @@ strict=True, and the bottleneck reshape is the reference's (C, H, W) order.
 Images and skips cross the public functions as NHWC [B, H, W, C], as in
 the JAX package; inside, activations are channels_last NCHW (see
 `ops/layers.py`). Every GroupNorm+Mish runs through K1.
+
+Under tensor parallelism (`tp`, the model axis; `parallel/sharding.py`)
+the rank holds the latent columns [m L/M, (m+1) L/M) of fc_mu and
+fc_logvar and the same latent rows of decoder.fc: the bottleneck features
+enter through `sum_entry`, mu, logvar and z are this rank's columns, and
+decoder.fc's partial output leaves through `sum_exit` before its bias.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn as nn
 from lunaris_orion_tpu_torch.config import VAEConfig
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.activations import mish
+from lunaris_orion_tpu_torch.parallel.collectives import sum_entry, sum_exit
 from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 
 
@@ -101,10 +108,23 @@ class LunarisCoreVAE(nn.Module):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def encode(self, x: torch.Tensor
+    def _check_split(self, tp: Optional[AxisGroup]) -> None:
+        """The FC pair's latent columns must be those `tp` gives a rank."""
+        held = self.encoder.fc_mu.weight.shape[0]
+        want = self.cfg.latent_dim // (1 if tp is None else tp.size)
+        if held != want:
+            raise ValueError(
+                f"the VAE holds {held} of {self.cfg.latent_dim} latent "
+                f"columns, a model axis of {1 if tp is None else tp.size} "
+                "gives each rank "
+                f"{want} (parallel.sharding.shard_state cuts a state)")
+
+    def encode(self, x: torch.Tensor, tp: Optional[AxisGroup] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
         """x [B, H, W, 3] in [-1, 1] -> (mu, logvar, skips [B, h, w, c]).
-        Skips are taken after every down block but the last."""
+        Skips are taken after every down block but the last. With `tp`,
+        mu and logvar are this rank's latent columns."""
+        self._check_split(tp)
         h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         skips: List[torch.Tensor] = []
         n = self.cfg.num_down
@@ -115,6 +135,8 @@ class LunarisCoreVAE(nn.Module):
             if i < n - 1:
                 skips.append(h.permute(0, 2, 3, 1))
         flat = h.flatten(1)                                 # (C, H, W) order
+        if tp is not None:
+            flat = sum_entry(flat, tp)
         mu = layers.linear(flat, self.encoder.fc_mu.weight,
                            self.encoder.fc_mu.bias)
         logvar = layers.linear(flat, self.encoder.fc_logvar.weight,
@@ -122,15 +144,23 @@ class LunarisCoreVAE(nn.Module):
         return mu, logvar, skips
 
     def decode(self, z: torch.Tensor, skips: Sequence[torch.Tensor] = (),
-               *, plain: bool = False) -> torch.Tensor:
+               *, plain: bool = False,
+               tp: Optional[AxisGroup] = None) -> torch.Tensor:
         """z [B, latent] (+ optional encoder skips) -> [B, H, W, 3] in
         [-1, 1], in z's dtype. Skip fusion is guarded by len(skips), so the
         skip-free prior decode works (lunar_generate.py:211-224, 288-291).
         `plain` runs K1's plain version on any device (the exporter's
-        portable form) instead of the kernel."""
+        portable form) instead of the kernel. With `tp`, z is this rank's
+        latent columns and the output is whole on every rank."""
         cfg = self.cfg
         n, hw = cfg.num_down, cfg.bottleneck_hw
-        h = layers.linear(z, self.decoder.fc.weight, self.decoder.fc.bias)
+        fc = self.decoder.fc
+        if tp is None:
+            h = layers.linear(z, fc.weight, fc.bias)
+        else:
+            self._check_split(tp)
+            h = sum_exit(torch.nn.functional.linear(z, fc.weight.to(z.dtype)),
+                         tp) + fc.bias.to(z.dtype)
         h = h.reshape(z.shape[0], cfg.channels[-1], hw, hw).contiguous(
             memory_format=torch.channels_last)
         for i in range(n):
@@ -148,38 +178,46 @@ class LunarisCoreVAE(nn.Module):
     @staticmethod
     def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       rows: Optional[AxisGroup] = None) -> torch.Tensor:
+                       rows: Optional[AxisGroup] = None,
+                       cols: Optional[AxisGroup] = None) -> torch.Tensor:
         """z = mu + eps * exp(0.5 logvar), eps drawn in f32 from
         `generator` (lunar_generate.py:248-261). `rows`: the data axis the
-        batch is split over; eps is then this rank's rows of the global
-        batch's draw (`layers.global_rows`)."""
+        batch is split over; `cols`: the model axis the latent columns are
+        split over (tensor parallelism). eps is then this rank's rows and
+        columns of the global draw (`layers.global_rows`)."""
         std = torch.exp(0.5 * logvar.float())
         shape, own = layers.global_rows(mu.shape, rows)
-        eps = torch.randn(shape, generator=generator, device=mu.device,
+        eps = torch.randn(layers.global_cols(shape, cols),
+                          generator=generator, device=mu.device,
                           dtype=torch.float32)[own]
-        return (mu.float() + eps * std).to(mu.dtype)
+        return (mu.float() + layers.own_cols(eps, cols) * std).to(mu.dtype)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 sample_posterior: bool = True,
-                rows: Optional[AxisGroup] = None):
+                rows: Optional[AxisGroup] = None,
+                tp: Optional[AxisGroup] = None):
         """(recon [B, H, W, 3], mu, logvar) (lunar_generate.py:263-276).
-        `rows` as in `reparameterize`."""
-        mu, logvar, skips = self.encode(x)
+        `rows` as in `reparameterize`; `tp`: the model axis of tensor
+        parallelism (mu and logvar are then this rank's columns, recon is
+        whole)."""
+        mu, logvar, skips = self.encode(x, tp)
         if not sample_posterior:
             z = mu
-        elif rows is None:
+        elif rows is None and tp is None:
             z = self.reparameterize(mu, logvar, generator)
         else:
-            z = self.reparameterize(mu, logvar, generator, rows)
-        return self.decode(z, skips), mu, logvar
+            z = self.reparameterize(mu, logvar, generator, rows, tp)
+        return self.decode(z, skips, tp=tp), mu, logvar
 
     def sample(self, num_samples: int, generator: torch.Generator, *,
                temperature: float = 1.0,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32,
+               tp: Optional[AxisGroup] = None) -> torch.Tensor:
         """Decode N(0, I) * temperature latents with no skips
-        (lunar_generate.py:278-291)."""
+        (lunar_generate.py:278-291). With `tp`, each rank decodes its
+        columns of the same draw."""
         device = self.decoder.fc.weight.device
         z = torch.randn(num_samples, self.cfg.latent_dim, generator=generator,
                         device=device, dtype=dtype) * temperature
-        return self.decode(z)
+        return self.decode(layers.own_cols(z, tp), tp=tp)

@@ -150,6 +150,22 @@ def global_rows(shape, rows: Optional[AxisGroup]):
                                               (rows.index + 1) * b)
 
 
+def global_cols(shape, cols: Optional[AxisGroup]):
+    """A draw's shape with its second axis widened from this rank's
+    columns to every rank's of `cols` (tensor parallelism's model axis)."""
+    if cols is None:
+        return tuple(shape)
+    return (shape[0], shape[1] * cols.size, *shape[2:])
+
+
+def own_cols(x: torch.Tensor, cols: Optional[AxisGroup]) -> torch.Tensor:
+    """This rank's columns of a draw made at `global_cols`' shape."""
+    if cols is None:
+        return x
+    per = x.shape[1] // cols.size
+    return x[:, cols.index * per:(cols.index + 1) * per]
+
+
 def _dropout(x: torch.Tensor, rate: float,
              generator: Optional[torch.Generator], mask_shape,
              rows: Optional[AxisGroup]) -> torch.Tensor:
@@ -159,6 +175,17 @@ def _dropout(x: torch.Tensor, rate: float,
     shape, own = global_rows(mask_shape, rows)
     mask = torch.rand(shape, generator=generator, device=x.device)[own] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def skip_dropout(shape, rate: float, *,
+                 generator: Optional[torch.Generator],
+                 rows: Optional[AxisGroup], device) -> None:
+    """Draw and discard the mask `dropout` would draw for an x of `shape`:
+    a rank that skips a layer another rank runs (an expert it does not
+    own) keeps its generator where the single-process step's would be."""
+    if generator is not None and rate != 0.0:
+        torch.rand(global_rows(shape, rows)[0], generator=generator,
+                   device=device)
 
 
 def dropout(x: torch.Tensor, rate: float, *,

@@ -1,8 +1,8 @@
 """The parallel layer of the port (counterpart: lunaris_orion_tpu/parallel):
 a (data, model) mesh over `torch.distributed` ranks, the collectives with
-their gradients, and context-parallel attention (ring and allgather).
-Data parallelism and context parallelism are ported; tensor and expert
-parallelism over the model axis (`sharding.py`) are not."""
+their gradients, context-parallel attention (ring and allgather), and
+the placement of tensor and expert parallelism over the model axis
+(`sharding.py`)."""
 
 from lunaris_orion_tpu_torch.parallel.mesh import (  # noqa: F401
     AxisGroup, Mesh, Parallel, close_mesh, init_mesh, make_mesh)

@@ -20,10 +20,21 @@ by backend:
       shards gathered, backward this rank's slice of the (replicated)
       cotangent;
   all_reduce_sum(x, axis)         forward the sum over the group; backward
-      the sum of the cotangents (the peers' losses all read the sum).
+      the sum of the cotangents (the peers' losses all read the sum);
+  sum_entry(x, axis)              the entry of a region whose peers each
+      take a part of the work on a value they all hold (tensor and expert
+      parallelism): forward the identity, backward the peers' partial
+      cotangents summed;
+  sum_exit(x, axis)               the exit of such a region: forward the
+      peers' partial results summed, backward the identity (the peers'
+      cotangents of the sum are the same);
+  broadcast_from(x, axis, src)    forward the value of the axis's rank
+      `src` on every peer; backward the cotangent to `src` alone, once
+      (every peer's cotangent is the same).
 
 Without autograd: `all_reduce_mean_` and `broadcast_` over lists of
-tensors in place (the gradients, the metrics), and `mean_over`.
+tensors in place (the gradients, the metrics), and `mean_over`,
+`sum_over` and `gather_over`.
 
 `axis` is an `AxisGroup` (parallel/mesh.py). Under gloo a tensor on a card
 is staged through the host (`_HOST_STAGED`: gloo has no CUDA form of
@@ -173,6 +184,50 @@ class _AllReduceSum(torch.autograd.Function):
         return _raw_all_reduce(g, ctx.axis), None
 
 
+class _SumEntry(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _raw_all_reduce(g, ctx.axis), None
+
+
+class _SumExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _raw_all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _raw_broadcast(x: torch.Tensor, axis: AxisGroup, src: int
+                   ) -> torch.Tensor:
+    """The axis rank `src`'s x on every rank, in a new tensor."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if _staged("broadcast", x, axis):
+        host = out.cpu()
+        dist.broadcast(host, axis.ranks[src], group=axis.group)
+        return host.to(x.device)
+    dist.broadcast(out, axis.ranks[src], group=axis.group)
+    return out
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, src):
+        ctx.mine = axis.index == src
+        return _raw_broadcast(x, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
 def all_gather_tiled(x: torch.Tensor, axis: AxisGroup, dim: int
                      ) -> torch.Tensor:
     return _AllGatherTiled.apply(x, axis, dim)
@@ -195,6 +250,21 @@ def all_reduce_sum(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
     return _AllReduceSum.apply(x, axis)
 
 
+def sum_entry(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    return _SumEntry.apply(x, axis)
+
+
+def sum_exit(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    return _SumExit.apply(x, axis)
+
+
+def broadcast_from(x: torch.Tensor, axis: AxisGroup, src: int
+                   ) -> torch.Tensor:
+    """`src` is an index on the axis; the other ranks' x is a placeholder
+    of the same shape and dtype."""
+    return _BroadcastFrom.apply(x, axis, src)
+
+
 def mean_over(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
     """The mean of x over the group, without a gradient (x itself when
     `axis` is None)."""
@@ -202,6 +272,17 @@ def mean_over(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
         return x
     total = _raw_all_reduce(x, axis)
     return total if axis.size == 1 else total / axis.size
+
+
+def sum_over(x: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
+    """The sum of x over the group, without a gradient (x itself when
+    `axis` is None)."""
+    return x if axis is None else _raw_all_reduce(x, axis)
+
+
+def gather_over(x: torch.Tensor, axis: AxisGroup, dim: int) -> torch.Tensor:
+    """The peers' x concatenated along `dim`, without a gradient."""
+    return _raw_all_gather(x.detach(), axis, dim)
 
 
 def _flat_(tensors: Sequence[torch.Tensor], reduce) -> None:
@@ -216,19 +297,16 @@ def _flat_(tensors: Sequence[torch.Tensor], reduce) -> None:
         i += n
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], axis: AxisGroup) -> None:
-    """Overwrite the tensors in place with the axis's first rank's, in one
-    flat collective (no autograd): what the ranks of a model row hold
-    alike, made bit-equal where a kernel of their replicated work is not
-    deterministic (cuDNN's, on a card)."""
-    def reduce(flat):
-        if _staged("broadcast", flat, axis):
-            host = flat.cpu()
-            dist.broadcast(host, axis.ranks[0], group=axis.group)
-            return host.to(flat.device)
-        dist.broadcast(flat, axis.ranks[0], group=axis.group)
-        return flat
-    _flat_(tensors, reduce)
+def broadcast_(tensors: Sequence[torch.Tensor], axis: AxisGroup,
+               src: int = 0) -> None:
+    """Overwrite the tensors in place with the axis rank `src`'s (default
+    the first), in one flat collective (no autograd): what the ranks of a
+    model row hold alike, made bit-equal where a kernel of their
+    replicated work is not deterministic (cuDNN's, on a card); or what one
+    rank alone holds (an expert's tensors, gathered for a checkpoint). The
+    flat collective runs in f32, exact for bf16 and for integers below
+    2**24."""
+    _flat_(tensors, lambda flat: _raw_broadcast(flat, axis, src))
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], axis: AxisGroup

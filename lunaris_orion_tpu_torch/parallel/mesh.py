@@ -9,7 +9,8 @@ process groups: its peers along the data axis (the ranks of its model
 column, which hold different samples and average their gradients) and
 along the model axis (the ranks of its data row, which hold the same
 samples and split the teacher attention's tokens under context
-parallelism).
+parallelism, the bottleneck FC pair under tensor parallelism and the
+teacher's experts under expert parallelism).
 
 `init_mesh` starts the process group from the environment `torchrun`
 sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on
@@ -88,10 +89,21 @@ class Parallel:
     random draw gives this rank the global draw's rows, the losses' batch
     statistics are global). `cp`: the axis the teacher attention's tokens
     are split over (context parallelism), or None. `cp_kernel` False runs
-    the allgather mode without K2 (`--no-use_pallas`)."""
+    the allgather mode without K2 (`--no-use_pallas`). `tp`: the axis the
+    VAE's bottleneck FC pair is split over by latent column (tensor
+    parallelism), `ep`: the axis the teacher's experts are split over
+    (expert parallelism), each None where the state is not split so
+    (`sharding.with_layout`, from the state's layout); under context
+    parallelism the Trainer splits the FC pair and not the experts, as
+    the JAX package does. `model`: the model axis when it
+    is above 1; its ranks take the same samples, so what they compute
+    alike is taken from its first rank."""
     data: Optional[AxisGroup] = None
     cp: Optional[AxisGroup] = None
     cp_kernel: bool = True
+    tp: Optional[AxisGroup] = None
+    ep: Optional[AxisGroup] = None
+    model: Optional[AxisGroup] = None
 
     def b0(self, batch: int) -> int:
         """The first global batch row of a local batch of `batch` rows."""

@@ -25,7 +25,10 @@ the file in a background thread, as Orbax's asynchronous saves do;
 Across ranks (`mesh`): rank 0 writes; every rank keeps the list of saved
 steps, and `wait()` (which `restore` calls first) ends on a barrier of all
 ranks after rank 0's writes, so every rank resumes from the same, whole
-file.
+file. A state split over the model axis (tensor and expert parallelism)
+is gathered first by the ranks of data index 0 (`gather_state`), so the
+file is the one a single process writes; a resume loads it into a whole
+state, which the Trainer then cuts to each rank's part.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from lunaris_orion_tpu_torch.config import TrainConfig
 from lunaris_orion_tpu_torch.parallel.mesh import Mesh
+from lunaris_orion_tpu_torch.parallel.sharding import gather_state
 from lunaris_orion_tpu_torch.train.schedule import torch_scheduler_state
 from lunaris_orion_tpu_torch.train.state import ClippedAdamW, TrainState
 from lunaris_orion_tpu_torch.utils.convert import load_reference_checkpoint
@@ -78,7 +82,11 @@ def _optimizer(opt: ClippedAdamW, base_lr: float, sched: Dict) -> Dict:
 
 
 def checkpoint_dict(state: TrainState, cfg: TrainConfig) -> Dict:
-    """The state as a reference-layout checkpoint dict, on the host."""
+    """The state as a reference-layout checkpoint dict, on the host (a
+    whole state: `gather_state` first for a rank's part)."""
+    if state.layout is not None:
+        raise ValueError("checkpoint_dict needs the whole state "
+                         "(parallel.sharding.gather_state)")
     scheds = {name: torch_scheduler_state(lr, cfg.scheduler_t0, cfg.min_lr,
                                           state.step)
               for name, lr in (("vae", cfg.vae_lr),
@@ -105,7 +113,11 @@ def load_checkpoint_file(path: str, state: TrainState, cfg: TrainConfig
     """Load a reference-layout .pt into `state` (models on their device,
     optimizers, step, best_loss; baseline and generator as the module
     docstring says) and return it. The reference attention's rel_pos_cache
-    buffers are dropped (`load_reference_checkpoint`)."""
+    buffers are dropped (`load_reference_checkpoint`). `state` is whole;
+    `shard_state` cuts it afterwards."""
+    if state.layout is not None:
+        raise ValueError("load_checkpoint_file loads into a whole state; "
+                         "cut it afterwards (parallel.sharding.shard_state)")
     _, ckpt = load_reference_checkpoint(str(path), cfg)
     state.vae.load_state_dict(ckpt["vae_state_dict"], strict=True)
     state.teacher.load_state_dict(ckpt["teacher_state_dict"], strict=True)
@@ -201,6 +213,10 @@ class CheckpointService:
             self._steps = sorted(self._steps + [step])
             drop, self._steps = (self._steps[:-self.keep_n],
                                  self._steps[-self.keep_n:])
+        if self.mesh is not None and state.layout is not None:
+            if self.mesh.data.index != 0:
+                return
+            state = gather_state(state, self.mesh)
         if not self.writes:
             return
         obj = checkpoint_dict(state, cfg)

@@ -21,13 +21,19 @@
 Across ranks (`torchrun`, `--mesh_shape D M`): a (data, model) mesh of
 `torch.distributed` ranks (`parallel.mesh`, the JAX package's
 `train/loop.py:259-298`). --batch_size is the global batch; each rank
-loads its data-axis slice. --attn_impl ring / allgather split the teacher
-attention's tokens over the model axis and need it above 1; a model axis
-above 1 without them is tensor / expert parallelism, which is not ported
-and raises. Rank 0 logs, writes TensorBoard, grids and checkpoints; the
-metrics, the validation and the early stop are the global batch's on
-every rank; the prompt-embedding table is computed in row slices and
-all-gathered, so every rank holds all of it.
+loads its data-axis slice. A model axis above 1 splits the VAE's
+bottleneck FC pair by latent column (tensor parallelism) and, without
+--attn_impl ring / allgather, the teacher's experts (expert parallelism);
+ring / allgather split the teacher attention's tokens over it instead of
+the experts, and need it above 1. The state is built whole, resumed
+whole, then cut to each rank's part (`parallel.sharding.shard_state`); a
+save gathers it back, so rank 0 writes the file a single process writes.
+Rank 0 logs, writes TensorBoard and checkpoints; the ranks of data index
+0 render the grids together; the metrics, the validation and the early
+stop are the global batch's on every rank; the prompt-embedding table is
+computed in row slices by the embed step (under expert parallelism, each
+rank's experts' share summed over the model axis) and all-gathered, so
+every rank holds all of it.
 
 The JAX package compiles the step ahead and checks XLA's memory analysis
 against the device (`_plan_and_compile`). Here `_plan` measures instead:
@@ -65,6 +71,8 @@ from lunaris_orion_tpu_torch.parallel.collectives import (all_gather_tiled,
                                                          broadcast_)
 from lunaris_orion_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
                                                    Mesh, init_mesh, launched)
+from lunaris_orion_tpu_torch.parallel.sharding import (shard_state,
+                                                       with_layout)
 from lunaris_orion_tpu_torch.train.checkpoint import (CheckpointService,
                                                       load_checkpoint_file)
 from lunaris_orion_tpu_torch.train.state import TrainState, create_state, state_for
@@ -189,8 +197,11 @@ def compute_embed_table(embed_fn, state: TrainState, dataset: SpriteDataset,
     Across ranks each data rank embeds its row slice of a chunk (a short
     last slice padded with the chunk's last row) and the slices are
     all-gathered over the data axis, so every rank holds the full table
-    (the model axis's first rank's, which its peers take). Eval mode is
-    per sample, so neither padding nor the split changes a row."""
+    (the model axis's first rank's, which its peers take). Under expert
+    parallelism every rank of the model axis runs the embed step on the
+    same rows, each its own experts, whose share the step sums over the
+    axis. Eval mode is per sample, so neither padding nor the split
+    changes a row."""
     table = torch.empty(len(dataset), embedding_dim, dtype=torch.float32,
                         device=device)
     data = None if mesh is None else mesh.data
@@ -213,8 +224,8 @@ def compute_embed_table(embed_fn, state: TrainState, dataset: SpriteDataset,
 
 def _check_mesh(cfg: TrainConfig, impl: str) -> None:
     """The mesh rules of the JAX Trainer that need no process group:
-    context parallelism needs a model axis above 1, and a model axis above
-    1 without it is tensor / expert parallelism, which is not ported."""
+    context parallelism needs a model axis above 1 that divides the token
+    count."""
     mp = 1 if cfg.mesh_shape is None else int(cfg.mesh_shape[1])
     if impl in ("ring", "allgather"):
         if mp <= 1:
@@ -229,11 +240,6 @@ def _check_mesh(cfg: TrainConfig, impl: str) -> None:
             raise ValueError(
                 f"--attn_impl {impl}: token count {n_tok} (image_size^2) is "
                 f"not divisible by the model axis size {mp}")
-    elif mp > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: a model axis above 1 "
-            "without --attn_impl ring / allgather is tensor and expert "
-            "parallelism, which is not ported yet")
 
 
 class _NoMetrics:
@@ -261,6 +267,8 @@ def _rank_logger(rank: int) -> logging.Logger:
 
 
 def _param_bytes(state: TrainState) -> int:
+    """The bytes of the parameters this rank holds (its part under tensor
+    and expert parallelism)."""
     return sum(p.numel() * p.element_size()
                for m in (state.vae, state.teacher) for p in m.parameters())
 
@@ -356,6 +364,15 @@ class Trainer:
             self.resume_ms = (time.perf_counter() - t0) * 1e3
             self.logger.info("Resumed from %s at step %d in %.1f ms",
                              cfg.resume_from, self.state.step, self.resume_ms)
+        if self.mesh is not None and self.mesh.model.size > 1:
+            shard_state(self.state, self.mesh, shard_experts=self.attn_impl
+                        not in ("ring", "allgather"))
+            layout = self.state.layout
+            self.logger.info("Model axis %d: %s", self.mesh.model.size,
+                             "nothing split" if layout is None else
+                             ", ".join(n for n, on in (
+                                 ("FC pair split", layout.tp),
+                                 ("experts split", layout.ep)) if on))
 
         # --- memory plan, steps --------------------------------------------
         self.cfg, self.remat, self.plan_need = self._plan(cfg)
@@ -409,8 +426,10 @@ class Trainer:
                          len(self.val_loader))
         n_vae = sum(p.numel() for p in self.state.vae.parameters())
         n_teacher = sum(p.numel() for p in self.state.teacher.parameters())
-        self.logger.info("VAE params: %s | Teacher params: %s",
-                         f"{n_vae:,}", f"{n_teacher:,}")
+        self.logger.info("VAE params: %s | Teacher params: %s%s",
+                         f"{n_vae:,}", f"{n_teacher:,}",
+                         "" if self.state.layout is None
+                         else " (this rank's part)")
         self.early = EarlyStopping(cfg.early_stopping_patience)
         self._embed_fn = None
         self._embed_table: Optional[torch.Tensor] = None
@@ -423,6 +442,7 @@ class Trainer:
         st = self.state
         probe = state_for(cfg, copy.deepcopy(st.vae), copy.deepcopy(st.teacher),
                           generator=torch.Generator().manual_seed(cfg.seed))
+        probe.layout = st.layout
         micro = make_micro_step(cfg, remat=remat, attn_impl=self.attn_impl,
                                 par=step_parallel(cfg, **self._axes))
         b = cfg.batch_size // (1 if self.mesh is None else self.mesh.data.size)
@@ -542,11 +562,13 @@ class Trainer:
         index 0 (context parallelism needs all of them); rank 0 saves."""
         if self.mesh is not None and self.mesh.data.index != 0:
             return
+        par = with_layout(step_parallel(self.cfg, **self._axes),
+                          self.state.layout)
         x = normalize_images(batch4, _compute_dtype(self.cfg))
-        recon, _, _ = self.state.vae(x, sample_posterior=False)
+        recon, _, _ = self.state.vae(x, sample_posterior=False,
+                                     tp=par and par.tp)
         out = teacher_mod.apply(self.state.teacher, recon,
-                                attn_impl=self.attn_impl,
-                                par=step_parallel(self.cfg, **self._axes))
+                                attn_impl=self.attn_impl, par=par)
         if not self.main:
             return
         grid = comparison_grid(
@@ -563,12 +585,18 @@ class Trainer:
         """Prior-decode grid every --sample_every micro-steps (the
         reference parses the flag and never implements it, SURVEY.md
         §2.8). z comes from its own generator, seeded by (seed, step): the
-        training generator does not advance. Rank 0 only."""
-        if not self.main:
+        training generator does not advance. The ranks of data index 0
+        decode (together, under tensor parallelism); rank 0 saves."""
+        if self.mesh is not None and self.mesh.data.index != 0:
             return
+        par = with_layout(step_parallel(self.cfg, **self._axes),
+                          self.state.layout)
         gen = device_generator(self.cfg.seed * 1_000_003 + self.state.step,
                                self.device)
-        imgs = self.state.vae.sample(4, gen, dtype=_compute_dtype(self.cfg))
+        imgs = self.state.vae.sample(4, gen, dtype=_compute_dtype(self.cfg),
+                                     tp=par and par.tp)
+        if not self.main:
+            return
         path = (self.out_dir / "eval_samples"
                 / f"samples_{self.state.step}_{int(time.time())}.png")
         sample_grid(imgs.float().cpu().numpy()).save(path)

@@ -31,7 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
-from lunaris_orion_tpu_torch.parallel.collectives import mean_over
+from lunaris_orion_tpu_torch.parallel.collectives import mean_over, sum_exit
 from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 
 
@@ -45,11 +45,19 @@ class LossWeights(NamedTuple):
 
 
 def recon_kl(recon: torch.Tensor, images: torch.Tensor, mu: torch.Tensor,
-             logvar: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             logvar: torch.Tensor, tp: Optional[AxisGroup] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MSE + KL (train_hybrid.py:858-862) through K3: the kernel on a CUDA
-    device, its plain version on the CPU."""
-    return k3.mse_kl(recon.contiguous(), images.contiguous(),
-                     mu.contiguous(), logvar.contiguous())
+    device, its plain version on the CPU. Under tensor parallelism (`tp`,
+    the model axis) mu and logvar are this rank's latent columns: K3's KL
+    is the mean over the rank's slice, so the slices' KL over the axis
+    size add up (`sum_exit`) to the mean over B x latent; the MSE, on the
+    recon every rank holds whole, is the rank's own and counted once."""
+    mse, kl = k3.mse_kl(recon.contiguous(), images.contiguous(),
+                        mu.contiguous(), logvar.contiguous())
+    if tp is not None:
+        kl = sum_exit(kl / tp.size, tp)
+    return mse, kl
 
 
 def hybrid_losses(*, recon_loss: torch.Tensor, kl_loss: torch.Tensor,

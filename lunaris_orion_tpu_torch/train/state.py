@@ -8,9 +8,10 @@ host generator that every random draw of the step starts from.
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +20,8 @@ import torch.nn as nn
 from lunaris_orion_tpu_torch.config import TeacherConfig, TrainConfig, VAEConfig
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+from lunaris_orion_tpu_torch.parallel.collectives import sum_over
+from lunaris_orion_tpu_torch.parallel.mesh import AxisGroup
 from lunaris_orion_tpu_torch.train.schedule import cosine_warm_restarts
 
 
@@ -44,9 +47,49 @@ class ClippedAdamW:
                                              cfg.min_lr)
         self.max_norm = cfg.max_grad_norm
         self.bf16_momentum = bool(getattr(cfg, "bf16_momentum", False))
-        self.opt = torch.optim.AdamW(self.params, lr=base_lr,
-                                     betas=(self.B1, self.B2), eps=self.EPS,
-                                     weight_decay=cfg.weight_decay)
+        self.weight_decay = cfg.weight_decay
+        self.opt = self._adamw(self.params, base_lr)
+        # Under tensor / expert parallelism (`parallel/sharding.py`): which
+        # of `params` are this rank's part of a split parameter, and the
+        # model axis they are split over.
+        self.split: List[bool] = [False] * len(self.params)
+        self.axis: Optional[AxisGroup] = None
+
+    def _adamw(self, params, lr: float) -> torch.optim.AdamW:
+        return torch.optim.AdamW(params, lr=lr, betas=(self.B1, self.B2),
+                                 eps=self.EPS, weight_decay=self.weight_decay)
+
+    def over(self, module: nn.Module, moments: Dict[str, dict], *,
+             split: Set[str] = frozenset(),
+             axis: Optional[AxisGroup] = None) -> "ClippedAdamW":
+        """This optimizer's settings over the parameters of `module` (its
+        learning rate as it stands), with the AdamW state `moments` by
+        parameter name; `split` names the parameters that are a rank's
+        part of a split one, over `axis` (`shard_state`, `gather_state`)."""
+        new = copy.copy(self)
+        named = list(module.named_parameters())
+        new.params = [p for _, p in named]
+        new.opt = self._adamw(new.params, self.opt.param_groups[0]["lr"])
+        for n, p in named:
+            if moments.get(n):
+                new.opt.state[p] = moments[n]
+        new.split = [n in split for n, _ in named]
+        new.axis = axis if any(new.split) else None
+        return new
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients: under a split, the split
+        parameters' sums of squares over every rank of the model axis,
+        the replicated ones' counted once."""
+        squares = [g.float().square().sum() for g in grads]
+        if self.axis is None:
+            return torch.stack(squares).sum().sqrt()
+        whole = [s for s, part in zip(squares, self.split) if not part]
+        parts = [s for s, part in zip(squares, self.split) if part]
+        total = sum_over(torch.stack(parts).sum(), self.axis)
+        if whole:
+            total = torch.stack(whole).sum() + total
+        return total.sqrt()
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -61,7 +104,7 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        norm = self.global_norm(grads)
         clip = norm >= self.max_norm
         for g in grads:
             g.copy_(torch.where(clip, (g / norm) * self.max_norm, g))
@@ -126,6 +169,9 @@ class TrainState:
     baseline_initialized: torch.Tensor   # bool scalar on the device
     best_loss: float
     generator: torch.Generator           # CPU: source of every random draw
+    # A rank's part of a state split over the model axis: the
+    # `parallel.sharding.Layout` it was cut by (`shard_state`), else None.
+    layout: Any = None
 
 
 def create_state(cfg: TrainConfig, device: torch.device | str, seed: int,

@@ -39,16 +39,22 @@ data-axis share of the global batch. BatchNorm uses the global batch's
 moments, every random draw gives the rank the global draw's rows, the
 losses' batch statistics are global (`losses.hybrid_losses`), and after
 the accumulation, before the clip, the gradients are averaged over the
-data axis only; the metrics are averaged over it too. Context parallelism
-(`cp_mesh`, `cp_axis`; attn_impl 'ring' or 'allgather') splits the
-teacher attention's tokens over the model axis, whose ranks take the same
-samples: every gradient that leaves the attention is whole on each of
-them (`parallel/ring_attention.py`). The rest of their work is the same
-work done twice, which a non-deterministic kernel (cuDNN's, on a card)
-can leave apart in the last bits, so the gradients, the BatchNorm
-statistics, the baseline and the metrics are then taken from the model
-axis's first rank (`broadcast_`): the ranks of a model row take the same
-AdamW update and the same decisions.
+data axis only; the metrics are averaged over it too. A model axis
+above 1 splits the work of one sample over its ranks, which take the same
+samples: context parallelism (`cp_mesh`, `cp_axis`; attn_impl 'ring' or
+'allgather') splits the teacher attention's tokens (every gradient that
+leaves the attention is whole on each rank,
+`parallel/ring_attention.py`), tensor parallelism the VAE's bottleneck
+FC pair by latent column, and expert parallelism the teacher's experts
+(`parallel/sharding.py`; the state is a rank's part, from `shard_state`;
+without context parallelism both apply, with it the FC pair only, by the
+JAX package's rule). A split parameter's gradient is the rank's own. The
+rest of their work is the same work done twice, which a
+non-deterministic kernel (cuDNN's, on a card) can leave apart in the
+last bits, so the replicated parameters' gradients, the replicated
+BatchNorm statistics, the baseline and the metrics are then taken from
+the model axis's first rank (`broadcast_`): the ranks of a model row take
+the same AdamW update and the same decisions.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from lunaris_orion_tpu_torch.ops.rng import device_generator, new_seed
 from lunaris_orion_tpu_torch.parallel.collectives import (all_reduce_mean_,
                                                          broadcast_)
 from lunaris_orion_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, Parallel
+from lunaris_orion_tpu_torch.parallel.sharding import expert_index, with_layout
 from lunaris_orion_tpu_torch.train import losses
 from lunaris_orion_tpu_torch.train.losses import LossWeights
 from lunaris_orion_tpu_torch.train.state import TrainState
@@ -86,9 +93,11 @@ def step_parallel(cfg: TrainConfig, mesh: Optional[Mesh] = None,
                   cp_mesh: Optional[Mesh] = None, cp_axis: Optional[str] = None,
                   cp_batch_axis: Optional[str] = None) -> Optional[Parallel]:
     """The axes a step's modules read: the data axis of `mesh` (or of
-    `cp_mesh`) and, with `cp_axis`, the context-parallel axis of
-    `cp_mesh`. `cp_batch_axis` is the JAX signature's name of the axis the
-    batch is split over: None or 'data'. None without a mesh."""
+    `cp_mesh`), with `cp_axis` the context-parallel axis of `cp_mesh`, and
+    the model axis. Where the FC pair and the experts split is the
+    state's own record (`sharding.with_layout(par, state.layout)`, taken
+    at each call). `cp_batch_axis` is the JAX signature's name of the
+    axis the batch is split over: None or 'data'. None without a mesh."""
     if (cp_mesh is None) != (cp_axis is None):
         raise ValueError("context parallelism needs cp_mesh and cp_axis")
     if cp_batch_axis not in (None, DATA_AXIS):
@@ -106,7 +115,8 @@ def step_parallel(cfg: TrainConfig, mesh: Optional[Mesh] = None,
                              "parallelism runs over the model axis")
         cp = mesh.axis(cp_axis)
     return Parallel(data=mesh.data, cp=cp,
-                    cp_kernel=getattr(cfg, "use_pallas", None) is not False)
+                    cp_kernel=getattr(cfg, "use_pallas", None) is not False,
+                    model=mesh.model if mesh.model.size > 1 else None)
 
 
 def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
@@ -120,21 +130,24 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
     (steps 1-6 of the module docstring, or the options' forms), which adds
     its gradients to the models' .grad. pe_cached [mb, E]: the cached
     prompt embeddings, needed with cfg.cached_prompt_embeddings. `par`:
-    the mesh's axes (`step_parallel`)."""
+    the mesh's axes (`step_parallel`); the state's layout adds its tensor
+    / expert axes."""
     w = LossWeights(cfg.recon_weight, cfg.kl_weight, cfg.quality_weight,
                     cfg.reward_scale, cfg.semantic_weight,
                     cfg.baseline_momentum)
     dtype = _compute_dtype(cfg)
     cached = bool(cfg.cached_prompt_embeddings)
     fuse = bool(cfg.fuse_teacher) and not cached
-    teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd,
-                      attn_impl=attn_impl, par=par)
     data = par and par.data
 
     def micro_step(state: TrainState, batch: torch.Tensor,
                    baseline: torch.Tensor, binit: torch.Tensor,
                    pe_cached: torch.Tensor | None = None):
         teacher = state.teacher
+        split = with_layout(par, state.layout)
+        tp = split and split.tp
+        teacher_kw = dict(train=True, remat=remat, bwd=attn_bwd,
+                          attn_impl=attn_impl, par=split)
         x = normalize_images(batch, dtype)
         if cached:
             if pe_cached is None:
@@ -148,8 +161,8 @@ def make_micro_step(cfg: TrainConfig, *, remat: bool = True,
                     **teacher_kw)["prompt_embedding"].detach()
         recon, mu, logvar = state.vae(
             x, device_generator(new_seed(state.generator), x.device),
-            rows=data)
-        recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
+            rows=data, tp=tp)
+        recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar, tp)
         if fuse:
             t = teacher_mod.apply(teacher, torch.cat([x, recon.detach()]),
                                   generator=state.generator, **teacher_kw)
@@ -194,6 +207,7 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
     that mesh too. The models' configs come with the state."""
     par = step_parallel(cfg, mesh, cp_mesh, cp_axis, cp_batch_axis)
     data = par and par.data
+    model = par and par.model
     micro_step = make_micro_step(cfg, remat=remat, attn_bwd=attn_bwd,
                                  attn_impl=attn_impl, par=par)
 
@@ -211,24 +225,28 @@ def make_train_step(cfg: TrainConfig, *, remat: bool = True,
             stacked.append(metrics)
 
         inv = 1.0 / len(stacked)
-        grads = [p.grad for opt in (state.vae_opt, state.teacher_opt)
-                 for p in opt.params if p.grad is not None]
+        ep = state.layout and state.layout.ep
+        held = [(p.grad, part) for opt in (state.vae_opt, state.teacher_opt)
+                for p, part in zip(opt.params, opt.split)
+                if p.grad is not None]
+        grads = [g for g, _ in held]
         for g in grads:
             g.mul_(inv)
         if data is not None:
             all_reduce_mean_(grads, data)
-        if par is not None and par.cp is not None:
-            broadcast_(grads, par.cp)
+        if model is not None:
+            broadcast_([g for g, part in held if not part], model)
         for opt in (state.vae_opt, state.teacher_opt):
             opt.step(state.step)
         out = {k: torch.stack([m[k] for m in stacked]).float().mean()
                for k in stacked[0]}
         if data is not None:
             all_reduce_mean_(list(out.values()), data)
-        if par is not None and par.cp is not None:
+        if model is not None:
             broadcast_(list(out.values()) + [baseline] + [
                 b for k, b in state.teacher.named_buffers()
-                if "running" in k], par.cp)
+                if "running" in k and (ep is None
+                                       or expert_index(k) is None)], model)
         out["baseline"] = baseline          # the current EMA
         state.step += 1
         state.baseline, state.baseline_initialized = baseline, binit
@@ -252,10 +270,12 @@ def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
     @torch.no_grad()
     def eval_step(state: TrainState, images: torch.Tensor) -> Metrics:
         x = normalize_images(images, dtype)
-        recon, mu, logvar = state.vae(x, sample_posterior=False)
-        recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar)
+        split = with_layout(par, state.layout)
+        tp = split and split.tp
+        recon, mu, logvar = state.vae(x, sample_posterior=False, tp=tp)
+        recon_loss, kl_loss = losses.recon_kl(recon, x, mu, logvar, tp)
         t_out = teacher_mod.apply(state.teacher, recon, attn_impl=attn_impl,
-                                  par=par)
+                                  par=split)
         out = {
             "val_recon_loss": recon_loss,
             "val_kl_loss": kl_loss,
@@ -265,8 +285,8 @@ def make_eval_step(cfg: TrainConfig, *, attn_impl: str = "auto",
         if par is not None:
             out = {k: v.float().clone() for k, v in out.items()}
             all_reduce_mean_(list(out.values()), par.data)
-            if par.cp is not None:
-                broadcast_(list(out.values()), par.cp)
+            if par.model is not None:
+                broadcast_(list(out.values()), par.model)
         return out
 
     return eval_step
@@ -287,7 +307,8 @@ def make_embed_step(cfg: TrainConfig, *, attn_impl: str = "auto",
     @torch.no_grad()
     def embed_step(state: TrainState, images: torch.Tensor) -> torch.Tensor:
         out = teacher_mod.apply(state.teacher, normalize_images(images, dtype),
-                                attn_impl=attn_impl, par=par)
+                                attn_impl=attn_impl,
+                                par=with_layout(par, state.layout))
         return out["prompt_embedding"].float()
 
     return embed_step

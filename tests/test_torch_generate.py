@@ -165,7 +165,8 @@ def test_generator_reads_a_checkpoint_directory(tmp_path):
 
 def test_port_never_imports_jax():
     """In a fresh interpreter, importing every module of the port, the
-    training slice, its loop, the parallel layer and the tools included,
+    training slice, its loop, the parallel layer (tensor and expert
+    parallelism too), the native gatherer and the tools included,
     leaves jax, optax and
     flax unloaded, and every module of the JAX package too: the port keeps
     its own copies of what it needs from there. pandas and orbax stay
@@ -186,7 +187,8 @@ def test_port_never_imports_jax():
         "        'cli.export', 'cli.convert', 'cli.synthesize',\n"
         "        'ops.image_ops', 'data.prompts', 'data.synthesis',\n"
         "        'parallel', 'parallel.mesh', 'parallel.collectives',\n"
-        "        'parallel.ring_attention', 'parallel.launch']\n"
+        "        'parallel.ring_attention', 'parallel.launch',\n"
+        "        'parallel.sharding', 'data.native']\n"
         "missing = [n for n in need if 'lunaris_orion_tpu_torch.' + n not in mods]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -197,4 +199,4 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 39
+    assert int(proc.stdout.strip()) >= 41

@@ -202,10 +202,10 @@ def test_cuda_without_a_card_raises(data_dir, tmp_path):
 def test_options_without_a_port_raise(data_dir, tmp_path):
     """The JAX Trainer's mesh rules: --attn_impl ring / allgather without
     a model axis above 1 (or with a token count it does not divide) raise
-    ValueError with the JAX message; a model axis above 1 without them is
-    tensor / expert parallelism, which still raises NotImplementedError;
-    a mesh over more than one rank outside torchrun raises RuntimeError.
-    The options ported since build a Trainer."""
+    ValueError with the JAX message; a mesh over more than one rank
+    outside torchrun raises RuntimeError, a model axis above 1 without
+    them (tensor / expert parallelism, ported since) included. The
+    options ported since build a Trainer."""
     for extra in (["--attn_impl", "ring"], ["--attn_impl", "allgather"],
                   ["--attn_impl", "ring", "--mesh_shape", "1", "1"]):
         with pytest.raises(ValueError, match="needs a mesh model axis > 1"):
@@ -213,13 +213,10 @@ def test_options_without_a_port_raise(data_dir, tmp_path):
     with pytest.raises(ValueError, match="not divisible"):
         pcli.trainer_from_args(_args(data_dir, tmp_path / "o", "--attn_impl",
                                      "allgather", "--mesh_shape", "1", "3"))
-    for shape in (["1", "2"], ["2", "2"]):
-        with pytest.raises(NotImplementedError, match="tensor and expert"):
+    for shape in (["1", "2"], ["2", "2"], ["2", "1"]):
+        with pytest.raises(RuntimeError, match="torchrun"):
             pcli.trainer_from_args(_args(data_dir, tmp_path / "o",
                                          "--mesh_shape", *shape))
-    with pytest.raises(RuntimeError, match="torchrun"):
-        pcli.trainer_from_args(_args(data_dir, tmp_path / "o",
-                                     "--mesh_shape", "2", "1"))
     for extra in (["--cached_prompt_embeddings"], ["--attn_window", "64"],
                   ["--bf16_momentum"], ["--fuse_teacher"]):
         t = pcli.trainer_from_args(_args(data_dir, tmp_path / "p", *extra))
