@@ -21,12 +21,14 @@ Phases, each of which raises on failure (exit code 1):
               view at [128,128,128,64], pass 1's library call;
   4. K2       flash-attention forward kernels against the plain version at
               the teacher's shape (B 8 and the train step's B 16, H 8,
-              N 16384, d 16) with dropout 0 and 0.1, f32 (CUDA cores) and
-              bf16 (tensor cores), and at d 8/32/48/64 and a ragged N; bf16
-              element by element against the plain version's online form;
-              the tensor-core bf16 kernel timed against the CUDA-core one it
-              replaced (earlier, new, new, earlier); d 32 (feature_dim 256)
-              at B 8, N 16384 timed beside F.scaled_dot_product_attention;
+              N 16384, d 16) with dropout 0 and 0.1, f32 and bf16 (tensor
+              cores; f32 in three TF32 passes), and at d 8/32/48/64 and a
+              ragged N; bf16 element by element against the plain version's
+              online form; the tensor-core kernels at d 16, and f32's at
+              d 32, timed against the CUDA-core ones they replaced
+              (earlier, new, new, earlier; the new must be faster); d 32
+              (feature_dim 256) at B 8, N 16384 timed beside
+              F.scaled_dot_product_attention;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
@@ -38,18 +40,20 @@ Phases, each of which raises on failure (exit code 1):
               decode within 1/255, quality within 1e-3;
   7. K2 bwd   both backward variants (fused = dk/dv with dq; split = dk/dv +
               dq kernels) against the plain backward at B 2, H 8, N 16384,
-              d 16, dropout 0 and 0.1, f32 (CUDA cores) and bf16 (tensor
-              cores), at d 8/32/48/64, at a ragged rectangular 2000 x 300
-              and 300 x 2000 in bf16, with a q shard at q_offset, and at the
-              teacher's training shape (B 16, H 8, N 16384, d 16, dropout
-              0.1), f32 and bf16, where it also times every kernel and the
-              plain version; bf16 element by element; the tensor-core bf16
-              fused, dk/dv and dq kernels timed against the CUDA-core ones
-              they replaced, and the two variants against each other (each
-              earlier, new, new, earlier) beside the backward of
-              `F.scaled_dot_product_attention`; both variants at d 32, B 8,
-              N 16384 beside it, and in turns at N 4096 at every head size
-              (what `default_bwd` follows);
+              d 16, dropout 0 and 0.1, f32 and bf16 (the fused one on the
+              tensor cores in both, f32 in three TF32 passes; split on the
+              tensor cores in bf16), at d 8/32/48/64, at a ragged
+              rectangular 2000 x 300 and 300 x 2000, with a q shard at
+              q_offset, and at the teacher's training shape (B 16, H 8,
+              N 16384, d 16, dropout 0.1), f32 and bf16, where it also times
+              every kernel and the plain version; bf16 element by element;
+              the tensor-core kernels (bf16: fused, dk/dv and dq; f32:
+              fused, also at d 32) timed against the CUDA-core ones they
+              replaced (the new must be faster), and the two variants
+              against each other (each earlier, new, new, earlier) beside
+              the backward of `F.scaled_dot_product_attention`; both
+              variants at d 32, B 8, N 16384 beside it, and in turns at
+              N 4096 at every head size (what `default_bwd` follows);
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
@@ -87,9 +91,10 @@ Phases, each of which raises on failure (exit code 1):
               F.conv2d with the bias added three ways, in turns; plain;
               f32 (CUDA-core body) at [32,128,128,64]->64;
  12. stages   each of the five K2 stage kernels against its plain version
-              at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 (CUDA-core
-              body) and bf16 (tensor-core body); "sum" bit-equal to the
-              forward kernel at dropout 0; times at B 8 bf16;
+              at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 and bf16
+              (the tensor-core bodies; f32 three TF32 passes); "sum"
+              bit-equal to the forward kernel at dropout 0; times at B 8
+              bf16;
  13. stats    the per-tile lane-sums kernel, and K1's pass 1 alone, against
               their plain versions at [128,128,128,32], [128,128,128,64],
               [128,64,64,128], bf16 and f32, tiles of 512 and 2048 rows;
@@ -199,19 +204,27 @@ Phases, each of which raises on failure (exit code 1):
               native batch gatherer built, byte-equal to the numpy gather
               and timed against it at batch 16 x 2.
 
-Kernel times are medians of CUDA-event timings. Each kernel's `bound_ms` is
-the larger of its bytes (inputs read once, outputs written once) over
-3.35 TB/s and its operations over the peak of its input type (989 TFLOP/s
-bf16, 67 TFLOP/s f32 outside the tensor cores), at the shape its `ms` was
-taken at; `library_ms` is one PyTorch call computing the same function
+Kernel times are medians of CUDA-event timings; `[time]` lines give each
+phase's seconds. Each kernel's `bound_ms` is the larger of its bytes
+(inputs read once, outputs written once) over 3.35 TB/s and its operations
+over the peak of its input type (989 TFLOP/s bf16, 67 TFLOP/s f32 outside
+the tensor cores), at the shape its `ms` was taken at; an f32 kernel on the
+tensor cores does each product as three TF32 passes, so its `bound_ms` is
+three times the operations over 495 TFLOP/s (`bound_ms_tf32x3`), beside
+the same operations on the CUDA cores (`bound_ms_f32`); `library_ms` is one PyTorch call computing the same function
 (`F.scaled_dot_product_attention` for K2; for K5 K1 followed by F.conv2d
 and its bias, the fastest of three ways to add it; for the lane sums
 torch.var_mean over the grouped view), timed here and used nowhere in the port. The entries of the
 K2 forward and of the three K2 backward kernels carry the f32 reading under the plain keys and the bf16 reading under
-`*_bf16` (`earlier_ms_bf16`: the CUDA-core bf16 kernel on the same
-inputs; `body`, `body_bf16`: the body the instance rule gives), and the
-head size 32 times at B 8 under `*_d32` (the backward's: its variant's
-`flash_attention_bwd`). K5's entry names its `body` and carries the
+`*_bf16` (`earlier_ms`, `earlier_ms_bf16`: the CUDA-core kernel on the
+same inputs, in turns; `body`, `body_bf16`: the body the instance rule
+gives; `turns_f32`: the f32 forward's [new, earlier] ms at each d 16 and
+d 32 shape), and the head size 32 times at B 8 under `*_d32` (the
+backward's: its variant's `flash_attention_bwd`; `kernel_ms_d32`,
+`earlier_ms_d32`: the f32 fused kernel alone against the CUDA-core one).
+The f32 bodies of the K2 forward and fused backward are named under
+`f32_body` / `f32_source`, with their launches in one default f32 train
+step of phase 10 (`launches_f32_step`). K5's entry names its `body` and carries the
 CUDA-core body's time as `earlier_ms`. K1's entry: `ms` / `earlier_ms`
 (f32) and `ms_bf16` / `earlier_ms_bf16`, the four decoder sites summed,
 the earlier three-launch form beside the two launches, and the same as
@@ -235,8 +248,8 @@ windowed bf16 evaluate batch of 16) and the windowed forward's readings
 `window_plain_ms*`, `window_library_ms*`, `window_bound_ms*`,
 `window_bound_by*` and `window_max_abs_err*` to the K2 forward's; the
 windowed default backward's (`window_variant`, `window_ms`, ...) to the
-fused backward's under `*_bf16` and, for f32 (split), to dq's and dk/dv's
-under `split_*`. Phase 17 adds `launches_bundle_generate` and
+fused backward's under `*_bf16` and, for f32, to the kernel that ran it
+(the fused one, unsuffixed; split's under `split_*` on dq's and dk/dv's). Phase 17 adds `launches_bundle_generate` and
 `launches_bundle_score` (one bf16 generate and one score of a loaded
 "cuda" bundle at batch 8, the serving process's counts) to K1's and the K2
 forward's entries, and phase 3 `dispatch_{bare,library,custom_op}_ms_bf16`
@@ -244,7 +257,7 @@ to K1's (the four bf16 decoder sites by the bare launch, the
 `lunaris_orion::gn_mish` operator and a `torch.library.custom_op` of the
 same launch, in turns). Phase 18 adds `launches_dist_allgather` (rank 1's
 launches, all on its q shard, in the f32 allgather step of (b)) to the K2
-forward's, dq's and dk/dv's entries, and the K2 forward's and the bf16
+forward's and backwards' entries, and the K2 forward's and the bf16
 default backward's times alone on a CP shard (`cp_shard_ms`,
 `cp_shard_bound_ms`, `cp_shard_bound_by`, `cp_shard_library_ms`: SDPA on
 the same rectangular shape; `cp_shard_variant`) to the forward's and the
@@ -326,7 +339,10 @@ def device_ms(torch, fn, reps: int = 20) -> float:
 
 
 PEAK_BYTES = 3.35e12                       # H100 SXM: bytes/s of device memory
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor cores; f32 outside them
+# Dense tensor cores (bf16, tf32); f32 outside them. An f32 product on the
+# tensor cores is three TF32 passes: its operations count three times at
+# the tf32 rate (`bounds_f32`).
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def bound(ops: float, nbytes: float, kind: str) -> dict:
@@ -335,6 +351,16 @@ def bound(ops: float, nbytes: float, kind: str) -> dict:
     t_ops, t_bytes = ops / PEAK_OPS[kind] * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def bounds_f32(ops: float, moved: float) -> dict:
+    """An f32 kernel on the tensor cores: both bounds, each named. The
+    three TF32 passes over 495 TFLOP/s (`bound_ms_tf32x3`, the least time,
+    so `bound_ms`) and the same operations on the CUDA cores over 67
+    (`bound_ms_f32`)."""
+    tc, cc = bound(3 * ops, moved, "tf32"), bound(ops, moved, "f32")
+    return {**tc, "bound_ms_tf32x3": tc["bound_ms"],
+            "bound_ms_f32": cc["bound_ms"]}
 
 
 def nbytes(*tensors) -> int:
@@ -354,8 +380,8 @@ K1_KERNELS = ("gn_stats_partial", "gn_mish_apply_fold", "gn_mish_apply",
 # (demangled) name. The fused backward is the dk/dv kernel whose last
 # template argument, kFusedDq or FUSED, is true.
 KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
-                 ("K2 bwd fused", lambda k: re.search(
-                     r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
+                 ("K2 bwd fused", lambda k: "flash_bwd_fused" in k
+                  or re.search(r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
                  ("K2 bwd dk/dv", lambda k: "flash_bwd_dkv" in k),
                  ("K2 bwd dq", lambda k: "flash_bwd_dq" in k),
                  ("K1", lambda k: any(p in k for p in K1_KERNELS)),
@@ -384,7 +410,7 @@ def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     ms = dict.fromkeys([name for name, _ in KERNEL_GROUPS] + ["other"], 0.0)
-    k1_kernels = {}
+    k1_kernels, k2_kernels = {}, {}
     for e in p.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -396,6 +422,10 @@ def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
         if group == "K1":
             name = next(n for n in K1_KERNELS if n in e.key)
             k1_kernels[name] = k1_kernels.get(name, 0) + e.count
+        elif group.startswith("K2"):       # the body and instance by name
+            m = re.search(r"flash_\w+<[^>]*>", e.key)
+            name = m.group(0) if m else e.key
+            k2_kernels[name] = k2_kernels.get(name, 0) + e.count
     total = sum(ms.values())
     if total <= 0:
         log(f"[profile] {tag}: the profiler recorded no device time")
@@ -406,6 +436,8 @@ def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
             f"{total:.1f} ms (idle {max(0.0, 1 - total / (host_s * 1e3)):.1%})"
             f": {parts} ms on {smi}")
         log(f"[profile] {tag}: K1 kernels {k1_kernels}")
+        if k2_kernels:
+            log(f"[profile] {tag}: K2 kernels {k2_kernels}")
     return result, host_s, k1_kernels, total
 
 
@@ -441,14 +473,27 @@ def build() -> None:
         if ("Compiling entry" in line or "registers" in line
                 or "spill" in line or line.startswith("nvcc seconds")):
             log("[build]   " + line.strip())
-    # K5's tensor-core body: no instance spills, and its SASS holds HMMA.
-    fn, spills = None, []
+    # K5's tensor-core body and K2's f32 tensor-core bodies (three TF32
+    # passes): no instance spills; K5's SASS holds HMMA.
+    fn, spills, tf32 = None, [], {}
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         fn = m.group(1) if m else fn
-        if (fn and "gn_mish_conv3_mma" in fn
+        if (fn and ("gn_mish_conv3_mma" in fn or "tf32" in fn)
                 and re.search(r"[1-9]\d* bytes spill", line)):
             spills.append(fn)
+        if fn and "tf32" in fn:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            row = tf32.setdefault(fn, [0, 0])
+            row[0] = int(regs.group(1)) if regs else row[0]
+            row[1] = int(spill.group(1)) if spill else row[1]
+    for fn, (regs, spill) in sorted(tf32.items()):
+        log(f"[build] K2 TF32 {fn}: {regs} registers, {spill} bytes spilled")
+    if len({fn for fn in tf32 if "flash_fwd_tf32" in fn}) < 7 or not any(
+            "flash_bwd_fused_tf32" in fn for fn in tf32):
+        raise AssertionError(f"the K2 TF32 instances are missing from the "
+                             f"build's report: {sorted(tf32)}")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
@@ -470,8 +515,8 @@ def build() -> None:
             f"{k} {count.get(k, 0)}" for k in ("all", "HMMA", "LDSM", "MUFU",
                                                "FFMA", "FADD", "FMUL")))
     if spills or len(ops) != 2 or not all(c.get("HMMA") for c in ops.values()):
-        raise AssertionError(f"K5's tensor-core body spills ({spills}) or "
-                             f"has no HMMA in its SASS")
+        raise AssertionError(f"a tensor-core instance spills ({spills}) or "
+                             f"K5's body has no HMMA in its SASS")
 
 
 def k1_agree(torch, got, ref) -> tuple:
@@ -723,7 +768,7 @@ def check_k2(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(1)
-    out = {}
+    out, turns = {}, {}     # turns: f32 (new, earlier) ms by shape
     # The teacher's shape at the serving batch and the train step's.
     cases = [(b, 8, 16384, 16, dt, rate) for b in (8, 16)
              for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
@@ -773,22 +818,15 @@ def check_k2(torch, dev, smi) -> dict:
             f"({flops / t_k / 1e9:.2f} TFLOP/s)")
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version at {tag}")
-        if big and d == 32:
-            del ro, rlse
-            lib, lib_note = sdpa_ms(q, k, v, bias, reps=3)
-            log(f"[K2] {tag}: kernel {t_k:.3f} ms, "
-                f"F.scaled_dot_product_attention {lib} ms ({lib_note}) on "
-                f"{smi}")
-            suffix = "_d32" if dt == torch.float32 else "_bf16_d32"
-            out |= {"ms" + suffix: t_k, "library_ms" + suffix: lib}
-            continue
-        if not (big and d == 16 and dt == torch.bfloat16 or
-                big and b == 8 and rate == 0.0):
+        if not big:
             continue
         del ro, rlse
-        if dt == torch.bfloat16:
-            # The CUDA-core bf16 kernel that the tensor-core one replaced, on
-            # the same inputs, in turns: earlier, new, new, earlier.
+        f32 = dt == torch.float32
+        earlier = None
+        if d == 16 or f32:
+            # The CUDA-core kernel that the tensor-core one replaced (f32:
+            # by three TF32 passes), on the same inputs, in turns:
+            # earlier, new, new, earlier.
             run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
                 q, k, v, bias, body=body, **kw), 3)
             t = [run("simt"), run("mma"), run("mma"), run("simt")]
@@ -798,24 +836,42 @@ def check_k2(torch, dev, smi) -> dict:
             if min(t[1:3]) >= min(t[0], t[3]):
                 raise AssertionError(f"K2 at {tag}: the tensor-core kernel is "
                                      "no faster than the one it replaced")
+            earlier = min(t[0], t[3])
+            if f32:
+                turns[f"B{b} d{d} dropout {rate}"] = [min(t[1:3]), earlier]
+        if d == 32:
+            lib, lib_note = sdpa_ms(q, k, v, bias, reps=3)
+            log(f"[K2] {tag}: kernel {t_k:.3f} ms, "
+                f"F.scaled_dot_product_attention {lib} ms ({lib_note}) on "
+                f"{smi}")
+            suffix = "_d32" if f32 else "_bf16_d32"
+            out |= {"ms" + suffix: t_k, "library_ms" + suffix: lib}
+            if f32:
+                out["earlier_ms_d32"] = earlier
+            continue
         if b == 8 and rate == 0.0:
             t_p = time_ms(torch, lambda: k2.attention_plain(q, k, v, bias, **kw),
                           2)
             lib, lib_note = sdpa_ms(q, k, v, bias, reps=3)
-            bd = bound(flops, nbytes(q, k, v, bias, o, lse),
-                       "f32" if dt == torch.float32 else "bf16")
+            moved = nbytes(q, k, v, bias, o, lse)
+            bd = (bounds_f32(flops, moved) if f32
+                  else bound(flops, moved, "bf16"))
             log(f"[K2] {tag}: plain {t_p:.3f} ms, "
                 f"F.scaled_dot_product_attention {lib} ms ({lib_note}), bound "
-                f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}")
-            if dt == torch.float32:
+                f"{bd['bound_ms']:.3f} ms by {bd['bound_by']}"
+                + (f" (three TF32 passes; {bd['bound_ms_f32']:.3f} ms on the "
+                   f"CUDA cores)" if f32 else ""))
+            if f32:
                 out |= {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                        "library_ms": lib, **bd}
+                        "library_ms": lib, **bd, "earlier_ms": earlier,
+                        "body": inst.body}
             else:
                 out |= {"max_abs_err_bf16": err, "ms_bf16": t_k,
                         "plain_ms_bf16": t_p, "library_ms_bf16": lib,
                         "bound_ms_bf16": bd["bound_ms"],
                         "bound_by_bf16": bd["bound_by"],
-                        "earlier_ms_bf16": min(t[0], t[3])}
+                        "earlier_ms_bf16": earlier, "body_bf16": inst.body}
+    out["turns_f32"] = turns
     return out
 
 
@@ -1062,7 +1118,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                                                          torch.bfloat16)
               for d in (8, 32, 48, 64)]
     cases += [(2, 8, 2000, 300, 16, torch.bfloat16, 0.1),
-              (2, 8, 300, 2000, 16, torch.bfloat16, 0.0)]
+              (2, 8, 300, 2000, 16, torch.bfloat16, 0.0),
+              (2, 8, 2000, 300, 16, torch.float32, 0.1),
+              (2, 8, 300, 2000, 32, torch.float32, 0.0)]
     for b, h, nq, nk, d, dt, rate in cases:
         args, kw = inputs(b, h, nq, nk, d, dt, rate)
         tag = f"B{b} H{h} {nq}x{nk} d{d} {str(dt)[6:]} dropout {rate}"
@@ -1077,11 +1135,12 @@ def check_k2_bwd(torch, dev, smi) -> dict:
 
     # A q shard at q_offset (the context-parallel call): its dq rows are the
     # full call's, with the same dropout masks.
-    for dt in (torch.float32, torch.bfloat16):
-        args, kw = inputs(2, 8, 4096, 4096, 16, dt, 0.1)
+    for dt, d in ((torch.float32, 16), (torch.bfloat16, 16),
+                  (torch.float32, 32)):
+        args, kw = inputs(2, 8, 4096, 4096, d, dt, 0.1)
         q, k, v, bias, o, lse, do = args
         sl = slice(2048, None)
-        body = bodies(dt, 16, 2048, 4096, 0.1)
+        body = bodies(dt, d, 2048, 4096, 0.1)
         for variant in k2.BWD_VARIANTS:
             full = k2.flash_attention_bwd(*args, variant=variant, **kw)
             qs, dos = q[:, :, sl].contiguous(), do[:, :, sl].contiguous()
@@ -1093,7 +1152,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             ok, _, text = bwd_agree(torch, shard[0], full[0][:, :, sl], dt,
                                     "dq", body[variant])
             log(f"[K2 bwd] q shard at q_offset 2048, {variant} "
-                f"({body[variant]}) {str(dt)[6:]}: dq rows {text}")
+                f"({body[variant]}) {str(dt)[6:]} d{d}: dq rows {text}")
             if not ok:
                 raise AssertionError(f"K2 bwd {variant} {dt}: q_offset shard "
                                      "differs")
@@ -1129,17 +1188,19 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out, body=body,
             **kw), 3)
         t |= {"fused": fused(), "dkv": dkv(), "dq": dqk()}
-        if dt == torch.bfloat16:
-            # The CUDA-core bf16 kernels that the tensor-core ones replaced,
-            # on the same inputs, in turns: earlier, new, new, earlier.
-            for name, run in (("fused", fused), ("dkv", dkv), ("dq", dqk)):
-                t[name], t[name + "_earlier"] = in_turns(
-                    run, "simt", "mma", f"{tag} {name} kernel, CUDA cores "
-                    "(simt) against tensor cores (mma)")
-                if t[name] >= t[name + "_earlier"]:
-                    raise AssertionError(
-                        f"K2 bwd {name} at {tag}: the tensor-core kernel is "
-                        "no faster than the one it replaced")
+        # The CUDA-core kernels that the tensor-core ones replaced, on the
+        # same inputs, in turns: earlier, new, new, earlier. bf16: all
+        # three; f32: the fused one (three TF32 passes).
+        kernels = ((("fused", fused), ("dkv", dkv), ("dq", dqk))
+                   if dt == torch.bfloat16 else (("fused", fused),))
+        for name, run in kernels:
+            t[name], t[name + "_earlier"] = in_turns(
+                run, "simt", "mma", f"{tag} {name} kernel, CUDA cores "
+                "(simt) against tensor cores (mma)")
+            if t[name] >= t[name + "_earlier"]:
+                raise AssertionError(
+                    f"K2 bwd {name} at {tag}: the tensor-core kernel is "
+                    "no faster than the one it replaced")
         # The two variants as flash_attention_bwd runs them (delta, buffers,
         # dq's rounding included), in turns.
         t["fused_call"], t["split"] = in_turns(
@@ -1166,9 +1227,13 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         f"{b16['fused_earlier']:.1f}), dk/dv + dq {b16['dkv'] + b16['dq']:.1f} "
         f"ms (earlier {b16['dkv_earlier'] + b16['dq_earlier']:.1f}) against "
         f"the library's backward {b16['sdpa_bwd']} ms")
+    log(f"[K2 bwd] f32 fused {f32['fused']:.1f} ms (earlier "
+        f"{f32['fused_earlier']:.1f}), dk/dv + dq {f32['dkv'] + f32['dq']:.1f} "
+        f"ms against the library's backward {f32['sdpa_bwd']} ms")
 
     # Head size 32 (feature_dim 256) at the serving batch: both variants in
-    # turns beside the library's backward (correctness: the 4096 cases).
+    # turns beside the library's backward (correctness: the 4096 cases);
+    # in f32 the fused kernel also against the CUDA-core one it replaced.
     d32 = {}
     for dt in (torch.float32, torch.bfloat16):
         args, kw = inputs(8, 8, 16384, 16384, 32, dt, 0.1)
@@ -1178,6 +1243,24 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                                       f"{tag} flash_attention_bwd ({body})")
         lib, note = sdpa_ms(*args[:4], backward=True, dropout_p=0.1, reps=3)
         d32[dt] = {"fused": fused_ms, "split": split_ms, "sdpa": lib}
+        if dt == torch.float32:
+            q, k, v, bias, o, lse, do = args
+            delta = (o.float() * do.float()).sum(-1)
+            out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                       dbias_bh=torch.empty(64, 16384, device=dev),
+                       dq_acc=torch.zeros(8, 8, 16384, 32, device=dev))
+            kernel = lambda body: time_ms(torch, lambda: k2.launch_bwd_kernel(
+                k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out,
+                body=body, **kw), 3)
+            new, old = in_turns(kernel, "simt", "mma",
+                                f"{tag} fused kernel, CUDA cores (simt) "
+                                "against tensor cores (mma)")
+            if new >= old:
+                raise AssertionError(f"K2 bwd fused at {tag}: the tensor-core "
+                                     "kernel is no faster than the one it "
+                                     "replaced")
+            d32[dt] |= {"kernel": new, "earlier": old}
+            del q, k, v, bias, o, lse, do, delta, out
         log(f"[K2 bwd] {tag}: fused {fused_ms:.1f} ms, split {split_ms:.1f} "
             f"ms, backward of F.scaled_dot_product_attention {lib} ms "
             f"({note}) on {smi}; the default is {k2.default_bwd(dt, 32)}")
@@ -1188,14 +1271,16 @@ def check_k2_bwd(torch, dev, smi) -> dict:
 
     def entry(key, t, n_ops, out_bytes, lib, d32_key):
         bd = bound(n_ops * pairs_d, b16["in_bytes"] + b16[out_bytes], "bf16")
+        body = (k2.fused_instance if key == "fused" else k2.backward_instance)(
+            torch.float32, 16, 1, 1, 0.1).body
+        moved = f32["in_bytes"] + f32[out_bytes]
         return {
             "max_abs_err": errs[torch.float32][key], "ms": f32[t],
             "plain_ms": f32["plain"], "library_ms": f32["sdpa_bwd"] if lib
             else None,
-            **bound(n_ops * pairs_d, f32["in_bytes"] + f32[out_bytes], "f32"),
-            "body": k2.fused_instance(torch.float32, 16, 1, 1, 0.1).body
-            if key == "fused" else
-            k2.backward_instance(torch.float32, 16, 1, 1, 0.1).body,
+            **(bounds_f32(n_ops * pairs_d, moved) if body == "mma" else
+               bound(n_ops * pairs_d, moved, "f32")),
+            "body": body, "earlier_ms": f32.get(t + "_earlier"),
             "max_abs_err_bf16": errs[torch.bfloat16][key], "ms_bf16": b16[t],
             "body_bf16": k2.fused_instance(torch.bfloat16, 16, 1, 1, 0.1).body
             if key == "fused" else
@@ -1206,6 +1291,10 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             "bound_ms_bf16": bd["bound_ms"], "bound_by_bf16": bd["bound_by"],
             # flash_attention_bwd with this kernel's variant at B 8, d 32
             "variant_ms_d32": d32[torch.float32][d32_key],
+            "library_ms_d32": d32[torch.float32]["sdpa"],
+            **({"kernel_ms_d32": d32[torch.float32]["kernel"],
+                "earlier_ms_d32": d32[torch.float32]["earlier"]}
+               if key == "fused" else {}),
             "variant_ms_bf16_d32": d32[torch.bfloat16][d32_key],
             "library_ms_bf16_d32": d32[torch.bfloat16]["sdpa"]}
     for t in (f32, b16):
@@ -1482,6 +1571,7 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
     for mod, name in counters:
         setattr(mod, name, 0)
     bare = {}                           # remat -> the default bf16 step
+    f32_step = {}                       # the default f32 step's launches
     for bf16, bwd, remat in runs:
         seen = [getattr(mod, name) for mod, name in counters]
         step = make_train_step(cfg.replace(mixed_precision=bf16),
@@ -1521,6 +1611,10 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
             f" on {smi}; launches (K1, K2 fwd, K2 bwd fused, dq, dk/dv, K3) "
             f"{[getattr(mod, name) - was for (mod, name), was in zip(counters, seen)]}")
+        if not bf16:
+            f32_step = {f"{name} {mod.__name__.rsplit('.', 1)[1]}":
+                        getattr(mod, name) - was
+                        for (mod, name), was in zip(counters, seen)}
     after = [p.detach() for p in
              (*state.vae.parameters(), *state.teacher.parameters())]
     moved = [not torch.equal(a, b) for a, b in zip(before, after)]
@@ -1535,6 +1629,7 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
         f"kernel launches in the train steps: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    launches["f32_step"] = f32_step
     return launches, bare
 
 
@@ -1881,8 +1976,8 @@ def check_stages(torch, dev, smi) -> dict:
             each = (o.float() - ref).abs()
             err = each.max().item()
             lse_err = (lse - rlse).abs().max().item()
-            # f32 (CUDA cores): 16384 terms summed in another order, 2e-5 of
-            # the largest magnitude. bf16 (tensor cores): the forward's bar,
+            # f32 (three TF32 passes): 16384 terms summed in another order,
+            # 2e-5 of the largest magnitude. bf16 (tensor cores): the forward's bar,
             # K2_BF16_BAR: 2 ulps of each element's own reference for the
             # last rounding plus 1e-3 of the largest, and at most 3 elements
             # in 100 may differ at all (measured: 1.6e-4, 9 in 1000).
@@ -2134,14 +2229,16 @@ def check_window(torch, dev, smi) -> dict:
             seed=5), 2)
         lib_b, _ = sdpa_ms(fold(q), fold(k), fold(v), bias_w, backward=True,
                            dropout_p=0.1, reps=3)
-        kind = "f32" if dt == torch.float32 else "bf16"
         scores_d = b * h * n * w * d
-        bd = bound(4 * scores_d, nbytes(q, k, v, bias, o, lse), kind)
+        # f32 runs on the tensor cores in three TF32 passes (both bounds).
+        bounds = (bounds_f32 if dt == torch.float32 else
+                  lambda ops, moved: bound(ops, moved, "bf16"))
+        bd = bounds(4 * scores_d, nbytes(q, k, v, bias, o, lse))
         # Per (q, k) pair and head-dim element, 2 operations each for the
         # scores, dp, dv, dk and dq products (split: the scores and dp twice).
         bwd_ops = {"fused": 10, "split": 14}[variant]
-        bdb = bound(bwd_ops * scores_d, nbytes(q, k, v, bias, do, lse, o)
-                    + nbytes(q, k, v, bias), kind)
+        bdb = bounds(bwd_ops * scores_d, nbytes(q, k, v, bias, do, lse, o)
+                     + nbytes(q, k, v, bias))
         log(f"[window] {name}: windowed forward {t_w:.3f} ms "
             f"({b * h * n * w / t_w / 1e9:.2f} G scores/ms), global K2 at "
             f"B{b} {t_g:.3f} ms ({t_g / t_w:.1f}x), plain {t_p:.3f} ms, "
@@ -2779,7 +2876,7 @@ DIST_CASES = (("dp", (2, 1), "auto", 4, False),
               ("allgather", (1, 2), "allgather", 4, False),
               ("ring", (1, 2), "ring", 2, False))
 DIST_ATTN = (2, 8, 16384, 16)           # allgather_attention alone: B H N d
-# Phase 18 (c)'s K2 counters (f32: the split backward).
+# Phase 18 (c)'s K2 counters (f32: the default backward, the fused one).
 TP_EP_K2 = ("launches", "bwd_fused_launches", "bwd_dq_launches",
             "bwd_dkv_launches")
 
@@ -3527,8 +3624,8 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
         f"{time.perf_counter() - t_phase:.0f} s")
     if failed:
         raise AssertionError(f"dist (b): {failed}")
-    # Rank 1's launches in the allgather step (f32: the split backward),
-    # every one of them on its q shard at q_offset 8192.
+    # Rank 1's launches in the allgather step (f32: the default backward,
+    # the fused one), every one of them on its q shard at q_offset 8192.
     shard_step = out["allgather"]["launches"]
     return {"cases": out, "attn": {
         "fwd_ms": att["fwd_ms"], "fwd_bwd_ms": att["fwd_bwd_ms"],
@@ -3541,6 +3638,7 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
                 "cp_shard_bound_ms": bdb["bound_ms"],
                 "cp_shard_bound_by": bdb["bound_by"],
                 "cp_shard_library_ms": lib_b},
+        "fused": {"launches_dist_allgather": shard_step["bwd_fused_launches"]},
         "dq": {"launches_dist_allgather": shard_step["bwd_dq_launches"]},
         "dkv": {"launches_dist_allgather": shard_step["bwd_dkv_launches"]}}
 
@@ -3565,46 +3663,53 @@ def main() -> int:
                 f"{time_k5_f32(torch, dev):.3f} ms on {smi}")
         return 0
     t_start = time.perf_counter()
-    build()
-    k1 = check_k1(torch, dev, smi)
-    k1["max_abs_err"] = max(k1["max_abs_err"], check_k1_train(torch, dev))
-    k2 = check_k2(torch, dev, smi)
+    seconds = {}                        # phase -> seconds
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[phase] = round(seconds.get(phase, 0.0)
+                               + time.perf_counter() - t0, 1)
+        log(f"[time] phase {phase}: {seconds[phase]:.1f} s")
+        return result
+
+    timed("2 build", build)
+    k1 = timed("3 K1", check_k1, torch, dev, smi)
+    k1["max_abs_err"] = max(k1["max_abs_err"],
+                            timed("3 K1", check_k1_train, torch, dev))
+    k2 = timed("4 K2", check_k2, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_slice(torch, Path(tmp), smi)
+        launches = timed("5 slice", run_slice, torch, Path(tmp), smi)
         for feature_dim in (64, 256):
-            run_context(torch, Path(tmp), feature_dim)
-    bwd = check_k2_bwd(torch, dev, smi)
-    k3 = check_k3(torch, dev, smi)
-    run_grad_context(torch)
+            timed("6 context", run_context, torch, Path(tmp), feature_dim)
+    bwd = timed("7 K2 bwd", check_k2_bwd, torch, dev, smi)
+    k3 = timed("8 K3", check_k3, torch, dev, smi)
+    timed("9 grads", run_grad_context, torch)
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
-    train, bare = run_train(torch, smi, m1, m2, m3)
+    train, bare = timed("10 train", run_train, torch, smi, m1, m2, m3)
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = run_trainer(torch, Path(tmp), smi, bare)
-    k5 = check_k5(torch, dev, smi)
-    stages = check_stages(torch, dev, smi)
-    lane, pass1 = check_lane_sums(torch, dev, smi)
-    tools = run_tools(torch)
+        trainer = timed("15 trainer", run_trainer, torch, Path(tmp), smi,
+                        bare)
+    k5 = timed("11 K5", check_k5, torch, dev, smi)
+    stages = timed("12 stages", check_stages, torch, dev, smi)
+    lane, pass1 = timed("13 lane sums", check_lane_sums, torch, dev, smi)
+    tools = timed("14 tools", run_tools, torch)
     mods = {"k1": m1, "k2": m2, "k3": m3}
-    t16 = time.perf_counter()
-    window = check_window(torch, dev, smi)
+    window = timed("16 window", check_window, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        evaluate = run_evaluate(torch, Path(tmp), smi)
-        wstep = run_window_train(torch, smi, mods)
-        wtrainer = run_window_trainer(torch, Path(tmp), smi, mods)
-    log(f"[window] phase 16 in {time.perf_counter() - t16:.0f} s")
-    t17 = time.perf_counter()
+        evaluate = timed("16 window", run_evaluate, torch, Path(tmp), smi)
+        wstep = timed("16 window", run_window_train, torch, smi, mods)
+        wtrainer = timed("16 window", run_window_trainer, torch, Path(tmp),
+                         smi, mods)
     with tempfile.TemporaryDirectory() as tmp:
-        serving = run_serving(torch, Path(tmp), smi)
-        synth = run_synthesis(torch, Path(tmp), smi)
-    log(f"[serve] phase 17 in {time.perf_counter() - t17:.0f} s")
-    t18 = time.perf_counter()
+        serving = timed("17 serve", run_serving, torch, Path(tmp), smi)
+        synth = timed("17 serve", run_synthesis, torch, Path(tmp), smi)
     with tempfile.TemporaryDirectory() as tmp:
-        dist_a = run_dist_nccl(torch, Path(tmp), smi)
-        dist_b = run_dist_gloo(torch, Path(tmp), smi)
-        dist_c = run_dist_tp_ep(torch, Path(tmp), smi)
-    log(f"[dist] phase 18 in {time.perf_counter() - t18:.0f} s")
+        dist_a = timed("18 dist", run_dist_nccl, torch, Path(tmp), smi)
+        dist_b = timed("18 dist", run_dist_gloo, torch, Path(tmp), smi)
+        dist_c = timed("18 dist", run_dist_tp_ep, torch, Path(tmp), smi)
     # Phase 18's paths: the K2 launches on q shards in (b)'s allgather step
     # (rank 1; `launches_dist_allgather`), and the kernels alone on one
     # rank's CP shard (`cp_shard_*`).
@@ -3621,6 +3726,15 @@ def main() -> int:
     # bf16 evaluate batch of 16, trainer_launches_window = 16 (d)'s run.
     w16 = lambda key: {"launches_window_step": wstep["launches"][key],
                        "trainer_launches_window": wtrainer["launches"][key]}
+    # The windowed f32 default backward's readings go to the kernel that
+    # ran it: the fused one (three TF32 passes), else split's.
+    wf32 = window["bwd_f32"]
+    w_fused = wf32 if wf32["window_variant"] == "fused" else {}
+    w_split = ({"split_" + k: v for k, v in wf32.items()}
+               if wf32["window_variant"] == "split" else {})
+    # The f32 bodies on the tensor cores (three TF32 passes) and their
+    # launches in one default f32 train step of phase 10.
+    f32_step = train["f32_step"]
     src = "lunaris_orion_tpu_torch/csrc/"
     fa = "lunaris_orion_tpu/ops/pallas/flash_attention.py"
     kernels = [
@@ -3634,31 +3748,33 @@ def main() -> int:
              launches=launches["flash_attention_fwd"],
              trainer_launches=trainer["flash_attention_fwd"],
              launches_evaluate=evaluate["evaluate_window_bf16_launches"],
+             f32_body="flash_fwd_tf32",
+             f32_source=src + "flash_attention_fwd_tf32.cu",
+             launches_f32_step=f32_step["launches flash_attention"],
              **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
              **p18("launches"), **k2, **window["fwd"], **dist_b["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
              trainer_launches=trainer["flash_attention_bwd_fused"],
+             f32_body="flash_bwd_fused_tf32",
+             f32_source=src + "flash_attention_bwd_tf32_fused.cu",
+             launches_f32_step=f32_step["bwd_fused_launches flash_attention"],
              **w16("flash_attention_bwd_fused"),
              **p18("bwd_fused_launches"),
              **bwd["flash_attention_bwd_fused"],
              **{k + "_bf16": v for k, v in window["bwd_bf16"].items()},
-             **fused_cp),
+             **w_fused, **fused_cp, **dist_b["fused"]),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:474",
              launches=train["flash_attention_bwd_dq"],
              **w16("flash_attention_bwd_dq"), **p18("bwd_dq_launches"),
-             **bwd["flash_attention_bwd_dq"],
-             **{"split_" + k: v for k, v in window["bwd_f32"].items()},
-             **dist_b["dq"]),
+             **bwd["flash_attention_bwd_dq"], **w_split, **dist_b["dq"]),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:514",
              launches=train["flash_attention_bwd_dkv"],
              **w16("flash_attention_bwd_dkv"), **p18("bwd_dkv_launches"),
-             **bwd["flash_attention_bwd_dkv"],
-             **{"split_" + k: v for k, v in window["bwd_f32"].items()},
-             **dist_b["dkv"]),
+             **bwd["flash_attention_bwd_dkv"], **w_split, **dist_b["dkv"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
@@ -3676,6 +3792,7 @@ def main() -> int:
              replaces="tools/bench_gn_stats2.py:52",
              launches=tools["lane_sums_partials"], **lane),
     ]
+    log(f"[time] phases: {json.dumps(seconds)}")
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(f"[serve] summary: {json.dumps({**serving, **synth})}")
     log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b, 'c': dist_c})}")

@@ -36,7 +36,7 @@
 // and, with dropout, the hash (five integer instructions at half the f32
 // rate) and two selects.
 //
-// Two bodies a kernel:
+// Two bodies a kernel, and for the fused kernel in f32 a third:
 //
 //   flash_bwd_dkv_mma, flash_bwd_dq_mma   bf16, D a multiple of 16, on the
 //       tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32); 4 warps a
@@ -89,16 +89,20 @@
 //       that the blocks of one BH row do not add into the same rows at once.
 //       At d 48 and 64 the dk/dv body alone fills the registers: the fused
 //       form keeps its CUDA-core kernel there.
+//   flash_bwd_fused_tf32   f32 at D 16 and 32, the fused form only: the
+//       five products on mma.sync m16n8k8 tf32 in three passes (its own
+//       note, below).
 //   flash_bwd_dkv, flash_bwd_dq   f32 or bf16, on the CUDA cores (the first
 //       version): each row is owned by TPR threads that keep it and its f32
 //       accumulators in registers and walk the other operand in tiles of 32
 //       staged in shared memory as f32; at d = 16 one thread owns one row,
 //       at d = 32, 48 and 64 four threads share a row and combine their
-//       partial dot products with warp shuffles. They are the f32 path, the
-//       bf16 path at d = 8, and at d = 16 the earlier bf16 kernels that
-//       measurements compare the tensor-core bodies with.
-//     kFusedDq (the single-pass form on the CUDA cores: f32, and bf16 at
-//       d 8, 48 and 64): dkv also forms dq. After each query tile its threads
+//       partial dot products with warp shuffles. They are the f32 split
+//       path, the bf16 path at d = 8, and at d = 16 the earlier bf16 kernels
+//       that measurements compare the tensor-core bodies with.
+//     kFusedDq (the single-pass form on the CUDA cores: f32 and bf16 at
+//       d 8, 48 and 64; f32 at d 16 and 32 for comparisons): dkv also forms
+//       dq. After each query tile its threads
 //       park round_T(ds) in shared memory, the block reduces ds^T k over its
 //       keys, and adds the tile's dq partial into a zeroed f32 [BH, Nq, d]
 //       buffer with atomicAdd, so scores, exp and the mask are computed once
@@ -168,6 +172,8 @@ int lunaris_k2_bwd_dq_mma_bf16(const LunarisK2BwdArgs& a, int d,
                                cudaStream_t s);
 int lunaris_k2_bwd_fused_mma_bf16(const LunarisK2BwdArgs& a, int d,
                                   cudaStream_t s);
+int lunaris_k2_bwd_fused_tf32(const LunarisK2BwdArgs& a, int d,
+                              cudaStream_t s);
 // Head size 32: every kernel of one body and type.
 int lunaris_k2_bwd_mma_bf16_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
@@ -1069,6 +1075,393 @@ int launch_dq_mma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Nq + bwd_mma_rows(D) - 1) / bwd_mma_rows(D), a.BH);
   flash_bwd_dq_mma<D, DROP, RAGGED>
       <<<grid, 32 * bwd_mma_warps(D), 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the fused tensor-core body for f32: three TF32 passes ------------------
+
+constexpr int kBwdTf32Warps = 4;    // a warp owns 16 keys: 64 keys a block
+constexpr int kBwdTf32Keys = 16 * kBwdTf32Warps;
+constexpr int kBwdTf32Stages = 2;
+// Queries a tile of the walk: 64, and 32 at d 32, where the ring, the
+// block's k and the dq partials would otherwise hold one block an SM.
+__host__ __device__ constexpr int bwd_tf32_tile(int d) { return d <= 16 ? 64 : 32; }
+// A stage of the ring, in floats: qs and dO, each as TF32 hi and lo in rows
+// of d + 4 (the fragments' reads meet no bank conflict), -lse log2 e, delta.
+__host__ __device__ constexpr int bwd_tf32_stage_floats(int d) {
+  return 4 * bwd_tf32_tile(d) * (d + 4) + 2 * bwd_tf32_tile(d);
+}
+// The ring, the block's k as hi and lo (the B operand of ds k), and each
+// warp's dq partial of a tile in rows of d + 8 (float2 stores of a C
+// fragment without bank conflicts).
+__host__ __device__ constexpr int bwd_tf32_smem_bytes(int d) {
+  return 4 * (kBwdTf32Stages * bwd_tf32_stage_floats(d) +
+              2 * kBwdTf32Keys * (d + 4) +
+              kBwdTf32Warps * bwd_tf32_tile(d) * (d + 8));
+}
+
+// flash_bwd_fused_tf32  f32 at D 16 and 32: flash_bwd_dkv_mma<..., FUSED>
+// carried to 32-bit fragments, its five products (s^T = k qs^T, dp^T =
+// v dO^T, dk += ds^T qs, dv += pv^T dO, dq += ds k) on mma.sync m16n8k8 tf32
+// in three passes each (mma_tf32x3), which hold f32's accuracy. It computes
+// what flash_bwd_dkv<float, D, true> computes: dk, dv and dbias of a block's
+// keys, and dq added into the zeroed f32 dq_acc (its last bits vary from run
+// to run with the order of the atomic adds; dk, dv and dbias do not).
+//   k and v of a warp's 16 keys are A fragments, split into TF32 hi and lo
+//   once, with the keys' bias (the c operand of the first pass of s^T). The
+//   queries arrive in a cp.async ring of two tiles (q, dO, lse, delta); the
+//   thread that copied a chunk scales q, splits q and dO in place (hi) and
+//   beside (lo), and turns lse into -lse log2 e (-inf past Nq, so p = 0).
+//   Per 16 queries: s^T and dp^T, p = ex2(fma(s, log2 e, -lse log2 e)), the
+//   hash from the C fragment's own (key, query), ds and pv in f32. dk and dv
+//   take ds^T and pv^T straight from the C fragments: an 8-query score tile
+//   is a k-step with k index t as query 2t and t + 4 as 2t + 1, and qs / dO
+//   are read in that order (rows 2t and 2t + 1 of the tile). The block's
+//   other warps, then the blocks of a BH row, sum dq as in the bf16 body:
+//   each warp's partial in shared memory, summed in a fixed order and added
+//   with one 16-byte reduction a chunk; blocks start their walk at their
+//   own tile.
+// Where the 32-bit fragments differ from the bf16 ones:
+//   - ldmatrix and movmatrix move 16-bit elements. The B operands are read
+//     with 32-bit shared loads from rows of d + 4 floats. dq's A operand,
+//     ds with queries as rows, is ds^T's C fragment transposed across the
+//     warp: for keys 8 kk + 2t and + 1, queries g and g + 8, lanes 8t +
+//     g / 2 and 8t + 4 + g / 2 hold the values; two shuffles a value (the
+//     source lane cannot know which of its pair a reader wants) and a
+//     select. k, the B operand of ds k, is staged once in shared memory as
+//     hi and lo and read in the same key order.
+//   - The dropout hash is taken on s^T's C fragment, before any
+//     permutation, so k_abs and q_abs are the true key and query.
+//   - Fragments are twice the bf16 body's registers: 4 warps of 16 keys
+//     (the bf16 body: 8 warps of 32 at d 16), and 32-query tiles at d 32.
+template <int D, int DROP, bool RAGGED>
+__global__ void __launch_bounds__(32 * kBwdTf32Warps)
+flash_bwd_fused_tf32(const LunarisK2BwdArgs a) {
+  static_assert(D % 8 == 0 && D <= 32, "the fused TF32 body takes d 16 and 32");
+  constexpr int W = kBwdTf32Warps;
+  constexpr int BQ = bwd_tf32_tile(D);
+  constexpr int THREADS = 32 * W;
+  constexpr int ST = kBwdTf32Stages;
+  constexpr int LD = D + 4;
+  constexpr int LDQ = D + 8;
+  constexpr int KD = D / 8;        // k-steps over d; d tiles of dk, dv, dq
+  constexpr int SF = bwd_tf32_stage_floats(D);
+  constexpr int M = BQ * LD;       // one matrix of a stage
+  extern __shared__ __align__(16) float tf32_bwd_smem[];
+  float* const kbh = tf32_bwd_smem + ST * SF;   // [kBwdTf32Keys][LD]: k hi
+  float* const kbl = kbh + kBwdTf32Keys * LD;   // and lo
+  float* const dq_part = kbl + kBwdTf32Keys * LD;  // [W][BQ][LDQ]
+
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;         // the fragment's row (and row + 8): a key
+  const int t = lane & 3;          // the fragment's column pair: queries
+  const int bh = blockIdx.y;
+  const int key0 = (blockIdx.x * W + warp) * 16;   // this warp's 16 keys
+  const float* qb = static_cast<const float*>(a.q) + static_cast<long long>(bh) * Nq * D;
+  const float* dob = static_cast<const float*>(a.dout) + static_cast<long long>(bh) * Nq * D;
+  const float* kb = static_cast<const float*>(a.k) + static_cast<long long>(bh) * Nk * D;
+  const float* vb = static_cast<const float*>(a.v) + static_cast<long long>(bh) * Nk * D;
+  const float* lseb = a.lse + static_cast<long long>(bh) * Nq;
+  const float* deltab = a.delta + static_cast<long long>(bh) * Nq;
+  const bool drop = DROP == kDropOn || (DROP == kDropRuntime && a.use_dropout);
+  const int tiles = (Nq + BQ - 1) / BQ;
+  const int first = blockIdx.x % tiles;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+
+  // A stage: [qh, ql, doh, dol] matrices of [BQ][LD], then ls, dls [BQ].
+  auto load_tile = [&](int i) {
+    float* s = tf32_bwd_smem + (i % ST) * SF;
+    const int q0 = walk(i) * BQ;
+    for (int c = tid; c < BQ * (D / 4); c += THREADS) {
+      const int r = c / (D / 4);
+      const int d0 = (c % (D / 4)) * 4;
+      const bool in = !RAGGED || q0 + r < Nq;
+      const long long off = static_cast<long long>(in ? q0 + r : 0) * D + d0;
+      cp_async_16(s + r * LD + d0, qb + off, in ? 16 : 0);
+      cp_async_16(s + 2 * M + r * LD + d0, dob + off, in ? 16 : 0);
+    }
+    for (int c = tid; c < BQ; c += THREADS) {
+      const bool in = !RAGGED || q0 + c < Nq;
+      cp_async_4(s + 4 * M + c, lseb + (in ? q0 + c : 0), in ? 4 : 0);
+      cp_async_4(s + 4 * M + BQ + c, deltab + (in ? q0 + c : 0), in ? 4 : 0);
+    }
+  };
+  auto finish_tile = [&](int i) {
+    float* s = tf32_bwd_smem + (i % ST) * SF;
+    const int q0 = walk(i) * BQ;
+    for (int c = tid; c < BQ * (D / 4); c += THREADS) {
+      const int o = (c / (D / 4)) * LD + (c % (D / 4)) * 4;
+      float4 x = *reinterpret_cast<const float4*>(s + o);
+      x.x *= a.scale;
+      x.y *= a.scale;
+      x.z *= a.scale;
+      x.w *= a.scale;
+      float4 h, l;
+      split_tf32(x, h, l);
+      *reinterpret_cast<float4*>(s + o) = h;
+      *reinterpret_cast<float4*>(s + M + o) = l;
+      split_tf32(*reinterpret_cast<const float4*>(s + 2 * M + o), h, l);
+      *reinterpret_cast<float4*>(s + 2 * M + o) = h;
+      *reinterpret_cast<float4*>(s + 3 * M + o) = l;
+    }
+    float* ls = s + 4 * M;
+    for (int c = tid; c < BQ; c += THREADS)
+      ls[c] = !RAGGED || q0 + c < Nq ? -ls[c] * kLog2e : -INFINITY;
+  };
+
+  // The first tiles go out before k and v are read.
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // The block's keys, the B operand of ds k, as hi and lo (zeros past Nk).
+  for (int c = tid; c < kBwdTf32Keys * D; c += THREADS) {
+    const int r = c / D, d = c % D;
+    const int key = blockIdx.x * kBwdTf32Keys + r;
+    uint32_t h, l;
+    split_tf32(key < Nk ? kb[static_cast<long long>(key) * D + d] : 0.f, h, l);
+    kbh[r * LD + d] = __uint_as_float(h);
+    kbl[r * LD + d] = __uint_as_float(l);
+  }
+
+  // k and v as the A fragments of s^T and dp^T (key g, dims 8 kd + t and
+  // + 4), with the keys' bias and the key's part of the hash.
+  uint32_t kh[KD][4], kl[KD][4], vh[KD][4], vl[KD][4];
+  float bk[2], db[2];
+  uint32_t k_term[2];
+  float dk[KD][4], dv[KD][4];
+  {
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    const uint32_t row_seed =
+        a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = key0 + g + (i & 1) * 8;
+        const long long off = static_cast<long long>(key) * D + 8 * kd + t + (i >> 1) * 4;
+        split_tf32(key < Nk ? kb[off] : 0.f, kh[kd][i], kl[kd][i]);
+        split_tf32(key < Nk ? vb[off] : 0.f, vh[kd][i], vl[kd][i]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r + g;
+      bk[r] = key < Nk ? biasb[key] : 0.f;
+      db[r] = 0.f;
+      k_term[r] = row_seed + static_cast<uint32_t>(key) * kC2;
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+  }
+  const float* kwh = kbh + warp * 16 * LD;   // this warp's keys in kbh, kbl
+  const float* kwl = kbl + warp * 16 * LD;
+  const bool odd = g & 1;
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<ST - 2>();       // this thread's copies of the tile landed
+    finish_tile(it);
+    __syncthreads();               // the tile is whole; the one before is read
+    if (it + ST - 1 < tiles) load_tile(it + ST - 1);
+    cp_async_commit();
+    const float* qh = tf32_bwd_smem + (it % ST) * SF;
+    const float* ql = qh + M;
+    const float* doh = qh + 2 * M;
+    const float* dol = qh + 3 * M;
+    const float* ls = qh + 4 * M;
+    const float* dls = ls + BQ;
+    const int q0 = walk(it) * BQ;
+    const uint32_t q_term = static_cast<uint32_t>(a.q_offset + q0 + 2 * t) * kC3;
+
+    // The tile's share of dk and dv, summed from zero.
+    float tk[KD][4], tv[KD][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      // s^T and dp^T of 16 queries: tile n covers queries 16 j + 8 n +
+      // {2t, 2t + 1}; the B fragments: query 16 j + 8 n + g, dims 8 kd + t
+      // and + 4.
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        s[n][0] = s[n][1] = bk[0];
+        s[n][2] = s[n][3] = bk[1];
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          const int o = (16 * j + 8 * n + g) * LD + 8 * kd + t;
+          mma_tf32x3(s[n], kh[kd], kl[kd], __float_as_uint(qh[o]),
+                     __float_as_uint(qh[o + 4]), __float_as_uint(ql[o]),
+                     __float_as_uint(ql[o + 4]));
+          mma_tf32x3(dp[n], vh[kd], vl[kd], __float_as_uint(doh[o]),
+                     __float_as_uint(doh[o + 4]), __float_as_uint(dol[o]),
+                     __float_as_uint(dol[o + 4]));
+        }
+      }
+
+      // p, the mask, ds and pv: ds in place of s, pv in place of dp.
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 nl = *reinterpret_cast<const float2*>(ls + 16 * j + 8 * n + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(dls + 16 * j + 8 * n + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = ex2(fmaf(s[n][i], kLog2e, i & 1 ? nl.y : nl.x));
+          float dpd = dp[n][i];
+          float pv = p;
+          if (drop) {
+            const bool keep = keep_hash(
+                k_term[i >> 1] + q_term +
+                    static_cast<uint32_t>(16 * j + 8 * n + (i & 1)) * kC3,
+                a.threshold);
+            dpd = keep ? dpd * a.inv_keep : 0.f;
+            pv = keep ? p * a.inv_keep : 0.f;
+          }
+          const float ds = p * (dpd - (i & 1 ? dl.y : dl.x));
+          db[i >> 1] += ds;
+          s[n][i] = ds;
+          dp[n][i] = pv;
+        }
+      }
+
+      // dk += ds^T qs, dv += pv^T dO: the C fragment {c0, c1, c2, c3} of
+      // tile n is the A fragment {a0, a2, a1, a3}, k index t the query 2t.
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t dsh[4], dsl[4], pvh[4], pvl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = (i & 1) * 2 + (i >> 1);   // a_i = c_c
+          split_tf32(s[n][c], dsh[i], dsl[i]);
+          split_tf32(dp[n][c], pvh[i], pvl[i]);
+        }
+#pragma unroll
+        for (int dd = 0; dd < KD; ++dd) {
+          const int o = (16 * j + 8 * n + 2 * t) * LD + 8 * dd + g;
+          if (j == 0 && n == 0)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tk[dd][i] = tv[dd][i] = 0.f;
+          mma_tf32x3(tk[dd], dsh, dsl, __float_as_uint(qh[o]),
+                     __float_as_uint(qh[o + LD]), __float_as_uint(ql[o]),
+                     __float_as_uint(ql[o + LD]));
+          mma_tf32x3(tv[dd], pvh, pvl, __float_as_uint(doh[o]),
+                     __float_as_uint(doh[o + LD]), __float_as_uint(dol[o]),
+                     __float_as_uint(dol[o + LD]));
+        }
+      }
+
+      // dq of these 16 queries over the warp's 16 keys, ds k. k-step kk
+      // takes keys 8 kk + 2t (k index t) and 8 kk + 2t + 1 (t + 4); the A
+      // fragment's rows are queries g and g + 8, held in ds^T's C fragments
+      // by lanes 8t + g / 2 and 8t + 4 + g / 2 (score tile 0 and 1, entry
+      // 2 kk + g % 2).
+      float tq[KD][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int src = 8 * t + (i >> 1) * 4 + (g >> 1);
+          const float* c = s[i & 1];
+          const float e = __shfl_sync(0xffffffffu, c[2 * kk], src);
+          const float o = __shfl_sync(0xffffffffu, c[2 * kk + 1], src);
+          split_tf32(odd ? o : e, ah[i], al[i]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < KD; ++dn) {
+          const int o = (8 * kk + 2 * t) * LD + 8 * dn + g;
+          if (kk == 0)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tq[dn][i] = 0.f;
+          mma_tf32x3(tq[dn], ah, al, __float_as_uint(kwh[o]),
+                     __float_as_uint(kwh[o + LD]), __float_as_uint(kwl[o]),
+                     __float_as_uint(kwl[o + LD]));
+        }
+      }
+      float* part = dq_part + (warp * BQ + 16 * j + g) * LDQ + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < KD; ++dn) {
+        *reinterpret_cast<float2*>(part + 8 * dn) = make_float2(tq[dn][0], tq[dn][1]);
+        *reinterpret_cast<float2*>(part + 8 * LDQ + 8 * dn) =
+            make_float2(tq[dn][2], tq[dn][3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dk[n][i] += tk[n][i];
+        dv[n][i] += tv[n][i];
+      }
+
+    // The block's dq of the tile: the W warps' partials summed in a fixed
+    // order, then added to dq_acc with one 16-byte reduction a chunk. The
+    // next tile's barrier keeps its partials from overwriting these.
+    __syncthreads();
+    float* acc = a.dq_acc + (static_cast<long long>(bh) * Nq + q0) * D;
+    for (int c = tid; c < BQ * (D / 4); c += THREADS) {
+      const int r = c / (D / 4);
+      const int d0 = (c % (D / 4)) * 4;
+      if (RAGGED && q0 + r >= Nq) break;   // rows only grow with c
+      float4 sum = *reinterpret_cast<const float4*>(dq_part + r * LDQ + d0);
+#pragma unroll
+      for (int w = 1; w < W; ++w) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(dq_part + (w * BQ + r) * LDQ + d0);
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      atomicAdd(reinterpret_cast<float4*>(acc + r * D + d0), sum);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float dbr = db[r];
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 1);
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 2);
+    const int key = key0 + 8 * r + g;
+    if (key < Nk) {
+      const long long off = (static_cast<long long>(bh) * Nk + key) * D;
+      float* dkrow = static_cast<float*>(a.dk) + off;
+      float* dvrow = static_cast<float*>(a.dv) + off;
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        *reinterpret_cast<float2*>(dkrow + 8 * n + 2 * t) =
+            make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dvrow + 8 * n + 2 * t) =
+            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+      if (t == 0) a.dbias_bh[static_cast<long long>(bh) * Nk + key] = dbr;
+    }
+  }
+}
+
+// RAGGED: of the walked operand, Nq.
+template <int D, int DROP, bool RAGGED>
+int launch_fused_tf32(const LunarisK2BwdArgs& a, cudaStream_t stream) {
+  if ((!RAGGED && a.Nq % bwd_tf32_tile(D) != 0) || !bwd_mma_aligned(a) ||
+      reinterpret_cast<uintptr_t>(a.dk) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(a.dv) % 8 != 0 || a.dq_acc == nullptr ||
+      reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_bwd_fused_tf32<D, DROP, RAGGED>;
+  constexpr int smem = bwd_tf32_smem_bytes(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nk + kBwdTf32Keys - 1) / kBwdTf32Keys, a.BH);
+  kernel<<<grid, 32 * kBwdTf32Warps, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // K2 backward -- the f32 instances of the CUDA-core bodies `flash_bwd_dkv`
 // (plain and with the fused dq) and `flash_bwd_dq` (flash_attention_bwd.cuh)
-// at head size 32: the f32 path.
+// at head size 32: the f32 split path (the fused one is the earlier kernel
+// that measurements hold the TF32 tensor-core body against).
 
 #include "flash_attention_bwd.cuh"
 

@@ -3,6 +3,7 @@
 // hash, the dropout modes a kernel is compiled for, and the thin wrappers
 // around the Hopper (sm_90a) instructions that the tensor-core bodies are
 // built from (cp.async, ldmatrix, movmatrix, mma.sync m16n8k16 bf16,
+// mma.sync m16n8k8 tf32 with cvt.rna for the three-pass f32 products,
 // ex2.approx). The build hashes this header with the sources.
 
 #pragma once
@@ -116,6 +117,60 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   mma_bf16(d, a, b0, b1, d[0], d[1], d[2], d[3]);
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// returned as the f32 bits of the result. mma.sync's tf32 operands only
+// ignore their low 13 bits, which truncates: an operand is rounded here.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both TF32: hi = tf32(x); x - hi is exact in f32, and lo is
+// it rounded to TF32, so hi + lo is x to within 2^-22 of |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The same on four values, as floats (the f32 bits of TF32 values), for
+// the shared-memory tiles that hold them.
+__device__ __forceinline__ void split_tf32(const float4 x, float4& hi,
+                                           float4& lo) {
+  uint32_t h, l;
+  split_tf32(x.x, h, l); hi.x = __uint_as_float(h); lo.x = __uint_as_float(l);
+  split_tf32(x.y, h, l); hi.y = __uint_as_float(h); lo.y = __uint_as_float(l);
+  split_tf32(x.z, h, l); hi.z = __uint_as_float(h); lo.z = __uint_as_float(l);
+  split_tf32(x.w, h, l); hi.w = __uint_as_float(h); lo.w = __uint_as_float(l);
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], TF32 operands, f32 sums. With g = lane / 4
+// and t = lane % 4: a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)},
+// b = {(t, g), (t + 4, g)}, d = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three TF32 passes, the f32 product to within f32 rounding:
+// a_lo b_hi and a_hi b_lo, the two small cross terms, first, then a_hi b_hi
+// (CUTLASS's 3xTF32 order; a_lo b_lo is below f32's last bit). bh and bl are
+// b's hi and lo fragments.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -1,10 +1,10 @@
-// K2 forward -- the two kernel bodies of the flash-attention forward and of
+// K2 forward -- the three kernel bodies of the flash-attention forward and of
 // its stage family, for Hopper (sm_90a). Included by the flash_attention_fwd*
 // sources (the full chain) and by flash_attention_stages.cu (the chain cut
 // after a named stage); the build hashes this header with the sources. The
 // hash constants, the dropout modes and the wrappers of cp.async, ldmatrix,
-// mma.sync and ex2 are in flash_attention_common.cuh, shared with the
-// backward.
+// mma.sync, the TF32 split and ex2 are in flash_attention_common.cuh, shared
+// with the backward.
 //
 // Replaces lunaris_orion_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
 // (launched by `_fwd`, reached through `attention_bhnd`) and, cut after a
@@ -40,7 +40,7 @@
 // 4 to 5 ms for the 1.7e10 scores of that shape), the max, the subtraction,
 // the row sum, the pack to bf16 and, with dropout, the hash.
 //
-// Two bodies, both templated on the head size D, the stage level LVL (4 =
+// Three bodies, all templated on the head size D, the stage level LVL (4 =
 // the full chain), the dropout mode and whether Nk may be ragged:
 //
 //   flash_fwd_mma   bf16, D a multiple of 16. Both products run on the tensor
@@ -63,13 +63,16 @@
 //       -m log2 e): one FMA and one special-function instruction a score.
 //       The hash takes k_abs and q_abs from the fragment's own coordinates.
 //       Only the last key tile is masked.
+//   flash_fwd_tf32  f32, D a multiple of 16: flash_fwd_mma's design on
+//       mma.sync m16n8k8 tf32, each product in three TF32 passes, which hold
+//       f32's accuracy where one pass would not (its own note, below).
 //   flash_fwd_simt  f32 or bf16, on the CUDA cores: one thread owns one query
 //       row (q and the f32 accumulator in registers), a block of 128 rows
 //       walks the keys in tiles staged in shared memory as f32, so every
 //       thread of the block reads the same k/v element at once (a broadcast).
-//       It is the f32 path (TF32 would cost three decimal digits), the bf16
-//       path at d = 8, and at d = 16 the earlier bf16 kernel that
-//       measurements compare the tensor-core body with.
+//       It is the f32 and bf16 path at d = 8, and the earlier kernel that
+//       measurements compare the tensor-core bodies with (f32 at every head
+//       size, bf16 at d = 16).
 //
 // Stage levels (q arrives scaled, the entry point passes scale = 1; no
 // dropout, whole key tiles), per key tile with s = q k^T:
@@ -117,6 +120,7 @@ int lunaris_k2_fwd_simt_f32(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_simt_f32_wide(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_simt_bf16(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 int lunaris_k2_fwd_mma_bf16(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
+int lunaris_k2_fwd_tf32(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 // Head size 32, both bodies (is_bf16 and body as the entry point's).
 int lunaris_k2_fwd_d32(const LunarisK2FwdArgs& a, int is_bf16, int body,
                        cudaStream_t s);
@@ -557,6 +561,335 @@ int launch_mma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Nq + mma_rows(D) - 1) / mma_rows(D), a.BH);
   flash_fwd_mma<D, LVL, DROP, RAGGED>
       <<<grid, 32 * mma_warps(D), 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the tensor-core body for f32: three TF32 passes ------------------------
+
+// Keys a tile: 64, and 32 at d 48 and 64, whose score and accumulator
+// fragments would otherwise fill the registers.
+__host__ __device__ constexpr int tf32_block_k(int d) { return d <= 32 ? 64 : 32; }
+// 16-row tiles a warp (two at d 16, as the bf16 body), 4 warps a block.
+__host__ __device__ constexpr int tf32_tiles(int d) { return d <= 16 ? 2 : 1; }
+constexpr int kTf32Warps = 4;
+constexpr int kTf32Stages = 2;
+__host__ __device__ constexpr int tf32_rows(int d) {
+  return 16 * tf32_tiles(d) * kTf32Warps;
+}
+// A stage of the ring, in floats: K and V, each as TF32 hi and lo in rows of
+// d + 4 (the B fragments' reads meet no bank conflict), and the bias.
+__host__ __device__ constexpr int tf32_stage_floats(int d) {
+  return 4 * tf32_block_k(d) * (d + 4) + tf32_block_k(d);
+}
+__host__ __device__ constexpr int tf32_smem_bytes(int d) {
+  return kTf32Stages * tf32_stage_floats(d) * 4;
+}
+
+// flash_fwd_tf32  f32 at D 16, 32, 48, 64: flash_fwd_mma's design carried to
+// 32-bit fragments, both products on mma.sync m16n8k8 tf32 in three passes
+// (mma_tf32x3: a_lo b_hi + a_hi b_lo + a_hi b_hi), which hold the f32
+// product: one TF32 pass would leave o 1e-4 from f64 at the teacher's
+// magnitudes, past the f32 bar of 1e-5 (tests/test_torch_tf32.py). It
+// computes what flash_fwd_simt<float> computes: q scaled by d^-1/2 in f32,
+// scores, running max, row sums and the accumulator in f32, the same hash.
+//   q is split into TF32 hi and lo once, as the A fragments of q k^T. K, V
+//   and the bias arrive by cp.async in a ring of two key tiles; the thread
+//   that copied a chunk splits it once it has landed, hi in place and lo
+//   beside it, so that no warp splits a tile again. The bias is the c
+//   operand of the first pass. The row max is reduced across a row's 4
+//   lanes with shuffles; exp is ex2.approx on one FMA, as in the bf16 body.
+//   p v is summed from zero a tile and added to acc with one f32 FMA.
+// Where the 32-bit fragments differ from the bf16 ones:
+//   - ldmatrix moves 16-bit elements, so both B operands are read with
+//     32-bit shared loads: K's fragment (key g, dims t and t + 4) from rows
+//     of d + 4 floats, V's (keys 2t and 2t + 1, dim g) from the same.
+//   - The C fragment of s (a lane holds keys 2t and 2t + 1) is not the A
+//     fragment of p v (k indices t and t + 4). p stays in registers by
+//     permuting the keys of p v: k index t is key 2t, t + 4 is key 2t + 1,
+//     and V's rows are read in that order. The hash is taken on s's C
+//     fragment, before the permutation, so k_abs is always the true key.
+//   - Shared memory and the q fragments are twice the bf16 body's (f32, hi
+//     and lo): the ring is dynamic shared memory, 2 tiles deep.
+// A wgmma body (tf32 takes both operands K-major from shared memory, so V
+// transposed) is a later step; mma.sync is this one.
+// Two blocks an SM: without that minimum ptxas held two of the stage
+// instances (LVL 0 and 3) to 128 and 168 registers, and they spilled.
+template <int D, int LVL, int DROP, bool RAGGED>
+__global__ void __launch_bounds__(32 * kTf32Warps, 2)
+flash_fwd_tf32(const LunarisK2FwdArgs a) {
+  static_assert(D % 16 == 0, "whole 16-row tiles of q and 8-wide d tiles");
+  constexpr int W = kTf32Warps;
+  constexpr int MT = tf32_tiles(D);
+  constexpr int BK = tf32_block_k(D);
+  constexpr int THREADS = 32 * W;
+  constexpr int ST = kTf32Stages;
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;        // k-steps of q k^T; d tiles of p v
+  constexpr int NT = BK / 8;       // 8-key score tiles; k-steps of p v
+  constexpr int SF = tf32_stage_floats(D);
+  constexpr int M = BK * LD;       // one matrix of a stage
+  extern __shared__ __align__(16) float tf32_smem[];  // [ST][kh, kl, vh, vl, bias]
+
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int row0 = (blockIdx.x * W + (tid >> 5)) * 16 * MT + g;
+  const float* kb = static_cast<const float*>(a.k) + static_cast<long long>(bh) * Nk * D;
+  const float* vb = static_cast<const float*>(a.v) + static_cast<long long>(bh) * Nk * D;
+  const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+  const bool drop = DROP == kDropOn || (DROP == kDropRuntime && a.use_dropout);
+  const int tiles = (Nk + BK - 1) / BK;
+
+  auto load_tile = [&](int tile) {
+    float* s = tf32_smem + (tile % ST) * SF;
+    const int k0 = tile * BK;
+    for (int c = tid; c < BK * (D / 4); c += THREADS) {
+      const int r = c / (D / 4);
+      const int d0 = (c % (D / 4)) * 4;
+      const bool in = !RAGGED || k0 + r < Nk;
+      const long long off = static_cast<long long>(in ? k0 + r : 0) * D + d0;
+      cp_async_16(s + r * LD + d0, kb + off, in ? 16 : 0);
+      cp_async_16(s + 2 * M + r * LD + d0, vb + off, in ? 16 : 0);
+    }
+    if (LVL >= 1)
+      for (int c = tid; c < BK; c += THREADS) {
+        const bool in = !RAGGED || k0 + c < Nk;
+        cp_async_4(s + 4 * M + c, biasb + (in ? k0 + c : 0), in ? 4 : 0);
+      }
+  };
+  // What this thread copied of a tile, once it has landed: K and V split
+  // into TF32 hi (in place) and lo (the next matrix).
+  auto split_tile = [&](int tile) {
+    float* s = tf32_smem + (tile % ST) * SF;
+    for (int c = tid; c < BK * (D / 4); c += THREADS) {
+      const int o = (c / (D / 4)) * LD + (c % (D / 4)) * 4;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {  // K, V
+        float4* hi = reinterpret_cast<float4*>(s + 2 * x * M + o);
+        float4 h, l;
+        split_tf32(*hi, h, l);
+        *hi = h;
+        *reinterpret_cast<float4*>(s + (2 * x + 1) * M + o) = l;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // q as the A fragments of q k^T: scaled in f32 and split once.
+  uint32_t qh[MT][KD][4], ql[MT][KD][4];
+  {
+    const float* qb = static_cast<const float*>(a.q) + static_cast<long long>(bh) * Nq * D;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = row0 + 16 * mt + (i & 1) * 8;
+          const int col = 8 * kd + t + (i >> 1) * 4;
+          const float x = row < Nq ? qb[static_cast<long long>(row) * D + col] * a.scale
+                                   : 0.f;
+          split_tf32(x, qh[mt][kd][i], ql[mt][kd][i]);
+        }
+  }
+
+  float acc[MT][KD][4];
+  float m[MT][2], l[MT][2];        // rows g and g + 8; l is this lane's share
+  uint32_t q_term[MT][2];
+  const uint32_t row_seed =
+      a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][n][i] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = LVL >= 2 ? -1e30f : 0.f;
+      l[mt][r] = 0.f;
+      q_term[mt][r] =
+          row_seed +
+          static_cast<uint32_t>(a.q_offset + row0 + 16 * mt + 8 * r) * kC3;
+    }
+  }
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<ST - 2>();       // this thread's copies of the tile landed
+    split_tile(tile);
+    __syncthreads();               // the tile is whole; the one before is read
+    if (tile + ST - 1 < tiles) load_tile(tile + ST - 1);
+    cp_async_commit();
+    const float* kh = tf32_smem + (tile % ST) * SF;
+    const float* vh = kh + 2 * M;
+    const float* bs = kh + 4 * M;
+    const int k0 = tile * BK;
+
+    // s = q k^T (+ bias): the bias is the c operand of the first pass. K's
+    // B fragment: key 8 n + g, dims 8 kd + t and + 4.
+    float s[MT][NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float2 b = make_float2(0.f, 0.f);
+      if (LVL >= 1) b = *reinterpret_cast<const float2*>(bs + 8 * n + 2 * t);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        s[mt][n][0] = s[mt][n][2] = b.x;
+        s[mt][n][1] = s[mt][n][3] = b.y;
+      }
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const float* kr = kh + (8 * n + g) * LD + 8 * kd + t;
+        const uint32_t bh0 = __float_as_uint(kr[0]), bh1 = __float_as_uint(kr[4]);
+        const uint32_t bl0 = __float_as_uint(kr[M]), bl1 = __float_as_uint(kr[M + 4]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_tf32x3(s[mt][n], qh[mt][kd], ql[mt][kd], bh0, bh1, bl0, bl1);
+      }
+    }
+    if (RAGGED && k0 + BK > Nk) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + 8 * n + 2 * t + (i & 1) >= Nk) s[mt][n][i] = -INFINITY;
+    }
+
+    float corr[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      corr[mt][0] = corr[mt][1] = 1.f;
+      if (LVL >= 2) {
+        float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          corr[mt][r] = ex2((m[mt][r] - mx[r]) * kLog2e);
+          m[mt][r] = mx[r];
+          l[mt][r] *= corr[mt][r];
+        }
+        const float neg[2] = {-mx[0] * kLog2e, -mx[1] * kLog2e};
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float p = s[mt][n][i];
+            if (LVL >= 3) p = ex2(fmaf(p, kLog2e, neg[i >> 1]));
+            else p -= mx[i >> 1];
+            if (LVL >= 4) l[mt][i >> 1] += p;
+            s[mt][n][i] = p;
+          }
+      }
+      if (LVL < 4) {               // 1 a key tile, over the row's 4 lanes
+        l[mt][0] += 0.25f;
+        l[mt][1] += 0.25f;
+      }
+      if (drop) {
+        const uint32_t k_term = static_cast<uint32_t>(k0 + 2 * t) * kC2;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t h = q_term[mt][i >> 1] + k_term +
+                         static_cast<uint32_t>(8 * n + (i & 1)) * kC2;
+            h ^= h >> 15;
+            h *= kC2;
+            s[mt][n][i] = h < a.threshold ? s[mt][n][i] * a.inv_keep : 0.f;
+          }
+      }
+    }
+
+    // pv = p v, summed from zero a tile, and acc = acc corr + pv. Score tile
+    // n is k-step n: its C fragment {(g, 2t), (g, 2t+1), (g+8, 2t),
+    // (g+8, 2t+1)} is the A fragment {a0, a2, a1, a3} with k index t as key
+    // 2t and t + 4 as key 2t + 1; V's B fragment takes rows 2t and 2t + 1.
+    float pv[MT][KD][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][n][0], ph[mt][0], pl[mt][0]);
+        split_tf32(s[mt][n][2], ph[mt][1], pl[mt][1]);
+        split_tf32(s[mt][n][1], ph[mt][2], pl[mt][2]);
+        split_tf32(s[mt][n][3], ph[mt][3], pl[mt][3]);
+      }
+#pragma unroll
+      for (int dd = 0; dd < KD; ++dd) {
+        const float* vr = vh + (8 * n + 2 * t) * LD + 8 * dd + g;
+        const uint32_t bh0 = __float_as_uint(vr[0]), bh1 = __float_as_uint(vr[LD]);
+        const uint32_t bl0 = __float_as_uint(vr[M]), bl1 = __float_as_uint(vr[M + LD]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (n == 0)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pv[mt][dd][i] = 0.f;
+          mma_tf32x3(pv[mt][dd], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[mt][n][i] = fmaf(acc[mt][n][i], corr[mt][i >> 1], pv[mt][n][i]);
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+      const int row = row0 + 16 * mt + 8 * r;
+      if (row < Nq) {
+        float* orow = static_cast<float*>(a.o) + (static_cast<long long>(bh) * Nq + row) * D;
+#pragma unroll
+        for (int n = 0; n < KD; ++n)
+          *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = make_float2(
+              acc[mt][n][2 * r] / lr, acc[mt][n][2 * r + 1] / lr);
+        if (t == 0)
+          a.lse[static_cast<long long>(bh) * Nq + row] = m[mt][r] + logf(lr);
+      }
+    }
+}
+
+template <int D, int LVL, int DROP, bool RAGGED>
+int launch_tf32(const LunarisK2FwdArgs& a, cudaStream_t stream) {
+  // cp.async moves 16 bytes of k and v; q and o move 8 at a time.
+  if ((!RAGGED && a.Nk % tf32_block_k(D) != 0) ||
+      reinterpret_cast<uintptr_t>(a.k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.v) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.q) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(a.o) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_tf32<D, LVL, DROP, RAGGED>;
+  constexpr int smem = tf32_smem_bytes(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nq + tf32_rows(D) - 1) / tf32_rows(D), a.BH);
+  kernel<<<grid, 32 * kTf32Warps, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // K2 forward -- the instances at head size 32: the tensor-core body
 // `flash_fwd_mma` for bf16 and the CUDA-core body `flash_fwd_simt` for f32
-// (flash_attention_fwd.cuh), one instance each that tests dropout and
-// raggedness at run time.
+// (flash_attention_fwd.cuh; f32's path at d 32 is flash_attention_fwd_tf32.cu,
+// this one is the earlier kernel measurements compare it with), one instance
+// each that tests dropout and raggedness at run time.
 
 #include "flash_attention_fwd.cuh"
 

@@ -1,5 +1,6 @@
 // K2 forward -- the f32 instances of the CUDA-core body `flash_fwd_simt`
-// (flash_attention_fwd.cuh) at d 48 and 64: the f32 path.
+// (flash_attention_fwd.cuh) at d 48 and 64: the earlier kernels that
+// measurements hold the TF32 tensor-core body against.
 
 #include "flash_attention_fwd.cuh"
 

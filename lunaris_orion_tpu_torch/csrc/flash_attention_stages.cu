@@ -8,8 +8,9 @@
 //
 // The kernels are the forward's own bodies (flash_attention_fwd.cuh, which
 // states each level's semantics) with the stage level as a template
-// parameter: bf16 on the tensor-core body, f32 on the CUDA-core body, both
-// with key tiles of 64, without dropout, with whole key tiles, and with q
+// parameter: bf16 on the tensor-core body, f32 on the three-pass TF32
+// tensor-core body, both with key tiles of 64, without dropout, with whole
+// key tiles, and with q
 // taken as it comes (the caller scales it; scale = 1 here). Compiled for the
 // teacher's head size d = 16 only: it is that shape the instrument reads.
 // At "sum" the instance is the forward's own at dropout 0, so the two agree
@@ -22,12 +23,12 @@
 
 namespace {
 
-static_assert(kMmaBK == simt_block_k(16), "one key tile for both types");
+static_assert(kMmaBK == tf32_block_k(16), "one key tile for both types");
 
 template <int LVL>
 int launch_stage(const LunarisK2FwdArgs& a, bool is_bf16, cudaStream_t s) {
   return is_bf16 ? launch_mma<16, LVL, kDropOff, false>(a, s)
-                 : launch_simt<float, 16, LVL, kDropOff, false>(a, s);
+                 : launch_tf32<16, LVL, kDropOff, false>(a, s);
 }
 
 }  // namespace

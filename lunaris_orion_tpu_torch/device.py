@@ -27,7 +27,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 @contextlib.contextmanager
 def full_f32():
     """TF32 off for cuDNN convolutions and CUDA matrix products, restored
-    on exit: the full-f32 policy of decoding and scoring."""
+    on exit: the full-f32 policy of decoding and scoring. The flags govern
+    PyTorch's own operators; K2's f32 products are three TF32 passes each,
+    held at f32's bars, whatever they say."""
     conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -6,8 +6,10 @@ of a checkpoint: per image the four quality heads, their mean, the
 semantic score and the gate's expert weights.
 
 Precision policy, the generator's: f32 (the default) is full f32, TF32 off
-for convolutions and matrix products while the teacher runs; bf16=True is
-the fast mode (bf16 activations, f32 parameters cast at each layer).
+for convolutions and matrix products while the teacher runs (K2's f32
+products are three TF32 passes each, held at f32's bars, whatever
+`allow_tf32` says); bf16=True is the fast mode (bf16 activations, f32
+parameters cast at each layer).
 
 `attn_window` overrides the checkpoint's teacher attention window for
 scoring (a stated deviation from global attention). A shape group whose

@@ -266,7 +266,9 @@ class ServingBundle:
     weights.bin once, lazily) as its first argument. A "cuda" bundle
     imports the modules its manifest `requires` (the operators' registry)
     first. Every call runs with TF32 off (`full_f32`), as eager decoding
-    and scoring do: a program carries no such global flag."""
+    and scoring do: a program carries no such global flag. K2's f32
+    products are three TF32 passes each, held at f32's bars, whatever the
+    flag says."""
 
     def __init__(self, path: str, device: str = "cuda"):
         self.path = Path(path)

@@ -9,9 +9,12 @@ and JSON metadata.
 
 Precision policy. f32 (the default) is full f32, as the JAX package's f32
 scoring is: TF32 is turned off for convolutions and matrix products while
-decode+score runs. bf16=True is the fast mode: z and the activations are
-bf16, the parameters stay f32 and are cast at each layer, and norm
-statistics and the attention's softmax stay f32, as in the JAX package.
+decode+score runs. K2's f32 products run on the tensor cores as three TF32
+passes each, held at f32's bars, whatever `allow_tf32` says (the flags
+govern PyTorch's own operators only). bf16=True is the fast mode: z and the
+activations are bf16, the parameters stay f32 and are cast at each layer,
+and norm statistics and the attention's softmax stay f32, as in the JAX
+package.
 """
 
 from __future__ import annotations

@@ -9,12 +9,14 @@ other device and never falls back.
             `csrc/flash_attention_fwd*.cu`), replacing lunaris_orion_tpu/ops/
             pallas/flash_attention.py `_fwd_kernel`; returns the row
             log-sum-exp as well, which the backward needs. Two hand-written
-            bodies, chosen by type and head size (`forward_instance`):
-            "mma"   bf16 at d 16, 32, 48, 64: both products on the tensor
-                    cores (mma.sync m16n8k16), p kept in registers between
-                    them;
-            "simt"  f32 at every head size (TF32 would cost three decimal
-                    digits) and bf16 at d 8, on the CUDA cores.
+            bodies, chosen by head size (`forward_instance`):
+            "mma"   d 16, 32, 48, 64: both products on the tensor cores, p
+                    kept in registers between them: bf16 on mma.sync
+                    m16n8k16; f32 on m16n8k8 tf32 in three passes (hi and
+                    lo of each operand: a_lo b_hi + a_hi b_lo + a_hi b_hi),
+                    which hold f32's bars where one TF32 pass would not
+                    (`tf32_round`, `split_tf32` emulate the rounding);
+            "simt"  d 8, on the CUDA cores.
             At d 16 dropout and a ragged Nk are compiled in (four instances
             a body); the other head sizes test both at run time.
   backward  `csrc/flash_attention_bwd.cuh` (instances and entry point in
@@ -23,9 +25,9 @@ other device and never falls back.
                      with 16-byte atomic reductions (replaces
                      `_bwd_fused_kernel`), so scores, exp and mask are
                      computed once; its dq varies from run to run in the
-                     last bits (`fused_instance`): "mma" for bf16 at d 16
-                     and 32 (five products on the tensor cores), "simt"
-                     for f32, bf16 d 8, 48 and 64;
+                     last bits (`fused_instance`): "mma" at d 16 and 32
+                     (five products on the tensor cores; f32 in three TF32
+                     passes), "simt" at d 8, 48 and 64;
             "split"  the dk/dv kernel and a dq kernel (replace
                      `_bwd_dkv_kernel` and `_bwd_dq_kernel`), each with the
                      forward's two bodies (`backward_instance`): "mma" for
@@ -71,9 +73,9 @@ bwd_shard_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
-MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core body (bf16)
-MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # those of the backward's (dk/dv, dq)
-MMA_FUSED_HEAD_DIMS = (16, 32)       # those of the fused backward's
+MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core forward
+MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # the split backward's (dk/dv, dq; bf16)
+MMA_FUSED_HEAD_DIMS = (16, 32)       # the fused backward's
 FWD_BODIES = ("simt", "mma")         # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
@@ -266,6 +268,24 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk.to(dt), dv.to(dt), dbias.sum(dim=0)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: the kernels' `cvt.rna.tf32.f32`, in integer operations on
+    the f32 bits. Tests and measurements only."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & _M32
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both TF32, with hi + lo = x to within 2^-22 |x|: the
+    operands of the kernels' three-pass products (hi = tf32(x), lo =
+    tf32(x - hi); x - hi is exact in f32). Tests and measurements only."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
 BWD_VARIANTS = ("fused", "split")
 
 
@@ -274,15 +294,15 @@ def default_bwd(dtype: torch.dtype, d: int) -> str:
     faster in turns on an H100 80GB HBM3 at 700 W (`chip_smoke.py` phase 7;
     PERF.md section 6). "fused" where one pass's saving, scores, exp and
     mask computed once for all three gradients, outweighs adding dq across
-    key blocks: on the tensor cores (bf16 at d 16 and 32), and on the CUDA
-    cores where four threads share a row (f32 at d 32, 48, 64), whose dot
-    products the dq kernel would repeat with shuffles. "split" elsewhere:
-    on the CUDA cores at one thread a row (f32 at d 8 and 16, bf16 at d 8;
-    f32 at d 16: 249.1 against 259.1 ms), and at bf16 d 48 and 64, where
-    only split has tensor-core kernels."""
+    key blocks: on the tensor cores (d 16 and 32, bf16 and f32), and in f32
+    on the CUDA cores too (d 48, 64, whose dot products the dq kernel would
+    repeat with shuffles, and d 8: 1.38-1.57 against 1.47-1.64 ms at B2 H8
+    N4096 in two runs). "split" in bf16 at d 8, 48 and 64, where only split
+    has tensor-core kernels (d 48, 64) or the two measured within noise
+    (d 8)."""
     if dtype == torch.bfloat16:
         return "fused" if d in MMA_FUSED_HEAD_DIMS else "split"
-    return "fused" if d > 16 else "split"
+    return "fused"
 
 
 def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
@@ -313,23 +333,24 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
 
 
 def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
-          body: str | None) -> str:
-    """The body a call of `name` takes: the tensor cores ("mma") for bf16 at
-    the head sizes `mma_dims`, the CUDA cores ("simt") otherwise. `body`
-    "simt" reaches the CUDA-core kernel at bf16 d 16, where the tensor-core
-    one is the default: measurements and tests compare the two; the
+          body: str | None, f32: bool = True) -> str:
+    """The body a call of `name` takes: the tensor cores ("mma") at the head
+    sizes `mma_dims` for bf16, and for f32 too where `f32` (three TF32
+    passes); the CUDA cores ("simt") otherwise. `body` "simt" reaches the
+    CUDA-core kernel where the tensor-core one is the default (f32 at every
+    head size, bf16 at d 16): measurements and tests compare the two; the
     autograd path never passes it."""
     if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
         raise ValueError(f"{name}: no kernel for {dtype}, head dim {d} (f32 "
                          f"or bf16, {SUPPORTED})")
-    default = ("mma" if dtype == torch.bfloat16 and d in mma_dims
-               else "simt")
+    mma = d in mma_dims and (f32 or dtype == torch.bfloat16)
+    default = "mma" if mma else "simt"
     body = body or default
     if body not in FWD_BODIES or (body != default and (
-            body == "mma" or d != 16)):
+            body == "mma" or (dtype == torch.bfloat16 and d != 16))):
         raise ValueError(f"{name}: body {body!r} does not take {dtype} at "
-                         f"head dim {d} (tensor cores: bf16 at d in "
-                         f"{mma_dims})")
+                         f"head dim {d} (tensor cores: bf16"
+                         f"{', f32' if f32 else ''} at d in {mma_dims})")
     return body
 
 
@@ -350,14 +371,16 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     """Which forward instance (dtype, d, Nq, Nk, dropout) takes: the rule of
     the C dispatch (`csrc/flash_attention_fwd*.cu`), as a pure function.
 
-    bf16 at d 16, 32, 48, 64 takes the tensor-core body, everything else the
-    CUDA-core body (`body` as in `_body`). At d 16 dropout and raggedness are
+    d 16, 32, 48, 64 take the tensor-core body of their type (f32: three
+    TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA-core
+    body (`body` as in `_body`). At d 16 dropout and raggedness are
     template parameters; the other head sizes have one instance each, which
     masks the last key tile and reads the dropout flag at run time. Nq only
     sets the grid: every instance guards the rows past it."""
     body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS, body)
     if body == "mma":
-        block_k, rows = 64, 128 if d == 16 else 64
+        block_k = 32 if dtype == torch.float32 and d > 32 else 64
+        rows = 128 if d == 16 else 64
     else:
         block_k, rows = 64 if d <= 16 else 32, 128
     if d == 16:
@@ -424,13 +447,15 @@ def backward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     function.
 
     bf16 at d 16, 32, 48, 64 takes the tensor-core bodies, everything else
-    the CUDA-core bodies (`body` as in `_body`). On the tensor cores at d 16
+    (f32 at every head size) the CUDA-core bodies (`body` as in `_body`).
+    On the tensor cores at d 16
     dropout and the raggedness of the walked operand (Nq for dk/dv, Nk for
     dq) are template parameters; the other head sizes, and the CUDA-core
     bodies at every head size, have one instance each, which fills the last
     tile and reads the dropout flag at run time. The fused variant's rule is
     `fused_instance`."""
-    body = _body("flash_attention_bwd", dtype, d, MMA_BWD_HEAD_DIMS, body)
+    body = _body("flash_attention_bwd", dtype, d, MMA_BWD_HEAD_DIMS, body,
+                 f32=False)
     tile, rows = _bwd_tile_rows(body, d)
     if body == "mma" and d == 16:
         dropout = "on" if dropout_rate > 0.0 else "off"
@@ -468,17 +493,22 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     """Which fused backward instance (dtype, d, Nq, Nk, dropout) takes: the
     rule of the C dispatch, as a pure function.
 
-    bf16 at d 16 and 32 takes the tensor-core body (the dk/dv body with a
-    fifth product, dq), everything else the CUDA-core body: at d 48 and 64
+    d 16 and 32 take the tensor-core body of their type (bf16: the dk/dv
+    body with a fifth product, dq; f32: its own body, five products in
+    three TF32 passes), d 8, 48 and 64 the CUDA-core body: at d 48 and 64
     the dk/dv body alone fills the registers. `body` as in `_body`. On the
-    tensor cores a block owns 256 keys at d 16 (8 warps) and 64 at d 32;
+    tensor cores a block owns 256 keys in bf16 at d 16 (8 warps), 64
+    otherwise; f32 walks the queries in tiles of 64 at d 16 and 32 at d 32;
     at d 16 dropout and a ragged Nq are template parameters; every other
     instance fills the last query tile and reads the dropout flag at run
     time."""
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS, body)
     tile, rows = _bwd_tile_rows(body, d)
+    if body == "mma" and dtype == torch.float32:
+        tile, rows = (64 if d == 16 else 32), 64
     if body == "mma" and d == 16:
-        rows = 256           # 8 warps: half the dq reductions (PERF.md)
+        if dtype == torch.bfloat16:
+            rows = 256       # 8 warps: half the dq reductions (PERF.md)
         dropout = "on" if dropout_rate > 0.0 else "off"
         ragged = nq % tile != 0
     else:

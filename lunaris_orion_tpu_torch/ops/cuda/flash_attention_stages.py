@@ -7,9 +7,10 @@ tensors on a CUDA device to the hand-written kernels of
 falls back. The kernels replace `tools/bench_attn_roofline.py`
 `_stage_kernel` and compute what `_stage_fwd` computes, in the port's
 row layout ([B, H, N, d] instead of the TPU's [B*H, d, N]). They are the
-K2 forward's own two bodies (`csrc/flash_attention_fwd.cuh`) with the stage
+K2 forward's own bodies (`csrc/flash_attention_fwd.cuh`) with the stage
 as a template parameter: bf16 on the tensor-core body, f32 on the
-CUDA-core body, so the instrument reads the kernel that ships.
+tensor-core body of three TF32 passes, so the instrument reads the kernel
+that ships.
 
 Per key block of `block_k` keys, with s = q k^T (q arrives scaled):
 

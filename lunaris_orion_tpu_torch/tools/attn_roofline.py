@@ -1,8 +1,8 @@
 """What each stage of the K2 forward costs on the card.
 
 The counterpart of `tools/bench_attn_roofline.py`: the port's K2 forward
-kernels themselves (bf16: the tensor-core body; `--dtype f32`: the CUDA-core
-body), cut after ONE more stage of the online-softmax chain each
+kernels themselves (bf16: the tensor-core body; `--dtype f32`: the f32
+tensor-core body, three TF32 passes a product), cut after ONE more stage of the online-softmax chain each
 (`ops/cuda/flash_attention_stages.py`), timed at the teacher's shape (B 8,
 H 8, N 16384, d 16, bf16, dropout 0):
 

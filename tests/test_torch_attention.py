@@ -102,31 +102,35 @@ BF16, F32 = torch.bfloat16, torch.float32
     # the teacher's shape: serving (dropout 0) and training (0.1)
     (BF16, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
     (BF16, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
-    (F32, 16, 16384, 16384, 0.0, ("simt", 64, 128, 128, "off", False)),
-    (F32, 16, 16384, 16384, 0.1, ("simt", 64, 128, 128, "on", False)),
+    (F32, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
+    (F32, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
     # a q shard against the full keys (the context-parallel call)
     (BF16, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
     # the card tests' shapes: ragged N, the other head sizes
     (BF16, 16, 2000, 2000, 0.0, ("mma", 64, 128, 16, "off", True)),
     (BF16, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
-    (F32, 16, 2000, 2000, 0.1, ("simt", 64, 128, 16, "on", True)),
+    (F32, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
+    (F32, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
+    (F32, 16, 300, 300, 0.0, ("mma", 64, 128, 3, "off", True)),
     (BF16, 16, 1000, 1024, 0.0, ("mma", 64, 128, 8, "off", False)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
     (BF16, 8, 300, 300, 0.0, ("simt", 64, 128, 3, "runtime", True)),
     (BF16, 48, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
     (BF16, 64, 1000, 1000, 0.0, ("mma", 64, 64, 16, "runtime", True)),
-    (F32, 48, 4096, 4096, 0.0, ("simt", 32, 128, 32, "runtime", True)),
-    (F32, 64, 1000, 1000, 0.1, ("simt", 32, 128, 8, "runtime", True)),
+    (F32, 48, 4096, 4096, 0.0, ("mma", 32, 64, 64, "runtime", True)),
+    (F32, 64, 1000, 1000, 0.1, ("mma", 32, 64, 16, "runtime", True)),
     (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
     # head size 32 (feature_dim 256): one run-time instance a body
     (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
     (BF16, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
-    (F32, 32, 16384, 16384, 0.1, ("simt", 32, 128, 128, "runtime", True)),
+    (F32, 32, 16384, 16384, 0.1, ("mma", 64, 64, 256, "runtime", True)),
+    (F32, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16, 32, 48, 64 takes the tensor cores, the rest the
-    CUDA cores; at d 16 dropout and a ragged Nk are compiled in."""
+    dropout): d 16, 32, 48, 64 take the tensor cores (f32: three TF32
+    passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA cores; at
+    d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
     inst = k2.forward_instance(dtype, d, nq, nk, rate)
     assert inst == k2.ForwardInstance(body, d, block_k, rows, q_blocks,
@@ -135,13 +139,35 @@ def test_forward_instance(dtype, d, nq, nk, rate, want):
     assert inst.q_blocks * inst.rows >= nq > (inst.q_blocks - 1) * inst.rows
 
 
+@pytest.mark.parametrize("d,nq,nk,rate,want", [
+    # the earlier f32 instances, which the tensor-core body replaced
+    (16, 16384, 16384, 0.0, (64, 128, 128, "off", False)),
+    (16, 16384, 16384, 0.1, (64, 128, 128, "on", False)),
+    (16, 2000, 2000, 0.1, (64, 128, 16, "on", True)),
+    (32, 16384, 16384, 0.1, (32, 128, 128, "runtime", True)),
+    (48, 4096, 4096, 0.0, (32, 128, 32, "runtime", True)),
+    (64, 1000, 1000, 0.1, (32, 128, 8, "runtime", True)),
+])
+def test_forward_instance_f32_cuda_cores(d, nq, nk, rate, want):
+    """`body="simt"` reaches f32's CUDA-core kernel at every head size, for
+    the comparisons of phase 4 and the card tests."""
+    block_k, rows, q_blocks, dropout, ragged = want
+    inst = k2.forward_instance(F32, d, nq, nk, rate, body="simt")
+    assert inst == k2.ForwardInstance("simt", d, block_k, rows, q_blocks,
+                                      dropout, ragged)
+
+
 def test_forward_instance_body_argument():
     """`body="simt"` reaches the CUDA-core kernel where the tensor-core one
     is the default (measurements compare them); nothing else is on offer."""
     old = k2.forward_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
     assert old == k2.ForwardInstance("simt", 16, 64, 128, 128, "on", False)
     assert k2.forward_instance(BF16, 16, 64, 64, 0.0, body="mma").body == "mma"
-    for dtype, d, body in ((F32, 16, "mma"), (BF16, 8, "mma"),
+    assert k2.forward_instance(F32, 16, 64, 64, 0.0, body="mma").body == "mma"
+    for d in k2.MMA_HEAD_DIMS:
+        assert k2.forward_instance(F32, d, 64, 64, 0.0, body="simt").body == \
+            "simt"
+    for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
                            (BF16, 64, "simt"), (BF16, 16, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)

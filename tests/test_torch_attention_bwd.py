@@ -174,8 +174,11 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
         inst.dkv_blocks - 1) * inst.dkv_rows
     assert inst.dq_blocks * inst.dq_rows >= nq > (
         inst.dq_blocks - 1) * inst.dq_rows
-    # the forward's rule picks the same body for the same call
-    assert inst.body == k2.forward_instance(dtype, d, nq, nk, rate).body
+    # the forward's rule picks the same body for the same call in bf16; f32
+    # has a tensor-core forward (three TF32 passes) but no split one
+    fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
+    assert fwd == (inst.body if dtype == BF16 else
+                   "mma" if d in k2.MMA_HEAD_DIMS else "simt")
 
 
 @pytest.mark.parametrize("dtype,d,body", [(F32, 16, "mma"), (BF16, 8, "mma"),
@@ -215,23 +218,29 @@ def test_backward_instance_body_argument():
     (BF16, 48, 4096, 4096, 0.1, ("simt", 32, 32, 128, "runtime", True)),
     (BF16, 64, 2000, 2000, 0.0, ("simt", 32, 32, 63, "runtime", True)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 32, 128, 32, "runtime", True)),
-    (F32, 16, 16384, 16384, 0.1, ("simt", 32, 128, 128, "runtime", True)),
-    (F32, 32, 2000, 2000, 0.1, ("simt", 32, 32, 63, "runtime", True)),
+    (F32, 16, 16384, 16384, 0.1, ("mma", 64, 64, 256, "on", False)),
+    (F32, 16, 4096, 4096, 0.0, ("mma", 64, 64, 64, "off", False)),
+    (F32, 16, 2000, 300, 0.1, ("mma", 64, 64, 5, "on", True)),
+    (F32, 32, 2000, 2000, 0.1, ("mma", 32, 64, 32, "runtime", True)),
+    (F32, 32, 300, 2000, 0.0, ("mma", 32, 64, 32, "runtime", True)),
     (F32, 64, 300, 300, 0.0, ("simt", 32, 32, 10, "runtime", True)),
+    (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, "runtime", True)),
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 16 and 32 takes the tensor cores (dk/dv's body
-    with the dq product), the rest the CUDA cores; on the tensor cores at
-    d 16 dropout and a ragged Nq are compiled in. A block walks the query
-    tiles of a split dk/dv block of the same body and owns its keys, twice
-    as many on the tensor cores at d 16 (8 warps)."""
+    Nk, dropout): d 16 and 32 take the tensor cores (bf16: dk/dv's body
+    with the dq product; f32: its own body in three TF32 passes, 64 keys a
+    block, query tiles of 64 at d 16 and 32 at d 32), the rest the CUDA
+    cores; on the tensor cores at d 16 dropout and a ragged Nq are compiled
+    in. In bf16 a block walks the query tiles of a split dk/dv block of the
+    same body and owns its keys, twice as many on the tensor cores at d 16
+    (8 warps)."""
     body, tile, rows, blocks, dropout, ragged = want
     inst = k2.fused_instance(dtype, d, nq, nk, rate)
     assert inst == k2.FusedInstance(body, d, tile, rows, blocks, dropout,
                                     ragged)
     assert inst.blocks * inst.rows >= nk > (inst.blocks - 1) * inst.rows
-    if body == "mma" or d not in k2.MMA_BWD_HEAD_DIMS:
+    if (body == "mma" and dtype == BF16) or d not in k2.MMA_BWD_HEAD_DIMS:
         split = k2.backward_instance(dtype, d, nq, nk, rate)
         assert (split.body, split.dkv_block_q) == (body, tile)
         assert rows == split.dkv_rows * (2 if (body, d) == ("mma", 16) else 1)
@@ -240,31 +249,40 @@ def test_fused_instance(dtype, d, nq, nk, rate, want):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (BF16, 16, "fused"), (BF16, 32, "fused"), (BF16, 8, "split"),
-    (BF16, 48, "split"), (BF16, 64, "split"), (F32, 8, "split"),
-    (F32, 16, "split"), (F32, 32, "fused"), (F32, 48, "fused"),
+    (BF16, 48, "split"), (BF16, 64, "split"), (F32, 8, "fused"),
+    (F32, 16, "fused"), (F32, 32, "fused"), (F32, 48, "fused"),
     (F32, 64, "fused"),
 ])
 def test_default_bwd(dtype, d, want):
     """A call that names no backward variant takes the one measured faster:
-    fused on the tensor cores (bf16 at d 16 and 32) and on the CUDA cores
-    where four threads share a row (f32 at d 32 to 64); split on the CUDA
-    cores at one thread a row and where only split has tensor cores (bf16
-    at d 48 and 64)."""
+    fused in f32 at every head size (the tensor cores at d 16 and 32, the
+    CUDA cores elsewhere) and in bf16 on the tensor cores (d 16 and 32);
+    split in bf16 at d 8 and where only split has tensor cores (d 48 and
+    64)."""
     assert k2.default_bwd(dtype, d) == want
     fused = k2.fused_instance(dtype, d, 4096, 4096, 0.1)
     split = k2.backward_instance(dtype, d, 4096, 4096, 0.1)
     if want == "split" and dtype == BF16:
         assert fused.body == "simt"
     if want == "fused":
-        assert fused.body == split.body
+        # the fused body is the tensor cores' wherever they have one
+        assert fused.body == ("mma" if d in k2.MMA_FUSED_HEAD_DIMS
+                              else split.body)
 
 
 def test_fused_instance_body_argument():
-    """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16, where
-    the tensor-core one is the default; nothing else is on offer."""
+    """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16 and
+    f32 d 16 and 32, where the tensor-core one is the default; nothing else
+    is on offer."""
     old = k2.fused_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
     assert old == k2.FusedInstance("simt", 16, 32, 128, 128, "runtime", True)
-    for dtype, d, body in ((F32, 16, "mma"), (BF16, 32, "simt"),
+    old = k2.fused_instance(F32, 16, 16384, 16384, 0.1, body="simt")
+    assert old == k2.FusedInstance("simt", 16, 32, 128, 128, "runtime", True)
+    old = k2.fused_instance(F32, 32, 2000, 2000, 0.1, body="simt")
+    assert old == k2.FusedInstance("simt", 32, 32, 32, 63, "runtime", True)
+    assert k2.fused_instance(F32, 16, 64, 64, 0.0, body="mma").body == "mma"
+    for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
+                           (BF16, 32, "simt"),
                            (BF16, 48, "mma"), (BF16, 16, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)
@@ -273,15 +291,17 @@ def test_fused_instance_body_argument():
 def test_launch_bwd_kernel_checks_the_body_before_it_launches():
     """The wrapper refuses, on any device, a body the call has no kernel
     for, and names the head sizes each kernel takes on the tensor cores:
-    the fused one bf16 at d 16 and 32, dk/dv and dq bf16 at d 16 to 64."""
+    the fused one at d 16 and 32 (bf16 and f32), dk/dv and dq bf16 at d 16
+    to 64."""
     q, k, v, bias, do = (torch.from_numpy(x) for x in
                          _inputs(1, 2, 64, 64, 16, seed=1))
     lse = torch.zeros(2, 64)
     delta = torch.zeros(1, 2, 64)
-    with pytest.raises(ValueError, match=r"does not take .*bf16 at d in "
+    f32_wide = [torch.zeros(1, 2, 64, 64)] * 3
+    with pytest.raises(ValueError, match=r"does not take .*bf16, f32 at d in "
                                          r"\(16, 32\)"):
-        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
-                             body="mma")
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, *f32_wide, bias, f32_wide[0],
+                             lse, delta, body="mma")
     wide = [t.bfloat16() for t in (torch.zeros(1, 2, 64, 48),) * 3]
     with pytest.raises(ValueError, match=r"does not take .*\(16, 32\)"):
         k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, *wide, bias, wide[0], lse,

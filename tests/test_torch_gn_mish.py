@@ -341,10 +341,12 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_mma_fused.cu",
         "flash_attention_bwd_simt_bf16.cu", "flash_attention_bwd_simt_f32.cu",
         "flash_attention_bwd_simt_f32_d32.cu",
-        "flash_attention_bwd_simt_f32_wide.cu", "flash_attention_fwd.cu",
+        "flash_attention_bwd_simt_f32_wide.cu",
+        "flash_attention_bwd_tf32_fused.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
-        "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_stages.cu",
+        "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
+        "flash_attention_stages.cu",
         "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
         "loss_epilogue.cu"]
     assert d == _build.build_dir()
@@ -373,11 +375,11 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     # or header names is one that the hash covers.
     fwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_fwd.cuh"' in p.read_text()]
-    assert len(fwd) == 7 and "flash_attention_stages.cu" in fwd
+    assert len(fwd) == 8 and "flash_attention_stages.cu" in fwd
     # Likewise the K2 backward's bodies, and what both share.
     bwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_bwd.cuh"' in p.read_text()]
-    assert len(bwd) == 9 and all(n.startswith("flash_attention_bwd")
+    assert len(bwd) == 10 and all(n.startswith("flash_attention_bwd")
                                  for n in bwd)
     for header in ("flash_attention_fwd.cuh", "flash_attention_bwd.cuh"):
         assert '#include "flash_attention_common.cuh"' in (

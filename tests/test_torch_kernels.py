@@ -238,8 +238,7 @@ def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
     inst = k2.forward_instance(dtype, d, n, n, rate)
-    assert inst.body == ("mma" if dtype == torch.bfloat16 and d >= 16
-                         else "simt")
+    assert inst.body == ("mma" if d >= 16 else "simt")
     before = k2.launches
     o, lse = k2.flash_attention(q, k, v, bias, dropout_rate=rate, seed=-77)
     torch.cuda.synchronize()
@@ -278,7 +277,8 @@ def test_flash_attention_bodies_agree(cuda, n, rate):
     _k2_bf16_close(new, old, "mma")
     assert (lse_new - lse_old).abs().max().item() <= 1e-4
     with pytest.raises(ValueError, match="does not take"):
-        k2.forward_kernel(q.float(), k.float(), v.float(), bias, body="mma")
+        k2.forward_kernel(*(t[..., :8].contiguous() for t in (q, k, v)), bias,
+                          body="mma")
 
 
 @pytest.mark.gpu
@@ -305,6 +305,7 @@ def test_flash_attention_rectangular_offsets(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,body", [(torch.float32, None),
+                                        (torch.float32, "simt"),
                                         (torch.bfloat16, None),
                                         (torch.bfloat16, "simt")])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
@@ -447,8 +448,8 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
     body = _bwd_body(variant, dtype, d, nq, nk, rate)
     mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
-    assert body == ("mma" if dtype == torch.bfloat16 and d in mma_dims
-                    else "simt")
+    assert body == ("mma" if d in mma_dims and (
+        dtype == torch.bfloat16 or variant == "fused") else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
     got = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
                                  variant=variant)
@@ -491,14 +492,17 @@ def test_flash_attention_bwd_bodies_agree(cuda, nq, nk, rate):
         for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
             _close(o, r, torch.bfloat16, name, "simt")
             _close(n, o, torch.bfloat16, name, "mma")
-        f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in args)
-        with pytest.raises(ValueError, match="does not take"):
-            run(f32, body="mma")
+        if run is _bwd_split:        # f32 has a tensor-core fused body only
+            f32 = tuple(t.float() if t.dtype == torch.bfloat16 else t
+                        for t in args)
+            with pytest.raises(ValueError, match="does not take"):
+                run(f32, body="mma")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
 @pytest.mark.parametrize("dtype,body", [(torch.float32, None),
+                                        (torch.float32, "simt"),
                                         (torch.bfloat16, None),
                                         (torch.bfloat16, "simt")])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
@@ -583,6 +587,72 @@ def test_flash_attention_autograd_on_cuda(cuda):
         o.backward(do)
         assert getattr(k2, counter) == before + 1
         assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in ts)
+
+
+# --- K2 in f32 on the tensor cores (three TF32 passes) -----------------------
+
+# Every f32 tensor-core forward instance: d 16 at whole and ragged key tiles,
+# both rates (the four compiled instances), d 32, 48 and 64 (one run-time
+# instance each), and a q shard against the full keys.
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
+@pytest.mark.parametrize("nq,nk,q_offset", [(4096, 4096, 0), (2000, 2000, 0),
+                                            (1000, 2048, 1048)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_tensor_cores(cuda, d, nq, nk, q_offset, rate):
+    """The f32 tensor-core forward against the plain version (phase 4's
+    bars: o 1e-5, lse 1e-4) and against the CUDA-core kernel it replaced,
+    `body="simt"`, on the same inputs (1e-5)."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, nq, nk, d, torch.float32,
+                               seed=nq + d)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    inst = k2.forward_instance(torch.float32, d, nq, nk, rate)
+    assert inst.body == "mma"
+    before = k2.launches
+    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    old, old_lse = k2.forward_kernel(q, k, v, bias, body="simt", **kw)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 2
+    ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
+    assert (o - ro).abs().max().item() <= 1e-5
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    assert (o - old).abs().max().item() <= 1e-5
+    assert (lse - old_lse).abs().max().item() <= 1e-4
+    assert torch.equal(o, k2.forward_kernel(q, k, v, bias, **kw)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("nq,nk,q_offset", [(4096, 4096, 0), (2000, 2000, 0),
+                                            (2000, 300, 0), (300, 2000, 0),
+                                            (1000, 2048, 1048)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bwd_f32_fused_tensor_cores(cuda, d, nq, nk, q_offset,
+                                                    rate):
+    """The f32 fused tensor-core backward against the plain backward
+    (phase 7's bar: 1e-4 of the largest + 1e-6) and against the CUDA-core
+    fused kernel it replaced, on the same inputs; dk, dv and dbias the same
+    bits every run (dq adds with atomics in any order)."""
+    args = _bwd_inputs(cuda, 2, 4, nq, nk, d, torch.float32, seed=nq + nk + d,
+                       rate=rate)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    if q_offset:
+        q, k, v, bias, _, _, do = args
+        o, lse = k2.attention_plain(q, k, v, bias, **kw)
+        args = (q, k, v, bias, o, lse, do)
+    assert k2.fused_instance(torch.float32, d, nq, nk, rate).body == "mma"
+    before = k2.bwd_fused_launches
+    new = _bwd_fused(args, **kw)
+    old = _bwd_fused(args, body="simt", **kw)
+    torch.cuda.synchronize()
+    assert k2.bwd_fused_launches == before + 2
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
+        _close(n, r, torch.float32, name)
+        _close(n, o, torch.float32, name)
+    again = _bwd_fused(args, **kw)
+    for name, a, b in zip(("dk", "dv", "dbias"), new[1:], again[1:]):
+        assert torch.equal(a, b), f"{name}: same bits every run"
 
 
 # --- K3 ----------------------------------------------------------------------
@@ -843,7 +913,7 @@ def test_flash_fwd_stage_kernel_matches_plain(cuda, stage, n, dtype):
     ref = ro.float()
     scale = ref.abs().max().item()       # no floor: o is small past "exp"
     err = (o.float() - ref).abs()
-    # f32 (the CUDA-core body): up to Nk terms summed in another order, 2e-5
+    # f32 (three TF32 passes): up to Nk terms summed in another order, 2e-5
     # of the largest magnitude. bf16 (the tensor-core body): the forward's
     # bar, 2 ulps of each element's own reference for the last rounding plus
     # 1e-3 of the largest, and at most 3 elements in 100 may differ at all
