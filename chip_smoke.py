@@ -162,7 +162,7 @@ Phases, each of which raises on failure (exit code 1):
               BatchLoader reads onto the card; (f) `pixelate_device` on
               the 16 sprites the bundles generated, card against CPU
               (the same on 16 procedural sprites, logged), and its ms.
- 18. dist     (run last) the parallel layer: (a) the Trainer at
+ 18. dist     (run after 17) the parallel layer: (a) the Trainer at
               `--mesh_shape 1 1`, bf16, full width, 2 steps (24 sprites)
               as a torchrun-style single rank with an NCCL process group
               and without one: parameters and BatchNorm statistics equal
@@ -203,6 +203,27 @@ Phases, each of which raises on failure (exit code 1):
               the card and its checkpoint gathered on the host; and the
               native batch gatherer built, byte-equal to the numpy gather
               and timed against it at batch 16 x 2.
+ 19. parity   (run last) the long parity runs of `lunaris_orion_tpu_torch.
+              tools`, TF32 off for cuDNN and cuBLAS: (a) `parity_curves`,
+              the VAE step, 300 x 16, deterministic and sampled; (b)
+              `parity_hybrid`, the hybrid step at the hybrid_d16 preset
+              (32 px, head size 16), f32, 200 x 8, deterministic global
+              (K2 flash), deterministic window 256 and sampled; each held
+              to its committed JAX curves (back-half divergence beside
+              the deterministic and sampled bands of docs/parity_*.json:
+              a deterministic run past its sampled band fails, a sampled
+              run fails only on a value that is not finite), each
+              deterministic run's first step against the same tool's
+              first step on the CPU at phase 9's metric bar, each run in
+              a spawned process of its own (they are host-bound); (c)
+              `window_dynamics` at the full default width, bf16, batch 8,
+              global and window 256, 20 steps each, in the main process
+              while (a) and (b) run: finite, recon and KL
+              at the last step within 2 % of each other. Each run's second
+              step goes under torch.profiler: K1 two kernels a call, K3,
+              and in (b) `flash_fwd_tf32` and `flash_bwd_fused_tf32` (in
+              (c) the bf16 `flash_fwd_mma` and fused `flash_bwd_dkv_mma`),
+              the windowed calls too, by name and by the wrappers' counts.
 
 Kernel times are medians of CUDA-event timings; `[time]` lines give each
 phase's seconds. Each kernel's `bound_ms` is the larger of its bytes
@@ -262,7 +283,9 @@ default backward's times alone on a CP shard (`cp_shard_ms`,
 `cp_shard_bound_ms`, `cp_shard_bound_by`, `cp_shard_library_ms`: SDPA on
 the same rectangular shape; `cp_shard_variant`) to the forward's and the
 fused backward's, and (c) `launches_tp_ep` (rank 0's launches in the f32
-TP/EP step) to K1's, the K2 forward's and backwards' and K3's. The last lines are the card's
+TP/EP step) to K1's, the K2 forward's and backwards' and K3's. Phase 19
+adds `launches_parity` (each parity run's profiled second step, by run)
+to K1's, the K2 forward's, the fused K2 backward's and K3's. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -397,12 +420,14 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
                              f"{want} for {calls} calls")
 
 
-def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
+def device_share(torch, fn, tag: str, smi: str, launches: dict = None,
+                 k2_names: dict = None):
     """Run fn() once under torch.profiler and log its device time by kernel
     group, with the share of the host's time in which the device was idle,
     and K1's kernels by name. Returns (fn's result, the host's seconds,
     {K1 kernel name: launches}, the device's milliseconds). `launches`, a
-    dict, receives each kernel group's launches by name."""
+    dict, receives each kernel group's launches by name; `k2_names` each
+    K2 kernel instance's launches."""
     from torch.autograd import DeviceType
     with profiled(torch) as p:
         t0 = time.perf_counter()
@@ -438,6 +463,8 @@ def device_share(torch, fn, tag: str, smi: str, launches: dict = None):
         log(f"[profile] {tag}: K1 kernels {k1_kernels}")
         if k2_kernels:
             log(f"[profile] {tag}: K2 kernels {k2_kernels}")
+    if k2_names is not None:
+        k2_names.update(k2_kernels)
     return result, host_s, k1_kernels, total
 
 
@@ -3643,6 +3670,200 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
         "dkv": {"launches_dist_allgather": shard_step["bwd_dkv_launches"]}}
 
 
+# --- phase 19: the long parity runs -----------------------------------------
+
+# (a) `tools.parity_curves` and (b) `tools.parity_hybrid` at full length:
+# (preset, sampled, attention window), in this order.
+PARITY_RUNS = (("vae", False, 0), ("vae", True, 0), ("hybrid_d16", False, 0),
+               ("hybrid_d16", False, WINDOW), ("hybrid_d16", True, 0))
+PARITY_WINDOW_STEPS = 20     # (c) `tools.window_dynamics`: steps a mode
+PARITY_WINDOW_AGREE = 0.02   # (c) global against window: recon and KL at
+                             # the last step, relative to the larger
+# The K2 instances a profiled step must launch: f32 on three TF32 passes
+# in (b), bf16 on the tensor cores in (c) (the fused backward is dk/dv's
+# body with the fused dq).
+PARITY_K2_F32 = ("flash_fwd_tf32", "flash_bwd_fused_tf32")
+PARITY_K2_BF16 = ("flash_fwd_mma", "flash_bwd_dkv_mma")
+
+
+def _parity_step(torch, run, i: int, tag: str, smi: str, mods: dict,
+                 k2_names: tuple) -> dict:
+    """Step i of a parity run under torch.profiler. Its kernels by the
+    wrappers' counts and by name must agree: K1 two kernels a call, K3
+    and, where the run has a teacher, the K2 forward and fused backward,
+    whose instances must include `k2_names`. Returns the counts."""
+    _counts(mods, reset=True)
+    groups, names = {}, {}
+    _, _, k1_kernels, _ = device_share(torch, lambda: run.step(i), tag, smi,
+                                       groups, names)
+    counts = _counts(mods)
+    if counts["gn_mish"] <= 0:
+        raise AssertionError(f"{tag}: K1 never launched: {counts}")
+    check_k1_kernels(k1_kernels, counts["gn_mish"], tag)
+    pairs = [("K3", "mse_kl")]
+    if k2_names:
+        pairs += [("K2 fwd", "flash_attention_fwd"),
+                  ("K2 bwd fused", "flash_attention_bwd_fused")]
+    for group, key in pairs:
+        if counts[key] <= 0 or groups.get(group, 0) != counts[key]:
+            raise AssertionError(
+                f"{tag}: {key} launched {counts[key]} times by its wrapper, "
+                f"{groups.get(group, 0)} by name")
+    missing = [n for n in k2_names if not any(n in k for k in names)]
+    if missing:
+        raise AssertionError(f"{tag}: no {missing} among the K2 kernels "
+                             f"{names}")
+    return counts
+
+
+def _parity_curve_run(torch, smi: str, mods: dict, preset: str,
+                      sampled: bool, window: int) -> dict:
+    """One run of phase 19 (a) or (b) at full length (`run_parity`)."""
+    from lunaris_orion_tpu_torch.tools import _parity as P
+    from lunaris_orion_tpu_torch.tools import parity_curves, parity_hybrid
+
+    def make(dev):
+        if preset == "vae":
+            return parity_curves.VAERun(dev, steps, sampled)
+        return parity_hybrid.HybridRun(dev, steps, sampled, window)
+
+    name = P.run_name(preset, sampled, window)
+    steps = P.PRESETS[preset].steps
+    ref = P.check_reference(name, steps)
+    band = P.bands(preset)
+    run = make("cuda")
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i == 1:
+            launches = _parity_step(
+                torch, run, i, f"parity {name} step 2", smi, mods,
+                PARITY_K2_F32 if preset != "vae" else ())
+        else:
+            run.step(i)
+    curves = run.curves()
+    run_s = time.perf_counter() - t0
+    div = P.divergences(curves, ref["curves"])
+    log(f"{P.summary_line(name, div, band, sampled)}; {steps} steps in "
+        f"{run_s:.1f} s on {smi}")
+    first = None
+    if not sampled:
+        cpu = make("cpu")
+        cpu.step(0)
+        c0 = {k: v[0] for k, v in cpu.curves().items()}
+        ratio = {k: abs(curves[k][0] - v) / (1e-4 * abs(v) + 1e-6)
+                 for k, v in c0.items()}
+        worst = max(ratio, key=ratio.get)
+        first = ratio[worst]
+        log(f"[parity] {name}: step 1 card vs CPU: worst {worst} "
+            f"{curves[worst][0]:.9g} vs {c0[worst]:.9g} = {first:.3f} of "
+            f"phase 9's bar (1e-4 rel + 1e-6)")
+        if first > 1.0:
+            raise AssertionError(f"parity {name}: step 1 on the card "
+                                 "disagrees with the CPU's")
+    bad = P.failures(name, div, curves, band, sampled)
+    if bad:
+        raise AssertionError("parity: " + "; ".join(bad))
+    return {"name": name, "max_rel_divergence": div, "seconds": run_s,
+            "step1_bar_share": first, "launches": launches,
+            "between": [f"{name} {k} {v:.3e}" for k, v in div.items()
+                        if P.verdict(v, band, k, sampled) == "between"]}
+
+
+def _parity_process(index: int, tmp: Path, smi: str) -> None:
+    """`PARITY_RUNS[index]` in a process of its own (spawned by
+    `run_parity`), TF32 off; its result goes to tmp/parity_<index>.json."""
+    import torch
+    from lunaris_orion_tpu_torch.device import full_f32
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
+    from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
+    from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
+    torch.set_num_threads(2)             # the CPU's first step; 8 cores
+    with full_f32():
+        out = _parity_curve_run(torch, smi, {"k1": m1, "k2": m2, "k3": m3},
+                                *PARITY_RUNS[index])
+    (tmp / f"parity_{index}.json").write_text(json.dumps(out))
+
+
+def run_parity(torch, tmp: Path, smi: str, mods: dict) -> dict:
+    """Phase 19: the port's long parity runs on the card, TF32 off for
+    cuDNN and cuBLAS (K2's f32 products stay three TF32 passes). (a)
+    `tools.parity_curves`, 300 x 16, both modes; (b) `tools.parity_hybrid`,
+    200 x 8, deterministic global (attn_impl flash), deterministic window
+    256 and sampled global; (c) `tools.window_dynamics`, global and window
+    256, 20 steps each at the full default width, bf16, batch 8.
+
+    The runs of (a) and (b) are host-bound (the card idle 92-95 % of a
+    step), so each takes a process of its own (`_parity_process`), all
+    started together, while this process runs (c). Each run's second step
+    goes under torch.profiler (`_parity_step`). Each run of (a) and (b) is
+    held to its committed JAX curves: a deterministic divergence past its
+    sampled band fails, one between the bands is a finding (returned under
+    "between"), and a sampled run fails only on a value that is not
+    finite. A deterministic run's first step agrees with the same tool's
+    first step on the CPU (the plain twins) at phase 9's metric bar. (A
+    sampled run draws eps from a CUDA generator, which gives other numbers
+    than the CPU's from the same seed, so its first step has no CPU
+    counterpart.) (c) fails on a loss that is not finite, or when the two
+    modes' recon or KL at the last step differ by more than 2 %."""
+    import multiprocessing
+    from lunaris_orion_tpu_torch.device import full_f32
+    from lunaris_orion_tpu_torch.tools import window_dynamics
+    out = {"runs": {}, "launches": {}, "between": []}
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_parity_process, args=(i, tmp, smi))
+             for i in range(len(PARITY_RUNS))]
+    for p in procs:
+        p.start()
+    try:
+        last = {}
+        with full_f32():
+            for window in (0, WINDOW):
+                name = f"window_dynamics {window or 'global'}"
+                run = window_dynamics.WindowRun("cuda", window, 8)
+                t0 = time.perf_counter()
+                for i in range(PARITY_WINDOW_STEPS):
+                    if i == 1:
+                        out["launches"][name] = _parity_step(
+                            torch, run, i, f"parity {name} step 2", smi,
+                            mods, PARITY_K2_BF16)
+                    else:
+                        run.step(i)
+                traj = run.trajectories()
+                run_s = time.perf_counter() - t0
+                if not all(map(math.isfinite, sum(traj.values(), []))):
+                    raise AssertionError(f"parity {name}: a loss is not "
+                                         "finite")
+                last[window] = {k: v[-1] for k, v in traj.items()}
+                out["runs"][name] = {"last": last[window], "seconds": run_s}
+                log(f"[parity] {name}: {PARITY_WINDOW_STEPS} bf16 steps in "
+                    f"{run_s:.1f} s; last step {json.dumps(last[window])} "
+                    f"on {smi}")
+    finally:
+        for p in procs:
+            p.join()
+    for k in ("recon_loss", "kl_loss"):
+        a, b = last[0][k], last[WINDOW][k]
+        gap = abs(a - b) / max(abs(a), abs(b))
+        log(f"[parity] window_dynamics {k} at step {PARITY_WINDOW_STEPS}: "
+            f"global {a:.6g}, window {b:.6g}, {gap:.2%} apart (bar "
+            f"{PARITY_WINDOW_AGREE:.0%})")
+        if gap > PARITY_WINDOW_AGREE:
+            raise AssertionError(f"parity window_dynamics: {k} of the two "
+                                 "modes differ")
+    failed = [PARITY_RUNS[i] for i, p in enumerate(procs) if p.exitcode]
+    if failed:
+        raise AssertionError(f"parity: the runs {failed} failed")
+    for i in range(len(PARITY_RUNS)):
+        r = json.loads((tmp / f"parity_{i}.json").read_text())
+        out["launches"][r["name"]] = r.pop("launches")
+        out["between"] += r.pop("between")
+        out["runs"][r.pop("name")] = r
+    if out["between"]:
+        log(f"[parity] between the deterministic and sampled bands: "
+            f"{out['between']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3710,6 +3931,11 @@ def main() -> int:
         dist_a = timed("18 dist", run_dist_nccl, torch, Path(tmp), smi)
         dist_b = timed("18 dist", run_dist_gloo, torch, Path(tmp), smi)
         dist_c = timed("18 dist", run_dist_tp_ep, torch, Path(tmp), smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        parity = timed("19 parity", run_parity, torch, Path(tmp), smi, mods)
+    # Phase 19's paths: each parity run's profiled second step.
+    p19 = lambda key: {"launches_parity": {
+        run: counts[key] for run, counts in parity["launches"].items()}}
     # Phase 18's paths: the K2 launches on q shards in (b)'s allgather step
     # (rank 1; `launches_dist_allgather`), and the kernels alone on one
     # rank's CP shard (`cp_shard_*`).
@@ -3742,7 +3968,8 @@ def main() -> int:
              replaces="lunaris_orion_tpu/ops/pallas/gn_mish.py:55",
              launches=launches["gn_mish"],
              trainer_launches=trainer["gn_mish"], **w16("gn_mish"),
-             **x17("gn_mish"), **p18("gn_mish"), **k1, **pass1),
+             **x17("gn_mish"), **p18("gn_mish"), **p19("gn_mish"), **k1,
+             **pass1),
         dict(name="flash_attention_fwd", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              launches=launches["flash_attention_fwd"],
@@ -3752,7 +3979,8 @@ def main() -> int:
              f32_source=src + "flash_attention_fwd_tf32.cu",
              launches_f32_step=f32_step["launches flash_attention"],
              **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
-             **p18("launches"), **k2, **window["fwd"], **dist_b["fwd"]),
+             **p18("launches"), **p19("flash_attention_fwd"), **k2,
+             **window["fwd"], **dist_b["fwd"]),
         dict(name="flash_attention_bwd_fused", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              launches=train["flash_attention_bwd_fused"],
@@ -3761,7 +3989,7 @@ def main() -> int:
              f32_source=src + "flash_attention_bwd_tf32_fused.cu",
              launches_f32_step=f32_step["bwd_fused_launches flash_attention"],
              **w16("flash_attention_bwd_fused"),
-             **p18("bwd_fused_launches"),
+             **p18("bwd_fused_launches"), **p19("flash_attention_bwd_fused"),
              **bwd["flash_attention_bwd_fused"],
              **{k + "_bf16": v for k, v in window["bwd_bf16"].items()},
              **w_fused, **fused_cp, **dist_b["fused"]),
@@ -3778,7 +4006,7 @@ def main() -> int:
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
-             **w16("mse_kl"), **p18("mse_kl"), **k3),
+             **w16("mse_kl"), **p18("mse_kl"), **p19("mse_kl"), **k3),
         dict(name="gn_mish_conv3", route="cuda",
              source=src + "fused_stage_mma.cu",
              replaces="lunaris_orion_tpu/ops/pallas/fused_stage.py:56",
@@ -3796,6 +4024,7 @@ def main() -> int:
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(f"[serve] summary: {json.dumps({**serving, **synth})}")
     log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b, 'c': dist_c})}")
+    log(f"[parity] summary: {json.dumps(parity)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
