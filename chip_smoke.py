@@ -5,6 +5,7 @@
     python3 chip_smoke.py --grads N  # phase 9 alone, its spread (below)
     python3 chip_smoke.py --k5-f32 N # K5's f32 time alone, N times
     python3 chip_smoke.py --profiler-loss N  # torch.profiler's lost records
+    python3 chip_smoke.py --step-noise N  # phase 18's f32 step against itself
 
 Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
@@ -28,7 +29,13 @@ Phases, each of which raises on failure (exit code 1):
               d 32, timed against the CUDA-core ones they replaced
               (earlier, new, new, earlier; the new must be faster); d 32
               (feature_dim 256) at B 8, N 16384 timed beside
-              F.scaled_dot_product_attention;
+              F.scaled_dot_product_attention; bf16 at d 48 and 64 (the
+              recipes' head sizes: the warpgroup body, wgmma fed by TMA)
+              at a ragged N, on a q shard at q_offset 2048 and at B 8,
+              N 16384 with dropout 0 and 0.1, timed in turns against the
+              mma.sync body it replaced (held element by element against
+              the online form at its own key tile first; the new must be
+              faster), beside SDPA, the plain version and the bound;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
@@ -54,6 +61,13 @@ Phases, each of which raises on failure (exit code 1):
               the backward of `F.scaled_dot_product_attention`; both
               variants at d 32, B 8, N 16384 beside it, and in turns at
               N 4096 at every head size (what `default_bwd` follows);
+              bf16 at d 48 and 64 (the fused warpgroup body): ragged,
+              a q shard; at B 2, N 16384 both variants and the CUDA-core
+              fused kernel it replaced against the plain backward, the two
+              fused kernels in turns (the new must be faster) beside the
+              plain version's time, SDPA's backward and the bound; at B 16
+              the fused kernel and the two variants in turns, beside SDPA's
+              backward and the bound;
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
@@ -203,6 +217,19 @@ Phases, each of which raises on failure (exit code 1):
               the card and its checkpoint gathered on the host; and the
               native batch gatherer built, byte-equal to the numpy gather
               and timed against it at batch 16 x 2.
+ 20. recipe   (run after 14) `docs/configs.md`'s H100 tier at full width
+              (feature_dim 512 at 8 heads: head size 64; latent 512,
+              embedding 256, batch 64 x 1, bf16; 128 px, 4 experts x 3
+              blocks, N 16384), seeded random init: the Trainer's memory
+              plan on the card picks the batch and remat (logged), one
+              warm-up and one profiled step of its train step, and one bf16
+              decode+score at batch 8 through ImageGenerator, profiled;
+              every K2 forward is `flash_fwd_wgmma` and every backward
+              `flash_bwd_wgmma` (by the wrappers' counts and by name), no
+              CUDA-core K2 kernel runs, the losses and scores are finite;
+              each profile holds a record of every launch the wrappers
+              counted (K1's two kernels a call, K2's by name), or the call
+              is profiled again, at most 3 sessions;
  19. parity   (run last) the long parity runs of `lunaris_orion_tpu_torch.
               tools`, TF32 off for cuDNN and cuBLAS: (a) `parity_curves`,
               the VAE step, 300 x 16, deterministic and sampled; (b)
@@ -285,7 +312,15 @@ the same rectangular shape; `cp_shard_variant`) to the forward's and the
 fused backward's, and (c) `launches_tp_ep` (rank 0's launches in the f32
 TP/EP step) to K1's, the K2 forward's and backwards' and K3's. Phase 19
 adds `launches_parity` (each parity run's profiled second step, by run)
-to K1's, the K2 forward's, the fused K2 backward's and K3's. The last lines are the card's
+to K1's, the K2 forward's, the fused K2 backward's and K3's. The warpgroup
+bodies have entries of their own, `flash_attention_fwd_wgmma` and
+`flash_attention_bwd_wgmma`: `launches` in phase 20's step (and the
+forward's `launches_decode` in its decode+score), `ms`, `earlier_ms` (the
+body each replaced, in turns), `library_ms` (SDPA), `plain_ms`,
+`bound_ms` at the H100 recipe's head size, d 64 (forward B 8 dropout 0,
+backward B 2 dropout 0.1, its `shape`; N 16384), every d 48 and 64
+reading under `readings` (the backward's B 16 times under `B16`), and
+their `instances`. The last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -298,10 +333,15 @@ step, and prints each reading (`spread_grads`).
 `--serve DIR` is phase 17's serving process (`serve_bundles`), which the
 main run starts itself.
 
-`--profiler-loss N` profiles phase 5's decode+score N times in f32 and N in
-bf16, with no quiet margin and with `PROFILE_MARGIN_S`, and counts the
-sessions whose record of K1's launches falls short of the wrapper's count
-(`profiler_loss`).
+`--profiler-loss N` profiles phase 20's decode+score N times a minute apart,
+each time in a session with no spin kernels at its head and in one with
+`LEAD_IN` of them, and logs the kernel records each kept by the age of the
+process (`profiler_loss`).
+
+`--step-noise N` runs phase 18's single-process f32 step N times with
+cuDNN's default algorithms and N times with its deterministic ones, and
+prints how far each repeat moved from the first at phase 9's bars
+(`step_noise`).
 """
 
 from __future__ import annotations
@@ -317,6 +357,9 @@ import time
 from pathlib import Path
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -329,20 +372,36 @@ def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 
 # torch.profiler on the H100 (torch 2.11, CUDA 12.8) now and then drops the
 # kernels that run in the first milliseconds of a session, K1's launches at
-# the head of a decode among them (`--profiler-loss`). A quiet margin after
-# the session starts, and another before it stops, keeps every record.
+# the head of a decode among them. A quiet margin after the session starts,
+# and another before it stops, kept every record early in a process. Later
+# in one it drops a session's first records whatever the margin, more the
+# longer the process has run (`--profiler-loss`; phase 20's decode+score,
+# its 4 K1 calls among its first 6 ms of kernels, kept 1 of them in full
+# runs of this script). So every session starts with LEAD_IN spin kernels
+# (`torch.cuda._sleep`, about 17 ms of device time): the records lost are
+# theirs, and no reading counts them (`lead_in`).
 PROFILE_MARGIN_S = 0.1
+LEAD_IN, LEAD_IN_CYCLES = 64, 500_000
+
+
+def lead_in(name: str) -> bool:
+    """A record of the spin kernels `profiled` starts a session with."""
+    return "spin_kernel" in name
 
 
 @contextlib.contextmanager
-def profiled(torch, margin: float = PROFILE_MARGIN_S):
+def profiled(torch, margin: float = PROFILE_MARGIN_S, lead: int = LEAD_IN):
     """A torch.profiler session of the card's kernels, with `margin`
-    seconds of quiet after it starts and before it stops. The body's
+    seconds of quiet after it starts and before it stops, and `lead` spin
+    kernels at its head that have ended before the body runs. The body's
     kernels have ended when the block exits."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as p:
         time.sleep(margin)
+        for _ in range(lead):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
         yield p
         torch.cuda.synchronize()
         time.sleep(margin)
@@ -358,7 +417,8 @@ def device_ms(torch, fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
     return sum(e.self_device_time_total for e in p.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+               if e.device_type == DeviceType.CUDA
+               and not lead_in(e.key)) / 1e3 / reps
 
 
 PEAK_BYTES = 3.35e12                       # H100 SXM: bytes/s of device memory
@@ -401,9 +461,11 @@ K1_KERNELS = ("gn_stats_partial", "gn_mish_apply_fold", "gn_mish_apply",
               "gn_fold")
 # Where a path's device time goes: the port's kernels by a part of their
 # (demangled) name. The fused backward is the dk/dv kernel whose last
-# template argument, kFusedDq or FUSED, is true.
+# template argument, kFusedDq or FUSED, is true, or a body of its own
+# (f32: flash_bwd_fused_tf32; bf16 d 48, 64: flash_bwd_wgmma).
 KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
                  ("K2 bwd fused", lambda k: "flash_bwd_fused" in k
+                  or "flash_bwd_wgmma" in k
                   or re.search(r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
                  ("K2 bwd dk/dv", lambda k: "flash_bwd_dkv" in k),
                  ("K2 bwd dq", lambda k: "flash_bwd_dq" in k),
@@ -421,23 +483,29 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
 
 
 def device_share(torch, fn, tag: str, smi: str, launches: dict = None,
-                 k2_names: dict = None):
+                 k2_names: dict = None, records: list = None):
     """Run fn() once under torch.profiler and log its device time by kernel
     group, with the share of the host's time in which the device was idle,
     and K1's kernels by name. Returns (fn's result, the host's seconds,
     {K1 kernel name: launches}, the device's milliseconds). `launches`, a
     dict, receives each kernel group's launches by name; `k2_names` each
-    K2 kernel instance's launches."""
+    K2 kernel instance's launches; `records`, a list, every kernel record
+    as (start in µs from the first, name), in the order they ran."""
     from torch.autograd import DeviceType
     with profiled(torch) as p:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
+    if records is not None:
+        ev = sorted((e.time_range.start, e.name) for e in p.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not lead_in(e.name))
+        records.extend((t - ev[0][0], name) for t, name in ev)
     ms = dict.fromkeys([name for name, _ in KERNEL_GROUPS] + ["other"], 0.0)
     k1_kernels, k2_kernels = {}, {}
     for e in p.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or lead_in(e.key):
             continue
         group = next((g for g, member in KERNEL_GROUPS if member(e.key)),
                      "other")
@@ -493,7 +561,7 @@ def build() -> None:
     from lunaris_orion_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     lib = _build.build()
-    _build.library()
+    lib_smem = lambda name: getattr(_build.library(), name)()
     log(f"[build] {_build.build_dir()} in {time.perf_counter() - t0:.1f} s")
     report = (_build.build_dir() / "build.log").read_text().splitlines()
     for line in report:
@@ -521,6 +589,34 @@ def build() -> None:
             "flash_bwd_fused_tf32" in fn for fn in tf32):
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
+    # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA): no
+    # instance spills, and setmaxnreg moves the registers (ptxas reports the
+    # count at entry, 168 for 384 threads; the consumers take 232).
+    wg, fn = {}, None
+    for line in report:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        fn = m.group(1) if m else fn
+        if "setmaxnreg" in line and "ignored" in line:
+            raise AssertionError(f"ptxas ignored setmaxnreg: {line.strip()}")
+        if fn and ("flash_fwd_wgmma" in fn or "flash_bwd_wgmma" in fn):
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            row = wg.setdefault(fn, [0, 0])
+            row[0] = int(regs.group(1)) if regs else row[0]
+            row[1] = int(spill.group(1)) if spill else row[1]
+    smem = {"flash_fwd_wgmma": lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
+            "flash_bwd_wgmma": lib_smem("lunaris_k2_bwd_wgmma_smem_bytes")}
+    for fn, (regs, spill) in sorted(wg.items()):
+        body = next(b for b in smem if b in fn)
+        log(f"[build] K2 warpgroup {fn}: {regs} registers at entry (232 in "
+            f"the consumer warpgroups), {spill} bytes spilled, "
+            f"{smem[body]} bytes of dynamic shared memory")
+        if spill:
+            spills.append(fn)
+    if sum("flash_fwd_wgmma" in fn for fn in wg) != 4 or sum(
+            "flash_bwd_wgmma" in fn for fn in wg) != 4:
+        raise AssertionError(f"the K2 warpgroup instances are missing from "
+                             f"the build's report: {sorted(wg)}")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300,
@@ -774,9 +870,11 @@ def check_k1_train(torch, dev) -> float:
 # (sums in f32 FMAs, expf): 2e-5 of the largest, 1 element in 100 (measured
 # on an H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
 # rounded product): 1e-3 of the largest, 3 in 100 (measured: 1.8e-4 at N 300,
-# 1.5e-4 at N 16384; 9 in 1000). An element in the wrong place is off by a
+# 1.5e-4 at N 16384; 9 in 1000). The warpgroup body (wgmma, d 48 and 64)
+# has the tensor cores' bar. An element in the wrong place is off by a
 # tenth of the largest or more.
-K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2)}
+K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2),
+               "wgmma": (1e-3, 3e-2)}
 
 
 def k2_bf16_agree(torch, got, ref, body):
@@ -808,6 +906,14 @@ def check_k2(torch, dev, smi) -> dict:
               (4, 8, 2000, 16, torch.float32, 0.1),
               (4, 8, 2000, 16, torch.bfloat16, 0.1),
               (4, 8, 2000, 16, torch.bfloat16, 0.0)]
+    # bf16 at d 48 and 64 (the mid-range and H100-tier recipes), the
+    # warpgroup body: a ragged N, then the teacher's N at the serving batch,
+    # timed against the tensor-core body it replaced and beside SDPA.
+    cases += [(4, 8, 2000, d, torch.bfloat16, rate)
+              for d, rate in ((48, 0.1), (64, 0.0))]
+    cases += [(8, 8, 16384, d, torch.bfloat16, rate) for d in (48, 64)
+              for rate in (0.0, 0.1)]
+    wg = {}                 # the warpgroup body's readings by (d, rate)
     for b, h, n, d, dt, rate in cases:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
@@ -849,6 +955,10 @@ def check_k2(torch, dev, smi) -> dict:
             continue
         del ro, rlse
         f32 = dt == torch.float32
+        if inst.body == "wgmma":
+            wg[f"d{d} dropout {rate}"] = wgmma_turns(q, k, v, bias, kw, t_k,
+                                                     err, tag)
+            continue
         earlier = None
         if d == 16 or f32:
             # The CUDA-core kernel that the tensor-core one replaced (f32:
@@ -899,7 +1009,82 @@ def check_k2(torch, dev, smi) -> dict:
                         "bound_by_bf16": bd["bound_by"],
                         "earlier_ms_bf16": earlier, "body_bf16": inst.body}
     out["turns_f32"] = turns
+    out["wgmma"] = wg
+    out["wgmma_shard"] = check_k2_shard(torch, k2, g, dev)
     return out
+
+
+def check_k2_shard(torch, k2, g, dev) -> dict:
+    """The warpgroup forward on a q shard (rows 2048.. of N 4096 at
+    q_offset 2048: the context-parallel call), dropout 0.1, element by
+    element against the plain version's online form on the same shard."""
+    worst = {}
+    for d in (48, 64):
+        q, k, v = (torch.randn(2, 8, 4096, d, generator=g, device=dev)
+                   .bfloat16() for _ in range(3))
+        bias = 0.5 * torch.randn(8, 4096, generator=g, device=dev)
+        kw = dict(dropout_rate=0.1, seed=-1234567, q_offset=2048)
+        qs = q[:, :, 2048:].contiguous()
+        inst = k2.forward_instance(torch.bfloat16, d, 2048, 4096, 0.1)
+        o, lse = k2.flash_attention(qs, k, v, bias, **kw)
+        oo, olse = k2.attention_plain(qs, k, v, bias, block_k=inst.block_k,
+                                      **kw)
+        agree, excess, differ = k2_bf16_agree(torch, o, oo, inst.body)
+        lse_err = (lse - olse).abs().max().item()
+        log(f"[K2] q shard at q_offset 2048, B2 H8 2048x4096 d{d} bf16 "
+            f"dropout 0.1 ({inst.body}): over 2 ulps by {max(excess, 0):.1e} "
+            f"of the largest, {differ:.1e} differ, lse_err {lse_err:.1e}")
+        if not (agree and lse_err <= 1e-4):
+            raise AssertionError(f"K2 {inst.body} d{d}: the q shard differs")
+        worst[d] = (o.float() - oo.float()).abs().max().item()
+    return worst
+
+
+def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
+    """The warpgroup forward at the teacher's N (B8, bf16) against the
+    tensor-core body it replaced, in turns (earlier, new, new, earlier),
+    beside SDPA (its own dropout masks at the same rate), the plain version
+    and the bound: 4 B H N^2 d operations, the inputs and outputs once.
+    The earlier body is first held element by element against the plain
+    version's online form at its own key tile, as the new one is."""
+    import torch
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    b, h, n, d = q.shape
+    old = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"], "mma")
+    o, lse = k2.forward_kernel(q, k, v, bias, body=old.body, **kw)
+    oo, olse = k2.attention_plain(q, k, v, bias, block_k=old.block_k, **kw)
+    agree, excess, differ = k2_bf16_agree(torch, o, oo, old.body)
+    lse_err = (lse - olse).abs().max().item()
+    log(f"[K2] {tag}: the earlier body ({old.body}, keys in tiles of "
+        f"{old.block_k}) against the online form: over 2 ulps by "
+        f"{max(excess, 0):.1e} of the largest (bar "
+        f"{K2_BF16_BAR[old.body][0]:.0e}), {differ:.1e} differ (bar "
+        f"{K2_BF16_BAR[old.body][1]:.0e}), lse_err {lse_err:.1e}")
+    if not (agree and lse_err <= 1e-4):
+        raise AssertionError(f"K2 at {tag}: the earlier body {old.body} "
+                             "disagrees with its plain version")
+    del o, lse, oo, olse
+    run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
+        q, k, v, bias, body=body, **kw), 3)
+    t = [run("mma"), run("wgmma"), run("wgmma"), run("mma")]
+    lib, lib_note = sdpa_ms(q, k, v, bias, dropout_p=kw["dropout_rate"],
+                            reps=3)
+    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    bd = bound(4 * b * h * n * n * d, nbytes(q, k, v, bias, o, lse), "bf16")
+    t_p = (time_ms(torch, lambda: k2.attention_plain(q, k, v, bias, **kw), 1)
+           if kw["dropout_rate"] == 0.0 else None)
+    new = min(t[1:3])
+    log(f"[K2] {tag}: earlier (mma.sync) {t[0]:.3f}, new (wgmma) {t[1]:.3f}, "
+        f"new {t[2]:.3f}, earlier {t[3]:.3f} ms; F.scaled_dot_product_"
+        f"attention {lib} ms ({lib_note}); bound {bd['bound_ms']:.3f} ms by "
+        f"{bd['bound_by']} ({bd['bound_ms'] / new:.1%} of it)"
+        + (f"; plain {t_p:.1f} ms" if t_p else ""))
+    if new >= min(t[0], t[3]):
+        raise AssertionError(f"K2 at {tag}: the warpgroup body is no faster "
+                             "than the tensor-core body it replaced")
+    return {"ms": new, "call_ms": t_k, "earlier_ms": min(t[0], t[3]),
+            "library_ms": lib, "plain_ms": t_p, "max_abs_err": err, **bd}
 
 
 def save_checkpoint(torch, cfg, path: Path, seed: int) -> None:
@@ -973,37 +1158,43 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
 
 
 def profiler_loss(torch, rounds: int, smi: str) -> int:
-    """Profile phase 5's decode+score `rounds` times in f32 and in bf16, in
-    turns with no margin and with PROFILE_MARGIN_S, and log how many
-    sessions recorded fewer of K1's kernels than its wrapper launched."""
+    """torch.profiler's lost records by the age of the process: `rounds`
+    times, a minute apart, phase 20's bf16 decode+score (the H100 recipe,
+    batch 8) is profiled in a session that starts with no spin kernels and
+    in one that starts with LEAD_IN of them (`profiled`), and the kernel
+    records each kept are logged beside the first session's."""
     from torch.autograd import DeviceType
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
 
     build()
-    cfg = TrainConfig()
+    cfg = TrainConfig(**RECIPE_H100)
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "full.pt"
+        ckpt = Path(tmp) / "recipe.pt"
         save_checkpoint(torch, cfg, ckpt, seed=0)
-        gens = [ImageGenerator(str(ckpt), device="cuda", bf16=b)
-                for b in (False, True)]
+        gen = ImageGenerator(str(ckpt), device="cuda", bf16=True)
     z = torch.randn(8, cfg.latent_dim, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(9))
-    lost = {0.0: 0, PROFILE_MARGIN_S: 0}
-    for _ in range(rounds):
-        for gen in gens:
-            for margin in lost:
-                seen = k1.launches
-                with profiled(torch, margin) as p:
-                    gen.decode_and_score(z)
-                recorded = sum(e.count for e in p.key_averages()
-                               if e.device_type == DeviceType.CUDA
-                               and any(n in e.key for n in K1_KERNELS))
-                lost[margin] += recorded < 2 * (k1.launches - seen)
-    for margin, n in lost.items():
-        log(f"[profiler] margin {margin} s: {n} of {2 * rounds} decode+score "
-            f"sessions lost K1 records, on {smi}")
+    gen.decode_and_score(z)
+    first = None
+    for i in range(rounds):
+        if i:
+            time.sleep(60)
+        kept = []
+        for lead in (0, LEAD_IN):
+            seen = k1.launches
+            with profiled(torch, lead=lead) as p:
+                gen.decode_and_score(z)
+            names = [e.name for e in p.events()
+                     if e.device_type == DeviceType.CUDA and not lead_in(e.name)]
+            ones = sum(any(k in n for k in K1_KERNELS) for n in names)
+            kept.append(f"{len(names)} kernel records, K1 {ones} of "
+                        f"{2 * (k1.launches - seen)}")
+            first = first or len(names)
+        log(f"[profiler] {time.perf_counter() - T_START:.0f} s into the "
+            f"process (the first session kept {first}): no spin kernels at "
+            f"the head {kept[0]}; {LEAD_IN} spin kernels {kept[1]}, on {smi}")
     return 0
 
 
@@ -1054,8 +1245,10 @@ BWD_ERR = ("dq", "dk", "dv", "dbias")
 # (measured: 1 in 500), 5 in 100 on the tensor cores (measured: 1 in 1000 at
 # N 256, 2 in 100 at N 16384, where more terms can flip). A term in the wrong
 # place moves an element by a tenth of the largest or more, a wrong mask
-# every element.
-K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2)}
+# every element. The fused warpgroup body (wgmma, d 48 and 64) has the
+# tensor cores' bar.
+K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2),
+                   "wgmma": (1e-3, 5e-2)}
 
 
 def bwd_agree(torch, got, ref, dtype, name, body):
@@ -1081,7 +1274,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(3)
-    errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0}
+    errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0, "wgmma": 0.0}
             for dt in (torch.float32, torch.bfloat16)}
 
     def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
@@ -1120,6 +1313,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                     key = ("fused" if variant == "fused" else
                            "dq" if name == "dq" else "dkv")
                     errs[dt][key] = max(errs[dt][key], err)
+                if body[variant] == "wgmma" and variant == "fused":
+                    errs[dt]["wgmma"] = max(errs[dt]["wgmma"], err)
             del got
         log(f"[K2 bwd] {tag} (fused: {body['fused']}, split: "
             f"{body['split']}): " + ", ".join(line))
@@ -1147,7 +1342,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     cases += [(2, 8, 2000, 300, 16, torch.bfloat16, 0.1),
               (2, 8, 300, 2000, 16, torch.bfloat16, 0.0),
               (2, 8, 2000, 300, 16, torch.float32, 0.1),
-              (2, 8, 300, 2000, 32, torch.float32, 0.0)]
+              (2, 8, 300, 2000, 32, torch.float32, 0.0),
+              (2, 8, 2000, 300, 64, torch.bfloat16, 0.1),
+              (2, 8, 300, 2000, 48, torch.bfloat16, 0.0)]
     for b, h, nq, nk, d, dt, rate in cases:
         args, kw = inputs(b, h, nq, nk, d, dt, rate)
         tag = f"B{b} H{h} {nq}x{nk} d{d} {str(dt)[6:]} dropout {rate}"
@@ -1163,7 +1360,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     # A q shard at q_offset (the context-parallel call): its dq rows are the
     # full call's, with the same dropout masks.
     for dt, d in ((torch.float32, 16), (torch.bfloat16, 16),
-                  (torch.float32, 32)):
+                  (torch.float32, 32), (torch.bfloat16, 48),
+                  (torch.bfloat16, 64)):
         args, kw = inputs(2, 8, 4096, 4096, d, dt, 0.1)
         q, k, v, bias, o, lse, do = args
         sl = slice(2048, None)
@@ -1292,6 +1490,117 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             f"ms, backward of F.scaled_dot_product_attention {lib} ms "
             f"({note}) on {smi}; the default is {k2.default_bwd(dt, 32)}")
         del args
+    # bf16 at d 48 and 64 (the recipes): the fused warpgroup body at the
+    # teacher's N. At B2, dropout 0.1: both variants and the CUDA-core fused
+    # kernel the warpgroup body replaced against the plain backward, then
+    # the two fused kernels in turns beside the plain version's time, SDPA's
+    # backward and the bound. At the training batch, B16: the warpgroup
+    # kernel, the two variants in turns, SDPA's backward and the bound.
+    wg = {}
+
+    def fused_kernel(args, kw, body):
+        """The fused kernel of `body` alone; (dq, dk, dv, dbias) as
+        flash_attention_bwd assembles them."""
+        q, k, v, bias, o, lse, do = args
+        b, h, nq, d = q.shape
+        delta = (o.float() * do.float()).sum(-1)
+        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
+                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
+                             **out, body=body, **kw)
+        scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=dev)
+        return (out["dq_acc"].to(q.dtype) * scale, out["dk"], out["dv"],
+                out["dbias_bh"].reshape(b, h, -1).sum(dim=0))
+
+    def kernel_ms(args, kw, reps):
+        """ms of one fused kernel of a body, its outputs allocated once (the
+        kernel adds into dq_acc without zeroing it: its time is the
+        kernel's, the buffer's values are not read)."""
+        q, k, v, bias, o, lse, do = args
+        b, h, nq, d = q.shape
+        delta = (o.float() * do.float()).sum(-1)
+        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
+                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
+        return lambda body: time_ms(torch, lambda: k2.launch_bwd_kernel(
+            k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out, body=body,
+            **kw), reps[body])
+
+    def moved(args, bh):
+        q, k, v, bias, o, lse, do = args
+        delta_bytes = q.numel() // q.shape[3] * 4
+        return nbytes(q, k, v, bias, do, lse, q, k, v) + delta_bytes + bh * 4
+
+    for d in (48, 64):
+        args, kw = inputs(2, 8, 16384, 16384, d, torch.bfloat16, 0.1)
+        q, k, v, bias, o, lse, do = args
+        tag = f"B2 H8 N16384 d{d} bf16 dropout 0.1"
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        ref = k2.attention_bwd_plain(*args, **kw)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        agree(args, kw, ref, tag, False)
+        earlier = fused_kernel(args, kw, "simt")
+        torch.cuda.synchronize()
+        line = []
+        for name, a, r in zip(BWD_ERR, earlier, ref):
+            ok, _, text = bwd_agree(torch, a, r, torch.bfloat16, name, "simt")
+            line.append(f"{name} {text}")
+            if not ok:
+                raise AssertionError(f"K2 bwd: the CUDA-core fused kernel "
+                                     f"(simt) {name} disagrees with the plain "
+                                     f"version at {tag}: {text}")
+        log(f"[K2 bwd] {tag}: the CUDA-core fused kernel it replaced (simt) "
+            f"against the plain version: " + ", ".join(line))
+        del ref, earlier
+        new, old = in_turns(kernel_ms(args, kw, {"simt": 1, "wgmma": 3}),
+                            "simt", "wgmma", f"{tag} fused kernel, CUDA cores "
+                            "(simt) against warpgroup (wgmma)")
+        if new >= old:
+            raise AssertionError(f"K2 bwd fused at {tag}: the warpgroup body "
+                                 "is no faster than the one it replaced")
+        lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=0.1,
+                            reps=3)
+        bd = bound(10 * 2 * 8 * 16384 * 16384 * d, moved(args, 16 * 16384),
+                   "bf16")
+        wg[d] = {"shape": "B2 H8 N16384 dropout 0.1", "ms": new,
+                 "earlier_ms": old, "plain_ms": plain_ms, "library_ms": lib,
+                 **bd}
+        log(f"[K2 bwd] {tag}: fused kernel {new:.2f} ms (CUDA-core fused "
+            f"{old:.1f}), plain {plain_ms:.0f} ms, backward of "
+            f"F.scaled_dot_product_attention {lib} ms ({note}); bound "
+            f"{bd['bound_ms']:.2f} ms by {bd['bound_by']} "
+            f"({bd['bound_ms'] / new:.1%} of it) on {smi}")
+        del args, q, k, v, bias, o, lse, do
+        args, kw = inputs(16, 8, 16384, 16384, d, torch.bfloat16, 0.1)
+        q, k, v, bias, o, lse, do = args
+        tag = f"B16 H8 N16384 d{d} bf16 dropout 0.1"
+        body = bodies(torch.bfloat16, d, 16384, 16384, 0.1)
+        new = kernel_ms(args, kw, {"wgmma": 3})("wgmma")
+        fused_ms, split_ms = in_turns(variant_ms(args, kw), "split", "fused",
+                                      f"{tag} flash_attention_bwd ({body})")
+        lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=0.1,
+                            reps=3)
+        bd = bound(10 * 16 * 8 * 16384 * 16384 * d, moved(args, 128 * 16384),
+                   "bf16")
+        wg[d]["B16"] = {"ms": new, "fused_call_ms": fused_ms,
+                        "split_ms": split_ms, "library_ms": lib, **bd}
+        faster = "fused" if fused_ms < split_ms else "split"
+        log(f"[K2 bwd] {tag}: fused kernel {new:.1f} ms, the call "
+            f"{fused_ms:.1f} against split {split_ms:.1f} ms (faster in "
+            f"turns: {faster}; the default is "
+            f"{k2.default_bwd(torch.bfloat16, d)}), backward of "
+            f"F.scaled_dot_product_attention {lib} ms ({note}); bound "
+            f"{bd['bound_ms']:.2f} ms by {bd['bound_by']} "
+            f"({bd['bound_ms'] / new:.1%} of it) on {smi}")
+        del args, q, k, v, bias, o, lse, do
+    # The worst errors of the warpgroup body: the B2 N16384 cases, every
+    # shape at d 48 and 64 above (kept with `keep` there).
+    wg["max_abs_err"] = errs[torch.bfloat16]["wgmma"]
+
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
     pairs_d = 16 * 8 * 16384 * 16384 * 16
@@ -1327,6 +1636,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     for t in (f32, b16):
         t["all_bytes"] = t["dq_bytes"] + t["dkv_bytes"]
     return {
+        "wgmma": wg,
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
         "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
@@ -1404,7 +1714,6 @@ def grad_step(torch, dev: str):
     the teacher's BatchNorm running statistics, the metrics, the names of
     the gradients held to BN_SHARE)."""
     import dataclasses
-    from torch import nn
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.infer.generator import full_f32
     from lunaris_orion_tpu_torch.train.state import create_state
@@ -1425,14 +1734,7 @@ def grad_step(torch, dev: str):
             st, m = make_train_step(cfg)(st, images.to(dev))
     finally:
         restore()
-    # The teacher's conv -> [LeakyReLU ->] BatchNorm blocks: every
-    # Sequential that ends in a BatchNorm (extractor, expert convs,
-    # shortcuts).
-    before_bn = {f"teacher.{name}.{p}"
-                 for name, mod in st.teacher.named_modules()
-                 if isinstance(mod, nn.Sequential) and len(mod)
-                 and isinstance(mod[-1], nn.BatchNorm2d)
-                 for p, _ in mod.named_parameters()}
+    before_bn = bn_block_params(st.teacher)
     return ({f"vae.{k}": p.grad.cpu() for k, p in st.vae.named_parameters()}
             | {f"teacher.{k}": p.grad.cpu()
                for k, p in st.teacher.named_parameters()},
@@ -1454,6 +1756,18 @@ def grad_step(torch, dev: str):
 # directly, keep 1e-3, which a 1 % error in any of the four fails
 # (tests/test_torch_grad_bar.py).
 GRAD_SHARE, BN_SHARE = 1e-3, 2e-2
+
+
+def bn_block_params(teacher) -> set:
+    """The names ("teacher." + the model's) of the parameters of the
+    teacher's conv -> [LeakyReLU ->] BatchNorm blocks: every Sequential
+    that ends in a BatchNorm (extractor, expert convs, shortcuts), which
+    phase 9 holds to BN_SHARE."""
+    from torch import nn
+    return {f"teacher.{name}.{p}" for name, mod in teacher.named_modules()
+            if isinstance(mod, nn.Sequential) and len(mod)
+            and isinstance(mod[-1], nn.BatchNorm2d)
+            for p, _ in mod.named_parameters()}
 
 
 def grad_ratios(g_ref: dict, g_new: dict, before_bn, part=None) -> dict:
@@ -2142,6 +2456,172 @@ def run_tools(torch) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     return launches
+
+
+# --- phase 20: the H100 recipe at full width -------------------------------
+
+# docs/configs.md's "high-end" tier, which it calls the analog of the
+# A100/H100 tier (docs/configs.md:9-24): feature_dim 512 at 8 heads, head
+# size 64, batch 64 x 1, bf16. The rest stays at TrainConfig's defaults:
+# 128 px, 4 experts x 3 blocks, N 16384.
+RECIPE_H100 = dict(batch_size=64, gradient_accumulation_steps=1,
+                   latent_dim=512, embedding_dim=256, feature_dim=512,
+                   vae_lr=3e-4, teacher_lr=2e-4, mixed_precision=True)
+# K2's CUDA-core kernels by name: none runs on a bf16 path at d 64.
+K2_CUDA_CORE = re.compile(r"flash_fwd_simt|flash_bwd_dkv<|flash_bwd_dq<")
+PROFILE_TRIES = 3               # sessions of one call before phase 20 fails
+
+
+def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
+    """Phase 20: the H100 recipe at full width from a seeded random init on
+    one card. The Trainer (on a 72-sprite procedural corpus) makes its
+    memory plan on the card, which picks the micro-batch and remat; then
+    one warm-up and one profiled step of its `make_train_step`, and one
+    bf16 `decode_and_score` at batch 8 through ImageGenerator from a
+    checkpoint of the same config, profiled. Both run K2's warpgroup
+    bodies (by the wrappers' counts and by name), no CUDA-core K2 kernel,
+    finite losses and scores; each profile holds every launch the wrappers
+    counted (`counted`)."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
+    from lunaris_orion_tpu_torch.train.loop import Trainer
+    k1, k2, k3 = mods["k1"], mods["k2"], mods["k3"]
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    write_synthetic_dataset(str(tmp / "sprites"), 72, image_size=128)
+    cfg = TrainConfig(data_dir=str(tmp / "sprites"),
+                      output_dir=str(tmp / "run"), **RECIPE_H100)
+    trainer = Trainer(cfg)
+    plan, remat = trainer.cfg, trainer.remat
+    need_gib = trainer.plan_need / 2**30
+    log(f"[recipe] H100 tier (feature_dim {cfg.feature_dim}, head size "
+        f"{trainer.tcfg.head_dim}, latent {cfg.latent_dim}, embedding "
+        f"{cfg.embedding_dim}, bf16): the memory plan on the card picks batch "
+        f"{plan.batch_size} x {plan.gradient_accumulation_steps}, remat "
+        f"{remat}, peak {need_gib:.1f} GiB")
+    counters = {"gn_mish": (k1, "launches"),
+                "flash_attention_fwd": (k2, "launches"),
+                "flash_attention_fwd_wgmma": (k2, "wgmma_launches"),
+                "flash_attention_bwd_fused": (k2, "bwd_fused_launches"),
+                "flash_attention_bwd_wgmma": (k2, "bwd_wgmma_launches"),
+                "flash_attention_bwd_dq": (k2, "bwd_dq_launches"),
+                "flash_attention_bwd_dkv": (k2, "bwd_dkv_launches"),
+                "mse_kl": (k3, "launches")}
+
+    def counted(fn, tag):
+        """fn() under torch.profiler with every count at 0 just before;
+        (result, host s, device ms, counts, K2 kernels by name). The
+        wrappers' counts show the path: every K2 forward launch on the
+        warpgroup body. The profile must hold a record of every launch
+        they counted (K1's two kernels a call, K2's by name): the warpgroup
+        kernels among them, no CUDA-core K2 kernel. A session that kept
+        fewer (torch.profiler on the H100 has dropped records: 1 of 4 K1
+        calls of this decode+score, in full runs of this script) is logged
+        as incomplete, with where its K1 records lie, and fn() is profiled
+        again, at most PROFILE_TRIES sessions: the breakdown the phase
+        reports is a complete one."""
+        for attempt in range(1, PROFILE_TRIES + 1):
+            for mod, name in counters.values():
+                setattr(mod, name, 0)
+            names, records = {}, []
+            result, host_s, k1_kernels, dev_ms = device_share(
+                torch, fn, tag, smi, k2_names=names, records=records)
+            counts = {key: getattr(mod, name)
+                      for key, (mod, name) in counters.items()}
+            k2_calls = sum(counts[key] for key in (
+                "flash_attention_fwd", "flash_attention_bwd_fused",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+            calls = counts["gn_mish"]
+            if (k1_kernels == {"gn_stats_partial": calls,
+                               "gn_mish_apply_fold": calls}
+                    and sum(names.values()) == k2_calls):
+                break
+            k1_at = [f"{t / 1e3:.2f}" for t, n in records
+                     if any(k in n for k in K1_KERNELS)]
+            log(f"[profile] {tag}: session {attempt} incomplete, its "
+                f"breakdown is not a measurement: K1 records {k1_kernels} for "
+                f"{calls} calls (at ms {k1_at} of {len(records)} kernel "
+                f"records over {records[-1][0] / 1e3 if records else 0:.1f} "
+                f"ms), K2 records {sum(names.values())} for {k2_calls} "
+                "launches")
+        else:
+            raise AssertionError(f"{tag}: none of {PROFILE_TRIES} profiles "
+                                 "held every launch the wrappers counted")
+        slow = [n for n in names if K2_CUDA_CORE.search(n)]
+        if (counts["flash_attention_fwd_wgmma"] <= 0
+                or counts["flash_attention_fwd_wgmma"]
+                != counts["flash_attention_fwd"]
+                or not any("flash_fwd_wgmma" in n for n in names) or slow):
+            raise AssertionError(f"{tag}: K2's forward launches {counts}, by "
+                                 f"name {names}: every one must be the "
+                                 "warpgroup body, no CUDA-core kernel")
+        log(f"[recipe] {tag}: launches {counts}; K2 by name {names}")
+        return result, host_s, dev_ms, counts, names
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    shape = (plan.gradient_accumulation_steps, plan.batch_size, 128, 128, 3)
+    images = [torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                            generator=g) for _ in range(2)]
+    state, step = trainer.state, trainer.train_step
+    t0 = time.perf_counter()
+    state, m = step(state, images[0])             # the warm-up step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tag = (f"recipe H100 train step bf16 {plan.batch_size} x "
+           f"{plan.gradient_accumulation_steps} remat {remat}")
+    (state, m), step_s, step_dev, step_counts, step_names = counted(
+        lambda: step(state, images[1]), tag)
+    losses = {k: float(v) for k, v in m.items()}
+    if not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"{tag}: non-finite metrics {losses}")
+    if (step_counts["flash_attention_bwd_wgmma"] <= 0
+            or step_counts["flash_attention_bwd_wgmma"]
+            != step_counts["flash_attention_bwd_fused"]
+            or step_counts["flash_attention_bwd_dq"]
+            or step_counts["flash_attention_bwd_dkv"]
+            or not any("flash_bwd_wgmma" in n for n in step_names)):
+        raise AssertionError(f"{tag}: the backward is not the fused warpgroup "
+                             f"body on every call: {step_counts}, by name "
+                             f"{step_names}")
+    n = shape[0] * shape[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[recipe] {tag}: {step_s * 1e3:.0f} ms = {n / step_s:.2f} sprites/s "
+        f"(warm-up {warm_s:.1f} s), device {step_dev:.0f} ms, peak "
+        f"{peak:.1f} GiB, total_loss {losses['total_loss']:.5f} recon "
+        f"{losses['recon_loss']:.5f} on {smi}")
+    trainer.ckpt.close()
+    trainer.metrics.close()
+    del trainer, state, step, images, m
+
+    ckpt = tmp / "recipe.pt"
+    save_checkpoint(torch, cfg, ckpt, seed=0)
+    gen = ImageGenerator(str(ckpt), device="cuda", bf16=True)
+    z = torch.randn(8, cfg.latent_dim, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    gen.decode_and_score(z)                       # the warm-up call
+    tag = "recipe H100 decode+score batch 8 bf16"
+    (imgs, quality, sem), _, dec_dev, dec_counts, _ = counted(
+        lambda: gen.decode_and_score(z), tag)
+    if imgs.shape != (8, 128, 128, 3) or not (
+            torch.isfinite(imgs).all() and torch.isfinite(quality).all()
+            and torch.isfinite(sem).all()):
+        raise AssertionError(f"{tag}: non-finite or shape {tuple(imgs.shape)}")
+    dec_ms = time_ms(torch, lambda: gen.decode_and_score(z), 3)
+    log(f"[recipe] {tag}: {dec_ms:.1f} ms = {8 / dec_ms * 1e3:.2f} sprites/s, "
+        f"device {dec_dev:.1f} ms; phase {time.perf_counter() - t_phase:.0f} "
+        f"s on {smi}")
+    del gen
+    torch.cuda.empty_cache()
+    return {"plan": {"batch_size": plan.batch_size,
+                     "accumulation": plan.gradient_accumulation_steps,
+                     "remat": remat, "need_gib": need_gib},
+            "step_ms": step_s * 1e3, "step_device_ms": step_dev,
+            "sprites_s": n / step_s, "peak_gib": peak,
+            "decode_ms": dec_ms, "decode_device_ms": dec_dev,
+            "launches_step": step_counts, "launches_decode": dec_counts}
 
 
 # --- phase 16: windowed attention, the evaluator, the training options -------
@@ -2923,6 +3403,23 @@ def _dist_attn_inputs(torch, dev):
 
 
 @contextlib.contextmanager
+def deterministic_convs(torch):
+    """cuDNN's deterministic algorithms, restored on exit. Phase 18's f32
+    steps are held to phase 9's bars against a single-process step; with
+    cuDNN's default choice one f32 step at batch 4 differs from itself run
+    to run by about 0.4 of those bars (`--step-noise`), and the step under
+    test and its reference each carry that, so a sound step could land
+    past the bar. With these algorithms the step repeats itself within
+    0.003 of the bar (K2's fused backward adds dq with atomics)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
 def bn_sums_in_parts(torch, parts: int):
     """BatchNorm's batch sums taken over `parts` equal slices of the batch
     and added in order, as `parts` data ranks take them (each its slice,
@@ -3006,6 +3503,41 @@ def _part(state):
     return lambda name, t: state.layout.part(name.split(".", 1)[1], t)
 
 
+def step_noise(torch, runs: int) -> int:
+    """`--step-noise N`: phase 18's single-process f32 step (the full
+    default width, batch 4, seed 0, TF32 off) N times with cuDNN's default
+    algorithms and N times with its deterministic ones
+    (`deterministic_convs`), each repeat held to the first of its kind at
+    phase 9's bars. Prints the worst gradient and metric of each repeat;
+    fails on none."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.device import full_f32
+    from lunaris_orion_tpu_torch.ops.cuda import _build
+    _build.library()
+    dev = torch.device("cuda")
+    cfg = TrainConfig(gradient_accumulation_steps=1, batch_size=4)
+    for det in (False, True):
+        first = None
+        for run in range(runs):
+            with (full_f32(), deterministic_convs(torch) if det
+                  else contextlib.nullcontext()):
+                state, m, _ = _dist_step(torch, cfg, dev, 4)
+            grads = {k: g.cpu() for k, g in _grads(state).items()}
+            if first is None:
+                first = grads, m, bn_block_params(state.teacher)
+            else:
+                g_r = grad_ratios(first[0], grads, first[2])
+                m_r = _metric_ratios(first[1], m)
+                g_k, m_k = max(g_r, key=g_r.get), max(m_r, key=m_r.get)
+                log(f"[noise] f32 step, batch 4, cuDNN's "
+                    f"{'deterministic' if det else 'default'} algorithms, "
+                    f"repeat {run} against the first: gradients worst "
+                    f"{g_r[g_k]:.3f} of phase 9's bar ({g_k}), metrics "
+                    f"worst {m_r[m_k]:.3f} ({m_k})")
+            del state
+    return 0
+
+
 def _metric_ratios(ref: dict, got: dict) -> dict:
     """Each metric's difference over phase 9's bar, 1e-4 of the value plus
     1e-6."""
@@ -3041,7 +3573,7 @@ def _dist_rank(rank: int, tmp: Path) -> None:
                          "bwd_shard_launches"):
                 setattr(k2, name, 0)
             torch.cuda.reset_peak_memory_stats(dev)
-            with full_f32():
+            with full_f32(), deterministic_convs(torch):
                 state, m, secs = _dist_step(torch, cfg, dev, batch, **axes)
             counts = {n: getattr(k2, n) for n in (
                 "launches", "shard_launches", "bwd_fused_launches",
@@ -3087,7 +3619,8 @@ def _dist_rank(rank: int, tmp: Path) -> None:
 
 
 def _tp_ep_step(torch, cfg, dev, smi: str, tag: str, mesh=None):
-    """Phase 18 (c)'s step, f32 with TF32 off, under torch.profiler
+    """Phase 18 (c)'s step, f32 with TF32 off and cuDNN's deterministic
+    algorithms (`deterministic_convs`), under torch.profiler
     (`device_share`): one train step of the full default width from seed
     0 at batch 4, the state cut to this rank's part with `mesh`. Returns
     (state, metrics, seconds, device ms, {kernel group: launches by
@@ -3099,7 +3632,7 @@ def _tp_ep_step(torch, cfg, dev, smi: str, tag: str, mesh=None):
     from lunaris_orion_tpu_torch.parallel.sharding import shard_state
     from lunaris_orion_tpu_torch.train.state import create_state
     from lunaris_orion_tpu_torch.train.step import make_train_step
-    with full_f32():
+    with full_f32(), deterministic_convs(torch):
         state = create_state(cfg, dev, 0)
         if mesh is not None:
             shard_state(state, mesh)
@@ -3266,7 +3799,6 @@ def run_dist_tp_ep(torch, tmp: Path, smi: str) -> dict:
     moments over (1 - b1) at phase 9's gradient bars. Then the native
     batch gatherer on a procedural corpus."""
     import numpy as np
-    from torch import nn
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.data.dataset import SpriteDataset
     from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
@@ -3278,11 +3810,7 @@ def run_dist_tp_ep(torch, tmp: Path, smi: str) -> dict:
         torch, cfg, dev, smi, "dist (c) single-process step")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     held = _held_bytes(state)
-    before_bn = {f"teacher.{name}.{p}"
-                 for name, mod in state.teacher.named_modules()
-                 if isinstance(mod, nn.Sequential) and len(mod)
-                 and isinstance(mod[-1], nn.BatchNorm2d)
-                 for p, _ in mod.named_parameters()}
+    before_bn = bn_block_params(state.teacher)
     torch.save({
         "grads": {k: g.cpu() for k, g in _grads(state).items()}, "m": m,
         "before_bn": before_bn, "smi": smi,
@@ -3494,15 +4022,15 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
     staged through the host), at the full default width, against the
     single-process step on the same state and global batch: DP (2, 1) at
     global batch 4, CP (1, 2) allgather at 4 (K2 launched on q shards) and
-    ring at 2, DP and TP/EP (1, 2) in bf16, dropout 0.1, accumulation 1: the averaged, clipped
-    gradients at phase 9's bars, the metrics at phase 9's bar scaled to
+    ring at 2, DP and TP/EP (1, 2) in bf16, dropout 0.1, accumulation 1,
+    every step on cuDNN's deterministic algorithms (`deterministic_convs`):
+    the averaged, clipped gradients at phase 9's bars, the metrics at phase 9's bar scaled to
     bf16, the two ranks' gradients against each other, each rank's peak
     memory; then `allgather_attention` alone at B2 H8 N16384 d16 bf16
     dropout 0.1 against one K2 call (phases 4 and 7's bf16 bars), its ms
     beside the single call's, and the K2 kernels alone on a CP shard
     (Nq 8192 x Nk 16384) beside their bound and SDPA."""
     import dataclasses
-    from torch import nn
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.parallel.launch import spawn
@@ -3517,17 +4045,13 @@ def run_dist_gloo(torch, tmp: Path, smi: str) -> dict:
     # step's own rounding-level perturbation.
     for key in sorted({(c[3], 1, c[4]) for c in DIST_CASES} | {(4, 2, True)}):
         batch, parts, bf16 = key
-        with bn_sums_in_parts(torch, parts), full_f32():
+        with (bn_sums_in_parts(torch, parts), full_f32(),
+              deterministic_convs(torch)):
             state, m, ref_s[key] = _dist_step(
                 torch, cfg.replace(batch_size=batch, mixed_precision=bf16),
                 dev, batch)
-        before_bn = {f"teacher.{name}.{p}"
-                     for name, mod in state.teacher.named_modules()
-                     if isinstance(mod, nn.Sequential) and len(mod)
-                     and isinstance(mod[-1], nn.BatchNorm2d)
-                     for p, _ in mod.named_parameters()}
         refs[key] = ({k: g.cpu() for k, g in _grads(state).items()}, m,
-                     before_bn)
+                     bn_block_params(state.teacher))
         del state
     noise_g = grad_ratios(refs[(4, 1, True)][0], refs[(4, 2, True)][0],
                           refs[(4, 1, True)][2])
@@ -3878,6 +4402,8 @@ def main() -> int:
         return spread_grads(torch, int(sys.argv[2]))
     if sys.argv[1:2] == ["--profiler-loss"]:
         return profiler_loss(torch, int(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--step-noise"]:
+        return step_noise(torch, int(sys.argv[2]))
     if sys.argv[1:2] == ["--k5-f32"]:
         for _ in range(int(sys.argv[2])):
             log(f"[K5] f32 [32, 128, 128, 64] -> 64: "
@@ -3918,6 +4444,8 @@ def main() -> int:
     lane, pass1 = timed("13 lane sums", check_lane_sums, torch, dev, smi)
     tools = timed("14 tools", run_tools, torch)
     mods = {"k1": m1, "k2": m2, "k3": m3}
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = timed("20 recipe", run_recipe, torch, Path(tmp), smi, mods)
     window = timed("16 window", check_window, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         evaluate = timed("16 window", run_evaluate, torch, Path(tmp), smi)
@@ -4003,6 +4531,36 @@ def main() -> int:
              launches=train["flash_attention_bwd_dkv"],
              **w16("flash_attention_bwd_dkv"), **p18("bwd_dkv_launches"),
              **bwd["flash_attention_bwd_dkv"], **w_split, **dist_b["dkv"]),
+        # The warpgroup bodies (bf16 d 48 and 64): times at the H100
+        # recipe's head size, N16384: the B8 forward at dropout 0, the fused
+        # backward at dropout 0.1 at B2, where the plain backward and the
+        # CUDA-core kernel it replaced are timed too (B16 under `readings`,
+        # with every other reading); launches in phase 20's recipe step
+        # (and its decode+score).
+        dict(name="flash_attention_fwd_wgmma", route="cuda",
+             source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
+             instances=[src + f"flash_attention_fwd_wgmma_d{d}{x}.cu"
+                        for d in (48, 64) for x in ("", "_drop")],
+             launches=recipe["launches_step"]["flash_attention_fwd_wgmma"],
+             launches_decode=recipe["launches_decode"][
+                 "flash_attention_fwd_wgmma"],
+             max_abs_err=max(r["max_abs_err"] for r in k2["wgmma"].values()),
+             **{key: k2["wgmma"]["d64 dropout 0.0"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "earlier_ms")},
+             earlier_body="flash_fwd_mma", readings=k2["wgmma"],
+             shard_max_abs_err=k2["wgmma_shard"]),
+        dict(name="flash_attention_bwd_wgmma", route="cuda",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
+             instances=[src + f"flash_attention_bwd_wgmma_d{d}{x}.cu"
+                        for d in (48, 64) for x in ("", "_drop")],
+             launches=recipe["launches_step"]["flash_attention_bwd_wgmma"],
+             max_abs_err=bwd["wgmma"]["max_abs_err"],
+             **{key: bwd["wgmma"][64][key] for key in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "earlier_ms")},
+             earlier_body="flash_bwd_dkv (CUDA cores, fused dq)",
+             readings={f"d{d}": bwd["wgmma"][d] for d in (48, 64)}),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
@@ -4025,6 +4583,7 @@ def main() -> int:
     log(f"[serve] summary: {json.dumps({**serving, **synth})}")
     log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b, 'c': dist_c})}")
     log(f"[parity] summary: {json.dumps(parity)}")
+    log(f"[recipe] summary: {json.dumps(recipe)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

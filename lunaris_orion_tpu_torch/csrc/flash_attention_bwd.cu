@@ -4,8 +4,9 @@
 // their instances are compiled one translation unit a body, type and kernel
 // (flash_attention_bwd_mma_{dkv,dq,fused}.cu, flash_attention_bwd_tf32_fused.cu,
 // flash_attention_bwd_simt_{f32,f32_wide,bf16}.cu, and
-// flash_attention_bwd_{mma,simt_f32}_d32.cu for head size 32), so that the
-// compilers run side by side.
+// flash_attention_bwd_{mma,simt_f32}_d32.cu for head size 32, and
+// flash_attention_bwd_wgmma_d*.cu for the fused warpgroup body, an instance
+// a file), so that the compilers run side by side.
 
 #include "flash_attention_bwd.cuh"
 
@@ -16,7 +17,8 @@
 // [BH, Nk, d]; f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), contiguous. bias:
 // [H, Nk] f32; lse, delta: [BH, Nq] f32; dbias_bh: [BH, Nk] f32. scale:
 // d^-1/2 rounded to the input type.
-// body: 1 the tensor-core kernels (bf16: dkv and dq at d 16, 32, 48 or 64,
+// body: 2 the fused warpgroup kernel (bf16 at d 48 or 64: wgmma fed by TMA),
+// 1 the tensor-core kernels on mma.sync (bf16: dkv and dq at d 16, 32, 48 or 64,
 // the fused one at d 16 or 32; f32: the fused one at d 16 or 32, three TF32
 // passes a product), 0 the CUDA-core kernels (every kernel in f32 at d 8, 16,
 // 32, 48 or 64; in bf16 every kernel at d 8 or 16 and the fused one at d 48
@@ -30,7 +32,7 @@ extern "C" int lunaris_flash_attention_bwd(
     float inv_keep, unsigned int seed, int q_offset, int row_offset,
     int is_bf16, int body, void* stream) {
   if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || BH > 65535 ||
-      (body != 0 && body != 1))
+      body < 0 || body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const LunarisK2BwdArgs a{
       q, k, v, static_cast<const float*>(bias), dout,
@@ -39,6 +41,17 @@ extern "C" int lunaris_flash_attention_bwd(
       Nq, Nk, scale, use_dropout, threshold, inv_keep, seed, q_offset,
       row_offset};
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 2) {
+    if (!is_bf16 || kernel != kBwdDkvFusedDq)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 48: return use_dropout ? lunaris_k2_bwd_wgmma_d48_drop(a, s)
+                                  : lunaris_k2_bwd_wgmma_d48(a, s);
+      case 64: return use_dropout ? lunaris_k2_bwd_wgmma_d64_drop(a, s)
+                                  : lunaris_k2_bwd_wgmma_d64(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (body == 1 && !is_bf16)
     return kernel == kBwdDkvFusedDq ? lunaris_k2_bwd_fused_tf32(a, d, s)
                                     : static_cast<int>(cudaErrorInvalidValue);
@@ -56,3 +69,7 @@ extern "C" int lunaris_flash_attention_bwd(
   return d <= 16 ? lunaris_k2_bwd_simt_f32(a, d, kernel, s)
                  : lunaris_k2_bwd_simt_f32_wide(a, d, kernel, s);
 }
+
+// The dynamic shared memory a launch of the fused warpgroup body takes (K,
+// V, the query ring, the ds^T tiles and the barriers), for the build report.
+extern "C" int lunaris_k2_bwd_wgmma_smem_bytes() { return wg_bwd_smem_bytes(); }

@@ -36,7 +36,9 @@
 // and, with dropout, the hash (five integer instructions at half the f32
 // rate) and two selects.
 //
-// Two bodies a kernel, and for the fused kernel in f32 a third:
+// Two bodies a kernel, and for the fused kernel two more: in f32 on three
+// TF32 passes, and in bf16 at d 48 and 64 on wgmma (flash_bwd_wgmma, its own
+// note below):
 //
 //   flash_bwd_dkv_mma, flash_bwd_dq_mma   bf16, D a multiple of 16, on the
 //       tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32); 4 warps a
@@ -88,7 +90,7 @@
 //       d 16, 4 at d 32; blocks start their query walk at their own tile so
 //       that the blocks of one BH row do not add into the same rows at once.
 //       At d 48 and 64 the dk/dv body alone fills the registers: the fused
-//       form keeps its CUDA-core kernel there.
+//       form there is flash_bwd_wgmma, which keeps K and V in shared memory.
 //   flash_bwd_fused_tf32   f32 at D 16 and 32, the fused form only: the
 //       five products on mma.sync m16n8k8 tf32 in three passes (its own
 //       note, below).
@@ -101,7 +103,8 @@
 //       path, the bf16 path at d = 8, and at d = 16 the earlier bf16 kernels
 //       that measurements compare the tensor-core bodies with.
 //     kFusedDq (the single-pass form on the CUDA cores: f32 and bf16 at
-//       d 8, 48 and 64; f32 at d 16 and 32 for comparisons): dkv also forms
+//       d 8, f32 at 48 and 64; f32 at d 16 and 32 and bf16 at 16, 48 and 64
+//       for comparisons): dkv also forms
 //       dq. After each query tile its threads
 //       park round_T(ds) in shared memory, the block reduces ds^T k over its
 //       keys, and adds the tile's dq partial into a zeroed f32 [BH, Nq, d]
@@ -177,6 +180,12 @@ int lunaris_k2_bwd_fused_tf32(const LunarisK2BwdArgs& a, int d,
 // Head size 32: every kernel of one body and type.
 int lunaris_k2_bwd_mma_bf16_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
+// The fused kernel's warpgroup body, bf16 at d 48 and 64, one translation
+// unit an instance (flash_attention_bwd_wgmma_d{48,64}{,_drop}.cu).
+int lunaris_k2_bwd_wgmma_d48(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d48_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d64(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d64_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
 
@@ -1462,6 +1471,353 @@ int launch_fused_tf32(const LunarisK2BwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Nk + kBwdTf32Keys - 1) / kBwdTf32Keys, a.BH);
   kernel<<<grid, 32 * kBwdTf32Warps, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the fused warpgroup body: wgmma fed by TMA -----------------------------
+
+// flash_bwd_wgmma  bf16 at D 48 and 64, the single-pass form of
+//   `_bwd_fused_kernel`. flash_bwd_dkv_mma holds K and V of its keys as
+//   register fragments beside the dk and dv accumulators, which fills the
+//   registers at d 48 and 64 (238 and 255) before a fifth product fits.
+//   Here K and V stay in shared memory as wgmma operands:
+//   - A block owns 128 keys: two consumer warpgroups of 64 keys each, and a
+//     producer warp. K and V of the block arrive once by TMA; the query walk
+//     (tiles of 64, each block from its own first tile, as the mma.sync
+//     fused body) comes through a ring of 3 stages: q and dO by TMA (columns
+//     past d and rows past Nq as zeros), -lse log2 e (-inf past Nq, so that
+//     p = 0 there) and delta by the lanes of the producer warpgroup's one
+//     working warp, which also scale q into qs = round(q d^-1/2) in place
+//     once the tile has landed. The producer warpgroup gives its registers
+//     to the consumers (setmaxnreg: 40 against 232 a thread).
+//   - Per tile, each warpgroup: s^T = k qs^T (bias as the accumulator's
+//     start) and dp^T = v dO^T by wgmma m64n64k16 with both operands in
+//     shared memory (K-major); p, the hash from each element's own (key,
+//     query), ds and pv in registers at the TPU kernel's rounding points;
+//     dv += pv^T dO and dk += ds^T qs by wgmma m64n{d}k16 with the packed
+//     bf16 accumulators as A from registers and dO, qs read MN-major; dk and
+//     dv accumulate in registers over the whole walk.
+//   - dq = ds k over the block's 128 keys: each warpgroup writes its bf16
+//     ds^T into a double-buffered [128 keys][64 queries] tile (the 128-byte
+//     swizzle), the two meet at a named barrier, and warpgroup w forms
+//     columns [w d/2, (w + 1) d/2) of the tile's dq by wgmma m64n{d/2}k16
+//     (ds MN-major, K MN-major), then adds them to the zeroed f32 dq buffer
+//     with 16-byte reductions (red.global.add.v4.f32): lanes t and t ^ 1
+//     swap one pair of columns with a shuffle, so each lane holds four
+//     neighbouring columns of one row.
+//   - dbias: per-key f32 sums over the 4 lanes of a key, no atomics, the
+//     same order every run.
+//   Dropout is a template parameter; a ragged Nq or Nk costs nothing per
+//   score (zeros and -inf, as above). dk, dv and dbias are the same on
+//   every run; dq's last bits depend on the order of the reductions.
+
+constexpr int kBwdWgKeys = 128;                  // keys a block
+constexpr int kBwdWgBQ = 64;                     // queries a tile
+constexpr int kBwdWgThreads = 3 * 128;           // two consumer warpgroups, a producer
+constexpr int kBwdWgStages = 3;
+constexpr int kBwdWgKvBytes = kBwdWgKeys * 128;  // K or V of the block
+constexpr int kBwdWgQBytes = kBwdWgBQ * 128;     // a q or dO tile
+constexpr int kBwdWgDsBytes = kBwdWgKeys * kBwdWgBQ * 2;  // a ds^T tile
+
+// K, V, the ring ([stage][q, dO]), two ds^T tiles, [stage][BQ] -lse log2 e
+// and delta, the barriers, and 1024 bytes to align the tiles.
+__host__ __device__ constexpr int wg_bwd_smem_bytes() {
+  return 1024 + 2 * kBwdWgKvBytes + kBwdWgStages * 2 * kBwdWgQBytes +
+         2 * kBwdWgDsBytes + kBwdWgStages * 2 * kBwdWgBQ * 4 +
+         (1 + 3 * kBwdWgStages) * 8;
+}
+
+struct K2BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// The consumer warpgroups of flash_bwd_wgmma.
+template <int D, int DROP>
+__device__ __forceinline__ void consume_bwd_wgmma(
+    const LunarisK2BwdArgs& a, const uint8_t* ks, const uint8_t* vs,
+    const uint8_t* ring, uint8_t* dsb, const float* ls, const float* dls,
+    uint64_t* kv_bar, uint64_t* full, uint64_t* empty, int tiles, int first) {
+  using bf16 = __nv_bfloat16;
+  constexpr int ST = kBwdWgStages;
+  constexpr int BQ = kBwdWgBQ;
+  constexpr int KD = D / 16;       // k-steps of k qs^T and v dO^T
+  constexpr int DH = D / 2;        // dq columns a warpgroup
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+  const int wg = warp >> 2;        // the consumer warpgroup
+  const int g = lane >> 2;         // the accumulator's row (and row + 8): a key
+  const int t = lane & 3;          // its column pair: queries
+  const int key_l = wg * 64 + (warp & 3) * 16 + g;   // within the block
+  const int key0 = blockIdx.x * kBwdWgKeys + key_l;
+  const bool drop = DROP == kDropOn;
+  const uint8_t* kw = ks + wg * 64 * 128;          // this warpgroup's keys
+  const uint8_t* vw = vs + wg * 64 * 128;
+
+  float bk[2], db[2] = {0.f, 0.f};
+  uint32_t k_term[2];
+  {
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      bk[r] = key < Nk ? biasb[key] : 0.f;
+      k_term[r] = row_seed + static_cast<uint32_t>(key) * kC2;
+    }
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % ST;
+    const int q0 = walk(i) * BQ;
+    const uint8_t* qt = ring + st * 2 * kBwdWgQBytes;
+    const uint8_t* dot = qt + kBwdWgQBytes;
+    const float* lt = ls + st * BQ;
+    const float* dlt = dls + st * BQ;
+    uint8_t* dst = dsb + (i & 1) * kBwdWgDsBytes;
+    mbar_wait(&full[st], (i / ST) & 1);
+
+    // s^T = k qs^T + bias (the accumulator's start), dp^T = v dO^T: rows are
+    // this warpgroup's keys, columns the tile's queries.
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = s[4 * j + 1] = bk[0];
+      s[4 * j + 2] = s[4 * j + 3] = bk[1];
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dp[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+      wgmma_ss<64, 0, 0>(s, wgmma_desc(kw + 32 * kd), wgmma_desc(qt + 32 * kd), 1);
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+      wgmma_ss<64, 0, 0>(dp, wgmma_desc(vw + 32 * kd), wgmma_desc(dot + 32 * kd), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    wgmma_pin(dp);
+
+    // p, the mask, ds and pv; packed as the A fragments of the k-steps over
+    // the queries (chunks 2 kk and 2 kk + 1 are k-step kk), and ds^T to
+    // shared memory for dq.
+    const uint32_t q_term = static_cast<uint32_t>(a.q_offset + q0 + 2 * t) * kC3;
+    uint32_t dsf[4][4], pvf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 nl = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+      float ds[4], pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
+        float dpd = dp[4 * j + e];
+        pv[e] = p;
+        if (drop) {
+          const bool keep = keep_hash(
+              k_term[e >> 1] + q_term + static_cast<uint32_t>(8 * j + (e & 1)) * kC3,
+              a.threshold);
+          dpd = keep ? dpd * a.inv_keep : 0.f;
+          pv[e] = keep ? p * a.inv_keep : 0.f;
+        }
+        ds[e] = p * (dpd - (e & 1 ? dl.y : dl.x));
+        db[e >> 1] += ds[e];
+      }
+      const int h = 2 * (j & 1);
+      dsf[j >> 1][h] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][h + 1] = pack_bf16(ds[2], ds[3]);
+      pvf[j >> 1][h] = pack_bf16(pv[0], pv[1]);
+      pvf[j >> 1][h + 1] = pack_bf16(pv[2], pv[3]);
+      // rows key_l and key_l + 8, 16-byte chunk j (queries 8 j..), swizzled
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(dst + (key_l + 8 * r) * 128 +
+                                     ((j ^ g) << 4) + 4 * t) = dsf[j >> 1][h + r];
+    }
+
+    // dv += pv^T dO, dk += ds^T qs over the tile's 64 queries.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D, 1>(dv, pvf[kk], wgmma_desc(dot + 2048 * kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D, 1>(dk, dsf[kk], wgmma_desc(qt + 2048 * kk), 1);
+    wgmma_commit();
+
+    // dq of the tile over the block's 128 keys, this warpgroup's columns.
+    fence_async_shared();
+    named_barrier(1, 256);
+    float dq[DH / 2];
+#pragma unroll
+    for (int x = 0; x < DH / 2; ++x) dq[x] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdWgKeys / 16; ++kk)
+      wgmma_ss<DH, 1, 1>(dq, wgmma_desc(dst + 2048 * kk),
+                         wgmma_desc(ks + 2048 * kk + wg * DH * 2), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(dk);
+    wgmma_pin(dv);
+    wgmma_pin(dq);
+    mbar_arrive(&empty[st]);
+
+    // Rows q0 + 16 (warp % 4) + g (+ 8): the lanes of a column quad swap a
+    // pair so that lane t even adds columns 8 j + 2 t.. + 3 of row g and
+    // lane t odd those of row g + 8 from 8 j + 2 (t - 1).
+    const int qrow = q0 + (warp & 3) * 16 + g + (t & 1) * 8;
+    float* accrow = a.dq_acc + (static_cast<long long>(bh) * Nq + qrow) * D + wg * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const float sx = t & 1 ? dq[4 * j] : dq[4 * j + 2];
+      const float sy = t & 1 ? dq[4 * j + 1] : dq[4 * j + 3];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 val = t & 1 ? make_float4(rx, ry, dq[4 * j + 2], dq[4 * j + 3])
+                               : make_float4(dq[4 * j], dq[4 * j + 1], rx, ry);
+      if (qrow < Nq)
+        atomicAdd(reinterpret_cast<float4*>(accrow + 8 * j + 2 * (t & 2)), val);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float dbr = db[r];
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 1);
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 2);
+    const int key = key0 + 8 * r;
+    if (key < Nk) {
+      const long long off = (static_cast<long long>(bh) * Nk + key) * D;
+      bf16* dkrow = static_cast<bf16*>(a.dk) + off;
+      bf16* dvrow = static_cast<bf16*>(a.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkrow + 8 * j + 2 * t) =
+            pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvrow + 8 * j + 2 * t) =
+            pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+      if (t == 0) a.dbias_bh[static_cast<long long>(bh) * Nk + key] = dbr;
+    }
+  }
+}
+
+template <int D, int DROP>
+__global__ void __launch_bounds__(kBwdWgThreads, 1)
+flash_bwd_wgmma(const LunarisK2BwdArgs a, const __grid_constant__ K2BwdMaps maps) {
+  static_assert(D == 48 || D == 64, "the warpgroup body takes d 48 and 64");
+  constexpr int ST = kBwdWgStages;
+  constexpr int BQ = kBwdWgBQ;
+  extern __shared__ uint8_t bwd_wg_smem[];
+  uint8_t* ks = bwd_wg_smem + ((1024 - (smem_addr(bwd_wg_smem) & 1023)) & 1023);
+  uint8_t* vs = ks + kBwdWgKvBytes;
+  uint8_t* ring = vs + kBwdWgKvBytes;
+  uint8_t* dsb = ring + ST * 2 * kBwdWgQBytes;
+  float* ls = reinterpret_cast<float*>(dsb + 2 * kBwdWgDsBytes);
+  float* dls = ls + ST * BQ;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dls + ST * BQ);
+  uint64_t* tma_bar = kv_bar + 1;
+  uint64_t* full = tma_bar + ST;
+  uint64_t* empty = full + ST;
+
+  const int Nq = a.Nq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (Nq + BQ - 1) / BQ;
+  const int first = blockIdx.x % tiles;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&tma_bar[i], 1);
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: one warp loads
+    setmaxnreg_dec<40>();
+    if (warp != 8) return;
+    if (lane == 0) {
+      mbar_arrive_tx(kv_bar, 2 * kBwdWgKvBytes);
+      tma_load_3d(ks, &maps.k, kv_bar, 0, blockIdx.x * kBwdWgKeys, bh);
+      tma_load_3d(vs, &maps.v, kv_bar, 0, blockIdx.x * kBwdWgKeys, bh);
+    }
+    const float* lseb = a.lse + static_cast<long long>(bh) * Nq;
+    const float* deltab = a.delta + static_cast<long long>(bh) * Nq;
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % ST;
+      const int q0 = walk(i) * BQ;
+      uint8_t* qt = ring + st * 2 * kBwdWgQBytes;
+      if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(&tma_bar[st], 2 * kBwdWgQBytes);
+        tma_load_3d(qt, &maps.q, &tma_bar[st], 0, q0, bh);
+        tma_load_3d(qt + kBwdWgQBytes, &maps.dout, &tma_bar[st], 0, q0, bh);
+      }
+      for (int c = lane; c < BQ; c += 32) {
+        const bool in = q0 + c < Nq;
+        ls[st * BQ + c] = in ? -lseb[q0 + c] * kLog2e : -INFINITY;
+        dls[st * BQ + c] = in ? deltab[q0 + c] : 0.f;
+      }
+      // q becomes qs in place, a 16-byte chunk at a time (the swizzle moves
+      // chunks, not the values within them).
+      mbar_wait(&tma_bar[st], (i / ST) & 1);
+      uint4* chunk = reinterpret_cast<uint4*>(qt);
+      for (int c = lane; c < kBwdWgQBytes / 16; c += 32) {
+        uint4 x = chunk[c];
+        x.x = scale_bf16x2(x.x, a.scale);
+        x.y = scale_bf16x2(x.y, a.scale);
+        x.z = scale_bf16x2(x.z, a.scale);
+        x.w = scale_bf16x2(x.w, a.scale);
+        chunk[c] = x;
+      }
+      fence_async_shared();
+      mbar_arrive(&full[st]);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consume_bwd_wgmma<D, DROP>(a, ks, vs, ring, dsb, ls, dls, kv_bar, full,
+                               empty, tiles, first);
+  }
+}
+
+template <int D, int DROP>
+int launch_bwd_wgmma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
+  if (!bwd_mma_aligned(a) || reinterpret_cast<uintptr_t>(a.dk) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(a.dv) % 4 != 0 || a.dq_acc == nullptr ||
+      reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2BwdMaps maps;
+  if (!bf16_tile_map(&maps.q, a.q, a.BH, a.Nq, D, kBwdWgBQ) ||
+      !bf16_tile_map(&maps.dout, a.dout, a.BH, a.Nq, D, kBwdWgBQ) ||
+      !bf16_tile_map(&maps.k, a.k, a.BH, a.Nk, D, kBwdWgKeys) ||
+      !bf16_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kBwdWgKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_bwd_wgmma<D, DROP>;
+  constexpr int smem = wg_bwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nk + kBwdWgKeys - 1) / kBwdWgKeys, a.BH);
+  kernel<<<grid, kBwdWgThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

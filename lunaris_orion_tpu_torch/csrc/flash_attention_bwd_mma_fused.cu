@@ -2,8 +2,8 @@
 // (flash_attention_bwd.cuh) in its single-pass form, which also adds dq, for
 // bf16 at d 16, with dropout and a ragged Nq compiled in (four instances).
 // d 32 is in flash_attention_bwd_mma_d32.cu; at d 48 and 64 the dk/dv body
-// alone fills the registers (238 and 255), so the fused form keeps its
-// CUDA-core kernel there (flash_attention_bwd_simt_bf16.cu).
+// alone fills the registers (238 and 255), so the fused form there is the
+// warpgroup body (flash_attention_bwd_wgmma_d*.cu).
 
 #include "flash_attention_bwd.cuh"
 

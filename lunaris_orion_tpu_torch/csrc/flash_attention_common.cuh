@@ -4,7 +4,8 @@
 // around the Hopper (sm_90a) instructions that the tensor-core bodies are
 // built from (cp.async, ldmatrix, movmatrix, mma.sync m16n8k16 bf16,
 // mma.sync m16n8k8 tf32 with cvt.rna for the three-pass f32 products,
-// ex2.approx). The build hashes this header with the sources.
+// ex2.approx; the warpgroup bodies' mbarriers, TMA and wgmma are in
+// hopper.cuh). The build hashes this header with the sources.
 
 #pragma once
 
@@ -14,6 +15,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 

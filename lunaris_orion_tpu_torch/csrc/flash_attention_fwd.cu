@@ -4,8 +4,10 @@
 // instances are compiled one translation unit a body and type
 // (flash_attention_fwd_mma.cu, flash_attention_fwd_tf32.cu,
 // flash_attention_fwd_simt_{f32,bf16}.cu, flash_attention_fwd_simt_f32_wide.cu
-// for d 48 and 64, and flash_attention_fwd_d32.cu for bf16's tensor-core and
-// f32's CUDA-core body at d 32), so that the compilers run side by side.
+// for d 48 and 64, flash_attention_fwd_d32.cu for bf16's tensor-core and
+// f32's CUDA-core body at d 32, and flash_attention_fwd_wgmma_d*.cu for the
+// warpgroup body, an instance a file), so that the compilers run side by
+// side.
 
 #include "flash_attention_fwd.cuh"
 
@@ -13,7 +15,8 @@
 // contiguous. bias: [H, Nk] f32. o: [BH, Nq, d] in the input type;
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
-// body: 1 the tensor-core kernel (at d 16, 32, 48 or 64: bf16 products, or
+// body: 2 the warpgroup kernel (bf16 at d 48 or 64: wgmma fed by TMA), 1 the
+// tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
 // three TF32 passes for f32), 0 the CUDA-core kernel (f32 at d 8, 16, 32, 48
 // or 64; bf16 at d 8 or 16). The caller chooses; nothing here falls from one
 // to the other.
@@ -25,13 +28,23 @@ extern "C" int lunaris_flash_attention_fwd(
     unsigned int seed, int q_offset, int row_offset, int is_bf16, int body,
     void* stream) {
   if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || BH > 65535 ||
-      (body != 0 && body != 1))
+      body < 0 || body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const LunarisK2FwdArgs a{q, k, v, static_cast<const float*>(bias), o,
                            static_cast<float*>(lse), BH, H, Nq, Nk, scale,
                            use_dropout, threshold, inv_keep, seed, q_offset,
                            row_offset};
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 2) {
+    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 48: return use_dropout ? lunaris_k2_fwd_wgmma_d48_drop(a, s)
+                                  : lunaris_k2_fwd_wgmma_d48(a, s);
+      case 64: return use_dropout ? lunaris_k2_fwd_wgmma_d64_drop(a, s)
+                                  : lunaris_k2_fwd_wgmma_d64(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (body == 1 && !is_bf16) return lunaris_k2_fwd_tf32(a, d, s);
   if (d == 32) return lunaris_k2_fwd_d32(a, is_bf16, body, s);
   if (body == 1) return lunaris_k2_fwd_mma_bf16(a, d, s);
@@ -41,3 +54,7 @@ extern "C" int lunaris_flash_attention_fwd(
   return is_bf16 ? static_cast<int>(cudaErrorInvalidValue)
                  : lunaris_k2_fwd_simt_f32_wide(a, d, s);
 }
+
+// The dynamic shared memory a launch of the warpgroup body takes (its ring
+// of K, V and bias tiles and its barriers), for the build report.
+extern "C" int lunaris_k2_fwd_wgmma_smem_bytes() { return wg_fwd_smem_bytes(); }

@@ -1,4 +1,4 @@
-// K2 forward -- the three kernel bodies of the flash-attention forward and of
+// K2 forward -- the four kernel bodies of the flash-attention forward and of
 // its stage family, for Hopper (sm_90a). Included by the flash_attention_fwd*
 // sources (the full chain) and by flash_attention_stages.cu (the chain cut
 // after a named stage); the build hashes this header with the sources. The
@@ -40,8 +40,10 @@
 // 4 to 5 ms for the 1.7e10 scores of that shape), the max, the subtraction,
 // the row sum, the pack to bf16 and, with dropout, the hash.
 //
-// Three bodies, all templated on the head size D, the stage level LVL (4 =
-// the full chain), the dropout mode and whether Nk may be ragged:
+// Three bodies templated on the head size D, the stage level LVL (4 = the
+// full chain), the dropout mode and whether Nk may be ragged, and a fourth,
+// flash_fwd_wgmma (bf16 at d 48 and 64, the full chain only; its own note
+// below), on the D and the dropout mode alone:
 //
 //   flash_fwd_mma   bf16, D a multiple of 16. Both products run on the tensor
 //       cores with mma.sync m16n8k16 (bf16 x bf16 -> f32). A warp owns 32
@@ -124,6 +126,12 @@ int lunaris_k2_fwd_tf32(const LunarisK2FwdArgs& a, int d, cudaStream_t s);
 // Head size 32, both bodies (is_bf16 and body as the entry point's).
 int lunaris_k2_fwd_d32(const LunarisK2FwdArgs& a, int is_bf16, int body,
                        cudaStream_t s);
+// The warpgroup body, bf16 at d 48 and 64, one translation unit an instance
+// (flash_attention_fwd_wgmma_d{48,64}{,_drop}.cu).
+int lunaris_k2_fwd_wgmma_d48(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d48_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d64(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d64_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 
 namespace {
 
@@ -890,6 +898,282 @@ int launch_tf32(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Nq + tf32_rows(D) - 1) / tf32_rows(D), a.BH);
   kernel<<<grid, 32 * kTf32Warps, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the warpgroup body: wgmma fed by TMA -----------------------------------
+
+// flash_fwd_wgmma  bf16 at D 48 and 64, the recipes' head sizes (feature_dim
+//   384 and 512 at 8 heads). flash_fwd_mma was sized for d 16: at d 48 and 64
+//   its four warps own one 16-row tile each, so every K and V fragment is
+//   read from shared memory again for each 16 rows, and its static ring fits
+//   only 2 stages at d 64. Here:
+//   - A block is two consumer warpgroups of 64 query rows each (128 rows)
+//     and one producer warp. The producer keeps a ring of 3 key tiles of 128
+//     in dynamic shared memory: K and V arrive by TMA (one box each, rows of
+//     128 bytes with the 128-byte swizzle; columns past d and keys past Nk
+//     arrive as zeros), the bias by its 32 lanes, -inf past Nk, so a key past
+//     the end scores -inf and no score is masked. `full` barriers carry the
+//     tile to the consumers, `empty` barriers carry it back.
+//   - s = qs k^T is wgmma m64n128k16 with q's A fragments in registers
+//     (scaled and rounded once, as flash_fwd_mma) and K from shared memory
+//     (K-major); the accumulator starts at the keys' bias.
+//   - The online softmax runs on the accumulator in registers (the row max
+//     across a row's 4 lanes with shuffles, exp as ex2.approx on one FMA),
+//     the hash from each element's own (key, query), then p is packed to
+//     bf16 in registers: the accumulator's layout is the A fragment's, so
+//     o += p v is wgmma m64n{d}k16 with p from registers and V from shared
+//     memory (MN-major). o is rescaled by the row's correction before the
+//     product adds to it.
+//   Dropout is a template parameter; a ragged Nk costs nothing per score
+//   (the bias masks it), so one instance takes every Nk.
+// Rounding points are flash_fwd_mma's, except that p v adds into o on the
+// tensor cores instead of being summed from zero a tile and added with one
+// f32 FMA: o's sums truncate over the whole walk, which moves a bf16 output
+// by far less than its last bit.
+
+constexpr int kWgBK = 128;                          // keys a tile
+constexpr int kWgConsumers = 2;                     // warpgroups of 64 rows
+constexpr int kWgRows = 64 * kWgConsumers;          // query rows a block
+constexpr int kWgThreads = 128 * (kWgConsumers + 1); // and a producer warpgroup
+constexpr int kWgStages = 3;
+constexpr int kWgTileBytes = kWgBK * 128;           // one K or V tile
+
+// The ring ([stage][K, V] tiles, then [stage][keys] f32 bias), the
+// barriers, and 1024 bytes to align the tiles to the swizzle's period.
+__host__ __device__ constexpr int wg_fwd_smem_bytes() {
+  return 1024 + kWgStages * (2 * kWgTileBytes + kWgBK * 4) + 2 * kWgStages * 8;
+}
+
+struct K2FwdMaps {
+  CUtensorMap k, v;
+};
+
+// The consumer warpgroups of flash_fwd_wgmma.
+template <int D, int DROP>
+__device__ __forceinline__ void consume_fwd_wgmma(
+    const LunarisK2FwdArgs& a, const uint8_t* ring, const float* bias_ring,
+    uint64_t* full, uint64_t* empty, int tiles) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = kWgBK;
+  constexpr int ST = kWgStages;
+  constexpr int KD = D / 16;       // k-steps of q k^T
+  constexpr int NJ = BK / 8;       // 8-key column chunks of s
+  const int Nq = a.Nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int g = lane >> 2;         // the fragment's row (and row + 8)
+  const int t = lane & 3;          // the fragment's column pair
+  const int row0 = blockIdx.x * kWgRows + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const bool drop = DROP == kDropOn;
+
+  // q as the A fragments of q k^T, scaled and rounded once.
+  uint32_t qf[KD][4];
+  {
+    const bf16* qb = static_cast<const bf16*>(a.q) + static_cast<long long>(bh) * Nq * D;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + (i & 1) * 8;
+        const int col = kd * 16 + (i >> 1) * 8 + 2 * t;
+        uint32_t x = 0u;
+        if (row < Nq)
+          x = *reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(row) * D + col);
+        qf[kd][i] = scale_bf16x2(x, a.scale);
+      }
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // l: this lane's share
+  const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+  const uint32_t q_term[2] = {
+      row_seed + static_cast<uint32_t>(a.q_offset + row0) * kC3,
+      row_seed + static_cast<uint32_t>(a.q_offset + row0 + 8) * kC3};
+
+  // s = q k^T + bias of a key tile, issued once the tile has landed: the
+  // bias is the accumulator's start.
+  float s[BK / 2];
+  auto scores = [&](int tile) {
+    const int st = tile % ST;
+    const uint8_t* kt = ring + st * 2 * kWgTileBytes;
+    const float* bt = bias_ring + st * BK;
+    mbar_wait(&full[st], (tile / ST) & 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t);
+      s[4 * j] = s[4 * j + 2] = b.x;
+      s[4 * j + 1] = s[4 * j + 3] = b.y;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+      wgmma_rs<BK, 0>(s, qf[kd], wgmma_desc(kt + 32 * kd), 1);
+  };
+  scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin(s);
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int st = tile % ST;
+    const int k0 = tile * BK;
+    const uint8_t* kt = ring + st * 2 * kWgTileBytes;
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    const float neg[2] = {-mx[0] * kLog2e, -mx[1] * kLog2e};
+    const uint32_t k_term = static_cast<uint32_t>(k0 + 2 * t) * kC2;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = ex2(fmaf(s[4 * j + i], kLog2e, neg[i >> 1]));
+        l[i >> 1] += p;
+        if (drop) {
+          const bool keep = keep_hash(
+              q_term[i >> 1] + k_term + static_cast<uint32_t>(8 * j + (i & 1)) * kC2,
+              a.threshold);
+          p = keep ? p * a.inv_keep : 0.f;
+        }
+        s[4 * j + i] = p;
+      }
+
+    // o = o corr + round_bf16(p) v: p's 8-key chunks 2 kk and 2 kk + 1 are
+    // the A fragment of k-step kk.
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D, 1>(o, pf[kk], wgmma_desc(kt + kWgTileBytes + 2048 * kk), 1);
+    // The next tile's scores right behind p v, under one wait: the tensor
+    // cores take both back to back while this warpgroup waits once a tile.
+    if (tile + 1 < tiles) scores(tile + 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(o);
+    wgmma_pin(s);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr = fmaxf(lr, 1e-30f);
+    const int row = row0 + 8 * r;
+    if (row < Nq) {
+      bf16* orow = static_cast<bf16*>(a.o) + (static_cast<long long>(bh) * Nq + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
+      if (t == 0) a.lse[static_cast<long long>(bh) * Nq + row] = m[r] + logf(lr);
+    }
+  }
+}
+
+template <int D, int DROP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(const LunarisK2FwdArgs a, const __grid_constant__ K2FwdMaps maps) {
+  static_assert(D == 48 || D == 64, "the warpgroup body takes d 48 and 64");
+  constexpr int BK = kWgBK;
+  constexpr int ST = kWgStages;
+  extern __shared__ uint8_t fwd_wg_smem[];
+  uint8_t* ring = fwd_wg_smem + ((1024 - (smem_addr(fwd_wg_smem) & 1023)) & 1023);
+  float* bias_ring = reinterpret_cast<float*>(ring + ST * 2 * kWgTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_ring + ST * BK);
+  uint64_t* empty = full + ST;
+
+  const int Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (Nk + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 128 * kWgConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWgConsumers) {
+    // The producer warpgroup: one warp loads, the registers go to the
+    // consumers (2 x 128 x 232 + 128 x 40 = the block's 384 x 168).
+    setmaxnreg_dec<40>();
+    if (warp != 4 * kWgConsumers) return;
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int st = tile % ST;
+      const int k0 = tile * BK;
+      if (tile >= ST) mbar_wait(&empty[st], ((tile / ST) & 1) ^ 1);
+      for (int c = lane; c < BK; c += 32)
+        bias_ring[st * BK + c] = k0 + c < Nk ? biasb[k0 + c] : -INFINITY;
+      if (lane == 0) {
+        uint8_t* kt = ring + st * 2 * kWgTileBytes;
+        mbar_arrive_tx(&full[st], 2 * kWgTileBytes);
+        tma_load_3d(kt, &maps.k, &full[st], 0, k0, bh);
+        tma_load_3d(kt + kWgTileBytes, &maps.v, &full[st], 0, k0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consume_fwd_wgmma<D, DROP>(a, ring, bias_ring, full, empty, tiles);
+  }
+}
+
+template <int D, int DROP>
+int launch_wgmma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
+  // TMA reads k and v from 16-byte aligned rows; q and o move 4 bytes.
+  if (reinterpret_cast<uintptr_t>(a.k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.v) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.q) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(a.o) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2FwdMaps maps;
+  if (!bf16_tile_map(&maps.k, a.k, a.BH, a.Nk, D, kWgBK) ||
+      !bf16_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kWgBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_wgmma<D, DROP>;
+  constexpr int smem = wg_fwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nq + kWgRows - 1) / kWgRows, a.BH);
+  kernel<<<grid, kWgThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // K2 forward -- the instances of the tensor-core body `flash_fwd_mma`
 // (flash_attention_fwd.cuh) for bf16: the full chain at d 16 with dropout and
 // raggedness compiled in (four instances), and at d 48 and 64 one instance
-// each that tests both at run time.
+// each that tests both at run time: the body that the warpgroup body
+// (flash_fwd_wgmma) replaced there, which `body="mma"` still reaches.
 
 #include "flash_attention_fwd.cuh"
 

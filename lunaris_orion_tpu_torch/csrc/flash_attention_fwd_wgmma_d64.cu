@@ -1,0 +1,9 @@
+// K2 forward -- one instance of the warpgroup body `flash_fwd_wgmma`
+// (flash_attention_fwd.cuh): bf16 at head size 64, without dropout.
+// Every Nk: the bias masks the keys past it.
+
+#include "flash_attention_fwd.cuh"
+
+int lunaris_k2_fwd_wgmma_d64(const LunarisK2FwdArgs& a, cudaStream_t s) {
+  return launch_wgmma<64, kDropOff>(a, s);
+}

@@ -66,6 +66,8 @@ SIGNATURES = {
                               _I, _P),
     "lunaris_gn_affine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _P),
+    "lunaris_k2_fwd_wgmma_smem_bytes": (),
+    "lunaris_k2_bwd_wgmma_smem_bytes": (),
 }
 
 

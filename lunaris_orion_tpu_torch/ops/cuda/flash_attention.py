@@ -8,29 +8,38 @@ other device and never falls back.
   forward   `csrc/flash_attention_fwd.cuh` (instances and entry point in
             `csrc/flash_attention_fwd*.cu`), replacing lunaris_orion_tpu/ops/
             pallas/flash_attention.py `_fwd_kernel`; returns the row
-            log-sum-exp as well, which the backward needs. Two hand-written
-            bodies, chosen by head size (`forward_instance`):
-            "mma"   d 16, 32, 48, 64: both products on the tensor cores, p
-                    kept in registers between them: bf16 on mma.sync
-                    m16n8k16; f32 on m16n8k8 tf32 in three passes (hi and
-                    lo of each operand: a_lo b_hi + a_hi b_lo + a_hi b_hi),
-                    which hold f32's bars where one TF32 pass would not
-                    (`tf32_round`, `split_tf32` emulate the rounding);
+            log-sum-exp as well, which the backward needs. Three
+            hand-written bodies, chosen by type and head size
+            (`forward_instance`):
+            "wgmma" bf16 at d 48, 64: two warpgroups of 64 query rows,
+                    wgmma m64n128k16 for q k^T and m64n{d}k16 for p v with
+                    p in registers, K, V and the bias fed by TMA through
+                    mbarriers (dropout compiled in or out);
+            "mma"   d 16, 32 (and f32 at 48, 64): both products on the
+                    tensor cores, p kept in registers between them: bf16 on
+                    mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
+                    (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
+                    a_hi b_hi), which hold f32's bars where one TF32 pass
+                    would not (`tf32_round`, `split_tf32` emulate the
+                    rounding);
             "simt"  d 8, on the CUDA cores.
             At d 16 dropout and a ragged Nk are compiled in (four instances
-            a body); the other head sizes test both at run time.
+            a body); the other head sizes of "mma" test both at run time.
   backward  `csrc/flash_attention_bwd.cuh` (instances and entry point in
             `csrc/flash_attention_bwd*.cu`), in one of two variants:
             "fused"  one dk/dv kernel that also adds dq into an f32 buffer
                      with 16-byte atomic reductions (replaces
                      `_bwd_fused_kernel`), so scores, exp and mask are
                      computed once; its dq varies from run to run in the
-                     last bits (`fused_instance`): "mma" at d 16 and 32
+                     last bits (`fused_instance`): "wgmma" for bf16 at d 48
+                     and 64 (five wgmma products a query tile, K and V in
+                     shared memory, fed by TMA), "mma" at d 16 and 32
                      (five products on the tensor cores; f32 in three TF32
-                     passes), "simt" at d 8, 48 and 64;
+                     passes), "simt" at d 8 and f32 48 and 64;
             "split"  the dk/dv kernel and a dq kernel (replace
                      `_bwd_dkv_kernel` and `_bwd_dq_kernel`), each with the
-                     forward's two bodies (`backward_instance`): "mma" for
+                     forward's "mma" and "simt" bodies
+                     (`backward_instance`): "mma" for
                      bf16 at d 16, 32, 48, 64 (four and three products on
                      the tensor cores, p and ds kept in registers between
                      them, dbias without atomics), "simt" for f32 and bf16
@@ -51,6 +60,8 @@ traced (`torch.export`) code take one route into the kernel.
 
 `launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
 count the kernel launches; the plain versions do not count.
+`wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
+of the warpgroup bodies.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
 and backward launches on a q shard (q_offset > 0: context parallelism).
 """
@@ -70,13 +81,16 @@ bwd_dkv_launches = 0
 bwd_dq_launches = 0
 shard_launches = 0
 bwd_shard_launches = 0
+wgmma_launches = 0
+bwd_wgmma_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
 MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core forward
 MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # the split backward's (dk/dv, dq; bf16)
 MMA_FUSED_HEAD_DIMS = (16, 32)       # the fused backward's
-FWD_BODIES = ("simt", "mma")         # the C entry points' `body` argument
+WGMMA_HEAD_DIMS = (48, 64)           # the warpgroup bodies' (bf16)
+FWD_BODIES = ("simt", "mma", "wgmma")  # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
              f"{', '.join(str(8 * d) for d in HEAD_DIMS)} at 8 heads")
@@ -294,14 +308,15 @@ def default_bwd(dtype: torch.dtype, d: int) -> str:
     faster in turns on an H100 80GB HBM3 at 700 W (`chip_smoke.py` phase 7;
     PERF.md section 6). "fused" where one pass's saving, scores, exp and
     mask computed once for all three gradients, outweighs adding dq across
-    key blocks: on the tensor cores (d 16 and 32, bf16 and f32), and in f32
-    on the CUDA cores too (d 48, 64, whose dot products the dq kernel would
-    repeat with shuffles, and d 8: 1.38-1.57 against 1.47-1.64 ms at B2 H8
-    N4096 in two runs). "split" in bf16 at d 8, 48 and 64, where only split
-    has tensor-core kernels (d 48, 64) or the two measured within noise
-    (d 8)."""
+    key blocks: on the tensor cores (d 16 and 32, bf16 and f32; bf16 at
+    d 48 and 64 by the warpgroup body, about half the split pair's time at
+    B16 H8 N16384), and in f32 on the CUDA cores too (d 48, 64, whose dot
+    products the dq kernel would repeat with shuffles, and d 8: 1.38-1.57
+    against 1.47-1.64 ms at B2 H8 N4096 in two runs). "split" in bf16 at
+    d 8, where the two measured within noise."""
     if dtype == torch.bfloat16:
-        return "fused" if d in MMA_FUSED_HEAD_DIMS else "split"
+        return ("fused" if d in MMA_FUSED_HEAD_DIMS + WGMMA_HEAD_DIMS
+                else "split")
     return "fused"
 
 
@@ -333,24 +348,34 @@ def _check_kernel_inputs(name: str, tensors, dropout_rate: float):
 
 
 def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
-          body: str | None, f32: bool = True) -> str:
+          body: str | None, f32: bool = True, wgmma: str | None = None) -> str:
     """The body a call of `name` takes: the tensor cores ("mma") at the head
     sizes `mma_dims` for bf16, and for f32 too where `f32` (three TF32
-    passes); the CUDA cores ("simt") otherwise. `body` "simt" reaches the
-    CUDA-core kernel where the tensor-core one is the default (f32 at every
-    head size, bf16 at d 16): measurements and tests compare the two; the
-    autograd path never passes it."""
+    passes); the CUDA cores ("simt") otherwise; and for bf16 at
+    WGMMA_HEAD_DIMS, where the kernel has a warpgroup body ("wgmma": wgmma
+    fed by TMA), that one. `wgmma` names the body it replaced there, which
+    `body` may still name. `body` "simt" reaches the CUDA-core kernel where
+    the tensor-core one is the default (f32 at every head size, bf16 at
+    d 16): measurements and tests compare the two; the autograd path never
+    passes it."""
     if dtype not in (torch.float32, torch.bfloat16) or d not in HEAD_DIMS:
         raise ValueError(f"{name}: no kernel for {dtype}, head dim {d} (f32 "
                          f"or bf16, {SUPPORTED})")
     mma = d in mma_dims and (f32 or dtype == torch.bfloat16)
-    default = "mma" if mma else "simt"
+    warpgroup = (wgmma is not None and dtype == torch.bfloat16
+                 and d in WGMMA_HEAD_DIMS)
+    default = "wgmma" if warpgroup else "mma" if mma else "simt"
     body = body or default
-    if body not in FWD_BODIES or (body != default and (
-            body == "mma" or (dtype == torch.bfloat16 and d != 16))):
+    if warpgroup:
+        ok = body in ("wgmma", wgmma)
+    else:
+        ok = body in FWD_BODIES and (body == default or (
+            body == "simt" and (dtype == torch.float32 or d == 16)))
+    if not ok:
+        wg = f"; wgmma: bf16 at d in {WGMMA_HEAD_DIMS}" if wgmma else ""
         raise ValueError(f"{name}: body {body!r} does not take {dtype} at "
                          f"head dim {d} (tensor cores: bf16"
-                         f"{', f32' if f32 else ''} at d in {mma_dims})")
+                         f"{', f32' if f32 else ''} at d in {mma_dims}{wg})")
     return body
 
 
@@ -371,13 +396,22 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     """Which forward instance (dtype, d, Nq, Nk, dropout) takes: the rule of
     the C dispatch (`csrc/flash_attention_fwd*.cu`), as a pure function.
 
-    d 16, 32, 48, 64 take the tensor-core body of their type (f32: three
-    TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA-core
-    body (`body` as in `_body`). At d 16 dropout and raggedness are
-    template parameters; the other head sizes have one instance each, which
-    masks the last key tile and reads the dropout flag at run time. Nq only
-    sets the grid: every instance guards the rows past it."""
-    body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS, body)
+    bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 query rows
+    and key tiles of 128 a block, dropout compiled in or out, every Nk in
+    one instance: the bias masks the keys past it); `body="mma"` reaches
+    the tensor-core body it replaced there. d 16, 32, 48, 64 otherwise take
+    the tensor-core body of their type (f32: three TF32 passes, keys in
+    tiles of 32 at d 48 and 64), d 8 the CUDA-core body (`body` as in
+    `_body`). At d 16 dropout and raggedness are template parameters; the
+    other head sizes of those bodies have one instance each, which masks
+    the last key tile and reads the dropout flag at run time. Nq only sets
+    the grid: every instance guards the rows past it."""
+    body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS, body,
+                 wgmma="mma")
+    if body == "wgmma":
+        return ForwardInstance(body, d, 128, 128, -(-nq // 128),
+                               "on" if dropout_rate > 0.0 else "off",
+                               nk % 128 != 0)
     if body == "mma":
         block_k = 32 if dtype == torch.float32 and d > 32 else 64
         rows = 128 if d == 16 else 64
@@ -400,7 +434,7 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
                                        dropout_rate)
     b, h, nq, d = q.shape
     inst = forward_instance(q.dtype, d, nq, k.shape[2], dropout_rate, body)
-    if inst.body == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if inst.body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the tensor-core kernel copies 16 "
                          "bytes at a time; q, k, v must be aligned to that")
     o = torch.empty_like(q)
@@ -412,9 +446,10 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         int(q.dtype == torch.bfloat16), FWD_BODIES.index(inst.body),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    global launches, shard_launches
+    global launches, shard_launches, wgmma_launches
     launches += 1
     shard_launches += q_offset > 0
+    wgmma_launches += inst.body == "wgmma"
     return o, lse
 
 
@@ -493,16 +528,23 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     """Which fused backward instance (dtype, d, Nq, Nk, dropout) takes: the
     rule of the C dispatch, as a pure function.
 
+    bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 keys a
+    block, query tiles of 64, dropout compiled in or out, every Nq in one
+    instance); `body="simt"` reaches the CUDA-core body it replaced there.
     d 16 and 32 take the tensor-core body of their type (bf16: the dk/dv
     body with a fifth product, dq; f32: its own body, five products in
-    three TF32 passes), d 8, 48 and 64 the CUDA-core body: at d 48 and 64
-    the dk/dv body alone fills the registers. `body` as in `_body`. On the
-    tensor cores a block owns 256 keys in bf16 at d 16 (8 warps), 64
-    otherwise; f32 walks the queries in tiles of 64 at d 16 and 32 at d 32;
-    at d 16 dropout and a ragged Nq are template parameters; every other
-    instance fills the last query tile and reads the dropout flag at run
-    time."""
-    body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS, body)
+    three TF32 passes), d 8 and f32 at 48 and 64 the CUDA-core body.
+    `body` as in `_body`. On the tensor cores a block owns 256 keys in bf16
+    at d 16 (8 warps), 64 otherwise; f32 walks the queries in tiles of 64
+    at d 16 and 32 at d 32; at d 16 dropout and a ragged Nq are template
+    parameters; every other instance of those bodies fills the last query
+    tile and reads the dropout flag at run time."""
+    body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS, body,
+                 wgmma="simt")
+    if body == "wgmma":
+        return FusedInstance(body, d, 64, 128, -(-nk // 128),
+                             "on" if dropout_rate > 0.0 else "off",
+                             nq % 64 != 0)
     tile, rows = _bwd_tile_rows(body, d)
     if body == "mma" and dtype == torch.float32:
         tile, rows = (64 if d == 16 else 32), 64
@@ -541,7 +583,7 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
            for t in outs):
         raise ValueError(f"flash_attention_bwd: kernel {kernel} needs "
                          "contiguous outputs on q's device")
-    if body == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+    if body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: the tensor-core kernels copy "
                          "16 bytes at a time; q, k, v, dO must be aligned to "
                          "that")
@@ -555,8 +597,9 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
-    global bwd_shard_launches
+    global bwd_shard_launches, bwd_wgmma_launches
     bwd_shard_launches += q_offset > 0
+    bwd_wgmma_launches += body == "wgmma"
     if kernel == DKV_FUSED_DQ:
         bwd_fused_launches += 1
     elif kernel == DKV:

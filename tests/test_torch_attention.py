@@ -35,11 +35,15 @@ def _t(*xs):
 
 
 # (rate, seed, d, n): every rate at d 8 and 16 and N 256 and 2304; d 32 (the
-# head size of feature_dim 256) at N 256 for every rate and at N 2304 once.
+# head size of feature_dim 256) at N 256 for every rate and at N 2304 once;
+# d 48 and 64 (the mid-range and H100-tier recipes' feature_dim 384 and 512)
+# at N 256, one seed without dropout and one with.
 _PARITY = [(rate, seed, d, n)
            for rate, seed in ((0.0, 0), (0.1, 1234567), (0.1, -987654321))
            for d, n in ((8, 256), (8, 2304), (16, 256), (16, 2304), (32, 256))]
 _PARITY.append((0.1, 1234567, 32, 2304))
+_PARITY += [(rate, seed, d, 256)
+            for rate, seed in ((0.0, 0), (0.1, -987654321)) for d in (48, 64)]
 
 
 @pytest.mark.parametrize("rate,seed,d,n", _PARITY)
@@ -74,6 +78,27 @@ def test_online_plain_matches_pallas_and_two_pass(n, block_k, d, rate):
         want = np.asarray(fa.attention_bhnd(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
             dropout_rate=rate, seed=jnp.int32(77)))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [256, 300])
+@pytest.mark.parametrize("d", [48, 64])
+def test_online_plain_at_the_warpgroup_tile(n, d):
+    """The online form at the warpgroup body's key tile of 128 (d 48 and
+    64), with dropout: against the two-pass form, and against the Pallas
+    kernel where N % 128 == 0; f32, atol 1e-5."""
+    q, k, v, bias = _qkvb(1, 2, n, n, d, seed=n + d)
+    kw = dict(dropout_rate=0.1, seed=-5)
+    inst = k2.forward_instance(BF16, d, n, n, 0.1)
+    got, lse = k2.attention_plain(*_t(q, k, v, bias), block_k=inst.block_k,
+                                  **kw)
+    ref, rlse = k2.attention_plain(*_t(q, k, v, bias), **kw)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), rlse.numpy(), atol=1e-5, rtol=0)
+    if n % 128 == 0:
+        want = np.asarray(fa.attention_bhnd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+            dropout_rate=0.1, seed=jnp.int32(-5)))
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
@@ -115,8 +140,12 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 16, 1000, 1024, 0.0, ("mma", 64, 128, 8, "off", False)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
     (BF16, 8, 300, 300, 0.0, ("simt", 64, 128, 3, "runtime", True)),
-    (BF16, 48, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
-    (BF16, 64, 1000, 1000, 0.0, ("mma", 64, 64, 16, "runtime", True)),
+    # bf16 at d 48 and 64: the warpgroup body, 128 rows and keys a tile,
+    # dropout compiled in or out, every Nk in one instance
+    (BF16, 48, 4096, 4096, 0.1, ("wgmma", 128, 128, 32, "on", False)),
+    (BF16, 64, 1000, 1000, 0.0, ("wgmma", 128, 128, 8, "off", True)),
+    (BF16, 64, 16384, 16384, 0.1, ("wgmma", 128, 128, 128, "on", False)),
+    (BF16, 48, 8192, 16384, 0.0, ("wgmma", 128, 128, 64, "off", False)),
     (F32, 48, 4096, 4096, 0.0, ("mma", 32, 64, 64, "runtime", True)),
     (F32, 64, 1000, 1000, 0.1, ("mma", 32, 64, 16, "runtime", True)),
     (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
@@ -128,9 +157,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): d 16, 32, 48, 64 take the tensor cores (f32: three TF32
-    passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA cores; at
-    d 16 dropout and a ragged Nk are compiled in."""
+    dropout): bf16 at d 48 and 64 takes the warpgroup body, d 16, 32 (and
+    f32 at 48, 64) the tensor cores (f32: three TF32 passes, keys in tiles
+    of 32 at d 48 and 64), d 8 the CUDA cores; at d 16 dropout and a ragged
+    Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
     inst = k2.forward_instance(dtype, d, nq, nk, rate)
     assert inst == k2.ForwardInstance(body, d, block_k, rows, q_blocks,
@@ -168,7 +198,8 @@ def test_forward_instance_body_argument():
         assert k2.forward_instance(F32, d, 64, 64, 0.0, body="simt").body == \
             "simt"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
-                           (BF16, 64, "simt"), (BF16, 16, "wgmma")):
+                           (BF16, 64, "simt"), (BF16, 16, "wgmma"),
+                           (F32, 48, "wgmma"), (BF16, 32, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
     for dtype, d in ((torch.float16, 16), (BF16, 24), (F32, 128)):
@@ -178,6 +209,30 @@ def test_forward_instance_body_argument():
     with pytest.raises(ValueError, match="feature_dim 64, 128, 256, 384, 512"):
         k2.forward_instance(BF16, 24, 64, 64, 0.0)
     assert set(k2.MMA_HEAD_DIMS) < set(k2.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
+    """bf16 at d 48 and 64 (feature_dim 384 and 512 at 8 heads, the docs'
+    mid-range and H100-tier recipes) takes the warpgroup bodies: the
+    forward with key tiles of 128, the fused backward with 128 keys a block
+    and query tiles of 64, and the fused variant by default; `body` still
+    reaches the bodies they replaced, for the comparisons in turns."""
+    assert d in k2.WGMMA_HEAD_DIMS and set(k2.WGMMA_HEAD_DIMS) < set(
+        k2.MMA_HEAD_DIMS)
+    fwd = k2.forward_instance(BF16, d, 16384, 16384, 0.1)
+    assert (fwd.body, fwd.block_k, fwd.rows) == ("wgmma", 128, 128)
+    old = k2.forward_instance(BF16, d, 16384, 16384, 0.1, body="mma")
+    assert (old.body, old.block_k, old.rows) == ("mma", 64, 64)
+    assert k2.default_bwd(BF16, d) == "fused"
+    bwd = k2.fused_instance(BF16, d, 16384, 16384, 0.1)
+    assert (bwd.body, bwd.block_q, bwd.rows, bwd.blocks) == (
+        "wgmma", 64, 128, 128)
+    assert k2.fused_instance(BF16, d, 16384, 16384, 0.1,
+                             body="simt").body == "simt"
+    # f32 keeps its own bodies at these head sizes
+    assert k2.forward_instance(F32, d, 64, 64, 0.0).body == "mma"
+    assert k2.fused_instance(F32, d, 64, 64, 0.0).body == "simt"
 
 
 def test_rectangular_q_offset_matches_pallas():

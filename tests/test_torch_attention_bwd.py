@@ -42,10 +42,12 @@ def _port_grads(q, k, v, bias, do, **kw):
 
 # (rate, seed, d, n, fused): every case at d 8 and 16 and N 256 and 2304; d 32
 # (the head size of feature_dim 256) at N 256 for every (rate, fused) and at
-# N 2304 once.
+# N 2304 once; d 48 and 64 (the mid-range and H100-tier recipes' head sizes)
+# at N 256 for every (rate, fused).
 _PARITY = [(rate, seed, d, n, fused)
            for rate, seed in ((0.0, 0), (0.1, -987654321))
-           for d, n in ((8, 256), (8, 2304), (16, 256), (16, 2304), (32, 256))
+           for d, n in ((8, 256), (8, 2304), (16, 256), (16, 2304), (32, 256),
+                        (48, 256), (64, 256))
            for fused in ("1", "0")]
 _PARITY.append((0.1, -987654321, 32, 2304, "1"))
 
@@ -174,10 +176,12 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
         inst.dkv_blocks - 1) * inst.dkv_rows
     assert inst.dq_blocks * inst.dq_rows >= nq > (
         inst.dq_blocks - 1) * inst.dq_rows
-    # the forward's rule picks the same body for the same call in bf16; f32
-    # has a tensor-core forward (three TF32 passes) but no split one
+    # the forward's rule picks the same body for the same call in bf16, but
+    # at d 48 and 64, where the forward has a warpgroup body; f32 has a
+    # tensor-core forward (three TF32 passes) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
-    assert fwd == (inst.body if dtype == BF16 else
+    assert fwd == ("wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS else
+                   inst.body if dtype == BF16 else
                    "mma" if d in k2.MMA_HEAD_DIMS else "simt")
 
 
@@ -214,9 +218,12 @@ def test_backward_instance_body_argument():
     (BF16, 16, 300, 2000, 0.0, ("mma", 64, 256, 8, "off", True)),
     (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
     (BF16, 32, 300, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
-    # the dk/dv body fills the registers at d 48 and 64: CUDA cores
-    (BF16, 48, 4096, 4096, 0.1, ("simt", 32, 32, 128, "runtime", True)),
-    (BF16, 64, 2000, 2000, 0.0, ("simt", 32, 32, 63, "runtime", True)),
+    # bf16 at d 48 and 64: the warpgroup body, 128 keys a block, query
+    # tiles of 64, dropout compiled in or out, every Nq in one instance
+    (BF16, 48, 4096, 4096, 0.1, ("wgmma", 64, 128, 32, "on", False)),
+    (BF16, 64, 2000, 2000, 0.0, ("wgmma", 64, 128, 16, "off", True)),
+    (BF16, 64, 16384, 16384, 0.1, ("wgmma", 64, 128, 128, "on", False)),
+    (BF16, 48, 300, 2000, 0.0, ("wgmma", 64, 128, 16, "off", True)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 32, 128, 32, "runtime", True)),
     (F32, 16, 16384, 16384, 0.1, ("mma", 64, 64, 256, "on", False)),
     (F32, 16, 4096, 4096, 0.0, ("mma", 64, 64, 64, "off", False)),
@@ -228,13 +235,13 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): d 16 and 32 take the tensor cores (bf16: dk/dv's body
-    with the dq product; f32: its own body in three TF32 passes, 64 keys a
-    block, query tiles of 64 at d 16 and 32 at d 32), the rest the CUDA
-    cores; on the tensor cores at d 16 dropout and a ragged Nq are compiled
-    in. In bf16 a block walks the query tiles of a split dk/dv block of the
-    same body and owns its keys, twice as many on the tensor cores at d 16
-    (8 warps)."""
+    Nk, dropout): bf16 at d 48 and 64 takes the warpgroup body, d 16 and 32
+    the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
+    body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
+    and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
+    dropout and a ragged Nq are compiled in. In bf16 an mma.sync block walks
+    the query tiles of a split dk/dv block of the same body and owns its
+    keys, twice as many at d 16 (8 warps)."""
     body, tile, rows, blocks, dropout, ragged = want
     inst = k2.fused_instance(dtype, d, nq, nk, rate)
     assert inst == k2.FusedInstance(body, d, tile, rows, blocks, dropout,
@@ -249,16 +256,16 @@ def test_fused_instance(dtype, d, nq, nk, rate, want):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (BF16, 16, "fused"), (BF16, 32, "fused"), (BF16, 8, "split"),
-    (BF16, 48, "split"), (BF16, 64, "split"), (F32, 8, "fused"),
+    (BF16, 48, "fused"), (BF16, 64, "fused"), (F32, 8, "fused"),
     (F32, 16, "fused"), (F32, 32, "fused"), (F32, 48, "fused"),
     (F32, 64, "fused"),
 ])
 def test_default_bwd(dtype, d, want):
     """A call that names no backward variant takes the one measured faster:
     fused in f32 at every head size (the tensor cores at d 16 and 32, the
-    CUDA cores elsewhere) and in bf16 on the tensor cores (d 16 and 32);
-    split in bf16 at d 8 and where only split has tensor cores (d 48 and
-    64)."""
+    CUDA cores elsewhere) and in bf16 on the tensor cores (d 16 and 32 on
+    mma.sync, d 48 and 64 on the warpgroup body, which halved the split
+    pair's time at B16 H8 N16384); split in bf16 at d 8."""
     assert k2.default_bwd(dtype, d) == want
     fused = k2.fused_instance(dtype, d, 4096, 4096, 0.1)
     split = k2.backward_instance(dtype, d, 4096, 4096, 0.1)
@@ -266,14 +273,15 @@ def test_default_bwd(dtype, d, want):
         assert fused.body == "simt"
     if want == "fused":
         # the fused body is the tensor cores' wherever they have one
-        assert fused.body == ("mma" if d in k2.MMA_FUSED_HEAD_DIMS
-                              else split.body)
+        assert fused.body == (
+            "wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS else
+            "mma" if d in k2.MMA_FUSED_HEAD_DIMS else split.body)
 
 
 def test_fused_instance_body_argument():
-    """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16 and
-    f32 d 16 and 32, where the tensor-core one is the default; nothing else
-    is on offer."""
+    """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16, 48
+    and 64 and f32 d 16 and 32, where a tensor-core one is the default;
+    nothing else is on offer."""
     old = k2.fused_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
     assert old == k2.FusedInstance("simt", 16, 32, 128, 128, "runtime", True)
     old = k2.fused_instance(F32, 16, 16384, 16384, 0.1, body="simt")
@@ -281,9 +289,13 @@ def test_fused_instance_body_argument():
     old = k2.fused_instance(F32, 32, 2000, 2000, 0.1, body="simt")
     assert old == k2.FusedInstance("simt", 32, 32, 32, 63, "runtime", True)
     assert k2.fused_instance(F32, 16, 64, 64, 0.0, body="mma").body == "mma"
+    # bf16 d 48 and 64: the CUDA-core kernel the warpgroup body replaced
+    old = k2.fused_instance(BF16, 64, 2000, 2000, 0.1, body="simt")
+    assert old == k2.FusedInstance("simt", 64, 32, 32, 63, "runtime", True)
     for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
                            (BF16, 32, "simt"),
-                           (BF16, 48, "mma"), (BF16, 16, "wgmma")):
+                           (BF16, 48, "mma"), (BF16, 16, "wgmma"),
+                           (F32, 64, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)
 

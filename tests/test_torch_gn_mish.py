@@ -301,15 +301,16 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
 
 def test_c_entry_points_match_their_ctypes_signatures():
     """Every `extern "C"` entry point of csrc/ that `_build.SIGNATURES`
-    names takes the arguments, in number and type, that ctypes passes, and
-    every one that returns a CUDA error is named there."""
+    names takes the arguments, in number and type, that ctypes passes (none
+    for the warpgroup bodies' shared-memory reports), and every one that
+    returns a CUDA error or an int is named there."""
     found = {}
     for src in _build.sources():
         for name, args in re.findall(
                 r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
             found[name] = tuple(
                 _C_TYPES[re.sub(r"\s*\w+$", "", a.strip())]
-                for a in args.split(","))
+                for a in args.split(",") if a.strip())
     assert set(_build.SIGNATURES) == set(found)
     for name, argtypes in _build.SIGNATURES.items():
         assert tuple(argtypes) == found[name], name
@@ -342,11 +343,18 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_simt_bf16.cu", "flash_attention_bwd_simt_f32.cu",
         "flash_attention_bwd_simt_f32_d32.cu",
         "flash_attention_bwd_simt_f32_wide.cu",
-        "flash_attention_bwd_tf32_fused.cu", "flash_attention_fwd.cu",
+        "flash_attention_bwd_tf32_fused.cu",
+        "flash_attention_bwd_wgmma_d48.cu",
+        "flash_attention_bwd_wgmma_d48_drop.cu",
+        "flash_attention_bwd_wgmma_d64.cu",
+        "flash_attention_bwd_wgmma_d64_drop.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
-        "flash_attention_stages.cu",
+        "flash_attention_fwd_wgmma_d48.cu",
+        "flash_attention_fwd_wgmma_d48_drop.cu",
+        "flash_attention_fwd_wgmma_d64.cu",
+        "flash_attention_fwd_wgmma_d64_drop.cu", "flash_attention_stages.cu",
         "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
         "loss_epilogue.cu"]
     assert d == _build.build_dir()
@@ -375,15 +383,18 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     # or header names is one that the hash covers.
     fwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_fwd.cuh"' in p.read_text()]
-    assert len(fwd) == 8 and "flash_attention_stages.cu" in fwd
-    # Likewise the K2 backward's bodies, and what both share.
+    assert len(fwd) == 12 and "flash_attention_stages.cu" in fwd
+    # Likewise the K2 backward's bodies, and what both share (the Hopper
+    # instructions of the warpgroup bodies among it).
     bwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_bwd.cuh"' in p.read_text()]
-    assert len(bwd) == 10 and all(n.startswith("flash_attention_bwd")
+    assert len(bwd) == 14 and all(n.startswith("flash_attention_bwd")
                                  for n in bwd)
     for header in ("flash_attention_fwd.cuh", "flash_attention_bwd.cuh"):
         assert '#include "flash_attention_common.cuh"' in (
             real / header).read_text()
+    assert '#include "hopper.cuh"' in (
+        real / "flash_attention_common.cuh").read_text()
     hashed = {p.name for p in real.glob("*.cuh")}
     for src in (*real.glob("*.cu"), *real.glob("*.cuh")):
         named = re.findall(r'#include "([^"]+)"', src.read_text())

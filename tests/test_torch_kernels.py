@@ -202,8 +202,10 @@ def test_gn_mish_rejects_non_nhwc(cuda):
 # (f32 FMA sums, expf): 2e-5 of the largest, 1 element in 100 (measured on an
 # H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
 # rounded product): 1e-3, 3 in 100 (measured: 1.8e-4 at N 300, 9 in 1000 at
-# N 16384). An element in the wrong place is off by a tenth of the largest.
-_K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2)}
+# N 16384). The warpgroup body (wgmma, bf16 d 48 and 64) has the tensor
+# cores' bar. An element in the wrong place is off by a tenth of the largest.
+_K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2),
+                "wgmma": (1e-3, 3e-2)}
 
 
 def _k2_bf16_close(got, ref, body):
@@ -238,7 +240,9 @@ def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
     inst = k2.forward_instance(dtype, d, n, n, rate)
-    assert inst.body == ("mma" if d >= 16 else "simt")
+    assert inst.body == ("wgmma" if dtype == torch.bfloat16
+                         and d in k2.WGMMA_HEAD_DIMS else
+                         "mma" if d >= 16 else "simt")
     before = k2.launches
     o, lse = k2.flash_attention(q, k, v, bias, dropout_rate=rate, seed=-77)
     torch.cuda.synchronize()
@@ -282,6 +286,41 @@ def test_flash_attention_bodies_agree(cuda, n, rate):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("nq,nk,q_offset", [(2000, 2000, 0), (300, 2000, 0),
+                                            (2048, 4096, 2048)])
+def test_warpgroup_bodies_and_the_bodies_they_replaced(cuda, d, nq, nk,
+                                                      q_offset):
+    """bf16 at d 48 and 64, dropout 0.1, a ragged N and a q shard: the
+    warpgroup forward and the tensor-core forward it replaced (`body="mma"`)
+    against the plain version's online form at each one's key tile, and the
+    fused warpgroup backward and the CUDA-core fused kernel it replaced
+    (`body="simt"`) against the plain backward; the launches counted."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, nq, nk, d, torch.bfloat16,
+                               seed=nq + d)
+    kw = dict(dropout_rate=0.1, seed=-5, q_offset=q_offset)
+    for body in ("wgmma", "mma"):
+        inst = k2.forward_instance(torch.bfloat16, d, nq, nk, 0.1, body=body)
+        before = k2.wgmma_launches
+        o, lse = k2.forward_kernel(q, k, v, bias, body=body, **kw)
+        assert k2.wgmma_launches == before + (body == "wgmma")
+        oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
+                                      **kw)
+        _k2_bf16_close(o, oo, body)
+        assert (lse - olse).abs().max().item() <= 1e-4
+    o, lse = k2.attention_plain(q, k, v, bias, **kw)
+    do = torch.randn_like(q)
+    args = (q, k, v, bias, o, lse, do)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for body in ("wgmma", "simt"):
+        before = k2.bwd_wgmma_launches
+        got = _bwd_fused(args, body=body, **kw)
+        assert k2.bwd_wgmma_launches == before + (body == "wgmma")
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            _close(g, r, torch.bfloat16, name, body)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_rectangular_offsets(cuda, dtype):
     """A q shard at q_offset, and batch rows at row_offset, see the same
@@ -304,26 +343,29 @@ def test_flash_attention_rectangular_offsets(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,body", [(torch.float32, None),
-                                        (torch.float32, "simt"),
-                                        (torch.bfloat16, None),
-                                        (torch.bfloat16, "simt")])
+@pytest.mark.parametrize("dtype,body,d", [(torch.float32, None, 16),
+                                          (torch.float32, "simt", 16),
+                                          (torch.bfloat16, None, 16),
+                                          (torch.bfloat16, "simt", 16),
+                                          (torch.bfloat16, None, 64),
+                                          (torch.bfloat16, "mma", 64)])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
                                                        (200, 300, 70, 3)])
-def test_flash_attention_dropout_mask_positions(cuda, dtype, body, nq, nk,
+def test_flash_attention_dropout_mask_positions(cuda, dtype, body, d, nq, nk,
                                                 q_offset, row_offset):
     """The kernel's dropout mask, position by position, is the hash. With
     q = 0 and bias = 0 every p is 1 / Nk; v is 1 at (key k0 + j, column j) and
     0 elsewhere, so o[row, j] is 0 exactly where the mask drops key k0 + j
     for that row: a fragment coordinate mixed up (row r with r + 8, a column
-    pair, a key tile) moves the zeros."""
-    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    pair, a key tile) moves the zeros. bf16 at d 64: the warpgroup body and
+    the tensor-core body it replaced."""
+    b, h, rate, seed = 2, 2, 0.3, 123
     q = torch.zeros(b, h, nq, d, device=cuda, dtype=dtype)
     k = torch.zeros(b, h, nk, d, device=cuda, dtype=dtype)
     bias = torch.zeros(h, nk, device=cuda)
     rs = k2.row_seeds(seed, b * h, row_offset, cuda).reshape(b, h, 1, 1)
     q_abs = torch.arange(q_offset, q_offset + nq, device=cuda)[:, None]
-    for k0 in (0, 8, 56, 121, nk - 16):
+    for k0 in (0, 8, 56, 121, nk - d):
         v = torch.zeros(b, h, nk, d, device=cuda, dtype=dtype)
         v[:, :, k0:k0 + d] = torch.eye(d, device=cuda, dtype=dtype)
         o, _ = k2.forward_kernel(q, k, v, bias, dropout_rate=rate, seed=seed,
@@ -367,8 +409,10 @@ def _bwd_inputs(cuda, b, h, nq, nk, d, dtype, seed, rate=0.0):
 # with atomics in any order, which moves its last f32 bits from run to run
 # and, through the final rounding to bf16, an element by 1 ulp at most. A
 # term in the wrong place moves an element by a tenth of the largest or more,
-# a wrong mask every element.
-_K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2)}
+# a wrong mask every element. The fused warpgroup body (wgmma, bf16 d 48 and
+# 64) has the tensor cores' bar.
+_K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2),
+                    "wgmma": (1e-3, 5e-2)}
 
 
 def _close(got, ref, dtype, name, body="simt"):
@@ -448,8 +492,11 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
     body = _bwd_body(variant, dtype, d, nq, nk, rate)
     mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
-    assert body == ("mma" if d in mma_dims and (
-        dtype == torch.bfloat16 or variant == "fused") else "simt")
+    assert body == (
+        "wgmma" if variant == "fused" and dtype == torch.bfloat16
+        and d in k2.WGMMA_HEAD_DIMS else
+        "mma" if d in mma_dims and (
+            dtype == torch.bfloat16 or variant == "fused") else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
     got = k2.flash_attention_bwd(*args, dropout_rate=rate, seed=-77,
                                  variant=variant)
@@ -501,25 +548,27 @@ def test_flash_attention_bwd_bodies_agree(cuda, nq, nk, rate):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["fused", "split"])
-@pytest.mark.parametrize("dtype,body", [(torch.float32, None),
-                                        (torch.float32, "simt"),
-                                        (torch.bfloat16, None),
-                                        (torch.bfloat16, "simt")])
+@pytest.mark.parametrize("dtype,body,d", [(torch.float32, None, 16),
+                                          (torch.float32, "simt", 16),
+                                          (torch.bfloat16, None, 16),
+                                          (torch.bfloat16, "simt", 16),
+                                          (torch.bfloat16, None, 64)])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
                                                        (200, 300, 70, 3)])
 def test_flash_attention_bwd_dropout_mask_positions(cuda, variant, dtype, body,
-                                                    nq, nk, q_offset,
+                                                    d, nq, nk, q_offset,
                                                     row_offset):
     """The backward kernels' dropout masks, position by position, are the
     hash. With q = 0, bias = 0 and lse = 0 every p is 1; o = 0 makes delta 0.
     dk/dv: dO is 1 at (query q0 + c, column c) and 0 elsewhere, so dv[key, c]
     is 0 exactly where the mask drops (query q0 + c, key). dq: k is 1 at
-    (key k0 + c, column c), v and dO are ones (dp = 16), so dq[query, c] is 0
+    (key k0 + c, column c), v and dO are ones (dp = d), so dq[query, c] is 0
     exactly where the mask drops (query, key k0 + c). A fragment coordinate
     mixed up (row r with r + 8, a column pair, a tile, keys with queries, a
-    transpose of the fused form's ds) moves the zeros."""
+    transpose of the fused form's ds) moves the zeros. bf16 at d 64: the
+    fused warpgroup body and the split tensor-core pair."""
     run = _bwd_fused if variant == "fused" else _bwd_split
-    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    b, h, rate, seed = 2, 2, 0.3, 123
     zeros = lambda n: torch.zeros(b, h, n, d, device=cuda, dtype=dtype)
     ones = lambda n: torch.ones(b, h, n, d, device=cuda, dtype=dtype)
     eye = torch.eye(d, device=cuda, dtype=dtype)
@@ -533,13 +582,13 @@ def test_flash_attention_bwd_dropout_mask_positions(cuda, variant, dtype, body,
                                      device=cuda)[:, None],
                         k2.dropout_threshold(1.0 - rate))   # [b, h, nq, nk]
     assert 0.6 < keep.float().mean().item() < 0.8
-    for q0 in (0, 8, 56, 121, nq - 16):
+    for q0 in (0, 8, 56, 121, nq - d):
         do = zeros(nq)
         do[:, :, q0:q0 + d] = eye
         _, _, dv, _ = run((zeros(nq), zeros(nk), ones(nk), bias, zeros(nq),
                            lse, do), body=body, **kw)
         assert torch.equal(dv != 0, keep[:, :, q0:q0 + d].transpose(2, 3)), q0
-    for k0 in (0, 8, 56, 121, nk - 16):
+    for k0 in (0, 8, 56, 121, nk - d):
         k = zeros(nk)
         k[:, :, k0:k0 + d] = eye
         dq, _, _, _ = run((zeros(nq), k, ones(nk), bias, zeros(nq), lse,
