@@ -9,7 +9,12 @@
 
 Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
-  2. build    compile the hand-written kernels from csrc/ with nvcc;
+  2. build    compile the hand-written kernels from csrc/ with nvcc; no
+              tensor-core instance spills and ptxas serialises no warpgroup
+              body's wgmma; the inner loop of each bf16 d 16 K2 instance
+              (the narrow warpgroup bodies and the mma.sync ones they
+              replaced) counted by instruction class from its SASS, per 32
+              scores;
   3. K1       GroupNorm+Mish kernel against its plain version at the four
               decoder shapes, batch 8, and at [128,128,128,64], f32 and
               bf16, bit-equal to its earlier three-launch form with the
@@ -35,7 +40,14 @@ Phases, each of which raises on failure (exit code 1):
               N 16384 with dropout 0 and 0.1, timed in turns against the
               mma.sync body it replaced (held element by element against
               the online form at its own key tile first; the new must be
-              faster), beside SDPA, the plain version and the bound;
+              faster), beside SDPA, the plain version and the bound; bf16
+              at d 16 (the default width) on the narrow warpgroup body, at
+              B 8 and 16 with dropout 0 and 0.1, timed the same way against
+              mma.sync beside both floors (the tensor cores and the
+              special-function units); the narrow body at the short rows
+              (the windowed fold, a CP q shard at q_offset 8192) against
+              the online form and in turns with mma.sync, which the rule
+              keeps for the fold;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
@@ -67,7 +79,13 @@ Phases, each of which raises on failure (exit code 1):
               fused kernels in turns (the new must be faster) beside the
               plain version's time, SDPA's backward and the bound; at B 16
               the fused kernel and the two variants in turns, beside SDPA's
-              backward and the bound;
+              backward and the bound; bf16 at d 16 (the narrow fused
+              warpgroup body): at B 2 the mma.sync fused kernel it replaced
+              against the plain backward, the two in turns at B 2 (dropout
+              0 and 0.1) and B 16 (0.1) beside the plain version, SDPA's
+              backward and both floors, and at the short rows (the
+              windowed fold, a CP q shard) the narrow kernel against the
+              plain backward and in turns with mma.sync;
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
@@ -106,9 +124,10 @@ Phases, each of which raises on failure (exit code 1):
               f32 (CUDA-core body) at [32,128,128,64]->64;
  12. stages   each of the five K2 stage kernels against its plain version
               at B 2 and the tool's B 8, H 8, N 16384, d 16, f32 and bf16
-              (the tensor-core bodies; f32 three TF32 passes); "sum"
-              bit-equal to the forward kernel at dropout 0; times at B 8
-              bf16;
+              (the tensor-core bodies; f32 three TF32 passes; bf16 the
+              mma.sync body, which the narrow warpgroup body replaced as
+              the default); "sum" bit-equal to that forward kernel at
+              dropout 0; times at B 8 bf16;
  13. stats    the per-tile lane-sums kernel, and K1's pass 1 alone, against
               their plain versions at [128,128,128,32], [128,128,128,64],
               [128,64,64,128], bf16 and f32, tiles of 512 and 2048 rows;
@@ -249,8 +268,10 @@ Phases, each of which raises on failure (exit code 1):
               at the last step within 2 % of each other. Each run's second
               step goes under torch.profiler: K1 two kernels a call, K3,
               and in (b) `flash_fwd_tf32` and `flash_bwd_fused_tf32` (in
-              (c) the bf16 `flash_fwd_mma` and fused `flash_bwd_dkv_mma`),
-              the windowed calls too, by name and by the wrappers' counts.
+              (c) the bf16 narrow bodies `flash_fwd_wgmma_narrow` and
+              `flash_bwd_wgmma_narrow` on the global calls, `flash_fwd_mma`
+              and the fused `flash_bwd_dkv_mma` on the windowed ones), by
+              name and by the wrappers' counts.
 
 Kernel times are medians of CUDA-event timings; `[time]` lines give each
 phase's seconds. Each kernel's `bound_ms` is the larger of its bytes
@@ -320,7 +341,18 @@ body each replaced, in turns), `library_ms` (SDPA), `plain_ms`,
 `bound_ms` at the H100 recipe's head size, d 64 (forward B 8 dropout 0,
 backward B 2 dropout 0.1, its `shape`; N 16384), every d 48 and 64
 reading under `readings` (the backward's B 16 times under `B16`), and
-their `instances`. The last lines are the card's
+their `instances`. So do the narrow ones (bf16 d 16),
+`flash_attention_fwd_wgmma_narrow` and `flash_attention_bwd_wgmma_narrow`:
+`launches` in phase 10's train steps (and the forward's `launches_decode`
+in phase 5's bf16 decode+score, `launches_window_step` and
+`trainer_launches_window` in phase 16), the same times at the default
+width (forward B 8 dropout 0, backward B 2 dropout 0.1, N 16384) beside
+`bound_ms_sfu`, the special-function floor (one exp a score over 16 a
+clock an SM at the card's largest SM clock), every reading under
+`readings` (B 16, the other rate, the short rows with the body faster in
+turns and the one the rule takes), and the inner loop's instructions per
+32 scores by class under `sass`, theirs and the mma.sync instances'. The
+last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -446,6 +478,33 @@ def bounds_f32(ops: float, moved: float) -> dict:
             "bound_ms_f32": cc["bound_ms"]}
 
 
+# The special-function units: 16 results a clock an SM (ex2 among them).
+# The K2 kernels do one exp a score, and at d 16 that, not the tensor
+# cores, is their floor (`bounds_k2`). The clock is the card's largest SM
+# clock (`nvidia-smi --query-gpu=clocks.max.sm`), read by `probe`.
+SFU_PER_CLOCK = 16
+SM_CLOCK_MHZ = None
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def bounds_k2(ops: float, moved: float, exps: float) -> dict:
+    """A bf16 K2 kernel: both floors, each named. `bound_ms` is `bound()`'s
+    (the tensor cores' rate or the bytes, the larger); `bound_ms_sfu` the
+    exps over the special-function units (16 a clock an SM at the card's
+    largest SM clock), which at d 16 is the larger of the two."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu = exps / (SFU_PER_CLOCK * sms * SM_CLOCK_MHZ * 1e6) * 1e3
+    return {**bound(ops, moved, "bf16"), "bound_ms_sfu": sfu}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -480,6 +539,24 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
     if k1_kernels != want:
         raise AssertionError(f"{tag}: K1's kernels {k1_kernels}, expected "
                              f"{want} for {calls} calls")
+
+
+def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str) -> dict:
+    """The narrow K2 bodies (bf16, d 16) by name in a profile (`names`,
+    device_share's K2 instances) against the wrappers' counts of the same
+    run: logged; a profile that holds none of the launches counted, or
+    more, fails (torch.profiler may drop a session's first records)."""
+    seen = {"fwd": sum(c for n, c in names.items()
+                       if "flash_fwd_wgmma_narrow" in n),
+            "bwd": sum(c for n, c in names.items()
+                       if "flash_bwd_wgmma_narrow" in n)}
+    log(f"[profile] {tag}: narrow K2 bodies by name fwd {seen['fwd']}, bwd "
+        f"{seen['bwd']}; by the wrappers' counts fwd {fwd}, bwd {bwd}")
+    for key, n in (("fwd", fwd), ("bwd", bwd)):
+        if seen[key] > n or (n > 0 and seen[key] == 0):
+            raise AssertionError(f"{tag}: the narrow K2 {key} body by name "
+                                 f"{seen[key]} against {n} counted")
+    return seen
 
 
 def device_share(torch, fn, tag: str, smi: str, launches: dict = None,
@@ -543,7 +620,11 @@ def probe(torch) -> str:
         f"count {torch.cuda.device_count()} "
         f"sm_count {torch.cuda.get_device_properties(0).multi_processor_count}")
     from lunaris_orion_tpu_torch.tools._timing import card_line
+    global SM_CLOCK_MHZ
     smi = card_line("cuda")
+    SM_CLOCK_MHZ = sm_clock_mhz()
+    log(f"[probe] {smi}, largest SM clock {SM_CLOCK_MHZ:.0f} MHz "
+        f"(nvidia-smi clocks.max.sm)")
     from lunaris_orion_tpu_torch.ops.cuda import _build
     nvcc = _build.nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
@@ -589,9 +670,10 @@ def build() -> None:
             "flash_bwd_fused_tf32" in fn for fn in tf32):
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
-    # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA): no
-    # instance spills, and setmaxnreg moves the registers (ptxas reports the
-    # count at entry, 168 for 384 threads; the consumers take 232).
+    # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, and the
+    # narrow ones at d 16): no instance spills, and setmaxnreg moves the
+    # registers (ptxas reports the count at entry, 168 for 384 threads and
+    # 128 for 512; the consumers take 232, the narrow bodies' 160).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -599,22 +681,33 @@ def build() -> None:
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas ignored setmaxnreg: {line.strip()}")
         if fn and ("flash_fwd_wgmma" in fn or "flash_bwd_wgmma" in fn):
+            if "C7514" in line or "C7515" in line:
+                raise AssertionError(f"ptxas serialised a warpgroup body's "
+                                     f"wgmma: {line.strip()}")
             regs = re.search(r"Used (\d+) registers", line)
             spill = re.search(r"(\d+) bytes spill stores", line)
             row = wg.setdefault(fn, [0, 0])
             row[0] = int(regs.group(1)) if regs else row[0]
             row[1] = int(spill.group(1)) if spill else row[1]
-    smem = {"flash_fwd_wgmma": lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
+    # (a name is matched before any that it contains)
+    smem = {"flash_fwd_wgmma_narrow":
+            lib_smem("lunaris_k2_fwd_wgmma_narrow_smem_bytes"),
+            "flash_bwd_wgmma_narrow":
+            lib_smem("lunaris_k2_bwd_wgmma_narrow_smem_bytes"),
+            "flash_fwd_wgmma": lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
             "flash_bwd_wgmma": lib_smem("lunaris_k2_bwd_wgmma_smem_bytes")}
     for fn, (regs, spill) in sorted(wg.items()):
         body = next(b for b in smem if b in fn)
-        log(f"[build] K2 warpgroup {fn}: {regs} registers at entry (232 in "
-            f"the consumer warpgroups), {spill} bytes spilled, "
-            f"{smem[body]} bytes of dynamic shared memory")
+        log(f"[build] K2 warpgroup {fn}: {regs} registers at entry ("
+            f"{160 if 'narrow' in body else 232} in the consumer "
+            f"warpgroups), {spill} bytes spilled, {smem[body]} bytes of "
+            "dynamic shared memory")
         if spill:
             spills.append(fn)
-    if sum("flash_fwd_wgmma" in fn for fn in wg) != 4 or sum(
-            "flash_bwd_wgmma" in fn for fn in wg) != 4:
+    counts = {b: sum(b in fn and (b.endswith("narrow") or "narrow" not in fn)
+                     for fn in wg) for b in smem}
+    if counts != dict.fromkeys(smem, 4) | {"flash_fwd_wgmma_narrow": 2,
+                                           "flash_bwd_wgmma_narrow": 2}:
         raise AssertionError(f"the K2 warpgroup instances are missing from "
                              f"the build's report: {sorted(wg)}")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
@@ -640,6 +733,81 @@ def build() -> None:
     if spills or len(ops) != 2 or not all(c.get("HMMA") for c in ops.values()):
         raise AssertionError(f"a tensor-core instance spills ({spills}) or "
                              f"K5's body has no HMMA in its SASS")
+    return k2_d16_sass(sass)
+
+
+# The bf16 d 16 K2 bodies whose inner loop `k2_d16_sass` counts: a part of
+# the (mangled) name that picks the instances, and the scores a thread
+# takes a pass of the loop (fwd: 64 rows x 128 keys over 128 threads, or a
+# warp's 32 rows x 64 keys over 32; bwd: 64 keys x 64 queries over 128, or
+# a warp's 32 keys x 64 queries over 32).
+K2_D16_LOOPS = (
+    ("fwd narrow", "flash_fwd_wgmma_narrowILi16E", 64),
+    ("fwd mma.sync", "fwd_mma_cu", 64),
+    ("bwd narrow", "flash_bwd_wgmma_narrowILi16E", 32),
+    ("bwd mma.sync", "bwd_mma_fused_cu", 64))
+# Instruction classes, by SASS opcode (before the first dot).
+SASS_CLASSES = (
+    ("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)), ("FMUL", ("FMUL",)),
+    ("FADD", ("FADD",)), ("FMNMX", ("FMNMX",)), ("IMAD", ("IMAD",)),
+    ("IADD3", ("IADD3", "VIADD", "IADD")), ("LOP3", ("LOP3",)),
+    ("SHF", ("SHF",)), ("ISETP", ("ISETP",)), ("FSEL", ("FSEL",)),
+    ("F2FP", ("F2FP",)), ("HGMMA/HMMA", ("HGMMA", "HMMA")),
+    ("barriers", ("SYNCS", "BAR", "WARPGROUP", "DEPBAR", "MEMBAR")),
+    ("uniform", ("ULOP3", "UIADD3", "UMOV", "USHF", "ULEA", "R2UR", "UIMAD",
+                 "ULDC", "UISETP", "USEL")))
+
+
+def k2_d16_sass(sass: str) -> dict:
+    """The inner loop of each bf16 d 16 K2 instance, counted by class from
+    `cuobjdump -sass`: the loop is the conditional backward branch whose
+    span holds the most MUFU.EX2 (the fewest instructions on a tie); its
+    counts, over the scores a thread takes a pass, are warp-instructions
+    per 32 scores. Logs one line an instance; returns them by instance."""
+    funcs, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if fn and m:
+            funcs[fn].append((int(m.group(1), 16), m.group(3), m.group(4),
+                              bool(m.group(2))))
+    out = {}
+    for label, key, scores in K2_D16_LOOPS:
+        for fn in sorted(f for f in funcs if key in f and (
+                "ILi16E" in f or "narrow" in key)):
+            ins, best = funcs[fn], None
+            for addr, op, rest, pred in ins:
+                tgt = re.search(r"0x([0-9a-f]+)", rest)
+                if not (op.startswith("BRA") and pred and tgt
+                        and int(tgt.group(1), 16) < addr):
+                    continue
+                body = [o for a, o, _, _ in ins
+                        if int(tgt.group(1), 16) <= a <= addr]
+                ex2 = sum(o.startswith("MUFU.EX2") for o in body)
+                if best is None or (ex2, -len(body)) > (best[0], -len(best[1])):
+                    best = (ex2, body)
+            if best is None or best[0] < scores:
+                continue
+            body = best[1]
+            per = {name: sum(o.split(".")[0] in ops for o in body) / scores
+                   for name, ops in SASS_CLASSES}
+            per["all"] = len(body) / scores
+            inst = re.search(r"flash_\w+?(I[^E]*E[^E]*E[^N]*)", fn)
+            name = f"{label} {inst.group(1) if inst else fn[-40:]}"
+            out[name] = per
+            log(f"[build] SASS {name}: inner loop {len(body)} instructions "
+                f"for {scores} scores a thread; per 32 scores: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in per.items()))
+    if sum(k.startswith("fwd narrow") for k in out) != 2 or sum(
+            k.startswith("bwd narrow") for k in out) != 2:
+        raise AssertionError(f"the narrow K2 instances' inner loops were not "
+                             f"found in the SASS: {sorted(out)}")
+    return out
 
 
 def k1_agree(torch, got, ref) -> tuple:
@@ -914,6 +1082,7 @@ def check_k2(torch, dev, smi) -> dict:
     cases += [(8, 8, 16384, d, torch.bfloat16, rate) for d in (48, 64)
               for rate in (0.0, 0.1)]
     wg = {}                 # the warpgroup body's readings by (d, rate)
+    narrow = {}             # the narrow body's (d 16) by (B, rate)
     for b, h, n, d, dt, rate in cases:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
@@ -955,6 +1124,21 @@ def check_k2(torch, dev, smi) -> dict:
             continue
         del ro, rlse
         f32 = dt == torch.float32
+        if inst.body == "wgmma" and d in k2.NARROW_HEAD_DIMS:
+            # bf16 at d 16: the narrow warpgroup body against mma.sync in
+            # turns, beside SDPA, the plain version and both floors.
+            r = wgmma_turns(q, k, v, bias, kw, t_k, err, tag)
+            narrow[f"B{b} dropout {rate}"] = r
+            if b == 8 and rate == 0.0:
+                out |= {"max_abs_err_bf16": err, "ms_bf16": r["ms"],
+                        "plain_ms_bf16": r["plain_ms"],
+                        "library_ms_bf16": r["library_ms"],
+                        "bound_ms_bf16": r["bound_ms"],
+                        "bound_by_bf16": r["bound_by"],
+                        "bound_ms_sfu_bf16": r["bound_ms_sfu"],
+                        "earlier_ms_bf16": r["earlier_ms"],
+                        "body_bf16": inst.body}
+            continue
         if inst.body == "wgmma":
             wg[f"d{d} dropout {rate}"] = wgmma_turns(q, k, v, bias, kw, t_k,
                                                      err, tag)
@@ -1011,6 +1195,60 @@ def check_k2(torch, dev, smi) -> dict:
     out["turns_f32"] = turns
     out["wgmma"] = wg
     out["wgmma_shard"] = check_k2_shard(torch, k2, g, dev)
+    narrow["short rows"] = narrow_short_rows(torch, k2, g, dev, smi)
+    out["narrow"] = narrow
+    return out
+
+
+def narrow_turns(torch, run, default, what, smi) -> dict:
+    """run(body) for the narrow body and the mma.sync one in turns (mma,
+    wgmma, wgmma, mma): the better of each pair, which one the dispatch
+    rule picks at this shape (`default`) and which one was faster."""
+    t = [run("mma"), run("wgmma"), run("wgmma"), run("mma")]
+    new, old = min(t[1:3]), min(t[0], t[3])
+    faster = "wgmma" if new < old else "mma"
+    log(f"{what}: mma.sync {t[0]:.3f}, narrow (wgmma) {t[1]:.3f}, "
+        f"{t[2]:.3f}, mma.sync {t[3]:.3f} ms on {smi}; faster in turns: "
+        f"{faster}, the rule takes {default}")
+    return {"ms": new, "earlier_ms": old, "faster": faster,
+            "default": default}
+
+
+def narrow_short_rows(torch, k2, g, dev, smi) -> dict:
+    """The narrow forward at the short rows of the d 16 path, against the
+    mma.sync body in turns: the windowed fold (B16 H8 N16384 W256 folded:
+    [16, 512, 256, 16]) and a context-parallel q shard (B2 H8, rows 8192..
+    of 16384 at q_offset 8192, against all 16384 keys); the narrow body
+    first held element by element against the plain version's online form
+    at its key tile (the mask bit for bit with it), dropout 0.1."""
+    out = {}
+    for label, b, h, nq, nk, q_offset in (
+            ("window fold", 16, 512, 256, 256, 0),
+            ("CP q shard", 2, 8, 8192, 16384, 8192)):
+        q = torch.randn(b, h, nq, 16, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, h, nk, 16, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        bias = 0.5 * torch.randn(h, nk, generator=g, device=dev)
+        kw = dict(dropout_rate=0.1, seed=-1234567, q_offset=q_offset)
+        tag = (f"{label} B{b} H{h} {nq}x{nk} q_offset {q_offset} d16 bf16 "
+               "dropout 0.1")
+        inst = k2.forward_instance(torch.bfloat16, 16, nq, nk, 0.1, "wgmma")
+        o, lse = k2.forward_kernel(q, k, v, bias, body="wgmma", **kw)
+        oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
+                                      **kw)
+        agree, excess, differ = k2_bf16_agree(torch, o, oo, "wgmma")
+        lse_err = (lse - olse).abs().max().item()
+        log(f"[K2] {tag}: the narrow body against the online form: over 2 "
+            f"ulps by {max(excess, 0):.1e} of the largest, {differ:.1e} "
+            f"differ, lse_err {lse_err:.1e}")
+        if not (agree and lse_err <= 1e-4):
+            raise AssertionError(f"K2 narrow body disagrees at {tag}")
+        del o, lse, oo, olse
+        default = k2.forward_instance(torch.bfloat16, 16, nq, nk, 0.1).body
+        run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
+            q, k, v, bias, body=body, **kw), 10)
+        out[label] = narrow_turns(torch, run, default, f"[K2] {tag}", smi)
+        del q, k, v, bias
     return out
 
 
@@ -1046,11 +1284,13 @@ def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
     beside SDPA (its own dropout masks at the same rate), the plain version
     and the bound: 4 B H N^2 d operations, the inputs and outputs once.
     The earlier body is first held element by element against the plain
-    version's online form at its own key tile, as the new one is."""
+    version's online form at its own key tile, as the new one is. The new
+    one must be faster at d 48 and 64; at d 16 the faster one is logged."""
     import torch
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     b, h, n, d = q.shape
+    inst_body = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"]).body
     old = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"], "mma")
     o, lse = k2.forward_kernel(q, k, v, bias, body=old.body, **kw)
     oo, olse = k2.attention_plain(q, k, v, bias, block_k=old.block_k, **kw)
@@ -1071,19 +1311,27 @@ def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
     lib, lib_note = sdpa_ms(q, k, v, bias, dropout_p=kw["dropout_rate"],
                             reps=3)
     o, lse = k2.forward_kernel(q, k, v, bias, **kw)
-    bd = bound(4 * b * h * n * n * d, nbytes(q, k, v, bias, o, lse), "bf16")
+    bd = bounds_k2(4 * b * h * n * n * d, nbytes(q, k, v, bias, o, lse),
+                   b * h * n * n)
     t_p = (time_ms(torch, lambda: k2.attention_plain(q, k, v, bias, **kw), 1)
            if kw["dropout_rate"] == 0.0 else None)
     new = min(t[1:3])
     log(f"[K2] {tag}: earlier (mma.sync) {t[0]:.3f}, new (wgmma) {t[1]:.3f}, "
         f"new {t[2]:.3f}, earlier {t[3]:.3f} ms; F.scaled_dot_product_"
         f"attention {lib} ms ({lib_note}); bound {bd['bound_ms']:.3f} ms by "
-        f"{bd['bound_by']} ({bd['bound_ms'] / new:.1%} of it)"
+        f"{bd['bound_by']} ({bd['bound_ms'] / new:.1%} of it), "
+        f"special-function floor {bd['bound_ms_sfu']:.3f} ms "
+        f"({bd['bound_ms_sfu'] / new:.1%} of it)"
         + (f"; plain {t_p:.1f} ms" if t_p else ""))
-    if new >= min(t[0], t[3]):
+    # The narrow body at d 16 and dropout 0 is within a few per cent of
+    # mma.sync (PERF.md section 6): its turns are read, not held.
+    faster = "wgmma" if new < min(t[0], t[3]) else "mma"
+    log(f"[K2] {tag}: faster in turns: {faster}, the rule takes {inst_body}")
+    if faster != "wgmma" and d not in k2.NARROW_HEAD_DIMS:
         raise AssertionError(f"K2 at {tag}: the warpgroup body is no faster "
                              "than the tensor-core body it replaced")
     return {"ms": new, "call_ms": t_k, "earlier_ms": min(t[0], t[3]),
+            "faster": faster,
             "library_ms": lib, "plain_ms": t_p, "max_abs_err": err, **bd}
 
 
@@ -1151,9 +1399,17 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
             f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}; launches "
             f"a call: K1 {per_call[0]}, K2 fwd {per_call[1]}")
         tag = f"decode+score batch 8 {'bf16' if bf16 else 'f32'}"
+        names, narrow = {}, k2.narrow_launches
         _, _, k1_kernels, _ = device_share(
-            torch, lambda: gen.decode_and_score(z), tag, smi)
+            torch, lambda: gen.decode_and_score(z), tag, smi, k2_names=names)
         check_k1_kernels(k1_kernels, per_call[0], tag)
+        narrow = k2.narrow_launches - narrow
+        check_narrow_names(names, narrow, 0, tag)
+        if bf16:
+            launches["narrow_decode"] = narrow
+            if narrow != per_call[1]:
+                raise AssertionError(f"{tag}: {narrow} of the {per_call[1]} "
+                                     "K2 forward calls took the narrow body")
     return launches
 
 
@@ -1274,8 +1530,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(3)
-    errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0, "wgmma": 0.0}
-            for dt in (torch.float32, torch.bfloat16)}
+    errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0, "wgmma": 0.0,
+                 "narrow": 0.0} for dt in (torch.float32, torch.bfloat16)}
 
     def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
         q = torch.randn(b, h, nq, d, generator=g, device=dev).to(dt)
@@ -1314,7 +1570,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                            "dq" if name == "dq" else "dkv")
                     errs[dt][key] = max(errs[dt][key], err)
                 if body[variant] == "wgmma" and variant == "fused":
-                    errs[dt]["wgmma"] = max(errs[dt]["wgmma"], err)
+                    key = "narrow" if d in k2.NARROW_HEAD_DIMS else "wgmma"
+                    errs[dt][key] = max(errs[dt][key], err)
             del got
         log(f"[K2 bwd] {tag} (fused: {body['fused']}, split: "
             f"{body['split']}): " + ", ".join(line))
@@ -1564,8 +1821,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                                  "is no faster than the one it replaced")
         lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=0.1,
                             reps=3)
-        bd = bound(10 * 2 * 8 * 16384 * 16384 * d, moved(args, 16 * 16384),
-                   "bf16")
+        bd = bounds_k2(10 * 2 * 8 * 16384 * 16384 * d,
+                       moved(args, 16 * 16384), 2 * 8 * 16384 * 16384)
         wg[d] = {"shape": "B2 H8 N16384 dropout 0.1", "ms": new,
                  "earlier_ms": old, "plain_ms": plain_ms, "library_ms": lib,
                  **bd}
@@ -1573,7 +1830,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             f"{old:.1f}), plain {plain_ms:.0f} ms, backward of "
             f"F.scaled_dot_product_attention {lib} ms ({note}); bound "
             f"{bd['bound_ms']:.2f} ms by {bd['bound_by']} "
-            f"({bd['bound_ms'] / new:.1%} of it) on {smi}")
+            f"({bd['bound_ms'] / new:.1%} of it), special-function floor "
+            f"{bd['bound_ms_sfu']:.2f} ms ({bd['bound_ms_sfu'] / new:.1%}) on "
+            f"{smi}")
         del args, q, k, v, bias, o, lse, do
         args, kw = inputs(16, 8, 16384, 16384, d, torch.bfloat16, 0.1)
         q, k, v, bias, o, lse, do = args
@@ -1584,8 +1843,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                                       f"{tag} flash_attention_bwd ({body})")
         lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=0.1,
                             reps=3)
-        bd = bound(10 * 16 * 8 * 16384 * 16384 * d, moved(args, 128 * 16384),
-                   "bf16")
+        bd = bounds_k2(10 * 16 * 8 * 16384 * 16384 * d,
+                       moved(args, 128 * 16384), 16 * 8 * 16384 * 16384)
         wg[d]["B16"] = {"ms": new, "fused_call_ms": fused_ms,
                         "split_ms": split_ms, "library_ms": lib, **bd}
         faster = "fused" if fused_ms < split_ms else "split"
@@ -1595,11 +1854,17 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             f"{k2.default_bwd(torch.bfloat16, d)}), backward of "
             f"F.scaled_dot_product_attention {lib} ms ({note}); bound "
             f"{bd['bound_ms']:.2f} ms by {bd['bound_by']} "
-            f"({bd['bound_ms'] / new:.1%} of it) on {smi}")
+            f"({bd['bound_ms'] / new:.1%} of it), special-function floor "
+            f"{bd['bound_ms_sfu']:.2f} ms ({bd['bound_ms_sfu'] / new:.1%}) on "
+            f"{smi}")
         del args, q, k, v, bias, o, lse, do
     # The worst errors of the warpgroup body: the B2 N16384 cases, every
     # shape at d 48 and 64 above (kept with `keep` there).
     wg["max_abs_err"] = errs[torch.bfloat16]["wgmma"]
+    narrow = check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms,
+                              moved, dev, smi)
+    narrow["max_abs_err"] = max(errs[torch.bfloat16]["narrow"],
+                                narrow.pop("worst"))
 
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
@@ -1618,9 +1883,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                bound(n_ops * pairs_d, moved, "f32")),
             "body": body, "earlier_ms": f32.get(t + "_earlier"),
             "max_abs_err_bf16": errs[torch.bfloat16][key], "ms_bf16": b16[t],
-            "body_bf16": k2.fused_instance(torch.bfloat16, 16, 1, 1, 0.1).body
-            if key == "fused" else
-            k2.backward_instance(torch.bfloat16, 16, 1, 1, 0.1).body,
+            # bf16: the mma.sync bodies (the fused one at d 16 since this
+            # run's narrow body replaced it has its own entry)
+            "body_bf16": "mma",
             "earlier_ms_bf16": b16.get(t + "_earlier", b16[t]),
             "plain_ms_bf16": b16["plain"],
             "library_ms_bf16": b16["sdpa_bwd"] if lib else None,
@@ -1637,6 +1902,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         t["all_bytes"] = t["dq_bytes"] + t["dkv_bytes"]
     return {
         "wgmma": wg,
+        "narrow": narrow,
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
         "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
@@ -1644,6 +1910,82 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         "flash_attention_bwd_dkv": entry("dkv", "dkv", 8, "dkv_bytes", False,
                                          "split"),
     }
+
+
+def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
+                     smi) -> dict:
+    """Phase 7's readings of the narrow fused backward (bf16, d 16) against
+    the mma.sync fused kernel it replaced. At B2 H8 N16384, dropout 0 and
+    0.1: the mma.sync kernel held against the plain backward (the narrow
+    one is, by `agree`, in the cases above), both in turns, beside the
+    plain version, SDPA's backward and both floors. At B16 (the train
+    step's batch), dropout 0.1: the two in turns, SDPA's backward and the
+    floors. Short rows: the windowed fold ([16, 512, 256, 16]) and a CP q
+    shard (B2 H8, rows 8192.. of 16384 at q_offset 8192), each with the
+    narrow kernel held against the plain backward first. Every (q, k) pair:
+    10 operations a head-dim element (five products) and one exp."""
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    out, worst = {}, 0.0
+    shapes = [("B2", 2, 8, 16384, 16384, 0, 0.0), ("B2", 2, 8, 16384, 16384,
+                                                   0, 0.1),
+              ("B16", 16, 8, 16384, 16384, 0, 0.1),
+              ("window fold", 16, 512, 256, 256, 0, 0.1),
+              ("CP q shard", 2, 8, 8192, 16384, 8192, 0.1)]
+    for label, b, h, nq, nk, q_offset, rate in shapes:
+        args, kw = inputs(b, h, nq, nk, 16, torch.bfloat16, rate,
+                          q_offset=q_offset)
+        q, k, v, bias, o, lse, do = args
+        tag = (f"{label} H{h} {nq}x{nk} q_offset {q_offset} d16 bf16 "
+               f"dropout {rate}")
+        plain_ms = None
+        check = [] if label == "B16" else (
+            ["mma"] if label == "B2" else ["wgmma"])
+        if check:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            ref = k2.attention_bwd_plain(*args, **kw)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            for body in check:
+                got = fused_kernel(args, kw, body)
+                torch.cuda.synchronize()
+                line = []
+                for name, a, r in zip(BWD_ERR, got, ref):
+                    ok, err, text = bwd_agree(torch, a, r, torch.bfloat16,
+                                              name, body)
+                    line.append(f"{name} {text}")
+                    if body == "wgmma":
+                        worst = max(worst, err)
+                    if not ok:
+                        raise AssertionError(f"K2 bwd fused ({body}) {name} "
+                                             f"disagrees at {tag}: {text}")
+                log(f"[K2 bwd] {tag}: the fused kernel ({body}) against the "
+                    "plain version: " + ", ".join(line))
+            del ref, got
+        default = k2.fused_instance(torch.bfloat16, 16, nq, nk, rate).body
+        reps = {"mma": 3, "wgmma": 3} if b * h * nq * nk > 2**33 else {
+            "mma": 10, "wgmma": 10}
+        r = narrow_turns(torch, kernel_ms(args, kw, reps), default,
+                         f"[K2 bwd] {tag} fused kernel", smi)
+        if label.startswith("B"):
+            lib, note = sdpa_ms(q, k, v, bias, backward=True,
+                                dropout_p=rate, reps=3)
+            bd = bounds_k2(10 * b * h * nq * nk * 16, moved(args, b * h * nk),
+                           b * h * nq * nk)
+            r |= {"plain_ms": plain_ms, "library_ms": lib, **bd}
+            log(f"[K2 bwd] {tag}: narrow fused kernel {r['ms']:.2f} ms "
+                f"(mma.sync {r['earlier_ms']:.2f}), plain {plain_ms} ms, "
+                f"backward of F.scaled_dot_product_attention {lib} ms "
+                f"({note}); bound {bd['bound_ms']:.3f} ms by {bd['bound_by']}"
+                f" ({bd['bound_ms'] / r['ms']:.1%} of it), special-function "
+                f"floor {bd['bound_ms_sfu']:.3f} ms "
+                f"({bd['bound_ms_sfu'] / r['ms']:.1%} of it) on {smi}")
+        out[f"{label} dropout {rate}"] = r
+        del args, q, k, v, bias, o, lse, do
+    out["worst"] = worst
+    return out
 
 
 def check_k3(torch, dev, smi) -> dict:
@@ -1908,7 +2250,8 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             (True, other, True), (True, None, False)]
     counters = [(k1, "launches"), (k2, "launches"), (k2, "bwd_fused_launches"),
                 (k2, "bwd_dq_launches"), (k2, "bwd_dkv_launches"),
-                (k3, "launches")]
+                (k3, "launches"), (k2, "narrow_launches"),
+                (k2, "bwd_narrow_launches")]
     for mod, name in counters:
         setattr(mod, name, 0)
     bare = {}                           # remat -> the default bf16 step
@@ -1931,9 +2274,12 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             tag = (f"train step {'bf16' if bf16 else 'f32'} K2 bwd "
                    f"{bwd or k2.default_bwd(dtype(bf16), d)} remat "
                    f"{'on' if remat else 'off'}")
+            names = {}
             (state, m), dt, k1_kernels, dev_ms = device_share(
-                torch, lambda: step(state, images), tag, smi)
+                torch, lambda: step(state, images), tag, smi, k2_names=names)
             check_k1_kernels(k1_kernels, k1.launches - seen[0], tag)
+            check_narrow_names(names, k2.narrow_launches - seen[6],
+                               k2.bwd_narrow_launches - seen[7], tag)
         losses = {k: float(v) for k, v in m.items()}
         if not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"train step: non-finite metrics {losses}")
@@ -1950,7 +2296,8 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             f"sprites/s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
             f"GiB, total_loss {losses['total_loss']:.5f} recon "
             f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
-            f" on {smi}; launches (K1, K2 fwd, K2 bwd fused, dq, dk/dv, K3) "
+            f" on {smi}; launches (K1, K2 fwd, K2 bwd fused, dq, dk/dv, K3, "
+            f"of K2 the narrow fwd, bwd) "
             f"{[getattr(mod, name) - was for (mod, name), was in zip(counters, seen)]}")
         if not bf16:
             f32_step = {f"{name} {mod.__name__.rsplit('.', 1)[1]}":
@@ -1965,7 +2312,9 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
                 "flash_attention_bwd_fused": k2.bwd_fused_launches,
                 "flash_attention_bwd_dq": k2.bwd_dq_launches,
                 "flash_attention_bwd_dkv": k2.bwd_dkv_launches,
-                "mse_kl": k3.launches}
+                "mse_kl": k3.launches,
+                "flash_attention_fwd_wgmma_narrow": k2.narrow_launches,
+                "flash_attention_bwd_wgmma_narrow": k2.bwd_narrow_launches}
     log(f"[train] {sum(moved)}/{len(moved)} parameter tensors changed; "
         f"kernel launches in the train steps: {launches}")
     if min(launches.values()) <= 0:
@@ -2339,12 +2688,16 @@ def check_stages(torch, dev, smi) -> dict:
             del each, ref
             if dt == torch.float32:
                 worst = max(worst, err)
-        fo, flse = k2.flash_attention(q, k, v, bias)
+        # The stage family is built on the tensor-core bodies (bf16: the
+        # mma.sync one, which the narrow warpgroup body replaced as the
+        # default at this shape).
+        fo, flse = k2.forward_kernel(q, k, v, bias, body="mma")
         if not (torch.equal(o, fo) and torch.equal(lse, flse)):
             raise AssertionError(f"K2 stage sum is not the forward kernel at "
                                  f"dropout 0 ({dt})")
         log(f"[stages] B{b} H8 N16384 d16 {str(dt)[6:]}: " + ", ".join(line)
-            + "; sum bit-equal to flash_attention at dropout 0")
+            + "; sum bit-equal to the tensor-core forward (body mma) at "
+            "dropout 0")
     run = lambda: st.flash_fwd_stage(qs, k, v, bias, "sum", block_k)
     t_k = time_ms(torch, run, 5)
     t_p = time_ms(torch, lambda: st.flash_fwd_stage_plain(
@@ -2508,7 +2861,10 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
                 "flash_attention_bwd_wgmma": (k2, "bwd_wgmma_launches"),
                 "flash_attention_bwd_dq": (k2, "bwd_dq_launches"),
                 "flash_attention_bwd_dkv": (k2, "bwd_dkv_launches"),
-                "mse_kl": (k3, "launches")}
+                "mse_kl": (k3, "launches"),
+                "flash_attention_fwd_wgmma_narrow": (k2, "narrow_launches"),
+                "flash_attention_bwd_wgmma_narrow": (k2,
+                                                     "bwd_narrow_launches")}
 
     def counted(fn, tag):
         """fn() under torch.profiler with every count at 0 just before;
@@ -2549,6 +2905,9 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
         else:
             raise AssertionError(f"{tag}: none of {PROFILE_TRIES} profiles "
                                  "held every launch the wrappers counted")
+        # d 64: the narrow bodies (d 16) take none of these calls.
+        check_narrow_names(names, counts["flash_attention_fwd_wgmma_narrow"],
+                           counts["flash_attention_bwd_wgmma_narrow"], tag)
         slow = [n for n in names if K2_CUDA_CORE.search(n)]
         if (counts["flash_attention_fwd_wgmma"] <= 0
                 or counts["flash_attention_fwd_wgmma"]
@@ -2888,7 +3247,11 @@ WINDOW_COUNTERS = (("gn_mish", "k1", "launches"),
                    ("flash_attention_bwd_fused", "k2", "bwd_fused_launches"),
                    ("flash_attention_bwd_dq", "k2", "bwd_dq_launches"),
                    ("flash_attention_bwd_dkv", "k2", "bwd_dkv_launches"),
-                   ("mse_kl", "k3", "launches"))
+                   ("mse_kl", "k3", "launches"),
+                   ("flash_attention_fwd_wgmma_narrow", "k2",
+                    "narrow_launches"),
+                   ("flash_attention_bwd_wgmma_narrow", "k2",
+                    "bwd_narrow_launches"))
 
 
 def _counts(mods: dict, reset: bool = False) -> dict:
@@ -2940,10 +3303,14 @@ def run_window_train(torch, smi: str, mods: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     batch = images()
     tag = f"train step bf16 window {WINDOW} remat on"
+    names = {}
     (_, m), host_s, k1_kernels, dev_ms = device_share(
-        torch, lambda: step(state, batch), tag, smi)
+        torch, lambda: step(state, batch), tag, smi, k2_names=names)
     launches = _counts(mods)
     check_k1_kernels(k1_kernels, launches["gn_mish"], tag)
+    # The windowed fold's rows are short: the rule keeps mma.sync there.
+    check_narrow_names(names, launches["flash_attention_fwd_wgmma_narrow"],
+                       launches["flash_attention_bwd_wgmma_narrow"], tag)
     for key in ("gn_mish", "flash_attention_fwd", "flash_attention_bwd_fused",
                 "mse_kl"):
         if launches[key] <= 0:
@@ -4207,7 +4574,10 @@ PARITY_WINDOW_AGREE = 0.02   # (c) global against window: recon and KL at
 # in (b), bf16 on the tensor cores in (c) (the fused backward is dk/dv's
 # body with the fused dq).
 PARITY_K2_F32 = ("flash_fwd_tf32", "flash_bwd_fused_tf32")
-PARITY_K2_BF16 = ("flash_fwd_mma", "flash_bwd_dkv_mma")
+# bf16 at d 16: the narrow warpgroup bodies on the global calls, mma.sync
+# on the windowed fold's short rows (`flash_attention.NARROW_MIN_ROWS`).
+PARITY_K2_BF16 = {0: ("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
+                  WINDOW: ("flash_fwd_mma", "flash_bwd_dkv_mma")}
 
 
 def _parity_step(torch, run, i: int, tag: str, smi: str, mods: dict,
@@ -4349,7 +4719,7 @@ def run_parity(torch, tmp: Path, smi: str, mods: dict) -> dict:
                     if i == 1:
                         out["launches"][name] = _parity_step(
                             torch, run, i, f"parity {name} step 2", smi,
-                            mods, PARITY_K2_BF16)
+                            mods, PARITY_K2_BF16[window])
                     else:
                         run.step(i)
                 traj = run.trajectories()
@@ -4420,7 +4790,7 @@ def main() -> int:
         log(f"[time] phase {phase}: {seconds[phase]:.1f} s")
         return result
 
-    timed("2 build", build)
+    sass = timed("2 build", build)
     k1 = timed("3 K1", check_k1, torch, dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             timed("3 K1", check_k1_train, torch, dev))
@@ -4561,6 +4931,44 @@ def main() -> int:
                  "library_ms", "earlier_ms")},
              earlier_body="flash_bwd_dkv (CUDA cores, fused dq)",
              readings={f"d{d}": bwd["wgmma"][d] for d in (48, 64)}),
+        # The narrow warpgroup bodies (bf16 d 16, the default width): times
+        # at the teacher's shape (forward B8, dropout 0; fused backward B2,
+        # dropout 0.1, where the plain backward is timed too), each against
+        # the mma.sync body it replaced in turns, beside SDPA and both
+        # floors (`bound_ms`: the tensor cores or the bytes; `bound_ms_sfu`:
+        # one exp a score on the special-function units); every reading
+        # under `readings` (B16, dropout 0 and 0.1, the short rows), the
+        # inner loop's SASS per 32 scores under `sass`; launches in phase
+        # 10's train steps (and the forward's in phase 5's bf16
+        # decode+score).
+        dict(name="flash_attention_fwd_wgmma_narrow", route="cuda",
+             source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
+             instances=[src + f"flash_attention_fwd_wgmma_d16{x}.cu"
+                        for x in ("", "_drop")],
+             launches=train["flash_attention_fwd_wgmma_narrow"],
+             launches_decode=launches["narrow_decode"],
+             **w16("flash_attention_fwd_wgmma_narrow"),
+             max_abs_err=max(r["max_abs_err"] for key, r in
+                             k2["narrow"].items() if key != "short rows"),
+             **{key: k2["narrow"]["B8 dropout 0.0"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "library_ms", "earlier_ms")},
+             earlier_body="flash_fwd_mma", readings=k2["narrow"],
+             sass={k: v for k, v in sass.items() if k.startswith("fwd")}),
+        dict(name="flash_attention_bwd_wgmma_narrow", route="cuda",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
+             instances=[src + f"flash_attention_bwd_wgmma_d16{x}.cu"
+                        for x in ("", "_drop")],
+             launches=train["flash_attention_bwd_wgmma_narrow"],
+             **w16("flash_attention_bwd_wgmma_narrow"),
+             max_abs_err=bwd["narrow"]["max_abs_err"],
+             **{key: bwd["narrow"]["B2 dropout 0.1"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "library_ms", "earlier_ms")},
+             shape="B2 H8 N16384 dropout 0.1",
+             earlier_body="flash_bwd_dkv_mma<16, .., FUSED>",
+             readings=bwd["narrow"],
+             sass={k: v for k, v in sass.items() if k.startswith("bwd")}),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],

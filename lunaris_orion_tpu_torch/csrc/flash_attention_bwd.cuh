@@ -36,9 +36,9 @@
 // and, with dropout, the hash (five integer instructions at half the f32
 // rate) and two selects.
 //
-// Two bodies a kernel, and for the fused kernel two more: in f32 on three
-// TF32 passes, and in bf16 at d 48 and 64 on wgmma (flash_bwd_wgmma, its own
-// note below):
+// Two bodies a kernel, and for the fused kernel three more: in f32 on three
+// TF32 passes, and in bf16 on wgmma at d 48 and 64 (flash_bwd_wgmma) and at
+// d 16 (flash_bwd_wgmma_narrow; their own notes below):
 //
 //   flash_bwd_dkv_mma, flash_bwd_dq_mma   bf16, D a multiple of 16, on the
 //       tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32); 4 warps a
@@ -76,8 +76,9 @@
 //     end of the block's own operand (keys in dkv, queries in dq) are
 //     independent of the others: they read zeros and are not stored.
 //     dkv with FUSED (the single-pass form of `_bwd_fused_kernel`, bf16 at
-//       d 16 and 32): a fifth product per 16 queries, dq += round(ds) k over
-//       the warp's keys. The ds fragments are the A operand of ds^T qs with
+//       d 32, and at d 16 where Nq or Nk is shorter than the narrow body
+//       pays back, the windowed fold): a fifth product per 16 queries,
+//       dq += round(ds) k over the warp's keys. The ds fragments are the A operand of ds^T qs with
 //       keys as rows; movmatrix.trans turns each 8 x 8 block in registers
 //       into the A operand with queries as rows, and k's B fragments are kf
 //       transposed the same way once, before the query walk. Each warp
@@ -186,6 +187,10 @@ int lunaris_k2_bwd_wgmma_d48(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d48_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d64(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d64_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
+// The narrow fused warpgroup body, bf16 at d 16
+// (flash_attention_bwd_wgmma_d16{,_drop}.cu).
+int lunaris_k2_bwd_wgmma_d16(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d16_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
 
@@ -1818,6 +1823,426 @@ int launch_bwd_wgmma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Nk + kBwdWgKeys - 1) / kBwdWgKeys, a.BH);
   kernel<<<grid, kBwdWgThreads, smem, stream>>>(a, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the narrow fused warpgroup body: d 16 ----------------------------------
+
+// flash_bwd_wgmma_narrow  bf16 at D 16, the single-pass form of
+//   `_bwd_fused_kernel` at the default width. Five products a (query, key)
+//   pair are cheap at d 16 (bound 5.6 ms at B16 H8 N16384); the work per
+//   score binds: the ex2 (8.2 ms there on the special-function units), its
+//   FMA, ds = p (dpd - delta), the row sum of ds, two packs and, with
+//   dropout, the hash, several times the special-function floor in issue
+//   slots alone. flash_bwd_dkv_mma<.., FUSED> runs it in series with its
+//   mma.sync products, warp by warp; flash_bwd_wgmma's two warpgroups meet
+//   at a named barrier every tile. Here:
+//   - A block owns 192 keys: three consumer warpgroups of 64 keys each
+//     (instantiated on their index, so that every shared-memory descriptor
+//     is uniform), and a producer warp. K, V (narrow [rows][16] tiles,
+//     hopper.cuh), the keys' bias split into three bf16 parts (a [keys][16]
+//     tile) and a [1 1 1 0 ..] tile arrive once; the query walk (tiles of
+//     64, each block from its own first tile) comes through a ring of 4: q
+//     and dO by TMA (zeros past Nq; three loads in flight), -lse log2 e
+//     (-inf past Nq) and delta by the producer's lanes, which also scale q
+//     in place.
+//   - Per tile, a warpgroup issues s^T = bias + k qs^T (the bias k-step from
+//     zero, as the forward's) and dp^T = v dO^T (wgmma m64n64k16, both
+//     operands in shared memory), works out p, the mask, ds and pv in
+//     registers at the TPU kernel's rounding points, and adds dv += pv^T dO
+//     and dk += ds^T qs (wgmma m64n16k16, A from registers); dk and dv
+//     accumulate in registers over the whole walk. Every wgmma a tile issues
+//     is done before the next, and the three warpgroups run free of each
+//     other: one's per-score work runs while another's products do.
+//   - ds^T goes to shared memory with stmatrix into a [192 keys][64 queries]
+//     tile (128-byte swizzle), three of them in turn. dq = ds k over the
+//     block's 192 keys (wgmma m64n16k16, both MN-major) is formed one tile
+//     later by the warpgroup whose turn it is (tile i: warpgroup i % 3), and
+//     added to the zeroed f32 dq buffer with 16-byte reductions. The
+//     warpgroups meet only through the ds tiles' mbarriers (`ds_full`: all
+//     three wrote theirs; `ds_empty`: the owner read it).
+//   - dbias: per-key f32 sums over the 4 lanes of a key, no atomics.
+//   Dropout is a template parameter; a ragged Nq or Nk costs nothing per
+//   score. dk, dv and dbias are the same on every run; dq's last bits
+//   depend on the order of the reductions. With dropout the keep factor is
+//   one select, (keep ? 1 / (1 - rate) : 0), that multiplies dp and p.
+// Measured on an H100 (PERF.md section 6): 22.7 instructions a 32 scores
+// with dropout (flash_bwd_dkv_mma<16, .., FUSED>: 31.9), issue-bound; the
+// per-tile work (descriptors, waits, stores) is about 8 of them.
+
+constexpr int kBwdNwConsumers = 3;               // warpgroups of 64 keys
+constexpr int kBwdNwKeys = 64 * kBwdNwConsumers; // keys a block
+constexpr int kBwdNwBQ = 64;                     // queries a tile
+constexpr int kBwdNwThreads = 128 * (kBwdNwConsumers + 1);
+constexpr int kBwdNwStages = 4;
+constexpr int kBwdNwDsTiles = kBwdNwConsumers;   // tile i's is i % 3, its owner's
+constexpr int kBwdNwKvBytes = kBwdNwKeys * 32;   // K, V or the bias tile (d 16)
+constexpr int kBwdNwQBytes = kBwdNwBQ * 32;      // a q, dO or [1 1 1 0 ..] tile
+constexpr int kBwdNwDsBytes = kBwdNwKeys * kBwdNwBQ * 2;  // a ds^T tile
+
+// K, V, the bias tile, the ones tile, the ring ([stage][q, dO]), the ds^T
+// tiles, [stage][BQ] -lse log2 e and delta, the barriers, and 1024 bytes to
+// align the tiles.
+__host__ __device__ constexpr int nw_bwd_smem_bytes() {
+  return 1024 + 3 * kBwdNwKvBytes + kBwdNwQBytes +
+         kBwdNwStages * 2 * kBwdNwQBytes + kBwdNwDsTiles * kBwdNwDsBytes +
+         kBwdNwStages * 2 * kBwdNwBQ * 4 +
+         (1 + 3 * kBwdNwStages + 2 * kBwdNwDsTiles) * 8;
+}
+
+// Consumer warpgroup WG of flash_bwd_wgmma_narrow: keys 64 WG .. of the
+// block.
+template <int D, int DROP, int WG>
+__device__ __forceinline__ void consume_bwd_narrow(
+    const LunarisK2BwdArgs& a, const uint8_t* ks, const uint8_t* vs,
+    const uint8_t* bs, const uint8_t* ones, const uint8_t* ring, uint8_t* dsb,
+    const float* ls, const float* dls, uint64_t* kv_bar, uint64_t* full,
+    uint64_t* empty, uint64_t* ds_full, uint64_t* ds_empty, int tiles,
+    int first) {
+  using bf16 = __nv_bfloat16;
+  constexpr int ST = kBwdNwStages;
+  constexpr int NB = kBwdNwDsTiles;
+  constexpr int BQ = kBwdNwBQ;
+  constexpr uint32_t HI = kNarrowDescHi<D>;
+  constexpr uint32_t ROW16 = 16 * 2 * D >> 4;      // 16 narrow rows, in 16 bytes
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+  const int g = lane >> 2;         // the accumulator's row (and row + 8): a key
+  const int t = lane & 3;          // its column pair: queries
+  const int key_l = WG * 64 + (warp & 3) * 16 + g;   // within the block
+  const int key0 = blockIdx.x * kBwdNwKeys + key_l;
+  const bool drop = DROP == kDropOn;
+  // Descriptors' low halves: this warpgroup's keys of K, V and the bias,
+  // the ones tile, the block's K for dq, the ring and the ds^T tiles.
+  const uint32_t k_lo = desc_lo(ks) + WG * 4 * ROW16;
+  const uint32_t v_lo = desc_lo(vs) + WG * 4 * ROW16;
+  const uint32_t b_lo = desc_lo(bs) + WG * 4 * ROW16;
+  const uint32_t ones_lo = desc_lo(ones), kq_lo = desc_lo(ks);
+  const uint32_t ring_lo = desc_lo(ring), ds_lo = desc_lo(dsb);
+
+  float db[2] = {0.f, 0.f};
+  uint32_t k_term[2];
+  {
+    const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      k_term[r] = row_seed + static_cast<uint32_t>(key0 + 8 * r) * kC2;
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  // ds and pv as the A fragments of dk and dv over the tile's queries
+  // (8-query chunks 2 kk and 2 kk + 1 are k-step kk).
+  uint32_t dsf[4][4], pvf[4][4];
+  float dq[D / 2];
+
+  // dq of walk tile i over the block's keys, added to dq_acc: rows q0 +
+  // 16 (warp % 4) + g (+ 8). The lanes of a column quad swap a pair so
+  // that lane t even adds columns 8 c + 2 t .. + 3 of row g and lane t odd
+  // those of row g + 8 from 8 c + 2 (t - 1).
+  auto dq_tile = [&](int i) {
+    const int b = i % NB;
+    mbar_wait(&ds_full[b], (i / NB) & 1);
+    const uint32_t dst = ds_lo + b * (kBwdNwDsBytes >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdNwKeys / 16; ++kk)
+      wgmma_ss<D, 1, 1>(dq, desc_of(dst + kk * (2048 >> 4), kSw128DescHi),
+                        desc_of(kq_lo + kk * ROW16, HI), kk > 0);
+    wgmma_commit();
+  };
+  auto dq_add = [&](int i) {
+    const int qrow = walk(i) * BQ + (warp & 3) * 16 + g + (t & 1) * 8;
+    float* accrow = a.dq_acc + (static_cast<long long>(bh) * Nq + qrow) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const float sx = t & 1 ? dq[4 * c] : dq[4 * c + 2];
+      const float sy = t & 1 ? dq[4 * c + 1] : dq[4 * c + 3];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 val = t & 1 ? make_float4(rx, ry, dq[4 * c + 2], dq[4 * c + 3])
+                               : make_float4(dq[4 * c], dq[4 * c + 1], rx, ry);
+      if (qrow < Nq)
+        atomicAdd(reinterpret_cast<float4*>(accrow + 8 * c + 2 * (t & 2)), val);
+    }
+  };
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % ST;
+    const int q0 = walk(i) * BQ;
+    const uint32_t qt = ring_lo + st * (2 * kBwdNwQBytes >> 4);
+    const uint32_t dot = qt + (kBwdNwQBytes >> 4);
+    const float* lt = ls + st * BQ;
+    const float* dlt = dls + st * BQ;
+    const int b = i % NB;
+    mbar_wait(&full[st], (i / ST) & 1);
+
+    // s^T = bias + k qs^T and dp^T = v dO^T: rows are this warpgroup's
+    // keys, columns the tile's queries.
+    float s[32], dp[32];
+    wgmma_fence();
+    wgmma_ss<64, 0, 0>(s, desc_of(b_lo, HI), desc_of(ones_lo, HI), 0);
+    wgmma_ss<64, 0, 0>(s, desc_of(k_lo, HI), desc_of(qt, HI), 1);
+    wgmma_ss<64, 0, 0>(dp, desc_of(v_lo, HI), desc_of(dot, HI), 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+    wgmma_pin(dp);
+
+    // The hash of (key r, query q0 + 8 j + 2 t + c) is base[r] + (8 j + c)
+    // C3: the query's term stepped by a constant.
+    const uint32_t q_term = static_cast<uint32_t>(a.q_offset + q0 + 2 * t) * kC3;
+    const uint32_t base[2] = {k_term[0] + q_term, k_term[1] + q_term};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 nl = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+      float ds[4], pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
+        float dpd = dp[4 * j + e];
+        pv[e] = p;
+        if (drop) {
+          const bool keep = keep_hash(
+              base[e >> 1] + static_cast<uint32_t>(8 * j + (e & 1)) * kC3,
+              a.threshold);
+          const float kinv = keep ? a.inv_keep : 0.f;
+          dpd *= kinv;
+          pv[e] = p * kinv;
+        }
+        ds[e] = p * (dpd - (e & 1 ? dl.y : dl.x));
+        db[e >> 1] += ds[e];
+      }
+      const int h = 2 * (j & 1);
+      dsf[j >> 1][h] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][h + 1] = pack_bf16(ds[2], ds[3]);
+      pvf[j >> 1][h] = pack_bf16(pv[0], pv[1]);
+      pvf[j >> 1][h + 1] = pack_bf16(pv[2], pv[3]);
+    }
+
+    // ds^T to tile b for dq: k-step kk's four 8x8 blocks are (keys 0-7,
+    // queries 16 kk..), (keys 8-15, the same), (keys 0-7, 16 kk + 8..),
+    // (keys 8-15, the same); rows of 128 bytes, 128-byte swizzle.
+    if (i >= NB) mbar_wait(&ds_empty[b], (i / NB - 1) & 1);
+    {
+      uint8_t* dst = dsb + b * kBwdNwDsBytes;
+      const int row = WG * 64 + (warp & 3) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int chunk = 2 * kk + (lane >> 4);
+        stmatrix_x4(dst + row * 128 + ((chunk ^ (lane & 7)) << 4),
+                    dsf[kk][0], dsf[kk][1], dsf[kk][2], dsf[kk][3]);
+      }
+    }
+    fence_async_shared();
+    mbar_arrive(&ds_full[b]);
+
+    // dv += pv^T dO, dk += ds^T qs over the tile's 64 queries.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D, 1>(dv, pvf[kk], desc_of(dot + kk * ROW16, HI), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D, 1>(dk, dsf[kk], desc_of(qt + kk * ROW16, HI), 1);
+    wgmma_commit();
+    const bool owner = i > 0 && (i - 1) % NB == WG;
+    if (owner) dq_tile(i - 1);
+    wgmma_wait<0>();
+    wgmma_pin(dk);
+    wgmma_pin(dv);
+    wgmma_pin(dsf);
+    wgmma_pin(pvf);
+    mbar_arrive(&empty[st]);
+    if (owner) {
+      wgmma_pin(dq);
+      mbar_arrive(&ds_empty[(i - 1) % NB]);
+      dq_add(i - 1);
+    }
+  }
+  if ((tiles - 1) % NB == WG) {
+    dq_tile(tiles - 1);
+    wgmma_wait<0>();
+    wgmma_pin(dq);
+    dq_add(tiles - 1);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float dbr = db[r];
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 1);
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 2);
+    const int key = key0 + 8 * r;
+    if (key < Nk) {
+      const long long off = (static_cast<long long>(bh) * Nk + key) * D;
+      bf16* dkrow = static_cast<bf16*>(a.dk) + off;
+      bf16* dvrow = static_cast<bf16*>(a.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkrow + 8 * j + 2 * t) =
+            pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvrow + 8 * j + 2 * t) =
+            pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+      if (t == 0) a.dbias_bh[static_cast<long long>(bh) * Nk + key] = dbr;
+    }
+  }
+}
+
+template <int D, int DROP>
+__global__ void __launch_bounds__(kBwdNwThreads, 1)
+flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
+                       const __grid_constant__ K2BwdMaps maps) {
+  static_assert(D == 16, "the narrow warpgroup body takes d 16");
+  constexpr int ST = kBwdNwStages;
+  constexpr int NB = kBwdNwDsTiles;
+  constexpr int BQ = kBwdNwBQ;
+  extern __shared__ uint8_t bwd_nw_smem[];
+  uint8_t* ks = bwd_nw_smem + ((1024 - (smem_addr(bwd_nw_smem) & 1023)) & 1023);
+  uint8_t* vs = ks + kBwdNwKvBytes;
+  uint8_t* bs = vs + kBwdNwKvBytes;
+  uint8_t* ones = bs + kBwdNwKvBytes;
+  uint8_t* ring = ones + kBwdNwQBytes;
+  uint8_t* dsb = ring + ST * 2 * kBwdNwQBytes;
+  float* ls = reinterpret_cast<float*>(dsb + NB * kBwdNwDsBytes);
+  float* dls = ls + ST * BQ;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dls + ST * BQ);
+  uint64_t* tma_bar = kv_bar + 1;
+  uint64_t* full = tma_bar + ST;
+  uint64_t* empty = full + ST;
+  uint64_t* ds_full = empty + ST;
+  uint64_t* ds_empty = ds_full + NB;
+
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (Nq + BQ - 1) / BQ;
+  const int first = blockIdx.x % tiles;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 32);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&tma_bar[i], 1);
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 128 * kBwdNwConsumers);
+    }
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(&ds_full[i], 128 * kBwdNwConsumers);
+      mbar_init(&ds_empty[i], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdNwConsumers) {
+    // The producer warpgroup: one warp loads, the registers go to the
+    // consumers (3 x 128 x 160 + 128 x 32 = the block's 512 x 128).
+    setmaxnreg_dec<32>();
+    if (warp != 4 * kBwdNwConsumers) return;
+    const int key0 = blockIdx.x * kBwdNwKeys;
+    if (lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * kBwdNwKvBytes);
+      tma_load_3d(ks, &maps.k, kv_bar, 0, key0, bh);
+      tma_load_3d(vs, &maps.v, kv_bar, 0, key0, bh);
+    }
+    {
+      const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+      for (int r = lane; r < kBwdNwKeys; r += 32)
+        write_bias_row(bs, r, key0 + r < Nk ? biasb[key0 + r] : 0.f);
+      for (int r = lane; r < BQ; r += 32) write_ones_row(ones, r);
+      fence_async_shared();
+      mbar_arrive(kv_bar);
+    }
+    const float* lseb = a.lse + static_cast<long long>(bh) * Nq;
+    const float* deltab = a.delta + static_cast<long long>(bh) * Nq;
+    // q and dO of walk tile i by TMA into its stage, once the stage is free.
+    auto load = [&](int i) {
+      const int st = i % ST;
+      if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+      if (lane == 0) {
+        uint8_t* qt = ring + st * 2 * kBwdNwQBytes;
+        const int q0 = walk(i) * BQ;
+        mbar_arrive_tx(&tma_bar[st], 2 * kBwdNwQBytes);
+        tma_load_3d(qt, &maps.q, &tma_bar[st], 0, q0, bh);
+        tma_load_3d(qt + kBwdNwQBytes, &maps.dout, &tma_bar[st], 0, q0, bh);
+      }
+    };
+    // The ring's first tiles go out at once; then each tile is published
+    // (its lse and delta written, q scaled in place once it has landed),
+    // and the stage of the tile before it, once free, takes the next load:
+    // ST - 1 loads stay in flight while the consumers work.
+    for (int i = 0; i < ST && i < tiles; ++i) load(i);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % ST;
+      const int q0 = walk(i) * BQ;
+      uint8_t* qt = ring + st * 2 * kBwdNwQBytes;
+      for (int c = lane; c < BQ; c += 32) {
+        const bool in = q0 + c < Nq;
+        ls[st * BQ + c] = in ? -lseb[q0 + c] * kLog2e : -INFINITY;
+        dls[st * BQ + c] = in ? deltab[q0 + c] : 0.f;
+      }
+      // q becomes qs in place, a 16-byte chunk at a time (the swizzle moves
+      // chunks, not the values within them).
+      mbar_wait(&tma_bar[st], (i / ST) & 1);
+      uint4* chunk = reinterpret_cast<uint4*>(qt);
+      for (int c = lane; c < kBwdNwQBytes / 16; c += 32) {
+        uint4 x = chunk[c];
+        x.x = scale_bf16x2(x.x, a.scale);
+        x.y = scale_bf16x2(x.y, a.scale);
+        x.z = scale_bf16x2(x.z, a.scale);
+        x.w = scale_bf16x2(x.w, a.scale);
+        chunk[c] = x;
+      }
+      fence_async_shared();
+      mbar_arrive(&full[st]);
+      if (i >= 1 && i - 1 + ST < tiles) load(i - 1 + ST);
+    }
+  } else {
+    setmaxnreg_inc<160>();
+#define LUNARIS_BWD_NW_CONSUMER(W)                                            \
+  consume_bwd_narrow<D, DROP, W>(a, ks, vs, bs, ones, ring, dsb, ls, dls,      \
+                                 kv_bar, full, empty, ds_full, ds_empty,       \
+                                 tiles, first)
+    switch (warp >> 2) {
+      case 0: LUNARIS_BWD_NW_CONSUMER(0); break;
+      case 1: LUNARIS_BWD_NW_CONSUMER(1); break;
+      default: LUNARIS_BWD_NW_CONSUMER(2); break;
+    }
+#undef LUNARIS_BWD_NW_CONSUMER
+  }
+}
+
+template <int D, int DROP>
+int launch_bwd_wgmma_narrow(const LunarisK2BwdArgs& a, cudaStream_t stream) {
+  if (!bwd_mma_aligned(a) || reinterpret_cast<uintptr_t>(a.dk) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(a.dv) % 4 != 0 || a.dq_acc == nullptr ||
+      reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2BwdMaps maps;
+  if (!bf16_narrow_tile_map(&maps.q, a.q, a.BH, a.Nq, D, kBwdNwBQ) ||
+      !bf16_narrow_tile_map(&maps.dout, a.dout, a.BH, a.Nq, D, kBwdNwBQ) ||
+      !bf16_narrow_tile_map(&maps.k, a.k, a.BH, a.Nk, D, kBwdNwKeys) ||
+      !bf16_narrow_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kBwdNwKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_bwd_wgmma_narrow<D, DROP>;
+  constexpr int smem = nw_bwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nk + kBwdNwKeys - 1) / kBwdNwKeys, a.BH);
+  kernel<<<grid, kBwdNwThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

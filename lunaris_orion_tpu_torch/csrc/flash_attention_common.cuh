@@ -186,6 +186,47 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+// f32 b as b1 + b2 + b3, three bf16 values whose sum is b exactly (each
+// takes the next 8 of b's 24 significant bits); -inf as (-inf, 0, 0).
+// Returns the 16 bytes (b1, b2, b3, 0, 0, 0, 0, 0).
+__device__ __forceinline__ uint4 split_bf16x3(float b) {
+  const __nv_bfloat16 h1 = __float2bfloat16_rn(b);
+  const float f1 = __bfloat162float(h1);
+  const float r1 = isinf(f1) ? 0.f : b - f1;
+  const __nv_bfloat16 h2 = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 h3 = __float2bfloat16_rn(r1 - __bfloat162float(h2));
+  const auto bits = [](__nv_bfloat16 h) {
+    return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&h));
+  };
+  return make_uint4(bits(h1) | bits(h2) << 16, bits(h3), 0u, 0u);
+}
+
+// Row r of a narrow [rows][16] tile (hopper.cuh's 32-byte swizzle) as
+// (b1, b2, b3, 0, .., 0): the bias of the narrow bodies' bias k-step, the
+// B (forward: keys as n) or A (backward: keys as m) operand whose product
+// with [1 1 1 0 .. 0] is b.
+__device__ __forceinline__ void write_bias_row(uint8_t* tile, int r, float b) {
+  *reinterpret_cast<uint4*>(tile + narrow_offset<16>(r, 0)) = split_bf16x3(b);
+  *reinterpret_cast<uint4*>(tile + narrow_offset<16>(r, 8)) =
+      make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Row r of a narrow [rows][16] tile as [1 1 1 0 .. 0] (bf16).
+__device__ __forceinline__ void write_ones_row(uint8_t* tile, int r) {
+  *reinterpret_cast<uint4*>(tile + narrow_offset<16>(r, 0)) =
+      make_uint4(0x3F803F80u, 0x00003F80u, 0u, 0u);
+  *reinterpret_cast<uint4*>(tile + narrow_offset<16>(r, 8)) =
+      make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The mma.sync / wgmma A fragment of [1 1 1 0 .. 0] in every row (lane's
+// t = lane % 4): columns 0-2 are bf16 1.0.
+__device__ __forceinline__ void ones3_fragment(uint32_t (&a)[4], int t) {
+  const uint32_t x = t == 0 ? 0x3F803F80u : t == 1 ? 0x00003F80u : 0u;
+  a[0] = a[1] = x;
+  a[2] = a[3] = 0u;
+}
+
 // A pair of bf16 values times scale, rounded to bf16 again.
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   const float2 f =

@@ -6,7 +6,7 @@
 // flash_attention_fwd_simt_{f32,bf16}.cu, flash_attention_fwd_simt_f32_wide.cu
 // for d 48 and 64, flash_attention_fwd_d32.cu for bf16's tensor-core and
 // f32's CUDA-core body at d 32, and flash_attention_fwd_wgmma_d*.cu for the
-// warpgroup body, an instance a file), so that the compilers run side by
+// warpgroup bodies, an instance a file), so that the compilers run side by
 // side.
 
 #include "flash_attention_fwd.cuh"
@@ -15,7 +15,8 @@
 // contiguous. bias: [H, Nk] f32. o: [BH, Nq, d] in the input type;
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
-// body: 2 the warpgroup kernel (bf16 at d 48 or 64: wgmma fed by TMA), 1 the
+// body: 2 the warpgroup kernel (bf16 at d 16, 48 or 64: wgmma fed by TMA;
+// at d 16 its narrow form), 1 the
 // tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
 // three TF32 passes for f32), 0 the CUDA-core kernel (f32 at d 8, 16, 32, 48
 // or 64; bf16 at d 8 or 16). The caller chooses; nothing here falls from one
@@ -38,6 +39,8 @@ extern "C" int lunaris_flash_attention_fwd(
   if (body == 2) {
     if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
+      case 16: return use_dropout ? lunaris_k2_fwd_wgmma_d16_drop(a, s)
+                                  : lunaris_k2_fwd_wgmma_d16(a, s);
       case 48: return use_dropout ? lunaris_k2_fwd_wgmma_d48_drop(a, s)
                                   : lunaris_k2_fwd_wgmma_d48(a, s);
       case 64: return use_dropout ? lunaris_k2_fwd_wgmma_d64_drop(a, s)
@@ -58,3 +61,7 @@ extern "C" int lunaris_flash_attention_fwd(
 // The dynamic shared memory a launch of the warpgroup body takes (its ring
 // of K, V and bias tiles and its barriers), for the build report.
 extern "C" int lunaris_k2_fwd_wgmma_smem_bytes() { return wg_fwd_smem_bytes(); }
+// The same for the narrow warpgroup body (d 16).
+extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes() {
+  return nw_fwd_smem_bytes();
+}

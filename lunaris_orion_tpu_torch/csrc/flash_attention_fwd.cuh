@@ -41,11 +41,13 @@
 // the row sum, the pack to bf16 and, with dropout, the hash.
 //
 // Three bodies templated on the head size D, the stage level LVL (4 = the
-// full chain), the dropout mode and whether Nk may be ragged, and a fourth,
-// flash_fwd_wgmma (bf16 at d 48 and 64, the full chain only; its own note
-// below), on the D and the dropout mode alone:
+// full chain), the dropout mode and whether Nk may be ragged, and two more,
+// flash_fwd_wgmma (bf16 at d 48 and 64) and flash_fwd_wgmma_narrow (bf16 at
+// d 16), the full chain only (their own notes below), on the D and the
+// dropout mode alone:
 //
-//   flash_fwd_mma   bf16, D a multiple of 16. Both products run on the tensor
+//   flash_fwd_mma   bf16, D a multiple of 16 (at d 16 the short rows of the
+//       windowed fold since the narrow body). Both products run on the tensor
 //       cores with mma.sync m16n8k16 (bf16 x bf16 -> f32). A warp owns 32
 //       query rows at d = 16 (two 16-row tiles; one at d 32, 48, 64), 4 warps
 //       a block: 128 rows halve what a block reads of K and V against 64,
@@ -132,6 +134,10 @@ int lunaris_k2_fwd_wgmma_d48(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d48_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d64(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d64_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
+// The narrow warpgroup body, bf16 at d 16
+// (flash_attention_fwd_wgmma_d16{,_drop}.cu).
+int lunaris_k2_fwd_wgmma_d16(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d16_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 
 namespace {
 
@@ -1174,6 +1180,320 @@ int launch_wgmma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Nq + kWgRows - 1) / kWgRows, a.BH);
   kernel<<<grid, kWgThreads, smem, stream>>>(a, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the narrow warpgroup body: d 16 ----------------------------------------
+
+// flash_fwd_wgmma_narrow  bf16 at D 16, the default width (feature_dim 128 at
+//   8 heads). At d 16 the products are cheap (4 N^2 d operations: 1.1 ms at
+//   B8 H8 N16384) and the work per score binds: one ex2 on the special-
+//   function units (16 a clock an SM: 4.1 ms there), its FMA, the max, the
+//   row sum, the pack and, with dropout, the hash. flash_fwd_mma runs that
+//   work in series with its mma.sync products; flash_fwd_wgmma's layout
+//   ([rows][64], 128-byte swizzle) would multiply zeros in three of q k^T's
+//   four k-steps at d 16. Here:
+//   - Tiles of [rows][16] with the 32-byte swizzle (hopper.cuh): K and V of a
+//     key tile are 4 KB each. A block is three consumer warpgroups of 64
+//     query rows and one producer warp that keeps a ring of 4 key tiles of
+//     128 in flight (K and V by TMA, zeros past Nk) and writes each tile's
+//     bias.
+//   - The bias is a k-step of its own: the producer writes it split into
+//     three bf16 parts b1 + b2 + b3 (exactly the f32 bias; -inf past Nk) in
+//     columns 0-2 of a [keys][16] tile, and s = [1 1 1 0 ..] [b1 b2 b3 0 ..]^T
+//     + qs k^T is one wgmma m64n128k16 from zero (scale_d 0) and one more
+//     with q's A fragment in registers: no instruction a score sets the
+//     accumulator to the bias, and a key past Nk scores -inf.
+//   - Each consumer warpgroup overlaps its products with its per-score work
+//     (FlashAttention-3's intra-warpgroup order): tile j's q k^T and tile
+//     j - 1's p v (wgmma m64n16k16 with p from registers, V MN-major, summed
+//     from zero) go out together; tile j's softmax runs as soon as its
+//     scores land, under tile j - 1's p v; then o = o corr + p v is one f32
+//     FMA an element in registers. Three consumer warpgroups (160 registers
+//     each) share the special-function units and the tensor cores and meet
+//     only at the ring.
+//   - The softmax is flash_fwd_wgmma's: the row max across a row's 4 lanes
+//     with shuffles, exp as ex2.approx on one FMA, the row sum of the
+//     undropped p, the hash from each element's own (key, query) with the
+//     key's term stepped by a constant, p dropped, rescaled and packed to
+//     bf16 in registers as p v's A fragment.
+//   Dropout is a template parameter; one instance takes every Nk.
+// Rounding points are flash_fwd_mma's: p v is summed from zero a key tile
+// (of 128 here) and added to o with one rounded f32 FMA; the scores' bias
+// is added in the tensor core's f32 sum ahead of q k^T, as
+// flash_fwd_wgmma's accumulator starts at it.
+// Measured on an H100 (PERF.md section 6): 6.1 instructions and 1.03 ex2 a
+// 32 scores without dropout, about 9.3 scores a clock an SM, 60 % of the
+// ex2 rate a microbenchmark reaches; with dropout the hash makes it 13.2
+// instructions a 32 scores and issue-bound.
+
+constexpr int kNwBK = 128;                          // keys a tile
+constexpr int kNwConsumers = 3;                     // warpgroups of 64 rows
+constexpr int kNwRows = 64 * kNwConsumers;          // query rows a block
+constexpr int kNwThreads = 128 * (kNwConsumers + 1);
+constexpr int kNwStages = 4;
+constexpr int kNwTileBytes = kNwBK * 32;            // K, V or the bias at d 16
+constexpr int kNwStageBytes = 3 * kNwTileBytes;     // [K, V, bias] a stage
+
+__host__ __device__ constexpr int nw_fwd_smem_bytes() {
+  return 1024 + kNwStages * kNwStageBytes + 2 * kNwStages * 8;
+}
+
+// The consumer warpgroups of flash_fwd_wgmma_narrow. Every wgmma that a
+// tile issues is done before the next tile starts, and no instruction
+// touches the registers of a wgmma in flight (its accumulator or its A
+// fragment): ptxas serialises every wgmma of a body that breaks either
+// (C7514, C7515) and then nothing runs under the products.
+template <int D, int DROP>
+__device__ __forceinline__ void consume_fwd_narrow(
+    const LunarisK2FwdArgs& a, const uint8_t* ring, uint64_t* full,
+    uint64_t* empty, int tiles) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = kNwBK;
+  constexpr int ST = kNwStages;
+  constexpr int NJ = BK / 8;       // 8-key column chunks of s
+  constexpr uint32_t HI = kNarrowDescHi<D>;
+  const int Nq = a.Nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int g = lane >> 2;         // the fragment's row (and row + 8)
+  const int t = lane & 3;          // the fragment's column pair
+  const int row0 = blockIdx.x * kNwRows + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const bool drop = DROP == kDropOn;
+  const uint32_t ring_lo = desc_lo(ring);
+
+  // q as the A fragment of q k^T, scaled and rounded once.
+  uint32_t qf[4], ones[4];
+  {
+    const bf16* qb = static_cast<const bf16*>(a.q) + static_cast<long long>(bh) * Nq * D;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + (i & 1) * 8;
+      const int col = (i >> 1) * 8 + 2 * t;
+      uint32_t x = 0u;
+      if (row < Nq)
+        x = *reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(row) * D + col);
+      qf[i] = scale_bf16x2(x, a.scale);
+    }
+  }
+  ones3_fragment(ones, t);
+
+  float o[D / 2];                  // the tiles done, in registers
+  float pv[D / 2];                 // one tile's p v (wgmma, from zero)
+  float s[BK / 2];                 // one tile's scores, then its p in place
+  uint32_t pf[BK / 16][4];         // p as p v's A fragments (k-step kk:
+                                   // 8-key chunks 2 kk and 2 kk + 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // l: this lane's share
+  float corr[2] = {1.f, 1.f};      // exp(m before - m after) of the last tile
+  const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+  const uint32_t q_term[2] = {
+      row_seed + static_cast<uint32_t>(a.q_offset + row0) * kC3,
+      row_seed + static_cast<uint32_t>(a.q_offset + row0 + 8) * kC3};
+  const uint32_t stage_lo = kNwStageBytes >> 4;
+
+  // s = bias + qs k^T of tile j: the bias k-step from zero, then q's.
+  auto issue_scores = [&](int j) {
+    const int st = j % ST;
+    const uint32_t kt = ring_lo + st * stage_lo;
+    mbar_wait(&full[st], (j / ST) & 1);
+    wgmma_fence();
+    wgmma_rs<BK, 0>(s, ones, desc_of(kt + (2 * kNwTileBytes >> 4), HI), 0);
+    wgmma_rs<BK, 0>(s, qf, desc_of(kt, HI), 1);
+    wgmma_commit();
+  };
+  // pv = round_bf16(p) v of tile j, from zero.
+  auto issue_pv = [&](int j) {
+    const uint32_t vt = ring_lo + (j % ST) * stage_lo + (kNwTileBytes >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D, 1>(pv, pf[kk], desc_of(vt + kk * (16 * 2 * D >> 4), HI),
+                     kk > 0);
+    wgmma_commit();
+  };
+  // The online softmax of tile j on s, in place: s becomes p (dropped and
+  // rescaled); l and m move on, corr is this tile's correction.
+  auto softmax = [&](int j) {
+    // The row max as four chains a row, not one of 32.
+    float mq[2][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mq[0][c] = fmaxf(s[4 * c], s[4 * c + 1]);
+      mq[1][c] = fmaxf(s[4 * c + 2], s[4 * c + 3]);
+    }
+#pragma unroll
+    for (int c = 4; c < NJ; ++c) {
+      mq[0][c & 3] = fmaxf(mq[0][c & 3], fmaxf(s[4 * c], s[4 * c + 1]));
+      mq[1][c & 3] = fmaxf(mq[1][c & 3], fmaxf(s[4 * c + 2], s[4 * c + 3]));
+    }
+    float mx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(fmaxf(m[r], fmaxf(mq[r][0], mq[r][1])),
+                    fmaxf(mq[r][2], mq[r][3]));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    const float neg[2] = {-mx[0] * kLog2e, -mx[1] * kLog2e};
+    // The hash of (row r, key k0 + 8 c + 2 t + e) is base[r] + (8 c + e) C2:
+    // the key's term stepped by a constant.
+    const uint32_t k_term = static_cast<uint32_t>(j * BK + 2 * t) * kC2;
+    const uint32_t base[2] = {q_term[0] + k_term, q_term[1] + k_term};
+    float lq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};      // the tile's sums, 2 chains a row
+#pragma unroll
+    for (int c = 0; c < NJ; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = ex2(fmaf(s[4 * c + i], kLog2e, neg[i >> 1]));
+        lq[i >> 1][c & 1] += p;
+        if (drop) {
+          const bool keep = keep_hash(
+              base[i >> 1] + static_cast<uint32_t>(8 * c + (i & 1)) * kC2,
+              a.threshold);
+          p *= keep ? a.inv_keep : 0.f;
+        }
+        s[4 * c + i] = p;
+      }
+    l[0] += lq[0][0] + lq[0][1];
+    l[1] += lq[1][0] + lq[1][1];
+  };
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int c = 0; c < NJ; ++c) {
+      pf[c >> 1][2 * (c & 1)] = pack_bf16(s[4 * c], s[4 * c + 1]);
+      pf[c >> 1][2 * (c & 1) + 1] = pack_bf16(s[4 * c + 2], s[4 * c + 3]);
+    }
+  };
+  // o = o corr + pv: the tile before's p v, at its own correction.
+  auto add_pv = [&](const float (&c)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], c[(i >> 1) & 1], pv[i]);
+  };
+
+  // Tile j: its scores, then tile j - 1's p v, which runs under tile j's
+  // softmax; tile j's p v goes out with tile j + 1's scores.
+  issue_scores(0);
+  wgmma_wait<0>();
+  wgmma_pin(s);
+  softmax(0);
+  pack_p();
+  for (int j = 1; j < tiles; ++j) {
+    const float corr_last[2] = {corr[0], corr[1]};
+    issue_scores(j);
+    issue_pv(j - 1);
+    wgmma_wait<1>();
+    wgmma_pin(s);
+    softmax(j);
+    wgmma_wait<0>();
+    wgmma_pin(pv);
+    wgmma_pin(pf);
+    mbar_arrive(&empty[(j - 1) % ST]);
+    add_pv(corr_last);
+    pack_p();
+  }
+  issue_pv(tiles - 1);
+  wgmma_wait<0>();
+  wgmma_pin(pv);
+  wgmma_pin(pf);
+  add_pv(corr);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr = fmaxf(lr, 1e-30f);
+    const int row = row0 + 8 * r;
+    if (row < Nq) {
+      bf16* orow = static_cast<bf16*>(a.o) + (static_cast<long long>(bh) * Nq + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
+      if (t == 0) a.lse[static_cast<long long>(bh) * Nq + row] = m[r] + logf(lr);
+    }
+  }
+}
+
+template <int D, int DROP>
+__global__ void __launch_bounds__(kNwThreads, 1)
+flash_fwd_wgmma_narrow(const LunarisK2FwdArgs a,
+                       const __grid_constant__ K2FwdMaps maps) {
+  static_assert(D == 16, "the narrow warpgroup body takes d 16");
+  constexpr int BK = kNwBK;
+  constexpr int ST = kNwStages;
+  extern __shared__ uint8_t fwd_nw_smem[];
+  uint8_t* ring = fwd_nw_smem + ((1024 - (smem_addr(fwd_nw_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * kNwStageBytes);
+  uint64_t* empty = full + ST;
+
+  const int Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (Nk + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 128 * kNwConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kNwConsumers) {
+    // The producer warpgroup: one warp loads, the registers go to the
+    // consumers (3 x 128 x 160 + 128 x 32 = the block's 512 x 128).
+    setmaxnreg_dec<32>();
+    if (warp != 4 * kNwConsumers) return;
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int st = tile % ST;
+      const int k0 = tile * BK;
+      uint8_t* kt = ring + st * kNwStageBytes;
+      if (tile >= ST) mbar_wait(&empty[st], ((tile / ST) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 2 * kNwTileBytes);
+        tma_load_3d(kt, &maps.k, &full[st], 0, k0, bh);
+        tma_load_3d(kt + kNwTileBytes, &maps.v, &full[st], 0, k0, bh);
+      }
+      uint8_t* bt = kt + 2 * kNwTileBytes;
+      for (int c = lane; c < BK; c += 32)
+        write_bias_row(bt, c, k0 + c < Nk ? biasb[k0 + c] : -INFINITY);
+      fence_async_shared();        // the bias, for the consumers' wgmma
+      mbar_arrive(&full[st]);
+    }
+  } else {
+    setmaxnreg_inc<160>();
+    consume_fwd_narrow<D, DROP>(a, ring, full, empty, tiles);
+  }
+}
+
+template <int D, int DROP>
+int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
+  // TMA reads k and v from 16-byte aligned rows; q and o move 4 bytes.
+  if (reinterpret_cast<uintptr_t>(a.k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.v) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.q) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(a.o) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2FwdMaps maps;
+  if (!bf16_narrow_tile_map(&maps.k, a.k, a.BH, a.Nk, D, kNwBK) ||
+      !bf16_narrow_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kNwBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_wgmma_narrow<D, DROP>;
+  constexpr int smem = nw_fwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nq + kNwRows - 1) / kNwRows, a.BH);
+  kernel<<<grid, kNwThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

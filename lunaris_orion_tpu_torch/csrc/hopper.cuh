@@ -1,9 +1,9 @@
-// The Hopper (sm_90a) instructions of K2's warpgroup bodies, flash_fwd_wgmma
-// and flash_bwd_wgmma: mbarriers, TMA tile copies (cp.async.bulk.tensor) and
-// their tensor maps, the wgmma shared-memory matrix descriptor, and
-// wgmma.mma_async m64nNk16 (bf16 x bf16 -> f32) with A from registers ("rs")
-// or shared memory ("ss"). Included by flash_attention_common.cuh; the build
-// hashes it with the sources.
+// The Hopper (sm_90a) instructions of K2's warpgroup bodies, flash_fwd_wgmma,
+// flash_bwd_wgmma and their narrow forms: mbarriers, TMA tile copies
+// (cp.async.bulk.tensor) and their tensor maps, the wgmma shared-memory
+// matrix descriptors, stmatrix, and wgmma.mma_async m64nNk16 (bf16 x bf16 ->
+// f32) with A from registers ("rs") or shared memory ("ss"). Included by
+// flash_attention_common.cuh; the build hashes it with the sources.
 //
 // Every tile here is a [rows][64] bf16 matrix in shared memory, rows of 128
 // bytes, as TMA writes it with the 128-byte swizzle (16-byte chunk c of row r
@@ -16,6 +16,19 @@
 //             the start by 2 bytes a column.
 // In both the swizzle is a function of the address bits, so a start moved
 // within a row reads the same layout.
+//
+// The narrow bodies (flash_fwd_wgmma_narrow, flash_bwd_wgmma_narrow: d 16)
+// keep K, V, q and dO as [rows][d] tiles whose row is the swizzle's span:
+// 32 bytes at d 16 with the 32-byte swizzle (chunk c of row r at chunk
+// c ^ ((r / 4) % 2); the pattern repeats every 256 bytes), 64 at d 32 with
+// the 64-byte one (chunk c ^ ((r / 2) % 4), every 512), so no k-step
+// multiplies zeros. wgmma reads such a tile
+//   K-major   8-row groups 8 rows further on (256 or 512 bytes), a k-step
+//             of 16 by 32 bytes within the row;
+//   MN-major  (n runs along the row, all d of it) k rows one row apart, 8-row
+//             groups 8 rows apart, a k-step of 16 rows 16 rows further on.
+// The same descriptor serves both: `desc_lo` of the start and
+// `kNarrowDescHi<D>`, joined by `desc_of`.
 
 #pragma once
 
@@ -50,6 +63,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Arrives and adds `bytes` to the phase's expected transfer.
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Adds `bytes` to the phase's expected transfer without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
@@ -152,6 +173,40 @@ inline bool bf16_tile_map(CUtensorMap* map, const void* base, int BH, int N,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A bf16 [BH, N, D] tensor (D 16 or 32, rows contiguous) as a 3-D tensor map
+// whose box is `rows` rows of one BH row, D columns wide, with the swizzle
+// whose span is the row (32 bytes at D 16, 64 at D 32): rows past N arrive
+// as zeros. False when cuTensorMapEncodeTiled refuses it.
+inline bool bf16_narrow_tile_map(CUtensorMap* map, const void* base, int BH,
+                                 int N, int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || (D != 16 && D != 32)) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(N) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The byte offset of bf16 element (r, c) in a narrow tile of D columns, as
+// TMA writes it (see the top): for the tiles that threads write themselves.
+template <int D>
+__host__ __device__ __forceinline__ int narrow_offset(int r, int c) {
+  static_assert(D == 16 || D == 32, "narrow tiles: d 16 or 32");
+  constexpr int span = D / 8;                  // 16-byte chunks a row
+  return r * 2 * D + ((((c >> 3) ^ (r / (8 / span))) & (span - 1)) << 4) +
+         2 * (c & 7);
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // The descriptor of a 128-byte-swizzled tile at `p` (see the top): the
@@ -164,6 +219,40 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
          static_cast<uint64_t>(1) << 16 |              // leading offset
          static_cast<uint64_t>(1024 >> 4) << 32 |      // stride offset
          static_cast<uint64_t>(1) << 62;               // 128-byte swizzle
+}
+
+// A descriptor in two halves, for loops that step its start: the low half
+// holds the start address in 16-byte units and the leading offset (1), the
+// high half the stride offset and the layout. `desc_lo(p) + bytes / 16`
+// starts `bytes` further on (within the 256 KB of shared memory the field
+// does not carry); `desc_of` joins the halves.
+__device__ __forceinline__ uint32_t desc_lo(const void* p) {
+  return ((smem_addr(p) & 0x3FFFF) >> 4) | (1u << 16);
+}
+// The high half of a narrow tile's descriptor (see the top): 8-row groups
+// 16 D bytes apart; the 32-byte swizzle at D 16 (layout 3), the 64-byte one
+// at D 32 (layout 2). Its leading offset is never read: one swizzle span
+// holds the whole k-step or the whole n.
+template <int D>
+constexpr uint32_t kNarrowDescHi = ((16 * D) >> 4) | ((D == 16 ? 3u : 2u) << 30);
+// The high half of wgmma_desc's (128-byte swizzle).
+constexpr uint32_t kSw128DescHi = (1024 >> 4) | (1u << 30);
+__device__ __forceinline__ uint64_t desc_of(uint32_t lo, uint32_t hi) {
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+// Four 8x8 bf16 matrices to shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8 and holds, of matrix i, in r[i], elements (l / 4,
+// 2 (l % 4) + {0, 1}): the layout of an accumulator's or A fragment's
+// 8x8 blocks.
+__device__ __forceinline__ void stmatrix_x4(void* smem, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+          smem_addr(smem)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -183,6 +272,15 @@ template <int R>
 __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments in registers that a product in flight reads.
+template <int R, int C>
+__device__ __forceinline__ void wgmma_pin(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // d (+)= a b, m64nNk16, f32 sums; scale_d 0 starts from zero. The
@@ -324,14 +422,43 @@ __device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, b, scale_d);
   else {
-    static_assert(N == 48, "wgmma_rs: n 48, 64 or 128");
+    static_assert(N == 48, "wgmma_rs: n 16, 48, 64 or 128");
     wgmma_rs_n48<TB>(d, a, b, scale_d);
   }
 }
@@ -341,8 +468,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
   if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, a, b, scale_d);
   else {
-    static_assert(N == 24, "wgmma_ss: n 24, 32 or 64");
+    static_assert(N == 24, "wgmma_ss: n 16, 24, 32 or 64");
     wgmma_ss_n24<TA, TB>(d, a, b, scale_d);
   }
 }

@@ -68,6 +68,8 @@ SIGNATURES = {
                           _P),
     "lunaris_k2_fwd_wgmma_smem_bytes": (),
     "lunaris_k2_bwd_wgmma_smem_bytes": (),
+    "lunaris_k2_fwd_wgmma_narrow_smem_bytes": (),
+    "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (),
 }
 
 

@@ -14,7 +14,11 @@ other device and never falls back.
             "wgmma" bf16 at d 48, 64: two warpgroups of 64 query rows,
                     wgmma m64n128k16 for q k^T and m64n{d}k16 for p v with
                     p in registers, K, V and the bias fed by TMA through
-                    mbarriers (dropout compiled in or out);
+                    mbarriers (dropout compiled in or out); bf16 at d 16
+                    where Nq and Nk are at least NARROW_MIN_ROWS: its
+                    narrow form (three warpgroups, [rows][16] tiles with
+                    the 32-byte swizzle, the bias as a k-step of its own,
+                    each tile's softmax under the tile before's p v);
             "mma"   d 16, 32 (and f32 at 48, 64): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
@@ -33,7 +37,10 @@ other device and never falls back.
                      computed once; its dq varies from run to run in the
                      last bits (`fused_instance`): "wgmma" for bf16 at d 48
                      and 64 (five wgmma products a query tile, K and V in
-                     shared memory, fed by TMA), "mma" at d 16 and 32
+                     shared memory, fed by TMA) and at d 16 where Nq and Nk
+                     are at least NARROW_MIN_ROWS (its narrow form: three
+                     warpgroups of 64 keys that meet only at the ds tiles),
+                     "mma" at d 16 and 32
                      (five products on the tensor cores; f32 in three TF32
                      passes), "simt" at d 8 and f32 48 and 64;
             "split"  the dk/dv kernel and a dq kernel (replace
@@ -61,7 +68,8 @@ traced (`torch.export`) code take one route into the kernel.
 `launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
 count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
-of the warpgroup bodies.
+of the warpgroup bodies, and `narrow_launches` and `bwd_narrow_launches`,
+among those, the narrow ones (d 16).
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
 and backward launches on a q shard (q_offset > 0: context parallelism).
 """
@@ -83,13 +91,21 @@ shard_launches = 0
 bwd_shard_launches = 0
 wgmma_launches = 0
 bwd_wgmma_launches = 0
+narrow_launches = 0
+bwd_narrow_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
 MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core forward
 MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # the split backward's (dk/dv, dq; bf16)
 MMA_FUSED_HEAD_DIMS = (16, 32)       # the fused backward's
-WGMMA_HEAD_DIMS = (48, 64)           # the warpgroup bodies' (bf16)
+WGMMA_HEAD_DIMS = (16, 48, 64)       # the warpgroup bodies' (bf16)
+NARROW_HEAD_DIMS = (16,)             # of those, the narrow bodies' (rows of 32 bytes)
+# Where Nq or Nk is shorter the narrow bodies' set-up a block (a producer,
+# a ring, barriers) is not paid back: timed in turns on an H100 (PERF.md
+# section 6), the mma.sync bodies win at N 256 (the windowed fold), 512 and
+# 1024 and lose from 2048 on.
+NARROW_MIN_ROWS = 2048
 FWD_BODIES = ("simt", "mma", "wgmma")  # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
@@ -310,10 +326,12 @@ def default_bwd(dtype: torch.dtype, d: int) -> str:
     mask computed once for all three gradients, outweighs adding dq across
     key blocks: on the tensor cores (d 16 and 32, bf16 and f32; bf16 at
     d 48 and 64 by the warpgroup body, about half the split pair's time at
-    B16 H8 N16384), and in f32 on the CUDA cores too (d 48, 64, whose dot
-    products the dq kernel would repeat with shuffles, and d 8: 1.38-1.57
-    against 1.47-1.64 ms at B2 H8 N4096 in two runs). "split" in bf16 at
-    d 8, where the two measured within noise."""
+    B16 H8 N16384, and at d 16 by the narrow one where the rows are long,
+    by mma.sync where they are short), and in f32 on the CUDA cores too
+    (d 48, 64, whose dot products the dq kernel would repeat with
+    shuffles, and d 8: 1.38-1.57 against 1.47-1.64 ms at B2 H8 N4096 in
+    two runs). "split" in bf16 at d 8, where the two measured within
+    noise."""
     if dtype == torch.bfloat16:
         return ("fused" if d in MMA_FUSED_HEAD_DIMS + WGMMA_HEAD_DIMS
                 else "split")
@@ -354,7 +372,8 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
     passes); the CUDA cores ("simt") otherwise; and for bf16 at
     WGMMA_HEAD_DIMS, where the kernel has a warpgroup body ("wgmma": wgmma
     fed by TMA), that one. `wgmma` names the body it replaced there, which
-    `body` may still name. `body` "simt" reaches the CUDA-core kernel where
+    `body` may still name, as it may name "mma" wherever the kernel has a
+    tensor-core body. `body` "simt" reaches the CUDA-core kernel where
     the tensor-core one is the default (f32 at every head size, bf16 at
     d 16): measurements and tests compare the two; the autograd path never
     passes it."""
@@ -366,17 +385,28 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
                  and d in WGMMA_HEAD_DIMS)
     default = "wgmma" if warpgroup else "mma" if mma else "simt"
     body = body or default
-    if warpgroup:
-        ok = body in ("wgmma", wgmma)
-    else:
-        ok = body in FWD_BODIES and (body == default or (
-            body == "simt" and (dtype == torch.float32 or d == 16)))
+    ok = body in FWD_BODIES and (
+        body == default or (warpgroup and body == wgmma)
+        or (body == "mma" and mma)
+        or (body == "simt" and (dtype == torch.float32 or d == 16)))
     if not ok:
         wg = f"; wgmma: bf16 at d in {WGMMA_HEAD_DIMS}" if wgmma else ""
         raise ValueError(f"{name}: body {body!r} does not take {dtype} at "
                          f"head dim {d} (tensor cores: bf16"
                          f"{', f32' if f32 else ''} at d in {mma_dims}{wg})")
     return body
+
+
+def _short_rows_body(dtype: torch.dtype, d: int, nq: int,
+                     nk: int) -> str | None:
+    """The body bf16 at a narrow head size takes where its rows are short,
+    else None (the default of `_body`): the narrow warpgroup bodies start
+    a producer, a ring and their barriers per block, which the short rows
+    of a windowed fold (Nq = Nk = the window) do not pay back."""
+    if dtype == torch.bfloat16 and d in NARROW_HEAD_DIMS and min(
+            nq, nk) < NARROW_MIN_ROWS:
+        return "mma"
+    return None
 
 
 class ForwardInstance(NamedTuple):
@@ -399,17 +429,22 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 query rows
     and key tiles of 128 a block, dropout compiled in or out, every Nk in
     one instance: the bias masks the keys past it); `body="mma"` reaches
-    the tensor-core body it replaced there. d 16, 32, 48, 64 otherwise take
+    the tensor-core body it replaced there. bf16 at d 16 takes the narrow
+    warpgroup body ("wgmma", 192 query rows a block, key tiles of 128)
+    where Nq and Nk are both at least NARROW_MIN_ROWS, the mma.sync body
+    where either is shorter (the windowed fold); `body` reaches either, and
+    "simt". d 16, 32, 48, 64 otherwise take
     the tensor-core body of their type (f32: three TF32 passes, keys in
     tiles of 32 at d 48 and 64), d 8 the CUDA-core body (`body` as in
     `_body`). At d 16 dropout and raggedness are template parameters; the
     other head sizes of those bodies have one instance each, which masks
     the last key tile and reads the dropout flag at run time. Nq only sets
     the grid: every instance guards the rows past it."""
-    body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS, body,
-                 wgmma="mma")
+    body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS,
+                 body or _short_rows_body(dtype, d, nq, nk), wgmma="mma")
     if body == "wgmma":
-        return ForwardInstance(body, d, 128, 128, -(-nq // 128),
+        rows = 192 if d in NARROW_HEAD_DIMS else 128
+        return ForwardInstance(body, d, 128, rows, -(-nq // rows),
                                "on" if dropout_rate > 0.0 else "off",
                                nk % 128 != 0)
     if body == "mma":
@@ -446,10 +481,11 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         int(q.dtype == torch.bfloat16), FWD_BODIES.index(inst.body),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    global launches, shard_launches, wgmma_launches
+    global launches, shard_launches, wgmma_launches, narrow_launches
     launches += 1
     shard_launches += q_offset > 0
     wgmma_launches += inst.body == "wgmma"
+    narrow_launches += inst.body == "wgmma" and d in NARROW_HEAD_DIMS
     return o, lse
 
 
@@ -531,6 +567,10 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 keys a
     block, query tiles of 64, dropout compiled in or out, every Nq in one
     instance); `body="simt"` reaches the CUDA-core body it replaced there.
+    bf16 at d 16 takes the narrow warpgroup body ("wgmma": 192 keys a
+    block, query tiles of 64) where Nq and Nk are both at least
+    NARROW_MIN_ROWS, else the mma.sync body, which `body="mma"` reaches at
+    every shape.
     d 16 and 32 take the tensor-core body of their type (bf16: the dk/dv
     body with a fifth product, dq; f32: its own body, five products in
     three TF32 passes), d 8 and f32 at 48 and 64 the CUDA-core body.
@@ -539,10 +579,11 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     at d 16 and 32 at d 32; at d 16 dropout and a ragged Nq are template
     parameters; every other instance of those bodies fills the last query
     tile and reads the dropout flag at run time."""
-    body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS, body,
-                 wgmma="simt")
+    body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
+                 body or _short_rows_body(dtype, d, nq, nk), wgmma="simt")
     if body == "wgmma":
-        return FusedInstance(body, d, 64, 128, -(-nk // 128),
+        rows = 192 if d in NARROW_HEAD_DIMS else 128
+        return FusedInstance(body, d, 64, rows, -(-nk // rows),
                              "on" if dropout_rate > 0.0 else "off",
                              nq % 64 != 0)
     tile, rows = _bwd_tile_rows(body, d)
@@ -597,9 +638,10 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
-    global bwd_shard_launches, bwd_wgmma_launches
+    global bwd_shard_launches, bwd_wgmma_launches, bwd_narrow_launches
     bwd_shard_launches += q_offset > 0
     bwd_wgmma_launches += body == "wgmma"
+    bwd_narrow_launches += body == "wgmma" and d in NARROW_HEAD_DIMS
     if kernel == DKV_FUSED_DQ:
         bwd_fused_launches += 1
     elif kernel == DKV:

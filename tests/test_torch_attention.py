@@ -82,14 +82,16 @@ def test_online_plain_matches_pallas_and_two_pass(n, block_k, d, rate):
 
 
 @pytest.mark.parametrize("n", [256, 300])
-@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("d", [16, 48, 64])
 def test_online_plain_at_the_warpgroup_tile(n, d):
-    """The online form at the warpgroup body's key tile of 128 (d 48 and
-    64), with dropout: against the two-pass form, and against the Pallas
-    kernel where N % 128 == 0; f32, atol 1e-5."""
+    """The online form at the warpgroup bodies' key tile of 128 (d 16, 48
+    and 64), with dropout: against the two-pass form, and against the
+    Pallas kernel where N % 128 == 0; f32, atol 1e-5. At d 16 it is the
+    narrow body's rounding: p v summed from zero a tile of 128 keys, then
+    o = o corr + p v."""
     q, k, v, bias = _qkvb(1, 2, n, n, d, seed=n + d)
     kw = dict(dropout_rate=0.1, seed=-5)
-    inst = k2.forward_instance(BF16, d, n, n, 0.1)
+    inst = k2.forward_instance(BF16, d, n, n, 0.1, body="wgmma")
     got, lse = k2.attention_plain(*_t(q, k, v, bias), block_k=inst.block_k,
                                   **kw)
     ref, rlse = k2.attention_plain(*_t(q, k, v, bias), **kw)
@@ -124,16 +126,22 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
-    # the teacher's shape: serving (dropout 0) and training (0.1)
-    (BF16, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
-    (BF16, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
+    # the teacher's shape: serving (dropout 0) and training (0.1); bf16
+    # takes the narrow warpgroup body, 192 rows and 128 keys a tile
+    (BF16, 16, 16384, 16384, 0.0, ("wgmma", 128, 192, 86, "off", False)),
+    (BF16, 16, 16384, 16384, 0.1, ("wgmma", 128, 192, 86, "on", False)),
     (F32, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
     (F32, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
     # a q shard against the full keys (the context-parallel call)
-    (BF16, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
+    (BF16, 16, 4096, 16384, 0.1, ("wgmma", 128, 192, 22, "on", False)),
     # the card tests' shapes: ragged N, the other head sizes
     (BF16, 16, 2000, 2000, 0.0, ("mma", 64, 128, 16, "off", True)),
     (BF16, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
+    (BF16, 16, 2100, 2100, 0.1, ("wgmma", 128, 192, 11, "on", True)),
+    # short rows keep the mma.sync body at d 16: the windowed fold (N = the
+    # window, 256) and any call with fewer than NARROW_MIN_ROWS of either
+    (BF16, 16, 256, 256, 0.0, ("mma", 64, 128, 2, "off", False)),
+    (BF16, 16, 256, 256, 0.1, ("mma", 64, 128, 2, "on", False)),
     (F32, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
     (F32, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
     (F32, 16, 300, 300, 0.0, ("mma", 64, 128, 3, "off", True)),
@@ -157,10 +165,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 48 and 64 takes the warpgroup body, d 16, 32 (and
-    f32 at 48, 64) the tensor cores (f32: three TF32 passes, keys in tiles
-    of 32 at d 48 and 64), d 8 the CUDA cores; at d 16 dropout and a ragged
-    Nk are compiled in."""
+    dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 takes the
+    warpgroup bodies, d 16, 32 (and f32 at 48, 64) the tensor cores (f32:
+    three TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA
+    cores; at d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
     inst = k2.forward_instance(dtype, d, nq, nk, rate)
     assert inst == k2.ForwardInstance(body, d, block_k, rows, q_blocks,
@@ -198,7 +206,7 @@ def test_forward_instance_body_argument():
         assert k2.forward_instance(F32, d, 64, 64, 0.0, body="simt").body == \
             "simt"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
-                           (BF16, 64, "simt"), (BF16, 16, "wgmma"),
+                           (BF16, 64, "simt"), (F32, 16, "wgmma"),
                            (F32, 48, "wgmma"), (BF16, 32, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
@@ -233,6 +241,48 @@ def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
     # f32 keeps its own bodies at these head sizes
     assert k2.forward_instance(F32, d, 64, 64, 0.0).body == "mma"
     assert k2.fused_instance(F32, d, 64, 64, 0.0).body == "simt"
+
+
+@pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
+                                         (16384, 16384, 0.1),
+                                         (8192, 16384, 0.1), (2000, 300, 0.0),
+                                         (256, 256, 0.1)])
+def test_narrow_bodies_at_the_default_width(nq, nk, rate):
+    """bf16 at d 16 (feature_dim 128 at 8 heads, `TrainConfig()`'s width)
+    takes the narrow warpgroup bodies where neither Nq nor Nk is shorter
+    than NARROW_MIN_ROWS: the forward with three warpgroups of 64 rows and
+    key tiles of 128, the fused backward with 192 keys a block and query
+    tiles of 64, the fused variant by default; shorter rows (the windowed
+    fold, N = 256) keep the mma.sync bodies, which `body="mma"` reaches at
+    every shape, as `body="simt"` reaches the CUDA-core ones. The split
+    backward has no warpgroup body. Both counters count the narrow bodies'
+    launches among the warpgroup ones."""
+    assert k2.NARROW_HEAD_DIMS == (16,) and 16 in k2.WGMMA_HEAD_DIMS
+    long = min(nq, nk) >= k2.NARROW_MIN_ROWS
+    fwd = k2.forward_instance(BF16, 16, nq, nk, rate)
+    bwd = k2.fused_instance(BF16, 16, nq, nk, rate)
+    if long:
+        assert (fwd.body, fwd.block_k, fwd.rows) == ("wgmma", 128, 192)
+        assert (bwd.body, bwd.block_q, bwd.rows) == ("wgmma", 64, 192)
+        assert bwd.blocks == -(-nk // 192)
+    else:
+        assert (fwd.body, fwd.block_k, fwd.rows) == ("mma", 64, 128)
+        assert (bwd.body, bwd.rows) == ("mma", 256)
+    assert k2.default_bwd(BF16, 16) == "fused"
+    for body in ("wgmma", "mma", "simt"):
+        assert k2.forward_instance(BF16, 16, nq, nk, rate, body=body).body \
+            == body
+        assert k2.fused_instance(BF16, 16, nq, nk, rate, body=body).body \
+            == body
+    old = k2.forward_instance(BF16, 16, nq, nk, rate, body="mma")
+    assert (old.block_k, old.rows, old.dropout) == (
+        64, 128, "on" if rate else "off")
+    assert k2.backward_instance(BF16, 16, nq, nk, rate).body == "mma"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(BF16, 16, nq, nk, rate, body="wgmma")
+    # f32 keeps its own bodies at d 16
+    assert k2.forward_instance(F32, 16, nq, nk, rate).body == "mma"
+    assert k2.fused_instance(F32, 16, nq, nk, rate).body == "mma"
 
 
 def test_rectangular_q_offset_matches_pallas():

@@ -180,7 +180,9 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
     # at d 48 and 64, where the forward has a warpgroup body; f32 has a
     # tensor-core forward (three TF32 passes) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
-    assert fwd == ("wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS else
+    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS
+    assert fwd == ("wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS
+                   and not short else
                    inst.body if dtype == BF16 else
                    "mma" if d in k2.MMA_HEAD_DIMS else "simt")
 
@@ -212,10 +214,13 @@ def test_backward_instance_body_argument():
 
 @pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
     # body, query tile, keys a block, blocks, dropout, ragged Nq
-    (BF16, 16, 16384, 16384, 0.1, ("mma", 64, 256, 64, "on", False)),
-    (BF16, 16, 4096, 4096, 0.0, ("mma", 64, 256, 16, "off", False)),
+    # bf16 at d 16: the narrow warpgroup body, 192 keys a block; short
+    # rows (fewer than NARROW_MIN_ROWS queries or keys) keep mma.sync
+    (BF16, 16, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
+    (BF16, 16, 4096, 4096, 0.0, ("wgmma", 64, 192, 22, "off", False)),
     (BF16, 16, 2000, 300, 0.1, ("mma", 64, 256, 2, "on", True)),
     (BF16, 16, 300, 2000, 0.0, ("mma", 64, 256, 8, "off", True)),
+    (BF16, 16, 256, 256, 0.1, ("mma", 64, 256, 1, "on", False)),
     (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
     (BF16, 32, 300, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
     # bf16 at d 48 and 64: the warpgroup body, 128 keys a block, query
@@ -235,8 +240,8 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 48 and 64 takes the warpgroup body, d 16 and 32
-    the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
+    Nk, dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 takes
+    the warpgroup bodies, d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
     body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
     and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
     dropout and a ragged Nq are compiled in. In bf16 an mma.sync block walks
@@ -294,7 +299,7 @@ def test_fused_instance_body_argument():
     assert old == k2.FusedInstance("simt", 64, 32, 32, 63, "runtime", True)
     for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
                            (BF16, 32, "simt"),
-                           (BF16, 48, "mma"), (BF16, 16, "wgmma"),
+                           (BF16, 48, "mma"), (F32, 16, "wgmma"),
                            (F32, 64, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)

@@ -344,6 +344,8 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_simt_f32_d32.cu",
         "flash_attention_bwd_simt_f32_wide.cu",
         "flash_attention_bwd_tf32_fused.cu",
+        "flash_attention_bwd_wgmma_d16.cu",
+        "flash_attention_bwd_wgmma_d16_drop.cu",
         "flash_attention_bwd_wgmma_d48.cu",
         "flash_attention_bwd_wgmma_d48_drop.cu",
         "flash_attention_bwd_wgmma_d64.cu",
@@ -351,6 +353,8 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
+        "flash_attention_fwd_wgmma_d16.cu",
+        "flash_attention_fwd_wgmma_d16_drop.cu",
         "flash_attention_fwd_wgmma_d48.cu",
         "flash_attention_fwd_wgmma_d48_drop.cu",
         "flash_attention_fwd_wgmma_d64.cu",
@@ -383,12 +387,12 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     # or header names is one that the hash covers.
     fwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_fwd.cuh"' in p.read_text()]
-    assert len(fwd) == 12 and "flash_attention_stages.cu" in fwd
+    assert len(fwd) == 14 and "flash_attention_stages.cu" in fwd
     # Likewise the K2 backward's bodies, and what both share (the Hopper
     # instructions of the warpgroup bodies among it).
     bwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_bwd.cuh"' in p.read_text()]
-    assert len(bwd) == 14 and all(n.startswith("flash_attention_bwd")
+    assert len(bwd) == 16 and all(n.startswith("flash_attention_bwd")
                                  for n in bwd)
     for header in ("flash_attention_fwd.cuh", "flash_attention_bwd.cuh"):
         assert '#include "flash_attention_common.cuh"' in (

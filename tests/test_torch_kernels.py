@@ -202,8 +202,9 @@ def test_gn_mish_rejects_non_nhwc(cuda):
 # (f32 FMA sums, expf): 2e-5 of the largest, 1 element in 100 (measured on an
 # H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
 # rounded product): 1e-3, 3 in 100 (measured: 1.8e-4 at N 300, 9 in 1000 at
-# N 16384). The warpgroup body (wgmma, bf16 d 48 and 64) has the tensor
-# cores' bar. An element in the wrong place is off by a tenth of the largest.
+# N 16384). The warpgroup bodies (wgmma, bf16 d 16, 48 and 64) have the
+# tensor cores' bar. An element in the wrong place is off by a tenth of the
+# largest.
 _K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2),
                 "wgmma": (1e-3, 3e-2)}
 
@@ -240,8 +241,9 @@ def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
     inst = k2.forward_instance(dtype, d, n, n, rate)
+    short = d in k2.NARROW_HEAD_DIMS and n < k2.NARROW_MIN_ROWS
     assert inst.body == ("wgmma" if dtype == torch.bfloat16
-                         and d in k2.WGMMA_HEAD_DIMS else
+                         and d in k2.WGMMA_HEAD_DIMS and not short else
                          "mma" if d >= 16 else "simt")
     before = k2.launches
     o, lse = k2.flash_attention(q, k, v, bias, dropout_rate=rate, seed=-77)
@@ -275,7 +277,7 @@ def test_flash_attention_bodies_agree(cuda, n, rate):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, 16, torch.bfloat16, seed=n)
     kw = dict(dropout_rate=rate, seed=31)
     before = k2.launches
-    new, lse_new = k2.forward_kernel(q, k, v, bias, **kw)
+    new, lse_new = k2.forward_kernel(q, k, v, bias, body="mma", **kw)
     old, lse_old = k2.forward_kernel(q, k, v, bias, body="simt", **kw)
     assert k2.launches == before + 2
     _k2_bf16_close(new, old, "mma")
@@ -320,6 +322,91 @@ def test_warpgroup_bodies_and_the_bodies_they_replaced(cuda, d, nq, nk,
             _close(g, r, torch.bfloat16, name, body)
 
 
+# The narrow warpgroup bodies (bf16 d 16): ragged N on either side, a CP
+# q shard at q_offset 8192 and the windowed fold's short rows (which take
+# mma.sync by default: `body` names the narrow bodies there).
+_NARROW_SHAPES = [(2, 4, 2000, 2000, 0), (2, 4, 300, 2000, 0),
+                  (2, 4, 2000, 300, 0), (1, 2, 8192, 16384, 8192),
+                  (2, 128, 256, 256, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,nk,q_offset", _NARROW_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_narrow_bodies_and_the_bodies_they_replaced(cuda, b, h, nq, nk,
+                                                    q_offset, rate):
+    """bf16 at d 16: the narrow forward and the mma.sync forward it replaced
+    against the plain version's online form at each one's key tile, at the
+    tensor cores' bar (2 ulps + 1e-3 of the largest, 3 in 100 differ); the
+    narrow fused backward and the mma.sync fused kernel against the plain
+    backward at its bar (5 in 100), dk, dv and dbias the same bits on a
+    second run; the launches counted by the narrow counters."""
+    q, k, v, bias = _k2_inputs(cuda, b, h, nq, nk, 16, torch.bfloat16,
+                               seed=nq + nk + q_offset)
+    kw = dict(dropout_rate=rate, seed=-5, q_offset=q_offset)
+    for body in ("wgmma", "mma"):
+        inst = k2.forward_instance(torch.bfloat16, 16, nq, nk, rate, body=body)
+        before = (k2.wgmma_launches, k2.narrow_launches)
+        o, lse = k2.forward_kernel(q, k, v, bias, body=body, **kw)
+        new = body == "wgmma"
+        assert (k2.wgmma_launches, k2.narrow_launches) == (
+            before[0] + new, before[1] + new)
+        oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
+                                      **kw)
+        _k2_bf16_close(o, oo, body)
+        assert (lse - olse).abs().max().item() <= 1e-4
+    o, lse = k2.attention_plain(q, k, v, bias, **kw)
+    do = torch.randn_like(q)
+    args = (q, k, v, bias, o, lse, do)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for body in ("wgmma", "mma"):
+        before = k2.bwd_narrow_launches
+        got = _bwd_fused(args, body=body, **kw)
+        assert k2.bwd_narrow_launches == before + (body == "wgmma")
+        for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            _close(g, r, torch.bfloat16, name, body)
+        again = _bwd_fused(args, body=body, **kw)
+        for name, g, r in zip(("dk", "dv", "dbias"), got[1:], again[1:]):
+            assert torch.equal(g, r), f"{name}: same bits every run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
+                                                       (200, 300, 70, 3)])
+def test_narrow_bwd_dropout_mask_positions(cuda, nq, nk, q_offset,
+                                           row_offset):
+    """The narrow fused backward's dropout mask, position by position, is
+    the hash, as `test_flash_attention_bwd_dropout_mask_positions` holds
+    the other bodies' (dv's zeros where the mask drops a query's key, dq's
+    where it drops a key's query)."""
+    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    dtype = torch.bfloat16
+    zeros = lambda n: torch.zeros(b, h, n, d, device=cuda, dtype=dtype)
+    ones = lambda n: torch.ones(b, h, n, d, device=cuda, dtype=dtype)
+    eye = torch.eye(d, device=cuda, dtype=dtype)
+    bias = torch.zeros(h, nk, device=cuda)
+    lse = torch.zeros(b * h, nq, device=cuda)
+    kw = dict(dropout_rate=rate, seed=seed, q_offset=q_offset,
+              row_offset=row_offset)
+    rs = k2.row_seeds(seed, b * h, row_offset, cuda).reshape(b, h, 1, 1)
+    keep = k2.keep_mask(rs, torch.arange(nk, device=cuda),
+                        torch.arange(q_offset, q_offset + nq,
+                                     device=cuda)[:, None],
+                        k2.dropout_threshold(1.0 - rate))   # [b, h, nq, nk]
+    for q0 in (0, 8, 56, 121, nq - d):
+        do = zeros(nq)
+        do[:, :, q0:q0 + d] = eye
+        _, _, dv, _ = _bwd_fused((zeros(nq), zeros(nk), ones(nk), bias,
+                                  zeros(nq), lse, do), body="wgmma", **kw)
+        assert torch.equal(dv != 0, keep[:, :, q0:q0 + d].transpose(2, 3)), q0
+    for k0 in (0, 8, 56, 121, nk - d):
+        k = zeros(nk)
+        k[:, :, k0:k0 + d] = eye
+        dq, _, _, _ = _bwd_fused((zeros(nq), k, ones(nk), bias, zeros(nq),
+                                  lse, ones(nq)), body="wgmma", **kw)
+        assert torch.equal(dq != 0, keep[:, :, :, k0:k0 + d]), k0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_rectangular_offsets(cuda, dtype):
@@ -348,7 +435,8 @@ def test_flash_attention_rectangular_offsets(cuda, dtype):
                                           (torch.bfloat16, None, 16),
                                           (torch.bfloat16, "simt", 16),
                                           (torch.bfloat16, None, 64),
-                                          (torch.bfloat16, "mma", 64)])
+                                          (torch.bfloat16, "mma", 64),
+                                          (torch.bfloat16, "wgmma", 16)])
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
                                                        (200, 300, 70, 3)])
 def test_flash_attention_dropout_mask_positions(cuda, dtype, body, d, nq, nk,
@@ -358,7 +446,8 @@ def test_flash_attention_dropout_mask_positions(cuda, dtype, body, d, nq, nk,
     0 elsewhere, so o[row, j] is 0 exactly where the mask drops key k0 + j
     for that row: a fragment coordinate mixed up (row r with r + 8, a column
     pair, a key tile) moves the zeros. bf16 at d 64: the warpgroup body and
-    the tensor-core body it replaced."""
+    the tensor-core body it replaced; at d 16 the narrow warpgroup body
+    (these short rows take mma.sync by default)."""
     b, h, rate, seed = 2, 2, 0.3, 123
     q = torch.zeros(b, h, nq, d, device=cuda, dtype=dtype)
     k = torch.zeros(b, h, nk, d, device=cuda, dtype=dtype)
@@ -492,9 +581,10 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
     body = _bwd_body(variant, dtype, d, nq, nk, rate)
     mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
+    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS
     assert body == (
         "wgmma" if variant == "fused" and dtype == torch.bfloat16
-        and d in k2.WGMMA_HEAD_DIMS else
+        and d in k2.WGMMA_HEAD_DIMS and not short else
         "mma" if d in mma_dims and (
             dtype == torch.bfloat16 or variant == "fused") else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
@@ -533,7 +623,7 @@ def test_flash_attention_bwd_bodies_agree(cuda, nq, nk, rate):
     for run, counters in ((_bwd_split, ("bwd_dkv_launches", "bwd_dq_launches")),
                           (_bwd_fused, ("bwd_fused_launches",))):
         counts = [getattr(k2, c) for c in counters]
-        new, old = run(args, **kw), run(args, body="simt", **kw)
+        new, old = run(args, body="mma", **kw), run(args, body="simt", **kw)
         torch.cuda.synchronize()
         assert [getattr(k2, c) for c in counters] == [n + 2 for n in counts]
         for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
