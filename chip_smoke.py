@@ -11,7 +11,9 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc; no
               tensor-core instance spills and ptxas serialises no warpgroup
-              body's wgmma; the inner loop of each bf16 d 16 K2 instance
+              body's wgmma (the f32 ones at d 16 and their pre-pass
+              among them: registers, spills and shared bytes logged); the
+              inner loop of each bf16 d 16 K2 instance
               (the narrow warpgroup bodies and the mma.sync ones they
               replaced) counted by instruction class from its SASS, per 32
               scores;
@@ -47,16 +49,27 @@ Phases, each of which raises on failure (exit code 1):
               special-function units); the narrow body at the short rows
               (the windowed fold, a CP q shard at q_offset 8192) against
               the online form and in turns with mma.sync, which the rule
-              keeps for the fold;
+              keeps for the fold; f32 at d 16 on its warpgroup body (three
+              TF32 passes on wgmma): its pre-pass bit for bit against its
+              plain twin and timed beside its bound, then at B 8 and 16
+              with dropout 0 and 0.1, a ragged N, a CP q shard at q_offset
+              8192 and the short rows N 256 to 4096, both it and the
+              mma.sync body it replaced against the plain version at f32's
+              bars, then in turns (mma, wgmma, wgmma, mma; at N 16384 the
+              new must be faster) beside SDPA, the plain version, the
+              three-pass bound and the special-function floor;
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
               counts must be above 0; decode+score sprites/s, and one call
-              under torch.profiler: device time by kernel, idle share;
+              under torch.profiler: device time by kernel, idle share; every
+              K2 call on the narrow body in bf16 and on the f32 warpgroup
+              body in f32, by the wrappers' counts and by name;
   6. context  64 px configs (N = 4096) through the port on the CPU (plain
               versions) and on the card (kernels) from one checkpoint and
-              one z, TF32 off, at feature_dim 64 (d 8) and 256 (d 32):
-              decode within 1/255, quality within 1e-3;
+              one z, TF32 off, at feature_dim 64 (d 8), 128 (d 16, every K2
+              call on the f32 warpgroup body) and 256 (d 32): decode within
+              1/255, quality within 1e-3;
   7. K2 bwd   both backward variants (fused = dk/dv with dq; split = dk/dv +
               dq kernels) against the plain backward at B 2, H 8, N 16384,
               d 16, dropout 0 and 0.1, f32 and bf16 (the fused one on the
@@ -85,15 +98,25 @@ Phases, each of which raises on failure (exit code 1):
               0 and 0.1) and B 16 (0.1) beside the plain version, SDPA's
               backward and both floors, and at the short rows (the
               windowed fold, a CP q shard) the narrow kernel against the
-              plain backward and in turns with mma.sync;
+              plain backward and in turns with mma.sync; f32 at d 16 (the
+              fused warpgroup body, three TF32 passes on wgmma): at B 2
+              with dropout 0 and 0.1, a ragged N and a CP q shard both it
+              and the mma.sync fused kernel it replaced against the plain
+              backward (dk, dv and dbias the same bits on a second run),
+              then in turns at those shapes, at B 16 and at the short rows
+              N 1024 to 4096 (at N 16384 the new must be faster), beside
+              the plain version, SDPA's backward, the three-pass bound and
+              the special-function floor;
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
               against its earlier form (one block a sample, then torch
               sums) in turns;
-  9. grads    one `train_step` of a 64 px config (N = 4096) on the CPU
-              (plain versions) and on the card (kernels) from one state,
-              one batch and one eps, dropout 0, TF32 off: gradients (1e-3
+  9. grads    one `train_step` of a 64 px config (N = 4096; 4 heads, d 8
+              and d 16, whose K2 calls all take the f32 warpgroup bodies)
+              on the CPU (plain versions) and on the card (kernels) from
+              one state, one batch and one eps, dropout 0, TF32 off:
+              gradients (1e-3
               of each tensor's largest; 2e-2 for the parameters of the
               teacher's conv -> BatchNorm blocks, `grad_ratios`), BatchNorm
               statistics and metrics agree, and every parameter that the
@@ -351,7 +374,15 @@ width (forward B 8 dropout 0, backward B 2 dropout 0.1, N 16384) beside
 clock an SM at the card's largest SM clock), every reading under
 `readings` (B 16, the other rate, the short rows with the body faster in
 turns and the one the rule takes), and the inner loop's instructions per
-32 scores by class under `sass`, theirs and the mma.sync instances'. The
+32 scores by class under `sass`, theirs and the mma.sync instances'. So
+do the f32 ones at d 16, `flash_attention_fwd_wgmma_tf32` and
+`flash_attention_bwd_wgmma_tf32` (`launches` in phase 10's train steps,
+`launches_f32_step` in the default f32 one, the forward's
+`launches_decode` in phase 5's f32 decode+score; times at the same shapes
+against flash_fwd_tf32 and flash_bwd_fused_tf32, their `bound_ms` the
+three TF32 passes, beside `bound_ms_sfu`; every reading under
+`readings`), and their pre-pass `k2_tf32_split` (its time at B 8 N 16384
+in the forward's mode against its plain twin, bound by bytes). The
 last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
@@ -494,15 +525,28 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
+def sfu_ms(exps: float) -> float:
+    """exps over the special-function units: 16 a clock an SM at the card's
+    largest SM clock."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (SFU_PER_CLOCK * sms * SM_CLOCK_MHZ * 1e6) * 1e3
+
+
 def bounds_k2(ops: float, moved: float, exps: float) -> dict:
     """A bf16 K2 kernel: both floors, each named. `bound_ms` is `bound()`'s
     (the tensor cores' rate or the bytes, the larger); `bound_ms_sfu` the
     exps over the special-function units (16 a clock an SM at the card's
     largest SM clock), which at d 16 is the larger of the two."""
-    import torch
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sfu = exps / (SFU_PER_CLOCK * sms * SM_CLOCK_MHZ * 1e6) * 1e3
-    return {**bound(ops, moved, "bf16"), "bound_ms_sfu": sfu}
+    return {**bound(ops, moved, "bf16"), "bound_ms_sfu": sfu_ms(exps)}
+
+
+def bounds_tf32_k2(ops: float, moved: float, exps: float) -> dict:
+    """An f32 K2 kernel on the tensor cores: `bounds_f32`'s (three TF32
+    passes, the least time, and the CUDA cores' f32 rate) and the
+    special-function floor of `bounds_k2`, which at d 16 is below the
+    three passes."""
+    return {**bounds_f32(ops, moved), "bound_ms_sfu": sfu_ms(exps)}
 
 
 def nbytes(*tensors) -> int:
@@ -521,13 +565,16 @@ K1_KERNELS = ("gn_stats_partial", "gn_mish_apply_fold", "gn_mish_apply",
 # Where a path's device time goes: the port's kernels by a part of their
 # (demangled) name. The fused backward is the dk/dv kernel whose last
 # template argument, kFusedDq or FUSED, is true, or a body of its own
-# (f32: flash_bwd_fused_tf32; bf16 d 48, 64: flash_bwd_wgmma).
+# (f32: flash_bwd_fused_tf32 and flash_bwd_wgmma_tf32; bf16 d 48, 64:
+# flash_bwd_wgmma). The f32 warpgroup bodies' pre-pass is a group of its
+# own.
 KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
                  ("K2 bwd fused", lambda k: "flash_bwd_fused" in k
                   or "flash_bwd_wgmma" in k
                   or re.search(r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
                  ("K2 bwd dk/dv", lambda k: "flash_bwd_dkv" in k),
                  ("K2 bwd dq", lambda k: "flash_bwd_dq" in k),
+                 ("K2 tf32 pre-pass", lambda k: "k2_tf32_split" in k),
                  ("K1", lambda k: any(p in k for p in K1_KERNELS)),
                  ("K3", lambda k: "mse_kl" in k))
 
@@ -541,21 +588,37 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
                              f"{want} for {calls} calls")
 
 
-def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str) -> dict:
-    """The narrow K2 bodies (bf16, d 16) by name in a profile (`names`,
-    device_share's K2 instances) against the wrappers' counts of the same
-    run: logged; a profile that holds none of the launches counted, or
-    more, fails (torch.profiler may drop a session's first records)."""
-    seen = {"fwd": sum(c for n, c in names.items()
-                       if "flash_fwd_wgmma_narrow" in n),
-            "bwd": sum(c for n, c in names.items()
-                       if "flash_bwd_wgmma_narrow" in n)}
-    log(f"[profile] {tag}: narrow K2 bodies by name fwd {seen['fwd']}, bwd "
-        f"{seen['bwd']}; by the wrappers' counts fwd {fwd}, bwd {bwd}")
+# The K2 warpgroup bodies at d 16 by kind: (forward, backward) by a part of
+# their name, and the mma.sync bodies they replaced.
+D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
+                         ("flash_fwd_mma", "flash_bwd_dkv_mma")),
+              "f32 warpgroup": (("flash_fwd_wgmma_tf32", "flash_bwd_wgmma_tf32"),
+                                ("flash_fwd_tf32", "flash_bwd_fused_tf32"))}
+
+
+def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str,
+                       kind: str = "narrow", every: bool = False) -> dict:
+    """The d 16 K2 warpgroup bodies of `kind` (the narrow bf16 ones, or
+    the f32 ones) by name in a profile (`names`, device_share's K2
+    instances) against the wrappers' counts of the same run: logged; a
+    profile that holds none of the launches counted, or more, fails
+    (torch.profiler may drop a session's first records). With `every`, the
+    run's K2 calls all took them: no instance of the mma.sync bodies they
+    replaced appears by name."""
+    new, old = D16_BODIES[kind]
+    seen = {key: sum(c for n, c in names.items() if body in n)
+            for key, body in zip(("fwd", "bwd"), new)}
+    replaced = {n: c for n, c in names.items() if any(b in n for b in old)}
+    log(f"[profile] {tag}: {kind} K2 bodies by name fwd {seen['fwd']}, bwd "
+        f"{seen['bwd']}; by the wrappers' counts fwd {fwd}, bwd {bwd}"
+        + (f"; the mma.sync bodies by name {replaced}" if every else ""))
     for key, n in (("fwd", fwd), ("bwd", bwd)):
         if seen[key] > n or (n > 0 and seen[key] == 0):
-            raise AssertionError(f"{tag}: the narrow K2 {key} body by name "
+            raise AssertionError(f"{tag}: the {kind} K2 {key} body by name "
                                  f"{seen[key]} against {n} counted")
+    if every and replaced:
+        raise AssertionError(f"{tag}: K2 calls on the mma.sync bodies "
+                             f"{replaced}")
     return seen
 
 
@@ -670,10 +733,11 @@ def build() -> None:
             "flash_bwd_fused_tf32" in fn for fn in tf32):
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
-    # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, and the
-    # narrow ones at d 16): no instance spills, and setmaxnreg moves the
-    # registers (ptxas reports the count at entry, 168 for 384 threads and
-    # 128 for 512; the consumers take 232, the narrow bodies' 160).
+    # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
+    # ones at d 16, and f32's at d 16 on three TF32 passes): no instance
+    # spills, and setmaxnreg moves the registers (ptxas reports the count
+    # at entry, 168 for 384 threads and 128 for 512; the consumers take 232,
+    # the narrow bodies' and the f32 forward's 160).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -681,7 +745,7 @@ def build() -> None:
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas ignored setmaxnreg: {line.strip()}")
         if fn and ("flash_fwd_wgmma" in fn or "flash_bwd_wgmma" in fn):
-            if "C7514" in line or "C7515" in line:
+            if "C7512" in line or "C7514" in line or "C7515" in line:
                 raise AssertionError(f"ptxas serialised a warpgroup body's "
                                      f"wgmma: {line.strip()}")
             regs = re.search(r"Used (\d+) registers", line)
@@ -689,25 +753,30 @@ def build() -> None:
             row = wg.setdefault(fn, [0, 0])
             row[0] = int(regs.group(1)) if regs else row[0]
             row[1] = int(spill.group(1)) if spill else row[1]
-    # (a name is matched before any that it contains)
+    # (a name is matched before any that it contains): the dynamic shared
+    # memory, the consumers' registers and the instances of each body
     smem = {"flash_fwd_wgmma_narrow":
-            lib_smem("lunaris_k2_fwd_wgmma_narrow_smem_bytes"),
+            (lib_smem("lunaris_k2_fwd_wgmma_narrow_smem_bytes"), 160, 2),
             "flash_bwd_wgmma_narrow":
-            lib_smem("lunaris_k2_bwd_wgmma_narrow_smem_bytes"),
-            "flash_fwd_wgmma": lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
-            "flash_bwd_wgmma": lib_smem("lunaris_k2_bwd_wgmma_smem_bytes")}
+            (lib_smem("lunaris_k2_bwd_wgmma_narrow_smem_bytes"), 160, 2),
+            "flash_fwd_wgmma_tf32":
+            (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes"), 160, 2),
+            "flash_bwd_wgmma_tf32":
+            (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes"), 232, 2),
+            "flash_fwd_wgmma": (lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
+                                232, 4),
+            "flash_bwd_wgmma": (lib_smem("lunaris_k2_bwd_wgmma_smem_bytes"),
+                                232, 4)}
+    counts = dict.fromkeys(smem, 0)
     for fn, (regs, spill) in sorted(wg.items()):
         body = next(b for b in smem if b in fn)
+        counts[body] += 1
         log(f"[build] K2 warpgroup {fn}: {regs} registers at entry ("
-            f"{160 if 'narrow' in body else 232} in the consumer "
-            f"warpgroups), {spill} bytes spilled, {smem[body]} bytes of "
-            "dynamic shared memory")
+            f"{smem[body][1]} in the consumer warpgroups), {spill} bytes "
+            f"spilled, {smem[body][0]} bytes of dynamic shared memory")
         if spill:
             spills.append(fn)
-    counts = {b: sum(b in fn and (b.endswith("narrow") or "narrow" not in fn)
-                     for fn in wg) for b in smem}
-    if counts != dict.fromkeys(smem, 4) | {"flash_fwd_wgmma_narrow": 2,
-                                           "flash_bwd_wgmma_narrow": 2}:
+    if counts != {b: n for b, (_, _, n) in smem.items()}:
         raise AssertionError(f"the K2 warpgroup instances are missing from "
                              f"the build's report: {sorted(wg)}")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
@@ -1124,9 +1193,10 @@ def check_k2(torch, dev, smi) -> dict:
             continue
         del ro, rlse
         f32 = dt == torch.float32
-        if inst.body == "wgmma" and d in k2.NARROW_HEAD_DIMS:
+        if inst.body == "wgmma" and d in k2.NARROW_HEAD_DIMS and not f32:
             # bf16 at d 16: the narrow warpgroup body against mma.sync in
-            # turns, beside SDPA, the plain version and both floors.
+            # turns, beside SDPA, the plain version and both floors (f32's
+            # warpgroup body: `check_tf32_fwd`).
             r = wgmma_turns(q, k, v, bias, kw, t_k, err, tag)
             narrow[f"B{b} dropout {rate}"] = r
             if b == 8 and rate == 0.0:
@@ -1139,7 +1209,7 @@ def check_k2(torch, dev, smi) -> dict:
                         "earlier_ms_bf16": r["earlier_ms"],
                         "body_bf16": inst.body}
             continue
-        if inst.body == "wgmma":
+        if inst.body == "wgmma" and not f32:
             wg[f"d{d} dropout {rate}"] = wgmma_turns(q, k, v, bias, kw, t_k,
                                                      err, tag)
             continue
@@ -1197,17 +1267,129 @@ def check_k2(torch, dev, smi) -> dict:
     out["wgmma_shard"] = check_k2_shard(torch, k2, g, dev)
     narrow["short rows"] = narrow_short_rows(torch, k2, g, dev, smi)
     out["narrow"] = narrow
+    out["tf32"] = check_tf32_fwd(torch, k2, g, dev, smi)
     return out
 
 
-def narrow_turns(torch, run, default, what, smi) -> dict:
-    """run(body) for the narrow body and the mma.sync one in turns (mma,
-    wgmma, wgmma, mma): the better of each pair, which one the dispatch
-    rule picks at this shape (`default`) and which one was faster."""
+def tf32_split_check(torch, k2, g, dev, smi) -> dict:
+    """The f32 warpgroup bodies' pre-pass against its plain twin, bit for
+    bit, in each mode (the forward's at B8 H8 N16384, the backward's at a
+    ragged B2 H8 N2100), and its time beside the twin's and its bound: it
+    reads K and V once and writes each as TF32 hi and lo."""
+    b, h, n = 8, 8, 16384
+    k, v = (torch.randn(b, h, n, 16, generator=g, device=dev)
+            for _ in range(2))
+    got = k2.tf32_tiles(k2.TF32_FWD, k, v)
+    want = k2.tf32_tiles_plain(k2.TF32_FWD, k, v)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    q, do = (torch.randn(2, 8, 2100, 16, generator=g, device=dev)
+             for _ in range(2))
+    lse = torch.randn(16, 2100, generator=g, device=dev)
+    delta = torch.randn(2, 8, 2100, generator=g, device=dev)
+    for mode, args in ((k2.TF32_BWD_Q, (q, do, lse, delta)),
+                       (k2.TF32_BWD_K, (q,))):
+        a = k2.tf32_tiles(mode, *args, scale=0.25)
+        w = k2.tf32_tiles_plain(mode, *args, scale=0.25)
+        same = same and torch.equal(a.view(torch.int32), w.view(torch.int32))
+    ms = time_ms(torch, lambda: k2.tf32_tiles(k2.TF32_FWD, k, v), 10)
+    plain = time_ms(torch, lambda: k2.tf32_tiles_plain(k2.TF32_FWD, k, v), 2)
+    bd = bound(0, nbytes(k, v, got), "f32")
+    log(f"[K2] f32 pre-pass (tf32_tiles) B{b} H{h} N{n}: bit-equal with its "
+        f"plain twin in every mode {same}; {ms:.3f} ms, plain {plain:.1f} ms, "
+        f"bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+        f"({bd['bound_ms'] / ms:.1%} of it) on {smi}")
+    if not same:
+        raise AssertionError("the f32 pre-pass differs from its plain twin")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, **bd,
+            "library_ms": None, "shape": f"B{b} H{h} N{n} d16, forward mode"}
+
+
+def check_tf32_fwd(torch, k2, g, dev, smi) -> dict:
+    """Phase 4's readings of the f32 warpgroup forward (d 16, three TF32
+    passes on wgmma) against flash_fwd_tf32 (mma.sync), the body it
+    replaced at long rows. Each shape: both held to the plain version at
+    f32's bars (o 1e-5, lse 1e-4), then timed in turns (mma, wgmma, wgmma,
+    mma). At N16384 (B8 and B16, dropout 0 and 0.1) the new one must be
+    faster, and is logged beside SDPA in f32, the plain version (B8,
+    dropout 0), the three-pass bound and the special-function floor with
+    both shares. Then a ragged N, a CP shard at q_offset 8192 and the short
+    rows N 256 to 4096, whose turns set TF32_WGMMA_MIN_ROWS."""
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    out, worst = {"pre-pass": tf32_split_check(torch, k2, g, dev, smi)}, 0.0
+    shapes = [("B8", 8, 16384, 16384, 0, 0.0), ("B8", 8, 16384, 16384, 0, 0.1),
+              ("B16", 16, 16384, 16384, 0, 0.0),
+              ("B16", 16, 16384, 16384, 0, 0.1),
+              ("ragged", 4, 2100, 2100, 0, 0.1),
+              ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
+    shapes += [(f"short rows N{n}", 64 if n < 2048 else 16, n, n, 0, 0.1)
+               for n in (256, 512, 1024, 2048, 4096)]
+    for label, b, nq, nk, q_offset, rate in shapes:
+        q = torch.randn(b, 8, nq, 16, generator=g, device=dev)
+        k, v = (torch.randn(b, 8, nk, 16, generator=g, device=dev)
+                for _ in range(2))
+        bias = 0.5 * torch.randn(8, nk, generator=g, device=dev)
+        kw = dict(dropout_rate=rate, seed=-1234567, q_offset=q_offset)
+        tag = f"{label} H8 {nq}x{nk} q_offset {q_offset} d16 f32 dropout {rate}"
+        ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
+        line = []
+        for body in ("mma", "wgmma"):
+            seen = k2.tf32_wgmma_launches
+            o, lse = k2.forward_kernel(q, k, v, bias, body=body, **kw)
+            torch.cuda.synchronize()
+            err = (o - ro).abs().max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            if body == "wgmma":
+                worst = max(worst, err)
+                if k2.tf32_wgmma_launches != seen + 1:
+                    raise AssertionError(f"K2 at {tag}: the f32 warpgroup "
+                                         "body was not counted")
+            line.append(f"{body} max_abs_err {err:.2e} lse_err {lse_err:.1e}")
+            if err > 1e-5 or lse_err > 1e-4:
+                raise AssertionError(f"K2 f32 {body} disagrees with the plain "
+                                     f"version at {tag}")
+        log(f"[K2] {tag}: " + ", ".join(line) + " (bars 1e-5, 1e-4)")
+        default = k2.forward_instance(torch.float32, 16, nq, nk, rate).body
+        big = nq * nk * b > 2**31
+        run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
+            q, k, v, bias, body=body, **kw), 5 if big else 10)
+        r = narrow_turns(torch, run, default, f"[K2] {tag}", smi,
+                         new="f32 warpgroup (wgmma)")
+        if nq == nk == 16384:
+            if r["faster"] != "wgmma":
+                raise AssertionError(f"K2 at {tag}: the f32 warpgroup body is "
+                                     "no faster than the mma.sync one")
+            lib, note = sdpa_ms(q, k, v, bias, dropout_p=rate, reps=3)
+            bd = bounds_tf32_k2(4 * b * 8 * nq * nk * 16,
+                                nbytes(q, k, v, bias, o, lse), b * 8 * nq * nk)
+            t_p = (time_ms(torch, lambda: k2.attention_plain(q, k, v, bias,
+                                                             **kw), 1)
+                   if label == "B8" and rate == 0.0 else None)
+            r |= {"library_ms": lib, "plain_ms": t_p, **bd}
+            log(f"[K2] {tag}: f32 warpgroup {r['ms']:.3f} ms (mma.sync "
+                f"{r['earlier_ms']:.3f}), F.scaled_dot_product_attention "
+                f"{lib} ms ({note}), plain {t_p} ms; three-pass bound "
+                f"{bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+                f"({bd['bound_ms'] / r['ms']:.1%} of it), special-function "
+                f"floor {bd['bound_ms_sfu']:.3f} ms "
+                f"({bd['bound_ms_sfu'] / r['ms']:.1%} of it) on {smi}")
+        out[f"{label} dropout {rate}"] = r
+        del q, k, v, bias, ro, rlse, o, lse
+    out["max_abs_err"] = worst
+    return out
+
+
+def narrow_turns(torch, run, default, what, smi,
+                 new: str = "narrow (wgmma)") -> dict:
+    """run(body) for a warpgroup body (the narrow one unless `new` says
+    otherwise) and the mma.sync one in turns (mma, wgmma, wgmma, mma): the
+    better of each pair, which one the dispatch rule picks at this shape
+    (`default`) and which one was faster."""
     t = [run("mma"), run("wgmma"), run("wgmma"), run("mma")]
+    label = new
     new, old = min(t[1:3]), min(t[0], t[3])
     faster = "wgmma" if new < old else "mma"
-    log(f"{what}: mma.sync {t[0]:.3f}, narrow (wgmma) {t[1]:.3f}, "
+    log(f"{what}: mma.sync {t[0]:.3f}, {label} {t[1]:.3f}, "
         f"{t[2]:.3f}, mma.sync {t[3]:.3f} ms on {smi}; faster in turns: "
         f"{faster}, the rule takes {default}")
     return {"ms": new, "earlier_ms": old, "faster": faster,
@@ -1399,17 +1581,24 @@ def run_slice(torch, tmp: Path, smi: str) -> dict:
             f"{ms:.1f} ms = {8 / ms * 1e3:.2f} sprites/s on {smi}; launches "
             f"a call: K1 {per_call[0]}, K2 fwd {per_call[1]}")
         tag = f"decode+score batch 8 {'bf16' if bf16 else 'f32'}"
-        names, narrow = {}, k2.narrow_launches
+        names = {}
+        narrow, tf32 = k2.narrow_launches, k2.tf32_wgmma_launches
         _, _, k1_kernels, _ = device_share(
             torch, lambda: gen.decode_and_score(z), tag, smi, k2_names=names)
         check_k1_kernels(k1_kernels, per_call[0], tag)
         narrow = k2.narrow_launches - narrow
+        tf32 = k2.tf32_wgmma_launches - tf32
         check_narrow_names(names, narrow, 0, tag)
-        if bf16:
-            launches["narrow_decode"] = narrow
-            if narrow != per_call[1]:
-                raise AssertionError(f"{tag}: {narrow} of the {per_call[1]} "
-                                     "K2 forward calls took the narrow body")
+        # f32 at the teacher's N16384: every K2 call on the f32 warpgroup
+        # body, by the wrappers' counts and by name.
+        check_narrow_names(names, tf32, 0, tag, "f32 warpgroup",
+                           every=not bf16)
+        key, body, n = (("narrow_decode", "narrow", narrow) if bf16 else
+                        ("tf32_decode", "f32 warpgroup", tf32))
+        launches[key] = n
+        if n != per_call[1]:
+            raise AssertionError(f"{tag}: {n} of the {per_call[1]} K2 "
+                                 f"forward calls took the {body} body")
     return launches
 
 
@@ -1459,7 +1648,9 @@ def run_context(torch, tmp: Path, feature_dim: int) -> None:
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
 
     # 64 px, 2 experts, 8 heads: N = 4096 > 1024 runs K2 at head size
-    # feature_dim / 8 (64: d 8; 256: d 32, the low-end recipe's width).
+    # feature_dim / 8 (64: d 8; 128: d 16, the default width, on the f32
+    # warpgroup body; 256: d 32, the low-end recipe's width).
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=feature_dim,
                       embedding_dim=32, num_experts=2)
     ckpt = tmp / f"ctx{feature_dim}.pt"
@@ -1468,16 +1659,22 @@ def run_context(torch, tmp: Path, feature_dim: int) -> None:
     # TF32 off for this comparison (the generator's f32 mode turns it off
     # too): cuDNN's default TF32 convolutions would break both bars.
     res = {}
+    seen = (k2.launches, k2.tf32_wgmma_launches)
     with full_f32():
         for dev in ("cpu", "cuda"):
             gen = ImageGenerator(str(ckpt), device=dev)
             imgs, quality, _ = gen.decode_and_score(z.to(dev))
             res[dev] = (imgs.cpu(), quality.cpu())
+    calls = (k2.launches - seen[0], k2.tf32_wgmma_launches - seen[1])
     d_img = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
     d_q = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
     log(f"[context] 64 px, feature_dim {feature_dim} (d {feature_dim // 8}), "
         f"TF32 off, CPU plain vs card kernels: decode max diff {d_img:.3e} "
-        f"(bar {1 / 255:.3e}), quality max diff {d_q:.3e} (bar 1e-3)")
+        f"(bar {1 / 255:.3e}), quality max diff {d_q:.3e} (bar 1e-3); K2 "
+        f"calls {calls[0]}, on the f32 warpgroup body {calls[1]}")
+    if feature_dim == 128 and not 0 < calls[0] == calls[1]:
+        raise AssertionError(f"context d 16: K2 calls {calls} off the f32 "
+                             "warpgroup body")
     if d_img > 1 / 255 or d_q > 1e-3:
         raise AssertionError("kernels in context disagree with the CPU run "
                              f"at feature_dim {feature_dim}")
@@ -1531,7 +1728,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(3)
     errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0, "wgmma": 0.0,
-                 "narrow": 0.0} for dt in (torch.float32, torch.bfloat16)}
+                 "narrow": 0.0, "tf32": 0.0}
+            for dt in (torch.float32, torch.bfloat16)}
 
     def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
         q = torch.randn(b, h, nq, d, generator=g, device=dev).to(dt)
@@ -1570,7 +1768,8 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                            "dq" if name == "dq" else "dkv")
                     errs[dt][key] = max(errs[dt][key], err)
                 if body[variant] == "wgmma" and variant == "fused":
-                    key = "narrow" if d in k2.NARROW_HEAD_DIMS else "wgmma"
+                    key = ("tf32" if dt == torch.float32 else "narrow"
+                           if d in k2.NARROW_HEAD_DIMS else "wgmma")
                     errs[dt][key] = max(errs[dt][key], err)
             del got
         log(f"[K2 bwd] {tag} (fused: {body['fused']}, split: "
@@ -1865,6 +2064,9 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                               moved, dev, smi)
     narrow["max_abs_err"] = max(errs[torch.bfloat16]["narrow"],
                                 narrow.pop("worst"))
+    tf32 = check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
+                          smi)
+    tf32["max_abs_err"] = max(errs[torch.float32]["tf32"], tf32.pop("worst"))
 
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
@@ -1903,6 +2105,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     return {
         "wgmma": wg,
         "narrow": narrow,
+        "tf32": tf32,
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
         "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
@@ -1988,6 +2191,102 @@ def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
     return out
 
 
+def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
+                   smi) -> dict:
+    """Phase 7's readings of the f32 fused warpgroup backward (d 16, three
+    TF32 passes on wgmma) against flash_bwd_fused_tf32 (mma.sync), the body
+    it replaced at long rows. B2 H8 N16384, dropout 0 and 0.1, a ragged N
+    and a CP q shard (rows 8192.. of 16384 at q_offset 8192): both kernels
+    held to the plain backward at f32's bar (1e-4 of each gradient's
+    largest + 1e-6), dk, dv and dbias the same bits on a second run of the
+    new one; then both in turns. At N16384 (B2 and B16, the train step's
+    batch) the new one must be faster, and is logged beside the plain
+    version (B2), SDPA's backward in f32, the three-pass bound and the
+    special-function floor. The short rows N 1024 to 4096 in turns set
+    TF32_WGMMA_MIN_ROWS. Every (q, k) pair: 10 operations a head-dim
+    element (five products) and one exp."""
+    from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    out, worst = {}, 0.0
+    shapes = [("B2", 2, 16384, 16384, 0, 0.0), ("B2", 2, 16384, 16384, 0, 0.1),
+              ("B16", 16, 16384, 16384, 0, 0.1),
+              ("ragged", 2, 2100, 2100, 0, 0.1),
+              ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
+    shapes += [(f"short rows N{n}", 16, n, n, 0, 0.1) for n in (1024, 2048,
+                                                                4096)]
+    for label, b, nq, nk, q_offset, rate in shapes:
+        args, kw = inputs(b, 8, nq, nk, 16, torch.float32, rate,
+                          q_offset=q_offset)
+        q, k, v, bias, o, lse, do = args
+        tag = (f"{label} H8 {nq}x{nk} q_offset {q_offset} d16 f32 "
+               f"dropout {rate}")
+        plain_ms = None
+        if label != "B16":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            ref = k2.attention_bwd_plain(*args, **kw)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            for body in ("mma", "wgmma"):
+                seen = k2.bwd_tf32_wgmma_launches
+                got = fused_kernel(args, kw, body)
+                torch.cuda.synchronize()
+                line = []
+                for name, a, r in zip(BWD_ERR, got, ref):
+                    ok, err, text = bwd_agree(torch, a, r, torch.float32, name,
+                                              body)
+                    line.append(f"{name} {text}")
+                    if body == "wgmma":
+                        worst = max(worst, err)
+                    if not ok:
+                        raise AssertionError(f"K2 bwd fused f32 ({body}) "
+                                             f"{name} disagrees at {tag}: "
+                                             f"{text}")
+                if body == "wgmma":
+                    if k2.bwd_tf32_wgmma_launches != seen + 1:
+                        raise AssertionError(f"K2 bwd at {tag}: the f32 "
+                                             "warpgroup body was not counted")
+                    again = fused_kernel(args, kw, body)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(got[1:], again[1:]))
+                    line.append(f"dk, dv, dbias bit-equal on a second run "
+                                f"{same}")
+                    if not same:
+                        raise AssertionError(f"K2 bwd at {tag}: dk, dv or "
+                                             "dbias differ from run to run")
+                    del again
+                log(f"[K2 bwd] {tag}: the fused kernel ({body}) against the "
+                    "plain version: " + ", ".join(line))
+            del ref, got
+        default = k2.fused_instance(torch.float32, 16, nq, nk, rate).body
+        reps = dict.fromkeys(("mma", "wgmma"),
+                             3 if b * nq * nk > 2**31 else 10)
+        r = narrow_turns(torch, kernel_ms(args, kw, reps), default,
+                         f"[K2 bwd] {tag} fused kernel", smi,
+                         new="f32 warpgroup (wgmma)")
+        if nq == nk == 16384:
+            if r["faster"] != "wgmma":
+                raise AssertionError(f"K2 bwd at {tag}: the f32 warpgroup "
+                                     "body is no faster than the mma.sync one")
+            lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=rate,
+                                reps=3)
+            bd = bounds_tf32_k2(10 * b * 8 * nq * nk * 16,
+                                moved(args, b * 8 * nk), b * 8 * nq * nk)
+            r |= {"plain_ms": plain_ms, "library_ms": lib, **bd}
+            log(f"[K2 bwd] {tag}: f32 warpgroup fused kernel {r['ms']:.2f} ms "
+                f"(mma.sync {r['earlier_ms']:.2f}), plain {plain_ms} ms, "
+                f"backward of F.scaled_dot_product_attention {lib} ms "
+                f"({note}); three-pass bound {bd['bound_ms']:.3f} ms by "
+                f"{bd['bound_by']} ({bd['bound_ms'] / r['ms']:.1%} of it), "
+                f"special-function floor {bd['bound_ms_sfu']:.3f} ms "
+                f"({bd['bound_ms_sfu'] / r['ms']:.1%} of it) on {smi}")
+        out[f"{label} dropout {rate}"] = r
+        del args, q, k, v, bias, o, lse, do
+    out["worst"] = worst
+    return out
+
+
 def check_k3(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
     g = torch.Generator(device=dev).manual_seed(4)
@@ -2049,19 +2348,20 @@ def fixed_eps(eps):
     return lambda: setattr(LunarisCoreVAE, "reparameterize", original)
 
 
-def grad_step(torch, dev: str):
-    """Phase 9's train step: a 64 px config (N = 4096 > 1024 runs K2, d 8,
-    forward and backward), batch 2, dropout 0, one fixed eps, from seed 7,
-    in full f32 on `dev`. Returns (gradients by "vae." / "teacher." name,
-    the teacher's BatchNorm running statistics, the metrics, the names of
-    the gradients held to BN_SHARE)."""
+def grad_step(torch, dev: str, feature_dim: int = 32):
+    """Phase 9's train step: a 64 px config (N = 4096 > 1024 runs K2 at
+    4 heads, d 8 at feature_dim 32 and d 16, on the f32 warpgroup bodies,
+    at 64, forward and backward), batch 2, dropout 0, one fixed eps, from
+    seed 7, in full f32 on `dev`. Returns (gradients by "vae." / "teacher."
+    name, the teacher's BatchNorm running statistics, the metrics, the
+    names of the gradients held to BN_SHARE)."""
     import dataclasses
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.infer.generator import full_f32
     from lunaris_orion_tpu_torch.train.state import create_state
     from lunaris_orion_tpu_torch.train.step import make_train_step
 
-    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=32,
+    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=feature_dim,
                       embedding_dim=32, num_experts=2, batch_size=2,
                       gradient_accumulation_steps=1)
     tcfg = dataclasses.replace(cfg.teacher_config(), num_heads=4,
@@ -2178,9 +2478,19 @@ def spread_grads(torch, runs: int) -> int:
     return 0
 
 
-def run_grad_context(torch) -> None:
+def run_grad_context(torch, feature_dim: int = 32) -> None:
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    seen = (k2.launches, k2.tf32_wgmma_launches, k2.bwd_fused_launches,
+            k2.bwd_tf32_wgmma_launches)
     (g_cpu, s_cpu, m_cpu, before_bn), (g_gpu, s_gpu, m_gpu, _) = (
-        grad_step(torch, dev) for dev in ("cpu", "cuda"))
+        grad_step(torch, dev, feature_dim) for dev in ("cpu", "cuda"))
+    calls = [now - was for now, was in zip(
+        (k2.launches, k2.tf32_wgmma_launches, k2.bwd_fused_launches,
+         k2.bwd_tf32_wgmma_launches), seen)]
+    if feature_dim == 64 and not (0 < calls[0] == calls[1]
+                                  and 0 < calls[2] == calls[3]):
+        raise AssertionError(f"grads d 16: K2 calls (fwd, of them f32 "
+                             f"warpgroup, bwd, of them f32 warpgroup) {calls}")
     ratios = grad_ratios(g_cpu, g_gpu, before_bn)
     # The worst gradient of each bar, as a share of 1e-3 of its largest.
     worst = {bn: max((r * (BN_SHARE if bn else GRAD_SHARE) / 1e-3, k)
@@ -2209,7 +2519,9 @@ def run_grad_context(torch) -> None:
     m_ratio = {k: abs(m_gpu[k] - v) / (1e-4 * abs(v) + 1e-6)
                for k, v in m_cpu.items()}
     m_worst = max(m_ratio, key=m_ratio.get)
-    log(f"[grads] 64 px train_step, TF32 off, card vs CPU: {len(g_cpu)} "
+    log(f"[grads] 64 px train_step, d {feature_dim // 4}, TF32 off, card vs "
+        f"CPU (K2 fwd, of them f32 warpgroup, bwd, of them f32 warpgroup: "
+        f"{calls}): {len(g_cpu)} "
         f"gradients within bar, in units of 1e-3 of each tensor's largest: "
         f"worst {worst[False][0]:.3f} ({worst[False][1]}) of the "
         f"{len(g_cpu) - len(before_bn)} held to 1e-3, worst "
@@ -2251,7 +2563,8 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
     counters = [(k1, "launches"), (k2, "launches"), (k2, "bwd_fused_launches"),
                 (k2, "bwd_dq_launches"), (k2, "bwd_dkv_launches"),
                 (k3, "launches"), (k2, "narrow_launches"),
-                (k2, "bwd_narrow_launches")]
+                (k2, "bwd_narrow_launches"), (k2, "tf32_wgmma_launches"),
+                (k2, "bwd_tf32_wgmma_launches"), (k2, "split_launches")]
     for mod, name in counters:
         setattr(mod, name, 0)
     bare = {}                           # remat -> the default bf16 step
@@ -2280,6 +2593,18 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             check_k1_kernels(k1_kernels, k1.launches - seen[0], tag)
             check_narrow_names(names, k2.narrow_launches - seen[6],
                                k2.bwd_narrow_launches - seen[7], tag)
+            # The default f32 step at N16384: every K2 call on the f32
+            # warpgroup bodies, by the counts and by name; their pre-pass
+            # once a forward and twice a backward.
+            delta = [getattr(mod, name) - was
+                     for (mod, name), was in zip(counters, seen)]
+            check_narrow_names(names, delta[8], delta[9], tag,
+                               "f32 warpgroup", every=not bf16)
+            if not bf16 and (delta[8] != delta[1] or delta[9] != delta[2]
+                             or delta[10] != delta[8] + 2 * delta[9]
+                             or delta[1] <= 0):
+                raise AssertionError(f"{tag}: K2 calls off the f32 warpgroup "
+                                     f"bodies: {delta}")
         losses = {k: float(v) for k, v in m.items()}
         if not all(map(math.isfinite, losses.values())):
             raise AssertionError(f"train step: non-finite metrics {losses}")
@@ -2297,7 +2622,8 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
             f"GiB, total_loss {losses['total_loss']:.5f} recon "
             f"{losses['recon_loss']:.5f} quality {losses['quality_scores']:.5f}"
             f" on {smi}; launches (K1, K2 fwd, K2 bwd fused, dq, dk/dv, K3, "
-            f"of K2 the narrow fwd, bwd) "
+            f"of K2 the narrow fwd, bwd, the f32 warpgroup fwd, bwd, their "
+            f"pre-pass) "
             f"{[getattr(mod, name) - was for (mod, name), was in zip(counters, seen)]}")
         if not bf16:
             f32_step = {f"{name} {mod.__name__.rsplit('.', 1)[1]}":
@@ -2314,7 +2640,10 @@ def run_train(torch, smi, k1, k2, k3) -> dict:
                 "flash_attention_bwd_dkv": k2.bwd_dkv_launches,
                 "mse_kl": k3.launches,
                 "flash_attention_fwd_wgmma_narrow": k2.narrow_launches,
-                "flash_attention_bwd_wgmma_narrow": k2.bwd_narrow_launches}
+                "flash_attention_bwd_wgmma_narrow": k2.bwd_narrow_launches,
+                "flash_attention_fwd_wgmma_tf32": k2.tf32_wgmma_launches,
+                "flash_attention_bwd_wgmma_tf32": k2.bwd_tf32_wgmma_launches,
+                "k2_tf32_split": k2.split_launches}
     log(f"[train] {sum(moved)}/{len(moved)} parameter tensors changed; "
         f"kernel launches in the train steps: {launches}")
     if min(launches.values()) <= 0:
@@ -4797,11 +5126,12 @@ def main() -> int:
     k2 = timed("4 K2", check_k2, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches = timed("5 slice", run_slice, torch, Path(tmp), smi)
-        for feature_dim in (64, 256):
+        for feature_dim in (64, 128, 256):
             timed("6 context", run_context, torch, Path(tmp), feature_dim)
     bwd = timed("7 K2 bwd", check_k2_bwd, torch, dev, smi)
     k3 = timed("8 K3", check_k3, torch, dev, smi)
-    timed("9 grads", run_grad_context, torch)
+    for feature_dim in (32, 64):
+        timed("9 grads", run_grad_context, torch, feature_dim)
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
@@ -4873,8 +5203,8 @@ def main() -> int:
              launches=launches["flash_attention_fwd"],
              trainer_launches=trainer["flash_attention_fwd"],
              launches_evaluate=evaluate["evaluate_window_bf16_launches"],
-             f32_body="flash_fwd_tf32",
-             f32_source=src + "flash_attention_fwd_tf32.cu",
+             f32_body="flash_fwd_wgmma_tf32",
+             f32_source=src + "flash_attention_fwd_wgmma_tf32_d16.cu",
              launches_f32_step=f32_step["launches flash_attention"],
              **w16("flash_attention_fwd"), **x17("flash_attention_fwd"),
              **p18("launches"), **p19("flash_attention_fwd"), **k2,
@@ -4969,6 +5299,52 @@ def main() -> int:
              earlier_body="flash_bwd_dkv_mma<16, .., FUSED>",
              readings=bwd["narrow"],
              sass={k: v for k, v in sass.items() if k.startswith("bwd")}),
+        # The f32 warpgroup bodies (d 16, the default type and width, three
+        # TF32 passes on wgmma): the forward at B8 H8 N16384, dropout 0, the
+        # fused backward at B2 H8 N16384, dropout 0.1 (where the plain
+        # backward is timed), each against the mma.sync body it replaced in
+        # turns, beside SDPA in f32, the three-pass bound and the
+        # special-function floor; every reading under `readings` (B16, both
+        # rates, ragged N, the CP shard, the short rows); launches in phase
+        # 10's train steps (`launches_f32_step`: the default f32 step's) and
+        # the forward's in phase 5's f32 decode+score. Their pre-pass, which
+        # splits and lays out the operands once a call, is the next entry.
+        dict(name="flash_attention_fwd_wgmma_tf32", route="cuda",
+             source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
+             instances=[src + f"flash_attention_fwd_wgmma_tf32_d16{x}.cu"
+                        for x in ("", "_drop")],
+             launches=train["flash_attention_fwd_wgmma_tf32"],
+             launches_f32_step=f32_step[
+                 "tf32_wgmma_launches flash_attention"],
+             launches_decode=launches["tf32_decode"],
+             max_abs_err=k2["tf32"]["max_abs_err"],
+             **{key: k2["tf32"]["B8 dropout 0.0"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "library_ms", "earlier_ms")},
+             shape="B8 H8 N16384 dropout 0", earlier_body="flash_fwd_tf32",
+             readings={k: v for k, v in k2["tf32"].items()
+                       if k != "pre-pass"}),
+        dict(name="flash_attention_bwd_wgmma_tf32", route="cuda",
+             source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
+             instances=[src + f"flash_attention_bwd_wgmma_tf32_d16{x}.cu"
+                        for x in ("", "_drop")],
+             launches=train["flash_attention_bwd_wgmma_tf32"],
+             launches_f32_step=f32_step[
+                 "bwd_tf32_wgmma_launches flash_attention"],
+             max_abs_err=bwd["tf32"]["max_abs_err"],
+             **{key: bwd["tf32"]["B2 dropout 0.1"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "library_ms", "earlier_ms")},
+             shape="B2 H8 N16384 dropout 0.1",
+             earlier_body="flash_bwd_fused_tf32", readings=bwd["tf32"]),
+        dict(name="k2_tf32_split", route="cuda",
+             source=src + "flash_attention_tf32_split.cu",
+             replaces=f"{fa}:335",
+             part_of=["flash_attention_fwd_wgmma_tf32",
+                      "flash_attention_bwd_wgmma_tf32"],
+             launches=train["k2_tf32_split"],
+             launches_f32_step=f32_step["split_launches flash_attention"],
+             **k2["tf32"]["pre-pass"]),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],

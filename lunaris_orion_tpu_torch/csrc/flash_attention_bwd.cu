@@ -5,8 +5,8 @@
 // (flash_attention_bwd_mma_{dkv,dq,fused}.cu, flash_attention_bwd_tf32_fused.cu,
 // flash_attention_bwd_simt_{f32,f32_wide,bf16}.cu, and
 // flash_attention_bwd_{mma,simt_f32}_d32.cu for head size 32, and
-// flash_attention_bwd_wgmma_d*.cu for the fused warpgroup body, an instance
-// a file), so that the compilers run side by side.
+// flash_attention_bwd_wgmma_d*.cu and flash_attention_bwd_wgmma_tf32_d16*.cu
+// for the fused warpgroup bodies, an instance a file), so that the compilers run side by side.
 
 #include "flash_attention_bwd.cuh"
 
@@ -18,7 +18,9 @@
 // [H, Nk] f32; lse, delta: [BH, Nq] f32; dbias_bh: [BH, Nk] f32. scale:
 // d^-1/2 rounded to the input type.
 // body: 2 the fused warpgroup kernel (bf16 at d 16, 48 or 64: wgmma fed by
-// TMA; at d 16 its narrow form),
+// TMA; at d 16 its narrow form; f32 at d 16: flash_bwd_wgmma_tf32, on the
+// tiles that lunaris_k2_tf32_split wrote into `split` for this call: the
+// query tiles, then the key tiles),
 // 1 the tensor-core kernels on mma.sync (bf16: dkv and dq at d 16, 32, 48 or 64,
 // the fused one at d 16 or 32; f32: the fused one at d 16 or 32, three TF32
 // passes a product), 0 the CUDA-core kernels (every kernel in f32 at d 8, 16,
@@ -31,7 +33,7 @@ extern "C" int lunaris_flash_attention_bwd(
     void* dv, void* dbias_bh, void* dq_acc, int BH, int H, int Nq, int Nk,
     int d, float scale, int use_dropout, unsigned int threshold,
     float inv_keep, unsigned int seed, int q_offset, int row_offset,
-    int is_bf16, int body, void* stream) {
+    int is_bf16, int body, const void* split, void* stream) {
   if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || BH > 65535 ||
       body < 0 || body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -42,8 +44,14 @@ extern "C" int lunaris_flash_attention_bwd(
       Nq, Nk, scale, use_dropout, threshold, inv_keep, seed, q_offset,
       row_offset};
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 2 && !is_bf16) {
+    if (d != 16 || kernel != kBwdDkvFusedDq)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d16_drop(a, split, s)
+                       : lunaris_k2_bwd_wgmma_tf32_d16(a, split, s);
+  }
   if (body == 2) {
-    if (!is_bf16 || kernel != kBwdDkvFusedDq)
+    if (kernel != kBwdDkvFusedDq)
       return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_bwd_wgmma_d16_drop(a, s)
@@ -79,4 +87,8 @@ extern "C" int lunaris_k2_bwd_wgmma_smem_bytes() { return wg_bwd_smem_bytes(); }
 // The same for the narrow fused warpgroup body (d 16).
 extern "C" int lunaris_k2_bwd_wgmma_narrow_smem_bytes() {
   return nw_bwd_smem_bytes();
+}
+// The same for the f32 fused warpgroup body (d 16).
+extern "C" int lunaris_k2_bwd_wgmma_tf32_smem_bytes() {
+  return t32_bwd_smem_bytes();
 }

@@ -193,6 +193,12 @@ int lunaris_k2_bwd_wgmma_d16(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d16_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
+// The f32 fused warpgroup body at d 16 (flash_attention_bwd_wgmma_tf32_d16{,_drop}.cu),
+// on the tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+int lunaris_k2_bwd_wgmma_tf32_d16(const LunarisK2BwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d16_drop(const LunarisK2BwdArgs& a,
+                                       const void* split, cudaStream_t s);
 
 namespace {
 
@@ -2222,6 +2228,375 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
     }
 #undef LUNARIS_BWD_NW_CONSUMER
   }
+}
+
+// ---- the f32 fused warpgroup body: d 16, three TF32 passes on wgmma ----------
+
+// flash_bwd_wgmma_tf32  f32 at D 16, the single-pass form of
+//   `_bwd_fused_kernel` at the default type and width, where Nq and Nk are
+//   long. Its five products in three TF32 passes bound it (33 ms at B16 H8
+//   N16384, the ex2 8.2 ms); flash_bwd_fused_tf32 issues them on mma.sync,
+//   16 x 8 x 8 a warp at a time. tf32 wgmma reads both shared-memory
+//   operands K-major, and an f32 word as TF32 by dropping its low bits, so
+//   a pre-pass (flash_attention_tf32_split.cu) writes every operand once a
+//   call as hi and lo, laid out as the products read them: each query tile
+//   of 64 as qs and dO ([64][8] tiles, 32-byte swizzle: the B of s^T =
+//   k qs^T and dp^T = v dO^T) and as qs^T and dO^T ([32][32] atoms, 128-byte
+//   swizzle, rows 0-15 hi, 16-31 lo, queries permuted by `perm8`: the B of
+//   dk += ds^T qs and dv += pv^T dO), with -lse log2 e and delta; the keys
+//   as K^T (the B of dq += ds k). Here:
+//   - A block owns 128 keys: two consumer warpgroups of 64 keys and a
+//     producer warp. K^T of the block arrives once, the query walk (tiles of
+//     64, each block from its own first tile) through a ring of 3, one bulk
+//     copy (TMA) a tile. k and v of a warpgroup's keys are A fragments in
+//     registers, split once, with the keys' bias.
+//   - A query tile goes in two halves of 32 queries (the registers of p,
+//     ds and pv in hi and lo): s^T = bias + k qs^T and dp^T = v dO^T, wgmma
+//     m64n32k8 in three passes a k-step; p, the hash on the score's own
+//     (key, query), ds and pv in f32 at the TPU kernel's rounding points;
+//     ds and pv split into hi and lo in registers, where the score's C
+//     fragment is the A fragment of dk and dv as it lies (the queries of
+//     qs^T and dO^T are permuted to match), and dk, dv summed from zero a
+//     tile by wgmma m64n16k8 in three passes, then added with one f32 add.
+//   - ds goes to shared memory as well, hi and lo, [64 queries][64 keys]
+//     with the 128-byte swizzle: dq = ds k over the warpgroup's keys is
+//     wgmma m64n32k8 (ds hi times [K hi; K lo]) and m64n16k8 (ds lo times
+//     K hi), both operands in shared memory, added to the zeroed f32 dq
+//     buffer with 16-byte reductions. The two warpgroups meet only at the
+//     ring.
+//   - dbias: per-key f32 sums over the 4 lanes of a key, no atomics.
+//   Dropout is a template parameter; a ragged Nq or Nk costs nothing per
+//   score (zeros, -inf and K^T's zeros). dk, dv and dbias are the same on
+//   every run; dq's last bits depend on the order of the reductions.
+// It computes what flash_bwd_fused_tf32 computes, at the same rounding
+// points, every product in three TF32 passes with cvt.rna splits.
+
+
+constexpr int kBwdT32Consumers = 2;                   // warpgroups of 64 keys
+constexpr int kBwdT32Keys = 64 * kBwdT32Consumers;    // keys a block
+constexpr int kBwdT32BQ = kTf32Rows;                  // queries a tile
+constexpr int kBwdT32Threads = 128 * (kBwdT32Consumers + 1);
+constexpr int kBwdT32Stages = 3;
+constexpr int kBwdT32StageBytes = 33 * 1024;          // a query tile, 1024-aligned
+constexpr int kBwdT32DsBytes = kBwdT32BQ * 64 * 4;    // ds hi or lo of a warpgroup
+
+// The ring of query tiles, each warpgroup's ds hi and lo ([64 queries][64
+// keys]), the block's K^T tiles, the barriers, and 1024 bytes to align the
+// tiles.
+__host__ __device__ constexpr int t32_bwd_smem_bytes() {
+  return 1024 + kBwdT32Stages * kBwdT32StageBytes +
+         kBwdT32Consumers * 2 * kBwdT32DsBytes +
+         kBwdT32Consumers * kTf32BwdKTileBytes + (1 + 2 * kBwdT32Stages) * 8;
+}
+
+// The consumer warpgroups of flash_bwd_wgmma_tf32: warpgroup `wg` owns keys
+// 64 wg .. of the block. Every wgmma is done before its registers are
+// touched again.
+template <int DROP>
+__device__ __forceinline__ void consume_bwd_tf32(
+    const LunarisK2BwdArgs& a, const uint8_t* ring, uint8_t* dsb,
+    const uint8_t* kts, uint64_t* kv_bar, uint64_t* full, uint64_t* empty,
+    int tiles, int first) {
+  constexpr int D = 16;
+  constexpr int ST = kBwdT32Stages;
+  constexpr int BQ = kBwdT32BQ;
+  constexpr uint32_t HI32 = kNarrowDescHi<16>;   // [rows][8] f32, 32-byte swizzle
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int bh = blockIdx.y;
+  const int g = lane >> 2;         // the accumulator's row (and row + 8): a key
+  const int t = lane & 3;          // its column pair: queries
+  const int key_l = (warp & 3) * 16 + g;           // within the warpgroup
+  const int key0 = blockIdx.x * kBwdT32Keys + wg * 64 + key_l;
+  const bool drop = DROP == kDropOn;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+  uint8_t* dsh = dsb + wg * 2 * kBwdT32DsBytes;    // ds hi, then lo
+  uint8_t* dsl = dsh + kBwdT32DsBytes;
+  const uint32_t ds_lo = desc_lo(dsh);
+  const uint32_t kt_lo = desc_lo(kts + wg * kTf32BwdKTileBytes);
+  const uint32_t ring_lo = desc_lo(ring);
+
+  // k and v of the warp's keys as the A fragments of s^T and dp^T (keys g,
+  // g + 8; d 8 kd + t, + 4), split once; the keys' bias and hash term.
+  uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
+  float bk[2], db[2] = {0.f, 0.f};
+  uint32_t k_term[2];
+  {
+    const float* kb = static_cast<const float*>(a.k) + static_cast<long long>(bh) * Nk * D;
+    const float* vb = static_cast<const float*>(a.v) + static_cast<long long>(bh) * Nk * D;
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+    for (int kd = 0; kd < 2; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = key0 + (i & 1) * 8;
+        const long long off = static_cast<long long>(key) * D + 8 * kd + t + (i >> 1) * 4;
+        split_tf32(key < Nk ? kb[off] : 0.f, kh[kd][i], kl[kd][i]);
+        split_tf32(key < Nk ? vb[off] : 0.f, vh[kd][i], vl[kd][i]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      bk[r] = key < Nk ? biasb[key] : 0.f;
+      k_term[r] = row_seed + static_cast<uint32_t>(key) * kC2;
+    }
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % ST;
+    const int q0 = walk(i) * BQ;
+    const uint32_t qt = ring_lo + st * (kBwdT32StageBytes >> 4);
+    const float* nlt = reinterpret_cast<const float*>(ring + st * kBwdT32StageBytes + 32768);
+    const float* dlt = nlt + BQ;
+    mbar_wait(&full[st], (i / ST) & 1);
+
+    float tk[D / 2], tv[D / 2];    // the tile's dk and dv, from zero
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // s^T = bias + k qs^T and dp^T = v dO^T over queries 32 h .. + 31.
+      float s[16], dp[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[4 * j] = s[4 * j + 1] = bk[0];
+        s[4 * j + 2] = s[4 * j + 3] = bk[1];
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 2; ++kd) {
+        const uint64_t qh = desc_of(qt + (kd * 2048 + h * 1024 >> 4), HI32);
+        const uint64_t ql = desc_of(qt + (4096 + kd * 2048 + h * 1024 >> 4), HI32);
+        wgmma_tf32_rs_n32(s, kl[kd], qh, 1);
+        wgmma_tf32_rs_n32(s, kh[kd], ql, 1);
+        wgmma_tf32_rs_n32(s, kh[kd], qh, 1);
+      }
+#pragma unroll
+      for (int kd = 0; kd < 2; ++kd) {
+        const uint64_t oh = desc_of(qt + (8192 + kd * 2048 + h * 1024 >> 4), HI32);
+        const uint64_t ol = desc_of(qt + (12288 + kd * 2048 + h * 1024 >> 4), HI32);
+        wgmma_tf32_rs_n32(dp, vl[kd], oh, kd > 0);
+        wgmma_tf32_rs_n32(dp, vh[kd], ol, 1);
+        wgmma_tf32_rs_n32(dp, vh[kd], oh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(s);
+      wgmma_pin(dp);
+
+      // p, the mask, ds and pv; ds and pv split into the A fragments of dk
+      // and dv (chunk j's C fragment {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+      // (g + 8, 2t + 1)} is k-step j's {a0, a2, a1, a3}), and ds into the
+      // [query][key] tiles of dq.
+      const uint32_t q_term = static_cast<uint32_t>(a.q_offset + q0 + 32 * h + 2 * t) * kC3;
+      uint32_t dsfh[4][4], dsfl[4][4], pvfh[4][4], pvfl[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 nl = *reinterpret_cast<const float2*>(nlt + 32 * h + 8 * j + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + 32 * h + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
+          float dpd = dp[4 * j + e];
+          float pv = p;
+          if (drop) {
+            const bool keep = keep_hash(
+                k_term[e >> 1] + q_term + static_cast<uint32_t>(8 * j + (e & 1)) * kC3,
+                a.threshold);
+            const float kinv = keep ? a.inv_keep : 0.f;
+            dpd *= kinv;
+            pv = p * kinv;
+          }
+          const float ds = p * (dpd - (e & 1 ? dl.y : dl.x));
+          db[e >> 1] += ds;
+          const int ai = (e & 1) * 2 + (e >> 1);
+          split_tf32(ds, dsfh[j][ai], dsfl[j][ai]);
+          split_tf32(pv, pvfh[j][ai], pvfl[j][ai]);
+          const int kq = key_l + 8 * (e >> 1);
+          const int off = (kq >> 5) * 8192 +
+                          sw128_offset(32 * h + 8 * j + 2 * t + (e & 1), kq & 31);
+          *reinterpret_cast<uint32_t*>(dsh + off) = dsfh[j][ai];
+          *reinterpret_cast<uint32_t*>(dsl + off) = dsfl[j][ai];
+        }
+      }
+
+      // dv += pv^T dO, dk += ds^T qs over the half's 32 queries (k-step j:
+      // atom h of dO^T / qs^T, 32 bytes a k-step; rows 16-31 are lo).
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int acc = h > 0 || j > 0;
+        const uint64_t oth = desc_of(qt + (24576 + h * 4096 + j * 32 >> 4), kSw128DescHi);
+        const uint64_t otl = desc_of(qt + (26624 + h * 4096 + j * 32 >> 4), kSw128DescHi);
+        const uint64_t qth = desc_of(qt + (16384 + h * 4096 + j * 32 >> 4), kSw128DescHi);
+        const uint64_t qtl = desc_of(qt + (18432 + h * 4096 + j * 32 >> 4), kSw128DescHi);
+        wgmma_tf32_rs_n16(tv, pvfl[j], oth, acc);
+        wgmma_tf32_rs_n16(tv, pvfh[j], otl, 1);
+        wgmma_tf32_rs_n16(tv, pvfh[j], oth, 1);
+        wgmma_tf32_rs_n16(tk, dsfl[j], qth, acc);
+        wgmma_tf32_rs_n16(tk, dsfh[j], qtl, 1);
+        wgmma_tf32_rs_n16(tk, dsfh[j], qth, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(tk);
+      wgmma_pin(tv);
+      wgmma_pin(dsfh);
+      wgmma_pin(dsfl);
+      wgmma_pin(pvfh);
+      wgmma_pin(pvfl);
+    }
+    mbar_arrive(&empty[st]);
+
+    // dq of the tile over the warpgroup's 64 keys, once every warp of the
+    // warpgroup has written its ds.
+    fence_async_shared();
+    named_barrier(1 + wg, 128);
+    float dq2[16], dq1[8];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t step = (kk >> 2) * 8192 + (kk & 3) * 32 >> 4;
+      const uint64_t b = desc_of(kt_lo + ((kk >> 2) * 4096 + (kk & 3) * 32 >> 4), kSw128DescHi);
+      wgmma_tf32_ss_n32(dq2, desc_of(ds_lo + step, kSw128DescHi), b, kk > 0);
+      wgmma_tf32_ss_n16(dq1, desc_of(ds_lo + (kBwdT32DsBytes >> 4) + step, kSw128DescHi),
+                        b, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(dq2);
+    wgmma_pin(dq1);
+    named_barrier(1 + wg, 128);    // ds is read: the next tile may write it
+    float dq[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dq[e] = (dq2[8 + e] + dq1[e]) + dq2[e];
+    // Rows q0 + 16 (warp % 4) + g (+ 8): the lanes of a column quad swap a
+    // pair, so that lane t even adds columns 8 c + 2 t .. + 3 of row g and
+    // lane t odd those of row g + 8 from 8 c + 2 (t - 1).
+    const int qrow = q0 + (warp & 3) * 16 + g + (t & 1) * 8;
+    float* accrow = a.dq_acc + (static_cast<long long>(bh) * Nq + qrow) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const float sx = t & 1 ? dq[4 * c] : dq[4 * c + 2];
+      const float sy = t & 1 ? dq[4 * c + 1] : dq[4 * c + 3];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 val = t & 1 ? make_float4(rx, ry, dq[4 * c + 2], dq[4 * c + 3])
+                               : make_float4(dq[4 * c], dq[4 * c + 1], rx, ry);
+      if (qrow < Nq)
+        atomicAdd(reinterpret_cast<float4*>(accrow + 8 * c + 2 * (t & 2)), val);
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) {
+      dk[e] += tk[e];
+      dv[e] += tv[e];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float dbr = db[r];
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 1);
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 2);
+    const int key = key0 + 8 * r;
+    if (key < Nk) {
+      const long long off = (static_cast<long long>(bh) * Nk + key) * D;
+      float* dkrow = static_cast<float*>(a.dk) + off;
+      float* dvrow = static_cast<float*>(a.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(dkrow + 8 * j + 2 * t) =
+            make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dvrow + 8 * j + 2 * t) =
+            make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+      if (t == 0) a.dbias_bh[static_cast<long long>(bh) * Nk + key] = dbr;
+    }
+  }
+}
+
+// split: the pre-pass's query tiles (ceil(Nq / 64) a BH row), then its key
+// tiles (2 ceil(Nk / 128) a BH row).
+template <int DROP>
+__global__ void __launch_bounds__(kBwdT32Threads, 1)
+flash_bwd_wgmma_tf32(const LunarisK2BwdArgs a, const uint8_t* split) {
+  constexpr int ST = kBwdT32Stages;
+  constexpr int BQ = kBwdT32BQ;
+  extern __shared__ uint8_t bwd_t32_smem[];
+  uint8_t* ring = bwd_t32_smem + ((1024 - (smem_addr(bwd_t32_smem) & 1023)) & 1023);
+  uint8_t* dsb = ring + ST * kBwdT32StageBytes;
+  uint8_t* kts = dsb + kBwdT32Consumers * 2 * kBwdT32DsBytes;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(kts + kBwdT32Consumers * kTf32BwdKTileBytes);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + ST;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (a.Nq + BQ - 1) / BQ;
+  const int first = blockIdx.x % tiles;
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * kBwdT32Consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kBwdT32Consumers) {
+    // The producer warpgroup: one lane loads, the registers go to the
+    // consumers (2 x 128 x 232 + 128 x 40 = the block's 384 x 168).
+    setmaxnreg_dec<40>();
+    if (warp != 4 * kBwdT32Consumers || lane != 0) return;
+    const int ktiles = 2 * ((a.Nk + kBwdT32Keys - 1) / kBwdT32Keys);
+    const uint8_t* q_src = split + static_cast<long long>(bh) * tiles * kTf32BwdQTileBytes;
+    const uint8_t* k_src =
+        split + static_cast<long long>(a.BH) * tiles * kTf32BwdQTileBytes +
+        (static_cast<long long>(bh) * ktiles + 2 * blockIdx.x) * kTf32BwdKTileBytes;
+    mbar_arrive_tx(kv_bar, kBwdT32Consumers * kTf32BwdKTileBytes);
+    bulk_load(kts, k_src, kBwdT32Consumers * kTf32BwdKTileBytes, kv_bar);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % ST;
+      const int x = first + i;
+      if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+      mbar_arrive_tx(&full[st], kTf32BwdQTileBytes);
+      bulk_load(ring + st * kBwdT32StageBytes,
+                q_src + static_cast<long long>(x < tiles ? x : x - tiles) * kTf32BwdQTileBytes,
+                kTf32BwdQTileBytes, &full[st]);
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    consume_bwd_tf32<DROP>(a, ring, dsb, kts, kv_bar, full, empty, tiles, first);
+  }
+}
+
+template <int DROP>
+int launch_bwd_wgmma_tf32(const LunarisK2BwdArgs& a, const void* split,
+                          cudaStream_t stream) {
+  if (split == nullptr || reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.dk) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(a.dv) % 8 != 0 || a.dq_acc == nullptr ||
+      reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_bwd_wgmma_tf32<DROP>;
+  constexpr int smem = t32_bwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nk + kBwdT32Keys - 1) / kBwdT32Keys, a.BH);
+  kernel<<<grid, kBwdT32Threads, smem, stream>>>(
+      a, static_cast<const uint8_t*>(split));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DROP>

@@ -227,6 +227,49 @@ __device__ __forceinline__ void ones3_fragment(uint32_t (&a)[4], int t) {
   a[2] = a[3] = 0u;
 }
 
+// ---- the TF32 tiles of the f32 warpgroup bodies (d 16) ----------------------
+//
+// wgmma reads TF32 operands K-major only, and reads an f32 word as TF32 by
+// dropping its low 13 bits. So a pre-pass (flash_attention_tf32_split.cu)
+// splits the f32 operands of a call into TF32 hi and lo once (`split_tf32`,
+// cvt.rna) and lays them out as the bodies' wgmma read them, tile after
+// tile, so that a producer moves a tile with one bulk copy. A tile covers
+// kTf32Rows keys or queries; rows past N are zeros.
+//   kTf32FwdTileBytes   a key tile of the forward: K hi, then K lo, each as
+//       two [64][8] tiles (d 0-7, 8-15; 32-byte swizzle), then V^T as two
+//       [32][32] atoms (keys 0-31, 32-63; 128-byte swizzle) whose rows 0-15
+//       are V hi of dim r and 16-31 V lo, the keys permuted by `perm8`.
+//   kTf32BwdQTileBytes  a query tile of the backward: qs hi, qs lo, dO hi,
+//       dO lo as the forward's K, qs^T and dO^T as its V^T (queries permuted
+//       by `perm8`), then 64 f32 of -lse log2 e (-inf past Nq) and 64 of
+//       delta (0 past Nq).
+//   kTf32BwdKTileBytes  keys of the backward: K^T as the forward's V^T, the
+//       keys in order.
+constexpr int kTf32Rows = 64;
+constexpr int kTf32FwdTileBytes = 16384;
+constexpr int kTf32BwdQTileBytes = 33280;
+constexpr int kTf32BwdKTileBytes = 8192;
+
+// The byte offset of f32 element (r, c) in a [rows][8] tile with the
+// 32-byte swizzle (hopper.cuh: chunk c / 4 of row r at (c / 4) ^ ((r / 4) % 2)).
+__host__ __device__ __forceinline__ int sw32_offset(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ (r >> 2)) & 1) << 4) + (c & 3) * 4;
+}
+
+// The same in a [rows][32] atom with the 128-byte swizzle (chunk c / 4 of
+// row r at (c / 4) ^ (r % 8)).
+__host__ __device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// Where key (or query) k of a tile sits along the k of a transposed operand:
+// within each 8, 2t at t and 2t + 1 at t + 4. A score's C fragment holds a
+// lane's keys 2t and 2t + 1, the tf32 A fragment its k indices t and t + 4,
+// so the scores, once exponentiated, are p v's A fragment as they lie.
+__host__ __device__ __forceinline__ int perm8(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
+}
+
 // A pair of bf16 values times scale, rounded to bf16 again.
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   const float2 f =

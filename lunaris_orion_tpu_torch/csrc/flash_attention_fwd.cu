@@ -6,7 +6,8 @@
 // flash_attention_fwd_simt_{f32,bf16}.cu, flash_attention_fwd_simt_f32_wide.cu
 // for d 48 and 64, flash_attention_fwd_d32.cu for bf16's tensor-core and
 // f32's CUDA-core body at d 32, and flash_attention_fwd_wgmma_d*.cu for the
-// warpgroup bodies, an instance a file), so that the compilers run side by
+// warpgroup bodies, an instance a file; the f32 one's pre-pass in
+// flash_attention_tf32_split.cu), so that the compilers run side by
 // side.
 
 #include "flash_attention_fwd.cuh"
@@ -16,7 +17,8 @@
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
 // body: 2 the warpgroup kernel (bf16 at d 16, 48 or 64: wgmma fed by TMA;
-// at d 16 its narrow form), 1 the
+// at d 16 its narrow form; f32 at d 16: flash_fwd_wgmma_tf32, on the key
+// tiles that lunaris_k2_tf32_split wrote into `split` for this call), 1 the
 // tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
 // three TF32 passes for f32), 0 the CUDA-core kernel (f32 at d 8, 16, 32, 48
 // or 64; bf16 at d 8 or 16). The caller chooses; nothing here falls from one
@@ -27,7 +29,7 @@ extern "C" int lunaris_flash_attention_fwd(
     void* lse, int BH, int H, int Nq, int Nk, int d, float scale,
     int use_dropout, unsigned int threshold, float inv_keep,
     unsigned int seed, int q_offset, int row_offset, int is_bf16, int body,
-    void* stream) {
+    const void* split, void* stream) {
   if (BH <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || BH > 65535 ||
       body < 0 || body > 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -36,8 +38,12 @@ extern "C" int lunaris_flash_attention_fwd(
                            use_dropout, threshold, inv_keep, seed, q_offset,
                            row_offset};
   auto s = static_cast<cudaStream_t>(stream);
+  if (body == 2 && !is_bf16) {
+    if (d != 16) return static_cast<int>(cudaErrorInvalidValue);
+    return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d16_drop(a, split, s)
+                       : lunaris_k2_fwd_wgmma_tf32_d16(a, split, s);
+  }
   if (body == 2) {
-    if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_fwd_wgmma_d16_drop(a, s)
                                   : lunaris_k2_fwd_wgmma_d16(a, s);
@@ -64,4 +70,8 @@ extern "C" int lunaris_k2_fwd_wgmma_smem_bytes() { return wg_fwd_smem_bytes(); }
 // The same for the narrow warpgroup body (d 16).
 extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes() {
   return nw_fwd_smem_bytes();
+}
+// The same for the f32 warpgroup body (d 16).
+extern "C" int lunaris_k2_fwd_wgmma_tf32_smem_bytes() {
+  return t32_fwd_smem_bytes();
 }

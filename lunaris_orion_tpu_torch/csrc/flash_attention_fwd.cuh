@@ -138,6 +138,12 @@ int lunaris_k2_fwd_wgmma_d64_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 // (flash_attention_fwd_wgmma_d16{,_drop}.cu).
 int lunaris_k2_fwd_wgmma_d16(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d16_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
+// The f32 warpgroup body at d 16 (flash_attention_fwd_wgmma_tf32_d16{,_drop}.cu),
+// on the key tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+int lunaris_k2_fwd_wgmma_tf32_d16(const LunarisK2FwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d16_drop(const LunarisK2FwdArgs& a,
+                                       const void* split, cudaStream_t s);
 
 namespace {
 
@@ -624,8 +630,7 @@ __host__ __device__ constexpr int tf32_smem_bytes(int d) {
 //     fragment, before the permutation, so k_abs is always the true key.
 //   - Shared memory and the q fragments are twice the bf16 body's (f32, hi
 //     and lo): the ring is dynamic shared memory, 2 tiles deep.
-// A wgmma body (tf32 takes both operands K-major from shared memory, so V
-// transposed) is a later step; mma.sync is this one.
+// At d 16 on long rows flash_fwd_wgmma_tf32 (below) takes over.
 // Two blocks an SM: without that minimum ptxas held two of the stage
 // instances (LVL 0 and 3) to 128 and 168 registers, and they spilled.
 template <int D, int LVL, int DROP, bool RAGGED>
@@ -1494,6 +1499,285 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Nq + kNwRows - 1) / kNwRows, a.BH);
   kernel<<<grid, kNwThreads, smem, stream>>>(a, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the f32 warpgroup body: d 16, three TF32 passes on wgmma ----------------
+
+// flash_fwd_wgmma_tf32  f32 at D 16, the default type and width (feature_dim
+//   128 at 8 heads), where Nq and Nk are long. flash_fwd_tf32 runs its three
+//   TF32 passes a product on mma.sync, which issues a warp's 16 x 8 x 8 at a
+//   time and reaches a share of the tensor cores' rate; here the products
+//   bound the call (three passes: 6.7 ms at B8 H8 N16384, the ex2 4.1 ms),
+//   and wgmma is Hopper's way to their full rate. tf32 wgmma reads both
+//   shared-memory operands K-major and reads an f32 word by dropping its
+//   low bits, so:
+//   - A pre-pass (flash_attention_tf32_split.cu) splits K and V into TF32
+//     hi and lo once a call (cvt.rna, as `split_tf32`) and writes each key
+//     tile of 64 as wgmma reads it: K hi and lo as [64][8] tiles, 32-byte
+//     swizzle (q k^T's B, keys as n), and V^T as [32][32] atoms, 128-byte
+//     swizzle, rows 0-15 V hi and 16-31 V lo (p v's B, keys as k).
+//   - A block is three consumer warpgroups of 64 query rows (192 rows) and
+//     a producer warp that keeps a ring of 4 key tiles: each tile is one
+//     bulk copy (TMA), and its lanes write the tile's bias (-inf past Nk).
+//   - s = qs k^T starts at the bias in the accumulator and adds three passes
+//     of wgmma m64n64k8 a k-step (q lo K hi, q hi K lo, q hi K hi), q's hi
+//     and lo A fragments in registers, scaled in f32 and split once.
+//   - The online softmax runs on the accumulator as flash_fwd_tf32's: the
+//     row max over a row's 4 lanes, exp as ex2.approx on one FMA, the row sum
+//     of the undropped p, the hash on the score's own (key, query), then p is
+//     split into hi and lo in registers. A lane holds keys 2t and 2t + 1 of
+//     each 8, and tf32's A fragment k indices t and t + 4: the pre-pass
+//     permuted V^T's keys the same way (`perm8`), so p's C fragment is p v's
+//     A fragment as it lies.
+//   - p v a key tile, summed from zero: p hi times [V hi; V lo] is one wgmma
+//     m64n32k8 (its columns 16-31 are the hi x lo pass), p lo times V hi one
+//     m64n16k8; the three are added, small terms first, and o = o corr + pv
+//     with one f32 FMA.
+//   The three warpgroups meet only at the ring: one's softmax runs while
+//   another's products do. Dropout is a template parameter; one instance
+//   takes every Nk (the bias masks the keys past it, their K and V are
+//   zeros).
+// It computes what flash_fwd_tf32 computes (the same rounding points: q
+// scaled in f32, scores, max, sums and o in f32, each product three TF32
+// passes with cvt.rna splits, p v summed from zero a tile of 64 keys).
+
+constexpr int kFwdT32Consumers = 3;                    // warpgroups of 64 rows
+constexpr int kFwdT32Rows = 64 * kFwdT32Consumers;     // query rows a block
+constexpr int kFwdT32Threads = 128 * (kFwdT32Consumers + 1);
+constexpr int kFwdT32Stages = 4;
+constexpr int kFwdT32BK = kTf32Rows;                   // keys a tile
+
+// The ring of key tiles, [stage][64] f32 bias, the barriers, and 1024 bytes
+// to align the tiles to the swizzle's period.
+__host__ __device__ constexpr int t32_fwd_smem_bytes() {
+  return 1024 + kFwdT32Stages * (kTf32FwdTileBytes + kFwdT32BK * 4) +
+         2 * kFwdT32Stages * 8;
+}
+
+// The consumer warpgroups of flash_fwd_wgmma_tf32. Every wgmma is done
+// before its registers are touched again (ptxas serialises the wgmma of a
+// body that breaks this: C7514, C7515).
+template <int DROP>
+__device__ __forceinline__ void consume_fwd_tf32(
+    const LunarisK2FwdArgs& a, const uint8_t* ring, const float* bias_ring,
+    uint64_t* full, uint64_t* empty, int tiles) {
+  constexpr int D = 16;
+  constexpr int BK = kFwdT32BK;
+  constexpr int ST = kFwdT32Stages;
+  constexpr int NJ = BK / 8;       // 8-key column chunks of s; k-steps of p v
+  constexpr uint32_t HI32 = kNarrowDescHi<16>;   // [rows][8] f32, 32-byte swizzle
+  const int Nq = a.Nq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int g = lane >> 2;         // the fragment's row (and row + 8)
+  const int t = lane & 3;          // the fragment's column pair
+  const int row0 = blockIdx.x * kFwdT32Rows + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const bool drop = DROP == kDropOn;
+  const uint32_t ring_lo = desc_lo(ring);
+
+  // q as the A fragments of q k^T (rows g, g + 8; d 8 kd + t, + 4), scaled
+  // in f32 and split once.
+  uint32_t qh[2][4], ql[2][4];
+  {
+    const float* qb = static_cast<const float*>(a.q) + static_cast<long long>(bh) * Nq * D;
+#pragma unroll
+    for (int kd = 0; kd < 2; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + (i & 1) * 8;
+        const float x = row < Nq ? qb[static_cast<long long>(row) * D + 8 * kd + t + (i >> 1) * 4] * a.scale
+                                 : 0.f;
+        split_tf32(x, qh[kd][i], ql[kd][i]);
+      }
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // l: this lane's share
+  const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+  const uint32_t q_term[2] = {
+      row_seed + static_cast<uint32_t>(a.q_offset + row0) * kC3,
+      row_seed + static_cast<uint32_t>(a.q_offset + row0 + 8) * kC3};
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int st = tile % ST;
+    const uint32_t kt = ring_lo + st * (kTf32FwdTileBytes >> 4);
+    const float* bt = bias_ring + st * BK;
+    mbar_wait(&full[st], (tile / ST) & 1);
+
+    // s = bias + qs k^T: three passes a k-step, the small terms first.
+    float s[BK / 2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t);
+      s[4 * j] = s[4 * j + 2] = b.x;
+      s[4 * j + 1] = s[4 * j + 3] = b.y;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < 2; ++kd) {
+      const uint64_t kh = desc_of(kt + kd * (2048 >> 4), HI32);
+      const uint64_t kl = desc_of(kt + (4096 + kd * 2048 >> 4), HI32);
+      wgmma_tf32_rs_n64(s, ql[kd], kh, 1);
+      wgmma_tf32_rs_n64(s, qh[kd], kl, 1);
+      wgmma_tf32_rs_n64(s, qh[kd], kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    const float neg[2] = {-mx[0] * kLog2e, -mx[1] * kLog2e};
+    const uint32_t k_term = static_cast<uint32_t>(tile * BK + 2 * t) * kC2;
+    // p, dropped and split: chunk j's C fragment {(g, 2t), (g, 2t + 1),
+    // (g + 8, 2t), (g + 8, 2t + 1)} is k-step j's A fragment {a0, a2, a1, a3}.
+    // The tile's row sums go in two chains a row from zero, then into l
+    // once: adding each p to l itself would cost lse f32's last bit.
+    uint32_t ph[NJ][4], pl[NJ][4];
+    float lq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = ex2(fmaf(s[4 * j + i], kLog2e, neg[i >> 1]));
+        lq[i >> 1][j & 1] += p;
+        if (drop) {
+          const bool keep = keep_hash(
+              q_term[i >> 1] + k_term + static_cast<uint32_t>(8 * j + (i & 1)) * kC2,
+              a.threshold);
+          p = keep ? p * a.inv_keep : 0.f;
+        }
+        const int ai = (i & 1) * 2 + (i >> 1);
+        split_tf32(p, ph[j][ai], pl[j][ai]);
+      }
+    l[0] += lq[0][0] + lq[0][1];
+    l[1] += lq[1][0] + lq[1][1];
+
+    // pv = p v from zero: p hi [V hi; V lo] (n32) and p lo V hi (n16).
+    float pv2[16], pv1[8];
+    const uint32_t vt = kt + (8192 >> 4);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint64_t v = desc_of(vt + ((j >> 2) * 4096 + (j & 3) * 32 >> 4), kSw128DescHi);
+      wgmma_tf32_rs_n32(pv2, ph[j], v, j > 0);
+      wgmma_tf32_rs_n16(pv1, pl[j], v, j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(pv2);
+    wgmma_pin(pv1);
+    wgmma_pin(ph);
+    wgmma_pin(pl);
+    mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      o[i] = fmaf(o[i], corr[(i >> 1) & 1], (pv2[8 + i] + pv1[i]) + pv2[i]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr = fmaxf(lr, 1e-30f);
+    const int row = row0 + 8 * r;
+    if (row < Nq) {
+      float* orow = static_cast<float*>(a.o) + (static_cast<long long>(bh) * Nq + row) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
+      if (t == 0) a.lse[static_cast<long long>(bh) * Nq + row] = m[r] + logf(lr);
+    }
+  }
+}
+
+template <int DROP>
+__global__ void __launch_bounds__(kFwdT32Threads, 1)
+flash_fwd_wgmma_tf32(const LunarisK2FwdArgs a, const uint8_t* split) {
+  constexpr int BK = kFwdT32BK;
+  constexpr int ST = kFwdT32Stages;
+  extern __shared__ uint8_t fwd_t32_smem[];
+  uint8_t* ring = fwd_t32_smem + ((1024 - (smem_addr(fwd_t32_smem) & 1023)) & 1023);
+  float* bias_ring = reinterpret_cast<float*>(ring + ST * kTf32FwdTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_ring + ST * BK);
+  uint64_t* empty = full + ST;
+
+  const int Nk = a.Nk;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int tiles = (Nk + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 128 * kFwdT32Consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kFwdT32Consumers) {
+    // The producer warpgroup: one warp loads, the registers go to the
+    // consumers (3 x 128 x 160 + 128 x 32 = the block's 512 x 128).
+    setmaxnreg_dec<32>();
+    if (warp != 4 * kFwdT32Consumers) return;
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    const uint8_t* src = split + static_cast<long long>(bh) * tiles * kTf32FwdTileBytes;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int st = tile % ST;
+      const int k0 = tile * BK;
+      if (tile >= ST) mbar_wait(&empty[st], ((tile / ST) & 1) ^ 1);
+      for (int c = lane; c < BK; c += 32)
+        bias_ring[st * BK + c] = k0 + c < Nk ? biasb[k0 + c] : -INFINITY;
+      if (lane == 0) {
+        mbar_arrive_tx(&full[st], kTf32FwdTileBytes);
+        bulk_load(ring + st * kTf32FwdTileBytes,
+                  src + static_cast<long long>(tile) * kTf32FwdTileBytes,
+                  kTf32FwdTileBytes, &full[st]);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<160>();
+    consume_fwd_tf32<DROP>(a, ring, bias_ring, full, empty, tiles);
+  }
+}
+
+template <int DROP>
+int launch_wgmma_tf32(const LunarisK2FwdArgs& a, const void* split,
+                      cudaStream_t stream) {
+  // The tiles move 16 bytes at a time; q is read 4 bytes, o written 8.
+  if (split == nullptr || reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.o) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_wgmma_tf32<DROP>;
+  constexpr int smem = t32_fwd_smem_bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Nq + kFwdT32Rows - 1) / kFwdT32Rows, a.BH);
+  kernel<<<grid, kFwdT32Threads, smem, stream>>>(
+      a, static_cast<const uint8_t*>(split));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,10 +50,11 @@ SIGNATURES = {
                               _I, _I, _P),
     "lunaris_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _F, _I, _U, _F, _U, _I, _I, _I, _I,
-                                    _P),
+                                    _P, _P),
     "lunaris_flash_attention_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                    _U, _F, _U, _I, _I, _I, _I, _P),
+                                    _U, _F, _U, _I, _I, _I, _I, _P, _P),
+    "lunaris_k2_tf32_split": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "lunaris_mse_kl": (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
                        _P),
     "lunaris_mse_kl_per_sample": (_P, _P, _P, _P, _P, _P, _I,
@@ -70,6 +71,8 @@ SIGNATURES = {
     "lunaris_k2_bwd_wgmma_smem_bytes": (),
     "lunaris_k2_fwd_wgmma_narrow_smem_bytes": (),
     "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (),
+    "lunaris_k2_fwd_wgmma_tf32_smem_bytes": (),
+    "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (),
 }
 
 

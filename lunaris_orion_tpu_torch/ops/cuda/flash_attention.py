@@ -19,6 +19,11 @@ other device and never falls back.
                     narrow form (three warpgroups, [rows][16] tiles with
                     the 32-byte swizzle, the bias as a k-step of its own,
                     each tile's softmax under the tile before's p v);
+                    f32 at d 16 where Nq and Nk are at least
+                    TF32_WGMMA_MIN_ROWS: flash_fwd_wgmma_tf32, three
+                    warpgroups of 64 rows, wgmma in three TF32 passes a
+                    product on key tiles that a pre-pass (`tf32_tiles`)
+                    split into hi and lo and laid out as wgmma reads them;
             "mma"   d 16, 32 (and f32 at 48, 64): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
@@ -40,6 +45,10 @@ other device and never falls back.
                      shared memory, fed by TMA) and at d 16 where Nq and Nk
                      are at least NARROW_MIN_ROWS (its narrow form: three
                      warpgroups of 64 keys that meet only at the ds tiles),
+                     and for f32 at d 16 where Nq and Nk are at least
+                     TF32_WGMMA_MIN_ROWS (flash_bwd_wgmma_tf32: two
+                     warpgroups of 64 keys, the five products in three TF32
+                     passes on wgmma, on the pre-pass's tiles),
                      "mma" at d 16 and 32
                      (five products on the tensor cores; f32 in three TF32
                      passes), "simt" at d 8 and f32 48 and 64;
@@ -68,8 +77,11 @@ traced (`torch.export`) code take one route into the kernel.
 `launches`, `bwd_fused_launches`, `bwd_dkv_launches` and `bwd_dq_launches`
 count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
-of the warpgroup bodies, and `narrow_launches` and `bwd_narrow_launches`,
-among those, the narrow ones (d 16).
+of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
+among those, the narrow ones (bf16 d 16), and `tf32_wgmma_launches` and
+`bwd_tf32_wgmma_launches` the f32 ones (d 16). `split_launches` counts the
+launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
+backward.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
 and backward launches on a q shard (q_offset > 0: context parallelism).
 """
@@ -93,6 +105,9 @@ wgmma_launches = 0
 bwd_wgmma_launches = 0
 narrow_launches = 0
 bwd_narrow_launches = 0
+tf32_wgmma_launches = 0
+bwd_tf32_wgmma_launches = 0
+split_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
@@ -106,6 +121,11 @@ NARROW_HEAD_DIMS = (16,)             # of those, the narrow bodies' (rows of 32 
 # section 6), the mma.sync bodies win at N 256 (the windowed fold), 512 and
 # 1024 and lose from 2048 on.
 NARROW_MIN_ROWS = 2048
+TF32_WGMMA_HEAD_DIMS = (16,)         # the f32 warpgroup bodies' (three TF32 passes)
+# Where Nq or Nk is shorter the f32 warpgroup bodies' pre-pass and set-up
+# are not paid back (chip_smoke.py phases 4 and 7 time both bodies in turns
+# at N 256 to 4096; PERF.md section 6).
+TF32_WGMMA_MIN_ROWS = 2048
 FWD_BODIES = ("simt", "mma", "wgmma")  # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
@@ -316,6 +336,132 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(x.float() - hi)
 
 
+# The f32 warpgroup bodies' pre-pass (csrc/flash_attention_tf32_split.cu):
+# modes and the bytes of one tile of TF32_TILE rows (keys or queries).
+TF32_TILE = 64
+TF32_FWD, TF32_BWD_Q, TF32_BWD_K = 0, 1, 2
+TF32_TILE_BYTES = {TF32_FWD: 16384, TF32_BWD_Q: 33280, TF32_BWD_K: 8192}
+_LOG2E = float(np.float32(1.4426950408889634))
+
+
+def _sw32(r, c):
+    """Byte offset of f32 element (r, c) of a [rows][8] tile with the 32-byte
+    swizzle (csrc/flash_attention_common.cuh `sw32_offset`)."""
+    return r * 32 + ((((c >> 2) ^ (r >> 2)) & 1) << 4) + (c & 3) * 4
+
+
+def _sw128(r, c):
+    """The same in a [rows][32] atom with the 128-byte swizzle
+    (`sw128_offset`)."""
+    return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4
+
+
+def perm8(k):
+    """Where key (or query) k of a tile sits along the k of a transposed
+    TF32 operand: within each 8, 2t at t and 2t + 1 at t + 4 (`perm8`)."""
+    return (k & -8) | ((k & 1) << 2) | ((k & 7) >> 1)
+
+
+def tf32_tile_count(mode: int, n: int) -> int:
+    """Tiles of the pre-pass a BH row: ceil(N / 64), and for TF32_BWD_K an
+    even count (a block of the backward takes two)."""
+    if mode == TF32_BWD_K:
+        return 2 * -(-n // (2 * TF32_TILE))
+    return -(-n // TF32_TILE)
+
+
+def _tile_maps():
+    """Float offsets within a tile, [64 rows, 16 dims] each: the row-major
+    pair (hi; lo is 1024 floats on), the transposed pair with the rows
+    permuted (hi, lo), and the transposed pair in order."""
+    r = torch.arange(TF32_TILE)[:, None]
+    d = torch.arange(16)[None, :]
+    rows = ((d >> 3) * 2048 + _sw32(r, d & 7)) // 4
+    atom = (r >> 5) * 4096
+    cols = lambda c: ((atom + _sw128(d, c & 31)) // 4,
+                      (atom + _sw128(16 + d, c & 31)) // 4)
+    return rows, cols(perm8(r)), cols(r)
+
+
+def tf32_tiles_plain(mode: int, a, b=None, lse=None, delta=None,
+                     scale: float = 1.0) -> torch.Tensor:
+    """The plain version of the pre-pass `tf32_tiles`: the same bytes, as
+    an f32 tensor [BH, tiles, TF32_TILE_BYTES[mode] / 4].
+
+    TF32_FWD: a = k, b = v [B, H, N, 16] f32; a key tile is K hi and K lo
+    as [64][8] tiles (d 0-7, 8-15) with the 32-byte swizzle, then V^T as
+    two [32][32] atoms with the 128-byte swizzle, rows 0-15 V hi, 16-31 V
+    lo, keys permuted by `perm8`. TF32_BWD_Q: a = q, b = dO, lse [B*H, N],
+    delta [B, H, N], scale d^-1/2: qs = q * scale and dO as the forward's
+    K, qs^T and dO^T as its V^T, then -lse log2 e (-inf past N) and delta.
+    TF32_BWD_K: a = k; K^T as the forward's V^T, keys in order, an even
+    count of tiles. Rows past N are zeros; hi and lo are `split_tf32`'s."""
+    bsz, h, n, d = a.shape
+    if d != 16:
+        raise ValueError("tf32_tiles: head size 16 only")
+    bh, tiles = bsz * h, tf32_tile_count(mode, n)
+    pad = tiles * TF32_TILE - n
+    out = torch.zeros(bh, tiles, TF32_TILE_BYTES[mode] // 4,
+                      dtype=torch.float32, device=a.device)
+    rows, perm, order = _tile_maps()
+    shaped = lambda x: torch.nn.functional.pad(
+        x.float().reshape(bh, n, d), (0, 0, 0, pad)).reshape(
+            bh, tiles, TF32_TILE, d)
+
+    def put(x, row_base=None, col_base=None, cols=perm):
+        hi, lo = split_tf32(shaped(x))
+        if row_base is not None:
+            out[:, :, row_base + rows] = hi
+            out[:, :, row_base + 1024 + rows] = lo
+        if col_base is not None:
+            out[:, :, col_base + cols[0]] = hi
+            out[:, :, col_base + cols[1]] = lo
+
+    if mode == TF32_FWD:
+        put(a, row_base=0)
+        put(b, col_base=2048)
+    elif mode == TF32_BWD_Q:
+        qs = a.float() * torch.tensor(scale, dtype=torch.float32)
+        put(qs, row_base=0, col_base=4096)
+        put(b, row_base=2048, col_base=6144)
+        nl = -lse.reshape(bh, n).float() * torch.tensor(_LOG2E)
+        out[:, :, 8192:8256] = torch.nn.functional.pad(
+            nl, (0, pad), value=-float("inf")).reshape(bh, tiles, TF32_TILE)
+        out[:, :, 8256:8320] = torch.nn.functional.pad(
+            delta.reshape(bh, n).float(), (0, pad)).reshape(
+                bh, tiles, TF32_TILE)
+    elif mode == TF32_BWD_K:
+        put(a, col_base=0, cols=order)
+    else:
+        raise ValueError(f"tf32_tiles: no mode {mode}")
+    return out
+
+
+def tf32_tiles(mode: int, a, b=None, lse=None, delta=None,
+               scale: float = 1.0, out=None) -> torch.Tensor:
+    """The f32 warpgroup bodies' pre-pass (`tf32_tiles_plain` says what it
+    writes): on a CUDA tensor one launch of csrc/flash_attention_tf32_split.cu
+    into `out` (allocated when None), counted in `split_launches`; on a CPU
+    tensor the plain version."""
+    if a.device.type == "cpu":
+        return tf32_tiles_plain(mode, a, b, lse, delta, scale)
+    bsz, h, n, d = a.shape
+    shape = (bsz * h, tf32_tile_count(mode, n), TF32_TILE_BYTES[mode] // 4)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    if out.shape != shape or not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError(f"tf32_tiles: out must be a contiguous {shape}, "
+                         "16-byte aligned")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.library().lunaris_k2_tf32_split(
+        mode, a.data_ptr(), ptr(b), ptr(lse), ptr(delta), out.data_ptr(),
+        bsz * h, n, d, scale, torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "tf32_tiles")
+    global split_launches
+    split_launches += 1
+    return out
+
+
 BWD_VARIANTS = ("fused", "split")
 
 
@@ -370,8 +516,9 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
     """The body a call of `name` takes: the tensor cores ("mma") at the head
     sizes `mma_dims` for bf16, and for f32 too where `f32` (three TF32
     passes); the CUDA cores ("simt") otherwise; and for bf16 at
-    WGMMA_HEAD_DIMS, where the kernel has a warpgroup body ("wgmma": wgmma
-    fed by TMA), that one. `wgmma` names the body it replaced there, which
+    WGMMA_HEAD_DIMS and f32 at TF32_WGMMA_HEAD_DIMS, where the kernel has a
+    warpgroup body ("wgmma": wgmma fed by TMA), that one. `wgmma` names the
+    body it replaced there (f32: "mma"), which
     `body` may still name, as it may name "mma" wherever the kernel has a
     tensor-core body. `body` "simt" reaches the CUDA-core kernel where
     the tensor-core one is the default (f32 at every head size, bf16 at
@@ -381,8 +528,8 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
         raise ValueError(f"{name}: no kernel for {dtype}, head dim {d} (f32 "
                          f"or bf16, {SUPPORTED})")
     mma = d in mma_dims and (f32 or dtype == torch.bfloat16)
-    warpgroup = (wgmma is not None and dtype == torch.bfloat16
-                 and d in WGMMA_HEAD_DIMS)
+    warpgroup = wgmma is not None and d in (
+        WGMMA_HEAD_DIMS if dtype == torch.bfloat16 else TF32_WGMMA_HEAD_DIMS)
     default = "wgmma" if warpgroup else "mma" if mma else "simt"
     body = body or default
     ok = body in FWD_BODIES and (
@@ -390,7 +537,8 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
         or (body == "mma" and mma)
         or (body == "simt" and (dtype == torch.float32 or d == 16)))
     if not ok:
-        wg = f"; wgmma: bf16 at d in {WGMMA_HEAD_DIMS}" if wgmma else ""
+        wg = (f"; wgmma: bf16 at d in {WGMMA_HEAD_DIMS}, f32 at d in "
+              f"{TF32_WGMMA_HEAD_DIMS}" if wgmma else "")
         raise ValueError(f"{name}: body {body!r} does not take {dtype} at "
                          f"head dim {d} (tensor cores: bf16"
                          f"{', f32' if f32 else ''} at d in {mma_dims}{wg})")
@@ -399,12 +547,14 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
 
 def _short_rows_body(dtype: torch.dtype, d: int, nq: int,
                      nk: int) -> str | None:
-    """The body bf16 at a narrow head size takes where its rows are short,
-    else None (the default of `_body`): the narrow warpgroup bodies start
-    a producer, a ring and their barriers per block, which the short rows
-    of a windowed fold (Nq = Nk = the window) do not pay back."""
-    if dtype == torch.bfloat16 and d in NARROW_HEAD_DIMS and min(
-            nq, nk) < NARROW_MIN_ROWS:
+    """The body a call at d 16 takes where its rows are short, else None
+    (the default of `_body`): the narrow warpgroup bodies (bf16) start a
+    producer, a ring and their barriers per block, and the f32 ones a
+    pre-pass as well, which the short rows of a windowed fold (Nq = Nk =
+    the window) or a 32 px model do not pay back."""
+    short = (NARROW_MIN_ROWS if dtype == torch.bfloat16
+             else TF32_WGMMA_MIN_ROWS)
+    if d in NARROW_HEAD_DIMS and min(nq, nk) < short:
         return "mma"
     return None
 
@@ -433,7 +583,10 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     warpgroup body ("wgmma", 192 query rows a block, key tiles of 128)
     where Nq and Nk are both at least NARROW_MIN_ROWS, the mma.sync body
     where either is shorter (the windowed fold); `body` reaches either, and
-    "simt". d 16, 32, 48, 64 otherwise take
+    "simt". f32 at d 16 takes its own warpgroup body ("wgmma", 192 query
+    rows a block, key tiles of 64 from the pre-pass) where Nq and Nk are
+    both at least TF32_WGMMA_MIN_ROWS, the mma.sync body where either is
+    shorter; `body` reaches either. d 16, 32, 48, 64 otherwise take
     the tensor-core body of their type (f32: three TF32 passes, keys in
     tiles of 32 at d 48 and 64), d 8 the CUDA-core body (`body` as in
     `_body`). At d 16 dropout and raggedness are template parameters; the
@@ -444,9 +597,10 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
                  body or _short_rows_body(dtype, d, nq, nk), wgmma="mma")
     if body == "wgmma":
         rows = 192 if d in NARROW_HEAD_DIMS else 128
-        return ForwardInstance(body, d, 128, rows, -(-nq // rows),
+        block_k = TF32_TILE if dtype == torch.float32 else 128
+        return ForwardInstance(body, d, block_k, rows, -(-nq // rows),
                                "on" if dropout_rate > 0.0 else "off",
-                               nk % 128 != 0)
+                               nk % block_k != 0)
     if body == "mma":
         block_k = 32 if dtype == torch.float32 and d > 32 else 64
         rows = 128 if d == 16 else 64
@@ -472,6 +626,8 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
     if inst.body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the tensor-core kernel copies 16 "
                          "bytes at a time; q, k, v must be aligned to that")
+    f32_wg = inst.body == "wgmma" and q.dtype == torch.float32
+    split = tf32_tiles(TF32_FWD, k, v) if f32_wg else None
     o = torch.empty_like(q)
     lse = torch.empty(b * h, nq, device=q.device, dtype=torch.float32)
     err = _build.library().lunaris_flash_attention_fwd(
@@ -479,13 +635,17 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         o.data_ptr(), lse.data_ptr(), b * h, h, nq, k.shape[2], d, scale,
         *drop, seed & _M32, q_offset, row_offset,
         int(q.dtype == torch.bfloat16), FWD_BODIES.index(inst.body),
+        None if split is None else split.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     global launches, shard_launches, wgmma_launches, narrow_launches
+    global tf32_wgmma_launches
     launches += 1
     shard_launches += q_offset > 0
     wgmma_launches += inst.body == "wgmma"
-    narrow_launches += inst.body == "wgmma" and d in NARROW_HEAD_DIMS
+    narrow_launches += (inst.body == "wgmma" and d in NARROW_HEAD_DIMS
+                        and not f32_wg)
+    tf32_wgmma_launches += f32_wg
     return o, lse
 
 
@@ -570,7 +730,10 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 16 takes the narrow warpgroup body ("wgmma": 192 keys a
     block, query tiles of 64) where Nq and Nk are both at least
     NARROW_MIN_ROWS, else the mma.sync body, which `body="mma"` reaches at
-    every shape.
+    every shape. f32 at d 16 takes its own warpgroup body ("wgmma": 128 keys
+    a block, query tiles of 64 from the pre-pass) where Nq and Nk are both
+    at least TF32_WGMMA_MIN_ROWS, else the mma.sync body, which
+    `body="mma"` reaches at every shape.
     d 16 and 32 take the tensor-core body of their type (bf16: the dk/dv
     body with a fifth product, dq; f32: its own body, five products in
     three TF32 passes), d 8 and f32 at 48 and 64 the CUDA-core body.
@@ -582,7 +745,8 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
                  body or _short_rows_body(dtype, d, nq, nk), wgmma="simt")
     if body == "wgmma":
-        rows = 192 if d in NARROW_HEAD_DIMS else 128
+        rows = (192 if d in NARROW_HEAD_DIMS and dtype == torch.bfloat16
+                else 128)
         return FusedInstance(body, d, 64, rows, -(-nk // rows),
                              "on" if dropout_rate > 0.0 else "off",
                              nq % 64 != 0)
@@ -618,6 +782,7 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
     b, h, nq, d = q.shape
     rule = fused_instance if kernel == DKV_FUSED_DQ else backward_instance
     body = rule(q.dtype, d, nq, k.shape[2], dropout_rate, body).body
+    f32_wg = body == "wgmma" and q.dtype == torch.float32
     outs = {DKV: (dk, dv, dbias_bh), DKV_FUSED_DQ: (dk, dv, dbias_bh, dq_acc),
             DQ: (dq,)}[kernel]
     if any(t is None or t.device != q.device or not t.is_contiguous()
@@ -629,19 +794,34 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
                          "16 bytes at a time; q, k, v, dO must be aligned to "
                          "that")
     ptr = lambda t: None if t is None else t.data_ptr()
+    split = None
+    if f32_wg:
+        # The pre-pass's query tiles, then its key tiles, in one buffer.
+        nk = k.shape[2]
+        sizes = [b * h * tf32_tile_count(m, n) * TF32_TILE_BYTES[m] // 4
+                 for m, n in ((TF32_BWD_Q, nq), (TF32_BWD_K, nk))]
+        split = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+        tf32_tiles(TF32_BWD_Q, q, do, lse, delta, scale,
+                   out=split[:sizes[0]].view(
+                       b * h, tf32_tile_count(TF32_BWD_Q, nq), -1))
+        tf32_tiles(TF32_BWD_K, k, out=split[sizes[0]:].view(
+            b * h, tf32_tile_count(TF32_BWD_K, nk), -1))
     err = _build.library().lunaris_flash_attention_bwd(
         kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq), ptr(dk),
         ptr(dv), ptr(dbias_bh), ptr(dq_acc), b * h, h, nq, k.shape[2], d,
         scale, *drop, seed & _M32, q_offset, row_offset,
-        int(q.dtype == torch.bfloat16), FWD_BODIES.index(body),
+        int(q.dtype == torch.bfloat16), FWD_BODIES.index(body), ptr(split),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
     global bwd_shard_launches, bwd_wgmma_launches, bwd_narrow_launches
+    global bwd_tf32_wgmma_launches
     bwd_shard_launches += q_offset > 0
     bwd_wgmma_launches += body == "wgmma"
-    bwd_narrow_launches += body == "wgmma" and d in NARROW_HEAD_DIMS
+    bwd_narrow_launches += (body == "wgmma" and d in NARROW_HEAD_DIMS
+                            and not f32_wg)
+    bwd_tf32_wgmma_launches += f32_wg
     if kernel == DKV_FUSED_DQ:
         bwd_fused_launches += 1
     elif kernel == DKV:

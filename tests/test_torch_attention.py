@@ -127,11 +127,12 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
     # the teacher's shape: serving (dropout 0) and training (0.1); bf16
-    # takes the narrow warpgroup body, 192 rows and 128 keys a tile
+    # takes the narrow warpgroup body, 192 rows and 128 keys a tile, f32 its
+    # own warpgroup body, 192 rows and the pre-pass's key tiles of 64
     (BF16, 16, 16384, 16384, 0.0, ("wgmma", 128, 192, 86, "off", False)),
     (BF16, 16, 16384, 16384, 0.1, ("wgmma", 128, 192, 86, "on", False)),
-    (F32, 16, 16384, 16384, 0.0, ("mma", 64, 128, 128, "off", False)),
-    (F32, 16, 16384, 16384, 0.1, ("mma", 64, 128, 128, "on", False)),
+    (F32, 16, 16384, 16384, 0.0, ("wgmma", 64, 192, 86, "off", False)),
+    (F32, 16, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     # a q shard against the full keys (the context-parallel call)
     (BF16, 16, 4096, 16384, 0.1, ("wgmma", 128, 192, 22, "on", False)),
     # the card tests' shapes: ragged N, the other head sizes
@@ -143,7 +144,8 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 16, 256, 256, 0.0, ("mma", 64, 128, 2, "off", False)),
     (BF16, 16, 256, 256, 0.1, ("mma", 64, 128, 2, "on", False)),
     (F32, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
-    (F32, 16, 4096, 16384, 0.1, ("mma", 64, 128, 32, "on", False)),
+    (F32, 16, 4096, 16384, 0.1, ("wgmma", 64, 192, 22, "on", False)),
+    (F32, 16, 2100, 2100, 0.0, ("wgmma", 64, 192, 11, "off", True)),
     (F32, 16, 300, 300, 0.0, ("mma", 64, 128, 3, "off", True)),
     (BF16, 16, 1000, 1024, 0.0, ("mma", 64, 128, 8, "off", False)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
@@ -165,8 +167,9 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 takes the
-    warpgroup bodies, d 16, 32 (and f32 at 48, 64) the tensor cores (f32:
+    dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 and f32
+    at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16, 32
+    (and f32 at 48, 64) the tensor cores on mma.sync (f32:
     three TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA
     cores; at d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
@@ -205,8 +208,10 @@ def test_forward_instance_body_argument():
     for d in k2.MMA_HEAD_DIMS:
         assert k2.forward_instance(F32, d, 64, 64, 0.0, body="simt").body == \
             "simt"
+    assert k2.forward_instance(F32, 16, 64, 64, 0.0, body="wgmma").body == \
+        "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
-                           (BF16, 64, "simt"), (F32, 16, "wgmma"),
+                           (BF16, 64, "simt"), (F32, 32, "wgmma"),
                            (F32, 48, "wgmma"), (BF16, 32, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
@@ -280,9 +285,76 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     assert k2.backward_instance(BF16, 16, nq, nk, rate).body == "mma"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(BF16, 16, nq, nk, rate, body="wgmma")
-    # f32 keeps its own bodies at d 16
-    assert k2.forward_instance(F32, 16, nq, nk, rate).body == "mma"
-    assert k2.fused_instance(F32, 16, nq, nk, rate).body == "mma"
+    # f32 has its own bodies at d 16, on its own threshold
+    f32 = "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS else "mma"
+    assert k2.forward_instance(F32, 16, nq, nk, rate).body == f32
+    assert k2.fused_instance(F32, 16, nq, nk, rate).body == f32
+
+
+@pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
+                                         (16384, 16384, 0.1),
+                                         (8192, 16384, 0.1), (4096, 4096, 0.1),
+                                         (2048, 2048, 0.0), (2047, 16384, 0.1),
+                                         (1024, 1024, 0.1), (256, 256, 0.1)])
+def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
+    """f32 at d 16 (the default type and width) takes its warpgroup bodies
+    where neither Nq nor Nk is shorter than TF32_WGMMA_MIN_ROWS: the
+    forward with three warpgroups of 64 rows on the pre-pass's key tiles of
+    64, the fused backward with 128 keys a block and query tiles of 64, the
+    fused variant by default. Shorter rows (the windowed fold, N 256; a
+    32 px model, N 1024) keep the mma.sync bodies, which `body="mma"`
+    reaches at every shape, as `body="simt"` reaches the CUDA-core ones;
+    f32 at d 32, 48 and 64, the split backward and bf16 keep their bodies."""
+    assert k2.TF32_WGMMA_HEAD_DIMS == (16,)
+    long = min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS
+    fwd = k2.forward_instance(F32, 16, nq, nk, rate)
+    bwd = k2.fused_instance(F32, 16, nq, nk, rate)
+    if long:
+        assert fwd == k2.ForwardInstance("wgmma", 16, 64, 192, -(-nq // 192),
+                                         "on" if rate else "off",
+                                         nk % 64 != 0)
+        assert bwd == k2.FusedInstance("wgmma", 16, 64, 128, -(-nk // 128),
+                                       "on" if rate else "off", nq % 64 != 0)
+    else:
+        assert (fwd.body, fwd.block_k, fwd.rows) == ("mma", 64, 128)
+        assert (bwd.body, bwd.block_q, bwd.rows) == ("mma", 64, 64)
+    assert k2.default_bwd(F32, 16) == "fused"
+    for body in ("wgmma", "mma", "simt"):
+        assert k2.forward_instance(F32, 16, nq, nk, rate, body=body).body \
+            == body
+        assert k2.fused_instance(F32, 16, nq, nk, rate, body=body).body \
+            == body
+    old = k2.forward_instance(F32, 16, nq, nk, rate, body="mma")
+    assert (old.block_k, old.rows) == (64, 128)
+    assert k2.backward_instance(F32, 16, nq, nk, rate).body == "simt"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(F32, 16, nq, nk, rate, body="wgmma")
+    for d in (32, 48, 64):
+        assert k2.forward_instance(F32, d, nq, nk, rate).body == "mma"
+        with pytest.raises(ValueError, match="does not take"):
+            k2.forward_instance(F32, d, nq, nk, rate, body="wgmma")
+    assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
+    assert k2.forward_instance(BF16, 16, nq, nk, rate) == \
+        k2.forward_instance(BF16, 16, nq, nk, rate, body=(
+            "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS else "mma"))
+
+
+def test_tf32_tiles_on_the_cpu_take_the_plain_version():
+    """The pre-pass's wrapper on CPU tensors is its plain version and does
+    not count; its tile counts follow N (the backward's key tiles in
+    pairs)."""
+    r = np.random.default_rng(0)
+    k, v = (torch.from_numpy(r.standard_normal((1, 2, 100, 16)).astype(
+        np.float32)) for _ in range(2))
+    before = k2.split_launches
+    got = k2.tf32_tiles(k2.TF32_FWD, k, v)
+    assert k2.split_launches == before
+    assert torch.equal(got, k2.tf32_tiles_plain(k2.TF32_FWD, k, v))
+    assert got.shape == (2, 2, 4096)
+    assert [k2.tf32_tile_count(m, n) for m in (0, 1, 2) for n in (64, 65, 129)] \
+        == [1, 2, 3, 1, 2, 3, 2, 2, 4]
+    with pytest.raises(ValueError, match="head size 16"):
+        k2.tf32_tiles(k2.TF32_FWD, k[..., :8], v[..., :8])
 
 
 def test_rectangular_q_offset_matches_pallas():

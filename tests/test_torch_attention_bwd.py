@@ -177,12 +177,15 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
     assert inst.dq_blocks * inst.dq_rows >= nq > (
         inst.dq_blocks - 1) * inst.dq_rows
     # the forward's rule picks the same body for the same call in bf16, but
-    # at d 48 and 64, where the forward has a warpgroup body; f32 has a
-    # tensor-core forward (three TF32 passes) but no split one
+    # where the forward has a warpgroup body (d 48 and 64, and d 16 on long
+    # rows); f32 has tensor-core forwards (three TF32 passes; at d 16 on
+    # long rows on wgmma) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
-    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS
-    assert fwd == ("wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS
-                   and not short else
+    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < (
+        k2.NARROW_MIN_ROWS if dtype == BF16 else k2.TF32_WGMMA_MIN_ROWS)
+    warpgroup = d in (k2.WGMMA_HEAD_DIMS if dtype == BF16
+                      else k2.TF32_WGMMA_HEAD_DIMS)
+    assert fwd == ("wgmma" if warpgroup and not short else
                    inst.body if dtype == BF16 else
                    "mma" if d in k2.MMA_HEAD_DIMS else "simt")
 
@@ -230,8 +233,11 @@ def test_backward_instance_body_argument():
     (BF16, 64, 16384, 16384, 0.1, ("wgmma", 64, 128, 128, "on", False)),
     (BF16, 48, 300, 2000, 0.0, ("wgmma", 64, 128, 16, "off", True)),
     (BF16, 8, 4096, 4096, 0.1, ("simt", 32, 128, 32, "runtime", True)),
-    (F32, 16, 16384, 16384, 0.1, ("mma", 64, 64, 256, "on", False)),
-    (F32, 16, 4096, 4096, 0.0, ("mma", 64, 64, 64, "off", False)),
+    # f32 at d 16: its warpgroup body, 128 keys a block, on long rows
+    (F32, 16, 16384, 16384, 0.1, ("wgmma", 64, 128, 128, "on", False)),
+    (F32, 16, 4096, 4096, 0.0, ("wgmma", 64, 128, 32, "off", False)),
+    (F32, 16, 2100, 2048, 0.1, ("wgmma", 64, 128, 16, "on", True)),
+    (F32, 16, 1024, 1024, 0.0, ("mma", 64, 64, 16, "off", False)),
     (F32, 16, 2000, 300, 0.1, ("mma", 64, 64, 5, "on", True)),
     (F32, 32, 2000, 2000, 0.1, ("mma", 32, 64, 32, "runtime", True)),
     (F32, 32, 300, 2000, 0.0, ("mma", 32, 64, 32, "runtime", True)),
@@ -240,8 +246,9 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 takes
-    the warpgroup bodies, d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
+    Nk, dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 and
+    f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16
+    and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
     body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
     and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
     dropout and a ragged Nq are compiled in. In bf16 an mma.sync block walks
@@ -279,7 +286,8 @@ def test_default_bwd(dtype, d, want):
     if want == "fused":
         # the fused body is the tensor cores' wherever they have one
         assert fused.body == (
-            "wgmma" if dtype == BF16 and d in k2.WGMMA_HEAD_DIMS else
+            "wgmma" if d in (k2.WGMMA_HEAD_DIMS if dtype == BF16
+                             else k2.TF32_WGMMA_HEAD_DIMS) else
             "mma" if d in k2.MMA_FUSED_HEAD_DIMS else split.body)
 
 
@@ -297,9 +305,11 @@ def test_fused_instance_body_argument():
     # bf16 d 48 and 64: the CUDA-core kernel the warpgroup body replaced
     old = k2.fused_instance(BF16, 64, 2000, 2000, 0.1, body="simt")
     assert old == k2.FusedInstance("simt", 64, 32, 32, 63, "runtime", True)
+    assert k2.fused_instance(F32, 16, 64, 64, 0.0, body="wgmma").body == \
+        "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
                            (BF16, 32, "simt"),
-                           (BF16, 48, "mma"), (F32, 16, "wgmma"),
+                           (BF16, 48, "mma"), (F32, 32, "wgmma"),
                            (F32, 64, "wgmma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)

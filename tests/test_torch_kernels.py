@@ -241,9 +241,11 @@ def _k2_inputs(cuda, b, h, nq, nk, d, dtype, seed):
 def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
     inst = k2.forward_instance(dtype, d, n, n, rate)
-    short = d in k2.NARROW_HEAD_DIMS and n < k2.NARROW_MIN_ROWS
-    assert inst.body == ("wgmma" if dtype == torch.bfloat16
-                         and d in k2.WGMMA_HEAD_DIMS and not short else
+    bf16 = dtype == torch.bfloat16
+    short = d in k2.NARROW_HEAD_DIMS and n < (
+        k2.NARROW_MIN_ROWS if bf16 else k2.TF32_WGMMA_MIN_ROWS)
+    warpgroup = d in (k2.WGMMA_HEAD_DIMS if bf16 else k2.TF32_WGMMA_HEAD_DIMS)
+    assert inst.body == ("wgmma" if warpgroup and not short else
                          "mma" if d >= 16 else "simt")
     before = k2.launches
     o, lse = k2.flash_attention(q, k, v, bias, dropout_rate=rate, seed=-77)
@@ -739,20 +741,22 @@ def test_flash_attention_autograd_on_cuda(cuda):
                                             (1000, 2048, 1048)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_f32_tensor_cores(cuda, d, nq, nk, q_offset, rate):
-    """The f32 tensor-core forward against the plain version (phase 4's
-    bars: o 1e-5, lse 1e-4) and against the CUDA-core kernel it replaced,
-    `body="simt"`, on the same inputs (1e-5)."""
+    """The f32 tensor-core forward on mma.sync (`body="mma"`: the default
+    at d 32, 48, 64 and at d 16 on short rows) against the plain version
+    (phase 4's bars: o 1e-5, lse 1e-4) and against the CUDA-core kernel it
+    replaced, `body="simt"`, on the same inputs (1e-5)."""
     q, k, v, bias = _k2_inputs(cuda, 2, 4, nq, nk, d, torch.float32,
                                seed=nq + d)
-    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
-    inst = k2.forward_instance(torch.float32, d, nq, nk, rate)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset, body="mma")
+    inst = k2.forward_instance(torch.float32, d, nq, nk, rate, "mma")
     assert inst.body == "mma"
     before = k2.launches
     o, lse = k2.forward_kernel(q, k, v, bias, **kw)
-    old, old_lse = k2.forward_kernel(q, k, v, bias, body="simt", **kw)
+    old, old_lse = k2.forward_kernel(q, k, v, bias, **{**kw, "body": "simt"})
     torch.cuda.synchronize()
     assert k2.launches == before + 2
-    ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
+    ro, rlse = k2.attention_plain(q, k, v, bias, dropout_rate=rate, seed=-77,
+                                  q_offset=q_offset)
     assert (o - ro).abs().max().item() <= 1e-5
     assert (lse - rlse).abs().max().item() <= 1e-4
     assert (o - old).abs().max().item() <= 1e-5
@@ -768,7 +772,8 @@ def test_flash_attention_f32_tensor_cores(cuda, d, nq, nk, q_offset, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_bwd_f32_fused_tensor_cores(cuda, d, nq, nk, q_offset,
                                                     rate):
-    """The f32 fused tensor-core backward against the plain backward
+    """The f32 fused tensor-core backward on mma.sync (`body="mma"`: the
+    default at d 32 and at d 16 on short rows) against the plain backward
     (phase 7's bar: 1e-4 of the largest + 1e-6) and against the CUDA-core
     fused kernel it replaced, on the same inputs; dk, dv and dbias the same
     bits every run (dq adds with atomics in any order)."""
@@ -779,9 +784,10 @@ def test_flash_attention_bwd_f32_fused_tensor_cores(cuda, d, nq, nk, q_offset,
         q, k, v, bias, _, _, do = args
         o, lse = k2.attention_plain(q, k, v, bias, **kw)
         args = (q, k, v, bias, o, lse, do)
-    assert k2.fused_instance(torch.float32, d, nq, nk, rate).body == "mma"
+    assert k2.fused_instance(torch.float32, d, nq, nk, rate, "mma").body == \
+        "mma"
     before = k2.bwd_fused_launches
-    new = _bwd_fused(args, **kw)
+    new = _bwd_fused(args, body="mma", **kw)
     old = _bwd_fused(args, body="simt", **kw)
     torch.cuda.synchronize()
     assert k2.bwd_fused_launches == before + 2
@@ -789,6 +795,119 @@ def test_flash_attention_bwd_f32_fused_tensor_cores(cuda, d, nq, nk, q_offset,
     for name, n, o, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
         _close(n, r, torch.float32, name)
         _close(n, o, torch.float32, name)
+    again = _bwd_fused(args, body="mma", **kw)
+    for name, a, b in zip(("dk", "dv", "dbias"), new[1:], again[1:]):
+        assert torch.equal(a, b), f"{name}: same bits every run"
+
+
+# --- K2 in f32 at d 16 on wgmma (three TF32 passes) --------------------------
+
+# The f32 warpgroup bodies (flash_fwd_wgmma_tf32, flash_bwd_wgmma_tf32) at
+# and past TF32_WGMMA_MIN_ROWS: whole and ragged N, a q shard against the
+# full keys, both rates (their four instances).
+_TF32_WG = [(4096, 4096, 0), (2100, 2100, 0), (2048, 4096, 2048),
+            (4096, 2300, 0)]
+
+
+@pytest.mark.gpu
+def test_tf32_tiles_match_their_plain_twin(cuda):
+    """The pre-pass of the f32 warpgroup bodies writes its plain twin's
+    bytes, bit for bit, in each mode, at a ragged N; it counts a launch."""
+    q, k, v, _ = _k2_inputs(cuda, 2, 3, 300, 300, 16, torch.float32, seed=8)
+    lse = torch.randn(6, 300, device=cuda)
+    delta = torch.randn(2, 3, 300, device=cuda)
+    for mode, args in ((k2.TF32_FWD, (k, v)),
+                       (k2.TF32_BWD_Q, (q, v, lse, delta)),
+                       (k2.TF32_BWD_K, (k,))):
+        before = k2.split_launches
+        got = k2.tf32_tiles(mode, *args, scale=0.25)
+        torch.cuda.synchronize()
+        assert k2.split_launches == before + 1
+        want = k2.tf32_tiles_plain(mode, *args, scale=0.25)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WG)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_warpgroup(cuda, nq, nk, q_offset, rate):
+    """The f32 warpgroup forward, the default at d 16 on long rows, against
+    the plain version (phase 4's bars: o 1e-5, lse 1e-4) and against the
+    mma.sync body it replaced (1e-5); the same bits on a second call; one
+    launch of the body and one of its pre-pass a call."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, nq, nk, 16, torch.float32,
+                               seed=nq + nk + 16)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    assert k2.forward_instance(torch.float32, 16, nq, nk, rate).body == \
+        "wgmma"
+    before = (k2.tf32_wgmma_launches, k2.split_launches, k2.narrow_launches)
+    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert (k2.tf32_wgmma_launches, k2.split_launches,
+            k2.narrow_launches) == (before[0] + 1, before[1] + 1, before[2])
+    old, old_lse = k2.forward_kernel(q, k, v, bias, body="mma", **kw)
+    ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
+    assert (o - ro).abs().max().item() <= 1e-5
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    assert (o - old).abs().max().item() <= 1e-5
+    assert torch.equal(o, k2.forward_kernel(q, k, v, bias, **kw)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_warpgroup_mask_by_position(cuda, rate):
+    """The dropout mask of the f32 warpgroup forward, position by position:
+    with v the one-hot of each key (d 16 keys a tile of 16 in turn) and a
+    bias that makes every row's softmax nearly uniform, o's columns are p
+    dropped and rescaled at those keys, which the plain version's mask
+    gives; any key or query misplaced in the hash moves whole entries."""
+    nq, nk = 2048, 2048
+    q = torch.zeros(1, 2, nq, 16, device=cuda)
+    k = torch.zeros(1, 2, nk, 16, device=cuda)
+    v = torch.eye(16, device=cuda).repeat(nk // 16, 1).reshape(1, 1, nk, 16)
+    v = v.expand(1, 2, nk, 16).contiguous()
+    bias = torch.zeros(2, nk, device=cuda)
+    kw = dict(dropout_rate=rate, seed=12345, q_offset=0)
+    o, _ = k2.forward_kernel(q, k, v, bias, **kw)
+    ro, _ = k2.attention_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert (o - ro).abs().max().item() <= 1e-6
+    if rate:
+        rs = k2.row_seeds(12345, 2, device=cuda).reshape(1, 2, 1, 1)
+        keep = k2.keep_mask(rs, torch.arange(nk, device=cuda),
+                            torch.arange(nq, device=cuda)[:, None],
+                            k2.dropout_threshold(1.0 - rate))
+        kept = keep.reshape(1, 2, nq, nk // 16, 16).float().sum(3)
+        want = kept * k2._inv_keep(rate) / nk
+        assert (o - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WG)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bwd_f32_warpgroup(cuda, nq, nk, q_offset, rate):
+    """The f32 fused warpgroup backward, the default at d 16 on long rows,
+    against the plain backward (phase 7's bar: 1e-4 of the largest + 1e-6)
+    and against the mma.sync fused kernel it replaced; dk, dv and dbias
+    the same bits on a second run (dq adds with atomics in any order); one
+    launch of the body and two of its pre-pass a call."""
+    args = _bwd_inputs(cuda, 2, 4, nq, nk, 16, torch.float32,
+                       seed=nq + nk + 17, rate=rate)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    q, k, v, bias, _, _, do = args
+    o, lse = k2.attention_plain(q, k, v, bias, **kw)
+    args = (q, k, v, bias, o, lse, do)
+    assert k2.fused_instance(torch.float32, 16, nq, nk, rate).body == "wgmma"
+    before = (k2.bwd_tf32_wgmma_launches, k2.split_launches)
+    new = _bwd_fused(args, **kw)
+    torch.cuda.synchronize()
+    assert (k2.bwd_tf32_wgmma_launches, k2.split_launches) == (
+        before[0] + 1, before[1] + 2)
+    old = _bwd_fused(args, body="mma", **kw)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for name, n, o_, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
+        _close(n, r, torch.float32, name)
+        _close(n, o_, torch.float32, name)
     again = _bwd_fused(args, **kw)
     for name, a, b in zip(("dk", "dv", "dbias"), new[1:], again[1:]):
         assert torch.equal(a, b), f"{name}: same bits every run"
@@ -1069,14 +1188,16 @@ def test_flash_fwd_stage_kernel_matches_plain(cuda, stage, n, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fwd_stage_sum_is_the_forward_kernel(cuda, dtype):
-    """At "sum" the stage kernel is the forward kernel without dropout,
-    operation for operation: the same bits."""
+    """At "sum" the stage kernel is the forward kernel it is built on (the
+    mma.sync body, `body="mma"`: at N 2048 the default is a warpgroup body
+    in both types) without dropout, operation for operation: the same
+    bits."""
     r = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(r.standard_normal((2, 4, 2048, 16)).astype(
         np.float32)).to(cuda, dtype) for _ in range(3))
     bias = torch.from_numpy(
         (0.5 * r.standard_normal((4, 2048))).astype(np.float32)).to(cuda)
-    o, lse = k2.flash_attention(q, k, v, bias)
+    o, lse = k2.forward_kernel(q, k, v, bias, body="mma")
     qs = q * torch.tensor(16 ** -0.5, dtype=dtype, device=cuda)
     so, slse = stages.flash_fwd_stage(qs, k, v, bias, "sum",
                                       stages.KERNEL_BLOCK_K)

@@ -10,6 +10,7 @@ bar of 1e-5. The emulated forward also agrees with the JAX package's
 Pallas kernel (interpret mode). The kernels themselves are held against the
 plain version on a CUDA card by tests/test_torch_kernels.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,3 +153,290 @@ def test_tf32_round_is_rna_on_the_bits():
             <= 2.0**-22 * r.double().abs()).all()
     assert ((k2.tf32_round(r).double() - r.double()).abs()
             <= 2.0**-11 * r.double().abs()).all()
+
+
+# --- the f32 warpgroup bodies at d 16 (flash_fwd_wgmma_tf32,
+# flash_bwd_wgmma_tf32): the pre-pass's tiles as wgmma reads them, and the
+# bodies' arithmetic on them -------------------------------------------------
+
+def _kmajor(tile, start, rows, span, sbo):
+    """A K-major TF32 operand [rows, 8] as wgmma reads it from a tile (the
+    tile's bytes as f32 values, last dim): row n at byte start + (n // 8)
+    sbo + (n % 8) span, element k 4 k further on, the swizzle of `span`
+    bytes (32: bit 4 ^= bit 7; 128: bits 4-6 ^= bits 7-9) on the address,
+    the tile's start being 1024-aligned. `start`, `span` and `sbo` are the
+    kernels' descriptors (hopper.cuh)."""
+    n = torch.arange(rows)[:, None]
+    k = torch.arange(8)[None, :]
+    addr = start + (n // 8) * sbo + (n % 8) * span + 4 * k
+    addr = addr ^ (((addr >> 7) & (span // 16 - 1)) << 4)
+    return tile[..., addr // 4]
+
+
+def _rows(tile, base, row0, rows):
+    """hi, lo [.., rows, 16] of a row-major pair of [64][8] tiles (32-byte
+    swizzle; lo 4096 bytes on), rows row0.. : q k^T's, s^T's, dp^T's B."""
+    return [torch.cat([_kmajor(tile, base + lo + kd * 2048 + row0 * 32, rows,
+                               32, 256) for kd in (0, 1)], -1)
+            for lo in (0, 4096)]
+
+
+def _cols(tile, base, k0, steps):
+    """hi, lo [.., 16, 8 steps] of a transposed pair ([32][32] atoms, 128-byte
+    swizzle, rows 16-31 lo), k-steps k0 / 8 .. : p v's, dk's, dv's, dq's B."""
+    m = torch.cat([_kmajor(tile, base + ((k0 // 8 + j) // 4) * 4096
+                           + ((k0 // 8 + j) % 4) * 32, 32, 128, 1024)
+                   for j in range(steps)], -1)
+    return m[..., :16, :], m[..., 16:, :]
+
+
+# The keys (queries) of a tile in the order the registers hold them along
+# p v's (dk's, dv's) k: position i holds key _AS_HELD[i].
+_AS_HELD = torch.argsort(k2.perm8(torch.arange(64)))
+
+
+def _x3(ah, al, bh, bl):
+    """One three-pass product, the kernels' order: small terms first."""
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
+    """o, lse of flash_fwd_wgmma_tf32's arithmetic in f32, on the pre-pass's
+    tiles as its descriptors read them: key tiles of 64; s = bias + three
+    passes a k-step of 8 (q lo K hi, q hi K lo, q hi K hi); the online
+    softmax with each lane's share of the row sum (keys 8 j + 2 t + e: a
+    tile's in two chains by j % 2, then added) summed over the row's 4
+    lanes at the end; p dropped, taken as
+    the registers hold it and split; p v from zero a tile, (p hi V lo + p
+    lo V hi) + p hi V hi; o = o corr + pv."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    qh, ql = k2.split_tf32(q * torch.tensor(d ** -0.5, dtype=torch.float32))
+    blob = k2.tf32_tiles_plain(k2.TF32_FWD, k, v).reshape(b, h, -1, 4096)
+    tiles = blob.shape[2]
+    bias = torch.nn.functional.pad(bias, (0, 64 * tiles - nk),
+                                   value=-float("inf"))
+    o = torch.zeros(b, h, nq, d)
+    m = torch.full((b, h, nq, 1), -1e30)
+    l_sum = torch.zeros(b, h, nq, 4)              # lane t's share
+    for t in range(tiles):
+        tile = blob[:, :, t]
+        kh, kl = _rows(tile, 0, 0, 64)
+        vth, vtl = _cols(tile, 8192, 0, 8)
+        s = bias[None, :, None, 64 * t:64 * t + 64].expand(b, h, nq, 64)
+        for kd in (0, 1):
+            c = slice(8 * kd, 8 * kd + 8)
+            tr = lambda x: x[..., c].transpose(-1, -2)
+            s = s + ql[..., c] @ tr(kh)
+            s = s + qh[..., c] @ tr(kl)
+            s = s + qh[..., c] @ tr(kh)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        lq = torch.zeros(2, b, h, nq, 4)
+        for j in range(8):
+            for e in range(2):
+                lq[j % 2] += p.reshape(b, h, nq, 8, 4, 2)[..., j, :, e]
+        l_sum = l_sum * corr + (lq[0] + lq[1])
+        if keep is not None:
+            kt = torch.nn.functional.pad(keep, (0, 64 * tiles - nk))
+            p = torch.where(kt[..., 64 * t:64 * t + 64], p * k2._inv_keep(rate),
+                            0.0)
+        ph, pl = k2.split_tf32(p[..., _AS_HELD])
+        o = o * corr + _x3(ph, pl, vth.transpose(-1, -2),
+                           vtl.transpose(-1, -2))
+        m = m_new
+    l_sum = (l_sum[..., :1] + l_sum[..., 1:2]) + (l_sum[..., 2:3]
+                                                  + l_sum[..., 3:])
+    return o / l_sum, (m + torch.log(l_sum)).squeeze(-1)
+
+
+def _bwd_wgmma_tf32(q, k, v, bias, do, o, lse, keep, rate):
+    """dq, dk, dv, dbias of flash_bwd_wgmma_tf32's arithmetic in f32, on the
+    pre-pass's tiles as its descriptors read them: query tiles of 64 in two
+    halves of 32; s^T = bias + three passes a k-step (k lo qs hi, k hi qs lo,
+    k hi qs hi), dp^T from zero the same way; p = 2^(s log2 e - lse log2 e);
+    ds and pv as the registers hold them, split; dk and dv from zero a tile,
+    three passes, then added; dq = (ds hi K lo + ds lo K hi) + ds hi K hi
+    over each 64 keys (a consumer warpgroup) and query tile, summed."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    scale = float(torch.tensor(d ** -0.5, dtype=torch.float32))
+    delta = (o * do).sum(-1)
+    qb = k2.tf32_tiles_plain(k2.TF32_BWD_Q, q, do, lse.reshape(b * h, nq),
+                             delta, scale).reshape(b, h, -1, 8320)
+    kb = k2.tf32_tiles_plain(k2.TF32_BWD_K, k).reshape(b, h, -1, 2048)
+    tq, nkp = qb.shape[2], 64 * kb.shape[2]
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, nkp - nk))
+    khi, klo = k2.split_tf32(pad(k))
+    vhi, vlo = k2.split_tf32(pad(v))
+    bk = torch.nn.functional.pad(bias, (0, nkp - nk))[None, :, :, None]
+    if keep is not None:
+        keep = torch.nn.functional.pad(keep, (0, nkp - nk, 0, 64 * tq - nq))
+    dk, dv = torch.zeros(b, h, nkp, d), torch.zeros(b, h, nkp, d)
+    db = torch.zeros(b, h, nkp)
+    dq = torch.zeros(b, h, 64 * tq, d)
+    held = _AS_HELD[:32]
+    kts = [[x.transpose(-1, -2) for x in _cols(kb[:, :, w], 0, 0, 8)]
+           for w in range(kb.shape[2])]                # K^T hi, lo: [64, 16]
+    for t in range(tq):
+        tile = qb[:, :, t]
+        tk, tv = torch.zeros(b, h, nkp, d), torch.zeros(b, h, nkp, d)
+        ds_tile = []
+        for hf in (0, 1):
+            qsh, qsl = _rows(tile, 0, 32 * hf, 32)
+            doh, dol = _rows(tile, 8192, 32 * hf, 32)
+            s, dp = bk.expand(b, h, nkp, 32), torch.zeros(b, h, nkp, 32)
+            for kd in (0, 1):
+                c = slice(8 * kd, 8 * kd + 8)
+                tr = lambda x: x[..., c].transpose(-1, -2)
+                s = s + klo[..., c] @ tr(qsh)
+                s = s + khi[..., c] @ tr(qsl)
+                s = s + khi[..., c] @ tr(qsh)
+                dp = dp + vlo[..., c] @ tr(doh)
+                dp = dp + vhi[..., c] @ tr(dol)
+                dp = dp + vhi[..., c] @ tr(doh)
+            rows = slice(32 * hf, 32 * hf + 32)
+            nl = tile[..., 8192:8256][..., None, rows]
+            dl = tile[..., 8256:8320][..., None, rows]
+            p = torch.exp2(s * torch.tensor(k2._LOG2E) + nl)
+            pv = p
+            if keep is not None:
+                kt = keep[..., 64 * t + 32 * hf:64 * t + 32 * hf + 32, :]
+                kinv = torch.where(kt.transpose(-1, -2), k2._inv_keep(rate), 0.0)
+                dp, pv = dp * kinv, p * kinv
+            ds = p * (dp - dl)
+            db += ds.sum(-1)
+            ds_tile.append(ds)
+            dsh, dsl = k2.split_tf32(ds[..., held])
+            pvh, pvl = k2.split_tf32(pv[..., held])
+            qth, qtl = _cols(tile, 16384, 32 * hf, 4)
+            oth, otl = _cols(tile, 24576, 32 * hf, 4)
+            tk = tk + _x3(dsh, dsl, qth.transpose(-1, -2), qtl.transpose(-1, -2))
+            tv = tv + _x3(pvh, pvl, oth.transpose(-1, -2), otl.transpose(-1, -2))
+        dk, dv = dk + tk, dv + tv
+        dsq = torch.cat(ds_tile, -1).transpose(-1, -2)       # [.., 64 q, keys]
+        for w, (kth, ktl) in enumerate(kts):
+            dh, dlo = k2.split_tf32(dsq[..., 64 * w:64 * w + 64])
+            dq[:, :, 64 * t:64 * t + 64] += _x3(dh, dlo, kth, ktl)
+    return (dq[:, :, :nq] * scale, dk[:, :, :nk], dv[:, :, :nk],
+            db[..., :nk].sum(0))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wgmma_tf32_forward_holds_to_f64(rate):
+    """flash_fwd_wgmma_tf32's arithmetic (key tiles of 64, its pass order, p
+    v from zero a tile, the operands read through the pre-pass's layout):
+    o and lse within 1e-6 of float64, the bars the mma.sync body's design
+    is held to above; a ragged Nk on the last tile."""
+    q, k, v, bias, _ = _inputs(1, 2, 256, 4000, 16, seed=16)
+    keep = _keep(1, 2, 256, 4000, rate, seed=-1234567)
+    ref_o, ref_lse, _ = _forward(q, k, v, bias, keep, rate)
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    assert (o.double() - ref_o).abs().max().item() <= 1e-6
+    assert (lse.double() - ref_lse).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wgmma_tf32_backward_holds_to_f64(rate):
+    """flash_bwd_wgmma_tf32's arithmetic (query tiles of 64 in halves of 32,
+    its pass order, dk and dv from zero a tile, dq over 64 keys a tile and
+    summed, the operands read through the pre-pass's layout): every
+    gradient within 1e-5 of its largest magnitude of float64, the mma.sync
+    body's bar above; ragged Nq and Nk."""
+    q, k, v, bias, do = _inputs(1, 2, 300, 1000, 16, seed=116)
+    keep = _keep(1, 2, 300, 1000, rate, seed=99)
+    ref = _backward(q, k, v, bias, do, keep, rate)
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    got = _bwd_wgmma_tf32(q, k, v, bias, do, o, lse, keep, rate)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        top = r.abs().max().item()
+        assert (g.double() - r).abs().max().item() <= 1e-5 * top, name
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.1, 1234567)])
+def test_wgmma_tf32_bodies_match_pallas(rate, seed):
+    """The emulated f32 warpgroup forward and backward against the JAX
+    package's Pallas kernel and its gradients (interpret mode), at 1e-5."""
+    q, k, v, bias, do = _inputs(1, 2, 256, 256, 16, seed=17)
+    keep = _keep(1, 2, 256, 256, rate, seed)
+    jq, jk, jv, jb = (jnp.asarray(x.numpy()) for x in (q, k, v, bias))
+    kw = dict(dropout_rate=rate, seed=jnp.int32(seed))
+    want = np.asarray(fa.attention_bhnd(jq, jk, jv, jb, **kw))
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    np.testing.assert_allclose(o.numpy(), want, atol=1e-5, rtol=0)
+    loss = lambda *a: jnp.sum(fa.attention_bhnd(*a, **kw) * jnp.asarray(
+        do.numpy()))
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(jq, jk, jv, jb)
+    got = _bwd_wgmma_tf32(q, k, v, bias, do, o, lse, keep, rate)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+def test_permuted_transposed_operand_gives_the_plain_product():
+    """perm8 puts key 2t + e of each 8 at k index t + 4 e: the C fragment
+    element the kernels take as A element (e * 2 + row half) holds it. So p
+    as the registers hold it times V^T read through the pre-pass's permuted
+    atoms is p v, bit for bit with the product in key order."""
+    for t in range(4):
+        for e in range(2):
+            assert k2.perm8(2 * t + e) == t + 4 * e
+            assert k2.perm8(8 + 2 * t + e) == 8 + t + 4 * e
+    r = np.random.default_rng(5)
+    p = torch.from_numpy(r.uniform(0, 1, (2, 3, 40, 64)).astype(np.float32))
+    v = torch.from_numpy(r.standard_normal((2, 3, 64, 16)).astype(np.float32))
+    p, v = k2.tf32_round(p), k2.tf32_round(v)
+    tile = k2.tf32_tiles_plain(k2.TF32_FWD, torch.zeros_like(v), v)[:, 0]
+    vth, vtl = _cols(tile.reshape(2, 3, -1), 8192, 0, 8)
+    assert not vtl.any()            # v is TF32 already: its lo is zero
+    got = p[..., _AS_HELD].double() @ vth.transpose(-1, -2).double()
+    want = p.double() @ v.double()
+    assert torch.equal(got, want)
+    assert not torch.equal(p.double() @ vth.transpose(-1, -2).double(), want)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("n", [64, 300])
+def test_tf32_tiles_plain_holds_split_tf32_as_wgmma_reads_it(mode, n):
+    """Every operand of the pre-pass's tiles, read through the kernels'
+    descriptors, is `split_tf32` of its source bit for bit (qs = q d^-1/2 in
+    f32), in its row or permuted column; rows past N are zeros, -lse log2 e
+    is -inf there; each tile's bytes are written once."""
+    r = np.random.default_rng(mode + n)
+    mk = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    a, b = mk(2, 3, n, 16), mk(2, 3, n, 16)
+    lse, delta = mk(6, n), mk(2, 3, n)
+    scale = float(torch.tensor(0.25))
+    blob = k2.tf32_tiles_plain(mode, a, b, lse, delta, scale)
+    tiles = k2.tf32_tile_count(mode, n)
+    assert blob.shape == (6, tiles, k2.TF32_TILE_BYTES[mode] // 4)
+    pad = lambda x: torch.nn.functional.pad(
+        x.reshape(6, n, 16), (0, 0, 0, 64 * tiles - n)).reshape(
+            6, tiles, 64, 16)
+    src = {0: (a, b), 1: (a * torch.tensor(scale), b), 2: (a,)}[mode]
+    for i, x in enumerate(src):
+        hi, lo = k2.split_tf32(pad(x))
+        if mode == 1 or (mode, i) == (0, 0):   # rows (K; qs, dO)
+            got = _rows(blob, 8192 * i, 0, 64)
+            for g, w in zip(got, (hi, lo)):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        if mode > 0 or i == 1:             # transposed (V; qs, dO; K)
+            base = {0: 8192, 1: 16384 + 8192 * i, 2: 0}[mode]
+            got = _cols(blob, base, 0, 8)
+            order = torch.arange(64) if mode == 2 else _AS_HELD
+            for g, w in zip(got, (hi, lo)):
+                want = w[..., order, :].transpose(-1, -2)
+                assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+    if mode == 1:
+        nl = blob[..., 8192:8256].reshape(6, -1)
+        want = -lse * torch.tensor(k2._LOG2E)
+        assert torch.equal(nl[:, :n], want)
+        assert torch.isneginf(nl[:, n:]).all()
+        assert torch.equal(blob[..., 8256:8320].reshape(6, -1)[:, :n],
+                           delta.reshape(6, n))
+    # each byte once: the maps are permutations of the tile
+    maps = k2._tile_maps()
+    flat = torch.cat([maps[0].flatten(), maps[0].flatten() + 1024,
+                      *(x.flatten() + 2048 for x in maps[1])])
+    assert torch.equal(flat.sort().values, torch.arange(4096))
