@@ -11,12 +11,12 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc; no
               tensor-core instance spills and ptxas serialises no warpgroup
-              body's wgmma (the f32 ones at d 16 and their pre-pass
-              among them: registers, spills and shared bytes logged); the
-              inner loop of each bf16 d 16 K2 instance
-              (the narrow warpgroup bodies and the mma.sync ones they
-              replaced) counted by instruction class from its SASS, per 32
-              scores;
+              body's wgmma (the f32 ones at d 16, their pre-pass and the
+              narrow ones at d 16 and 32 among them: registers, spills and
+              shared bytes logged); the inner loop of each bf16 d 16 and
+              d 32 K2 instance (the narrow warpgroup bodies and the
+              mma.sync ones they replaced) counted by instruction class
+              from its SASS, per 32 scores;
   3. K1       GroupNorm+Mish kernel against its plain version at the four
               decoder shapes, batch 8, and at [128,128,128,64], f32 and
               bf16, bit-equal to its earlier three-launch form with the
@@ -49,7 +49,12 @@ Phases, each of which raises on failure (exit code 1):
               special-function units); the narrow body at the short rows
               (the windowed fold, a CP q shard at q_offset 8192) against
               the online form and in turns with mma.sync, which the rule
-              keeps for the fold; f32 at d 16 on its warpgroup body (three
+              keeps for the fold; bf16 at d 32 (the low-end recipe) on the
+              narrow body the same way: a ragged N 2000 and 2100, B 8 and
+              16 with dropout 0 and 0.1 in turns with mma.sync (the new
+              must be faster), the fold, a CP q shard and N 512 to 4096 in
+              turns (what NARROW_MIN_ROWS[32] follows); f32 at d 16 on its
+              warpgroup body (three
               TF32 passes on wgmma): its pre-pass bit for bit against its
               plain twin and timed beside its bound, then at B 8 and 16
               with dropout 0 and 0.1, a ragged N, a CP q shard at q_offset
@@ -98,7 +103,12 @@ Phases, each of which raises on failure (exit code 1):
               0 and 0.1) and B 16 (0.1) beside the plain version, SDPA's
               backward and both floors, and at the short rows (the
               windowed fold, a CP q shard) the narrow kernel against the
-              plain backward and in turns with mma.sync; f32 at d 16 (the
+              plain backward and in turns with mma.sync; the same at d 32
+              (the low-end recipe: B 2, 8 and 16, a ragged N either side,
+              the fold, a CP q shard, N 512 to 4096; at B 8 and 16 the
+              narrow kernel must be faster; dk, dv and dbias the same bits
+              on a second run) and its dropout mask position by position;
+              f32 at d 16 (the
               fused warpgroup body, three TF32 passes on wgmma): at B 2
               with dropout 0 and 0.1, a ragged N and a CP q shard both it
               and the mma.sync fused kernel it replaced against the plain
@@ -262,12 +272,17 @@ Phases, each of which raises on failure (exit code 1):
  20. recipe   (run after 14) `docs/configs.md`'s H100 tier at full width
               (feature_dim 512 at 8 heads: head size 64; latent 512,
               embedding 256, batch 64 x 1, bf16; 128 px, 4 experts x 3
-              blocks, N 16384), seeded random init: the Trainer's memory
+              blocks, N 16384), then its low-end tier (feature_dim 256:
+              head size 32; latent 256, embedding 128, batch 16 x 4, bf16,
+              vae_lr 1e-4, teacher_lr 5e-5), each from a seeded random
+              init: the Trainer's memory
               plan on the card picks the batch and remat (logged), one
               warm-up and one profiled step of its train step, and one bf16
               decode+score at batch 8 through ImageGenerator, profiled;
               every K2 forward is `flash_fwd_wgmma` and every backward
-              `flash_bwd_wgmma` (by the wrappers' counts and by name), no
+              `flash_bwd_wgmma` at d 64, `flash_fwd_wgmma_narrow` and
+              `flash_bwd_wgmma_narrow` at d 32 (by the wrappers' counts
+              and by name), no
               CUDA-core K2 kernel runs, the losses and scores are finite;
               each profile holds a record of every launch the wrappers
               counted (K1's two kernels a call, K2's by name), or the call
@@ -598,8 +613,8 @@ D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
 
 def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str,
                        kind: str = "narrow", every: bool = False) -> dict:
-    """The d 16 K2 warpgroup bodies of `kind` (the narrow bf16 ones, or
-    the f32 ones) by name in a profile (`names`, device_share's K2
+    """The K2 warpgroup bodies of `kind` (the narrow bf16 ones, d 16 and
+    32, or the f32 ones, d 16) by name in a profile (`names`, device_share's K2
     instances) against the wrappers' counts of the same run: logged; a
     profile that holds none of the launches counted, or more, fails
     (torch.profiler may drop a session's first records). With `every`, the
@@ -623,14 +638,16 @@ def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str,
 
 
 def device_share(torch, fn, tag: str, smi: str, launches: dict = None,
-                 k2_names: dict = None, records: list = None):
+                 k2_names: dict = None, records: list = None,
+                 groups: dict = None):
     """Run fn() once under torch.profiler and log its device time by kernel
     group, with the share of the host's time in which the device was idle,
     and K1's kernels by name. Returns (fn's result, the host's seconds,
     {K1 kernel name: launches}, the device's milliseconds). `launches`, a
     dict, receives each kernel group's launches by name; `k2_names` each
     K2 kernel instance's launches; `records`, a list, every kernel record
-    as (start in µs from the first, name), in the order they ran."""
+    as (start in µs from the first, name), in the order they ran; `groups`
+    each group's device milliseconds."""
     from torch.autograd import DeviceType
     with profiled(torch) as p:
         t0 = time.perf_counter()
@@ -673,6 +690,8 @@ def device_share(torch, fn, tag: str, smi: str, launches: dict = None,
             log(f"[profile] {tag}: K2 kernels {k2_kernels}")
     if k2_names is not None:
         k2_names.update(k2_kernels)
+    if groups is not None:
+        groups.update(ms)
     return result, host_s, k1_kernels, total
 
 
@@ -705,7 +724,7 @@ def build() -> None:
     from lunaris_orion_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     lib = _build.build()
-    lib_smem = lambda name: getattr(_build.library(), name)()
+    lib_smem = lambda name, *a: getattr(_build.library(), name)(*a)
     log(f"[build] {_build.build_dir()} in {time.perf_counter() - t0:.1f} s")
     report = (_build.build_dir() / "build.log").read_text().splitlines()
     for line in report:
@@ -734,10 +753,10 @@ def build() -> None:
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
     # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
-    # ones at d 16, and f32's at d 16 on three TF32 passes): no instance
-    # spills, and setmaxnreg moves the registers (ptxas reports the count
-    # at entry, 168 for 384 threads and 128 for 512; the consumers take 232,
-    # the narrow bodies' and the f32 forward's 160).
+    # ones at d 16 and 32, and f32's at d 16 on three TF32 passes): no
+    # instance spills, and setmaxnreg moves the registers (ptxas reports the
+    # count at entry, 168 for 384 threads and 128 for 512; the consumers
+    # take 232, the narrow bodies' and the f32 forward's 160).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -755,18 +774,17 @@ def build() -> None:
             row[1] = int(spill.group(1)) if spill else row[1]
     # (a name is matched before any that it contains): the dynamic shared
     # memory, the consumers' registers and the instances of each body
-    smem = {"flash_fwd_wgmma_narrow":
-            (lib_smem("lunaris_k2_fwd_wgmma_narrow_smem_bytes"), 160, 2),
-            "flash_bwd_wgmma_narrow":
-            (lib_smem("lunaris_k2_bwd_wgmma_narrow_smem_bytes"), 160, 2),
-            "flash_fwd_wgmma_tf32":
-            (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes"), 160, 2),
-            "flash_bwd_wgmma_tf32":
-            (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes"), 232, 2),
-            "flash_fwd_wgmma": (lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
-                                232, 4),
-            "flash_bwd_wgmma": (lib_smem("lunaris_k2_bwd_wgmma_smem_bytes"),
-                                232, 4)}
+    smem = {f"flash_{x}_wgmma_narrowILi{d}E":
+            (lib_smem(f"lunaris_k2_{x}_wgmma_narrow_smem_bytes", d), 160, 2)
+            for x in ("fwd", "bwd") for d in (16, 32)}
+    smem |= {"flash_fwd_wgmma_tf32":
+             (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes"), 160, 2),
+             "flash_bwd_wgmma_tf32":
+             (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes"), 232, 2),
+             "flash_fwd_wgmma": (lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
+                                 232, 4),
+             "flash_bwd_wgmma": (lib_smem("lunaris_k2_bwd_wgmma_smem_bytes"),
+                                 232, 4)}
     counts = dict.fromkeys(smem, 0)
     for fn, (regs, spill) in sorted(wg.items()):
         body = next(b for b in smem if b in fn)
@@ -805,16 +823,22 @@ def build() -> None:
     return k2_d16_sass(sass)
 
 
-# The bf16 d 16 K2 bodies whose inner loop `k2_d16_sass` counts: a part of
-# the (mangled) name that picks the instances, and the scores a thread
-# takes a pass of the loop (fwd: 64 rows x 128 keys over 128 threads, or a
-# warp's 32 rows x 64 keys over 32; bwd: 64 keys x 64 queries over 128, or
-# a warp's 32 keys x 64 queries over 32).
+# The bf16 d 16 and d 32 K2 bodies whose inner loop `k2_d16_sass` counts:
+# parts of the (mangled) name that pick the instances, and the scores a
+# thread takes a pass of the loop (fwd: 64 rows x 128 keys over 128
+# threads at d 16, x 64 keys at d 32, or a warp's 32 rows x 64 keys over 32
+# at d 16, 16 rows at d 32; bwd: 64 keys x 64 queries over 128, or a warp's
+# 32 keys x 64 queries over 32 at d 16, 16 keys at d 32). mma.sync's d 32
+# instances test dropout at run time: their loop holds both paths.
 K2_D16_LOOPS = (
-    ("fwd narrow", "flash_fwd_wgmma_narrowILi16E", 64),
-    ("fwd mma.sync", "fwd_mma_cu", 64),
-    ("bwd narrow", "flash_bwd_wgmma_narrowILi16E", 32),
-    ("bwd mma.sync", "bwd_mma_fused_cu", 64))
+    ("fwd narrow", ("flash_fwd_wgmma_narrowILi16E",), 64),
+    ("fwd mma.sync", ("fwd_mma_cu", "ILi16E"), 64),
+    ("bwd narrow", ("flash_bwd_wgmma_narrowILi16E",), 32),
+    ("bwd mma.sync", ("bwd_mma_fused_cu", "ILi16E"), 64),
+    ("fwd narrow d32", ("flash_fwd_wgmma_narrowILi32E",), 32),
+    ("fwd mma.sync d32", ("flash_fwd_mmaILi32E",), 32),
+    ("bwd narrow d32", ("flash_bwd_wgmma_narrowILi32E",), 32),
+    ("bwd mma.sync d32", ("flash_bwd_dkv_mmaILi32ELi2ELb1ELb1EE",), 32))
 # Instruction classes, by SASS opcode (before the first dot).
 SASS_CLASSES = (
     ("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)), ("FMUL", ("FMUL",)),
@@ -828,7 +852,8 @@ SASS_CLASSES = (
 
 
 def k2_d16_sass(sass: str) -> dict:
-    """The inner loop of each bf16 d 16 K2 instance, counted by class from
+    """The inner loop of each bf16 d 16 and d 32 K2 instance, counted by
+    class from
     `cuobjdump -sass`: the loop is the conditional backward branch whose
     span holds the most MUFU.EX2 (the fewest instructions on a tie); its
     counts, over the scores a thread takes a pass, are warp-instructions
@@ -846,9 +871,8 @@ def k2_d16_sass(sass: str) -> dict:
             funcs[fn].append((int(m.group(1), 16), m.group(3), m.group(4),
                               bool(m.group(2))))
     out = {}
-    for label, key, scores in K2_D16_LOOPS:
-        for fn in sorted(f for f in funcs if key in f and (
-                "ILi16E" in f or "narrow" in key)):
+    for label, keys, scores in K2_D16_LOOPS:
+        for fn in sorted(f for f in funcs if all(k in f for k in keys)):
             ins, best = funcs[fn], None
             for addr, op, rest, pred in ins:
                 tgt = re.search(r"0x([0-9a-f]+)", rest)
@@ -872,8 +896,8 @@ def k2_d16_sass(sass: str) -> dict:
             log(f"[build] SASS {name}: inner loop {len(body)} instructions "
                 f"for {scores} scores a thread; per 32 scores: " + ", ".join(
                     f"{k} {v:.2f}" for k, v in per.items()))
-    if sum(k.startswith("fwd narrow") for k in out) != 2 or sum(
-            k.startswith("bwd narrow") for k in out) != 2:
+    if sum(k.startswith("fwd narrow") for k in out) != 4 or sum(
+            k.startswith("bwd narrow") for k in out) != 4:
         raise AssertionError(f"the narrow K2 instances' inner loops were not "
                              f"found in the SASS: {sorted(out)}")
     return out
@@ -1137,8 +1161,15 @@ def check_k2(torch, dev, smi) -> dict:
     cases += [(8, 8, 4096, d, torch.float32, 0.1) for d in (8, 32, 48, 64)]
     cases += [(8, 8, 4096, d, torch.bfloat16, 0.1) for d in (8, 32, 48)]
     # d 32 (feature_dim 256) at the serving batch: times beside the library.
-    cases += [(8, 8, 16384, 32, dt, 0.0)
-              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(8, 8, 16384, 32, torch.float32, 0.0)]
+    # bf16 at d 32 (the low-end recipe), the narrow warpgroup body: a ragged
+    # N either side of a key tile (the rule takes the body from
+    # NARROW_MIN_ROWS[32] on), then the teacher's N at the serving batch and
+    # the train step's, both rates, against mma.sync in turns.
+    cases += [(4, 8, 2000, 32, torch.bfloat16, 0.1),
+              (4, 8, 2100, 32, torch.bfloat16, 0.0)]
+    cases += [(b, 8, 16384, 32, torch.bfloat16, rate) for b in (8, 16)
+              for rate in (0.0, 0.1)]
     cases += [(8, 8, 4096, 64, torch.bfloat16, 0.0),
               (4, 8, 2000, 16, torch.float32, 0.1),
               (4, 8, 2000, 16, torch.bfloat16, 0.1),
@@ -1152,6 +1183,7 @@ def check_k2(torch, dev, smi) -> dict:
               for rate in (0.0, 0.1)]
     wg = {}                 # the warpgroup body's readings by (d, rate)
     narrow = {}             # the narrow body's (d 16) by (B, rate)
+    narrow32 = {}           # the narrow body's at d 32 by (B, rate)
     for b, h, n, d, dt, rate in cases:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
@@ -1170,16 +1202,16 @@ def check_k2(torch, dev, smi) -> dict:
         # rounds p at another magnitude: 2 bf16 ulps of the largest output;
         # the element-by-element bar is held against the online form below.
         tol = 1e-5 if dt == torch.float32 else 2 * 2.0 ** -7 * scale
-        ok, note = err <= tol and lse_err <= 1e-4, ""
+        ok, note, online = err <= tol and lse_err <= 1e-4, "", None
         if dt == torch.bfloat16:
-            oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
-                                          **kw)
-            agree, excess, differ = k2_bf16_agree(torch, o, oo, inst.body)
-            ok = ok and agree and (lse - olse).abs().max().item() <= 1e-4
+            online = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
+                                        **kw)
+            agree, excess, differ = k2_bf16_agree(torch, o, online[0],
+                                                  inst.body)
+            ok = ok and agree and (lse - online[1]).abs().max().item() <= 1e-4
             note = (f"; online form: over 2 ulps by {max(excess, 0):.1e} of "
                     f"the largest (bar {K2_BF16_BAR[inst.body][0]:.0e}), "
                     f"{differ:.1e} differ (bar {K2_BF16_BAR[inst.body][1]:.0e})")
-            del oo, olse
         big = n == 16384
         t_k = time_ms(torch, lambda: k2.flash_attention(q, k, v, bias, **kw),
                       5 if big else 10)
@@ -1193,11 +1225,20 @@ def check_k2(torch, dev, smi) -> dict:
             continue
         del ro, rlse
         f32 = dt == torch.float32
+        if inst.body != "wgmma" or f32:
+            online = None
         if inst.body == "wgmma" and d in k2.NARROW_HEAD_DIMS and not f32:
-            # bf16 at d 16: the narrow warpgroup body against mma.sync in
-            # turns, beside SDPA, the plain version and both floors (f32's
-            # warpgroup body: `check_tf32_fwd`).
-            r = wgmma_turns(q, k, v, bias, kw, t_k, err, tag)
+            # bf16 at d 16 and 32: the narrow warpgroup body against
+            # mma.sync in turns, beside SDPA, the plain version and both
+            # floors (f32's warpgroup body: `check_tf32_fwd`).
+            r = wgmma_turns(q, k, v, bias, kw, t_k, err, tag, online)
+            online = None
+            if d == 32:
+                narrow32[f"B{b} dropout {rate}"] = r
+                if b == 8 and rate == 0.0:
+                    out |= {"ms_bf16_d32": r["ms"],
+                            "library_ms_bf16_d32": r["library_ms"]}
+                continue
             narrow[f"B{b} dropout {rate}"] = r
             if b == 8 and rate == 0.0:
                 out |= {"max_abs_err_bf16": err, "ms_bf16": r["ms"],
@@ -1211,7 +1252,8 @@ def check_k2(torch, dev, smi) -> dict:
             continue
         if inst.body == "wgmma" and not f32:
             wg[f"d{d} dropout {rate}"] = wgmma_turns(q, k, v, bias, kw, t_k,
-                                                     err, tag)
+                                                     err, tag, online)
+            online = None
             continue
         earlier = None
         if d == 16 or f32:
@@ -1265,8 +1307,10 @@ def check_k2(torch, dev, smi) -> dict:
     out["turns_f32"] = turns
     out["wgmma"] = wg
     out["wgmma_shard"] = check_k2_shard(torch, k2, g, dev)
-    narrow["short rows"] = narrow_short_rows(torch, k2, g, dev, smi)
+    narrow["short rows"] = narrow_short_rows(torch, k2, g, dev, smi, 16)
     out["narrow"] = narrow
+    narrow32["short rows"] = narrow_short_rows(torch, k2, g, dev, smi, 32)
+    out["narrow32"] = narrow32
     out["tf32"] = check_tf32_fwd(torch, k2, g, dev, smi)
     return out
 
@@ -1396,25 +1440,33 @@ def narrow_turns(torch, run, default, what, smi,
             "default": default}
 
 
-def narrow_short_rows(torch, k2, g, dev, smi) -> dict:
-    """The narrow forward at the short rows of the d 16 path, against the
-    mma.sync body in turns: the windowed fold (B16 H8 N16384 W256 folded:
-    [16, 512, 256, 16]) and a context-parallel q shard (B2 H8, rows 8192..
-    of 16384 at q_offset 8192, against all 16384 keys); the narrow body
-    first held element by element against the plain version's online form
-    at its key tile (the mask bit for bit with it), dropout 0.1."""
+# The short rows of the narrow bodies' paths: the windowed fold (B16 H8
+# N16384 W256 folded: [16, 512, 256, d]) and a context-parallel q shard (B2
+# H8, rows 8192.. of 16384 at q_offset 8192, against all 16384 keys); at d
+# 32 also N 512 to 4096 at about as many scores, which set NARROW_MIN_ROWS[32].
+SHORT_ROWS = {16: (("window fold", 16, 512, 256, 256, 0),
+                   ("CP q shard", 2, 8, 8192, 16384, 8192)),
+              32: (("window fold", 16, 512, 256, 256, 0),
+                   ("CP q shard", 2, 8, 8192, 16384, 8192),
+                   ("N512", 512, 8, 512, 512, 0), ("N1024", 256, 8, 1024, 1024, 0),
+                   ("N2048", 64, 8, 2048, 2048, 0), ("N4096", 16, 8, 4096, 4096, 0))}
+
+
+def narrow_short_rows(torch, k2, g, dev, smi, d: int) -> dict:
+    """The narrow forward at head size d at SHORT_ROWS[d], against the
+    mma.sync body in turns; the narrow body first held element by element
+    against the plain version's online form at its key tile (the mask bit
+    for bit with it), dropout 0.1."""
     out = {}
-    for label, b, h, nq, nk, q_offset in (
-            ("window fold", 16, 512, 256, 256, 0),
-            ("CP q shard", 2, 8, 8192, 16384, 8192)):
-        q = torch.randn(b, h, nq, 16, generator=g, device=dev).bfloat16()
-        k, v = (torch.randn(b, h, nk, 16, generator=g, device=dev).bfloat16()
+    for label, b, h, nq, nk, q_offset in SHORT_ROWS[d]:
+        q = torch.randn(b, h, nq, d, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(b, h, nk, d, generator=g, device=dev).bfloat16()
                 for _ in range(2))
         bias = 0.5 * torch.randn(h, nk, generator=g, device=dev)
         kw = dict(dropout_rate=0.1, seed=-1234567, q_offset=q_offset)
-        tag = (f"{label} B{b} H{h} {nq}x{nk} q_offset {q_offset} d16 bf16 "
+        tag = (f"{label} B{b} H{h} {nq}x{nk} q_offset {q_offset} d{d} bf16 "
                "dropout 0.1")
-        inst = k2.forward_instance(torch.bfloat16, 16, nq, nk, 0.1, "wgmma")
+        inst = k2.forward_instance(torch.bfloat16, d, nq, nk, 0.1, "wgmma")
         o, lse = k2.forward_kernel(q, k, v, bias, body="wgmma", **kw)
         oo, olse = k2.attention_plain(q, k, v, bias, block_k=inst.block_k,
                                       **kw)
@@ -1426,7 +1478,7 @@ def narrow_short_rows(torch, k2, g, dev, smi) -> dict:
         if not (agree and lse_err <= 1e-4):
             raise AssertionError(f"K2 narrow body disagrees at {tag}")
         del o, lse, oo, olse
-        default = k2.forward_instance(torch.bfloat16, 16, nq, nk, 0.1).body
+        default = k2.forward_instance(torch.bfloat16, d, nq, nk, 0.1).body
         run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
             q, k, v, bias, body=body, **kw), 10)
         out[label] = narrow_turns(torch, run, default, f"[K2] {tag}", smi)
@@ -1460,13 +1512,14 @@ def check_k2_shard(torch, k2, g, dev) -> dict:
     return worst
 
 
-def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
+def wgmma_turns(q, k, v, bias, kw, t_k, err, tag, online=None) -> dict:
     """The warpgroup forward at the teacher's N (B8, bf16) against the
     tensor-core body it replaced, in turns (earlier, new, new, earlier),
     beside SDPA (its own dropout masks at the same rate), the plain version
     and the bound: 4 B H N^2 d operations, the inputs and outputs once.
     The earlier body is first held element by element against the plain
-    version's online form at its own key tile, as the new one is. The new
+    version's online form at its own key tile, as the new one is (`online`:
+    that form at the new body's tile, reused where the tiles are one). The new
     one must be faster at d 48 and 64; at d 16 the faster one is logged."""
     import torch
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
@@ -1474,8 +1527,12 @@ def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
     b, h, n, d = q.shape
     inst_body = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"]).body
     old = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"], "mma")
+    new_tile = k2.forward_instance(q.dtype, d, n, n, kw["dropout_rate"]).block_k
     o, lse = k2.forward_kernel(q, k, v, bias, body=old.body, **kw)
-    oo, olse = k2.attention_plain(q, k, v, bias, block_k=old.block_k, **kw)
+    oo, olse = (online if online is not None and old.block_k == new_tile
+                else k2.attention_plain(q, k, v, bias, block_k=old.block_k,
+                                        **kw))
+    del online
     agree, excess, differ = k2_bf16_agree(torch, o, oo, old.body)
     lse_err = (lse - olse).abs().max().item()
     log(f"[K2] {tag}: the earlier body ({old.body}, keys in tiles of "
@@ -1506,10 +1563,11 @@ def wgmma_turns(q, k, v, bias, kw, t_k, err, tag) -> dict:
         f"({bd['bound_ms_sfu'] / new:.1%} of it)"
         + (f"; plain {t_p:.1f} ms" if t_p else ""))
     # The narrow body at d 16 and dropout 0 is within a few per cent of
-    # mma.sync (PERF.md section 6): its turns are read, not held.
+    # mma.sync (PERF.md section 6): its turns are read, not held; at d 32
+    # it is held, as at d 48 and 64.
     faster = "wgmma" if new < min(t[0], t[3]) else "mma"
     log(f"[K2] {tag}: faster in turns: {faster}, the rule takes {inst_body}")
-    if faster != "wgmma" and d not in k2.NARROW_HEAD_DIMS:
+    if faster != "wgmma" and d != 16:
         raise AssertionError(f"K2 at {tag}: the warpgroup body is no faster "
                              "than the tensor-core body it replaced")
     return {"ms": new, "call_ms": t_k, "earlier_ms": min(t[0], t[3]),
@@ -1728,7 +1786,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     g = torch.Generator(device=dev).manual_seed(3)
     errs = {dt: {"fused": 0.0, "dkv": 0.0, "dq": 0.0, "wgmma": 0.0,
-                 "narrow": 0.0, "tf32": 0.0}
+                 "narrow": 0.0, "narrow32": 0.0, "tf32": 0.0}
             for dt in (torch.float32, torch.bfloat16)}
 
     def inputs(b, h, nq, nk, d, dt, rate, q_offset=0):
@@ -1769,7 +1827,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                     errs[dt][key] = max(errs[dt][key], err)
                 if body[variant] == "wgmma" and variant == "fused":
                     key = ("tf32" if dt == torch.float32 else "narrow"
-                           if d in k2.NARROW_HEAD_DIMS else "wgmma")
+                           if d == 16 else "narrow32" if d == 32 else "wgmma")
                     errs[dt][key] = max(errs[dt][key], err)
             del got
         log(f"[K2 bwd] {tag} (fused: {body['fused']}, split: "
@@ -2061,9 +2119,14 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     # shape at d 48 and 64 above (kept with `keep` there).
     wg["max_abs_err"] = errs[torch.bfloat16]["wgmma"]
     narrow = check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms,
-                              moved, dev, smi)
+                              moved, dev, smi, 16)
     narrow["max_abs_err"] = max(errs[torch.bfloat16]["narrow"],
                                 narrow.pop("worst"))
+    narrow32 = check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms,
+                                moved, dev, smi, 32)
+    narrow32["max_abs_err"] = max(errs[torch.bfloat16]["narrow32"],
+                                  narrow32.pop("worst"))
+    narrow32["mask"] = narrow_bwd_mask_positions(torch, k2, dev, 32)
     tf32 = check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                           smi)
     tf32["max_abs_err"] = max(errs[torch.float32]["tf32"], tf32.pop("worst"))
@@ -2105,6 +2168,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     return {
         "wgmma": wg,
         "narrow": narrow,
+        "narrow32": narrow32,
         "tf32": tf32,
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
@@ -2115,34 +2179,48 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     }
 
 
+# The narrow fused backward's shapes at each head size: (label, B, H, Nq, Nk,
+# q_offset, dropout, the bodies held against the plain backward first). At
+# d 16 the B2 N16384 narrow cases are held by `agree` in check_k2_bwd; at d
+# 32 here, with a ragged N either side, and the short rows that set
+# NARROW_MIN_ROWS[32].
+NARROW_BWD_SHAPES = {
+    16: (("B2", 2, 8, 16384, 16384, 0, 0.0, ("mma",)),
+         ("B2", 2, 8, 16384, 16384, 0, 0.1, ("mma",)),
+         ("B16", 16, 8, 16384, 16384, 0, 0.1, ()),
+         ("window fold", 16, 512, 256, 256, 0, 0.1, ("wgmma",)),
+         ("CP q shard", 2, 8, 8192, 16384, 8192, 0.1, ("wgmma",))),
+    32: (("B2", 2, 8, 16384, 16384, 0, 0.1, ("wgmma", "mma")),
+         ("B8", 8, 8, 16384, 16384, 0, 0.1, ()),
+         ("B16", 16, 8, 16384, 16384, 0, 0.1, ()),
+         ("ragged", 2, 8, 2000, 2100, 0, 0.1, ("wgmma",)),
+         ("ragged", 2, 8, 2100, 2000, 0, 0.0, ("wgmma",)),
+         ("window fold", 16, 512, 256, 256, 0, 0.1, ("wgmma",)),
+         ("CP q shard", 2, 8, 8192, 16384, 8192, 0.1, ("wgmma",)),
+         ("N512", 512, 8, 512, 512, 0, 0.1, ()),
+         ("N1024", 256, 8, 1024, 1024, 0, 0.1, ()),
+         ("N2048", 64, 8, 2048, 2048, 0, 0.1, ()),
+         ("N4096", 16, 8, 4096, 4096, 0, 0.1, ()))}
+
+
 def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
-                     smi) -> dict:
-    """Phase 7's readings of the narrow fused backward (bf16, d 16) against
-    the mma.sync fused kernel it replaced. At B2 H8 N16384, dropout 0 and
-    0.1: the mma.sync kernel held against the plain backward (the narrow
-    one is, by `agree`, in the cases above), both in turns, beside the
-    plain version, SDPA's backward and both floors. At B16 (the train
-    step's batch), dropout 0.1: the two in turns, SDPA's backward and the
-    floors. Short rows: the windowed fold ([16, 512, 256, 16]) and a CP q
-    shard (B2 H8, rows 8192.. of 16384 at q_offset 8192), each with the
-    narrow kernel held against the plain backward first. Every (q, k) pair:
-    10 operations a head-dim element (five products) and one exp."""
+                     smi, d: int) -> dict:
+    """Phase 7's readings of the narrow fused backward (bf16, head size d)
+    against the mma.sync fused kernel it replaced, at NARROW_BWD_SHAPES[d]:
+    each body named there held against the plain backward first (the
+    narrow one's dk, dv and dbias the same bits on a second run), then the
+    two in turns; at the teacher's N (labels B2, B8, B16) beside the plain
+    version, SDPA's backward and both floors. Every (q, k) pair: 10
+    operations a head-dim element (five products) and one exp."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     out, worst = {}, 0.0
-    shapes = [("B2", 2, 8, 16384, 16384, 0, 0.0), ("B2", 2, 8, 16384, 16384,
-                                                   0, 0.1),
-              ("B16", 16, 8, 16384, 16384, 0, 0.1),
-              ("window fold", 16, 512, 256, 256, 0, 0.1),
-              ("CP q shard", 2, 8, 8192, 16384, 8192, 0.1)]
-    for label, b, h, nq, nk, q_offset, rate in shapes:
-        args, kw = inputs(b, h, nq, nk, 16, torch.bfloat16, rate,
+    for label, b, h, nq, nk, q_offset, rate, check in NARROW_BWD_SHAPES[d]:
+        args, kw = inputs(b, h, nq, nk, d, torch.bfloat16, rate,
                           q_offset=q_offset)
         q, k, v, bias, o, lse, do = args
-        tag = (f"{label} H{h} {nq}x{nk} q_offset {q_offset} d16 bf16 "
+        tag = (f"{label} B{b} H{h} {nq}x{nk} q_offset {q_offset} d{d} bf16 "
                f"dropout {rate}")
         plain_ms = None
-        check = [] if label == "B16" else (
-            ["mma"] if label == "B2" else ["wgmma"])
         if check:
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
@@ -2164,10 +2242,20 @@ def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
                     if not ok:
                         raise AssertionError(f"K2 bwd fused ({body}) {name} "
                                              f"disagrees at {tag}: {text}")
+                if body == "wgmma":
+                    again = fused_kernel(args, kw, body)
+                    same = [torch.equal(x, y) for x, y in zip(got[1:],
+                                                              again[1:])]
+                    line.append(f"dk, dv, dbias the same bits on a second "
+                                f"run: {same}")
+                    if not all(same):
+                        raise AssertionError(f"K2 bwd narrow at {tag}: dk, "
+                                             f"dv, dbias differ between runs")
+                    del again
                 log(f"[K2 bwd] {tag}: the fused kernel ({body}) against the "
                     "plain version: " + ", ".join(line))
             del ref, got
-        default = k2.fused_instance(torch.bfloat16, 16, nq, nk, rate).body
+        default = k2.fused_instance(torch.bfloat16, d, nq, nk, rate).body
         reps = {"mma": 3, "wgmma": 3} if b * h * nq * nk > 2**33 else {
             "mma": 10, "wgmma": 10}
         r = narrow_turns(torch, kernel_ms(args, kw, reps), default,
@@ -2175,7 +2263,7 @@ def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
         if label.startswith("B"):
             lib, note = sdpa_ms(q, k, v, bias, backward=True,
                                 dropout_p=rate, reps=3)
-            bd = bounds_k2(10 * b * h * nq * nk * 16, moved(args, b * h * nk),
+            bd = bounds_k2(10 * b * h * nq * nk * d, moved(args, b * h * nk),
                            b * h * nq * nk)
             r |= {"plain_ms": plain_ms, "library_ms": lib, **bd}
             log(f"[K2 bwd] {tag}: narrow fused kernel {r['ms']:.2f} ms "
@@ -2185,10 +2273,67 @@ def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
                 f" ({bd['bound_ms'] / r['ms']:.1%} of it), special-function "
                 f"floor {bd['bound_ms_sfu']:.3f} ms "
                 f"({bd['bound_ms_sfu'] / r['ms']:.1%} of it) on {smi}")
-        out[f"{label} dropout {rate}"] = r
+            if d == 32 and b >= 8 and r["faster"] != r["default"]:
+                raise AssertionError(f"K2 bwd at {tag}: the rule takes "
+                                     f"{r['default']}, {r['faster']} is faster")
+        key = f"{label} dropout {rate}"
+        out[key if key not in out else f"{key} {nq}x{nk}"] = r
         del args, q, k, v, bias, o, lse, do
     out["worst"] = worst
     return out
+
+
+def narrow_bwd_mask_positions(torch, k2, dev, d: int) -> int:
+    """The narrow fused backward's dropout mask at head size d, position by
+    position, is the hash (tests/test_torch_kernels.py
+    `test_narrow_bwd_dropout_mask_positions`): with k = 0 and v = 1, dv is
+    non-zero where the mask keeps a query's key; with q = 0 and dO = 1, dq
+    where it keeps a key's query. Two shapes (one ragged, at a q_offset and
+    a row_offset), five d-wide windows each way; returns the positions
+    held."""
+    b, h, rate, seed = 2, 2, 0.3, 123
+    dtype, held = torch.bfloat16, 0
+    for nq, nk, q_offset, row_offset in ((512, 512, 0, 0), (200, 300, 70, 3)):
+        zeros = lambda n: torch.zeros(b, h, n, d, device=dev, dtype=dtype)
+        ones = lambda n: torch.ones(b, h, n, d, device=dev, dtype=dtype)
+        eye = torch.eye(d, device=dev, dtype=dtype)
+        bias = torch.zeros(h, nk, device=dev)
+        lse = torch.zeros(b * h, nq, device=dev)
+        kw = dict(dropout_rate=rate, seed=seed, q_offset=q_offset,
+                  row_offset=row_offset)
+        rs = k2.row_seeds(seed, b * h, row_offset, dev).reshape(b, h, 1, 1)
+        keep = k2.keep_mask(rs, torch.arange(nk, device=dev),
+                            torch.arange(q_offset, q_offset + nq,
+                                         device=dev)[:, None],
+                            k2.dropout_threshold(1.0 - rate))
+
+        def fused(q, k, v, do):
+            delta = torch.zeros(b, h, nq, device=dev)
+            out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                       dbias_bh=torch.empty(b * h, nk, device=dev),
+                       dq_acc=torch.zeros(b, h, nq, d, device=dev))
+            k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse,
+                                 delta, body="wgmma", **out, **kw)
+            return out["dq_acc"], out["dv"]
+        for q0 in (0, 8, 56, 121, nq - d):
+            do = zeros(nq)
+            do[:, :, q0:q0 + d] = eye
+            _, dv = fused(zeros(nq), zeros(nk), ones(nk), do)
+            if not torch.equal(dv != 0, keep[:, :, q0:q0 + d].transpose(2, 3)):
+                raise AssertionError(f"K2 bwd narrow d{d}: dv's mask at "
+                                     f"queries {q0}.. is not the hash")
+            held += dv.numel()
+        for k0 in (0, 8, 56, 121, nk - d):
+            k = zeros(nk)
+            k[:, :, k0:k0 + d] = eye
+            dq, _ = fused(zeros(nq), k, ones(nk), ones(nq))
+            if not torch.equal(dq != 0, keep[:, :, :, k0:k0 + d]):
+                raise AssertionError(f"K2 bwd narrow d{d}: dq's mask at keys "
+                                     f"{k0}.. is not the hash")
+            held += dq.numel()
+    log(f"[K2 bwd] narrow fused d{d} dropout {rate}: the mask position by "
+        f"position is the hash ({held} positions)")
+    return held
 
 
 def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
@@ -3140,7 +3285,7 @@ def run_tools(torch) -> dict:
     return launches
 
 
-# --- phase 20: the H100 recipe at full width -------------------------------
+# --- phase 20: the H100 and low-end recipes at full width -------------------
 
 # docs/configs.md's "high-end" tier, which it calls the analog of the
 # A100/H100 tier (docs/configs.md:9-24): feature_dim 512 at 8 heads, head
@@ -3149,21 +3294,29 @@ def run_tools(torch) -> dict:
 RECIPE_H100 = dict(batch_size=64, gradient_accumulation_steps=1,
                    latent_dim=512, embedding_dim=256, feature_dim=512,
                    vae_lr=3e-4, teacher_lr=2e-4, mixed_precision=True)
-# K2's CUDA-core kernels by name: none runs on a bf16 path at d 64.
+# docs/configs.md's low-end tier: feature_dim 256 at 8 heads (head size 32).
+RECIPE_LOW_END = dict(batch_size=16, gradient_accumulation_steps=4,
+                      latent_dim=256, embedding_dim=128, feature_dim=256,
+                      vae_lr=1e-4, teacher_lr=5e-5, mixed_precision=True)
+RECIPES = {"H100": RECIPE_H100, "low-end": RECIPE_LOW_END}
+# K2's CUDA-core kernels by name: none runs on a bf16 path at d 32 or 64.
 K2_CUDA_CORE = re.compile(r"flash_fwd_simt|flash_bwd_dkv<|flash_bwd_dq<")
 PROFILE_TRIES = 3               # sessions of one call before phase 20 fails
 
 
-def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
-    """Phase 20: the H100 recipe at full width from a seeded random init on
-    one card. The Trainer (on a 72-sprite procedural corpus) makes its
-    memory plan on the card, which picks the micro-batch and remat; then
-    one warm-up and one profiled step of its `make_train_step`, and one
-    bf16 `decode_and_score` at batch 8 through ImageGenerator from a
-    checkpoint of the same config, profiled. Both run K2's warpgroup
-    bodies (by the wrappers' counts and by name), no CUDA-core K2 kernel,
-    finite losses and scores; each profile holds every launch the wrappers
-    counted (`counted`)."""
+def run_recipe(torch, tmp: Path, smi: str, mods: dict,
+               tier: str = "H100") -> dict:
+    """Phase 20: one of docs/configs.md's recipes (RECIPES: the H100 tier,
+    head size 64, and the low-end tier, head size 32) at full width from a
+    seeded random init on one card. The Trainer (on a 72-sprite procedural
+    corpus) makes its memory plan on the card, which picks the micro-batch
+    and remat; then one warm-up and one profiled step of its
+    `make_train_step`, and one bf16 `decode_and_score` at batch 8 through
+    ImageGenerator from a checkpoint of the same config, profiled. Both run
+    the K2 warpgroup bodies that the rule names at N 16384 (by the
+    wrappers' counts and by name): at d 32 the narrow ones on every call,
+    at d 64 none of them; no CUDA-core K2 kernel; finite losses and scores;
+    each profile holds every launch the wrappers counted (`counted`)."""
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.data.synthetic import write_synthetic_dataset
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
@@ -3174,11 +3327,18 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     write_synthetic_dataset(str(tmp / "sprites"), 72, image_size=128)
     cfg = TrainConfig(data_dir=str(tmp / "sprites"),
-                      output_dir=str(tmp / "run"), **RECIPE_H100)
+                      output_dir=str(tmp / f"run-{tier}"), **RECIPES[tier])
     trainer = Trainer(cfg)
     plan, remat = trainer.cfg, trainer.remat
     need_gib = trainer.plan_need / 2**30
-    log(f"[recipe] H100 tier (feature_dim {cfg.feature_dim}, head size "
+    head_dim = trainer.tcfg.head_dim
+    narrow = head_dim in k2.NARROW_HEAD_DIMS
+    rule = {key: k2.forward_instance(torch.bfloat16, head_dim, 16384, 16384,
+                                     rate).body for key, rate in (
+        ("serve", 0.0), ("train", trainer.tcfg.dropout_rate))}
+    if set(rule.values()) != {"wgmma"}:
+        raise AssertionError(f"{tier} tier: the rule names {rule} at N 16384")
+    log(f"[recipe] {tier} tier (feature_dim {cfg.feature_dim}, head size "
         f"{trainer.tcfg.head_dim}, latent {cfg.latent_dim}, embedding "
         f"{cfg.embedding_dim}, bf16): the memory plan on the card picks batch "
         f"{plan.batch_size} x {plan.gradient_accumulation_steps}, remat "
@@ -3210,9 +3370,10 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
         for attempt in range(1, PROFILE_TRIES + 1):
             for mod, name in counters.values():
                 setattr(mod, name, 0)
-            names, records = {}, []
+            names, records, groups = {}, [], {}
             result, host_s, k1_kernels, dev_ms = device_share(
-                torch, fn, tag, smi, k2_names=names, records=records)
+                torch, fn, tag, smi, k2_names=names, records=records,
+                groups=groups)
             counts = {key: getattr(mod, name)
                       for key, (mod, name) in counters.items()}
             k2_calls = sum(counts[key] for key in (
@@ -3234,9 +3395,17 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
         else:
             raise AssertionError(f"{tag}: none of {PROFILE_TRIES} profiles "
                                  "held every launch the wrappers counted")
-        # d 64: the narrow bodies (d 16) take none of these calls.
-        check_narrow_names(names, counts["flash_attention_fwd_wgmma_narrow"],
-                           counts["flash_attention_bwd_wgmma_narrow"], tag)
+        # d 64: the narrow bodies (d 16 and 32) take none of these calls;
+        # d 32: they take every one, and no mma.sync body appears by name.
+        nf = counts["flash_attention_fwd_wgmma_narrow"]
+        nb = counts["flash_attention_bwd_wgmma_narrow"]
+        check_narrow_names(names, nf, nb, tag, every=narrow)
+        if (nf, nb) != ((counts["flash_attention_fwd"],
+                         counts["flash_attention_bwd_fused"]) if narrow
+                        else (0, 0)):
+            raise AssertionError(f"{tag}: the narrow K2 bodies took {nf} "
+                                 f"forward and {nb} backward calls of "
+                                 f"{counts}")
         slow = [n for n in names if K2_CUDA_CORE.search(n)]
         if (counts["flash_attention_fwd_wgmma"] <= 0
                 or counts["flash_attention_fwd_wgmma"]
@@ -3246,7 +3415,7 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
                                  f"name {names}: every one must be the "
                                  "warpgroup body, no CUDA-core kernel")
         log(f"[recipe] {tag}: launches {counts}; K2 by name {names}")
-        return result, host_s, dev_ms, counts, names
+        return result, host_s, dev_ms, counts, names, groups
 
     g = torch.Generator(device="cuda").manual_seed(20)
     shape = (plan.gradient_accumulation_steps, plan.batch_size, 128, 128, 3)
@@ -3258,10 +3427,10 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    tag = (f"recipe H100 train step bf16 {plan.batch_size} x "
+    tag = (f"recipe {tier} train step bf16 {plan.batch_size} x "
            f"{plan.gradient_accumulation_steps} remat {remat}")
-    (state, m), step_s, step_dev, step_counts, step_names = counted(
-        lambda: step(state, images[1]), tag)
+    (state, m), step_s, step_dev, step_counts, step_names, step_groups = (
+        counted(lambda: step(state, images[1]), tag))
     losses = {k: float(v) for k, v in m.items()}
     if not all(map(math.isfinite, losses.values())):
         raise AssertionError(f"{tag}: non-finite metrics {losses}")
@@ -3290,8 +3459,8 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
     z = torch.randn(8, cfg.latent_dim, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(9))
     gen.decode_and_score(z)                       # the warm-up call
-    tag = "recipe H100 decode+score batch 8 bf16"
-    (imgs, quality, sem), _, dec_dev, dec_counts, _ = counted(
+    tag = f"recipe {tier} decode+score batch 8 bf16"
+    (imgs, quality, sem), _, dec_dev, dec_counts, _, dec_groups = counted(
         lambda: gen.decode_and_score(z), tag)
     if imgs.shape != (8, 128, 128, 3) or not (
             torch.isfinite(imgs).all() and torch.isfinite(quality).all()
@@ -3303,12 +3472,16 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict) -> dict:
         f"s on {smi}")
     del gen
     torch.cuda.empty_cache()
-    return {"plan": {"batch_size": plan.batch_size,
+    return {"tier": tier, "head_dim": head_dim,
+            "plan": {"batch_size": plan.batch_size,
                      "accumulation": plan.gradient_accumulation_steps,
                      "remat": remat, "need_gib": need_gib},
             "step_ms": step_s * 1e3, "step_device_ms": step_dev,
+            "step_idle": max(0.0, 1 - step_dev / (step_s * 1e3)),
+            "step_groups_ms": step_groups,
             "sprites_s": n / step_s, "peak_gib": peak,
             "decode_ms": dec_ms, "decode_device_ms": dec_dev,
+            "decode_groups_ms": dec_groups,
             "launches_step": step_counts, "launches_decode": dec_counts}
 
 
@@ -5146,6 +5319,8 @@ def main() -> int:
     mods = {"k1": m1, "k2": m2, "k3": m3}
     with tempfile.TemporaryDirectory() as tmp:
         recipe = timed("20 recipe", run_recipe, torch, Path(tmp), smi, mods)
+        low_end = timed("20 recipe", run_recipe, torch, Path(tmp), smi, mods,
+                        "low-end")
     window = timed("16 window", check_window, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         evaluate = timed("16 window", run_evaluate, torch, Path(tmp), smi)
@@ -5261,22 +5436,33 @@ def main() -> int:
                  "library_ms", "earlier_ms")},
              earlier_body="flash_bwd_dkv (CUDA cores, fused dq)",
              readings={f"d{d}": bwd["wgmma"][d] for d in (48, 64)}),
-        # The narrow warpgroup bodies (bf16 d 16, the default width): times
-        # at the teacher's shape (forward B8, dropout 0; fused backward B2,
-        # dropout 0.1, where the plain backward is timed too), each against
-        # the mma.sync body it replaced in turns, beside SDPA and both
-        # floors (`bound_ms`: the tensor cores or the bytes; `bound_ms_sfu`:
-        # one exp a score on the special-function units); every reading
-        # under `readings` (B16, dropout 0 and 0.1, the short rows), the
-        # inner loop's SASS per 32 scores under `sass`; launches in phase
-        # 10's train steps (and the forward's in phase 5's bf16
-        # decode+score).
+        # The narrow warpgroup bodies (bf16 d 16, the default width, and
+        # d 32, the low-end recipe's): times at the teacher's shape at d 16
+        # (forward B8, dropout 0; fused backward B2, dropout 0.1, where the
+        # plain backward is timed too), each against the mma.sync body it
+        # replaced in turns, beside SDPA and both floors (`bound_ms`: the
+        # tensor cores or the bytes; `bound_ms_sfu`: one exp a score on the
+        # special-function units); every reading under `readings` (B16,
+        # dropout 0 and 0.1, the short rows), d 32's under `d32` (forward
+        # B8 dropout 0, fused backward B16 dropout 0.1) and
+        # `readings_d32`, the inner loop's SASS per 32 scores under
+        # `sass`; launches in phase 10's train steps (and the forward's in
+        # phase 5's bf16 decode+score), at d 32 in phase 20's low-end step
+        # and decode+score (`launches_low_end*`).
         dict(name="flash_attention_fwd_wgmma_narrow", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
-             instances=[src + f"flash_attention_fwd_wgmma_d16{x}.cu"
-                        for x in ("", "_drop")],
+             instances=[src + f"flash_attention_fwd_wgmma_d{d}{x}.cu"
+                        for d in (16, 32) for x in ("", "_drop")],
              launches=train["flash_attention_fwd_wgmma_narrow"],
              launches_decode=launches["narrow_decode"],
+             launches_low_end=low_end["launches_step"][
+                 "flash_attention_fwd_wgmma_narrow"],
+             launches_low_end_decode=low_end["launches_decode"][
+                 "flash_attention_fwd_wgmma_narrow"],
+             d32={key: k2["narrow32"]["B8 dropout 0.0"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "library_ms", "earlier_ms", "max_abs_err")},
+             readings_d32=k2["narrow32"],
              **w16("flash_attention_fwd_wgmma_narrow"),
              max_abs_err=max(r["max_abs_err"] for key, r in
                              k2["narrow"].items() if key != "short rows"),
@@ -5287,9 +5473,16 @@ def main() -> int:
              sass={k: v for k, v in sass.items() if k.startswith("fwd")}),
         dict(name="flash_attention_bwd_wgmma_narrow", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
-             instances=[src + f"flash_attention_bwd_wgmma_d16{x}.cu"
-                        for x in ("", "_drop")],
+             instances=[src + f"flash_attention_bwd_wgmma_d{d}{x}.cu"
+                        for d in (16, 32) for x in ("", "_drop")],
              launches=train["flash_attention_bwd_wgmma_narrow"],
+             launches_low_end=low_end["launches_step"][
+                 "flash_attention_bwd_wgmma_narrow"],
+             d32={**{key: bwd["narrow32"]["B16 dropout 0.1"][key] for key in (
+                 "ms", "library_ms", "bound_ms", "bound_by", "bound_ms_sfu",
+                 "earlier_ms")}, "shape": "B16 H8 N16384 dropout 0.1",
+                 "max_abs_err": bwd["narrow32"]["max_abs_err"]},
+             readings_d32=bwd["narrow32"],
              **w16("flash_attention_bwd_wgmma_narrow"),
              max_abs_err=bwd["narrow"]["max_abs_err"],
              **{key: bwd["narrow"]["B2 dropout 0.1"][key] for key in (
@@ -5368,6 +5561,7 @@ def main() -> int:
     log(f"[dist] summary: {json.dumps({'a': dist_a, 'b': dist_b, 'c': dist_c})}")
     log(f"[parity] summary: {json.dumps(parity)}")
     log(f"[recipe] summary: {json.dumps(recipe)}")
+    log(f"[recipe] low-end summary: {json.dumps(low_end)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

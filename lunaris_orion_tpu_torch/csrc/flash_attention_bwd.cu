@@ -17,9 +17,9 @@
 // [BH, Nk, d]; f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), contiguous. bias:
 // [H, Nk] f32; lse, delta: [BH, Nq] f32; dbias_bh: [BH, Nk] f32. scale:
 // d^-1/2 rounded to the input type.
-// body: 2 the fused warpgroup kernel (bf16 at d 16, 48 or 64: wgmma fed by
-// TMA; at d 16 its narrow form; f32 at d 16: flash_bwd_wgmma_tf32, on the
-// tiles that lunaris_k2_tf32_split wrote into `split` for this call: the
+// body: 2 the fused warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed
+// by TMA; at d 16 and 32 its narrow form; f32 at d 16: flash_bwd_wgmma_tf32,
+// on the tiles that lunaris_k2_tf32_split wrote into `split` for this call: the
 // query tiles, then the key tiles),
 // 1 the tensor-core kernels on mma.sync (bf16: dkv and dq at d 16, 32, 48 or 64,
 // the fused one at d 16 or 32; f32: the fused one at d 16 or 32, three TF32
@@ -56,6 +56,8 @@ extern "C" int lunaris_flash_attention_bwd(
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_bwd_wgmma_d16_drop(a, s)
                                   : lunaris_k2_bwd_wgmma_d16(a, s);
+      case 32: return use_dropout ? lunaris_k2_bwd_wgmma_d32_drop(a, s)
+                                  : lunaris_k2_bwd_wgmma_d32(a, s);
       case 48: return use_dropout ? lunaris_k2_bwd_wgmma_d48_drop(a, s)
                                   : lunaris_k2_bwd_wgmma_d48(a, s);
       case 64: return use_dropout ? lunaris_k2_bwd_wgmma_d64_drop(a, s)
@@ -84,9 +86,9 @@ extern "C" int lunaris_flash_attention_bwd(
 // The dynamic shared memory a launch of the fused warpgroup body takes (K,
 // V, the query ring, the ds^T tiles and the barriers), for the build report.
 extern "C" int lunaris_k2_bwd_wgmma_smem_bytes() { return wg_bwd_smem_bytes(); }
-// The same for the narrow fused warpgroup body (d 16).
-extern "C" int lunaris_k2_bwd_wgmma_narrow_smem_bytes() {
-  return nw_bwd_smem_bytes();
+// The same for the narrow fused warpgroup body at head size d (16 or 32).
+extern "C" int lunaris_k2_bwd_wgmma_narrow_smem_bytes(int d) {
+  return nw_bwd_smem_bytes(d == 32 ? 32 : 16);
 }
 // The same for the f32 fused warpgroup body (d 16).
 extern "C" int lunaris_k2_bwd_wgmma_tf32_smem_bytes() {

@@ -38,7 +38,7 @@
 //
 // Two bodies a kernel, and for the fused kernel three more: in f32 on three
 // TF32 passes, and in bf16 on wgmma at d 48 and 64 (flash_bwd_wgmma) and at
-// d 16 (flash_bwd_wgmma_narrow; their own notes below):
+// d 16 and 32 (flash_bwd_wgmma_narrow; their own notes below):
 //
 //   flash_bwd_dkv_mma, flash_bwd_dq_mma   bf16, D a multiple of 16, on the
 //       tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32); 4 warps a
@@ -76,8 +76,8 @@
 //     end of the block's own operand (keys in dkv, queries in dq) are
 //     independent of the others: they read zeros and are not stored.
 //     dkv with FUSED (the single-pass form of `_bwd_fused_kernel`, bf16 at
-//       d 32, and at d 16 where Nq or Nk is shorter than the narrow body
-//       pays back, the windowed fold): a fifth product per 16 queries,
+//       d 16 and 32 where Nq or Nk is shorter than the narrow body pays
+//       back, the windowed fold): a fifth product per 16 queries,
 //       dq += round(ds) k over the warp's keys. The ds fragments are the A operand of ds^T qs with
 //       keys as rows; movmatrix.trans turns each 8 x 8 block in registers
 //       into the A operand with queries as rows, and k's B fragments are kf
@@ -187,10 +187,12 @@ int lunaris_k2_bwd_wgmma_d48(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d48_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d64(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d64_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
-// The narrow fused warpgroup body, bf16 at d 16
-// (flash_attention_bwd_wgmma_d16{,_drop}.cu).
+// The narrow fused warpgroup body, bf16 at d 16 and 32
+// (flash_attention_bwd_wgmma_d{16,32}{,_drop}.cu).
 int lunaris_k2_bwd_wgmma_d16(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d16_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d32(const LunarisK2BwdArgs& a, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_d32_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
 // The f32 fused warpgroup body at d 16 (flash_attention_bwd_wgmma_tf32_d16{,_drop}.cu),
@@ -1832,11 +1834,12 @@ int launch_bwd_wgmma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the narrow fused warpgroup body: d 16 ----------------------------------
+// ---- the narrow fused warpgroup body: d 16 and 32 ---------------------------
 
-// flash_bwd_wgmma_narrow  bf16 at D 16, the single-pass form of
-//   `_bwd_fused_kernel` at the default width. Five products a (query, key)
-//   pair are cheap at d 16 (bound 5.6 ms at B16 H8 N16384); the work per
+// flash_bwd_wgmma_narrow  bf16 at D 16 and 32, the single-pass form of
+//   `_bwd_fused_kernel` at the default width and at the low-end recipe's
+//   (feature_dim 256). Five products a (query, key) pair are cheap at d 16
+//   (bound 5.6 ms at B16 H8 N16384; 11.1 at d 32); the work per
 //   score binds: the ex2 (8.2 ms there on the special-function units), its
 //   FMA, ds = p (dpd - delta), the row sum of ds, two packs and, with
 //   dropout, the hash, several times the special-function floor in issue
@@ -1872,9 +1875,16 @@ int launch_bwd_wgmma(const LunarisK2BwdArgs& a, cudaStream_t stream) {
 //   score. dk, dv and dbias are the same on every run; dq's last bits
 //   depend on the order of the reductions. With dropout the keep factor is
 //   one select, (keep ? 1 / (1 - rate) : 0), that multiplies dp and p.
+//   At D 32 K, V, q and dO are [rows][32] tiles with the 64-byte swizzle
+//   (the bias and ones tiles stay [rows][16], read through descriptors of
+//   their own); s^T takes q's two k-steps after the bias k-step, dp^T two,
+//   dv and dk are m64n32k16 a k-step and dq has n 32: dk, dv and dq take
+//   16 registers a thread each.
 // Measured on an H100 (PERF.md section 6): 22.7 instructions a 32 scores
 // with dropout (flash_bwd_dkv_mma<16, .., FUSED>: 31.9), issue-bound; the
-// per-tile work (descriptors, waits, stores) is about 8 of them.
+// per-tile work (descriptors, waits, stores) is about 8 of them. At d 32:
+// 24.4 (flash_bwd_dkv_mma<32, .., FUSED>, which tests dropout at run time,
+// 52.8), 25 % of the tensor cores' bound at B16 H8 N16384.
 
 constexpr int kBwdNwConsumers = 3;               // warpgroups of 64 keys
 constexpr int kBwdNwKeys = 64 * kBwdNwConsumers; // keys a block
@@ -1882,16 +1892,19 @@ constexpr int kBwdNwBQ = 64;                     // queries a tile
 constexpr int kBwdNwThreads = 128 * (kBwdNwConsumers + 1);
 constexpr int kBwdNwStages = 4;
 constexpr int kBwdNwDsTiles = kBwdNwConsumers;   // tile i's is i % 3, its owner's
-constexpr int kBwdNwKvBytes = kBwdNwKeys * 32;   // K, V or the bias tile (d 16)
-constexpr int kBwdNwQBytes = kBwdNwBQ * 32;      // a q, dO or [1 1 1 0 ..] tile
+constexpr int kBwdNwBiasBytes = kBwdNwKeys * 32; // the bias tile, [keys][16]
+constexpr int kBwdNwOnesBytes = kBwdNwBQ * 32;   // the ones tile, [BQ][16]
 constexpr int kBwdNwDsBytes = kBwdNwKeys * kBwdNwBQ * 2;  // a ds^T tile
+// K or V ([keys][D]); a q or dO tile ([BQ][D]).
+__host__ __device__ constexpr int nw_bwd_kv_bytes(int d) { return kBwdNwKeys * 2 * d; }
+__host__ __device__ constexpr int nw_bwd_q_bytes(int d) { return kBwdNwBQ * 2 * d; }
 
 // K, V, the bias tile, the ones tile, the ring ([stage][q, dO]), the ds^T
 // tiles, [stage][BQ] -lse log2 e and delta, the barriers, and 1024 bytes to
 // align the tiles.
-__host__ __device__ constexpr int nw_bwd_smem_bytes() {
-  return 1024 + 3 * kBwdNwKvBytes + kBwdNwQBytes +
-         kBwdNwStages * 2 * kBwdNwQBytes + kBwdNwDsTiles * kBwdNwDsBytes +
+__host__ __device__ constexpr int nw_bwd_smem_bytes(int d) {
+  return 1024 + 2 * nw_bwd_kv_bytes(d) + kBwdNwBiasBytes + kBwdNwOnesBytes +
+         kBwdNwStages * 2 * nw_bwd_q_bytes(d) + kBwdNwDsTiles * kBwdNwDsBytes +
          kBwdNwStages * 2 * kBwdNwBQ * 4 +
          (1 + 3 * kBwdNwStages + 2 * kBwdNwDsTiles) * 8;
 }
@@ -1909,8 +1922,12 @@ __device__ __forceinline__ void consume_bwd_narrow(
   constexpr int ST = kBwdNwStages;
   constexpr int NB = kBwdNwDsTiles;
   constexpr int BQ = kBwdNwBQ;
-  constexpr uint32_t HI = kNarrowDescHi<D>;
-  constexpr uint32_t ROW16 = 16 * 2 * D >> 4;      // 16 narrow rows, in 16 bytes
+  constexpr int KS = D / 16;       // k-steps of s^T's and dp^T's products
+  constexpr uint32_t HI = kNarrowDescHi<D>;          // K, V, q, dO
+  constexpr uint32_t HI16 = kNarrowDescHi<16>;       // the bias and ones tiles
+  constexpr uint32_t ROW16 = 16 * 2 * D >> 4;        // 16 rows of D, in 16 bytes
+  constexpr uint32_t ROW16_16 = 16 * 32 >> 4;        // 16 rows of 16
+  constexpr int QBYTES = nw_bwd_q_bytes(D);
   const int Nq = a.Nq, Nk = a.Nk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
@@ -1927,7 +1944,7 @@ __device__ __forceinline__ void consume_bwd_narrow(
   // the ones tile, the block's K for dq, the ring and the ds^T tiles.
   const uint32_t k_lo = desc_lo(ks) + WG * 4 * ROW16;
   const uint32_t v_lo = desc_lo(vs) + WG * 4 * ROW16;
-  const uint32_t b_lo = desc_lo(bs) + WG * 4 * ROW16;
+  const uint32_t b_lo = desc_lo(bs) + WG * 4 * ROW16_16;
   const uint32_t ones_lo = desc_lo(ones), kq_lo = desc_lo(ks);
   const uint32_t ring_lo = desc_lo(ring), ds_lo = desc_lo(dsb);
 
@@ -1982,20 +1999,26 @@ __device__ __forceinline__ void consume_bwd_narrow(
   for (int i = 0; i < tiles; ++i) {
     const int st = i % ST;
     const int q0 = walk(i) * BQ;
-    const uint32_t qt = ring_lo + st * (2 * kBwdNwQBytes >> 4);
-    const uint32_t dot = qt + (kBwdNwQBytes >> 4);
+    const uint32_t qt = ring_lo + st * (2 * QBYTES >> 4);
+    const uint32_t dot = qt + (QBYTES >> 4);
     const float* lt = ls + st * BQ;
     const float* dlt = dls + st * BQ;
     const int b = i % NB;
     mbar_wait(&full[st], (i / ST) & 1);
 
     // s^T = bias + k qs^T and dp^T = v dO^T: rows are this warpgroup's
-    // keys, columns the tile's queries.
+    // keys, columns the tile's queries (k-step kk 32 kk bytes on within the
+    // rows).
     float s[32], dp[32];
     wgmma_fence();
-    wgmma_ss<64, 0, 0>(s, desc_of(b_lo, HI), desc_of(ones_lo, HI), 0);
-    wgmma_ss<64, 0, 0>(s, desc_of(k_lo, HI), desc_of(qt, HI), 1);
-    wgmma_ss<64, 0, 0>(dp, desc_of(v_lo, HI), desc_of(dot, HI), 0);
+    wgmma_ss<64, 0, 0>(s, desc_of(b_lo, HI16), desc_of(ones_lo, HI16), 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss<64, 0, 0>(s, desc_of(k_lo + 2 * kk, HI), desc_of(qt + 2 * kk, HI), 1);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss<64, 0, 0>(dp, desc_of(v_lo + 2 * kk, HI), desc_of(dot + 2 * kk, HI),
+                         kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_pin(s);
@@ -2106,17 +2129,19 @@ template <int D, int DROP>
 __global__ void __launch_bounds__(kBwdNwThreads, 1)
 flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
                        const __grid_constant__ K2BwdMaps maps) {
-  static_assert(D == 16, "the narrow warpgroup body takes d 16");
+  static_assert(D == 16 || D == 32, "the narrow warpgroup body takes d 16 and 32");
   constexpr int ST = kBwdNwStages;
   constexpr int NB = kBwdNwDsTiles;
   constexpr int BQ = kBwdNwBQ;
+  constexpr int KV = nw_bwd_kv_bytes(D);
+  constexpr int QBYTES = nw_bwd_q_bytes(D);
   extern __shared__ uint8_t bwd_nw_smem[];
   uint8_t* ks = bwd_nw_smem + ((1024 - (smem_addr(bwd_nw_smem) & 1023)) & 1023);
-  uint8_t* vs = ks + kBwdNwKvBytes;
-  uint8_t* bs = vs + kBwdNwKvBytes;
-  uint8_t* ones = bs + kBwdNwKvBytes;
-  uint8_t* ring = ones + kBwdNwQBytes;
-  uint8_t* dsb = ring + ST * 2 * kBwdNwQBytes;
+  uint8_t* vs = ks + KV;
+  uint8_t* bs = vs + KV;
+  uint8_t* ones = bs + kBwdNwBiasBytes;
+  uint8_t* ring = ones + kBwdNwOnesBytes;
+  uint8_t* dsb = ring + ST * 2 * QBYTES;
   float* ls = reinterpret_cast<float*>(dsb + NB * kBwdNwDsBytes);
   float* dls = ls + ST * BQ;
   uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dls + ST * BQ);
@@ -2159,7 +2184,7 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
     if (warp != 4 * kBwdNwConsumers) return;
     const int key0 = blockIdx.x * kBwdNwKeys;
     if (lane == 0) {
-      mbar_expect_tx(kv_bar, 2 * kBwdNwKvBytes);
+      mbar_expect_tx(kv_bar, 2 * KV);
       tma_load_3d(ks, &maps.k, kv_bar, 0, key0, bh);
       tma_load_3d(vs, &maps.v, kv_bar, 0, key0, bh);
     }
@@ -2178,11 +2203,11 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
       const int st = i % ST;
       if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
       if (lane == 0) {
-        uint8_t* qt = ring + st * 2 * kBwdNwQBytes;
+        uint8_t* qt = ring + st * 2 * QBYTES;
         const int q0 = walk(i) * BQ;
-        mbar_arrive_tx(&tma_bar[st], 2 * kBwdNwQBytes);
+        mbar_arrive_tx(&tma_bar[st], 2 * QBYTES);
         tma_load_3d(qt, &maps.q, &tma_bar[st], 0, q0, bh);
-        tma_load_3d(qt + kBwdNwQBytes, &maps.dout, &tma_bar[st], 0, q0, bh);
+        tma_load_3d(qt + QBYTES, &maps.dout, &tma_bar[st], 0, q0, bh);
       }
     };
     // The ring's first tiles go out at once; then each tile is published
@@ -2193,7 +2218,7 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
     for (int i = 0; i < tiles; ++i) {
       const int st = i % ST;
       const int q0 = walk(i) * BQ;
-      uint8_t* qt = ring + st * 2 * kBwdNwQBytes;
+      uint8_t* qt = ring + st * 2 * QBYTES;
       for (int c = lane; c < BQ; c += 32) {
         const bool in = q0 + c < Nq;
         ls[st * BQ + c] = in ? -lseb[q0 + c] * kLog2e : -INFINITY;
@@ -2203,7 +2228,7 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
       // chunks, not the values within them).
       mbar_wait(&tma_bar[st], (i / ST) & 1);
       uint4* chunk = reinterpret_cast<uint4*>(qt);
-      for (int c = lane; c < kBwdNwQBytes / 16; c += 32) {
+      for (int c = lane; c < QBYTES / 16; c += 32) {
         uint4 x = chunk[c];
         x.x = scale_bf16x2(x.x, a.scale);
         x.y = scale_bf16x2(x.y, a.scale);
@@ -2612,7 +2637,7 @@ int launch_bwd_wgmma_narrow(const LunarisK2BwdArgs& a, cudaStream_t stream) {
       !bf16_narrow_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kBwdNwKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = flash_bwd_wgmma_narrow<D, DROP>;
-  constexpr int smem = nw_bwd_smem_bytes();
+  constexpr int smem = nw_bwd_smem_bytes(D);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

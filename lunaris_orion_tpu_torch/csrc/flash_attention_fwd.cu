@@ -16,8 +16,8 @@
 // contiguous. bias: [H, Nk] f32. o: [BH, Nq, d] in the input type;
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
-// body: 2 the warpgroup kernel (bf16 at d 16, 48 or 64: wgmma fed by TMA;
-// at d 16 its narrow form; f32 at d 16: flash_fwd_wgmma_tf32, on the key
+// body: 2 the warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed by
+// TMA; at d 16 and 32 its narrow form; f32 at d 16: flash_fwd_wgmma_tf32, on the key
 // tiles that lunaris_k2_tf32_split wrote into `split` for this call), 1 the
 // tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
 // three TF32 passes for f32), 0 the CUDA-core kernel (f32 at d 8, 16, 32, 48
@@ -47,6 +47,8 @@ extern "C" int lunaris_flash_attention_fwd(
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_fwd_wgmma_d16_drop(a, s)
                                   : lunaris_k2_fwd_wgmma_d16(a, s);
+      case 32: return use_dropout ? lunaris_k2_fwd_wgmma_d32_drop(a, s)
+                                  : lunaris_k2_fwd_wgmma_d32(a, s);
       case 48: return use_dropout ? lunaris_k2_fwd_wgmma_d48_drop(a, s)
                                   : lunaris_k2_fwd_wgmma_d48(a, s);
       case 64: return use_dropout ? lunaris_k2_fwd_wgmma_d64_drop(a, s)
@@ -67,9 +69,10 @@ extern "C" int lunaris_flash_attention_fwd(
 // The dynamic shared memory a launch of the warpgroup body takes (its ring
 // of K, V and bias tiles and its barriers), for the build report.
 extern "C" int lunaris_k2_fwd_wgmma_smem_bytes() { return wg_fwd_smem_bytes(); }
-// The same for the narrow warpgroup body (d 16).
-extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes() {
-  return nw_fwd_smem_bytes();
+// The same for the narrow warpgroup body at head size d (16 or 32).
+extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes(int d) {
+  return d == 32 ? nw_fwd_smem_bytes(32, nw_block_k(32))
+                 : nw_fwd_smem_bytes(16, nw_block_k(16));
 }
 // The same for the f32 warpgroup body (d 16).
 extern "C" int lunaris_k2_fwd_wgmma_tf32_smem_bytes() {

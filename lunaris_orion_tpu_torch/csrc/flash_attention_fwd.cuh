@@ -43,14 +43,15 @@
 // Three bodies templated on the head size D, the stage level LVL (4 = the
 // full chain), the dropout mode and whether Nk may be ragged, and two more,
 // flash_fwd_wgmma (bf16 at d 48 and 64) and flash_fwd_wgmma_narrow (bf16 at
-// d 16), the full chain only (their own notes below), on the D and the
+// d 16 and 32), the full chain only (their own notes below), on the D and the
 // dropout mode alone:
 //
-//   flash_fwd_mma   bf16, D a multiple of 16 (at d 16 the short rows of the
-//       windowed fold since the narrow body). Both products run on the tensor
-//       cores with mma.sync m16n8k16 (bf16 x bf16 -> f32). A warp owns 32
-//       query rows at d = 16 (two 16-row tiles; one at d 32, 48, 64), 4 warps
-//       a block: 128 rows halve what a block reads of K and V against 64,
+//   flash_fwd_mma   bf16, D a multiple of 16 (at d 16 and 32 the short rows
+//       of the windowed fold since the narrow body). Both products run on
+//       the tensor cores with mma.sync m16n8k16 (bf16 x bf16 -> f32). A
+//       warp owns 32 query rows at d = 16 (two 16-row tiles; one at d 32,
+//       48, 64), 4 warps a block: 128 rows halve what a block reads of K
+//       and V against 64,
 //       and that traffic, not the products, bounded the first version. q is
 //       the A fragment, scaled and rounded once. K, V (bf16, rows padded by
 //       16 bytes against bank conflicts) and the bias arrive by cp.async in a
@@ -134,10 +135,12 @@ int lunaris_k2_fwd_wgmma_d48(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d48_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d64(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d64_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
-// The narrow warpgroup body, bf16 at d 16
-// (flash_attention_fwd_wgmma_d16{,_drop}.cu).
+// The narrow warpgroup body, bf16 at d 16 and 32
+// (flash_attention_fwd_wgmma_d{16,32}{,_drop}.cu).
 int lunaris_k2_fwd_wgmma_d16(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d16_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d32(const LunarisK2FwdArgs& a, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_d32_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 // The f32 warpgroup body at d 16 (flash_attention_fwd_wgmma_tf32_d16{,_drop}.cu),
 // on the key tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
 int lunaris_k2_fwd_wgmma_tf32_d16(const LunarisK2FwdArgs& a, const void* split,
@@ -1188,10 +1191,11 @@ int launch_wgmma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the narrow warpgroup body: d 16 ----------------------------------------
+// ---- the narrow warpgroup body: d 16 and 32 ---------------------------------
 
 // flash_fwd_wgmma_narrow  bf16 at D 16, the default width (feature_dim 128 at
-//   8 heads). At d 16 the products are cheap (4 N^2 d operations: 1.1 ms at
+//   8 heads), and D 32 (feature_dim 256: the docs' low-end recipe). At
+//   d 16 the products are cheap (4 N^2 d operations: 1.1 ms at
 //   B8 H8 N16384) and the work per score binds: one ex2 on the special-
 //   function units (16 a clock an SM: 4.1 ms there), its FMA, the max, the
 //   row sum, the pack and, with dropout, the hash. flash_fwd_mma runs that
@@ -1223,6 +1227,12 @@ int launch_wgmma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 //     key's term stepped by a constant, p dropped, rescaled and packed to
 //     bf16 in registers as p v's A fragment.
 //   Dropout is a template parameter; one instance takes every Nk.
+//   At D 32 K and V are [rows][32] tiles with the 64-byte swizzle and key
+//   tiles are 64 (4 KB each; nw_block_k); the bias tile stays [keys][16]
+//   with the 32-byte one, so the bias k-step reads it through a descriptor
+//   of its own. q k^T is the bias k-step and two of q's (the second 32
+//   bytes on within K's row), p v a wgmma m64n32k16 a k-step, and o, pv
+//   and q's fragments take 20 registers more a thread than at D 16.
 // Rounding points are flash_fwd_mma's: p v is summed from zero a key tile
 // (of 128 here) and added to o with one rounded f32 FMA; the scores' bias
 // is added in the tensor core's f32 sum ahead of q k^T, as
@@ -1230,18 +1240,31 @@ int launch_wgmma(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 // Measured on an H100 (PERF.md section 6): 6.1 instructions and 1.03 ex2 a
 // 32 scores without dropout, about 9.3 scores a clock an SM, 60 % of the
 // ex2 rate a microbenchmark reaches; with dropout the hash makes it 13.2
-// instructions a 32 scores and issue-bound.
+// instructions a 32 scores and issue-bound. At d 32: 7.4 and 14.8
+// instructions a 32 scores (flash_fwd_mma<32>, which tests dropout at run
+// time, 29.5), 30 % of the tensor cores' bound and 56 % of the
+// special-function floor at B16 H8 N16384 without dropout.
 
-constexpr int kNwBK = 128;                          // keys a tile
+constexpr int kNwStages = 4;
+
 constexpr int kNwConsumers = 3;                     // warpgroups of 64 rows
 constexpr int kNwRows = 64 * kNwConsumers;          // query rows a block
 constexpr int kNwThreads = 128 * (kNwConsumers + 1);
-constexpr int kNwStages = 4;
-constexpr int kNwTileBytes = kNwBK * 32;            // K, V or the bias at d 16
-constexpr int kNwStageBytes = 3 * kNwTileBytes;     // [K, V, bias] a stage
 
-__host__ __device__ constexpr int nw_fwd_smem_bytes() {
-  return 1024 + kNwStages * kNwStageBytes + 2 * kNwStages * 8;
+// Keys a tile at head size d. Timed in turns on an H100 (PERF.md section
+// 6) at d 32, B8 H8 N16384: tiles of 64 took 7.30 ms at dropout 0 against
+// 8.14 with tiles of 128 (and 8.58 with two consumer warpgroups at 232
+// registers); at dropout 0.1 the three were within 2 % (11.78, 11.79,
+// 11.56).
+__host__ __device__ constexpr int nw_block_k(int d) { return d == 32 ? 64 : 128; }
+
+// A stage: K and V as [BK][D] tiles, then the bias as a [BK][16] tile.
+__host__ __device__ constexpr int nw_tile_bytes(int d, int bk) { return bk * 2 * d; }
+__host__ __device__ constexpr int nw_stage_bytes(int d, int bk) {
+  return 2 * nw_tile_bytes(d, bk) + bk * 32;
+}
+__host__ __device__ constexpr int nw_fwd_smem_bytes(int d, int bk) {
+  return 1024 + kNwStages * nw_stage_bytes(d, bk) + 2 * kNwStages * 8;
 }
 
 // The consumer warpgroups of flash_fwd_wgmma_narrow. Every wgmma that a
@@ -1254,10 +1277,13 @@ __device__ __forceinline__ void consume_fwd_narrow(
     const LunarisK2FwdArgs& a, const uint8_t* ring, uint64_t* full,
     uint64_t* empty, int tiles) {
   using bf16 = __nv_bfloat16;
-  constexpr int BK = kNwBK;
+  constexpr int BK = nw_block_k(D);
   constexpr int ST = kNwStages;
   constexpr int NJ = BK / 8;       // 8-key column chunks of s
-  constexpr uint32_t HI = kNarrowDescHi<D>;
+  constexpr int KS = D / 16;       // q's k-steps
+  constexpr uint32_t HI = kNarrowDescHi<D>;        // K and V
+  constexpr uint32_t HI_BIAS = kNarrowDescHi<16>;  // the bias tile
+  constexpr int TILE = nw_tile_bytes(D, BK);
   const int Nq = a.Nq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y;
@@ -1267,19 +1293,22 @@ __device__ __forceinline__ void consume_fwd_narrow(
   const bool drop = DROP == kDropOn;
   const uint32_t ring_lo = desc_lo(ring);
 
-  // q as the A fragment of q k^T, scaled and rounded once.
-  uint32_t qf[4], ones[4];
+  // q as the A fragments of q k^T (k-step kk: columns 16 kk ..), scaled
+  // and rounded once.
+  uint32_t qf[KS][4], ones[4];
   {
     const bf16* qb = static_cast<const bf16*>(a.q) + static_cast<long long>(bh) * Nq * D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + (i & 1) * 8;
-      const int col = (i >> 1) * 8 + 2 * t;
-      uint32_t x = 0u;
-      if (row < Nq)
-        x = *reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(row) * D + col);
-      qf[i] = scale_bf16x2(x, a.scale);
-    }
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + (i & 1) * 8;
+        const int col = 16 * kk + (i >> 1) * 8 + 2 * t;
+        uint32_t x = 0u;
+        if (row < Nq)
+          x = *reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(row) * D + col);
+        qf[kk][i] = scale_bf16x2(x, a.scale);
+      }
   }
   ones3_fragment(ones, t);
 
@@ -1296,21 +1325,24 @@ __device__ __forceinline__ void consume_fwd_narrow(
   const uint32_t q_term[2] = {
       row_seed + static_cast<uint32_t>(a.q_offset + row0) * kC3,
       row_seed + static_cast<uint32_t>(a.q_offset + row0 + 8) * kC3};
-  const uint32_t stage_lo = kNwStageBytes >> 4;
+  const uint32_t stage_lo = nw_stage_bytes(D, BK) >> 4;
 
-  // s = bias + qs k^T of tile j: the bias k-step from zero, then q's.
+  // s = bias + qs k^T of tile j: the bias k-step from zero, then q's (the
+  // k-step kk 32 kk bytes on within K's row).
   auto issue_scores = [&](int j) {
     const int st = j % ST;
     const uint32_t kt = ring_lo + st * stage_lo;
     mbar_wait(&full[st], (j / ST) & 1);
     wgmma_fence();
-    wgmma_rs<BK, 0>(s, ones, desc_of(kt + (2 * kNwTileBytes >> 4), HI), 0);
-    wgmma_rs<BK, 0>(s, qf, desc_of(kt, HI), 1);
+    wgmma_rs<BK, 0>(s, ones, desc_of(kt + (2 * TILE >> 4), HI_BIAS), 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<BK, 0>(s, qf[kk], desc_of(kt + 2 * kk, HI), 1);
     wgmma_commit();
   };
   // pv = round_bf16(p) v of tile j, from zero.
   auto issue_pv = [&](int j) {
-    const uint32_t vt = ring_lo + (j % ST) * stage_lo + (kNwTileBytes >> 4);
+    const uint32_t vt = ring_lo + (j % ST) * stage_lo + (TILE >> 4);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
@@ -1429,12 +1461,14 @@ template <int D, int DROP>
 __global__ void __launch_bounds__(kNwThreads, 1)
 flash_fwd_wgmma_narrow(const LunarisK2FwdArgs a,
                        const __grid_constant__ K2FwdMaps maps) {
-  static_assert(D == 16, "the narrow warpgroup body takes d 16");
-  constexpr int BK = kNwBK;
+  static_assert(D == 16 || D == 32, "the narrow warpgroup body takes d 16 and 32");
+  constexpr int BK = nw_block_k(D);
   constexpr int ST = kNwStages;
+  constexpr int TILE = nw_tile_bytes(D, BK);
+  constexpr int STAGE = nw_stage_bytes(D, BK);
   extern __shared__ uint8_t fwd_nw_smem[];
   uint8_t* ring = fwd_nw_smem + ((1024 - (smem_addr(fwd_nw_smem) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * kNwStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * STAGE);
   uint64_t* empty = full + ST;
 
   const int Nk = a.Nk;
@@ -1461,14 +1495,14 @@ flash_fwd_wgmma_narrow(const LunarisK2FwdArgs a,
     for (int tile = 0; tile < tiles; ++tile) {
       const int st = tile % ST;
       const int k0 = tile * BK;
-      uint8_t* kt = ring + st * kNwStageBytes;
+      uint8_t* kt = ring + st * STAGE;
       if (tile >= ST) mbar_wait(&empty[st], ((tile / ST) & 1) ^ 1);
       if (lane == 0) {
-        mbar_expect_tx(&full[st], 2 * kNwTileBytes);
+        mbar_expect_tx(&full[st], 2 * TILE);
         tma_load_3d(kt, &maps.k, &full[st], 0, k0, bh);
-        tma_load_3d(kt + kNwTileBytes, &maps.v, &full[st], 0, k0, bh);
+        tma_load_3d(kt + TILE, &maps.v, &full[st], 0, k0, bh);
       }
-      uint8_t* bt = kt + 2 * kNwTileBytes;
+      uint8_t* bt = kt + 2 * TILE;
       for (int c = lane; c < BK; c += 32)
         write_bias_row(bt, c, k0 + c < Nk ? biasb[k0 + c] : -INFINITY);
       fence_async_shared();        // the bias, for the consumers' wgmma
@@ -1482,6 +1516,7 @@ flash_fwd_wgmma_narrow(const LunarisK2FwdArgs a,
 
 template <int D, int DROP>
 int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
+  constexpr int BK = nw_block_k(D);
   // TMA reads k and v from 16-byte aligned rows; q and o move 4 bytes.
   if (reinterpret_cast<uintptr_t>(a.k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a.v) % 16 != 0 ||
@@ -1489,11 +1524,11 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
       reinterpret_cast<uintptr_t>(a.o) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   K2FwdMaps maps;
-  if (!bf16_narrow_tile_map(&maps.k, a.k, a.BH, a.Nk, D, kNwBK) ||
-      !bf16_narrow_tile_map(&maps.v, a.v, a.BH, a.Nk, D, kNwBK))
+  if (!bf16_narrow_tile_map(&maps.k, a.k, a.BH, a.Nk, D, BK) ||
+      !bf16_narrow_tile_map(&maps.v, a.v, a.BH, a.Nk, D, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = flash_fwd_wgmma_narrow<D, DROP>;
-  constexpr int smem = nw_fwd_smem_bytes();
+  constexpr int smem = nw_fwd_smem_bytes(D, BK);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

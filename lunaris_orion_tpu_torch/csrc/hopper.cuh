@@ -17,8 +17,9 @@
 // In both the swizzle is a function of the address bits, so a start moved
 // within a row reads the same layout.
 //
-// The narrow bodies (flash_fwd_wgmma_narrow, flash_bwd_wgmma_narrow: d 16)
-// keep K, V, q and dO as [rows][d] tiles whose row is the swizzle's span:
+// The narrow bodies (flash_fwd_wgmma_narrow, flash_bwd_wgmma_narrow: d 16
+// and 32) keep K, V, q and dO as [rows][d] tiles whose row is the swizzle's
+// span:
 // 32 bytes at d 16 with the 32-byte swizzle (chunk c of row r at chunk
 // c ^ ((r / 4) % 2); the pattern repeats every 256 bytes), 64 at d 32 with
 // the 64-byte one (chunk c ^ ((r / 2) % 4), every 512), so no k-step
@@ -431,6 +432,24 @@ __device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t a,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
@@ -464,9 +483,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          int scale_d) {
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, b, scale_d);
   else if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, b, scale_d);
   else {
-    static_assert(N == 48, "wgmma_rs: n 16, 48, 64 or 128");
+    static_assert(N == 48, "wgmma_rs: n 16, 32, 48, 64 or 128");
     wgmma_rs_n48<TB>(d, a, b, scale_d);
   }
 }

@@ -69,8 +69,8 @@ SIGNATURES = {
                           _P),
     "lunaris_k2_fwd_wgmma_smem_bytes": (),
     "lunaris_k2_bwd_wgmma_smem_bytes": (),
-    "lunaris_k2_fwd_wgmma_narrow_smem_bytes": (),
-    "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (),
+    "lunaris_k2_fwd_wgmma_narrow_smem_bytes": (_I,),
+    "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (_I,),
     "lunaris_k2_fwd_wgmma_tf32_smem_bytes": (),
     "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (),
 }

@@ -15,16 +15,18 @@ other device and never falls back.
                     wgmma m64n128k16 for q k^T and m64n{d}k16 for p v with
                     p in registers, K, V and the bias fed by TMA through
                     mbarriers (dropout compiled in or out); bf16 at d 16
-                    where Nq and Nk are at least NARROW_MIN_ROWS: its
-                    narrow form (three warpgroups, [rows][16] tiles with
-                    the 32-byte swizzle, the bias as a k-step of its own,
-                    each tile's softmax under the tile before's p v);
+                    and 32 where Nq and Nk are at least NARROW_MIN_ROWS[d]:
+                    its narrow form (three warpgroups, [rows][d] tiles
+                    whose row is the swizzle's span, 32 or 64 bytes, the
+                    bias as a k-step of its own, each tile's softmax under
+                    the tile before's p v);
                     f32 at d 16 where Nq and Nk are at least
                     TF32_WGMMA_MIN_ROWS: flash_fwd_wgmma_tf32, three
                     warpgroups of 64 rows, wgmma in three TF32 passes a
                     product on key tiles that a pre-pass (`tf32_tiles`)
                     split into hi and lo and laid out as wgmma reads them;
-            "mma"   d 16, 32 (and f32 at 48, 64): both products on the
+            "mma"   d 16, 32 (and f32 at 48, 64; bf16 at d 16 and 32
+                    where Nq or Nk is short): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
                     (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
@@ -42,9 +44,10 @@ other device and never falls back.
                      computed once; its dq varies from run to run in the
                      last bits (`fused_instance`): "wgmma" for bf16 at d 48
                      and 64 (five wgmma products a query tile, K and V in
-                     shared memory, fed by TMA) and at d 16 where Nq and Nk
-                     are at least NARROW_MIN_ROWS (its narrow form: three
-                     warpgroups of 64 keys that meet only at the ds tiles),
+                     shared memory, fed by TMA) and at d 16 and 32 where Nq
+                     and Nk are at least NARROW_MIN_ROWS[d] (its narrow form:
+                     three warpgroups of 64 keys that meet only at the ds
+                     tiles),
                      and for f32 at d 16 where Nq and Nk are at least
                      TF32_WGMMA_MIN_ROWS (flash_bwd_wgmma_tf32: two
                      warpgroups of 64 keys, the five products in three TF32
@@ -78,7 +81,7 @@ traced (`torch.export`) code take one route into the kernel.
 count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
 of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
-among those, the narrow ones (bf16 d 16), and `tf32_wgmma_launches` and
+among those, the narrow ones (bf16 d 16 and 32), and `tf32_wgmma_launches` and
 `bwd_tf32_wgmma_launches` the f32 ones (d 16). `split_launches` counts the
 launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
 backward.
@@ -114,13 +117,14 @@ MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
 MMA_HEAD_DIMS = (16, 32, 48, 64)     # those of the tensor-core forward
 MMA_BWD_HEAD_DIMS = (16, 32, 48, 64) # the split backward's (dk/dv, dq; bf16)
 MMA_FUSED_HEAD_DIMS = (16, 32)       # the fused backward's
-WGMMA_HEAD_DIMS = (16, 48, 64)       # the warpgroup bodies' (bf16)
-NARROW_HEAD_DIMS = (16,)             # of those, the narrow bodies' (rows of 32 bytes)
-# Where Nq or Nk is shorter the narrow bodies' set-up a block (a producer,
-# a ring, barriers) is not paid back: timed in turns on an H100 (PERF.md
-# section 6), the mma.sync bodies win at N 256 (the windowed fold), 512 and
-# 1024 and lose from 2048 on.
-NARROW_MIN_ROWS = 2048
+WGMMA_HEAD_DIMS = (16, 32, 48, 64)   # the warpgroup bodies' (bf16)
+NARROW_HEAD_DIMS = (16, 32)          # of those, the narrow bodies' (rows of 32, 64 bytes)
+# By head size: where Nq or Nk is shorter the narrow bodies' set-up a
+# block (a producer, a ring, barriers) is not paid back. Timed in turns on
+# an H100 (PERF.md section 6) at dropout 0.1: at d 16 the mma.sync bodies
+# win at N 256 (the windowed fold), 512 and 1024 and lose from 2048 on; at
+# d 32, where mma.sync's products cost more, they win at N 256 only.
+NARROW_MIN_ROWS = {16: 2048, 32: 512}
 TF32_WGMMA_HEAD_DIMS = (16,)         # the f32 warpgroup bodies' (three TF32 passes)
 # Where Nq or Nk is shorter the f32 warpgroup bodies' pre-pass and set-up
 # are not paid back (chip_smoke.py phases 4 and 7 time both bodies in turns
@@ -547,14 +551,17 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
 
 def _short_rows_body(dtype: torch.dtype, d: int, nq: int,
                      nk: int) -> str | None:
-    """The body a call at d 16 takes where its rows are short, else None
-    (the default of `_body`): the narrow warpgroup bodies (bf16) start a
+    """The body a call at d 16 (bf16 and f32) or 32 (bf16) takes where its
+    rows are short, else None (the default of `_body`): the narrow
+    warpgroup bodies (bf16) start a
     producer, a ring and their barriers per block, and the f32 ones a
     pre-pass as well, which the short rows of a windowed fold (Nq = Nk =
     the window) or a 32 px model do not pay back."""
-    short = (NARROW_MIN_ROWS if dtype == torch.bfloat16
-             else TF32_WGMMA_MIN_ROWS)
-    if d in NARROW_HEAD_DIMS and min(nq, nk) < short:
+    bf16 = dtype == torch.bfloat16
+    if bf16 and d in NARROW_HEAD_DIMS and min(nq, nk) < NARROW_MIN_ROWS[d]:
+        return "mma"
+    if not bf16 and d in TF32_WGMMA_HEAD_DIMS and min(nq, nk) < (
+            TF32_WGMMA_MIN_ROWS):
         return "mma"
     return None
 
@@ -579,11 +586,11 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 query rows
     and key tiles of 128 a block, dropout compiled in or out, every Nk in
     one instance: the bias masks the keys past it); `body="mma"` reaches
-    the tensor-core body it replaced there. bf16 at d 16 takes the narrow
-    warpgroup body ("wgmma", 192 query rows a block, key tiles of 128)
-    where Nq and Nk are both at least NARROW_MIN_ROWS, the mma.sync body
-    where either is shorter (the windowed fold); `body` reaches either, and
-    "simt". f32 at d 16 takes its own warpgroup body ("wgmma", 192 query
+    the tensor-core body it replaced there. bf16 at d 16 and 32 takes the
+    narrow warpgroup body ("wgmma", 192 query rows a block, key tiles of
+    128 at d 16 and 64 at d 32) where Nq and Nk are both at least
+    NARROW_MIN_ROWS[d], the mma.sync body where either is shorter (the
+    windowed fold); `body` reaches either, and "simt" at d 16. f32 at d 16 takes its own warpgroup body ("wgmma", 192 query
     rows a block, key tiles of 64 from the pre-pass) where Nq and Nk are
     both at least TF32_WGMMA_MIN_ROWS, the mma.sync body where either is
     shorter; `body` reaches either. d 16, 32, 48, 64 otherwise take
@@ -597,7 +604,8 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
                  body or _short_rows_body(dtype, d, nq, nk), wgmma="mma")
     if body == "wgmma":
         rows = 192 if d in NARROW_HEAD_DIMS else 128
-        block_k = TF32_TILE if dtype == torch.float32 else 128
+        block_k = (TF32_TILE if dtype == torch.float32 else 64 if d == 32
+                   else 128)
         return ForwardInstance(body, d, block_k, rows, -(-nq // rows),
                                "on" if dropout_rate > 0.0 else "off",
                                nk % block_k != 0)
@@ -727,10 +735,10 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 48 and 64 takes the warpgroup body ("wgmma": 128 keys a
     block, query tiles of 64, dropout compiled in or out, every Nq in one
     instance); `body="simt"` reaches the CUDA-core body it replaced there.
-    bf16 at d 16 takes the narrow warpgroup body ("wgmma": 192 keys a
-    block, query tiles of 64) where Nq and Nk are both at least
-    NARROW_MIN_ROWS, else the mma.sync body, which `body="mma"` reaches at
-    every shape. f32 at d 16 takes its own warpgroup body ("wgmma": 128 keys
+    bf16 at d 16 and 32 takes the narrow warpgroup body ("wgmma": 192
+    keys a block, query tiles of 64) where Nq and Nk are both at least
+    NARROW_MIN_ROWS[d], else the mma.sync body, which `body="mma"` reaches
+    at every shape. f32 at d 16 takes its own warpgroup body ("wgmma": 128 keys
     a block, query tiles of 64 from the pre-pass) where Nq and Nk are both
     at least TF32_WGMMA_MIN_ROWS, else the mma.sync body, which
     `body="mma"` reaches at every shape.
@@ -743,7 +751,8 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     parameters; every other instance of those bodies fills the last query
     tile and reads the dropout flag at run time."""
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
-                 body or _short_rows_body(dtype, d, nq, nk), wgmma="simt")
+                 body or _short_rows_body(dtype, d, nq, nk),
+                 wgmma="mma" if d in NARROW_HEAD_DIMS else "simt")
     if body == "wgmma":
         rows = (192 if d in NARROW_HEAD_DIMS and dtype == torch.bfloat16
                 else 128)

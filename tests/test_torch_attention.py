@@ -82,13 +82,13 @@ def test_online_plain_matches_pallas_and_two_pass(n, block_k, d, rate):
 
 
 @pytest.mark.parametrize("n", [256, 300])
-@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
 def test_online_plain_at_the_warpgroup_tile(n, d):
-    """The online form at the warpgroup bodies' key tile of 128 (d 16, 48
-    and 64), with dropout: against the two-pass form, and against the
-    Pallas kernel where N % 128 == 0; f32, atol 1e-5. At d 16 it is the
-    narrow body's rounding: p v summed from zero a tile of 128 keys, then
-    o = o corr + p v."""
+    """The online form at the warpgroup bodies' key tile (128 at d 16, 48
+    and 64, 64 at d 32), with dropout: against the two-pass form, and
+    against the Pallas kernel where N % 128 == 0; f32, atol 1e-5. At d 16
+    and 32 it is the narrow body's rounding: p v summed from zero a key
+    tile, then o = o corr + p v."""
     q, k, v, bias = _qkvb(1, 2, n, n, d, seed=n + d)
     kw = dict(dropout_rate=0.1, seed=-5)
     inst = k2.forward_instance(BF16, d, n, n, 0.1, body="wgmma")
@@ -159,16 +159,26 @@ BF16, F32 = torch.bfloat16, torch.float32
     (F32, 48, 4096, 4096, 0.0, ("mma", 32, 64, 64, "runtime", True)),
     (F32, 64, 1000, 1000, 0.1, ("mma", 32, 64, 16, "runtime", True)),
     (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
-    # head size 32 (feature_dim 256): one run-time instance a body
-    (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
-    (BF16, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
+    # head size 32 (feature_dim 256, the low-end recipe): bf16 takes the
+    # narrow warpgroup body (key tiles of 64) on long rows (the teacher's N
+    # at the serving batch and in training, a ragged N, a q shard),
+    # mma.sync's one run-time instance on short rows (the windowed fold);
+    # f32 keeps mma.sync's
+    (BF16, 32, 16384, 16384, 0.0, ("wgmma", 64, 192, 86, "off", False)),
+    (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
+    (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
+    (BF16, 32, 2100, 2100, 0.1, ("wgmma", 64, 192, 11, "on", True)),
+    (BF16, 32, 8192, 16384, 0.1, ("wgmma", 64, 192, 43, "on", False)),
+    (BF16, 32, 2000, 2000, 0.0, ("wgmma", 64, 192, 11, "off", True)),
+    (BF16, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
+    (BF16, 32, 300, 4096, 0.0, ("mma", 64, 64, 5, "runtime", True)),
     (F32, 32, 16384, 16384, 0.1, ("mma", 64, 64, 256, "runtime", True)),
     (F32, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 and f32
-    at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16, 32
+    dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
+    f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16, 32
     (and f32 at 48, 64) the tensor cores on mma.sync (f32:
     three TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA
     cores; at d 16 dropout and a ragged Nk are compiled in."""
@@ -212,7 +222,7 @@ def test_forward_instance_body_argument():
         "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
                            (BF16, 64, "simt"), (F32, 32, "wgmma"),
-                           (F32, 48, "wgmma"), (BF16, 32, "wgmma")):
+                           (F32, 48, "wgmma"), (BF16, 32, "simt")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
     for dtype, d in ((torch.float16, 16), (BF16, 24), (F32, 128)):
@@ -231,7 +241,7 @@ def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
     forward with key tiles of 128, the fused backward with 128 keys a block
     and query tiles of 64, and the fused variant by default; `body` still
     reaches the bodies they replaced, for the comparisons in turns."""
-    assert d in k2.WGMMA_HEAD_DIMS and set(k2.WGMMA_HEAD_DIMS) < set(
+    assert d in k2.WGMMA_HEAD_DIMS and set(k2.WGMMA_HEAD_DIMS) == set(
         k2.MMA_HEAD_DIMS)
     fwd = k2.forward_instance(BF16, d, 16384, 16384, 0.1)
     assert (fwd.body, fwd.block_k, fwd.rows) == ("wgmma", 128, 128)
@@ -255,15 +265,15 @@ def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
 def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     """bf16 at d 16 (feature_dim 128 at 8 heads, `TrainConfig()`'s width)
     takes the narrow warpgroup bodies where neither Nq nor Nk is shorter
-    than NARROW_MIN_ROWS: the forward with three warpgroups of 64 rows and
-    key tiles of 128, the fused backward with 192 keys a block and query
+    than NARROW_MIN_ROWS[16]: the forward with three warpgroups of 64 rows
+    and key tiles of 128, the fused backward with 192 keys a block and query
     tiles of 64, the fused variant by default; shorter rows (the windowed
     fold, N = 256) keep the mma.sync bodies, which `body="mma"` reaches at
     every shape, as `body="simt"` reaches the CUDA-core ones. The split
     backward has no warpgroup body. Both counters count the narrow bodies'
     launches among the warpgroup ones."""
-    assert k2.NARROW_HEAD_DIMS == (16,) and 16 in k2.WGMMA_HEAD_DIMS
-    long = min(nq, nk) >= k2.NARROW_MIN_ROWS
+    assert k2.NARROW_HEAD_DIMS == (16, 32) and 16 in k2.WGMMA_HEAD_DIMS
+    long = min(nq, nk) >= k2.NARROW_MIN_ROWS[16]
     fwd = k2.forward_instance(BF16, 16, nq, nk, rate)
     bwd = k2.fused_instance(BF16, 16, nq, nk, rate)
     if long:
@@ -289,6 +299,57 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     f32 = "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS else "mma"
     assert k2.forward_instance(F32, 16, nq, nk, rate).body == f32
     assert k2.fused_instance(F32, 16, nq, nk, rate).body == f32
+
+
+@pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
+                                         (16384, 16384, 0.1),
+                                         (8192, 16384, 0.1), (2100, 2100, 0.1),
+                                         (2000, 2000, 0.0), (512, 1000, 0.1),
+                                         (300, 16384, 0.0), (256, 256, 0.1)])
+def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
+    """bf16 at d 32 (feature_dim 256 at 8 heads, the docs' low-end recipe)
+    takes the narrow warpgroup bodies where neither Nq nor Nk is shorter
+    than NARROW_MIN_ROWS[32] (512: the crossover measured at d 32), as d
+    16 does: the forward with three warpgroups of 64 rows and key tiles of
+    64, dropout compiled in or out, the fused backward with 192 keys a block
+    and query tiles of 64, the fused variant by default. Shorter rows (the
+    windowed fold, N 256; a q shard of 300 rows) keep
+    mma.sync's run-time instances (64 rows, 64 keys a block), which
+    `body="mma"` reaches at every shape; there is no CUDA-core bf16 body at
+    d 32, and the split backward has no warpgroup body. f32 at d 32 keeps
+    mma.sync's three TF32 passes."""
+    assert 32 in k2.NARROW_HEAD_DIMS and 32 in k2.WGMMA_HEAD_DIMS
+    long = min(nq, nk) >= k2.NARROW_MIN_ROWS[32]
+    fwd = k2.forward_instance(BF16, 32, nq, nk, rate)
+    bwd = k2.fused_instance(BF16, 32, nq, nk, rate)
+    if long:
+        assert fwd == k2.ForwardInstance("wgmma", 32, 64, 192, -(-nq // 192),
+                                         "on" if rate else "off",
+                                         nk % 64 != 0)
+        assert bwd == k2.FusedInstance("wgmma", 32, 64, 192, -(-nk // 192),
+                                       "on" if rate else "off", nq % 64 != 0)
+    else:
+        assert fwd == k2.forward_instance(BF16, 32, nq, nk, rate, body="mma")
+        assert bwd == k2.fused_instance(BF16, 32, nq, nk, rate, body="mma")
+    assert k2.default_bwd(BF16, 32) == "fused"
+    for body in ("wgmma", "mma"):
+        assert k2.forward_instance(BF16, 32, nq, nk, rate, body=body).body \
+            == body
+        assert k2.fused_instance(BF16, 32, nq, nk, rate, body=body).body \
+            == body
+    old = k2.forward_instance(BF16, 32, nq, nk, rate, body="mma")
+    assert (old.block_k, old.rows, old.dropout) == (64, 64, "runtime")
+    old = k2.fused_instance(BF16, 32, nq, nk, rate, body="mma")
+    assert (old.block_q, old.rows, old.dropout) == (64, 64, "runtime")
+    with pytest.raises(ValueError, match="does not take"):
+        k2.forward_instance(BF16, 32, nq, nk, rate, body="simt")
+    with pytest.raises(ValueError, match="does not take"):
+        k2.fused_instance(BF16, 32, nq, nk, rate, body="simt")
+    assert k2.backward_instance(BF16, 32, nq, nk, rate).body == "mma"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(BF16, 32, nq, nk, rate, body="wgmma")
+    assert k2.forward_instance(F32, 32, nq, nk, rate).body == "mma"
+    assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
 
 
 @pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
@@ -336,7 +397,7 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
     assert k2.forward_instance(BF16, 16, nq, nk, rate) == \
         k2.forward_instance(BF16, 16, nq, nk, rate, body=(
-            "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS else "mma"))
+            "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS[16] else "mma"))
 
 
 def test_tf32_tiles_on_the_cpu_take_the_plain_version():

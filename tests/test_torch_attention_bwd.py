@@ -177,12 +177,12 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
     assert inst.dq_blocks * inst.dq_rows >= nq > (
         inst.dq_blocks - 1) * inst.dq_rows
     # the forward's rule picks the same body for the same call in bf16, but
-    # where the forward has a warpgroup body (d 48 and 64, and d 16 on long
-    # rows); f32 has tensor-core forwards (three TF32 passes; at d 16 on
+    # where the forward has a warpgroup body (d 48 and 64, and d 16 and 32
+    # on long rows); f32 has tensor-core forwards (three TF32 passes; at d 16 on
     # long rows on wgmma) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
     short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < (
-        k2.NARROW_MIN_ROWS if dtype == BF16 else k2.TF32_WGMMA_MIN_ROWS)
+        k2.NARROW_MIN_ROWS[d] if dtype == BF16 else k2.TF32_WGMMA_MIN_ROWS)
     warpgroup = d in (k2.WGMMA_HEAD_DIMS if dtype == BF16
                       else k2.TF32_WGMMA_HEAD_DIMS)
     assert fwd == ("wgmma" if warpgroup and not short else
@@ -217,15 +217,21 @@ def test_backward_instance_body_argument():
 
 @pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
     # body, query tile, keys a block, blocks, dropout, ragged Nq
-    # bf16 at d 16: the narrow warpgroup body, 192 keys a block; short
-    # rows (fewer than NARROW_MIN_ROWS queries or keys) keep mma.sync
+    # bf16 at d 16 and 32: the narrow warpgroup body, 192 keys a block;
+    # short rows (fewer than NARROW_MIN_ROWS[d] queries or keys) keep
+    # mma.sync
     (BF16, 16, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 16, 4096, 4096, 0.0, ("wgmma", 64, 192, 22, "off", False)),
     (BF16, 16, 2000, 300, 0.1, ("mma", 64, 256, 2, "on", True)),
     (BF16, 16, 300, 2000, 0.0, ("mma", 64, 256, 8, "off", True)),
     (BF16, 16, 256, 256, 0.1, ("mma", 64, 256, 1, "on", False)),
-    (BF16, 32, 4096, 4096, 0.1, ("mma", 64, 64, 64, "runtime", True)),
+    (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
+    (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
+    (BF16, 32, 2100, 2048, 0.0, ("wgmma", 64, 192, 11, "off", True)),
+    (BF16, 32, 8192, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 300, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
+    (BF16, 32, 1000, 512, 0.1, ("wgmma", 64, 192, 3, "on", True)),
+    (BF16, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
     # bf16 at d 48 and 64: the warpgroup body, 128 keys a block, query
     # tiles of 64, dropout compiled in or out, every Nq in one instance
     (BF16, 48, 4096, 4096, 0.1, ("wgmma", 64, 128, 32, "on", False)),
@@ -246,9 +252,9 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 16 (unless Nq or Nk is short), 48 and 64 and
-    f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16
-    and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
+    Nk, dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
+    64 and f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies,
+    d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
     body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
     and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
     dropout and a ragged Nq are compiled in. In bf16 an mma.sync block walks

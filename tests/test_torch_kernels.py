@@ -243,7 +243,7 @@ def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     inst = k2.forward_instance(dtype, d, n, n, rate)
     bf16 = dtype == torch.bfloat16
     short = d in k2.NARROW_HEAD_DIMS and n < (
-        k2.NARROW_MIN_ROWS if bf16 else k2.TF32_WGMMA_MIN_ROWS)
+        k2.NARROW_MIN_ROWS[d] if bf16 else k2.TF32_WGMMA_MIN_ROWS)
     warpgroup = d in (k2.WGMMA_HEAD_DIMS if bf16 else k2.TF32_WGMMA_HEAD_DIMS)
     assert inst.body == ("wgmma" if warpgroup and not short else
                          "mma" if d >= 16 else "simt")
@@ -324,9 +324,9 @@ def test_warpgroup_bodies_and_the_bodies_they_replaced(cuda, d, nq, nk,
             _close(g, r, torch.bfloat16, name, body)
 
 
-# The narrow warpgroup bodies (bf16 d 16): ragged N on either side, a CP
-# q shard at q_offset 8192 and the windowed fold's short rows (which take
-# mma.sync by default: `body` names the narrow bodies there).
+# The narrow warpgroup bodies (bf16 d 16 and 32): ragged N on either side,
+# a CP q shard at q_offset 8192 and the windowed fold's short rows (which
+# take mma.sync by default: `body` names the narrow bodies there).
 _NARROW_SHAPES = [(2, 4, 2000, 2000, 0), (2, 4, 300, 2000, 0),
                   (2, 4, 2000, 300, 0), (1, 2, 8192, 16384, 8192),
                   (2, 128, 256, 256, 0)]
@@ -335,19 +335,20 @@ _NARROW_SHAPES = [(2, 4, 2000, 2000, 0), (2, 4, 300, 2000, 0),
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,nq,nk,q_offset", _NARROW_SHAPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 32])
 def test_narrow_bodies_and_the_bodies_they_replaced(cuda, b, h, nq, nk,
-                                                    q_offset, rate):
-    """bf16 at d 16: the narrow forward and the mma.sync forward it replaced
+                                                    q_offset, rate, d):
+    """bf16 at d 16 and 32: the narrow forward and the mma.sync forward it replaced
     against the plain version's online form at each one's key tile, at the
     tensor cores' bar (2 ulps + 1e-3 of the largest, 3 in 100 differ); the
     narrow fused backward and the mma.sync fused kernel against the plain
     backward at its bar (5 in 100), dk, dv and dbias the same bits on a
     second run; the launches counted by the narrow counters."""
-    q, k, v, bias = _k2_inputs(cuda, b, h, nq, nk, 16, torch.bfloat16,
+    q, k, v, bias = _k2_inputs(cuda, b, h, nq, nk, d, torch.bfloat16,
                                seed=nq + nk + q_offset)
     kw = dict(dropout_rate=rate, seed=-5, q_offset=q_offset)
     for body in ("wgmma", "mma"):
-        inst = k2.forward_instance(torch.bfloat16, 16, nq, nk, rate, body=body)
+        inst = k2.forward_instance(torch.bfloat16, d, nq, nk, rate, body=body)
         before = (k2.wgmma_launches, k2.narrow_launches)
         o, lse = k2.forward_kernel(q, k, v, bias, body=body, **kw)
         new = body == "wgmma"
@@ -375,13 +376,14 @@ def test_narrow_bodies_and_the_bodies_they_replaced(cuda, b, h, nq, nk,
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,nk,q_offset,row_offset", [(512, 512, 0, 0),
                                                        (200, 300, 70, 3)])
+@pytest.mark.parametrize("d", [16, 32])
 def test_narrow_bwd_dropout_mask_positions(cuda, nq, nk, q_offset,
-                                           row_offset):
+                                           row_offset, d):
     """The narrow fused backward's dropout mask, position by position, is
     the hash, as `test_flash_attention_bwd_dropout_mask_positions` holds
     the other bodies' (dv's zeros where the mask drops a query's key, dq's
     where it drops a key's query)."""
-    b, h, d, rate, seed = 2, 2, 16, 0.3, 123
+    b, h, rate, seed = 2, 2, 0.3, 123
     dtype = torch.bfloat16
     zeros = lambda n: torch.zeros(b, h, n, d, device=cuda, dtype=dtype)
     ones = lambda n: torch.ones(b, h, n, d, device=cuda, dtype=dtype)
@@ -583,7 +585,7 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
     body = _bwd_body(variant, dtype, d, nq, nk, rate)
     mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
-    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS
+    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS[d]
     assert body == (
         "wgmma" if variant == "fused" and dtype == torch.bfloat16
         and d in k2.WGMMA_HEAD_DIMS and not short else
