@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (lunaris_orion_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py          # from the root of the repository
-    python3 chip_smoke.py --grads N  # phase 9 alone, its spread (below)
+    python3 chip_smoke.py --grads N [FEATURE_DIM]  # phase 9's spread (below)
     python3 chip_smoke.py --k5-f32 N # K5's f32 time alone, N times
     python3 chip_smoke.py --profiler-loss N  # torch.profiler's lost records
     python3 chip_smoke.py --step-noise N  # phase 18's f32 step against itself
@@ -11,12 +11,15 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc; no
               tensor-core instance spills and ptxas serialises no warpgroup
-              body's wgmma (the f32 ones at d 16, their pre-pass and the
-              narrow ones at d 16 and 32 among them: registers, spills and
-              shared bytes logged); the inner loop of each bf16 d 16 and
+              body's wgmma (the f32 ones at d 16, 48 and 64, their
+              pre-pass and the narrow ones at d 16 and 32 among them:
+              registers, spills and shared bytes logged); the inner loop
+              of each bf16 d 16 and
               d 32 K2 instance (the narrow warpgroup bodies and the
               mma.sync ones they replaced) counted by instruction class
-              from its SASS, per 32 scores;
+              from its SASS, per 32 scores (cuobjdump runs under the
+              phases that follow; its checks come before the kernels'
+              line);
   3. K1       GroupNorm+Mish kernel against its plain version at the four
               decoder shapes, batch 8, and at [128,128,128,64], f32 and
               bf16, bit-equal to its earlier three-launch form with the
@@ -62,7 +65,10 @@ Phases, each of which raises on failure (exit code 1):
               mma.sync body it replaced against the plain version at f32's
               bars, then in turns (mma, wgmma, wgmma, mma; at N 16384 the
               new must be faster) beside SDPA, the plain version, the
-              three-pass bound and the special-function floor;
+              three-pass bound and the special-function floor, and its
+              dropout mask position by position; the same at d 48 and 64
+              (the mid-range and H100-tier widths), whose short rows N 256,
+              512, 1024 and 4096 set TF32_WGMMA_MIN_ROWS[48] and [64];
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
@@ -116,14 +122,24 @@ Phases, each of which raises on failure (exit code 1):
               then in turns at those shapes, at B 16 and at the short rows
               N 1024 to 4096 (at N 16384 the new must be faster), beside
               the plain version, SDPA's backward, the three-pass bound and
-              the special-function floor;
+              the special-function floor, and its dropout mask position by
+              position; the same at d 48 and 64 against the CUDA-core
+              fused kernel it replaced there (a ragged N 2100 and 2000;
+              at B 16 the CUDA-core kernel one call a turn, over a second
+              a call), the short rows N 256, 1024 and 4096 in turns
+              setting TF32_WGMMA_BWD_MIN_ROWS[48] and [64];
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
               against its earlier form (one block a sample, then torch
               sums) in turns;
-  9. grads    one `train_step` of a 64 px config (N = 4096; 4 heads, d 8
-              and d 16, whose K2 calls all take the f32 warpgroup bodies)
+  9. grads    one `train_step` of a 64 px config (N = 4096; 4 heads, d 8,
+              and d 16, 48 and 64, whose K2 calls all take the f32
+              warpgroup bodies; at d 48 and 64 the card's step takes the
+              CPU step's side of each LeakyReLU kink, `kink_sides`, every
+              entry that differs within 1e-4 of its call's largest of zero;
+              the CPU steps run in a process of their own, under phase
+              7's work on the card)
               on the CPU (plain versions) and on the card (kernels) from
               one state, one batch and one eps, dropout 0, TF32 off:
               gradients (1e-3
@@ -286,7 +302,18 @@ Phases, each of which raises on failure (exit code 1):
               CUDA-core K2 kernel runs, the losses and scores are finite;
               each profile holds a record of every launch the wrappers
               counted (K1's two kernels a call, K2's by name), or the call
-              is profiled again, at most 3 sessions;
+              is profiled again, at most 3 sessions; then in f32, the CLIs'
+              default precision (`run_recipe_f32`): an f32 decode+score at
+              batch 8 through ImageGenerator from a seeded H100-tier
+              checkpoint (d 64), and one f32 train step at the mid-range
+              tier's widths (docs/configs.md: feature_dim 384, d 48; latent
+              384, embedding 192; batch 8 x 1, cut from the recipe's 32 x 2
+              for run time) after a warm-up step, each profiled: every K2
+              forward on `flash_fwd_wgmma_tf32` and every backward on
+              `flash_bwd_wgmma_tf32` at its head size (by the wrappers'
+              counts and by name), their pre-pass once a forward and twice
+              a backward, no `flash_fwd_tf32` and no CUDA-core K2 kernel,
+              finite losses and scores, device time and idle share;
  19. parity   (run last) the long parity runs of `lunaris_orion_tpu_torch.
               tools`, TF32 off for cuDNN and cuBLAS: (a) `parity_curves`,
               the VAE step, 300 x 16, deterministic and sampled; (b)
@@ -397,16 +424,21 @@ do the f32 ones at d 16, `flash_attention_fwd_wgmma_tf32` and
 against flash_fwd_tf32 and flash_bwd_fused_tf32, their `bound_ms` the
 three TF32 passes, beside `bound_ms_sfu`; every reading under
 `readings`), and their pre-pass `k2_tf32_split` (its time at B 8 N 16384
-in the forward's mode against its plain twin, bound by bytes). The
+in the forward's mode against its plain twin, bound by bytes); at d 48 and
+64 the same readings under `d48` / `d64` and `readings_d48` /
+`readings_d64` (the backward's against the CUDA-core fused kernel, its B 16
+reading under `d48` / `d64` too), with the launches of phase 20's f32 runs
+(`launches_recipe_f32_decode`, `launches_recipe_f32_step`). The
 last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA card it exits with code 2 and prints no result.
 
-`--grads N` runs phase 9's comparison alone, N times with the kernels and N
-times with K1, K2 and K3's plain versions on the card, against one CPU
-step, and prints each reading (`spread_grads`).
+`--grads N [FEATURE_DIM]` runs phase 9's comparison alone (at feature_dim
+32 unless given; unsided), N times with the kernels and N times with K1,
+K2 and K3's plain versions on the card, against one CPU step, and prints
+each reading (`spread_grads`).
 
 `--serve DIR` is phase 17's serving process (`serve_bundles`), which the
 main run starts itself.
@@ -424,9 +456,11 @@ prints how far each repeat moved from the first at phase 9's bars
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -720,7 +754,9 @@ def probe(torch) -> str:
     return smi
 
 
-def build() -> None:
+def build():
+    """Phase 2: the build, its report's checks; returns `sass_counts`, the
+    checks of the library's SASS (cuobjdump, started here)."""
     from lunaris_orion_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     lib = _build.build()
@@ -753,10 +789,13 @@ def build() -> None:
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
     # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
-    # ones at d 16 and 32, and f32's at d 16 on three TF32 passes): no
-    # instance spills, and setmaxnreg moves the registers (ptxas reports the
-    # count at entry, 168 for 384 threads and 128 for 512; the consumers
-    # take 232, the narrow bodies' and the f32 forward's 160).
+    # ones at d 16 and 32, and f32's at d 16, 48 and 64 on three TF32
+    # passes): no instance spills, and setmaxnreg moves the registers
+    # (ptxas reports the count at entry, 168 for 384 threads and 128 for
+    # 512; the consumers take 232, the narrow bodies' and the f32 d 16
+    # forward's 160; the f32 backward at d 48 and 64, one consumer
+    # warpgroup and a producer warp, 160 threads, takes no setmaxnreg: its
+    # count is the one ptxas reports).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -777,11 +816,14 @@ def build() -> None:
     smem = {f"flash_{x}_wgmma_narrowILi{d}E":
             (lib_smem(f"lunaris_k2_{x}_wgmma_narrow_smem_bytes", d), 160, 2)
             for x in ("fwd", "bwd") for d in (16, 32)}
-    smem |= {"flash_fwd_wgmma_tf32":
-             (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes"), 160, 2),
-             "flash_bwd_wgmma_tf32":
-             (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes"), 232, 2),
-             "flash_fwd_wgmma": (lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
+    for d in (16, 48, 64):
+        smem |= {f"flash_fwd_wgmma_tf32ILi{d}E":
+                 (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes", d),
+                  160 if d == 16 else 232, 2),
+                 f"flash_bwd_wgmma_tf32ILi{d}E":
+                 (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes", d),
+                  232 if d == 16 else None, 2)}
+    smem |= {"flash_fwd_wgmma": (lib_smem("lunaris_k2_fwd_wgmma_smem_bytes"),
                                  232, 4),
              "flash_bwd_wgmma": (lib_smem("lunaris_k2_bwd_wgmma_smem_bytes"),
                                  232, 4)}
@@ -789,38 +831,55 @@ def build() -> None:
     for fn, (regs, spill) in sorted(wg.items()):
         body = next(b for b in smem if b in fn)
         counts[body] += 1
+        consumers = (f"{smem[body][1]} in the consumer warpgroups"
+                     if smem[body][1] else "no setmaxnreg")
         log(f"[build] K2 warpgroup {fn}: {regs} registers at entry ("
-            f"{smem[body][1]} in the consumer warpgroups), {spill} bytes "
-            f"spilled, {smem[body][0]} bytes of dynamic shared memory")
+            f"{consumers}), {spill} bytes spilled, {smem[body][0]} bytes of "
+            "dynamic shared memory")
         if spill:
             spills.append(fn)
     if counts != {b: n for b, (_, _, n) in smem.items()}:
         raise AssertionError(f"the K2 warpgroup instances are missing from "
                              f"the build's report: {sorted(wg)}")
+    if spills:
+        raise AssertionError(f"a tensor-core instance spills ({spills})")
+    # The library's SASS: cuobjdump runs under the phases that follow, and
+    # `sass_counts` (called before the kernels' line) reads it.
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    ops, fn = {}, None          # instruction counts a K5 instance, static
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-                       line)
-        if fn and "gn_mish_conv3_mma" in fn and op:
-            count = ops.setdefault(fn, {"all": 0})
-            count["all"] += 1
-            count[op.group(1)] = count.get(op.group(1), 0) + 1
-    for fn, count in sorted(ops.items()):
-        log(f"[build] K5 {fn[-40:]}: " + ", ".join(
-            f"{k} {count.get(k, 0)}" for k in ("all", "HMMA", "LDSM", "MUFU",
-                                               "FFMA", "FADD", "FMUL")))
-    if spills or len(ops) != 2 or not all(c.get("HMMA") for c in ops.values()):
-        raise AssertionError(f"a tensor-core instance spills ({spills}) or "
-                             f"K5's body has no HMMA in its SASS")
-    return k2_d16_sass(sass)
+    dump = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([str(cuobjdump), "-sass", str(lib)], stdout=dump,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def sass_counts() -> dict:
+        """K5's SASS holds HMMA (its instruction counts logged); the bf16
+        d 16 and d 32 K2 inner loops by class (`k2_d16_sass`)."""
+        proc.wait(timeout=600)
+        dump.seek(0)
+        sass = dump.read()
+        dump.close()
+        if proc.returncode:
+            raise AssertionError(f"cuobjdump -sass failed: {sass[-2000:]}")
+        ops, fn = {}, None          # instruction counts a K5 instance, static
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            op = re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if fn and "gn_mish_conv3_mma" in fn and op:
+                count = ops.setdefault(fn, {"all": 0})
+                count["all"] += 1
+                count[op.group(1)] = count.get(op.group(1), 0) + 1
+        for fn, count in sorted(ops.items()):
+            log(f"[build] K5 {fn[-40:]}: " + ", ".join(
+                f"{k} {count.get(k, 0)}" for k in (
+                    "all", "HMMA", "LDSM", "MUFU", "FFMA", "FADD", "FMUL")))
+        if len(ops) != 2 or not all(c.get("HMMA") for c in ops.values()):
+            raise AssertionError("K5's body has no HMMA in its SASS")
+        return k2_d16_sass(sass)
+    return sass_counts
 
 
 # The bf16 d 16 and d 32 K2 bodies whose inner loop `k2_d16_sass` counts:
@@ -1312,69 +1371,112 @@ def check_k2(torch, dev, smi) -> dict:
     narrow32["short rows"] = narrow_short_rows(torch, k2, g, dev, smi, 32)
     out["narrow32"] = narrow32
     out["tf32"] = check_tf32_fwd(torch, k2, g, dev, smi)
+    # f32 at d 48 and 64: the mid-range and H100-tier widths in the CLIs'
+    # default precision.
+    for d in (48, 64):
+        out[f"tf32_d{d}"] = check_tf32_fwd(torch, k2, g, dev, smi, d)
     return out
 
 
-def tf32_split_check(torch, k2, g, dev, smi) -> dict:
-    """The f32 warpgroup bodies' pre-pass against its plain twin, bit for
-    bit, in each mode (the forward's at B8 H8 N16384, the backward's at a
-    ragged B2 H8 N2100), and its time beside the twin's and its bound: it
-    reads K and V once and writes each as TF32 hi and lo."""
+def tf32_split_check(torch, k2, g, dev, smi, d: int = 16) -> dict:
+    """The f32 warpgroup bodies' pre-pass at head size d against its plain
+    twin, bit for bit, in each mode (the forward's at B8 H8 N16384, the
+    backward's at a ragged B2 H8 N2100), and its time beside the twin's and
+    its bound: it reads K and V once and writes each as TF32 hi and lo."""
     b, h, n = 8, 8, 16384
-    k, v = (torch.randn(b, h, n, 16, generator=g, device=dev)
+    k, v = (torch.randn(b, h, n, d, generator=g, device=dev)
             for _ in range(2))
     got = k2.tf32_tiles(k2.TF32_FWD, k, v)
     want = k2.tf32_tiles_plain(k2.TF32_FWD, k, v)
     torch.cuda.synchronize()
     same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-    q, do = (torch.randn(2, 8, 2100, 16, generator=g, device=dev)
+    q, do = (torch.randn(2, 8, 2100, d, generator=g, device=dev)
              for _ in range(2))
     lse = torch.randn(16, 2100, generator=g, device=dev)
     delta = torch.randn(2, 8, 2100, generator=g, device=dev)
     for mode, args in ((k2.TF32_BWD_Q, (q, do, lse, delta)),
-                       (k2.TF32_BWD_K, (q,))):
+                       (k2.TF32_BWD_K, (q, do))):
         a = k2.tf32_tiles(mode, *args, scale=0.25)
         w = k2.tf32_tiles_plain(mode, *args, scale=0.25)
         same = same and torch.equal(a.view(torch.int32), w.view(torch.int32))
+    del want, a, w
     ms = time_ms(torch, lambda: k2.tf32_tiles(k2.TF32_FWD, k, v), 10)
     plain = time_ms(torch, lambda: k2.tf32_tiles_plain(k2.TF32_FWD, k, v), 2)
     bd = bound(0, nbytes(k, v, got), "f32")
-    log(f"[K2] f32 pre-pass (tf32_tiles) B{b} H{h} N{n}: bit-equal with its "
-        f"plain twin in every mode {same}; {ms:.3f} ms, plain {plain:.1f} ms, "
-        f"bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+    log(f"[K2] f32 pre-pass (tf32_tiles) B{b} H{h} N{n} d{d}: bit-equal with "
+        f"its plain twin in every mode {same}; {ms:.3f} ms, plain {plain:.1f} "
+        f"ms, bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
         f"({bd['bound_ms'] / ms:.1%} of it) on {smi}")
     if not same:
-        raise AssertionError("the f32 pre-pass differs from its plain twin")
+        raise AssertionError(f"the f32 pre-pass differs from its plain twin "
+                             f"at d {d}")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, **bd,
-            "library_ms": None, "shape": f"B{b} H{h} N{n} d16, forward mode"}
+            "library_ms": None,
+            "shape": f"B{b} H{h} N{n} d{d}, forward mode"}
 
 
-def check_tf32_fwd(torch, k2, g, dev, smi) -> dict:
-    """Phase 4's readings of the f32 warpgroup forward (d 16, three TF32
-    passes on wgmma) against flash_fwd_tf32 (mma.sync), the body it
-    replaced at long rows. Each shape: both held to the plain version at
-    f32's bars (o 1e-5, lse 1e-4), then timed in turns (mma, wgmma, wgmma,
-    mma). At N16384 (B8 and B16, dropout 0 and 0.1) the new one must be
-    faster, and is logged beside SDPA in f32, the plain version (B8,
-    dropout 0), the three-pass bound and the special-function floor with
-    both shares. Then a ragged N, a CP shard at q_offset 8192 and the short
-    rows N 256 to 4096, whose turns set TF32_WGMMA_MIN_ROWS."""
+def tf32_fwd_mask_positions(torch, k2, dev, d: int) -> int:
+    """The f32 warpgroup forward's dropout mask at head size d, position by
+    position, is the hash: with q = k = 0 and a zero bias every score is 0,
+    so with v the identity on keys k0 .. k0 + d - 1 (zeros elsewhere)
+    o[q, j] is non-zero where the mask keeps key k0 + j for query q. Two
+    shapes (one ragged, at a q_offset and a row_offset), five d-wide
+    windows; returns the positions held."""
+    b, h, rate, seed, held = 2, 2, 0.3, 123, 0
+    for nq, nk, q_offset, row_offset in ((512, 512, 0, 0), (200, 300, 70, 3)):
+        q = torch.zeros(b, h, nq, d, device=dev)
+        k = torch.zeros(b, h, nk, d, device=dev)
+        bias = torch.zeros(h, nk, device=dev)
+        rs = k2.row_seeds(seed, b * h, row_offset, dev).reshape(b, h, 1, 1)
+        keep = k2.keep_mask(rs, torch.arange(nk, device=dev),
+                            torch.arange(q_offset, q_offset + nq,
+                                         device=dev)[:, None],
+                            k2.dropout_threshold(1.0 - rate))
+        for k0 in (0, 8, 56, 121, nk - d):
+            v = torch.zeros(b, h, nk, d, device=dev)
+            v[:, :, k0:k0 + d] = torch.eye(d, device=dev)
+            o, _ = k2.forward_kernel(q, k, v, bias, dropout_rate=rate,
+                                     seed=seed, q_offset=q_offset,
+                                     row_offset=row_offset, body="wgmma")
+            if not torch.equal(o != 0, keep[:, :, :, k0:k0 + d]):
+                raise AssertionError(f"K2 f32 warpgroup d{d}: o's mask at "
+                                     f"keys {k0}.. is not the hash")
+            held += o.numel()
+    log(f"[K2] f32 warpgroup forward d{d} dropout {rate}: the mask position "
+        f"by position is the hash ({held} positions)")
+    return held
+
+
+def check_tf32_fwd(torch, k2, g, dev, smi, d: int = 16) -> dict:
+    """Phase 4's readings of the f32 warpgroup forward at head size d (16,
+    48, 64; three TF32 passes on wgmma) against flash_fwd_tf32 (mma.sync),
+    the body it replaced at long rows. Each shape: both held to the plain
+    version at f32's bars (o 1e-5, lse 1e-4), then timed in turns (mma,
+    wgmma, wgmma, mma). At N16384 (B8 and B16, dropout 0 and 0.1) the new
+    one must be faster, and is logged beside SDPA in f32, the plain version
+    (B8, dropout 0), the three-pass bound and the special-function floor
+    with both shares. Then a ragged N, a CP shard at q_offset 8192 and the
+    short rows N 256 to 4096, whose turns set TF32_WGMMA_MIN_ROWS[d] (at d
+    48 and 64 N 2048 left out, fewer repetitions, SDPA at B8 only); and
+    the mask position by position."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
-    out, worst = {"pre-pass": tf32_split_check(torch, k2, g, dev, smi)}, 0.0
+    out = {"pre-pass": tf32_split_check(torch, k2, g, dev, smi, d)}
+    worst = 0.0
     shapes = [("B8", 8, 16384, 16384, 0, 0.0), ("B8", 8, 16384, 16384, 0, 0.1),
               ("B16", 16, 16384, 16384, 0, 0.0),
               ("B16", 16, 16384, 16384, 0, 0.1),
               ("ragged", 4, 2100, 2100, 0, 0.1),
               ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
     shapes += [(f"short rows N{n}", 64 if n < 2048 else 16, n, n, 0, 0.1)
-               for n in (256, 512, 1024, 2048, 4096)]
+               for n in ((256, 512, 1024, 2048, 4096) if d == 16 else
+                         (256, 512, 1024, 4096))]
     for label, b, nq, nk, q_offset, rate in shapes:
-        q = torch.randn(b, 8, nq, 16, generator=g, device=dev)
-        k, v = (torch.randn(b, 8, nk, 16, generator=g, device=dev)
+        q = torch.randn(b, 8, nq, d, generator=g, device=dev)
+        k, v = (torch.randn(b, 8, nk, d, generator=g, device=dev)
                 for _ in range(2))
         bias = 0.5 * torch.randn(8, nk, generator=g, device=dev)
         kw = dict(dropout_rate=rate, seed=-1234567, q_offset=q_offset)
-        tag = f"{label} H8 {nq}x{nk} q_offset {q_offset} d16 f32 dropout {rate}"
+        tag = f"{label} H8 {nq}x{nk} q_offset {q_offset} d{d} f32 dropout {rate}"
         ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
         line = []
         for body in ("mma", "wgmma"):
@@ -1393,18 +1495,22 @@ def check_tf32_fwd(torch, k2, g, dev, smi) -> dict:
                 raise AssertionError(f"K2 f32 {body} disagrees with the plain "
                                      f"version at {tag}")
         log(f"[K2] {tag}: " + ", ".join(line) + " (bars 1e-5, 1e-4)")
-        default = k2.forward_instance(torch.float32, 16, nq, nk, rate).body
+        default = k2.forward_instance(torch.float32, d, nq, nk, rate).body
         big = nq * nk * b > 2**31
+        # At d 48 and 64 fewer repetitions (the run's time limit), and SDPA
+        # at B8 only.
+        reps = (5 if big else 10) if d == 16 else (3 if big else 5)
         run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
-            q, k, v, bias, body=body, **kw), 5 if big else 10)
+            q, k, v, bias, body=body, **kw), reps)
         r = narrow_turns(torch, run, default, f"[K2] {tag}", smi,
                          new="f32 warpgroup (wgmma)")
         if nq == nk == 16384:
             if r["faster"] != "wgmma":
                 raise AssertionError(f"K2 at {tag}: the f32 warpgroup body is "
                                      "no faster than the mma.sync one")
-            lib, note = sdpa_ms(q, k, v, bias, dropout_p=rate, reps=3)
-            bd = bounds_tf32_k2(4 * b * 8 * nq * nk * 16,
+            lib, note = (sdpa_ms(q, k, v, bias, dropout_p=rate, reps=3)
+                         if d == 16 or label == "B8" else (None, "not timed"))
+            bd = bounds_tf32_k2(4 * b * 8 * nq * nk * d,
                                 nbytes(q, k, v, bias, o, lse), b * 8 * nq * nk)
             t_p = (time_ms(torch, lambda: k2.attention_plain(q, k, v, bias,
                                                              **kw), 1)
@@ -1420,21 +1526,23 @@ def check_tf32_fwd(torch, k2, g, dev, smi) -> dict:
         out[f"{label} dropout {rate}"] = r
         del q, k, v, bias, ro, rlse, o, lse
     out["max_abs_err"] = worst
+    out["mask"] = tf32_fwd_mask_positions(torch, k2, dev, d)
     return out
 
 
 def narrow_turns(torch, run, default, what, smi,
-                 new: str = "narrow (wgmma)") -> dict:
+                 new: str = "narrow (wgmma)", earlier: str = "mma") -> dict:
     """run(body) for a warpgroup body (the narrow one unless `new` says
-    otherwise) and the mma.sync one in turns (mma, wgmma, wgmma, mma): the
-    better of each pair, which one the dispatch rule picks at this shape
-    (`default`) and which one was faster."""
-    t = [run("mma"), run("wgmma"), run("wgmma"), run("mma")]
-    label = new
+    otherwise) and the body it replaced (`earlier`: mma.sync, or "simt",
+    the CUDA cores) in turns (earlier, wgmma, wgmma, earlier): the better of
+    each pair, which one the dispatch rule picks at this shape (`default`)
+    and which one was faster."""
+    t = [run(earlier), run("wgmma"), run("wgmma"), run(earlier)]
+    label, name = new, {"mma": "mma.sync", "simt": "CUDA cores"}[earlier]
     new, old = min(t[1:3]), min(t[0], t[3])
-    faster = "wgmma" if new < old else "mma"
-    log(f"{what}: mma.sync {t[0]:.3f}, {label} {t[1]:.3f}, "
-        f"{t[2]:.3f}, mma.sync {t[3]:.3f} ms on {smi}; faster in turns: "
+    faster = "wgmma" if new < old else earlier
+    log(f"{what}: {name} {t[0]:.3f}, {label} {t[1]:.3f}, "
+        f"{t[2]:.3f}, {name} {t[3]:.3f} ms on {smi}; faster in turns: "
         f"{faster}, the rule takes {default}")
     return {"ms": new, "earlier_ms": old, "faster": faster,
             "default": default}
@@ -2130,6 +2238,13 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     tf32 = check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                           smi)
     tf32["max_abs_err"] = max(errs[torch.float32]["tf32"], tf32.pop("worst"))
+    # f32 at d 48 and 64: the mid-range and H100-tier widths in the CLIs'
+    # default precision, against the CUDA-core fused kernel they replaced.
+    tf32_wide = {}
+    for d in (48, 64):
+        tf32_wide[d] = check_tf32_bwd(torch, k2, inputs, fused_kernel,
+                                      kernel_ms, moved, smi, d)
+        tf32_wide[d]["max_abs_err"] = tf32_wide[d].pop("worst")
 
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
@@ -2169,7 +2284,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         "wgmma": wg,
         "narrow": narrow,
         "narrow32": narrow32,
-        "tf32": tf32,
+        "tf32": tf32, "tf32_d48": tf32_wide[48], "tf32_d64": tf32_wide[64],
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
         "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
@@ -2283,8 +2398,10 @@ def check_narrow_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved, dev,
     return out
 
 
-def narrow_bwd_mask_positions(torch, k2, dev, d: int) -> int:
-    """The narrow fused backward's dropout mask at head size d, position by
+def narrow_bwd_mask_positions(torch, k2, dev, d: int,
+                              dtype=None) -> int:
+    """The fused warpgroup backward's dropout mask at head size d (the
+    narrow body in bf16; with `dtype` f32 the f32 body), position by
     position, is the hash (tests/test_torch_kernels.py
     `test_narrow_bwd_dropout_mask_positions`): with k = 0 and v = 1, dv is
     non-zero where the mask keeps a query's key; with q = 0 and dO = 1, dq
@@ -2292,7 +2409,7 @@ def narrow_bwd_mask_positions(torch, k2, dev, d: int) -> int:
     a row_offset), five d-wide windows each way; returns the positions
     held."""
     b, h, rate, seed = 2, 2, 0.3, 123
-    dtype, held = torch.bfloat16, 0
+    dtype, held = dtype or torch.bfloat16, 0
     for nq, nk, q_offset, row_offset in ((512, 512, 0, 0), (200, 300, 70, 3)):
         zeros = lambda n: torch.zeros(b, h, n, d, device=dev, dtype=dtype)
         ones = lambda n: torch.ones(b, h, n, d, device=dev, dtype=dtype)
@@ -2331,38 +2448,47 @@ def narrow_bwd_mask_positions(torch, k2, dev, d: int) -> int:
                 raise AssertionError(f"K2 bwd narrow d{d}: dq's mask at keys "
                                      f"{k0}.. is not the hash")
             held += dq.numel()
-    log(f"[K2 bwd] narrow fused d{d} dropout {rate}: the mask position by "
+    kind = "narrow" if dtype == torch.bfloat16 else "f32 warpgroup"
+    log(f"[K2 bwd] {kind} fused d{d} dropout {rate}: the mask position by "
         f"position is the hash ({held} positions)")
     return held
 
 
 def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
-                   smi) -> dict:
-    """Phase 7's readings of the f32 fused warpgroup backward (d 16, three
-    TF32 passes on wgmma) against flash_bwd_fused_tf32 (mma.sync), the body
-    it replaced at long rows. B2 H8 N16384, dropout 0 and 0.1, a ragged N
-    and a CP q shard (rows 8192.. of 16384 at q_offset 8192): both kernels
-    held to the plain backward at f32's bar (1e-4 of each gradient's
-    largest + 1e-6), dk, dv and dbias the same bits on a second run of the
-    new one; then both in turns. At N16384 (B2 and B16, the train step's
-    batch) the new one must be faster, and is logged beside the plain
-    version (B2), SDPA's backward in f32, the three-pass bound and the
-    special-function floor. The short rows N 1024 to 4096 in turns set
-    TF32_WGMMA_MIN_ROWS. Every (q, k) pair: 10 operations a head-dim
-    element (five products) and one exp."""
+                   smi, d: int = 16) -> dict:
+    """Phase 7's readings of the f32 fused warpgroup backward at head size
+    d (16, 48, 64; three TF32 passes on wgmma) against the body it replaced
+    at long rows: flash_bwd_fused_tf32 (mma.sync) at d 16, the CUDA-core
+    fused kernel at d 48 and 64. B2 H8 N16384, dropout 0 and 0.1, a ragged
+    N (2100; at d 48 and 64 also 2000) and a CP q shard (rows 8192.. of
+    16384 at q_offset 8192): both kernels held to the plain backward at
+    f32's bar (1e-4 of each gradient's largest + 1e-6), dk, dv and dbias
+    the same bits on a second run of the new one; then both in turns. At
+    N16384 (B2 and B16, the train step's batch) the new one must be
+    faster, and is logged beside the plain version (B2), SDPA's backward in
+    f32, the three-pass bound and the special-function floor. The short
+    rows (N 1024 to 4096 at d 16; 256, 1024 and 4096 at d 48 and 64) in
+    turns set TF32_WGMMA_BWD_MIN_ROWS[d] (at d 48 and 64 B16's SDPA is not
+    timed); then the mask position by position. Every (q, k) pair: 10
+    operations a head-dim element (five products) and one exp."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
+    earlier = "mma" if d == 16 else "simt"
     out, worst = {}, 0.0
     shapes = [("B2", 2, 16384, 16384, 0, 0.0), ("B2", 2, 16384, 16384, 0, 0.1),
               ("B16", 16, 16384, 16384, 0, 0.1),
-              ("ragged", 2, 2100, 2100, 0, 0.1),
-              ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
-    shapes += [(f"short rows N{n}", 16, n, n, 0, 0.1) for n in (1024, 2048,
-                                                                4096)]
+              ("ragged", 2, 2100, 2100, 0, 0.1)]
+    if d > 16:
+        shapes.append(("ragged", 2, 2000, 2000, 0, 0.0))
+    shapes.append(("CP q shard", 2, 8192, 16384, 8192, 0.1))
+    shapes += [(f"short rows N{n}", 64 if n < 1024 or (d > 16 and n < 2048)
+                else 16, n, n, 0, 0.1)
+               for n in ((1024, 2048, 4096) if d == 16 else
+                         (256, 1024, 4096))]
     for label, b, nq, nk, q_offset, rate in shapes:
-        args, kw = inputs(b, 8, nq, nk, 16, torch.float32, rate,
+        args, kw = inputs(b, 8, nq, nk, d, torch.float32, rate,
                           q_offset=q_offset)
         q, k, v, bias, o, lse, do = args
-        tag = (f"{label} H8 {nq}x{nk} q_offset {q_offset} d16 f32 "
+        tag = (f"{label} H8 {nq}x{nk} q_offset {q_offset} d{d} f32 "
                f"dropout {rate}")
         plain_ms = None
         if label != "B16":
@@ -2373,7 +2499,7 @@ def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
             end.record()
             end.synchronize()
             plain_ms = start.elapsed_time(end)
-            for body in ("mma", "wgmma"):
+            for body in (earlier, "wgmma"):
                 seen = k2.bwd_tf32_wgmma_launches
                 got = fused_kernel(args, kw, body)
                 torch.cuda.synchronize()
@@ -2404,31 +2530,39 @@ def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                 log(f"[K2 bwd] {tag}: the fused kernel ({body}) against the "
                     "plain version: " + ", ".join(line))
             del ref, got
-        default = k2.fused_instance(torch.float32, 16, nq, nk, rate).body
-        reps = dict.fromkeys(("mma", "wgmma"),
-                             3 if b * nq * nk > 2**31 else 10)
+        default = k2.fused_instance(torch.float32, d, nq, nk, rate).body
+        big = b * nq * nk > 2**31
+        n = (3 if big else 10) if d == 16 else (3 if big else 5)
+        reps = {earlier: n, "wgmma": n}
+        if earlier == "simt" and b * nq * nk >= 2**32:
+            reps["simt"] = 1       # over a second a call on the CUDA cores
         r = narrow_turns(torch, kernel_ms(args, kw, reps), default,
                          f"[K2 bwd] {tag} fused kernel", smi,
-                         new="f32 warpgroup (wgmma)")
+                         new="f32 warpgroup (wgmma)", earlier=earlier)
         if nq == nk == 16384:
             if r["faster"] != "wgmma":
                 raise AssertionError(f"K2 bwd at {tag}: the f32 warpgroup "
-                                     "body is no faster than the mma.sync one")
-            lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=rate,
-                                reps=3)
-            bd = bounds_tf32_k2(10 * b * 8 * nq * nk * 16,
+                                     f"body is no faster than the {earlier} "
+                                     "one")
+            lib, note = (sdpa_ms(q, k, v, bias, backward=True, dropout_p=rate,
+                                 reps=3) if d == 16 or label == "B2"
+                         else (None, "not timed"))
+            bd = bounds_tf32_k2(10 * b * 8 * nq * nk * d,
                                 moved(args, b * 8 * nk), b * 8 * nq * nk)
             r |= {"plain_ms": plain_ms, "library_ms": lib, **bd}
             log(f"[K2 bwd] {tag}: f32 warpgroup fused kernel {r['ms']:.2f} ms "
-                f"(mma.sync {r['earlier_ms']:.2f}), plain {plain_ms} ms, "
+                f"({earlier} {r['earlier_ms']:.2f}), plain {plain_ms} ms, "
                 f"backward of F.scaled_dot_product_attention {lib} ms "
                 f"({note}); three-pass bound {bd['bound_ms']:.3f} ms by "
                 f"{bd['bound_by']} ({bd['bound_ms'] / r['ms']:.1%} of it), "
                 f"special-function floor {bd['bound_ms_sfu']:.3f} ms "
                 f"({bd['bound_ms_sfu'] / r['ms']:.1%} of it) on {smi}")
-        out[f"{label} dropout {rate}"] = r
+        key = f"{label} dropout {rate}"
+        out[key if key not in out else f"{key} {nq}x{nk}"] = r
         del args, q, k, v, bias, o, lse, do
     out["worst"] = worst
+    out["mask"] = narrow_bwd_mask_positions(torch, k2, "cuda", d,
+                                            torch.float32)
     return out
 
 
@@ -2495,8 +2629,9 @@ def fixed_eps(eps):
 
 def grad_step(torch, dev: str, feature_dim: int = 32):
     """Phase 9's train step: a 64 px config (N = 4096 > 1024 runs K2 at
-    4 heads, d 8 at feature_dim 32 and d 16, on the f32 warpgroup bodies,
-    at 64, forward and backward), batch 2, dropout 0, one fixed eps, from
+    4 heads, d 8 at feature_dim 32, and on the f32 warpgroup bodies d 16 at
+    64, d 48 at 192 and d 64 at 256, forward and backward), batch 2,
+    dropout 0, one fixed eps, from
     seed 7, in full f32 on `dev`. Returns (gradients by "vae." / "teacher."
     name, the teacher's BatchNorm running statistics, the metrics, the
     names of the gradients held to BN_SHARE)."""
@@ -2594,27 +2729,30 @@ def plain_on_card():
     return restore
 
 
-def spread_grads(torch, runs: int) -> int:
-    """`--grads N`: phase 9's comparison N times with the kernels and N
-    times with their plain versions on the card, against one CPU step,
-    holding more memory before each run so that the allocator hands the
-    step other addresses. Prints each reading in units of 1e-3 of each
-    tensor's largest, the worst of the tensors phase 9 holds to 1e-3 and of
-    those it holds to BN_SHARE apart; fails on none."""
+def spread_grads(torch, runs: int, feature_dim: int = 32) -> int:
+    """`--grads N [FEATURE_DIM]`: phase 9's comparison at FEATURE_DIM (32,
+    d 8, unless given) N times with the kernels and N times with their
+    plain versions on the card, against one CPU step, each on its own side
+    of every LeakyReLU kink (unsided), holding more memory before each run
+    so that the allocator hands the step other addresses. Prints each
+    reading in units of 1e-3 of each tensor's largest, the worst of the
+    tensors phase 9 holds to 1e-3 and of those it holds to BN_SHARE apart;
+    fails on none."""
     from lunaris_orion_tpu_torch.ops.cuda import _build
     _build.library()
-    g_cpu, _, _, before_bn = grad_step(torch, "cpu")
+    g_cpu, _, _, before_bn = grad_step(torch, "cpu", feature_dim)
     held = []
     for run in range(runs):
         for plain in (False, True):
             restore = plain_on_card() if plain else (lambda: None)
             try:
-                ratios = grad_ratios(g_cpu, grad_step(torch, "cuda")[0], ())
+                ratios = grad_ratios(g_cpu, grad_step(torch, "cuda",
+                                                      feature_dim)[0], ())
             finally:
                 restore()
             worst = [max((r, k) for k, r in ratios.items()
                          if (k in before_bn) == bn) for bn in (False, True)]
-            log(f"[grads] run {run} with the "
+            log(f"[grads] d {feature_dim // 4} run {run} with the "
                 f"{'plain versions' if plain else 'kernels'} on the card: "
                 f"worst held to 1e-3 {worst[0][0]:.3f} ({worst[0][1]}), "
                 f"worst before a BatchNorm {worst[1][0]:.3f} ({worst[1][1]})")
@@ -2623,19 +2761,113 @@ def spread_grads(torch, runs: int) -> int:
     return 0
 
 
-def run_grad_context(torch, feature_dim: int = 32) -> None:
+@contextlib.contextmanager
+def kink_sides(torch, sides: list, take: bool):
+    """The teacher's LeakyReLU (`models.teacher.leaky_relu`) recording each
+    call's side of the kink (x > 0, where F.leaky_relu's gradient is 1)
+    into `sides`, in call order, or (`take`) computing each call's
+    gradient on the recorded side instead of its own. Yields a list that
+    receives, for each call whose own side differs somewhere, (the entries
+    that differ, the largest |x| among them as a share of the call's
+    largest). A run on the card takes the CPU run's sides: an input within
+    rounding of the kink otherwise moves the cancelled gradients downstream
+    of it by several 1e-3 of their largest (ROADMAP C6), as
+    tests/test_torch_recipes.py's sided step does against the JAX step."""
+    from lunaris_orion_tpu_torch.models import teacher as tmod
+    original, flips, calls = tmod.leaky_relu, [], [0]
+
+    class Sided(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, side, slope):
+            ctx.save_for_backward(side)
+            ctx.slope = slope
+            return torch.nn.functional.leaky_relu(x, slope)
+
+        @staticmethod
+        def backward(ctx, g):
+            side, = ctx.saved_tensors
+            return g * torch.where(side, 1.0, ctx.slope), None, None
+
+    def leaky(x, negative_slope=0.2):
+        if not take:
+            sides.append((x.detach() > 0).cpu())
+            return original(x, negative_slope)
+        side = sides[calls[0]].to(x.device)
+        calls[0] += 1
+        if side.shape != x.shape:
+            raise AssertionError(f"kink sides: call {calls[0]} of shape "
+                                 f"{tuple(x.shape)}, recorded "
+                                 f"{tuple(side.shape)}")
+        other = (x.detach() > 0) != side
+        if other.any():
+            flips.append((int(other.sum()), x.detach()[other].abs().max()
+                          .item() / x.detach().abs().max().item()))
+        return Sided.apply(x, side, negative_slope)
+    tmod.leaky_relu = leaky
+    try:
+        yield flips
+    finally:
+        tmod.leaky_relu = original
+    if take and calls[0] != len(sides):
+        raise AssertionError(f"kink sides: {calls[0]} calls took "
+                             f"{len(sides)} recorded")
+
+
+# Phase 9's widths at 4 heads: d 8 and 16 as they are, d 48 and 64 on the
+# CPU step's kink sides (`run_grad_context`).
+GRAD_WIDTHS = ((32, False), (64, False), (192, True), (256, True))
+
+
+def cpu_grad_ref(torch, feature_dim: int, sided: bool) -> tuple:
+    """Phase 9's CPU step at one width (`grad_step`), with the kink sides
+    it took (`kink_sides`) where `sided`, else none."""
+    sides = []
+    with (kink_sides(torch, sides, False) if sided
+          else contextlib.nullcontext()):
+        return (*grad_step(torch, "cpu", feature_dim), sides)
+
+
+def _cpu_grad_refs(path: str) -> None:
+    """Phase 9's CPU steps at GRAD_WIDTHS in a process of their own (four
+    threads), which `main` starts before phase 7 so that they run under
+    its work on the card; saved to `path`."""
+    import torch
+    torch.set_num_threads(4)
+    torch.save({fd: cpu_grad_ref(torch, fd, sided) for fd, sided in GRAD_WIDTHS},
+               path)
+
+
+def run_grad_context(torch, feature_dim: int = 32, sided: bool = False,
+                     ref: tuple = None) -> None:
+    """Phase 9 at one feature_dim (`grad_step`): the card's gradients,
+    BatchNorm statistics and metrics against the CPU's (`ref`, the CPU
+    step `cpu_grad_ref` gives, computed here when None). With `sided` the
+    card's step takes the CPU step's side of each LeakyReLU kink
+    (`kink_sides`; each entry that differs must lie within 1e-4 of its
+    call's largest |x| of zero, rounding's reach): at d 48 and 64, on the
+    kernels and on the plain versions alike, a kink can otherwise move the
+    attention biases downstream of it past their 1e-3 bar (PERF.md §6),
+    the kink's doing and not K2's."""
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     seen = (k2.launches, k2.tf32_wgmma_launches, k2.bwd_fused_launches,
             k2.bwd_tf32_wgmma_launches)
-    (g_cpu, s_cpu, m_cpu, before_bn), (g_gpu, s_gpu, m_gpu, _) = (
-        grad_step(torch, dev, feature_dim) for dev in ("cpu", "cuda"))
+    g_cpu, s_cpu, m_cpu, before_bn, sides = (
+        ref or cpu_grad_ref(torch, feature_dim, sided))
+    with (kink_sides(torch, sides, True) if sided
+          else contextlib.nullcontext([])) as flips:
+        g_gpu, s_gpu, m_gpu, _ = grad_step(torch, "cuda", feature_dim)
+    if any(share > 1e-4 for _, share in flips):
+        raise AssertionError(f"grads d {feature_dim // 4}: a LeakyReLU input "
+                             f"beyond rounding of the kink took the CPU's "
+                             f"side: {flips}")
     calls = [now - was for now, was in zip(
         (k2.launches, k2.tf32_wgmma_launches, k2.bwd_fused_launches,
          k2.bwd_tf32_wgmma_launches), seen)]
-    if feature_dim == 64 and not (0 < calls[0] == calls[1]
-                                  and 0 < calls[2] == calls[3]):
-        raise AssertionError(f"grads d 16: K2 calls (fwd, of them f32 "
-                             f"warpgroup, bwd, of them f32 warpgroup) {calls}")
+    if feature_dim // 4 in k2.TF32_WGMMA_HEAD_DIMS and not (
+            0 < calls[0] == calls[1] and 0 < calls[2] == calls[3]):
+        raise AssertionError(f"grads d {feature_dim // 4}: K2 calls (fwd, of "
+                             f"them f32 warpgroup, bwd, of them f32 "
+                             f"warpgroup) {calls}")
     ratios = grad_ratios(g_cpu, g_gpu, before_bn)
     # The worst gradient of each bar, as a share of 1e-3 of its largest.
     worst = {bn: max((r * (BN_SHARE if bn else GRAD_SHARE) / 1e-3, k)
@@ -2664,9 +2896,14 @@ def run_grad_context(torch, feature_dim: int = 32) -> None:
     m_ratio = {k: abs(m_gpu[k] - v) / (1e-4 * abs(v) + 1e-6)
                for k, v in m_cpu.items()}
     m_worst = max(m_ratio, key=m_ratio.get)
+    kinks = (f"; the CPU's side of the LeakyReLU kink taken in {len(sides)} "
+             f"calls, {sum(n for n, _ in flips)} entries on the other side "
+             f"in {len(flips)} of them (largest |x| "
+             f"{max((sh for _, sh in flips), default=0.0):.1e} of its call's)"
+             if sided else "")
     log(f"[grads] 64 px train_step, d {feature_dim // 4}, TF32 off, card vs "
         f"CPU (K2 fwd, of them f32 warpgroup, bwd, of them f32 warpgroup: "
-        f"{calls}): {len(g_cpu)} "
+        f"{calls}{kinks}): {len(g_cpu)} "
         f"gradients within bar, in units of 1e-3 of each tensor's largest: "
         f"worst {worst[False][0]:.3f} ({worst[False][1]}) of the "
         f"{len(g_cpu) - len(before_bn)} held to 1e-3, worst "
@@ -3299,9 +3536,58 @@ RECIPE_LOW_END = dict(batch_size=16, gradient_accumulation_steps=4,
                       latent_dim=256, embedding_dim=128, feature_dim=256,
                       vae_lr=1e-4, teacher_lr=5e-5, mixed_precision=True)
 RECIPES = {"H100": RECIPE_H100, "low-end": RECIPE_LOW_END}
-# K2's CUDA-core kernels by name: none runs on a bf16 path at d 32 or 64.
+# K2's CUDA-core kernels by name: none runs on a bf16 path at d 32 or 64,
+# nor on an f32 path at d 48 or 64 at N 16384. `flash_bwd_dkv<` is the
+# CUDA-core dk/dv kernel in both types, and with its last template argument
+# true the fused one: in f32 at d 48 and 64 `flash_bwd_dkv<float, D, true>`,
+# the f32 fused CUDA-core kernel that flash_bwd_wgmma_tf32 replaced there.
 K2_CUDA_CORE = re.compile(r"flash_fwd_simt|flash_bwd_dkv<|flash_bwd_dq<")
+# The f32 forward on mma.sync that flash_fwd_wgmma_tf32 replaced at N 16384.
+K2_F32_REPLACED = re.compile(r"flash_fwd_tf32<|flash_bwd_fused_tf32<")
 PROFILE_TRIES = 3               # sessions of one call before phase 20 fails
+
+
+def profile_counted(torch, fn, tag: str, smi: str, counters: dict):
+    """fn() under torch.profiler with every count of `counters` ({key:
+    (module, attribute)}, "gn_mish" and the four K2 launch counts among
+    them) at 0 just before; (result, host s, device ms, counts, K2 kernels
+    by name, device ms by group). The profile must hold a record of every
+    launch the wrappers counted (K1's two kernels a call, K2's by name). A
+    session that kept fewer (torch.profiler on the H100 has dropped
+    records: 1 of 4 K1 calls of phase 20's decode+score, in full runs of
+    this script) is logged as incomplete, with where its K1 records lie,
+    and fn() is profiled again, at most PROFILE_TRIES sessions: the
+    breakdown a phase reports is a complete one."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        for mod, name in counters.values():
+            setattr(mod, name, 0)
+        names, records, groups = {}, [], {}
+        result, host_s, k1_kernels, dev_ms = device_share(
+            torch, fn, tag, smi, k2_names=names, records=records,
+            groups=groups)
+        counts = {key: getattr(mod, name)
+                  for key, (mod, name) in counters.items()}
+        k2_calls = sum(counts[key] for key in (
+            "flash_attention_fwd", "flash_attention_bwd_fused",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+        calls = counts["gn_mish"]
+        # The f32 warpgroup bodies' pre-pass is in K2's group, by name.
+        split = sum(c for n, c in names.items() if "k2_tf32_split" in n)
+        if (k1_kernels == {"gn_stats_partial": calls,
+                           "gn_mish_apply_fold": calls}
+                and sum(names.values()) - split == k2_calls
+                and split == counts.get("k2_tf32_split", 0)):
+            return result, host_s, dev_ms, counts, names, groups
+        k1_at = [f"{t / 1e3:.2f}" for t, n in records
+                 if any(k in n for k in K1_KERNELS)]
+        log(f"[profile] {tag}: session {attempt} incomplete, its "
+            f"breakdown is not a measurement: K1 records {k1_kernels} for "
+            f"{calls} calls (at ms {k1_at} of {len(records)} kernel "
+            f"records over {records[-1][0] / 1e3 if records else 0:.1f} "
+            f"ms), K2 records {sum(names.values())} for {k2_calls} "
+            "launches")
+    raise AssertionError(f"{tag}: none of {PROFILE_TRIES} profiles held "
+                         "every launch the wrappers counted")
 
 
 def run_recipe(torch, tmp: Path, smi: str, mods: dict,
@@ -3356,45 +3642,13 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict,
                                                      "bwd_narrow_launches")}
 
     def counted(fn, tag):
-        """fn() under torch.profiler with every count at 0 just before;
-        (result, host s, device ms, counts, K2 kernels by name). The
+        """fn() under torch.profiler (`profile_counted`); (result, host s,
+        device ms, counts, K2 kernels by name, device ms by group). The
         wrappers' counts show the path: every K2 forward launch on the
-        warpgroup body. The profile must hold a record of every launch
-        they counted (K1's two kernels a call, K2's by name): the warpgroup
-        kernels among them, no CUDA-core K2 kernel. A session that kept
-        fewer (torch.profiler on the H100 has dropped records: 1 of 4 K1
-        calls of this decode+score, in full runs of this script) is logged
-        as incomplete, with where its K1 records lie, and fn() is profiled
-        again, at most PROFILE_TRIES sessions: the breakdown the phase
-        reports is a complete one."""
-        for attempt in range(1, PROFILE_TRIES + 1):
-            for mod, name in counters.values():
-                setattr(mod, name, 0)
-            names, records, groups = {}, [], {}
-            result, host_s, k1_kernels, dev_ms = device_share(
-                torch, fn, tag, smi, k2_names=names, records=records,
-                groups=groups)
-            counts = {key: getattr(mod, name)
-                      for key, (mod, name) in counters.items()}
-            k2_calls = sum(counts[key] for key in (
-                "flash_attention_fwd", "flash_attention_bwd_fused",
-                "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
-            calls = counts["gn_mish"]
-            if (k1_kernels == {"gn_stats_partial": calls,
-                               "gn_mish_apply_fold": calls}
-                    and sum(names.values()) == k2_calls):
-                break
-            k1_at = [f"{t / 1e3:.2f}" for t, n in records
-                     if any(k in n for k in K1_KERNELS)]
-            log(f"[profile] {tag}: session {attempt} incomplete, its "
-                f"breakdown is not a measurement: K1 records {k1_kernels} for "
-                f"{calls} calls (at ms {k1_at} of {len(records)} kernel "
-                f"records over {records[-1][0] / 1e3 if records else 0:.1f} "
-                f"ms), K2 records {sum(names.values())} for {k2_calls} "
-                "launches")
-        else:
-            raise AssertionError(f"{tag}: none of {PROFILE_TRIES} profiles "
-                                 "held every launch the wrappers counted")
+        warpgroup body, the warpgroup kernels by name among the records, no
+        CUDA-core K2 kernel."""
+        result, host_s, dev_ms, counts, names, groups = profile_counted(
+            torch, fn, tag, smi, counters)
         # d 64: the narrow bodies (d 16 and 32) take none of these calls;
         # d 32: they take every one, and no mma.sync body appears by name.
         nf = counts["flash_attention_fwd_wgmma_narrow"]
@@ -3483,6 +3737,132 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict,
             "decode_ms": dec_ms, "decode_device_ms": dec_dev,
             "decode_groups_ms": dec_groups,
             "launches_step": step_counts, "launches_decode": dec_counts}
+
+
+# docs/configs.md's mid-range tier (docs/configs.md:26-35): feature_dim 384
+# at 8 heads (head size 48), latent 384, embedding 192, vae_lr 2e-4,
+# teacher_lr 1e-4; here in f32, the CLIs' default precision (no
+# --mixed_precision), and at batch 8 x 1 instead of the recipe's 32 x 2, a
+# cut for this run's time.
+RECIPE_MID_F32 = dict(batch_size=8, gradient_accumulation_steps=1,
+                      latent_dim=384, embedding_dim=192, feature_dim=384,
+                      vae_lr=2e-4, teacher_lr=1e-4, mixed_precision=False)
+
+
+def run_recipe_f32(torch, tmp: Path, smi: str, mods: dict) -> dict:
+    """Phase 20 in f32, what a user with default flags runs at the recipes'
+    head sizes: (a) `decode_and_score` at batch 8 through ImageGenerator in
+    f32 (lunaris-generate's default) from a seeded H100-tier checkpoint
+    (head size 64), a warm-up call, then one profiled; (b) one f32 train
+    step at the mid-range tier's widths (RECIPE_MID_F32: head size 48,
+    batch 8 x 1) from a seeded random init, a warm-up step, then one
+    profiled. Each under `profile_counted`: every K2 forward on
+    flash_fwd_wgmma_tf32 and every backward on flash_bwd_wgmma_tf32 at its
+    head size, by the wrappers' counts and by name, their pre-pass once a
+    forward and twice a backward, none on flash_fwd_tf32, the split
+    backward or a CUDA-core K2 kernel; finite losses and scores; device
+    time by kernel group and idle share."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+    k1, k2, k3 = mods["k1"], mods["k2"], mods["k3"]
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {"gn_mish": (k1, "launches"),
+                "flash_attention_fwd": (k2, "launches"),
+                "flash_attention_fwd_wgmma_tf32": (k2, "tf32_wgmma_launches"),
+                "flash_attention_bwd_fused": (k2, "bwd_fused_launches"),
+                "flash_attention_bwd_wgmma_tf32": (k2,
+                                                   "bwd_tf32_wgmma_launches"),
+                "flash_attention_bwd_dq": (k2, "bwd_dq_launches"),
+                "flash_attention_bwd_dkv": (k2, "bwd_dkv_launches"),
+                "k2_tf32_split": (k2, "split_launches"),
+                "mse_kl": (k3, "launches")}
+
+    def counted(fn, tag, d, train):
+        result, host_s, dev_ms, counts, names, groups = profile_counted(
+            torch, fn, tag, smi, counters)
+        by_name = {x: sum(c for n, c in names.items()
+                          if re.match(rf"flash_{x}_wgmma_tf32<{d},", n))
+                   for x in ("fwd", "bwd")}
+        fwd, bwd = counts["flash_attention_fwd"], counts[
+            "flash_attention_bwd_fused"]
+        slow = [n for n in names
+                if K2_CUDA_CORE.search(n) or K2_F32_REPLACED.search(n)]
+        if (fwd <= 0 or (train and bwd <= 0) or (not train and bwd)
+                or counts["flash_attention_fwd_wgmma_tf32"] != fwd
+                or counts["flash_attention_bwd_wgmma_tf32"] != bwd
+                or by_name != {"fwd": fwd, "bwd": bwd}
+                or counts["k2_tf32_split"] != fwd + 2 * bwd
+                or counts["flash_attention_bwd_dq"]
+                or counts["flash_attention_bwd_dkv"] or slow):
+            raise AssertionError(f"{tag}: K2 off the f32 warpgroup bodies at "
+                                 f"d {d}: launches {counts}, by name {names}")
+        log(f"[recipe] {tag}: launches {counts}; K2 by name {names}")
+        return result, host_s, dev_ms, counts, groups
+
+    # (a) f32 decode+score at the H100 tier's widths (head size 64).
+    cfg = TrainConfig(**RECIPE_H100)
+    ckpt = tmp / "recipe-f32.pt"
+    save_checkpoint(torch, cfg, ckpt, seed=0)
+    gen = ImageGenerator(str(ckpt), device="cuda", bf16=False)
+    z = torch.randn(8, cfg.latent_dim, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9))
+    gen.decode_and_score(z)                       # the warm-up call
+    tag = "recipe H100 decode+score batch 8 f32"
+    (imgs, quality, sem), _, dec_dev, dec_counts, dec_groups = counted(
+        lambda: gen.decode_and_score(z), tag, 64, False)
+    if imgs.shape != (8, 128, 128, 3) or not (
+            torch.isfinite(imgs).all() and torch.isfinite(quality).all()
+            and torch.isfinite(sem).all()):
+        raise AssertionError(f"{tag}: non-finite or shape {tuple(imgs.shape)}")
+    dec_ms = time_ms(torch, lambda: gen.decode_and_score(z), 3)
+    log(f"[recipe] {tag}: {dec_ms:.1f} ms = {8 / dec_ms * 1e3:.2f} sprites/s, "
+        f"device {dec_dev:.1f} ms on {smi}")
+    del gen
+    torch.cuda.empty_cache()
+
+    # (b) one f32 train step at the mid-range tier's widths (head size 48).
+    cfg = TrainConfig(**RECIPE_MID_F32)
+    state = create_state(cfg, "cuda", 20)
+    step = make_train_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = (cfg.gradient_accumulation_steps, cfg.batch_size, 128, 128, 3)
+    images = [torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                            generator=g) for _ in range(2)]
+    t0 = time.perf_counter()
+    state, m = step(state, images[0])             # the warm-up step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tag = (f"recipe mid-range train step f32 {cfg.batch_size} x "
+           f"{cfg.gradient_accumulation_steps}")
+    (state, m), step_s, step_dev, step_counts, step_groups = counted(
+        lambda: step(state, images[1]), tag, 48, True)
+    losses = {k: float(v) for k, v in m.items()}
+    if not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"{tag}: non-finite metrics {losses}")
+    n = shape[0] * shape[1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[recipe] {tag}: {step_s * 1e3:.0f} ms = {n / step_s:.2f} sprites/s "
+        f"(warm-up {warm_s:.1f} s), device {step_dev:.0f} ms (idle "
+        f"{max(0.0, 1 - step_dev / (step_s * 1e3)):.1%}), peak {peak:.1f} "
+        f"GiB, total_loss {losses['total_loss']:.5f} recon "
+        f"{losses['recon_loss']:.5f}; phase {time.perf_counter() - t_phase:.0f}"
+        f" s on {smi}")
+    del state, step, images, m
+    torch.cuda.empty_cache()
+    return {"decode": {"tier": "H100", "head_dim": 64, "dtype": "f32",
+                       "ms": dec_ms, "device_ms": dec_dev,
+                       "groups_ms": dec_groups, "launches": dec_counts},
+            "step": {"tier": "mid-range", "head_dim": 48, "dtype": "f32",
+                     "batch": list(shape[:2]), "ms": step_s * 1e3,
+                     "device_ms": step_dev,
+                     "idle": max(0.0, 1 - step_dev / (step_s * 1e3)),
+                     "groups_ms": step_groups, "sprites_s": n / step_s,
+                     "peak_gib": peak, "launches": step_counts}}
 
 
 # --- phase 16: windowed attention, the evaluator, the training options -------
@@ -5271,7 +5651,8 @@ def main() -> int:
         return serve_bundles(torch, Path(sys.argv[2]))
     smi = probe(torch)
     if sys.argv[1:2] == ["--grads"]:
-        return spread_grads(torch, int(sys.argv[2]))
+        return spread_grads(torch, int(sys.argv[2]),
+                            *(int(a) for a in sys.argv[3:4]))
     if sys.argv[1:2] == ["--profiler-loss"]:
         return profiler_loss(torch, int(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--step-noise"]:
@@ -5292,7 +5673,7 @@ def main() -> int:
         log(f"[time] phase {phase}: {seconds[phase]:.1f} s")
         return result
 
-    sass = timed("2 build", build)
+    sass_counts = timed("2 build", build)
     k1 = timed("3 K1", check_k1, torch, dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             timed("3 K1", check_k1_train, torch, dev))
@@ -5301,10 +5682,23 @@ def main() -> int:
         launches = timed("5 slice", run_slice, torch, Path(tmp), smi)
         for feature_dim in (64, 128, 256):
             timed("6 context", run_context, torch, Path(tmp), feature_dim)
+    # Phase 9's CPU steps run in a process of their own under phase 7,
+    # whose work is all on the card.
+    grad_refs = tempfile.TemporaryDirectory()
+    refs_path = Path(grad_refs.name) / "grad_refs.pt"
+    refs_proc = multiprocessing.get_context("spawn").Process(
+        target=_cpu_grad_refs, args=(str(refs_path),), daemon=True)
+    refs_proc.start()
     bwd = timed("7 K2 bwd", check_k2_bwd, torch, dev, smi)
     k3 = timed("8 K3", check_k3, torch, dev, smi)
-    for feature_dim in (32, 64):
-        timed("9 grads", run_grad_context, torch, feature_dim)
+    refs_proc.join()
+    if refs_proc.exitcode:
+        raise AssertionError(f"phase 9's CPU steps failed ({refs_proc.exitcode})")
+    refs = torch.load(refs_path, weights_only=False)
+    grad_refs.cleanup()
+    for feature_dim, sided in GRAD_WIDTHS:
+        timed("9 grads", run_grad_context, torch, feature_dim, sided,
+              refs[feature_dim])
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
     from lunaris_orion_tpu_torch.ops.cuda import gn_mish as m1
     from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as m3
@@ -5321,6 +5715,8 @@ def main() -> int:
         recipe = timed("20 recipe", run_recipe, torch, Path(tmp), smi, mods)
         low_end = timed("20 recipe", run_recipe, torch, Path(tmp), smi, mods,
                         "low-end")
+        f32_recipe = timed("20 recipe", run_recipe_f32, torch, Path(tmp),
+                           smi, mods)
     window = timed("16 window", check_window, torch, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         evaluate = timed("16 window", run_evaluate, torch, Path(tmp), smi)
@@ -5336,6 +5732,7 @@ def main() -> int:
         dist_c = timed("18 dist", run_dist_tp_ep, torch, Path(tmp), smi)
     with tempfile.TemporaryDirectory() as tmp:
         parity = timed("19 parity", run_parity, torch, Path(tmp), smi, mods)
+    sass = timed("2 build", sass_counts)
     # Phase 19's paths: each parity run's profiled second step.
     p19 = lambda key: {"launches_parity": {
         run: counts[key] for run, counts in parity["launches"].items()}}
@@ -5492,44 +5889,77 @@ def main() -> int:
              earlier_body="flash_bwd_dkv_mma<16, .., FUSED>",
              readings=bwd["narrow"],
              sass={k: v for k, v in sass.items() if k.startswith("bwd")}),
-        # The f32 warpgroup bodies (d 16, the default type and width, three
-        # TF32 passes on wgmma): the forward at B8 H8 N16384, dropout 0, the
+        # The f32 warpgroup bodies (three TF32 passes on wgmma) at d 16, the
+        # default type and width, and at d 48 and 64, the mid-range and
+        # H100-tier widths: the forward at B8 H8 N16384, dropout 0, the
         # fused backward at B2 H8 N16384, dropout 0.1 (where the plain
-        # backward is timed), each against the mma.sync body it replaced in
-        # turns, beside SDPA in f32, the three-pass bound and the
-        # special-function floor; every reading under `readings` (B16, both
-        # rates, ragged N, the CP shard, the short rows); launches in phase
-        # 10's train steps (`launches_f32_step`: the default f32 step's) and
-        # the forward's in phase 5's f32 decode+score. Their pre-pass, which
-        # splits and lays out the operands once a call, is the next entry.
+        # backward is timed), each against the body it replaced in turns
+        # (the forward's mma.sync one; the backward's mma.sync one at d 16
+        # and the CUDA-core one at 48 and 64), beside SDPA in f32, the
+        # three-pass bound and the special-function floor; d 16's under the
+        # plain keys, d 48's and 64's under `d48` and `d64`; every reading
+        # under `readings` (`readings_d48`, `readings_d64`: B16, both rates,
+        # ragged N, the CP shard, the short rows, the mask); launches in
+        # phase 10's train steps (`launches_f32_step`: the default f32
+        # step's), the forward's in phase 5's f32 decode+score, and in
+        # phase 20's f32 runs (`launches_recipe_f32_decode`: the H100 tier's
+        # decode+score, d 64; `launches_recipe_f32_step`: the mid-range
+        # tier's step, d 48). Their pre-pass, which splits and lays out the
+        # operands once a call, is the next entry.
         dict(name="flash_attention_fwd_wgmma_tf32", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
-             instances=[src + f"flash_attention_fwd_wgmma_tf32_d16{x}.cu"
-                        for x in ("", "_drop")],
+             instances=[src + f"flash_attention_fwd_wgmma_tf32_d{d}{x}.cu"
+                        for d in (16, 48, 64) for x in ("", "_drop")],
              launches=train["flash_attention_fwd_wgmma_tf32"],
              launches_f32_step=f32_step[
                  "tf32_wgmma_launches flash_attention"],
              launches_decode=launches["tf32_decode"],
-             max_abs_err=k2["tf32"]["max_abs_err"],
+             launches_recipe_f32_decode=f32_recipe["decode"]["launches"][
+                 "flash_attention_fwd_wgmma_tf32"],
+             launches_recipe_f32_step=f32_recipe["step"]["launches"][
+                 "flash_attention_fwd_wgmma_tf32"],
+             max_abs_err=max(k2[x]["max_abs_err"] for x in (
+                 "tf32", "tf32_d48", "tf32_d64")),
              **{key: k2["tf32"]["B8 dropout 0.0"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
                  "library_ms", "earlier_ms")},
+             **{f"d{d}": {key: k2[f"tf32_d{d}"]["B8 dropout 0.0"][key]
+                          for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "bound_ms_sfu",
+                                      "library_ms", "earlier_ms")}
+                | {"max_abs_err": k2[f"tf32_d{d}"]["max_abs_err"]}
+                for d in (48, 64)},
              shape="B8 H8 N16384 dropout 0", earlier_body="flash_fwd_tf32",
              readings={k: v for k, v in k2["tf32"].items()
-                       if k != "pre-pass"}),
+                       if k != "pre-pass"},
+             **{f"readings_d{d}": {k: v for k, v in k2[f"tf32_d{d}"].items()
+                                   if k != "pre-pass"} for d in (48, 64)}),
         dict(name="flash_attention_bwd_wgmma_tf32", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
-             instances=[src + f"flash_attention_bwd_wgmma_tf32_d16{x}.cu"
-                        for x in ("", "_drop")],
+             instances=[src + f"flash_attention_bwd_wgmma_tf32_d{d}{x}.cu"
+                        for d in (16, 48, 64) for x in ("", "_drop")],
              launches=train["flash_attention_bwd_wgmma_tf32"],
              launches_f32_step=f32_step[
                  "bwd_tf32_wgmma_launches flash_attention"],
-             max_abs_err=bwd["tf32"]["max_abs_err"],
+             launches_recipe_f32_step=f32_recipe["step"]["launches"][
+                 "flash_attention_bwd_wgmma_tf32"],
+             max_abs_err=max(bwd[x]["max_abs_err"] for x in (
+                 "tf32", "tf32_d48", "tf32_d64")),
              **{key: bwd["tf32"]["B2 dropout 0.1"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
                  "library_ms", "earlier_ms")},
+             **{f"d{d}": {key: bwd[f"tf32_d{d}"]["B2 dropout 0.1"][key]
+                          for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "bound_ms_sfu",
+                                      "library_ms", "earlier_ms")}
+                | {"max_abs_err": bwd[f"tf32_d{d}"]["max_abs_err"],
+                   "B16": bwd[f"tf32_d{d}"]["B16 dropout 0.1"],
+                   "earlier_body": "flash_bwd_dkv<float, D, true> "
+                                   "(CUDA cores, fused dq)"}
+                for d in (48, 64)},
              shape="B2 H8 N16384 dropout 0.1",
-             earlier_body="flash_bwd_fused_tf32", readings=bwd["tf32"]),
+             earlier_body="flash_bwd_fused_tf32", readings=bwd["tf32"],
+             **{f"readings_d{d}": bwd[f"tf32_d{d}"] for d in (48, 64)}),
         dict(name="k2_tf32_split", route="cuda",
              source=src + "flash_attention_tf32_split.cu",
              replaces=f"{fa}:335",
@@ -5537,7 +5967,12 @@ def main() -> int:
                       "flash_attention_bwd_wgmma_tf32"],
              launches=train["k2_tf32_split"],
              launches_f32_step=f32_step["split_launches flash_attention"],
-             **k2["tf32"]["pre-pass"]),
+             launches_recipe_f32_decode=f32_recipe["decode"]["launches"][
+                 "k2_tf32_split"],
+             launches_recipe_f32_step=f32_recipe["step"]["launches"][
+                 "k2_tf32_split"],
+             **k2["tf32"]["pre-pass"],
+             **{f"d{d}": k2[f"tf32_d{d}"]["pre-pass"] for d in (48, 64)}),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],
@@ -5562,6 +5997,7 @@ def main() -> int:
     log(f"[parity] summary: {json.dumps(parity)}")
     log(f"[recipe] summary: {json.dumps(recipe)}")
     log(f"[recipe] low-end summary: {json.dumps(low_end)}")
+    log(f"[recipe] f32 summary: {json.dumps(f32_recipe)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@
 // (flash_attention_bwd_mma_{dkv,dq,fused}.cu, flash_attention_bwd_tf32_fused.cu,
 // flash_attention_bwd_simt_{f32,f32_wide,bf16}.cu, and
 // flash_attention_bwd_{mma,simt_f32}_d32.cu for head size 32, and
-// flash_attention_bwd_wgmma_d*.cu and flash_attention_bwd_wgmma_tf32_d16*.cu
+// flash_attention_bwd_wgmma_d*.cu and flash_attention_bwd_wgmma_tf32_d*.cu
 // for the fused warpgroup bodies, an instance a file), so that the compilers run side by side.
 
 #include "flash_attention_bwd.cuh"
@@ -18,9 +18,9 @@
 // [H, Nk] f32; lse, delta: [BH, Nq] f32; dbias_bh: [BH, Nk] f32. scale:
 // d^-1/2 rounded to the input type.
 // body: 2 the fused warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed
-// by TMA; at d 16 and 32 its narrow form; f32 at d 16: flash_bwd_wgmma_tf32,
-// on the tiles that lunaris_k2_tf32_split wrote into `split` for this call: the
-// query tiles, then the key tiles),
+// by TMA; at d 16 and 32 its narrow form; f32 at d 16, 48 or 64:
+// flash_bwd_wgmma_tf32, on the tiles that lunaris_k2_tf32_split wrote into
+// `split` for this call: the query tiles, then the key tiles),
 // 1 the tensor-core kernels on mma.sync (bf16: dkv and dq at d 16, 32, 48 or 64,
 // the fused one at d 16 or 32; f32: the fused one at d 16 or 32, three TF32
 // passes a product), 0 the CUDA-core kernels (every kernel in f32 at d 8, 16,
@@ -45,10 +45,16 @@ extern "C" int lunaris_flash_attention_bwd(
       row_offset};
   auto s = static_cast<cudaStream_t>(stream);
   if (body == 2 && !is_bf16) {
-    if (d != 16 || kernel != kBwdDkvFusedDq)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d16_drop(a, split, s)
-                       : lunaris_k2_bwd_wgmma_tf32_d16(a, split, s);
+    if (kernel != kBwdDkvFusedDq) return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d16_drop(a, split, s)
+                                  : lunaris_k2_bwd_wgmma_tf32_d16(a, split, s);
+      case 48: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d48_drop(a, split, s)
+                                  : lunaris_k2_bwd_wgmma_tf32_d48(a, split, s);
+      case 64: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d64_drop(a, split, s)
+                                  : lunaris_k2_bwd_wgmma_tf32_d64(a, split, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (body == 2) {
     if (kernel != kBwdDkvFusedDq)
@@ -90,7 +96,7 @@ extern "C" int lunaris_k2_bwd_wgmma_smem_bytes() { return wg_bwd_smem_bytes(); }
 extern "C" int lunaris_k2_bwd_wgmma_narrow_smem_bytes(int d) {
   return nw_bwd_smem_bytes(d == 32 ? 32 : 16);
 }
-// The same for the f32 fused warpgroup body (d 16).
-extern "C" int lunaris_k2_bwd_wgmma_tf32_smem_bytes() {
-  return t32_bwd_smem_bytes();
+// The same for the f32 fused warpgroup body at head size d (16, 48 or 64).
+extern "C" int lunaris_k2_bwd_wgmma_tf32_smem_bytes(int d) {
+  return t32_bwd_smem_bytes(d == 16 || d == 48 ? d : 64);
 }

@@ -195,11 +195,20 @@ int lunaris_k2_bwd_wgmma_d32(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d32_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
-// The f32 fused warpgroup body at d 16 (flash_attention_bwd_wgmma_tf32_d16{,_drop}.cu),
-// on the tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+// The f32 fused warpgroup body at d 16, 48 and 64
+// (flash_attention_bwd_wgmma_tf32_d{16,48,64}{,_drop}.cu), on the tiles the
+// pre-pass wrote (`split`: flash_attention_tf32_split.cu).
 int lunaris_k2_bwd_wgmma_tf32_d16(const LunarisK2BwdArgs& a, const void* split,
                                   cudaStream_t s);
 int lunaris_k2_bwd_wgmma_tf32_d16_drop(const LunarisK2BwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d48(const LunarisK2BwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d48_drop(const LunarisK2BwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d64(const LunarisK2BwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d64_drop(const LunarisK2BwdArgs& a,
                                        const void* split, cudaStream_t s);
 
 namespace {
@@ -2256,6 +2265,7 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
 }
 
 // ---- the f32 fused warpgroup body: d 16, three TF32 passes on wgmma ----------
+// (d 48 and 64: below, "the f32 fused warpgroup body at d 48 and 64")
 
 // flash_bwd_wgmma_tf32  f32 at D 16, the single-pass form of
 //   `_bwd_fused_kernel` at the default type and width, where Nq and Nk are
@@ -2308,10 +2318,10 @@ constexpr int kBwdT32DsBytes = kBwdT32BQ * 64 * 4;    // ds hi or lo of a warpgr
 // The ring of query tiles, each warpgroup's ds hi and lo ([64 queries][64
 // keys]), the block's K^T tiles, the barriers, and 1024 bytes to align the
 // tiles.
-__host__ __device__ constexpr int t32_bwd_smem_bytes() {
+__host__ __device__ constexpr int t32_bwd_smem_bytes16() {
   return 1024 + kBwdT32Stages * kBwdT32StageBytes +
          kBwdT32Consumers * 2 * kBwdT32DsBytes +
-         kBwdT32Consumers * kTf32BwdKTileBytes + (1 + 2 * kBwdT32Stages) * 8;
+         kBwdT32Consumers * tf32_bwd_k_tile_bytes(16) + (1 + 2 * kBwdT32Stages) * 8;
 }
 
 // The consumer warpgroups of flash_bwd_wgmma_tf32: warpgroup `wg` owns keys
@@ -2342,7 +2352,7 @@ __device__ __forceinline__ void consume_bwd_tf32(
   uint8_t* dsh = dsb + wg * 2 * kBwdT32DsBytes;    // ds hi, then lo
   uint8_t* dsl = dsh + kBwdT32DsBytes;
   const uint32_t ds_lo = desc_lo(dsh);
-  const uint32_t kt_lo = desc_lo(kts + wg * kTf32BwdKTileBytes);
+  const uint32_t kt_lo = desc_lo(kts + wg * tf32_bwd_k_tile_bytes(16));
   const uint32_t ring_lo = desc_lo(ring);
 
   // k and v of the warp's keys as the A fragments of s^T and dp^T (keys g,
@@ -2547,65 +2557,391 @@ __device__ __forceinline__ void consume_bwd_tf32(
   }
 }
 
+// ---- the f32 fused warpgroup body at d 48 and 64 ------------------------------
+
+// flash_bwd_wgmma_tf32 at D 48 and 64 (the mid-range and H100-tier widths):
+//   the same five products in three TF32 passes, but the d 16 layout does
+//   not fit. There a warpgroup keeps k and v as A fragments in registers
+//   (4 D a thread in hi and lo: 256 at D 64) and a query tile of 64 in shared
+//   memory (2048 D + 512 bytes: 131,584 at D 64). So here:
+//   - A block owns 64 keys: one consumer warpgroup and a producer warp (160
+//     threads; no setmaxnreg: the 255 registers a thread may hold suffice).
+//     The pre-pass's key tile (1536 D bytes) arrives once, in three bulk
+//     copies: K and V as rows (the A of s^T = k qs^T and dp^T = v dO^T, read
+//     from shared memory) and K^T as rows (the B of dq += ds k).
+//   - Queries come in sub-tiles of 16 (512 D + 128 bytes: qs, dO, qs^T, dO^T
+//     in hi and lo, -lse log2 e, delta), four to a query tile of 64, through
+//     a ring of 3 (D 64) or 4 (D 48), one bulk copy a sub-tile: s^T and dp^T
+//     are wgmma m64n16k8 in three passes a k-step of 8 dims, both operands in
+//     shared memory.
+//   - p, the hash on the score's own (key, query), ds and pv in f32 at the TPU
+//     kernel's rounding points, split into hi and lo where the score's C
+//     fragment is the A fragment of dk and dv as it lies (the sub-tile's
+//     queries of qs^T and dO^T are permuted by `perm8`); dk and dv summed
+//     from zero a query tile of 64 (wgmma m64n{D}k8, three passes a k-step
+//     of 8 queries), then added with one f32 add: wgmma's sums truncate, so
+//     dk and dv never sit in a product's accumulator across the walk.
+//   - ds goes to shared memory as well, hi and lo, as rows [64 queries][8
+//     keys] a k-step: once the query tile's four sub-tiles are in, dq = ds k
+//     is wgmma m64n{D}k8 in three passes a k-step of 8 keys into one
+//     accumulator from zero, added to the zeroed f32 dq buffer with 16-byte
+//     reductions.
+//   - dbias: per-key f32 sums over the 4 lanes of a key, no atomics.
+//   Registers a thread: dk, dv and their tile sums (2 D), s and dp (16), the
+//   fragments of ds and pv (32). Shared memory at D 64: 99,072 bytes of ring,
+//   98,304 of keys, 32,768 of ds: 231,224 with the barriers and the
+//   alignment, of 232,448.
+// Dropout is a template parameter; a ragged Nq or Nk costs nothing per score
+// (zeros, -inf). dk, dv and dbias are the same on every run; dq's last bits
+// depend on the order of the reductions.
+
+__host__ __device__ constexpr int bwd_t32w_stages(int d) { return d == 48 ? 4 : 3; }
+// A sub-tile's place in the ring: its bytes rounded up to the 32-byte
+// swizzle's period.
+__host__ __device__ constexpr int bwd_t32w_stage_bytes(int d) {
+  return (tf32_bwd_sub_bytes(d) + 255) / 256 * 256;
+}
+constexpr int kBwdT32wDsBytes = kTf32Rows * 64 * 4;   // ds hi or lo: 64 queries x 64 keys
+__host__ __device__ constexpr int bwd_t32_threads(int d) {
+  return d == 16 ? 128 * (kBwdT32Consumers + 1) : 128 + 32;
+}
+__host__ __device__ constexpr int bwd_t32_keys(int d) {
+  return d == 16 ? kBwdT32Keys : 64;
+}
+
+// D 16: see t32_bwd_smem_bytes16. D 48, 64: the ring of query sub-tiles, the
+// block's key tile, ds hi and lo, the barriers, and 1024 bytes of alignment.
+__host__ __device__ constexpr int t32_bwd_smem_bytes(int d) {
+  return d == 16 ? t32_bwd_smem_bytes16()
+                 : 1024 + bwd_t32w_stages(d) * bwd_t32w_stage_bytes(d) +
+                       tf32_bwd_k_tile_bytes(d) + 2 * kBwdT32wDsBytes +
+                       (1 + 2 * bwd_t32w_stages(d)) * 8;
+}
+
+// The consumer warpgroup of flash_bwd_wgmma_tf32 at D 48 and 64: keys
+// 64 blockIdx.x .. Every wgmma is done before its registers are touched
+// again.
+template <int D, int DROP>
+__device__ __forceinline__ void consume_bwd_tf32_wide(
+    const LunarisK2BwdArgs& a, const uint8_t* ring, uint8_t* dsb,
+    const uint8_t* kts, uint64_t* kv_bar, uint64_t* full, uint64_t* empty,
+    int tiles, int first) {
+  constexpr int ST = bwd_t32w_stages(D);
+  constexpr int SB = bwd_t32w_stage_bytes(D);
+  constexpr int KD = D / 8;        // k-steps of s^T and dp^T
+  constexpr uint32_t HI32 = kNarrowDescHi<16>;   // [rows][8] f32, 32-byte swizzle
+  const int Nq = a.Nq, Nk = a.Nk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const int g = lane >> 2;         // the accumulator's row (and row + 8): a key
+  const int t = lane & 3;          // its column pair: queries
+  const int key_l = warp * 16 + g;                 // within the block
+  const int key0 = blockIdx.x * 64 + key_l;
+  const bool drop = DROP == kDropOn;
+  auto walk = [&](int i) {
+    const int x = first + i;
+    return x < tiles ? x : x - tiles;
+  };
+  uint8_t* dsh = dsb;              // ds hi, then lo
+  uint8_t* dsl = dsb + kBwdT32wDsBytes;
+  const uint32_t ds_lo = desc_lo(dsb);
+  const uint32_t kt_lo = desc_lo(kts);
+  const uint32_t ring_lo = desc_lo(ring);
+
+  float bk[2], db[2] = {0.f, 0.f};
+  uint32_t k_term[2];
+  {
+    const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
+    const uint32_t row_seed = a.seed ^ (static_cast<uint32_t>(bh + a.row_offset) * kC1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      bk[r] = key < Nk ? biasb[key] : 0.f;
+      k_term[r] = row_seed + static_cast<uint32_t>(key) * kC2;
+    }
+  }
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int i = 0; i < tiles; ++i) {
+    const int q0 = walk(i) * kTf32Rows;
+    float tk[D / 2], tv[D / 2];    // the tile's dk and dv, from zero
+#pragma unroll 1
+    for (int sub = 0; sub < kTf32Rows / kTf32SubRows; ++sub) {
+      const int u = 4 * i + sub;
+      const int st = u % ST;
+      const uint32_t qt = ring_lo + st * (SB >> 4);
+      const float* nlt = reinterpret_cast<const float*>(ring + st * SB + 512 * D);
+      const float* dlt = nlt + kTf32SubRows;
+      mbar_wait(&full[st], (u / ST) & 1);
+
+      // s^T = bias + k qs^T and dp^T = v dO^T over the sub-tile's 16 queries.
+      float s[8], dp[8];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[4 * j] = s[4 * j + 1] = bk[0];
+        s[4 * j + 2] = s[4 * j + 3] = bk[1];
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const uint64_t kh = desc_of(kt_lo + (kd * 2048 >> 4), HI32);
+        const uint64_t kl = desc_of(kt_lo + (256 * D + kd * 2048 >> 4), HI32);
+        const uint64_t qh = desc_of(qt + (kd * 512 >> 4), HI32);
+        const uint64_t ql = desc_of(qt + (64 * D + kd * 512 >> 4), HI32);
+        wgmma_tf32_ss_n16(s, kl, qh, 1);
+        wgmma_tf32_ss_n16(s, kh, ql, 1);
+        wgmma_tf32_ss_n16(s, kh, qh, 1);
+      }
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const uint64_t vh = desc_of(kt_lo + (512 * D + kd * 2048 >> 4), HI32);
+        const uint64_t vl = desc_of(kt_lo + (768 * D + kd * 2048 >> 4), HI32);
+        const uint64_t oh = desc_of(qt + (128 * D + kd * 512 >> 4), HI32);
+        const uint64_t ol = desc_of(qt + (192 * D + kd * 512 >> 4), HI32);
+        wgmma_tf32_ss_n16(dp, vl, oh, kd > 0);
+        wgmma_tf32_ss_n16(dp, vh, ol, 1);
+        wgmma_tf32_ss_n16(dp, vh, oh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(s);
+      wgmma_pin(dp);
+
+      // p, the mask, ds and pv; ds and pv split into the A fragments of dk
+      // and dv (chunk j's C fragment {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+      // (g + 8, 2t + 1)} is k-step j's {a0, a2, a1, a3}), and ds into the
+      // [query][key] rows of dq.
+      const uint32_t q_term =
+          static_cast<uint32_t>(a.q_offset + q0 + kTf32SubRows * sub + 2 * t) * kC3;
+      uint32_t dsfh[2][4], dsfl[2][4], pvfh[2][4], pvfl[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 nl = *reinterpret_cast<const float2*>(nlt + 8 * j + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[4 * j + e], kLog2e, e & 1 ? nl.y : nl.x));
+          float dpd = dp[4 * j + e];
+          float pv = p;
+          if (drop) {
+            const bool keep = keep_hash(
+                k_term[e >> 1] + q_term + static_cast<uint32_t>(8 * j + (e & 1)) * kC3,
+                a.threshold);
+            const float kinv = keep ? a.inv_keep : 0.f;
+            dpd *= kinv;
+            pv = p * kinv;
+          }
+          const float ds = p * (dpd - (e & 1 ? dl.y : dl.x));
+          db[e >> 1] += ds;
+          const int ai = (e & 1) * 2 + (e >> 1);
+          split_tf32(ds, dsfh[j][ai], dsfl[j][ai]);
+          split_tf32(pv, pvfh[j][ai], pvfl[j][ai]);
+          const int kq = key_l + 8 * (e >> 1);
+          const int off = (kq >> 3) * 2048 +
+                          sw32_offset(kTf32SubRows * sub + 8 * j + 2 * t + (e & 1), kq & 7);
+          *reinterpret_cast<uint32_t*>(dsh + off) = dsfh[j][ai];
+          *reinterpret_cast<uint32_t*>(dsl + off) = dsfl[j][ai];
+        }
+      }
+
+      // dv += pv^T dO, dk += ds^T qs over the sub-tile's 16 queries (k-step
+      // j: rows j of dO^T / qs^T, D rows of 32 bytes; lo 64 D bytes on).
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int acc = sub > 0 || j > 0;
+        const uint32_t qth = qt + (256 * D + j * 32 * D >> 4);
+        const uint32_t oth = qt + (384 * D + j * 32 * D >> 4);
+        wgmma_tf32_rs<D>(tv, pvfl[j], desc_of(oth, HI32), acc);
+        wgmma_tf32_rs<D>(tv, pvfh[j], desc_of(oth + (64 * D >> 4), HI32), 1);
+        wgmma_tf32_rs<D>(tv, pvfh[j], desc_of(oth, HI32), 1);
+        wgmma_tf32_rs<D>(tk, dsfl[j], desc_of(qth, HI32), acc);
+        wgmma_tf32_rs<D>(tk, dsfh[j], desc_of(qth + (64 * D >> 4), HI32), 1);
+        wgmma_tf32_rs<D>(tk, dsfh[j], desc_of(qth, HI32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(tk);
+      wgmma_pin(tv);
+      wgmma_pin(dsfh);
+      wgmma_pin(dsfl);
+      wgmma_pin(pvfh);
+      wgmma_pin(pvfl);
+      mbar_arrive(&empty[st]);
+    }
+
+    // dq of the query tile over the block's 64 keys, once every warp has
+    // written its ds.
+    fence_async_shared();
+    named_barrier(1, 128);
+    float dq[D / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t ah = desc_of(ds_lo + (kk * 2048 >> 4), HI32);
+      const uint64_t al = desc_of(ds_lo + (kBwdT32wDsBytes + kk * 2048 >> 4), HI32);
+      const uint64_t bh_ = desc_of(kt_lo + (1024 * D + kk * 32 * D >> 4), HI32);
+      const uint64_t bl = desc_of(kt_lo + (1280 * D + kk * 32 * D >> 4), HI32);
+      wgmma_tf32_ss<D>(dq, al, bh_, kk > 0);
+      wgmma_tf32_ss<D>(dq, ah, bl, 1);
+      wgmma_tf32_ss<D>(dq, ah, bh_, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(dq);
+    named_barrier(1, 128);    // ds is read: the next tile may write it
+    // Rows q0 + 16 warp + g (+ 8): the lanes of a column quad swap a pair,
+    // so that lane t even adds columns 8 c + 2 t .. + 3 of row g and lane t
+    // odd those of row g + 8 from 8 c + 2 (t - 1).
+    const int qrow = q0 + warp * 16 + g + (t & 1) * 8;
+    float* accrow = a.dq_acc + (static_cast<long long>(bh) * Nq + qrow) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const float sx = t & 1 ? dq[4 * c] : dq[4 * c + 2];
+      const float sy = t & 1 ? dq[4 * c + 1] : dq[4 * c + 3];
+      const float rx = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float ry = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const float4 val = t & 1 ? make_float4(rx, ry, dq[4 * c + 2], dq[4 * c + 3])
+                               : make_float4(dq[4 * c], dq[4 * c + 1], rx, ry);
+      if (qrow < Nq)
+        atomicAdd(reinterpret_cast<float4*>(accrow + 8 * c + 2 * (t & 2)), val);
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) {
+      dk[e] += tk[e];
+      dv[e] += tv[e];
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float dbr = db[r];
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 1);
+    dbr += __shfl_xor_sync(0xffffffffu, dbr, 2);
+    const int key = key0 + 8 * r;
+    if (key < Nk) {
+      const long long off = (static_cast<long long>(bh) * Nk + key) * D;
+      float* dkrow = static_cast<float*>(a.dk) + off;
+      float* dvrow = static_cast<float*>(a.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(dkrow + 8 * j + 2 * t) =
+            make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dvrow + 8 * j + 2 * t) =
+            make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+      if (t == 0) a.dbias_bh[static_cast<long long>(bh) * Nk + key] = dbr;
+    }
+  }
+}
+
 // split: the pre-pass's query tiles (ceil(Nq / 64) a BH row), then its key
 // tiles (2 ceil(Nk / 128) a BH row).
-template <int DROP>
-__global__ void __launch_bounds__(kBwdT32Threads, 1)
+template <int D, int DROP>
+__global__ void __launch_bounds__(bwd_t32_threads(D), 1)
 flash_bwd_wgmma_tf32(const LunarisK2BwdArgs a, const uint8_t* split) {
-  constexpr int ST = kBwdT32Stages;
-  constexpr int BQ = kBwdT32BQ;
+  constexpr int QTB = tf32_bwd_q_tile_bytes(D);
+  constexpr int KTB = tf32_bwd_k_tile_bytes(D);
+  constexpr int BQ = kTf32Rows;
   extern __shared__ uint8_t bwd_t32_smem[];
   uint8_t* ring = bwd_t32_smem + ((1024 - (smem_addr(bwd_t32_smem) & 1023)) & 1023);
-  uint8_t* dsb = ring + ST * kBwdT32StageBytes;
-  uint8_t* kts = dsb + kBwdT32Consumers * 2 * kBwdT32DsBytes;
-  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(kts + kBwdT32Consumers * kTf32BwdKTileBytes);
-  uint64_t* full = kv_bar + 1;
-  uint64_t* empty = full + ST;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y;
   const int tiles = (a.Nq + BQ - 1) / BQ;
   const int first = blockIdx.x % tiles;
+  const int ktiles = 2 * ((a.Nk + 2 * kTf32Rows - 1) / (2 * kTf32Rows));
+  const uint8_t* q_src = split + static_cast<long long>(bh) * tiles * QTB;
+  const uint8_t* k_src = split + static_cast<long long>(a.BH) * tiles * QTB +
+                         static_cast<long long>(bh) * ktiles * KTB;
 
-  if (tid == 0) {
-    mbar_init(kv_bar, 1);
-    for (int i = 0; i < ST; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 128 * kBwdT32Consumers);
+  if constexpr (D == 16) {
+    constexpr int ST = kBwdT32Stages;
+    uint8_t* dsb = ring + ST * kBwdT32StageBytes;
+    uint8_t* kts = dsb + kBwdT32Consumers * 2 * kBwdT32DsBytes;
+    uint64_t* kv_bar = reinterpret_cast<uint64_t*>(kts + kBwdT32Consumers * KTB);
+    uint64_t* full = kv_bar + 1;
+    uint64_t* empty = full + ST;
+    if (tid == 0) {
+      mbar_init(kv_bar, 1);
+      for (int i = 0; i < ST; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&empty[i], 128 * kBwdT32Consumers);
+      }
+      mbar_fence_init();
     }
-    mbar_fence_init();
-  }
-  __syncthreads();
+    __syncthreads();
 
-  if (warp >= 4 * kBwdT32Consumers) {
-    // The producer warpgroup: one lane loads, the registers go to the
-    // consumers (2 x 128 x 232 + 128 x 40 = the block's 384 x 168).
-    setmaxnreg_dec<40>();
-    if (warp != 4 * kBwdT32Consumers || lane != 0) return;
-    const int ktiles = 2 * ((a.Nk + kBwdT32Keys - 1) / kBwdT32Keys);
-    const uint8_t* q_src = split + static_cast<long long>(bh) * tiles * kTf32BwdQTileBytes;
-    const uint8_t* k_src =
-        split + static_cast<long long>(a.BH) * tiles * kTf32BwdQTileBytes +
-        (static_cast<long long>(bh) * ktiles + 2 * blockIdx.x) * kTf32BwdKTileBytes;
-    mbar_arrive_tx(kv_bar, kBwdT32Consumers * kTf32BwdKTileBytes);
-    bulk_load(kts, k_src, kBwdT32Consumers * kTf32BwdKTileBytes, kv_bar);
-    for (int i = 0; i < tiles; ++i) {
-      const int st = i % ST;
-      const int x = first + i;
-      if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
-      mbar_arrive_tx(&full[st], kTf32BwdQTileBytes);
-      bulk_load(ring + st * kBwdT32StageBytes,
-                q_src + static_cast<long long>(x < tiles ? x : x - tiles) * kTf32BwdQTileBytes,
-                kTf32BwdQTileBytes, &full[st]);
+    if (warp >= 4 * kBwdT32Consumers) {
+      // The producer warpgroup: one lane loads, the registers go to the
+      // consumers (2 x 128 x 232 + 128 x 40 = the block's 384 x 168).
+      setmaxnreg_dec<40>();
+      if (warp != 4 * kBwdT32Consumers || lane != 0) return;
+      mbar_arrive_tx(kv_bar, kBwdT32Consumers * KTB);
+      bulk_load(kts, k_src + static_cast<long long>(2 * blockIdx.x) * KTB,
+                kBwdT32Consumers * KTB, kv_bar);
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % ST;
+        const int x = first + i;
+        if (i >= ST) mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], QTB);
+        bulk_load(ring + st * kBwdT32StageBytes,
+                  q_src + static_cast<long long>(x < tiles ? x : x - tiles) * QTB,
+                  QTB, &full[st]);
+      }
+    } else {
+      setmaxnreg_inc<232>();
+      consume_bwd_tf32<DROP>(a, ring, dsb, kts, kv_bar, full, empty, tiles, first);
     }
   } else {
-    setmaxnreg_inc<232>();
-    consume_bwd_tf32<DROP>(a, ring, dsb, kts, kv_bar, full, empty, tiles, first);
+    constexpr int ST = bwd_t32w_stages(D);
+    constexpr int SB = bwd_t32w_stage_bytes(D);
+    constexpr int SUB = tf32_bwd_sub_bytes(D);
+    uint8_t* kts = ring + ST * SB;
+    uint8_t* dsb = kts + KTB;
+    uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dsb + 2 * kBwdT32wDsBytes);
+    uint64_t* full = kv_bar + 1;
+    uint64_t* empty = full + ST;
+    if (tid == 0) {
+      mbar_init(kv_bar, 1);
+      for (int i = 0; i < ST; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&empty[i], 128);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (warp >= 4) {
+      // The producer warp: one lane loads the key tile in three copies (K,
+      // V, K^T), then walks the query sub-tiles.
+      if (lane != 0) return;
+      const uint8_t* kb = k_src + static_cast<long long>(blockIdx.x) * KTB;
+      mbar_arrive_tx(kv_bar, KTB);
+      for (int c = 0; c < 3; ++c)
+        bulk_load(kts + c * (KTB / 3), kb + c * (KTB / 3), KTB / 3, kv_bar);
+      for (int u = 0; u < 4 * tiles; ++u) {
+        const int st = u % ST;
+        const int x = first + u / 4;
+        if (u >= ST) mbar_wait(&empty[st], ((u / ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], SUB);
+        bulk_load(ring + st * SB,
+                  q_src + static_cast<long long>(x < tiles ? x : x - tiles) * QTB +
+                      (u % 4) * SUB,
+                  SUB, &full[st]);
+      }
+    } else {
+      consume_bwd_tf32_wide<D, DROP>(a, ring, dsb, kts, kv_bar, full, empty,
+                                     tiles, first);
+    }
   }
 }
 
-template <int DROP>
+template <int D, int DROP>
 int launch_bwd_wgmma_tf32(const LunarisK2BwdArgs& a, const void* split,
                           cudaStream_t stream) {
   if (split == nullptr || reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
@@ -2613,13 +2949,13 @@ int launch_bwd_wgmma_tf32(const LunarisK2BwdArgs& a, const void* split,
       reinterpret_cast<uintptr_t>(a.dv) % 8 != 0 || a.dq_acc == nullptr ||
       reinterpret_cast<uintptr_t>(a.dq_acc) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = flash_bwd_wgmma_tf32<DROP>;
-  constexpr int smem = t32_bwd_smem_bytes();
+  const auto kernel = flash_bwd_wgmma_tf32<D, DROP>;
+  constexpr int smem = t32_bwd_smem_bytes(D);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Nk + kBwdT32Keys - 1) / kBwdT32Keys, a.BH);
-  kernel<<<grid, kBwdT32Threads, smem, stream>>>(
+  const dim3 grid((a.Nk + bwd_t32_keys(D) - 1) / bwd_t32_keys(D), a.BH);
+  kernel<<<grid, bwd_t32_threads(D), smem, stream>>>(
       a, static_cast<const uint8_t*>(split));
   return static_cast<int>(cudaGetLastError());
 }

@@ -227,28 +227,42 @@ __device__ __forceinline__ void ones3_fragment(uint32_t (&a)[4], int t) {
   a[2] = a[3] = 0u;
 }
 
-// ---- the TF32 tiles of the f32 warpgroup bodies (d 16) ----------------------
+// ---- the TF32 tiles of the f32 warpgroup bodies (d 16, 48, 64) ---------------
 //
 // wgmma reads TF32 operands K-major only, and reads an f32 word as TF32 by
 // dropping its low 13 bits. So a pre-pass (flash_attention_tf32_split.cu)
 // splits the f32 operands of a call into TF32 hi and lo once (`split_tf32`,
 // cvt.rna) and lays them out as the bodies' wgmma read them, tile after
 // tile, so that a producer moves a tile with one bulk copy. A tile covers
-// kTf32Rows keys or queries; rows past N are zeros.
-//   kTf32FwdTileBytes   a key tile of the forward: K hi, then K lo, each as
-//       two [64][8] tiles (d 0-7, 8-15; 32-byte swizzle), then V^T as two
-//       [32][32] atoms (keys 0-31, 32-63; 128-byte swizzle) whose rows 0-15
-//       are V hi of dim r and 16-31 V lo, the keys permuted by `perm8`.
-//   kTf32BwdQTileBytes  a query tile of the backward: qs hi, qs lo, dO hi,
-//       dO lo as the forward's K, qs^T and dO^T as its V^T (queries permuted
-//       by `perm8`), then 64 f32 of -lse log2 e (-inf past Nq) and 64 of
-//       delta (0 past Nq).
-//   kTf32BwdKTileBytes  keys of the backward: K^T as the forward's V^T, the
-//       keys in order.
+// kTf32Rows keys or queries; rows past N are zeros. "Rows" below are
+// [rows][8] tiles, one k-step of 8 a row of 32 bytes with the 32-byte
+// swizzle, D / 8 of them; "atoms" [rows][32] with the 128-byte swizzle.
+//   tf32_fwd_tile_bytes(D) = 1024 D  a key tile of the forward: K hi, then
+//       K lo as rows (64 keys), then V^T as two atoms (keys 0-31, 32-63),
+//       each D rows of V hi (dim r) then D rows of V lo, the keys permuted
+//       by `perm8`.
+//   tf32_bwd_q_tile_bytes(D) = 2048 D + 512  a query tile of the backward.
+//       D 16: qs hi, qs lo, dO hi, dO lo as the forward's K, qs^T and dO^T
+//       as its V^T (queries permuted by `perm8`), then 64 f32 of -lse log2 e
+//       (-inf past Nq) and 64 of delta (0 past Nq). D 48, 64: four sub-tiles
+//       of kTf32SubRows queries, each tf32_bwd_sub_bytes(D) = 512 D + 128:
+//       qs hi, qs lo, dO hi, dO lo as rows (16 queries), qs^T hi, qs^T lo,
+//       dO^T hi, dO^T lo as rows too (D dims, a k-step of 8 queries each,
+//       permuted by `perm8`), then 16 f32 of -lse log2 e and 16 of delta.
+//   tf32_bwd_k_tile_bytes(D)  keys of the backward. D 16 (8192): K^T as the
+//       forward's V^T, the keys in order. D 48, 64 (1536 D): K hi, K lo, V
+//       hi, V lo as rows (64 keys), then K^T hi, K^T lo as rows (D dims, a
+//       k-step of 8 keys each, the keys in order).
 constexpr int kTf32Rows = 64;
-constexpr int kTf32FwdTileBytes = 16384;
-constexpr int kTf32BwdQTileBytes = 33280;
-constexpr int kTf32BwdKTileBytes = 8192;
+constexpr int kTf32SubRows = 16;
+__host__ __device__ constexpr int tf32_fwd_tile_bytes(int d) { return 1024 * d; }
+__host__ __device__ constexpr int tf32_bwd_q_tile_bytes(int d) {
+  return 2048 * d + 512;
+}
+__host__ __device__ constexpr int tf32_bwd_sub_bytes(int d) { return 512 * d + 128; }
+__host__ __device__ constexpr int tf32_bwd_k_tile_bytes(int d) {
+  return d == 16 ? 8192 : 1536 * d;
+}
 
 // The byte offset of f32 element (r, c) in a [rows][8] tile with the
 // 32-byte swizzle (hopper.cuh: chunk c / 4 of row r at (c / 4) ^ ((r / 4) % 2)).

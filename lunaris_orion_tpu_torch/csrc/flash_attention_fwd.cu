@@ -6,7 +6,7 @@
 // flash_attention_fwd_simt_{f32,bf16}.cu, flash_attention_fwd_simt_f32_wide.cu
 // for d 48 and 64, flash_attention_fwd_d32.cu for bf16's tensor-core and
 // f32's CUDA-core body at d 32, and flash_attention_fwd_wgmma_d*.cu for the
-// warpgroup bodies, an instance a file; the f32 one's pre-pass in
+// warpgroup bodies, an instance a file; the f32 ones' pre-pass in
 // flash_attention_tf32_split.cu), so that the compilers run side by
 // side.
 
@@ -17,8 +17,9 @@
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
 // body: 2 the warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed by
-// TMA; at d 16 and 32 its narrow form; f32 at d 16: flash_fwd_wgmma_tf32, on the key
-// tiles that lunaris_k2_tf32_split wrote into `split` for this call), 1 the
+// TMA; at d 16 and 32 its narrow form; f32 at d 16, 48 or 64:
+// flash_fwd_wgmma_tf32, on the key tiles that lunaris_k2_tf32_split wrote
+// into `split` for this call), 1 the
 // tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
 // three TF32 passes for f32), 0 the CUDA-core kernel (f32 at d 8, 16, 32, 48
 // or 64; bf16 at d 8 or 16). The caller chooses; nothing here falls from one
@@ -39,9 +40,15 @@ extern "C" int lunaris_flash_attention_fwd(
                            row_offset};
   auto s = static_cast<cudaStream_t>(stream);
   if (body == 2 && !is_bf16) {
-    if (d != 16) return static_cast<int>(cudaErrorInvalidValue);
-    return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d16_drop(a, split, s)
-                       : lunaris_k2_fwd_wgmma_tf32_d16(a, split, s);
+    switch (d) {
+      case 16: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d16_drop(a, split, s)
+                                  : lunaris_k2_fwd_wgmma_tf32_d16(a, split, s);
+      case 48: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d48_drop(a, split, s)
+                                  : lunaris_k2_fwd_wgmma_tf32_d48(a, split, s);
+      case 64: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d64_drop(a, split, s)
+                                  : lunaris_k2_fwd_wgmma_tf32_d64(a, split, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (body == 2) {
     switch (d) {
@@ -74,7 +81,7 @@ extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes(int d) {
   return d == 32 ? nw_fwd_smem_bytes(32, nw_block_k(32))
                  : nw_fwd_smem_bytes(16, nw_block_k(16));
 }
-// The same for the f32 warpgroup body (d 16).
-extern "C" int lunaris_k2_fwd_wgmma_tf32_smem_bytes() {
-  return t32_fwd_smem_bytes();
+// The same for the f32 warpgroup body at head size d (16, 48 or 64).
+extern "C" int lunaris_k2_fwd_wgmma_tf32_smem_bytes(int d) {
+  return t32_fwd_smem_bytes(d == 16 || d == 48 ? d : 64);
 }

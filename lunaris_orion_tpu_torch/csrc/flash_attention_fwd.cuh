@@ -141,11 +141,20 @@ int lunaris_k2_fwd_wgmma_d16(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d16_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d32(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d32_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
-// The f32 warpgroup body at d 16 (flash_attention_fwd_wgmma_tf32_d16{,_drop}.cu),
-// on the key tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+// The f32 warpgroup body at d 16, 48 and 64
+// (flash_attention_fwd_wgmma_tf32_d{16,48,64}{,_drop}.cu), on the key tiles
+// the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
 int lunaris_k2_fwd_wgmma_tf32_d16(const LunarisK2FwdArgs& a, const void* split,
                                   cudaStream_t s);
 int lunaris_k2_fwd_wgmma_tf32_d16_drop(const LunarisK2FwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d48(const LunarisK2FwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d48_drop(const LunarisK2FwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d64(const LunarisK2FwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d64_drop(const LunarisK2FwdArgs& a,
                                        const void* split, cudaStream_t s);
 
 namespace {
@@ -1537,24 +1546,27 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the f32 warpgroup body: d 16, three TF32 passes on wgmma ----------------
+// ---- the f32 warpgroup body: d 16, 48, 64, three TF32 passes on wgmma ------
 
 // flash_fwd_wgmma_tf32  f32 at D 16, the default type and width (feature_dim
-//   128 at 8 heads), where Nq and Nk are long. flash_fwd_tf32 runs its three
-//   TF32 passes a product on mma.sync, which issues a warp's 16 x 8 x 8 at a
-//   time and reaches a share of the tensor cores' rate; here the products
-//   bound the call (three passes: 6.7 ms at B8 H8 N16384, the ex2 4.1 ms),
-//   and wgmma is Hopper's way to their full rate. tf32 wgmma reads both
-//   shared-memory operands K-major and reads an f32 word by dropping its
-//   low bits, so:
+//   128 at 8 heads), and at D 48 and 64 (the mid-range and H100-tier
+//   widths, feature_dim 384 and 512), where Nq and Nk are long.
+//   flash_fwd_tf32 runs its three TF32 passes a product on mma.sync, which
+//   issues a warp's 16 x 8 x 8 at a time and reaches a share of the tensor
+//   cores' rate; here the products bound the call (three passes: 6.7 ms at
+//   B8 H8 N16384 d 16, 26.7 at d 64; the ex2 4.1 ms), and wgmma is Hopper's
+//   way to their full rate. tf32 wgmma reads both shared-memory operands
+//   K-major and reads an f32 word by dropping its low bits, so:
 //   - A pre-pass (flash_attention_tf32_split.cu) splits K and V into TF32
 //     hi and lo once a call (cvt.rna, as `split_tf32`) and writes each key
 //     tile of 64 as wgmma reads it: K hi and lo as [64][8] tiles, 32-byte
-//     swizzle (q k^T's B, keys as n), and V^T as [32][32] atoms, 128-byte
-//     swizzle, rows 0-15 V hi and 16-31 V lo (p v's B, keys as k).
-//   - A block is three consumer warpgroups of 64 query rows (192 rows) and
-//     a producer warp that keeps a ring of 4 key tiles: each tile is one
-//     bulk copy (TMA), and its lanes write the tile's bias (-inf past Nk).
+//     swizzle (q k^T's B, keys as n), and V^T as [2 D][32] atoms, 128-byte
+//     swizzle, rows 0 .. D - 1 V hi and D .. 2 D - 1 V lo (p v's B, keys as
+//     k).
+//   - A block is consumer warpgroups of 64 query rows (three at D 16, two at
+//     D 48 and 64) and a producer warp that keeps a ring of key tiles (4 at
+//     D 16 and 48, 3 at 64: 1024 D bytes a tile): each tile is one bulk copy
+//     (TMA), and its lanes write the tile's bias (-inf past Nk).
 //   - s = qs k^T starts at the bias in the accumulator and adds three passes
 //     of wgmma m64n64k8 a k-step (q lo K hi, q hi K lo, q hi K hi), q's hi
 //     and lo A fragments in registers, scaled in f32 and split once.
@@ -1565,41 +1577,47 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 //     each 8, and tf32's A fragment k indices t and t + 4: the pre-pass
 //     permuted V^T's keys the same way (`perm8`), so p's C fragment is p v's
 //     A fragment as it lies.
-//   - p v a key tile, summed from zero: p hi times [V hi; V lo] is one wgmma
-//     m64n32k8 (its columns 16-31 are the hi x lo pass), p lo times V hi one
-//     m64n16k8; the three are added, small terms first, and o = o corr + pv
-//     with one f32 FMA.
-//   The three warpgroups meet only at the ring: one's softmax runs while
-//   another's products do. Dropout is a template parameter; one instance
-//   takes every Nk (the bias masks the keys past it, their K and V are
-//   zeros).
+//   - p v a key tile, summed from zero (wgmma's sums truncate, so o itself
+//     never sits in a product's accumulator). D 16: p hi times [V hi; V lo]
+//     is one wgmma m64n32k8 (its columns 16-31 are the hi x lo pass), p lo
+//     times V hi one m64n16k8; the three are added, small terms first. D 48
+//     and 64, whose registers hold q's fragments (D), o (D / 2), p hi and lo
+//     (64) and one p v accumulator (D / 2) at 232 a thread, but not three:
+//     the three passes a k-step into one m64n{D}k8 accumulator, small terms
+//     first. Then o = o corr + pv with one f32 FMA.
+//   The warpgroups meet only at the ring: one's softmax runs while another's
+//   products do. Dropout is a template parameter; one instance takes every
+//   Nk (the bias masks the keys past it, their K and V are zeros).
 // It computes what flash_fwd_tf32 computes (the same rounding points: q
 // scaled in f32, scores, max, sums and o in f32, each product three TF32
 // passes with cvt.rna splits, p v summed from zero a tile of 64 keys).
 
-constexpr int kFwdT32Consumers = 3;                    // warpgroups of 64 rows
-constexpr int kFwdT32Rows = 64 * kFwdT32Consumers;     // query rows a block
-constexpr int kFwdT32Threads = 128 * (kFwdT32Consumers + 1);
-constexpr int kFwdT32Stages = 4;
+__host__ __device__ constexpr int fwd_t32_consumers(int d) { return d == 16 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_t32_rows(int d) { return 64 * fwd_t32_consumers(d); }
+__host__ __device__ constexpr int fwd_t32_threads(int d) {
+  return 128 * (fwd_t32_consumers(d) + 1);
+}
+__host__ __device__ constexpr int fwd_t32_stages(int d) { return d == 64 ? 3 : 4; }
 constexpr int kFwdT32BK = kTf32Rows;                   // keys a tile
 
 // The ring of key tiles, [stage][64] f32 bias, the barriers, and 1024 bytes
 // to align the tiles to the swizzle's period.
-__host__ __device__ constexpr int t32_fwd_smem_bytes() {
-  return 1024 + kFwdT32Stages * (kTf32FwdTileBytes + kFwdT32BK * 4) +
-         2 * kFwdT32Stages * 8;
+__host__ __device__ constexpr int t32_fwd_smem_bytes(int d) {
+  return 1024 + fwd_t32_stages(d) * (tf32_fwd_tile_bytes(d) + kFwdT32BK * 4) +
+         2 * fwd_t32_stages(d) * 8;
 }
 
 // The consumer warpgroups of flash_fwd_wgmma_tf32. Every wgmma is done
 // before its registers are touched again (ptxas serialises the wgmma of a
 // body that breaks this: C7514, C7515).
-template <int DROP>
+template <int D, int DROP>
 __device__ __forceinline__ void consume_fwd_tf32(
     const LunarisK2FwdArgs& a, const uint8_t* ring, const float* bias_ring,
     uint64_t* full, uint64_t* empty, int tiles) {
-  constexpr int D = 16;
   constexpr int BK = kFwdT32BK;
-  constexpr int ST = kFwdT32Stages;
+  constexpr int ST = fwd_t32_stages(D);
+  constexpr int TB = tf32_fwd_tile_bytes(D);
+  constexpr int KD = D / 8;        // k-steps of q k^T
   constexpr int NJ = BK / 8;       // 8-key column chunks of s; k-steps of p v
   constexpr uint32_t HI32 = kNarrowDescHi<16>;   // [rows][8] f32, 32-byte swizzle
   const int Nq = a.Nq;
@@ -1607,17 +1625,17 @@ __device__ __forceinline__ void consume_fwd_tf32(
   const int bh = blockIdx.y;
   const int g = lane >> 2;         // the fragment's row (and row + 8)
   const int t = lane & 3;          // the fragment's column pair
-  const int row0 = blockIdx.x * kFwdT32Rows + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const int row0 = blockIdx.x * fwd_t32_rows(D) + (warp >> 2) * 64 + (warp & 3) * 16 + g;
   const bool drop = DROP == kDropOn;
   const uint32_t ring_lo = desc_lo(ring);
 
   // q as the A fragments of q k^T (rows g, g + 8; d 8 kd + t, + 4), scaled
   // in f32 and split once.
-  uint32_t qh[2][4], ql[2][4];
+  uint32_t qh[KD][4], ql[KD][4];
   {
     const float* qb = static_cast<const float*>(a.q) + static_cast<long long>(bh) * Nq * D;
 #pragma unroll
-    for (int kd = 0; kd < 2; ++kd)
+    for (int kd = 0; kd < KD; ++kd)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = row0 + (i & 1) * 8;
@@ -1638,7 +1656,7 @@ __device__ __forceinline__ void consume_fwd_tf32(
 
   for (int tile = 0; tile < tiles; ++tile) {
     const int st = tile % ST;
-    const uint32_t kt = ring_lo + st * (kTf32FwdTileBytes >> 4);
+    const uint32_t kt = ring_lo + st * (TB >> 4);
     const float* bt = bias_ring + st * BK;
     mbar_wait(&full[st], (tile / ST) & 1);
 
@@ -1652,9 +1670,9 @@ __device__ __forceinline__ void consume_fwd_tf32(
     }
     wgmma_fence();
 #pragma unroll
-    for (int kd = 0; kd < 2; ++kd) {
+    for (int kd = 0; kd < KD; ++kd) {
       const uint64_t kh = desc_of(kt + kd * (2048 >> 4), HI32);
-      const uint64_t kl = desc_of(kt + (4096 + kd * 2048 >> 4), HI32);
+      const uint64_t kl = desc_of(kt + (256 * D + kd * 2048 >> 4), HI32);
       wgmma_tf32_rs_n64(s, ql[kd], kh, 1);
       wgmma_tf32_rs_n64(s, qh[kd], kl, 1);
       wgmma_tf32_rs_n64(s, qh[kd], kh, 1);
@@ -1704,26 +1722,50 @@ __device__ __forceinline__ void consume_fwd_tf32(
     l[0] += lq[0][0] + lq[0][1];
     l[1] += lq[1][0] + lq[1][1];
 
-    // pv = p v from zero: p hi [V hi; V lo] (n32) and p lo V hi (n16).
-    float pv2[16], pv1[8];
-    const uint32_t vt = kt + (8192 >> 4);
-    wgmma_fence();
+    const uint32_t vt = kt + (512 * D >> 4);
+    if constexpr (D == 16) {
+      // pv = p v from zero: p hi [V hi; V lo] (n32) and p lo V hi (n16).
+      float pv2[16], pv1[8];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const uint64_t v = desc_of(vt + ((j >> 2) * 4096 + (j & 3) * 32 >> 4), kSw128DescHi);
-      wgmma_tf32_rs_n32(pv2, ph[j], v, j > 0);
-      wgmma_tf32_rs_n16(pv1, pl[j], v, j > 0);
+      for (int j = 0; j < NJ; ++j) {
+        const uint64_t v = desc_of(vt + ((j >> 2) * 4096 + (j & 3) * 32 >> 4), kSw128DescHi);
+        wgmma_tf32_rs_n32(pv2, ph[j], v, j > 0);
+        wgmma_tf32_rs_n16(pv1, pl[j], v, j > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(pv2);
+      wgmma_pin(pv1);
+      wgmma_pin(ph);
+      wgmma_pin(pl);
+      mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        o[i] = fmaf(o[i], corr[(i >> 1) & 1], (pv2[8 + i] + pv1[i]) + pv2[i]);
+    } else {
+      // pv = p v from zero, three passes a k-step into one accumulator:
+      // p lo V hi, p hi V lo, p hi V hi.
+      float pv[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint32_t vh = vt + ((j >> 2) * 256 * D + (j & 3) * 32 >> 4);
+        const uint64_t h = desc_of(vh, kSw128DescHi);
+        const uint64_t lo = desc_of(vh + (128 * D >> 4), kSw128DescHi);
+        wgmma_tf32_rs<D>(pv, pl[j], h, j > 0);
+        wgmma_tf32_rs<D>(pv, ph[j], lo, 1);
+        wgmma_tf32_rs<D>(pv, ph[j], h, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_pin(pv);
+      wgmma_pin(ph);
+      wgmma_pin(pl);
+      mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = fmaf(o[i], corr[(i >> 1) & 1], pv[i]);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_pin(pv2);
-    wgmma_pin(pv1);
-    wgmma_pin(ph);
-    wgmma_pin(pl);
-    mbar_arrive(&empty[st]);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i)
-      o[i] = fmaf(o[i], corr[(i >> 1) & 1], (pv2[8 + i] + pv1[i]) + pv2[i]);
   }
 
 #pragma unroll
@@ -1744,14 +1786,16 @@ __device__ __forceinline__ void consume_fwd_tf32(
   }
 }
 
-template <int DROP>
-__global__ void __launch_bounds__(kFwdT32Threads, 1)
+template <int D, int DROP>
+__global__ void __launch_bounds__(fwd_t32_threads(D), 1)
 flash_fwd_wgmma_tf32(const LunarisK2FwdArgs a, const uint8_t* split) {
   constexpr int BK = kFwdT32BK;
-  constexpr int ST = kFwdT32Stages;
+  constexpr int ST = fwd_t32_stages(D);
+  constexpr int TB = tf32_fwd_tile_bytes(D);
+  constexpr int C = fwd_t32_consumers(D);
   extern __shared__ uint8_t fwd_t32_smem[];
   uint8_t* ring = fwd_t32_smem + ((1024 - (smem_addr(fwd_t32_smem) & 1023)) & 1023);
-  float* bias_ring = reinterpret_cast<float*>(ring + ST * kTf32FwdTileBytes);
+  float* bias_ring = reinterpret_cast<float*>(ring + ST * TB);
   uint64_t* full = reinterpret_cast<uint64_t*>(bias_ring + ST * BK);
   uint64_t* empty = full + ST;
 
@@ -1764,19 +1808,21 @@ flash_fwd_wgmma_tf32(const LunarisK2FwdArgs a, const uint8_t* split) {
   if (tid == 0) {
     for (int i = 0; i < ST; ++i) {
       mbar_init(&full[i], 32);
-      mbar_init(&empty[i], 128 * kFwdT32Consumers);
+      mbar_init(&empty[i], 128 * C);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp >= 4 * kFwdT32Consumers) {
+  if (warp >= 4 * C) {
     // The producer warpgroup: one warp loads, the registers go to the
-    // consumers (3 x 128 x 160 + 128 x 32 = the block's 512 x 128).
-    setmaxnreg_dec<32>();
-    if (warp != 4 * kFwdT32Consumers) return;
+    // consumers (D 16: 3 x 128 x 160 + 128 x 32 = the block's 512 x 128;
+    // D 48, 64: 2 x 128 x 232 + 128 x 40 <= 384 x 168).
+    if constexpr (C == 3) setmaxnreg_dec<32>();
+    else setmaxnreg_dec<40>();
+    if (warp != 4 * C) return;
     const float* biasb = a.bias + static_cast<long long>(bh % a.H) * Nk;
-    const uint8_t* src = split + static_cast<long long>(bh) * tiles * kTf32FwdTileBytes;
+    const uint8_t* src = split + static_cast<long long>(bh) * tiles * TB;
     for (int tile = 0; tile < tiles; ++tile) {
       const int st = tile % ST;
       const int k0 = tile * BK;
@@ -1784,34 +1830,34 @@ flash_fwd_wgmma_tf32(const LunarisK2FwdArgs a, const uint8_t* split) {
       for (int c = lane; c < BK; c += 32)
         bias_ring[st * BK + c] = k0 + c < Nk ? biasb[k0 + c] : -INFINITY;
       if (lane == 0) {
-        mbar_arrive_tx(&full[st], kTf32FwdTileBytes);
-        bulk_load(ring + st * kTf32FwdTileBytes,
-                  src + static_cast<long long>(tile) * kTf32FwdTileBytes,
-                  kTf32FwdTileBytes, &full[st]);
+        mbar_arrive_tx(&full[st], TB);
+        bulk_load(ring + st * TB, src + static_cast<long long>(tile) * TB, TB,
+                  &full[st]);
       } else {
         mbar_arrive(&full[st]);
       }
     }
   } else {
-    setmaxnreg_inc<160>();
-    consume_fwd_tf32<DROP>(a, ring, bias_ring, full, empty, tiles);
+    if constexpr (C == 3) setmaxnreg_inc<160>();
+    else setmaxnreg_inc<232>();
+    consume_fwd_tf32<D, DROP>(a, ring, bias_ring, full, empty, tiles);
   }
 }
 
-template <int DROP>
+template <int D, int DROP>
 int launch_wgmma_tf32(const LunarisK2FwdArgs& a, const void* split,
                       cudaStream_t stream) {
   // The tiles move 16 bytes at a time; q is read 4 bytes, o written 8.
   if (split == nullptr || reinterpret_cast<uintptr_t>(split) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a.o) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = flash_fwd_wgmma_tf32<DROP>;
-  constexpr int smem = t32_fwd_smem_bytes();
+  const auto kernel = flash_fwd_wgmma_tf32<D, DROP>;
+  constexpr int smem = t32_fwd_smem_bytes(D);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Nq + kFwdT32Rows - 1) / kFwdT32Rows, a.BH);
-  kernel<<<grid, kFwdT32Threads, smem, stream>>>(
+  const dim3 grid((a.Nq + fwd_t32_rows(D) - 1) / fwd_t32_rows(D), a.BH);
+  kernel<<<grid, fwd_t32_threads(D), smem, stream>>>(
       a, static_cast<const uint8_t*>(split));
   return static_cast<int>(cudaGetLastError());
 }

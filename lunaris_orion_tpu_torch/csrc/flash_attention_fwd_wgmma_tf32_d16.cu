@@ -7,5 +7,5 @@
 
 int lunaris_k2_fwd_wgmma_tf32_d16(const LunarisK2FwdArgs& a, const void* split,
                                   cudaStream_t s) {
-  return launch_wgmma_tf32<kDropOff>(a, split, s);
+  return launch_wgmma_tf32<16, kDropOff>(a, split, s);
 }

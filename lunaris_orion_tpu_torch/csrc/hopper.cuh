@@ -31,13 +31,15 @@
 // The same descriptor serves both: `desc_lo` of the start and
 // `kNarrowDescHi<D>`, joined by `desc_of`.
 //
-// The f32 warpgroup bodies (flash_fwd_wgmma_tf32, flash_bwd_wgmma_tf32: d 16)
-// take TF32 operands, which wgmma reads K-major only. A pre-pass lays them
-// out (flash_attention_common.cuh, "the TF32 tiles"): [rows][8] f32 tiles,
-// one k-step of 8 a row of 32 bytes with the 32-byte swizzle (the narrow
-// descriptor `kNarrowDescHi<16>`), and [rows][32] f32 atoms, four k-steps a
-// row of 128 bytes with the 128-byte swizzle (`kSw128DescHi`; a k-step
-// 32 bytes further on within the row, the next atom after the last).
+// The f32 warpgroup bodies (flash_fwd_wgmma_tf32, flash_bwd_wgmma_tf32: d 16,
+// 48, 64) take TF32 operands, which wgmma reads K-major only. A pre-pass
+// lays them out (flash_attention_common.cuh, "the TF32 tiles"): [rows][8]
+// f32 tiles, one k-step of 8 a row of 32 bytes with the 32-byte swizzle (the
+// narrow descriptor `kNarrowDescHi<16>`, for A and B alike), and [rows][32]
+// f32 atoms, four k-steps a row of 128 bytes with the 128-byte swizzle
+// (`kSw128DescHi`; a k-step 32 bytes further on within the row, the next
+// atom after the last). `wgmma_tf32_rs` / `wgmma_tf32_ss` take n 48 and 64
+// for their widths.
 
 #pragma once
 
@@ -562,6 +564,64 @@ __device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_tf32_rs_n48(float (&d)[24],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n48(float (&d)[24], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
                                                   uint64_t b, int scale_d) {
   asm volatile(
@@ -587,6 +647,31 @@ __device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same by n: 48 and 64 (the head sizes of the wide f32 bodies), and 16
+// and 32 (A from shared memory only for those two).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, b, scale_d);
+  else {
+    static_assert(N == 48, "wgmma_tf32_rs: n 48 or 64");
+    wgmma_tf32_rs_n48(d, a, b, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_tf32_ss_n64(d, a, b, scale_d);
+  else if constexpr (N == 48) wgmma_tf32_ss_n48(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_tf32_ss_n32(d, a, b, scale_d);
+  else {
+    static_assert(N == 16, "wgmma_tf32_ss: n 16, 32, 48 or 64");
+    wgmma_tf32_ss_n16(d, a, b, scale_d);
+  }
 }
 
 // ---- bulk copies -----------------------------------------------------------

@@ -71,8 +71,8 @@ SIGNATURES = {
     "lunaris_k2_bwd_wgmma_smem_bytes": (),
     "lunaris_k2_fwd_wgmma_narrow_smem_bytes": (_I,),
     "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (_I,),
-    "lunaris_k2_fwd_wgmma_tf32_smem_bytes": (),
-    "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (),
+    "lunaris_k2_fwd_wgmma_tf32_smem_bytes": (_I,),
+    "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (_I,),
 }
 
 

@@ -20,13 +20,14 @@ other device and never falls back.
                     whose row is the swizzle's span, 32 or 64 bytes, the
                     bias as a k-step of its own, each tile's softmax under
                     the tile before's p v);
-                    f32 at d 16 where Nq and Nk are at least
-                    TF32_WGMMA_MIN_ROWS: flash_fwd_wgmma_tf32, three
-                    warpgroups of 64 rows, wgmma in three TF32 passes a
-                    product on key tiles that a pre-pass (`tf32_tiles`)
-                    split into hi and lo and laid out as wgmma reads them;
-            "mma"   d 16, 32 (and f32 at 48, 64; bf16 at d 16 and 32
-                    where Nq or Nk is short): both products on the
+                    f32 at d 16, 48 and 64 where Nq and Nk are at least
+                    TF32_WGMMA_MIN_ROWS[d]: flash_fwd_wgmma_tf32, three
+                    (d 16) or two (d 48, 64) warpgroups of 64 rows, wgmma
+                    in three TF32 passes a product on key tiles that a
+                    pre-pass (`tf32_tiles`) split into hi and lo and laid
+                    out as wgmma reads them;
+            "mma"   d 16, 32, 48, 64 (f32 and bf16 at d 16 where Nq or Nk
+                    is short, bf16 at 32 too): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
                     (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
@@ -48,13 +49,14 @@ other device and never falls back.
                      and Nk are at least NARROW_MIN_ROWS[d] (its narrow form:
                      three warpgroups of 64 keys that meet only at the ds
                      tiles),
-                     and for f32 at d 16 where Nq and Nk are at least
-                     TF32_WGMMA_MIN_ROWS (flash_bwd_wgmma_tf32: two
-                     warpgroups of 64 keys, the five products in three TF32
-                     passes on wgmma, on the pre-pass's tiles),
+                     and for f32 at d 16, 48 and 64 where Nq and Nk are at
+                     least TF32_WGMMA_BWD_MIN_ROWS[d] (flash_bwd_wgmma_tf32:
+                     two warpgroups of 64 keys at d 16, one at 48 and 64,
+                     the five products in three TF32 passes on wgmma, on
+                     the pre-pass's tiles; at 48 and 64 every shape),
                      "mma" at d 16 and 32
                      (five products on the tensor cores; f32 in three TF32
-                     passes), "simt" at d 8 and f32 48 and 64;
+                     passes), "simt" at d 8;
             "split"  the dk/dv kernel and a dq kernel (replace
                      `_bwd_dkv_kernel` and `_bwd_dq_kernel`), each with the
                      forward's "mma" and "simt" bodies
@@ -82,7 +84,7 @@ count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
 of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
 among those, the narrow ones (bf16 d 16 and 32), and `tf32_wgmma_launches` and
-`bwd_tf32_wgmma_launches` the f32 ones (d 16). `split_launches` counts the
+`bwd_tf32_wgmma_launches` the f32 ones (d 16, 48, 64). `split_launches` counts the
 launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
 backward.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
@@ -125,11 +127,15 @@ NARROW_HEAD_DIMS = (16, 32)          # of those, the narrow bodies' (rows of 32,
 # win at N 256 (the windowed fold), 512 and 1024 and lose from 2048 on; at
 # d 32, where mma.sync's products cost more, they win at N 256 only.
 NARROW_MIN_ROWS = {16: 2048, 32: 512}
-TF32_WGMMA_HEAD_DIMS = (16,)         # the f32 warpgroup bodies' (three TF32 passes)
-# Where Nq or Nk is shorter the f32 warpgroup bodies' pre-pass and set-up
-# are not paid back (chip_smoke.py phases 4 and 7 time both bodies in turns
-# at N 256 to 4096; PERF.md section 6).
-TF32_WGMMA_MIN_ROWS = 2048
+TF32_WGMMA_HEAD_DIMS = (16, 48, 64)  # the f32 warpgroup bodies' (three TF32 passes)
+# By head size: where Nq or Nk is shorter the f32 warpgroup forward's
+# pre-pass and set-up are not paid back, and the fused backward's at
+# TF32_WGMMA_BWD_MIN_ROWS (chip_smoke.py phases 4 and 7 time both bodies in
+# turns at N 256 to 4096; PERF.md section 6). At d 48 and 64 the backward's
+# warpgroup body beats the CUDA-core one it replaced at every N measured,
+# N 256 (the windowed fold) included.
+TF32_WGMMA_MIN_ROWS = {16: 2048, 48: 1024, 64: 1024}
+TF32_WGMMA_BWD_MIN_ROWS = {16: 2048, 48: 0, 64: 0}
 FWD_BODIES = ("simt", "mma", "wgmma")  # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
@@ -341,11 +347,23 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # The f32 warpgroup bodies' pre-pass (csrc/flash_attention_tf32_split.cu):
-# modes and the bytes of one tile of TF32_TILE rows (keys or queries).
+# modes, and the rows of a tile (keys or queries) and of a backward query
+# sub-tile at d 48 and 64.
 TF32_TILE = 64
+TF32_SUB = 16
 TF32_FWD, TF32_BWD_Q, TF32_BWD_K = 0, 1, 2
-TF32_TILE_BYTES = {TF32_FWD: 16384, TF32_BWD_Q: 33280, TF32_BWD_K: 8192}
 _LOG2E = float(np.float32(1.4426950408889634))
+
+
+def tf32_tile_bytes(mode: int, d: int) -> int:
+    """The bytes of one tile of the pre-pass (`flash_attention_common.cuh`,
+    "the TF32 tiles"): a forward key tile 1024 d, a backward query tile
+    2048 d + 512, a backward key tile 8192 at d 16 and 1536 d at 48, 64."""
+    if mode == TF32_FWD:
+        return 1024 * d
+    if mode == TF32_BWD_Q:
+        return 2048 * d + 512
+    return 8192 if d == 16 else 1536 * d
 
 
 def _sw32(r, c):
@@ -368,76 +386,102 @@ def perm8(k):
 
 def tf32_tile_count(mode: int, n: int) -> int:
     """Tiles of the pre-pass a BH row: ceil(N / 64), and for TF32_BWD_K an
-    even count (a block of the backward takes two)."""
+    even count (a block of the d 16 backward takes two)."""
     if mode == TF32_BWD_K:
         return 2 * -(-n // (2 * TF32_TILE))
     return -(-n // TF32_TILE)
 
 
-def _tile_maps():
-    """Float offsets within a tile, [64 rows, 16 dims] each: the row-major
-    pair (hi; lo is 1024 floats on), the transposed pair with the rows
-    permuted (hi, lo), and the transposed pair in order."""
+def _tile_maps(mode: int, d: int):
+    """Where the pre-pass puts each operand of a tile, as byte offsets
+    within the tile: [(source, hi offsets, lo offsets)], each [64 rows, d],
+    source 0 the call's `a` (k; qs = q d^-1/2), 1 its `b` (v; dO); then the
+    offsets [64] of -lse log2 e and of delta (TF32_BWD_Q), else None. "Rows"
+    are [R][8] tiles of the 32-byte swizzle, d / 8 of them (lo 4 R d bytes
+    on); "trows" the same transposed, [d][8] a k-step of 8 rows; "cols" the
+    transposed [2 d][32] atoms of the 128-byte swizzle, rows d.. lo."""
     r = torch.arange(TF32_TILE)[:, None]
-    d = torch.arange(16)[None, :]
-    rows = ((d >> 3) * 2048 + _sw32(r, d & 7)) // 4
-    atom = (r >> 5) * 4096
-    cols = lambda c: ((atom + _sw128(d, c & 31)) // 4,
-                      (atom + _sw128(16 + d, c & 31)) // 4)
-    return rows, cols(perm8(r)), cols(r)
+    c = torch.arange(d)[None, :]
+
+    def rows(base, rr, n):
+        off = base + (c >> 3) * 32 * n + _sw32(rr, c & 7)
+        return off, off + 4 * n * d
+
+    def trows(base, rr, col, n):
+        off = base + (rr >> 3) * 32 * d + _sw32(c, col & 7)
+        return off, off + 4 * n * d
+
+    def cols(base, col):
+        atom = base + (r >> 5) * 256 * d
+        return atom + _sw128(c, col & 31), atom + _sw128(d + c, col & 31)
+
+    if mode == TF32_FWD:
+        return [(0, *rows(0, r, TF32_TILE)), (1, *cols(512 * d, perm8(r)))], None
+    if mode == TF32_BWD_K:
+        if d == 16:
+            return [(0, *cols(0, r))], None
+        return [(0, *rows(0, r, TF32_TILE)), (1, *rows(512 * d, r, TF32_TILE)),
+                (0, *trows(1024 * d, r, r, TF32_TILE))], None
+    if d == 16:
+        stats = 2048 * d + 4 * r[:, 0]
+        return [(0, *rows(0, r, TF32_TILE)), (1, *rows(8192, r, TF32_TILE)),
+                (0, *cols(16384, perm8(r))), (1, *cols(24576, perm8(r)))], (
+                    stats, stats + 4 * TF32_TILE)
+    sub = (r // TF32_SUB) * (512 * d + 128)
+    rs = r % TF32_SUB
+    stats = (sub + 512 * d + 4 * rs)[:, 0]
+    return [(0, *rows(sub, rs, TF32_SUB)), (1, *rows(sub + 128 * d, rs, TF32_SUB)),
+            (0, *trows(sub + 256 * d, rs, perm8(rs), TF32_SUB)),
+            (1, *trows(sub + 384 * d, rs, perm8(rs), TF32_SUB))], (
+                stats, stats + 4 * TF32_SUB)
 
 
 def tf32_tiles_plain(mode: int, a, b=None, lse=None, delta=None,
                      scale: float = 1.0) -> torch.Tensor:
     """The plain version of the pre-pass `tf32_tiles`: the same bytes, as
-    an f32 tensor [BH, tiles, TF32_TILE_BYTES[mode] / 4].
+    an f32 tensor [BH, tiles, tf32_tile_bytes(mode, d) / 4], d 16, 48 or 64
+    (`_tile_maps` says where each value goes).
 
-    TF32_FWD: a = k, b = v [B, H, N, 16] f32; a key tile is K hi and K lo
-    as [64][8] tiles (d 0-7, 8-15) with the 32-byte swizzle, then V^T as
-    two [32][32] atoms with the 128-byte swizzle, rows 0-15 V hi, 16-31 V
-    lo, keys permuted by `perm8`. TF32_BWD_Q: a = q, b = dO, lse [B*H, N],
-    delta [B, H, N], scale d^-1/2: qs = q * scale and dO as the forward's
-    K, qs^T and dO^T as its V^T, then -lse log2 e (-inf past N) and delta.
-    TF32_BWD_K: a = k; K^T as the forward's V^T, keys in order, an even
-    count of tiles. Rows past N are zeros; hi and lo are `split_tf32`'s."""
+    TF32_FWD: a = k, b = v [B, H, N, d] f32; a key tile is K hi and K lo
+    as rows, then V^T as two atoms (keys 0-31, 32-63), rows 0..d-1 V hi,
+    d..2d-1 V lo, keys permuted by `perm8`. TF32_BWD_Q: a = q, b = dO, lse
+    [B*H, N], delta [B, H, N], scale d^-1/2: at d 16 qs = q * scale and dO
+    as the forward's K, qs^T and dO^T as its V^T, then -lse log2 e (-inf
+    past N) and delta; at d 48, 64 four sub-tiles of 16 queries, each qs
+    and dO as rows, qs^T and dO^T as transposed rows (queries permuted),
+    then its 16 of -lse log2 e and of delta. TF32_BWD_K: a = k (b = v at
+    d 48, 64); d 16: K^T as the forward's V^T, keys in order; d 48, 64: K
+    and V as rows, then K^T as transposed rows; an even count of tiles.
+    Rows past N are zeros; hi and lo are `split_tf32`'s."""
     bsz, h, n, d = a.shape
-    if d != 16:
-        raise ValueError("tf32_tiles: head size 16 only")
+    if d not in TF32_WGMMA_HEAD_DIMS:
+        raise ValueError(f"tf32_tiles: head size in {TF32_WGMMA_HEAD_DIMS}")
+    if mode not in (TF32_FWD, TF32_BWD_Q, TF32_BWD_K):
+        raise ValueError(f"tf32_tiles: no mode {mode}")
     bh, tiles = bsz * h, tf32_tile_count(mode, n)
     pad = tiles * TF32_TILE - n
-    out = torch.zeros(bh, tiles, TF32_TILE_BYTES[mode] // 4,
+    out = torch.zeros(bh, tiles, tf32_tile_bytes(mode, d) // 4,
                       dtype=torch.float32, device=a.device)
-    rows, perm, order = _tile_maps()
     shaped = lambda x: torch.nn.functional.pad(
         x.float().reshape(bh, n, d), (0, 0, 0, pad)).reshape(
             bh, tiles, TF32_TILE, d)
-
-    def put(x, row_base=None, col_base=None, cols=perm):
-        hi, lo = split_tf32(shaped(x))
-        if row_base is not None:
-            out[:, :, row_base + rows] = hi
-            out[:, :, row_base + 1024 + rows] = lo
-        if col_base is not None:
-            out[:, :, col_base + cols[0]] = hi
-            out[:, :, col_base + cols[1]] = lo
-
-    if mode == TF32_FWD:
-        put(a, row_base=0)
-        put(b, col_base=2048)
-    elif mode == TF32_BWD_Q:
-        qs = a.float() * torch.tensor(scale, dtype=torch.float32)
-        put(qs, row_base=0, col_base=4096)
-        put(b, row_base=2048, col_base=6144)
+    if mode == TF32_BWD_Q:
+        a = a.float() * torch.tensor(scale, dtype=torch.float32)
+    maps, stats = _tile_maps(mode, d)
+    split = {}
+    for src, hi_off, lo_off in maps:
+        if src not in split:
+            split[src] = split_tf32(shaped((a, b)[src]))
+        hi, lo = split[src]
+        out[:, :, hi_off.to(a.device) // 4] = hi
+        out[:, :, lo_off.to(a.device) // 4] = lo
+    if stats is not None:
         nl = -lse.reshape(bh, n).float() * torch.tensor(_LOG2E)
-        out[:, :, 8192:8256] = torch.nn.functional.pad(
+        out[:, :, stats[0].to(a.device) // 4] = torch.nn.functional.pad(
             nl, (0, pad), value=-float("inf")).reshape(bh, tiles, TF32_TILE)
-        out[:, :, 8256:8320] = torch.nn.functional.pad(
+        out[:, :, stats[1].to(a.device) // 4] = torch.nn.functional.pad(
             delta.reshape(bh, n).float(), (0, pad)).reshape(
                 bh, tiles, TF32_TILE)
-    elif mode == TF32_BWD_K:
-        put(a, col_base=0, cols=order)
-    else:
-        raise ValueError(f"tf32_tiles: no mode {mode}")
     return out
 
 
@@ -450,7 +494,7 @@ def tf32_tiles(mode: int, a, b=None, lse=None, delta=None,
     if a.device.type == "cpu":
         return tf32_tiles_plain(mode, a, b, lse, delta, scale)
     bsz, h, n, d = a.shape
-    shape = (bsz * h, tf32_tile_count(mode, n), TF32_TILE_BYTES[mode] // 4)
+    shape = (bsz * h, tf32_tile_count(mode, n), tf32_tile_bytes(mode, d) // 4)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=a.device)
     if out.shape != shape or not out.is_contiguous() or out.data_ptr() % 16:
@@ -522,7 +566,8 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
     passes); the CUDA cores ("simt") otherwise; and for bf16 at
     WGMMA_HEAD_DIMS and f32 at TF32_WGMMA_HEAD_DIMS, where the kernel has a
     warpgroup body ("wgmma": wgmma fed by TMA), that one. `wgmma` names the
-    body it replaced there (f32: "mma"), which
+    body it replaced there (f32: the forward's "mma", the fused backward's
+    "mma" at d 16 and "simt" at 48, 64), which
     `body` may still name, as it may name "mma" wherever the kernel has a
     tensor-core body. `body` "simt" reaches the CUDA-core kernel where
     the tensor-core one is the default (f32 at every head size, bf16 at
@@ -549,20 +594,23 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
     return body
 
 
-def _short_rows_body(dtype: torch.dtype, d: int, nq: int,
-                     nk: int) -> str | None:
-    """The body a call at d 16 (bf16 and f32) or 32 (bf16) takes where its
-    rows are short, else None (the default of `_body`): the narrow
-    warpgroup bodies (bf16) start a
-    producer, a ring and their barriers per block, and the f32 ones a
-    pre-pass as well, which the short rows of a windowed fold (Nq = Nk =
-    the window) or a 32 px model do not pay back."""
+def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
+                     backward: bool = False) -> str | None:
+    """The body a call at d 16 (bf16 and f32), 32 (bf16) or 48, 64 (f32)
+    takes where its rows are short, else None (the default of `_body`): the
+    narrow warpgroup bodies (bf16) start a producer, a ring and their
+    barriers per block, and the f32 ones a pre-pass as well, which the
+    short rows of a windowed fold (Nq = Nk = the window) or a 32 px model
+    do not pay back. f32 keeps the forward's mma.sync body under
+    TF32_WGMMA_MIN_ROWS[d], the fused backward's (`backward`) under
+    TF32_WGMMA_BWD_MIN_ROWS[d]: mma.sync at d 16 (at 48 and 64 the
+    CUDA-core body would be, but it loses at every N)."""
     bf16 = dtype == torch.bfloat16
     if bf16 and d in NARROW_HEAD_DIMS and min(nq, nk) < NARROW_MIN_ROWS[d]:
         return "mma"
-    if not bf16 and d in TF32_WGMMA_HEAD_DIMS and min(nq, nk) < (
-            TF32_WGMMA_MIN_ROWS):
-        return "mma"
+    rows = TF32_WGMMA_BWD_MIN_ROWS if backward else TF32_WGMMA_MIN_ROWS
+    if not bf16 and d in TF32_WGMMA_HEAD_DIMS and min(nq, nk) < rows[d]:
+        return "mma" if d == 16 or not backward else "simt"
     return None
 
 
@@ -590,13 +638,14 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     narrow warpgroup body ("wgmma", 192 query rows a block, key tiles of
     128 at d 16 and 64 at d 32) where Nq and Nk are both at least
     NARROW_MIN_ROWS[d], the mma.sync body where either is shorter (the
-    windowed fold); `body` reaches either, and "simt" at d 16. f32 at d 16 takes its own warpgroup body ("wgmma", 192 query
-    rows a block, key tiles of 64 from the pre-pass) where Nq and Nk are
-    both at least TF32_WGMMA_MIN_ROWS, the mma.sync body where either is
-    shorter; `body` reaches either. d 16, 32, 48, 64 otherwise take
-    the tensor-core body of their type (f32: three TF32 passes, keys in
-    tiles of 32 at d 48 and 64), d 8 the CUDA-core body (`body` as in
-    `_body`). At d 16 dropout and raggedness are template parameters; the
+    windowed fold); `body` reaches either, and "simt" at d 16. f32 at d 16,
+    48 and 64 takes its own warpgroup body ("wgmma", 192 query rows a block
+    at d 16 and 128 at 48 and 64, key tiles of 64 from the pre-pass) where
+    Nq and Nk are both at least TF32_WGMMA_MIN_ROWS[d], the mma.sync body
+    where either is shorter; `body` reaches either. d 16, 32, 48, 64
+    otherwise take the tensor-core body of their type (f32: three TF32
+    passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA-core body
+    (`body` as in `_body`). At d 16 dropout and raggedness are template parameters; the
     other head sizes of those bodies have one instance each, which masks
     the last key tile and reads the dropout flag at run time. Nq only sets
     the grid: every instance guards the rows past it."""
@@ -740,22 +789,25 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     NARROW_MIN_ROWS[d], else the mma.sync body, which `body="mma"` reaches
     at every shape. f32 at d 16 takes its own warpgroup body ("wgmma": 128 keys
     a block, query tiles of 64 from the pre-pass) where Nq and Nk are both
-    at least TF32_WGMMA_MIN_ROWS, else the mma.sync body, which
-    `body="mma"` reaches at every shape.
+    at least TF32_WGMMA_BWD_MIN_ROWS[16], else the mma.sync body, which
+    `body="mma"` reaches at every shape; f32 at d 48 and 64 the same body
+    at its width ("wgmma": 64 keys a block, query tiles of 64 in sub-tiles
+    of 16) at every shape (TF32_WGMMA_BWD_MIN_ROWS[d] is 0: the CUDA-core
+    body it replaced, which `body="simt"` reaches, loses at every N).
     d 16 and 32 take the tensor-core body of their type (bf16: the dk/dv
     body with a fifth product, dq; f32: its own body, five products in
-    three TF32 passes), d 8 and f32 at 48 and 64 the CUDA-core body.
+    three TF32 passes), d 8 the CUDA-core body.
     `body` as in `_body`. On the tensor cores a block owns 256 keys in bf16
     at d 16 (8 warps), 64 otherwise; f32 walks the queries in tiles of 64
     at d 16 and 32 at d 32; at d 16 dropout and a ragged Nq are template
     parameters; every other instance of those bodies fills the last query
     tile and reads the dropout flag at run time."""
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
-                 body or _short_rows_body(dtype, d, nq, nk),
+                 body or _short_rows_body(dtype, d, nq, nk, backward=True),
                  wgmma="mma" if d in NARROW_HEAD_DIMS else "simt")
     if body == "wgmma":
         rows = (192 if d in NARROW_HEAD_DIMS and dtype == torch.bfloat16
-                else 128)
+                else 64 if dtype == torch.float32 and d > 32 else 128)
         return FusedInstance(body, d, 64, rows, -(-nk // rows),
                              "on" if dropout_rate > 0.0 else "off",
                              nq % 64 != 0)
@@ -807,13 +859,13 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
     if f32_wg:
         # The pre-pass's query tiles, then its key tiles, in one buffer.
         nk = k.shape[2]
-        sizes = [b * h * tf32_tile_count(m, n) * TF32_TILE_BYTES[m] // 4
+        sizes = [b * h * tf32_tile_count(m, n) * tf32_tile_bytes(m, d) // 4
                  for m, n in ((TF32_BWD_Q, nq), (TF32_BWD_K, nk))]
         split = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
         tf32_tiles(TF32_BWD_Q, q, do, lse, delta, scale,
                    out=split[:sizes[0]].view(
                        b * h, tf32_tile_count(TF32_BWD_Q, nq), -1))
-        tf32_tiles(TF32_BWD_K, k, out=split[sizes[0]:].view(
+        tf32_tiles(TF32_BWD_K, k, v, out=split[sizes[0]:].view(
             b * h, tf32_tile_count(TF32_BWD_K, nk), -1))
     err = _build.library().lunaris_flash_attention_bwd(
         kernel, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

@@ -156,7 +156,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 64, 1000, 1000, 0.0, ("wgmma", 128, 128, 8, "off", True)),
     (BF16, 64, 16384, 16384, 0.1, ("wgmma", 128, 128, 128, "on", False)),
     (BF16, 48, 8192, 16384, 0.0, ("wgmma", 128, 128, 64, "off", False)),
-    (F32, 48, 4096, 4096, 0.0, ("mma", 32, 64, 64, "runtime", True)),
+    # f32 at d 48 and 64: its warpgroup body, 128 rows, the pre-pass's key
+    # tiles of 64, where neither Nq nor Nk is under TF32_WGMMA_MIN_ROWS[d];
+    # mma.sync's run-time instance (keys in tiles of 32) where one is
+    (F32, 48, 4096, 4096, 0.0, ("wgmma", 64, 128, 32, "off", False)),
     (F32, 64, 1000, 1000, 0.1, ("mma", 32, 64, 16, "runtime", True)),
     (F32, 8, 4096, 4096, 0.1, ("simt", 64, 128, 32, "runtime", True)),
     # head size 32 (feature_dim 256, the low-end recipe): bf16 takes the
@@ -178,8 +181,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
     dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
-    f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies, d 16, 32
-    (and f32 at 48, 64) the tensor cores on mma.sync (f32:
+    f32 at d 16, 48 and 64 (unless Nq or Nk is short) take the warpgroup
+    bodies, d 16, 32 (and f32 at 48, 64) the tensor cores on mma.sync (f32:
     three TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA
     cores; at d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
@@ -218,11 +221,12 @@ def test_forward_instance_body_argument():
     for d in k2.MMA_HEAD_DIMS:
         assert k2.forward_instance(F32, d, 64, 64, 0.0, body="simt").body == \
             "simt"
-    assert k2.forward_instance(F32, 16, 64, 64, 0.0, body="wgmma").body == \
-        "wgmma"
+    for d in k2.TF32_WGMMA_HEAD_DIMS:
+        assert k2.forward_instance(F32, d, 64, 64, 0.0, body="wgmma").body \
+            == "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
                            (BF16, 64, "simt"), (F32, 32, "wgmma"),
-                           (F32, 48, "wgmma"), (BF16, 32, "simt")):
+                           (F32, 8, "wgmma"), (BF16, 32, "simt")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
     for dtype, d in ((torch.float16, 16), (BF16, 24), (F32, 128)):
@@ -253,9 +257,12 @@ def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
         "wgmma", 64, 128, 128)
     assert k2.fused_instance(BF16, d, 16384, 16384, 0.1,
                              body="simt").body == "simt"
-    # f32 keeps its own bodies at these head sizes
+    # f32 has its own bodies at these head sizes: at 64 rows the forward
+    # keeps mma.sync, the fused backward takes its warpgroup body at every N
+    # (`test_tf32_warpgroup_bodies_at_the_recipe_widths`)
     assert k2.forward_instance(F32, d, 64, 64, 0.0).body == "mma"
-    assert k2.fused_instance(F32, d, 64, 64, 0.0).body == "simt"
+    assert k2.fused_instance(F32, d, 64, 64, 0.0).body == "wgmma"
+    assert k2.fused_instance(F32, d, 64, 64, 0.0, body="simt").body == "simt"
 
 
 @pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
@@ -296,7 +303,7 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(BF16, 16, nq, nk, rate, body="wgmma")
     # f32 has its own bodies at d 16, on its own threshold
-    f32 = "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS else "mma"
+    f32 = "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[16] else "mma"
     assert k2.forward_instance(F32, 16, nq, nk, rate).body == f32
     assert k2.fused_instance(F32, 16, nq, nk, rate).body == f32
 
@@ -359,15 +366,17 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
                                          (1024, 1024, 0.1), (256, 256, 0.1)])
 def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     """f32 at d 16 (the default type and width) takes its warpgroup bodies
-    where neither Nq nor Nk is shorter than TF32_WGMMA_MIN_ROWS: the
+    where neither Nq nor Nk is shorter than TF32_WGMMA_MIN_ROWS[16]: the
     forward with three warpgroups of 64 rows on the pre-pass's key tiles of
     64, the fused backward with 128 keys a block and query tiles of 64, the
     fused variant by default. Shorter rows (the windowed fold, N 256; a
     32 px model, N 1024) keep the mma.sync bodies, which `body="mma"`
     reaches at every shape, as `body="simt"` reaches the CUDA-core ones;
-    f32 at d 32, 48 and 64, the split backward and bf16 keep their bodies."""
-    assert k2.TF32_WGMMA_HEAD_DIMS == (16,)
-    long = min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS
+    f32 at d 32, the split backward and bf16 keep their bodies (d 48 and
+    64: `test_tf32_warpgroup_bodies_at_the_recipe_widths`)."""
+    assert k2.TF32_WGMMA_HEAD_DIMS == (16, 48, 64)
+    assert k2.TF32_WGMMA_BWD_MIN_ROWS[16] == k2.TF32_WGMMA_MIN_ROWS[16]
+    long = min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[16]
     fwd = k2.forward_instance(F32, 16, nq, nk, rate)
     bwd = k2.fused_instance(F32, 16, nq, nk, rate)
     if long:
@@ -390,14 +399,63 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     assert k2.backward_instance(F32, 16, nq, nk, rate).body == "simt"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(F32, 16, nq, nk, rate, body="wgmma")
-    for d in (32, 48, 64):
-        assert k2.forward_instance(F32, d, nq, nk, rate).body == "mma"
-        with pytest.raises(ValueError, match="does not take"):
-            k2.forward_instance(F32, d, nq, nk, rate, body="wgmma")
+    assert k2.forward_instance(F32, 32, nq, nk, rate).body == "mma"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.forward_instance(F32, 32, nq, nk, rate, body="wgmma")
     assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
     assert k2.forward_instance(BF16, 16, nq, nk, rate) == \
         k2.forward_instance(BF16, 16, nq, nk, rate, body=(
             "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS[16] else "mma"))
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
+                                         (16384, 16384, 0.1),
+                                         (8192, 16384, 0.1), (2100, 2100, 0.1),
+                                         (1024, 1024, 0.0), (300, 16384, 0.0),
+                                         (256, 256, 0.1)])
+def test_tf32_warpgroup_bodies_at_the_recipe_widths(d, nq, nk, rate):
+    """f32 at d 48 and 64 (feature_dim 384 and 512: the mid-range and
+    H100-tier widths, in the CLIs' default precision) takes the f32
+    warpgroup bodies where neither Nq nor Nk is shorter than
+    TF32_WGMMA_MIN_ROWS[d]: the forward with two warpgroups of 64 rows on
+    the pre-pass's key tiles of 64, the fused backward with 64 keys a block
+    and query tiles of 64, dropout compiled in or out. Shorter rows keep the
+    bodies they replaced, which `body` reaches at every shape: the forward's
+    mma.sync one (keys in tiles of 32, one run-time instance); the fused
+    backward keeps its warpgroup body at every N (TF32_WGMMA_BWD_MIN_ROWS[d]
+    is 0: the CUDA-core body it replaced loses even at N 256)."""
+    long = min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[d]
+    assert k2.TF32_WGMMA_BWD_MIN_ROWS[d] == 0
+    fwd = k2.forward_instance(F32, d, nq, nk, rate)
+    bwd = k2.fused_instance(F32, d, nq, nk, rate)
+    old_fwd = k2.forward_instance(F32, d, nq, nk, rate, body="mma")
+    old_bwd = k2.fused_instance(F32, d, nq, nk, rate, body="simt")
+    assert (old_fwd.block_k, old_fwd.rows, old_fwd.dropout) == (
+        32, 64, "runtime")
+    assert (old_bwd.block_q, old_bwd.rows, old_bwd.dropout) == (
+        32, 32, "runtime")
+    assert bwd == k2.FusedInstance("wgmma", d, 64, 64, -(-nk // 64),
+                                   "on" if rate else "off", nq % 64 != 0)
+    if long:
+        assert fwd == k2.ForwardInstance("wgmma", d, 64, 128, -(-nq // 128),
+                                         "on" if rate else "off",
+                                         nk % 64 != 0)
+    else:
+        assert fwd == old_fwd
+    assert k2.default_bwd(F32, d) == "fused"
+    for body in ("wgmma", "mma"):
+        assert k2.forward_instance(F32, d, nq, nk, rate, body=body).body \
+            == body
+    for body in ("wgmma", "simt"):
+        assert k2.fused_instance(F32, d, nq, nk, rate, body=body).body \
+            == body
+    with pytest.raises(ValueError, match="does not take"):
+        k2.fused_instance(F32, d, nq, nk, rate, body="mma")
+    assert k2.backward_instance(F32, d, nq, nk, rate).body == "simt"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(F32, d, nq, nk, rate, body="wgmma")
+    assert k2.forward_instance(BF16, d, nq, nk, rate).body == "wgmma"
 
 
 def test_tf32_tiles_on_the_cpu_take_the_plain_version():
@@ -414,7 +472,7 @@ def test_tf32_tiles_on_the_cpu_take_the_plain_version():
     assert got.shape == (2, 2, 4096)
     assert [k2.tf32_tile_count(m, n) for m in (0, 1, 2) for n in (64, 65, 129)] \
         == [1, 2, 3, 1, 2, 3, 2, 2, 4]
-    with pytest.raises(ValueError, match="head size 16"):
+    with pytest.raises(ValueError, match=r"head size in \(16, 48, 64\)"):
         k2.tf32_tiles(k2.TF32_FWD, k[..., :8], v[..., :8])
 
 

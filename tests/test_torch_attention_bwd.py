@@ -178,13 +178,14 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
         inst.dq_blocks - 1) * inst.dq_rows
     # the forward's rule picks the same body for the same call in bf16, but
     # where the forward has a warpgroup body (d 48 and 64, and d 16 and 32
-    # on long rows); f32 has tensor-core forwards (three TF32 passes; at d 16 on
-    # long rows on wgmma) but no split one
+    # on long rows); f32 has tensor-core forwards (three TF32 passes; at d 16,
+    # 48 and 64 on long rows on wgmma) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
-    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < (
-        k2.NARROW_MIN_ROWS[d] if dtype == BF16 else k2.TF32_WGMMA_MIN_ROWS)
     warpgroup = d in (k2.WGMMA_HEAD_DIMS if dtype == BF16
                       else k2.TF32_WGMMA_HEAD_DIMS)
+    short = min(nq, nk) < (
+        k2.NARROW_MIN_ROWS.get(d, 0) if dtype == BF16
+        else k2.TF32_WGMMA_MIN_ROWS.get(d, 0))
     assert fwd == ("wgmma" if warpgroup and not short else
                    inst.body if dtype == BF16 else
                    "mma" if d in k2.MMA_HEAD_DIMS else "simt")
@@ -247,13 +248,20 @@ def test_backward_instance_body_argument():
     (F32, 16, 2000, 300, 0.1, ("mma", 64, 64, 5, "on", True)),
     (F32, 32, 2000, 2000, 0.1, ("mma", 32, 64, 32, "runtime", True)),
     (F32, 32, 300, 2000, 0.0, ("mma", 32, 64, 32, "runtime", True)),
-    (F32, 64, 300, 300, 0.0, ("simt", 32, 32, 10, "runtime", True)),
+    (F32, 64, 300, 300, 0.0, ("wgmma", 64, 64, 5, "off", True)),
     (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, "runtime", True)),
+    # f32 at d 48 and 64: its warpgroup body, 64 keys a block, at every
+    # N (the windowed fold's 256 included)
+    (F32, 48, 4096, 4096, 0.1, ("wgmma", 64, 64, 64, "on", False)),
+    (F32, 64, 16384, 16384, 0.0, ("wgmma", 64, 64, 256, "off", False)),
+    (F32, 64, 2000, 2100, 0.1, ("wgmma", 64, 64, 33, "on", True)),
+    (F32, 48, 256, 256, 0.1, ("wgmma", 64, 64, 4, "on", False)),
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
     Nk, dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
-    64 and f32 at d 16 (unless Nq or Nk is short) take the warpgroup bodies,
+    64 and f32 at d 16, 48 and 64 (unless Nq or Nk is short) take the
+    warpgroup bodies,
     d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
     body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
     and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
@@ -299,8 +307,8 @@ def test_default_bwd(dtype, d, want):
 
 def test_fused_instance_body_argument():
     """`body="simt"` reaches the CUDA-core fused kernel at bf16 d 16, 48
-    and 64 and f32 d 16 and 32, where a tensor-core one is the default;
-    nothing else is on offer."""
+    and 64 and f32 d 16, 32, 48 and 64, where a tensor-core one is the
+    default; nothing else is on offer."""
     old = k2.fused_instance(BF16, 16, 16384, 16384, 0.1, body="simt")
     assert old == k2.FusedInstance("simt", 16, 32, 128, 128, "runtime", True)
     old = k2.fused_instance(F32, 16, 16384, 16384, 0.1, body="simt")
@@ -313,10 +321,15 @@ def test_fused_instance_body_argument():
     assert old == k2.FusedInstance("simt", 64, 32, 32, 63, "runtime", True)
     assert k2.fused_instance(F32, 16, 64, 64, 0.0, body="wgmma").body == \
         "wgmma"
+    # f32 d 48 and 64: the CUDA-core kernel the warpgroup body replaced
+    old = k2.fused_instance(F32, 48, 4096, 4096, 0.1, body="simt")
+    assert old == k2.FusedInstance("simt", 48, 32, 32, 128, "runtime", True)
+    assert k2.fused_instance(F32, 64, 64, 64, 0.0, body="wgmma").body == \
+        "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
                            (BF16, 32, "simt"),
                            (BF16, 48, "mma"), (F32, 32, "wgmma"),
-                           (F32, 64, "wgmma")):
+                           (F32, 64, "mma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)
 

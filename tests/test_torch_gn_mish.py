@@ -302,8 +302,8 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
 def test_c_entry_points_match_their_ctypes_signatures():
     """Every `extern "C"` entry point of csrc/ that `_build.SIGNATURES`
     names takes the arguments, in number and type, that ctypes passes (none
-    for the warpgroup bodies' shared-memory reports but the narrow ones',
-    which take the head size), and every one that
+    for the bf16 warpgroup bodies' shared-memory reports; the narrow and
+    the f32 ones' take the head size), and every one that
     returns a CUDA error or an int is named there."""
     found = {}
     for src in _build.sources():
@@ -354,7 +354,11 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_wgmma_d64.cu",
         "flash_attention_bwd_wgmma_d64_drop.cu",
         "flash_attention_bwd_wgmma_tf32_d16.cu",
-        "flash_attention_bwd_wgmma_tf32_d16_drop.cu", "flash_attention_fwd.cu",
+        "flash_attention_bwd_wgmma_tf32_d16_drop.cu",
+        "flash_attention_bwd_wgmma_tf32_d48.cu",
+        "flash_attention_bwd_wgmma_tf32_d48_drop.cu",
+        "flash_attention_bwd_wgmma_tf32_d64.cu",
+        "flash_attention_bwd_wgmma_tf32_d64_drop.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
@@ -368,6 +372,10 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_wgmma_d64_drop.cu",
         "flash_attention_fwd_wgmma_tf32_d16.cu",
         "flash_attention_fwd_wgmma_tf32_d16_drop.cu",
+        "flash_attention_fwd_wgmma_tf32_d48.cu",
+        "flash_attention_fwd_wgmma_tf32_d48_drop.cu",
+        "flash_attention_fwd_wgmma_tf32_d64.cu",
+        "flash_attention_fwd_wgmma_tf32_d64_drop.cu",
         "flash_attention_stages.cu", "flash_attention_tf32_split.cu",
         "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
         "loss_epilogue.cu"]
@@ -397,12 +405,12 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     # or header names is one that the hash covers.
     fwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_fwd.cuh"' in p.read_text()]
-    assert len(fwd) == 18 and "flash_attention_stages.cu" in fwd
+    assert len(fwd) == 22 and "flash_attention_stages.cu" in fwd
     # Likewise the K2 backward's bodies, and what both share (the Hopper
     # instructions of the warpgroup bodies among it).
     bwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_bwd.cuh"' in p.read_text()]
-    assert len(bwd) == 20 and all(n.startswith("flash_attention_bwd")
+    assert len(bwd) == 24 and all(n.startswith("flash_attention_bwd")
                                  for n in bwd)
     for header in ("flash_attention_fwd.cuh", "flash_attention_bwd.cuh"):
         assert '#include "flash_attention_common.cuh"' in (

@@ -242,8 +242,8 @@ def test_flash_attention_kernel_matches_plain(cuda, n, d, rate, dtype):
     q, k, v, bias = _k2_inputs(cuda, 2, 4, n, n, d, dtype, seed=n + d)
     inst = k2.forward_instance(dtype, d, n, n, rate)
     bf16 = dtype == torch.bfloat16
-    short = d in k2.NARROW_HEAD_DIMS and n < (
-        k2.NARROW_MIN_ROWS[d] if bf16 else k2.TF32_WGMMA_MIN_ROWS)
+    short = n < (k2.NARROW_MIN_ROWS.get(d, 0) if bf16
+                 else k2.TF32_WGMMA_MIN_ROWS.get(d, 0))
     warpgroup = d in (k2.WGMMA_HEAD_DIMS if bf16 else k2.TF32_WGMMA_HEAD_DIMS)
     assert inst.body == ("wgmma" if warpgroup and not short else
                          "mma" if d >= 16 else "simt")
@@ -585,10 +585,13 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, variant, nq, nk, d,
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, dtype, seed=nq + d, rate=rate)
     body = _bwd_body(variant, dtype, d, nq, nk, rate)
     mma_dims = (16, 32) if variant == "fused" else (16, 32, 48, 64)
-    short = d in k2.NARROW_HEAD_DIMS and min(nq, nk) < k2.NARROW_MIN_ROWS[d]
+    bf16 = dtype == torch.bfloat16
+    short = min(nq, nk) < (k2.NARROW_MIN_ROWS.get(d, 0) if bf16
+                           else k2.TF32_WGMMA_BWD_MIN_ROWS.get(d, 0))
     assert body == (
-        "wgmma" if variant == "fused" and dtype == torch.bfloat16
-        and d in k2.WGMMA_HEAD_DIMS and not short else
+        "wgmma" if variant == "fused" and d in (
+            k2.WGMMA_HEAD_DIMS if bf16 else k2.TF32_WGMMA_HEAD_DIMS)
+        and not short else
         "mma" if d in mma_dims and (
             dtype == torch.bfloat16 or variant == "fused") else "simt")
     counts = (k2.bwd_fused_launches, k2.bwd_dkv_launches, k2.bwd_dq_launches)
@@ -906,6 +909,90 @@ def test_flash_attention_bwd_f32_warpgroup(cuda, nq, nk, q_offset, rate):
     assert (k2.bwd_tf32_wgmma_launches, k2.split_launches) == (
         before[0] + 1, before[1] + 2)
     old = _bwd_fused(args, body="mma", **kw)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    for name, n, o_, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
+        _close(n, r, torch.float32, name)
+        _close(n, o_, torch.float32, name)
+    again = _bwd_fused(args, **kw)
+    for name, a, b in zip(("dk", "dv", "dbias"), new[1:], again[1:]):
+        assert torch.equal(a, b), f"{name}: same bits every run"
+
+
+# --- K2 in f32 at d 48 and 64 on wgmma (three TF32 passes) ------------------
+
+# The f32 warpgroup bodies at the mid-range and H100-tier widths, past
+# TF32_WGMMA_MIN_ROWS[d]: whole and ragged N, a q shard against the full
+# keys, both rates.
+_TF32_WIDE = [(4096, 4096, 0), (2100, 2000, 0), (2048, 4096, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64])
+def test_tf32_tiles_match_their_plain_twin_wide(cuda, d):
+    """The pre-pass at d 48 and 64 writes its plain twin's bytes, bit for
+    bit, in each mode, at a ragged N."""
+    q, k, v, _ = _k2_inputs(cuda, 2, 3, 300, 300, d, torch.float32, seed=d)
+    lse = torch.randn(6, 300, device=cuda)
+    delta = torch.randn(2, 3, 300, device=cuda)
+    for mode, args in ((k2.TF32_FWD, (k, v)),
+                       (k2.TF32_BWD_Q, (q, v, lse, delta)),
+                       (k2.TF32_BWD_K, (k, v))):
+        got = k2.tf32_tiles(mode, *args, scale=0.25)
+        torch.cuda.synchronize()
+        want = k2.tf32_tiles_plain(mode, *args, scale=0.25)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WIDE)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_warpgroup_wide(cuda, d, nq, nk, q_offset, rate):
+    """The f32 warpgroup forward at d 48 and 64, the default on long rows,
+    against the plain version (phase 4's bars: o 1e-5, lse 1e-4) and the
+    mma.sync body it replaced (1e-5); the same bits on a second call; one
+    launch of the body and one of its pre-pass a call."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 4, nq, nk, d, torch.float32,
+                               seed=nq + nk + d)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    assert k2.forward_instance(torch.float32, d, nq, nk, rate).body == \
+        "wgmma"
+    before = (k2.tf32_wgmma_launches, k2.split_launches)
+    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert (k2.tf32_wgmma_launches, k2.split_launches) == (
+        before[0] + 1, before[1] + 1)
+    old, _ = k2.forward_kernel(q, k, v, bias, body="mma", **kw)
+    ro, rlse = k2.attention_plain(q, k, v, bias, **kw)
+    assert (o - ro).abs().max().item() <= 1e-5
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    assert (o - old).abs().max().item() <= 1e-5
+    assert torch.equal(o, k2.forward_kernel(q, k, v, bias, **kw)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WIDE)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bwd_f32_warpgroup_wide(cuda, d, nq, nk, q_offset,
+                                                rate):
+    """The f32 fused warpgroup backward at d 48 and 64, the default on long
+    rows, against the plain backward (phase 7's bar) and the CUDA-core
+    fused kernel it replaced; dk, dv and dbias the same bits on a second
+    run; one launch of the body and two of its pre-pass a call."""
+    args = _bwd_inputs(cuda, 2, 4, nq, nk, d, torch.float32,
+                       seed=nq + nk + d, rate=rate)
+    kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
+    q, k, v, bias, _, _, do = args
+    o, lse = k2.attention_plain(q, k, v, bias, **kw)
+    args = (q, k, v, bias, o, lse, do)
+    assert k2.fused_instance(torch.float32, d, nq, nk, rate).body == "wgmma"
+    before = (k2.bwd_tf32_wgmma_launches, k2.split_launches)
+    new = _bwd_fused(args, **kw)
+    torch.cuda.synchronize()
+    assert (k2.bwd_tf32_wgmma_launches, k2.split_launches) == (
+        before[0] + 1, before[1] + 2)
+    old = _bwd_fused(args, body="simt", **kw)
     ref = k2.attention_bwd_plain(*args, **kw)
     for name, n, o_, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
         _close(n, r, torch.float32, name)

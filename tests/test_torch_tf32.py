@@ -200,6 +200,30 @@ def _x3(ah, al, bh, bl):
     return (al @ bh + ah @ bl) + ah @ bh
 
 
+def _rows_d(tile, base, rows, d, n):
+    """hi, lo [.., rows, d] of a row pair of a tile of n rows: [n][8] tiles
+    (32-byte swizzle), one a k-step of 8 dims, lo 4 n d bytes on: the rows
+    of the d 48 and 64 bodies (K, V; qs, dO)."""
+    return [torch.cat([_kmajor(tile, base + lo + kd * 32 * n, rows, 32, 256)
+                       for kd in range(d // 8)], -1) for lo in (0, 4 * n * d)]
+
+
+def _trows(tile, base, steps, d, n):
+    """hi, lo [.., d, 8 steps] of transposed rows of a tile of n rows: a
+    [d][8] tile (32-byte swizzle) a k-step of 8 rows, lo 4 n d bytes on:
+    qs^T, dO^T and K^T of the d 48 and 64 backward."""
+    return [torch.cat([_kmajor(tile, base + lo + j * 32 * d, d, 32, 256)
+                       for j in range(steps)], -1) for lo in (0, 4 * n * d)]
+
+
+def _cols_d(tile, base, steps, d):
+    """hi, lo [.., d, 8 steps] of the forward's V^T at head size d: [2 d][32]
+    atoms (128-byte swizzle), rows d .. 2 d - 1 lo, 256 d bytes apart."""
+    m = torch.cat([_kmajor(tile, base + (j // 4) * 256 * d + (j % 4) * 32,
+                           2 * d, 128, 1024) for j in range(steps)], -1)
+    return m[..., :d, :], m[..., d:, :]
+
+
 def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
     """o, lse of flash_fwd_wgmma_tf32's arithmetic in f32, on the pre-pass's
     tiles as its descriptors read them: key tiles of 64; s = bias + three
@@ -207,12 +231,13 @@ def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
     softmax with each lane's share of the row sum (keys 8 j + 2 t + e: a
     tile's in two chains by j % 2, then added) summed over the row's 4
     lanes at the end; p dropped, taken as
-    the registers hold it and split; p v from zero a tile, (p hi V lo + p
-    lo V hi) + p hi V hi; o = o corr + pv."""
+    the registers hold it and split; p v from zero a tile: at d 16 (p hi V
+    lo + p lo V hi) + p hi V hi, at d 48 and 64 the three passes a k-step
+    of 8 keys into one sum; o = o corr + pv."""
     b, h, nq, d = q.shape
     nk = k.shape[2]
     qh, ql = k2.split_tf32(q * torch.tensor(d ** -0.5, dtype=torch.float32))
-    blob = k2.tf32_tiles_plain(k2.TF32_FWD, k, v).reshape(b, h, -1, 4096)
+    blob = k2.tf32_tiles_plain(k2.TF32_FWD, k, v).reshape(b, h, -1, 256 * d)
     tiles = blob.shape[2]
     bias = torch.nn.functional.pad(bias, (0, 64 * tiles - nk),
                                    value=-float("inf"))
@@ -221,10 +246,14 @@ def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
     l_sum = torch.zeros(b, h, nq, 4)              # lane t's share
     for t in range(tiles):
         tile = blob[:, :, t]
-        kh, kl = _rows(tile, 0, 0, 64)
-        vth, vtl = _cols(tile, 8192, 0, 8)
+        if d == 16:
+            kh, kl = _rows(tile, 0, 0, 64)
+            vth, vtl = _cols(tile, 8192, 0, 8)
+        else:
+            kh, kl = _rows_d(tile, 0, 64, d, 64)
+            vth, vtl = _cols_d(tile, 512 * d, 8, d)
         s = bias[None, :, None, 64 * t:64 * t + 64].expand(b, h, nq, 64)
-        for kd in (0, 1):
+        for kd in range(d // 8):
             c = slice(8 * kd, 8 * kd + 8)
             tr = lambda x: x[..., c].transpose(-1, -2)
             s = s + ql[..., c] @ tr(kh)
@@ -243,8 +272,17 @@ def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
             p = torch.where(kt[..., 64 * t:64 * t + 64], p * k2._inv_keep(rate),
                             0.0)
         ph, pl = k2.split_tf32(p[..., _AS_HELD])
-        o = o * corr + _x3(ph, pl, vth.transpose(-1, -2),
-                           vtl.transpose(-1, -2))
+        if d == 16:
+            pv = _x3(ph, pl, vth.transpose(-1, -2), vtl.transpose(-1, -2))
+        else:
+            pv = torch.zeros(b, h, nq, d)
+            for j in range(8):
+                c = slice(8 * j, 8 * j + 8)
+                tr = lambda x: x[..., c].transpose(-1, -2)
+                pv = pv + pl[..., c] @ tr(vth)
+                pv = pv + ph[..., c] @ tr(vtl)
+                pv = pv + ph[..., c] @ tr(vth)
+        o = o * corr + pv
         m = m_new
     l_sum = (l_sum[..., :1] + l_sum[..., 1:2]) + (l_sum[..., 2:3]
                                                   + l_sum[..., 3:])
@@ -319,6 +357,95 @@ def _bwd_wgmma_tf32(q, k, v, bias, do, o, lse, keep, rate):
         for w, (kth, ktl) in enumerate(kts):
             dh, dlo = k2.split_tf32(dsq[..., 64 * w:64 * w + 64])
             dq[:, :, 64 * t:64 * t + 64] += _x3(dh, dlo, kth, ktl)
+    return (dq[:, :, :nq] * scale, dk[:, :, :nk], dv[:, :, :nk],
+            db[..., :nk].sum(0))
+
+
+def _bwd_wgmma_tf32_wide(q, k, v, bias, do, o, lse, keep, rate):
+    """dq, dk, dv, dbias of flash_bwd_wgmma_tf32's arithmetic at d 48 and 64
+    in f32, on the pre-pass's tiles as its descriptors read them: blocks of
+    64 keys (K, V and K^T from the block's key tile), query tiles of 64 in
+    sub-tiles of 16; s^T = bias + three passes a k-step of 8 dims (k lo qs
+    hi, k hi qs lo, k hi qs hi), dp^T from zero the same way; p = 2^(s log2
+    e - lse log2 e); ds and pv as the registers hold them, split; dk and dv
+    from zero a query tile, three passes a k-step of 8 queries into one sum,
+    then added; dq of each block and query tile from zero, three passes a
+    k-step of 8 keys (ds lo K hi, ds hi K lo, ds hi K hi), summed."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    scale = float(torch.tensor(d ** -0.5, dtype=torch.float32))
+    delta = (o * do).sum(-1)
+    sub = (512 * d + 128) // 4                     # a sub-tile's floats
+    qb = k2.tf32_tiles_plain(k2.TF32_BWD_Q, q, do, lse.reshape(b * h, nq),
+                             delta, scale).reshape(b, h, -1, 4 * sub)
+    kb = k2.tf32_tiles_plain(k2.TF32_BWD_K, k, v).reshape(b, h, -1, 384 * d)
+    tq, blocks = qb.shape[2], kb.shape[2]
+    nkp = 64 * blocks
+    side = lambda base: [torch.cat(x, -2) for x in zip(
+        *(_rows_d(kb[:, :, w], base, 64, d, 64) for w in range(blocks)))]
+    khi, klo = side(0)
+    vhi, vlo = side(512 * d)
+    kts = [_trows(kb[:, :, w], 1024 * d, 8, d, 64) for w in range(blocks)]
+    bk = torch.nn.functional.pad(bias, (0, nkp - nk))[None, :, :, None]
+    if keep is not None:
+        keep = torch.nn.functional.pad(keep, (0, nkp - nk, 0, 64 * tq - nq))
+    dk, dv = torch.zeros(b, h, nkp, d), torch.zeros(b, h, nkp, d)
+    db = torch.zeros(b, h, nkp)
+    dq = torch.zeros(b, h, 64 * tq, d)
+    held = _AS_HELD[:16]
+    for t in range(tq):
+        tk, tv = torch.zeros(b, h, nkp, d), torch.zeros(b, h, nkp, d)
+        ds_tile = []
+        for u in range(4):
+            st = qb[:, :, t, u * sub:(u + 1) * sub]
+            qsh, qsl = _rows_d(st, 0, 16, d, 16)
+            doh, dol = _rows_d(st, 128 * d, 16, d, 16)
+            qth, qtl = _trows(st, 256 * d, 2, d, 16)
+            oth, otl = _trows(st, 384 * d, 2, d, 16)
+            nl = st[..., None, 128 * d:128 * d + 16]
+            dl = st[..., None, 128 * d + 16:128 * d + 32]
+            s, dp = bk.expand(b, h, nkp, 16), torch.zeros(b, h, nkp, 16)
+            for kd in range(d // 8):
+                c = slice(8 * kd, 8 * kd + 8)
+                tr = lambda x: x[..., c].transpose(-1, -2)
+                s = s + klo[..., c] @ tr(qsh)
+                s = s + khi[..., c] @ tr(qsl)
+                s = s + khi[..., c] @ tr(qsh)
+                dp = dp + vlo[..., c] @ tr(doh)
+                dp = dp + vhi[..., c] @ tr(dol)
+                dp = dp + vhi[..., c] @ tr(doh)
+            p = torch.exp2(s * torch.tensor(k2._LOG2E) + nl)
+            pv = p
+            if keep is not None:
+                kt = keep[..., 64 * t + 16 * u:64 * t + 16 * u + 16, :]
+                kinv = torch.where(kt.transpose(-1, -2), k2._inv_keep(rate), 0.0)
+                dp, pv = dp * kinv, p * kinv
+            ds = p * (dp - dl)
+            db += ds.sum(-1)
+            ds_tile.append(ds)
+            dsh, dsl = k2.split_tf32(ds[..., held])
+            pvh, pvl = k2.split_tf32(pv[..., held])
+            for j in range(2):
+                c = slice(8 * j, 8 * j + 8)
+                tr = lambda x: x[..., c].transpose(-1, -2)
+                tv = tv + pvl[..., c] @ tr(oth)
+                tv = tv + pvh[..., c] @ tr(otl)
+                tv = tv + pvh[..., c] @ tr(oth)
+                tk = tk + dsl[..., c] @ tr(qth)
+                tk = tk + dsh[..., c] @ tr(qtl)
+                tk = tk + dsh[..., c] @ tr(qth)
+        dk, dv = dk + tk, dv + tv
+        dsq = torch.cat(ds_tile, -1).transpose(-1, -2)       # [.., 64 q, keys]
+        for w, (kth, ktl) in enumerate(kts):                 # [d, 64 keys]
+            acc = torch.zeros(b, h, 64, d)
+            for kk in range(8):
+                dh, dlo = k2.split_tf32(dsq[..., 64 * w + 8 * kk:64 * w + 8 * kk + 8])
+                c = slice(8 * kk, 8 * kk + 8)
+                tr = lambda x: x[..., c].transpose(-1, -2)
+                acc = acc + dlo @ tr(kth)
+                acc = acc + dh @ tr(ktl)
+                acc = acc + dh @ tr(kth)
+            dq[:, :, 64 * t:64 * t + 64] += acc
     return (dq[:, :, :nq] * scale, dk[:, :, :nk], dv[:, :, :nk],
             db[..., :nk].sum(0))
 
@@ -410,7 +537,7 @@ def test_tf32_tiles_plain_holds_split_tf32_as_wgmma_reads_it(mode, n):
     scale = float(torch.tensor(0.25))
     blob = k2.tf32_tiles_plain(mode, a, b, lse, delta, scale)
     tiles = k2.tf32_tile_count(mode, n)
-    assert blob.shape == (6, tiles, k2.TF32_TILE_BYTES[mode] // 4)
+    assert blob.shape == (6, tiles, k2.tf32_tile_bytes(mode, 16) // 4)
     pad = lambda x: torch.nn.functional.pad(
         x.reshape(6, n, 16), (0, 0, 0, 64 * tiles - n)).reshape(
             6, tiles, 64, 16)
@@ -435,8 +562,131 @@ def test_tf32_tiles_plain_holds_split_tf32_as_wgmma_reads_it(mode, n):
         assert torch.isneginf(nl[:, n:]).all()
         assert torch.equal(blob[..., 8256:8320].reshape(6, -1)[:, :n],
                            delta.reshape(6, n))
-    # each byte once: the maps are permutations of the tile
-    maps = k2._tile_maps()
-    flat = torch.cat([maps[0].flatten(), maps[0].flatten() + 1024,
-                      *(x.flatten() + 2048 for x in maps[1])])
-    assert torch.equal(flat.sort().values, torch.arange(4096))
+    # each byte once: the maps are a permutation of the tile
+    maps, stats = k2._tile_maps(mode, 16)
+    flat = torch.cat([x.flatten() for _, hi, lo in maps for x in (hi, lo)]
+                     + ([x.flatten() for x in stats] if stats else []))
+    assert torch.equal(flat.sort().values,
+                       4 * torch.arange(k2.tf32_tile_bytes(mode, 16) // 4))
+
+
+# --- the f32 warpgroup bodies at d 48 and 64 (the mid-range and H100-tier
+# widths): two forward warpgroups on key tiles of 1024 d bytes; one backward
+# warpgroup of 64 keys on query sub-tiles of 16 ------------------------------
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wgmma_tf32_wide_forward_holds_to_f64(d, rate):
+    """flash_fwd_wgmma_tf32's arithmetic at d 48 and 64 (key tiles of 64,
+    p v from zero a tile with the three passes a k-step in one sum, the
+    operands read through the pre-pass's layout at that width): o and lse
+    within 1e-6 of float64; a ragged Nk on the last tile."""
+    q, k, v, bias, _ = _inputs(1, 2, 256, 4000, d, seed=d + int(10 * rate))
+    keep = _keep(1, 2, 256, 4000, rate, seed=-1234567)
+    ref_o, ref_lse, _ = _forward(q, k, v, bias, keep, rate)
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    assert (o.double() - ref_o).abs().max().item() <= 1e-6
+    assert (lse.double() - ref_lse).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wgmma_tf32_wide_backward_holds_to_f64(d, rate):
+    """flash_bwd_wgmma_tf32's arithmetic at d 48 and 64 (64 keys a block,
+    query sub-tiles of 16, dk and dv from zero a query tile of 64, dq of a
+    block and tile from zero, the operands read through the pre-pass's
+    layout at that width): every gradient within 1e-5 of its largest
+    magnitude of float64; ragged Nq and Nk."""
+    q, k, v, bias, do = _inputs(1, 2, 300, 1000, d, seed=100 + d)
+    keep = _keep(1, 2, 300, 1000, rate, seed=99)
+    ref = _backward(q, k, v, bias, do, keep, rate)
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    got = _bwd_wgmma_tf32_wide(q, k, v, bias, do, o, lse, keep, rate)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        top = r.abs().max().item()
+        assert (g.double() - r).abs().max().item() <= 1e-5 * top, name
+
+
+@pytest.mark.parametrize("d,rate,seed", [(48, 0.0, 0), (64, 0.1, 1234567)])
+def test_wgmma_tf32_wide_bodies_match_pallas(d, rate, seed):
+    """The emulated f32 warpgroup forward and backward at d 48 and 64
+    against the JAX package's Pallas kernel and its gradients (interpret
+    mode), at 1e-5."""
+    q, k, v, bias, do = _inputs(1, 2, 256, 256, d, seed=17 + d)
+    keep = _keep(1, 2, 256, 256, rate, seed)
+    jq, jk, jv, jb = (jnp.asarray(x.numpy()) for x in (q, k, v, bias))
+    kw = dict(dropout_rate=rate, seed=jnp.int32(seed))
+    want = np.asarray(fa.attention_bhnd(jq, jk, jv, jb, **kw))
+    o, lse = _fwd_wgmma_tf32(q, k, v, bias, keep, rate)
+    np.testing.assert_allclose(o.numpy(), want, atol=1e-5, rtol=0)
+    loss = lambda *a: jnp.sum(fa.attention_bhnd(*a, **kw) * jnp.asarray(
+        do.numpy()))
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(jq, jk, jv, jb)
+    got = _bwd_wgmma_tf32_wide(q, k, v, bias, do, o, lse, keep, rate)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_tf32_tiles_plain_wide_holds_split_tf32_as_wgmma_reads_it(d, mode):
+    """At d 48 and 64 every operand of the pre-pass's tiles, read through
+    the kernels' descriptors at that width, is `split_tf32` of its source
+    bit for bit (qs = q d^-1/2 in f32), in its row or transposed row or
+    permuted atom column; rows past N are zeros, -lse log2 e is -inf there;
+    each tile's bytes are written once."""
+    n = 300
+    r = np.random.default_rng(mode + d)
+    mk = lambda *s: torch.from_numpy(r.standard_normal(s).astype(np.float32))
+    a, b = mk(2, 3, n, d), mk(2, 3, n, d)
+    lse, delta = mk(6, n), mk(2, 3, n)
+    scale = float(torch.tensor(d ** -0.5))
+    blob = k2.tf32_tiles_plain(mode, a, b, lse, delta, scale)
+    tiles = k2.tf32_tile_count(mode, n)
+    assert blob.shape == (6, tiles, k2.tf32_tile_bytes(mode, d) // 4)
+    pad = lambda x: torch.nn.functional.pad(
+        x.reshape(6, n, d), (0, 0, 0, 64 * tiles - n)).reshape(
+            6, tiles, 64, d)
+    same = lambda got, want: all(
+        torch.equal(g.view(torch.int32), w.view(torch.int32))
+        for g, w in zip(got, want))
+    if mode == 0:
+        assert same(_rows_d(blob, 0, 64, d, 64), k2.split_tf32(pad(a)))
+        vt = [w[..., _AS_HELD, :].transpose(-1, -2)
+              for w in k2.split_tf32(pad(b))]
+        assert same(_cols_d(blob, 512 * d, 8, d), vt)
+    elif mode == 2:
+        kh, kl = k2.split_tf32(pad(a))
+        assert same(_rows_d(blob, 0, 64, d, 64), (kh, kl))
+        assert same(_rows_d(blob, 512 * d, 64, d, 64), k2.split_tf32(pad(b)))
+        assert same(_trows(blob, 1024 * d, 8, d, 64),
+                    (kh.transpose(-1, -2), kl.transpose(-1, -2)))
+    else:
+        sub = (512 * d + 128) // 4
+        qs = k2.split_tf32(pad(a * torch.tensor(scale)))
+        dos = k2.split_tf32(pad(b))
+        nl = torch.nn.functional.pad(-lse * torch.tensor(k2._LOG2E),
+                                     (0, 64 * tiles - n),
+                                     value=-float("inf")).reshape(6, tiles, 64)
+        dl = torch.nn.functional.pad(delta.reshape(6, n),
+                                     (0, 64 * tiles - n)).reshape(6, tiles, 64)
+        for u in range(4):
+            st = blob[..., u * sub:(u + 1) * sub]
+            rows = slice(16 * u, 16 * u + 16)
+            part = lambda pair: [x[..., rows, :] for x in pair]
+            held = lambda pair: [x[..., rows, :][..., _AS_HELD[:16], :]
+                                 .transpose(-1, -2) for x in pair]
+            assert same(_rows_d(st, 0, 16, d, 16), part(qs))
+            assert same(_rows_d(st, 128 * d, 16, d, 16), part(dos))
+            assert same(_trows(st, 256 * d, 2, d, 16), held(qs))
+            assert same(_trows(st, 384 * d, 2, d, 16), held(dos))
+            assert torch.equal(st[..., 128 * d:128 * d + 16], nl[..., rows])
+            assert torch.equal(st[..., 128 * d + 16:128 * d + 32],
+                               dl[..., rows])
+    # each byte once: the maps are a permutation of the tile
+    maps, stats = k2._tile_maps(mode, d)
+    flat = torch.cat([x.flatten() for _, hi, lo in maps for x in (hi, lo)]
+                     + ([x.flatten() for x in stats] if stats else []))
+    assert torch.equal(flat.sort().values,
+                       4 * torch.arange(k2.tf32_tile_bytes(mode, d) // 4))
