@@ -11,7 +11,7 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc; no
               tensor-core instance spills and ptxas serialises no warpgroup
-              body's wgmma (the f32 ones at d 16, 48 and 64, their
+              body's wgmma (the f32 ones at d 16, 32, 48 and 64, their
               pre-pass and the narrow ones at d 16 and 32 among them:
               registers, spills and shared bytes logged); the inner loop
               of each bf16 d 16 and
@@ -66,9 +66,10 @@ Phases, each of which raises on failure (exit code 1):
               bars, then in turns (mma, wgmma, wgmma, mma; at N 16384 the
               new must be faster) beside SDPA, the plain version, the
               three-pass bound and the special-function floor, and its
-              dropout mask position by position; the same at d 48 and 64
-              (the mid-range and H100-tier widths), whose short rows N 256,
-              512, 1024 and 4096 set TF32_WGMMA_MIN_ROWS[48] and [64];
+              dropout mask position by position; the same at d 32, 48 and
+              64 (the low-end, mid-range and H100-tier widths; at d 32 B 8
+              alone), whose short rows (SHORT_ROWS_TF32) set
+              TF32_WGMMA_MIN_ROWS[d];
   5. slice    `lunaris_orion_tpu_torch.cli.generate` at the full default
               width (128 px, 4 experts x 3 blocks, N = 16384) from a seeded
               random checkpoint, f32 and --bf16; both kernels' launch
@@ -78,8 +79,10 @@ Phases, each of which raises on failure (exit code 1):
               body in f32, by the wrappers' counts and by name;
   6. context  64 px configs (N = 4096) through the port on the CPU (plain
               versions) and on the card (kernels) from one checkpoint and
-              one z, TF32 off, at feature_dim 64 (d 8), 128 (d 16, every K2
-              call on the f32 warpgroup body) and 256 (d 32): decode within
+              one z, TF32 off, at feature_dim 64 (d 8), 128 (d 16) and 256
+              (d 32; both with every K2 call on the f32 warpgroup body),
+              the CPU's decodes in a process of their own under phase 4:
+              decode within
               1/255, quality within 1e-3;
   7. K2 bwd   both backward variants (fused = dk/dv with dq; split = dk/dv +
               dq kernels) against the plain backward at B 2, H 8, N 16384,
@@ -123,23 +126,27 @@ Phases, each of which raises on failure (exit code 1):
               N 1024 to 4096 (at N 16384 the new must be faster), beside
               the plain version, SDPA's backward, the three-pass bound and
               the special-function floor, and its dropout mask position by
-              position; the same at d 48 and 64 against the CUDA-core
-              fused kernel it replaced there (a ragged N 2100 and 2000;
-              at B 16 the CUDA-core kernel one call a turn, over a second
-              a call), the short rows N 256, 1024 and 4096 in turns
-              setting TF32_WGMMA_BWD_MIN_ROWS[48] and [64];
+              position; the same at d 32 against mma.sync (B 8 in place of
+              B 16, a ragged N 2100 and 2000, the short rows N 256, 1024 and
+              2048 setting TF32_WGMMA_BWD_MIN_ROWS[32]) and at d 48 and 64
+              against the CUDA-core fused kernel it replaced there (a
+              ragged N 2100 and 2000; at B 16 the CUDA-core kernel one call
+              a turn, over a second a call), the short rows N 256, 1024 and
+              4096 in turns setting TF32_WGMMA_BWD_MIN_ROWS[48] and [64];
   8. K3       the MSE+KL kernel against its plain version and the plain
               version of its own order of summation at [16, 128, 128, 3],
               L = 256, f32 and bf16, the same bits on two calls, timed
               against its earlier form (one block a sample, then torch
               sums) in turns;
   9. grads    one `train_step` of a 64 px config (N = 4096; 4 heads, d 8,
-              and d 16, 48 and 64, whose K2 calls all take the f32
-              warpgroup bodies; at d 48 and 64 the card's step takes the
+              and d 16, 32, 48 and 64, whose K2 calls all take the f32
+              warpgroup bodies; at d 32, 48 and 64 the card's step takes the
               CPU step's side of each LeakyReLU kink, `kink_sides`, every
-              entry that differs within 1e-4 of its call's largest of zero;
-              the CPU steps run in a process of their own, under phase
-              7's work on the card)
+              entry that differs within 1e-4 of its call's largest of zero,
+              and the unsided step's worst gradient with the kernels and
+              with the plain versions is logged, held to no bar; the CPU
+              steps run in a process of their own, under phase 7's work on
+              the card)
               on the CPU (plain versions) and on the card (kernels) from
               one state, one batch and one eps, dropout 0, TF32 off:
               gradients (1e-3
@@ -231,7 +238,9 @@ Phases, each of which raises on failure (exit code 1):
               the K2 forward through their torch.library operators) in bf16
               (generate at batch 2 and 8, score at 8) and f32 (generate at
               8), a "plain" bf16 generate at 2: each program's export
-              seconds and size; (c) the bundles loaded and run in a second
+              seconds and size (exported in a process of their own under
+              phase 4); (c) the
+              bundles loaded and run in a second
               process (`--serve`) that imports no model module, against
               eager: generate within 1/255 and 1e-3, score 1e-3, plain
               against cuda at batch 2 (K2's bf16 bar); (d) inside the
@@ -305,16 +314,21 @@ Phases, each of which raises on failure (exit code 1):
               is profiled again, at most 3 sessions; then in f32, the CLIs'
               default precision (`run_recipe_f32`): an f32 decode+score at
               batch 8 through ImageGenerator from a seeded H100-tier
-              checkpoint (d 64), and one f32 train step at the mid-range
-              tier's widths (docs/configs.md: feature_dim 384, d 48; latent
-              384, embedding 192; batch 8 x 1, cut from the recipe's 32 x 2
-              for run time) after a warm-up step, each profiled: every K2
-              forward on `flash_fwd_wgmma_tf32` and every backward on
+              checkpoint (d 64) and from a low-end one (d 32), and one f32
+              train step at the mid-range tier's widths (docs/configs.md:
+              feature_dim 384, d 48; latent 384, embedding 192; batch 8 x
+              1, cut from the recipe's 32 x 2 for run time) and one at the
+              low-end tier's (feature_dim 256, d 32; batch 16 x 1, cut from
+              16 x 4) after a warm-up step, each profiled: every K2 forward
+              on `flash_fwd_wgmma_tf32` and every backward on
               `flash_bwd_wgmma_tf32` at its head size (by the wrappers'
               counts and by name), their pre-pass once a forward and twice
-              a backward, no `flash_fwd_tf32` and no CUDA-core K2 kernel,
-              finite losses and scores, device time and idle share;
- 19. parity   (run last) the long parity runs of `lunaris_orion_tpu_torch.
+              a backward, no `flash_fwd_tf32`, no `flash_bwd_fused_tf32`
+              and no CUDA-core K2 kernel, finite losses and scores, device
+              time and idle share;
+ 19. parity   (run last; its runs of (a) and (b), host-bound, in processes
+              of their own beside (c)) the long parity runs
+              of `lunaris_orion_tpu_torch.
               tools`, TF32 off for cuDNN and cuBLAS: (a) `parity_curves`,
               the VAE step, 300 x 16, deterministic and sampled; (b)
               `parity_hybrid`, the hybrid step at the hybrid_d16 preset
@@ -424,11 +438,13 @@ do the f32 ones at d 16, `flash_attention_fwd_wgmma_tf32` and
 against flash_fwd_tf32 and flash_bwd_fused_tf32, their `bound_ms` the
 three TF32 passes, beside `bound_ms_sfu`; every reading under
 `readings`), and their pre-pass `k2_tf32_split` (its time at B 8 N 16384
-in the forward's mode against its plain twin, bound by bytes); at d 48 and
-64 the same readings under `d48` / `d64` and `readings_d48` /
-`readings_d64` (the backward's against the CUDA-core fused kernel, its B 16
-reading under `d48` / `d64` too), with the launches of phase 20's f32 runs
-(`launches_recipe_f32_decode`, `launches_recipe_f32_step`). The
+in the forward's mode against its plain twin, bound by bytes); at d 32, 48
+and 64 the same readings under `d32` / `d48` / `d64` and `readings_d32` ..
+(the backward's at d 48 and 64 against the CUDA-core fused kernel, its B 16
+reading, at d 32 its B 8 one, under `d48` .. too), with the launches of
+phase 20's f32 runs (`launches_recipe_f32_decode`,
+`launches_recipe_f32_step`, and the low-end tier's `..._decode_low_end`,
+`..._step_low_end`). The
 last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
@@ -474,6 +490,18 @@ T_START = time.perf_counter()
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stopwatch(phase: str):
+    """mark(part) logs `[time] <phase> <part>: s` since the last mark: the
+    parts of a long phase, for trimming the run to its time limit."""
+    last = [time.perf_counter()]
+
+    def mark(part: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {phase} {part}: {now - last[0]:.1f} s")
+        last[0] = now
+    return mark
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -789,13 +817,13 @@ def build():
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
     # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
-    # ones at d 16 and 32, and f32's at d 16, 48 and 64 on three TF32
+    # ones at d 16 and 32, and f32's at d 16, 32, 48 and 64 on three TF32
     # passes): no instance spills, and setmaxnreg moves the registers
     # (ptxas reports the count at entry, 168 for 384 threads and 128 for
-    # 512; the consumers take 232, the narrow bodies' and the f32 d 16
-    # forward's 160; the f32 backward at d 48 and 64, one consumer
-    # warpgroup and a producer warp, 160 threads, takes no setmaxnreg: its
-    # count is the one ptxas reports).
+    # 512; the consumers take 232, the narrow bodies' and an f32 forward's
+    # of three consumers (d 16) 160; the f32 backward at d 32, 48 and 64,
+    # one or two consumer warpgroups and a producer warp, 160 or 288
+    # threads, takes no setmaxnreg: its count is the one ptxas reports).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -816,10 +844,19 @@ def build():
     smem = {f"flash_{x}_wgmma_narrowILi{d}E":
             (lib_smem(f"lunaris_k2_{x}_wgmma_narrow_smem_bytes", d), 160, 2)
             for x in ("fwd", "bwd") for d in (16, 32)}
-    for d in (16, 48, 64):
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    for d in k2.TF32_WGMMA_HEAD_DIMS:
+        # The dispatch rule's rows and keys a block are the library's.
+        rows = lib_smem("lunaris_k2_fwd_wgmma_tf32_rows", d)
+        keys = lib_smem("lunaris_k2_bwd_wgmma_tf32_keys", d)
+        if (rows, keys) != (k2.TF32_WGMMA_ROWS[d], k2.TF32_WGMMA_BWD_KEYS[d]):
+            raise AssertionError(f"the f32 warpgroup bodies at d {d} take "
+                                 f"{rows} rows, {keys} keys a block; the "
+                                 f"rule says {k2.TF32_WGMMA_ROWS[d]}, "
+                                 f"{k2.TF32_WGMMA_BWD_KEYS[d]}")
         smem |= {f"flash_fwd_wgmma_tf32ILi{d}E":
                  (lib_smem("lunaris_k2_fwd_wgmma_tf32_smem_bytes", d),
-                  160 if d == 16 else 232, 2),
+                  160 if rows == 192 else 232, 2),
                  f"flash_bwd_wgmma_tf32ILi{d}E":
                  (lib_smem("lunaris_k2_bwd_wgmma_tf32_smem_bytes", d),
                   232 if d == 16 else None, 2)}
@@ -1243,6 +1280,7 @@ def check_k2(torch, dev, smi) -> dict:
     wg = {}                 # the warpgroup body's readings by (d, rate)
     narrow = {}             # the narrow body's (d 16) by (B, rate)
     narrow32 = {}           # the narrow body's at d 32 by (B, rate)
+    mark = stopwatch("phase 4")
     for b, h, n, d, dt, rate in cases:
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
@@ -1365,17 +1403,35 @@ def check_k2(torch, dev, smi) -> dict:
                         "earlier_ms_bf16": earlier, "body_bf16": inst.body}
     out["turns_f32"] = turns
     out["wgmma"] = wg
+    mark("cases")
     out["wgmma_shard"] = check_k2_shard(torch, k2, g, dev)
     narrow["short rows"] = narrow_short_rows(torch, k2, g, dev, smi, 16)
     out["narrow"] = narrow
     narrow32["short rows"] = narrow_short_rows(torch, k2, g, dev, smi, 32)
     out["narrow32"] = narrow32
+    mark("shard, narrow short rows")
     out["tf32"] = check_tf32_fwd(torch, k2, g, dev, smi)
-    # f32 at d 48 and 64: the mid-range and H100-tier widths in the CLIs'
-    # default precision.
-    for d in (48, 64):
+    mark("f32 d16")
+    # f32 at d 32, 48 and 64: the low-end, mid-range and H100-tier widths
+    # in the CLIs' default precision.
+    for d in TF32_WIDE:
         out[f"tf32_d{d}"] = check_tf32_fwd(torch, k2, g, dev, smi, d)
+        mark(f"f32 d{d}")
     return out
+
+
+# The head sizes besides the default one (d 16) whose f32 K2 runs on the
+# warpgroup bodies: the low-end, mid-range and H100-tier widths.
+TF32_WIDE = (32, 48, 64)
+# The short rows at which phases 4 and 7 time each f32 warpgroup body
+# against the body it replaced, which set TF32_WGMMA_MIN_ROWS[d] and
+# TF32_WGMMA_BWD_MIN_ROWS[d]: the windowed fold's 256, and at d 32 the two
+# either side of its threshold of 2048 (its other N 512 and 4096 read as
+# their neighbours in earlier runs, PERF.md).
+SHORT_ROWS_TF32 = {16: (256, 512, 1024, 2048, 4096), 32: (256, 1024, 2048),
+                   48: (256, 512, 1024, 4096), 64: (256, 512, 1024, 4096)}
+SHORT_ROWS_TF32_BWD = {16: (1024, 2048, 4096), 32: (256, 1024, 2048),
+                       48: (256, 1024, 4096), 64: (256, 1024, 4096)}
 
 
 def tf32_split_check(torch, k2, g, dev, smi, d: int = 16) -> dict:
@@ -1449,27 +1505,28 @@ def tf32_fwd_mask_positions(torch, k2, dev, d: int) -> int:
 
 def check_tf32_fwd(torch, k2, g, dev, smi, d: int = 16) -> dict:
     """Phase 4's readings of the f32 warpgroup forward at head size d (16,
-    48, 64; three TF32 passes on wgmma) against flash_fwd_tf32 (mma.sync),
-    the body it replaced at long rows. Each shape: both held to the plain
-    version at f32's bars (o 1e-5, lse 1e-4), then timed in turns (mma,
-    wgmma, wgmma, mma). At N16384 (B8 and B16, dropout 0 and 0.1) the new
-    one must be faster, and is logged beside SDPA in f32, the plain version
-    (B8, dropout 0), the three-pass bound and the special-function floor
-    with both shares. Then a ragged N, a CP shard at q_offset 8192 and the
-    short rows N 256 to 4096, whose turns set TF32_WGMMA_MIN_ROWS[d] (at d
-    48 and 64 N 2048 left out, fewer repetitions, SDPA at B8 only); and
-    the mask position by position."""
+    32, 48, 64; three TF32 passes on wgmma) against flash_fwd_tf32
+    (mma.sync), the body it replaced at long rows. Each shape: both held to
+    the plain version at f32's bars (o 1e-5, lse 1e-4), then timed in turns
+    (mma, wgmma, wgmma, mma). At N16384 (B8 and B16, dropout 0 and 0.1) the
+    new one must be faster, and is logged beside SDPA in f32, the plain
+    version (B8, dropout 0), the three-pass bound and the special-function
+    floor with both shares. Then a ragged N, a CP shard at q_offset 8192
+    and the short rows (SHORT_ROWS_TF32[d]), whose turns set
+    TF32_WGMMA_MIN_ROWS[d] (past d 16 fewer repetitions and SDPA at B8
+    only; at d 32 B8 alone, the serving batch); and the mask position by
+    position."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
     out = {"pre-pass": tf32_split_check(torch, k2, g, dev, smi, d)}
     worst = 0.0
-    shapes = [("B8", 8, 16384, 16384, 0, 0.0), ("B8", 8, 16384, 16384, 0, 0.1),
-              ("B16", 16, 16384, 16384, 0, 0.0),
-              ("B16", 16, 16384, 16384, 0, 0.1),
-              ("ragged", 4, 2100, 2100, 0, 0.1),
-              ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
+    shapes = [("B8", 8, 16384, 16384, 0, 0.0), ("B8", 8, 16384, 16384, 0, 0.1)]
+    if d != 32:
+        shapes += [("B16", 16, 16384, 16384, 0, 0.0),
+                   ("B16", 16, 16384, 16384, 0, 0.1)]
+    shapes += [("ragged", 4, 2100, 2100, 0, 0.1),
+               ("CP q shard", 2, 8192, 16384, 8192, 0.1)]
     shapes += [(f"short rows N{n}", 64 if n < 2048 else 16, n, n, 0, 0.1)
-               for n in ((256, 512, 1024, 2048, 4096) if d == 16 else
-                         (256, 512, 1024, 4096))]
+               for n in SHORT_ROWS_TF32[d]]
     for label, b, nq, nk, q_offset, rate in shapes:
         q = torch.randn(b, 8, nq, d, generator=g, device=dev)
         k, v = (torch.randn(b, 8, nk, d, generator=g, device=dev)
@@ -1497,8 +1554,8 @@ def check_tf32_fwd(torch, k2, g, dev, smi, d: int = 16) -> dict:
         log(f"[K2] {tag}: " + ", ".join(line) + " (bars 1e-5, 1e-4)")
         default = k2.forward_instance(torch.float32, d, nq, nk, rate).body
         big = nq * nk * b > 2**31
-        # At d 48 and 64 fewer repetitions (the run's time limit), and SDPA
-        # at B8 only.
+        # Past d 16 fewer repetitions (the run's time limit), and SDPA at B8
+        # only.
         reps = (5 if big else 10) if d == 16 else (3 if big else 5)
         run = lambda body: time_ms(torch, lambda: k2.forward_kernel(
             q, k, v, bias, body=body, **kw), reps)
@@ -1809,28 +1866,57 @@ def profiler_loss(torch, rounds: int, smi: str) -> int:
     return 0
 
 
-def run_context(torch, tmp: Path, feature_dim: int) -> None:
-    from lunaris_orion_tpu_torch import TrainConfig
-    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
+# Phase 6's widths: 64 px, 2 experts, 8 heads: N = 4096 > 1024 runs K2 at
+# head size feature_dim / 8 (64: d 8; 128: d 16, the default width, and
+# 256: d 32, the low-end recipe's width, on the f32 warpgroup bodies).
+CONTEXT_WIDTHS = (64, 128, 256)
+CONTEXT_LATENT = 64
 
-    # 64 px, 2 experts, 8 heads: N = 4096 > 1024 runs K2 at head size
-    # feature_dim / 8 (64: d 8; 128: d 16, the default width, on the f32
-    # warpgroup body; 256: d 32, the low-end recipe's width).
-    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
-    cfg = TrainConfig(image_size=64, latent_dim=64, feature_dim=feature_dim,
-                      embedding_dim=32, num_experts=2)
-    ckpt = tmp / f"ctx{feature_dim}.pt"
-    save_checkpoint(torch, cfg, ckpt, seed=1)
-    z = torch.randn(2, cfg.latent_dim, generator=torch.Generator().manual_seed(2))
-    # TF32 off for this comparison (the generator's f32 mode turns it off
-    # too): cuDNN's default TF32 convolutions would break both bars.
-    res = {}
-    seen = (k2.launches, k2.tf32_wgmma_launches)
+
+def _context_cfg(feature_dim: int):
+    from lunaris_orion_tpu_torch import TrainConfig
+    return TrainConfig(image_size=64, latent_dim=CONTEXT_LATENT,
+                       feature_dim=feature_dim, embedding_dim=32,
+                       num_experts=2)
+
+
+def _context_decode(torch, ckpt: Path, dev: str):
+    """Phase 6's decode+score of one z from `ckpt` on `dev`, TF32 off (the
+    generator's f32 mode turns it off too: cuDNN's default TF32
+    convolutions would break both bars): (images, quality) on the CPU."""
+    from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
+    z = torch.randn(2, CONTEXT_LATENT,
+                    generator=torch.Generator().manual_seed(2))
     with full_f32():
-        for dev in ("cpu", "cuda"):
-            gen = ImageGenerator(str(ckpt), device=dev)
-            imgs, quality, _ = gen.decode_and_score(z.to(dev))
-            res[dev] = (imgs.cpu(), quality.cpu())
+        gen = ImageGenerator(str(ckpt), device=dev)
+        imgs, quality, _ = gen.decode_and_score(z.to(dev))
+    return imgs.cpu(), quality.cpu()
+
+
+def _cpu_context_refs(tmp: str) -> None:
+    """Phase 6's CPU side in a process of its own (four threads), which
+    `main` starts after phase 3 so that it runs under phase 4:
+    each width's seeded checkpoint tmp/ctx<feature_dim>.pt and its CPU
+    decode+score, saved to tmp/ctx_refs.pt."""
+    import torch
+    torch.set_num_threads(4)
+    refs = {}
+    for feature_dim in CONTEXT_WIDTHS:
+        ckpt = Path(tmp) / f"ctx{feature_dim}.pt"
+        save_checkpoint(torch, _context_cfg(feature_dim), ckpt, seed=1)
+        refs[feature_dim] = _context_decode(torch, ckpt, "cpu")
+    torch.save(refs, Path(tmp) / "ctx_refs.pt")
+
+
+def run_context(torch, tmp: Path, feature_dim: int, ref: tuple) -> None:
+    """Phase 6 at one width: the card's decode+score (the kernels) against
+    the CPU's (`ref`, the plain versions, from `_cpu_context_refs` on the
+    same checkpoint in `tmp`)."""
+    from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+    seen = (k2.launches, k2.tf32_wgmma_launches)
+    res = {"cpu": ref,
+           "cuda": _context_decode(torch, tmp / f"ctx{feature_dim}.pt",
+                                   "cuda")}
     calls = (k2.launches - seen[0], k2.tf32_wgmma_launches - seen[1])
     d_img = (res["cpu"][0] - res["cuda"][0]).abs().max().item()
     d_q = (res["cpu"][1] - res["cuda"][1]).abs().max().item()
@@ -1838,9 +1924,10 @@ def run_context(torch, tmp: Path, feature_dim: int) -> None:
         f"TF32 off, CPU plain vs card kernels: decode max diff {d_img:.3e} "
         f"(bar {1 / 255:.3e}), quality max diff {d_q:.3e} (bar 1e-3); K2 "
         f"calls {calls[0]}, on the f32 warpgroup body {calls[1]}")
-    if feature_dim == 128 and not 0 < calls[0] == calls[1]:
-        raise AssertionError(f"context d 16: K2 calls {calls} off the f32 "
-                             "warpgroup body")
+    if feature_dim // 8 in k2.TF32_WGMMA_HEAD_DIMS and not (
+            0 < calls[0] == calls[1]):
+        raise AssertionError(f"context d {feature_dim // 8}: K2 calls "
+                             f"{calls} off the f32 warpgroup body")
     if d_img > 1 / 255 or d_q > 1e-3:
         raise AssertionError("kernels in context disagree with the CPU run "
                              f"at feature_dim {feature_dim}")
@@ -1953,6 +2040,41 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         return lambda name: time_ms(torch, lambda: k2.flash_attention_bwd(
             *args, variant=name, **kw), 3)
 
+    def fused_kernel(args, kw, body):
+        """The fused kernel of `body` alone; (dq, dk, dv, dbias) as
+        flash_attention_bwd assembles them."""
+        q, k, v, bias, o, lse, do = args
+        b, h, nq, d = q.shape
+        delta = (o.float() * do.float()).sum(-1)
+        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
+                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
+                             **out, body=body, **kw)
+        scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=dev)
+        return (out["dq_acc"].to(q.dtype) * scale, out["dk"], out["dv"],
+                out["dbias_bh"].reshape(b, h, -1).sum(dim=0))
+
+    def kernel_ms(args, kw, reps):
+        """ms of one fused kernel of a body, its outputs allocated once (the
+        kernel adds into dq_acc without zeroing it: its time is the
+        kernel's, the buffer's values are not read)."""
+        q, k, v, bias, o, lse, do = args
+        b, h, nq, d = q.shape
+        delta = (o.float() * do.float()).sum(-1)
+        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
+                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
+        return lambda body: time_ms(torch, lambda: k2.launch_bwd_kernel(
+            k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out, body=body,
+            **kw), reps[body])
+
+    def moved(args, bh):
+        q, k, v, bias, o, lse, do = args
+        delta_bytes = q.numel() // q.shape[3] * 4
+        return nbytes(q, k, v, bias, do, lse, q, k, v) + delta_bytes + bh * 4
+
+    mark = stopwatch("phase 7")
     # Every head size in both types; at N 4096 the two variants are also
     # timed in turns, which is what `default_bwd` follows at the head sizes
     # that the teacher's shape below does not time.
@@ -2004,6 +2126,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
                 raise AssertionError(f"K2 bwd {variant} {dt}: q_offset shard "
                                      "differs")
 
+    mark("cases, q shards")
     # The teacher's training shape (B 16, dropout 0.1): both variants
     # against the plain backward, then times, each kernel alone as well.
     times = {}
@@ -2078,6 +2201,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         f"{f32['fused_earlier']:.1f}), dk/dv + dq {f32['dkv'] + f32['dq']:.1f} "
         f"ms against the library's backward {f32['sdpa_bwd']} ms")
 
+    mark("B16 d16")
     # Head size 32 (feature_dim 256) at the serving batch: both variants in
     # turns beside the library's backward (correctness: the 4096 cases);
     # in f32 the fused kernel also against the CUDA-core one it replaced.
@@ -2112,6 +2236,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             f"ms, backward of F.scaled_dot_product_attention {lib} ms "
             f"({note}) on {smi}; the default is {k2.default_bwd(dt, 32)}")
         del args
+    mark("B8 d32")
     # bf16 at d 48 and 64 (the recipes): the fused warpgroup body at the
     # teacher's N. At B2, dropout 0.1: both variants and the CUDA-core fused
     # kernel the warpgroup body replaced against the plain backward, then
@@ -2119,40 +2244,6 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     # backward and the bound. At the training batch, B16: the warpgroup
     # kernel, the two variants in turns, SDPA's backward and the bound.
     wg = {}
-
-    def fused_kernel(args, kw, body):
-        """The fused kernel of `body` alone; (dq, dk, dv, dbias) as
-        flash_attention_bwd assembles them."""
-        q, k, v, bias, o, lse, do = args
-        b, h, nq, d = q.shape
-        delta = (o.float() * do.float()).sum(-1)
-        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
-                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
-                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
-        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
-                             **out, body=body, **kw)
-        scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=dev)
-        return (out["dq_acc"].to(q.dtype) * scale, out["dk"], out["dv"],
-                out["dbias_bh"].reshape(b, h, -1).sum(dim=0))
-
-    def kernel_ms(args, kw, reps):
-        """ms of one fused kernel of a body, its outputs allocated once (the
-        kernel adds into dq_acc without zeroing it: its time is the
-        kernel's, the buffer's values are not read)."""
-        q, k, v, bias, o, lse, do = args
-        b, h, nq, d = q.shape
-        delta = (o.float() * do.float()).sum(-1)
-        out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
-                   dbias_bh=torch.empty(b * h, k.shape[2], device=dev),
-                   dq_acc=torch.zeros(b, h, nq, d, device=dev))
-        return lambda body: time_ms(torch, lambda: k2.launch_bwd_kernel(
-            k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, delta, **out, body=body,
-            **kw), reps[body])
-
-    def moved(args, bh):
-        q, k, v, bias, o, lse, do = args
-        delta_bytes = q.numel() // q.shape[3] * 4
-        return nbytes(q, k, v, bias, do, lse, q, k, v) + delta_bytes + bh * 4
 
     for d in (48, 64):
         args, kw = inputs(2, 8, 16384, 16384, d, torch.bfloat16, 0.1)
@@ -2223,6 +2314,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
             f"{bd['bound_ms_sfu']:.2f} ms ({bd['bound_ms_sfu'] / new:.1%}) on "
             f"{smi}")
         del args, q, k, v, bias, o, lse, do
+    mark("bf16 d48/64")
     # The worst errors of the warpgroup body: the B2 N16384 cases, every
     # shape at d 48 and 64 above (kept with `keep` there).
     wg["max_abs_err"] = errs[torch.bfloat16]["wgmma"]
@@ -2235,16 +2327,20 @@ def check_k2_bwd(torch, dev, smi) -> dict:
     narrow32["max_abs_err"] = max(errs[torch.bfloat16]["narrow32"],
                                   narrow32.pop("worst"))
     narrow32["mask"] = narrow_bwd_mask_positions(torch, k2, dev, 32)
+    mark("narrow d16/32")
     tf32 = check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                           smi)
     tf32["max_abs_err"] = max(errs[torch.float32]["tf32"], tf32.pop("worst"))
-    # f32 at d 48 and 64: the mid-range and H100-tier widths in the CLIs'
-    # default precision, against the CUDA-core fused kernel they replaced.
+    mark("f32 d16")
+    # f32 at d 32, 48 and 64: the low-end, mid-range and H100-tier widths
+    # in the CLIs' default precision, against the fused kernel each
+    # replaced (mma.sync at d 32, the CUDA cores at 48 and 64).
     tf32_wide = {}
-    for d in (48, 64):
+    for d in TF32_WIDE:
         tf32_wide[d] = check_tf32_bwd(torch, k2, inputs, fused_kernel,
                                       kernel_ms, moved, smi, d)
         tf32_wide[d]["max_abs_err"] = tf32_wide[d].pop("worst")
+        mark(f"f32 d{d}")
 
     # Bounds at the timing shape. Per (q, k) pair and head-dim element:
     # 2 operations each for the scores, dp, dv, dk and dq products.
@@ -2284,7 +2380,7 @@ def check_k2_bwd(torch, dev, smi) -> dict:
         "wgmma": wg,
         "narrow": narrow,
         "narrow32": narrow32,
-        "tf32": tf32, "tf32_d48": tf32_wide[48], "tf32_d64": tf32_wide[64],
+        "tf32": tf32, **{f"tf32_d{d}": tf32_wide[d] for d in TF32_WIDE},
         "flash_attention_bwd_fused": entry("fused", "fused", 10, "all_bytes",
                                            True, "fused"),
         "flash_attention_bwd_dq": entry("dq", "dq", 6, "dq_bytes", False,
@@ -2457,33 +2553,34 @@ def narrow_bwd_mask_positions(torch, k2, dev, d: int,
 def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                    smi, d: int = 16) -> dict:
     """Phase 7's readings of the f32 fused warpgroup backward at head size
-    d (16, 48, 64; three TF32 passes on wgmma) against the body it replaced
-    at long rows: flash_bwd_fused_tf32 (mma.sync) at d 16, the CUDA-core
-    fused kernel at d 48 and 64. B2 H8 N16384, dropout 0 and 0.1, a ragged
-    N (2100; at d 48 and 64 also 2000) and a CP q shard (rows 8192.. of
-    16384 at q_offset 8192): both kernels held to the plain backward at
-    f32's bar (1e-4 of each gradient's largest + 1e-6), dk, dv and dbias
-    the same bits on a second run of the new one; then both in turns. At
-    N16384 (B2 and B16, the train step's batch) the new one must be
-    faster, and is logged beside the plain version (B2), SDPA's backward in
-    f32, the three-pass bound and the special-function floor. The short
-    rows (N 1024 to 4096 at d 16; 256, 1024 and 4096 at d 48 and 64) in
-    turns set TF32_WGMMA_BWD_MIN_ROWS[d] (at d 48 and 64 B16's SDPA is not
-    timed); then the mask position by position. Every (q, k) pair: 10
-    operations a head-dim element (five products) and one exp."""
+    d (16, 32, 48, 64; three TF32 passes on wgmma) against the body it
+    replaced at long rows: flash_bwd_fused_tf32 (mma.sync) at d 16 and 32,
+    the CUDA-core fused kernel at d 48 and 64. B2 H8 N16384, dropout 0 and
+    0.1, a ragged N (2100; past d 16 also 2000) and a CP q shard (rows
+    8192.. of 16384 at q_offset 8192): both kernels held to the plain
+    backward at f32's bar (1e-4 of each gradient's largest + 1e-6), dk, dv
+    and dbias the same bits on a second run of the new one; then both in
+    turns. At N16384 (B2, and the train step's batch: B16, or at d 32 the
+    serving batch B8) the new one must be faster, and is logged beside the
+    plain version (B2), SDPA's backward in f32, the three-pass bound and
+    the special-function floor. The short rows (SHORT_ROWS_TF32_BWD[d])
+    in turns set TF32_WGMMA_BWD_MIN_ROWS[d] (past d 16 the batch of 8 or
+    16's SDPA is not timed); then the mask position by position. Every
+    (q, k) pair: 10 operations a head-dim element (five products) and one
+    exp."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
-    earlier = "mma" if d == 16 else "simt"
+    earlier = "mma" if d in k2.MMA_FUSED_HEAD_DIMS else "simt"
     out, worst = {}, 0.0
+    big = ("B8", 8) if d == 32 else ("B16", 16)
     shapes = [("B2", 2, 16384, 16384, 0, 0.0), ("B2", 2, 16384, 16384, 0, 0.1),
-              ("B16", 16, 16384, 16384, 0, 0.1),
+              (*big, 16384, 16384, 0, 0.1),
               ("ragged", 2, 2100, 2100, 0, 0.1)]
     if d > 16:
         shapes.append(("ragged", 2, 2000, 2000, 0, 0.0))
     shapes.append(("CP q shard", 2, 8192, 16384, 8192, 0.1))
     shapes += [(f"short rows N{n}", 64 if n < 1024 or (d > 16 and n < 2048)
                 else 16, n, n, 0, 0.1)
-               for n in ((1024, 2048, 4096) if d == 16 else
-                         (256, 1024, 4096))]
+               for n in SHORT_ROWS_TF32_BWD[d]]
     for label, b, nq, nk, q_offset, rate in shapes:
         args, kw = inputs(b, 8, nq, nk, d, torch.float32, rate,
                           q_offset=q_offset)
@@ -2491,7 +2588,7 @@ def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
         tag = (f"{label} H8 {nq}x{nk} q_offset {q_offset} d{d} f32 "
                f"dropout {rate}")
         plain_ms = None
-        if label != "B16":
+        if label == "B2" or nq < 16384:
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
@@ -2630,7 +2727,8 @@ def fixed_eps(eps):
 def grad_step(torch, dev: str, feature_dim: int = 32):
     """Phase 9's train step: a 64 px config (N = 4096 > 1024 runs K2 at
     4 heads, d 8 at feature_dim 32, and on the f32 warpgroup bodies d 16 at
-    64, d 48 at 192 and d 64 at 256, forward and backward), batch 2,
+    64, d 32 at 128, d 48 at 192 and d 64 at 256, forward and backward),
+    batch 2,
     dropout 0, one fixed eps, from
     seed 7, in full f32 on `dev`. Returns (gradients by "vae." / "teacher."
     name, the teacher's BatchNorm running statistics, the metrics, the
@@ -2813,9 +2911,10 @@ def kink_sides(torch, sides: list, take: bool):
                              f"{len(sides)} recorded")
 
 
-# Phase 9's widths at 4 heads: d 8 and 16 as they are, d 48 and 64 on the
-# CPU step's kink sides (`run_grad_context`).
-GRAD_WIDTHS = ((32, False), (64, False), (192, True), (256, True))
+# Phase 9's widths at 4 heads: d 8 and 16 as they are, d 32, 48 and 64 on
+# the CPU step's kink sides (`run_grad_context`).
+GRAD_WIDTHS = ((32, False), (64, False), (128, True), (192, True),
+               (256, True))
 
 
 def cpu_grad_ref(torch, feature_dim: int, sided: bool) -> tuple:
@@ -2844,10 +2943,12 @@ def run_grad_context(torch, feature_dim: int = 32, sided: bool = False,
     step `cpu_grad_ref` gives, computed here when None). With `sided` the
     card's step takes the CPU step's side of each LeakyReLU kink
     (`kink_sides`; each entry that differs must lie within 1e-4 of its
-    call's largest |x| of zero, rounding's reach): at d 48 and 64, on the
-    kernels and on the plain versions alike, a kink can otherwise move the
-    attention biases downstream of it past their 1e-3 bar (PERF.md §6),
-    the kink's doing and not K2's."""
+    call's largest |x| of zero, rounding's reach): at d 32, 48 and 64, on
+    the kernels and on the plain versions alike, a kink can otherwise move
+    the attention biases downstream of it past their 1e-3 bar (PERF.md §6),
+    the kink's doing and not K2's. There it also logs the unsided step's
+    worst gradient, with the kernels and with the plain versions on the
+    card, as a reading that no bar holds."""
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     seen = (k2.launches, k2.tf32_wgmma_launches, k2.bwd_fused_launches,
             k2.bwd_tf32_wgmma_launches)
@@ -2868,6 +2969,25 @@ def run_grad_context(torch, feature_dim: int = 32, sided: bool = False,
         raise AssertionError(f"grads d {feature_dim // 4}: K2 calls (fwd, of "
                              f"them f32 warpgroup, bwd, of them f32 "
                              f"warpgroup) {calls}")
+    if sided:
+        # Beside the sided comparison, a reading that is printed and not
+        # held to the bars: the card's step on its own side of every kink,
+        # with the kernels and with the plain versions on the card, each
+        # gradient's difference from the CPU's over its bar.
+        unsided = []
+        for plain in (False, True):
+            restore = plain_on_card() if plain else (lambda: None)
+            try:
+                r = grad_ratios(g_cpu, grad_step(torch, "cuda",
+                                                 feature_dim)[0], before_bn)
+            finally:
+                restore()
+            k = max(r, key=r.get)
+            unsided.append(f"{r[k]:.3f} ({k}) with the "
+                           f"{'plain versions' if plain else 'kernels'}")
+        log(f"[grads] d {feature_dim // 4} unsided (the card's own side of "
+            f"every kink; a reading, not held): worst gradient over its bar "
+            + ", ".join(unsided))
     ratios = grad_ratios(g_cpu, g_gpu, before_bn)
     # The worst gradient of each bar, as a share of 1e-3 of its largest.
     worst = {bn: max((r * (BN_SHARE if bn else GRAD_SHARE) / 1e-3, k)
@@ -3747,21 +3867,29 @@ def run_recipe(torch, tmp: Path, smi: str, mods: dict,
 RECIPE_MID_F32 = dict(batch_size=8, gradient_accumulation_steps=1,
                       latent_dim=384, embedding_dim=192, feature_dim=384,
                       vae_lr=2e-4, teacher_lr=1e-4, mixed_precision=False)
+# The low-end tier (RECIPE_LOW_END, head size 32) in f32, at batch 16 x 1
+# instead of the recipe's 16 x 4, a cut for this run's time.
+RECIPE_LOW_END_F32 = dict(RECIPE_LOW_END, gradient_accumulation_steps=1,
+                          mixed_precision=False)
+# Phase 20's f32 runs (`run_recipe_f32`), as the kernels' line names them.
+F32_RECIPE_RUNS = ("decode", "step", "decode_low_end", "step_low_end")
 
 
 def run_recipe_f32(torch, tmp: Path, smi: str, mods: dict) -> dict:
     """Phase 20 in f32, what a user with default flags runs at the recipes'
-    head sizes: (a) `decode_and_score` at batch 8 through ImageGenerator in
-    f32 (lunaris-generate's default) from a seeded H100-tier checkpoint
-    (head size 64), a warm-up call, then one profiled; (b) one f32 train
-    step at the mid-range tier's widths (RECIPE_MID_F32: head size 48,
-    batch 8 x 1) from a seeded random init, a warm-up step, then one
-    profiled. Each under `profile_counted`: every K2 forward on
-    flash_fwd_wgmma_tf32 and every backward on flash_bwd_wgmma_tf32 at its
-    head size, by the wrappers' counts and by name, their pre-pass once a
-    forward and twice a backward, none on flash_fwd_tf32, the split
-    backward or a CUDA-core K2 kernel; finite losses and scores; device
-    time by kernel group and idle share."""
+    head sizes: `decode_and_score` at batch 8 through ImageGenerator in f32
+    (lunaris-generate's default) from a seeded checkpoint, a warm-up call,
+    then one profiled: (a) the H100 tier's (head size 64), (c) the low-end
+    tier's (head size 32); one f32 train step from a seeded random init, a
+    warm-up step, then one profiled: (b) at the mid-range tier's widths
+    (RECIPE_MID_F32: head size 48, batch 8 x 1), (d) at the low-end tier's
+    (RECIPE_LOW_END_F32: head size 32, batch 16 x 1). Each under
+    `profile_counted`: every K2 forward on flash_fwd_wgmma_tf32 and every
+    backward on flash_bwd_wgmma_tf32 at its head size, by the wrappers'
+    counts and by name, their pre-pass once a forward and twice a backward,
+    none on flash_fwd_tf32, flash_bwd_fused_tf32, the split backward or a
+    CUDA-core K2 kernel; finite losses and scores; device time by kernel
+    group and idle share."""
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
     from lunaris_orion_tpu_torch.train.state import create_state
@@ -3803,66 +3931,72 @@ def run_recipe_f32(torch, tmp: Path, smi: str, mods: dict) -> dict:
         log(f"[recipe] {tag}: launches {counts}; K2 by name {names}")
         return result, host_s, dev_ms, counts, groups
 
-    # (a) f32 decode+score at the H100 tier's widths (head size 64).
-    cfg = TrainConfig(**RECIPE_H100)
-    ckpt = tmp / "recipe-f32.pt"
-    save_checkpoint(torch, cfg, ckpt, seed=0)
-    gen = ImageGenerator(str(ckpt), device="cuda", bf16=False)
-    z = torch.randn(8, cfg.latent_dim, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(9))
-    gen.decode_and_score(z)                       # the warm-up call
-    tag = "recipe H100 decode+score batch 8 f32"
-    (imgs, quality, sem), _, dec_dev, dec_counts, dec_groups = counted(
-        lambda: gen.decode_and_score(z), tag, 64, False)
-    if imgs.shape != (8, 128, 128, 3) or not (
-            torch.isfinite(imgs).all() and torch.isfinite(quality).all()
-            and torch.isfinite(sem).all()):
-        raise AssertionError(f"{tag}: non-finite or shape {tuple(imgs.shape)}")
-    dec_ms = time_ms(torch, lambda: gen.decode_and_score(z), 3)
-    log(f"[recipe] {tag}: {dec_ms:.1f} ms = {8 / dec_ms * 1e3:.2f} sprites/s, "
-        f"device {dec_dev:.1f} ms on {smi}")
-    del gen
-    torch.cuda.empty_cache()
+    def decode(recipe, tier, d):
+        cfg = TrainConfig(**recipe)
+        ckpt = tmp / f"recipe-f32-{tier}.pt"
+        save_checkpoint(torch, cfg, ckpt, seed=0)
+        gen = ImageGenerator(str(ckpt), device="cuda", bf16=False)
+        z = torch.randn(8, cfg.latent_dim, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(9))
+        gen.decode_and_score(z)                   # the warm-up call
+        tag = f"recipe {tier} decode+score batch 8 f32"
+        (imgs, quality, sem), _, dec_dev, dec_counts, dec_groups = counted(
+            lambda: gen.decode_and_score(z), tag, d, False)
+        if imgs.shape != (8, 128, 128, 3) or not (
+                torch.isfinite(imgs).all() and torch.isfinite(quality).all()
+                and torch.isfinite(sem).all()):
+            raise AssertionError(f"{tag}: non-finite or shape "
+                                 f"{tuple(imgs.shape)}")
+        dec_ms = time_ms(torch, lambda: gen.decode_and_score(z), 3)
+        log(f"[recipe] {tag}: {dec_ms:.1f} ms = {8 / dec_ms * 1e3:.2f} "
+            f"sprites/s, device {dec_dev:.1f} ms (idle "
+            f"{max(0.0, 1 - dec_dev / dec_ms):.1%}) on {smi}")
+        del gen
+        torch.cuda.empty_cache()
+        return {"tier": tier, "head_dim": d, "dtype": "f32", "ms": dec_ms,
+                "device_ms": dec_dev, "idle": max(0.0, 1 - dec_dev / dec_ms),
+                "groups_ms": dec_groups, "launches": dec_counts}
 
-    # (b) one f32 train step at the mid-range tier's widths (head size 48).
-    cfg = TrainConfig(**RECIPE_MID_F32)
-    state = create_state(cfg, "cuda", 20)
-    step = make_train_step(cfg)
-    g = torch.Generator(device="cuda").manual_seed(21)
-    shape = (cfg.gradient_accumulation_steps, cfg.batch_size, 128, 128, 3)
-    images = [torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
-                            generator=g) for _ in range(2)]
-    t0 = time.perf_counter()
-    state, m = step(state, images[0])             # the warm-up step
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    tag = (f"recipe mid-range train step f32 {cfg.batch_size} x "
-           f"{cfg.gradient_accumulation_steps}")
-    (state, m), step_s, step_dev, step_counts, step_groups = counted(
-        lambda: step(state, images[1]), tag, 48, True)
-    losses = {k: float(v) for k, v in m.items()}
-    if not all(map(math.isfinite, losses.values())):
-        raise AssertionError(f"{tag}: non-finite metrics {losses}")
-    n = shape[0] * shape[1]
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[recipe] {tag}: {step_s * 1e3:.0f} ms = {n / step_s:.2f} sprites/s "
-        f"(warm-up {warm_s:.1f} s), device {step_dev:.0f} ms (idle "
-        f"{max(0.0, 1 - step_dev / (step_s * 1e3)):.1%}), peak {peak:.1f} "
-        f"GiB, total_loss {losses['total_loss']:.5f} recon "
-        f"{losses['recon_loss']:.5f}; phase {time.perf_counter() - t_phase:.0f}"
-        f" s on {smi}")
-    del state, step, images, m
-    torch.cuda.empty_cache()
-    return {"decode": {"tier": "H100", "head_dim": 64, "dtype": "f32",
-                       "ms": dec_ms, "device_ms": dec_dev,
-                       "groups_ms": dec_groups, "launches": dec_counts},
-            "step": {"tier": "mid-range", "head_dim": 48, "dtype": "f32",
-                     "batch": list(shape[:2]), "ms": step_s * 1e3,
-                     "device_ms": step_dev,
-                     "idle": max(0.0, 1 - step_dev / (step_s * 1e3)),
-                     "groups_ms": step_groups, "sprites_s": n / step_s,
-                     "peak_gib": peak, "launches": step_counts}}
+    def train_step(recipe, tier, d, seed):
+        cfg = TrainConfig(**recipe)
+        state = create_state(cfg, "cuda", seed)
+        step = make_train_step(cfg)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        shape = (cfg.gradient_accumulation_steps, cfg.batch_size, 128, 128, 3)
+        images = [torch.randint(0, 256, shape, dtype=torch.uint8,
+                                device="cuda", generator=g) for _ in range(2)]
+        t0 = time.perf_counter()
+        state, m = step(state, images[0])         # the warm-up step
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        tag = (f"recipe {tier} train step f32 {cfg.batch_size} x "
+               f"{cfg.gradient_accumulation_steps}")
+        (state, m), step_s, step_dev, step_counts, step_groups = counted(
+            lambda: step(state, images[1]), tag, d, True)
+        losses = {k: float(v) for k, v in m.items()}
+        if not all(map(math.isfinite, losses.values())):
+            raise AssertionError(f"{tag}: non-finite metrics {losses}")
+        n = shape[0] * shape[1]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        idle = max(0.0, 1 - step_dev / (step_s * 1e3))
+        log(f"[recipe] {tag}: {step_s * 1e3:.0f} ms = {n / step_s:.2f} "
+            f"sprites/s (warm-up {warm_s:.1f} s), device {step_dev:.0f} ms "
+            f"(idle {idle:.1%}), peak {peak:.1f} GiB, total_loss "
+            f"{losses['total_loss']:.5f} recon {losses['recon_loss']:.5f}; "
+            f"phase {time.perf_counter() - t_phase:.0f} s on {smi}")
+        del state, step, images, m
+        torch.cuda.empty_cache()
+        return {"tier": tier, "head_dim": d, "dtype": "f32",
+                "batch": list(shape[:2]), "ms": step_s * 1e3,
+                "device_ms": step_dev, "idle": idle, "groups_ms": step_groups,
+                "sprites_s": n / step_s, "peak_gib": peak,
+                "launches": step_counts}
+
+    return {"decode": decode(RECIPE_H100, "H100", 64),
+            "step": train_step(RECIPE_MID_F32, "mid-range", 48, 20),
+            "decode_low_end": decode(RECIPE_LOW_END, "low-end", 32),
+            "step_low_end": train_step(RECIPE_LOW_END_F32, "low-end", 32, 22)}
 
 
 # --- phase 16: windowed attention, the evaluator, the training options -------
@@ -4391,11 +4525,44 @@ def serve_bundles(torch, tmp: Path) -> int:
     return 0
 
 
-def run_serving(torch, tmp: Path, smi: str) -> dict:
+def _export_bundles(tmp: str) -> None:
+    """Phase 17 (b) in a process of its own (two threads), which `main`
+    starts after phase 3 so that its host-bound exports run under phase
+    4: the seeded checkpoint tmp/serve.pt and
+    `export_serving_bundle` of BUNDLES into tmp/<bundle>, each program's
+    export seconds and size against weights.bin, and the lines to log, in
+    tmp/exports.json."""
+    import torch
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.infer.exporter import export_serving_bundle
+    torch.set_num_threads(2)
+    tmp = Path(tmp)
+    ckpt = tmp / "serve.pt"
+    save_checkpoint(torch, TrainConfig(), ckpt, seed=17)
+    out = {"export_s": {}, "program_mb": {}, "lines": []}
+    for name, kw in BUNDLES.items():
+        t0 = time.perf_counter()
+        manifest = export_serving_bundle(str(ckpt), str(tmp / name), **kw)
+        wmb = (tmp / name / "weights.bin").stat().st_size / 2**20
+        for key, e in manifest["functions"].items():
+            mb = (tmp / name / e["file"]).stat().st_size / 2**20
+            out["export_s"][f"{name}/{key}"] = e["export_seconds"]
+            out["program_mb"][f"{name}/{key}"] = mb
+            out["lines"].append(
+                f"[serve] export {name} {key}: {e['export_seconds']:.1f} s, "
+                f"{mb:.2f} MB against weights.bin {wmb:.1f} MB")
+        out["lines"].append(f"[serve] bundle {name} in "
+                            f"{time.perf_counter() - t0:.1f} s")
+    (tmp / "exports.json").write_text(json.dumps(out))
+
+
+def run_serving(torch, tmp: Path, smi: str, exporter) -> dict:
     """Phase 17 at the full default width, from a seeded checkpoint:
     (a) `lunaris-convert-torch` to-port then to-torch, bit-equal to the
     input; (b) `export_serving_bundle` of BUNDLES, each program's export
-    seconds and size against weights.bin; (c) the bundles loaded and run
+    seconds and size against weights.bin (`_export_bundles`, in the
+    process `exporter` that `main` started before phase 4: joined here);
+    (c) the bundles loaded and run
     in a second process that imports no model module (`--serve`), against
     eager: generate against `decode_and_score` (uint8 within 1/255, scores
     within 1e-3), score against the teacher (1e-3), the plain batch-2
@@ -4405,13 +4572,15 @@ def run_serving(torch, tmp: Path, smi: str) -> dict:
     bundle against eager in turns (eager, bundle, bundle, eager)."""
     from lunaris_orion_tpu_torch import TrainConfig
     from lunaris_orion_tpu_torch.cli import convert
-    from lunaris_orion_tpu_torch.infer.exporter import (ServingBundle,
-                                                        export_serving_bundle)
+    from lunaris_orion_tpu_torch.infer.exporter import ServingBundle
     from lunaris_orion_tpu_torch.infer.generator import ImageGenerator, full_f32
     t_phase = time.perf_counter()
     cfg = TrainConfig()
     ckpt = tmp / "serve.pt"
-    save_checkpoint(torch, cfg, ckpt, seed=17)
+    exporter.join()
+    if exporter.exitcode:
+        raise AssertionError(f"phase 17's exports failed ({exporter.exitcode})")
+    exports = json.loads((tmp / "exports.json").read_text())
 
     # (a) convert
     t0 = time.perf_counter()
@@ -4425,19 +4594,10 @@ def run_serving(torch, tmp: Path, smi: str) -> dict:
     log(f"[serve] convert to-port, to-torch: {n} tensors bit-equal to the "
         f"input in {time.perf_counter() - t0:.1f} s")
 
-    # (b) export
-    out = {"export_s": {}, "program_mb": {}}
-    for name, kw in BUNDLES.items():
-        t0 = time.perf_counter()
-        manifest = export_serving_bundle(str(ckpt), str(tmp / name), **kw)
-        wmb = (tmp / name / "weights.bin").stat().st_size / 2**20
-        for key, e in manifest["functions"].items():
-            mb = (tmp / name / e["file"]).stat().st_size / 2**20
-            out["export_s"][f"{name}/{key}"] = e["export_seconds"]
-            out["program_mb"][f"{name}/{key}"] = mb
-            log(f"[serve] export {name} {key}: {e['export_seconds']:.1f} s, "
-                f"{mb:.2f} MB against weights.bin {wmb:.1f} MB")
-        log(f"[serve] bundle {name} in {time.perf_counter() - t0:.1f} s")
+    # (b) export (under phase 4)
+    for line in exports.pop("lines"):
+        log(line)
+    out = exports
 
     # (c), (d) in a process that imports no model module
     g = torch.Generator().manual_seed(17)
@@ -5547,7 +5707,7 @@ def _parity_curve_run(torch, smi: str, mods: dict, preset: str,
 
 def _parity_process(index: int, tmp: Path, smi: str) -> None:
     """`PARITY_RUNS[index]` in a process of its own (spawned by
-    `run_parity`), TF32 off; its result goes to tmp/parity_<index>.json."""
+    `start_parity`), TF32 off; its result goes to tmp/parity_<index>.json."""
     import torch
     from lunaris_orion_tpu_torch.device import full_f32
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as m2
@@ -5560,7 +5720,20 @@ def _parity_process(index: int, tmp: Path, smi: str) -> None:
     (tmp / f"parity_{index}.json").write_text(json.dumps(out))
 
 
-def run_parity(torch, tmp: Path, smi: str, mods: dict) -> dict:
+def start_parity(tmp: Path, smi: str) -> list:
+    """Phase 19's runs of (a) and (b), host-bound, each in a process of its
+    own (`_parity_process`), all started together: `main` starts them
+    just before phase 19, so that they run beside its run of (c) and
+    under no phase that times the card, and `run_parity` joins them."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_parity_process, args=(i, tmp, smi))
+             for i in range(len(PARITY_RUNS))]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def run_parity(torch, tmp: Path, smi: str, mods: dict, procs: list) -> dict:
     """Phase 19: the port's long parity runs on the card, TF32 off for
     cuDNN and cuBLAS (K2's f32 products stay three TF32 passes). (a)
     `tools.parity_curves`, 300 x 16, both modes; (b) `tools.parity_hybrid`,
@@ -5569,8 +5742,11 @@ def run_parity(torch, tmp: Path, smi: str, mods: dict) -> dict:
     256, 20 steps each at the full default width, bf16, batch 8.
 
     The runs of (a) and (b) are host-bound (the card idle 92-95 % of a
-    step), so each takes a process of its own (`_parity_process`), all
-    started together, while this process runs (c). Each run's second step
+    step), so each takes a process of its own (`start_parity`, `procs`),
+    all started together just before this phase; this process runs (c)
+    (its seconds, a reading on the host's clock, share the host with
+    them), then
+    joins them. Each run's second step
     goes under torch.profiler (`_parity_step`). Each run of (a) and (b) is
     held to its committed JAX curves: a deterministic divergence past its
     sampled band fails, one between the bands is a finding (returned under
@@ -5581,15 +5757,9 @@ def run_parity(torch, tmp: Path, smi: str, mods: dict) -> dict:
     than the CPU's from the same seed, so its first step has no CPU
     counterpart.) (c) fails on a loss that is not finite, or when the two
     modes' recon or KL at the last step differ by more than 2 %."""
-    import multiprocessing
     from lunaris_orion_tpu_torch.device import full_f32
     from lunaris_orion_tpu_torch.tools import window_dynamics
     out = {"runs": {}, "launches": {}, "between": []}
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_parity_process, args=(i, tmp, smi))
-             for i in range(len(PARITY_RUNS))]
-    for p in procs:
-        p.start()
     try:
         last = {}
         with full_f32():
@@ -5677,17 +5847,36 @@ def main() -> int:
     k1 = timed("3 K1", check_k1, torch, dev, smi)
     k1["max_abs_err"] = max(k1["max_abs_err"],
                             timed("3 K1", check_k1_train, torch, dev))
+    # Host-bound work runs in processes of its own under phase 4, whose
+    # readings are kernel times on the card (CUDA events around kernels):
+    # phase 6's CPU decodes (four threads) and phase 17's exports (two).
+    # Both are joined at its end; no other timed phase overlaps them.
+    spawn = multiprocessing.get_context("spawn")
+    ctx_dir = tempfile.TemporaryDirectory()
+    ctx_proc = spawn.Process(target=_cpu_context_refs, args=(ctx_dir.name,),
+                             daemon=True)
+    serve_dir = tempfile.TemporaryDirectory()
+    exporter = spawn.Process(target=_export_bundles, args=(serve_dir.name,),
+                             daemon=True)
+    ctx_proc.start()
+    exporter.start()
     k2 = timed("4 K2", check_k2, torch, dev, smi)
+    timed("4 K2", lambda: (ctx_proc.join(), exporter.join()))
+    if ctx_proc.exitcode:
+        raise AssertionError(f"phase 6's CPU decodes failed ({ctx_proc.exitcode})")
     with tempfile.TemporaryDirectory() as tmp:
         launches = timed("5 slice", run_slice, torch, Path(tmp), smi)
-        for feature_dim in (64, 128, 256):
-            timed("6 context", run_context, torch, Path(tmp), feature_dim)
+    ctx_refs = torch.load(Path(ctx_dir.name) / "ctx_refs.pt", weights_only=False)
+    for feature_dim in CONTEXT_WIDTHS:
+        timed("6 context", run_context, torch, Path(ctx_dir.name),
+              feature_dim, ctx_refs[feature_dim])
+    ctx_dir.cleanup()
     # Phase 9's CPU steps run in a process of their own under phase 7,
     # whose work is all on the card.
     grad_refs = tempfile.TemporaryDirectory()
     refs_path = Path(grad_refs.name) / "grad_refs.pt"
-    refs_proc = multiprocessing.get_context("spawn").Process(
-        target=_cpu_grad_refs, args=(str(refs_path),), daemon=True)
+    refs_proc = spawn.Process(target=_cpu_grad_refs, args=(str(refs_path),),
+                              daemon=True)
     refs_proc.start()
     bwd = timed("7 K2 bwd", check_k2_bwd, torch, dev, smi)
     k3 = timed("8 K3", check_k3, torch, dev, smi)
@@ -5723,15 +5912,20 @@ def main() -> int:
         wstep = timed("16 window", run_window_train, torch, smi, mods)
         wtrainer = timed("16 window", run_window_trainer, torch, Path(tmp),
                          smi, mods)
-    with tempfile.TemporaryDirectory() as tmp:
-        serving = timed("17 serve", run_serving, torch, Path(tmp), smi)
-        synth = timed("17 serve", run_synthesis, torch, Path(tmp), smi)
+    serving = timed("17 serve", run_serving, torch, Path(serve_dir.name), smi,
+                    exporter)
+    synth = timed("17 serve", run_synthesis, torch, Path(serve_dir.name), smi)
+    serve_dir.cleanup()
     with tempfile.TemporaryDirectory() as tmp:
         dist_a = timed("18 dist", run_dist_nccl, torch, Path(tmp), smi)
         dist_b = timed("18 dist", run_dist_gloo, torch, Path(tmp), smi)
         dist_c = timed("18 dist", run_dist_tp_ep, torch, Path(tmp), smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        parity = timed("19 parity", run_parity, torch, Path(tmp), smi, mods)
+    # Phase 19's host-bound runs of (a) and (b) go on beside its (c).
+    parity_dir = tempfile.TemporaryDirectory()
+    parity_procs = start_parity(Path(parity_dir.name), smi)
+    parity = timed("19 parity", run_parity, torch, Path(parity_dir.name), smi,
+                   mods, parity_procs)
+    parity_dir.cleanup()
     sass = timed("2 build", sass_counts)
     # Phase 19's paths: each parity run's profiled second step.
     p19 = lambda key: {"launches_parity": {
@@ -5890,36 +6084,35 @@ def main() -> int:
              readings=bwd["narrow"],
              sass={k: v for k, v in sass.items() if k.startswith("bwd")}),
         # The f32 warpgroup bodies (three TF32 passes on wgmma) at d 16, the
-        # default type and width, and at d 48 and 64, the mid-range and
-        # H100-tier widths: the forward at B8 H8 N16384, dropout 0, the
-        # fused backward at B2 H8 N16384, dropout 0.1 (where the plain
-        # backward is timed), each against the body it replaced in turns
-        # (the forward's mma.sync one; the backward's mma.sync one at d 16
-        # and the CUDA-core one at 48 and 64), beside SDPA in f32, the
-        # three-pass bound and the special-function floor; d 16's under the
-        # plain keys, d 48's and 64's under `d48` and `d64`; every reading
-        # under `readings` (`readings_d48`, `readings_d64`: B16, both rates,
-        # ragged N, the CP shard, the short rows, the mask); launches in
-        # phase 10's train steps (`launches_f32_step`: the default f32
-        # step's), the forward's in phase 5's f32 decode+score, and in
-        # phase 20's f32 runs (`launches_recipe_f32_decode`: the H100 tier's
-        # decode+score, d 64; `launches_recipe_f32_step`: the mid-range
-        # tier's step, d 48). Their pre-pass, which splits and lays out the
-        # operands once a call, is the next entry.
+        # default type and width, and at d 32, 48 and 64, the low-end,
+        # mid-range and H100-tier widths: the forward at B8 H8 N16384,
+        # dropout 0, the fused backward at B2 H8 N16384, dropout 0.1 (where
+        # the plain backward is timed), each against the body it replaced in
+        # turns (the forward's mma.sync one; the backward's mma.sync one at
+        # d 16 and 32 and the CUDA-core one at 48 and 64), beside SDPA in
+        # f32, the three-pass bound and the special-function floor; d 16's
+        # under the plain keys, the others' under `d32`, `d48` and `d64`
+        # (the backward's train-step batch there: B16, B8 at d 32); every
+        # reading under `readings` (`readings_d32` ..: both rates, ragged
+        # N, the CP shard, the short rows, the mask); launches in phase 10's
+        # train steps (`launches_f32_step`: the default f32 step's), the
+        # forward's in phase 5's f32 decode+score, and in phase 20's f32
+        # runs (`launches_recipe_f32_decode`: the H100 tier's decode+score,
+        # d 64; `launches_recipe_f32_step`: the mid-range tier's step, d 48;
+        # `..._low_end`: the low-end tier's, d 32). Their pre-pass, which
+        # splits and lays out the operands once a call, is the next entry.
         dict(name="flash_attention_fwd_wgmma_tf32", route="cuda",
              source=src + "flash_attention_fwd.cuh", replaces=f"{fa}:335",
              instances=[src + f"flash_attention_fwd_wgmma_tf32_d{d}{x}.cu"
-                        for d in (16, 48, 64) for x in ("", "_drop")],
+                        for d in (16, *TF32_WIDE) for x in ("", "_drop")],
              launches=train["flash_attention_fwd_wgmma_tf32"],
              launches_f32_step=f32_step[
                  "tf32_wgmma_launches flash_attention"],
              launches_decode=launches["tf32_decode"],
-             launches_recipe_f32_decode=f32_recipe["decode"]["launches"][
-                 "flash_attention_fwd_wgmma_tf32"],
-             launches_recipe_f32_step=f32_recipe["step"]["launches"][
-                 "flash_attention_fwd_wgmma_tf32"],
+             **{f"launches_recipe_f32_{run}": f32_recipe[run]["launches"][
+                 "flash_attention_fwd_wgmma_tf32"] for run in F32_RECIPE_RUNS},
              max_abs_err=max(k2[x]["max_abs_err"] for x in (
-                 "tf32", "tf32_d48", "tf32_d64")),
+                 "tf32", *(f"tf32_d{d}" for d in TF32_WIDE))),
              **{key: k2["tf32"]["B8 dropout 0.0"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
                  "library_ms", "earlier_ms")},
@@ -5928,23 +6121,24 @@ def main() -> int:
                                       "bound_by", "bound_ms_sfu",
                                       "library_ms", "earlier_ms")}
                 | {"max_abs_err": k2[f"tf32_d{d}"]["max_abs_err"]}
-                for d in (48, 64)},
+                for d in TF32_WIDE},
              shape="B8 H8 N16384 dropout 0", earlier_body="flash_fwd_tf32",
              readings={k: v for k, v in k2["tf32"].items()
                        if k != "pre-pass"},
              **{f"readings_d{d}": {k: v for k, v in k2[f"tf32_d{d}"].items()
-                                   if k != "pre-pass"} for d in (48, 64)}),
+                                   if k != "pre-pass"} for d in TF32_WIDE}),
         dict(name="flash_attention_bwd_wgmma_tf32", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              instances=[src + f"flash_attention_bwd_wgmma_tf32_d{d}{x}.cu"
-                        for d in (16, 48, 64) for x in ("", "_drop")],
+                        for d in (16, *TF32_WIDE) for x in ("", "_drop")],
              launches=train["flash_attention_bwd_wgmma_tf32"],
              launches_f32_step=f32_step[
                  "bwd_tf32_wgmma_launches flash_attention"],
-             launches_recipe_f32_step=f32_recipe["step"]["launches"][
-                 "flash_attention_bwd_wgmma_tf32"],
+             **{f"launches_recipe_f32_{run}": f32_recipe[run]["launches"][
+                 "flash_attention_bwd_wgmma_tf32"]
+                for run in ("step", "step_low_end")},
              max_abs_err=max(bwd[x]["max_abs_err"] for x in (
-                 "tf32", "tf32_d48", "tf32_d64")),
+                 "tf32", *(f"tf32_d{d}" for d in TF32_WIDE))),
              **{key: bwd["tf32"]["B2 dropout 0.1"][key] for key in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
                  "library_ms", "earlier_ms")},
@@ -5953,13 +6147,14 @@ def main() -> int:
                                       "bound_by", "bound_ms_sfu",
                                       "library_ms", "earlier_ms")}
                 | {"max_abs_err": bwd[f"tf32_d{d}"]["max_abs_err"],
-                   "B16": bwd[f"tf32_d{d}"]["B16 dropout 0.1"],
-                   "earlier_body": "flash_bwd_dkv<float, D, true> "
+                   big: bwd[f"tf32_d{d}"][f"{big} dropout 0.1"],
+                   "earlier_body": "flash_bwd_fused_tf32 (mma.sync)"
+                   if d == 32 else "flash_bwd_dkv<float, D, true> "
                                    "(CUDA cores, fused dq)"}
-                for d in (48, 64)},
+                for d in TF32_WIDE for big in ("B8" if d == 32 else "B16",)},
              shape="B2 H8 N16384 dropout 0.1",
              earlier_body="flash_bwd_fused_tf32", readings=bwd["tf32"],
-             **{f"readings_d{d}": bwd[f"tf32_d{d}"] for d in (48, 64)}),
+             **{f"readings_d{d}": bwd[f"tf32_d{d}"] for d in TF32_WIDE}),
         dict(name="k2_tf32_split", route="cuda",
              source=src + "flash_attention_tf32_split.cu",
              replaces=f"{fa}:335",
@@ -5967,12 +6162,10 @@ def main() -> int:
                       "flash_attention_bwd_wgmma_tf32"],
              launches=train["k2_tf32_split"],
              launches_f32_step=f32_step["split_launches flash_attention"],
-             launches_recipe_f32_decode=f32_recipe["decode"]["launches"][
-                 "k2_tf32_split"],
-             launches_recipe_f32_step=f32_recipe["step"]["launches"][
-                 "k2_tf32_split"],
+             **{f"launches_recipe_f32_{run}": f32_recipe[run]["launches"][
+                 "k2_tf32_split"] for run in F32_RECIPE_RUNS},
              **k2["tf32"]["pre-pass"],
-             **{f"d{d}": k2[f"tf32_d{d}"]["pre-pass"] for d in (48, 64)}),
+             **{f"d{d}": k2[f"tf32_d{d}"]["pre-pass"] for d in TF32_WIDE}),
         dict(name="mse_kl", route="cuda", source=src + "loss_epilogue.cu",
              replaces="lunaris_orion_tpu/ops/pallas/loss_epilogue.py:22",
              launches=train["mse_kl"], trainer_launches=trainer["mse_kl"],

@@ -18,7 +18,7 @@
 // [H, Nk] f32; lse, delta: [BH, Nq] f32; dbias_bh: [BH, Nk] f32. scale:
 // d^-1/2 rounded to the input type.
 // body: 2 the fused warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed
-// by TMA; at d 16 and 32 its narrow form; f32 at d 16, 48 or 64:
+// by TMA; at d 16 and 32 its narrow form; f32 at d 16, 32, 48 or 64:
 // flash_bwd_wgmma_tf32, on the tiles that lunaris_k2_tf32_split wrote into
 // `split` for this call: the query tiles, then the key tiles),
 // 1 the tensor-core kernels on mma.sync (bf16: dkv and dq at d 16, 32, 48 or 64,
@@ -49,6 +49,8 @@ extern "C" int lunaris_flash_attention_bwd(
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d16_drop(a, split, s)
                                   : lunaris_k2_bwd_wgmma_tf32_d16(a, split, s);
+      case 32: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d32_drop(a, split, s)
+                                  : lunaris_k2_bwd_wgmma_tf32_d32(a, split, s);
       case 48: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d48_drop(a, split, s)
                                   : lunaris_k2_bwd_wgmma_tf32_d48(a, split, s);
       case 64: return use_dropout ? lunaris_k2_bwd_wgmma_tf32_d64_drop(a, split, s)
@@ -96,7 +98,12 @@ extern "C" int lunaris_k2_bwd_wgmma_smem_bytes() { return wg_bwd_smem_bytes(); }
 extern "C" int lunaris_k2_bwd_wgmma_narrow_smem_bytes(int d) {
   return nw_bwd_smem_bytes(d == 32 ? 32 : 16);
 }
-// The same for the f32 fused warpgroup body at head size d (16, 48 or 64).
+// The same for the f32 fused warpgroup body at head size d (16, 32, 48 or
+// 64).
 extern "C" int lunaris_k2_bwd_wgmma_tf32_smem_bytes(int d) {
-  return t32_bwd_smem_bytes(d == 16 || d == 48 ? d : 64);
+  return t32_bwd_smem_bytes(d == 16 || d == 32 || d == 48 ? d : 64);
+}
+// Its keys a block, which `flash_attention.fused_instance` mirrors.
+extern "C" int lunaris_k2_bwd_wgmma_tf32_keys(int d) {
+  return bwd_t32_keys(d == 16 || d == 32 || d == 48 ? d : 64);
 }

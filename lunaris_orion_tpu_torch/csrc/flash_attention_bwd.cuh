@@ -195,12 +195,16 @@ int lunaris_k2_bwd_wgmma_d32(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_d32_drop(const LunarisK2BwdArgs& a, cudaStream_t s);
 int lunaris_k2_bwd_simt_f32_d32(const LunarisK2BwdArgs& a, int kernel,
                                 cudaStream_t s);
-// The f32 fused warpgroup body at d 16, 48 and 64
-// (flash_attention_bwd_wgmma_tf32_d{16,48,64}{,_drop}.cu), on the tiles the
-// pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+// The f32 fused warpgroup body at d 16, 32, 48 and 64
+// (flash_attention_bwd_wgmma_tf32_d{16,32,48,64}{,_drop}.cu), on the tiles
+// the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
 int lunaris_k2_bwd_wgmma_tf32_d16(const LunarisK2BwdArgs& a, const void* split,
                                   cudaStream_t s);
 int lunaris_k2_bwd_wgmma_tf32_d16_drop(const LunarisK2BwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d32(const LunarisK2BwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_bwd_wgmma_tf32_d32_drop(const LunarisK2BwdArgs& a,
                                        const void* split, cudaStream_t s);
 int lunaris_k2_bwd_wgmma_tf32_d48(const LunarisK2BwdArgs& a, const void* split,
                                   cudaStream_t s);
@@ -2265,7 +2269,8 @@ flash_bwd_wgmma_narrow(const LunarisK2BwdArgs a,
 }
 
 // ---- the f32 fused warpgroup body: d 16, three TF32 passes on wgmma ----------
-// (d 48 and 64: below, "the f32 fused warpgroup body at d 48 and 64")
+// (d 32, 48 and 64: below, "the f32 fused warpgroup body at d 32, 48 and
+// 64")
 
 // flash_bwd_wgmma_tf32  f32 at D 16, the single-pass form of
 //   `_bwd_fused_kernel` at the default type and width, where Nq and Nk are
@@ -2557,23 +2562,24 @@ __device__ __forceinline__ void consume_bwd_tf32(
   }
 }
 
-// ---- the f32 fused warpgroup body at d 48 and 64 ------------------------------
+// ---- the f32 fused warpgroup body at d 32, 48 and 64 --------------------------
 
-// flash_bwd_wgmma_tf32 at D 48 and 64 (the mid-range and H100-tier widths):
-//   the same five products in three TF32 passes, but the d 16 layout does
-//   not fit. There a warpgroup keeps k and v as A fragments in registers
-//   (4 D a thread in hi and lo: 256 at D 64) and a query tile of 64 in shared
-//   memory (2048 D + 512 bytes: 131,584 at D 64). So here:
-//   - A block owns 64 keys: one consumer warpgroup and a producer warp (160
-//     threads; no setmaxnreg: the 255 registers a thread may hold suffice).
-//     The pre-pass's key tile (1536 D bytes) arrives once, in three bulk
+// flash_bwd_wgmma_tf32 at D 32, 48 and 64 (the low-end, mid-range and
+//   H100-tier widths): the same five products in three TF32 passes, but the
+//   d 16 layout does not fit. There a warpgroup keeps k and v as A fragments
+//   in registers (4 D a thread in hi and lo: 256 at D 64) and a query tile of
+//   64 in shared memory (2048 D + 512 bytes: 131,584 at D 64). So here:
+//   - A consumer warpgroup owns 64 keys; a block is one of them (D 48 and 64)
+//     or two (D 32) and a producer warp (160 or 288 threads; no setmaxnreg:
+//     the 255 or 224 registers a thread may hold suffice). Each warpgroup's
+//     key tile of the pre-pass (1536 D bytes) arrives once, in three bulk
 //     copies: K and V as rows (the A of s^T = k qs^T and dp^T = v dO^T, read
 //     from shared memory) and K^T as rows (the B of dq += ds k).
 //   - Queries come in sub-tiles of 16 (512 D + 128 bytes: qs, dO, qs^T, dO^T
 //     in hi and lo, -lse log2 e, delta), four to a query tile of 64, through
-//     a ring of 3 (D 64) or 4 (D 48), one bulk copy a sub-tile: s^T and dp^T
-//     are wgmma m64n16k8 in three passes a k-step of 8 dims, both operands in
-//     shared memory.
+//     a ring of 3 (D 64) or 4 (D 32, 48) that the block's warpgroups share,
+//     one bulk copy a sub-tile: s^T and dp^T are wgmma m64n16k8 in three
+//     passes a k-step of 8 dims, both operands in shared memory.
 //   - p, the hash on the score's own (key, query), ds and pv in f32 at the TPU
 //     kernel's rounding points, split into hi and lo where the score's C
 //     fragment is the A fragment of dk and dv as it lies (the sub-tile's
@@ -2582,20 +2588,29 @@ __device__ __forceinline__ void consume_bwd_tf32(
 //     of 8 queries), then added with one f32 add: wgmma's sums truncate, so
 //     dk and dv never sit in a product's accumulator across the walk.
 //   - ds goes to shared memory as well, hi and lo, as rows [64 queries][8
-//     keys] a k-step: once the query tile's four sub-tiles are in, dq = ds k
-//     is wgmma m64n{D}k8 in three passes a k-step of 8 keys into one
-//     accumulator from zero, added to the zeroed f32 dq buffer with 16-byte
-//     reductions.
+//     keys] a k-step, a buffer a warpgroup: once the query tile's four
+//     sub-tiles are in, dq = ds k over the warpgroup's keys is wgmma
+//     m64n{D}k8 in three passes a k-step of 8 keys into one accumulator from
+//     zero, added to the zeroed f32 dq buffer with 16-byte reductions.
 //   - dbias: per-key f32 sums over the 4 lanes of a key, no atomics.
 //   Registers a thread: dk, dv and their tile sums (2 D), s and dp (16), the
 //   fragments of ds and pv (32). Shared memory at D 64: 99,072 bytes of ring,
 //   98,304 of keys, 32,768 of ds: 231,224 with the barriers and the
-//   alignment, of 232,448.
+//   alignment, of 232,448. At D 32 one warpgroup's keys and ds take 81,920
+//   bytes, so a second one fits beside a ring of 4 (231,496): two
+//   warpgroups on one SM hide each other's chain of products, the ring's
+//   sub-tiles serve 128 keys, and the grid halves.
 // Dropout is a template parameter; a ragged Nq or Nk costs nothing per score
 // (zeros, -inf). dk, dv and dbias are the same on every run; dq's last bits
 // depend on the order of the reductions.
 
-__host__ __device__ constexpr int bwd_t32w_stages(int d) { return d == 48 ? 4 : 3; }
+__host__ __device__ constexpr int bwd_t32w_stages(int d) { return d == 64 ? 3 : 4; }
+// The consumer warpgroups a block: two at D 32, which beat one by 16 % at
+// B2, B8 and B16 H8 N16384 on an H100 (timed in turns; PERF.md); one at D 48
+// and 64, where a second does not fit.
+__host__ __device__ constexpr int bwd_t32w_groups(int d) {
+  return d == 32 ? 2 : 1;
+}
 // A sub-tile's place in the ring: its bytes rounded up to the 32-byte
 // swizzle's period.
 __host__ __device__ constexpr int bwd_t32w_stage_bytes(int d) {
@@ -2603,23 +2618,26 @@ __host__ __device__ constexpr int bwd_t32w_stage_bytes(int d) {
 }
 constexpr int kBwdT32wDsBytes = kTf32Rows * 64 * 4;   // ds hi or lo: 64 queries x 64 keys
 __host__ __device__ constexpr int bwd_t32_threads(int d) {
-  return d == 16 ? 128 * (kBwdT32Consumers + 1) : 128 + 32;
+  return d == 16 ? 128 * (kBwdT32Consumers + 1) : 128 * bwd_t32w_groups(d) + 32;
 }
 __host__ __device__ constexpr int bwd_t32_keys(int d) {
-  return d == 16 ? kBwdT32Keys : 64;
+  return d == 16 ? kBwdT32Keys : 64 * bwd_t32w_groups(d);
 }
 
-// D 16: see t32_bwd_smem_bytes16. D 48, 64: the ring of query sub-tiles, the
-// block's key tile, ds hi and lo, the barriers, and 1024 bytes of alignment.
+// D 16: see t32_bwd_smem_bytes16. D 32, 48, 64: the ring of query sub-tiles,
+// each warpgroup's key tile and ds hi and lo, the barriers, and 1024 bytes
+// of alignment.
 __host__ __device__ constexpr int t32_bwd_smem_bytes(int d) {
   return d == 16 ? t32_bwd_smem_bytes16()
                  : 1024 + bwd_t32w_stages(d) * bwd_t32w_stage_bytes(d) +
-                       tf32_bwd_k_tile_bytes(d) + 2 * kBwdT32wDsBytes +
+                       bwd_t32w_groups(d) *
+                           (tf32_bwd_k_tile_bytes(d) + 2 * kBwdT32wDsBytes) +
                        (1 + 2 * bwd_t32w_stages(d)) * 8;
 }
 
-// The consumer warpgroup of flash_bwd_wgmma_tf32 at D 48 and 64: keys
-// 64 blockIdx.x .. Every wgmma is done before its registers are touched
+// A consumer warpgroup of flash_bwd_wgmma_tf32 at D 32, 48 and 64: warpgroup
+// wg of the block owns keys 64 (G blockIdx.x + wg) .., its key tile at kts
+// and its ds at dsb. Every wgmma is done before its registers are touched
 // again.
 template <int D, int DROP>
 __device__ __forceinline__ void consume_bwd_tf32_wide(
@@ -2632,11 +2650,12 @@ __device__ __forceinline__ void consume_bwd_tf32_wide(
   constexpr uint32_t HI32 = kNarrowDescHi<16>;   // [rows][8] f32, 32-byte swizzle
   const int Nq = a.Nq, Nk = a.Nk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3;         // warpgroup, warp within it
   const int bh = blockIdx.y;
   const int g = lane >> 2;         // the accumulator's row (and row + 8): a key
   const int t = lane & 3;          // its column pair: queries
-  const int key_l = warp * 16 + g;                 // within the block
-  const int key0 = blockIdx.x * 64 + key_l;
+  const int key_l = wq * 16 + g;                   // within the warpgroup
+  const int key0 = (blockIdx.x * bwd_t32w_groups(D) + wg) * 64 + key_l;
   const bool drop = DROP == kDropOn;
   auto walk = [&](int i) {
     const int x = first + i;
@@ -2773,10 +2792,10 @@ __device__ __forceinline__ void consume_bwd_tf32_wide(
       mbar_arrive(&empty[st]);
     }
 
-    // dq of the query tile over the block's 64 keys, once every warp has
-    // written its ds.
+    // dq of the query tile over the warpgroup's 64 keys, once each of its
+    // warps has written its ds.
     fence_async_shared();
-    named_barrier(1, 128);
+    named_barrier(1 + wg, 128);
     float dq[D / 2];
     wgmma_fence();
 #pragma unroll
@@ -2792,11 +2811,11 @@ __device__ __forceinline__ void consume_bwd_tf32_wide(
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_pin(dq);
-    named_barrier(1, 128);    // ds is read: the next tile may write it
-    // Rows q0 + 16 warp + g (+ 8): the lanes of a column quad swap a pair,
+    named_barrier(1 + wg, 128);    // ds is read: the next tile may write it
+    // Rows q0 + 16 wq + g (+ 8): the lanes of a column quad swap a pair,
     // so that lane t even adds columns 8 c + 2 t .. + 3 of row g and lane t
     // odd those of row g + 8 from 8 c + 2 (t - 1).
-    const int qrow = q0 + warp * 16 + g + (t & 1) * 8;
+    const int qrow = q0 + wq * 16 + g + (t & 1) * 8;
     float* accrow = a.dq_acc + (static_cast<long long>(bh) * Nq + qrow) * D;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
@@ -2901,28 +2920,29 @@ flash_bwd_wgmma_tf32(const LunarisK2BwdArgs a, const uint8_t* split) {
     constexpr int ST = bwd_t32w_stages(D);
     constexpr int SB = bwd_t32w_stage_bytes(D);
     constexpr int SUB = tf32_bwd_sub_bytes(D);
-    uint8_t* kts = ring + ST * SB;
-    uint8_t* dsb = kts + KTB;
-    uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dsb + 2 * kBwdT32wDsBytes);
+    constexpr int G = bwd_t32w_groups(D);
+    uint8_t* kts = ring + ST * SB;                 // G key tiles
+    uint8_t* dsb = kts + G * KTB;                  // G ds buffers (hi, lo)
+    uint64_t* kv_bar = reinterpret_cast<uint64_t*>(dsb + G * 2 * kBwdT32wDsBytes);
     uint64_t* full = kv_bar + 1;
     uint64_t* empty = full + ST;
     if (tid == 0) {
       mbar_init(kv_bar, 1);
       for (int i = 0; i < ST; ++i) {
         mbar_init(&full[i], 1);
-        mbar_init(&empty[i], 128);
+        mbar_init(&empty[i], 128 * G);
       }
       mbar_fence_init();
     }
     __syncthreads();
 
-    if (warp >= 4) {
-      // The producer warp: one lane loads the key tile in three copies (K,
-      // V, K^T), then walks the query sub-tiles.
+    if (warp >= 4 * G) {
+      // The producer warp: one lane loads the block's G key tiles, three
+      // copies a tile (K, V, K^T), then walks the query sub-tiles.
       if (lane != 0) return;
-      const uint8_t* kb = k_src + static_cast<long long>(blockIdx.x) * KTB;
-      mbar_arrive_tx(kv_bar, KTB);
-      for (int c = 0; c < 3; ++c)
+      const uint8_t* kb = k_src + static_cast<long long>(blockIdx.x) * G * KTB;
+      mbar_arrive_tx(kv_bar, G * KTB);
+      for (int c = 0; c < 3 * G; ++c)
         bulk_load(kts + c * (KTB / 3), kb + c * (KTB / 3), KTB / 3, kv_bar);
       for (int u = 0; u < 4 * tiles; ++u) {
         const int st = u % ST;
@@ -2935,7 +2955,9 @@ flash_bwd_wgmma_tf32(const LunarisK2BwdArgs a, const uint8_t* split) {
                   SUB, &full[st]);
       }
     } else {
-      consume_bwd_tf32_wide<D, DROP>(a, ring, dsb, kts, kv_bar, full, empty,
+      const int wg = warp >> 2;
+      consume_bwd_tf32_wide<D, DROP>(a, ring, dsb + wg * 2 * kBwdT32wDsBytes,
+                                     kts + wg * KTB, kv_bar, full, empty,
                                      tiles, first);
     }
   }

@@ -227,7 +227,7 @@ __device__ __forceinline__ void ones3_fragment(uint32_t (&a)[4], int t) {
   a[2] = a[3] = 0u;
 }
 
-// ---- the TF32 tiles of the f32 warpgroup bodies (d 16, 48, 64) ---------------
+// ---- the TF32 tiles of the f32 warpgroup bodies (d 16, 32, 48, 64) -----------
 //
 // wgmma reads TF32 operands K-major only, and reads an f32 word as TF32 by
 // dropping its low 13 bits. So a pre-pass (flash_attention_tf32_split.cu)
@@ -244,13 +244,13 @@ __device__ __forceinline__ void ones3_fragment(uint32_t (&a)[4], int t) {
 //   tf32_bwd_q_tile_bytes(D) = 2048 D + 512  a query tile of the backward.
 //       D 16: qs hi, qs lo, dO hi, dO lo as the forward's K, qs^T and dO^T
 //       as its V^T (queries permuted by `perm8`), then 64 f32 of -lse log2 e
-//       (-inf past Nq) and 64 of delta (0 past Nq). D 48, 64: four sub-tiles
+//       (-inf past Nq) and 64 of delta (0 past Nq). D 32-64: four sub-tiles
 //       of kTf32SubRows queries, each tf32_bwd_sub_bytes(D) = 512 D + 128:
 //       qs hi, qs lo, dO hi, dO lo as rows (16 queries), qs^T hi, qs^T lo,
 //       dO^T hi, dO^T lo as rows too (D dims, a k-step of 8 queries each,
 //       permuted by `perm8`), then 16 f32 of -lse log2 e and 16 of delta.
 //   tf32_bwd_k_tile_bytes(D)  keys of the backward. D 16 (8192): K^T as the
-//       forward's V^T, the keys in order. D 48, 64 (1536 D): K hi, K lo, V
+//       forward's V^T, the keys in order. D 32-64 (1536 D): K hi, K lo, V
 //       hi, V lo as rows (64 keys), then K^T hi, K^T lo as rows (D dims, a
 //       k-step of 8 keys each, the keys in order).
 constexpr int kTf32Rows = 64;

@@ -17,7 +17,7 @@
 // lse: [BH, Nq] f32. scale: d^-1/2 already rounded to the input type.
 // threshold: the uint32 keep threshold, inv_keep: f32(1 / (1 - rate)).
 // body: 2 the warpgroup kernel (bf16 at d 16, 32, 48 or 64: wgmma fed by
-// TMA; at d 16 and 32 its narrow form; f32 at d 16, 48 or 64:
+// TMA; at d 16 and 32 its narrow form; f32 at d 16, 32, 48 or 64:
 // flash_fwd_wgmma_tf32, on the key tiles that lunaris_k2_tf32_split wrote
 // into `split` for this call), 1 the
 // tensor-core kernel on mma.sync (at d 16, 32, 48 or 64: bf16 products, or
@@ -43,6 +43,8 @@ extern "C" int lunaris_flash_attention_fwd(
     switch (d) {
       case 16: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d16_drop(a, split, s)
                                   : lunaris_k2_fwd_wgmma_tf32_d16(a, split, s);
+      case 32: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d32_drop(a, split, s)
+                                  : lunaris_k2_fwd_wgmma_tf32_d32(a, split, s);
       case 48: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d48_drop(a, split, s)
                                   : lunaris_k2_fwd_wgmma_tf32_d48(a, split, s);
       case 64: return use_dropout ? lunaris_k2_fwd_wgmma_tf32_d64_drop(a, split, s)
@@ -81,7 +83,12 @@ extern "C" int lunaris_k2_fwd_wgmma_narrow_smem_bytes(int d) {
   return d == 32 ? nw_fwd_smem_bytes(32, nw_block_k(32))
                  : nw_fwd_smem_bytes(16, nw_block_k(16));
 }
-// The same for the f32 warpgroup body at head size d (16, 48 or 64).
+// The same for the f32 warpgroup body at head size d (16, 32, 48 or 64).
 extern "C" int lunaris_k2_fwd_wgmma_tf32_smem_bytes(int d) {
-  return t32_fwd_smem_bytes(d == 16 || d == 48 ? d : 64);
+  return t32_fwd_smem_bytes(d == 16 || d == 32 || d == 48 ? d : 64);
+}
+// Its query rows a block (64 a consumer warpgroup), which
+// `flash_attention.forward_instance` mirrors.
+extern "C" int lunaris_k2_fwd_wgmma_tf32_rows(int d) {
+  return fwd_t32_rows(d == 16 || d == 32 || d == 48 ? d : 64);
 }

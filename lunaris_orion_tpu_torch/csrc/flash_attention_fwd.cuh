@@ -141,12 +141,16 @@ int lunaris_k2_fwd_wgmma_d16(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d16_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d32(const LunarisK2FwdArgs& a, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_d32_drop(const LunarisK2FwdArgs& a, cudaStream_t s);
-// The f32 warpgroup body at d 16, 48 and 64
-// (flash_attention_fwd_wgmma_tf32_d{16,48,64}{,_drop}.cu), on the key tiles
-// the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
+// The f32 warpgroup body at d 16, 32, 48 and 64
+// (flash_attention_fwd_wgmma_tf32_d{16,32,48,64}{,_drop}.cu), on the key
+// tiles the pre-pass wrote (`split`: flash_attention_tf32_split.cu).
 int lunaris_k2_fwd_wgmma_tf32_d16(const LunarisK2FwdArgs& a, const void* split,
                                   cudaStream_t s);
 int lunaris_k2_fwd_wgmma_tf32_d16_drop(const LunarisK2FwdArgs& a,
+                                       const void* split, cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d32(const LunarisK2FwdArgs& a, const void* split,
+                                  cudaStream_t s);
+int lunaris_k2_fwd_wgmma_tf32_d32_drop(const LunarisK2FwdArgs& a,
                                        const void* split, cudaStream_t s);
 int lunaris_k2_fwd_wgmma_tf32_d48(const LunarisK2FwdArgs& a, const void* split,
                                   cudaStream_t s);
@@ -642,7 +646,7 @@ __host__ __device__ constexpr int tf32_smem_bytes(int d) {
 //     fragment, before the permutation, so k_abs is always the true key.
 //   - Shared memory and the q fragments are twice the bf16 body's (f32, hi
 //     and lo): the ring is dynamic shared memory, 2 tiles deep.
-// At d 16 on long rows flash_fwd_wgmma_tf32 (below) takes over.
+// On long rows flash_fwd_wgmma_tf32 (below) takes over at every head size.
 // Two blocks an SM: without that minimum ptxas held two of the stage
 // instances (LVL 0 and 3) to 128 and 168 registers, and they spilled.
 template <int D, int LVL, int DROP, bool RAGGED>
@@ -1546,11 +1550,12 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the f32 warpgroup body: d 16, 48, 64, three TF32 passes on wgmma ------
+// ---- the f32 warpgroup body: d 16, 32, 48, 64, three TF32 passes on wgmma --
 
 // flash_fwd_wgmma_tf32  f32 at D 16, the default type and width (feature_dim
-//   128 at 8 heads), and at D 48 and 64 (the mid-range and H100-tier
-//   widths, feature_dim 384 and 512), where Nq and Nk are long.
+//   128 at 8 heads), and at D 32, 48 and 64 (the low-end, mid-range and
+//   H100-tier widths, feature_dim 256, 384 and 512), where Nq and Nk are
+//   long.
 //   flash_fwd_tf32 runs its three TF32 passes a product on mma.sync, which
 //   issues a warp's 16 x 8 x 8 at a time and reaches a share of the tensor
 //   cores' rate; here the products bound the call (three passes: 6.7 ms at
@@ -1563,10 +1568,10 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 //     swizzle (q k^T's B, keys as n), and V^T as [2 D][32] atoms, 128-byte
 //     swizzle, rows 0 .. D - 1 V hi and D .. 2 D - 1 V lo (p v's B, keys as
 //     k).
-//   - A block is consumer warpgroups of 64 query rows (three at D 16, two at
-//     D 48 and 64) and a producer warp that keeps a ring of key tiles (4 at
-//     D 16 and 48, 3 at 64: 1024 D bytes a tile): each tile is one bulk copy
-//     (TMA), and its lanes write the tile's bias (-inf past Nk).
+//   - A block is consumer warpgroups of 64 query rows (three at D 16 and 32,
+//     two at D 48 and 64) and a producer warp that keeps a ring of key tiles
+//     (4 at D 16, 32 and 48, 3 at 64: 1024 D bytes a tile): each tile is one
+//     bulk copy (TMA), and its lanes write the tile's bias (-inf past Nk).
 //   - s = qs k^T starts at the bias in the accumulator and adds three passes
 //     of wgmma m64n64k8 a k-step (q lo K hi, q hi K lo, q hi K hi), q's hi
 //     and lo A fragments in registers, scaled in f32 and split once.
@@ -1580,11 +1585,11 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 //   - p v a key tile, summed from zero (wgmma's sums truncate, so o itself
 //     never sits in a product's accumulator). D 16: p hi times [V hi; V lo]
 //     is one wgmma m64n32k8 (its columns 16-31 are the hi x lo pass), p lo
-//     times V hi one m64n16k8; the three are added, small terms first. D 48
-//     and 64, whose registers hold q's fragments (D), o (D / 2), p hi and lo
-//     (64) and one p v accumulator (D / 2) at 232 a thread, but not three:
-//     the three passes a k-step into one m64n{D}k8 accumulator, small terms
-//     first. Then o = o corr + pv with one f32 FMA.
+//     times V hi one m64n16k8; the three are added, small terms first. D 32,
+//     48 and 64, whose registers hold q's fragments (D), o (D / 2), p hi and
+//     lo (64) and one p v accumulator (D / 2) at 232 a thread (at D 32 at
+//     160), but not three: the three passes a k-step into one m64n{D}k8
+//     accumulator, small terms first. Then o = o corr + pv with one f32 FMA.
 //   The warpgroups meet only at the ring: one's softmax runs while another's
 //   products do. Dropout is a template parameter; one instance takes every
 //   Nk (the bias masks the keys past it, their K and V are zeros).
@@ -1592,7 +1597,12 @@ int launch_wgmma_narrow(const LunarisK2FwdArgs& a, cudaStream_t stream) {
 // scaled in f32, scores, max, sums and o in f32, each product three TF32
 // passes with cvt.rna splits, p v summed from zero a tile of 64 keys).
 
-__host__ __device__ constexpr int fwd_t32_consumers(int d) { return d == 16 ? 3 : 2; }
+// The consumer warpgroups: three at 160 registers at D 16 and 32 (at D 32
+// three beat two at 232 by 8-12 % at B8 and B16 H8 N16384 on an H100, timed
+// in turns; PERF.md), two at D 48 and 64.
+__host__ __device__ constexpr int fwd_t32_consumers(int d) {
+  return d <= 32 ? 3 : 2;
+}
 __host__ __device__ constexpr int fwd_t32_rows(int d) { return 64 * fwd_t32_consumers(d); }
 __host__ __device__ constexpr int fwd_t32_threads(int d) {
   return 128 * (fwd_t32_consumers(d) + 1);
@@ -1816,8 +1826,8 @@ flash_fwd_wgmma_tf32(const LunarisK2FwdArgs a, const uint8_t* split) {
 
   if (warp >= 4 * C) {
     // The producer warpgroup: one warp loads, the registers go to the
-    // consumers (D 16: 3 x 128 x 160 + 128 x 32 = the block's 512 x 128;
-    // D 48, 64: 2 x 128 x 232 + 128 x 40 <= 384 x 168).
+    // consumers (three: 3 x 128 x 160 + 128 x 32 = the block's 512 x 128;
+    // two: 2 x 128 x 232 + 128 x 40 <= 384 x 168).
     if constexpr (C == 3) setmaxnreg_dec<32>();
     else setmaxnreg_dec<40>();
     if (warp != 4 * C) return;

@@ -1,5 +1,5 @@
 // K2 -- the pre-pass of the f32 warpgroup bodies flash_fwd_wgmma_tf32 and
-// flash_bwd_wgmma_tf32 (d 16, 48, 64): the operands of a call split into
+// flash_bwd_wgmma_tf32 (d 16, 32, 48, 64): the operands of a call split into
 // TF32 hi and lo and laid out as their wgmma read them
 // (flash_attention_common.cuh, "the TF32 tiles"). Part of the port of
 // lunaris_orion_tpu/ops/pallas/flash_attention.py `_fwd_kernel` and
@@ -10,8 +10,8 @@
 // Once a call, instead of once for every block that reads a tile.
 //
 // Bound: bytes. It reads the operands once and writes each twice (hi, lo)
-// or four times (the forward's V, the backward's q and dO, and at d 48 and
-// 64 its K: rows and transposed), about 0.3 ms at B16 H8 N16384 d 16 on an
+// or four times (the forward's V, the backward's q and dO, and at d 32, 48
+// and 64 its K: rows and transposed), about 0.3 ms at B16 H8 N16384 d 16 on an
 // H100. A thread takes one element at a time: reads are coalesced, writes
 // land in one tile of 8 to 131 KB, which the L2 cache gathers.
 
@@ -22,7 +22,7 @@ namespace {
 constexpr int kSplitThreads = 256;
 constexpr int kSplitFwd = 0;     // k, v -> tf32_fwd_tile_bytes a key tile
 constexpr int kSplitBwdQ = 1;    // q, dO, lse, delta -> tf32_bwd_q_tile_bytes
-constexpr int kSplitBwdK = 2;    // k (and v at d 48, 64) -> tf32_bwd_k_tile_bytes
+constexpr int kSplitBwdK = 2;    // k (and v at d 32-64) -> tf32_bwd_k_tile_bytes
 
 template <int MODE, int D>
 __host__ __device__ constexpr int split_tile_bytes() {
@@ -156,8 +156,8 @@ int launch_split_mode(int mode, const void* a, const void* b, const void* lse,
 // mode 0: a = k, b = v [BH, N, d] f32 -> out, ceil(N / 64) key tiles of
 // tf32_fwd_tile_bytes(d) a BH row. mode 1: a = q, b = dO [BH, N, d], lse and
 // delta [BH, N] f32, scale d^-1/2 -> ceil(N / 64) query tiles of
-// tf32_bwd_q_tile_bytes(d). mode 2: a = k (and b = v at d 48, 64) ->
-// 2 ceil(N / 128) key tiles of tf32_bwd_k_tile_bytes(d). d: 16, 48 or 64.
+// tf32_bwd_q_tile_bytes(d). mode 2: a = k (and b = v at d 32, 48, 64) ->
+// 2 ceil(N / 128) key tiles of tf32_bwd_k_tile_bytes(d). d: 16, 32, 48 or 64.
 // out is 16-byte aligned and holds BH x tiles x the tile bytes. Returns the
 // cudaError_t of the launch.
 extern "C" int lunaris_k2_tf32_split(int mode, const void* a, const void* b,
@@ -170,6 +170,7 @@ extern "C" int lunaris_k2_tf32_split(int mode, const void* a, const void* b,
   auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16: return launch_split_mode<16>(mode, a, b, lse, delta, out, BH, N, scale, s);
+    case 32: return launch_split_mode<32>(mode, a, b, lse, delta, out, BH, N, scale, s);
     case 48: return launch_split_mode<48>(mode, a, b, lse, delta, out, BH, N, scale, s);
     case 64: return launch_split_mode<64>(mode, a, b, lse, delta, out, BH, N, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -32,14 +32,14 @@
 // `kNarrowDescHi<D>`, joined by `desc_of`.
 //
 // The f32 warpgroup bodies (flash_fwd_wgmma_tf32, flash_bwd_wgmma_tf32: d 16,
-// 48, 64) take TF32 operands, which wgmma reads K-major only. A pre-pass
+// 32, 48, 64) take TF32 operands, which wgmma reads K-major only. A pre-pass
 // lays them out (flash_attention_common.cuh, "the TF32 tiles"): [rows][8]
 // f32 tiles, one k-step of 8 a row of 32 bytes with the 32-byte swizzle (the
 // narrow descriptor `kNarrowDescHi<16>`, for A and B alike), and [rows][32]
 // f32 atoms, four k-steps a row of 128 bytes with the 128-byte swizzle
 // (`kSw128DescHi`; a k-step 32 bytes further on within the row, the next
-// atom after the last). `wgmma_tf32_rs` / `wgmma_tf32_ss` take n 48 and 64
-// for their widths.
+// atom after the last). `wgmma_tf32_rs` / `wgmma_tf32_ss` take n 32, 48
+// and 64 for their widths.
 
 #pragma once
 
@@ -649,16 +649,17 @@ __device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The same by n: 48 and 64 (the head sizes of the wide f32 bodies), and 16
-// and 32 (A from shared memory only for those two).
+// The same by n: 32, 48 and 64 (the head sizes of the wide f32 bodies), and
+// 16 (A from shared memory only).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int scale_d) {
   if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, b, scale_d);
+  else if constexpr (N == 48) wgmma_tf32_rs_n48(d, a, b, scale_d);
   else {
-    static_assert(N == 48, "wgmma_tf32_rs: n 48 or 64");
-    wgmma_tf32_rs_n48(d, a, b, scale_d);
+    static_assert(N == 32, "wgmma_tf32_rs: n 32, 48 or 64");
+    wgmma_tf32_rs_n32(d, a, b, scale_d);
   }
 }
 

@@ -73,6 +73,8 @@ SIGNATURES = {
     "lunaris_k2_bwd_wgmma_narrow_smem_bytes": (_I,),
     "lunaris_k2_fwd_wgmma_tf32_smem_bytes": (_I,),
     "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (_I,),
+    "lunaris_k2_fwd_wgmma_tf32_rows": (_I,),
+    "lunaris_k2_bwd_wgmma_tf32_keys": (_I,),
 }
 
 

@@ -20,14 +20,15 @@ other device and never falls back.
                     whose row is the swizzle's span, 32 or 64 bytes, the
                     bias as a k-step of its own, each tile's softmax under
                     the tile before's p v);
-                    f32 at d 16, 48 and 64 where Nq and Nk are at least
-                    TF32_WGMMA_MIN_ROWS[d]: flash_fwd_wgmma_tf32, three
-                    (d 16) or two (d 48, 64) warpgroups of 64 rows, wgmma
+                    f32 at d 16, 32, 48 and 64 where Nq and Nk are at least
+                    TF32_WGMMA_MIN_ROWS[d]: flash_fwd_wgmma_tf32,
+                    TF32_WGMMA_ROWS[d] / 64 warpgroups of 64 rows, wgmma
                     in three TF32 passes a product on key tiles that a
                     pre-pass (`tf32_tiles`) split into hi and lo and laid
                     out as wgmma reads them;
-            "mma"   d 16, 32, 48, 64 (f32 and bf16 at d 16 where Nq or Nk
-                    is short, bf16 at 32 too): both products on the
+            "mma"   d 16, 32, 48, 64 where Nq or Nk is short (f32 at
+                    each, bf16 at d 16 and 32; bf16 at 48 and 64 by
+                    `body="mma"`): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
                     (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
@@ -49,12 +50,13 @@ other device and never falls back.
                      and Nk are at least NARROW_MIN_ROWS[d] (its narrow form:
                      three warpgroups of 64 keys that meet only at the ds
                      tiles),
-                     and for f32 at d 16, 48 and 64 where Nq and Nk are at
-                     least TF32_WGMMA_BWD_MIN_ROWS[d] (flash_bwd_wgmma_tf32:
-                     two warpgroups of 64 keys at d 16, one at 48 and 64,
-                     the five products in three TF32 passes on wgmma, on
-                     the pre-pass's tiles; at 48 and 64 every shape),
-                     "mma" at d 16 and 32
+                     and for f32 at d 16, 32, 48 and 64 where Nq and Nk are
+                     at least TF32_WGMMA_BWD_MIN_ROWS[d]
+                     (flash_bwd_wgmma_tf32: TF32_WGMMA_BWD_KEYS[d] / 64
+                     warpgroups of 64 keys, the five products in three TF32
+                     passes on wgmma, on the pre-pass's tiles; at 48 and 64
+                     every shape),
+                     "mma" at d 16 and 32 where the rows are short
                      (five products on the tensor cores; f32 in three TF32
                      passes), "simt" at d 8;
             "split"  the dk/dv kernel and a dq kernel (replace
@@ -84,7 +86,7 @@ count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
 of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
 among those, the narrow ones (bf16 d 16 and 32), and `tf32_wgmma_launches` and
-`bwd_tf32_wgmma_launches` the f32 ones (d 16, 48, 64). `split_launches` counts the
+`bwd_tf32_wgmma_launches` the f32 ones (d 16, 32, 48, 64). `split_launches` counts the
 launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
 backward.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
@@ -127,15 +129,21 @@ NARROW_HEAD_DIMS = (16, 32)          # of those, the narrow bodies' (rows of 32,
 # win at N 256 (the windowed fold), 512 and 1024 and lose from 2048 on; at
 # d 32, where mma.sync's products cost more, they win at N 256 only.
 NARROW_MIN_ROWS = {16: 2048, 32: 512}
-TF32_WGMMA_HEAD_DIMS = (16, 48, 64)  # the f32 warpgroup bodies' (three TF32 passes)
+TF32_WGMMA_HEAD_DIMS = (16, 32, 48, 64)  # the f32 warpgroup bodies' (three TF32 passes)
 # By head size: where Nq or Nk is shorter the f32 warpgroup forward's
 # pre-pass and set-up are not paid back, and the fused backward's at
 # TF32_WGMMA_BWD_MIN_ROWS (chip_smoke.py phases 4 and 7 time both bodies in
-# turns at N 256 to 4096; PERF.md section 6). At d 48 and 64 the backward's
-# warpgroup body beats the CUDA-core one it replaced at every N measured,
-# N 256 (the windowed fold) included.
-TF32_WGMMA_MIN_ROWS = {16: 2048, 48: 1024, 64: 1024}
-TF32_WGMMA_BWD_MIN_ROWS = {16: 2048, 48: 0, 64: 0}
+# turns at N 256 to 4096; PERF.md section 6): mma.sync takes the short rows
+# at d 16 and 32. At d 48 and 64 the backward's warpgroup body beats the
+# CUDA-core one it replaced at every N measured, N 256 (the windowed fold)
+# included.
+TF32_WGMMA_MIN_ROWS = {16: 2048, 32: 2048, 48: 1024, 64: 1024}
+TF32_WGMMA_BWD_MIN_ROWS = {16: 2048, 32: 2048, 48: 0, 64: 0}
+# The f32 warpgroup forward's query rows a block and the fused backward's
+# keys a block (64 a consumer warpgroup), as the C side builds them
+# (`lunaris_k2_fwd_wgmma_tf32_rows`, `lunaris_k2_bwd_wgmma_tf32_keys`).
+TF32_WGMMA_ROWS = {16: 192, 32: 192, 48: 128, 64: 128}
+TF32_WGMMA_BWD_KEYS = {16: 128, 32: 128, 48: 64, 64: 64}
 FWD_BODIES = ("simt", "mma", "wgmma")  # the C entry points' `body` argument
 # What HEAD_DIMS allow for the teacher's 8 heads.
 SUPPORTED = (f"d in {HEAD_DIMS}: feature_dim "
@@ -439,19 +447,20 @@ def _tile_maps(mode: int, d: int):
 def tf32_tiles_plain(mode: int, a, b=None, lse=None, delta=None,
                      scale: float = 1.0) -> torch.Tensor:
     """The plain version of the pre-pass `tf32_tiles`: the same bytes, as
-    an f32 tensor [BH, tiles, tf32_tile_bytes(mode, d) / 4], d 16, 48 or 64
-    (`_tile_maps` says where each value goes).
+    an f32 tensor [BH, tiles, tf32_tile_bytes(mode, d) / 4], d 16, 32, 48
+    or 64 (`_tile_maps` says where each value goes).
 
     TF32_FWD: a = k, b = v [B, H, N, d] f32; a key tile is K hi and K lo
     as rows, then V^T as two atoms (keys 0-31, 32-63), rows 0..d-1 V hi,
     d..2d-1 V lo, keys permuted by `perm8`. TF32_BWD_Q: a = q, b = dO, lse
     [B*H, N], delta [B, H, N], scale d^-1/2: at d 16 qs = q * scale and dO
     as the forward's K, qs^T and dO^T as its V^T, then -lse log2 e (-inf
-    past N) and delta; at d 48, 64 four sub-tiles of 16 queries, each qs
-    and dO as rows, qs^T and dO^T as transposed rows (queries permuted),
-    then its 16 of -lse log2 e and of delta. TF32_BWD_K: a = k (b = v at
-    d 48, 64); d 16: K^T as the forward's V^T, keys in order; d 48, 64: K
-    and V as rows, then K^T as transposed rows; an even count of tiles.
+    past N) and delta; at d 32, 48, 64 four sub-tiles of 16 queries, each
+    qs and dO as rows, qs^T and dO^T as transposed rows (queries
+    permuted), then its 16 of -lse log2 e and of delta. TF32_BWD_K: a = k
+    (b = v at d 32, 48, 64); d 16: K^T as the forward's V^T, keys in
+    order; d 32, 48, 64: K and V as rows, then K^T as transposed rows; an
+    even count of tiles.
     Rows past N are zeros; hi and lo are `split_tf32`'s."""
     bsz, h, n, d = a.shape
     if d not in TF32_WGMMA_HEAD_DIMS:
@@ -518,14 +527,13 @@ def default_bwd(dtype: torch.dtype, d: int) -> str:
     faster in turns on an H100 80GB HBM3 at 700 W (`chip_smoke.py` phase 7;
     PERF.md section 6). "fused" where one pass's saving, scores, exp and
     mask computed once for all three gradients, outweighs adding dq across
-    key blocks: on the tensor cores (d 16 and 32, bf16 and f32; bf16 at
-    d 48 and 64 by the warpgroup body, about half the split pair's time at
-    B16 H8 N16384, and at d 16 by the narrow one where the rows are long,
-    by mma.sync where they are short), and in f32 on the CUDA cores too
-    (d 48, 64, whose dot products the dq kernel would repeat with
-    shuffles, and d 8: 1.38-1.57 against 1.47-1.64 ms at B2 H8 N4096 in
-    two runs). "split" in bf16 at d 8, where the two measured within
-    noise."""
+    key blocks: on the tensor cores at d 16, 32, 48 and 64 in both types
+    (the warpgroup bodies where the rows are long, at d 48 and 64 at every
+    N; mma.sync at d 16 and 32 where they are short; in bf16 about half the
+    split pair's time at d 48 and 64 at B16 H8 N16384; f32's split pair
+    runs on the CUDA cores), and in f32 at d 8 on the CUDA cores (1.38-1.57
+    against 1.47-1.64 ms at B2 H8 N4096 in two runs). "split" in bf16 at
+    d 8, where the two measured within noise."""
     if dtype == torch.bfloat16:
         return ("fused" if d in MMA_FUSED_HEAD_DIMS + WGMMA_HEAD_DIMS
                 else "split")
@@ -567,7 +575,7 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
     WGMMA_HEAD_DIMS and f32 at TF32_WGMMA_HEAD_DIMS, where the kernel has a
     warpgroup body ("wgmma": wgmma fed by TMA), that one. `wgmma` names the
     body it replaced there (f32: the forward's "mma", the fused backward's
-    "mma" at d 16 and "simt" at 48, 64), which
+    "mma" at d 16 and 32 and "simt" at 48, 64), which
     `body` may still name, as it may name "mma" wherever the kernel has a
     tensor-core body. `body` "simt" reaches the CUDA-core kernel where
     the tensor-core one is the default (f32 at every head size, bf16 at
@@ -596,21 +604,21 @@ def _body(name: str, dtype: torch.dtype, d: int, mma_dims: tuple,
 
 def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
                      backward: bool = False) -> str | None:
-    """The body a call at d 16 (bf16 and f32), 32 (bf16) or 48, 64 (f32)
-    takes where its rows are short, else None (the default of `_body`): the
-    narrow warpgroup bodies (bf16) start a producer, a ring and their
-    barriers per block, and the f32 ones a pre-pass as well, which the
-    short rows of a windowed fold (Nq = Nk = the window) or a 32 px model
-    do not pay back. f32 keeps the forward's mma.sync body under
-    TF32_WGMMA_MIN_ROWS[d], the fused backward's (`backward`) under
-    TF32_WGMMA_BWD_MIN_ROWS[d]: mma.sync at d 16 (at 48 and 64 the
-    CUDA-core body would be, but it loses at every N)."""
+    """The body a call at d 16 and 32 (bf16 and f32) or 48, 64 (f32, the
+    forward) takes where its rows are short, else None (the default of
+    `_body`): the narrow warpgroup bodies (bf16) start a producer, a ring
+    and their barriers per block, and the f32 ones a pre-pass as well,
+    which the short rows of a windowed fold (Nq = Nk = the window) or a
+    32 px model do not pay back. There both types keep mma.sync: bf16 under
+    NARROW_MIN_ROWS[d], f32's forward under TF32_WGMMA_MIN_ROWS[d] and its
+    fused backward (`backward`) under TF32_WGMMA_BWD_MIN_ROWS[d] (0 at d 48
+    and 64, whose fused backward has no mma.sync body)."""
     bf16 = dtype == torch.bfloat16
     if bf16 and d in NARROW_HEAD_DIMS and min(nq, nk) < NARROW_MIN_ROWS[d]:
         return "mma"
     rows = TF32_WGMMA_BWD_MIN_ROWS if backward else TF32_WGMMA_MIN_ROWS
     if not bf16 and d in TF32_WGMMA_HEAD_DIMS and min(nq, nk) < rows[d]:
-        return "mma" if d == 16 or not backward else "simt"
+        return "mma"
     return None
 
 
@@ -639,10 +647,10 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     128 at d 16 and 64 at d 32) where Nq and Nk are both at least
     NARROW_MIN_ROWS[d], the mma.sync body where either is shorter (the
     windowed fold); `body` reaches either, and "simt" at d 16. f32 at d 16,
-    48 and 64 takes its own warpgroup body ("wgmma", 192 query rows a block
-    at d 16 and 128 at 48 and 64, key tiles of 64 from the pre-pass) where
-    Nq and Nk are both at least TF32_WGMMA_MIN_ROWS[d], the mma.sync body
-    where either is shorter; `body` reaches either. d 16, 32, 48, 64
+    32, 48 and 64 takes its own warpgroup body ("wgmma", TF32_WGMMA_ROWS[d]
+    query rows a block, key tiles of 64 from the pre-pass) where Nq and Nk
+    are both at least TF32_WGMMA_MIN_ROWS[d], the mma.sync body where
+    either is shorter; `body` reaches either. d 16, 32, 48, 64
     otherwise take the tensor-core body of their type (f32: three TF32
     passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA-core body
     (`body` as in `_body`). At d 16 dropout and raggedness are template parameters; the
@@ -652,9 +660,11 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS,
                  body or _short_rows_body(dtype, d, nq, nk), wgmma="mma")
     if body == "wgmma":
-        rows = 192 if d in NARROW_HEAD_DIMS else 128
-        block_k = (TF32_TILE if dtype == torch.float32 else 64 if d == 32
-                   else 128)
+        if dtype == torch.float32:
+            rows, block_k = TF32_WGMMA_ROWS[d], TF32_TILE
+        else:
+            rows = 192 if d in NARROW_HEAD_DIMS else 128
+            block_k = 64 if d == 32 else 128
         return ForwardInstance(body, d, block_k, rows, -(-nq // rows),
                                "on" if dropout_rate > 0.0 else "off",
                                nk % block_k != 0)
@@ -787,9 +797,10 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     bf16 at d 16 and 32 takes the narrow warpgroup body ("wgmma": 192
     keys a block, query tiles of 64) where Nq and Nk are both at least
     NARROW_MIN_ROWS[d], else the mma.sync body, which `body="mma"` reaches
-    at every shape. f32 at d 16 takes its own warpgroup body ("wgmma": 128 keys
-    a block, query tiles of 64 from the pre-pass) where Nq and Nk are both
-    at least TF32_WGMMA_BWD_MIN_ROWS[16], else the mma.sync body, which
+    at every shape. f32 at d 16 and 32 takes its own warpgroup body
+    ("wgmma": TF32_WGMMA_BWD_KEYS[d] keys a block, query tiles of 64 from
+    the pre-pass, at d 32 in sub-tiles of 16) where Nq and Nk are both at
+    least TF32_WGMMA_BWD_MIN_ROWS[d], else the mma.sync body, which
     `body="mma"` reaches at every shape; f32 at d 48 and 64 the same body
     at its width ("wgmma": 64 keys a block, query tiles of 64 in sub-tiles
     of 16) at every shape (TF32_WGMMA_BWD_MIN_ROWS[d] is 0: the CUDA-core
@@ -806,8 +817,8 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
                  body or _short_rows_body(dtype, d, nq, nk, backward=True),
                  wgmma="mma" if d in NARROW_HEAD_DIMS else "simt")
     if body == "wgmma":
-        rows = (192 if d in NARROW_HEAD_DIMS and dtype == torch.bfloat16
-                else 64 if dtype == torch.float32 and d > 32 else 128)
+        rows = (TF32_WGMMA_BWD_KEYS[d] if dtype == torch.float32
+                else 192 if d in NARROW_HEAD_DIMS else 128)
         return FusedInstance(body, d, 64, rows, -(-nk // rows),
                              "on" if dropout_rate > 0.0 else "off",
                              nq % 64 != 0)

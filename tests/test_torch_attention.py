@@ -19,6 +19,7 @@ from lunaris_orion_tpu.ops.pallas import flash_attention as fa
 from lunaris_orion_tpu_torch.ops.attention import SpatialAttention
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
 from lunaris_orion_tpu_torch.parallel import AxisGroup, Parallel
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _qkvb(b, h, nq, nk, d, seed):
@@ -166,7 +167,8 @@ BF16, F32 = torch.bfloat16, torch.float32
     # narrow warpgroup body (key tiles of 64) on long rows (the teacher's N
     # at the serving batch and in training, a ragged N, a q shard),
     # mma.sync's one run-time instance on short rows (the windowed fold);
-    # f32 keeps mma.sync's
+    # f32 its own warpgroup body (192 rows, the pre-pass's key tiles of 64)
+    # on long rows, mma.sync's on short ones (a ragged 2000, the fold)
     (BF16, 32, 16384, 16384, 0.0, ("wgmma", 64, 192, 86, "off", False)),
     (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
@@ -175,14 +177,18 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 32, 2000, 2000, 0.0, ("wgmma", 64, 192, 11, "off", True)),
     (BF16, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
     (BF16, 32, 300, 4096, 0.0, ("mma", 64, 64, 5, "runtime", True)),
-    (F32, 32, 16384, 16384, 0.1, ("mma", 64, 64, 256, "runtime", True)),
+    (F32, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (F32, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
+    (F32, 32, 4096, 16384, 0.0, ("wgmma", 64, 192, 22, "off", False)),
+    (F32, 32, 2100, 2100, 0.1, ("wgmma", 64, 192, 11, "on", True)),
+    (F32, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
     dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
-    f32 at d 16, 48 and 64 (unless Nq or Nk is short) take the warpgroup
-    bodies, d 16, 32 (and f32 at 48, 64) the tensor cores on mma.sync (f32:
+    f32 at d 16, 32, 48 and 64 (unless Nq or Nk is short) take the
+    warpgroup bodies, d 16, 32 (and f32 at 48, 64) the tensor cores on
+    mma.sync where they are short (f32:
     three TF32 passes, keys in tiles of 32 at d 48 and 64), d 8 the CUDA
     cores; at d 16 dropout and a ragged Nk are compiled in."""
     body, block_k, rows, q_blocks, dropout, ragged = want
@@ -225,8 +231,8 @@ def test_forward_instance_body_argument():
         assert k2.forward_instance(F32, d, 64, 64, 0.0, body="wgmma").body \
             == "wgmma"
     for dtype, d, body in ((F32, 8, "mma"), (BF16, 8, "mma"),
-                           (BF16, 64, "simt"), (F32, 32, "wgmma"),
-                           (F32, 8, "wgmma"), (BF16, 32, "simt")):
+                           (BF16, 64, "simt"), (F32, 8, "wgmma"),
+                           (BF16, 32, "simt")):
         with pytest.raises(ValueError, match="does not take"):
             k2.forward_instance(dtype, d, 64, 64, 0.0, body=body)
     for dtype, d in ((torch.float16, 16), (BF16, 24), (F32, 128)):
@@ -323,8 +329,8 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
     windowed fold, N 256; a q shard of 300 rows) keep
     mma.sync's run-time instances (64 rows, 64 keys a block), which
     `body="mma"` reaches at every shape; there is no CUDA-core bf16 body at
-    d 32, and the split backward has no warpgroup body. f32 at d 32 keeps
-    mma.sync's three TF32 passes."""
+    d 32, and the split backward has no warpgroup body. f32 at d 32 has its
+    own warpgroup bodies, on its own thresholds."""
     assert 32 in k2.NARROW_HEAD_DIMS and 32 in k2.WGMMA_HEAD_DIMS
     long = min(nq, nk) >= k2.NARROW_MIN_ROWS[32]
     fwd = k2.forward_instance(BF16, 32, nq, nk, rate)
@@ -355,8 +361,10 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
     assert k2.backward_instance(BF16, 32, nq, nk, rate).body == "mma"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(BF16, 32, nq, nk, rate, body="wgmma")
-    assert k2.forward_instance(F32, 32, nq, nk, rate).body == "mma"
-    assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
+    for rule, rows in ((k2.forward_instance, k2.TF32_WGMMA_MIN_ROWS),
+                       (k2.fused_instance, k2.TF32_WGMMA_BWD_MIN_ROWS)):
+        assert rule(F32, 32, nq, nk, rate).body == (
+            "wgmma" if min(nq, nk) >= rows[32] else "mma")
 
 
 @pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
@@ -372,9 +380,10 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     fused variant by default. Shorter rows (the windowed fold, N 256; a
     32 px model, N 1024) keep the mma.sync bodies, which `body="mma"`
     reaches at every shape, as `body="simt"` reaches the CUDA-core ones;
-    f32 at d 32, the split backward and bf16 keep their bodies (d 48 and
-    64: `test_tf32_warpgroup_bodies_at_the_recipe_widths`)."""
-    assert k2.TF32_WGMMA_HEAD_DIMS == (16, 48, 64)
+    f32 at d 32 follows its own thresholds, the split backward and bf16
+    keep their bodies (d 32: `test_tf32_warpgroup_bodies_at_the_low_end_width`;
+    d 48 and 64: `test_tf32_warpgroup_bodies_at_the_recipe_widths`)."""
+    assert k2.TF32_WGMMA_HEAD_DIMS == (16, 32, 48, 64)
     assert k2.TF32_WGMMA_BWD_MIN_ROWS[16] == k2.TF32_WGMMA_MIN_ROWS[16]
     long = min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[16]
     fwd = k2.forward_instance(F32, 16, nq, nk, rate)
@@ -399,13 +408,69 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     assert k2.backward_instance(F32, 16, nq, nk, rate).body == "simt"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(F32, 16, nq, nk, rate, body="wgmma")
-    assert k2.forward_instance(F32, 32, nq, nk, rate).body == "mma"
-    with pytest.raises(ValueError, match="does not take"):
-        k2.forward_instance(F32, 32, nq, nk, rate, body="wgmma")
-    assert k2.fused_instance(F32, 32, nq, nk, rate).body == "mma"
+    assert k2.forward_instance(F32, 32, nq, nk, rate).body == (
+        "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[32] else "mma")
+    assert k2.forward_instance(F32, 32, nq, nk, rate,
+                               body="wgmma").body == "wgmma"
+    assert k2.fused_instance(F32, 32, nq, nk, rate).body == (
+        "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_BWD_MIN_ROWS[32] else "mma")
     assert k2.forward_instance(BF16, 16, nq, nk, rate) == \
         k2.forward_instance(BF16, 16, nq, nk, rate, body=(
             "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS[16] else "mma"))
+
+
+@pytest.mark.parametrize("nq,nk,rate", [(16384, 16384, 0.0),
+                                         (16384, 16384, 0.1),
+                                         (8192, 16384, 0.1), (4096, 4096, 0.1),
+                                         (2100, 2000, 0.0), (1000, 4096, 0.1),
+                                         (300, 16384, 0.0), (256, 256, 0.1)])
+def test_tf32_warpgroup_bodies_at_the_low_end_width(nq, nk, rate):
+    """f32 at d 32 (feature_dim 256: the low-end width, in the CLIs'
+    default precision) takes the f32 warpgroup bodies where neither Nq nor
+    Nk is shorter than their thresholds (TF32_WGMMA_MIN_ROWS[32] for the
+    forward, TF32_WGMMA_BWD_MIN_ROWS[32] for the fused backward): the
+    forward with TF32_WGMMA_ROWS[32] rows a block on the pre-pass's key
+    tiles of 64, the fused backward with TF32_WGMMA_BWD_KEYS[32] keys a
+    block and query tiles of 64, dropout compiled in or out. Shorter rows
+    (the windowed fold, N 256; a short q shard) keep the mma.sync bodies
+    in both directions (64 rows a block, keys in tiles of 64; 64 keys a
+    block, query tiles of 32; one run-time instance each), which
+    `body="mma"` reaches at every shape; the split backward stays on the
+    CUDA cores."""
+    assert 32 in k2.TF32_WGMMA_HEAD_DIMS and 32 in k2.MMA_FUSED_HEAD_DIMS
+    fwd = k2.forward_instance(F32, 32, nq, nk, rate)
+    bwd = k2.fused_instance(F32, 32, nq, nk, rate)
+    old_fwd = k2.forward_instance(F32, 32, nq, nk, rate, body="mma")
+    old_bwd = k2.fused_instance(F32, 32, nq, nk, rate, body="mma")
+    assert old_fwd == k2.ForwardInstance("mma", 32, 64, 64, -(-nq // 64),
+                                         "runtime", True)
+    assert old_bwd == k2.FusedInstance("mma", 32, 32, 64, -(-nk // 64),
+                                       "runtime", True)
+    rows, keys = k2.TF32_WGMMA_ROWS[32], k2.TF32_WGMMA_BWD_KEYS[32]
+    if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[32]:
+        assert fwd == k2.ForwardInstance("wgmma", 32, 64, rows, -(-nq // rows),
+                                         "on" if rate else "off",
+                                         nk % 64 != 0)
+    else:
+        assert fwd == old_fwd
+    if min(nq, nk) >= k2.TF32_WGMMA_BWD_MIN_ROWS[32]:
+        assert bwd == k2.FusedInstance("wgmma", 32, 64, keys, -(-nk // keys),
+                                       "on" if rate else "off", nq % 64 != 0)
+    else:
+        assert bwd == old_bwd
+    # the teacher's N takes the warpgroup bodies, the windowed fold mma.sync
+    assert (fwd.body, bwd.body) == (("wgmma", "wgmma") if min(nq, nk) >= 4096
+                                    else ("mma", "mma") if max(nq, nk) <= 256
+                                    else (fwd.body, bwd.body))
+    assert k2.default_bwd(F32, 32) == "fused"
+    for body in ("wgmma", "mma", "simt"):
+        assert k2.forward_instance(F32, 32, nq, nk, rate, body=body).body \
+            == body
+        assert k2.fused_instance(F32, 32, nq, nk, rate, body=body).body \
+            == body
+    assert k2.backward_instance(F32, 32, nq, nk, rate).body == "simt"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(F32, 32, nq, nk, rate, body="wgmma")
 
 
 @pytest.mark.parametrize("d", [48, 64])
@@ -472,7 +537,7 @@ def test_tf32_tiles_on_the_cpu_take_the_plain_version():
     assert got.shape == (2, 2, 4096)
     assert [k2.tf32_tile_count(m, n) for m in (0, 1, 2) for n in (64, 65, 129)] \
         == [1, 2, 3, 1, 2, 3, 2, 2, 4]
-    with pytest.raises(ValueError, match=r"head size in \(16, 48, 64\)"):
+    with pytest.raises(ValueError, match=r"head size in \(16, 32, 48, 64\)"):
         k2.tf32_tiles(k2.TF32_FWD, k[..., :8], v[..., :8])
 
 

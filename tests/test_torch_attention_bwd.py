@@ -13,6 +13,7 @@ import torch
 
 from lunaris_orion_tpu.ops.pallas import flash_attention as fa
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(b, h, nq, nk, d, seed):
@@ -179,7 +180,7 @@ def test_backward_instance(dtype, d, nq, nk, rate, want):
     # the forward's rule picks the same body for the same call in bf16, but
     # where the forward has a warpgroup body (d 48 and 64, and d 16 and 32
     # on long rows); f32 has tensor-core forwards (three TF32 passes; at d 16,
-    # 48 and 64 on long rows on wgmma) but no split one
+    # 32, 48 and 64 on long rows on wgmma) but no split one
     fwd = k2.forward_instance(dtype, d, nq, nk, rate).body
     warpgroup = d in (k2.WGMMA_HEAD_DIMS if dtype == BF16
                       else k2.TF32_WGMMA_HEAD_DIMS)
@@ -248,6 +249,11 @@ def test_backward_instance_body_argument():
     (F32, 16, 2000, 300, 0.1, ("mma", 64, 64, 5, "on", True)),
     (F32, 32, 2000, 2000, 0.1, ("mma", 32, 64, 32, "runtime", True)),
     (F32, 32, 300, 2000, 0.0, ("mma", 32, 64, 32, "runtime", True)),
+    # f32 at d 32 on long rows: its warpgroup body, 128 keys a block (two
+    # warpgroups); the windowed fold keeps mma.sync's run-time instance
+    (F32, 32, 16384, 16384, 0.1, ("wgmma", 64, 128, 128, "on", False)),
+    (F32, 32, 2100, 2048, 0.1, ("wgmma", 64, 128, 16, "on", True)),
+    (F32, 32, 256, 256, 0.1, ("mma", 32, 64, 4, "runtime", True)),
     (F32, 64, 300, 300, 0.0, ("wgmma", 64, 64, 5, "off", True)),
     (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, "runtime", True)),
     # f32 at d 48 and 64: its warpgroup body, 64 keys a block, at every
@@ -260,8 +266,8 @@ def test_backward_instance_body_argument():
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
     Nk, dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
-    64 and f32 at d 16, 48 and 64 (unless Nq or Nk is short) take the
-    warpgroup bodies,
+    64 and f32 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 take
+    the warpgroup bodies,
     d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own
     body in three TF32 passes, 64 keys a block, query tiles of 64 at d 16
     and 32 at d 32), the rest the CUDA cores; on the tensor cores at d 16
@@ -326,10 +332,14 @@ def test_fused_instance_body_argument():
     assert old == k2.FusedInstance("simt", 48, 32, 32, 128, "runtime", True)
     assert k2.fused_instance(F32, 64, 64, 64, 0.0, body="wgmma").body == \
         "wgmma"
+    # f32 d 32: the warpgroup body on short rows, mma.sync on long ones
+    assert k2.fused_instance(F32, 32, 64, 64, 0.0, body="wgmma").body == \
+        "wgmma"
+    assert k2.fused_instance(F32, 32, 16384, 16384, 0.0,
+                             body="mma").body == "mma"
     for dtype, d, body in ((F32, 8, "mma"), (F32, 48, "mma"),
                            (BF16, 32, "simt"),
-                           (BF16, 48, "mma"), (F32, 32, "wgmma"),
-                           (F32, 64, "mma")):
+                           (BF16, 48, "mma"), (F32, 64, "mma")):
         with pytest.raises(ValueError, match="does not take"):
             k2.fused_instance(dtype, d, 64, 64, 0.0, body=body)
 

@@ -10,6 +10,7 @@ import pytest
 
 from lunaris_orion_tpu import config as jcfg
 from lunaris_orion_tpu_torch import config as tcfg
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 NAMES = ("VAEConfig", "TeacherConfig", "TrainConfig")
 PROPERTIES = {"VAEConfig": ("num_down", "channels", "bottleneck_hw",

@@ -24,6 +24,7 @@ from lunaris_orion_tpu_torch.cli.convert import main as convert
 from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
 from lunaris_orion_tpu_torch.utils.convert import (
     train_config_from_reference_args)
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 TINY = TrainConfig(latent_dim=16, embedding_dim=8, feature_dim=16,
                    num_experts=2, image_size=32)

@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 A, BG, SIZE, LATENT = 2, 4, 16, 16
 # (tag, mesh shape, attention impl). (1, 2) without ring / allgather is

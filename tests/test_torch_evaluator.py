@@ -25,6 +25,7 @@ from lunaris_orion_tpu_torch.infer.evaluator import QualityEvaluator
 from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 # teacher_config() keeps extractor 128 and 8 heads: feature_dim 64 -> head
 # size 8 (a K2 head size), 32 px -> N = 1024 tokens (4 windows of 256).

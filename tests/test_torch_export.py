@@ -35,6 +35,7 @@ from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
 from lunaris_orion_tpu_torch.ops import library
 from lunaris_orion_tpu_torch.utils.image import to_uint8
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 # 32 px: N = 1024 tokens, the `auto` rule's full attention; 64 px: N =

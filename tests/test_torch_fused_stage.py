@@ -15,6 +15,7 @@ from lunaris_orion_tpu.ops.pallas import gn_mish as jk1
 from lunaris_orion_tpu_torch.ops.cuda import _build
 from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(b, h, cin, cout, seed, *, beta_mean=0.0):

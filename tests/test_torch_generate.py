@@ -20,6 +20,7 @@ from lunaris_orion_tpu_torch.device import resolve_device
 from lunaris_orion_tpu_torch.infer.generator import ImageGenerator
 from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 # vae_config() keeps base_channels 64; teacher_config() keeps extractor 128

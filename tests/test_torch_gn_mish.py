@@ -17,6 +17,7 @@ from lunaris_orion_tpu.ops.pallas.gn_mish import group_norm_mish_pallas
 from lunaris_orion_tpu_torch.ops import layers
 from lunaris_orion_tpu_torch.ops.cuda import _build
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(shape, seed, *, mean=0.0, std=1.0):
@@ -355,6 +356,8 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_wgmma_d64_drop.cu",
         "flash_attention_bwd_wgmma_tf32_d16.cu",
         "flash_attention_bwd_wgmma_tf32_d16_drop.cu",
+        "flash_attention_bwd_wgmma_tf32_d32.cu",
+        "flash_attention_bwd_wgmma_tf32_d32_drop.cu",
         "flash_attention_bwd_wgmma_tf32_d48.cu",
         "flash_attention_bwd_wgmma_tf32_d48_drop.cu",
         "flash_attention_bwd_wgmma_tf32_d64.cu",
@@ -372,6 +375,8 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_wgmma_d64_drop.cu",
         "flash_attention_fwd_wgmma_tf32_d16.cu",
         "flash_attention_fwd_wgmma_tf32_d16_drop.cu",
+        "flash_attention_fwd_wgmma_tf32_d32.cu",
+        "flash_attention_fwd_wgmma_tf32_d32_drop.cu",
         "flash_attention_fwd_wgmma_tf32_d48.cu",
         "flash_attention_fwd_wgmma_tf32_d48_drop.cu",
         "flash_attention_fwd_wgmma_tf32_d64.cu",
@@ -405,12 +410,12 @@ def test_build_dir_tracks_shared_header(monkeypatch, tmp_path):
     # or header names is one that the hash covers.
     fwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_fwd.cuh"' in p.read_text()]
-    assert len(fwd) == 22 and "flash_attention_stages.cu" in fwd
+    assert len(fwd) == 24 and "flash_attention_stages.cu" in fwd
     # Likewise the K2 backward's bodies, and what both share (the Hopper
     # instructions of the warpgroup bodies among it).
     bwd = [p.name for p in real.glob("*.cu")
            if '#include "flash_attention_bwd.cuh"' in p.read_text()]
-    assert len(bwd) == 24 and all(n.startswith("flash_attention_bwd")
+    assert len(bwd) == 26 and all(n.startswith("flash_attention_bwd")
                                  for n in bwd)
     for header in ("flash_attention_fwd.cuh", "flash_attention_bwd.cuh"):
         assert '#include "flash_attention_common.cuh"' in (

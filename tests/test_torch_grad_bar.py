@@ -21,6 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2  # noqa: E402
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

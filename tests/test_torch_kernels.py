@@ -8,6 +8,7 @@ machine without jax, skipping the repository's jax-based conftest:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +21,22 @@ from lunaris_orion_tpu_torch.ops.cuda import fused_stage as k5
 from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
 from lunaris_orion_tpu_torch.ops.cuda import gn_stats
 from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """torch's intra-op threads capped at this process's share of the host's
+    cores while a module runs, then restored. pytest-xdist runs several
+    workers on one host (PYTEST_XDIST_WORKER_COUNT), and each worker's torch
+    starts a thread a core by default: 6 workers on 8 cores put 48 threads
+    on 8 cores, and the many small products of these tests then spend their
+    time waiting on each other. The other test_torch_* modules import this
+    fixture, which makes it theirs."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -918,19 +935,23 @@ def test_flash_attention_bwd_f32_warpgroup(cuda, nq, nk, q_offset, rate):
         assert torch.equal(a, b), f"{name}: same bits every run"
 
 
-# --- K2 in f32 at d 48 and 64 on wgmma (three TF32 passes) ------------------
+# --- K2 in f32 at d 32, 48 and 64 on wgmma (three TF32 passes) --------------
 
-# The f32 warpgroup bodies at the mid-range and H100-tier widths, past
-# TF32_WGMMA_MIN_ROWS[d]: whole and ragged N, a q shard against the full
-# keys, both rates.
+# The f32 warpgroup bodies at the low-end, mid-range and H100-tier widths,
+# past TF32_WGMMA_MIN_ROWS[d]: whole and ragged N, a q shard against the
+# full keys, both rates; (d, Nq, Nk, q_offset), at d 32 a ragged N past its
+# threshold of 2048.
 _TF32_WIDE = [(4096, 4096, 0), (2100, 2000, 0), (2048, 4096, 2048)]
+_TF32_WIDE_CASES = ([(d, *shape) for d in (48, 64) for shape in _TF32_WIDE]
+                    + [(32, 4096, 4096, 0), (32, 2100, 2100, 0),
+                       (32, 2048, 4096, 2048)])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("d", [32, 48, 64])
 def test_tf32_tiles_match_their_plain_twin_wide(cuda, d):
-    """The pre-pass at d 48 and 64 writes its plain twin's bytes, bit for
-    bit, in each mode, at a ragged N."""
+    """The pre-pass at d 32, 48 and 64 writes its plain twin's bytes, bit
+    for bit, in each mode, at a ragged N."""
     q, k, v, _ = _k2_inputs(cuda, 2, 3, 300, 300, d, torch.float32, seed=d)
     lse = torch.randn(6, 300, device=cuda)
     delta = torch.randn(2, 3, 300, device=cuda)
@@ -944,11 +965,10 @@ def test_tf32_tiles_match_their_plain_twin_wide(cuda, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [48, 64])
-@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WIDE)
+@pytest.mark.parametrize("d,nq,nk,q_offset", _TF32_WIDE_CASES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_f32_warpgroup_wide(cuda, d, nq, nk, q_offset, rate):
-    """The f32 warpgroup forward at d 48 and 64, the default on long rows,
+    """The f32 warpgroup forward at d 32, 48 and 64, the default on long rows,
     against the plain version (phase 4's bars: o 1e-5, lse 1e-4) and the
     mma.sync body it replaced (1e-5); the same bits on a second call; one
     launch of the body and one of its pre-pass a call."""
@@ -971,15 +991,15 @@ def test_flash_attention_f32_warpgroup_wide(cuda, d, nq, nk, q_offset, rate):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [48, 64])
-@pytest.mark.parametrize("nq,nk,q_offset", _TF32_WIDE)
+@pytest.mark.parametrize("d,nq,nk,q_offset", _TF32_WIDE_CASES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_attention_bwd_f32_warpgroup_wide(cuda, d, nq, nk, q_offset,
                                                 rate):
-    """The f32 fused warpgroup backward at d 48 and 64, the default on long
-    rows, against the plain backward (phase 7's bar) and the CUDA-core
-    fused kernel it replaced; dk, dv and dbias the same bits on a second
-    run; one launch of the body and two of its pre-pass a call."""
+    """The f32 fused warpgroup backward at d 32, 48 and 64, the default on
+    long rows, against the plain backward (phase 7's bar) and the fused
+    kernel it replaced (mma.sync at d 32, the CUDA cores at 48 and 64); dk,
+    dv and dbias the same bits on a second run; one launch of the body and
+    two of its pre-pass a call."""
     args = _bwd_inputs(cuda, 2, 4, nq, nk, d, torch.float32,
                        seed=nq + nk + d, rate=rate)
     kw = dict(dropout_rate=rate, seed=-77, q_offset=q_offset)
@@ -992,7 +1012,7 @@ def test_flash_attention_bwd_f32_warpgroup_wide(cuda, d, nq, nk, q_offset,
     torch.cuda.synchronize()
     assert (k2.bwd_tf32_wgmma_launches, k2.split_launches) == (
         before[0] + 1, before[1] + 2)
-    old = _bwd_fused(args, body="simt", **kw)
+    old = _bwd_fused(args, body="mma" if d == 32 else "simt", **kw)
     ref = k2.attention_bwd_plain(*args, **kw)
     for name, n, o_, r in zip(("dq", "dk", "dv", "dbias"), new, old, ref):
         _close(n, r, torch.float32, name)

@@ -13,6 +13,7 @@ import torch
 from lunaris_orion_tpu.ops.pallas.loss_epilogue import mse_kl_pallas
 from lunaris_orion_tpu_torch.ops.cuda import _build
 from lunaris_orion_tpu_torch.ops.cuda import loss_epilogue as k3
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(shape, latent, dtype, seed):

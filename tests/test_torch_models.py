@@ -23,6 +23,7 @@ from lunaris_orion_tpu_torch.models.teacher import LunarMoETeacher
 from lunaris_orion_tpu_torch.models.vae import LunarisCoreVAE
 from lunaris_orion_tpu_torch.utils.convert import (
     teacher_state_dict_from_jax, vae_state_dict_from_jax)
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _cfgs(size):

@@ -5,6 +5,7 @@ data/native.py), on a corpus of 3 shards."""
 
 import numpy as np
 import pytest
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

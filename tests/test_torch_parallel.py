@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 B, H, N, D = 4, 2, 64, 8
 SEED = 321

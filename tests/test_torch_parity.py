@@ -16,6 +16,7 @@ import torch.nn.functional as tF
 from lunaris_orion_tpu.config import VAEConfig
 from lunaris_orion_tpu.models import vae as jvae
 from lunaris_orion_tpu.utils.torch_compat import vae_params_from_torch
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 CFG = VAEConfig(latent_dim=24, image_size=32, base_channels=16)
 

@@ -33,6 +33,7 @@ from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
 from lunaris_orion_tpu_torch.train import step
 from lunaris_orion_tpu_torch.utils.convert import (
     teacher_state_dict_from_jax, train_state_from_jax, vae_state_dict_from_jax)
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 SIZE = 32                                   # N = 1024 tokens
 

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 # (model axis M, experts E, latent L, shard_experts): M = 1, 2, 4; experts
 # on and off; E % M != 0 (experts replicated) and L % M != 0 (the FC pair

@@ -30,6 +30,7 @@ from lunaris_orion_tpu.ops import image_ops as jax_ops
 from lunaris_orion_tpu_torch.data import prompts, synthesis
 from lunaris_orion_tpu_torch.data.prompts import CategoryParams
 from lunaris_orion_tpu_torch.ops import image_ops
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 1234])

@@ -18,6 +18,7 @@ import torch
 
 from lunaris_orion_tpu.ops.pallas import flash_attention as fa
 from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _inputs(b, h, nq, nk, d, seed):
@@ -203,7 +204,7 @@ def _x3(ah, al, bh, bl):
 def _rows_d(tile, base, rows, d, n):
     """hi, lo [.., rows, d] of a row pair of a tile of n rows: [n][8] tiles
     (32-byte swizzle), one a k-step of 8 dims, lo 4 n d bytes on: the rows
-    of the d 48 and 64 bodies (K, V; qs, dO)."""
+    of the d 32, 48 and 64 bodies (K, V; qs, dO)."""
     return [torch.cat([_kmajor(tile, base + lo + kd * 32 * n, rows, 32, 256)
                        for kd in range(d // 8)], -1) for lo in (0, 4 * n * d)]
 
@@ -211,7 +212,7 @@ def _rows_d(tile, base, rows, d, n):
 def _trows(tile, base, steps, d, n):
     """hi, lo [.., d, 8 steps] of transposed rows of a tile of n rows: a
     [d][8] tile (32-byte swizzle) a k-step of 8 rows, lo 4 n d bytes on:
-    qs^T, dO^T and K^T of the d 48 and 64 backward."""
+    qs^T, dO^T and K^T of the d 32, 48 and 64 backward."""
     return [torch.cat([_kmajor(tile, base + lo + j * 32 * d, d, 32, 256)
                        for j in range(steps)], -1) for lo in (0, 4 * n * d)]
 
@@ -232,8 +233,8 @@ def _fwd_wgmma_tf32(q, k, v, bias, keep, rate):
     tile's in two chains by j % 2, then added) summed over the row's 4
     lanes at the end; p dropped, taken as
     the registers hold it and split; p v from zero a tile: at d 16 (p hi V
-    lo + p lo V hi) + p hi V hi, at d 48 and 64 the three passes a k-step
-    of 8 keys into one sum; o = o corr + pv."""
+    lo + p lo V hi) + p hi V hi, at d 32, 48 and 64 the three passes a
+    k-step of 8 keys into one sum; o = o corr + pv."""
     b, h, nq, d = q.shape
     nk = k.shape[2]
     qh, ql = k2.split_tf32(q * torch.tensor(d ** -0.5, dtype=torch.float32))
@@ -362,9 +363,10 @@ def _bwd_wgmma_tf32(q, k, v, bias, do, o, lse, keep, rate):
 
 
 def _bwd_wgmma_tf32_wide(q, k, v, bias, do, o, lse, keep, rate):
-    """dq, dk, dv, dbias of flash_bwd_wgmma_tf32's arithmetic at d 48 and 64
-    in f32, on the pre-pass's tiles as its descriptors read them: blocks of
-    64 keys (K, V and K^T from the block's key tile), query tiles of 64 in
+    """dq, dk, dv, dbias of flash_bwd_wgmma_tf32's arithmetic at d 32, 48
+    and 64 in f32, on the pre-pass's tiles as its descriptors read them:
+    warpgroups of 64 keys (K, V and K^T from the warpgroup's key tile; at d
+    32 two a block, whose arithmetic is each one's), query tiles of 64 in
     sub-tiles of 16; s^T = bias + three passes a k-step of 8 dims (k lo qs
     hi, k hi qs lo, k hi qs hi), dp^T from zero the same way; p = 2^(s log2
     e - lse log2 e); ds and pv as the registers hold them, split; dk and dv
@@ -570,14 +572,14 @@ def test_tf32_tiles_plain_holds_split_tf32_as_wgmma_reads_it(mode, n):
                        4 * torch.arange(k2.tf32_tile_bytes(mode, 16) // 4))
 
 
-# --- the f32 warpgroup bodies at d 48 and 64 (the mid-range and H100-tier
-# widths): two forward warpgroups on key tiles of 1024 d bytes; one backward
-# warpgroup of 64 keys on query sub-tiles of 16 ------------------------------
+# --- the f32 warpgroup bodies at d 32, 48 and 64 (the low-end, mid-range and
+# H100-tier widths): two forward warpgroups on key tiles of 1024 d bytes;
+# backward warpgroups of 64 keys on query sub-tiles of 16 ---------------------
 
-@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("d", [32, 48, 64])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_wgmma_tf32_wide_forward_holds_to_f64(d, rate):
-    """flash_fwd_wgmma_tf32's arithmetic at d 48 and 64 (key tiles of 64,
+    """flash_fwd_wgmma_tf32's arithmetic at d 32, 48 and 64 (key tiles of 64,
     p v from zero a tile with the three passes a k-step in one sum, the
     operands read through the pre-pass's layout at that width): o and lse
     within 1e-6 of float64; a ragged Nk on the last tile."""
@@ -589,10 +591,10 @@ def test_wgmma_tf32_wide_forward_holds_to_f64(d, rate):
     assert (lse.double() - ref_lse).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("d", [32, 48, 64])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_wgmma_tf32_wide_backward_holds_to_f64(d, rate):
-    """flash_bwd_wgmma_tf32's arithmetic at d 48 and 64 (64 keys a block,
+    """flash_bwd_wgmma_tf32's arithmetic at d 32, 48 and 64 (64 keys a warpgroup,
     query sub-tiles of 16, dk and dv from zero a query tile of 64, dq of a
     block and tile from zero, the operands read through the pre-pass's
     layout at that width): every gradient within 1e-5 of its largest
@@ -607,9 +609,10 @@ def test_wgmma_tf32_wide_backward_holds_to_f64(d, rate):
         assert (g.double() - r).abs().max().item() <= 1e-5 * top, name
 
 
-@pytest.mark.parametrize("d,rate,seed", [(48, 0.0, 0), (64, 0.1, 1234567)])
+@pytest.mark.parametrize("d,rate,seed", [(32, 0.0, 0), (32, 0.1, 1234567),
+                                         (48, 0.0, 0), (64, 0.1, 1234567)])
 def test_wgmma_tf32_wide_bodies_match_pallas(d, rate, seed):
-    """The emulated f32 warpgroup forward and backward at d 48 and 64
+    """The emulated f32 warpgroup forward and backward at d 32, 48 and 64
     against the JAX package's Pallas kernel and its gradients (interpret
     mode), at 1e-5."""
     q, k, v, bias, do = _inputs(1, 2, 256, 256, d, seed=17 + d)
@@ -628,10 +631,10 @@ def test_wgmma_tf32_wide_bodies_match_pallas(d, rate, seed):
                                    rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("d", [48, 64])
+@pytest.mark.parametrize("d", [32, 48, 64])
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_tf32_tiles_plain_wide_holds_split_tf32_as_wgmma_reads_it(d, mode):
-    """At d 48 and 64 every operand of the pre-pass's tiles, read through
+    """At d 32, 48 and 64 every operand of the pre-pass's tiles, read through
     the kernels' descriptors at that width, is `split_tf32` of its source
     bit for bit (qs = q d^-1/2 in f32), in its row or transposed row or
     permuted atom column; rows past N are zeros, -lse log2 e is -inf there;

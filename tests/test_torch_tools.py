@@ -24,6 +24,7 @@ from lunaris_orion_tpu_torch.ops.cuda import gn_mish as k1
 from lunaris_orion_tpu_torch.ops.cuda import gn_stats
 from lunaris_orion_tpu_torch.tools import (attn_roofline, fusion_overlap,
                                            gn_stats as gn_stats_tool)
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
 

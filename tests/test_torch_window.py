@@ -25,7 +25,9 @@ from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
 from lunaris_orion_tpu_torch.utils.convert import teacher_state_dict_from_jax
 from test_torch_attention import _module_pair, _qkvb, _t
 from test_torch_models import _cfgs, _numpy, _randomize_stats
+from test_torch_train import threefry_keys  # noqa: F401 (autouse)
 from test_torch_train import two_steps_match
+from test_torch_kernels import torch_threads  # noqa: F401 (autouse)
 
 
 def _jax_window(q, k, v, bias, window):
