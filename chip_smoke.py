@@ -210,21 +210,30 @@ Phases, each of which raises on failure (exit code 1):
               validation, checkpoint copy and write, and resume load ms;
  16. window   (run after 14) windowed attention, the evaluator and the training
               options at window 256: (a) `local_window_attention` (K2 over
-              the windows folded into the heads) at B16 H8 N16384 d16, f32
-              and bf16, forward at dropout 0 and 0.1 and the default
-              backward at 0.1 against the plain versions on the folded
-              shape (phase 4's and 7's bars), a call in 4 batch chunks
-              bit-equal to one call, times beside the global K2 at B16, the
-              plain version, F.scaled_dot_product_attention on the folded
-              shape and the bound; (b) `lunaris_orion_tpu_torch.cli.evaluate`
+              the windows folded into the heads) at B16 H8 N16384, f32 d16
+              and bf16 d16 and d32 (the window bodies `flash_fwd_window`
+              and `flash_bwd_window`, by their counters), forward at
+              dropout 0 and 0.1 and the default backward at 0.1 against
+              the plain versions on the folded shape (phase 4's and 7's
+              bars), the window bodies' masks position by position and
+              their gradients the same bits on a second run, a call in 4
+              batch chunks bit-equal to one call, times beside the global
+              K2 at B16, the plain version, F.scaled_dot_product_attention
+              on the folded shape and both floors (bytes or tensor cores;
+              the special-function units), the window bodies in turns
+              against the mma.sync ones they replaced; (b)
+              `lunaris_orion_tpu_torch.cli.evaluate`
               at the full default width on 16 PNGs at 128 px, an 8-sprite
               shard and 2 PNGs at 120 px (the global fallback), global and
               --attn_window 256, f32 and --bf16: 26 scores, the fallback
-              marked, K2 launched; one batch of 16 timed in each mode; at
-              64 px the card's windowed scores against the CPU's (1e-3);
-              (c) the bf16 train step at 16 x 2, remat, window 256: a cold
-              step, one under torch.profiler (its launches: every kernel of
-              the path), fuse_teacher against the unfused step in turns,
+              marked, K2 launched; one batch of 16 timed in each mode,
+              the windowed bf16 one under torch.profiler too (every K2
+              launch `flash_fwd_window`, by count and by name); at 64 px
+              the card's windowed scores against the CPU's (1e-3); (c) the
+              bf16 train step at 16 x 2, remat, window 256: a cold step,
+              one under torch.profiler (its launches: every kernel of the
+              path; every K2 launch on the window bodies, by count and by
+              name), fuse_teacher against the unfused step in turns,
               one step with cached prompt embeddings and one with
               bf16_momentum; (d) `lunaris-train` with --attn_window 256
               --cached_prompt_embeddings --bf16_momentum on a 40-sprite
@@ -348,9 +357,9 @@ Phases, each of which raises on failure (exit code 1):
               step goes under torch.profiler: K1 two kernels a call, K3,
               and in (b) `flash_fwd_tf32` and `flash_bwd_fused_tf32` (in
               (c) the bf16 narrow bodies `flash_fwd_wgmma_narrow` and
-              `flash_bwd_wgmma_narrow` on the global calls, `flash_fwd_mma`
-              and the fused `flash_bwd_dkv_mma` on the windowed ones), by
-              name and by the wrappers' counts.
+              `flash_bwd_wgmma_narrow` on the global calls, the window
+              bodies `flash_fwd_window` and `flash_bwd_window` on the
+              windowed ones), by name and by the wrappers' counts.
 
 Kernel times are medians of CUDA-event timings; `[time]` lines give each
 phase's seconds. Each kernel's `bound_ms` is the larger of its bytes
@@ -394,7 +403,8 @@ of K1, the K2 forward and backwards and K3; `launches_evaluate` (one
 windowed bf16 evaluate batch of 16) and the windowed forward's readings
 `window_ms*`, `window_global_ms*` (the global kernel at B16 beside it),
 `window_plain_ms*`, `window_library_ms*`, `window_bound_ms*`,
-`window_bound_by*` and `window_max_abs_err*` to the K2 forward's; the
+`window_bound_by*`, `window_bound_ms_sfu*` and `window_max_abs_err*` to
+the K2 forward's (`*_bf16_d32` at d 32); the
 windowed default backward's (`window_variant`, `window_ms`, ...) to the
 fused backward's under `*_bf16` and, for f32, to the kernel that ran it
 (the fused one, unsuffixed; split's under `split_*` on dq's and dk/dv's). Phase 17 adds `launches_bundle_generate` and
@@ -424,7 +434,8 @@ their `instances`. So do the narrow ones (bf16 d 16),
 `flash_attention_fwd_wgmma_narrow` and `flash_attention_bwd_wgmma_narrow`:
 `launches` in phase 10's train steps (and the forward's `launches_decode`
 in phase 5's bf16 decode+score, `launches_window_step` and
-`trainer_launches_window` in phase 16), the same times at the default
+`trainer_launches_window` in phase 16, none since the window bodies), the
+same times at the default
 width (forward B 8 dropout 0, backward B 2 dropout 0.1, N 16384) beside
 `bound_ms_sfu`, the special-function floor (one exp a score over 16 a
 clock an SM at the card's largest SM clock), every reading under
@@ -444,7 +455,15 @@ and 64 the same readings under `d32` / `d48` / `d64` and `readings_d32` ..
 reading, at d 32 its B 8 one, under `d48` .. too), with the launches of
 phase 20's f32 runs (`launches_recipe_f32_decode`,
 `launches_recipe_f32_step`, and the low-end tier's `..._decode_low_end`,
-`..._step_low_end`). The
+`..._step_low_end`). So do the window bodies (bf16 d 16 and 32 on the
+windowed fold), `flash_attention_fwd_window` and
+`flash_attention_bwd_window`: `launches` in phase 16's windowed step (W)
+and the forward's `launches_evaluate` (E), `ms` at B16 H8 N16384 W256 d 16
+(the forward at dropout 0, `ms_dropout` at 0.1; the backward's whole call
+at 0.1) against `earlier_ms` (the mma.sync body in turns), `plain_ms`,
+`library_ms` (SDPA on the folded shape), `bound_ms` with `bound_by` and
+`bound_ms_sfu`, d 32's under `d32`, and the inner loop's instructions per
+32 scores under `sass`. The
 last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
@@ -643,11 +662,11 @@ K1_KERNELS = ("gn_stats_partial", "gn_mish_apply_fold", "gn_mish_apply",
 # (demangled) name. The fused backward is the dk/dv kernel whose last
 # template argument, kFusedDq or FUSED, is true, or a body of its own
 # (f32: flash_bwd_fused_tf32 and flash_bwd_wgmma_tf32; bf16 d 48, 64:
-# flash_bwd_wgmma). The f32 warpgroup bodies' pre-pass is a group of its
-# own.
+# flash_bwd_wgmma; the windowed fold's: flash_bwd_window). The f32 warpgroup
+# bodies' pre-pass is a group of its own.
 KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
                  ("K2 bwd fused", lambda k: "flash_bwd_fused" in k
-                  or "flash_bwd_wgmma" in k
+                  or "flash_bwd_wgmma" in k or "flash_bwd_window" in k
                   or re.search(r"flash_bwd_dkv\w*<[^>]*\btrue>", k) is not None),
                  ("K2 bwd dk/dv", lambda k: "flash_bwd_dkv" in k),
                  ("K2 bwd dq", lambda k: "flash_bwd_dq" in k),
@@ -666,8 +685,11 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
 
 
 # The K2 warpgroup bodies at d 16 by kind: (forward, backward) by a part of
-# their name, and the mma.sync bodies they replaced.
+# their name, and the mma.sync bodies they replaced (the window bodies: on
+# the windowed fold, bf16 d 16 and 32).
 D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
+                         ("flash_fwd_mma", "flash_bwd_dkv_mma")),
+              "window": (("flash_fwd_window", "flash_bwd_window"),
                          ("flash_fwd_mma", "flash_bwd_dkv_mma")),
               "f32 warpgroup": (("flash_fwd_wgmma_tf32", "flash_bwd_wgmma_tf32"),
                                 ("flash_fwd_tf32", "flash_bwd_fused_tf32"))}
@@ -676,7 +698,7 @@ D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
 def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str,
                        kind: str = "narrow", every: bool = False) -> dict:
     """The K2 warpgroup bodies of `kind` (the narrow bf16 ones, d 16 and
-    32, or the f32 ones, d 16) by name in a profile (`names`, device_share's K2
+    32, the window ones, or the f32 ones, d 16) by name in a profile (`names`, device_share's K2
     instances) against the wrappers' counts of the same run: logged; a
     profile that holds none of the launches counted, or more, fails
     (torch.profiler may drop a session's first records). With `every`, the
@@ -817,8 +839,9 @@ def build():
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
     # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
-    # ones at d 16 and 32, and f32's at d 16, 32, 48 and 64 on three TF32
-    # passes): no instance spills, and setmaxnreg moves the registers
+    # ones at d 16 and 32, the window ones at d 16 and 32, and f32's at d
+    # 16, 32, 48 and 64 on three TF32 passes): no instance spills, and
+    # setmaxnreg moves the registers
     # (ptxas reports the count at entry, 168 for 384 threads and 128 for
     # 512; the consumers take 232, the narrow bodies' and an f32 forward's
     # of three consumers (d 16) 160; the f32 backward at d 32, 48 and 64,
@@ -830,7 +853,8 @@ def build():
         fn = m.group(1) if m else fn
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas ignored setmaxnreg: {line.strip()}")
-        if fn and ("flash_fwd_wgmma" in fn or "flash_bwd_wgmma" in fn):
+        if fn and any(b in fn for b in ("flash_fwd_wgmma", "flash_bwd_wgmma",
+                                        "flash_fwd_window", "flash_bwd_window")):
             if "C7512" in line or "C7514" in line or "C7515" in line:
                 raise AssertionError(f"ptxas serialised a warpgroup body's "
                                      f"wgmma: {line.strip()}")
@@ -844,6 +868,9 @@ def build():
     smem = {f"flash_{x}_wgmma_narrowILi{d}E":
             (lib_smem(f"lunaris_k2_{x}_wgmma_narrow_smem_bytes", d), 160, 2)
             for x in ("fwd", "bwd") for d in (16, 32)}
+    smem |= {f"flash_{x}_windowILi{d}E":
+             (lib_smem(f"lunaris_k2_window_{x}_smem_bytes", d), 232, 2)
+             for x in ("fwd", "bwd") for d in (16, 32)}
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     for d in k2.TF32_WGMMA_HEAD_DIMS:
         # The dispatch rule's rows and keys a block are the library's.
@@ -924,8 +951,10 @@ def build():
 # thread takes a pass of the loop (fwd: 64 rows x 128 keys over 128
 # threads at d 16, x 64 keys at d 32, or a warp's 32 rows x 64 keys over 32
 # at d 16, 16 rows at d 32; bwd: 64 keys x 64 queries over 128, or a warp's
-# 32 keys x 64 queries over 32 at d 16, 16 keys at d 32). mma.sync's d 32
-# instances test dropout at run time: their loop holds both paths.
+# 32 keys x 64 queries over 32 at d 16, 16 keys at d 32; the window
+# bodies: 64 rows x 256 keys, or 64 keys x 4 query groups of 64, over
+# 128). mma.sync's d 32 instances test dropout at run time: their loop
+# holds both paths.
 K2_D16_LOOPS = (
     ("fwd narrow", ("flash_fwd_wgmma_narrowILi16E",), 64),
     ("fwd mma.sync", ("fwd_mma_cu", "ILi16E"), 64),
@@ -934,7 +963,11 @@ K2_D16_LOOPS = (
     ("fwd narrow d32", ("flash_fwd_wgmma_narrowILi32E",), 32),
     ("fwd mma.sync d32", ("flash_fwd_mmaILi32E",), 32),
     ("bwd narrow d32", ("flash_bwd_wgmma_narrowILi32E",), 32),
-    ("bwd mma.sync d32", ("flash_bwd_dkv_mmaILi32ELi2ELb1ELb1EE",), 32))
+    ("bwd mma.sync d32", ("flash_bwd_dkv_mmaILi32ELi2ELb1ELb1EE",), 32),
+    ("fwd window", ("flash_fwd_windowILi16E",), 128),
+    ("bwd window", ("flash_bwd_windowILi16E",), 128),
+    ("fwd window d32", ("flash_fwd_windowILi32E",), 128),
+    ("bwd window d32", ("flash_bwd_windowILi32E",), 128))
 # Instruction classes, by SASS opcode (before the first dot).
 SASS_CLASSES = (
     ("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)), ("FMUL", ("FMUL",)),
@@ -1227,11 +1260,11 @@ def check_k1_train(torch, dev) -> float:
 # (sums in f32 FMAs, expf): 2e-5 of the largest, 1 element in 100 (measured
 # on an H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
 # rounded product): 1e-3 of the largest, 3 in 100 (measured: 1.8e-4 at N 300,
-# 1.5e-4 at N 16384; 9 in 1000). The warpgroup body (wgmma, d 48 and 64)
-# has the tensor cores' bar. An element in the wrong place is off by a
-# tenth of the largest or more.
+# 1.5e-4 at N 16384; 9 in 1000). The warpgroup bodies (wgmma) and the
+# window bodies have the tensor cores' bar. An element in the wrong place is
+# off by a tenth of the largest or more.
 K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2),
-               "wgmma": (1e-3, 3e-2)}
+               "wgmma": (1e-3, 3e-2), "window": (1e-3, 3e-2)}
 
 
 def k2_bf16_agree(torch, got, ref, body):
@@ -1588,16 +1621,17 @@ def check_tf32_fwd(torch, k2, g, dev, smi, d: int = 16) -> dict:
 
 
 def narrow_turns(torch, run, default, what, smi,
-                 new: str = "narrow (wgmma)", earlier: str = "mma") -> dict:
-    """run(body) for a warpgroup body (the narrow one unless `new` says
-    otherwise) and the body it replaced (`earlier`: mma.sync, or "simt",
-    the CUDA cores) in turns (earlier, wgmma, wgmma, earlier): the better of
-    each pair, which one the dispatch rule picks at this shape (`default`)
-    and which one was faster."""
-    t = [run(earlier), run("wgmma"), run("wgmma"), run(earlier)]
+                 new: str = "narrow (wgmma)", earlier: str = "mma",
+                 body: str = "wgmma") -> dict:
+    """run(body) for a warpgroup body (`body`: "wgmma", the narrow one
+    unless `new` says otherwise, or "window") and the body it replaced
+    (`earlier`: mma.sync, or "simt", the CUDA cores) in turns (earlier,
+    body, body, earlier): the better of each pair, which one the dispatch
+    rule picks at this shape (`default`) and which one was faster."""
+    t = [run(earlier), run(body), run(body), run(earlier)]
     label, name = new, {"mma": "mma.sync", "simt": "CUDA cores"}[earlier]
     new, old = min(t[1:3]), min(t[0], t[3])
-    faster = "wgmma" if new < old else earlier
+    faster = body if new < old else earlier
     log(f"{what}: {name} {t[0]:.3f}, {label} {t[1]:.3f}, "
         f"{t[2]:.3f}, {name} {t[3]:.3f} ms on {smi}; faster in turns: "
         f"{faster}, the rule takes {default}")
@@ -1951,10 +1985,10 @@ BWD_ERR = ("dq", "dk", "dv", "dbias")
 # (measured: 1 in 500), 5 in 100 on the tensor cores (measured: 1 in 1000 at
 # N 256, 2 in 100 at N 16384, where more terms can flip). A term in the wrong
 # place moves an element by a tenth of the largest or more, a wrong mask
-# every element. The fused warpgroup body (wgmma, d 48 and 64) has the
-# tensor cores' bar.
+# every element. The fused warpgroup bodies (wgmma) and the window body have
+# the tensor cores' bar.
 K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2),
-                   "wgmma": (1e-3, 5e-2)}
+                   "wgmma": (1e-3, 5e-2), "window": (1e-3, 5e-2)}
 
 
 def bwd_agree(torch, got, ref, dtype, name, body):
@@ -2564,8 +2598,8 @@ def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
     serving batch B8) the new one must be faster, and is logged beside the
     plain version (B2), SDPA's backward in f32, the three-pass bound and
     the special-function floor. The short rows (SHORT_ROWS_TF32_BWD[d])
-    in turns set TF32_WGMMA_BWD_MIN_ROWS[d] (past d 16 the batch of 8 or
-    16's SDPA is not timed); then the mask position by position. Every
+    in turns set TF32_WGMMA_BWD_MIN_ROWS[d]; then the mask position by
+    position. Every
     (q, k) pair: 10 operations a head-dim element (five products) and one
     exp."""
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
@@ -2641,9 +2675,8 @@ def check_tf32_bwd(torch, k2, inputs, fused_kernel, kernel_ms, moved,
                 raise AssertionError(f"K2 bwd at {tag}: the f32 warpgroup "
                                      f"body is no faster than the {earlier} "
                                      "one")
-            lib, note = (sdpa_ms(q, k, v, bias, backward=True, dropout_p=rate,
-                                 reps=3) if d == 16 or label == "B2"
-                         else (None, "not timed"))
+            lib, note = sdpa_ms(q, k, v, bias, backward=True, dropout_p=rate,
+                                reps=3)
             bd = bounds_tf32_k2(10 * b * 8 * nq * nk * d,
                                 moved(args, b * 8 * nk), b * 8 * nq * nk)
             r |= {"plain_ms": plain_ms, "library_ms": lib, **bd}
@@ -4004,35 +4037,124 @@ def run_recipe_f32(torch, tmp: Path, smi: str, mods: dict) -> dict:
 WINDOW = 256                    # the recommended recipe's (BASELINE.md r5)
 
 
+def window_mask_positions(torch, k2, dev, d: int) -> int:
+    """The window bodies' dropout masks at head size d, position by
+    position, are the hash (tests/test_torch_window.py holds their plain
+    twins the same way): the forward with q = k = 0 and bias = 0 (p uniform)
+    and d-wide slices of the identity as v, where o[q, j] is non-zero where
+    the mask keeps key k0 + j; the backward as `narrow_bwd_mask_positions`
+    holds the narrow one (dv with k = 0, v = 1 and the identity slices as
+    dO; dq with q = 0, the slices as k, v = dO = 1; o = 0 makes the kernel's
+    delta 0). A fold of 2 x 3 windows of WINDOW at row_offset 5 (windows on
+    both consumer warpgroups of a block), five slices each way; returns the
+    positions held."""
+    b, h, w, rate, seed, row_offset = 2, 3, WINDOW, 0.3, 123, 5
+    dt = torch.bfloat16
+    zeros = torch.zeros(b, h, w, d, device=dev, dtype=dt)
+    ones = torch.ones(b, h, w, d, device=dev, dtype=dt)
+    eye = torch.eye(d, device=dev, dtype=dt)
+    bias = torch.zeros(h, w, device=dev)
+    lse = torch.zeros(b * h, w, device=dev)
+    kw = dict(dropout_rate=rate, seed=seed, row_offset=row_offset)
+    rs = k2.row_seeds(seed, b * h, row_offset, dev).reshape(b, h, 1, 1)
+    pos = torch.arange(w, device=dev)
+    keep = k2.keep_mask(rs, pos, pos[:, None],
+                        k2.dropout_threshold(1.0 - rate))   # [b, h, q, k]
+
+    def bwd(q, k, v, do):
+        out = dict(dq=torch.empty_like(q), dk=torch.empty_like(k),
+                   dv=torch.empty_like(v),
+                   dbias_bh=torch.empty(b * h, w, device=dev))
+        k2.launch_bwd_kernel(k2.DKV_FUSED_DQ, q, k, v, bias, do, lse, None,
+                             o=zeros, body="window", **out, **kw)
+        return out["dq"], out["dv"]
+
+    def sliced(x0):
+        t = zeros.clone()
+        t[:, :, x0:x0 + d] = eye
+        return t
+    held = 0
+    for x0 in (0, 8, 56, 121, w - d):
+        o, _ = k2.forward_kernel(zeros, zeros, sliced(x0), bias, body="window",
+                                 **kw)
+        _, dv = bwd(zeros, zeros, ones, sliced(x0))
+        dq, _ = bwd(zeros, sliced(x0), ones, ones)
+        for what, got, want in (
+                ("forward o", o, keep[..., x0:x0 + d]),
+                ("dv", dv, keep[:, :, x0:x0 + d].transpose(2, 3)),
+                ("dq", dq, keep[..., x0:x0 + d])):
+            if not torch.equal(got != 0, want):
+                raise AssertionError(f"K2 window d{d}: {what}'s mask at "
+                                     f"{x0}.. is not the hash")
+            held += got.numel()
+    log(f"[window] the window bodies' masks at d{d}, dropout {rate}: "
+        f"position by position the hash ({held} positions)")
+    return held
+
+
+def batched_ms(torch, fn, calls: int = 20, rounds: int = 3) -> float:
+    """Milliseconds a call of fn() over `calls` calls back to back between
+    two CUDA events, the best of `rounds`, after a warm-up call: a kernel
+    under a millisecond whose wrapper's host time `time_ms` would count
+    (one call between its events) is timed as a step runs it, queued."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
 def check_window(torch, dev, smi) -> dict:
     """Phase 16 (a): K2 over the windows folded into the head axis
-    (`local_window_attention`) at B16 H8 N16384 W256 d16, f32 and bf16:
-    forward at dropout 0 and 0.1 and the default backward at 0.1 against
-    the plain versions on the folded shape, at phase 4's and phase 7's
-    bars; a call in batch chunks bit-equal to one call; times beside the
-    global K2 at B16, the plain version, the library call on the folded
-    shape and the bound."""
+    (`local_window_attention`) at B16 H8 N16384 W256: f32 at d16, bf16 at d
+    16 and 32 (the window bodies: counted, and named in the kernels' line).
+    The forward at dropout 0 and 0.1 and the default backward at 0.1 against
+    the plain versions on the folded shape, at phase 4's and phase 7's bars
+    (bf16: the one-block online form at the body's `block_k`, W); the
+    window bodies' masks position by position (`window_mask_positions`) and
+    their backward the same bits on a second run; a call in batch chunks
+    bit-equal to one call; times beside the global K2 at B16 (d 16), the
+    plain version, the library call on the folded shape and both floors (the
+    tensor cores or the bytes; one exp a score on the special-function
+    units), and the window bodies in turns against the mma.sync ones they
+    replaced (forward at dropout 0 and 0.1, the backward's whole call at
+    0.1; `batched_ms`: 20 calls queued, as a step runs them)."""
     from lunaris_orion_tpu_torch.ops.attention import local_window_attention
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     from lunaris_orion_tpu_torch.tools.attn_roofline import sdpa_ms
-    b, h, n, w, d = 16, 8, 16384, WINDOW, 16
+    b, h, n, w = 16, 8, 16384, WINDOW
     rows = h * n // w
-    fold = lambda t: t.reshape(b, rows, w, d)
     g = torch.Generator(device=dev).manual_seed(16)
-    out = {"fwd": {}}
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt)[6:]
-        sfx = "" if dt == torch.float32 else "_bf16"
+    out = {"fwd": {}, "window_fwd": {}, "window_bwd": {}}
+    for dt, d in ((torch.float32, 16), (torch.bfloat16, 16),
+                  (torch.bfloat16, 32)):
+        name = f"{str(dt)[6:]} d{d}"
+        sfx = ("" if dt == torch.float32 else "_bf16") + (
+            "_d32" if d == 32 else "")
+        fold = lambda t: t.reshape(b, rows, w, d)
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
         bias = 0.5 * torch.randn(h, n, generator=g, device=dev)
         bias_w = bias.reshape(rows, w)
         inst = k2.forward_instance(dt, d, w, w, 0.1)
+        window = inst.body == "window"
+        if window != (dt == torch.bfloat16):
+            raise AssertionError(f"windowed K2 {name}: the rule takes "
+                                 f"{inst.body}")
         errs = []
         for rate in (0.0, 0.1):
             kw = dict(dropout_rate=rate, seed=-1234567)
-            tag = f"window {w} B{b} H{h} N{n} d{d} {name} dropout {rate}"
+            tag = f"window {w} B{b} H{h} N{n} {name} dropout {rate}"
+            seen = k2.window_launches
             o = local_window_attention(q, k, v, bias, window=w, **kw)
+            counted = k2.window_launches - seen
             ro, rlse = k2.attention_plain(fold(q), fold(k), fold(v), bias_w,
                                           **kw)
             torch.cuda.synchronize()
@@ -4047,10 +4169,11 @@ def check_window(torch, dev, smi) -> dict:
                 note = (f"online form: over 2 ulps by {max(excess, 0):.1e} of "
                         f"the largest, {differ:.1e} differ ({inst.body})")
                 del oo
-            log(f"[window] {tag}: max_abs_err {err:.3e} ({note})")
-            if not ok:
+            log(f"[window] {tag}: max_abs_err {err:.3e} ({note}); window "
+                f"body launches {counted}")
+            if not ok or counted != int(window):
                 raise AssertionError(f"windowed K2 disagrees with its plain "
-                                     f"version at {tag}")
+                                     f"version or missed its body at {tag}")
             errs.append(err)
         # The default backward at dropout 0.1 through autograd.
         variant = k2.default_bwd(dt, d)
@@ -4058,13 +4181,15 @@ def check_window(torch, dev, smi) -> dict:
                 else k2.backward_instance(dt, d, w, w, 0.1)).body
         leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
         do = torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
+        seen = k2.bwd_window_launches
         local_window_attention(*leaves, window=w, **kw).backward(do)
+        counted = k2.bwd_window_launches - seen
         # The plain backward from the kernel's own o and lse, which the
         # autograd backward takes (a bf16 o that differs from the plain
         # forward's in its last bit moves delta, so a whole row's ds).
         ko, klse = k2.flash_attention(fold(q), fold(k), fold(v), bias_w, **kw)
-        ref = k2.attention_bwd_plain(fold(q), fold(k), fold(v), bias_w, ko,
-                                     klse, fold(do), **kw)
+        args = (fold(q), fold(k), fold(v), bias_w, ko, klse, fold(do))
+        ref = k2.attention_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         line = []
         for gname, leaf, r in zip(BWD_ERR, leaves, ref):
@@ -4075,9 +4200,24 @@ def check_window(torch, dev, smi) -> dict:
                 raise AssertionError(f"windowed K2 backward ({variant}, {body})"
                                      f" {gname} disagrees at {name}: {text}")
             errs.append(gerr)
+        if counted != int(window):
+            raise AssertionError(f"windowed K2 backward {name}: {counted} "
+                                 "window body launches")
+        if window:
+            once = k2.flash_attention_bwd(*args, **kw)
+            again = k2.flash_attention_bwd(*args, **kw)
+            same = [torch.equal(x, y) for x, y in zip(once, again)]
+            line.append(f"dq, dk, dv, dbias the same bits on a second run: "
+                        f"{same}")
+            if not all(same):
+                raise AssertionError(f"windowed K2 backward {name}: the "
+                                     "window body's gradients differ "
+                                     "between runs")
+            del once, again
+            window_mask_positions(torch, k2, dev, d)
         log(f"[window] backward {variant} ({body}) {name} dropout 0.1: "
             + ", ".join(line))
-        del leaves, ref, ro, rlse, ko, klse
+        del leaves, ref, ro, rlse, ko, klse, args
         # Batch chunks: K2's row cap lowered to 4 images' folded rows.
         cap, k2.MAX_ROWS = k2.MAX_ROWS, 4 * rows
         try:
@@ -4091,57 +4231,95 @@ def check_window(torch, dev, smi) -> dict:
             f"call, dropout 0.1")
         del chunked
         # Times: the windowed forward and default backward beside the
-        # global K2 forward at B16, the plain version and the library call
-        # on the folded shape.
+        # global K2 forward at B16 (d 16), the plain version and the library
+        # call on the folded shape.
         kw = dict(dropout_rate=0.0, seed=0)
         t_w = time_ms(torch, lambda: local_window_attention(
             q, k, v, bias, window=w, **kw), 10)
-        t_g = time_ms(torch, lambda: k2.flash_attention(q, k, v, bias, **kw),
-                      3)
+        t_g = (time_ms(torch, lambda: k2.flash_attention(q, k, v, bias, **kw),
+                       3) if d == 16 else None)
         t_p = time_ms(torch, lambda: k2.attention_plain(
             fold(q), fold(k), fold(v), bias_w, **kw), 3)
         lib, lib_note = sdpa_ms(fold(q), fold(k), fold(v), bias_w, reps=5)
         o, lse = k2.flash_attention(fold(q), fold(k), fold(v), bias_w, **kw)
         do = torch.randn_like(o)
+        bwd_args = (fold(q), fold(k), fold(v), bias_w, o, lse, do)
         t_b = time_ms(torch, lambda: k2.flash_attention_bwd(
-            fold(q), fold(k), fold(v), bias_w, o, lse, do, dropout_rate=0.1,
-            seed=5), 5)
+            *bwd_args, dropout_rate=0.1, seed=5), 5)
         t_pb = time_ms(torch, lambda: k2.attention_bwd_plain(
-            fold(q), fold(k), fold(v), bias_w, o, lse, do, dropout_rate=0.1,
-            seed=5), 2)
+            *bwd_args, dropout_rate=0.1, seed=5), 2)
         lib_b, _ = sdpa_ms(fold(q), fold(k), fold(v), bias_w, backward=True,
                            dropout_p=0.1, reps=3)
-        scores_d = b * h * n * w * d
-        # f32 runs on the tensor cores in three TF32 passes (both bounds).
-        bounds = (bounds_f32 if dt == torch.float32 else
-                  lambda ops, moved: bound(ops, moved, "bf16"))
-        bd = bounds(4 * scores_d, nbytes(q, k, v, bias, o, lse))
+        scores = b * h * n * w
+        scores_d = scores * d
+        # f32 runs on the tensor cores in three TF32 passes (both bounds);
+        # each also has the special-function floor, one exp a score.
+        bounds = bounds_tf32_k2 if dt == torch.float32 else bounds_k2
+        bd = bounds(4 * scores_d, nbytes(q, k, v, bias, o, lse), scores)
         # Per (q, k) pair and head-dim element, 2 operations each for the
         # scores, dp, dv, dk and dq products (split: the scores and dp twice).
         bwd_ops = {"fused": 10, "split": 14}[variant]
         bdb = bounds(bwd_ops * scores_d, nbytes(q, k, v, bias, do, lse, o)
-                     + nbytes(q, k, v, bias))
+                     + nbytes(q, k, v, bias), scores)
+        share = lambda t, bnd: max(bnd["bound_ms"], bnd["bound_ms_sfu"]) / t
+        glob = (f"global K2 at B{b} {t_g:.3f} ms ({t_g / t_w:.1f}x), "
+                if t_g else "")
         log(f"[window] {name}: windowed forward {t_w:.3f} ms "
-            f"({b * h * n * w / t_w / 1e9:.2f} G scores/ms), global K2 at "
-            f"B{b} {t_g:.3f} ms ({t_g / t_w:.1f}x), plain {t_p:.3f} ms, "
-            f"F.scaled_dot_product_attention on the folded shape {lib} ms "
-            f"({lib_note}), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}"
-            f"; backward {variant} dropout 0.1 {t_b:.3f} ms (plain {t_pb:.3f},"
-            f" library {lib_b}, bound {bdb['bound_ms']:.4f} by "
-            f"{bdb['bound_by']}) on {smi}")
+            f"({scores / t_w / 1e9:.2f} G scores/ms), {glob}plain "
+            f"{t_p:.3f} ms, F.scaled_dot_product_attention on the folded "
+            f"shape {lib} ms ({lib_note}), bound {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']}, special-function floor "
+            f"{bd['bound_ms_sfu']:.4f} ms ({share(t_w, bd):.1%} of the "
+            f"larger); backward {variant} dropout 0.1 {t_b:.3f} ms (plain "
+            f"{t_pb:.3f}, library {lib_b}, bound {bdb['bound_ms']:.4f} by "
+            f"{bdb['bound_by']}, special-function floor "
+            f"{bdb['bound_ms_sfu']:.4f}, {share(t_b, bdb):.1%} of the "
+            f"larger) on {smi}")
         out["fwd"] |= {
             "window_ms" + sfx: t_w, "window_global_ms" + sfx: t_g,
             "window_plain_ms" + sfx: t_p, "window_library_ms" + sfx: lib,
             "window_bound_ms" + sfx: bd["bound_ms"],
             "window_bound_by" + sfx: bd["bound_by"],
+            "window_bound_ms_sfu" + sfx: bd["bound_ms_sfu"],
             "window_max_abs_err" + sfx: max(errs[:2])}
         out["bwd" + (sfx or "_f32")] = {
             "window_variant": variant, "window_ms": t_b,
             "window_plain_ms": t_pb, "window_library_ms": lib_b,
             "window_bound_ms": bdb["bound_ms"],
             "window_bound_by": bdb["bound_by"],
+            "window_bound_ms_sfu": bdb["bound_ms_sfu"],
             "window_max_abs_err": max(errs[2:])}
-        del q, k, v, o, lse, do
+        if window:
+            # The window bodies against the mma.sync ones they replaced.
+            fq, fk, fv = fold(q), fold(k), fold(v)
+            fwd = {}
+            for rate in (0.0, 0.1):
+                kwr = dict(dropout_rate=rate, seed=5)
+                fwd[rate] = narrow_turns(torch, lambda body: batched_ms(
+                    torch, lambda: k2.forward_kernel(
+                        fq, fk, fv, bias_w, body=body, **kwr)), inst.body,
+                    f"[window] {name} forward kernel, dropout {rate}, 20 "
+                    "calls queued", smi, new="window", body="window")
+            bwd = narrow_turns(torch, lambda body: batched_ms(
+                torch, lambda: k2.flash_attention_bwd(
+                    *bwd_args, body=body, dropout_rate=0.1, seed=5)),
+                body, f"[window] {name} backward call (fused), dropout 0.1, "
+                "20 calls queued", smi, new="window", body="window")
+            out["window_fwd"][f"d{d}"] = {
+                "ms": fwd[0.0]["ms"], "earlier_ms": fwd[0.0]["earlier_ms"],
+                "ms_dropout": fwd[0.1]["ms"],
+                "earlier_ms_dropout": fwd[0.1]["earlier_ms"],
+                "plain_ms": t_p, "library_ms": lib, **bd,
+                "max_abs_err": max(errs[:2]),
+                "shape": f"B{b} H{h} N{n} W{w} d{d} bf16 dropout 0"}
+            out["window_bwd"][f"d{d}"] = {
+                "ms": bwd["ms"], "earlier_ms": bwd["earlier_ms"],
+                "plain_ms": t_pb, "library_ms": lib_b, **bdb,
+                "max_abs_err": max(errs[2:]),
+                "shape": f"B{b} H{h} N{n} W{w} d{d} bf16 dropout 0.1, "
+                         "the whole call"}
+            del fq, fk, fv
+        del q, k, v, o, lse, do, bwd_args
     return out
 
 
@@ -4206,9 +4384,23 @@ def run_evaluate(torch, tmp: Path, smi: str) -> dict:
             ev = QualityEvaluator(str(ckpt), attn_window=window, bf16=bf16)
             batch = np.stack([np.asarray(Image.open(
                 inp / f"s128_{i}.png").convert("RGB")) for i in range(16)])
-            seen = k2.launches
+            seen = (k2.launches, k2.window_launches)
             ev.score_batch(batch)
-            per_batch = k2.launches - seen
+            per_batch = k2.launches - seen[0]
+            on_window = k2.window_launches - seen[1]
+            if window and bf16:
+                # Every K2 launch of the windowed bf16 batch on the window
+                # body, by the wrapper's count and by name.
+                tag = f"evaluate window {window} bf16, a batch of 16"
+                names = {}
+                device_share(torch, lambda: ev.score_batch(batch), tag, smi,
+                             k2_names=names)
+                check_narrow_names(names, on_window, 0, tag, kind="window",
+                                   every=True)
+                if on_window != per_batch:
+                    raise AssertionError(f"{tag}: {per_batch} K2 launches, "
+                                         f"{on_window} on the window body")
+                out["evaluate_window_bf16_window_launches"] = on_window
             ms = time_ms(torch, lambda: ev.score_batch(batch), 3)
             key = (("window" if window else "global")
                    + ("_bf16" if bf16 else "_f32"))
@@ -4267,7 +4459,10 @@ WINDOW_COUNTERS = (("gn_mish", "k1", "launches"),
                    ("flash_attention_fwd_wgmma_narrow", "k2",
                     "narrow_launches"),
                    ("flash_attention_bwd_wgmma_narrow", "k2",
-                    "bwd_narrow_launches"))
+                    "bwd_narrow_launches"),
+                   ("flash_attention_fwd_window", "k2", "window_launches"),
+                   ("flash_attention_bwd_window", "k2",
+                    "bwd_window_launches"))
 
 
 def _counts(mods: dict, reset: bool = False) -> dict:
@@ -4324,9 +4519,21 @@ def run_window_train(torch, smi: str, mods: dict) -> dict:
         torch, lambda: step(state, batch), tag, smi, k2_names=names)
     launches = _counts(mods)
     check_k1_kernels(k1_kernels, launches["gn_mish"], tag)
-    # The windowed fold's rows are short: the rule keeps mma.sync there.
+    # The windowed fold takes the window bodies: every K2 launch of the
+    # step, by the wrappers' counts and by name; none on the narrow or the
+    # mma.sync bodies.
     check_narrow_names(names, launches["flash_attention_fwd_wgmma_narrow"],
                        launches["flash_attention_bwd_wgmma_narrow"], tag)
+    check_narrow_names(names, launches["flash_attention_fwd_window"],
+                       launches["flash_attention_bwd_window"], tag,
+                       kind="window", every=True)
+    if (launches["flash_attention_fwd_window"],
+            launches["flash_attention_bwd_window"]) != (
+            launches["flash_attention_fwd"],
+            launches["flash_attention_bwd_fused"]) or launches[
+            "flash_attention_fwd_wgmma_narrow"]:
+        raise AssertionError(f"{tag}: K2 launches off the window bodies: "
+                             f"{launches}")
     for key in ("gn_mish", "flash_attention_fwd", "flash_attention_bwd_fused",
                 "mse_kl"):
         if launches[key] <= 0:
@@ -5616,10 +5823,10 @@ PARITY_WINDOW_AGREE = 0.02   # (c) global against window: recon and KL at
 # in (b), bf16 on the tensor cores in (c) (the fused backward is dk/dv's
 # body with the fused dq).
 PARITY_K2_F32 = ("flash_fwd_tf32", "flash_bwd_fused_tf32")
-# bf16 at d 16: the narrow warpgroup bodies on the global calls, mma.sync
-# on the windowed fold's short rows (`flash_attention.NARROW_MIN_ROWS`).
+# bf16 at d 16: the narrow warpgroup bodies on the global calls, the window
+# bodies on the windowed fold (`flash_attention.window_shape`).
 PARITY_K2_BF16 = {0: ("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
-                  WINDOW: ("flash_fwd_mma", "flash_bwd_dkv_mma")}
+                  WINDOW: ("flash_fwd_window", "flash_bwd_window")}
 
 
 def _parity_step(torch, run, i: int, tag: str, smi: str, mods: dict,
@@ -6061,7 +6268,8 @@ def main() -> int:
                  "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_sfu",
                  "library_ms", "earlier_ms")},
              earlier_body="flash_fwd_mma", readings=k2["narrow"],
-             sass={k: v for k, v in sass.items() if k.startswith("fwd")}),
+             sass={k: v for k, v in sass.items()
+                   if k.startswith("fwd") and "window" not in k}),
         dict(name="flash_attention_bwd_wgmma_narrow", route="cuda",
              source=src + "flash_attention_bwd.cuh", replaces=f"{fa}:574",
              instances=[src + f"flash_attention_bwd_wgmma_d{d}{x}.cu"
@@ -6082,7 +6290,33 @@ def main() -> int:
              shape="B2 H8 N16384 dropout 0.1",
              earlier_body="flash_bwd_dkv_mma<16, .., FUSED>",
              readings=bwd["narrow"],
-             sass={k: v for k, v in sass.items() if k.startswith("bwd")}),
+             sass={k: v for k, v in sass.items()
+                   if k.startswith("bwd") and "window" not in k}),
+        # The window bodies (bf16 d 16 and 32 on the windowed fold): times
+        # at B16 H8 N16384 W256 d 16 (phase 16 (a)), each against the
+        # mma.sync body it replaced in turns, beside the plain version, SDPA
+        # on the folded shape and both floors; d 32's under `d32`; launches
+        # in phase 16's windowed step (W), its trainer run, and the
+        # forward's in a windowed evaluation batch (E).
+        *(dict(name=f"flash_attention_{x}_window", route="cuda",
+               source=src + "flash_attention_window.cuh",
+               replaces=f"{fa}:{line}",
+               instances=[src + f"flash_attention_{x}_window_d{d}{y}.cu"
+                          for d in (16, 32) for y in ("", "_drop")],
+               launches=wstep["launches"][f"flash_attention_{x}_window"],
+               trainer_launches_window=wtrainer["launches"][
+                   f"flash_attention_{x}_window"],
+               **({"launches_evaluate":
+                   evaluate["evaluate_window_bf16_window_launches"]}
+                  if x == "fwd" else {}),
+               **window[f"window_{x}"]["d16"],
+               d32=window[f"window_{x}"]["d32"], earlier_body=earlier,
+               sass={k: v for k, v in sass.items()
+                     if k.startswith(f"{x} window")})
+          for x, line, earlier in (
+              ("fwd", 335, "flash_fwd_mma"),
+              ("bwd", 574, "flash_bwd_dkv_mma<.., FUSED> with the call's "
+                           "delta, zeroed f32 dq buffer and cast"))),
         # The f32 warpgroup bodies (three TF32 passes on wgmma) at d 16, the
         # default type and width, and at d 32, 48 and 64, the low-end,
         # mid-range and H100-tier widths: the forward at B8 H8 N16384,

@@ -293,6 +293,11 @@ __device__ __forceinline__ void wgmma_pin(uint32_t (&a)[R][C]) {
 #pragma unroll
     for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
+template <int C>
+__device__ __forceinline__ void wgmma_pin(uint32_t (&a)[C]) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[j])::"memory");
+}
 
 // d (+)= a b, m64nNk16, f32 sums; scale_d 0 starts from zero. The
 // accumulator of warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8

@@ -26,9 +26,16 @@ other device and never falls back.
                     in three TF32 passes a product on key tiles that a
                     pre-pass (`tf32_tiles`) split into hi and lo and laid
                     out as wgmma reads them;
+            "window" bf16 at d 16 and 32 where Nq = Nk = W, a multiple of
+                    64 up to WINDOW_MAX (the windowed fold, `window_shape`):
+                    flash_fwd_window (`csrc/flash_attention_window.cuh`),
+                    a persistent block whose two warpgroups take a window
+                    each, Q, K and V of the next one loaded by TMA while
+                    they compute this one, the softmax exact in one pass
+                    over all W keys (wgmma for q k^T and p v);
             "mma"   d 16, 32, 48, 64 where Nq or Nk is short (f32 at
-                    each, bf16 at d 16 and 32; bf16 at 48 and 64 by
-                    `body="mma"`): both products on the
+                    each, bf16 at d 16 and 32 off the window shapes; bf16
+                    at 48 and 64 by `body="mma"`): both products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
                     (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
@@ -56,6 +63,10 @@ other device and never falls back.
                      warpgroups of 64 keys, the five products in three TF32
                      passes on wgmma, on the pre-pass's tiles; at 48 and 64
                      every shape),
+                     "window" for bf16 at d 16 and 32 on the window shapes
+                     (flash_bwd_window: a window whole in one warpgroup,
+                     delta in the kernel, dq written once in bf16: no f32
+                     buffer, no atomics, the same bits on every run),
                      "mma" at d 16 and 32 where the rows are short
                      (five products on the tensor cores; f32 in three TF32
                      passes), "simt" at d 8;
@@ -86,7 +97,9 @@ count the kernel launches; the plain versions do not count.
 `wgmma_launches` and `bwd_wgmma_launches` count, among them, the launches
 of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
 among those, the narrow ones (bf16 d 16 and 32), and `tf32_wgmma_launches` and
-`bwd_tf32_wgmma_launches` the f32 ones (d 16, 32, 48, 64). `split_launches` counts the
+`bwd_tf32_wgmma_launches` the f32 ones (d 16, 32, 48, 64). `window_launches`
+and `bwd_window_launches` count the window bodies' launches (not among the
+warpgroup counts). `split_launches` counts the
 launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
 backward.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
@@ -115,6 +128,8 @@ bwd_narrow_launches = 0
 tf32_wgmma_launches = 0
 bwd_tf32_wgmma_launches = 0
 split_launches = 0
+window_launches = 0
+bwd_window_launches = 0
 
 HEAD_DIMS = (8, 16, 32, 48, 64)      # the kernels' compiled head sizes
 MAX_ROWS = 65535                     # B*H a launch takes (the grid's y)
@@ -126,9 +141,16 @@ NARROW_HEAD_DIMS = (16, 32)          # of those, the narrow bodies' (rows of 32,
 # By head size: where Nq or Nk is shorter the narrow bodies' set-up a
 # block (a producer, a ring, barriers) is not paid back. Timed in turns on
 # an H100 (PERF.md section 6) at dropout 0.1: at d 16 the mma.sync bodies
-# win at N 256 (the windowed fold), 512 and 1024 and lose from 2048 on; at
-# d 32, where mma.sync's products cost more, they win at N 256 only.
+# win at N 256, 512 and 1024 and lose from 2048 on; at d 32, where
+# mma.sync's products cost more, they win at N 256 only. mma.sync keeps
+# those short rows where the window bodies do not take them (Nq != Nk,
+# or N not a multiple of 64 up to WINDOW_MAX).
 NARROW_MIN_ROWS = {16: 2048, 32: 512}
+# The window bodies (flash_fwd_window, flash_bwd_window): bf16 at these head
+# sizes on Nq = Nk = W, W a multiple of WINDOW_STEP up to WINDOW_MAX.
+WINDOW_HEAD_DIMS = (16, 32)
+WINDOW_MAX = 256
+WINDOW_STEP = 64
 TF32_WGMMA_HEAD_DIMS = (16, 32, 48, 64)  # the f32 warpgroup bodies' (three TF32 passes)
 # By head size: where Nq or Nk is shorter the f32 warpgroup forward's
 # pre-pass and set-up are not paid back, and the fused backward's at
@@ -221,7 +243,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v's dtype before later blocks correct it. In f32 the two agree to
     rounding; in bf16 p rounds at another magnitude, so a kernel's bf16
     output is held element by element against this form at the kernel's own
-    key tile. Returns (o [B, H, Nq, d] in q's dtype, lse [B*H, Nq] f32)."""
+    key tile. The window body's (flash_fwd_window) is `block_k` = W = Nk:
+    one key block, the exact softmax it takes in one pass. Returns
+    (o [B, H, Nq, d] in q's dtype, lse [B*H, Nq] f32)."""
     _check_shapes(q, k, v, bias)
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -291,7 +315,9 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded to q's dtype before the dq and dk products; the dropped,
     rescaled p rounded to dO's dtype before the dv product; dbias from the
     unrounded f32 ds, summed over the batch; delta = rowsum(f32(o) f32(dO)).
-    dq carries the d^-1/2 factor of the scaling inside the forward.
+    dq carries the d^-1/2 factor of the scaling inside the forward. It is
+    the plain twin of every fused backward body, the window one
+    (flash_bwd_window, which forms delta and writes dq itself) included.
     Returns (dq, dk, dv in the inputs' dtype, dbias [H, Nk] f32)."""
     _check_shapes(q, k, v, bias)
     b, h, nq, d = q.shape
@@ -608,8 +634,10 @@ def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     forward) takes where its rows are short, else None (the default of
     `_body`): the narrow warpgroup bodies (bf16) start a producer, a ring
     and their barriers per block, and the f32 ones a pre-pass as well,
-    which the short rows of a windowed fold (Nq = Nk = the window) or a
-    32 px model do not pay back. There both types keep mma.sync: bf16 under
+    which short rows (a 32 px model, a short q shard; in f32 the windowed
+    fold, Nq = Nk = the window) do not pay back. bf16 on a window shape
+    (`window_shape`) takes the window bodies ahead of this rule
+    (`_window_body`). Elsewhere both types keep mma.sync: bf16 under
     NARROW_MIN_ROWS[d], f32's forward under TF32_WGMMA_MIN_ROWS[d] and its
     fused backward (`backward`) under TF32_WGMMA_BWD_MIN_ROWS[d] (0 at d 48
     and 64, whose fused backward has no mma.sync body)."""
@@ -622,9 +650,32 @@ def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     return None
 
 
+def window_shape(dtype: torch.dtype, d: int, nq: int, nk: int) -> bool:
+    """Whether the window bodies take a call: bf16 at d in WINDOW_HEAD_DIMS,
+    Nq = Nk = W with W a multiple of WINDOW_STEP up to WINDOW_MAX (the
+    windowed fold at windows 64, 128, 192 and 256)."""
+    return (dtype == torch.bfloat16 and d in WINDOW_HEAD_DIMS and nq == nk
+            and nk % WINDOW_STEP == 0 and 0 < nk <= WINDOW_MAX)
+
+
+def _window_body(name: str, dtype: torch.dtype, d: int, nq: int, nk: int,
+                 body: str | None) -> bool:
+    """Whether a call takes the window body: by default on every window
+    shape; `body="window"` asks for it and raises off those shapes. Any
+    other `body` (say "mma", for turns against the body it replaced) goes
+    to `_body`."""
+    if body == "window" and not window_shape(dtype, d, nq, nk):
+        raise ValueError(
+            f"{name}: body 'window' takes bf16 at d in {WINDOW_HEAD_DIMS} "
+            f"with Nq = Nk a multiple of {WINDOW_STEP} up to {WINDOW_MAX} "
+            f"(got {dtype}, d {d}, Nq {nq}, Nk {nk})")
+    return body == "window" or (body is None
+                                and window_shape(dtype, d, nq, nk))
+
+
 class ForwardInstance(NamedTuple):
     """The forward kernel instance a call launches."""
-    body: str            # "mma" (tensor cores) or "simt" (CUDA cores)
+    body: str            # "window", "wgmma", "mma" (tensor cores) or "simt"
     head_dim: int
     block_k: int         # keys a tile
     rows: int            # query rows a block
@@ -656,7 +707,15 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     (`body` as in `_body`). At d 16 dropout and raggedness are template parameters; the
     other head sizes of those bodies have one instance each, which masks
     the last key tile and reads the dropout flag at run time. Nq only sets
-    the grid: every instance guards the rows past it."""
+    the grid: every instance guards the rows past it. Ahead of all that,
+    bf16 at d 16 and 32 on Nq = Nk = W (`window_shape`: the windowed fold)
+    takes the window body ("window": a window of W queries a step of a
+    persistent block, its one key tile the whole window, so `block_k` and
+    `rows` are W; dropout compiled in or out); `body="mma"` still reaches
+    the mma.sync body it replaced there."""
+    if _window_body("flash_attention", dtype, d, nq, nk, body):
+        return ForwardInstance("window", d, nk, nq, 1,
+                               "on" if dropout_rate > 0.0 else "off", False)
     body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS,
                  body or _short_rows_body(dtype, d, nq, nk), wgmma="mma")
     if body == "wgmma":
@@ -693,6 +752,21 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
     if inst.body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the tensor-core kernel copies 16 "
                          "bytes at a time; q, k, v must be aligned to that")
+    global launches, shard_launches, wgmma_launches, narrow_launches
+    global tf32_wgmma_launches, window_launches
+    if inst.body == "window":
+        o = torch.empty_like(q)
+        lse = torch.empty(b * h, nq, device=q.device, dtype=torch.float32)
+        err = _build.library().lunaris_k2_window_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), b * h, h, nq, d, scale, *drop,
+            seed & _M32, q_offset, row_offset,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_attention (window)")
+        launches += 1
+        shard_launches += q_offset > 0
+        window_launches += 1
+        return o, lse
     f32_wg = inst.body == "wgmma" and q.dtype == torch.float32
     split = tf32_tiles(TF32_FWD, k, v) if f32_wg else None
     o = torch.empty_like(q)
@@ -705,8 +779,6 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         None if split is None else split.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
-    global launches, shard_launches, wgmma_launches, narrow_launches
-    global tf32_wgmma_launches
     launches += 1
     shard_launches += q_offset > 0
     wgmma_launches += inst.body == "wgmma"
@@ -775,8 +847,10 @@ def _bwd_tile_rows(body: str, d: int) -> tuple[int, int]:
 class FusedInstance(NamedTuple):
     """The kernel instance a fused backward launches: a block owns `rows`
     keys, walks the queries in tiles of `block_q` (each block from its own
-    first tile) and adds each tile's dq into a zeroed f32 buffer."""
-    body: str            # "mma" (tensor cores) or "simt" (CUDA cores)
+    first tile) and adds each tile's dq into a zeroed f32 buffer (the
+    window body: a warpgroup owns a window's W keys and W queries and
+    writes dq itself)."""
+    body: str            # "window", "wgmma", "mma" (tensor cores) or "simt"
     head_dim: int
     block_q: int
     rows: int
@@ -812,7 +886,13 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     at d 16 (8 warps), 64 otherwise; f32 walks the queries in tiles of 64
     at d 16 and 32 at d 32; at d 16 dropout and a ragged Nq are template
     parameters; every other instance of those bodies fills the last query
-    tile and reads the dropout flag at run time."""
+    tile and reads the dropout flag at run time. Ahead of all that, bf16 at
+    d 16 and 32 on Nq = Nk = W (`window_shape`) takes the window body
+    ("window": W keys and W queries in one warpgroup, dropout compiled in
+    or out); `body="mma"` still reaches the mma.sync body it replaced."""
+    if _window_body("flash_attention_bwd", dtype, d, nq, nk, body):
+        return FusedInstance("window", d, nq, nk, 1,
+                             "on" if dropout_rate > 0.0 else "off", False)
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
                  body or _short_rows_body(dtype, d, nq, nk, backward=True),
                  wgmma="mma" if d in NARROW_HEAD_DIMS else "simt")
@@ -837,35 +917,59 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
 
 def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
                       dq=None, dk=None, dv=None, dbias_bh=None, dq_acc=None,
-                      dropout_rate=0.0, seed=0, q_offset=0, row_offset=0,
-                      body: str | None = None):
+                      o=None, dropout_rate=0.0, seed=0, q_offset=0,
+                      row_offset=0, body: str | None = None):
     """One launch of a K2 backward kernel into preallocated outputs:
     DKV writes dk, dv, dbias_bh [B*H, Nk]; DKV_FUSED_DQ also adds into the
     zeroed f32 dq_acc [B, H, Nq, d]; DQ writes dq. delta [B, H, Nq] f32 is
     rowsum(f32(o) f32(dO)). `body` as in `backward_instance` (DKV and DQ)
-    and `fused_instance` (DKV_FUSED_DQ). Counts the launch."""
-    scale, drop = _check_kernel_inputs(
-        "flash_attention_bwd", (q, k, v, bias, do, lse, delta),
-        dropout_rate)
-    if do.dtype != q.dtype or lse.dtype != torch.float32 or (
-            delta.dtype != torch.float32):
-        raise ValueError("flash_attention_bwd: dO must have q's dtype and "
-                         "lse, delta must be f32")
+    and `fused_instance` (DKV_FUSED_DQ). The window body (DKV_FUSED_DQ on a
+    window shape) takes o instead of delta, which it forms itself, and
+    writes dq (d^-1/2 applied) instead of adding into dq_acc. Counts the
+    launch."""
     b, h, nq, d = q.shape
     rule = fused_instance if kernel == DKV_FUSED_DQ else backward_instance
     body = rule(q.dtype, d, nq, k.shape[2], dropout_rate, body).body
+    window = body == "window"
+    inputs = (q, k, v, bias, do, lse) + ((o,) if window else (delta,))
+    if any(t is None for t in inputs):
+        raise ValueError("flash_attention_bwd: the window body takes o, the "
+                         "others delta")
+    scale, drop = _check_kernel_inputs("flash_attention_bwd", inputs,
+                                       dropout_rate)
+    if do.dtype != q.dtype or lse.dtype != torch.float32 or (
+            inputs[-1].dtype != (q.dtype if window else torch.float32)):
+        raise ValueError("flash_attention_bwd: dO (and o) must have q's "
+                         "dtype and lse, delta must be f32")
     f32_wg = body == "wgmma" and q.dtype == torch.float32
-    outs = {DKV: (dk, dv, dbias_bh), DKV_FUSED_DQ: (dk, dv, dbias_bh, dq_acc),
-            DQ: (dq,)}[kernel]
+    outs = {DKV: (dk, dv, dbias_bh),
+            DKV_FUSED_DQ: (dq, dk, dv, dbias_bh) if window
+            else (dk, dv, dbias_bh, dq_acc), DQ: (dq,)}[kernel]
     if any(t is None or t.device != q.device or not t.is_contiguous()
            for t in outs):
         raise ValueError(f"flash_attention_bwd: kernel {kernel} needs "
                          "contiguous outputs on q's device")
-    if body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+    if body != "simt" and any(t.data_ptr() % 16 for t in (q, k, v, do)
+                              + inputs[6:] * window):
         raise ValueError("flash_attention_bwd: the tensor-core kernels copy "
-                         "16 bytes at a time; q, k, v, dO must be aligned to "
-                         "that")
+                         "16 bytes at a time; q, k, v, dO (and o) must be "
+                         "aligned to that")
+    global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
+    global bwd_shard_launches, bwd_wgmma_launches, bwd_narrow_launches
+    global bwd_tf32_wgmma_launches, bwd_window_launches
     ptr = lambda t: None if t is None else t.data_ptr()
+    if window:
+        err = _build.library().lunaris_k2_window_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dbias_bh.data_ptr(), b * h, h, nq,
+            d, scale, *drop, seed & _M32, q_offset, row_offset,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_attention_bwd (window)")
+        bwd_shard_launches += q_offset > 0
+        bwd_window_launches += 1
+        bwd_fused_launches += 1
+        return
     split = None
     if f32_wg:
         # The pre-pass's query tiles, then its key tiles, in one buffer.
@@ -886,9 +990,6 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
         int(q.dtype == torch.bfloat16), FWD_BODIES.index(body), ptr(split),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    global bwd_fused_launches, bwd_dkv_launches, bwd_dq_launches
-    global bwd_shard_launches, bwd_wgmma_launches, bwd_narrow_launches
-    global bwd_tf32_wgmma_launches
     bwd_shard_launches += q_offset > 0
     bwd_wgmma_launches += body == "wgmma"
     bwd_narrow_launches += (body == "wgmma" and d in NARROW_HEAD_DIMS
@@ -903,11 +1004,16 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
 
 
 def flash_attention_bwd(q, k, v, bias, o, lse, do, *, dropout_rate=0.0,
-                        seed=0, q_offset=0, row_offset=0, variant=None):
+                        seed=0, q_offset=0, row_offset=0, variant=None,
+                        body: str | None = None):
     """The K2 backward kernels on CUDA tensors (the arguments of
     `attention_bwd_plain`, contiguous). variant: "fused" or "split" (see
-    the module docstring); None takes `default_bwd`. Returns (dq, dk, dv,
-    dbias [H, Nk] f32)."""
+    the module docstring); None takes `default_bwd`. `body` picks the fused
+    variant's body as in `fused_instance` (measurements time the window
+    body's call against the mma.sync one's). The window body is one launch:
+    delta and dq are the kernel's; every other body takes delta from a
+    PyTorch pass and, fused, dq from a zeroed f32 buffer cast and scaled
+    after it. Returns (dq, dk, dv, dbias [H, Nk] f32)."""
     variant = variant or default_bwd(q.dtype, q.shape[3])
     if variant not in BWD_VARIANTS:
         raise ValueError(f"flash_attention_bwd: variant {variant!r} not in "
@@ -916,17 +1022,28 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, *, dropout_rate=0.0,
         raise ValueError("flash_attention_bwd: o must match q")
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    delta = (o.float() * do.float()).sum(-1)
     out = dict(dk=torch.empty_like(k), dv=torch.empty_like(v),
                dbias_bh=torch.empty(b * h, nk, device=q.device,
                                     dtype=torch.float32))
     kw = dict(dropout_rate=dropout_rate, seed=seed, q_offset=q_offset,
               row_offset=row_offset)
-    if variant == "fused":
+    fused = variant == "fused"
+    if fused and fused_instance(q.dtype, d, nq, nk, dropout_rate,
+                                body).body == "window":
+        dq = torch.empty_like(q)
+        launch_bwd_kernel(DKV_FUSED_DQ, q, k, v, bias, do, lse, None, o=o,
+                          dq=dq, body="window", **out, **kw)
+        return dq, out["dk"], out["dv"], out["dbias_bh"].reshape(
+            b, h, nk).sum(dim=0)
+    if body is not None and not fused:
+        raise ValueError("flash_attention_bwd: `body` picks the fused "
+                         "variant's body")
+    delta = (o.float() * do.float()).sum(-1)
+    if fused:
         out["dq_acc"] = torch.zeros(b, h, nq, d, device=q.device,
                                     dtype=torch.float32)
         launch_bwd_kernel(DKV_FUSED_DQ, q, k, v, bias, do, lse, delta,
-                          **out, **kw)
+                          body=body, **out, **kw)
         scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
         dq = out["dq_acc"].to(q.dtype) * scale
     else:

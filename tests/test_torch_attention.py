@@ -140,10 +140,15 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 16, 2000, 2000, 0.0, ("mma", 64, 128, 16, "off", True)),
     (BF16, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
     (BF16, 16, 2100, 2100, 0.1, ("wgmma", 128, 192, 11, "on", True)),
-    # short rows keep the mma.sync body at d 16: the windowed fold (N = the
-    # window, 256) and any call with fewer than NARROW_MIN_ROWS of either
-    (BF16, 16, 256, 256, 0.0, ("mma", 64, 128, 2, "off", False)),
-    (BF16, 16, 256, 256, 0.1, ("mma", 64, 128, 2, "on", False)),
+    # the windowed fold (Nq = Nk = the window, 256) takes the window body:
+    # one block a window, its one key tile the whole window
+    (BF16, 16, 256, 256, 0.0, ("window", 256, 256, 1, "off", False)),
+    (BF16, 16, 256, 256, 0.1, ("window", 256, 256, 1, "on", False)),
+    (BF16, 16, 64, 64, 0.1, ("window", 64, 64, 1, "on", False)),
+    # other short rows keep the mma.sync body at d 16: any call with fewer
+    # than NARROW_MIN_ROWS of either off the window shapes
+    (BF16, 16, 320, 320, 0.0, ("mma", 64, 128, 3, "off", False)),
+    (BF16, 16, 256, 512, 0.1, ("mma", 64, 128, 2, "on", False)),
     (F32, 16, 2000, 2000, 0.1, ("mma", 64, 128, 16, "on", True)),
     (F32, 16, 4096, 16384, 0.1, ("wgmma", 64, 192, 22, "on", False)),
     (F32, 16, 2100, 2100, 0.0, ("wgmma", 64, 192, 11, "off", True)),
@@ -168,14 +173,17 @@ BF16, F32 = torch.bfloat16, torch.float32
     # at the serving batch and in training, a ragged N, a q shard),
     # mma.sync's one run-time instance on short rows (the windowed fold);
     # f32 its own warpgroup body (192 rows, the pre-pass's key tiles of 64)
-    # on long rows, mma.sync's on short ones (a ragged 2000, the fold)
+    # on long rows, mma.sync's on short ones (a ragged 2000, the fold); the
+    # bf16 fold takes the window body
     (BF16, 32, 16384, 16384, 0.0, ("wgmma", 64, 192, 86, "off", False)),
     (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
     (BF16, 32, 2100, 2100, 0.1, ("wgmma", 64, 192, 11, "on", True)),
     (BF16, 32, 8192, 16384, 0.1, ("wgmma", 64, 192, 43, "on", False)),
     (BF16, 32, 2000, 2000, 0.0, ("wgmma", 64, 192, 11, "off", True)),
-    (BF16, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
+    (BF16, 32, 256, 256, 0.1, ("window", 256, 256, 1, "on", False)),
+    (BF16, 32, 192, 192, 0.0, ("window", 192, 192, 1, "off", False)),
+    (BF16, 32, 32, 32, 0.0, ("mma", 64, 64, 1, "runtime", True)),
     (BF16, 32, 300, 4096, 0.0, ("mma", 64, 64, 5, "runtime", True)),
     (F32, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (F32, 32, 2000, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
@@ -185,7 +193,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
+    dropout): bf16 at d 16 and 32 on the window shapes the window body,
+    bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
     f32 at d 16, 32, 48 and 64 (unless Nq or Nk is short) take the
     warpgroup bodies, d 16, 32 (and f32 at 48, 64) the tensor cores on
     mma.sync where they are short (f32:
@@ -244,6 +253,59 @@ def test_forward_instance_body_argument():
     assert set(k2.MMA_HEAD_DIMS) < set(k2.HEAD_DIMS)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("w", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [16, 32])
+def test_window_bodies_take_the_fold(d, w, rate):
+    """bf16 at d 16 and 32 with Nq = Nk = W, W a multiple of 64 up to 256
+    (the windowed fold at windows 64, 128, 192 and 256) takes the window
+    bodies: the forward with one key block of W (the plain twin's
+    `block_k`), a window a step of a persistent block, dropout compiled in
+    or out; the fused backward with the window's W keys and W queries in
+    one warpgroup, the fused variant by default. `body="mma"` still reaches
+    the mma.sync bodies they replaced, for the turns on the card; the split
+    backward keeps its mma.sync pair. Their launches have counters of their
+    own; a CPU tensor takes the plain versions and counts nothing."""
+    assert k2.window_shape(BF16, d, w, w)
+    on = "on" if rate else "off"
+    assert k2.forward_instance(BF16, d, w, w, rate) == k2.ForwardInstance(
+        "window", d, w, w, 1, on, False)
+    assert k2.fused_instance(BF16, d, w, w, rate) == k2.FusedInstance(
+        "window", d, w, w, 1, on, False)
+    assert k2.forward_instance(BF16, d, w, w, rate, body="window") == \
+        k2.forward_instance(BF16, d, w, w, rate)
+    assert k2.default_bwd(BF16, d) == "fused"
+    assert k2.forward_instance(BF16, d, w, w, rate, body="mma").body == "mma"
+    assert k2.fused_instance(BF16, d, w, w, rate, body="mma").body == "mma"
+    assert k2.backward_instance(BF16, d, w, w, rate).body == "mma"
+    with pytest.raises(ValueError, match="does not take"):
+        k2.backward_instance(BF16, d, w, w, rate, body="window")
+    counts = (k2.window_launches, k2.bwd_window_launches, k2.launches)
+    q, k, v, bias = (t.to(BF16) for t in _t(*_qkvb(1, 2, w, w, d, seed=w)))
+    q.requires_grad_()
+    o, _ = k2.flash_attention(q, k, v, bias.float(), dropout_rate=rate,
+                              seed=3)
+    o.float().sum().backward()
+    assert torch.isfinite(q.grad.float()).all()
+    assert (k2.window_launches, k2.bwd_window_launches, k2.launches) == counts
+
+
+@pytest.mark.parametrize("dtype,d,nq,nk", [
+    (BF16, 16, 32, 32), (BF16, 16, 320, 320), (BF16, 32, 512, 512),
+    (BF16, 16, 256, 128), (BF16, 32, 64, 256), (F32, 16, 256, 256),
+    (F32, 32, 64, 64), (BF16, 48, 256, 256), (BF16, 64, 128, 128),
+    (BF16, 8, 256, 256)])
+def test_window_bodies_leave_other_shapes(dtype, d, nq, nk):
+    """Every other shape takes what it took before the window bodies: a
+    window under 64 or over 256 or not a multiple of 64, unequal Nq and Nk,
+    f32, and bf16 at d 8, 48 and 64. `body="window"` refuses them."""
+    assert not k2.window_shape(dtype, d, nq, nk)
+    for rule in (k2.forward_instance, k2.fused_instance):
+        assert rule(dtype, d, nq, nk, 0.1).body != "window"
+        with pytest.raises(ValueError, match="body 'window' takes"):
+            rule(dtype, d, nq, nk, 0.1, body="window")
+
+
 @pytest.mark.parametrize("d", [48, 64])
 def test_warpgroup_bodies_at_the_recipe_head_sizes(d):
     """bf16 at d 48 and 64 (feature_dim 384 and 512 at 8 heads, the docs'
@@ -280,11 +342,11 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     takes the narrow warpgroup bodies where neither Nq nor Nk is shorter
     than NARROW_MIN_ROWS[16]: the forward with three warpgroups of 64 rows
     and key tiles of 128, the fused backward with 192 keys a block and query
-    tiles of 64, the fused variant by default; shorter rows (the windowed
-    fold, N = 256) keep the mma.sync bodies, which `body="mma"` reaches at
-    every shape, as `body="simt"` reaches the CUDA-core ones. The split
-    backward has no warpgroup body. Both counters count the narrow bodies'
-    launches among the warpgroup ones."""
+    tiles of 64, the fused variant by default; the windowed fold (N = 256)
+    takes the window bodies, other shorter rows keep the mma.sync bodies,
+    which `body="mma"` reaches at every shape, as `body="simt"` reaches the
+    CUDA-core ones. The split backward has no warpgroup body. Both counters
+    count the narrow bodies' launches among the warpgroup ones."""
     assert k2.NARROW_HEAD_DIMS == (16, 32) and 16 in k2.WGMMA_HEAD_DIMS
     long = min(nq, nk) >= k2.NARROW_MIN_ROWS[16]
     fwd = k2.forward_instance(BF16, 16, nq, nk, rate)
@@ -293,6 +355,9 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
         assert (fwd.body, fwd.block_k, fwd.rows) == ("wgmma", 128, 192)
         assert (bwd.body, bwd.block_q, bwd.rows) == ("wgmma", 64, 192)
         assert bwd.blocks == -(-nk // 192)
+    elif k2.window_shape(BF16, 16, nq, nk):
+        assert (fwd.body, fwd.block_k, fwd.rows) == ("window", nk, nq)
+        assert (bwd.body, bwd.block_q, bwd.rows) == ("window", nq, nk)
     else:
         assert (fwd.body, fwd.block_k, fwd.rows) == ("mma", 64, 128)
         assert (bwd.body, bwd.rows) == ("mma", 256)
@@ -325,9 +390,9 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
     than NARROW_MIN_ROWS[32] (512: the crossover measured at d 32), as d
     16 does: the forward with three warpgroups of 64 rows and key tiles of
     64, dropout compiled in or out, the fused backward with 192 keys a block
-    and query tiles of 64, the fused variant by default. Shorter rows (the
-    windowed fold, N 256; a q shard of 300 rows) keep
-    mma.sync's run-time instances (64 rows, 64 keys a block), which
+    and query tiles of 64, the fused variant by default. The windowed fold
+    (N 256) takes the window bodies; other shorter rows (a q shard of 300
+    rows) keep mma.sync's run-time instances (64 rows, 64 keys a block), which
     `body="mma"` reaches at every shape; there is no CUDA-core bf16 body at
     d 32, and the split backward has no warpgroup body. f32 at d 32 has its
     own warpgroup bodies, on its own thresholds."""
@@ -341,6 +406,11 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
                                          nk % 64 != 0)
         assert bwd == k2.FusedInstance("wgmma", 32, 64, 192, -(-nk // 192),
                                        "on" if rate else "off", nq % 64 != 0)
+    elif k2.window_shape(BF16, 32, nq, nk):
+        assert fwd == k2.ForwardInstance("window", 32, nk, nq, 1,
+                                         "on" if rate else "off", False)
+        assert bwd == k2.FusedInstance("window", 32, nq, nk, 1,
+                                       "on" if rate else "off", False)
     else:
         assert fwd == k2.forward_instance(BF16, 32, nq, nk, rate, body="mma")
         assert bwd == k2.fused_instance(BF16, 32, nq, nk, rate, body="mma")
@@ -416,6 +486,7 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
         "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_BWD_MIN_ROWS[32] else "mma")
     assert k2.forward_instance(BF16, 16, nq, nk, rate) == \
         k2.forward_instance(BF16, 16, nq, nk, rate, body=(
+            "window" if k2.window_shape(BF16, 16, nq, nk) else
             "wgmma" if min(nq, nk) >= k2.NARROW_MIN_ROWS[16] else "mma"))
 
 

@@ -220,20 +220,24 @@ def test_backward_instance_body_argument():
 @pytest.mark.parametrize("dtype,d,nq,nk,rate,want", [
     # body, query tile, keys a block, blocks, dropout, ragged Nq
     # bf16 at d 16 and 32: the narrow warpgroup body, 192 keys a block;
-    # short rows (fewer than NARROW_MIN_ROWS[d] queries or keys) keep
-    # mma.sync
+    # the windowed fold (Nq = Nk = the window) the window body, a window a
+    # warpgroup; other short rows (fewer than NARROW_MIN_ROWS[d] queries or
+    # keys) keep mma.sync
     (BF16, 16, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 16, 4096, 4096, 0.0, ("wgmma", 64, 192, 22, "off", False)),
     (BF16, 16, 2000, 300, 0.1, ("mma", 64, 256, 2, "on", True)),
     (BF16, 16, 300, 2000, 0.0, ("mma", 64, 256, 8, "off", True)),
-    (BF16, 16, 256, 256, 0.1, ("mma", 64, 256, 1, "on", False)),
+    (BF16, 16, 256, 256, 0.1, ("window", 256, 256, 1, "on", False)),
+    (BF16, 16, 128, 128, 0.0, ("window", 128, 128, 1, "off", False)),
+    (BF16, 16, 320, 320, 0.1, ("mma", 64, 256, 2, "on", False)),
     (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
     (BF16, 32, 2100, 2048, 0.0, ("wgmma", 64, 192, 11, "off", True)),
     (BF16, 32, 8192, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 300, 2000, 0.0, ("mma", 64, 64, 32, "runtime", True)),
     (BF16, 32, 1000, 512, 0.1, ("wgmma", 64, 192, 3, "on", True)),
-    (BF16, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
+    (BF16, 32, 256, 256, 0.1, ("window", 256, 256, 1, "on", False)),
+    (BF16, 32, 256, 512, 0.1, ("mma", 64, 64, 8, "runtime", True)),
     # bf16 at d 48 and 64: the warpgroup body, 128 keys a block, query
     # tiles of 64, dropout compiled in or out, every Nq in one instance
     (BF16, 48, 4096, 4096, 0.1, ("wgmma", 64, 128, 32, "on", False)),
@@ -265,7 +269,8 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
+    Nk, dropout): bf16 at d 16 and 32 on the window shapes the window body,
+    bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
     64 and f32 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 take
     the warpgroup bodies,
     d 16 and 32 the tensor cores (bf16: dk/dv's body with the dq product; f32: its own

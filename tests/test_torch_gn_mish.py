@@ -361,7 +361,11 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_wgmma_tf32_d48.cu",
         "flash_attention_bwd_wgmma_tf32_d48_drop.cu",
         "flash_attention_bwd_wgmma_tf32_d64.cu",
-        "flash_attention_bwd_wgmma_tf32_d64_drop.cu", "flash_attention_fwd.cu",
+        "flash_attention_bwd_wgmma_tf32_d64_drop.cu",
+        "flash_attention_bwd_window_d16.cu",
+        "flash_attention_bwd_window_d16_drop.cu",
+        "flash_attention_bwd_window_d32.cu",
+        "flash_attention_bwd_window_d32_drop.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
@@ -381,8 +385,12 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_wgmma_tf32_d48_drop.cu",
         "flash_attention_fwd_wgmma_tf32_d64.cu",
         "flash_attention_fwd_wgmma_tf32_d64_drop.cu",
+        "flash_attention_fwd_window_d16.cu",
+        "flash_attention_fwd_window_d16_drop.cu",
+        "flash_attention_fwd_window_d32.cu",
+        "flash_attention_fwd_window_d32_drop.cu",
         "flash_attention_stages.cu", "flash_attention_tf32_split.cu",
-        "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
+        "flash_attention_window.cu", "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
         "loss_epilogue.cu"]
     assert d == _build.build_dir()
 

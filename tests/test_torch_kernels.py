@@ -219,11 +219,11 @@ def test_gn_mish_rejects_non_nhwc(cuda):
 # (f32 FMA sums, expf): 2e-5 of the largest, 1 element in 100 (measured on an
 # H100: 4e-7, 1 in 900). Tensor cores (truncating sums, ex2.approx on a
 # rounded product): 1e-3, 3 in 100 (measured: 1.8e-4 at N 300, 9 in 1000 at
-# N 16384). The warpgroup bodies (wgmma, bf16 d 16, 48 and 64) have the
-# tensor cores' bar. An element in the wrong place is off by a tenth of the
-# largest.
+# N 16384). The warpgroup bodies (wgmma, bf16 d 16, 48 and 64) and the
+# window bodies have the tensor cores' bar. An element in the wrong place is
+# off by a tenth of the largest.
 _K2_BF16_BAR = {"simt": (2e-5, 1e-2), "mma": (1e-3, 3e-2),
-                "wgmma": (1e-3, 3e-2)}
+                "wgmma": (1e-3, 3e-2), "window": (1e-3, 3e-2)}
 
 
 def _k2_bf16_close(got, ref, body):
@@ -343,7 +343,7 @@ def test_warpgroup_bodies_and_the_bodies_they_replaced(cuda, d, nq, nk,
 
 # The narrow warpgroup bodies (bf16 d 16 and 32): ragged N on either side,
 # a CP q shard at q_offset 8192 and the windowed fold's short rows (which
-# take mma.sync by default: `body` names the narrow bodies there).
+# take the window bodies by default: `body` names the narrow bodies there).
 _NARROW_SHAPES = [(2, 4, 2000, 2000, 0), (2, 4, 300, 2000, 0),
                   (2, 4, 2000, 300, 0), (1, 2, 8192, 16384, 8192),
                   (2, 128, 256, 256, 0)]
@@ -388,6 +388,49 @@ def test_narrow_bodies_and_the_bodies_they_replaced(cuda, b, h, nq, nk,
         again = _bwd_fused(args, body=body, **kw)
         for name, g, r in zip(("dk", "dv", "dbias"), got[1:], again[1:]):
             assert torch.equal(g, r), f"{name}: same bits every run"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [64, 192, 256])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 32])
+def test_window_bodies_match_plain(cuda, w, rate, d):
+    """bf16 on the windowed fold (Nq = Nk = W): the window forward against
+    the plain version's one-block form (`block_k=W`) at the tensor cores'
+    bar, the window backward (one launch, dq written by the kernel) against
+    the plain backward at its bar, every gradient the same bits on a second
+    run; the mma.sync bodies they replaced still reached by `body`; the
+    launches counted by the window counters. 3 rows of 2 images at
+    row_offset 5: windows on both of a block's consumer warpgroups."""
+    q, k, v, bias = _k2_inputs(cuda, 2, 3, w, w, d, torch.bfloat16,
+                               seed=w + d)
+    kw = dict(dropout_rate=rate, seed=-5, row_offset=5)
+    before = (k2.window_launches, k2.launches)
+    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert (k2.window_launches, k2.launches) == (before[0] + 1, before[1] + 1)
+    oo, olse = k2.attention_plain(q, k, v, bias, block_k=w, **kw)
+    _k2_bf16_close(o, oo, "window")
+    assert (lse - olse).abs().max().item() <= 1e-4
+    old, _ = k2.forward_kernel(q, k, v, bias, body="mma", **kw)
+    _k2_bf16_close(old, k2.attention_plain(q, k, v, bias, block_k=64, **kw)[0],
+                   "mma")
+    do = torch.randn_like(q)
+    args = (q, k, v, bias, o, lse, do)
+    ref = k2.attention_bwd_plain(*args, **kw)
+    before = (k2.bwd_window_launches, k2.bwd_fused_launches)
+    got = k2.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert (k2.bwd_window_launches, k2.bwd_fused_launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        _close(g, r, torch.bfloat16, name, "window")
+    again = k2.flash_attention_bwd(*args, **kw)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, again):
+        assert torch.equal(g, r), f"{name}: same bits every run"
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), _bwd_fused(
+            args, body="mma", **kw), ref):
+        _close(g, r, torch.bfloat16, name, "mma")
 
 
 @pytest.mark.gpu
@@ -520,9 +563,9 @@ def _bwd_inputs(cuda, b, h, nq, nk, d, dtype, seed, rate=0.0):
 # and, through the final rounding to bf16, an element by 1 ulp at most. A
 # term in the wrong place moves an element by a tenth of the largest or more,
 # a wrong mask every element. The fused warpgroup body (wgmma, bf16 d 48 and
-# 64) has the tensor cores' bar.
+# 64) and the window body have the tensor cores' bar.
 _K2_BWD_BF16_BAR = {"simt": (1e-3, 1e-2), "mma": (1e-3, 5e-2),
-                    "wgmma": (1e-3, 5e-2)}
+                    "wgmma": (1e-3, 5e-2), "window": (1e-3, 5e-2)}
 
 
 def _close(got, ref, dtype, name, body="simt"):

@@ -90,6 +90,117 @@ def test_window_grads_match_jax(d, window):
                                    rtol=0, err_msg=name)
 
 
+def _fold(t, window):
+    """[B, heads, N, d] as the fold K2 runs on: [B, heads * N / W, W, d]."""
+    b, h, n, d = t.shape
+    return t.reshape(b, h * (n // window), window, d)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("window", [64, 256])
+def test_window_body_plain_twin_matches_jax(window, d, with_bias):
+    """The window bodies' plain twin, `attention_plain(block_k=W)` on the
+    fold (one key block: the softmax exact in one pass, as flash_fwd_window
+    takes it), against the JAX package's `local_window_attention`."""
+    q, k, v, bias = _qkvb(2, 2, 512, 512, d, seed=window + d)
+    if not with_bias:
+        bias = np.zeros_like(bias)
+    want = _jax_window(q, k, v, bias if with_bias else None, window)
+    tq, tk, tv, tb = _t(q, k, v, bias)
+    got, lse = k2.attention_plain(_fold(tq, window), _fold(tk, window),
+                                  _fold(tv, window),
+                                  tb.reshape(-1, window), block_k=window)
+    assert lse.shape == (2 * 2 * 512 // window, window)
+    # f32; one key block against dense softmax windows: atol 1e-5.
+    np.testing.assert_allclose(got.reshape(q.shape).numpy(), want, atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("window", [64, 256])
+def test_window_body_plain_backward_matches_jax(window, d):
+    """The fused backward's plain twin on the fold, from the one-block
+    forward's o and lse, against jax.grad of the JAX windowed path: dq,
+    dk, dv and dbias each within 1e-5 of its largest magnitude (f32, sums
+    in other orders)."""
+    q, k, v, bias = _qkvb(2, 2, 512, 512, d, seed=2 * window + d)
+    do = np.random.default_rng(window + d).standard_normal(q.shape).astype(
+        np.float32)
+
+    def loss(q, k, v, bias):
+        o = jattn.local_window_attention(q, k, v, bias, window=window)
+        return jnp.sum(o * jnp.asarray(do))
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (q, k, v, bias)))
+    tq, tk, tv = (_fold(x, window) for x in _t(q, k, v))
+    tb = torch.from_numpy(bias).reshape(-1, window)
+    o, lse = k2.attention_plain(tq, tk, tv, tb, block_k=window)
+    got = k2.attention_bwd_plain(tq, tk, tv, tb, o, lse,
+                                 _fold(torch.from_numpy(do), window))
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.reshape(w.shape).numpy(), w,
+                                   atol=1e-5 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("window", [64, 256])
+def test_window_body_blocking_does_not_change_the_plain_form(window, d):
+    """At dropout 0.1, `attention_plain(block_k=W)` (the window bodies'
+    twin) equals the default two-pass blocking and the online form at key
+    tiles of 64 within f32 rounding (1e-6 of the largest output; lse
+    1e-6)."""
+    q, k, v, bias = (_fold(t, window) if t.dim() == 4 else
+                     t.reshape(-1, window)
+                     for t in _t(*_qkvb(2, 2, 512, 512, d, seed=d)))
+    kw = dict(dropout_rate=0.1, seed=-4321, row_offset=5)
+    one, lse1 = k2.attention_plain(q, k, v, bias, block_k=window, **kw)
+    for blocking in (dict(), dict(block_k=64), dict(max_elems=4096)):
+        o, lse = k2.attention_plain(q, k, v, bias, **blocking, **kw)
+        top = o.abs().max().item()
+        torch.testing.assert_close(one, o, atol=1e-6 * top, rtol=0)
+        torch.testing.assert_close(lse1, lse, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("window", [128, 256])
+def test_window_body_masks_do_not_depend_on_blocking(window):
+    """The dropout masks the plain twins apply, position by position: the
+    forward's at `block_k=W` and at `block_k=64` (q = 0 and bias = 0 make p
+    uniform, and d-wide slices of the identity as v make o[q, j] non-zero
+    where the mask keeps key k0 + j), and the backward's at two query
+    blockings (q = 0, lse = 0 and delta = 0 make p = 1, v = 1, dO = 1 and
+    the identity slices as k make dq[q, j] non-zero where it keeps key
+    k0 + j), each equal to the hash `keep_mask` on (seed, folded row +
+    row_offset, key, query)."""
+    b, rows, d, rate, seed, row_offset = 2, 3, 16, 0.3, 987, 11
+    zeros = torch.zeros(b, rows, window, d)
+    eye = torch.eye(d)
+    bias = torch.zeros(rows, window)
+    kw = dict(dropout_rate=rate, seed=seed, row_offset=row_offset)
+    rs = k2.row_seeds(seed, b * rows, row_offset).reshape(b, rows, 1, 1)
+    pos = torch.arange(window, dtype=torch.int64)
+    want = k2.keep_mask(rs, pos[None, :], pos[:, None],
+                        k2.dropout_threshold(1 - rate))
+    for k0 in range(0, window, d):
+        v = torch.zeros(b, rows, window, d)
+        v[:, :, k0:k0 + d] = eye
+        for block_k in (window, 64):
+            o, _ = k2.attention_plain(zeros, zeros, v, bias, block_k=block_k,
+                                      **kw)
+            assert torch.equal(o != 0, want[..., k0:k0 + d]), (k0, block_k)
+        kk = torch.zeros(b, rows, window, d)
+        kk[:, :, k0:k0 + d] = eye
+        lse = torch.zeros(b * rows, window)
+        ones = torch.ones(b, rows, window, d)
+        for max_elems in (2**26, 64 * window):
+            dq, _, _, _ = k2.attention_bwd_plain(
+                zeros, kk, ones, bias, zeros, lse, ones,
+                max_elems=max_elems, **kw)
+            assert torch.equal(dq != 0, want[..., k0:k0 + d]), (k0, max_elems)
+
+
 def test_batch_chunks_equal_one_call(monkeypatch):
     """With K2's row cap lowered to 2 images' folded rows, a batch of 5
     runs in 3 chunks numbered as rows of one call: the output (dropout mask
