@@ -11,12 +11,14 @@ Phases, each of which raises on failure (exit code 1):
   1. probe    torch / CUDA versions, the card, nvidia-smi, nvcc, triton;
   2. build    compile the hand-written kernels from csrc/ with nvcc; no
               tensor-core instance spills and ptxas serialises no warpgroup
-              body's wgmma (the f32 ones at d 16, 32, 48 and 64, their
-              pre-pass and the narrow ones at d 16 and 32 among them:
+              body's wgmma (C7512, C7514, C7515, C7518, C7520; the f32
+              ones at d 16, 32, 48 and 64, their pre-pass, the narrow ones
+              at d 16 and 32 and the window ones, bf16 and f32, among them:
               registers, spills and shared bytes logged); the inner loop
               of each bf16 d 16 and
               d 32 K2 instance (the narrow warpgroup bodies and the
-              mma.sync ones they replaced) counted by instruction class
+              mma.sync ones they replaced; the window bodies, the f32 ones
+              too) counted by instruction class
               from its SASS, per 32 scores (cuobjdump runs under the
               phases that follow; its checks come before the kernels'
               line);
@@ -210,9 +212,12 @@ Phases, each of which raises on failure (exit code 1):
               validation, checkpoint copy and write, and resume load ms;
  16. window   (run after 14) windowed attention, the evaluator and the training
               options at window 256: (a) `local_window_attention` (K2 over
-              the windows folded into the heads) at B16 H8 N16384, f32 d16
-              and bf16 d16 and d32 (the window bodies `flash_fwd_window`
-              and `flash_bwd_window`, by their counters), forward at
+              the windows folded into the heads) at B16 H8 N16384, f32 and
+              bf16 at d16 and d32 (the window bodies `flash_fwd_window`
+              and `flash_bwd_window`, f32 `flash_fwd_window_tf32` and
+              `flash_bwd_window_tf32`, by their counters; the default
+              where `window_default` says, by `body="window"` elsewhere),
+              forward at
               dropout 0 and 0.1 and the default backward at 0.1 against
               the plain versions on the folded shape (phase 4's and 7's
               bars), the window bodies' masks position by position and
@@ -227,15 +232,20 @@ Phases, each of which raises on failure (exit code 1):
               shard and 2 PNGs at 120 px (the global fallback), global and
               --attn_window 256, f32 and --bf16: 26 scores, the fallback
               marked, K2 launched; one batch of 16 timed in each mode,
-              the windowed bf16 one under torch.profiler too (every K2
-              launch `flash_fwd_window`, by count and by name); at 64 px
-              the card's windowed scores against the CPU's (1e-3); (c) the
-              bf16 train step at 16 x 2, remat, window 256: a cold step,
-              one under torch.profiler (its launches: every kernel of the
-              path; every K2 launch on the window bodies, by count and by
-              name), fuse_teacher against the unfused step in turns,
-              one step with cached prompt embeddings and one with
-              bf16_momentum; (d) `lunaris-train` with --attn_window 256
+              the windowed ones under torch.profiler too (every K2 launch
+              `flash_fwd_window`, f32 `flash_fwd_window_tf32`, by count
+              and by name); at 64 px the card's windowed scores against
+              the CPU's (1e-3); (c) the bf16 train step at 16 x 2, remat,
+              window 256: a cold step, one under torch.profiler (its
+              launches: every kernel of the path; every K2 launch on the
+              window bodies, by count and by name), fuse_teacher against
+              the unfused step in turns, one step with cached prompt
+              embeddings and one with bf16_momentum; then the f32 step
+              (mixed_precision off, the CLIs' default) the same way: a
+              cold step and one under torch.profiler, every K2 forward on
+              the f32 window body and every backward on the mma.sync one
+              (`window_default`) by count and by name, no pre-pass;
+              (d) `lunaris-train` with --attn_window 256
               --cached_prompt_embeddings --bf16_momentum on a 40-sprite
               corpus: one epoch, a resume whose restored state equals the
               saved file bit for bit, one more epoch; the table's refresh
@@ -355,8 +365,9 @@ Phases, each of which raises on failure (exit code 1):
               while (a) and (b) run: finite, recon and KL
               at the last step within 2 % of each other. Each run's second
               step goes under torch.profiler: K1 two kernels a call, K3,
-              and in (b) `flash_fwd_tf32` and `flash_bwd_fused_tf32` (in
-              (c) the bf16 narrow bodies `flash_fwd_wgmma_narrow` and
+              and in (b) `flash_fwd_tf32` and `flash_bwd_fused_tf32` (the
+              f32 window forward `flash_fwd_window_tf32` on its windowed
+              run; in (c) the bf16 narrow bodies `flash_fwd_wgmma_narrow` and
               `flash_bwd_wgmma_narrow` on the global calls, the window
               bodies `flash_fwd_window` and `flash_bwd_window` on the
               windowed ones), by name and by the wrappers' counts.
@@ -463,7 +474,14 @@ and the forward's `launches_evaluate` (E), `ms` at B16 H8 N16384 W256 d 16
 at 0.1) against `earlier_ms` (the mma.sync body in turns), `plain_ms`,
 `library_ms` (SDPA on the folded shape), `bound_ms` with `bound_by` and
 `bound_ms_sfu`, d 32's under `d32`, and the inner loop's instructions per
-32 scores under `sass`. The
+32 scores under `sass`. So do the f32 window bodies (f32 d 16 and 32 on the
+windowed fold, three TF32 passes split in the kernel),
+`flash_attention_fwd_window_tf32` and `flash_attention_bwd_window_tf32`:
+`launches` in phase 16's windowed f32 step (0 for the backward, which the
+rule leaves on `flash_bwd_fused_tf32`, `window_default`), the forward's
+`launches_evaluate` (a windowed f32 evaluation batch), the same readings
+against `flash_fwd_tf32` / `flash_bwd_fused_tf32` in turns, the three-pass
+bound, and the step's device ms, idle share and K2 ms under `step`. The
 last lines are the card's
 name and power limit, a JSON object with the kernels' measurements and,
 last, the result:
@@ -662,8 +680,9 @@ K1_KERNELS = ("gn_stats_partial", "gn_mish_apply_fold", "gn_mish_apply",
 # (demangled) name. The fused backward is the dk/dv kernel whose last
 # template argument, kFusedDq or FUSED, is true, or a body of its own
 # (f32: flash_bwd_fused_tf32 and flash_bwd_wgmma_tf32; bf16 d 48, 64:
-# flash_bwd_wgmma; the windowed fold's: flash_bwd_window). The f32 warpgroup
-# bodies' pre-pass is a group of its own.
+# flash_bwd_wgmma; the windowed fold's: flash_bwd_window, f32
+# flash_bwd_window_tf32). The f32 warpgroup bodies' pre-pass is a group of
+# its own.
 KERNEL_GROUPS = (("K2 fwd", lambda k: "flash_fwd" in k),
                  ("K2 bwd fused", lambda k: "flash_bwd_fused" in k
                   or "flash_bwd_wgmma" in k or "flash_bwd_window" in k
@@ -686,11 +705,14 @@ def check_k1_kernels(k1_kernels: dict, calls: int, tag: str) -> None:
 
 # The K2 warpgroup bodies at d 16 by kind: (forward, backward) by a part of
 # their name, and the mma.sync bodies they replaced (the window bodies: on
-# the windowed fold, bf16 d 16 and 32).
+# the windowed fold, bf16 d 16 and 32; the f32 window ones f32 d 16 and 32).
 D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
                          ("flash_fwd_mma", "flash_bwd_dkv_mma")),
               "window": (("flash_fwd_window", "flash_bwd_window"),
                          ("flash_fwd_mma", "flash_bwd_dkv_mma")),
+              "f32 window": (("flash_fwd_window_tf32", "flash_bwd_window_tf32"),
+                             ("flash_fwd_tf32", "flash_bwd_fused_tf32",
+                              "flash_fwd_wgmma_tf32", "flash_bwd_wgmma_tf32")),
               "f32 warpgroup": (("flash_fwd_wgmma_tf32", "flash_bwd_wgmma_tf32"),
                                 ("flash_fwd_tf32", "flash_bwd_fused_tf32"))}
 
@@ -698,7 +720,7 @@ D16_BODIES = {"narrow": (("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
 def check_narrow_names(names: dict, fwd: int, bwd: int, tag: str,
                        kind: str = "narrow", every: bool = False) -> dict:
     """The K2 warpgroup bodies of `kind` (the narrow bf16 ones, d 16 and
-    32, the window ones, or the f32 ones, d 16) by name in a profile (`names`, device_share's K2
+    32, the window ones, bf16 or f32, or the f32 ones, d 16) by name in a profile (`names`, device_share's K2
     instances) against the wrappers' counts of the same run: logged; a
     profile that holds none of the launches counted, or more, fails
     (torch.profiler may drop a session's first records). With `every`, the
@@ -839,14 +861,17 @@ def build():
         raise AssertionError(f"the K2 TF32 instances are missing from the "
                              f"build's report: {sorted(tf32)}")
     # K2's warpgroup bodies (bf16 d 48 and 64, wgmma fed by TMA, the narrow
-    # ones at d 16 and 32, the window ones at d 16 and 32, and f32's at d
-    # 16, 32, 48 and 64 on three TF32 passes): no instance spills, and
-    # setmaxnreg moves the registers
+    # ones at d 16 and 32, the window ones at d 16 and 32, bf16 and f32, and
+    # f32's at d 16, 32, 48 and 64 on three TF32 passes): no instance
+    # spills, ptxas serialises none of their wgmma, and setmaxnreg moves the
+    # registers
     # (ptxas reports the count at entry, 168 for 384 threads and 128 for
     # 512; the consumers take 232, the narrow bodies' and an f32 forward's
     # of three consumers (d 16) 160; the f32 backward at d 32, 48 and 64,
     # one or two consumer warpgroups and a producer warp, 160 or 288
-    # threads, takes no setmaxnreg: its count is the one ptxas reports).
+    # threads, takes no setmaxnreg: its count is the one ptxas reports; so
+    # does the f32 window bodies' at d 32, one consumer warpgroup and a
+    # producer one, 256 threads).
     wg, fn = {}, None
     for line in report:
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -855,7 +880,8 @@ def build():
             raise AssertionError(f"ptxas ignored setmaxnreg: {line.strip()}")
         if fn and any(b in fn for b in ("flash_fwd_wgmma", "flash_bwd_wgmma",
                                         "flash_fwd_window", "flash_bwd_window")):
-            if "C7512" in line or "C7514" in line or "C7515" in line:
+            if any(c in line for c in ("C7512", "C7514", "C7515", "C7518",
+                                       "C7520")):
                 raise AssertionError(f"ptxas serialised a warpgroup body's "
                                      f"wgmma: {line.strip()}")
             regs = re.search(r"Used (\d+) registers", line)
@@ -870,6 +896,10 @@ def build():
             for x in ("fwd", "bwd") for d in (16, 32)}
     smem |= {f"flash_{x}_windowILi{d}E":
              (lib_smem(f"lunaris_k2_window_{x}_smem_bytes", d), 232, 2)
+             for x in ("fwd", "bwd") for d in (16, 32)}
+    smem |= {f"flash_{x}_window_tf32ILi{d}E":
+             (lib_smem(f"lunaris_k2_window_tf32_{x}_smem_bytes", d),
+              232 if d == 16 else None, 2)
              for x in ("fwd", "bwd") for d in (16, 32)}
     from lunaris_orion_tpu_torch.ops.cuda import flash_attention as k2
     for d in k2.TF32_WGMMA_HEAD_DIMS:
@@ -953,7 +983,7 @@ def build():
 # at d 16, 16 rows at d 32; bwd: 64 keys x 64 queries over 128, or a warp's
 # 32 keys x 64 queries over 32 at d 16, 16 keys at d 32; the window
 # bodies: 64 rows x 256 keys, or 64 keys x 4 query groups of 64, over
-# 128). mma.sync's d 32 instances test dropout at run time: their loop
+# 128; the f32 ones' backward 64 keys x one query group of 64 over 128). mma.sync's d 32 instances test dropout at run time: their loop
 # holds both paths.
 K2_D16_LOOPS = (
     ("fwd narrow", ("flash_fwd_wgmma_narrowILi16E",), 64),
@@ -967,7 +997,11 @@ K2_D16_LOOPS = (
     ("fwd window", ("flash_fwd_windowILi16E",), 128),
     ("bwd window", ("flash_bwd_windowILi16E",), 128),
     ("fwd window d32", ("flash_fwd_windowILi32E",), 128),
-    ("bwd window d32", ("flash_bwd_windowILi32E",), 128))
+    ("bwd window d32", ("flash_bwd_windowILi32E",), 128),
+    ("fwd f32 window", ("flash_fwd_window_tf32ILi16E",), 128),
+    ("bwd f32 window", ("flash_bwd_window_tf32ILi16E",), 32),
+    ("fwd f32 window d32", ("flash_fwd_window_tf32ILi32E",), 128),
+    ("bwd f32 window d32", ("flash_bwd_window_tf32ILi32E",), 32))
 # Instruction classes, by SASS opcode (before the first dot).
 SASS_CLASSES = (
     ("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)), ("FMUL", ("FMUL",)),
@@ -4037,9 +4071,9 @@ def run_recipe_f32(torch, tmp: Path, smi: str, mods: dict) -> dict:
 WINDOW = 256                    # the recommended recipe's (BASELINE.md r5)
 
 
-def window_mask_positions(torch, k2, dev, d: int) -> int:
-    """The window bodies' dropout masks at head size d, position by
-    position, are the hash (tests/test_torch_window.py holds their plain
+def window_mask_positions(torch, k2, dev, d: int, dt=None) -> int:
+    """The window bodies' dropout masks at head size d and type dt (bf16
+    unless given), position by position, are the hash (tests/test_torch_window.py holds their plain
     twins the same way): the forward with q = k = 0 and bias = 0 (p uniform)
     and d-wide slices of the identity as v, where o[q, j] is non-zero where
     the mask keeps key k0 + j; the backward as `narrow_bwd_mask_positions`
@@ -4049,7 +4083,7 @@ def window_mask_positions(torch, k2, dev, d: int) -> int:
     both consumer warpgroups of a block), five slices each way; returns the
     positions held."""
     b, h, w, rate, seed, row_offset = 2, 3, WINDOW, 0.3, 123, 5
-    dt = torch.bfloat16
+    dt = dt or torch.bfloat16
     zeros = torch.zeros(b, h, w, d, device=dev, dtype=dt)
     ones = torch.ones(b, h, w, d, device=dev, dtype=dt)
     eye = torch.eye(d, device=dev, dtype=dt)
@@ -4087,8 +4121,8 @@ def window_mask_positions(torch, k2, dev, d: int) -> int:
                 raise AssertionError(f"K2 window d{d}: {what}'s mask at "
                                      f"{x0}.. is not the hash")
             held += got.numel()
-    log(f"[window] the window bodies' masks at d{d}, dropout {rate}: "
-        f"position by position the hash ({held} positions)")
+    log(f"[window] the window bodies' masks at {str(dt)[6:]} d{d}, dropout "
+        f"{rate}: position by position the hash ({held} positions)")
     return held
 
 
@@ -4113,11 +4147,14 @@ def batched_ms(torch, fn, calls: int = 20, rounds: int = 3) -> float:
 
 def check_window(torch, dev, smi) -> dict:
     """Phase 16 (a): K2 over the windows folded into the head axis
-    (`local_window_attention`) at B16 H8 N16384 W256: f32 at d16, bf16 at d
-    16 and 32 (the window bodies: counted, and named in the kernels' line).
+    (`local_window_attention`) at B16 H8 N16384 W256: f32 and bf16 at d 16
+    and 32 (the window bodies, f32's three TF32 passes split in the kernel:
+    counted, and named in the kernels' line; the default where
+    `window_default` says, which is checked against the turns).
     The forward at dropout 0 and 0.1 and the default backward at 0.1 against
     the plain versions on the folded shape, at phase 4's and phase 7's bars
-    (bf16: the one-block online form at the body's `block_k`, W); the
+    (bf16: the one-block online form at the body's `block_k`, W), and the
+    window bodies by `body="window"` where they are not the default; the
     window bodies' masks position by position (`window_mask_positions`) and
     their backward the same bits on a second run; a call in batch chunks
     bit-equal to one call; times beside the global K2 at B16 (d 16), the
@@ -4133,25 +4170,26 @@ def check_window(torch, dev, smi) -> dict:
     rows = h * n // w
     g = torch.Generator(device=dev).manual_seed(16)
     out = {"fwd": {}, "window_fwd": {}, "window_bwd": {}}
-    for dt, d in ((torch.float32, 16), (torch.bfloat16, 16),
-                  (torch.bfloat16, 32)):
+    for dt, d in ((torch.float32, 16), (torch.float32, 32),
+                  (torch.bfloat16, 16), (torch.bfloat16, 32)):
         name = f"{str(dt)[6:]} d{d}"
-        sfx = ("" if dt == torch.float32 else "_bf16") + (
-            "_d32" if d == 32 else "")
+        f32 = dt == torch.float32
+        sfx = ("" if f32 else "_bf16") + ("_d32" if d == 32 else "")
         fold = lambda t: t.reshape(b, rows, w, d)
         q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev).to(dt)
                    for _ in range(3))
         bias = 0.5 * torch.randn(h, n, generator=g, device=dev)
         bias_w = bias.reshape(rows, w)
-        inst = k2.forward_instance(dt, d, w, w, 0.1)
-        window = inst.body == "window"
-        if window != (dt == torch.bfloat16):
-            raise AssertionError(f"windowed K2 {name}: the rule takes "
-                                 f"{inst.body}")
+        inst = k2.forward_instance(dt, d, w, w, 0.1, body="window")
+        splits = k2.split_launches
         errs = []
         for rate in (0.0, 0.1):
             kw = dict(dropout_rate=rate, seed=-1234567)
             tag = f"window {w} B{b} H{h} N{n} {name} dropout {rate}"
+            window = k2.forward_instance(dt, d, w, w, rate).body == "window"
+            if window != k2.window_default(dt, d, rate):
+                raise AssertionError(f"windowed K2 {name}: the rule and "
+                                     "window_default disagree")
             seen = k2.window_launches
             o = local_window_attention(q, k, v, bias, window=w, **kw)
             counted = k2.window_launches - seen
@@ -4159,6 +4197,13 @@ def check_window(torch, dev, smi) -> dict:
                                           **kw)
             torch.cuda.synchronize()
             err = (o.float() - ro.float().reshape(o.shape)).abs().max().item()
+            if not window:
+                # The window body itself, where the rule keeps mma.sync.
+                ow, _ = k2.forward_kernel(fold(q), fold(k), fold(v), bias_w,
+                                          body="window", **kw)
+                torch.cuda.synchronize()
+                err = max(err, (ow - ro).abs().max().item())
+                del ow
             if dt == torch.float32:
                 ok, note = err <= 1e-5, "tol 1e-5"
             else:
@@ -4170,7 +4215,8 @@ def check_window(torch, dev, smi) -> dict:
                         f"the largest, {differ:.1e} differ ({inst.body})")
                 del oo
             log(f"[window] {tag}: max_abs_err {err:.3e} ({note}); window "
-                f"body launches {counted}")
+                f"body launches {counted} (the rule takes "
+                f"{'window' if window else 'mma'})")
             if not ok or counted != int(window):
                 raise AssertionError(f"windowed K2 disagrees with its plain "
                                      f"version or missed its body at {tag}")
@@ -4200,21 +4246,35 @@ def check_window(torch, dev, smi) -> dict:
                 raise AssertionError(f"windowed K2 backward ({variant}, {body})"
                                      f" {gname} disagrees at {name}: {text}")
             errs.append(gerr)
-        if counted != int(window):
+        if counted != int(body == "window") or (body == "window") != (
+                k2.window_default(dt, d, 0.1, backward=True)):
             raise AssertionError(f"windowed K2 backward {name}: {counted} "
-                                 "window body launches")
-        if window:
-            once = k2.flash_attention_bwd(*args, **kw)
-            again = k2.flash_attention_bwd(*args, **kw)
-            same = [torch.equal(x, y) for x, y in zip(once, again)]
-            line.append(f"dq, dk, dv, dbias the same bits on a second run: "
-                        f"{same}")
-            if not all(same):
-                raise AssertionError(f"windowed K2 backward {name}: the "
-                                     "window body's gradients differ "
-                                     "between runs")
-            del once, again
-            window_mask_positions(torch, k2, dev, d)
+                                 f"window body launches, the rule takes "
+                                 f"{body}")
+        # The window backward itself (the default where window_default
+        # says), held to the same bars, and the same bits on a second run.
+        once = k2.flash_attention_bwd(*args, body="window", **kw)
+        again = k2.flash_attention_bwd(*args, body="window", **kw)
+        torch.cuda.synchronize()
+        for gname, x, r in zip(BWD_ERR, once, ref):
+            ok, gerr, text = bwd_agree(torch, x, r, dt, gname, "window")
+            if body != "window":
+                line.append(f"window body {gname} {text}")
+            if not ok:
+                raise AssertionError(f"windowed K2 window backward {gname} "
+                                     f"disagrees at {name}: {text}")
+            errs.append(gerr)
+        same = [torch.equal(x, y) for x, y in zip(once, again)]
+        line.append(f"the window body's dq, dk, dv, dbias the same bits on a "
+                    f"second run: {same}")
+        if not all(same):
+            raise AssertionError(f"windowed K2 backward {name}: the window "
+                                 "body's gradients differ between runs")
+        del once, again
+        window_mask_positions(torch, k2, dev, d, dt)
+        if k2.split_launches != splits:
+            raise AssertionError(f"windowed K2 {name}: the f32 pre-pass ran "
+                                 f"{k2.split_launches - splits} times")
         log(f"[window] backward {variant} ({body}) {name} dropout 0.1: "
             + ", ".join(line))
         del leaves, ref, ro, rlse, ko, klse, args
@@ -4282,43 +4342,45 @@ def check_window(torch, dev, smi) -> dict:
             "window_bound_by" + sfx: bd["bound_by"],
             "window_bound_ms_sfu" + sfx: bd["bound_ms_sfu"],
             "window_max_abs_err" + sfx: max(errs[:2])}
-        out["bwd" + (sfx or "_f32")] = {
+        out["bwd" + ("_f32_d32" if sfx == "_d32" else sfx or "_f32")] = {
             "window_variant": variant, "window_ms": t_b,
             "window_plain_ms": t_pb, "window_library_ms": lib_b,
             "window_bound_ms": bdb["bound_ms"],
             "window_bound_by": bdb["bound_by"],
             "window_bound_ms_sfu": bdb["bound_ms_sfu"],
             "window_max_abs_err": max(errs[2:])}
-        if window:
-            # The window bodies against the mma.sync ones they replaced.
-            fq, fk, fv = fold(q), fold(k), fold(v)
-            fwd = {}
-            for rate in (0.0, 0.1):
-                kwr = dict(dropout_rate=rate, seed=5)
-                fwd[rate] = narrow_turns(torch, lambda body: batched_ms(
-                    torch, lambda: k2.forward_kernel(
-                        fq, fk, fv, bias_w, body=body, **kwr)), inst.body,
-                    f"[window] {name} forward kernel, dropout {rate}, 20 "
-                    "calls queued", smi, new="window", body="window")
-            bwd = narrow_turns(torch, lambda body: batched_ms(
-                torch, lambda: k2.flash_attention_bwd(
-                    *bwd_args, body=body, dropout_rate=0.1, seed=5)),
-                body, f"[window] {name} backward call (fused), dropout 0.1, "
-                "20 calls queued", smi, new="window", body="window")
-            out["window_fwd"][f"d{d}"] = {
-                "ms": fwd[0.0]["ms"], "earlier_ms": fwd[0.0]["earlier_ms"],
-                "ms_dropout": fwd[0.1]["ms"],
-                "earlier_ms_dropout": fwd[0.1]["earlier_ms"],
-                "plain_ms": t_p, "library_ms": lib, **bd,
-                "max_abs_err": max(errs[:2]),
-                "shape": f"B{b} H{h} N{n} W{w} d{d} bf16 dropout 0"}
-            out["window_bwd"][f"d{d}"] = {
-                "ms": bwd["ms"], "earlier_ms": bwd["earlier_ms"],
-                "plain_ms": t_pb, "library_ms": lib_b, **bdb,
-                "max_abs_err": max(errs[2:]),
-                "shape": f"B{b} H{h} N{n} W{w} d{d} bf16 dropout 0.1, "
-                         "the whole call"}
-            del fq, fk, fv
+        # The window bodies against the mma.sync ones they replaced.
+        fq, fk, fv = fold(q), fold(k), fold(v)
+        fwd = {}
+        for rate in (0.0, 0.1):
+            kwr = dict(dropout_rate=rate, seed=5)
+            fwd[rate] = narrow_turns(torch, lambda body: batched_ms(
+                torch, lambda: k2.forward_kernel(
+                    fq, fk, fv, bias_w, body=body, **kwr)),
+                k2.forward_instance(dt, d, w, w, rate).body,
+                f"[window] {name} forward kernel, dropout {rate}, 20 "
+                "calls queued", smi, new="window", body="window")
+        bwd = narrow_turns(torch, lambda body: batched_ms(
+            torch, lambda: k2.flash_attention_bwd(
+                *bwd_args, body=body, dropout_rate=0.1, seed=5)),
+            body, f"[window] {name} backward call (fused), dropout 0.1, "
+            "20 calls queued", smi, new="window", body="window")
+        key = f"{'f32_' if f32 else ''}d{d}"
+        out["window_fwd"][key] = {
+            "ms": fwd[0.0]["ms"], "earlier_ms": fwd[0.0]["earlier_ms"],
+            "ms_dropout": fwd[0.1]["ms"],
+            "earlier_ms_dropout": fwd[0.1]["earlier_ms"],
+            "plain_ms": t_p, "library_ms": lib, **bd,
+            "max_abs_err": max(errs[:2]),
+            "shape": f"B{b} H{h} N{n} W{w} d{d} {str(dt)[6:]} "
+                     "dropout 0"}
+        out["window_bwd"][key] = {
+            "ms": bwd["ms"], "earlier_ms": bwd["earlier_ms"],
+            "plain_ms": t_pb, "library_ms": lib_b, **bdb,
+            "max_abs_err": max(errs[2:]),
+            "shape": f"B{b} H{h} N{n} W{w} d{d} {str(dt)[6:]} "
+                     "dropout 0.1, the whole call"}
+        del fq, fk, fv
         del q, k, v, o, lse, do, bwd_args
     return out
 
@@ -4388,19 +4450,21 @@ def run_evaluate(torch, tmp: Path, smi: str) -> dict:
             ev.score_batch(batch)
             per_batch = k2.launches - seen[0]
             on_window = k2.window_launches - seen[1]
-            if window and bf16:
-                # Every K2 launch of the windowed bf16 batch on the window
-                # body, by the wrapper's count and by name.
-                tag = f"evaluate window {window} bf16, a batch of 16"
+            if window:
+                # Every K2 launch of a windowed batch on the window body
+                # (f32: flash_fwd_window_tf32), by the wrapper's count and
+                # by name.
+                kind = "bf16" if bf16 else "f32"
+                tag = f"evaluate window {window} {kind}, a batch of 16"
                 names = {}
                 device_share(torch, lambda: ev.score_batch(batch), tag, smi,
                              k2_names=names)
-                check_narrow_names(names, on_window, 0, tag, kind="window",
-                                   every=True)
+                check_narrow_names(names, on_window, 0, tag, every=True,
+                                   kind="window" if bf16 else "f32 window")
                 if on_window != per_batch:
                     raise AssertionError(f"{tag}: {per_batch} K2 launches, "
                                          f"{on_window} on the window body")
-                out["evaluate_window_bf16_window_launches"] = on_window
+                out[f"evaluate_window_{kind}_window_launches"] = on_window
             ms = time_ms(torch, lambda: ev.score_batch(batch), 3)
             key = (("window" if window else "global")
                    + ("_bf16" if bf16 else "_f32"))
@@ -4580,6 +4644,85 @@ def run_window_train(torch, smi: str, mods: dict) -> dict:
         f"{moved}/{len(before)} teacher tensors moved on {smi}")
     if moved == 0:
         raise AssertionError("window train: the teacher did not move")
+    return out
+
+
+def run_window_train_f32(torch, smi: str, mods: dict) -> dict:
+    """Phase 16 (c), f32: the train step at the CLIs' default precision
+    (mixed_precision off) at the full default width, 16 x 2, remat, dropout
+    0.1, --attn_window 256: a cold step, then one under torch.profiler (its
+    launches are the f32 window bodies' column of PERF.md's table): every
+    K2 forward on `flash_fwd_window_tf32` and every fused backward on
+    `flash_bwd_fused_tf32` (the bodies `window_default` takes there), by
+    the wrappers' counts and by name, none of the pre-pass, the f32
+    warpgroup bodies or `flash_fwd_tf32`; its host and device ms, idle
+    share, K2 ms by group and peak memory."""
+    from lunaris_orion_tpu_torch import TrainConfig
+    from lunaris_orion_tpu_torch.train.state import create_state
+    from lunaris_orion_tpu_torch.train.step import make_train_step
+    k2 = mods["k2"]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(mixed_precision=False, attn_window=WINDOW)
+    state = create_state(cfg, "cuda", 1)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    images = lambda: torch.randint(0, 256, (2, 16, 128, 128, 3),
+                                   dtype=torch.uint8, device="cuda",
+                                   generator=g)
+    step = make_train_step(cfg, remat=True)
+    batch = images()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    _counts(mods, reset=True)
+    others = (k2.split_launches, k2.tf32_wgmma_launches,
+              k2.bwd_tf32_wgmma_launches)
+    torch.cuda.reset_peak_memory_stats()
+    batch = images()
+    tag = f"train step f32 window {WINDOW} remat on"
+    names, groups = {}, {}
+    (_, m), host_s, k1_kernels, dev_ms = device_share(
+        torch, lambda: step(state, batch), tag, smi, k2_names=names,
+        groups=groups)
+    launches = _counts(mods)
+    check_k1_kernels(k1_kernels, launches["gn_mish"], tag)
+    # Every K2 forward of the step on the f32 window body, every fused
+    # backward on flash_bwd_fused_tf32: by the wrappers' counts and by name;
+    # no pre-pass, no f32 warpgroup body, no window backward.
+    check_narrow_names(names, launches["flash_attention_fwd_window"],
+                       launches["flash_attention_bwd_window"], tag,
+                       kind="f32 window")
+    by_name = lambda part: sum(c for n, c in names.items() if part in n)
+    moved = [b - a for a, b in zip(others, (
+        k2.split_launches, k2.tf32_wgmma_launches, k2.bwd_tf32_wgmma_launches))]
+    if (launches["flash_attention_fwd_window"],
+            launches["flash_attention_bwd_window"]) != (
+            launches["flash_attention_fwd"], 0) or any(moved) or min(
+            launches[key] for key in ("gn_mish", "flash_attention_fwd",
+                                      "flash_attention_bwd_fused",
+                                      "mse_kl")) <= 0 or by_name(
+            "flash_bwd_fused_tf32") != launches["flash_attention_bwd_fused"] \
+            or by_name("flash_fwd_tf32<") or by_name("wgmma_tf32"):
+        raise AssertionError(f"{tag}: K2 launches off the rule's bodies: "
+                             f"{launches}, by name {names}, pre-pass and f32 "
+                             f"warpgroup bodies {moved}")
+    losses = {k: float(v) for k, v in m.items()}
+    if not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"{tag}: non-finite {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k2_ms = {key: groups.get(key, 0.0) for key in ("K2 fwd", "K2 bwd fused")}
+    out = {"step_ms": host_s * 1e3, "step_sprites_s": 32 / host_s,
+           "step_device_ms": dev_ms, "cold_ms": cold * 1e3,
+           "step_idle": max(0.0, 1 - dev_ms / (host_s * 1e3)),
+           "step_peak_gib": peak, "k2_fwd_ms": k2_ms["K2 fwd"],
+           "k2_bwd_ms": k2_ms["K2 bwd fused"], "launches": launches}
+    log(f"[window train] {tag}: cold {cold * 1e3:.0f} ms; {host_s * 1e3:.0f} "
+        f"ms = {32 / host_s:.2f} sprites/s, device {dev_ms:.1f} ms (idle "
+        f"{out['step_idle']:.1%}), K2 forward {k2_ms['K2 fwd']:.1f} ms, "
+        f"backward {k2_ms['K2 bwd fused']:.1f} ms, peak {peak:.1f} GiB, "
+        f"total_loss {losses['total_loss']:.5f}; launches {launches} on {smi}")
     return out
 
 
@@ -5820,9 +5963,11 @@ PARITY_WINDOW_STEPS = 20     # (c) `tools.window_dynamics`: steps a mode
 PARITY_WINDOW_AGREE = 0.02   # (c) global against window: recon and KL at
                              # the last step, relative to the larger
 # The K2 instances a profiled step must launch: f32 on three TF32 passes
-# in (b), bf16 on the tensor cores in (c) (the fused backward is dk/dv's
-# body with the fused dq).
-PARITY_K2_F32 = ("flash_fwd_tf32", "flash_bwd_fused_tf32")
+# in (b) (mma.sync on the global calls at 32 px, N 1024; on the windowed
+# fold the f32 window forward and mma.sync's backward, `window_default`),
+# bf16 on the tensor cores in (c).
+PARITY_K2_F32 = {0: ("flash_fwd_tf32", "flash_bwd_fused_tf32"),
+                 WINDOW: ("flash_fwd_window_tf32", "flash_bwd_fused_tf32")}
 # bf16 at d 16: the narrow warpgroup bodies on the global calls, the window
 # bodies on the windowed fold (`flash_attention.window_shape`).
 PARITY_K2_BF16 = {0: ("flash_fwd_wgmma_narrow", "flash_bwd_wgmma_narrow"),
@@ -5880,7 +6025,7 @@ def _parity_curve_run(torch, smi: str, mods: dict, preset: str,
         if i == 1:
             launches = _parity_step(
                 torch, run, i, f"parity {name} step 2", smi, mods,
-                PARITY_K2_F32 if preset != "vae" else ())
+                PARITY_K2_F32[window] if preset != "vae" else ())
         else:
             run.step(i)
     curves = run.curves()
@@ -6117,6 +6262,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         evaluate = timed("16 window", run_evaluate, torch, Path(tmp), smi)
         wstep = timed("16 window", run_window_train, torch, smi, mods)
+        wstep32 = timed("16 window", run_window_train_f32, torch, smi, mods)
         wtrainer = timed("16 window", run_window_trainer, torch, Path(tmp),
                          smi, mods)
     serving = timed("17 serve", run_serving, torch, Path(serve_dir.name), smi,
@@ -6292,6 +6438,29 @@ def main() -> int:
              readings=bwd["narrow"],
              sass={k: v for k, v in sass.items()
                    if k.startswith("bwd") and "window" not in k}),
+        # The f32 window bodies (f32 d 16 and 32 on the windowed fold, three
+        # TF32 passes split in the kernel): times at B16 H8 N16384 W256 d 16
+        # against the mma.sync bodies in turns, d 32's under `d32`; launches
+        # in phase 16's windowed f32 step and the forward's in a windowed f32
+        # evaluation batch; the step's readings under `step`.
+        *(dict(name=f"flash_attention_{x}_window_tf32", route="cuda",
+               source=src + "flash_attention_window_tf32.cuh",
+               replaces=f"{fa}:{line}",
+               instances=[src + f"flash_attention_{x}_window_tf32_d{d}{y}.cu"
+                          for d in (16, 32) for y in ("", "_drop")],
+               launches=wstep32["launches"][f"flash_attention_{x}_window"],
+               **({"launches_evaluate":
+                   evaluate["evaluate_window_f32_window_launches"]}
+                  if x == "fwd" else {}),
+               **window[f"window_{x}"]["f32_d16"],
+               d32=window[f"window_{x}"]["f32_d32"], earlier_body=earlier,
+               step={k: v for k, v in wstep32.items() if k != "launches"},
+               sass={k: v for k, v in sass.items()
+                     if k.startswith(f"{x} f32 window")})
+          for x, line, earlier in (
+              ("fwd", 335, "flash_fwd_tf32 (mma.sync, three TF32 passes)"),
+              ("bwd", 574, "flash_bwd_fused_tf32 (mma.sync) with the call's "
+                           "delta, zeroed f32 dq buffer and cast"))),
         # The window bodies (bf16 d 16 and 32 on the windowed fold): times
         # at B16 H8 N16384 W256 d 16 (phase 16 (a)), each against the
         # mma.sync body it replaced in turns, beside the plain version, SDPA

@@ -38,8 +38,9 @@
 // narrow descriptor `kNarrowDescHi<16>`, for A and B alike), and [rows][32]
 // f32 atoms, four k-steps a row of 128 bytes with the 128-byte swizzle
 // (`kSw128DescHi`; a k-step 32 bytes further on within the row, the next
-// atom after the last). `wgmma_tf32_rs` / `wgmma_tf32_ss` take n 32, 48
-// and 64 for their widths.
+// atom after the last). `wgmma_tf32_rs` / `wgmma_tf32_ss` take n 16, 32, 48
+// and 64 for their widths. The f32 window bodies split in the kernel, from
+// f32 tiles that TMA lands with the swizzle of their row (`f32_row_tile_map`).
 
 #pragma once
 
@@ -204,6 +205,32 @@ inline bool bf16_narrow_tile_map(CUtensorMap* map, const void* base, int BH,
                 const_cast<void*>(base), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An f32 [BH, N, D] tensor (D 16 or 32, rows contiguous) as a 3-D tensor map
+// whose box is `rows` rows of one BH row, D columns wide, with the swizzle
+// whose span is the row (64 bytes at D 16, 128 at D 32): byte for byte the
+// layout of a bf16 tile twice as wide, so wgmma reads it K-major as such
+// (the f32 window bodies, flash_attention_window_tf32.cuh). Rows past N
+// arrive as zeros. False when cuTensorMapEncodeTiled refuses it.
+inline bool f32_row_tile_map(CUtensorMap* map, const void* base, int BH, int N,
+                             int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || (D != 16 && D != 32)) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 4,
+                                 static_cast<cuuint64_t>(N) * D * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -654,16 +681,17 @@ __device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The same by n: 32, 48 and 64 (the head sizes of the wide f32 bodies), and
-// 16 (A from shared memory only).
+// The same by n: 16, 32, 48 and 64 (the head sizes of the f32 bodies, and
+// the window bodies' query sub-tiles).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b, int scale_d) {
   if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, b, scale_d);
   else if constexpr (N == 48) wgmma_tf32_rs_n48(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_tf32_rs_n16(d, a, b, scale_d);
   else {
-    static_assert(N == 32, "wgmma_tf32_rs: n 32, 48 or 64");
+    static_assert(N == 32, "wgmma_tf32_rs: n 16, 32, 48 or 64");
     wgmma_tf32_rs_n32(d, a, b, scale_d);
   }
 }

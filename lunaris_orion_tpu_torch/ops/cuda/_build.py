@@ -75,12 +75,14 @@ SIGNATURES = {
     "lunaris_k2_bwd_wgmma_tf32_smem_bytes": (_I,),
     "lunaris_k2_fwd_wgmma_tf32_rows": (_I,),
     "lunaris_k2_bwd_wgmma_tf32_keys": (_I,),
-    "lunaris_k2_window_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                              _U, _F, _U, _I, _I, _P),
+    "lunaris_k2_window_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _I, _U, _F, _U, _I, _I, _P),
     "lunaris_k2_window_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _F, _I, _U, _F, _U, _I, _I, _P),
+                              _I, _I, _I, _I, _F, _I, _U, _F, _U, _I, _I, _P),
     "lunaris_k2_window_fwd_smem_bytes": (_I,),
     "lunaris_k2_window_bwd_smem_bytes": (_I,),
+    "lunaris_k2_window_tf32_fwd_smem_bytes": (_I,),
+    "lunaris_k2_window_tf32_bwd_smem_bytes": (_I,),
 }
 
 

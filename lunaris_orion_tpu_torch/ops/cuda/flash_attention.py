@@ -26,16 +26,23 @@ other device and never falls back.
                     in three TF32 passes a product on key tiles that a
                     pre-pass (`tf32_tiles`) split into hi and lo and laid
                     out as wgmma reads them;
-            "window" bf16 at d 16 and 32 where Nq = Nk = W, a multiple of
-                    64 up to WINDOW_MAX (the windowed fold, `window_shape`):
-                    flash_fwd_window (`csrc/flash_attention_window.cuh`),
-                    a persistent block whose two warpgroups take a window
-                    each, Q, K and V of the next one loaded by TMA while
-                    they compute this one, the softmax exact in one pass
-                    over all W keys (wgmma for q k^T and p v);
-            "mma"   d 16, 32, 48, 64 where Nq or Nk is short (f32 at
-                    each, bf16 at d 16 and 32 off the window shapes; bf16
-                    at 48 and 64 by `body="mma"`): both products on the
+            "window" bf16 and f32 at d 16 and 32 where Nq = Nk = W, a
+                    multiple of 64 up to WINDOW_MAX (the windowed fold,
+                    `window_shape`; f32 by default where it was faster,
+                    `window_default`): bf16 flash_fwd_window
+                    (`csrc/flash_attention_window.cuh`), a persistent block
+                    whose two warpgroups take a window each, Q, K and V of
+                    the next one loaded by TMA while they compute this one,
+                    the softmax exact in one pass over all W keys (wgmma for
+                    q k^T and p v); f32 flash_fwd_window_tf32
+                    (`csrc/flash_attention_window_tf32.cuh`), the same walk
+                    with each window's f32 q, K and V landed by TMA and split
+                    into TF32 hi and lo inside the kernel (no pre-pass), every
+                    product in three TF32 passes on wgmma;
+            "mma"   d 16, 32, 48, 64 where Nq or Nk is short off the window
+                    shapes (f32 at each, bf16 at d 16 and 32; the f32 fold at
+                    48 and 64; bf16 at 48 and 64 by `body="mma"`): both
+                    products on the
                     tensor cores, p kept in registers between them: bf16 on
                     mma.sync m16n8k16; f32 on m16n8k8 tf32 in three passes
                     (hi and lo of each operand: a_lo b_hi + a_hi b_lo +
@@ -65,8 +72,10 @@ other device and never falls back.
                      every shape),
                      "window" for bf16 at d 16 and 32 on the window shapes
                      (flash_bwd_window: a window whole in one warpgroup,
-                     delta in the kernel, dq written once in bf16: no f32
-                     buffer, no atomics, the same bits on every run),
+                     delta in the kernel, dq written once: no f32 buffer, no
+                     atomics, the same bits on every run; f32
+                     flash_bwd_window_tf32 the same in three TF32 passes,
+                     no pre-pass, by `body="window"`: slower than mma.sync),
                      "mma" at d 16 and 32 where the rows are short
                      (five products on the tensor cores; f32 in three TF32
                      passes), "simt" at d 8;
@@ -98,8 +107,8 @@ count the kernel launches; the plain versions do not count.
 of the warpgroup bodies, `narrow_launches` and `bwd_narrow_launches`,
 among those, the narrow ones (bf16 d 16 and 32), and `tf32_wgmma_launches` and
 `bwd_tf32_wgmma_launches` the f32 ones (d 16, 32, 48, 64). `window_launches`
-and `bwd_window_launches` count the window bodies' launches (not among the
-warpgroup counts). `split_launches` counts the
+and `bwd_window_launches` count the window bodies' launches, bf16 and f32
+(not among the warpgroup counts). `split_launches` counts the
 launches of the f32 bodies' pre-pass (`tf32_tiles`): one a forward, two a
 backward.
 `shard_launches` and `bwd_shard_launches` count, among them, the forward
@@ -146,8 +155,12 @@ NARROW_HEAD_DIMS = (16, 32)          # of those, the narrow bodies' (rows of 32,
 # those short rows where the window bodies do not take them (Nq != Nk,
 # or N not a multiple of 64 up to WINDOW_MAX).
 NARROW_MIN_ROWS = {16: 2048, 32: 512}
-# The window bodies (flash_fwd_window, flash_bwd_window): bf16 at these head
-# sizes on Nq = Nk = W, W a multiple of WINDOW_STEP up to WINDOW_MAX.
+# The window bodies (bf16: flash_fwd_window, flash_bwd_window; f32:
+# flash_fwd_window_tf32, flash_bwd_window_tf32, three TF32 passes split in
+# the kernel): both types at these head sizes on Nq = Nk = W, W a multiple
+# of WINDOW_STEP up to WINDOW_MAX (`window_shape`), the default where
+# `window_default` says. The f32 fold at d 48 and 64 keeps its global
+# bodies (mma.sync forward, warpgroup backward).
 WINDOW_HEAD_DIMS = (16, 32)
 WINDOW_MAX = 256
 WINDOW_STEP = 64
@@ -156,9 +169,10 @@ TF32_WGMMA_HEAD_DIMS = (16, 32, 48, 64)  # the f32 warpgroup bodies' (three TF32
 # pre-pass and set-up are not paid back, and the fused backward's at
 # TF32_WGMMA_BWD_MIN_ROWS (chip_smoke.py phases 4 and 7 time both bodies in
 # turns at N 256 to 4096; PERF.md section 6): mma.sync takes the short rows
-# at d 16 and 32. At d 48 and 64 the backward's warpgroup body beats the
-# CUDA-core one it replaced at every N measured, N 256 (the windowed fold)
-# included.
+# at d 16 and 32 (on the windowed fold where the f32 window bodies are not
+# the default, `window_default`). At d 48 and 64 the backward's
+# warpgroup body beats the CUDA-core one it replaced at every N measured,
+# N 256 (the windowed fold) included.
 TF32_WGMMA_MIN_ROWS = {16: 2048, 32: 2048, 48: 1024, 64: 1024}
 TF32_WGMMA_BWD_MIN_ROWS = {16: 2048, 32: 2048, 48: 0, 64: 0}
 # The f32 warpgroup forward's query rows a block and the fused backward's
@@ -316,8 +330,9 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rescaled p rounded to dO's dtype before the dv product; dbias from the
     unrounded f32 ds, summed over the batch; delta = rowsum(f32(o) f32(dO)).
     dq carries the d^-1/2 factor of the scaling inside the forward. It is
-    the plain twin of every fused backward body, the window one
-    (flash_bwd_window, which forms delta and writes dq itself) included.
+    the plain twin of every fused backward body, the window ones
+    (flash_bwd_window, flash_bwd_window_tf32, which form delta and write dq
+    themselves) included.
     Returns (dq, dk, dv in the inputs' dtype, dbias [H, Nk] f32)."""
     _check_shapes(q, k, v, bias)
     b, h, nq, d = q.shape
@@ -634,9 +649,9 @@ def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
     forward) takes where its rows are short, else None (the default of
     `_body`): the narrow warpgroup bodies (bf16) start a producer, a ring
     and their barriers per block, and the f32 ones a pre-pass as well,
-    which short rows (a 32 px model, a short q shard; in f32 the windowed
-    fold, Nq = Nk = the window) do not pay back. bf16 on a window shape
-    (`window_shape`) takes the window bodies ahead of this rule
+    which short rows (a 32 px model, a short q shard, the f32 fold at d 48
+    and 64) do not pay back. A window shape (`window_shape`) takes the
+    window bodies ahead of this rule where `window_default` says
     (`_window_body`). Elsewhere both types keep mma.sync: bf16 under
     NARROW_MIN_ROWS[d], f32's forward under TF32_WGMMA_MIN_ROWS[d] and its
     fused backward (`backward`) under TF32_WGMMA_BWD_MIN_ROWS[d] (0 at d 48
@@ -651,26 +666,43 @@ def _short_rows_body(dtype: torch.dtype, d: int, nq: int, nk: int,
 
 
 def window_shape(dtype: torch.dtype, d: int, nq: int, nk: int) -> bool:
-    """Whether the window bodies take a call: bf16 at d in WINDOW_HEAD_DIMS,
-    Nq = Nk = W with W a multiple of WINDOW_STEP up to WINDOW_MAX (the
-    windowed fold at windows 64, 128, 192 and 256)."""
-    return (dtype == torch.bfloat16 and d in WINDOW_HEAD_DIMS and nq == nk
-            and nk % WINDOW_STEP == 0 and 0 < nk <= WINDOW_MAX)
+    """Whether the window bodies take a call: bf16 or f32 at d in
+    WINDOW_HEAD_DIMS, Nq = Nk = W with W a multiple of WINDOW_STEP up to
+    WINDOW_MAX (the windowed fold at windows 64, 128, 192 and 256)."""
+    return (dtype in (torch.bfloat16, torch.float32) and d in WINDOW_HEAD_DIMS
+            and nq == nk and nk % WINDOW_STEP == 0 and 0 < nk <= WINDOW_MAX)
+
+
+def window_default(dtype: torch.dtype, d: int, dropout_rate: float,
+                   backward: bool = False) -> bool:
+    """Whether a window shape takes the window body by default: where it was
+    faster in turns than the mma.sync body it replaced, on an H100 at B16
+    H8 N16384 W256 (chip_smoke.py phase 16 (a); PERF.md section 6). bf16:
+    forward and fused backward at d 16 and 32. f32: the forward at d 16,
+    and at d 32 without dropout (with it mma.sync was faster); the fused
+    backward nowhere (its window body ran a fifth slower than
+    flash_bwd_fused_tf32), which `body="window"` still reaches."""
+    if dtype == torch.bfloat16:
+        return True
+    return not backward and (d == 16 or dropout_rate == 0.0)
 
 
 def _window_body(name: str, dtype: torch.dtype, d: int, nq: int, nk: int,
-                 body: str | None) -> bool:
+                 body: str | None, dropout_rate: float,
+                 backward: bool = False) -> bool:
     """Whether a call takes the window body: by default on every window
-    shape; `body="window"` asks for it and raises off those shapes. Any
-    other `body` (say "mma", for turns against the body it replaced) goes
-    to `_body`."""
+    shape where `window_default` says so; `body="window"` asks for it and
+    raises off those shapes. Any other `body` (say "mma", for turns against
+    the body it replaced) goes to `_body`."""
     if body == "window" and not window_shape(dtype, d, nq, nk):
         raise ValueError(
-            f"{name}: body 'window' takes bf16 at d in {WINDOW_HEAD_DIMS} "
+            f"{name}: body 'window' takes bf16 or f32 at d in "
+            f"{WINDOW_HEAD_DIMS} "
             f"with Nq = Nk a multiple of {WINDOW_STEP} up to {WINDOW_MAX} "
             f"(got {dtype}, d {d}, Nq {nq}, Nk {nk})")
-    return body == "window" or (body is None
-                                and window_shape(dtype, d, nq, nk))
+    return body == "window" or (
+        body is None and window_shape(dtype, d, nq, nk)
+        and window_default(dtype, d, dropout_rate, backward))
 
 
 class ForwardInstance(NamedTuple):
@@ -708,12 +740,13 @@ def forward_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     other head sizes of those bodies have one instance each, which masks
     the last key tile and reads the dropout flag at run time. Nq only sets
     the grid: every instance guards the rows past it. Ahead of all that,
-    bf16 at d 16 and 32 on Nq = Nk = W (`window_shape`: the windowed fold)
-    takes the window body ("window": a window of W queries a step of a
-    persistent block, its one key tile the whole window, so `block_k` and
-    `rows` are W; dropout compiled in or out); `body="mma"` still reaches
-    the mma.sync body it replaced there."""
-    if _window_body("flash_attention", dtype, d, nq, nk, body):
+    bf16 and f32 at d 16 and 32 on Nq = Nk = W (`window_shape`: the
+    windowed fold) take the window bodies ("window": a window of W queries
+    a step of a persistent block, its one key tile the whole window, so
+    `block_k` and `rows` are W; dropout compiled in or out; f32 in three
+    TF32 passes, split in the kernel), by default where `window_default`
+    says; `body` reaches either there."""
+    if _window_body("flash_attention", dtype, d, nq, nk, body, dropout_rate):
         return ForwardInstance("window", d, nk, nq, 1,
                                "on" if dropout_rate > 0.0 else "off", False)
     body = _body("flash_attention", dtype, d, MMA_HEAD_DIMS,
@@ -759,8 +792,9 @@ def forward_kernel(q, k, v, bias, *, dropout_rate: float = 0.0, seed: int = 0,
         lse = torch.empty(b * h, nq, device=q.device, dtype=torch.float32)
         err = _build.library().lunaris_k2_window_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b * h, h, nq, d, scale, *drop,
-            seed & _M32, q_offset, row_offset,
+            o.data_ptr(), lse.data_ptr(), b * h, h, nq, d,
+            int(q.dtype == torch.bfloat16), scale, *drop, seed & _M32,
+            q_offset, row_offset,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention (window)")
         launches += 1
@@ -889,8 +923,11 @@ def fused_instance(dtype: torch.dtype, d: int, nq: int, nk: int,
     tile and reads the dropout flag at run time. Ahead of all that, bf16 at
     d 16 and 32 on Nq = Nk = W (`window_shape`) takes the window body
     ("window": W keys and W queries in one warpgroup, dropout compiled in
-    or out); `body="mma"` still reaches the mma.sync body it replaced."""
-    if _window_body("flash_attention_bwd", dtype, d, nq, nk, body):
+    or out), and f32 there by `body="window"` (three TF32 passes, split in
+    the kernel; `window_default`); `body="mma"` still reaches the mma.sync
+    body each replaced."""
+    if _window_body("flash_attention_bwd", dtype, d, nq, nk, body,
+                    dropout_rate, backward=True):
         return FusedInstance("window", d, nq, nk, 1,
                              "on" if dropout_rate > 0.0 else "off", False)
     body = _body("flash_attention_bwd", dtype, d, MMA_FUSED_HEAD_DIMS,
@@ -963,7 +1000,8 @@ def launch_bwd_kernel(kernel: int, q, k, v, bias, do, lse, delta, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dbias_bh.data_ptr(), b * h, h, nq,
-            d, scale, *drop, seed & _M32, q_offset, row_offset,
+            d, int(q.dtype == torch.bfloat16), scale, *drop, seed & _M32,
+            q_offset, row_offset,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention_bwd (window)")
         bwd_shard_launches += q_offset > 0

@@ -7,7 +7,8 @@ batch 8 (one micro-batch, f32, dropout 0) at the `hybrid_d16` preset
 (32 px; the JAX tool's widths with feature_dim 64, so that the teacher's
 attention runs at head size 16, which K2 compiles). On a card the step
 launches K1, K3 and K2 (f32: `flash_fwd_tf32` and `flash_bwd_fused_tf32`;
-with `--attn_window 256` over the four folded windows of 256 tokens).
+with `--attn_window 256` the f32 window bodies `flash_fwd_window_tf32` and
+`flash_bwd_window_tf32` over the four folded windows of 256 tokens).
 Modes as in `parity_curves`: deterministic (z = mu, `deterministic_z`)
 and sampled (the port's generator, seeded 7). The seven metrics of the
 JAX tool are held to the committed JAX curves of the same run.

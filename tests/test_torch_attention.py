@@ -173,8 +173,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     # at the serving batch and in training, a ragged N, a q shard),
     # mma.sync's one run-time instance on short rows (the windowed fold);
     # f32 its own warpgroup body (192 rows, the pre-pass's key tiles of 64)
-    # on long rows, mma.sync's on short ones (a ragged 2000, the fold); the
-    # bf16 fold takes the window body
+    # on long rows, mma.sync's on short ones (a ragged 2000); the fold takes
+    # the window body in bf16, in f32 at d 16 and at d 32 without dropout
+    # (`window_default`: where it was faster)
     (BF16, 32, 16384, 16384, 0.0, ("wgmma", 64, 192, 86, "off", False)),
     (BF16, 32, 16384, 16384, 0.1, ("wgmma", 64, 192, 86, "on", False)),
     (BF16, 32, 4096, 4096, 0.1, ("wgmma", 64, 192, 22, "on", False)),
@@ -190,10 +191,17 @@ BF16, F32 = torch.bfloat16, torch.float32
     (F32, 32, 4096, 16384, 0.0, ("wgmma", 64, 192, 22, "off", False)),
     (F32, 32, 2100, 2100, 0.1, ("wgmma", 64, 192, 11, "on", True)),
     (F32, 32, 256, 256, 0.1, ("mma", 64, 64, 4, "runtime", True)),
+    (F32, 32, 64, 64, 0.0, ("window", 64, 64, 1, "off", False)),
+    (F32, 16, 256, 256, 0.0, ("window", 256, 256, 1, "off", False)),
+    (F32, 16, 192, 192, 0.1, ("window", 192, 192, 1, "on", False)),
+    (F32, 16, 320, 320, 0.1, ("mma", 64, 128, 3, "on", False)),
+    (F32, 48, 256, 256, 0.1, ("mma", 32, 64, 4, "runtime", True)),
 ])
 def test_forward_instance(dtype, d, nq, nk, rate, want):
     """The kernel instance is a pure function of (dtype, d, Nq, Nk,
-    dropout): bf16 at d 16 and 32 on the window shapes the window body,
+    dropout): bf16 and f32 at d 16 and 32 on the window shapes the window
+    bodies where `window_default` says (f32 at d 32 with dropout and at d
+    48 keep mma.sync there),
     bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 and
     f32 at d 16, 32, 48 and 64 (unless Nq or Nk is short) take the
     warpgroup bodies, d 16, 32 (and f32 at 48, 64) the tensor cores on
@@ -256,49 +264,66 @@ def test_forward_instance_body_argument():
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("w", [64, 128, 192, 256])
 @pytest.mark.parametrize("d", [16, 32])
-def test_window_bodies_take_the_fold(d, w, rate):
-    """bf16 at d 16 and 32 with Nq = Nk = W, W a multiple of 64 up to 256
-    (the windowed fold at windows 64, 128, 192 and 256) takes the window
-    bodies: the forward with one key block of W (the plain twin's
-    `block_k`), a window a step of a persistent block, dropout compiled in
-    or out; the fused backward with the window's W keys and W queries in
-    one warpgroup, the fused variant by default. `body="mma"` still reaches
-    the mma.sync bodies they replaced, for the turns on the card; the split
-    backward keeps its mma.sync pair. Their launches have counters of their
-    own; a CPU tensor takes the plain versions and counts nothing."""
-    assert k2.window_shape(BF16, d, w, w)
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_window_bodies_take_the_fold(d, w, rate, dtype):
+    """bf16 and f32 at d 16 and 32 with Nq = Nk = W, W a multiple of 64 up
+    to 256 (the windowed fold at windows 64, 128, 192 and 256) reach the
+    window bodies (f32: three TF32 passes, split in the kernel): the
+    forward with one key block of W (the plain twin's `block_k`), a window
+    a step of a persistent block, dropout compiled in or out; the fused
+    backward with the window's W keys and W queries in one warpgroup.
+    They are the default where they were faster in turns on the card
+    (`window_default`): bf16 both; f32 the forward at d 16, and at d 32
+    without dropout, not the backward. The fused variant is the default
+    backward. `body` reaches either body, for the turns on the card; the
+    split backward keeps its pair (bf16 mma.sync, f32 the CUDA cores).
+    Their launches have counters of their own (f32's none of the pre-pass
+    or the f32 warpgroup bodies); a CPU tensor takes the plain versions
+    and counts nothing."""
+    assert k2.window_shape(dtype, d, w, w)
     on = "on" if rate else "off"
-    assert k2.forward_instance(BF16, d, w, w, rate) == k2.ForwardInstance(
-        "window", d, w, w, 1, on, False)
-    assert k2.fused_instance(BF16, d, w, w, rate) == k2.FusedInstance(
-        "window", d, w, w, 1, on, False)
-    assert k2.forward_instance(BF16, d, w, w, rate, body="window") == \
-        k2.forward_instance(BF16, d, w, w, rate)
-    assert k2.default_bwd(BF16, d) == "fused"
-    assert k2.forward_instance(BF16, d, w, w, rate, body="mma").body == "mma"
-    assert k2.fused_instance(BF16, d, w, w, rate, body="mma").body == "mma"
-    assert k2.backward_instance(BF16, d, w, w, rate).body == "mma"
+    fwd_default = dtype == BF16 or d == 16 or rate == 0.0
+    assert k2.window_default(dtype, d, rate) == fwd_default
+    assert k2.window_default(dtype, d, rate, backward=True) == (dtype == BF16)
+    window_fwd = k2.ForwardInstance("window", d, w, w, 1, on, False)
+    window_bwd = k2.FusedInstance("window", d, w, w, 1, on, False)
+    assert k2.forward_instance(dtype, d, w, w, rate, body="window") == \
+        window_fwd
+    assert k2.fused_instance(dtype, d, w, w, rate, body="window") == \
+        window_bwd
+    assert (k2.forward_instance(dtype, d, w, w, rate) == window_fwd) == \
+        fwd_default
+    assert (k2.fused_instance(dtype, d, w, w, rate) == window_bwd) == \
+        (dtype == BF16)
+    assert k2.default_bwd(dtype, d) == "fused"
+    assert k2.forward_instance(dtype, d, w, w, rate, body="mma").body == "mma"
+    assert k2.fused_instance(dtype, d, w, w, rate, body="mma").body == "mma"
+    assert k2.backward_instance(dtype, d, w, w, rate).body == (
+        "mma" if dtype == BF16 else "simt")
     with pytest.raises(ValueError, match="does not take"):
-        k2.backward_instance(BF16, d, w, w, rate, body="window")
-    counts = (k2.window_launches, k2.bwd_window_launches, k2.launches)
-    q, k, v, bias = (t.to(BF16) for t in _t(*_qkvb(1, 2, w, w, d, seed=w)))
+        k2.backward_instance(dtype, d, w, w, rate, body="window")
+    counts = (k2.window_launches, k2.bwd_window_launches, k2.launches,
+              k2.split_launches, k2.tf32_wgmma_launches)
+    q, k, v, bias = (t.to(dtype) for t in _t(*_qkvb(1, 2, w, w, d, seed=w)))
     q.requires_grad_()
     o, _ = k2.flash_attention(q, k, v, bias.float(), dropout_rate=rate,
                               seed=3)
     o.float().sum().backward()
     assert torch.isfinite(q.grad.float()).all()
-    assert (k2.window_launches, k2.bwd_window_launches, k2.launches) == counts
+    assert (k2.window_launches, k2.bwd_window_launches, k2.launches,
+            k2.split_launches, k2.tf32_wgmma_launches) == counts
 
 
 @pytest.mark.parametrize("dtype,d,nq,nk", [
     (BF16, 16, 32, 32), (BF16, 16, 320, 320), (BF16, 32, 512, 512),
-    (BF16, 16, 256, 128), (BF16, 32, 64, 256), (F32, 16, 256, 256),
-    (F32, 32, 64, 64), (BF16, 48, 256, 256), (BF16, 64, 128, 128),
-    (BF16, 8, 256, 256)])
+    (BF16, 16, 256, 128), (BF16, 32, 64, 256), (F32, 48, 256, 256),
+    (F32, 64, 64, 64), (BF16, 48, 256, 256), (BF16, 64, 128, 128),
+    (BF16, 8, 256, 256), (F32, 16, 320, 320), (F32, 32, 256, 512),
+    (F32, 16, 32, 32), (F32, 8, 256, 256)])
 def test_window_bodies_leave_other_shapes(dtype, d, nq, nk):
     """Every other shape takes what it took before the window bodies: a
     window under 64 or over 256 or not a multiple of 64, unequal Nq and Nk,
-    f32, and bf16 at d 8, 48 and 64. `body="window"` refuses them."""
+    and both types at d 8, 48 and 64. `body="window"` refuses them."""
     assert not k2.window_shape(dtype, d, nq, nk)
     for rule in (k2.forward_instance, k2.fused_instance):
         assert rule(dtype, d, nq, nk, 0.1).body != "window"
@@ -373,9 +398,11 @@ def test_narrow_bodies_at_the_default_width(nq, nk, rate):
     assert k2.backward_instance(BF16, 16, nq, nk, rate).body == "mma"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(BF16, 16, nq, nk, rate, body="wgmma")
-    # f32 has its own bodies at d 16, on its own threshold
+    # f32 has its own bodies at d 16, on its own threshold, and its own
+    # window forward on the fold (the backward keeps mma.sync there)
     f32 = "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[16] else "mma"
-    assert k2.forward_instance(F32, 16, nq, nk, rate).body == f32
+    assert k2.forward_instance(F32, 16, nq, nk, rate).body == (
+        "window" if k2.window_shape(F32, 16, nq, nk) else f32)
     assert k2.fused_instance(F32, 16, nq, nk, rate).body == f32
 
 
@@ -431,9 +458,12 @@ def test_narrow_bodies_at_the_low_end_width(nq, nk, rate):
     assert k2.backward_instance(BF16, 32, nq, nk, rate).body == "mma"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(BF16, 32, nq, nk, rate, body="wgmma")
-    for rule, rows in ((k2.forward_instance, k2.TF32_WGMMA_MIN_ROWS),
-                       (k2.fused_instance, k2.TF32_WGMMA_BWD_MIN_ROWS)):
+    for rule, rows, fold in (
+            (k2.forward_instance, k2.TF32_WGMMA_MIN_ROWS,
+             k2.window_shape(F32, 32, nq, nk) and rate == 0.0),
+            (k2.fused_instance, k2.TF32_WGMMA_BWD_MIN_ROWS, False)):
         assert rule(F32, 32, nq, nk, rate).body == (
+            "window" if fold else
             "wgmma" if min(nq, nk) >= rows[32] else "mma")
 
 
@@ -447,9 +477,11 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     where neither Nq nor Nk is shorter than TF32_WGMMA_MIN_ROWS[16]: the
     forward with three warpgroups of 64 rows on the pre-pass's key tiles of
     64, the fused backward with 128 keys a block and query tiles of 64, the
-    fused variant by default. Shorter rows (the windowed fold, N 256; a
-    32 px model, N 1024) keep the mma.sync bodies, which `body="mma"`
-    reaches at every shape, as `body="simt"` reaches the CUDA-core ones;
+    fused variant by default. The windowed fold (N 256) takes the f32
+    window forward (its backward keeps mma.sync, `window_default`); other
+    shorter rows (a 32 px model, N 1024) keep the mma.sync bodies, which
+    `body="mma"` reaches at every shape, as `body="simt"` reaches the
+    CUDA-core ones;
     f32 at d 32 follows its own thresholds, the split backward and bf16
     keep their bodies (d 32: `test_tf32_warpgroup_bodies_at_the_low_end_width`;
     d 48 and 64: `test_tf32_warpgroup_bodies_at_the_recipe_widths`)."""
@@ -464,6 +496,9 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
                                          nk % 64 != 0)
         assert bwd == k2.FusedInstance("wgmma", 16, 64, 128, -(-nk // 128),
                                        "on" if rate else "off", nq % 64 != 0)
+    elif k2.window_shape(F32, 16, nq, nk):
+        assert (fwd.body, fwd.block_k, fwd.rows) == ("window", nk, nq)
+        assert (bwd.body, bwd.block_q, bwd.rows) == ("mma", 64, 64)
     else:
         assert (fwd.body, fwd.block_k, fwd.rows) == ("mma", 64, 128)
         assert (bwd.body, bwd.block_q, bwd.rows) == ("mma", 64, 64)
@@ -478,7 +513,9 @@ def test_tf32_warpgroup_bodies_at_the_default_width(nq, nk, rate):
     assert k2.backward_instance(F32, 16, nq, nk, rate).body == "simt"
     with pytest.raises(ValueError, match="does not take"):
         k2.backward_instance(F32, 16, nq, nk, rate, body="wgmma")
+    fold = k2.window_shape(F32, 32, nq, nk) and rate == 0.0
     assert k2.forward_instance(F32, 32, nq, nk, rate).body == (
+        "window" if fold else
         "wgmma" if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[32] else "mma")
     assert k2.forward_instance(F32, 32, nq, nk, rate,
                                body="wgmma").body == "wgmma"
@@ -502,12 +539,13 @@ def test_tf32_warpgroup_bodies_at_the_low_end_width(nq, nk, rate):
     forward, TF32_WGMMA_BWD_MIN_ROWS[32] for the fused backward): the
     forward with TF32_WGMMA_ROWS[32] rows a block on the pre-pass's key
     tiles of 64, the fused backward with TF32_WGMMA_BWD_KEYS[32] keys a
-    block and query tiles of 64, dropout compiled in or out. Shorter rows
-    (the windowed fold, N 256; a short q shard) keep the mma.sync bodies
-    in both directions (64 rows a block, keys in tiles of 64; 64 keys a
-    block, query tiles of 32; one run-time instance each), which
-    `body="mma"` reaches at every shape; the split backward stays on the
-    CUDA cores."""
+    block and query tiles of 64, dropout compiled in or out. The windowed
+    fold (N 256) takes the f32 window forward without dropout
+    (`window_default`); with dropout, and other shorter rows (a short q
+    shard), keep the mma.sync bodies in both directions (64 rows a block,
+    keys in tiles of 64; 64 keys a block, query tiles of 32; one run-time
+    instance each), which `body="mma"` reaches at every shape; the split
+    backward stays on the CUDA cores."""
     assert 32 in k2.TF32_WGMMA_HEAD_DIMS and 32 in k2.MMA_FUSED_HEAD_DIMS
     fwd = k2.forward_instance(F32, 32, nq, nk, rate)
     bwd = k2.fused_instance(F32, 32, nq, nk, rate)
@@ -518,10 +556,14 @@ def test_tf32_warpgroup_bodies_at_the_low_end_width(nq, nk, rate):
     assert old_bwd == k2.FusedInstance("mma", 32, 32, 64, -(-nk // 64),
                                        "runtime", True)
     rows, keys = k2.TF32_WGMMA_ROWS[32], k2.TF32_WGMMA_BWD_KEYS[32]
+    fold = k2.window_shape(F32, 32, nq, nk) and rate == 0.0
     if min(nq, nk) >= k2.TF32_WGMMA_MIN_ROWS[32]:
         assert fwd == k2.ForwardInstance("wgmma", 32, 64, rows, -(-nq // rows),
                                          "on" if rate else "off",
                                          nk % 64 != 0)
+    elif fold:
+        assert fwd == k2.ForwardInstance("window", 32, nk, nq, 1,
+                                         "on" if rate else "off", False)
     else:
         assert fwd == old_fwd
     if min(nq, nk) >= k2.TF32_WGMMA_BWD_MIN_ROWS[32]:
@@ -529,7 +571,8 @@ def test_tf32_warpgroup_bodies_at_the_low_end_width(nq, nk, rate):
                                        "on" if rate else "off", nq % 64 != 0)
     else:
         assert bwd == old_bwd
-    # the teacher's N takes the warpgroup bodies, the windowed fold mma.sync
+    # the teacher's N takes the warpgroup bodies, the windowed fold at
+    # dropout 0.1 mma.sync
     assert (fwd.body, bwd.body) == (("wgmma", "wgmma") if min(nq, nk) >= 4096
                                     else ("mma", "mma") if max(nq, nk) <= 256
                                     else (fwd.body, bwd.body))

@@ -254,10 +254,15 @@ def test_backward_instance_body_argument():
     (F32, 32, 2000, 2000, 0.1, ("mma", 32, 64, 32, "runtime", True)),
     (F32, 32, 300, 2000, 0.0, ("mma", 32, 64, 32, "runtime", True)),
     # f32 at d 32 on long rows: its warpgroup body, 128 keys a block (two
-    # warpgroups); the windowed fold keeps mma.sync's run-time instance
+    # warpgroups); the windowed fold (d 16 and 32) keeps mma.sync's body,
+    # faster than the f32 window body (`window_default`)
     (F32, 32, 16384, 16384, 0.1, ("wgmma", 64, 128, 128, "on", False)),
     (F32, 32, 2100, 2048, 0.1, ("wgmma", 64, 128, 16, "on", True)),
     (F32, 32, 256, 256, 0.1, ("mma", 32, 64, 4, "runtime", True)),
+    (F32, 32, 128, 128, 0.0, ("mma", 32, 64, 2, "runtime", True)),
+    (F32, 16, 256, 256, 0.1, ("mma", 64, 64, 4, "on", False)),
+    (F32, 16, 64, 64, 0.0, ("mma", 64, 64, 1, "off", False)),
+    (F32, 16, 320, 320, 0.0, ("mma", 64, 64, 5, "off", False)),
     (F32, 64, 300, 300, 0.0, ("wgmma", 64, 64, 5, "off", True)),
     (F32, 8, 300, 300, 0.1, ("simt", 32, 128, 3, "runtime", True)),
     # f32 at d 48 and 64: its warpgroup body, 64 keys a block, at every
@@ -269,7 +274,8 @@ def test_backward_instance_body_argument():
 ])
 def test_fused_instance(dtype, d, nq, nk, rate, want):
     """The fused backward's instance is a pure function of (dtype, d, Nq,
-    Nk, dropout): bf16 at d 16 and 32 on the window shapes the window body,
+    Nk, dropout): bf16 at d 16 and 32 on the window shapes the window
+    body (f32 there keeps mma.sync, `window_default`),
     bf16 at d 16 and 32 (unless Nq or Nk is short), 48 and
     64 and f32 at d 16 and 32 (unless Nq or Nk is short), 48 and 64 take
     the warpgroup bodies,

@@ -365,7 +365,11 @@ def test_build_dir_tracks_source_content():
         "flash_attention_bwd_window_d16.cu",
         "flash_attention_bwd_window_d16_drop.cu",
         "flash_attention_bwd_window_d32.cu",
-        "flash_attention_bwd_window_d32_drop.cu", "flash_attention_fwd.cu",
+        "flash_attention_bwd_window_d32_drop.cu",
+        "flash_attention_bwd_window_tf32_d16.cu",
+        "flash_attention_bwd_window_tf32_d16_drop.cu",
+        "flash_attention_bwd_window_tf32_d32.cu",
+        "flash_attention_bwd_window_tf32_d32_drop.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_d32.cu", "flash_attention_fwd_mma.cu",
         "flash_attention_fwd_simt_bf16.cu", "flash_attention_fwd_simt_f32.cu",
         "flash_attention_fwd_simt_f32_wide.cu", "flash_attention_fwd_tf32.cu",
@@ -389,6 +393,10 @@ def test_build_dir_tracks_source_content():
         "flash_attention_fwd_window_d16_drop.cu",
         "flash_attention_fwd_window_d32.cu",
         "flash_attention_fwd_window_d32_drop.cu",
+        "flash_attention_fwd_window_tf32_d16.cu",
+        "flash_attention_fwd_window_tf32_d16_drop.cu",
+        "flash_attention_fwd_window_tf32_d32.cu",
+        "flash_attention_fwd_window_tf32_d32_drop.cu",
         "flash_attention_stages.cu", "flash_attention_tf32_split.cu",
         "flash_attention_window.cu", "fused_stage.cu", "fused_stage_mma.cu", "gn_mish.cu", "gn_stats.cu",
         "loss_epilogue.cu"]

@@ -394,43 +394,57 @@ def test_narrow_bodies_and_the_bodies_they_replaced(cuda, b, h, nq, nk,
 @pytest.mark.parametrize("w", [64, 192, 256])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("d", [16, 32])
-def test_window_bodies_match_plain(cuda, w, rate, d):
-    """bf16 on the windowed fold (Nq = Nk = W): the window forward against
-    the plain version's one-block form (`block_k=W`) at the tensor cores'
-    bar, the window backward (one launch, dq written by the kernel) against
-    the plain backward at its bar, every gradient the same bits on a second
-    run; the mma.sync bodies they replaced still reached by `body`; the
-    launches counted by the window counters. 3 rows of 2 images at
-    row_offset 5: windows on both of a block's consumer warpgroups."""
-    q, k, v, bias = _k2_inputs(cuda, 2, 3, w, w, d, torch.bfloat16,
-                               seed=w + d)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_window_bodies_match_plain(cuda, w, rate, d, dtype):
+    """bf16 and f32 on the windowed fold (Nq = Nk = W): the window forward
+    against the plain version (bf16: its one-block form, `block_k=W`, at the
+    tensor cores' bar; f32: 1e-5, three TF32 passes split in the kernel),
+    the window backward (one launch, dq written by the kernel) against the
+    plain backward at its bar, every gradient the same bits on a second run,
+    no f32 pre-pass; both reached by `body="window"` (the default where
+    `window_default` says), the mma.sync bodies they replaced by
+    `body="mma"`; the launches counted by the window counters. 3 rows of 2
+    images at row_offset 5: windows on both of a block's consumer
+    warpgroups."""
+    f32 = dtype == torch.float32
+    q, k, v, bias = _k2_inputs(cuda, 2, 3, w, w, d, dtype, seed=w + d)
     kw = dict(dropout_rate=rate, seed=-5, row_offset=5)
-    before = (k2.window_launches, k2.launches)
-    o, lse = k2.forward_kernel(q, k, v, bias, **kw)
+    before = (k2.window_launches, k2.launches, k2.split_launches)
+    o, lse = k2.forward_kernel(q, k, v, bias, body="window", **kw)
     torch.cuda.synchronize()
-    assert (k2.window_launches, k2.launches) == (before[0] + 1, before[1] + 1)
-    oo, olse = k2.attention_plain(q, k, v, bias, block_k=w, **kw)
-    _k2_bf16_close(o, oo, "window")
-    assert (lse - olse).abs().max().item() <= 1e-4
+    assert (k2.window_launches, k2.launches, k2.split_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    oo, olse = k2.attention_plain(q, k, v, bias, block_k=None if f32 else w,
+                                  **kw)
+    if f32:
+        assert (o - oo).abs().max().item() <= 1e-5
+        assert (lse - olse).abs().max().item() <= 1e-5
+    else:
+        _k2_bf16_close(o, oo, "window")
+        assert (lse - olse).abs().max().item() <= 1e-4
     old, _ = k2.forward_kernel(q, k, v, bias, body="mma", **kw)
-    _k2_bf16_close(old, k2.attention_plain(q, k, v, bias, block_k=64, **kw)[0],
-                   "mma")
+    if f32:
+        assert (old - oo).abs().max().item() <= 1e-5
+    else:
+        _k2_bf16_close(old, k2.attention_plain(q, k, v, bias, block_k=64,
+                                               **kw)[0], "mma")
     do = torch.randn_like(q)
     args = (q, k, v, bias, o, lse, do)
     ref = k2.attention_bwd_plain(*args, **kw)
-    before = (k2.bwd_window_launches, k2.bwd_fused_launches)
-    got = k2.flash_attention_bwd(*args, **kw)
+    before = (k2.bwd_window_launches, k2.bwd_fused_launches, k2.split_launches)
+    got = k2.flash_attention_bwd(*args, body="window", **kw)
     torch.cuda.synchronize()
-    assert (k2.bwd_window_launches, k2.bwd_fused_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (k2.bwd_window_launches, k2.bwd_fused_launches,
+            k2.split_launches) == (before[0] + 1, before[1] + 1, before[2])
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
-        _close(g, r, torch.bfloat16, name, "window")
-    again = k2.flash_attention_bwd(*args, **kw)
+        _close(g, r, dtype, name, "window")
+    again = k2.flash_attention_bwd(*args, body="window", **kw)
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, again):
         assert torch.equal(g, r), f"{name}: same bits every run"
     for name, g, r in zip(("dq", "dk", "dv", "dbias"), _bwd_fused(
             args, body="mma", **kw), ref):
-        _close(g, r, torch.bfloat16, name, "mma")
+        _close(g, r, dtype, name, "mma")
 
 
 @pytest.mark.gpu
